@@ -1,0 +1,129 @@
+"""Evaluation CLI of the PyTorch + CUDA port: checkpoint -> per-scene
+frame-level AUROC, with the flags of ``tools/evaluate.py`` (single process,
+swin backbone):
+
+  python tools/evaluate_torch.py --fused --predict \\
+      --test-data-path /data/test/frames --label-path /data/test/labels \\
+      [--ckpt log_dir/ckpt/ckpt_100.npz] \\
+      [--protocol stride1|nonoverlap|stride1_first_frame]
+
+``--ckpt`` takes a checkpoint written by the JAX package (``params/...``
+plus ``extras/batch_stats/...``); without it the model runs from its seeded
+init (seed 0).  ``--device cuda`` (the default) computes in bf16 and
+``--fused`` runs the hand-written kernels; it fails when no GPU is visible.
+``--device cpu`` computes in fp32 with the kernels' plain versions.
+Per-video anomaly-score curves go to ``--out`` (npz).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+
+from vadcl_tpu_torch.convert import load_jax_checkpoint
+from vadcl_tpu_torch.core.config import preset
+from vadcl_tpu_torch.core.dtypes import compute_dtype
+from vadcl_tpu_torch.eval.predict import (
+    eval_input_frames,
+    evaluate_videos,
+    make_video_scorer,
+)
+from vadcl_tpu_torch.models import VADModel
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="shanghaitech")
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--test-data-path", required=True)
+    ap.add_argument("--label-path", required=True)
+    ap.add_argument("--predict", action="store_true")
+    ap.add_argument("--protocol", default="stride1",
+                    choices=["stride1", "nonoverlap", "stride1_first_frame"])
+    ap.add_argument("--batch-windows", type=int, default=8)
+    ap.add_argument("--frame-num", type=int, default=4)
+    ap.add_argument("--image-size", type=int, default=0,
+                    help="override square eval resolution (must match training)")
+    ap.add_argument("--backbone", default="swin", choices=["swin"])
+    ap.add_argument("--fused", action="store_true",
+                    help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
+    ap.add_argument("--attn-kernel", default="auto", choices=["auto", "base", "fold"],
+                    help="fused attention kernel; auto = 'fold' when --fused")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cpu runs the kernels' plain versions in fp32")
+    ap.add_argument("--out", default="scores.npz")
+    args = ap.parse_args(argv)
+
+    cfg = preset(args.preset)
+    attn_kernel = args.attn_kernel
+    if attn_kernel == "auto":
+        attn_kernel = "fold" if args.fused else "base"
+    model_cfg = dataclasses.replace(
+        cfg.model, predict=args.predict, backbone=args.backbone,
+        fused_attention=args.fused, fused_cluster=args.fused,
+        attn_kernel=attn_kernel,
+    )
+    image_size = cfg.data.image_size
+    if args.image_size:
+        image_size = (args.image_size, args.image_size)
+        model_cfg = dataclasses.replace(
+            model_cfg,
+            cluster=dataclasses.replace(model_cfg.cluster, space_size=args.image_size // 8),
+        )
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda: no CUDA device is visible; pass --device cpu to "
+            "score on the CPU with the kernels' plain versions"
+        )
+    device = torch.device(args.device)
+    model = VADModel(model_cfg, compute_dtype(device), torch.Generator().manual_seed(0))
+    if args.ckpt:
+        load_jax_checkpoint(model, args.ckpt)
+        print(f"checkpoint: {args.ckpt} loaded (strict)")
+    model = model.to(device).eval()
+
+    scorer = make_video_scorer(
+        lambda clips: model(clips).recon,
+        frame_num=args.frame_num,
+        predict=args.predict,
+        batch_windows=args.batch_windows,
+        first_frame_quirk=args.protocol == "stride1_first_frame",
+        input_frames=eval_input_frames(args.backbone, args.predict, args.frame_num),
+        device=device,
+    )
+    # JPEG decoding lives in the JAX package's numpy/PIL data module, which
+    # imports no jax; only this CLI needs it
+    from vadcl_tpu.data import ClipDataset
+
+    ds = ClipDataset(
+        args.test_data_path, frame_num=args.frame_num, size=image_size,
+        label_root=args.label_path, istest=True,
+    )
+    proto = "stride1" if args.protocol == "stride1_first_frame" else args.protocol
+    auc, per_scene, per_video = evaluate_videos(
+        scorer, ds.iter_test_videos(), frame_num=args.frame_num,
+        predict=args.predict, protocol=proto,
+    )
+    for scene, a in sorted(per_scene.items()):
+        print(f"scene {scene}: AUC = {a:.4f}")
+    print(f"mean scene AUC = {auc:.4f}")
+    np.savez(
+        args.out,
+        **{
+            f"video{i}_{v.scene}": np.stack([v.scores, v.labels.astype(np.float64)])
+            for i, v in enumerate(per_video)
+        },
+    )
+    print("per-video score curves ->", args.out)
+    return auc
+
+
+if __name__ == "__main__":
+    main()

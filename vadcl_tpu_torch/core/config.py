@@ -1,0 +1,157 @@
+"""Typed configuration tree: the part of ``vadcl_tpu/core/config.py`` the
+scoring path needs, with the same field names and defaults.
+
+It is a copy, not an import: ``vadcl_tpu/core/__init__.py`` imports the jax
+mesh helpers, so importing ``vadcl_tpu.core.config`` would pull jax into this
+package.  ``tests/test_torch_port_eval.py`` guards the copy against drift.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ClusterConfig:
+    """Dual clustering heads (reference ``model/backbone.py:40-42``).
+
+    feature head:  K=1024 centers over 192-d tokens, alpha=16
+    spatial head:  per-channel, K=128 centers over 28*28 spatial maps, alpha=32
+    """
+
+    feature_clusters: int = 1024
+    feature_alpha: float = 16.0
+    space_clusters: int = 128
+    space_alpha: float = 32.0
+    space_size: int = 28  # spatial side of the latent grid the space head sees
+
+
+# The fused window-attention kernel families of the JAX package.  The port
+# implements "fold" (csrc/fold_attn.cu); the others are still to port and
+# raise NotImplementedError when a fused model is built with them.
+ATTN_KERNELS = frozenset(
+    {"base", "packed", "fold", "fold_block", "fold_packed", "fold_mix"}
+)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Hybrid Video-Swin-3D + I3D-Inception autoencoder (see the JAX
+    package's ``ModelConfig`` for the meaning of every field).  The port's
+    inference forward does not read ``remat``, the dropout rates,
+    ``subpixel_deconv`` (an exact re-lowering) or ``memory_*``; like the JAX
+    package's deterministic forward, its result does not depend on them."""
+
+    backbone: str = "swin"  # swin | unet3d | convae | convae_predict
+    in_channels: int = 3
+    embed_dim: int = 96
+    patch_size: Tuple[int, int, int] = (2, 4, 4)
+    encoder_depths: Tuple[int, ...] = (3, 6)
+    encoder_heads: Tuple[int, ...] = (6, 12)
+    decoder_depths: Tuple[int, ...] = (6, 3)
+    decoder_heads: Tuple[int, ...] = (12, 6)
+    window_size: Tuple[int, int, int] = (8, 7, 7)
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: Optional[float] = None
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    predict: bool = False  # next-frame prediction vs reconstruction decoder
+    use_cluster: bool = True
+    compactness: bool = True  # decode from cluster reconstruction (assign @ centers)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
+    remat: bool = False
+    fused_attention: bool = False  # hand-written fold attention + LN->MLP kernels
+    fused_cluster: bool = False  # hand-written cluster-assign / space-loss kernels
+    attn_kernel: str = "base"
+    subpixel_deconv: bool = False
+    memory_size: int = 10
+    memory_dim: int = 512
+
+    def __post_init__(self):
+        if self.fused_attention and self.attn_drop_rate > 0.0:
+            raise ValueError(
+                "fused_attention=True has no attention-dropout path; set "
+                "attn_drop_rate=0 or fused_attention=False "
+                f"(got attn_drop_rate={self.attn_drop_rate})"
+            )
+        if self.attn_kernel not in ATTN_KERNELS:
+            raise ValueError(
+                f"unknown attn_kernel {self.attn_kernel!r}; valid kernels: "
+                f"{sorted(ATTN_KERNELS)}"
+            )
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Clip dataset semantics (reference ``dataset/utils_dataset.py:55-148``)."""
+
+    name: str = "shanghaitech"
+    data_path: str = ""
+    test_data_path: str = ""
+    label_path: str = ""
+    frame_num: int = 4
+    image_size: Tuple[int, int] = (224, 224)
+    num_workers: int = 8
+    prefetch: int = 2
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Scoring protocols: "stride1" or "nonoverlap" sliding windows per whole
+    test video; per-frame PSNR -> per-video min-max anomaly score ->
+    per-scene-averaged AUROC."""
+
+    protocol: str = "stride1"
+    batch_windows: int = 8  # windows batched per device step
+
+
+@dataclass(frozen=True)
+class Config:
+    """The slice of the JAX ``Config`` tree that scoring reads."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    seed: int = 0
+    batch_size_per_device: int = 4
+    bf16: bool = True  # bf16 compute / fp32 params+reductions
+
+    def replace(self, **kw: Any) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+_PRESETS: Dict[str, Dict[str, Any]] = {
+    "shanghaitech": dict(
+        data=DataConfig(name="shanghaitech", frame_num=4),
+    ),
+    # tiny synthetic config used by tests
+    "tiny": dict(
+        model=ModelConfig(
+            embed_dim=32,
+            encoder_depths=(1, 1),
+            encoder_heads=(2, 4),
+            decoder_depths=(1, 1),
+            decoder_heads=(4, 2),
+            window_size=(8, 7, 7),
+            cluster=ClusterConfig(
+                feature_clusters=16, space_clusters=8, space_size=7
+            ),
+        ),
+        data=DataConfig(name="tiny", frame_num=4, image_size=(56, 56)),
+        batch_size_per_device=2,
+    ),
+}
+
+
+def preset(name: str, **overrides: Any) -> Config:
+    """Build a Config from a named per-dataset preset."""
+    if name not in _PRESETS:
+        raise KeyError(f"unknown preset {name!r}; have {sorted(_PRESETS)}")
+    cfg = Config(**_PRESETS[name])
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg

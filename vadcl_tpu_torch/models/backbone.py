@@ -1,0 +1,109 @@
+"""Composite model: encoder + dual cluster heads + decoder
+(``vadcl_tpu/models/backbone.py``, swin backbone only).
+
+Inference semantics of the JAX ``VADModel``: cluster losses are
+``||distance * assign||_F``; in compactness mode the decoder consumes the
+cluster's soft reconstruction ``assign @ centers``; a LayerNorm sits between
+the latent and the decoder.  The alternate backbones (unet3d, convae,
+convae_predict) are still to port (ROADMAP.md, queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+
+from vadcl_tpu_torch.core.config import ModelConfig
+from vadcl_tpu_torch.models.cluster_heads import FeatureClusterHead, SpaceClusterHead
+from vadcl_tpu_torch.models.decoder import SwinDecoder3D
+from vadcl_tpu_torch.models.encoder import SwinEncoder3D
+from vadcl_tpu_torch.models.layers import LayerNorm, init_parameters
+from vadcl_tpu_torch.ops.cluster import frobenius_norm
+
+
+class VADOutput(NamedTuple):
+    recon: torch.Tensor  # (B, D_out, H, W, 3)
+    cluster_loss: torch.Tensor  # scalar fp32 (0 when the head is off)
+    space_loss: torch.Tensor  # scalar fp32
+    feature: torch.Tensor  # (B*D'*H'*W', C) latent tokens
+    feature_label: torch.Tensor  # (B*D'*H'*W',) int32 hard cluster labels
+    cluster_assign: Optional[torch.Tensor]  # (B, D', H', W', K) or None
+    space_assign: Optional[torch.Tensor]  # (B, D', C, K) or None
+
+
+class VADModel(nn.Module):
+    """The flagship Swin+I3D clustering-guided autoencoder.
+
+    ``dtype`` is the compute dtype (``core.dtypes.compute_dtype``);
+    parameters are fp32.  ``generator`` seeds the JAX package's init; the
+    weights of a JAX checkpoint load with ``convert.load_jax_checkpoint``.
+    """
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg = config
+        if cfg.backbone != "swin":
+            raise NotImplementedError(
+                f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md, "
+                "queue 1 item 8: alternate backbones); only 'swin' runs"
+            )
+        self.config = cfg
+        self.dtype = dtype
+        latent = int(cfg.embed_dim * 2 ** (len(cfg.encoder_depths) - 1))
+        self.encoder = SwinEncoder3D(
+            cfg.patch_size, cfg.in_channels, cfg.embed_dim, cfg.encoder_depths,
+            cfg.encoder_heads, cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
+            cfg.fused_attention, cfg.attn_kernel,
+        )
+        if cfg.use_cluster:
+            cl = cfg.cluster
+            self.cluster1 = FeatureClusterHead(
+                latent, cl.feature_clusters, cl.feature_alpha, cfg.fused_cluster
+            )
+            self.space_cluster = SpaceClusterHead(
+                latent, cl.space_clusters, cl.space_alpha, cl.space_size,
+                cfg.fused_cluster,
+            )
+        self.norm = LayerNorm(latent)
+        self.decoder = SwinDecoder3D(
+            latent, cfg.decoder_depths, cfg.decoder_heads, cfg.window_size,
+            cfg.mlp_ratio, cfg.qkv_bias, cfg.predict, cfg.in_channels,
+            cfg.fused_attention, cfg.attn_kernel,
+        )
+        init_parameters(self, generator if generator is not None else torch.Generator().manual_seed(0))
+
+    def forward(self, clip: torch.Tensor) -> VADOutput:
+        """clip (B, D, H, W, 3) in [0, 1] -> VADOutput."""
+        cfg = self.config
+        x = self.encoder(clip.to(self.dtype))
+        B, Dp, Hp, Wp, C = x.shape
+        if cfg.use_cluster:
+            fc = self.cluster1(x)
+            sc = self.space_cluster(x)
+            if fc.loss_sq_sum is not None:
+                cluster_loss = torch.sqrt(fc.loss_sq_sum)
+            else:
+                cluster_loss = frobenius_norm(fc.distance * fc.assign)
+            if sc.loss_sq_sum is not None:
+                space_loss = torch.sqrt(sc.loss_sq_sum)
+            else:
+                space_loss = frobenius_norm(sc.distance * sc.assign)
+            if cfg.compactness:
+                x = fc.recon.to(self.dtype)
+            feature, feature_label = fc.feature, fc.labels
+            cluster_assign, space_assign = fc.assign, sc.assign
+        else:
+            zero = torch.zeros((), dtype=torch.float32, device=x.device)
+            cluster_loss = space_loss = zero
+            feature = x.reshape(-1, C).float()
+            feature_label = torch.zeros(B * Dp * Hp * Wp, dtype=torch.int32, device=x.device)
+            cluster_assign = space_assign = None
+        recon = self.decoder(self.norm(x))
+        return VADOutput(
+            recon=recon, cluster_loss=cluster_loss, space_loss=space_loss,
+            feature=feature, feature_label=feature_label,
+            cluster_assign=cluster_assign, space_assign=space_assign,
+        )

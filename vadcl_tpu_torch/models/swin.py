@@ -1,0 +1,216 @@
+"""Video Swin 3D blocks (``vadcl_tpu/models/swin.py``), NDHWC.
+
+With ``fused=True`` a block runs two hand-written kernels: the folded
+attention front half with LN1, the shift roll and the residual inside
+(``ops/fold_attn``), then the fused LN2 -> MLP -> residual tail
+(``ops/ln_mlp``).  With ``fused=False`` it is the plain PyTorch
+block of the JAX default config.  Parameter names and shapes are the same
+either way, so one state_dict loads into both.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from vadcl_tpu_torch.models.layers import LayerNorm, Mlp, _uniform_fan_in
+from vadcl_tpu_torch.ops.convs import patchify_matmul
+from vadcl_tpu_torch.ops.fold_attn import fold_attention
+from vadcl_tpu_torch.ops.ln_mlp import ln_mlp
+from vadcl_tpu_torch.ops.window import (
+    compute_attn_mask,
+    get_window_size,
+    relative_position_index,
+    window_attention,
+    window_partition,
+    window_reverse,
+)
+
+Tri = Tuple[int, int, int]
+
+# JAX attention kernels whose Hopper port is still to come (ROADMAP.md).
+_UNPORTED_ATTN = {
+    "base": "ops/pallas_attn.py:_attn_kernel",
+    "packed": "ops/pallas_attn.py:_attn_kernel_packed",
+    "fold_block": "ops/pallas_attn_fold.py:_fold_kernel with the MLP tail (fold_block)",
+    "fold_packed": "ops/pallas_attn_fold.py:_fold_packed_kernel",
+    "fold_mix": "ops/pallas_attn_fold.py:_fold_packed_kernel (fold_mix)",
+}
+
+
+def check_attn_kernel(attn_kernel: str) -> None:
+    """The port's fused attention is the fold kernel only."""
+    if attn_kernel in _UNPORTED_ATTN:
+        raise NotImplementedError(
+            f"fused attention kernel {attn_kernel!r} is not ported to CUDA yet "
+            f"(Pallas {_UNPORTED_ATTN[attn_kernel]}); use attn_kernel='fold' "
+            "or fused_attention=False"
+        )
+
+
+class WindowAttention3D(nn.Module):
+    """W-MSA parameters and the relative position bias
+    (``model/swin_transformer.py:87-171``).  ``window_size`` is the
+    *configured* window; the bias gathers ``rel_index[:N, :N]``."""
+
+    def __init__(self, dim: int, window_size: Tri, num_heads: int,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+        super().__init__()
+        wd, wh, ww = window_size
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.qk_scale = qk_scale
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads)
+        )
+        self.qkv_weight = nn.Parameter(torch.empty(dim, 3 * dim))
+        self.qkv_bias = nn.Parameter(torch.zeros(3 * dim)) if qkv_bias else None
+        self.proj_weight = nn.Parameter(torch.empty(dim, dim))
+        self.proj_bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer(
+            "rel_index",
+            torch.from_numpy(relative_position_index(tuple(window_size))).long(),
+            persistent=False,
+        )
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            t = self.relative_position_bias_table
+            t.copy_(torch.fmod(torch.randn(t.shape, generator=gen), 2.0) * 0.02)
+            if self.qkv_bias is not None:
+                self.qkv_bias.zero_()
+            self.proj_bias.zero_()
+        _uniform_fan_in(self.qkv_weight, self.qkv_weight.shape[0], gen)
+        _uniform_fan_in(self.proj_weight, self.proj_weight.shape[0], gen)
+
+    def bias(self, n: int) -> torch.Tensor:
+        """(nH, N, N) fp32: ``table[rel_index(configured)[:N, :N]]``."""
+        idx = self.rel_index[:n, :n].reshape(-1)
+        b = self.relative_position_bias_table.float()[idx].reshape(n, n, -1)
+        return b.permute(2, 0, 1).contiguous()
+
+
+class SwinBlock3D(nn.Module):
+    """One Swin block: (shifted) window attention + MLP with residuals
+    (``model/swin_transformer.py:174-277``)."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: Tri = (2, 7, 7),
+                 shift_size: Tri = (0, 0, 0), mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 fused: bool = False, attn_kernel: str = "base"):
+        super().__init__()
+        if fused:
+            check_attn_kernel(attn_kernel)
+        self.window_size = tuple(window_size)
+        self.shift_size = tuple(shift_size)
+        self.num_heads = num_heads
+        self.fused = fused
+        self.norm1 = LayerNorm(dim)
+        self.attn = WindowAttention3D(dim, self.window_size, num_heads, qkv_bias, qk_scale)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self._masks: Dict[tuple, torch.Tensor] = {}
+
+    def _mask(self, Dp, Hp, Wp, window, shift, device) -> Optional[torch.Tensor]:
+        key = (Dp, Hp, Wp, window, shift, str(device))
+        if key not in self._masks:
+            m = compute_attn_mask(Dp, Hp, Wp, window, shift)
+            self._masks[key] = None if m is None else torch.from_numpy(m).to(device)
+        return self._masks[key]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, D, H, W, C = x.shape
+        window, shift = get_window_size((D, H, W), self.window_size, self.shift_size)
+        pads = ((-D) % window[0], (-H) % window[1], (-W) % window[2])
+        shifted = any(s > 0 for s in shift)
+        n = window[0] * window[1] * window[2]
+        attn = self.attn
+        if self.fused:
+            if any(pads):
+                raise NotImplementedError(
+                    f"fused attention at {(D, H, W)} needs window padding to "
+                    f"{window}; the Pallas fallback ops/pallas_attn.py:"
+                    "_attn_kernel is not ported to CUDA yet"
+                )
+            # LN1, the shift roll both ways and the residual are in the kernel
+            x = fold_attention(
+                x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
+                attn.qkv_bias, attn.proj_weight, attn.proj_bias, attn.bias(n),
+                self._mask(D, H, W, window, shift, x.device), self.num_heads,
+                window, attn.scale, residual=True, shift=shift,
+            )
+            return ln_mlp(
+                x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+            )
+
+        shortcut = x
+        y = self.norm1(x)
+        if any(pads):
+            y = nn.functional.pad(y, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
+        _, Dp, Hp, Wp, _ = y.shape
+        if shifted:
+            y = torch.roll(y, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
+        mask = self._mask(Dp, Hp, Wp, window, shift, x.device)
+        wins = window_partition(y, window)
+        wins = window_attention(
+            wins, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
+            attn.proj_bias, attn.bias(n), self.num_heads, mask=mask,
+            scale=attn.qk_scale,
+        )
+        y = window_reverse(wins, window, B, Dp, Hp, Wp)
+        if shifted:
+            y = torch.roll(y, shift, (1, 2, 3))
+        if any(pads):
+            y = y[:, :D, :H, :W, :]
+        x = shortcut + y
+        return x + self.mlp(self.norm2(x))
+
+
+class SwinStage(nn.Module):
+    """Blocks ``block0..`` with alternating shift (BasicLayer parity)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 window_size: Tri = (8, 7, 7), mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 fused: bool = False, attn_kernel: str = "base"):
+        super().__init__()
+        self.depth = depth
+        shift = tuple(w // 2 for w in window_size)
+        for i in range(depth):
+            self.add_module(f"block{i}", SwinBlock3D(
+                dim, num_heads, window_size,
+                (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio, qkv_bias,
+                qk_scale, fused, attn_kernel,
+            ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class PatchEmbed3D(nn.Module):
+    """Pad to patch multiples, then Conv3d(k=s=patch) as reshape + matmul."""
+
+    def __init__(self, patch_size: Tri = (2, 4, 4), in_channels: int = 3,
+                 embed_dim: int = 96):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.weight = nn.Parameter(torch.empty(embed_dim, in_channels, *patch_size))
+        self.bias = nn.Parameter(torch.zeros(embed_dim))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        _uniform_fan_in(self.weight, self.weight[0].numel(), gen)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, D, H, W, _ = x.shape
+        pd, ph, pw = self.patch_size
+        pads = ((-D) % pd, (-H) % ph, (-W) % pw)
+        if any(pads):
+            x = nn.functional.pad(x, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
+        return patchify_matmul(x, self.weight, self.bias)

@@ -1,0 +1,54 @@
+from vadcl_tpu_torch.ops.cluster import (
+    cdist,
+    feature_cluster_assign,
+    frobenius_norm,
+    neg_soft_assign,
+    space_cluster_assign,
+)
+from vadcl_tpu_torch.ops.cluster_kernels import cluster_assign, space_cluster_loss
+from vadcl_tpu_torch.ops.convs import (
+    conv3d,
+    conv_transpose3d,
+    max_pool3d_same,
+    patchify_matmul,
+    same_pad_amounts,
+)
+from vadcl_tpu_torch.ops.fold_attn import fold_attention
+from vadcl_tpu_torch.ops.ln_mlp import ln_mlp
+from vadcl_tpu_torch.ops.window import (
+    compute_attn_mask,
+    get_window_size,
+    relative_position_index,
+    window_attention,
+    window_partition,
+    window_reverse,
+)
+
+# The wrappers of the hand-written CUDA kernels, each with a ``launches``
+# counter that counts its kernel launches (CPU calls run the plain version
+# and do not count).
+KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss)
+
+__all__ = [
+    "KERNELS",
+    "cdist",
+    "cluster_assign",
+    "compute_attn_mask",
+    "conv3d",
+    "conv_transpose3d",
+    "feature_cluster_assign",
+    "fold_attention",
+    "frobenius_norm",
+    "get_window_size",
+    "ln_mlp",
+    "max_pool3d_same",
+    "neg_soft_assign",
+    "patchify_matmul",
+    "relative_position_index",
+    "same_pad_amounts",
+    "space_cluster_assign",
+    "space_cluster_loss",
+    "window_attention",
+    "window_partition",
+    "window_reverse",
+]

@@ -1,0 +1,144 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+All sources compile with one ``nvcc`` call into a single shared library with
+a plain C interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o libvadcl_kernels.so csrc/*.cu
+
+The build runs at first use, from the package's own sources, into
+``vadcl_tpu_torch/_build/<hash of sources and flags>/``; a later process with
+the same sources loads the cached library.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
+# C entry points: name -> (argtypes, restype)
+_SIGNATURES = {
+    "vadcl_fold_attn": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
+    "vadcl_fold_attn_smem_bytes": ([_I] * 4, _L),
+    "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "vadcl_cluster_assign": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
+    "vadcl_cluster_assign_scratch": ([_I, _I], _L),
+    "vadcl_space_cluster_loss": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
+    "vadcl_space_cluster_scratch": ([_I, _I], _L),
+    "vadcl_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of this process's build, if any
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels cannot be built"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the library if this source hash has not been built yet;
+    returns its path."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _source_hash()
+    lib_path = out_dir / "libvadcl_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)  # atomic: concurrent builds race harmlessly
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (a refused or failed launch)."""
+    if err != 0:
+        msg = library().vadcl_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def aligned(t):
+    """``t`` contiguous with a 32-byte aligned base, as the tensor-core
+    tile loads (WMMA) require of the weight matrices."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 32 == 0 else t.clone()
+
+
+def stream_ptr(t) -> int:
+    """Handle of PyTorch's current stream on the tensor's device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
