@@ -7,17 +7,28 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 Phases (any failure raises and the script exits non-zero):
   0. device: CUDA must be available (no CPU fallback); print the card's
      name and power limit as nvidia-smi reports them.
-  1. build the four CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc).
-  2. each kernel against its plain PyTorch version on the card at the
-     flagship shapes, at batch 4 (bf16 and fp32) and at the scoring path's
-     batch of 16 windows (bf16): error against the stated bound and the
-     median CUDA-event time of both; then edge shapes for correctness.
+  1. build the six CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
+     process per source, all started together).
+  2. each forward kernel (A-D) against its plain PyTorch version on the
+     card at the flagship shapes, at batch 4 (bf16 and fp32) and at the
+     scoring path's batch of 16 windows (bf16): error against the stated
+     bound and the median CUDA-event time of both; then edge shapes.
+  2b. the backward kernels (5: LN->MLP, 6: fold attention) against their
+     plain versions at the training batch of 4, bf16 and fp32, every
+     gradient tensor held separately; times; edge shapes.
   3. the whole flagship model (shanghaitech, predict, fused fold attention
      and fused cluster heads) in fp32 with TF32 off: the card (kernels)
      against the CPU (plain versions) on 2 clips of 4x224^2.
+  3b. the same model's training loss and backward on 1 clip, card against
+     CPU: the loss, the set of parameters with a gradient, and every
+     parameter gradient.
   4. the scoring path in bf16: in-memory uint8 videos through
      ``evaluate_videos`` (PSNR -> anomaly score -> per-scene AUC) with
-     batch_windows=16; every kernel must have launched on this path.
+     batch_windows=16; kernels A-D must have launched on this path.
+  5. the training path in bf16: ``train()`` on the flagship config from a
+     seeded init with an in-memory uint8 loader at batch 4, 2 warm-up and
+     8 timed steps; all six kernels must have launched on this path; then
+     a checkpoint round trip into a fresh model and optimizer.
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -27,7 +38,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +66,7 @@ BOUNDS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 MODEL_TOL = 1e-4  # phase 3 recon atol and rtol, fp32: summation order only
 CLUSTER_RTOL = 1e-4  # recon and loss: fp32 FMA in another order
 LABEL_GAP = 1e-3  # labels must agree where best and second-best differ by more
+DEV = "cuda"  # where the phases put their tensors
 
 
 def smi_line() -> str:
@@ -115,7 +129,7 @@ def _fold_case(shape, nh, window, shift, dtype, gen):
 
     B, D, H, W, C = shape
     n = window[0] * window[1] * window[2]
-    dev = "cuda"
+    dev = DEV
     r = lambda *s: torch.randn(*s, generator=gen).to(dev)
     mask = compute_attn_mask(D, H, W, window, shift)
     return dict(
@@ -147,7 +161,7 @@ def time_pair(kernel, plain) -> tuple:
 
 
 def _mlp_case(C, hidden, gen):
-    r = lambda *s: torch.randn(*s, generator=gen).to("cuda")
+    r = lambda *s: torch.randn(*s, generator=gen).to(DEV)
     return (1 + 0.1 * r(C), 0.1 * r(C), r(C, hidden) / C**0.5, 0.1 * r(hidden),
             r(hidden, C) / hidden**0.5, 0.1 * r(C))
 
@@ -189,7 +203,7 @@ def phase_kernels():
         for dtype in dtypes:
             for C, dhw in MLP_SHAPES.items():
                 p = _mlp_case(C, 4 * C, gen)
-                x = torch.randn(batch, *dhw, C, generator=gen).to("cuda", dtype)
+                x = torch.randn(batch, *dhw, C, generator=gen).to(DEV, dtype)
                 name = f"ln_mlp C={C} {str(dtype)[6:]}"
                 errs.append(check_close(name, ln_mlp(x, *p), ln_mlp_plain(x, *p), *BOUNDS[dtype]))
                 times[name] = time_pair(lambda: ln_mlp(x, *p), lambda: ln_mlp_plain(x, *p))
@@ -264,6 +278,110 @@ def phase_kernels():
     return stats
 
 
+# Backward kernels (phase 2b): every output is held per tensor to
+# max|kernel - plain| <= tol * max|plain|, the scheme of the JAX package's
+# gradient tests: weight gradients are sums over up to ~25k tokens, where an
+# elementwise relative bound is meaningless for entries near zero.  fp32:
+# only the summation order differs (a few 1e-7 relative, so 1e-4 leaves
+# margin).  bf16: kernel and plain version round at the same cast
+# boundaries; a different fp32 summation order can flip one rounding of an
+# intermediate (2^-8 relative), whose effect on any output stays well under
+# 2% of that output's largest entry.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FOLD_BWD_NAMES = ("dx", "dln_s", "dln_b", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias")
+MLP_BWD_NAMES = ("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2")
+
+
+def check_rel(name, got, want, tol) -> float:
+    """Per-tensor bound max|got - want| <= tol * max|want|; returns the max
+    abs error."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    ratio = err / (tol * scale) if scale > 0 else (0.0 if err == 0 else float("inf"))
+    print(f"  {name}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
+          f"err/(tol*max)={ratio:.3f} (tol {tol:g})")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def check_grads(name, names, got, want, tol) -> float:
+    if [g is None for g in got] != [w is None for w in want]:
+        raise AssertionError(f"{name}: kernel and plain version return different gradients")
+    return max(check_rel(f"{name} {n}", g, w, tol)
+               for n, g, w in zip(names, got, want) if w is not None)
+
+
+def _fold_bwd_case(shape, nh, window, shift, dtype, gen):
+    """Kernel A's case without proj_b, plus an upstream gradient drawn at
+    unit scale: the arguments of kernel 6 and its plain version."""
+    a = _fold_case(shape, nh, window, shift, dtype, gen)
+    del a["proj_b"]
+    a["dout"] = torch.randn(a["x"].shape, generator=gen).to(DEV, dtype)
+    return a
+
+
+def phase_bwd_kernels(batch: int = 4):
+    """Kernels 5 and 6 against their plain versions on the card at batch
+    ``batch`` (the training batch), bf16 and fp32: kernel 6 at the four fold
+    geometries, shifted and unshifted, kernel 5 at C=96 and C=192.  The
+    rel-pos bias and the upstream gradient are drawn at unit scale.
+    Returns {kernel: stats of the bf16 case the kernels line reports}."""
+    from vadcl_tpu_torch.ops.fold_attn import fold_attention_bwd, fold_attention_bwd_plain
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_plain
+
+    print(f"[2b] backward kernels vs plain versions, flagship shapes, batch {batch}")
+    gen = torch.Generator().manual_seed(5)
+    stats, errs = {}, {"fold_attention_bwd": [], "ln_mlp_bwd": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BWD_TOL[dtype]
+        for gname, (dhwc, nh, window, shift) in FOLD_GEOMETRIES.items():
+            for shifted in (False, True):
+                a = _fold_bwd_case((batch, *dhwc), nh, window,
+                                   shift if shifted else (0, 0, 0), dtype, gen)
+                name = f"fold_attention_bwd {gname} {'shifted' if shifted else 'plain'} {str(dtype)[6:]}"
+                got, want = fold_attention_bwd(**a), fold_attention_bwd_plain(**a)
+                errs["fold_attention_bwd"].append(check_grads(name, FOLD_BWD_NAMES, got, want, tol))
+                ms, pms = time_pair(lambda: fold_attention_bwd(**a),
+                                    lambda: fold_attention_bwd_plain(**a))
+                if dtype == torch.bfloat16 and gname == "enc_stage0" and shifted:
+                    stats["fold_attention_bwd"] = dict(
+                        ms=ms, plain_ms=pms,
+                        shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted")
+        for C, dhw in MLP_SHAPES.items():
+            p = _mlp_case(C, 4 * C, gen)[:5]
+            x = torch.randn(batch, *dhw, C, generator=gen).to(DEV, dtype)
+            dy = torch.randn(x.shape, generator=gen).to(DEV, dtype)
+            name = f"ln_mlp_bwd C={C} {str(dtype)[6:]}"
+            got, want = ln_mlp_bwd(x, dy, *p), ln_mlp_bwd_plain(x, dy, *p)
+            errs["ln_mlp_bwd"].append(check_grads(name, MLP_BWD_NAMES, got, want, tol))
+            ms, pms = time_pair(lambda: ln_mlp_bwd(x, dy, *p), lambda: ln_mlp_bwd_plain(x, dy, *p))
+            if dtype == torch.bfloat16 and C == 96:
+                stats["ln_mlp_bwd"] = dict(ms=ms, plain_ms=pms,
+                                           shape=f"x ({batch},2,56,56,96) bf16, hidden 384")
+    print("  edge shapes (tiny widths, C=24 / head_dim 12, 147 tokens), fp32 and bf16:")
+    for dtype, C, nh in ((torch.bfloat16, 32, 2), (torch.float32, 32, 2),
+                         (torch.float32, 24, 2)):
+        a = _fold_bwd_case((2, 2, 14, 14, C), nh, (2, 7, 7), (0, 3, 3), dtype, gen)
+        check_grads(f"fold_attention_bwd C={C} {str(dtype)[6:]}", FOLD_BWD_NAMES,
+                    fold_attention_bwd(**a), fold_attention_bwd_plain(**a), BWD_TOL[dtype])
+        p = _mlp_case(C, 4 * C, gen)[:5]
+        x = torch.randn(3, 1, 7, 7, C, generator=gen).to(DEV, dtype)
+        dy = torch.randn(x.shape, generator=gen).to(DEV, dtype)
+        check_grads(f"ln_mlp_bwd C={C} {str(dtype)[6:]}", MLP_BWD_NAMES,
+                    ln_mlp_bwd(x, dy, *p), ln_mlp_bwd_plain(x, dy, *p), BWD_TOL[dtype])
+    a = _fold_bwd_case((2, 2, 14, 14, 24), 2, (2, 7, 7), (0, 0, 0), torch.bfloat16, gen)
+    try:
+        fold_attention_bwd(**a)
+    except NotImplementedError:
+        print("  fold_attention_bwd bf16 C=24 refused (NotImplementedError), as it should be")
+    else:
+        raise AssertionError("fold_attention_bwd: bf16 C=24 launched instead of being refused")
+    for k in stats:
+        stats[k]["max_abs_err"] = max(errs[k])
+    return stats
+
+
 def flagship_config():
     from vadcl_tpu_torch.core.config import preset
 
@@ -299,6 +417,147 @@ def phase_model():
         raise AssertionError("flagship labels disagree on more than 0.5% of tokens")
 
 
+MODEL_GRAD_TOL = 2e-3  # phase 3b, per tensor: fp32, summation order through ~30 layers
+
+
+def flagship_train_config():
+    from vadcl_tpu_torch.core.config import preset
+
+    return preset("shanghaitech").replace(model=flagship_config())
+
+
+def phase_model_grads():
+    """Training loss and backward of the flagship model in fp32 with TF32
+    off, the card (forward kernels A-D, backward kernels 5, 6) against the
+    CPU (plain versions), on one uint8 clip at step 0 with every gate on."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.train.step import make_loss_fn
+
+    print("[3b] flagship loss + backward, fp32: card vs CPU")
+    cfg = flagship_train_config()
+    cpu_model = VADModel(cfg.model, torch.float32, torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    clip = torch.from_numpy(
+        np.random.RandomState(2).randint(0, 256, (1, 4, 224, 224, 3)).astype(np.uint8))
+    t0 = time.perf_counter()
+    want, _ = make_loss_fn(cpu_model, cfg)(clip, 0)
+    want.backward()
+    t_cpu = time.perf_counter() - t0
+    got, _ = make_loss_fn(gpu_model, cfg)(clip.to(DEV), 0)
+    got.backward()
+    torch.cuda.synchronize()
+    print(f"  loss card {got.item():.6f} CPU {want.item():.6f}; CPU forward+backward {t_cpu:.1f} s")
+    check_close("loss", got.detach().cpu(), want.detach(), 0.0, 1e-4)
+    with_grad = [{k for k, p in m.named_parameters() if p.grad is not None}
+                 for m in (gpu_model, cpu_model)]
+    if with_grad[0] != with_grad[1]:
+        raise AssertionError(f"parameters with a gradient differ: card only "
+                             f"{sorted(with_grad[0] - with_grad[1])}, CPU only "
+                             f"{sorted(with_grad[1] - with_grad[0])}")
+    cpu_params = dict(cpu_model.named_parameters())
+    worst = ("", 0.0)
+    for k, p in gpu_model.named_parameters():
+        if p.grad is None:
+            continue
+        g, w = p.grad.cpu(), cpu_params[k].grad
+        err = float((g - w).abs().max())
+        ratio = err / (MODEL_GRAD_TOL * float(w.abs().max()) + 1e-12)
+        if ratio > worst[1]:
+            worst = (k, ratio)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{k}: gradient max abs err {err} exceeds "
+                                 f"{MODEL_GRAD_TOL} * max|CPU grad|")
+    print(f"  {len(with_grad[0])} of {len(cpu_params)} parameters have a gradient on both "
+          f"sides; worst err/(tol*max) {worst[1]:.3f} at {worst[0]} (tol {MODEL_GRAD_TOL:g})")
+
+
+class MemLoader:
+    """In-memory uint8 clips with the HostDataLoader protocol; stamps the
+    wall clock, after a device synchronize, at every batch request."""
+
+    def __init__(self, batch_size: int, steps: int, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        self.batch_size, self.steps = batch_size, steps
+        self.data = rng.randint(0, 256, (4, batch_size, 4, 224, 224, 3)).astype(np.uint8)
+        self.stamps = []
+
+    def steps_per_epoch(self) -> int:
+        return self.steps
+
+    def epoch(self, e, start_iter=0):
+        for i in range(start_iter, self.steps):
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            yield self.data[(e * self.steps + i) % len(self.data)]
+
+
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 4, 2, 8
+
+
+def phase_training():
+    """``train()`` on the flagship config in bf16 at batch 4: finite losses,
+    moved parameters, every kernel launched on this path, and a checkpoint
+    that restores params and Adam moments exactly.  Returns the launch
+    counts."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.ops import KERNELS
+    from vadcl_tpu_torch.train import CheckpointManager, create_train_state, train
+
+    print(f"[5] training path, bf16: train() at batch {TRAIN_BATCH}, "
+          f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_train_") as out:
+        cfg = flagship_train_config().replace(
+            output_dir=out, batch_size_per_device=TRAIN_BATCH)
+        loader = MemLoader(TRAIN_BATCH, steps)
+        torch.cuda.reset_peak_memory_stats()
+        for k in KERNELS:
+            k.launches = 0
+        state = train(cfg, loader, max_steps=steps, device=DEV)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = {k.__name__: k.launches for k in KERNELS}
+        losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
+        wall = t_end - loader.stamps[WARMUP_STEPS]
+        print(f"  per-step losses: {[round(float(v), 4) for v in losses]}")
+        print(f"  {TIMED_STEPS} steps in {wall:.3f} s = {TIMED_STEPS * TRAIN_BATCH / wall:.2f} "
+              f"train clips/s ({wall / TIMED_STEPS * 1e3:.1f} ms/step)")
+        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"  kernel launches on this path: {launches}")
+        if state.step != steps or len(losses) != steps or not np.all(np.isfinite(losses)):
+            raise AssertionError("training did not run every step with a finite loss")
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the training path: {missing}")
+        init = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(cfg.seed))
+        still = [k for (k, p), (_, q) in zip(state.model.named_parameters(),
+                                             init.named_parameters())
+                 if torch.equal(p.detach().cpu(), q.detach())]
+        if still:
+            raise AssertionError(f"parameters that training did not move: {still}")
+
+        mgr = CheckpointManager(os.path.join(out, "ckpt"))
+        mgr.save(str(state.step), state, {"epoch": 0, "iter": steps - 1})
+        fresh = create_train_state(
+            VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(1)).to(DEV), cfg)
+        mgr.restore(str(state.step), fresh)
+        opt_a, opt_b = state.optimizer.state, fresh.optimizer.state
+        for (k, p), (_, q) in zip(state.model.named_parameters(),
+                                  fresh.model.named_parameters()):
+            same = torch.equal(p, q) and all(
+                torch.equal(opt_a[p][s].cpu(), opt_b[q][s].cpu())
+                for s in ("step", "exp_avg", "exp_avg_sq"))
+            if not same:
+                raise AssertionError(f"{k}: checkpoint round trip changed the parameter "
+                                     "or its Adam state")
+        if fresh.step != state.step:
+            raise AssertionError("checkpoint round trip changed the step")
+        print(f"  checkpoint round trip: step, {len(opt_a)} parameters and their Adam "
+              "moments restored exactly")
+    return launches
+
+
 def make_videos(seed: int = 0):
     """Three uint8 videos of ~40 frames at 224^2 in two scenes, each with an
     anomalous span (a bright moving square)."""
@@ -328,6 +587,7 @@ def phase_scoring():
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.ops import KERNELS
 
+    forward = KERNELS[:4]  # A-D; the scoring path runs no backward
     print("[4] scoring path, bf16: evaluate_videos on in-memory uint8 videos")
     model = VADModel(flagship_config(), torch.bfloat16, torch.Generator().manual_seed(0))
     model = model.cuda().eval()
@@ -345,7 +605,7 @@ def phase_scoring():
     auc, per_scene, per_video = evaluate_videos(scorer, videos, 4, True, "stride1")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in forward}
     n_windows = sum(len(sliding_windows(v[0].shape[0], 4, "stride1")) for v in videos)
     print(f"  {n_windows} windows in {wall:.3f} s = {n_windows / wall:.2f} windows/s; "
           f"mean scene AUC {auc:.4f}; per scene {per_scene}")
@@ -368,6 +628,9 @@ REPLACES = {
     "ln_mlp": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
     "cluster_assign": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:33"),
     "space_cluster_loss": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:175"),
+    "ln_mlp_bwd": ("vadcl_tpu_torch/csrc/ln_mlp_bwd.cu", "vadcl_tpu/ops/pallas_mlp.py:87"),
+    "fold_attention_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
+                           "vadcl_tpu/ops/pallas_attn_fold.py:704"),
 }
 
 
@@ -375,8 +638,12 @@ def main():
     smi = phase_device()
     phase_build()
     stats = phase_kernels()
+    stats.update(phase_bwd_kernels(TRAIN_BATCH))
     phase_model()
+    phase_model_grads()
     launches = phase_scoring()
+    train_launches = phase_training()
+    launches.update({k: train_launches[k] for k in ("ln_mlp_bwd", "fold_attention_bwd")})
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=launches[name], **stats[name])

@@ -135,7 +135,10 @@ def test_scoring_functions_equal_jax():
     assert port_scoring.mean_scene_auc(aucs) == jax_scoring.mean_scene_auc(aucs)
 
 
-@pytest.mark.parametrize("name", ["ClusterConfig", "ModelConfig", "DataConfig", "EvalConfig"])
+@pytest.mark.parametrize(
+    "name", ["ClusterConfig", "ModelConfig", "DataConfig", "EvalConfig", "OptimConfig",
+             "ScheduleConfig"]
+)
 def test_config_dataclasses_equal_jax(name):
     pc, jc = getattr(port_config, name), getattr(jax_config, name)
     pf = [(f.name, f.default, f.default_factory) for f in dataclasses.fields(pc)]
@@ -143,14 +146,17 @@ def test_config_dataclasses_equal_jax(name):
     assert [f[0] for f in pf] == [f[0] for f in jf]
     assert dataclasses.asdict(pc()) == dataclasses.asdict(jc())
     assert port_config.ATTN_KERNELS == jax_config.ATTN_KERNELS
+    assert port_config.TRAINABLE_ATTN_KERNELS == jax_config.TRAINABLE_ATTN_KERNELS
 
 
 @pytest.mark.parametrize("name", ["tiny", "shanghaitech"])
 def test_presets_equal_jax(name):
     p, j = port_config.preset(name), jax_config.preset(name)
-    for part in ("model", "data", "eval"):
+    for part in ("model", "data", "optim", "schedule", "eval"):
         assert dataclasses.asdict(getattr(p, part)) == dataclasses.asdict(getattr(j, part))
-    assert (p.seed, p.batch_size_per_device, p.bf16) == (j.seed, j.batch_size_per_device, j.bf16)
+    for f in ("seed", "batch_size_per_device", "output_dir", "save_every_epochs",
+              "save_every_iters", "dump_every_iters", "bf16"):
+        assert getattr(p, f) == getattr(j, f), f
 
 
 def test_model_config_checks_attn_kernel():

@@ -1,0 +1,145 @@
+"""Training CLI of the PyTorch + CUDA port, with the flags of
+``tools/train.py`` (single process, swin backbone):
+
+  python tools/train_torch.py --preset shanghaitech --data-path /data/frames \\
+      --predict --fused [--epochs N] [--max-steps N] [--output-dir log_dir] \\
+      [--test-data-path ... --label-path ... --eval-every 4]
+
+Checkpoints land under ``<output-dir>/ckpt`` in the JAX package's npz
+layout, with auto-resume (either package resumes from the other's).
+``--device cuda`` (the default) computes in bf16 and ``--fused`` runs the
+hand-written kernels, forward and backward; it fails when no GPU is
+visible.  ``--device cpu`` trains in fp32 with the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch
+
+from vadcl_tpu_torch.core.config import preset
+from vadcl_tpu_torch.train.loop import train
+
+
+def build_eval_fn(cfg, test_dir: str, label_dir: str, device: torch.device):
+    """Per-scene AUC of the training model on a test split
+    (``vadcl_tpu_torch.eval``), for the loop's eval hook."""
+    # JPEG decoding lives in the JAX package's numpy/PIL data module, which
+    # imports no jax; only this CLI needs it
+    from vadcl_tpu.data import ClipDataset
+    from vadcl_tpu_torch.eval.predict import (
+        eval_input_frames,
+        evaluate_videos,
+        make_video_scorer,
+    )
+
+    test_ds = ClipDataset(test_dir, frame_num=cfg.data.frame_num, size=cfg.data.image_size,
+                          label_root=label_dir, istest=True)
+    predict = cfg.model.predict
+
+    def eval_fn(state) -> float:
+        model = state.model
+
+        def apply_fn(clips):
+            with torch.no_grad():
+                return model(clips).recon
+
+        scorer = make_video_scorer(
+            apply_fn, frame_num=cfg.data.frame_num, predict=predict,
+            batch_windows=cfg.eval.batch_windows,
+            input_frames=eval_input_frames(cfg.model.backbone, predict, cfg.data.frame_num),
+            device=device,
+        )
+        auc, per_scene, _ = evaluate_videos(
+            scorer, test_ds.iter_test_videos(), frame_num=cfg.data.frame_num,
+            predict=predict, protocol=cfg.eval.protocol,
+        )
+        print("per-scene AUC:", {k: round(v, 4) for k, v in per_scene.items()})
+        print("mean scene AUC:", round(auc, 4))
+        return auc
+
+    return eval_fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="shanghaitech")
+    ap.add_argument("--data-path", required=True)
+    ap.add_argument("--test-data-path", default="")
+    ap.add_argument("--label-path", default="")
+    ap.add_argument("--output-dir", default="log_dir")
+    ap.add_argument("--predict", action="store_true")
+    ap.add_argument("--epochs", type=int, default=0)
+    ap.add_argument("--batch-size", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=0.0)
+    ap.add_argument("--frame-num", type=int, default=0)
+    ap.add_argument("--eval-every", type=int, default=0, help="epochs")
+    ap.add_argument("--max-steps", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cluster-start-iter", type=int, default=0)
+    ap.add_argument("--dump-every-iters", type=int, default=0,
+                    help="dump target+recon JPEGs every N steps (needs PIL); 0 disables")
+    ap.add_argument("--no-cluster", action="store_true")
+    ap.add_argument("--backbone", default="swin", choices=["swin"])
+    ap.add_argument("--fused", action="store_true",
+                    help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
+    ap.add_argument("--attn-kernel", default="auto", choices=["auto", "base", "fold"],
+                    help="fused attention kernel; auto = 'fold' when --fused")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cpu trains with the kernels' plain versions in fp32")
+    args = ap.parse_args(argv)
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda: no CUDA device is visible; pass --device cpu to "
+            "train on the CPU with the kernels' plain versions"
+        )
+    attn_kernel = args.attn_kernel
+    if attn_kernel == "auto":
+        attn_kernel = "fold" if args.fused else "base"
+    cfg = preset(args.preset)
+    cfg = cfg.replace(
+        data=dataclasses.replace(
+            cfg.data, data_path=args.data_path, test_data_path=args.test_data_path,
+            label_path=args.label_path, frame_num=args.frame_num or cfg.data.frame_num,
+        ),
+        model=dataclasses.replace(
+            cfg.model, predict=args.predict, backbone=args.backbone,
+            use_cluster=not args.no_cluster, fused_attention=args.fused,
+            fused_cluster=args.fused, attn_kernel=attn_kernel,
+        ),
+        schedule=dataclasses.replace(
+            cfg.schedule, cluster_start_iter=args.cluster_start_iter,
+            cluster_train_start_iter=args.cluster_start_iter,
+        ),
+        output_dir=args.output_dir, seed=args.seed, dump_every_iters=args.dump_every_iters,
+    )
+    if args.epochs:
+        cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, epochs=args.epochs))
+    if args.lr:
+        cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=args.lr))
+    if args.batch_size:
+        cfg = cfg.replace(batch_size_per_device=args.batch_size)
+
+    from vadcl_tpu.data import ClipDataset, HostDataLoader
+
+    ds = ClipDataset(cfg.data.data_path, frame_num=cfg.data.frame_num, size=cfg.data.image_size)
+    loader = HostDataLoader(ds, batch_size=cfg.batch_size_per_device, seed=cfg.seed,
+                            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch)
+    print(f"{len(ds)} train clips on {args.device}")
+    eval_fn = None
+    if args.test_data_path and args.eval_every:
+        eval_fn = build_eval_fn(cfg, args.test_data_path, args.label_path,
+                                torch.device(args.device))
+    return train(cfg, loader, eval_fn=eval_fn, eval_every_epochs=args.eval_every,
+                 max_steps=args.max_steps or None, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

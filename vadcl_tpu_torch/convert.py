@@ -15,12 +15,18 @@ rename plus layout transposes:
 Which 5-D kernels are transposed convs depends on the decoder head
 (``timedebd`` is a Conv3d in predict mode and a ConvTranspose3d in
 reconstruction mode), hence the ``predict`` argument.  Loading is strict.
+
+The optimizer state maps the same way: the JAX package's ``torch_adam``
+state (``opt_state/count|mu|nu/<param path>``) and ``torch_sgd`` state
+(``opt_state/momentum/<param path>``) against torch's per-parameter Adam /
+AdamW ``step``, ``exp_avg``, ``exp_avg_sq`` and SGD ``momentum_buffer``,
+the moments transposed like their parameters.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,48 +47,114 @@ def _is_convt(key: str, predict: bool) -> bool:
     return bool(_CONVT.match(key)) or (key == "decoder.timedebd.weight" and not predict)
 
 
+def _torch_key(path: str) -> str:
+    """``params/a/b/kernel`` or ``batch_stats/a/b/mean`` -> ``a.b.weight`` etc."""
+    coll, _, rest = path.partition("/")
+    parts = rest.split("/")
+    if coll == "params":
+        parts[-1] = _RENAME.get(parts[-1], parts[-1])
+    elif coll == "batch_stats":
+        parts[-1] = _STATS[parts[-1]]
+    else:
+        raise KeyError(f"unexpected collection in {path!r}")
+    return ".".join(parts)
+
+
+def _jax_path(key: str, ndim: int) -> str:
+    """Inverse of ``_torch_key`` (``ndim`` tells a LayerNorm scale from a
+    Dense or conv weight)."""
+    parts = key.split(".")
+    inv_stats = {v: k for k, v in _STATS.items()}
+    if parts[-1] in inv_stats:
+        parts[-1] = inv_stats[parts[-1]]
+        return "batch_stats/" + "/".join(parts)
+    if parts[-1] == "weight" and ndim == 1:  # LayerNorm / BatchNorm
+        parts[-1] = "scale"
+    else:
+        parts[-1] = {v: k for k, v in _RENAME.items() if k != "scale"}.get(parts[-1], parts[-1])
+    return "params/" + "/".join(parts)
+
+
+def _to_torch_layout(key: str, a: np.ndarray, predict: bool) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.ndim == 5:
+        a = a.transpose(_CONVT_TO_TORCH if _is_convt(key, predict) else _CONV_TO_TORCH)
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
+
+
+def _to_jax_layout(key: str, t: torch.Tensor, predict: bool) -> Tuple[str, np.ndarray]:
+    a = t.detach().cpu().float().numpy()
+    if a.ndim == 5:
+        perm = _CONVT_TO_TORCH if _is_convt(key, predict) else _CONV_TO_TORCH
+        a = a.transpose(np.argsort(perm))
+    return _jax_path(key, a.ndim), np.ascontiguousarray(a)
+
+
 def state_dict_from_jax(flat: Dict[str, np.ndarray], *, predict: bool) -> Dict[str, torch.Tensor]:
     """The port's state_dict from a flat JAX ``{params,batch_stats}/...`` dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
-        coll, _, rest = path.partition("/")
-        parts = rest.split("/")
-        if coll == "params":
-            parts[-1] = _RENAME.get(parts[-1], parts[-1])
-        elif coll == "batch_stats":
-            parts[-1] = _STATS[parts[-1]]
-        else:
-            raise KeyError(f"unexpected collection in {path!r}")
-        key = ".".join(parts)
-        a = np.asarray(arr)
-        if a.ndim == 5:
-            a = a.transpose(_CONVT_TO_TORCH if _is_convt(key, predict) else _CONV_TO_TORCH)
-        out[key] = torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
+        key = _torch_key(path)
+        out[key] = _to_torch_layout(key, arr, predict)
     return out
 
 
 def jax_from_state_dict(sd: Dict[str, torch.Tensor], *, predict: bool) -> Dict[str, np.ndarray]:
     """Inverse of ``state_dict_from_jax``."""
-    inv_rename = {v: k for k, v in _RENAME.items() if k != "scale"}
-    inv_stats = {v: k for k, v in _STATS.items()}
-    flat: Dict[str, np.ndarray] = {}
-    for key, t in sd.items():
-        parts = key.split(".")
-        a = t.detach().cpu().float().numpy()
-        if parts[-1] in inv_stats:
-            coll = "batch_stats"
-            parts[-1] = inv_stats[parts[-1]]
+    return dict(_to_jax_layout(key, t, predict) for key, t in sd.items())
+
+
+def _opt_kind(optimizer: torch.optim.Optimizer) -> str:
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return "adam"
+    if isinstance(optimizer, torch.optim.SGD):
+        return "sgd"
+    raise TypeError(f"no JAX optimizer-state layout for {type(optimizer).__name__}")
+
+
+def opt_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
+                     predict: bool) -> Dict[str, np.ndarray]:
+    """The ``opt_state/...`` leaves of the JAX package's ``TrainState`` from
+    a torch optimizer over ``model.parameters()``.  A parameter the optimizer
+    has not stepped yet (gated so far) has count 0 and zero moments, as in
+    ``torch_adam``."""
+    kind = _opt_kind(optimizer)
+    out: Dict[str, np.ndarray] = {}
+    for key, p in model.named_parameters():
+        st = optimizer.state.get(p, {})
+        leaf = _jax_path(key, p.ndim).split("/", 1)[1]
+        if kind == "adam":
+            out[f"opt_state/count/{leaf}"] = np.asarray(int(st["step"]) if st else 0, np.int32)
+            for name, sk in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                out[f"opt_state/{name}/{leaf}"] = _to_jax_layout(
+                    key, st[sk] if st else torch.zeros_like(p), predict)[1]
         else:
-            coll = "params"
-            if parts[-1] == "weight" and a.ndim == 1:  # LayerNorm / BatchNorm
-                parts[-1] = "scale"
-            else:
-                parts[-1] = inv_rename.get(parts[-1], parts[-1])
-        if a.ndim == 5:
-            perm = _CONVT_TO_TORCH if _is_convt(key, predict) else _CONV_TO_TORCH
-            a = a.transpose(np.argsort(perm))
-        flat[coll + "/" + "/".join(parts)] = np.ascontiguousarray(a)
-    return flat
+            buf = st.get("momentum_buffer")
+            out[f"opt_state/momentum/{leaf}"] = _to_jax_layout(
+                key, buf if buf is not None else torch.zeros_like(p), predict)[1]
+    return out
+
+
+def opt_state_from_jax(flat: Dict[str, np.ndarray], model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer, *, predict: bool) -> None:
+    """Inverse of ``opt_state_to_jax``: fills ``optimizer.state`` for every
+    parameter of ``model`` (a missing leaf raises ``KeyError``)."""
+    kind = _opt_kind(optimizer)
+    for key, p in model.named_parameters():
+        leaf = _jax_path(key, p.ndim).split("/", 1)[1]
+        optimizer.state.pop(p, None)
+        if kind == "adam":
+            count = int(flat[f"opt_state/count/{leaf}"])
+            if count > 0:  # torch creates the state of a parameter at its first step
+                optimizer.state[p] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    "exp_avg": _to_torch_layout(key, flat[f"opt_state/mu/{leaf}"], predict).to(p.device),
+                    "exp_avg_sq": _to_torch_layout(key, flat[f"opt_state/nu/{leaf}"], predict).to(p.device),
+                }
+        else:
+            buf = _to_torch_layout(key, flat[f"opt_state/momentum/{leaf}"], predict)
+            if bool(buf.any()):
+                optimizer.state[p] = {"momentum_buffer": buf.to(p.device)}
 
 
 def load_jax_checkpoint(model: torch.nn.Module, npz_path: str) -> None:

@@ -1,5 +1,7 @@
 """Typed configuration tree: the part of ``vadcl_tpu/core/config.py`` the
-scoring path needs, with the same field names and defaults.
+scoring and single-process training paths need, with the same field names
+and defaults (the JAX ``MeshConfig`` has no counterpart yet: multi-process
+training is still to port).
 
 It is a copy, not an import: ``vadcl_tpu/core/__init__.py`` imports the jax
 mesh helpers, so importing ``vadcl_tpu.core.config`` would pull jax into this
@@ -34,6 +36,8 @@ class ClusterConfig:
 ATTN_KERNELS = frozenset(
     {"base", "packed", "fold", "fold_block", "fold_packed", "fold_mix"}
 )
+# The kernel families with a backward in the JAX package.
+TRAINABLE_ATTN_KERNELS = frozenset({"base", "fold", "fold_block"})
 
 
 @dataclass(frozen=True)
@@ -100,6 +104,40 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class OptimConfig:
+    """Adam + per-epoch cosine schedule (reference ``main_predict.py:180-185``):
+    ``torch.optim.Adam(lr, weight_decay=0.02)``, L2 weight decay added to
+    the gradient (``adamw`` decouples it), timm cosine stepped per epoch."""
+
+    optimizer: str = "adam"  # adam | adamw | sgd (lars is still to port)
+    lr: float = 6e-6
+    min_lr: float = 1e-6
+    weight_decay: float = 0.02
+    epochs: int = 120
+    warmup_epochs: int = 0
+    clip_grad: float = 0.0  # 0 disables
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """Staged-training flips (reference ``main_predict.py:244-257``): the
+    iteration at which the cluster losses turn on, at which parameters whose
+    name contains "cluster" start to train, and at which compactness engages
+    (before it the heads see detached features and the decoder the encoder
+    features); plus the loss weights."""
+
+    cluster_start_iter: int = 0
+    cluster_train_start_iter: int = 0
+    compactness_start_iter: int = 0
+    recon_weight: float = 1.0
+    cluster_weight: float = 1.0
+    space_weight: float = 1.0
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     """Scoring protocols: "stride1" or "nonoverlap" sliding windows per whole
     test video; per-frame PSNR -> per-video min-max anomaly score ->
@@ -111,13 +149,19 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """The slice of the JAX ``Config`` tree that scoring reads."""
+    """The JAX ``Config`` tree without its mesh."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     seed: int = 0
     batch_size_per_device: int = 4
+    output_dir: str = "log_dir"
+    save_every_epochs: int = 1
+    save_every_iters: int = 0
+    dump_every_iters: int = 0  # input+recon JPEG dump every N steps (needs PIL)
     bf16: bool = True  # bf16 compute / fp32 params+reductions
 
     def replace(self, **kw: Any) -> "Config":

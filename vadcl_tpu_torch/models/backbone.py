@@ -1,10 +1,11 @@
 """Composite model: encoder + dual cluster heads + decoder
 (``vadcl_tpu/models/backbone.py``, swin backbone only).
 
-Inference semantics of the JAX ``VADModel``: cluster losses are
-``||distance * assign||_F``; in compactness mode the decoder consumes the
-cluster's soft reconstruction ``assign @ centers``; a LayerNorm sits between
-the latent and the decoder.  The alternate backbones (unet3d, convae,
+The JAX ``VADModel``'s semantics, gradient flow included: cluster losses are
+``||distance * assign||_F``; the cluster heads see detached features unless
+compactness is on (or its gate is); in compactness mode the decoder consumes
+the cluster's soft reconstruction ``assign @ centers``; a LayerNorm sits
+between the latent and the decoder.  The alternate backbones (unet3d, convae,
 convae_predict) are still to port (ROADMAP.md, queue 1 item 8).
 """
 
@@ -75,14 +76,33 @@ class VADModel(nn.Module):
         )
         init_parameters(self, generator if generator is not None else torch.Generator().manual_seed(0))
 
-    def forward(self, clip: torch.Tensor) -> VADOutput:
-        """clip (B, D, H, W, 3) in [0, 1] -> VADOutput."""
+    def forward(self, clip: torch.Tensor, detach_cluster_input: Optional[bool] = None,
+                compactness_gate: Optional[torch.Tensor] = None) -> VADOutput:
+        """clip (B, D, H, W, 3) in [0, 1] -> VADOutput.
+
+        ``compactness_gate`` (a 0/1 scalar tensor) is the staged
+        compactness flip of ``ScheduleConfig.compactness_start_iter``: at 0
+        the cluster heads see detached features and the decoder consumes the
+        encoder features; at 1 gradients flow into the heads and the decoder
+        consumes ``assign @ centers``.  ``None`` keeps the static
+        ``config.compactness`` behaviour, with the heads' input detached
+        unless ``detach_cluster_input`` (default: ``not compactness``) says
+        otherwise."""
         cfg = self.config
         x = self.encoder(clip.to(self.dtype))
         B, Dp, Hp, Wp, C = x.shape
+        if detach_cluster_input is None:
+            detach_cluster_input = not cfg.compactness
         if cfg.use_cluster:
-            fc = self.cluster1(x)
-            sc = self.space_cluster(x)
+            gate = None
+            if compactness_gate is not None and cfg.compactness:
+                gate = compactness_gate.to(device=x.device, dtype=x.dtype)
+                # d/dx of g*x + (1-g)*x.detach() is g: gradient flows iff the gate is on
+                x_for_cluster = gate * x + (1 - gate) * x.detach()
+            else:
+                x_for_cluster = x.detach() if detach_cluster_input else x
+            fc = self.cluster1(x_for_cluster)
+            sc = self.space_cluster(x_for_cluster)
             if fc.loss_sq_sum is not None:
                 cluster_loss = torch.sqrt(fc.loss_sq_sum)
             else:
@@ -92,7 +112,10 @@ class VADModel(nn.Module):
             else:
                 space_loss = frobenius_norm(sc.distance * sc.assign)
             if cfg.compactness:
-                x = fc.recon.to(self.dtype)
+                if gate is not None:
+                    x = gate * fc.recon.to(self.dtype) + (1 - gate) * x
+                else:
+                    x = fc.recon.to(self.dtype)
             feature, feature_label = fc.feature, fc.labels
             cluster_assign, space_assign = fc.assign, sc.assign
         else:

@@ -13,8 +13,8 @@ from vadcl_tpu_torch.ops.convs import (
     patchify_matmul,
     same_pad_amounts,
 )
-from vadcl_tpu_torch.ops.fold_attn import fold_attention
-from vadcl_tpu_torch.ops.ln_mlp import ln_mlp
+from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_bwd
+from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd
 from vadcl_tpu_torch.ops.window import (
     compute_attn_mask,
     get_window_size,
@@ -26,8 +26,9 @@ from vadcl_tpu_torch.ops.window import (
 
 # The wrappers of the hand-written CUDA kernels, each with a ``launches``
 # counter that counts its kernel launches (CPU calls run the plain version
-# and do not count).
-KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss)
+# and do not count): forward kernels A-D, then backward kernels 5 and 6.
+KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
+           fold_attention_bwd)
 
 __all__ = [
     "KERNELS",
@@ -38,9 +39,11 @@ __all__ = [
     "conv_transpose3d",
     "feature_cluster_assign",
     "fold_attention",
+    "fold_attention_bwd",
     "frobenius_norm",
     "get_window_size",
     "ln_mlp",
+    "ln_mlp_bwd",
     "max_pool3d_same",
     "neg_soft_assign",
     "patchify_matmul",

@@ -6,7 +6,13 @@ C replaces ``vadcl_tpu/ops/pallas_cluster.py:_cluster_kernel`` (entry
 fp32 FMA only (no TF32), the expanded cdist form, first-occurrence argmin,
 and a deterministic two-pass reduction of the loss.
 
-On CPU tensors the wrappers run the plain versions below (built from
+Both wrappers are ``torch.autograd.Function``s.  Their backward is what the
+JAX package's custom VJPs (``_bwd``, ``_space_bwd``) do: recompute the plain
+forward and differentiate it (an XLA ``jax.vjp`` there, autograd here); the
+Pallas package has no backward kernel for these heads.  The labels get no
+gradient.
+
+On CPU tensors the forwards run the plain versions below (built from
 ``ops/cluster.py``); on CUDA tensors they launch the kernels or raise.
 Bounds on the card and what the simple design leaves are in the header of
 ``csrc/cluster.cu``.
@@ -52,13 +58,50 @@ def _f32c(t: torch.Tensor) -> torch.Tensor:
     return t.detach().float().contiguous()
 
 
+def _recompute_grads(plain, inputs, outputs_grads):
+    """Gradients of ``plain(*inputs)`` for the given output gradients, by
+    autograd through the plain version (the custom VJPs' XLA recompute)."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in inputs]
+        outs = plain(*leaves)
+        grads = torch.autograd.grad(outs, leaves, outputs_grads)
+    return [g.to(t.dtype) for g, t in zip(grads, inputs)]
+
+
+class _ClusterAssign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tokens, centers, alpha):
+        ctx.save_for_backward(tokens, centers)
+        ctx.alpha = alpha
+        if tokens.device.type == "cpu":
+            out = cluster_assign_plain(tokens, centers, alpha)
+        else:
+            out = _cluster_assign_cuda(tokens, centers, alpha)
+        ctx.mark_non_differentiable(out.labels)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, d_recon, _d_labels, d_loss):
+        alpha = ctx.alpha
+
+        def plain(t, c):
+            out = cluster_assign_plain(t, c, alpha)
+            return out.recon, out.loss_sq_sum
+
+        d_tokens, d_centers = _recompute_grads(plain, ctx.saved_tensors, (d_recon, d_loss))
+        return d_tokens, d_centers, None
+
+
 def cluster_assign(tokens, centers, alpha: float) -> FusedClusterOut:
     """tokens (N, C) post-LayerNorm, centers (K, C) -> recon, labels and
-    the loss sum of squares (cluster loss = its sqrt)."""
-    if tokens.device.type == "cpu":
-        return cluster_assign_plain(tokens, centers, alpha)
-    if tokens.device.type != "cuda":
+    the loss sum of squares (cluster loss = its sqrt); differentiable in
+    tokens and centers."""
+    if tokens.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cluster_assign: unsupported device {tokens.device}")
+    return FusedClusterOut(*_ClusterAssign.apply(tokens, centers, alpha))
+
+
+def _cluster_assign_cuda(tokens, centers, alpha: float) -> FusedClusterOut:
     n, c = tokens.shape
     k, c2 = centers.shape
     if c2 != c:
@@ -85,13 +128,34 @@ def cluster_assign(tokens, centers, alpha: float) -> FusedClusterOut:
 cluster_assign.launches = 0
 
 
+class _SpaceClusterLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, maps, centers, alpha):
+        ctx.save_for_backward(maps, centers)
+        ctx.alpha = alpha
+        if maps.device.type == "cpu":
+            return space_cluster_loss_plain(maps, centers, alpha)
+        return _space_cluster_loss_cuda(maps, centers, alpha)
+
+    @staticmethod
+    def backward(ctx, d_loss):
+        alpha = ctx.alpha
+        d_maps, d_centers = _recompute_grads(
+            lambda m, c: space_cluster_loss_plain(m, c, alpha), ctx.saved_tensors, d_loss
+        )
+        return d_maps, d_centers, None
+
+
 def space_cluster_loss(maps, centers, alpha: float) -> torch.Tensor:
     """maps (Cc, BD, HW) post-LayerNorm, centers (Cc, K, HW) -> scalar
-    sum((d * assign)^2) (space loss = its sqrt)."""
-    if maps.device.type == "cpu":
-        return space_cluster_loss_plain(maps, centers, alpha)
-    if maps.device.type != "cuda":
+    sum((d * assign)^2) (space loss = its sqrt); differentiable in maps and
+    centers."""
+    if maps.device.type not in ("cpu", "cuda"):
         raise ValueError(f"space_cluster_loss: unsupported device {maps.device}")
+    return _SpaceClusterLoss.apply(maps, centers, alpha)
+
+
+def _space_cluster_loss_cuda(maps, centers, alpha: float) -> torch.Tensor:
     cc, bd, hw = maps.shape
     cc2, k, hw2 = centers.shape
     if (cc2, hw2) != (cc, hw):

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-All sources compile with one ``nvcc`` call into a single shared library with
-a plain C interface, loaded with ``ctypes``:
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into a single shared library with a
+plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o libvadcl_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libvadcl_kernels.so *.o
 
 The build runs at first use, from the package's own sources, into
 ``vadcl_tpu_torch/_build/<hash of sources and flags>/``; a later process with
@@ -27,10 +29,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +41,11 @@ _SIGNATURES = {
     "vadcl_fold_attn": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_smem_bytes": ([_I] * 4, _L),
     "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "vadcl_fold_attn_bwd": ([_P] * 18 + [_I] * 12 + [_F, _I, _P], _I),
+    "vadcl_fold_attn_bwd_smem_bytes": ([_I] * 4, _L),
+    "vadcl_fold_attn_bwd_workspace_bytes": ([_I] * 10, _L),
+    "vadcl_ln_mlp_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "vadcl_ln_mlp_bwd_workspace_bytes": ([_I] * 3, _L),
     "vadcl_cluster_assign": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
     "vadcl_cluster_assign_scratch": ([_I, _I], _L),
     "vadcl_space_cluster_loss": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
@@ -88,23 +93,32 @@ def build(verbose: bool = False) -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: concurrent builds race harmlessly
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp_dir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+                   "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            objs.append(obj)
+        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+            if verbose:
+                print(log)
+        tmp_lib = os.path.join(tmp_dir, lib_path.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp_lib, lib_path)  # atomic: concurrent builds race harmlessly
     build_seconds = time.perf_counter() - t0
     return lib_path
 

@@ -1,15 +1,25 @@
-"""Kernel A: folded Swin window attention with LN1 and the residual fused.
+"""Kernel A: folded Swin window attention with LN1 and the residual fused,
+and kernel 6, its backward.
 
-Replaces ``vadcl_tpu/ops/pallas_attn_fold.py:_fold_kernel`` (entry
+Kernel A replaces ``vadcl_tpu/ops/pallas_attn_fold.py:_fold_kernel`` (entry
 ``fused_window_attention_folded``, reached through
-``folded_block_attention_trainable``).  The CUDA kernel is
+``folded_block_attention_trainable``).  Its CUDA kernel is
 ``csrc/fold_attn.cu``: one block per (batch, window) that addresses the
 window's tokens in the unpartitioned (B, D, H, W, C) tensor by strides;
 bf16 runs on the tensor cores and needs C and head_dim to be multiples of 16.
 
-On a CPU tensor ``fold_attention`` runs ``fold_attention_plain``; on a CUDA
-tensor it launches the kernel or raises.  Bounds on the card and what the
-simple design leaves are in the header of ``csrc/fold_attn.cu``.
+Kernel 6 replaces ``_fold_bwd_kernel`` (entry ``_fold_bwd_call``, reached
+through ``_blk_bwd`` with ``fuse_ln=True, residual=True``).  Its CUDA kernel
+is ``csrc/fold_attn_bwd.cu``: the same per-window blocks recompute the
+forward and emit dx; the cross-window sums (weight, bias and LN gradients)
+go through a deterministic second pass.  As in kernel A, bf16 runs on the
+tensor cores and needs C and head_dim to be multiples of 16.
+
+``fold_attention`` is a ``torch.autograd.Function``: forward kernel A,
+backward kernel 6.  On a CPU tensor both run their plain versions
+(``fold_attention_plain``, ``fold_attention_bwd_plain``); on a CUDA tensor
+they launch the kernels or raise.  Bounds on the card and what the simple
+designs leave are in the headers of the two ``.cu`` files.
 """
 
 from __future__ import annotations
@@ -24,11 +34,17 @@ from vadcl_tpu_torch.ops.window import window_partition, window_reverse
 Tri = Tuple[int, int, int]
 
 
-def _ln_fast(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """flax LayerNorm numerics in fp32: fast variance, eps 1e-5."""
+def _ln_stats(x32: torch.Tensor):
+    """xhat and rstd of flax's fast-variance LayerNorm (eps 1e-5), fp32."""
     mu = x32.mean(-1, keepdim=True)
     var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    return (x32 - mu) * torch.rsqrt(var + 1e-5) * scale.float() + bias.float()
+    rstd = torch.rsqrt(var + 1e-5)
+    return (x32 - mu) * rstd, rstd
+
+
+def _ln_fast(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """flax LayerNorm numerics in fp32: fast variance, eps 1e-5."""
+    return _ln_stats(x32)[0] * scale.float() + bias.float()
 
 
 def fold_attention_plain(
@@ -89,6 +105,126 @@ def fold_attention_plain(
     return window_reverse(out.to(dt), window, B, D, H, W)
 
 
+def _ln_vjp(dxa: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
+            ln_scale: torch.Tensor) -> torch.Tensor:
+    """d(input) of the fast-variance LayerNorm, fp32, from d(output)."""
+    dxhat = dxa * ln_scale.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return rstd * (dxhat - m1 - xhat * m2)
+
+
+def fold_attention_bwd_plain(
+    x: torch.Tensor,  # (B, D, H, W, C) compute dtype, the forward's input
+    dout: torch.Tensor,  # (B, D, H, W, C) upstream gradient
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    qkv_w: torch.Tensor,
+    qkv_b: Optional[torch.Tensor],
+    proj_w: torch.Tensor,
+    bias: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_heads: int,
+    window: Tri,
+    scale: float,
+    shift: Tri = (0, 0, 0),
+):
+    """Plain PyTorch version of kernel 6: the gradients of
+    ``fold_attention(..., residual=True)`` with LN1, with the cast boundaries
+    of ``_fold_bwd_kernel``: LN output, qkv, probabilities, the per-head
+    output, ``dout . proj_w^T``, ``ds * scale`` and dqkv round to the compute
+    dtype; every product accumulates in fp32; softmax backward, d(bias), the
+    LN vjp and the residual are fp32.  Returns (dx, dln_s, dln_b, dqkv_w,
+    dqkv_b, dproj_w, dproj_b, dbias), dx in the compute dtype, the rest
+    fp32 (dqkv_b is None without a qkv bias)."""
+    if any(shift):
+        back = tuple(-s for s in shift)
+        g = fold_attention_bwd_plain(
+            torch.roll(x, back, (1, 2, 3)), torch.roll(dout, back, (1, 2, 3)),
+            ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask, num_heads,
+            window, scale,
+        )
+        return (torch.roll(g[0], tuple(shift), (1, 2, 3)),) + g[1:]
+    B, D, H, W, C = x.shape
+    dt = x.dtype
+    nh, hd = num_heads, C // num_heads
+    rnd = lambda t: t.to(dt).float()  # noqa: E731  a cast to the compute dtype
+    wins = window_partition(x, window).float()  # (Bn, N, C)
+    do = window_partition(dout.to(dt), window).float()
+    Bn, N, _ = wins.shape
+    xhat, rstd = _ln_stats(wins)
+    row = rnd(xhat * ln_scale.float() + ln_bias.float())
+    qw, pw = rnd(qkv_w), rnd(proj_w)
+    qkv = row @ qw
+    if qkv_b is not None:
+        qkv = qkv + qkv_b.float()
+    qkv = rnd(qkv).reshape(Bn, N, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # (Bn, nH, N, hd)
+    s = (q @ k.transpose(-2, -1)) * scale + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(Bn // nw, nw, nh, N, N) + mask.float()[None, :, None]).reshape(
+            Bn, nh, N, N
+        )
+    P = torch.softmax(s, dim=-1)
+    p = rnd(P)
+    o = rnd(p @ v).transpose(1, 2).reshape(Bn, N, C)
+
+    dproj_b = do.sum((0, 1))
+    dproj_w = o.reshape(-1, C).T @ do.reshape(-1, C)
+    doa = rnd(do @ pw.T).reshape(Bn, N, nh, hd).transpose(1, 2)  # (Bn, nH, N, hd)
+    dv = p.transpose(-2, -1) @ doa
+    dp = doa @ v.transpose(-2, -1)
+    ds = P * (dp - (dp * P).sum(-1, keepdim=True))
+    dbias = ds.sum(0)
+    dss = rnd(ds * scale)
+    dq = dss @ k
+    dk = dss.transpose(-2, -1) @ q
+    dqkv = torch.stack((dq, dk, dv), 2).permute(0, 3, 2, 1, 4).reshape(Bn, N, 3 * C)
+    dqkv_b = dqkv.sum((0, 1)) if qkv_b is not None else None
+    dqkv_c = rnd(dqkv)
+    dqkv_w = row.reshape(-1, C).T @ dqkv_c.reshape(-1, 3 * C)
+    dxa = dqkv_c @ qw.T  # d(LN output), fp32
+    dln_s = (dxa * xhat).sum((0, 1))
+    dln_b = dxa.sum((0, 1))
+    dx = _ln_vjp(dxa, xhat, rstd, ln_scale) + do
+    dx = window_reverse(dx.to(dt), window, B, D, H, W)
+    return dx, dln_s, dln_b, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
+
+
+class _FoldAttention(torch.autograd.Function):
+    """Forward kernel A, backward kernel 6 (``folded_block_attention_trainable``'s
+    custom VJP).  Only LN1 + residual has a backward: that is the Swin
+    block's front half, the one path that trains."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                mask, num_heads, window, scale, residual, shift):
+        args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                num_heads, window, scale, residual, shift)
+        ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask)
+        ctx.meta = (num_heads, window, scale, residual, shift)
+        if x.device.type == "cpu":
+            return fold_attention_plain(*args)
+        return _fold_attention_cuda(*args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask = ctx.saved_tensors
+        num_heads, window, scale, residual, shift = ctx.meta
+        if ln_s is None or not residual:
+            raise NotImplementedError(
+                "fold_attention: the backward (kernel 6) covers LN1 + residual "
+                "only, the Swin block's front half"
+            )
+        dx, dls, dlb, dqw, dqb, dpw, dpb, dbias = fold_attention_bwd(
+            x, dout, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask, num_heads,
+            window, scale, shift,
+        )
+        return (dx, dls, dlb, dqw, dqb, dpw, dpb, dbias,
+                None, None, None, None, None, None)
+
+
 def fold_attention(
     x: torch.Tensor,
     ln_scale: Optional[torch.Tensor],
@@ -109,17 +245,34 @@ def fold_attention(
     ``residual``), computed on the unpartitioned tensor.  With ``shift`` the
     shifted-window roll is folded in (``mask`` is then the shifted blocks'
     mask).  With a zero shift, the contract of
-    ``fused_window_attention_folded(..., ln_scale=, ln_bias=, residual=)``."""
-    args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-            num_heads, window, scale, residual, tuple(shift))
-    if x.device.type == "cpu":
-        return fold_attention_plain(*args)
-    if x.device.type != "cuda":
+    ``fused_window_attention_folded(..., ln_scale=, ln_bias=, residual=)``.
+    Differentiable (kernel 6) with LN1 and the residual."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fold_attention: unsupported device {x.device}")
-    return _fold_attention_cuda(*args)
+    return _FoldAttention.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
+                                bias, mask, num_heads, tuple(window), scale,
+                                residual, tuple(shift))
 
 
 fold_attention.launches = 0
+
+
+def fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
+                       mask, num_heads, window, scale, shift=(0, 0, 0)):
+    """Kernel 6: the gradients of ``fold_attention`` with LN1 and the
+    residual, as ``fold_attention_bwd_plain`` returns them (the contract of
+    ``_fold_bwd_call(..., fuse_ln=True, residual=True)`` with the shift roll
+    folded in)."""
+    args = (x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask,
+            num_heads, tuple(window), scale, tuple(shift))
+    if x.device.type == "cpu":
+        return fold_attention_bwd_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"fold_attention_bwd: unsupported device {x.device}")
+    return _fold_attention_bwd_cuda(*args)
+
+
+fold_attention_bwd.launches = 0
 
 
 def _f32(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
@@ -128,53 +281,64 @@ def _f32(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
     return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
 
-def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
-                         bias, mask, num_heads, window, scale, residual, shift):
+def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes):
+    """The checks kernels A and 6 share; ``smem_bytes`` is the library's
+    shared-memory size function of the kernel."""
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fold_attention: dtype {x.dtype} not supported")
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
     B, D, H, W, C = x.shape
     wd, wh, ww = window
     n = wd * wh * ww
     if C % num_heads or D % wd or H % wh or W % ww:
         raise ValueError(
-            f"fold_attention: shape {tuple(x.shape)} is not window-divisible "
+            f"{what}: shape {tuple(x.shape)} is not window-divisible "
             f"by {window} / heads {num_heads}"
         )
     if x.dtype == torch.bfloat16 and (C % 16 or (C // num_heads) % 16):
         raise NotImplementedError(
-            f"fold_attention: the bf16 kernel runs on 16x16 tensor-core tiles and "
+            f"{what}: the bf16 kernel runs on 16x16 tensor-core tiles and "
             f"needs C and head_dim to be multiples of 16 (got C={C}, "
             f"head_dim={C // num_heads})"
         )
     nw = (D // wd) * (H // wh) * (W // ww)
     if tuple(bias.shape) != (num_heads, n, n):
-        raise ValueError(f"fold_attention: bias {tuple(bias.shape)} != {(num_heads, n, n)}")
+        raise ValueError(f"{what}: bias {tuple(bias.shape)} != {(num_heads, n, n)}")
     if mask is not None and tuple(mask.shape) != (nw, n, n):
-        raise ValueError(f"fold_attention: mask {tuple(mask.shape)} != {(nw, n, n)}")
-    lib = cuda_lib.library()
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    smem = lib.vadcl_fold_attn_smem_bytes(n, C, num_heads, is_bf16)
+        raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(nw, n, n)}")
+    smem = smem_bytes(n, C, num_heads, int(x.dtype == torch.bfloat16))
     if smem > 232448:
         raise NotImplementedError(
-            f"fold_attention: window of {n} tokens at C={C} needs {smem} B of "
+            f"{what}: window of {n} tokens at C={C} needs {smem} B of "
             "shared memory per block (> 227 KB); a tiled variant is still to port"
         )
+
+
+def _fold_operands(x, qkv_w, qkv_b, proj_w, bias, mask):
+    """The operands both kernels read, in the layouts they take: weights in
+    the compute dtype (16-byte aligned), qkv bias, rel-pos bias and mask
+    fp32; a missing mask is a null pointer."""
+    dev, dt, C = x.device, x.dtype, x.shape[-1]
+    qw = cuda_lib.aligned(qkv_w.detach().to(device=dev, dtype=dt))
+    pw = cuda_lib.aligned(proj_w.detach().to(device=dev, dtype=dt))
+    bs = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
+    mk = None if mask is None else mask.detach().to(device=dev, dtype=torch.float32).contiguous()
+    return qw, _f32(qkv_b, 3 * C, dev), pw, bs, mk
+
+
+def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
+                         bias, mask, num_heads, window, scale, residual, shift):
+    lib = cuda_lib.library()
+    _check_fold("fold_attention", x, bias, mask, num_heads, window,
+                lib.vadcl_fold_attn_smem_bytes)
+    B, D, H, W, C = x.shape
     dev = x.device
-    dt = x.dtype
     xc = x.contiguous()
     out = torch.empty_like(xc)
     has_ln = ln_scale is not None
     ln_s = _f32(ln_scale, C, dev) if has_ln else None
     ln_b = _f32(ln_bias, C, dev) if has_ln else None
-    qw = cuda_lib.aligned(qkv_w.detach().to(device=dev, dtype=dt))
-    pw = cuda_lib.aligned(proj_w.detach().to(device=dev, dtype=dt))
-    qb = _f32(qkv_b, 3 * C, dev)
+    qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
     pb = _f32(proj_b, C, dev)
-    bs = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
-    mk = (
-        mask.detach().to(device=dev, dtype=torch.float32).contiguous()
-        if mask is not None else None
-    )
     err = lib.vadcl_fold_attn(
         xc.data_ptr(),
         ln_s.data_ptr() if has_ln else None,
@@ -182,10 +346,49 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
         qw.data_ptr(), qb.data_ptr(), pw.data_ptr(), pb.data_ptr(),
         bs.data_ptr(), mk.data_ptr() if mk is not None else None,
         out.data_ptr(),
-        B, D, H, W, C, num_heads, wd, wh, ww, shift[0] % D, shift[1] % H,
-        shift[2] % W, float(scale), int(bool(residual)), is_bf16,
+        B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H,
+        shift[2] % W, float(scale), int(bool(residual)), int(x.dtype == torch.bfloat16),
         cuda_lib.stream_ptr(xc),
     )
     cuda_lib.check(err, "fold_attention")
     fold_attention.launches += 1
     return out
+
+
+def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
+                             bias, mask, num_heads, window, scale, shift):
+    lib = cuda_lib.library()
+    _check_fold("fold_attention_bwd", x, bias, mask, num_heads, window,
+                lib.vadcl_fold_attn_bwd_smem_bytes)
+    B, D, H, W, C = x.shape
+    dev, dt = x.device, x.dtype
+    is_bf16 = int(dt == torch.bfloat16)
+    n = window[0] * window[1] * window[2]
+    xc = x.contiguous()
+    doc = dout.to(dt).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(xc)
+    dln_s, dln_b = torch.empty(C, **f32), torch.empty(C, **f32)
+    dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), torch.empty(3 * C, **f32)
+    dproj_w, dproj_b = torch.empty(C, C, **f32), torch.empty(C, **f32)
+    dbias = torch.empty(num_heads, n, n, **f32)
+    ws = torch.empty(
+        lib.vadcl_fold_attn_bwd_workspace_bytes(B, D, H, W, C, num_heads, *window, is_bf16),
+        dtype=torch.uint8, device=dev,
+    )
+    ls, lb = _f32(ln_scale, C, dev), _f32(ln_bias, C, dev)
+    qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
+    err = lib.vadcl_fold_attn_bwd(
+        xc.data_ptr(), doc.data_ptr(), ls.data_ptr(), lb.data_ptr(), qw.data_ptr(),
+        qb.data_ptr(), pw.data_ptr(), bs.data_ptr(),
+        mk.data_ptr() if mk is not None else None,
+        dx.data_ptr(), dln_s.data_ptr(), dln_b.data_ptr(), dqkv_w.data_ptr(),
+        dqkv_b.data_ptr(), dproj_w.data_ptr(), dproj_b.data_ptr(), dbias.data_ptr(),
+        ws.data_ptr(),
+        B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H,
+        shift[2] % W, float(scale), is_bf16, cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, "fold_attention_bwd")
+    fold_attention_bwd.launches += 1
+    return (dx, dln_s, dln_b, dqkv_w, dqkv_b if qkv_b is not None else None,
+            dproj_w, dproj_b, dbias)

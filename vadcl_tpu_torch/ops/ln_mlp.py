@@ -1,14 +1,22 @@
-"""Kernel B: the fused LN2 -> MLP -> residual tail of a Swin block.
+"""Kernel B: the fused LN2 -> MLP -> residual tail of a Swin block, and
+kernel 5, its backward.
 
-Replaces ``vadcl_tpu/ops/pallas_mlp.py:_fwd_kernel`` (entry
-``fused_ln_mlp``).  The CUDA kernel is ``csrc/ln_mlp.cu``: one block per
+Kernel B replaces ``vadcl_tpu/ops/pallas_mlp.py:_fwd_kernel`` (entry
+``fused_ln_mlp``).  Its CUDA kernel is ``csrc/ln_mlp.cu``: one block per
 token tile, walking the 4C hidden width in chunks so the hidden activation
 never reaches device memory; bf16 runs on the tensor cores and needs
 C % 16 == 0, C <= 192 and a hidden width divisible by 128.
 
-On a CPU tensor ``ln_mlp`` runs ``ln_mlp_plain``; on a CUDA tensor it
-launches the kernel or raises.  Bounds on the card and what the simple
-design leaves are in the header of ``csrc/ln_mlp.cu``.
+Kernel 5 replaces ``_bwd_kernel`` (entry ``_vjp_bwd``).  Its CUDA kernel is
+``csrc/ln_mlp_bwd.cu``: per token tile it recomputes the forward and emits
+dx; the weight and bias sums over tokens go through a deterministic second
+pass.  Like the Pallas backward, every product is fp32 on fp32 operands.
+
+``ln_mlp`` is a ``torch.autograd.Function``: forward kernel B, backward
+kernel 5.  On a CPU tensor both run their plain versions (``ln_mlp_plain``,
+``ln_mlp_bwd_plain``); on a CUDA tensor they launch the kernels or raise.
+Bounds on the card and what the simple designs leave are in the headers of
+the two ``.cu`` files.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
-from vadcl_tpu_torch.ops.fold_attn import _f32, _ln_fast
+from vadcl_tpu_torch.ops.fold_attn import _f32, _ln_fast, _ln_stats, _ln_vjp
 
 
 def gelu_exact_f32(h32: torch.Tensor) -> torch.Tensor:
@@ -39,20 +47,78 @@ def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     return (x32 + o).to(dt)
 
 
-def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
-    """``y = x + fc2(gelu(fc1(LN(x))))`` over the last axis of x (any
-    leading shape); same contract as ``fused_ln_mlp``."""
-    if x.device.type == "cpu":
-        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_mlp: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"ln_mlp: dtype {x.dtype} not supported")
+def dgelu_exact_f32(h32: torch.Tensor) -> torch.Tensor:
+    """d/dh of the exact-erf GELU in fp32: Phi(h) + h * phi(h)."""
+    cdf = 0.5 * (1.0 + torch.erf(h32 * 0.7071067811865476))
+    pdf = torch.exp(-0.5 * h32 * h32) * 0.3989422804014327
+    return cdf + h32 * pdf
+
+
+def ln_mlp_bwd_plain(x, dy, ln_scale, ln_bias, w1, b1, w2):
+    """Plain PyTorch version of kernel 5 with ``_bwd_kernel``'s numerics:
+    the recompute rounds z to the compute dtype for fc1 and h before GELU,
+    but the backward products run in fp32 on fp32 operands (the unrounded z
+    and g, dy and the weights upcast from the compute dtype).  Returns (dx,
+    dls, dlb, dw1, db1, dw2, db2); dx in the compute dtype, the rest fp32."""
+    dt = x.dtype
     shape = x.shape
     c = shape[-1]
+    x32 = x.reshape(-1, c).float()
+    dy32 = dy.reshape(-1, c).to(dt).float()
+    xhat, rstd = _ln_stats(x32)
+    z = xhat * ln_scale.float() + ln_bias.float()
+    w1f, w2f = w1.to(dt).float(), w2.to(dt).float()
+    hb = (z.to(dt).float() @ w1f + b1.float()).to(dt).float()
+    g = gelu_exact_f32(hb)
+    dw2 = g.T @ dy32
+    dh = (dy32 @ w2f.T) * dgelu_exact_f32(hb)
+    dw1 = z.T @ dh
+    dz = dh @ w1f.T
+    dx = dy32 + _ln_vjp(dz, xhat, rstd, ln_scale)
+    return (dx.to(dt).reshape(shape), (dz * xhat).sum(0), dz.sum(0), dw1,
+            dh.sum(0), dw2, dy32.sum(0))
+
+
+class _LnMlp(torch.autograd.Function):
+    """Forward kernel B, backward kernel 5 (``fused_ln_mlp``'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2)
+        if x.device.type == "cpu":
+            return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        return _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *params = ctx.saved_tensors
+        return ln_mlp_bwd(x, dy, *params)
+
+
+def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
+    """``y = x + fc2(gelu(fc1(LN(x))))`` over the last axis of x (any
+    leading shape); same contract as ``fused_ln_mlp``, differentiable
+    (kernel 5)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ln_mlp: unsupported device {x.device}")
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2)
+
+
+ln_mlp.launches = 0
+
+
+def _check_mlp(what, x, w1, w2):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
+    c = x.shape[-1]
     ch = w1.shape[1]
     if tuple(w1.shape) != (c, ch) or tuple(w2.shape) != (ch, c):
-        raise ValueError(f"ln_mlp: weights {tuple(w1.shape)}, {tuple(w2.shape)} vs C={c}")
+        raise ValueError(f"{what}: weights {tuple(w1.shape)}, {tuple(w2.shape)} vs C={c}")
+    return c, ch
+
+
+def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
+    c, ch = _check_mlp("ln_mlp", x, w1, w2)
     if x.dtype == torch.bfloat16 and (c % 16 or c > 192 or ch % 128):
         raise NotImplementedError(
             f"ln_mlp: the bf16 kernel runs on 16x16 tensor-core tiles and needs "
@@ -60,6 +126,7 @@ def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
             f"(got C={c}, hidden {ch})"
         )
     dev, dt = x.device, x.dtype
+    shape = x.shape
     x2 = x.reshape(-1, c).contiguous()
     y = torch.empty_like(x2)
     w1c = cuda_lib.aligned(w1.detach().to(device=dev, dtype=dt))
@@ -77,4 +144,45 @@ def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     return y.reshape(shape)
 
 
-ln_mlp.launches = 0
+def ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
+    """Kernel 5: the gradients of ``ln_mlp`` as ``ln_mlp_bwd_plain`` returns
+    them (the contract of ``fused_ln_mlp``'s ``_vjp_bwd``)."""
+    if x.device.type == "cpu":
+        return ln_mlp_bwd_plain(x, dy, ln_scale, ln_bias, w1, b1, w2)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_mlp_bwd: unsupported device {x.device}")
+    c, ch = _check_mlp("ln_mlp_bwd", x, w1, w2)
+    if c % 4 or ch % 4:
+        raise NotImplementedError(
+            f"ln_mlp_bwd: the kernel's vector loads need C and the hidden width to be "
+            f"multiples of 4 (got C={c}, hidden {ch})"
+        )
+    dev, dt = x.device, x.dtype
+    shape = x.shape
+    x2 = x.reshape(-1, c).contiguous()
+    dy2 = dy.reshape(-1, c).to(dt).contiguous()
+    ntok = x2.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x2)
+    dls, dlb, db2 = torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(c, **f32)
+    dw1, db1 = torch.empty(c, ch, **f32), torch.empty(ch, **f32)
+    dw2 = torch.empty(ch, c, **f32)
+    lib = cuda_lib.library()
+    ws = torch.empty(lib.vadcl_ln_mlp_bwd_workspace_bytes(ntok, c, ch),
+                     dtype=torch.uint8, device=dev)
+    w1c = w1.detach().to(device=dev, dtype=dt).contiguous()
+    w2c = w2.detach().to(device=dev, dtype=dt).contiguous()
+    ls, lb, b1c = _f32(ln_scale, c, dev), _f32(ln_bias, c, dev), _f32(b1, ch, dev)
+    err = lib.vadcl_ln_mlp_bwd(
+        x2.data_ptr(), dy2.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1c.data_ptr(),
+        b1c.data_ptr(), w2c.data_ptr(), dx.data_ptr(), dls.data_ptr(),
+        dlb.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+        db2.data_ptr(), ws.data_ptr(), ntok, c, ch, int(dt == torch.bfloat16),
+        cuda_lib.stream_ptr(x2),
+    )
+    cuda_lib.check(err, "ln_mlp_bwd")
+    ln_mlp_bwd.launches += 1
+    return dx.reshape(shape), dls, dlb, dw1, db1, dw2, db2
+
+
+ln_mlp_bwd.launches = 0

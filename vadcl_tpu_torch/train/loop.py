@@ -1,0 +1,224 @@
+"""Epoch training loop (``vadcl_tpu/train/loop.py``), single process: data,
+step, logging, checkpoints, eval hook.
+
+Kept from the JAX loop: the ``exp.log`` line format; mid-epoch auto-resume
+from the newest checkpoint (the loader fast-forwards with ``start_iter``);
+one-step-lagged metrics; ``loss_record/*.npy`` truncated to the resumed
+step; ``save_every_iters`` / ``save_every_epochs``; ``auc_record.csv`` and
+the ``best`` checkpoint; the non-finite-loss abort; the loss-spike batch
+dump and the periodic input/recon dump (both need PIL, through
+``vadcl_tpu/viz/dumps.py``, imported only when used).  Multi-process data
+parallelism and the profiler hook are still to port.
+
+The loader is anything with ``batch_size``, ``steps_per_epoch()`` and
+``epoch(e, start_iter=0)`` yielding uint8 (B, T, H, W, 3) numpy batches
+(the JAX package's ``HostDataLoader`` protocol).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from vadcl_tpu_torch.core.config import Config
+from vadcl_tpu_torch.core.dtypes import compute_dtype
+from vadcl_tpu_torch.models.backbone import VADModel
+from vadcl_tpu_torch.train.checkpoint import CheckpointManager
+from vadcl_tpu_torch.train.step import (
+    TrainState,
+    create_train_state,
+    make_train_step,
+    split_predict_batch,
+)
+
+
+def get_logger(path: str, name: str = "vadcl_torch") -> logging.Logger:
+    """File logger in the reference's [time][file][line][level] format,
+    truncated per run (``misc/utils.py:79-95``)."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fh = logging.FileHandler(path, "w")
+    fh.setFormatter(logging.Formatter(
+        "[%(asctime)s][%(filename)s][line:%(lineno)d][%(levelname)s] %(message)s"))
+    logger.addHandler(fh)
+    return logger
+
+
+def _dumps():
+    """``save_clip_frames`` of ``vadcl_tpu/viz/dumps.py`` (numpy + PIL)."""
+    try:
+        from vadcl_tpu.viz.dumps import save_clip_frames
+    except ImportError as e:
+        raise ImportError(
+            "JPEG dumps (dump_every_iters > 0, the loss-spike dump) need PIL, "
+            f"which this environment lacks ({e}); set dump_every_iters=0"
+        ) from e
+    return save_clip_frames
+
+
+class StepTimer:
+    """Clips per second from an EMA of the wall time between ticks."""
+
+    def __init__(self, clips_per_step: int, ema: float = 0.9):
+        self.clips_per_step, self.ema = clips_per_step, ema
+        self._last: Optional[float] = None
+        self.step_time: Optional[float] = None
+
+    def tick(self) -> None:
+        now = time.time()
+        if self._last is not None:
+            dt = now - self._last
+            self.step_time = dt if self.step_time is None else (
+                self.ema * self.step_time + (1 - self.ema) * dt)
+        self._last = now
+
+    @property
+    def clips_per_sec(self) -> float:
+        return self.clips_per_step / self.step_time if self.step_time else 0.0
+
+
+def train(
+    cfg: Config,
+    loader,
+    eval_fn: Optional[Callable[[TrainState], float]] = None,
+    eval_every_epochs: int = 0,
+    max_steps: Optional[int] = None,
+    device: Optional[str] = None,
+) -> TrainState:
+    """Train ``VADModel(cfg.model)`` from its seeded init (``cfg.seed``) or
+    from the newest checkpoint under ``<output_dir>/ckpt``.  ``device``
+    defaults to CUDA when a card is visible; the compute dtype is bf16 there
+    (``cfg.bf16``) and fp32 on the CPU."""
+    dev = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    logger = get_logger(os.path.join(cfg.output_dir, "exp.log"))
+    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
+    if cfg.dump_every_iters:
+        _dumps()  # fail now, not at the first dump, when PIL is missing
+
+    dtype = compute_dtype(dev) if cfg.bf16 else torch.float32
+    model = VADModel(cfg.model, dtype, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    model.train()
+    steps_per_epoch = loader.steps_per_epoch()
+    state = create_train_state(model, cfg)
+    step_fn = make_train_step(model, cfg, steps_per_epoch)
+
+    # auto-resume inside the epoch from the newest checkpoint (epoch, iter)
+    latest = ckpt.latest_tag()
+    start_epoch, start_iter = 0, 0
+    if latest is not None:
+        ckpt.restore(latest, state)
+        meta = ckpt.metadata(latest)
+        start_epoch = int(meta.get("epoch", 0))
+        start_iter = int(meta.get("iter", steps_per_epoch - 1)) + 1
+        if start_iter >= steps_per_epoch:
+            start_epoch, start_iter = start_epoch + 1, 0
+        logger.info(f"resumed from checkpoint {latest} at epoch {start_epoch} iter {start_iter}")
+
+    def to_device(batch) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(batch))
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t
+
+    timer = StepTimer(clips_per_step=loader.batch_size)
+    best_auc = -1.0
+    spike = {"prev_loss": None, "dumped": False}
+    loss_record_dir = os.path.join(cfg.output_dir, "loss_record")
+    loss_log = {"loss": [], "loss_pixel": [], "cluster_loss": [], "space_loss": []}
+
+    def flush_loss_records():
+        if not loss_log["loss"]:
+            return
+        os.makedirs(loss_record_dir, exist_ok=True)
+        for name, vals in loss_log.items():
+            np.save(os.path.join(loss_record_dir, f"{name}.npy"), np.asarray(vals))
+
+    if latest is not None:  # carry the records across the resume, cut at its step
+        for name in loss_log:
+            p = os.path.join(loss_record_dir, f"{name}.npy")
+            if os.path.exists(p):
+                loss_log[name] = list(np.load(p)[: state.step])
+
+    def process_metrics(m, epoch_h, it_h, batch_h, step_h):
+        loss = float(m.loss)
+        if not np.isfinite(loss):
+            logger.error(f"Loss is {loss}, stopping training")
+            raise FloatingPointError(f"non-finite loss at step {step_h}")
+        prev = spike["prev_loss"]
+        if prev is not None and abs(loss - prev) > 10.0 and not spike["dumped"]:
+            spike["dumped"] = True  # once per run (main_predict.py:290-294)
+            try:
+                save = _dumps()
+            except ImportError as e:
+                logger.warning(f"loss jumped {prev:.3f} -> {loss:.3f}; batch not dumped: {e}")
+            else:
+                save(batch_h, os.path.join(cfg.output_dir, "bug_data_detect"))
+                logger.warning(f"loss jumped {prev:.3f} -> {loss:.3f}; batch dumped")
+        spike["prev_loss"] = loss
+        if cfg.dump_every_iters and step_h % cfg.dump_every_iters == 0:
+            save = _dumps()
+            batch_f = np.asarray(batch_h)
+            if batch_f.dtype == np.uint8:
+                batch_f = batch_f.astype(np.float32) / 255.0
+            _, target = split_predict_batch(batch_f, cfg.data.frame_num, cfg.model.predict)
+            save(np.asarray(target), os.path.join(cfg.output_dir, "video_show_origin"))
+            save(m.recon.float().cpu().numpy(), os.path.join(cfg.output_dir, "video_show"))
+        loss_log["loss"].append(loss)
+        loss_log["loss_pixel"].append(float(m.loss_pixel))
+        loss_log["cluster_loss"].append(float(m.cluster_loss))
+        loss_log["space_loss"].append(float(m.space_loss))
+        logger.info(
+            "Epoch:[{}/{}]\t batch:[{}/{}]\t loss={:.5f}\t lr={:.7f}\t "
+            "clips/s={:.1f}".format(epoch_h, cfg.optim.epochs, it_h, steps_per_epoch, loss,
+                                    m.lr, timer.clips_per_sec))
+
+    lagged = None
+    t0 = time.time()
+    for epoch in range(start_epoch, cfg.optim.epochs):
+        first_iter = start_iter if epoch == start_epoch else 0
+        for it, batch in enumerate(loader.epoch(epoch, start_iter=first_iter), start=first_iter):
+            m = step_fn(state, to_device(batch))
+            timer.tick()
+            # metrics with a one-step lag, as the JAX loop consumes them
+            if lagged is not None:
+                process_metrics(*lagged)
+            lagged = (m, epoch, it, batch, state.step)
+            if cfg.save_every_iters and state.step % cfg.save_every_iters == 0:
+                # the checkpoint says step N: the records must hold steps 1..N
+                process_metrics(*lagged)
+                lagged = None
+                ckpt.save(str(state.step), state, {"epoch": epoch, "iter": it})
+                flush_loss_records()
+            if max_steps is not None and state.step >= max_steps:
+                if lagged is not None:
+                    process_metrics(*lagged)
+                flush_loss_records()
+                return state
+        if lagged is not None:
+            process_metrics(*lagged)
+            lagged = None
+        flush_loss_records()
+        if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
+            ckpt.save(str(state.step), state, {"epoch": epoch, "iter": steps_per_epoch - 1})
+        if eval_fn is not None and eval_every_epochs and (epoch + 1) % eval_every_epochs == 0:
+            auc = eval_fn(state)
+            logger.info(f"epoch {epoch} AUC={auc:.4f}")
+            with open(os.path.join(cfg.output_dir, "auc_record.csv"), "a") as f:
+                f.write(f"{epoch},{auc:.6f}\n")
+            if auc > best_auc:
+                best_auc = auc
+                ckpt.save("best", state, {"epoch": epoch, "auc": auc})
+    if lagged is not None:
+        process_metrics(*lagged)
+    flush_loss_records()
+    logger.info(f"training done in {time.time() - t0:.1f}s")
+    return state

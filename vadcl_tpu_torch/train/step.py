@@ -1,0 +1,172 @@
+"""The training step (``vadcl_tpu/train/step.py``): forward, staged losses,
+backward through the hand-written kernels, gated torch optimizer update.
+
+Loss parity with ``main_predict.py:273-284``:
+  loss = ||(recon - target)^2||_F  +  cluster_loss  +  space_loss
+with the predict-mode frame split of ``main_predict.py:234-241`` (input = the
+first 4 frames, target = the clip's last frame: at frame_num=4 the target
+overlaps the input, the reference's quirk).  Cluster losses turn on at
+``cluster_start_iter``; parameters named "cluster" train from
+``cluster_train_start_iter``; compactness engages at
+``compactness_start_iter``.
+
+Unlike the JAX step, which returns a new state, this step updates the
+model's parameters and the optimizer's state in place (``TrainState`` holds
+both).  Single process; data parallelism is still to port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from vadcl_tpu_torch.core.config import TRAINABLE_ATTN_KERNELS, Config
+from vadcl_tpu_torch.models.backbone import VADModel
+from vadcl_tpu_torch.ops.cluster import frobenius_norm
+from vadcl_tpu_torch.train.optim import (
+    apply_gates,
+    build_optimizer,
+    cosine_epoch_lr,
+    param_gate_thresholds,
+    set_lr,
+)
+
+PREDICT_INPUT_FRAMES = 4  # the reference's literal ``video[:, :, 0:4]``
+
+
+@dataclass
+class TrainState:
+    """What the JAX ``TrainState`` holds: the step count, the model (its
+    parameters and frozen batch statistics) and the optimizer (its state)."""
+
+    step: int
+    model: VADModel
+    optimizer: torch.optim.Optimizer
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    loss_pixel: torch.Tensor
+    cluster_loss: torch.Tensor
+    space_loss: torch.Tensor
+    lr: float
+    grad_finite: bool  # False: the step was skipped (non-finite loss)
+    recon: Optional[torch.Tensor] = None  # carried when dump_every_iters > 0
+
+
+def normalize_clip(clip: torch.Tensor) -> torch.Tensor:
+    """uint8 batches normalize on the device (k / 255 in fp32); float
+    batches pass through."""
+    if clip.dtype == torch.uint8:
+        return clip.float() / 255.0
+    return clip
+
+
+def split_predict_batch(clip, frame_num: int, predict: bool) -> Tuple:
+    """``main_predict.py:234-241``: predict mode feeds the first 4 frames
+    (hard-coded in the reference whatever ``frame_num`` is) and targets the
+    clip's last frame; at the default frame_num=4 the target is also the
+    last input frame.  Reconstruction mode targets the whole clip."""
+    if predict:
+        return clip[:, :PREDICT_INPUT_FRAMES], clip[:, -1:]
+    return clip, clip
+
+
+def _check_trainable(cfg: Config) -> None:
+    m = cfg.model
+    if m.fused_attention and m.attn_kernel not in TRAINABLE_ATTN_KERNELS:
+        raise ValueError(
+            f"attn_kernel={m.attn_kernel!r} is inference-only (no backward); "
+            f"trainable kernels: {sorted(TRAINABLE_ATTN_KERNELS)}"
+        )
+    if m.drop_rate > 0 or m.attn_drop_rate > 0 or m.drop_path_rate > 0:
+        raise NotImplementedError(
+            "dropout and drop-path are not ported yet (ROADMAP.md, queue 1 "
+            "item 3); train with every drop rate 0"
+        )
+
+
+def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
+    """loss_fn(clip, step) -> (loss, (loss_pixel, cluster_loss, space_loss,
+    recon or None)); ``step`` is the host-side step count."""
+    _check_trainable(cfg)
+    sched = cfg.schedule
+
+    def loss_fn(clip: torch.Tensor, step: int):
+        clip = normalize_clip(clip)
+        inputs, target = split_predict_batch(clip, cfg.data.frame_num, cfg.model.predict)
+        gate = None
+        if cfg.model.compactness:
+            gate = torch.tensor(float(step >= sched.compactness_start_iter),
+                                device=clip.device)
+        out = model(inputs, compactness_gate=gate)
+        err = out.recon.float() - target.float()
+        loss_pixel = frobenius_norm(err * err)
+        cluster_gate = float(step >= sched.cluster_start_iter)
+        cluster_loss = out.cluster_loss * cluster_gate
+        space_loss = out.space_loss * cluster_gate
+        loss = (sched.recon_weight * loss_pixel + sched.cluster_weight * cluster_loss
+                + sched.space_weight * space_loss)
+        return loss, (loss_pixel, cluster_loss, space_loss,
+                      out.recon if return_recon else None)
+
+    return loss_fn
+
+
+def create_train_state(model: VADModel, cfg: Config) -> TrainState:
+    """A fresh optimizer over the model's parameters at step 0."""
+    o = cfg.optim
+    opt = build_optimizer(o.optimizer, model.parameters(), o.weight_decay, o.b1, o.b2, o.eps)
+    return TrainState(step=0, model=model, optimizer=opt)
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+
+
+def make_train_step(model: VADModel, cfg: Config,
+                    steps_per_epoch: int) -> Callable[[TrainState, torch.Tensor], StepMetrics]:
+    """step_fn(state, clip) -> StepMetrics for ``state.model is model``,
+    updating ``state`` in place.
+
+    One step: loss and backward at ``state.step``; global-norm clipping
+    (``clip_grad`` > 0) over every gradient; gated parameters get no
+    gradient; the optimizer steps at lr(step); then the step count
+    advances.  A non-finite loss skips the optimizer step, so parameters
+    and optimizer state are held (the JAX step's ``jnp.where`` guard); it
+    costs one host read of the loss per step."""
+    loss_fn = make_loss_fn(model, cfg, return_recon=cfg.dump_every_iters > 0)
+    lr_sched = cosine_epoch_lr(cfg.optim.lr, cfg.optim.min_lr, cfg.optim.epochs,
+                               steps_per_epoch, cfg.optim.warmup_epochs)
+    named = list(model.named_parameters())
+    gates = param_gate_thresholds(named, cfg.schedule.cluster_train_start_iter)
+
+    def step_fn(state: TrainState, clip: torch.Tensor) -> StepMetrics:
+        if state.model is not model:
+            raise ValueError("make_train_step: the state holds another model")
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss, (lp, lc, ls, recon) = loss_fn(clip, state.step)
+        loss.backward()
+        finite = bool(torch.isfinite(loss))
+        lr = lr_sched(state.step)
+        if finite:
+            if cfg.optim.clip_grad > 0:
+                grads = [p.grad for _, p in named if p.grad is not None]
+                scale = torch.clamp(cfg.optim.clip_grad / (global_grad_norm(grads) + 1e-6),
+                                    max=1.0)
+                for g in grads:
+                    g.mul_(scale)
+            apply_gates(named, gates, state.step)
+            set_lr(opt, lr)
+            opt.step()
+        opt.zero_grad(set_to_none=True)
+        state.step += 1
+        return StepMetrics(loss=loss.detach(), loss_pixel=lp.detach(),
+                           cluster_loss=lc.detach(), space_loss=ls.detach(), lr=lr,
+                           grad_finite=finite,
+                           recon=recon.detach() if recon is not None else None)
+
+    return step_fn
