@@ -7,30 +7,39 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 Phases (any failure raises and the script exits non-zero):
   0. device: CUDA must be available (no CPU fallback); print the card's
      name and power limit as nvidia-smi reports them.
-  1. build the six CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
-     process per source, all started together).
-  2. each forward kernel (A-D) against its plain PyTorch version on the
-     card at the flagship shapes, at batch 4 (bf16 and fp32) and at the
-     scoring path's batch of 16 windows (bf16): error against the stated
-     bound and the median CUDA-event time of both; then edge shapes.
-  2b. the backward kernels (5: LN->MLP, 6: fold attention) against their
-     plain versions at the training batch of 4, bf16 and fp32, every
-     gradient tensor held separately; times; edge shapes.
-  3. the whole flagship model (shanghaitech, predict, fused fold attention
-     and fused cluster heads) in fp32 with TF32 off: the card (kernels)
-     against the CPU (plain versions) on 2 clips of 4x224^2.
-  3b. the same model's training loss and backward on 1 clip, card against
-     CPU: the loss, the set of parameters with a gradient, and every
-     parameter gradient.
+  1. build the nine CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
+     process per source, all started together); the Python mirror of the
+     fold kernels' shared-memory sizes is held against the library's.
+  2. each forward kernel (A-D, 7: window attention, 9: its packed variant)
+     against its plain PyTorch version on the card at the flagship shapes,
+     at batch 4 (bf16 and fp32) and at the scoring path's batch of 16
+     windows (bf16): error against the stated bound and the median
+     CUDA-event time of both; then edge shapes, a missing qkv bias, and
+     kernel A without LN and residual on a window-padded shape.
+  2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
+     modes, 8: window attention) against their plain versions at the
+     training batch of 4, bf16 and fp32, every gradient tensor held
+     separately; times; edge shapes.
+  3. the whole flagship model (shanghaitech, predict, fused attention and
+     fused cluster heads) in fp32 with TF32 off, the card (kernels) against
+     the CPU (plain versions) on 4x224^2 clips: ``attn_kernel="base"`` and
+     ``"packed"`` at full depth, ``"fold"`` at a reduced depth.
+  3b. the training loss and backward on 1 clip, card against CPU (the loss,
+     the set of parameters with a gradient, and every parameter gradient):
+     ``"base"`` at full depth, ``"fold"`` at a reduced depth, and ``"fold"``
+     on a 240^2 clip, whose 60^2 and 30^2 token grids need window padding.
   4. the scoring path in bf16: in-memory uint8 videos through
      ``evaluate_videos`` (PSNR -> anomaly score -> per-scene AUC) with
-     batch_windows=16; kernels A-D must have launched on this path.
+     batch_windows=16, once per ``attn_kernel`` in fold, base, packed; the
+     kernels each path must run have launched and the others have not.
   5. the training path in bf16: ``train()`` on the flagship config from a
      seeded init with an in-memory uint8 loader at batch 4, 2 warm-up and
-     8 timed steps; all six kernels must have launched on this path; then
-     a checkpoint round trip into a fresh model and optimizer.
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+     8 timed steps, under ``"fold"`` and under ``"base"``, with the same
+     launch checks; a checkpoint round trip into a fresh model and
+     optimizer; a ``"packed"`` train step is refused before any launch.
+The second-to-last line is a JSON object describing each kernel (its time
+beside its roofline bound on an H100's published peaks); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,6 +62,10 @@ FOLD_GEOMETRIES = {  # name: ((D, H, W, C) per clip, heads, runtime window, shif
     "dec_stage1": ((1, 56, 56, 96), 6, (1, 7, 7), (0, 3, 3)),
 }
 MLP_SHAPES = {96: (2, 56, 56), 192: (2, 28, 28)}  # C: (D, H, W) per clip
+PADDED_FOLD = ((2, 63, 63, 96), 6, (2, 7, 7), (0, 3, 3))  # a 240^2 clip's stage 0, padded
+# Published peaks of one H100 SXM (dense), the yardstick of every bound_ms:
+# device memory rate, bf16 tensor-core rate, fp32 rate outside the tensor cores.
+HBM_BYTES_PER_S, PEAK_FLOPS = 3.35e12, {"bf16": 989e12, "fp32": 67e12}
 BATCH_WINDOWS = 16  # phase 4's batch: the shapes the main path gives each kernel
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise.  fp32: only the
 # summation order differs (~1e-6 at O(1) outputs).  bf16: both round at the
@@ -92,6 +105,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def bound(tensors, flops: float, peak: str) -> dict:
+    """The least time the card could take for one call: the larger of the
+    bytes of ``tensors`` (every input and output once) over the memory rate
+    and ``flops`` over the peak rate of ``peak`` ("bf16" or "fp32")."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[peak] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+
+
+def attn_flops(tokens: int, c: int, n: int, backward: bool = False) -> float:
+    """Window attention per token: qkv 6C^2, q.k and p.v 2NC each, proj 2C^2;
+    the backward recomputes qkv, q.k and p.v and adds dproj_w, dout.proj^T,
+    dv, dp, dq, dk (2NC each), dqkv_w and dx (6C^2 each)."""
+    return tokens * ((22 * c * c + 12 * n * c) if backward else (8 * c * c + 4 * n * c))
+
+
+def tensors_of(*groups):
+    out = []
+    for g in groups:
+        for t in (g.values() if isinstance(g, dict) else g):
+            if isinstance(t, torch.Tensor):
+                out.append(t)
+    return out
+
+
 def check_close(name, got, want, atol, rtol):
     err = (got.float() - want.float()).abs()
     bound = atol + rtol * want.float().abs()
@@ -118,10 +157,25 @@ def phase_build():
     from vadcl_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
-    cuda_lib.library()
+    lib = cuda_lib.library()
     built = cuda_lib.build_seconds
     print(f"[1] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {'%.2f s' % built if built is not None else 'cached'})")
+    from vadcl_tpu_torch.ops.fold_attn import fold_smem_bytes
+
+    for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
+                     (98, 24, 2), (392, 96, 6)):
+        for bf16 in (0, 1):
+            if bf16 and c % 16:
+                continue
+            mine = (fold_smem_bytes(n, c, nh, bool(bf16)),
+                    fold_smem_bytes(n, c, nh, bool(bf16), backward=True))
+            theirs = (lib.vadcl_fold_attn_smem_bytes(n, c, nh, bf16),
+                      lib.vadcl_fold_attn_bwd_smem_bytes(n, c, nh, bf16))
+            if mine != theirs:
+                raise AssertionError(f"fold_smem_bytes{(n, c, nh, bf16)} = {mine} but the "
+                                     f"library says {theirs}")
+    print("  fold_smem_bytes (the route's predicate) agrees with the library's layouts")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -152,6 +206,42 @@ def check_fold(name, a) -> float:
     b = dict(a, residual=False)
     return max(e, check_close(f"{name} branch", fold_attention(**b),
                               fold_attention_plain(**b), *bounds))
+
+
+def _win_case(batch, gname, shifted, dtype, gen, qkv_bias=True):
+    """Arguments of kernels 7 and 9 at a flagship geometry: the partitioned
+    windows (batch * nW, N, C) of ``batch`` clips, rel-pos bias at unit
+    scale, the shift mask when ``shifted``."""
+    (D, H, W, C), nh, window, shift = FOLD_GEOMETRIES[gname]
+    return _win_case_at(batch, (D, H, W), C, nh, window, shift if shifted else (0, 0, 0),
+                        dtype, gen, qkv_bias)
+
+
+def _win_case_at(batch, dhw, C, nh, window, shift, dtype, gen, qkv_bias=True):
+    from vadcl_tpu_torch.ops.window import compute_attn_mask
+
+    D, H, W = dhw
+    n = window[0] * window[1] * window[2]
+    nw = (D // window[0]) * (H // window[1]) * (W // window[2])
+    r = lambda *s: torch.randn(*s, generator=gen).to(DEV)
+    mask = compute_attn_mask(D, H, W, window, shift)
+    return dict(
+        x_windows=r(batch * nw, n, C).to(dtype), qkv_w=r(C, 3 * C) / C**0.5,
+        qkv_b=0.1 * r(3 * C) if qkv_bias else None, proj_w=r(C, C) / C**0.5,
+        proj_b=0.1 * r(C), bias=r(nh, n, n),
+        mask=None if mask is None else torch.from_numpy(mask).to(DEV),
+        num_heads=nh, n_windows=nw, scale=(C // nh) ** -0.5,
+    )
+
+
+def window_kernels():
+    from vadcl_tpu_torch.ops.window_attn import (
+        window_attention_fused, window_attention_fused_plain, window_attention_packed,
+        window_attention_packed_plain,
+    )
+
+    return (("window_attention_fused", window_attention_fused, window_attention_fused_plain),
+            ("window_attention_packed", window_attention_packed, window_attention_packed_plain))
 
 
 def time_pair(kernel, plain) -> tuple:
@@ -196,8 +286,31 @@ def phase_kernels():
                                             lambda: fold_attention_plain(**a))
         # the representative time: the flagship's largest block, enc stage 0, bf16, shifted
         ms, pms = times["fold_attention enc_stage0 shifted bfloat16"]
-        stats["fold_attention"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms,
-                                       shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted")
+        rep_case = _fold_case((batch, 2, 56, 56, 96), 6, (2, 7, 7), (0, 3, 3),
+                              torch.bfloat16, gen)
+        stats["fold_attention"] = dict(
+            max_abs_err=max(errs), ms=ms, plain_ms=pms,
+            shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted",
+            **bound(tensors_of(rep_case) + [rep_case["x"]],
+                    attn_flops(batch * 2 * 56 * 56, 96, 98), "bf16"))
+
+        for kname, kernel, plain in window_kernels():
+            errs, times = [], {}
+            for dtype in dtypes:
+                for gname in FOLD_GEOMETRIES:
+                    for shifted in (False, True):
+                        a = _win_case(batch, gname, shifted, dtype, gen)
+                        name = f"{kname} {gname} {'shifted' if shifted else 'plain'} {str(dtype)[6:]}"
+                        errs.append(check_close(name, kernel(**a), plain(**a), *BOUNDS[dtype]))
+                        if dtype == torch.bfloat16:
+                            times[name] = time_pair(lambda: kernel(**a), lambda: plain(**a))
+            ms, pms = times[f"{kname} enc_stage0 shifted bfloat16"]
+            a = _win_case(batch, "enc_stage0", True, torch.bfloat16, gen)
+            stats[kname] = dict(
+                max_abs_err=max(errs), ms=ms, plain_ms=pms,
+                shape=f"x_windows ({batch * 64},98,96) bf16, nH 6, shifted",
+                **bound(tensors_of(a) + [a["x_windows"]],
+                        attn_flops(batch * 64 * 98, 96, 98), "bf16"))
 
         errs, times = [], {}
         for dtype in dtypes:
@@ -208,8 +321,11 @@ def phase_kernels():
                 errs.append(check_close(name, ln_mlp(x, *p), ln_mlp_plain(x, *p), *BOUNDS[dtype]))
                 times[name] = time_pair(lambda: ln_mlp(x, *p), lambda: ln_mlp_plain(x, *p))
         ms, pms = times["ln_mlp C=96 bfloat16"]
+        x = torch.empty(batch, 2, 56, 56, 96, dtype=torch.bfloat16)
         stats["ln_mlp"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms,
-                               shape=f"x ({batch},2,56,56,96) bf16, hidden 384")
+                               shape=f"x ({batch},2,56,56,96) bf16, hidden 384",
+                               **bound([x, x, *_mlp_case(96, 384, gen)],
+                                       x[..., 0].numel() * 16 * 96 * 96, "bf16"))
 
         n_tok = batch * 2 * 28 * 28
         tokens = torch.randn(n_tok, 192, generator=gen).cuda()
@@ -228,8 +344,11 @@ def phase_kernels():
             raise AssertionError("cluster_assign: labels differ where the argmin is decided")
         ms, pms = time_pair(lambda: cluster_assign(tokens, centers, 16.0),
                             lambda: cluster_assign_plain(tokens, centers, 16.0))
-        stats["cluster_assign"] = dict(max_abs_err=e1, ms=ms, plain_ms=pms,
-                                       shape=f"tokens ({n_tok},192) x centers (1024,192) fp32")
+        stats["cluster_assign"] = dict(
+            max_abs_err=e1, ms=ms, plain_ms=pms,
+            shape=f"tokens ({n_tok},192) x centers (1024,192) fp32",
+            # cdist and assign @ centers: 2 n K c each, fp32 FMA
+            **bound([tokens, centers, *got], 4.0 * n_tok * 1024 * 192, "fp32"))
 
         maps = torch.randn(192, 2 * batch, 784, generator=gen).cuda()
         scen = torch.rand(192, 128, 784, generator=gen).cuda()
@@ -239,7 +358,9 @@ def phase_kernels():
                             lambda: space_cluster_loss_plain(maps, scen, 32.0))
         stats["space_cluster_loss"] = dict(
             max_abs_err=e, ms=ms, plain_ms=pms,
-            shape=f"maps (192,{2 * batch},784) x centers (192,128,784) fp32")
+            shape=f"maps (192,{2 * batch},784) x centers (192,128,784) fp32",
+            # the per-channel cdist product, fp32 FMA
+            **bound([maps, scen], 2.0 * 192 * 2 * batch * 128 * 784, "fp32"))
 
     print("  edge shapes (tiny preset widths, fp32 widths off the tensor-core "
           "tiles, ragged counts), correctness only:")
@@ -263,6 +384,38 @@ def phase_kernels():
             print(f"  {name} bf16 C=24 refused (NotImplementedError), as it should be")
         else:
             raise AssertionError(f"{name}: bf16 C=24 launched instead of being refused")
+    for kname, kernel, plain in window_kernels():
+        for dtype, C, nh in ((torch.bfloat16, 32, 2), (torch.float32, 32, 2),
+                             (torch.float32, 24, 2)):
+            a = _win_case_at(2, (2, 14, 14), C, nh, (2, 7, 7), (0, 3, 3), dtype, gen)
+            check_close(f"{kname} C={C} nH={nh} {str(dtype)[6:]}", kernel(**a), plain(**a),
+                        *BOUNDS[dtype])
+        for dtype in (torch.bfloat16, torch.float32):
+            a = _win_case(4, "dec_stage1", True, dtype, gen, qkv_bias=False)
+            check_close(f"{kname} no qkv bias {str(dtype)[6:]}", kernel(**a), plain(**a),
+                        *BOUNDS[dtype])
+        a = _win_case_at(2, (2, 14, 14), 24, 2, (2, 7, 7), (0, 0, 0), torch.bfloat16, gen)
+        try:
+            kernel(**a)
+        except NotImplementedError:
+            print(f"  {kname} bf16 C=24 refused (NotImplementedError), as it should be")
+        else:
+            raise AssertionError(f"{kname}: bf16 C=24 launched instead of being refused")
+        a = _win_case_at(1, (8, 14, 14), 96, 6, (8, 7, 7), (0, 0, 0), torch.bfloat16, gen)
+        try:
+            kernel(**a)
+        except NotImplementedError:
+            print(f"  {kname} N=392 refused (NotImplementedError): no row-tiled variant yet")
+        else:
+            raise AssertionError(f"{kname}: N=392 launched instead of being refused")
+    # kernel A as a block at a window-padded geometry runs it: no LN, no residual
+    for dtype in (torch.bfloat16, torch.float32):
+        dhwc, nh, window, shift = PADDED_FOLD
+        for sh in ((0, 0, 0), shift):
+            a = dict(_fold_case((4, *dhwc), nh, window, sh, dtype, gen),
+                     ln_scale=None, ln_bias=None, residual=False)
+            check_close(f"fold_attention no LN/residual, padded 63^2, shift {sh} {str(dtype)[6:]}",
+                        fold_attention(**a), fold_attention_plain(**a), *BOUNDS[dtype])
     for n, c, k in ((200, 64, 16), (100, 30, 70)):
         t, cen = torch.randn(n, c, generator=gen).cuda(), torch.rand(k, c, generator=gen).cuda()
         got, want = cluster_assign(t, cen, 16.0), cluster_assign_plain(t, cen, 16.0)
@@ -289,6 +442,7 @@ def phase_kernels():
 # 2% of that output's largest entry.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FOLD_BWD_NAMES = ("dx", "dln_s", "dln_b", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias")
+WIN_BWD_NAMES = ("dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias")
 MLP_BWD_NAMES = ("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2")
 
 
@@ -321,18 +475,31 @@ def _fold_bwd_case(shape, nh, window, shift, dtype, gen):
     return a
 
 
+def _win_bwd_case(a, gen):
+    """Kernel 7's case without proj_b, plus an upstream gradient at unit
+    scale: the arguments of kernel 8 and its plain version."""
+    b = {k: v for k, v in a.items() if k != "proj_b"}
+    b["dout"] = torch.randn(a["x_windows"].shape, generator=gen).to(DEV, a["x_windows"].dtype)
+    return b
+
+
 def phase_bwd_kernels(batch: int = 4):
-    """Kernels 5 and 6 against their plain versions on the card at batch
-    ``batch`` (the training batch), bf16 and fp32: kernel 6 at the four fold
-    geometries, shifted and unshifted, kernel 5 at C=96 and C=192.  The
-    rel-pos bias and the upstream gradient are drawn at unit scale.
+    """Kernels 5, 6 and 8 against their plain versions on the card at batch
+    ``batch`` (the training batch), bf16 and fp32: kernels 6 and 8 at the
+    four attention geometries, shifted and unshifted, kernel 5 at C=96 and
+    C=192; kernel 6 also without LN and residual on a window-padded shape.
+    The rel-pos bias and the upstream gradient are drawn at unit scale.
     Returns {kernel: stats of the bf16 case the kernels line reports}."""
     from vadcl_tpu_torch.ops.fold_attn import fold_attention_bwd, fold_attention_bwd_plain
     from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_plain
+    from vadcl_tpu_torch.ops.window_attn import (
+        window_attention_fused_bwd, window_attention_fused_bwd_plain,
+    )
 
     print(f"[2b] backward kernels vs plain versions, flagship shapes, batch {batch}")
     gen = torch.Generator().manual_seed(5)
-    stats, errs = {}, {"fold_attention_bwd": [], "ln_mlp_bwd": []}
+    stats = {}
+    errs = {"fold_attention_bwd": [], "ln_mlp_bwd": [], "window_attention_fused_bwd": []}
     for dtype in (torch.bfloat16, torch.float32):
         tol = BWD_TOL[dtype]
         for gname, (dhwc, nh, window, shift) in FOLD_GEOMETRIES.items():
@@ -347,7 +514,31 @@ def phase_bwd_kernels(batch: int = 4):
                 if dtype == torch.bfloat16 and gname == "enc_stage0" and shifted:
                     stats["fold_attention_bwd"] = dict(
                         ms=ms, plain_ms=pms,
-                        shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted")
+                        shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted",
+                        **bound(tensors_of(a, got), attn_flops(a["x"][..., 0].numel(), 96, 98,
+                                                               backward=True), "bf16"))
+                w = _win_bwd_case(_win_case(batch, gname, shifted, dtype, gen), gen)
+                name = (f"window_attention_fused_bwd {gname} "
+                        f"{'shifted' if shifted else 'plain'} {str(dtype)[6:]}")
+                got = window_attention_fused_bwd(**w)
+                errs["window_attention_fused_bwd"].append(check_grads(
+                    name, WIN_BWD_NAMES, got, window_attention_fused_bwd_plain(**w), tol))
+                if dtype == torch.bfloat16:
+                    ms, pms = time_pair(lambda: window_attention_fused_bwd(**w),
+                                        lambda: window_attention_fused_bwd_plain(**w))
+                    if gname == "enc_stage0" and shifted:
+                        stats["window_attention_fused_bwd"] = dict(
+                            ms=ms, plain_ms=pms,
+                            shape=f"x_windows ({batch * 64},98,96) bf16, nH 6, shifted",
+                            **bound(tensors_of(w, got),
+                                    attn_flops(batch * 64 * 98, 96, 98, backward=True), "bf16"))
+        dhwc, nh, window, shift = PADDED_FOLD
+        for sh in ((0, 0, 0), shift):
+            a = dict(_fold_bwd_case((batch, *dhwc), nh, window, sh, dtype, gen),
+                     ln_scale=None, ln_bias=None, residual=False)
+            name = f"fold_attention_bwd no LN/residual, padded 63^2, shift {sh} {str(dtype)[6:]}"
+            errs["fold_attention_bwd"].append(check_grads(
+                name, FOLD_BWD_NAMES, fold_attention_bwd(**a), fold_attention_bwd_plain(**a), tol))
         for C, dhw in MLP_SHAPES.items():
             p = _mlp_case(C, 4 * C, gen)[:5]
             x = torch.randn(batch, *dhw, C, generator=gen).to(DEV, dtype)
@@ -357,14 +548,32 @@ def phase_bwd_kernels(batch: int = 4):
             errs["ln_mlp_bwd"].append(check_grads(name, MLP_BWD_NAMES, got, want, tol))
             ms, pms = time_pair(lambda: ln_mlp_bwd(x, dy, *p), lambda: ln_mlp_bwd_plain(x, dy, *p))
             if dtype == torch.bfloat16 and C == 96:
+                # fc1 recomputed, dw2, dy.w2^T, dw1, dz.w1^T: 8C^2 per token each, fp32 FMA
                 stats["ln_mlp_bwd"] = dict(ms=ms, plain_ms=pms,
-                                           shape=f"x ({batch},2,56,56,96) bf16, hidden 384")
+                                           shape=f"x ({batch},2,56,56,96) bf16, hidden 384",
+                                           **bound([x, dy, *p, *got],
+                                                   x[..., 0].numel() * 40.0 * C * C, "fp32"))
+    from vadcl_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.library()
+    for gname, ((D, H, W, C), nh, window, _) in FOLD_GEOMETRIES.items():
+        n = window[0] * window[1] * window[2]
+        bn = batch * (D // window[0]) * (H // window[1]) * (W // window[2])
+        ws = lib.vadcl_window_attn_bwd_workspace_bytes(bn, n, C, nh, 1)
+        print(f"  kernel 8 workspace, bf16, batch {batch}, {gname}: {ws / 1e6:.1f} MB, of it "
+              f"the per-window d(bias) partials {bn * nh * n * n * 4 / 1e6:.1f} MB")
     print("  edge shapes (tiny widths, C=24 / head_dim 12, 147 tokens), fp32 and bf16:")
     for dtype, C, nh in ((torch.bfloat16, 32, 2), (torch.float32, 32, 2),
                          (torch.float32, 24, 2)):
         a = _fold_bwd_case((2, 2, 14, 14, C), nh, (2, 7, 7), (0, 3, 3), dtype, gen)
         check_grads(f"fold_attention_bwd C={C} {str(dtype)[6:]}", FOLD_BWD_NAMES,
                     fold_attention_bwd(**a), fold_attention_bwd_plain(**a), BWD_TOL[dtype])
+        for qkv_bias in (True, False):
+            w = _win_bwd_case(_win_case_at(2, (2, 14, 14), C, nh, (2, 7, 7), (0, 3, 3), dtype,
+                                           gen, qkv_bias), gen)
+            check_grads(f"window_attention_fused_bwd C={C} qkv_bias={qkv_bias} {str(dtype)[6:]}",
+                        WIN_BWD_NAMES, window_attention_fused_bwd(**w),
+                        window_attention_fused_bwd_plain(**w), BWD_TOL[dtype])
         p = _mlp_case(C, 4 * C, gen)[:5]
         x = torch.randn(3, 1, 7, 7, C, generator=gen).to(DEV, dtype)
         dy = torch.randn(x.shape, generator=gen).to(DEV, dtype)
@@ -382,23 +591,36 @@ def phase_bwd_kernels(batch: int = 4):
     return stats
 
 
-def flagship_config():
+REDUCED_DEPTHS = ((1, 2), (2, 1))  # encoder, decoder: one block per kind of every stage
+
+
+def flagship_config(attn_kernel: str = "fold", depths=None, image_size: int = 224):
+    """The shanghaitech predict model at full width with fused attention and
+    cluster heads; ``depths`` cuts (encoder, decoder) depths, ``image_size``
+    moves the spatial cluster head with the input."""
     from vadcl_tpu_torch.core.config import preset
 
-    cfg = preset("shanghaitech")
-    return dataclasses.replace(
-        cfg.model, predict=True, fused_attention=True, fused_cluster=True,
-        attn_kernel="fold",
+    m = dataclasses.replace(
+        preset("shanghaitech").model, predict=True, fused_attention=True, fused_cluster=True,
+        attn_kernel=attn_kernel,
     )
+    if depths is not None:
+        m = dataclasses.replace(m, encoder_depths=depths[0], decoder_depths=depths[1])
+    if image_size != 224:
+        m = dataclasses.replace(
+            m, cluster=dataclasses.replace(m.cluster, space_size=image_size // 8))
+    return m
 
 
-def phase_model():
+def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2):
     from vadcl_tpu_torch.models import VADModel
 
-    print("[3] flagship model, fp32: card (kernels) vs CPU (plain versions)")
-    cpu_model = VADModel(flagship_config(), torch.float32, torch.Generator().manual_seed(0)).eval()
+    print(f"[3] flagship model, attn_kernel={attn_kernel}, depths "
+          f"{depths or 'full'}, fp32: card (kernels) vs CPU (plain versions)")
+    cpu_model = VADModel(flagship_config(attn_kernel, depths), torch.float32,
+                         torch.Generator().manual_seed(0)).eval()
     gpu_model = copy.deepcopy(cpu_model).cuda()
-    clips = torch.rand(2, 4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    clips = torch.rand(clips, 4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         t0 = time.perf_counter()
         want = cpu_model(clips)
@@ -406,7 +628,8 @@ def phase_model():
         got = gpu_model(clips.cuda())
         torch.cuda.synchronize()
     print(f"  recon {tuple(got.recon.shape)}; CPU forward {t_cpu:.1f} s")
-    if tuple(got.recon.shape) != (2, 1, 224, 224, 3) or not bool(torch.isfinite(got.recon).all()):
+    if tuple(got.recon.shape) != (len(clips), 1, 224, 224, 3) or not bool(
+            torch.isfinite(got.recon).all()):
         raise AssertionError("flagship recon has the wrong shape or is not finite")
     check_close("model recon", got.recon.cpu(), want.recon, MODEL_TOL, MODEL_TOL)
     check_close("model cluster_loss", got.cluster_loss.cpu(), want.cluster_loss, 0.0, 1e-4)
@@ -420,25 +643,29 @@ def phase_model():
 MODEL_GRAD_TOL = 2e-3  # phase 3b, per tensor: fp32, summation order through ~30 layers
 
 
-def flagship_train_config():
+def flagship_train_config(attn_kernel: str = "fold", depths=None, image_size: int = 224):
     from vadcl_tpu_torch.core.config import preset
 
-    return preset("shanghaitech").replace(model=flagship_config())
+    return preset("shanghaitech").replace(
+        model=flagship_config(attn_kernel, depths, image_size))
 
 
-def phase_model_grads():
+def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 224):
     """Training loss and backward of the flagship model in fp32 with TF32
-    off, the card (forward kernels A-D, backward kernels 5, 6) against the
-    CPU (plain versions), on one uint8 clip at step 0 with every gate on."""
+    off, the card (the forward kernels and their backward kernels) against
+    the CPU (plain versions), on one uint8 clip at step 0 with every gate
+    on.  At ``image_size`` 240 the 60^2 and 30^2 token grids need window
+    padding against the 7x7 windows."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train.step import make_loss_fn
 
-    print("[3b] flagship loss + backward, fp32: card vs CPU")
-    cfg = flagship_train_config()
+    print(f"[3b] flagship loss + backward, attn_kernel={attn_kernel}, depths "
+          f"{depths or 'full'}, {image_size}^2, fp32: card vs CPU")
+    cfg = flagship_train_config(attn_kernel, depths, image_size)
     cpu_model = VADModel(cfg.model, torch.float32, torch.Generator().manual_seed(0))
     gpu_model = copy.deepcopy(cpu_model).to(DEV)
-    clip = torch.from_numpy(
-        np.random.RandomState(2).randint(0, 256, (1, 4, 224, 224, 3)).astype(np.uint8))
+    clip = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (1, 4, image_size, image_size, 3)).astype(np.uint8))
     t0 = time.perf_counter()
     want, _ = make_loss_fn(cpu_model, cfg)(clip, 0)
     want.backward()
@@ -492,44 +719,71 @@ class MemLoader:
 
 
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 4, 2, 8
+# The kernels each path must launch; every other kernel of KERNELS must not.
+COMMON_FWD = {"ln_mlp", "cluster_assign", "space_cluster_loss"}
+SCORING_KERNELS = {
+    "fold": COMMON_FWD | {"fold_attention"},
+    "base": COMMON_FWD | {"window_attention_fused"},
+    "packed": COMMON_FWD | {"window_attention_packed"},
+}
+TRAINING_KERNELS = {
+    "fold": SCORING_KERNELS["fold"] | {"ln_mlp_bwd", "fold_attention_bwd"},
+    "base": SCORING_KERNELS["base"] | {"ln_mlp_bwd", "window_attention_fused_bwd"},
+}
 
 
-def phase_training():
+def reset_launches():
+    from vadcl_tpu_torch.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_launches(expected, path: str) -> dict:
+    """The launch counts since ``reset_launches``; fails unless exactly the
+    ``expected`` kernels launched."""
+    from vadcl_tpu_torch.ops import KERNELS
+
+    launches = {k.__name__: k.launches for k in KERNELS}
+    print(f"  kernel launches on this path: {launches}")
+    missing = sorted(k for k in expected if launches[k] == 0)
+    stray = sorted(k for k, n in launches.items() if n and k not in expected)
+    if missing or stray:
+        raise AssertionError(f"{path}: kernels never launched {missing}; kernels that "
+                             f"must not launch here but did {stray}")
+    return launches
+
+
+def phase_training(attn_kernel: str = "fold"):
     """``train()`` on the flagship config in bf16 at batch 4: finite losses,
-    moved parameters, every kernel launched on this path, and a checkpoint
+    moved parameters, exactly this path's kernels launched, and a checkpoint
     that restores params and Adam moments exactly.  Returns the launch
     counts."""
     from vadcl_tpu_torch.models import VADModel
-    from vadcl_tpu_torch.ops import KERNELS
     from vadcl_tpu_torch.train import CheckpointManager, create_train_state, train
 
-    print(f"[5] training path, bf16: train() at batch {TRAIN_BATCH}, "
-          f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
+    print(f"[5] training path, attn_kernel={attn_kernel}, bf16: train() at batch "
+          f"{TRAIN_BATCH}, {WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
     steps = WARMUP_STEPS + TIMED_STEPS
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_train_") as out:
-        cfg = flagship_train_config().replace(
+        cfg = flagship_train_config(attn_kernel).replace(
             output_dir=out, batch_size_per_device=TRAIN_BATCH)
         loader = MemLoader(TRAIN_BATCH, steps)
         torch.cuda.reset_peak_memory_stats()
-        for k in KERNELS:
-            k.launches = 0
+        reset_launches()
         state = train(cfg, loader, max_steps=steps, device=DEV)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
-        launches = {k.__name__: k.launches for k in KERNELS}
+        launches = read_launches(TRAINING_KERNELS[attn_kernel], f"training, {attn_kernel}")
         losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
         wall = t_end - loader.stamps[WARMUP_STEPS]
         print(f"  per-step losses: {[round(float(v), 4) for v in losses]}")
         print(f"  {TIMED_STEPS} steps in {wall:.3f} s = {TIMED_STEPS * TRAIN_BATCH / wall:.2f} "
               f"train clips/s ({wall / TIMED_STEPS * 1e3:.1f} ms/step)")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        print(f"  kernel launches on this path: {launches}")
         if state.step != steps or len(losses) != steps or not np.all(np.isfinite(losses)):
             raise AssertionError("training did not run every step with a finite loss")
-        missing = [k for k, n in launches.items() if n == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the training path: {missing}")
         init = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(cfg.seed))
         still = [k for (k, p), (_, q) in zip(state.model.named_parameters(),
                                              init.named_parameters())
@@ -558,6 +812,24 @@ def phase_training():
     return launches
 
 
+def phase_packed_training_refused():
+    """``attn_kernel="packed"`` is inference-only: building its train step
+    raises before any kernel launches."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.train import make_train_step
+
+    cfg = flagship_train_config("packed")
+    model = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).to(DEV)
+    reset_launches()
+    try:
+        make_train_step(model, cfg, steps_per_epoch=10)
+    except ValueError as e:
+        print(f"[5] a packed train step is refused: {e}")
+    else:
+        raise AssertionError("make_train_step accepted attn_kernel='packed'")
+    read_launches(set(), "packed train step")
+
+
 def make_videos(seed: int = 0):
     """Three uint8 videos of ~40 frames at 224^2 in two scenes, each with an
     anomalous span (a bright moving square)."""
@@ -580,16 +852,16 @@ def make_videos(seed: int = 0):
     return videos
 
 
-def phase_scoring():
+def phase_scoring(attn_kernel: str = "fold"):
     from vadcl_tpu_torch.eval.predict import (
         eval_input_frames, evaluate_videos, make_video_scorer, sliding_windows,
     )
     from vadcl_tpu_torch.models import VADModel
-    from vadcl_tpu_torch.ops import KERNELS
 
-    forward = KERNELS[:4]  # A-D; the scoring path runs no backward
-    print("[4] scoring path, bf16: evaluate_videos on in-memory uint8 videos")
-    model = VADModel(flagship_config(), torch.bfloat16, torch.Generator().manual_seed(0))
+    print(f"[4] scoring path, attn_kernel={attn_kernel}, bf16: evaluate_videos on "
+          "in-memory uint8 videos")
+    model = VADModel(flagship_config(attn_kernel), torch.bfloat16,
+                     torch.Generator().manual_seed(0))
     model = model.cuda().eval()
     scorer = make_video_scorer(
         lambda clips: model(clips).recon, frame_num=4, predict=True,
@@ -599,17 +871,15 @@ def phase_scoring():
     videos = make_videos()
     evaluate_videos(scorer, videos[:1], 4, True)  # warm-up (cuDNN autotune etc.)
     torch.cuda.synchronize()
-    for k in KERNELS:
-        k.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     auc, per_scene, per_video = evaluate_videos(scorer, videos, 4, True, "stride1")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in forward}
+    launches = read_launches(SCORING_KERNELS[attn_kernel], f"scoring, {attn_kernel}")
     n_windows = sum(len(sliding_windows(v[0].shape[0], 4, "stride1")) for v in videos)
     print(f"  {n_windows} windows in {wall:.3f} s = {n_windows / wall:.2f} windows/s; "
           f"mean scene AUC {auc:.4f}; per scene {per_scene}")
-    print(f"  kernel launches on this path: {launches}")
     for (frames, _, _), vs in zip(videos, per_video):
         if len(vs.scores) != len(sliding_windows(frames.shape[0], 4, "stride1")) or not np.all(
             np.isfinite(vs.scores)
@@ -617,9 +887,6 @@ def phase_scoring():
             raise AssertionError("per-video scores have the wrong length or are not finite")
     if not (np.isfinite(auc) and 0.0 <= auc <= 1.0):
         raise AssertionError(f"mean scene AUC {auc} is not a finite probability")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
     return launches
 
 
@@ -631,6 +898,20 @@ REPLACES = {
     "ln_mlp_bwd": ("vadcl_tpu_torch/csrc/ln_mlp_bwd.cu", "vadcl_tpu/ops/pallas_mlp.py:87"),
     "fold_attention_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
                            "vadcl_tpu/ops/pallas_attn_fold.py:704"),
+    "window_attention_fused": ("vadcl_tpu_torch/csrc/window_attn.cu",
+                               "vadcl_tpu/ops/pallas_attn.py:30"),
+    "window_attention_fused_bwd": ("vadcl_tpu_torch/csrc/window_attn_bwd.cu",
+                                   "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
+    "window_attention_packed": ("vadcl_tpu_torch/csrc/window_attn.cu",
+                                "vadcl_tpu/ops/pallas_attn.py:113"),
+}
+# The main path whose launch count the kernels line reports for each kernel.
+COUNTED_ON = {
+    "fold_attention": "scoring fold", "ln_mlp": "scoring fold",
+    "cluster_assign": "scoring fold", "space_cluster_loss": "scoring fold",
+    "ln_mlp_bwd": "training fold", "fold_attention_bwd": "training fold",
+    "window_attention_fused": "scoring base", "window_attention_fused_bwd": "training base",
+    "window_attention_packed": "scoring packed",
 }
 
 
@@ -639,14 +920,19 @@ def main():
     phase_build()
     stats = phase_kernels()
     stats.update(phase_bwd_kernels(TRAIN_BATCH))
-    phase_model()
-    phase_model_grads()
-    launches = phase_scoring()
-    train_launches = phase_training()
-    launches.update({k: train_launches[k] for k in ("ln_mlp_bwd", "fold_attention_bwd")})
+    phase_model("fold", REDUCED_DEPTHS)
+    phase_model("base")
+    phase_model("packed", clips=1)
+    phase_model_grads("fold", REDUCED_DEPTHS)
+    phase_model_grads("base")
+    phase_model_grads("fold", ((2, 2), (2, 2)), image_size=240)
+    counts = {f"scoring {k}": phase_scoring(k) for k in ("fold", "base", "packed")}
+    counts.update({f"training {k}": phase_training(k) for k in ("fold", "base")})
+    phase_packed_training_refused()
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
-             launches=launches[name], **stats[name])
+             launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],
+             **stats[name])
         for name in REPLACES
     ]
     print(smi)

@@ -49,6 +49,26 @@ def test_round_trip_is_lossless(predict):
         np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
 
 
+def test_one_state_dict_loads_into_every_attention_kernel():
+    """The parameter tree does not depend on ``attn_kernel``: one converted
+    state_dict loads strictly into unfused, ``fold``, ``base`` and ``packed``
+    models, and they agree on an input."""
+    _, flat = _jax_flat(True)
+    sd = state_dict_from_jax(flat, predict=True)
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 4, 56, 56, 3).astype(np.float32))
+    outs = {}
+    for kernel in (None, "fold", "base", "packed"):
+        m = dataclasses.replace(
+            preset("tiny").model, predict=True, fused_attention=kernel is not None,
+            attn_kernel=kernel or "base")
+        model = VADModel(m)
+        load_state_dict_strict(model, dict(sd))
+        with torch.inference_mode():
+            outs[kernel] = model.eval()(x).recon.numpy()
+    for kernel in ("fold", "base", "packed"):
+        np.testing.assert_allclose(outs[kernel], outs[None], rtol=0, atol=1e-5)
+
+
 def test_layouts_follow_torch_conventions():
     _, flat = _jax_flat(False)
     sd = state_dict_from_jax(flat, predict=False)
@@ -111,9 +131,10 @@ def test_port_imports_neither_jax_nor_pil():
     assert out.stdout.startswith("ok")
 
 
-def test_evaluate_torch_cli_on_synthetic_frames(tmp_path):
+@pytest.mark.parametrize("attn_kernel", ["auto", "base", "packed"])
+def test_evaluate_torch_cli_on_synthetic_frames(tmp_path, attn_kernel):
     from tools.evaluate_torch import main
-    from vadcl_tpu.data import make_synthetic_dataset
+    from vadcl_tpu_torch.data import make_synthetic_dataset
 
     _, test_dir, label_dir = make_synthetic_dataset(
         str(tmp_path), num_train_videos=0, num_test_videos=2, frames_per_video=12, size=56
@@ -122,7 +143,7 @@ def test_evaluate_torch_cli_on_synthetic_frames(tmp_path):
     auc = main([
         "--preset", "tiny", "--predict", "--fused", "--device", "cpu",
         "--test-data-path", test_dir, "--label-path", label_dir,
-        "--batch-windows", "4", "--out", str(out),
+        "--batch-windows", "4", "--out", str(out), "--attn-kernel", attn_kernel,
     ])
     assert np.isfinite(auc)
     with np.load(out) as z:

@@ -1,12 +1,17 @@
 """The whole port ``VADModel`` against the JAX ``VADModel`` on the tiny
 preset with depths (2, 2), so that shifted blocks occur (decoder stage 1 at
-14^2), in prediction mode: the fused config (fold attention, LN->MLP tail,
-fused cluster heads) and the plain unfused config.
+14^2), in prediction mode: the fused configs (``fold``, ``base`` or ``packed``
+attention, LN->MLP tail, fused cluster heads) and the plain unfused config;
+and the fused ``fold`` config at a geometry that needs window padding (64^2
+input: 16^2 and 8^2 token grids against 7x7 windows), forward and gradients.
 
 The JAX weights are carried across by ``convert.state_dict_from_jax``.  The
 JAX fused reference runs its fold and MLP kernels in interpret mode and the
 XLA cluster path (``tests/test_pallas_cluster.py`` shows it equal to the
-fused cluster kernel).  Bounds: recon atol 1e-4 (``test_reference_parity``),
+fused cluster kernel).  The JAX model cannot run ``base`` or ``packed`` on the
+CPU (its call sites pass no ``interpret``), so those two are held against the
+JAX unfused model and the JAX ``fold`` model, which share their variables.
+Bounds: recon atol 1e-4 (``test_reference_parity``),
 cluster/space loss rtol 1e-4, hard labels identical.
 """
 
@@ -40,11 +45,11 @@ def jax_reference(predict: bool, fused: bool, seed: int = 0):
     return variables, out, clip
 
 
-def port_model(variables, predict: bool, fused: bool) -> VADModel:
+def port_model(variables, predict: bool, fused: bool, attn_kernel: str = "fold") -> VADModel:
     m = dataclasses.replace(
         preset("tiny").model, encoder_depths=(2, 2), decoder_depths=(2, 2),
         predict=predict, fused_attention=fused, fused_cluster=fused,
-        attn_kernel="fold" if fused else "base",
+        attn_kernel=attn_kernel if fused else "base",
     )
     model = VADModel(m, torch.float32)
     sd = state_dict_from_jax(flatten_state(variables), predict=predict)
@@ -101,21 +106,125 @@ def test_fused_and_unfused_port_agree(predict_variables):
     np.testing.assert_array_equal(a.feature_label.numpy(), b.feature_label.numpy())
 
 
-@pytest.mark.parametrize("kernel", ["base", "packed", "fold_block", "fold_packed", "fold_mix"])
+@pytest.mark.parametrize("kernel", ["fold_block", "fold_packed", "fold_mix"])
 def test_unported_attention_kernels_raise(kernel):
     m = dataclasses.replace(preset("tiny").model, fused_attention=True, attn_kernel=kernel)
     with pytest.raises(NotImplementedError, match="not ported"):
         VADModel(m)
 
 
-def test_fused_geometry_needing_window_padding_raises():
+def jax_unfused(variables, clip, predict: bool):
     m = dataclasses.replace(
-        preset("tiny").model, fused_attention=True, attn_kernel="fold",
-        cluster=dataclasses.replace(preset("tiny").model.cluster, space_size=8),
+        jax_preset("tiny").model, encoder_depths=(2, 2), decoder_depths=(2, 2),
+        predict=predict,
     )
-    model = VADModel(m)
-    with pytest.raises(NotImplementedError, match="window padding"):
-        model(torch.rand(1, 4, 64, 64, 3))  # 16x16 latent: not a multiple of 7
+    return jax.jit(JaxVADModel(config=m).apply)(variables, jnp.asarray(clip))
+
+
+@pytest.mark.parametrize("kernel", ["base", "packed"])
+def test_window_kernel_predict_model_matches_jax(predict_variables, kernel):
+    """The partitioned-window route (kernel 7 or 9 in every block) against
+    the JAX unfused model and the JAX ``fold`` model at the same variables."""
+    variables, want_fold, clip = predict_variables
+    model = port_model(variables, predict=True, fused=True, attn_kernel=kernel)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(clip))
+    assert got.recon.shape == (2, 1, 56, 56, 3)
+    assert_outputs_match(got, jax_unfused(variables, clip, predict=True))
+    assert_outputs_match(got, want_fold)
+
+
+def _padded_configs():
+    """(JAX model config, port model config): tiny widths, depths (2, 2),
+    fused fold attention, 64^2 input (space head at 8^2)."""
+    out = []
+    for make in (jax_preset, preset):
+        m = make("tiny").model
+        out.append(dataclasses.replace(
+            m, encoder_depths=(2, 2), decoder_depths=(2, 2), predict=True,
+            fused_attention=True, attn_kernel="fold", fused_cluster=make is preset,
+            cluster=dataclasses.replace(m.cluster, space_size=8),
+        ))
+    return out
+
+
+@pytest.fixture(scope="module")
+def padded_reference():
+    """JAX ``fold`` model at the padded geometry: variables, outputs, and the
+    gradient of sum(recon * probe) + cluster_loss + space_loss."""
+    jcfg, _ = _padded_configs()
+    rng = np.random.RandomState(3)
+    clip = rng.rand(2, 4, 64, 64, 3).astype(np.float32)
+    probe = rng.randn(2, 1, 64, 64, 3).astype(np.float32)
+    jm = JaxVADModel(config=jcfg)
+    variables = jax.jit(JaxVADModel(config=dataclasses.replace(
+        jcfg, fused_attention=False)).init)(jax.random.key(3), jnp.asarray(clip))
+    extras = {k: v for k, v in variables.items() if k != "params"}
+
+    def loss(params):
+        o = jm.apply({"params": params, **extras}, jnp.asarray(clip))
+        return jnp.sum(o.recon * probe) + o.cluster_loss + o.space_loss, o
+
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
+    return variables, out, grads, clip, probe
+
+
+def _padded_port_model(variables) -> VADModel:
+    model = VADModel(_padded_configs()[1], torch.float32)
+    load_state_dict_strict(model, state_dict_from_jax(flatten_state(variables), predict=True))
+    return model
+
+
+def test_fused_fold_model_at_padded_geometry_matches_jax(padded_reference):
+    """A fused ``fold`` block whose token grid is not a multiple of the
+    window runs plain LN1, pads, and runs the fold kernel without LN and
+    residual, as the JAX package does."""
+    variables, want, _, clip, _ = padded_reference
+    with torch.inference_mode():
+        got = _padded_port_model(variables).eval()(torch.from_numpy(clip))
+    assert got.recon.shape == (2, 1, 64, 64, 3)
+    assert_outputs_match(got, want)
+
+
+def test_fused_fold_model_at_padded_geometry_gradients_match_jax(padded_reference):
+    """Every parameter gradient through the padded route (kernel 6 without
+    LN and residual) against ``jax.grad`` of the JAX ``fold`` model, each
+    within 2e-3 of the JAX gradient's largest entry (the bound of
+    ``test_torch_port_train.py``)."""
+    variables, _, grads, clip, probe = padded_reference
+    model = _padded_port_model(variables)
+    out = model(torch.from_numpy(clip))
+    ((out.recon * torch.from_numpy(probe)).sum() + out.cluster_loss + out.space_loss).backward()
+    want = state_dict_from_jax(flatten_state({"params": grads}), predict=True)
+    got = {k: p.grad for k, p in model.named_parameters()}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k] is not None, f"{k}: no gradient"
+        scale = float(w.abs().max())
+        err = float((got[k] - w).abs().max())
+        assert err <= 1e-8 + 2e-3 * scale, f"{k}: max abs err {err} > 2e-3 * {scale}"
+
+
+def test_fold_block_too_large_for_shared_memory_takes_the_window_route(monkeypatch):
+    """Where ``fold_fits`` is false (a window whose block exceeds 227 KB of
+    shared memory) a ``fold`` block runs the partitioned-window kernels:
+    same output, kernel 7's Function in the graph."""
+    from vadcl_tpu_torch.models import swin
+
+    torch.manual_seed(0)
+    x = torch.rand(1, 2, 14, 14, 32)
+    block = swin.SwinBlock3D(32, 2, (2, 7, 7), (0, 3, 3), fused=True, attn_kernel="fold")
+    block.attn.reset_parameters(torch.Generator().manual_seed(1))
+    want = block(x)
+    assert "LnMlp" in want.grad_fn.name()
+    monkeypatch.setattr(swin, "fold_fits", lambda *a, **k: False)
+    seen = []
+    real = swin.window_attention_fused
+    monkeypatch.setattr(swin, "window_attention_fused",
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    got = block(x)
+    assert seen == [1]
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=0, atol=1e-5)
 
 
 def test_alternate_backbones_raise():

@@ -13,7 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_model import assert_outputs_match, jax_reference, port_model
+from test_torch_port_model import (
+    assert_outputs_match,
+    jax_reference,
+    jax_unfused,
+    port_model,
+)
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
 from vadcl_tpu.train.checkpoint import flatten_state
@@ -22,13 +27,31 @@ from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.models import VADModel
 
 
-def test_fused_recon_model_matches_jax():
-    variables, want, clip = jax_reference(predict=False, fused=True, seed=1)
+@pytest.fixture(scope="module")
+def recon_reference():
+    return jax_reference(predict=False, fused=True, seed=1)
+
+
+def test_fused_recon_model_matches_jax(recon_reference):
+    variables, want, clip = recon_reference
     model = port_model(variables, predict=False, fused=True)
     with torch.inference_mode():
         got = model(torch.from_numpy(clip))
     assert got.recon.shape == (2, 4, 56, 56, 3)
     assert_outputs_match(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["base", "packed"])
+def test_window_kernel_recon_model_matches_jax(recon_reference, kernel):
+    """``attn_kernel="base"`` / ``"packed"`` in reconstruction mode against
+    the JAX ``fold`` model and the JAX unfused model."""
+    variables, want_fold, clip = recon_reference
+    model = port_model(variables, predict=False, fused=True, attn_kernel=kernel)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(clip))
+    assert got.recon.shape == (2, 4, 56, 56, 3)
+    assert_outputs_match(got, want_fold)
+    assert_outputs_match(got, jax_unfused(variables, clip, predict=False))
 
 
 @pytest.mark.parametrize("override", [{"use_cluster": False}, {"compactness": False}],

@@ -58,15 +58,16 @@ STEPS_PER_EPOCH = 3
 SCHEDULE = dict(compactness_start_iter=2, cluster_start_iter=1, cluster_train_start_iter=3)
 
 
-def _configs(fused: bool, predict: bool = True, **schedule):
-    """(JAX Config, port Config) of the same run."""
+def _configs(fused: bool, predict: bool = True, attn_kernel: str = "fold", **schedule):
+    """(JAX Config, port Config) of the same run; ``attn_kernel`` is the
+    fused attention kernel."""
     out = []
     for make in (jax_preset, preset):
         cfg = make("tiny")
         cfg = cfg.replace(
             model=dataclasses.replace(
                 cfg.model, encoder_depths=(2, 2), decoder_depths=(2, 2), predict=predict,
-                fused_attention=fused, attn_kernel="fold" if fused else "base",
+                fused_attention=fused, attn_kernel=attn_kernel if fused else "base",
                 # the JAX fused cluster heads have no interpret switch on the
                 # CPU; their kernels equal the XLA path (test_pallas_cluster.py)
                 fused_cluster=fused and make is preset,
@@ -254,6 +255,56 @@ def test_six_step_trajectory_matches_jax(jax_variables, jax_trajectory):
     assert state.step == STEPS
     _assert_params_close(model, jax_trajectory["params"],
                          flatten_state({"params": jax_variables["params"]}), STEPS)
+
+
+def test_base_kernel_trajectory_matches_jax(jax_variables, jax_trajectory):
+    """``attn_kernel="base"`` (kernel 7 forward, kernel 8 backward, plain
+    LN1 and residual around them) through the same six steps against the JAX
+    make_train_step with ``fused_attention=False``: the JAX model cannot run
+    its ``base`` kernels on the CPU, and the XLA path is their oracle."""
+    _, pcfg = _configs(True, attn_kernel="base", **SCHEDULE)
+    assert pcfg.model.fused_attention and pcfg.model.attn_kernel == "base"
+    model = _port_model(jax_variables, pcfg)
+    state = create_train_state(model, pcfg)
+    step_fn = make_train_step(model, pcfg, STEPS_PER_EPOCH)
+    metrics = [step_fn(state, torch.from_numpy(c)) for c in _clips(STEPS, seed=2)]
+    np.testing.assert_allclose([float(m.loss) for m in metrics], jax_trajectory["losses"],
+                               rtol=1e-4)
+    _assert_params_close(model, jax_trajectory["params"],
+                         flatten_state({"params": jax_variables["params"]}), STEPS)
+
+
+def test_base_kernel_loss_and_grads_match_jax(jax_variables):
+    """Loss and every parameter gradient under ``attn_kernel="base"`` against
+    ``jax.value_and_grad`` of the JAX unfused loss, with compactness on."""
+    sched = dict(compactness_start_iter=2, cluster_start_iter=1)
+    jcfg, _ = _configs(False, **sched)
+    _, pcfg = _configs(True, attn_kernel="base", **sched)
+    clip = _clips(1, seed=1)[0]
+    fn = jax.jit(jax.value_and_grad(
+        jax_make_loss_fn(JaxVADModel(config=jcfg.model), jcfg), has_aux=True))
+    extras = {k: v for k, v in jax_variables.items() if k != "params"}
+    (loss_j, _), grads_j = fn(jax_variables["params"], extras, jnp.asarray(clip),
+                              jnp.asarray(2, jnp.int32))
+    model = _port_model(jax_variables, pcfg)
+    loss_t, _ = make_loss_fn(model, pcfg)(torch.from_numpy(clip), 2)
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-4)
+    want = state_dict_from_jax(flatten_state({"params": grads_j}), predict=True)
+    for k, p in model.named_parameters():
+        assert p.grad is not None, f"{k}: no gradient"
+        _assert_rel(k, p.grad.numpy(), want[k].numpy(), GRAD_TOL)
+
+
+def test_packed_kernel_is_refused_for_training(jax_variables):
+    """``packed`` is inference-only: both the loss and the step refuse it
+    when they are built, before any forward."""
+    _, pcfg = _configs(True, attn_kernel="packed")
+    model = _port_model(jax_variables, pcfg)
+    with pytest.raises(ValueError, match="inference-only"):
+        make_train_step(model, pcfg, STEPS_PER_EPOCH)
+    with pytest.raises(ValueError, match="inference-only"):
+        make_loss_fn(model, pcfg)
 
 
 def test_checkpoints_cross_packages(jax_variables, jax_trajectory, tmp_path):

@@ -10,7 +10,8 @@ swin backbone):
 ``--ckpt`` takes a checkpoint written by the JAX package (``params/...``
 plus ``extras/batch_stats/...``); without it the model runs from its seeded
 init (seed 0).  ``--device cuda`` (the default) computes in bf16 and
-``--fused`` runs the hand-written kernels; it fails when no GPU is visible.
+``--fused`` runs the hand-written kernels (``--attn-kernel fold|base|packed``
+picks the attention kernel, fold by default); it fails when no GPU is visible.
 ``--device cpu`` computes in fp32 with the kernels' plain versions.
 Per-video anomaly-score curves go to ``--out`` (npz).
 """
@@ -30,6 +31,7 @@ import torch
 from vadcl_tpu_torch.convert import load_jax_checkpoint
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.core.dtypes import compute_dtype
+from vadcl_tpu_torch.data import ClipDataset
 from vadcl_tpu_torch.eval.predict import (
     eval_input_frames,
     evaluate_videos,
@@ -54,8 +56,11 @@ def main(argv=None):
     ap.add_argument("--backbone", default="swin", choices=["swin"])
     ap.add_argument("--fused", action="store_true",
                     help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
-    ap.add_argument("--attn-kernel", default="auto", choices=["auto", "base", "fold"],
-                    help="fused attention kernel; auto = 'fold' when --fused")
+    ap.add_argument("--attn-kernel", default="auto",
+                    choices=["auto", "fold", "base", "packed"],
+                    help="fused attention kernel: fold (on the unpartitioned tensor), base "
+                         "(partitioned windows, trainable) or packed (partitioned windows, "
+                         "inference only); auto = 'fold' when --fused")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu runs the kernels' plain versions in fp32")
     ap.add_argument("--out", default="scores.npz")
@@ -98,10 +103,6 @@ def main(argv=None):
         input_frames=eval_input_frames(args.backbone, args.predict, args.frame_num),
         device=device,
     )
-    # JPEG decoding lives in the JAX package's numpy/PIL data module, which
-    # imports no jax; only this CLI needs it
-    from vadcl_tpu.data import ClipDataset
-
     ds = ClipDataset(
         args.test_data_path, frame_num=args.frame_num, size=image_size,
         label_root=args.label_path, istest=True,

@@ -9,7 +9,7 @@ forward, the work of one ``evaluate_videos`` batch; with ``--train`` one
 ``make_train_step`` step on uint8 clips (loss, backward, Adam):
 
     python tools/profile_torch.py [--batch 16] [--steps 5]
-    python tools/profile_torch.py --train --batch 4
+    python tools/profile_torch.py --train --batch 4 --attn-kernel base
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ from vadcl_tpu_torch.models import VADModel
 from vadcl_tpu_torch.train import create_train_state, make_train_step
 
 # name fragments of the hand-written kernels (csrc/*.cu)
-OURS = ("fold_attn", "ln_mlp", "cluster_assign", "space_cluster", "center_sq",
-        "sum_partials", "atb_partial", "sum_rows")
+OURS = ("fold_attn", "window_attn", "ln_mlp", "cluster_assign", "space_cluster",
+        "center_sq", "sum_partials", "atb_partial", "sum_rows")
 
 
 def main(argv=None):
@@ -40,12 +40,15 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile training steps (loss, backward, Adam) instead of the forward")
+    ap.add_argument("--attn-kernel", default="fold", choices=["fold", "base", "packed"],
+                    help="fused attention kernel (packed is inference only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     cfg = preset("shanghaitech")
     cfg = cfg.replace(model=dataclasses.replace(
-        cfg.model, predict=True, fused_attention=True, fused_cluster=True, attn_kernel="fold",
+        cfg.model, predict=True, fused_attention=True, fused_cluster=True,
+        attn_kernel=args.attn_kernel,
     ))
     model = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).cuda()
     if args.train:
@@ -86,7 +89,7 @@ def main(argv=None):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     busy = sum(by_name.values())
     ours = sum(v for k, v in by_name.items() if any(o in k for o in OURS))
-    print(f"batch {args.batch}: {what} {untraced * 1e3:.2f} ms untraced "
+    print(f"attn_kernel {args.attn_kernel}, batch {args.batch}: {what} {untraced * 1e3:.2f} ms untraced "
           f"({args.batch / untraced:.1f} clips/s), {wall / args.steps * 1e3:.2f} ms traced")
     print(f"device busy {busy / args.steps:.2f} ms per {what} = "
           f"{100 * busy / (wall * 1e3):.1f}% of the traced wall; idle share "

@@ -8,7 +8,8 @@
 Checkpoints land under ``<output-dir>/ckpt`` in the JAX package's npz
 layout, with auto-resume (either package resumes from the other's).
 ``--device cuda`` (the default) computes in bf16 and ``--fused`` runs the
-hand-written kernels, forward and backward; it fails when no GPU is
+hand-written kernels, forward and backward (``--attn-kernel fold|base``
+picks the attention kernel, fold by default); it fails when no GPU is
 visible.  ``--device cpu`` trains in fp32 with the kernels' plain versions.
 """
 
@@ -24,15 +25,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 from vadcl_tpu_torch.core.config import preset
+from vadcl_tpu_torch.data import ClipDataset, HostDataLoader
 from vadcl_tpu_torch.train.loop import train
 
 
 def build_eval_fn(cfg, test_dir: str, label_dir: str, device: torch.device):
     """Per-scene AUC of the training model on a test split
     (``vadcl_tpu_torch.eval``), for the loop's eval hook."""
-    # JPEG decoding lives in the JAX package's numpy/PIL data module, which
-    # imports no jax; only this CLI needs it
-    from vadcl_tpu.data import ClipDataset
     from vadcl_tpu_torch.eval.predict import (
         eval_input_frames,
         evaluate_videos,
@@ -89,8 +88,10 @@ def main(argv=None):
     ap.add_argument("--backbone", default="swin", choices=["swin"])
     ap.add_argument("--fused", action="store_true",
                     help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
-    ap.add_argument("--attn-kernel", default="auto", choices=["auto", "base", "fold"],
-                    help="fused attention kernel; auto = 'fold' when --fused")
+    ap.add_argument("--attn-kernel", default="auto", choices=["auto", "fold", "base"],
+                    help="fused attention kernel: fold (on the unpartitioned tensor) or base "
+                         "(partitioned windows); packed is inference only; auto = 'fold' "
+                         "when --fused")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu trains with the kernels' plain versions in fp32")
     args = ap.parse_args(argv)
@@ -126,8 +127,6 @@ def main(argv=None):
         cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=args.lr))
     if args.batch_size:
         cfg = cfg.replace(batch_size_per_device=args.batch_size)
-
-    from vadcl_tpu.data import ClipDataset, HostDataLoader
 
     ds = ClipDataset(cfg.data.data_path, frame_num=cfg.data.frame_num, size=cfg.data.image_size)
     loader = HostDataLoader(ds, batch_size=cfg.batch_size_per_device, seed=cfg.seed,

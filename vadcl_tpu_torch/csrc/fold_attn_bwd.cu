@@ -3,7 +3,11 @@
 //
 // Replaces vadcl_tpu/ops/pallas_attn_fold.py:_fold_bwd_kernel (entry
 // _fold_bwd_call, reached through _blk_bwd with fuse_ln=True,
-// residual=True, no MLP tail), with or without the shift mask.
+// residual=True, no MLP tail), with or without the shift mask.  A second
+// mode, ln_s == null and residual == 0, is _fold_bwd_call's fuse_ln=False,
+// residual=False (the backward of folded_window_attention_trainable, which
+// blocks at window-padded geometries run): the attention input is x itself,
+// dx = round(dxa), and there are no LN gradients.
 //
 // Pass 1, fold_attn_bwd_kernel: one block per (batch, window), addressing
 // the window's tokens in the unpartitioned (B, D, H, W, C) tensors by
@@ -55,7 +59,7 @@ constexpr int kBwdWarps = kBwdThreads / kWarp;
 struct FoldBwdArgs {
   const void* x;     // (B, D, H, W, C) compute dtype
   const void* dout;  // (B, D, H, W, C) compute dtype
-  const float* ln_s;
+  const float* ln_s;  // null: no LayerNorm (and then no residual)
   const float* ln_b;
   const void* qkv_w;  // (C, 3C) compute dtype
   const float* qkv_b;  // (3C,)
@@ -72,6 +76,7 @@ struct FoldBwdArgs {
   int B, D, H, W, C, nh, wd, wh, ww;
   int sd, sh, sw;
   float scale;
+  int residual;
 };
 
 // Floats of the per-window region: phase 1 (the head loop) and phase 2 (the
@@ -143,14 +148,16 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_kernel(FoldBwdArgs 
   // LN1 statistics and the rounded LN output (also kept for dqkv_w)
   for (int i = warp; i < N; i += kBwdWarps) {
     const T* xi = x + tok[i] * C;
-    float m, r;
-    warp_ln_stats(xi, C, &m, &r);
+    float m = 0.f, r = 1.f;
+    if (a.ln_s != nullptr) warp_ln_stats(xi, C, &m, &r);
     if (lane == 0) {
       mu[i] = m;
       rs[i] = r;
     }
     for (int c = lane; c < C; c += kWarp) {
-      const float v = round_to<T>((to_f(xi[c]) - m) * r * a.ln_s[c] + a.ln_b[c]);
+      const float v = a.ln_s != nullptr
+                          ? round_to<T>((to_f(xi[c]) - m) * r * a.ln_s[c] + a.ln_b[c])
+                          : to_f(xi[c]);
       row[i * C + c] = v;
       row_ws[tok[i] * C + c] = from_f<T>(v);
     }
@@ -296,6 +303,13 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_kernel(FoldBwdArgs 
     __syncthreads();
   }
 
+  if (a.ln_s == nullptr) {  // no LN: dx = round(dxa) (+ dout with the residual)
+    for (int idx = tid; idx < N * C; idx += kBwdThreads) {
+      const long long o = tok[idx / C] * C + idx % C;
+      dx[o] = from_f<T>(dxa[idx] + (a.residual ? to_f(dout[o]) : 0.f));
+    }
+    return;
+  }
   // LN vjp + residual, one warp per token; per-warp dln partials
   for (int i = warp; i < N; i += kBwdWarps) {
     const T* xi = x + tok[i] * C;
@@ -315,7 +329,8 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_kernel(FoldBwdArgs 
       wp[c] += g[c] * xh;
       wp[C + c] += g[c];
       const float dxhat = g[c] * a.ln_s[c];
-      const float v = r * (dxhat - s1 - xh * s2) + to_f(dout[tok[i] * C + c]);
+      const float v =
+          r * (dxhat - s1 - xh * s2) + (a.residual ? to_f(dout[tok[i] * C + c]) : 0.f);
       dx[tok[i] * C + c] = from_f<T>(v);
     }
   }
@@ -442,14 +457,17 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_tc_kernel(FoldBwdAr
       continue;
     }
     const bf16* xi = x + tok[i] * C;
-    float m, r;
-    warp_ln_stats(xi, C, &m, &r);
+    float m = 0.f, r = 1.f;
+    if (a.ln_s != nullptr) warp_ln_stats(xi, C, &m, &r);
     if (lane == 0) {
       mu[i] = m;
       rs[i] = r;
     }
     for (int c = lane; c < C; c += kWarp) {
-      const bf16 v = __float2bfloat16((to_f(xi[c]) - m) * r * a.ln_s[c] + a.ln_b[c]);
+      const bf16 v =
+          a.ln_s != nullptr
+              ? __float2bfloat16((to_f(xi[c]) - m) * r * a.ln_s[c] + a.ln_b[c])
+              : xi[c];
       ri[c] = v;
       row_ws[tok[i] * C + c] = v;
     }
@@ -691,6 +709,13 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_tc_kernel(FoldBwdAr
     __syncthreads();
   }
 
+  if (a.ln_s == nullptr) {  // no LN: dx = round(dxa) (+ dout with the residual)
+    for (int idx = tid; idx < N * C; idx += kBwdThreads) {
+      const long long o = tok[idx / C] * C + idx % C;
+      dx[o] = __float2bfloat16(dxa[idx] + (a.residual ? to_f(dout[o]) : 0.f));
+    }
+    return;
+  }
   // LN vjp + residual, one warp per token; per-warp dln partials
   for (int i = warp; i < N; i += kBwdWarps) {
     const bf16* xi = x + tok[i] * C;
@@ -710,8 +735,8 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_tc_kernel(FoldBwdAr
       wp[c] += g[c] * xh;
       wp[C + c] += g[c];
       const float dxhat = g[c] * a.ln_s[c];
-      dx[tok[i] * C + c] =
-          __float2bfloat16(r * (dxhat - s1 - xh * s2) + to_f(dout[tok[i] * C + c]));
+      dx[tok[i] * C + c] = __float2bfloat16(
+          r * (dxhat - s1 - xh * s2) + (a.residual ? to_f(dout[tok[i] * C + c]) : 0.f));
     }
   }
   __syncthreads();
@@ -767,11 +792,14 @@ int vadcl_fold_attn_bwd(const void* x, const void* dout, const float* ln_s,
                         float* dln_s, float* dln_b, float* dqkv_w, float* dqkv_b,
                         float* dproj_w, float* dproj_b, float* dbias, void* workspace,
                         int B, int D, int H, int W, int C, int nh, int wd, int wh, int ww,
-                        int sd, int sh, int sw, float scale, int is_bf16, void* stream) {
+                        int sd, int sh, int sw, float scale, int residual, int is_bf16,
+                        void* stream) {
   using namespace vadcl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = wd * wh * ww;
   if (C % nh != 0 || D % wd != 0 || H % wh != 0 || W % ww != 0) return cudaErrorInvalidValue;
+  // the two modes the reference has: LN1 + residual, or neither
+  if ((ln_s != nullptr) != (residual != 0)) return cudaErrorInvalidValue;
   if (is_bf16 && !tc_bwd_eligible(C, nh)) return cudaErrorInvalidValue;
   const size_t smem = is_bf16 ? tc_bwd_layout(n, C, nh).bytes : fold_bwd_smem_bytes(n, C, nh);
   if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
@@ -782,7 +810,7 @@ int vadcl_fold_attn_bwd(const void* x, const void* dout, const float* ln_s,
                 ws + l.row, ws + l.o, ws + l.dqkv,
                 reinterpret_cast<float*>(ws + l.dqkvb), reinterpret_cast<float*>(ws + l.dln),
                 reinterpret_cast<float*>(ws + l.dbias),
-                B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale};
+                B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, residual};
   const int blocks = B * nwin;
   cudaError_t err;
   if (is_bf16) {
@@ -803,8 +831,10 @@ int vadcl_fold_attn_bwd(const void* x, const void* dout, const float* ln_s,
   if ((err = launch_atb(a.o_ws, is_bf16, dout, is_bf16, T, C, C, part, dproj_w, s))) return err;
   if ((err = launch_atb(nullptr, 0, dout, is_bf16, T, 1, C, part, dproj_b, s))) return err;
   if ((err = launch_sum_rows(a.dqkvb_part, dqkv_b, blocks, 3 * C, 3 * C, s))) return err;
-  if ((err = launch_sum_rows(a.dln_part, dln_s, blocks, C, 2 * C, s))) return err;
-  if ((err = launch_sum_rows(a.dln_part + C, dln_b, blocks, C, 2 * C, s))) return err;
+  if (ln_s != nullptr) {
+    if ((err = launch_sum_rows(a.dln_part, dln_s, blocks, C, 2 * C, s))) return err;
+    if ((err = launch_sum_rows(a.dln_part + C, dln_b, blocks, C, 2 * C, s))) return err;
+  }
   return launch_sum_rows(a.dbias_part, dbias, blocks, (long long)nh * n * n,
                          (long long)nh * n * n, s);
 }

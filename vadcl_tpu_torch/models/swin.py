@@ -1,11 +1,23 @@
 """Video Swin 3D blocks (``vadcl_tpu/models/swin.py``), NDHWC.
 
-With ``fused=True`` a block runs two hand-written kernels: the folded
-attention front half with LN1, the shift roll and the residual inside
-(``ops/fold_attn``), then the fused LN2 -> MLP -> residual tail
-(``ops/ln_mlp``).  With ``fused=False`` it is the plain PyTorch
-block of the JAX default config.  Parameter names and shapes are the same
-either way, so one state_dict loads into both.
+With ``fused=True`` a block runs two hand-written kernels, the attention
+front half and then the fused LN2 -> MLP -> residual tail (``ops/ln_mlp``).
+The front half depends on ``attn_kernel``:
+
+* ``"fold"``: the folded attention kernel on the unpartitioned tensor with
+  LN1, the shift roll and the residual inside (``ops/fold_attn``).  At a
+  geometry that needs window padding LN1 cannot fold across the zero pad, so
+  the block runs plain LN1, pads, and runs the fold kernel without LN and
+  without the residual.  Where a window does not fit the fold kernel's
+  shared memory (``fold_fits``) the block takes the ``"base"`` route.
+* ``"base"`` (trainable) and ``"packed"`` (inference only): plain LN1, pad,
+  roll, ``window_partition``, the partitioned-window kernel
+  (``ops/window_attn``), ``window_reverse``, roll back, slice, plain
+  residual add.
+
+With ``fused=False`` it is the plain PyTorch block of the JAX default
+config.  Parameter names and shapes are the same either way, so one
+state_dict loads into every variant.
 """
 
 from __future__ import annotations
@@ -17,7 +29,7 @@ import torch.nn as nn
 
 from vadcl_tpu_torch.models.layers import LayerNorm, Mlp, _uniform_fan_in
 from vadcl_tpu_torch.ops.convs import patchify_matmul
-from vadcl_tpu_torch.ops.fold_attn import fold_attention
+from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_fits
 from vadcl_tpu_torch.ops.ln_mlp import ln_mlp
 from vadcl_tpu_torch.ops.window import (
     compute_attn_mask,
@@ -27,13 +39,12 @@ from vadcl_tpu_torch.ops.window import (
     window_partition,
     window_reverse,
 )
+from vadcl_tpu_torch.ops.window_attn import window_attention_fused, window_attention_packed
 
 Tri = Tuple[int, int, int]
 
 # JAX attention kernels whose Hopper port is still to come (ROADMAP.md).
 _UNPORTED_ATTN = {
-    "base": "ops/pallas_attn.py:_attn_kernel",
-    "packed": "ops/pallas_attn.py:_attn_kernel_packed",
     "fold_block": "ops/pallas_attn_fold.py:_fold_kernel with the MLP tail (fold_block)",
     "fold_packed": "ops/pallas_attn_fold.py:_fold_packed_kernel",
     "fold_mix": "ops/pallas_attn_fold.py:_fold_packed_kernel (fold_mix)",
@@ -41,12 +52,13 @@ _UNPORTED_ATTN = {
 
 
 def check_attn_kernel(attn_kernel: str) -> None:
-    """The port's fused attention is the fold kernel only."""
+    """The port's fused attention kernels are ``fold``, ``base`` and
+    ``packed``."""
     if attn_kernel in _UNPORTED_ATTN:
         raise NotImplementedError(
             f"fused attention kernel {attn_kernel!r} is not ported to CUDA yet "
-            f"(Pallas {_UNPORTED_ATTN[attn_kernel]}); use attn_kernel='fold' "
-            "or fused_attention=False"
+            f"(Pallas {_UNPORTED_ATTN[attn_kernel]}); use attn_kernel='fold', "
+            "'base' or 'packed', or fused_attention=False"
         )
 
 
@@ -107,6 +119,7 @@ class SwinBlock3D(nn.Module):
         self.shift_size = tuple(shift_size)
         self.num_heads = num_heads
         self.fused = fused
+        self.attn_kernel = attn_kernel
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads, qkv_bias, qk_scale)
         self.norm2 = LayerNorm(dim)
@@ -127,13 +140,9 @@ class SwinBlock3D(nn.Module):
         shifted = any(s > 0 for s in shift)
         n = window[0] * window[1] * window[2]
         attn = self.attn
-        if self.fused:
-            if any(pads):
-                raise NotImplementedError(
-                    f"fused attention at {(D, H, W)} needs window padding to "
-                    f"{window}; the Pallas fallback ops/pallas_attn.py:"
-                    "_attn_kernel is not ported to CUDA yet"
-                )
+        fold = (self.fused and self.attn_kernel == "fold"
+                and fold_fits(n, C, self.num_heads, x.dtype))
+        if fold and not any(pads):
             # LN1, the shift roll both ways and the residual are in the kernel
             x = fold_attention(
                 x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
@@ -141,31 +150,57 @@ class SwinBlock3D(nn.Module):
                 self._mask(D, H, W, window, shift, x.device), self.num_heads,
                 window, attn.scale, residual=True, shift=shift,
             )
-            return ln_mlp(
-                x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
-                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-            )
+            return self._tail(x)
 
         shortcut = x
         y = self.norm1(x)
         if any(pads):
+            # trailing edges, after LN1: the pad tokens are real zero tokens that
+            # attend and are attended (the reference's quirk)
             y = nn.functional.pad(y, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
         _, Dp, Hp, Wp, _ = y.shape
-        if shifted:
-            y = torch.roll(y, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
         mask = self._mask(Dp, Hp, Wp, window, shift, x.device)
-        wins = window_partition(y, window)
-        wins = window_attention(
-            wins, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
-            attn.proj_bias, attn.bias(n), self.num_heads, mask=mask,
-            scale=attn.qk_scale,
-        )
-        y = window_reverse(wins, window, B, Dp, Hp, Wp)
-        if shifted:
-            y = torch.roll(y, shift, (1, 2, 3))
+        if fold:
+            # the fold kernel on the padded tensor, without LN and residual,
+            # the shift roll folded into its addressing
+            y = fold_attention(
+                y, None, None, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
+                attn.proj_bias, attn.bias(n), mask, self.num_heads, window,
+                attn.scale, residual=False, shift=shift,
+            )
+        else:
+            if shifted:
+                y = torch.roll(y, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
+            wins = window_partition(y, window)
+            if self.fused:
+                n_windows = wins.shape[0] // B
+                kernel = (window_attention_packed if self.attn_kernel == "packed"
+                          else window_attention_fused)
+                wins = kernel(
+                    wins, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
+                    attn.proj_bias, attn.bias(n), mask, self.num_heads, n_windows,
+                    attn.scale,
+                )
+            else:
+                wins = window_attention(
+                    wins, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
+                    attn.proj_bias, attn.bias(n), self.num_heads, mask=mask,
+                    scale=attn.qk_scale,
+                )
+            y = window_reverse(wins, window, B, Dp, Hp, Wp)
+            if shifted:
+                y = torch.roll(y, shift, (1, 2, 3))
         if any(pads):
             y = y[:, :D, :H, :W, :]
-        x = shortcut + y
+        return self._tail(shortcut + y)
+
+    def _tail(self, x: torch.Tensor) -> torch.Tensor:
+        """LN2 -> MLP -> residual: one kernel when fused."""
+        if self.fused:
+            return ln_mlp(
+                x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+            )
         return x + self.mlp(self.norm2(x))
 
 

@@ -15,6 +15,11 @@ from vadcl_tpu_torch.ops.convs import (
 )
 from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_bwd
 from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd
+from vadcl_tpu_torch.ops.window_attn import (
+    window_attention_fused,
+    window_attention_fused_bwd,
+    window_attention_packed,
+)
 from vadcl_tpu_torch.ops.window import (
     compute_attn_mask,
     get_window_size,
@@ -26,9 +31,11 @@ from vadcl_tpu_torch.ops.window import (
 
 # The wrappers of the hand-written CUDA kernels, each with a ``launches``
 # counter that counts its kernel launches (CPU calls run the plain version
-# and do not count): forward kernels A-D, then backward kernels 5 and 6.
+# and do not count): forward kernels A-D, backward kernels 5 and 6, then the
+# partitioned-window attention kernels 7, 8 and 9.
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
-           fold_attention_bwd)
+           fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
+           window_attention_packed)
 
 __all__ = [
     "KERNELS",
@@ -52,6 +59,9 @@ __all__ = [
     "space_cluster_assign",
     "space_cluster_loss",
     "window_attention",
+    "window_attention_fused",
+    "window_attention_fused_bwd",
+    "window_attention_packed",
     "window_partition",
     "window_reverse",
 ]

@@ -41,9 +41,15 @@ _SIGNATURES = {
     "vadcl_fold_attn": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_smem_bytes": ([_I] * 4, _L),
     "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
-    "vadcl_fold_attn_bwd": ([_P] * 18 + [_I] * 12 + [_F, _I, _P], _I),
+    "vadcl_fold_attn_bwd": ([_P] * 18 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_bwd_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_attn_bwd_workspace_bytes": ([_I] * 10, _L),
+    "vadcl_window_attn": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
+    "vadcl_window_attn_packed": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
+    "vadcl_window_attn_smem_bytes": ([_I] * 4, _L),
+    "vadcl_window_attn_bwd": ([_P] * 14 + [_I] * 5 + [_F, _I, _P], _I),
+    "vadcl_window_attn_bwd_smem_bytes": ([_I] * 4, _L),
+    "vadcl_window_attn_bwd_workspace_bytes": ([_I] * 5, _L),
     "vadcl_ln_mlp_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
     "vadcl_ln_mlp_bwd_workspace_bytes": ([_I] * 3, _L),
     "vadcl_cluster_assign": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),

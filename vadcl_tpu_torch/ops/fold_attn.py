@@ -8,9 +8,12 @@ Kernel A replaces ``vadcl_tpu/ops/pallas_attn_fold.py:_fold_kernel`` (entry
 window's tokens in the unpartitioned (B, D, H, W, C) tensor by strides;
 bf16 runs on the tensor cores and needs C and head_dim to be multiples of 16.
 
-Kernel 6 replaces ``_fold_bwd_kernel`` (entry ``_fold_bwd_call``, reached
-through ``_blk_bwd`` with ``fuse_ln=True, residual=True``).  Its CUDA kernel
-is ``csrc/fold_attn_bwd.cu``: the same per-window blocks recompute the
+Kernel 6 replaces ``_fold_bwd_kernel`` (entry ``_fold_bwd_call``), in the two
+modes the JAX package calls it in: ``fuse_ln=True, residual=True`` (through
+``_blk_bwd``, the Swin block's front half) and ``fuse_ln=False,
+residual=False`` (the backward of ``folded_window_attention_trainable``,
+which a block at a window-padded geometry runs).  Its CUDA kernel is
+``csrc/fold_attn_bwd.cu``: the same per-window blocks recompute the
 forward and emit dx; the cross-window sums (weight, bias and LN gradients)
 go through a deterministic second pass.  As in kernel A, bf16 runs on the
 tensor cores and needs C and head_dim to be multiples of 16.
@@ -20,6 +23,13 @@ backward kernel 6.  On a CPU tensor both run their plain versions
 (``fold_attention_plain``, ``fold_attention_bwd_plain``); on a CUDA tensor
 they launch the kernels or raise.  Bounds on the card and what the simple
 designs leave are in the headers of the two ``.cu`` files.
+
+``fold_fits`` is the port's counterpart of ``folded_attention_applicable``
+and ``folded_bwd_applicable``: whether one window's block fits the 227 KB of
+shared memory a Hopper block may use.  Where it does not, the Swin block
+takes the partitioned-window kernels (``ops/window_attn``) instead, and
+where only the backward does not, ``fold_attention``'s backward replays LN1
+outside the kernel and runs kernel 8 (``_blk_bwd``'s fallback).
 """
 
 from __future__ import annotations
@@ -32,6 +42,50 @@ from vadcl_tpu_torch.ops import cuda_lib
 from vadcl_tpu_torch.ops.window import window_partition, window_reverse
 
 Tri = Tuple[int, int, int]
+
+SMEM_LIMIT = 232448  # dynamic shared memory one Hopper block may use (227 KB)
+_WARPS = 16  # the fold kernels run 512 threads a block
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False) -> int:
+    """Shared memory one window's block of kernel A (or, with ``backward``,
+    kernel 6) needs: the layouts of ``csrc/fold_attn.cu`` and
+    ``csrc/fold_attn_bwd.cu``, mirrored here so the route can be chosen
+    without the library (``chip_smoke.py`` holds the two against each other)."""
+    hd = c // num_heads
+    if not bf16:
+        hdp = hd + 1
+        if not backward:
+            return 4 * (2 * n * c + 3 * n * hdp + n * n) + 8 * n
+        p1 = n * c + 5 * n * hdp + 2 * n * n
+        p2 = n * c + 33 * c + 33 * n + _WARPS * 2 * c
+        return 8 * n + 4 * (2 * n + max(p1, p2))
+    m = _up(n, 16)  # the window's rows padded to the 16-row tensor-core tiles
+
+    def total(sizes):
+        return sum(_up(v, 128) for v in sizes)
+
+    stage = 4 * 256 * _WARPS
+    if not backward:
+        return total([8 * m, 2 * m * c, 2 * m * c, 2 * m * hd, 2 * m * hd, 2 * m * hd,
+                      4 * m * m, 2 * m * m, stage])
+    p1 = total([2 * m * c] + [2 * m * hd] * 4 + [4 * m * m, 4 * m * m, 2 * m * m]
+               + [4 * m * hd] * 3 + [stage])
+    p2 = total([2 * m * 64, 4 * m * c, 4 * _WARPS * 2 * c])
+    return total([8 * m, 4 * m, 4 * m]) + max(p1, p2)
+
+
+def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
+              backward: bool = False) -> bool:
+    """Whether a window of ``n`` tokens at width ``c`` runs in the fold
+    kernel (A, or 6 with ``backward``): its block must fit ``SMEM_LIMIT``.
+    The fold kernels hold a whole (n, n) score tile per head, so large
+    windows (n = 392: window (8, 7, 7) on 16-frame clips) do not fit."""
+    return fold_smem_bytes(n, c, num_heads, dtype == torch.bfloat16, backward) <= SMEM_LIMIT
 
 
 def _ln_stats(x32: torch.Tensor):
@@ -117,8 +171,8 @@ def _ln_vjp(dxa: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
 def fold_attention_bwd_plain(
     x: torch.Tensor,  # (B, D, H, W, C) compute dtype, the forward's input
     dout: torch.Tensor,  # (B, D, H, W, C) upstream gradient
-    ln_scale: torch.Tensor,
-    ln_bias: torch.Tensor,
+    ln_scale: Optional[torch.Tensor],  # None: no LN1 (then ``residual`` is False)
+    ln_bias: Optional[torch.Tensor],
     qkv_w: torch.Tensor,
     qkv_b: Optional[torch.Tensor],
     proj_w: torch.Tensor,
@@ -128,21 +182,24 @@ def fold_attention_bwd_plain(
     window: Tri,
     scale: float,
     shift: Tri = (0, 0, 0),
+    residual: bool = True,
 ):
     """Plain PyTorch version of kernel 6: the gradients of
-    ``fold_attention(..., residual=True)`` with LN1, with the cast boundaries
-    of ``_fold_bwd_kernel``: LN output, qkv, probabilities, the per-head
+    ``fold_attention`` with LN1 and the residual, or (``ln_scale=None,
+    residual=False``) with neither, with the cast boundaries of
+    ``_fold_bwd_kernel``: LN output, qkv, probabilities, the per-head
     output, ``dout . proj_w^T``, ``ds * scale`` and dqkv round to the compute
     dtype; every product accumulates in fp32; softmax backward, d(bias), the
     LN vjp and the residual are fp32.  Returns (dx, dln_s, dln_b, dqkv_w,
     dqkv_b, dproj_w, dproj_b, dbias), dx in the compute dtype, the rest
-    fp32 (dqkv_b is None without a qkv bias)."""
+    fp32 (dqkv_b is None without a qkv bias, dln_* without LN1)."""
+    _check_mode(ln_scale, residual)
     if any(shift):
         back = tuple(-s for s in shift)
         g = fold_attention_bwd_plain(
             torch.roll(x, back, (1, 2, 3)), torch.roll(dout, back, (1, 2, 3)),
             ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask, num_heads,
-            window, scale,
+            window, scale, residual=residual,
         )
         return (torch.roll(g[0], tuple(shift), (1, 2, 3)),) + g[1:]
     B, D, H, W, C = x.shape
@@ -152,8 +209,11 @@ def fold_attention_bwd_plain(
     wins = window_partition(x, window).float()  # (Bn, N, C)
     do = window_partition(dout.to(dt), window).float()
     Bn, N, _ = wins.shape
-    xhat, rstd = _ln_stats(wins)
-    row = rnd(xhat * ln_scale.float() + ln_bias.float())
+    if ln_scale is not None:
+        xhat, rstd = _ln_stats(wins)
+        row = rnd(xhat * ln_scale.float() + ln_bias.float())
+    else:
+        row = wins
     qw, pw = rnd(qkv_w), rnd(proj_w)
     qkv = row @ qw
     if qkv_b is not None:
@@ -185,17 +245,66 @@ def fold_attention_bwd_plain(
     dqkv_c = rnd(dqkv)
     dqkv_w = row.reshape(-1, C).T @ dqkv_c.reshape(-1, 3 * C)
     dxa = dqkv_c @ qw.T  # d(LN output), fp32
-    dln_s = (dxa * xhat).sum((0, 1))
-    dln_b = dxa.sum((0, 1))
-    dx = _ln_vjp(dxa, xhat, rstd, ln_scale) + do
+    if ln_scale is not None:
+        dln_s = (dxa * xhat).sum((0, 1))
+        dln_b = dxa.sum((0, 1))
+        dx = _ln_vjp(dxa, xhat, rstd, ln_scale) + do
+    else:
+        dln_s = dln_b = None
+        dx = dxa
     dx = window_reverse(dx.to(dt), window, B, D, H, W)
     return dx, dln_s, dln_b, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
 
 
+def _check_mode(ln_scale, residual) -> None:
+    if (ln_scale is None) == bool(residual):
+        raise NotImplementedError(
+            "fold_attention: the backward (kernel 6) covers LN1 + residual (the "
+            "Swin block's front half) and neither (a block at a window-padded "
+            "geometry), the two modes the reference calls it in"
+        )
+
+
+def _fold_bwd_through_windows(x, dout, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask,
+                              num_heads, window, scale, shift, residual):
+    """The backward of ``fold_attention`` where kernel 6's block does not fit
+    shared memory (``_blk_bwd``'s fallback): LN1 is replayed and
+    differentiated outside the kernel, the windows are partitioned, and
+    kernel 8 (``window_attention_fused_bwd``) does the rest."""
+    from vadcl_tpu_torch.ops.window_attn import window_attention_fused_bwd
+
+    B, D, H, W, C = x.shape
+    dt = x.dtype
+    if any(shift):
+        back = tuple(-s for s in shift)
+        x, dout = torch.roll(x, back, (1, 2, 3)), torch.roll(dout, back, (1, 2, 3))
+    if ln_s is not None:
+        xhat, rstd = _ln_stats(x.float())
+        xa = (xhat * ln_s.float() + ln_b.float()).to(dt)
+    else:
+        xa = x
+    n_windows = (D // window[0]) * (H // window[1]) * (W // window[2])
+    dxa_w, dqw, dqb, dpw, dpb, dbias = window_attention_fused_bwd(
+        window_partition(xa, window), window_partition(dout.to(dt), window), qkv_w,
+        qkv_b, proj_w, bias, mask, num_heads, n_windows, scale,
+    )
+    dxa = window_reverse(dxa_w, window, B, D, H, W).float()
+    dln_s = dln_b = None
+    if ln_s is not None:
+        dln_s, dln_b = (dxa * xhat).sum((0, 1, 2, 3)), dxa.sum((0, 1, 2, 3))
+        dxa = _ln_vjp(dxa, xhat, rstd, ln_s)
+    if residual:
+        dxa = dxa + dout.float()
+    dx = dxa.to(dt)
+    if any(shift):
+        dx = torch.roll(dx, tuple(shift), (1, 2, 3))
+    return dx, dln_s, dln_b, dqw, dqb, dpw, dpb, dbias
+
+
 class _FoldAttention(torch.autograd.Function):
-    """Forward kernel A, backward kernel 6 (``folded_block_attention_trainable``'s
-    custom VJP).  Only LN1 + residual has a backward: that is the Swin
-    block's front half, the one path that trains."""
+    """Forward kernel A, backward kernel 6
+    (``folded_block_attention_trainable``'s custom VJP with LN1 and the
+    residual, ``folded_window_attention_trainable``'s with neither)."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
@@ -212,14 +321,14 @@ class _FoldAttention(torch.autograd.Function):
     def backward(ctx, dout):
         x, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask = ctx.saved_tensors
         num_heads, window, scale, residual, shift = ctx.meta
-        if ln_s is None or not residual:
-            raise NotImplementedError(
-                "fold_attention: the backward (kernel 6) covers LN1 + residual "
-                "only, the Swin block's front half"
-            )
-        dx, dls, dlb, dqw, dqb, dpw, dpb, dbias = fold_attention_bwd(
+        _check_mode(ln_s, residual)
+        n = window[0] * window[1] * window[2]
+        bwd = fold_attention_bwd
+        if not fold_fits(n, x.shape[-1], num_heads, x.dtype, backward=True):
+            bwd = _fold_bwd_through_windows
+        dx, dls, dlb, dqw, dqb, dpw, dpb, dbias = bwd(
             x, dout, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask, num_heads,
-            window, scale, shift,
+            window, scale, shift, residual,
         )
         return (dx, dls, dlb, dqw, dqb, dpw, dpb, dbias,
                 None, None, None, None, None, None)
@@ -246,7 +355,7 @@ def fold_attention(
     shifted-window roll is folded in (``mask`` is then the shifted blocks'
     mask).  With a zero shift, the contract of
     ``fused_window_attention_folded(..., ln_scale=, ln_bias=, residual=)``.
-    Differentiable (kernel 6) with LN1 and the residual."""
+    Differentiable (kernel 6) with LN1 and the residual, or with neither."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fold_attention: unsupported device {x.device}")
     return _FoldAttention.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
@@ -258,13 +367,15 @@ fold_attention.launches = 0
 
 
 def fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
-                       mask, num_heads, window, scale, shift=(0, 0, 0)):
+                       mask, num_heads, window, scale, shift=(0, 0, 0), residual=True):
     """Kernel 6: the gradients of ``fold_attention`` with LN1 and the
-    residual, as ``fold_attention_bwd_plain`` returns them (the contract of
-    ``_fold_bwd_call(..., fuse_ln=True, residual=True)`` with the shift roll
-    folded in)."""
+    residual, or (``ln_scale=None, residual=False``) with neither, as
+    ``fold_attention_bwd_plain`` returns them (the contract of
+    ``_fold_bwd_call(..., fuse_ln=, residual=)`` with the shift roll folded
+    in)."""
+    _check_mode(ln_scale, residual)
     args = (x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask,
-            num_heads, tuple(window), scale, tuple(shift))
+            num_heads, tuple(window), scale, tuple(shift), bool(residual))
     if x.device.type == "cpu":
         return fold_attention_bwd_plain(*args)
     if x.device.type != "cuda":
@@ -283,7 +394,8 @@ def _f32(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
 
 def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes):
     """The checks kernels A and 6 share; ``smem_bytes`` is the library's
-    shared-memory size function of the kernel."""
+    shared-memory size function of the kernel (what ``fold_smem_bytes``
+    mirrors)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: dtype {x.dtype} not supported")
     B, D, H, W, C = x.shape
@@ -306,10 +418,11 @@ def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes):
     if mask is not None and tuple(mask.shape) != (nw, n, n):
         raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(nw, n, n)}")
     smem = smem_bytes(n, C, num_heads, int(x.dtype == torch.bfloat16))
-    if smem > 232448:
+    if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"{what}: window of {n} tokens at C={C} needs {smem} B of "
-            "shared memory per block (> 227 KB); a tiled variant is still to port"
+            "shared memory per block (> 227 KB): fold_fits() is false here and "
+            "the Swin block takes the partitioned-window kernels instead"
         )
 
 
@@ -356,7 +469,7 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
 
 
 def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
-                             bias, mask, num_heads, window, scale, shift):
+                             bias, mask, num_heads, window, scale, shift, residual):
     lib = cuda_lib.library()
     _check_fold("fold_attention_bwd", x, bias, mask, num_heads, window,
                 lib.vadcl_fold_attn_bwd_smem_bytes)
@@ -368,7 +481,9 @@ def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
     doc = dout.to(dt).contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(xc)
-    dln_s, dln_b = torch.empty(C, **f32), torch.empty(C, **f32)
+    has_ln = ln_scale is not None
+    dln_s = torch.empty(C, **f32) if has_ln else None
+    dln_b = torch.empty(C, **f32) if has_ln else None
     dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), torch.empty(3 * C, **f32)
     dproj_w, dproj_b = torch.empty(C, C, **f32), torch.empty(C, **f32)
     dbias = torch.empty(num_heads, n, n, **f32)
@@ -376,17 +491,21 @@ def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
         lib.vadcl_fold_attn_bwd_workspace_bytes(B, D, H, W, C, num_heads, *window, is_bf16),
         dtype=torch.uint8, device=dev,
     )
-    ls, lb = _f32(ln_scale, C, dev), _f32(ln_bias, C, dev)
+    ls = _f32(ln_scale, C, dev) if has_ln else None
+    lb = _f32(ln_bias, C, dev) if has_ln else None
     qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
     err = lib.vadcl_fold_attn_bwd(
-        xc.data_ptr(), doc.data_ptr(), ls.data_ptr(), lb.data_ptr(), qw.data_ptr(),
-        qb.data_ptr(), pw.data_ptr(), bs.data_ptr(),
+        xc.data_ptr(), doc.data_ptr(),
+        ls.data_ptr() if has_ln else None, lb.data_ptr() if has_ln else None,
+        qw.data_ptr(), qb.data_ptr(), pw.data_ptr(), bs.data_ptr(),
         mk.data_ptr() if mk is not None else None,
-        dx.data_ptr(), dln_s.data_ptr(), dln_b.data_ptr(), dqkv_w.data_ptr(),
+        dx.data_ptr(),
+        dln_s.data_ptr() if has_ln else None, dln_b.data_ptr() if has_ln else None,
+        dqkv_w.data_ptr(),
         dqkv_b.data_ptr(), dproj_w.data_ptr(), dproj_b.data_ptr(), dbias.data_ptr(),
         ws.data_ptr(),
         B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H,
-        shift[2] % W, float(scale), is_bf16, cuda_lib.stream_ptr(xc),
+        shift[2] % W, float(scale), int(residual), is_bf16, cuda_lib.stream_ptr(xc),
     )
     cuda_lib.check(err, "fold_attention_bwd")
     fold_attention_bwd.launches += 1

@@ -1,0 +1,324 @@
+"""Kernels 7, 8 and 9: Swin window attention over pre-partitioned windows,
+its backward, and the ``packed`` inference variant.
+
+Counterpart of ``vadcl_tpu/ops/pallas_attn.py`` and
+``vadcl_tpu/ops/pallas_attn_bwd.py``.  All three take windows ``(Bn, N, C)``,
+batch-major (window ``i`` takes ``mask[i % n_windows]``), and compute
+``proj(attention(x))`` with no LayerNorm and no residual; they are what
+``attn_kernel="base"`` (7 forward, 8 backward) and ``"packed"`` (9, inference
+only) run in every Swin block, and what a ``"fold"`` block falls back to
+where its window does not fit the fold kernels' shared memory
+(``ops/fold_attn.py:fold_fits``).
+
+* ``window_attention_fused``: a ``torch.autograd.Function``, forward kernel
+  7 (``_attn_kernel``), backward kernel 8; the contract of
+  ``fused_window_attention_trainable``.  It saves its inputs only.
+* ``window_attention_fused_bwd``: kernel 8 (``_bwd_kernel`` through
+  ``_bwd_call`` and ``_bwd``).
+* ``window_attention_packed``: kernel 9 (``_attn_kernel_packed``); asking it
+  for a gradient raises.
+
+CUDA sources: ``csrc/window_attn.cu`` (7 and 9 share device code behind a
+template flag, with an entry point each) and ``csrc/window_attn_bwd.cu``
+(whose cross-window sums go through ``csrc/reduce.cu``).  On a CPU tensor
+each wrapper runs its plain version; on a CUDA tensor it launches the kernel
+or raises.  bf16 runs on 16x16 tensor-core tiles and needs C and head_dim to
+be multiples of 16; fp32 takes any width.  A block holds a whole (N, N)
+score tile per head, so a window must fit 227 KB of shared memory: N = 392
+(window (8, 7, 7) on 16-frame clips) does not, and is refused with
+``NotImplementedError`` (ROADMAP.md queues the row-tiled variant).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vadcl_tpu_torch.ops import cuda_lib
+from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
+
+
+def _forward_plain(x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
+                   scale, packed):
+    Bn, N, C = x.shape
+    dt = x.dtype
+    hd = C // num_heads
+    qkv = x.float() @ qkv_w.to(dt).float()
+    if qkv_b is not None:
+        qkv = qkv + qkv_b.float()
+    if packed:  # q is scaled before it is rounded
+        qkv = torch.cat((qkv[..., :C] * scale, qkv[..., C:]), -1)
+    qkv = qkv.to(dt).reshape(Bn, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()  # (Bn, nH, N, hd)
+    s = q @ k.transpose(-2, -1)
+    if not packed:
+        s = s * scale
+    s = s + bias.float()[None]
+    if mask is not None:
+        s = (s.reshape(Bn // n_windows, n_windows, num_heads, N, N)
+             + mask.float()[None, :, None]).reshape(Bn, num_heads, N, N)
+    if packed:  # per-head row max, e * (1 / sum e)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e * (1.0 / e.sum(-1, keepdim=True))
+    else:
+        p = torch.softmax(s, dim=-1)
+    o = (p.to(dt).float() @ v).to(dt)  # (Bn, nH, N, hd)
+    o = o.transpose(1, 2).reshape(Bn, N, C)
+    return (o.float() @ proj_w.to(dt).float() + proj_b.float()).to(dt)
+
+
+def window_attention_fused_plain(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                 num_heads, n_windows, scale):
+    """Plain PyTorch version of kernel 7 with its cast boundaries:
+    ``qkv = round(x . W_qkv + b_qkv)``; ``s = (q . k^T) * scale + bias[h] +
+    mask[w % nW]`` in fp32, the scale applied after the product;
+    ``p = round(softmax(s))``; ``o = round(p . v)`` per head;
+    ``out = round(o . W_proj + b_proj)``.  Weights are cast to the compute
+    dtype, both biases stay fp32; a missing ``qkv_b`` or ``mask`` is zeros."""
+    return _forward_plain(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
+                          n_windows, scale, packed=False)
+
+
+def window_attention_packed_plain(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                  num_heads, n_windows, scale):
+    """Plain PyTorch version of kernel 9: kernel 7's function except
+    ``q = round((x . W + b)[:, :C] * scale)`` (no scale after the product),
+    the row max is per head, and ``p = round(e * (1 / sum e))``."""
+    return _forward_plain(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
+                          n_windows, scale, packed=True)
+
+
+def window_attention_fused_bwd_plain(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
+                                     num_heads, n_windows, scale):
+    """Plain PyTorch version of kernel 8 with ``_bwd_kernel``'s order and
+    cast boundaries: the forward recomputed as in kernel 7, keeping the fp32
+    ``P`` beside ``p = round(P)``; ``do = round(dout . W_proj^T)``;
+    ``dv = p^T . do``; ``dp = do . v^T``; ``ds = P * (dp - sum(dp * P))``;
+    ``d(bias)[h] = sum over windows of ds``; ``dss = round(ds * scale)``;
+    ``dq = dss . k``, ``dk = dss^T . q``; ``dqkv_b = sum dqkv`` before the
+    rounding; ``dqkv_w = x^T . round(dqkv)``;
+    ``dx = round(round(dqkv) . W_qkv^T)``.  ``dout`` is cast to the compute
+    dtype first.  Returns (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias): dx in
+    the compute dtype, the rest fp32 (dqkv_b None without a qkv bias)."""
+    Bn, N, C = x_windows.shape
+    dt = x_windows.dtype
+    nh, hd = num_heads, C // num_heads
+    rnd = lambda t: t.to(dt).float()  # noqa: E731  a cast to the compute dtype
+    x = x_windows.float()
+    do = dout.to(dt).float()
+    qw, pw = rnd(qkv_w), rnd(proj_w)
+    qkv = x @ qw
+    if qkv_b is not None:
+        qkv = qkv + qkv_b.float()
+    qkv = rnd(qkv).reshape(Bn, N, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # (Bn, nH, N, hd)
+    s = (q @ k.transpose(-2, -1)) * scale + bias.float()[None]
+    if mask is not None:
+        s = (s.reshape(Bn // n_windows, n_windows, nh, N, N)
+             + mask.float()[None, :, None]).reshape(Bn, nh, N, N)
+    P = torch.softmax(s, dim=-1)
+    p = rnd(P)
+    o = rnd(p @ v).transpose(1, 2).reshape(Bn, N, C)
+
+    dproj_b = do.sum((0, 1))
+    dproj_w = o.reshape(-1, C).T @ do.reshape(-1, C)
+    doa = rnd(do @ pw.T).reshape(Bn, N, nh, hd).transpose(1, 2)  # (Bn, nH, N, hd)
+    dv = p.transpose(-2, -1) @ doa
+    dp = doa @ v.transpose(-2, -1)
+    ds = P * (dp - (dp * P).sum(-1, keepdim=True))
+    dbias = ds.sum(0)
+    dss = rnd(ds * scale)
+    dq = dss @ k
+    dk = dss.transpose(-2, -1) @ q
+    dqkv = torch.stack((dq, dk, dv), 2).permute(0, 3, 2, 1, 4).reshape(Bn, N, 3 * C)
+    dqkv_b = dqkv.sum((0, 1)) if qkv_b is not None else None
+    dqkv_c = rnd(dqkv)
+    dqkv_w = x.reshape(-1, C).T @ dqkv_c.reshape(-1, 3 * C)
+    dx = (dqkv_c @ qw.T).to(dt)
+    return dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Forward kernel 7, backward kernel 8
+    (``fused_window_attention_trainable``'s custom VJP): the inputs are
+    saved, the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
+                scale):
+        ctx.save_for_backward(x, qkv_w, qkv_b, proj_w, bias, mask)
+        ctx.meta = (num_heads, n_windows, scale)
+        args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
+        if x.device.type == "cpu":
+            return window_attention_fused_plain(*args)
+        return _forward_cuda("window_attention_fused", False, *args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, qkv_w, qkv_b, proj_w, bias, mask = ctx.saved_tensors
+        dx, dqw, dqb, dpw, dpb, dbias = window_attention_fused_bwd(
+            x, dout, qkv_w, qkv_b, proj_w, bias, mask, *ctx.meta)
+        # weight gradients come back in the parameters' dtype
+        return (dx, dqw.to(qkv_w.dtype), None if dqb is None else dqb.to(qkv_b.dtype),
+                dpw.to(proj_w.dtype), dpb, dbias.to(bias.dtype), None, None, None, None)
+
+
+class _WindowAttentionPacked(torch.autograd.Function):
+    """Kernel 9: forward only, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
+                scale):
+        args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
+        if x.device.type == "cpu":
+            return window_attention_packed_plain(*args)
+        return _forward_cuda("window_attention_packed", True, *args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(
+            "window_attention_packed (attn_kernel='packed') is inference-only: "
+            "it has no backward; train with attn_kernel='base' or 'fold'"
+        )
+
+
+def _check_device(what: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def window_attention_fused(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                           num_heads: int, n_windows: int, scale: float) -> torch.Tensor:
+    """``proj(attention(x_windows))`` over windows ``(Bn, N, C)``: the
+    contract of ``fused_window_attention_trainable``.  ``bias`` is the
+    pre-gathered (nH, N, N) rel-pos bias, ``mask`` (n_windows, N, N) or None.
+    Differentiable (kernel 8); the mask gets no gradient."""
+    _check_device("window_attention_fused", x_windows)
+    return _WindowAttention.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                  num_heads, n_windows, float(scale))
+
+
+window_attention_fused.launches = 0
+
+
+def window_attention_packed(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                            num_heads: int, n_windows: int, scale: float) -> torch.Tensor:
+    """The contract of ``fused_window_attention_packed`` (inference only)."""
+    _check_device("window_attention_packed", x_windows)
+    return _WindowAttentionPacked.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias,
+                                        mask, num_heads, n_windows, float(scale))
+
+
+window_attention_packed.launches = 0
+
+
+def window_attention_fused_bwd(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
+                               num_heads: int, n_windows: int, scale: float):
+    """Kernel 8: (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias) of
+    ``window_attention_fused``, as ``window_attention_fused_bwd_plain``
+    returns them (the contract of ``_bwd_call``)."""
+    _check_device("window_attention_fused_bwd", x_windows)
+    args = (x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows,
+            float(scale))
+    if x_windows.device.type == "cpu":
+        return window_attention_fused_bwd_plain(*args)
+    return _backward_cuda(*args)
+
+
+window_attention_fused_bwd.launches = 0
+
+
+def _check_windows(what, x, bias, mask, num_heads, n_windows, smem_bytes):
+    """The checks the three kernels share; ``smem_bytes`` is the library's
+    shared-memory size function of the kernel."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
+    if x.dim() != 3:
+        raise ValueError(f"{what}: windows must be (Bn, N, C), got {tuple(x.shape)}")
+    Bn, N, C = x.shape
+    if C % num_heads:
+        raise ValueError(f"{what}: C={C} is not divisible by {num_heads} heads")
+    if x.dtype == torch.bfloat16 and (C % 16 or (C // num_heads) % 16):
+        raise NotImplementedError(
+            f"{what}: the bf16 kernel runs on 16x16 tensor-core tiles and "
+            f"needs C and head_dim to be multiples of 16 (got C={C}, "
+            f"head_dim={C // num_heads})"
+        )
+    if tuple(bias.shape) != (num_heads, N, N):
+        raise ValueError(f"{what}: bias {tuple(bias.shape)} != {(num_heads, N, N)}")
+    if mask is not None and (tuple(mask.shape) != (n_windows, N, N) or Bn % n_windows):
+        raise ValueError(
+            f"{what}: mask {tuple(mask.shape)} != {(n_windows, N, N)}, or the window "
+            f"batch {Bn} is not a multiple of n_windows={n_windows}"
+        )
+    smem = smem_bytes(N, C, num_heads, int(x.dtype == torch.bfloat16))
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"{what}: a window of {N} tokens at C={C} needs {smem} B of shared "
+            "memory per block (> 227 KB): the kernel holds a whole (N, N) score "
+            "tile per head; the variant that tiles the query rows is still to port"
+        )
+
+
+def _operands(x, qkv_w, qkv_b, proj_w, bias, mask):
+    """Weights in the compute dtype (aligned for the tensor-core loads), the
+    qkv bias (zeros when missing), rel-pos bias and mask in fp32."""
+    dev, dt, C = x.device, x.dtype, x.shape[-1]
+    f32 = lambda t: t.detach().to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
+    qw = cuda_lib.aligned(qkv_w.detach().to(device=dev, dtype=dt))
+    pw = cuda_lib.aligned(proj_w.detach().to(device=dev, dtype=dt))
+    qb = torch.zeros(3 * C, dtype=torch.float32, device=dev) if qkv_b is None else f32(qkv_b)
+    return qw, qb, pw, f32(bias), None if mask is None else f32(mask)
+
+
+def _forward_cuda(what, packed, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
+                  n_windows, scale):
+    lib = cuda_lib.library()
+    _check_windows(what, x, bias, mask, num_heads, n_windows, lib.vadcl_window_attn_smem_bytes)
+    Bn, N, C = x.shape
+    xc = x.detach().contiguous()
+    out = torch.empty_like(xc)
+    qw, qb, pw, bs, mk = _operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
+    pb = proj_b.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    entry = lib.vadcl_window_attn_packed if packed else lib.vadcl_window_attn
+    err = entry(
+        xc.data_ptr(), qw.data_ptr(), qb.data_ptr(), pw.data_ptr(), pb.data_ptr(),
+        bs.data_ptr(), mk.data_ptr() if mk is not None else None, out.data_ptr(),
+        Bn, N, C, num_heads, max(int(n_windows), 1), float(scale),
+        int(x.dtype == torch.bfloat16), cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, what)
+    (window_attention_packed if packed else window_attention_fused).launches += 1
+    return out
+
+
+def _backward_cuda(x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows, scale):
+    what = "window_attention_fused_bwd"
+    lib = cuda_lib.library()
+    _check_windows(what, x, bias, mask, num_heads, n_windows,
+                   lib.vadcl_window_attn_bwd_smem_bytes)
+    Bn, N, C = x.shape
+    dev, dt = x.device, x.dtype
+    is_bf16 = int(dt == torch.bfloat16)
+    xc = x.detach().contiguous()
+    doc = dout.detach().to(dt).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(xc)
+    dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), torch.empty(3 * C, **f32)
+    dproj_w, dproj_b = torch.empty(C, C, **f32), torch.empty(C, **f32)
+    dbias = torch.empty(num_heads, N, N, **f32)
+    ws = torch.empty(lib.vadcl_window_attn_bwd_workspace_bytes(Bn, N, C, num_heads, is_bf16),
+                     dtype=torch.uint8, device=dev)
+    qw, qb, pw, bs, mk = _operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
+    err = lib.vadcl_window_attn_bwd(
+        xc.data_ptr(), doc.data_ptr(), qw.data_ptr(), qb.data_ptr(), pw.data_ptr(),
+        bs.data_ptr(), mk.data_ptr() if mk is not None else None,
+        dx.data_ptr(), dqkv_w.data_ptr(), dqkv_b.data_ptr(), dproj_w.data_ptr(),
+        dproj_b.data_ptr(), dbias.data_ptr(), ws.data_ptr(),
+        Bn, N, C, num_heads, max(int(n_windows), 1), float(scale), is_bf16,
+        cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, what)
+    window_attention_fused_bwd.launches += 1
+    return dx, dqkv_w, dqkv_b if qkv_b is not None else None, dproj_w, dproj_b, dbias

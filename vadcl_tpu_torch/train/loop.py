@@ -7,7 +7,7 @@ one-step-lagged metrics; ``loss_record/*.npy`` truncated to the resumed
 step; ``save_every_iters`` / ``save_every_epochs``; ``auc_record.csv`` and
 the ``best`` checkpoint; the non-finite-loss abort; the loss-spike batch
 dump and the periodic input/recon dump (both need PIL, through
-``vadcl_tpu/viz/dumps.py``, imported only when used).  Multi-process data
+``vadcl_tpu_torch/viz/dumps.py``, which imports it only when used).  Multi-process data
 parallelism and the profiler hook are still to port.
 
 The loader is anything with ``batch_size``, ``steps_per_epoch()`` and
@@ -53,14 +53,16 @@ def get_logger(path: str, name: str = "vadcl_torch") -> logging.Logger:
 
 
 def _dumps():
-    """``save_clip_frames`` of ``vadcl_tpu/viz/dumps.py`` (numpy + PIL)."""
+    """``save_clip_frames`` of ``vadcl_tpu_torch/viz/dumps.py`` (numpy + PIL)."""
     try:
-        from vadcl_tpu.viz.dumps import save_clip_frames
+        import PIL  # noqa: F401  the dumps import it at first use
     except ImportError as e:
         raise ImportError(
             "JPEG dumps (dump_every_iters > 0, the loss-spike dump) need PIL, "
             f"which this environment lacks ({e}); set dump_every_iters=0"
         ) from e
+    from vadcl_tpu_torch.viz.dumps import save_clip_frames
+
     return save_clip_frames
 
 
