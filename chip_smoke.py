@@ -7,39 +7,50 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 Phases (any failure raises and the script exits non-zero):
   0. device: CUDA must be available (no CPU fallback); print the card's
      name and power limit as nvidia-smi reports them.
-  1. build the nine CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
-     process per source, all started together); the Python mirror of the
-     fold kernels' shared-memory sizes is held against the library's.
-  2. each forward kernel (A-D, 7: window attention, 9: its packed variant)
+  1. build the twelve CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
+     process per source, all started together); the Python mirrors of the
+     fold kernels' shared-memory sizes (the routes' fit predicates) are held
+     against the library's, and kernel 10 and the whole-block kernels must
+     fit at the four flagship geometries in bf16 and fp32.
+  2. each forward kernel (A-D, 7: window attention, 9: its packed variant,
+     10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
      at batch 4 (bf16 and fp32) and at the scoring path's batch of 16
      windows (bf16): error against the stated bound and the median
-     CUDA-event time of both; then edge shapes, a missing qkv bias, and
-     kernel A without LN and residual on a window-padded shape.
+     CUDA-event time of both (kernel 10 beside A, the whole-block kernel
+     beside A then B, on the same inputs); then edge shapes, a missing qkv
+     bias, and kernels A and 10 without LN and residual on a window-padded
+     shape.
   2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
-     modes, 8: window attention) against their plain versions at the
-     training batch of 4, bf16 and fp32, every gradient tensor held
-     separately; times; edge shapes.
+     modes, 8: window attention, the whole-block backward) against their
+     plain versions at the training batch of 4, bf16 and fp32, every
+     gradient tensor held separately; times (the whole-block backward beside
+     6 then 5); workspaces; edge shapes.
   3. the whole flagship model (shanghaitech, predict, fused attention and
      fused cluster heads) in fp32 with TF32 off, the card (kernels) against
-     the CPU (plain versions) on 4x224^2 clips: ``attn_kernel="base"`` and
-     ``"packed"`` at full depth, ``"fold"`` at a reduced depth.
+     the CPU (plain versions) on 224^2 clips: ``attn_kernel="base"``,
+     ``"packed"``, ``"fold_packed"`` and ``"fold_block"`` at full depth,
+     ``"fold"`` and ``"fold_mix"`` at a reduced depth.
   3b. the training loss and backward on 1 clip, card against CPU (the loss,
      the set of parameters with a gradient, and every parameter gradient):
-     ``"base"`` at full depth, ``"fold"`` at a reduced depth, and ``"fold"``
-     on a 240^2 clip, whose 60^2 and 30^2 token grids need window padding.
+     ``"base"`` and ``"fold_block"`` at full depth, ``"fold"`` at a reduced
+     depth, and ``"fold"`` on a 240^2 clip, whose 60^2 and 30^2 token grids
+     need window padding.
   4. the scoring path in bf16: in-memory uint8 videos through
      ``evaluate_videos`` (PSNR -> anomaly score -> per-scene AUC) with
-     batch_windows=16, once per ``attn_kernel`` in fold, base, packed; the
-     kernels each path must run have launched and the others have not.
+     batch_windows=16, once per ``attn_kernel`` in fold, base, packed,
+     fold_packed, fold_mix, fold_block; the kernels each path must run have
+     launched (the three new paths: exactly so many times) and the others
+     have not.
   5. the training path in bf16: ``train()`` on the flagship config from a
      seeded init with an in-memory uint8 loader at batch 4, 2 warm-up and
-     8 timed steps, under ``"fold"`` and under ``"base"``, with the same
-     launch checks; a checkpoint round trip into a fresh model and
-     optimizer; a ``"packed"`` train step is refused before any launch.
-The second-to-last line is a JSON object describing each kernel (its time
-beside its roofline bound on an H100's published peaks); the last line is
-``{"ok": true, "device": {...}}``.
+     8 timed steps, under ``"fold"``, ``"base"`` and ``"fold_block"``, with
+     the same launch checks; a checkpoint round trip into a fresh model and
+     optimizer; a ``"packed"``, ``"fold_packed"`` or ``"fold_mix"`` train
+     step is refused before any launch.
+The second-to-last line is a JSON object describing each of the twelve
+kernels (its time beside its roofline bound on an H100's published peaks);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -105,12 +116,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(tensors, flops: float, peak: str) -> dict:
+def bound(tensors, flops: float, peak: str, fp32_flops: float = 0.0) -> dict:
     """The least time the card could take for one call: the larger of the
     bytes of ``tensors`` (every input and output once) over the memory rate
-    and ``flops`` over the peak rate of ``peak`` ("bf16" or "fp32")."""
+    and ``flops`` over the peak rate of ``peak`` ("bf16" or "fp32"), plus
+    ``fp32_flops`` over the fp32 rate where a bf16 kernel also has products
+    its contract keeps in fp32."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[peak] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / PEAK_FLOPS[peak] + fp32_flops / PEAK_FLOPS["fp32"]) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
 
@@ -176,6 +190,32 @@ def phase_build():
                 raise AssertionError(f"fold_smem_bytes{(n, c, nh, bf16)} = {mine} but the "
                                      f"library says {theirs}")
     print("  fold_smem_bytes (the route's predicate) agrees with the library's layouts")
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_block_fits, fold_block_smem_bytes, fold_packed_fits,
+    )
+
+    for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
+                     (98, 24, 2), (16, 32, 2), (392, 96, 6)):
+        for bf16 in (0, 1):
+            if bf16 and c % 16:
+                continue
+            mine = (fold_smem_bytes(n, c, nh, bool(bf16)),
+                    fold_block_smem_bytes(n, c, nh, bool(bf16)),
+                    fold_block_smem_bytes(n, c, nh, bool(bf16), backward=True))
+            theirs = (lib.vadcl_fold_attn_packed_smem_bytes(n, c, nh, bf16),
+                      lib.vadcl_fold_block_smem_bytes(n, c, nh, bf16),
+                      lib.vadcl_fold_block_bwd_smem_bytes(n, c, nh, bf16))
+            if mine != theirs:
+                raise AssertionError(f"packed / whole-block shared memory {(n, c, nh, bf16)} = "
+                                     f"{mine} but the library says {theirs}")
+    for gname, ((_, _, _, c), nh, window, _) in FOLD_GEOMETRIES.items():
+        n = window[0] * window[1] * window[2]
+        for dtype in (torch.bfloat16, torch.float32):
+            if not (fold_packed_fits(n, c, nh, dtype) and fold_block_fits(n, c, nh, dtype)):
+                raise AssertionError(f"{gname} {dtype}: kernel 10 or the whole-block kernels "
+                                     "do not fit 227 KB of shared memory")
+    print("  fold_packed_fits / fold_block_fits agree with the library and hold at the four "
+          "flagship geometries, bf16 and fp32")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -195,17 +235,44 @@ def _fold_case(shape, nh, window, shift, dtype, gen):
     )
 
 
-def check_fold(name, a) -> float:
-    """Kernel A against its plain version on case ``a``: the block output
-    (residual added) and the attention branch alone; returns the larger max
-    abs error."""
-    from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_plain
+def fold_kernels():
+    """(name, kernel, plain version) of kernel A and of kernel 10."""
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_attention, fold_attention_packed, fold_attention_packed_plain,
+        fold_attention_plain,
+    )
 
+    return (("fold_attention", fold_attention, fold_attention_plain),
+            ("fold_attention_packed", fold_attention_packed, fold_attention_packed_plain))
+
+
+def check_fold(name, a, kernel=None, plain=None) -> float:
+    """Kernel A (or ``kernel``: kernel 10) against its plain version on case
+    ``a``: the block output (residual added) and the attention branch alone;
+    returns the larger max abs error."""
+    if kernel is None:
+        _, kernel, plain = fold_kernels()[0]
     bounds = BOUNDS[a["x"].dtype]
-    e = check_close(name, fold_attention(**a), fold_attention_plain(**a), *bounds)
+    e = check_close(name, kernel(**a), plain(**a), *bounds)
     b = dict(a, residual=False)
-    return max(e, check_close(f"{name} branch", fold_attention(**b),
-                              fold_attention_plain(**b), *bounds))
+    return max(e, check_close(f"{name} branch", kernel(**b), plain(**b), *bounds))
+
+
+def _block_case(a, gen):
+    """Kernel A's case ``a`` plus the MLP tail's operands: the arguments of
+    the whole-block kernel and its plain version."""
+    C = a["x"].shape[-1]
+    ln2_s, ln2_b, w1, b1, w2, b2 = _mlp_case(C, 4 * C, gen)
+    b = {k: v for k, v in a.items() if k not in ("num_heads", "window", "scale", "shift")}
+    b.update(ln2_scale=ln2_s, ln2_bias=ln2_b, w1=w1, b1=b1, w2=w2, b2=b2)
+    b.update({k: a[k] for k in ("num_heads", "window", "scale", "shift")})
+    return b
+
+
+def mlp_flops(tokens: int, c: int, backward: bool = False) -> float:
+    """LN->MLP per token at hidden 4C: fc1 and fc2 8C^2 each; the backward
+    recomputes fc1 and adds dw2, dy.w2^T, dw1 and dz.w1^T (8C^2 each)."""
+    return tokens * (40.0 if backward else 16.0) * c * c
 
 
 def _win_case(batch, gname, shifted, dtype, gen, qkv_bias=True):
@@ -265,7 +332,10 @@ def phase_kernels():
         cluster_assign, cluster_assign_plain, space_cluster_loss,
         space_cluster_loss_plain,
     )
-    from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_plain
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_attention, fold_attention_packed, fold_attention_packed_plain,
+        fold_attention_plain, fold_block, fold_block_plain,
+    )
     from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_plain
 
     gen = torch.Generator().manual_seed(0)
@@ -274,25 +344,54 @@ def phase_kernels():
         dtypes = (torch.bfloat16,) if batch == BATCH_WINDOWS else (torch.bfloat16, torch.float32)
         print(f"[2] kernels vs plain versions, flagship shapes, batch {batch}")
 
-        errs, times = [], {}
+        errs, errs10, errs_blk, times = [], [], [], {}
         for dtype in dtypes:
             for gname, (dhwc, nh, window, shift) in FOLD_GEOMETRIES.items():
                 for shifted in (False, True):
                     a = _fold_case((batch, *dhwc), nh, window,
                                    shift if shifted else (0, 0, 0), dtype, gen)
-                    name = f"fold_attention {gname} {'shifted' if shifted else 'plain'} {str(dtype)[6:]}"
+                    tag = f"{gname} {'shifted' if shifted else 'plain'} {str(dtype)[6:]}"
+                    name = f"fold_attention {tag}"
                     errs.append(check_fold(name, a))
                     times[name] = time_pair(lambda: fold_attention(**a),
                                             lambda: fold_attention_plain(**a))
+                    # kernel 10 on the same inputs, beside A
+                    name = f"fold_attention_packed {tag}"
+                    errs10.append(check_fold(name, a, fold_attention_packed,
+                                             fold_attention_packed_plain))
+                    times[name] = time_pair(lambda: fold_attention_packed(**a),
+                                            lambda: fold_attention_packed_plain(**a))
+                    # the whole-block kernel, beside A then B on the same inputs
+                    blk = _block_case(a, gen)
+                    tail = [blk[k] for k in ("ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")]
+                    name = f"fold_block {tag}"
+                    got = fold_block(**blk)
+                    errs_blk.append(check_close(name, got, fold_block_plain(**blk),
+                                                *BOUNDS[dtype]))
+                    if dtype == torch.bfloat16 and not torch.equal(
+                            got, ln_mlp(fold_attention(**a), *tail)):
+                        raise AssertionError(f"{name}: differs from kernel A then kernel B")
+                    times[name] = time_pair(lambda: fold_block(**blk),
+                                            lambda: fold_block_plain(**blk))
+                    two = cuda_ms(lambda: ln_mlp(fold_attention(**a), *tail))
+                    print(f"    kernel A then kernel B on the same inputs: {two:.4f} ms")
+                    if tag == "enc_stage0 shifted bfloat16":
+                        rep_case, rep_blk, rep_two = a, blk, two
         # the representative time: the flagship's largest block, enc stage 0, bf16, shifted
-        ms, pms = times["fold_attention enc_stage0 shifted bfloat16"]
-        rep_case = _fold_case((batch, 2, 56, 56, 96), 6, (2, 7, 7), (0, 3, 3),
-                              torch.bfloat16, gen)
-        stats["fold_attention"] = dict(
-            max_abs_err=max(errs), ms=ms, plain_ms=pms,
-            shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted",
-            **bound(tensors_of(rep_case) + [rep_case["x"]],
-                    attn_flops(batch * 2 * 56 * 56, 96, 98), "bf16"))
+        tokens = batch * 2 * 56 * 56
+        shape = f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted"
+        for kname, e in (("fold_attention", errs), ("fold_attention_packed", errs10)):
+            ms, pms = times[f"{kname} enc_stage0 shifted bfloat16"]
+            stats[kname] = dict(
+                max_abs_err=max(e), ms=ms, plain_ms=pms, shape=shape,
+                **bound(tensors_of(rep_case) + [rep_case["x"]],
+                        attn_flops(tokens, 96, 98), "bf16"))
+        ms, pms = times["fold_block enc_stage0 shifted bfloat16"]
+        stats["fold_block"] = dict(
+            max_abs_err=max(errs_blk), ms=ms, plain_ms=pms, two_kernel_ms=rep_two,
+            shape=shape + ", hidden 384",
+            **bound(tensors_of(rep_blk) + [rep_blk["x"]],
+                    attn_flops(tokens, 96, 98) + mlp_flops(tokens, 96), "bf16"))
 
         for kname, kernel, plain in window_kernels():
             errs, times = [], {}
@@ -369,14 +468,21 @@ def phase_kernels():
     for dtype, C, nh in ((torch.bfloat16, 32, 2), (torch.float32, 32, 2),
                          (torch.float32, 24, 2)):
         a = _fold_case((2, 2, 14, 14, C), nh, (2, 7, 7), (0, 3, 3), dtype, gen)
-        check_fold(f"fold_attention C={C} nH={nh} {str(dtype)[6:]}", a)
+        for kname, kernel, plain in fold_kernels():
+            check_fold(f"{kname} C={C} nH={nh} {str(dtype)[6:]}", a, kernel, plain)
+        blk = _block_case(a, gen)
+        check_close(f"fold_block C={C} nH={nh} {str(dtype)[6:]}", fold_block(**blk),
+                    fold_block_plain(**blk), *BOUNDS[dtype])
         p = _mlp_case(C, 4 * C, gen)
         x = torch.randn(3, 1, 7, 7, C, generator=gen).to("cuda", dtype)  # 147 tokens
         check_close(f"ln_mlp C={C} {str(dtype)[6:]}", ln_mlp(x, *p), ln_mlp_plain(x, *p),
                     *BOUNDS[dtype])
     a = _fold_case((2, 2, 14, 14, 24), 2, (2, 7, 7), (0, 0, 0), torch.bfloat16, gen)
     p = _mlp_case(24, 96, gen)
+    blk = _block_case(a, gen)
     for name, call in (("fold_attention", lambda: fold_attention(**a)),
+                       ("fold_attention_packed", lambda: fold_attention_packed(**a)),
+                       ("fold_block", lambda: fold_block(**blk)),
                        ("ln_mlp", lambda: ln_mlp(a["x"], *p))):
         try:
             call()
@@ -408,14 +514,36 @@ def phase_kernels():
             print(f"  {kname} N=392 refused (NotImplementedError): no row-tiled variant yet")
         else:
             raise AssertionError(f"{kname}: N=392 launched instead of being refused")
-    # kernel A as a block at a window-padded geometry runs it: no LN, no residual
+    # kernels A and 10 as a block at a window-padded geometry runs them: no
+    # LN, no residual; then without a qkv bias; N=392 fits none of the family
+    for kname, kernel, plain in fold_kernels():
+        for dtype in (torch.bfloat16, torch.float32):
+            dhwc, nh, window, shift = PADDED_FOLD
+            for sh in ((0, 0, 0), shift):
+                a = dict(_fold_case((4, *dhwc), nh, window, sh, dtype, gen),
+                         ln_scale=None, ln_bias=None, residual=False)
+                check_close(f"{kname} no LN/residual, padded 63^2, shift {sh} {str(dtype)[6:]}",
+                            kernel(**a), plain(**a), *BOUNDS[dtype])
+            dhwc, nh, window, shift = FOLD_GEOMETRIES["dec_stage1"]
+            a = dict(_fold_case((4, *dhwc), nh, window, shift, dtype, gen), qkv_b=None)
+            check_fold(f"{kname} no qkv bias {str(dtype)[6:]}", a, kernel, plain)
     for dtype in (torch.bfloat16, torch.float32):
-        dhwc, nh, window, shift = PADDED_FOLD
-        for sh in ((0, 0, 0), shift):
-            a = dict(_fold_case((4, *dhwc), nh, window, sh, dtype, gen),
-                     ln_scale=None, ln_bias=None, residual=False)
-            check_close(f"fold_attention no LN/residual, padded 63^2, shift {sh} {str(dtype)[6:]}",
-                        fold_attention(**a), fold_attention_plain(**a), *BOUNDS[dtype])
+        dhwc, nh, window, shift = FOLD_GEOMETRIES["dec_stage1"]
+        blk = _block_case(dict(_fold_case((4, *dhwc), nh, window, shift, dtype, gen),
+                               qkv_b=None), gen)
+        check_close(f"fold_block no qkv bias {str(dtype)[6:]}", fold_block(**blk),
+                    fold_block_plain(**blk), *BOUNDS[dtype])
+    a = _fold_case((1, 8, 14, 14, 96), 6, (8, 7, 7), (0, 0, 0), torch.bfloat16, gen)
+    blk = _block_case(a, gen)
+    for name, call in (("fold_attention_packed", lambda: fold_attention_packed(**a)),
+                       ("fold_block", lambda: fold_block(**blk))):
+        try:
+            call()
+        except NotImplementedError:
+            print(f"  {name} N=392 refused (NotImplementedError): the route's predicate is "
+                  "false there")
+        else:
+            raise AssertionError(f"{name}: N=392 launched instead of being refused")
     for n, c, k in ((200, 64, 16), (100, 30, 70)):
         t, cen = torch.randn(n, c, generator=gen).cuda(), torch.rand(k, c, generator=gen).cuda()
         got, want = cluster_assign(t, cen, 16.0), cluster_assign_plain(t, cen, 16.0)
@@ -444,6 +572,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FOLD_BWD_NAMES = ("dx", "dln_s", "dln_b", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias")
 WIN_BWD_NAMES = ("dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias")
 MLP_BWD_NAMES = ("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2")
+BLOCK_BWD_NAMES = FOLD_BWD_NAMES + ("dln2_s", "dln2_b", "dw1", "db1", "dw2", "db2")
 
 
 def check_rel(name, got, want, tol) -> float:
@@ -475,6 +604,21 @@ def _fold_bwd_case(shape, nh, window, shift, dtype, gen):
     return a
 
 
+def _block_bwd_case(a, gen):
+    """Kernel 6's case ``a`` (which has the upstream gradient) plus proj_b
+    and the MLP tail's operands without b2: the arguments of the whole-block
+    backward and its plain version."""
+    C = a["x"].shape[-1]
+    ln2_s, ln2_b, w1, b1, w2, _ = _mlp_case(C, 4 * C, gen)
+    order = ("x", "dout", "ln_scale", "ln_bias", "qkv_w", "qkv_b", "proj_w")
+    b = {k: a[k] for k in order}
+    b["proj_b"] = 0.1 * torch.randn(C, generator=gen).to(DEV)
+    b.update(bias=a["bias"], mask=a["mask"], ln2_scale=ln2_s, ln2_bias=ln2_b, w1=w1, b1=b1,
+             w2=w2, num_heads=a["num_heads"], window=a["window"], scale=a["scale"],
+             shift=a["shift"])
+    return b
+
+
 def _win_bwd_case(a, gen):
     """Kernel 7's case without proj_b, plus an upstream gradient at unit
     scale: the arguments of kernel 8 and its plain version."""
@@ -490,7 +634,10 @@ def phase_bwd_kernels(batch: int = 4):
     C=192; kernel 6 also without LN and residual on a window-padded shape.
     The rel-pos bias and the upstream gradient are drawn at unit scale.
     Returns {kernel: stats of the bf16 case the kernels line reports}."""
-    from vadcl_tpu_torch.ops.fold_attn import fold_attention_bwd, fold_attention_bwd_plain
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_block_bwd,
+        fold_block_bwd_plain,
+    )
     from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_plain
     from vadcl_tpu_torch.ops.window_attn import (
         window_attention_fused_bwd, window_attention_fused_bwd_plain,
@@ -499,7 +646,8 @@ def phase_bwd_kernels(batch: int = 4):
     print(f"[2b] backward kernels vs plain versions, flagship shapes, batch {batch}")
     gen = torch.Generator().manual_seed(5)
     stats = {}
-    errs = {"fold_attention_bwd": [], "ln_mlp_bwd": [], "window_attention_fused_bwd": []}
+    errs = {"fold_attention_bwd": [], "ln_mlp_bwd": [], "window_attention_fused_bwd": [],
+            "fold_block_bwd": []}
     for dtype in (torch.bfloat16, torch.float32):
         tol = BWD_TOL[dtype]
         for gname, (dhwc, nh, window, shift) in FOLD_GEOMETRIES.items():
@@ -517,6 +665,36 @@ def phase_bwd_kernels(batch: int = 4):
                         shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted",
                         **bound(tensors_of(a, got), attn_flops(a["x"][..., 0].numel(), 96, 98,
                                                                backward=True), "bf16"))
+                # the whole-block backward on the same inputs, all 14 outputs,
+                # beside kernel 6 then kernel 5 (with A's recompute of y1 between)
+                blk = _block_bwd_case(a, gen)
+                name = f"fold_block_bwd {gname} {'shifted' if shifted else 'plain'} {str(dtype)[6:]}"
+                got, want = fold_block_bwd(**blk), fold_block_bwd_plain(**blk)
+                errs["fold_block_bwd"].append(check_grads(name, BLOCK_BWD_NAMES, got, want, tol))
+                ms, pms = time_pair(lambda: fold_block_bwd(**blk),
+                                    lambda: fold_block_bwd_plain(**blk))
+                if dtype == torch.bfloat16:
+                    fwd = {k: v for k, v in blk.items() if k in a and k != "dout"}
+                    tail = [blk[k] for k in ("ln2_scale", "ln2_bias", "w1", "b1", "w2")]
+
+                    def split():
+                        y1 = fold_attention(proj_b=blk["proj_b"], **fwd)
+                        dy1 = ln_mlp_bwd(y1, blk["dout"], *tail)[0]
+                        return fold_attention_bwd(**dict(a, dout=dy1))
+
+                    two = cuda_ms(split)
+                    print(f"    kernel A, then 5, then 6 on the same inputs: {two:.4f} ms")
+                    if gname == "enc_stage0" and shifted:
+                        tokens = a["x"][..., 0].numel()
+                        stats["fold_block_bwd"] = dict(
+                            ms=ms, plain_ms=pms, split_ms=two,
+                            shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted, hidden 384",
+                            # the attention products in bf16 (with y1's recompute), the
+                            # MLP tail's backward in fp32 FMA, as the kernel's contract
+                            **bound(tensors_of(blk, got),
+                                    attn_flops(tokens, 96, 98, backward=True)
+                                    + attn_flops(tokens, 96, 98), "bf16",
+                                    mlp_flops(tokens, 96, backward=True)))
                 w = _win_bwd_case(_win_case(batch, gname, shifted, dtype, gen), gen)
                 name = (f"window_attention_fused_bwd {gname} "
                         f"{'shifted' if shifted else 'plain'} {str(dtype)[6:]}")
@@ -562,12 +740,25 @@ def phase_bwd_kernels(batch: int = 4):
         ws = lib.vadcl_window_attn_bwd_workspace_bytes(bn, n, C, nh, 1)
         print(f"  kernel 8 workspace, bf16, batch {batch}, {gname}: {ws / 1e6:.1f} MB, of it "
               f"the per-window d(bias) partials {bn * nh * n * n * 4 / 1e6:.1f} MB")
+        ws6 = lib.vadcl_fold_attn_bwd_workspace_bytes(batch, D, H, W, C, nh, *window, 1)
+        ws5 = lib.vadcl_ln_mlp_bwd_workspace_bytes(batch * D * H * W, C, 4 * C)
+        wsb = lib.vadcl_fold_block_bwd_workspace_bytes(batch, D, H, W, C, nh, 4 * C, *window, 1)
+        print(f"  whole-block backward workspace, bf16, batch {batch}, {gname}: "
+              f"{wsb / 1e6:.1f} MB (kernel 6 alone {ws6 / 1e6:.1f} MB, kernel 5 alone "
+              f"{ws5 / 1e6:.1f} MB)")
     print("  edge shapes (tiny widths, C=24 / head_dim 12, 147 tokens), fp32 and bf16:")
     for dtype, C, nh in ((torch.bfloat16, 32, 2), (torch.float32, 32, 2),
                          (torch.float32, 24, 2)):
         a = _fold_bwd_case((2, 2, 14, 14, C), nh, (2, 7, 7), (0, 3, 3), dtype, gen)
         check_grads(f"fold_attention_bwd C={C} {str(dtype)[6:]}", FOLD_BWD_NAMES,
                     fold_attention_bwd(**a), fold_attention_bwd_plain(**a), BWD_TOL[dtype])
+        for qkv_bias in (True, False):
+            blk = _block_bwd_case(a, gen)
+            if not qkv_bias:
+                blk["qkv_b"] = None
+            check_grads(f"fold_block_bwd C={C} qkv_bias={qkv_bias} {str(dtype)[6:]}",
+                        BLOCK_BWD_NAMES, fold_block_bwd(**blk), fold_block_bwd_plain(**blk),
+                        BWD_TOL[dtype])
         for qkv_bias in (True, False):
             w = _win_bwd_case(_win_case_at(2, (2, 14, 14), C, nh, (2, 7, 7), (0, 3, 3), dtype,
                                            gen, qkv_bias), gen)
@@ -725,11 +916,23 @@ SCORING_KERNELS = {
     "fold": COMMON_FWD | {"fold_attention"},
     "base": COMMON_FWD | {"window_attention_fused"},
     "packed": COMMON_FWD | {"window_attention_packed"},
+    "fold_packed": COMMON_FWD | {"fold_attention_packed"},
+    "fold_mix": COMMON_FWD | {"fold_attention_packed", "fold_attention"},
+    "fold_block": {"fold_block", "cluster_assign", "space_cluster_loss"},
 }
 TRAINING_KERNELS = {
     "fold": SCORING_KERNELS["fold"] | {"ln_mlp_bwd", "fold_attention_bwd"},
     "base": SCORING_KERNELS["base"] | {"ln_mlp_bwd", "window_attention_fused_bwd"},
+    "fold_block": SCORING_KERNELS["fold_block"] | {"fold_block_bwd"},
 }
+# Exact launch counts of the new paths: 18 Swin blocks (12 of them with 12
+# heads) a forward, 8 scoring forwards, 10 training steps.
+SCORING_COUNTS = {
+    "fold_packed": {"fold_attention_packed": 144, "ln_mlp": 144},
+    "fold_mix": {"fold_attention_packed": 96, "fold_attention": 48, "ln_mlp": 144},
+    "fold_block": {"fold_block": 144},
+}
+TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180}}
 
 
 def reset_launches():
@@ -739,9 +942,10 @@ def reset_launches():
         k.launches = 0
 
 
-def read_launches(expected, path: str) -> dict:
+def read_launches(expected, path: str, counts=None, heads: int = 0) -> dict:
     """The launch counts since ``reset_launches``; fails unless exactly the
-    ``expected`` kernels launched."""
+    ``expected`` kernels launched, the kernels in ``counts`` exactly so many
+    times and (with ``heads``) each cluster head ``heads`` times."""
     from vadcl_tpu_torch.ops import KERNELS
 
     launches = {k.__name__: k.launches for k in KERNELS}
@@ -751,6 +955,12 @@ def read_launches(expected, path: str) -> dict:
     if missing or stray:
         raise AssertionError(f"{path}: kernels never launched {missing}; kernels that "
                              f"must not launch here but did {stray}")
+    want = dict(counts or {})
+    if heads:
+        want.update(cluster_assign=heads, space_cluster_loss=heads)
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if wrong:
+        raise AssertionError(f"{path}: launch counts (got, expected) {wrong}")
     return launches
 
 
@@ -775,7 +985,8 @@ def phase_training(attn_kernel: str = "fold"):
         state = train(cfg, loader, max_steps=steps, device=DEV)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
-        launches = read_launches(TRAINING_KERNELS[attn_kernel], f"training, {attn_kernel}")
+        launches = read_launches(TRAINING_KERNELS[attn_kernel], f"training, {attn_kernel}",
+                                 TRAINING_COUNTS.get(attn_kernel), heads=steps)
         losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
         wall = t_end - loader.stamps[WARMUP_STEPS]
         print(f"  per-step losses: {[round(float(v), 4) for v in losses]}")
@@ -812,22 +1023,22 @@ def phase_training(attn_kernel: str = "fold"):
     return launches
 
 
-def phase_packed_training_refused():
-    """``attn_kernel="packed"`` is inference-only: building its train step
-    raises before any kernel launches."""
+def phase_training_refused(attn_kernel: str = "packed"):
+    """``packed``, ``fold_packed`` and ``fold_mix`` are inference-only:
+    building their train step raises before any kernel launches."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train import make_train_step
 
-    cfg = flagship_train_config("packed")
+    cfg = flagship_train_config(attn_kernel)
     model = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).to(DEV)
     reset_launches()
     try:
         make_train_step(model, cfg, steps_per_epoch=10)
     except ValueError as e:
-        print(f"[5] a packed train step is refused: {e}")
+        print(f"[5] a {attn_kernel} train step is refused: {e}")
     else:
-        raise AssertionError("make_train_step accepted attn_kernel='packed'")
-    read_launches(set(), "packed train step")
+        raise AssertionError(f"make_train_step accepted attn_kernel={attn_kernel!r}")
+    read_launches(set(), f"{attn_kernel} train step")
 
 
 def make_videos(seed: int = 0):
@@ -876,8 +1087,11 @@ def phase_scoring(attn_kernel: str = "fold"):
     auc, per_scene, per_video = evaluate_videos(scorer, videos, 4, True, "stride1")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(SCORING_KERNELS[attn_kernel], f"scoring, {attn_kernel}")
     n_windows = sum(len(sliding_windows(v[0].shape[0], 4, "stride1")) for v in videos)
+    forwards = sum(-(-len(sliding_windows(v[0].shape[0], 4, "stride1")) // BATCH_WINDOWS)
+                   for v in videos)
+    launches = read_launches(SCORING_KERNELS[attn_kernel], f"scoring, {attn_kernel}",
+                             SCORING_COUNTS.get(attn_kernel), heads=forwards)
     print(f"  {n_windows} windows in {wall:.3f} s = {n_windows / wall:.2f} windows/s; "
           f"mean scene AUC {auc:.4f}; per scene {per_scene}")
     for (frames, _, _), vs in zip(videos, per_video):
@@ -904,6 +1118,11 @@ REPLACES = {
                                    "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
     "window_attention_packed": ("vadcl_tpu_torch/csrc/window_attn.cu",
                                 "vadcl_tpu/ops/pallas_attn.py:113"),
+    "fold_attention_packed": ("vadcl_tpu_torch/csrc/fold_attn.cu",
+                              "vadcl_tpu/ops/pallas_attn_fold.py:386"),
+    "fold_block": ("vadcl_tpu_torch/csrc/fold_attn.cu", "vadcl_tpu/ops/pallas_attn_fold.py:341"),
+    "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
+                       "vadcl_tpu/ops/pallas_attn_fold.py:870"),
 }
 # The main path whose launch count the kernels line reports for each kernel.
 COUNTED_ON = {
@@ -912,6 +1131,8 @@ COUNTED_ON = {
     "ln_mlp_bwd": "training fold", "fold_attention_bwd": "training fold",
     "window_attention_fused": "scoring base", "window_attention_fused_bwd": "training base",
     "window_attention_packed": "scoring packed",
+    "fold_attention_packed": "scoring fold_packed", "fold_block": "scoring fold_block",
+    "fold_block_bwd": "training fold_block",
 }
 
 
@@ -923,12 +1144,17 @@ def main():
     phase_model("fold", REDUCED_DEPTHS)
     phase_model("base")
     phase_model("packed", clips=1)
+    phase_model("fold_packed", clips=1)
+    phase_model("fold_mix", REDUCED_DEPTHS, clips=1)
+    phase_model("fold_block", clips=1)
     phase_model_grads("fold", REDUCED_DEPTHS)
     phase_model_grads("base")
     phase_model_grads("fold", ((2, 2), (2, 2)), image_size=240)
-    counts = {f"scoring {k}": phase_scoring(k) for k in ("fold", "base", "packed")}
-    counts.update({f"training {k}": phase_training(k) for k in ("fold", "base")})
-    phase_packed_training_refused()
+    phase_model_grads("fold_block")
+    counts = {f"scoring {k}": phase_scoring(k) for k in SCORING_KERNELS}
+    counts.update({f"training {k}": phase_training(k) for k in TRAINING_KERNELS})
+    for k in ("packed", "fold_packed", "fold_mix"):
+        phase_training_refused(k)
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],

@@ -51,13 +51,14 @@ def test_round_trip_is_lossless(predict):
 
 def test_one_state_dict_loads_into_every_attention_kernel():
     """The parameter tree does not depend on ``attn_kernel``: one converted
-    state_dict loads strictly into unfused, ``fold``, ``base`` and ``packed``
-    models, and they agree on an input."""
+    state_dict loads strictly into an unfused model and into fused models
+    under all six kernels, and they agree on an input."""
     _, flat = _jax_flat(True)
     sd = state_dict_from_jax(flat, predict=True)
     x = torch.from_numpy(np.random.RandomState(0).rand(1, 4, 56, 56, 3).astype(np.float32))
     outs = {}
-    for kernel in (None, "fold", "base", "packed"):
+    kernels = ("fold", "base", "packed", "fold_packed", "fold_mix", "fold_block")
+    for kernel in (None,) + kernels:
         m = dataclasses.replace(
             preset("tiny").model, predict=True, fused_attention=kernel is not None,
             attn_kernel=kernel or "base")
@@ -65,7 +66,7 @@ def test_one_state_dict_loads_into_every_attention_kernel():
         load_state_dict_strict(model, dict(sd))
         with torch.inference_mode():
             outs[kernel] = model.eval()(x).recon.numpy()
-    for kernel in ("fold", "base", "packed"):
+    for kernel in kernels:
         np.testing.assert_allclose(outs[kernel], outs[None], rtol=0, atol=1e-5)
 
 
@@ -131,7 +132,8 @@ def test_port_imports_neither_jax_nor_pil():
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("attn_kernel", ["auto", "base", "packed"])
+@pytest.mark.parametrize("attn_kernel", ["auto", "base", "packed", "fold_packed", "fold_mix",
+                                         "fold_block"])
 def test_evaluate_torch_cli_on_synthetic_frames(tmp_path, attn_kernel):
     from tools.evaluate_torch import main
     from vadcl_tpu_torch.data import make_synthetic_dataset

@@ -106,13 +106,6 @@ def test_fused_and_unfused_port_agree(predict_variables):
     np.testing.assert_array_equal(a.feature_label.numpy(), b.feature_label.numpy())
 
 
-@pytest.mark.parametrize("kernel", ["fold_block", "fold_packed", "fold_mix"])
-def test_unported_attention_kernels_raise(kernel):
-    m = dataclasses.replace(preset("tiny").model, fused_attention=True, attn_kernel=kernel)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        VADModel(m)
-
-
 def jax_unfused(variables, clip, predict: bool):
     m = dataclasses.replace(
         jax_preset("tiny").model, encoder_depths=(2, 2), decoder_depths=(2, 2),

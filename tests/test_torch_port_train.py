@@ -296,6 +296,72 @@ def test_base_kernel_loss_and_grads_match_jax(jax_variables):
         _assert_rel(k, p.grad.numpy(), want[k].numpy(), GRAD_TOL)
 
 
+def test_fold_block_trajectory_matches_jax(jax_variables, jax_trajectory):
+    """``attn_kernel="fold_block"`` (every block the whole-block kernel each
+    way; on the CPU its plain versions) through the same six steps against
+    the JAX make_train_step on the XLA path, within the bounds the ``fold``
+    and ``base`` trajectories are held to."""
+    _, pcfg = _configs(True, attn_kernel="fold_block", **SCHEDULE)
+    model = _port_model(jax_variables, pcfg)
+    state = create_train_state(model, pcfg)
+    step_fn = make_train_step(model, pcfg, STEPS_PER_EPOCH)
+    metrics = [step_fn(state, torch.from_numpy(c)) for c in _clips(STEPS, seed=2)]
+    np.testing.assert_allclose([float(m.loss) for m in metrics], jax_trajectory["losses"],
+                               rtol=1e-4)
+    assert state.step == STEPS
+    _assert_params_close(model, jax_trajectory["params"],
+                         flatten_state({"params": jax_variables["params"]}), STEPS)
+
+
+def test_fold_block_loss_and_grads_match_jax(jax_variables):
+    """Loss and every parameter gradient under ``attn_kernel="fold_block"``
+    against ``jax.value_and_grad`` of the JAX loss built with the same
+    ``attn_kernel`` (``folded_full_block_trainable`` and its ``_full_bwd`` in
+    interpret mode), with compactness on."""
+    sched = dict(compactness_start_iter=2, cluster_start_iter=1)
+    jcfg, pcfg = _configs(True, attn_kernel="fold_block", **sched)
+    assert jcfg.model.attn_kernel == pcfg.model.attn_kernel == "fold_block"
+    clip = _clips(1, seed=1)[0]
+    fn = jax.jit(jax.value_and_grad(
+        jax_make_loss_fn(JaxVADModel(config=jcfg.model), jcfg), has_aux=True))
+    extras = {k: v for k, v in jax_variables.items() if k != "params"}
+    (loss_j, _), grads_j = fn(jax_variables["params"], extras, jnp.asarray(clip),
+                              jnp.asarray(2, jnp.int32))
+    model = _port_model(jax_variables, pcfg)
+    loss_t, _ = make_loss_fn(model, pcfg)(torch.from_numpy(clip), 2)
+    assert any("FoldBlock" in type(f).__name__ for f in _graph_nodes(loss_t.grad_fn))
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-4)
+    want = state_dict_from_jax(flatten_state({"params": grads_j}), predict=True)
+    for k, p in model.named_parameters():
+        assert p.grad is not None, f"{k}: no gradient"
+        _assert_rel(k, p.grad.numpy(), want[k].numpy(), GRAD_TOL)
+
+
+def _graph_nodes(fn):
+    """Every node of an autograd graph."""
+    seen, stack = set(), [fn]
+    while stack:
+        f = stack.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        stack.extend(g for g, _ in f.next_functions)
+    return seen
+
+
+@pytest.mark.parametrize("kernel", ["fold_packed", "fold_mix"])
+def test_packed_fold_kernels_are_refused_for_training(jax_variables, kernel):
+    """``fold_packed`` and ``fold_mix`` are inference-only, as ``packed``:
+    the loss and the step refuse them when they are built."""
+    _, pcfg = _configs(True, attn_kernel=kernel)
+    model = _port_model(jax_variables, pcfg)
+    with pytest.raises(ValueError, match="inference-only"):
+        make_train_step(model, pcfg, STEPS_PER_EPOCH)
+    with pytest.raises(ValueError, match="inference-only"):
+        make_loss_fn(model, pcfg)
+
+
 def test_packed_kernel_is_refused_for_training(jax_variables):
     """``packed`` is inference-only: both the loss and the step refuse it
     when they are built, before any forward."""

@@ -10,8 +10,9 @@ swin backbone):
 ``--ckpt`` takes a checkpoint written by the JAX package (``params/...``
 plus ``extras/batch_stats/...``); without it the model runs from its seeded
 init (seed 0).  ``--device cuda`` (the default) computes in bf16 and
-``--fused`` runs the hand-written kernels (``--attn-kernel fold|base|packed``
-picks the attention kernel, fold by default); it fails when no GPU is visible.
+``--fused`` runs the hand-written kernels (``--attn-kernel
+fold|base|packed|fold_packed|fold_mix|fold_block`` picks the attention kernel,
+fold by default); it fails when no GPU is visible.
 ``--device cpu`` computes in fp32 with the kernels' plain versions.
 Per-video anomaly-score curves go to ``--out`` (npz).
 """
@@ -57,10 +58,14 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
     ap.add_argument("--attn-kernel", default="auto",
-                    choices=["auto", "fold", "base", "packed"],
+                    choices=["auto", "fold", "base", "packed", "fold_packed", "fold_mix",
+                             "fold_block"],
                     help="fused attention kernel: fold (on the unpartitioned tensor), base "
-                         "(partitioned windows, trainable) or packed (partitioned windows, "
-                         "inference only); auto = 'fold' when --fused")
+                         "(partitioned windows, trainable), packed (partitioned windows, "
+                         "inference only), fold_packed (fold with the packed arithmetic, "
+                         "inference only), fold_mix (fold_packed in blocks with 12 heads or "
+                         "more, fold in the others; inference only) or fold_block (the whole "
+                         "Swin block as one kernel); auto = 'fold' when --fused")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu runs the kernels' plain versions in fp32")
     ap.add_argument("--out", default="scores.npz")

@@ -25,12 +25,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from vadcl_tpu_torch.core.config import preset
+from vadcl_tpu_torch.core.config import ATTN_KERNELS, TRAINABLE_ATTN_KERNELS, preset
 from vadcl_tpu_torch.models import VADModel
 from vadcl_tpu_torch.train import create_train_state, make_train_step
 
 # name fragments of the hand-written kernels (csrc/*.cu)
-OURS = ("fold_attn", "window_attn", "ln_mlp", "cluster_assign", "space_cluster",
+OURS = ("fold_attn", "fold_block", "window_attn", "ln_mlp", "cluster_assign", "space_cluster",
         "center_sq", "sum_partials", "atb_partial", "sum_rows")
 
 
@@ -40,9 +40,12 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile training steps (loss, backward, Adam) instead of the forward")
-    ap.add_argument("--attn-kernel", default="fold", choices=["fold", "base", "packed"],
-                    help="fused attention kernel (packed is inference only)")
+    ap.add_argument("--attn-kernel", default="fold", choices=sorted(ATTN_KERNELS),
+                    help="fused attention kernel; with --train one of "
+                         f"{sorted(TRAINABLE_ATTN_KERNELS)} (the others are inference only)")
     args = ap.parse_args(argv)
+    if args.train and args.attn_kernel not in TRAINABLE_ATTN_KERNELS:
+        ap.error(f"--train needs a trainable kernel: {sorted(TRAINABLE_ATTN_KERNELS)}")
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device")
     cfg = preset("shanghaitech")

@@ -8,9 +8,10 @@
 Checkpoints land under ``<output-dir>/ckpt`` in the JAX package's npz
 layout, with auto-resume (either package resumes from the other's).
 ``--device cuda`` (the default) computes in bf16 and ``--fused`` runs the
-hand-written kernels, forward and backward (``--attn-kernel fold|base``
-picks the attention kernel, fold by default); it fails when no GPU is
-visible.  ``--device cpu`` trains in fp32 with the kernels' plain versions.
+hand-written kernels, forward and backward (``--attn-kernel
+fold|base|fold_block`` picks the attention kernel, fold by default); it
+fails when no GPU is visible.  ``--device cpu`` trains in fp32 with the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -88,10 +89,12 @@ def main(argv=None):
     ap.add_argument("--backbone", default="swin", choices=["swin"])
     ap.add_argument("--fused", action="store_true",
                     help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
-    ap.add_argument("--attn-kernel", default="auto", choices=["auto", "fold", "base"],
-                    help="fused attention kernel: fold (on the unpartitioned tensor) or base "
-                         "(partitioned windows); packed is inference only; auto = 'fold' "
-                         "when --fused")
+    ap.add_argument("--attn-kernel", default="auto",
+                    choices=["auto", "fold", "base", "fold_block"],
+                    help="fused attention kernel: fold (on the unpartitioned tensor), base "
+                         "(partitioned windows) or fold_block (the whole Swin block as one "
+                         "kernel each way); packed, fold_packed and fold_mix are inference "
+                         "only; auto = 'fold' when --fused")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu trains with the kernels' plain versions in fp32")
     args = ap.parse_args(argv)

@@ -30,9 +30,8 @@ class ClusterConfig:
     space_size: int = 28  # spatial side of the latent grid the space head sees
 
 
-# The fused window-attention kernel families of the JAX package.  The port
-# implements "fold" (csrc/fold_attn.cu); the others are still to port and
-# raise NotImplementedError when a fused model is built with them.
+# The fused window-attention kernel families of the JAX package; the port
+# runs all six (models/swin.py says which kernels each one launches).
 ATTN_KERNELS = frozenset(
     {"base", "packed", "fold", "fold_block", "fold_packed", "fold_mix"}
 )

@@ -47,8 +47,33 @@
 // per window).  Left on the table: wgmma with TMA-staged weights, two heads
 // in flight per block, summing d(bias) over a group of windows inside a
 // block, tensor cores for the second pass.
+//
+// The whole-Swin-block backward (vadcl_fold_block_bwd) replaces
+// _fold_bwd_kernel's tail= mode (entry _fold_bwd_call through _full_bwd, the
+// custom VJP of folded_full_block_trainable).  One launch, one block per
+// window, three steps on the window's own tokens with block barriers between:
+//   1. the forward's front half (fold_attn.cuh, kernel A's device code)
+//      recomputes y1 = round(x + proj(attention(LN1 x))) into a workspace;
+//   2. the MLP tail's backward (mlp_bwd.cuh, kernel 5's device code) on y1
+//      and the block's upstream gradient: groups of 128 threads, each on a
+//      named barrier of its own, walk the window's 16-token tiles.  Like
+//      _fold_bwd_kernel it recomputes with rounding (z before fc1, h before
+//      GELU) and multiplies in fp32 on fp32 operands (dw1 from the unrounded
+//      z, dw2 from the GELU of the rounded hidden); dy1 = dY + LN2-vjp(dz)
+//      rounds to the compute dtype into a workspace;
+//   3. the attention backward above with dy1 as its upstream gradient (the
+//      residual branch carries dy1 too).
+// The second pass adds kernel 5's six reductions (dw1, db1, dw2, db2, dLN2
+// scale and bias) to the attention backward's, all through reduce.cu.
+// Shared memory is the largest of the three steps' layouts (kernel 6's at
+// the flagship geometries), so one predicate covers both directions.  The
+// workspace is kernel 6's plus kernel 5's (z, and the fp32 GELU output and
+// dh, tokens x 4C each) plus y1 and dy1.  What bounds it: step 2's fp32 FMA
+// products with three or four thread groups per SM, then what bounds kernel 6.
 #include <mma.h>
 
+#include "fold_attn.cuh"
+#include "mlp_bwd.cuh"
 #include "reduce.cuh"
 
 namespace vadcl {
@@ -100,9 +125,8 @@ __device__ __forceinline__ long long bwd_token(const FoldBwdArgs& a, int b, int 
   return ((b * (long long)a.D + dd) * a.H + hh) * a.W + ww;
 }
 
-__global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_kernel(FoldBwdArgs a) {
+__device__ __forceinline__ void fold_attn_bwd_body(const FoldBwdArgs& a, float* smem) {
   using T = float;  // the fp32 path; the casts below are the bf16 path's boundaries
-  extern __shared__ __align__(16) float smem[];
   const int C = a.C, nh = a.nh, hd = C / nh, hdp = hd + 1, C3 = 3 * C;
   const int N = a.wd * a.wh * a.ww;
   long long* tok = reinterpret_cast<long long*>(smem);  // N token indices
@@ -396,7 +420,8 @@ inline bool tc_bwd_eligible(int c, int nh) {
   return c % nh == 0 && c % 16 == 0 && (c / nh) % 16 == 0;
 }
 
-__global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_tc_kernel(FoldBwdArgs a) {
+__device__ __forceinline__ void fold_attn_bwd_tc_body(const FoldBwdArgs& a,
+                                                      unsigned char* sm) {
   using namespace nvcuda;
   using bf16 = __nv_bfloat16;
   typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -405,7 +430,6 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_tc_kernel(FoldBwdAr
   typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
   typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-  extern __shared__ __align__(128) unsigned char sm[];
   const int C = a.C, nh = a.nh, hd = C / nh, C3 = 3 * C;
   const int N = a.wd * a.wh * a.ww, Np = (N + 15) / 16 * 16, mt_n = Np / 16, hsub = hd / 16;
   const TcBwdLayout L = tc_bwd_layout(N, C, nh);
@@ -747,6 +771,103 @@ __global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_tc_kernel(FoldBwdAr
   }
 }
 
+__global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_kernel(FoldBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  fold_attn_bwd_body(a, reinterpret_cast<float*>(sm));
+}
+
+__global__ void __launch_bounds__(kBwdThreads) fold_attn_bwd_tc_kernel(FoldBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  fold_attn_bwd_tc_body(a, sm);
+}
+
+// ---------------------------------------------------------------------------
+// The whole-Swin-block backward (see the header): front half forward, MLP
+// tail backward, attention backward, per window.
+// ---------------------------------------------------------------------------
+static_assert(kBwdThreads == kFoldThreads, "the block backward runs the forward's body");
+constexpr int kTailGroupsMax = kBwdThreads / kMbThreads;
+
+struct BlockTailArgs {
+  const void* dout;  // (B, D, H, W, C) the block's upstream gradient
+  const float* ln2_s;
+  const float* ln2_b;
+  const void* w1;  // (C, Ch) compute dtype
+  const float* b1;
+  const void* w2;  // (Ch, C) compute dtype
+  void* y1_ws;   // (T, C) compute dtype: step 1's output, step 2's input
+  void* dy1_ws;  // (T, C) compute dtype: step 2's output, step 3's upstream
+  float* z_ws;   // (T, C)
+  float* g_ws;   // (T, Ch)
+  float* dh_ws;  // (T, Ch)
+  float* dln2_part;  // (blocks * tiles, 2C)
+  int Ch, groups;
+};
+
+// Thread groups of step 2 that fit beside the window's token list.
+__host__ __device__ inline int tail_groups(int n, int c) {
+  const size_t room = (size_t)kMaxSmemBytes - bwd_align(sizeof(long long) * n);
+  const size_t g = room / mlp_bwd_smem_bytes(c);
+  return g < 1 ? 1 : (g > (size_t)kTailGroupsMax ? kTailGroupsMax : (int)g);
+}
+
+inline size_t fold_block_bwd_smem_bytes(int n, int c, int nh, int is_bf16) {
+  const size_t fwd = is_bf16 ? tc_layout(n, c, nh).bytes : fold_smem_bytes(n, c, nh);
+  const size_t bwd = is_bf16 ? tc_bwd_layout(n, c, nh).bytes : fold_bwd_smem_bytes(n, c, nh);
+  const size_t tail =
+      bwd_align(sizeof(long long) * n) + tail_groups(n, c) * mlp_bwd_smem_bytes(c);
+  const size_t m = fwd > bwd ? fwd : bwd;
+  return m > tail ? m : tail;
+}
+
+template <typename T, bool kTc>
+__global__ void __launch_bounds__(kBwdThreads)
+    fold_block_bwd_kernel(FoldArgs f, BlockTailArgs m, FoldBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  // 1. y1 into the workspace (f.out)
+  if (kTc)
+    fold_attn_tc_body<false, false>(f, sm);
+  else
+    fold_attn_body<false, false>(f, reinterpret_cast<float*>(sm));
+  __syncthreads();
+
+  // 2. the MLP tail's backward over the window's tiles of kMbTok tokens
+  const int C = a.C, N = a.wd * a.wh * a.ww;
+  const int nwd = a.D / a.wd, nwh = a.H / a.wh, nww = a.W / a.ww;
+  const int nw = nwd * nwh * nww;
+  const int blk = blockIdx.x, win = blk % nw, b = blk / nw;
+  const int wi_d = win / (nwh * nww), wi_h = (win / nww) % nwh, wi_w = win % nww;
+  const int tid = threadIdx.x, grp = tid / kMbThreads;
+  long long* tok = reinterpret_cast<long long*>(sm);
+  for (int i = tid; i < N; i += kBwdThreads) {
+    const int ta = i / (a.wh * a.ww), tb = (i / a.ww) % a.wh, tc = i % a.ww;
+    tok[i] = bwd_token(a, b, wi_d * a.wd + ta, wi_h * a.wh + tb, wi_w * a.ww + tc);
+  }
+  __syncthreads();
+  if (grp < m.groups) {
+    float* gs = reinterpret_cast<float*>(sm + bwd_align(sizeof(long long) * N) +
+                                         (size_t)grp * mlp_bwd_smem_bytes(C));
+    const int ntiles = (N + kMbTok - 1) / kMbTok;
+    const GroupBarrier bar{grp + 1};
+    for (int tile = grp; tile < ntiles; tile += m.groups) {
+      mlp_bwd_tile<T>(gs, static_cast<const T*>(m.y1_ws), static_cast<const T*>(m.dout),
+                      m.ln2_s, m.ln2_b, static_cast<const T*>(m.w1), m.b1,
+                      static_cast<const T*>(m.w2), static_cast<T*>(m.dy1_ws), m.z_ws, m.g_ws,
+                      m.dh_ws, m.dln2_part + ((size_t)blk * ntiles + tile) * 2 * C,
+                      tok + tile * kMbTok, 0, min(kMbTok, N - tile * kMbTok), C, m.Ch,
+                      tid % kMbThreads, bar);
+      bar();  // the next tile overwrites what the last sums read
+    }
+  }
+  __syncthreads();
+
+  // 3. the attention backward with dy1 (a.dout) as upstream
+  if (kTc)
+    fold_attn_bwd_tc_body(a, sm);
+  else
+    fold_attn_bwd_body(a, reinterpret_cast<float*>(sm));
+}
+
 struct FoldBwdLayout {
   size_t row, o, dqkv, dqkvb, dln, dbias, atb, bytes;
 };
@@ -766,6 +887,52 @@ inline FoldBwdLayout fold_bwd_layout(int B, int D, int H, int W, int C, int nh, 
   l.atb = o;   o = align256(o + sizeof(float) * atb_partial_floats((int)T, C, 3 * C));
   l.bytes = o;
   return l;
+}
+
+// Workspace of the whole-block backward: kernel 6's (with room for kernel
+// 5's larger A^T.B partials), then y1, dy1 and kernel 5's operands.
+struct FoldBlockBwdLayout {
+  FoldBwdLayout attn;
+  size_t y1, dy1, z, g, dh, dln2, bytes;
+};
+
+inline FoldBlockBwdLayout fold_block_bwd_layout(int B, int D, int H, int W, int C, int nh,
+                                                int Ch, int n, int nwin, int is_bf16) {
+  const size_t T = (size_t)B * D * H * W, es = is_bf16 ? 2 : 4;
+  const size_t tiles = (size_t)B * nwin * ((n + kMbTok - 1) / kMbTok);
+  FoldBlockBwdLayout l;
+  l.attn = fold_bwd_layout(B, D, H, W, C, nh, n, nwin, is_bf16);
+  size_t o = align256(l.attn.atb + sizeof(float) * atb_partial_floats((int)T, C, Ch));
+  if (o < l.attn.bytes) o = l.attn.bytes;
+  l.y1 = o;   o = align256(o + T * C * es);
+  l.dy1 = o;  o = align256(o + T * C * es);
+  l.z = o;    o = align256(o + sizeof(float) * T * C);
+  l.g = o;    o = align256(o + sizeof(float) * T * Ch);
+  l.dh = o;   o = align256(o + sizeof(float) * T * Ch);
+  l.dln2 = o; o = align256(o + sizeof(float) * tiles * 2 * C);
+  l.bytes = o;
+  return l;
+}
+
+// Kernel 6's second pass: the cross-window sums of the attention backward.
+inline cudaError_t fold_bwd_second_pass(const FoldBwdArgs& a, const FoldBwdLayout& l, char* ws,
+                                        int blocks, int is_bf16, float* dln_s, float* dln_b,
+                                        float* dqkv_w, float* dqkv_b, float* dproj_w,
+                                        float* dproj_b, float* dbias, cudaStream_t s) {
+  const int C = a.C, T = a.B * a.D * a.H * a.W, n = a.wd * a.wh * a.ww;
+  float* part = reinterpret_cast<float*>(ws + l.atb);
+  cudaError_t err;
+  if ((err = launch_atb(a.row_ws, is_bf16, a.dqkv_ws, is_bf16, T, C, 3 * C, part, dqkv_w, s)))
+    return err;
+  if ((err = launch_atb(a.o_ws, is_bf16, a.dout, is_bf16, T, C, C, part, dproj_w, s))) return err;
+  if ((err = launch_atb(nullptr, 0, a.dout, is_bf16, T, 1, C, part, dproj_b, s))) return err;
+  if ((err = launch_sum_rows(a.dqkvb_part, dqkv_b, blocks, 3 * C, 3 * C, s))) return err;
+  if (a.ln_s != nullptr) {
+    if ((err = launch_sum_rows(a.dln_part, dln_s, blocks, C, 2 * C, s))) return err;
+    if ((err = launch_sum_rows(a.dln_part + C, dln_b, blocks, C, 2 * C, s))) return err;
+  }
+  return launch_sum_rows(a.dbias_part, dbias, blocks, (long long)a.nh * n * n,
+                         (long long)a.nh * n * n, s);
 }
 
 }  // namespace vadcl
@@ -823,20 +990,83 @@ int vadcl_fold_attn_bwd(const void* x, const void* dout, const float* ln_s,
     fold_attn_bwd_kernel<<<blocks, kBwdThreads, smem, s>>>(a);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return fold_bwd_second_pass(a, l, ws, blocks, is_bf16, dln_s, dln_b, dqkv_w, dqkv_b, dproj_w,
+                              dproj_b, dbias, s);
+}
 
-  const int T = B * D * H * W;
-  float* part = reinterpret_cast<float*>(ws + l.atb);
-  if ((err = launch_atb(a.row_ws, is_bf16, a.dqkv_ws, is_bf16, T, C, 3 * C, part, dqkv_w, s)))
-    return err;
-  if ((err = launch_atb(a.o_ws, is_bf16, dout, is_bf16, T, C, C, part, dproj_w, s))) return err;
-  if ((err = launch_atb(nullptr, 0, dout, is_bf16, T, 1, C, part, dproj_b, s))) return err;
-  if ((err = launch_sum_rows(a.dqkvb_part, dqkv_b, blocks, 3 * C, 3 * C, s))) return err;
-  if (ln_s != nullptr) {
-    if ((err = launch_sum_rows(a.dln_part, dln_s, blocks, C, 2 * C, s))) return err;
-    if ((err = launch_sum_rows(a.dln_part + C, dln_b, blocks, C, 2 * C, s))) return err;
+// Shared memory and workspace of the whole-block backward.
+long long vadcl_fold_block_bwd_smem_bytes(int n, int c, int nh, int is_bf16) {
+  return (long long)vadcl::fold_block_bwd_smem_bytes(n, c, nh, is_bf16);
+}
+
+long long vadcl_fold_block_bwd_workspace_bytes(int B, int D, int H, int W, int C, int nh,
+                                               int Ch, int wd, int wh, int ww, int is_bf16) {
+  const int nwin = (D / wd) * (H / wh) * (W / ww);
+  return (long long)vadcl::fold_block_bwd_layout(B, D, H, W, C, nh, Ch, wd * wh * ww, nwin,
+                                                 is_bf16)
+      .bytes;
+}
+
+// The backward of vadcl_fold_block: 14 gradients.
+int vadcl_fold_block_bwd(const void* x, const void* dout, const float* ln_s, const float* ln_b,
+                         const void* qkv_w, const float* qkv_b, const void* proj_w,
+                         const float* proj_b, const float* bias, const float* mask,
+                         const float* ln2_s, const float* ln2_b, const void* w1,
+                         const float* b1, const void* w2, void* dx, float* dln_s,
+                         float* dln_b, float* dqkv_w, float* dqkv_b, float* dproj_w,
+                         float* dproj_b, float* dbias, float* dln2_s, float* dln2_b,
+                         float* dw1, float* db1, float* dw2, float* db2, void* workspace,
+                         int B, int D, int H, int W, int C, int nh, int Ch, int wd, int wh,
+                         int ww, int sd, int sh, int sw, float scale, int is_bf16,
+                         void* stream) {
+  using namespace vadcl;
+  using bf16 = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = wd * wh * ww;
+  if (C % nh != 0 || D % wd != 0 || H % wh != 0 || W % ww != 0) return cudaErrorInvalidValue;
+  if (ln_s == nullptr || ln_b == nullptr || !mlp_bwd_eligible(C, Ch))
+    return cudaErrorInvalidValue;
+  if (is_bf16 && !tc_bwd_eligible(C, nh)) return cudaErrorInvalidValue;
+  const size_t smem = fold_block_bwd_smem_bytes(n, C, nh, is_bf16);
+  if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
+  const int nwin = (D / wd) * (H / wh) * (W / ww);
+  const FoldBlockBwdLayout l = fold_block_bwd_layout(B, D, H, W, C, nh, Ch, n, nwin, is_bf16);
+  char* ws = static_cast<char*>(workspace);
+  FoldArgs f{x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, bias, mask, ws + l.y1,
+             B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, 1};
+  BlockTailArgs m{dout, ln2_s, ln2_b, w1, b1, w2, ws + l.y1, ws + l.dy1,
+                  reinterpret_cast<float*>(ws + l.z), reinterpret_cast<float*>(ws + l.g),
+                  reinterpret_cast<float*>(ws + l.dh), reinterpret_cast<float*>(ws + l.dln2),
+                  Ch, tail_groups(n, C)};
+  FoldBwdArgs a{x, ws + l.dy1, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask, dx,
+                ws + l.attn.row, ws + l.attn.o, ws + l.attn.dqkv,
+                reinterpret_cast<float*>(ws + l.attn.dqkvb),
+                reinterpret_cast<float*>(ws + l.attn.dln),
+                reinterpret_cast<float*>(ws + l.attn.dbias),
+                B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, 1};
+  const int blocks = B * nwin;
+  cudaError_t err;
+  if (is_bf16) {
+    if ((err = allow_smem(fold_block_bwd_kernel<bf16, true>, smem)) != cudaSuccess) return err;
+    fold_block_bwd_kernel<bf16, true><<<blocks, kBwdThreads, smem, s>>>(f, m, a);
+  } else {
+    if ((err = allow_smem(fold_block_bwd_kernel<float, false>, smem)) != cudaSuccess) return err;
+    fold_block_bwd_kernel<float, false><<<blocks, kBwdThreads, smem, s>>>(f, m, a);
   }
-  return launch_sum_rows(a.dbias_part, dbias, blocks, (long long)nh * n * n,
-                         (long long)nh * n * n, s);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = fold_bwd_second_pass(a, l.attn, ws, blocks, is_bf16, dln_s, dln_b, dqkv_w, dqkv_b,
+                                  dproj_w, dproj_b, dbias, s)))
+    return err;
+  // kernel 5's second pass: the MLP tail's sums over tokens
+  const int T = B * D * H * W, tiles = blocks * ((n + kMbTok - 1) / kMbTok);
+  float* part = reinterpret_cast<float*>(ws + l.attn.atb);
+  if ((err = launch_atb(m.g_ws, 0, dout, is_bf16, T, Ch, C, part, dw2, s))) return err;
+  if ((err = launch_atb(m.z_ws, 0, m.dh_ws, 0, T, C, Ch, part, dw1, s))) return err;
+  if ((err = launch_atb(nullptr, 0, m.dh_ws, 0, T, 1, Ch, part, db1, s))) return err;
+  if ((err = launch_atb(nullptr, 0, dout, is_bf16, T, 1, C, part, db2, s))) return err;
+  if ((err = launch_sum_rows(m.dln2_part, dln2_s, tiles, C, 2 * C, s))) return err;
+  return launch_sum_rows(m.dln2_part + C, dln2_b, tiles, C, 2 * C, s);
 }
 
 }  // extern "C"

@@ -25,18 +25,18 @@
 // GELU epilogue runs between the two products behind block barriers.  Left
 // on the table: wgmma with the weights staged once per block by TMA, a
 // persistent grid, overlapping the epilogue with the next chunk's fc1.
-#include <mma.h>
-
-#include "common.cuh"
+//
+// The chunk loops themselves (fc1 -> GELU -> fc2) live in mlp_tail.cuh, which
+// the whole-Swin-block kernel (fold_attn.cuh) shares.
+#include "mlp_tail.cuh"
 
 namespace vadcl {
 
 constexpr int kMlpThreads = 256;
 constexpr int kTokens = 32;
-constexpr int kChunk = 128;
 
 inline size_t mlp_smem_bytes(int c) {
-  return sizeof(float) * (2 * (size_t)kTokens * c + (size_t)kTokens * kChunk);
+  return sizeof(float) * (2 * (size_t)kTokens * c + (size_t)kTokens * kMlpChunk);
 }
 
 __global__ void __launch_bounds__(kMlpThreads)
@@ -48,7 +48,7 @@ __global__ void __launch_bounds__(kMlpThreads)
   extern __shared__ __align__(16) float smem[];
   float* z = smem;                  // kTokens*C   LN output
   float* acc = z + kTokens * C;     // kTokens*C   fc2 accumulator
-  float* g = acc + kTokens * C;     // kTokens*kChunk  GELU chunk
+  float* g = acc + kTokens * C;     // kTokens*kMlpChunk  GELU chunk
 
   const int t0 = blockIdx.x * kTokens;
   const int nt = min(kTokens, ntok - t0);
@@ -62,29 +62,7 @@ __global__ void __launch_bounds__(kMlpThreads)
     for (int c = lane; c < C; c += kWarp)
       z[t * C + c] = (xt[c] - mu) * rstd * ln_s[c] + ln_b[c];
   }
-  for (int idx = tid; idx < kTokens * C; idx += nthr) acc[idx] = 0.f;
-  __syncthreads();
-
-  for (int j0 = 0; j0 < Ch; j0 += kChunk) {
-    const int hc = min(kChunk, Ch - j0);
-    for (int idx = tid; idx < nt * hc; idx += nthr) {
-      const int t = idx / hc, j = idx % hc;
-      const float* zt = z + t * C;
-      float h = 0.f;
-      for (int c = 0; c < C; ++c) h += zt[c] * w1[(size_t)c * Ch + j0 + j];
-      const float hb = h + b1[j0 + j];
-      g[t * kChunk + j] = hb * 0.5f * (1.f + erff(hb * 0.7071067811865476f));
-    }
-    __syncthreads();
-    for (int idx = tid; idx < nt * C; idx += nthr) {
-      const int t = idx / C, c = idx % C;
-      const float* gt = g + t * kChunk;
-      float a = acc[idx];
-      for (int j = 0; j < hc; ++j) a += gt[j] * w2[(size_t)(j0 + j) * C + c];
-      acc[idx] = a;
-    }
-    __syncthreads();
-  }
+  mlp_chunks_f32(z, acc, g, w1, b1, w2, nt, C, Ch);
 
   for (int idx = tid; idx < nt * C; idx += nthr) {
     const int t = idx / C, c = idx % C;
@@ -119,9 +97,9 @@ cudaError_t launch_ln_mlp(const void* x, const float* ln_s, const float* ln_b,
 constexpr int kTcMlpThreads = 256;
 constexpr int kTcMlpWarps = kTcMlpThreads / kWarp;
 constexpr int kTcTokens = 64;
-constexpr int kTcChunk = 128;
 constexpr int kTcMaxC = 192;
-constexpr int kTcAcc = (kTcTokens / 16) * (kTcMaxC / 16) / kTcMlpWarps;  // 6
+static_assert((kTcTokens / 16) * (kTcMaxC / 16) <= kTcAcc * kTcMlpWarps,
+              "a warp owns at most kTcAcc output tiles");
 
 inline bool mlp_tc_eligible(int c, int ch) {
   return c % 16 == 0 && c <= kTcMaxC && ch % kTcChunk == 0;
@@ -139,7 +117,6 @@ __global__ void __launch_bounds__(kTcMlpThreads)
                      const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
                      const float* __restrict__ b2, __nv_bfloat16* __restrict__ y,
                      int ntok, int C, int Ch) {
-  using namespace nvcuda;
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(128) unsigned char sm[];
   bf16* z = reinterpret_cast<bf16*>(sm);                          // kTcTokens x C
@@ -164,56 +141,10 @@ __global__ void __launch_bounds__(kTcMlpThreads)
   }
   __syncthreads();
 
-  const int cn = C / 16, out_tiles = (kTcTokens / 16) * cn;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kTcAcc];
-  for (int j = 0; j < kTcAcc; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int j0 = 0; j0 < Ch; j0 += kTcChunk) {
-    // h = z . W1[:, chunk]  (kTcTokens x kTcChunk fp32, staged)
-    for (int t = warp; t < (kTcTokens / 16) * (kTcChunk / 16); t += kTcMlpWarps) {
-      const int mt = t / (kTcChunk / 16), ntl = t % (kTcChunk / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> h;
-      wmma::fill_fragment(h, 0.f);
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, z + (size_t)mt * 16 * C + k0, C);
-        wmma::load_matrix_sync(fb, w1 + (size_t)k0 * Ch + j0 + ntl * 16, Ch);
-        wmma::mma_sync(h, fa, fb, h);
-      }
-      wmma::store_matrix_sync(stage + (size_t)mt * 16 * kTcChunk + ntl * 16, h, kTcChunk,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    // + b1 -> bf16 -> exact GELU -> bf16
-    for (int e = tid; e < kTcTokens * kTcChunk; e += kTcMlpThreads) {
-      const float hb = round_to<bf16>(stage[e] + b1[j0 + e % kTcChunk]);
-      g[e] = __float2bfloat16(hb * 0.5f * (1.f + erff(hb * 0.7071067811865476f)));
-    }
-    __syncthreads();
-    // o += g . W2[chunk, :]
-    for (int j = 0; j < kTcAcc; ++j) {
-      const int t = warp + j * kTcMlpWarps;
-      if (t >= out_tiles) break;
-      const int mt = t / cn, ntl = t % cn;
-      for (int k0 = 0; k0 < kTcChunk; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, g + (size_t)mt * 16 * kTcChunk + k0, kTcChunk);
-        wmma::load_matrix_sync(fb, w2 + (size_t)(j0 + k0) * C + ntl * 16, C);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-  }
-
-  // every warp is past the last epilogue's reads of stage (barrier above)
-  for (int j = 0; j < kTcAcc; ++j) {
-    const int t = warp + j * kTcMlpWarps;
-    if (t >= out_tiles) break;
-    const int mt = t / cn, ntl = t % cn;
-    wmma::store_matrix_sync(stage + (size_t)mt * 16 * C + ntl * 16, acc[j], C,
-                            wmma::mem_row_major);
-  }
+  MlpFragC acc[kTcAcc];
+  mlp_chunks_tc<kTcMlpThreads>(z, g, stage, w1, b1, w2, kTcTokens, C, Ch, acc);
+  // every warp is past the last epilogue's reads of stage (see mlp_chunks_tc)
+  mlp_store_acc<kTcMlpThreads>(stage, acc, kTcTokens, C);
   __syncthreads();
   for (int e = tid; e < nt * C; e += kTcMlpThreads) {
     const size_t off = (size_t)t0 * C + e;

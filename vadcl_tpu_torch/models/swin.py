@@ -1,19 +1,28 @@
 """Video Swin 3D blocks (``vadcl_tpu/models/swin.py``), NDHWC.
 
-With ``fused=True`` a block runs two hand-written kernels, the attention
-front half and then the fused LN2 -> MLP -> residual tail (``ops/ln_mlp``).
-The front half depends on ``attn_kernel``:
+With ``fused=True`` a block runs hand-written kernels, chosen by
+``attn_kernel`` as the JAX blocks choose theirs:
 
 * ``"fold"``: the folded attention kernel on the unpartitioned tensor with
-  LN1, the shift roll and the residual inside (``ops/fold_attn``).  At a
-  geometry that needs window padding LN1 cannot fold across the zero pad, so
-  the block runs plain LN1, pads, and runs the fold kernel without LN and
-  without the residual.  Where a window does not fit the fold kernel's
-  shared memory (``fold_fits``) the block takes the ``"base"`` route.
+  LN1, the shift roll and the residual inside (``ops/fold_attn``), then the
+  fused LN2 -> MLP -> residual tail (``ops/ln_mlp``).  At a geometry that
+  needs window padding LN1 cannot fold across the zero pad, so the block
+  runs plain LN1, pads, and runs the fold kernel without LN and without the
+  residual.  Where a window does not fit the fold kernel's shared memory
+  (``fold_fits``) the block takes the ``"base"`` route.
+* ``"fold_packed"`` (inference only): the same routes with the packed fold
+  kernel (``fold_attention_packed``, gated by ``fold_packed_fits``) in place
+  of the fold kernel; where it does not fit, the ``"base"`` route.
+* ``"fold_mix"`` (inference only): ``"fold_packed"`` in blocks with 12 heads
+  or more, ``"fold"`` in the others.
+* ``"fold_block"``: the whole block (LN1, attention, residual, LN2, MLP,
+  residual) is one kernel each way (``fold_block``) where no padding is
+  needed, the fold kernel fits and ``fold_block_fits`` holds; otherwise the
+  block is a ``"fold"`` block in every respect.
 * ``"base"`` (trainable) and ``"packed"`` (inference only): plain LN1, pad,
   roll, ``window_partition``, the partitioned-window kernel
   (``ops/window_attn``), ``window_reverse``, roll back, slice, plain
-  residual add.
+  residual add, then the fused tail.
 
 With ``fused=False`` it is the plain PyTorch block of the JAX default
 config.  Parameter names and shapes are the same either way, so one
@@ -29,7 +38,14 @@ import torch.nn as nn
 
 from vadcl_tpu_torch.models.layers import LayerNorm, Mlp, _uniform_fan_in
 from vadcl_tpu_torch.ops.convs import patchify_matmul
-from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_fits
+from vadcl_tpu_torch.ops.fold_attn import (
+    fold_attention,
+    fold_attention_packed,
+    fold_block,
+    fold_block_fits,
+    fold_fits,
+    fold_packed_fits,
+)
 from vadcl_tpu_torch.ops.ln_mlp import ln_mlp
 from vadcl_tpu_torch.ops.window import (
     compute_attn_mask,
@@ -43,23 +59,15 @@ from vadcl_tpu_torch.ops.window_attn import window_attention_fused, window_atten
 
 Tri = Tuple[int, int, int]
 
-# JAX attention kernels whose Hopper port is still to come (ROADMAP.md).
-_UNPORTED_ATTN = {
-    "fold_block": "ops/pallas_attn_fold.py:_fold_kernel with the MLP tail (fold_block)",
-    "fold_packed": "ops/pallas_attn_fold.py:_fold_packed_kernel",
-    "fold_mix": "ops/pallas_attn_fold.py:_fold_packed_kernel (fold_mix)",
-}
+_FOLD_FAMILY = ("fold", "fold_block", "fold_packed")
 
 
-def check_attn_kernel(attn_kernel: str) -> None:
-    """The port's fused attention kernels are ``fold``, ``base`` and
-    ``packed``."""
-    if attn_kernel in _UNPORTED_ATTN:
-        raise NotImplementedError(
-            f"fused attention kernel {attn_kernel!r} is not ported to CUDA yet "
-            f"(Pallas {_UNPORTED_ATTN[attn_kernel]}); use attn_kernel='fold', "
-            "'base' or 'packed', or fused_attention=False"
-        )
+def resolve_attn_kernel(attn_kernel: str, num_heads: int) -> str:
+    """``fold_mix`` picks per block: the packed fold kernel at 12 heads or
+    more, the fold kernel below; every other name is itself."""
+    if attn_kernel == "fold_mix":
+        return "fold_packed" if num_heads >= 12 else "fold"
+    return attn_kernel
 
 
 class WindowAttention3D(nn.Module):
@@ -113,8 +121,6 @@ class SwinBlock3D(nn.Module):
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  fused: bool = False, attn_kernel: str = "base"):
         super().__init__()
-        if fused:
-            check_attn_kernel(attn_kernel)
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.num_heads = num_heads
@@ -140,15 +146,29 @@ class SwinBlock3D(nn.Module):
         shifted = any(s > 0 for s in shift)
         n = window[0] * window[1] * window[2]
         attn = self.attn
-        fold = (self.fused and self.attn_kernel == "fold"
-                and fold_fits(n, C, self.num_heads, x.dtype))
+        # the resolved name picks the fold kernel and its gate; the
+        # partitioned route below tests the configured name, as the JAX block
+        kind = resolve_attn_kernel(self.attn_kernel, self.num_heads)
+        fits = fold_packed_fits if kind == "fold_packed" else fold_fits
+        fold = (self.fused and kind in _FOLD_FAMILY
+                and fits(n, C, self.num_heads, x.dtype))
+        fold_kernel = fold_attention_packed if kind == "fold_packed" else fold_attention
         if fold and not any(pads):
+            mask = self._mask(D, H, W, window, shift, x.device)
+            if kind == "fold_block" and fold_block_fits(n, C, self.num_heads, x.dtype):
+                # the whole block, MLP tail included, is one kernel each way
+                return fold_block(
+                    x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
+                    attn.qkv_bias, attn.proj_weight, attn.proj_bias, attn.bias(n), mask,
+                    self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                    self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                    self.num_heads, window, attn.scale, shift=shift,
+                )
             # LN1, the shift roll both ways and the residual are in the kernel
-            x = fold_attention(
+            x = fold_kernel(
                 x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
                 attn.qkv_bias, attn.proj_weight, attn.proj_bias, attn.bias(n),
-                self._mask(D, H, W, window, shift, x.device), self.num_heads,
-                window, attn.scale, residual=True, shift=shift,
+                mask, self.num_heads, window, attn.scale, residual=True, shift=shift,
             )
             return self._tail(x)
 
@@ -163,7 +183,7 @@ class SwinBlock3D(nn.Module):
         if fold:
             # the fold kernel on the padded tensor, without LN and residual,
             # the shift roll folded into its addressing
-            y = fold_attention(
+            y = fold_kernel(
                 y, None, None, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
                 attn.proj_bias, attn.bias(n), mask, self.num_heads, window,
                 attn.scale, residual=False, shift=shift,

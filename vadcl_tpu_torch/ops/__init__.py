@@ -13,7 +13,13 @@ from vadcl_tpu_torch.ops.convs import (
     patchify_matmul,
     same_pad_amounts,
 )
-from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_bwd
+from vadcl_tpu_torch.ops.fold_attn import (
+    fold_attention,
+    fold_attention_bwd,
+    fold_attention_packed,
+    fold_block,
+    fold_block_bwd,
+)
 from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd
 from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
@@ -32,10 +38,11 @@ from vadcl_tpu_torch.ops.window import (
 # The wrappers of the hand-written CUDA kernels, each with a ``launches``
 # counter that counts its kernel launches (CPU calls run the plain version
 # and do not count): forward kernels A-D, backward kernels 5 and 6, then the
-# partitioned-window attention kernels 7, 8 and 9.
+# partitioned-window attention kernels 7, 8 and 9, then kernel 10 (the packed
+# fold attention) and the whole-Swin-block kernel each way.
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
-           window_attention_packed)
+           window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd)
 
 __all__ = [
     "KERNELS",
@@ -47,6 +54,9 @@ __all__ = [
     "feature_cluster_assign",
     "fold_attention",
     "fold_attention_bwd",
+    "fold_attention_packed",
+    "fold_block",
+    "fold_block_bwd",
     "frobenius_norm",
     "get_window_size",
     "ln_mlp",

@@ -40,10 +40,17 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "vadcl_fold_attn": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_smem_bytes": ([_I] * 4, _L),
+    "vadcl_fold_attn_packed": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
+    "vadcl_fold_attn_packed_smem_bytes": ([_I] * 4, _L),
+    "vadcl_fold_block": ([_P] * 16 + [_I] * 13 + [_F, _I, _P], _I),
+    "vadcl_fold_block_smem_bytes": ([_I] * 4, _L),
     "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "vadcl_fold_attn_bwd": ([_P] * 18 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_bwd_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_attn_bwd_workspace_bytes": ([_I] * 10, _L),
+    "vadcl_fold_block_bwd": ([_P] * 30 + [_I] * 13 + [_F, _I, _P], _I),
+    "vadcl_fold_block_bwd_smem_bytes": ([_I] * 4, _L),
+    "vadcl_fold_block_bwd_workspace_bytes": ([_I] * 11, _L),
     "vadcl_window_attn": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_packed": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_smem_bytes": ([_I] * 4, _L),

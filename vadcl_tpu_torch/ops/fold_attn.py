@@ -1,5 +1,7 @@
-"""Kernel A: folded Swin window attention with LN1 and the residual fused,
-and kernel 6, its backward.
+"""The folded Swin attention kernels, forward and backward: kernel A (LN1 +
+window attention + residual on the unpartitioned tensor), kernel 6 (its
+backward), kernel 10 (A's head-packed inference variant) and the
+whole-Swin-block kernel each way.
 
 Kernel A replaces ``vadcl_tpu/ops/pallas_attn_fold.py:_fold_kernel`` (entry
 ``fused_window_attention_folded``, reached through
@@ -9,27 +11,44 @@ window's tokens in the unpartitioned (B, D, H, W, C) tensor by strides;
 bf16 runs on the tensor cores and needs C and head_dim to be multiples of 16.
 
 Kernel 6 replaces ``_fold_bwd_kernel`` (entry ``_fold_bwd_call``), in the two
-modes the JAX package calls it in: ``fuse_ln=True, residual=True`` (through
-``_blk_bwd``, the Swin block's front half) and ``fuse_ln=False,
-residual=False`` (the backward of ``folded_window_attention_trainable``,
-which a block at a window-padded geometry runs).  Its CUDA kernel is
-``csrc/fold_attn_bwd.cu``: the same per-window blocks recompute the
-forward and emit dx; the cross-window sums (weight, bias and LN gradients)
-go through a deterministic second pass.  As in kernel A, bf16 runs on the
-tensor cores and needs C and head_dim to be multiples of 16.
+modes the JAX package calls it in without a tail: ``fuse_ln=True,
+residual=True`` (through ``_blk_bwd``, the Swin block's front half) and
+``fuse_ln=False, residual=False`` (the backward of
+``folded_window_attention_trainable``, which a block at a window-padded
+geometry runs).  Its CUDA kernel is ``csrc/fold_attn_bwd.cu``: the same
+per-window blocks recompute the forward and emit dx; the cross-window sums
+(weight, bias and LN gradients) go through a deterministic second pass.
 
-``fold_attention`` is a ``torch.autograd.Function``: forward kernel A,
-backward kernel 6.  On a CPU tensor both run their plain versions
-(``fold_attention_plain``, ``fold_attention_bwd_plain``); on a CUDA tensor
-they launch the kernels or raise.  Bounds on the card and what the simple
-designs leave are in the headers of the two ``.cu`` files.
+Kernel 10 replaces ``_fold_packed_kernel`` (entry
+``fused_window_attention_folded_packed``; ``attn_kernel="fold_packed"`` and
+``"fold_mix"`` at 12 heads and more): kernel A's contract with the packed
+arithmetic (q scaled before it rounds, no scale after q.k, per-head row max,
+``p = round(e * (1 / sum e))``), inference only.  It is kernel A's device
+code behind a template flag, with its own entry point, ``fold_attention_packed``.
 
-``fold_fits`` is the port's counterpart of ``folded_attention_applicable``
-and ``folded_bwd_applicable``: whether one window's block fits the 227 KB of
-shared memory a Hopper block may use.  Where it does not, the Swin block
-takes the partitioned-window kernels (``ops/window_attn``) instead, and
-where only the backward does not, ``fold_attention``'s backward replays LN1
-outside the kernel and runs kernel 8 (``_blk_bwd``'s fallback).
+The whole-block kernels replace ``_fold_kernel`` with ``tail=`` and
+``_fold_bwd_kernel`` with ``tail_refs=`` (entry
+``folded_full_block_trainable`` and its ``_full_bwd``;
+``attn_kernel="fold_block"``): ``fold_block`` computes
+``y1 + fc2(gelu(fc1(LN2(y1))))`` with ``y1 = round(x + proj(attn(LN1 x)))``
+in one launch, ``fold_block_bwd`` its 14 gradients in one launch plus the
+second pass.  Both reuse the device code of kernels A, B, 5 and 6.
+
+``fold_attention`` and ``fold_block`` are ``torch.autograd.Function``s (the
+backward of ``fold_attention_packed`` raises).  On a CPU tensor every
+wrapper runs its plain version (``*_plain``); on a CUDA tensor it launches
+its kernel or raises.  Bounds on the card and what the simple designs leave
+are in the headers of the two ``.cu`` files.
+
+``fold_fits``, ``fold_packed_fits`` and ``fold_block_fits`` are the port's
+counterparts of ``folded_attention_applicable`` / ``folded_bwd_applicable``,
+``folded_packed_applicable`` and ``folded_full_block_applicable``: whether
+one window's block fits the 227 KB of shared memory a Hopper block may use.
+Where it does not, the Swin block takes another route
+(``models/swin.py``), and where only kernel 6 does not,
+``fold_attention``'s backward replays LN1 outside the kernel and runs kernel
+8 (``_blk_bwd``'s fallback).  ``fold_block_fits`` is one predicate for both
+directions, so the whole-block backward needs no fallback.
 """
 
 from __future__ import annotations
@@ -88,6 +107,67 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
     return fold_smem_bytes(n, c, num_heads, dtype == torch.bfloat16, backward) <= SMEM_LIMIT
 
 
+def fold_packed_fits(n: int, c: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether a window runs in kernel 10.  Its block has kernel A's layout:
+    the per-head qkv tile passes through an fp32 stage before it rounds, so
+    keeping q fp32 until it is scaled costs no shared memory."""
+    return fold_smem_bytes(n, c, num_heads, dtype == torch.bfloat16) <= SMEM_LIMIT
+
+
+_MLP_CHUNK = 128  # hidden columns per chunk of the tail (both dtypes)
+_TAIL_TOKENS = 32  # tokens per tile of the fp32 tail
+_TC_ACC = 6  # fc2 accumulator tiles a warp of the bf16 tail may own
+_TAIL_GROUPS_MAX = 4  # 128-thread groups of the block backward's tail step
+
+
+def _mlp_bwd_group_bytes(c: int) -> int:
+    """Shared memory of one 128-thread group of kernel 5's tile body."""
+    return 4 * (4 * 16 * (c + 4) + 2 * 16 * (64 + 4) + 16 + 4 * 2 * c)
+
+
+def fold_block_smem_bytes(n: int, c: int, num_heads: int, bf16: bool,
+                          backward: bool = False) -> int:
+    """Shared memory one window's block of the whole-block kernel needs
+    (forward, or with ``backward`` its backward): the layouts of
+    ``csrc/fold_attn.cuh`` in tail mode and of
+    ``csrc/fold_attn_bwd.cu:fold_block_bwd_smem_bytes``."""
+    hd = c // num_heads
+    m = _up(n, 16)
+
+    def total(sizes):
+        return sum(_up(v, 128) for v in sizes)
+
+    if backward:
+        tokens = _up(8 * n, 128)
+        groups = max(1, min(_TAIL_GROUPS_MAX, (SMEM_LIMIT - tokens) // _mlp_bwd_group_bytes(c)))
+        return max(fold_smem_bytes(n, c, num_heads, bf16),
+                   fold_smem_bytes(n, c, num_heads, bf16, backward=True),
+                   tokens + groups * _mlp_bwd_group_bytes(c))
+    if not bf16:
+        hdp = hd + 1
+        region = max(n * c + 3 * n * hdp + n * n,
+                     2 * _TAIL_TOKENS * c + _TAIL_TOKENS * _MLP_CHUNK)
+        return 4 * (n * c + region) + 8 * n
+    front = total([8 * m, 2 * m * c, 2 * m * c])
+    stage = 4 * 256 * _WARPS
+    return front + max(total([2 * m * hd] * 3 + [4 * m * m, 2 * m * m, stage]),
+                       total([4 * m * _MLP_CHUNK, 2 * m * _MLP_CHUNK]),
+                       total([4 * m * c]))
+
+
+def fold_block_fits(n: int, c: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether a window runs in the whole-block kernels, forward **and**
+    backward (one predicate, as ``folded_full_block_applicable``): both
+    blocks fit ``SMEM_LIMIT`` and, in bf16, the warps' fragments hold the fc2
+    accumulator (at most ``_TC_ACC`` 16x16 tiles each).  The hidden width
+    does not enter: the tail walks it in fixed chunks."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and _up(n, 16) // 16 * (c // 16) > _TC_ACC * _WARPS:
+        return False
+    return (fold_block_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
+            and fold_block_smem_bytes(n, c, num_heads, bf16, backward=True) <= SMEM_LIMIT)
+
+
 def _ln_stats(x32: torch.Tensor):
     """xhat and rstd of flax's fast-variance LayerNorm (eps 1e-5), fp32."""
     mu = x32.mean(-1, keepdim=True)
@@ -99,6 +179,53 @@ def _ln_stats(x32: torch.Tensor):
 def _ln_fast(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """flax LayerNorm numerics in fp32: fast variance, eps 1e-5."""
     return _ln_stats(x32)[0] * scale.float() + bias.float()
+
+
+def _fold_forward_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                        num_heads, window, scale, residual, shift, packed):
+    if any(shift):
+        y = _fold_forward_plain(
+            torch.roll(x, tuple(-s for s in shift), (1, 2, 3)), ln_scale, ln_bias,
+            qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window, scale,
+            residual, (0, 0, 0), packed,
+        )
+        return torch.roll(y, tuple(shift), (1, 2, 3))
+    B, D, H, W, C = x.shape
+    dt = x.dtype
+    hd = C // num_heads
+    wins = window_partition(x, window)  # (B*nW, N, C)
+    Bn, N, _ = wins.shape
+    if ln_scale is not None:
+        y = _ln_fast(wins.float(), ln_scale, ln_bias).to(dt)
+    else:
+        y = wins
+    qkv = y.float() @ qkv_w.to(dt).float()
+    if qkv_b is not None:
+        qkv = qkv + qkv_b.float()
+    if packed:  # q is scaled before it is rounded
+        qkv = torch.cat((qkv[..., :C] * scale, qkv[..., C:]), -1)
+    qkv = qkv.to(dt).reshape(Bn, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()  # (Bn, nH, N, hd)
+    s = q @ k.transpose(-2, -1)
+    if not packed:
+        s = s * scale
+    s = s + bias[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(Bn // nW, nW, num_heads, N, N) + mask[None, :, None]).reshape(
+            Bn, num_heads, N, N
+        )
+    if packed:  # per-head row max, e * (1 / sum e)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = (e * (1.0 / e.sum(-1, keepdim=True))).to(dt).float()
+    else:
+        p = torch.softmax(s, dim=-1).to(dt).float()
+    o = (p @ v).to(dt)  # (Bn, nH, N, hd)
+    o = o.transpose(1, 2).reshape(Bn, N, C)
+    out = o.float() @ proj_w.to(dt).float() + proj_b.float()
+    if residual:
+        out = out + wins.float()
+    return window_reverse(out.to(dt), window, B, D, H, W)
 
 
 def fold_attention_plain(
@@ -123,40 +250,34 @@ def fold_attention_plain(
     after the q.k product; bias, mask, softmax and the residual are fp32.
     A non-zero ``shift`` is the shifted-window roll: the result is
     ``roll(f(roll(x, -shift)), shift)``."""
-    if any(shift):
-        y = fold_attention_plain(
-            torch.roll(x, tuple(-s for s in shift), (1, 2, 3)), ln_scale, ln_bias,
-            qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window, scale,
-            residual,
-        )
-        return torch.roll(y, tuple(shift), (1, 2, 3))
-    B, D, H, W, C = x.shape
-    dt = x.dtype
-    hd = C // num_heads
-    wins = window_partition(x, window)  # (B*nW, N, C)
-    Bn, N, _ = wins.shape
-    if ln_scale is not None:
-        y = _ln_fast(wins.float(), ln_scale, ln_bias).to(dt)
-    else:
-        y = wins
-    qkv = y.float() @ qkv_w.to(dt).float()
-    if qkv_b is not None:
-        qkv = qkv + qkv_b.float()
-    qkv = qkv.to(dt).reshape(Bn, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()  # (Bn, nH, N, hd)
-    s = (q @ k.transpose(-2, -1)) * scale + bias[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.reshape(Bn // nW, nW, num_heads, N, N) + mask[None, :, None]).reshape(
-            Bn, num_heads, N, N
-        )
-    p = torch.softmax(s, dim=-1).to(dt).float()
-    o = (p @ v).to(dt)  # (Bn, nH, N, hd)
-    o = o.transpose(1, 2).reshape(Bn, N, C)
-    out = o.float() @ proj_w.to(dt).float() + proj_b.float()
-    if residual:
-        out = out + wins.float()
-    return window_reverse(out.to(dt), window, B, D, H, W)
+    return _fold_forward_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                               mask, num_heads, window, scale, residual, shift, False)
+
+
+def fold_attention_packed_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                                mask, num_heads, window, scale, residual=True,
+                                shift=(0, 0, 0)) -> torch.Tensor:
+    """Plain PyTorch version of kernel 10 (``_fold_packed_kernel``): kernel
+    A's function except that the qkv row stays fp32 until ``q = round(q *
+    scale)`` and k, v round (no scale after the product), the row max is per
+    head, and ``p = round(e * (1 / sum e))``."""
+    return _fold_forward_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                               mask, num_heads, window, scale, residual, shift, True)
+
+
+def fold_block_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                     ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale,
+                     shift=(0, 0, 0)) -> torch.Tensor:
+    """Plain PyTorch version of the whole-block forward (``_fold_kernel``
+    with ``tail=``): ``y1 = x + proj(attn(LN1 x))`` with kernel A's cast
+    boundaries, **rounded to the compute dtype**, then
+    ``y1 + fc2(gelu(fc1(LN2 y1)))`` with kernel B's (``_mlp_tail_rows``), so
+    the result is what kernels A then B give, bit for bit."""
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_plain
+
+    y1 = fold_attention_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                              mask, num_heads, window, scale, True, shift)
+    return ln_mlp_plain(y1, ln2_scale, ln2_bias, w1, b1, w2, b2)
 
 
 def _ln_vjp(dxa: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
@@ -254,6 +375,32 @@ def fold_attention_bwd_plain(
         dx = dxa
     dx = window_reverse(dx.to(dt), window, B, D, H, W)
     return dx, dln_s, dln_b, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
+
+
+FOLD_BLOCK_GRADS = ("dx", "dln_s", "dln_b", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias",
+                    "dln2_s", "dln2_b", "dw1", "db1", "dw2", "db2")
+
+
+def fold_block_bwd_plain(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                         mask, ln2_scale, ln2_bias, w1, b1, w2, num_heads, window, scale,
+                         shift=(0, 0, 0)):
+    """Plain PyTorch version of the whole-block backward
+    (``_fold_bwd_kernel`` with ``tail_refs=``): recompute ``y1`` (rounded),
+    run the MLP tail's backward on it with kernel 5's numerics (the
+    recompute rounds, the products are fp32 on fp32 operands), round
+    ``dy1 = dY + LN2-vjp(dz)`` to the compute dtype, and feed it to the
+    attention backward with kernel 6's cast boundaries as its upstream
+    gradient and residual branch.  Returns the gradients named by
+    ``FOLD_BLOCK_GRADS``: dx in the compute dtype, the rest fp32 (dqkv_b
+    None without a qkv bias)."""
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd_plain
+
+    y1 = fold_attention_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                              mask, num_heads, window, scale, True, shift)
+    dy1, *tail = ln_mlp_bwd_plain(y1, dout, ln2_scale, ln2_bias, w1, b1, w2)
+    front = fold_attention_bwd_plain(x, dy1, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
+                                     mask, num_heads, window, scale, shift, True)
+    return (*front, *tail)
 
 
 def _check_mode(ln_scale, residual) -> None:
@@ -386,6 +533,104 @@ def fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
 fold_attention_bwd.launches = 0
 
 
+class _FoldAttentionPacked(torch.autograd.Function):
+    """Kernel 10: forward only, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                num_heads, window, scale, residual, shift):
+        args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                num_heads, window, scale, residual, shift)
+        if x.device.type == "cpu":
+            return fold_attention_packed_plain(*args)
+        return _fold_attention_cuda(*args, packed=True)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(
+            "fold_attention_packed (attn_kernel='fold_packed', 'fold_mix') is "
+            "inference-only: it has no backward; train with attn_kernel='fold', "
+            "'fold_block' or 'base'"
+        )
+
+
+def fold_attention_packed(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                          num_heads: int, window: Tri, scale: float, residual: bool = True,
+                          shift: Tri = (0, 0, 0)) -> torch.Tensor:
+    """Kernel 10: ``fold_attention``'s contract (optional LN1, optional
+    residual, the shift roll folded in) with the packed arithmetic; with a
+    zero shift, the contract of ``fused_window_attention_folded_packed``.
+    Inference only: asking it for a gradient raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fold_attention_packed: unsupported device {x.device}")
+    return _FoldAttentionPacked.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
+                                      bias, mask, num_heads, tuple(window), scale,
+                                      residual, tuple(shift))
+
+
+fold_attention_packed.launches = 0
+
+
+class _FoldBlock(torch.autograd.Function):
+    """Forward the whole-block kernel, backward its whole-block backward
+    (``folded_full_block_trainable``'s custom VJP): the inputs are saved,
+    the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift):
+        ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                              mask, ln2_scale, ln2_bias, w1, b1, w2)
+        ctx.meta = (num_heads, window, scale, shift)
+        args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift)
+        if x.device.type == "cpu":
+            return fold_block_plain(*args)
+        return _fold_block_cuda(*args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, *params = ctx.saved_tensors
+        g = fold_block_bwd(x, dout, *params, *ctx.meta)
+        # (dx, dln1 x2, dqkv x2, dproj x2, dbias), mask, (dln2 x2, dw1, db1, dw2, db2)
+        return (*g[:8], None, *g[8:], None, None, None, None)
+
+
+def fold_block(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+               ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads: int, window: Tri,
+               scale: float, shift: Tri = (0, 0, 0)) -> torch.Tensor:
+    """The whole Swin block in one kernel: ``y1 + fc2(gelu(fc1(LN2 y1)))``
+    with ``y1 = x + proj(attn(LN1 x))`` per window, on the unpartitioned
+    tensor, the shift roll folded in.  With a zero shift, the contract of
+    ``folded_full_block_trainable``.  Differentiable (``fold_block_bwd``)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fold_block: unsupported device {x.device}")
+    return _FoldBlock.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                            ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, tuple(window),
+                            scale, tuple(shift))
+
+
+fold_block.launches = 0
+
+
+def fold_block_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                   ln2_scale, ln2_bias, w1, b1, w2, num_heads, window, scale,
+                   shift=(0, 0, 0)):
+    """The whole-block backward: the gradients of ``fold_block`` as
+    ``fold_block_bwd_plain`` returns them (the contract of ``_full_bwd``
+    with the shift roll folded in)."""
+    args = (x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+            ln2_scale, ln2_bias, w1, b1, w2, num_heads, tuple(window), scale, tuple(shift))
+    if x.device.type == "cpu":
+        return fold_block_bwd_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"fold_block_bwd: unsupported device {x.device}")
+    return _fold_block_bwd_cuda(*args)
+
+
+fold_block_bwd.launches = 0
+
+
 def _f32(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
     if t is None:
         return torch.zeros(n, dtype=torch.float32, device=device)
@@ -439,10 +684,14 @@ def _fold_operands(x, qkv_w, qkv_b, proj_w, bias, mask):
 
 
 def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
-                         bias, mask, num_heads, window, scale, residual, shift):
+                         bias, mask, num_heads, window, scale, residual, shift,
+                         packed=False):
+    """Kernel A, or with ``packed`` kernel 10 (same arguments and layout)."""
     lib = cuda_lib.library()
-    _check_fold("fold_attention", x, bias, mask, num_heads, window,
-                lib.vadcl_fold_attn_smem_bytes)
+    what = "fold_attention_packed" if packed else "fold_attention"
+    _check_fold(what, x, bias, mask, num_heads, window,
+                lib.vadcl_fold_attn_packed_smem_bytes if packed
+                else lib.vadcl_fold_attn_smem_bytes)
     B, D, H, W, C = x.shape
     dev = x.device
     xc = x.contiguous()
@@ -452,7 +701,7 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
     ln_b = _f32(ln_bias, C, dev) if has_ln else None
     qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
     pb = _f32(proj_b, C, dev)
-    err = lib.vadcl_fold_attn(
+    err = (lib.vadcl_fold_attn_packed if packed else lib.vadcl_fold_attn)(
         xc.data_ptr(),
         ln_s.data_ptr() if has_ln else None,
         ln_b.data_ptr() if has_ln else None,
@@ -463,9 +712,107 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
         shift[2] % W, float(scale), int(bool(residual)), int(x.dtype == torch.bfloat16),
         cuda_lib.stream_ptr(xc),
     )
-    cuda_lib.check(err, "fold_attention")
-    fold_attention.launches += 1
+    cuda_lib.check(err, what)
+    (fold_attention_packed if packed else fold_attention).launches += 1
     return out
+
+
+def _check_block(what, x, w1, w2, window, hidden_multiple):
+    """The whole-block kernels' checks on the MLP tail's operands."""
+    c = x.shape[-1]
+    ch = w1.shape[1]
+    if tuple(w1.shape) != (c, ch) or tuple(w2.shape) != (ch, c):
+        raise ValueError(f"{what}: weights {tuple(w1.shape)}, {tuple(w2.shape)} vs C={c}")
+    n = window[0] * window[1] * window[2]
+    if x.dtype == torch.bfloat16 and (
+            ch % hidden_multiple or _up(n, 16) // 16 * (c // 16) > _TC_ACC * _WARPS):
+        raise NotImplementedError(
+            f"{what}: the bf16 kernel needs a hidden width divisible by "
+            f"{hidden_multiple} and at most {_TC_ACC * _WARPS} 16x16 output tiles per "
+            f"window (got hidden {ch}, N={n}, C={c})"
+        )
+    if c % 4 or ch % 4:
+        raise NotImplementedError(
+            f"{what}: the tail's vector loads need C and the hidden width to be "
+            f"multiples of 4 (got C={c}, hidden {ch})"
+        )
+    return ch
+
+
+def _fold_block_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                     ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift):
+    lib = cuda_lib.library()
+    B, D, H, W, C = x.shape
+    ch = _check_block("fold_block", x, w1, w2, window, _MLP_CHUNK)
+    _check_fold("fold_block", x, bias, mask, num_heads, window,
+                lib.vadcl_fold_block_smem_bytes)
+    dev, dt = x.device, x.dtype
+    xc = x.detach().contiguous()
+    out = torch.empty_like(xc)
+    qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
+    w1c = cuda_lib.aligned(w1.detach().to(device=dev, dtype=dt))
+    w2c = cuda_lib.aligned(w2.detach().to(device=dev, dtype=dt))
+    ls, lb, pb = _f32(ln_scale, C, dev), _f32(ln_bias, C, dev), _f32(proj_b, C, dev)
+    l2s, l2b = _f32(ln2_scale, C, dev), _f32(ln2_bias, C, dev)
+    b1c, b2c = _f32(b1, ch, dev), _f32(b2, C, dev)
+    err = lib.vadcl_fold_block(
+        xc.data_ptr(), ls.data_ptr(), lb.data_ptr(), qw.data_ptr(), qb.data_ptr(),
+        pw.data_ptr(), pb.data_ptr(), bs.data_ptr(),
+        mk.data_ptr() if mk is not None else None,
+        l2s.data_ptr(), l2b.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
+        b2c.data_ptr(), out.data_ptr(),
+        B, D, H, W, C, num_heads, ch, *window, shift[0] % D, shift[1] % H, shift[2] % W,
+        float(scale), int(dt == torch.bfloat16), cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, "fold_block")
+    fold_block.launches += 1
+    return out
+
+
+def _fold_block_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                         mask, ln2_scale, ln2_bias, w1, b1, w2, num_heads, window, scale,
+                         shift):
+    lib = cuda_lib.library()
+    B, D, H, W, C = x.shape
+    ch = _check_block("fold_block_bwd", x, w1, w2, window, 4)
+    _check_fold("fold_block_bwd", x, bias, mask, num_heads, window,
+                lib.vadcl_fold_block_bwd_smem_bytes)
+    dev, dt = x.device, x.dtype
+    is_bf16 = int(dt == torch.bfloat16)
+    n = window[0] * window[1] * window[2]
+    xc = x.detach().contiguous()
+    doc = dout.detach().to(dt).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(xc)
+    vec = lambda k: torch.empty(k, **f32)  # noqa: E731
+    dln_s, dln_b, dproj_b, dln2_s, dln2_b, db2 = (vec(C) for _ in range(6))
+    dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), vec(3 * C)
+    dproj_w, dbias = torch.empty(C, C, **f32), torch.empty(num_heads, n, n, **f32)
+    dw1, db1, dw2 = torch.empty(C, ch, **f32), vec(ch), torch.empty(ch, C, **f32)
+    ws = torch.empty(
+        lib.vadcl_fold_block_bwd_workspace_bytes(B, D, H, W, C, num_heads, ch, *window,
+                                                 is_bf16),
+        dtype=torch.uint8, device=dev,
+    )
+    qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
+    w1c = w1.detach().to(device=dev, dtype=dt).contiguous()
+    w2c = w2.detach().to(device=dev, dtype=dt).contiguous()
+    ls, lb, pb = _f32(ln_scale, C, dev), _f32(ln_bias, C, dev), _f32(proj_b, C, dev)
+    l2s, l2b, b1c = _f32(ln2_scale, C, dev), _f32(ln2_bias, C, dev), _f32(b1, ch, dev)
+    outs = (dx, dln_s, dln_b, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias, dln2_s, dln2_b,
+            dw1, db1, dw2, db2)
+    err = lib.vadcl_fold_block_bwd(
+        xc.data_ptr(), doc.data_ptr(), ls.data_ptr(), lb.data_ptr(), qw.data_ptr(),
+        qb.data_ptr(), pw.data_ptr(), pb.data_ptr(), bs.data_ptr(),
+        mk.data_ptr() if mk is not None else None,
+        l2s.data_ptr(), l2b.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
+        *(t.data_ptr() for t in outs), ws.data_ptr(),
+        B, D, H, W, C, num_heads, ch, *window, shift[0] % D, shift[1] % H, shift[2] % W,
+        float(scale), is_bf16, cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, "fold_block_bwd")
+    fold_block_bwd.launches += 1
+    return tuple(None if (t is dqkv_b and qkv_b is None) else t for t in outs)
 
 
 def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
