@@ -109,13 +109,9 @@ cudaError_t launch_fold(const FoldArgs& a, int is_bf16, cudaStream_t stream) {
 extern "C" {
 
 // Shared memory one block of the launch's kernel needs; the wrappers refuse
-// geometries above the card's limit before launching.
+// geometries above the card's limit before launching.  Kernels A and 10 share
+// one layout, and so this one entry.
 long long vadcl_fold_attn_smem_bytes(int n, int c, int nh, int is_bf16) {
-  return (long long)vadcl::fold_plan_smem(n, c, nh, is_bf16);
-}
-
-// The packed variant shares kernel A's layout.
-long long vadcl_fold_attn_packed_smem_bytes(int n, int c, int nh, int is_bf16) {
   return (long long)vadcl::fold_plan_smem(n, c, nh, is_bf16);
 }
 

@@ -41,7 +41,6 @@ _SIGNATURES = {
     "vadcl_fold_attn": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_attn_packed": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
-    "vadcl_fold_attn_packed_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_block": ([_P] * 16 + [_I] * 13 + [_F, _I, _P], _I),
     "vadcl_fold_block_smem_bytes": ([_I] * 4, _L),
     "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),

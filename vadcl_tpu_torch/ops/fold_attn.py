@@ -107,11 +107,11 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
     return fold_smem_bytes(n, c, num_heads, dtype == torch.bfloat16, backward) <= SMEM_LIMIT
 
 
-def fold_packed_fits(n: int, c: int, num_heads: int, dtype: torch.dtype) -> bool:
-    """Whether a window runs in kernel 10.  Its block has kernel A's layout:
-    the per-head qkv tile passes through an fp32 stage before it rounds, so
-    keeping q fp32 until it is scaled costs no shared memory."""
-    return fold_smem_bytes(n, c, num_heads, dtype == torch.bfloat16) <= SMEM_LIMIT
+# Whether a window runs in kernel 10.  Its block has kernel A's layout: the
+# per-head qkv tile passes through an fp32 stage before it rounds, so keeping
+# q fp32 until it is scaled costs no shared memory, and one predicate (and one
+# size function of the library) serves both kernels.
+fold_packed_fits = fold_fits
 
 
 _MLP_CHUNK = 128  # hidden columns per chunk of the tail (both dtypes)
@@ -155,6 +155,12 @@ def fold_block_smem_bytes(n: int, c: int, num_heads: int, bf16: bool,
                        total([4 * m * c]))
 
 
+def _tail_acc_fits(n: int, c: int) -> bool:
+    """Whether the warps' fragments of the bf16 tail hold the fc2 accumulator
+    of one window: at most ``_TC_ACC`` 16x16 output tiles each."""
+    return _up(n, 16) // 16 * (c // 16) <= _TC_ACC * _WARPS
+
+
 def fold_block_fits(n: int, c: int, num_heads: int, dtype: torch.dtype) -> bool:
     """Whether a window runs in the whole-block kernels, forward **and**
     backward (one predicate, as ``folded_full_block_applicable``): both
@@ -162,7 +168,7 @@ def fold_block_fits(n: int, c: int, num_heads: int, dtype: torch.dtype) -> bool:
     accumulator (at most ``_TC_ACC`` 16x16 tiles each).  The hidden width
     does not enter: the tail walks it in fixed chunks."""
     bf16 = dtype == torch.bfloat16
-    if bf16 and _up(n, 16) // 16 * (c // 16) > _TC_ACC * _WARPS:
+    if bf16 and not _tail_acc_fits(n, c):
         return False
     return (fold_block_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
             and fold_block_smem_bytes(n, c, num_heads, bf16, backward=True) <= SMEM_LIMIT)
@@ -689,9 +695,7 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
     """Kernel A, or with ``packed`` kernel 10 (same arguments and layout)."""
     lib = cuda_lib.library()
     what = "fold_attention_packed" if packed else "fold_attention"
-    _check_fold(what, x, bias, mask, num_heads, window,
-                lib.vadcl_fold_attn_packed_smem_bytes if packed
-                else lib.vadcl_fold_attn_smem_bytes)
+    _check_fold(what, x, bias, mask, num_heads, window, lib.vadcl_fold_attn_smem_bytes)
     B, D, H, W, C = x.shape
     dev = x.device
     xc = x.contiguous()
@@ -725,7 +729,7 @@ def _check_block(what, x, w1, w2, window, hidden_multiple):
         raise ValueError(f"{what}: weights {tuple(w1.shape)}, {tuple(w2.shape)} vs C={c}")
     n = window[0] * window[1] * window[2]
     if x.dtype == torch.bfloat16 and (
-            ch % hidden_multiple or _up(n, 16) // 16 * (c // 16) > _TC_ACC * _WARPS):
+            ch % hidden_multiple or not _tail_acc_fits(n, c)):
         raise NotImplementedError(
             f"{what}: the bf16 kernel needs a hidden width divisible by "
             f"{hidden_multiple} and at most {_TC_ACC * _WARPS} 16x16 output tiles per "
