@@ -16,11 +16,13 @@ Phases (any failure raises and the script exits non-zero):
      10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
      at batch 4 (bf16 and fp32) and at the scoring path's batch of 16
-     windows (bf16): error against the stated bound and the median
-     CUDA-event time of both (kernel 10 beside A, the whole-block kernel
-     beside A then B, on the same inputs); then edge shapes, a missing qkv
-     bias, and kernels A and 10 without LN and residual on a window-padded
-     shape.
+     windows (bf16): error against the stated bound and the device time
+     of both (kernel 10 beside A, the whole-block kernel beside A then B, on
+     the same inputs); kernels A and 10 in both their modes (LN1 + residual;
+     neither) and as the attention branch alone at every geometry, shifted
+     and not; an odd batch of 3 and token counts that fill no whole tile of
+     kernel B; then edge shapes, a missing qkv bias, and kernels A and 10
+     without LN and residual on a window-padded shape.
   2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
      modes, 8: window attention, the whole-block backward) against their
      plain versions at the training batch of 4, bf16 and fp32, every
@@ -49,7 +51,9 @@ Phases (any failure raises and the script exits non-zero):
      optimizer; a ``"packed"``, ``"fold_packed"`` or ``"fold_mix"`` train
      step is refused before any launch.
 The second-to-last line is a JSON object describing each of the twelve
-kernels (its time beside its roofline bound on an H100's published peaks);
+kernels (its time beside its roofline bound on an H100's published peaks; the
+three redesigned forward kernels also carry ``prev_ms``, the quoted time of
+the kernel each replaced);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -101,18 +105,24 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, in milliseconds."""
+def cuda_ms(fn, reps: int = 4, batch: int = 5, warmup: int = 3) -> float:
+    """Time of one call on the device, in milliseconds: the median over
+    ``reps`` of a CUDA-event pair around ``batch`` calls issued back to back,
+    divided by ``batch``.  The calls queue up behind each other, so what is
+    read is the device's time per call and not the host's path to the
+    launch (unless the host is the slower of the two)."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return float(np.median(times))
 
 
@@ -253,14 +263,17 @@ def fold_kernels():
 
 def check_fold(name, a, kernel=None, plain=None) -> float:
     """Kernel A (or ``kernel``: kernel 10) against its plain version on case
-    ``a``: the block output (residual added) and the attention branch alone;
-    returns the larger max abs error."""
+    ``a``: the block output (LN1 and residual), the attention branch alone
+    (no residual) and the mode with neither LN1 nor residual; returns the
+    largest max abs error."""
     if kernel is None:
         _, kernel, plain = fold_kernels()[0]
     bounds = BOUNDS[a["x"].dtype]
     e = check_close(name, kernel(**a), plain(**a), *bounds)
     b = dict(a, residual=False)
-    return max(e, check_close(f"{name} branch", kernel(**b), plain(**b), *bounds))
+    e = max(e, check_close(f"{name} branch", kernel(**b), plain(**b), *bounds))
+    c = dict(a, ln_scale=None, ln_bias=None, residual=False)  # the padded blocks' mode
+    return max(e, check_close(f"{name} no LN/residual", kernel(**c), plain(**c), *bounds))
 
 
 def _block_case(a, gen):
@@ -373,9 +386,14 @@ def phase_kernels():
                     got = fold_block(**blk)
                     errs_blk.append(check_close(name, got, fold_block_plain(**blk),
                                                 *BOUNDS[dtype]))
-                    if dtype == torch.bfloat16 and not torch.equal(
-                            got, ln_mlp(fold_attention(**a), *tail)):
-                        raise AssertionError(f"{name}: differs from kernel A then kernel B")
+                    if dtype == torch.bfloat16:
+                        # not bit for bit: kernels A and B sum in another order
+                        # than the whole-block kernel's body, so the three are
+                        # held together by the bound each has against its plain
+                        # version
+                        errs_blk.append(check_close(
+                            f"{name} vs kernel A then kernel B", got,
+                            ln_mlp(fold_attention(**a), *tail), *BOUNDS[dtype]))
                     times[name] = time_pair(lambda: fold_block(**blk),
                                             lambda: fold_block_plain(**blk))
                     two = cuda_ms(lambda: ln_mlp(fold_attention(**a), *tail))
@@ -466,6 +484,21 @@ def phase_kernels():
             # the per-channel cdist product, fp32 FMA
             **bound([maps, scen], 2.0 * 192 * 2 * batch * 128 * 784, "fp32"))
 
+    print("  an odd batch (the last block of paired windows holds one) and token counts "
+          "that fill no whole tile of kernel B, bf16:")
+    for gname, (dhwc, nh, window, shift) in FOLD_GEOMETRIES.items():
+        for shifted in (False, True):
+            a = _fold_case((3, *dhwc), nh, window, shift if shifted else (0, 0, 0),
+                           torch.bfloat16, gen)
+            for kname, kernel, plain in fold_kernels():
+                check_fold(f"{kname} batch 3 {gname} {'shifted' if shifted else 'plain'}", a,
+                           kernel, plain)
+    for C, shape in ((96, (3, 1, 7, 7)), (192, (3, 1, 7, 7)), (96, (5, 1, 56, 56)),
+                     (192, (5, 1, 28, 28)), (192, (3, 2, 28, 28))):
+        p = _mlp_case(C, 4 * C, gen)
+        x = torch.randn(*shape, C, generator=gen).to(DEV, torch.bfloat16)
+        check_close(f"ln_mlp C={C}, {x[..., 0].numel()} tokens", ln_mlp(x, *p),
+                    ln_mlp_plain(x, *p), *BOUNDS[torch.bfloat16])
     print("  edge shapes (tiny preset widths, fp32 widths off the tensor-core "
           "tiles, ragged counts), correctness only:")
     # C=32 / head_dim 16 (the tiny preset) in both dtypes; C=24 / head_dim 12
@@ -1111,7 +1144,8 @@ def phase_scoring(attn_kernel: str = "fold"):
 
 
 REPLACES = {
-    "fold_attention": ("vadcl_tpu_torch/csrc/fold_attn.cu", "vadcl_tpu/ops/pallas_attn_fold.py:165"),
+    "fold_attention": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
+                       "vadcl_tpu/ops/pallas_attn_fold.py:165"),
     "ln_mlp": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
     "cluster_assign": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:33"),
     "space_cluster_loss": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:175"),
@@ -1124,12 +1158,19 @@ REPLACES = {
                                    "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
     "window_attention_packed": ("vadcl_tpu_torch/csrc/window_attn.cu",
                                 "vadcl_tpu/ops/pallas_attn.py:113"),
-    "fold_attention_packed": ("vadcl_tpu_torch/csrc/fold_attn.cu",
+    "fold_attention_packed": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                               "vadcl_tpu/ops/pallas_attn_fold.py:386"),
     "fold_block": ("vadcl_tpu_torch/csrc/fold_attn.cu", "vadcl_tpu/ops/pallas_attn_fold.py:341"),
     "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
                        "vadcl_tpu/ops/pallas_attn_fold.py:870"),
 }
+# The time of the kernel each redesigned kernel replaced, at the kernels line's
+# shape (batch 16, enc stage 0, shifted).  Quoted, not measured in this run:
+# the replaced device code is no longer in the tree.  From PERF.md's kernel
+# table (NVIDIA H100 80GB HBM3, 700.00 W; a CUDA-event pair around single
+# calls, which also counts the host's path to the launch).  Both trees side by
+# side in one call: tools/kernel_times_torch.py.
+PREV_MS = {"fold_attention": 1.6140, "fold_attention_packed": 1.3693, "ln_mlp": 0.6277}
 # The main path whose launch count the kernels line reports for each kernel.
 COUNTED_ON = {
     "fold_attention": "scoring fold", "ln_mlp": "scoring fold",
@@ -1164,9 +1205,11 @@ def main():
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],
-             **stats[name])
+             **stats[name], **({"prev_ms": PREV_MS[name]} if name in PREV_MS else {}))
         for name in REPLACES
     ]
+    print("prev_ms of the three redesigned kernels is quoted from PERF.md (the replaced "
+          "kernels' times at the same shape), not measured in this run")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -294,8 +294,11 @@ def test_fold_fits_is_the_shared_memory_predicate():
                 assert fold_fits(n, c, nh, dtype, backward), (n, c, nh, dtype, backward)
     assert not fold_fits(392, 96, 6, torch.bfloat16)
     assert not fold_fits(392, 96, 6, torch.float32, backward=True)
-    # the bf16 forward at the flagship's widest block: the figure the kernel's header states
-    assert fold_smem_bytes(98, 192, 12, True) == 189312
+    # the bf16 forward at the flagship's widest block: the figures the kernels' headers
+    # state (kernel A's block, and the body with score tiles in shared memory that the
+    # whole-block kernels keep)
+    assert fold_smem_bytes(98, 192, 12, True) == 154240
+    assert fold_attn.fold_body_smem_bytes(98, 192, 12) == 189312
     assert fold_smem_bytes(98, 192, 12, True, backward=True) <= fold_attn.SMEM_LIMIT
 
 

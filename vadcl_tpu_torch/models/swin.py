@@ -94,6 +94,7 @@ class WindowAttention3D(nn.Module):
             torch.from_numpy(relative_position_index(tuple(window_size))).long(),
             persistent=False,
         )
+        self._bias_memo = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         with torch.no_grad():
@@ -106,9 +107,22 @@ class WindowAttention3D(nn.Module):
         _uniform_fan_in(self.proj_weight, self.proj_weight.shape[0], gen)
 
     def bias(self, n: int) -> torch.Tensor:
-        """(nH, N, N) fp32: ``table[rel_index(configured)[:N, :N]]``."""
+        """(nH, N, N) fp32: ``table[rel_index(configured)[:N, :N]]``.  Where no
+        gradient is wanted the gathered bias is kept until the table changes,
+        so that scoring hands the kernels one tensor (whose packed form they
+        cache) instead of gathering anew in every forward."""
+        table = self.relative_position_bias_table
+        if (torch.is_grad_enabled() and table.requires_grad) or table.is_inference():
+            return self._gather_bias(table, n)
+        key = (n, table.data_ptr(), table._version, table.dtype, str(table.device))
+        if self._bias_memo is None or self._bias_memo[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._bias_memo = (key, self._gather_bias(table.detach(), n))
+        return self._bias_memo[1]
+
+    def _gather_bias(self, table: torch.Tensor, n: int) -> torch.Tensor:
         idx = self.rel_index[:n, :n].reshape(-1)
-        b = self.relative_position_bias_table.float()[idx].reshape(n, n, -1)
+        b = table.float()[idx].reshape(n, n, -1)
         return b.permute(2, 0, 1).contiguous()
 
 
@@ -136,7 +150,10 @@ class SwinBlock3D(nn.Module):
         key = (Dp, Hp, Wp, window, shift, str(device))
         if key not in self._masks:
             m = compute_attn_mask(Dp, Hp, Wp, window, shift)
-            self._masks[key] = None if m is None else torch.from_numpy(m).to(device)
+            # (a plain tensor even when first asked for under inference_mode: the
+            # kernels cache a packed form per tensor version)
+            with torch.inference_mode(False):
+                self._masks[key] = None if m is None else torch.from_numpy(m).to(device)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

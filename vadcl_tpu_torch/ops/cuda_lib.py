@@ -39,11 +39,13 @@ _L = ctypes.c_longlong
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     "vadcl_fold_attn": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
+    "vadcl_fold_attn_bf16": ([_P] * 9 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_attn_packed": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_block": ([_P] * 16 + [_I] * 13 + [_F, _I, _P], _I),
     "vadcl_fold_block_smem_bytes": ([_I] * 4, _L),
-    "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "vadcl_ln_mlp": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "vadcl_ln_mlp_bf16": ([_P] * 7 + [_I] * 3 + [_P], _I),
     "vadcl_fold_attn_bwd": ([_P] * 18 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_bwd_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_attn_bwd_workspace_bytes": ([_I] * 10, _L),
@@ -158,7 +160,8 @@ def check(err: int, what: str) -> None:
 
 def aligned(t):
     """``t`` contiguous with a 32-byte aligned base, as the tensor-core
-    tile loads (WMMA) require of the weight matrices."""
+    tile loads (WMMA) require of the weight matrices and the 16-byte vector
+    loads of the redesigned kernels of their inputs."""
     t = t.contiguous()
     return t if t.data_ptr() % 32 == 0 else t.clone()
 

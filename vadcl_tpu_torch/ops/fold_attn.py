@@ -6,9 +6,13 @@ whole-Swin-block kernel each way.
 Kernel A replaces ``vadcl_tpu/ops/pallas_attn_fold.py:_fold_kernel`` (entry
 ``fused_window_attention_folded``, reached through
 ``folded_block_attention_trainable``).  Its CUDA kernel is
-``csrc/fold_attn.cu``: one block per (batch, window) that addresses the
-window's tokens in the unpartitioned (B, D, H, W, C) tensor by strides;
-bf16 runs on the tensor cores and needs C and head_dim to be multiples of 16.
+``csrc/fold_attn.cu``: blocks that address their windows' tokens in the
+unpartitioned (B, D, H, W, C) tensor by strides.  In bf16
+(``csrc/fold_attn_mma.cuh``) a warp owns 16 query rows and keeps scores and
+probabilities in tensor-core registers; it needs head_dim 16 and windows of
+at most 112 tokens, and takes its weights, rel-pos bias and mask packed
+(``pack_fold_weights``, ``pack_fold_scores``; cached per tensor version in
+``_packs``).
 
 Kernel 6 replaces ``_fold_bwd_kernel`` (entry ``_fold_bwd_call``), in the two
 modes the JAX package calls it in without a tail: ``fuse_ln=True,
@@ -24,7 +28,7 @@ Kernel 10 replaces ``_fold_packed_kernel`` (entry
 ``"fold_mix"`` at 12 heads and more): kernel A's contract with the packed
 arithmetic (q scaled before it rounds, no scale after q.k, per-head row max,
 ``p = round(e * (1 / sum e))``), inference only.  It is kernel A's device
-code behind a template flag, with its own entry point, ``fold_attention_packed``.
+code behind a template flag, with its own wrapper, ``fold_attention_packed``.
 
 The whole-block kernels replace ``_fold_kernel`` with ``tail=`` and
 ``_fold_bwd_kernel`` with ``tail_refs=`` (entry
@@ -53,11 +57,14 @@ directions, so the whole-block backward needs no fallback.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
+from vadcl_tpu_torch.ops.packed import PackCache
 from vadcl_tpu_torch.ops.window import window_partition, window_reverse
 
 Tri = Tuple[int, int, int]
@@ -70,11 +77,42 @@ def _up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+FOLD_MAX_TOKENS = 112  # largest window of the bf16 forward: 7 strips of 16 query rows
+FOLD_HEAD_DIM = 16  # head width the bf16 forward is written for
+PACK_PAD = 8  # elements of padding per packed weight row
+_SLICE = 3 * FOLD_HEAD_DIM  # columns of one packed weight slice
+
+
+def fold_padded_rows(n: int) -> int:
+    """Rows the bf16 forward pads a window to: 4 strips of 16 (two such
+    windows share a block), 7 strips, or (refused) whole 16s beyond."""
+    return 64 if n <= 64 else (FOLD_MAX_TOKENS if n <= FOLD_MAX_TOKENS else _up(n, 16))
+
+
+def fold_windows_per_block(n: int) -> int:
+    return 2 if n <= 64 else 1
+
+
+def fold_body_smem_bytes(n: int, c: int, num_heads: int) -> int:
+    """Shared memory of the bf16 one-window-per-block body with score tiles
+    in shared memory (``csrc/fold_attn.cuh:tc_layout``): what the whole-block
+    kernels and kernel 6's recompute run."""
+    hd = c // num_heads
+    m = _up(n, 16)  # the window's rows padded to the 16-row tensor-core tiles
+    sizes = [8 * m, 2 * m * c, 2 * m * c, 2 * m * hd, 2 * m * hd, 2 * m * hd,
+             4 * m * m, 2 * m * m, 4 * 256 * _WARPS]
+    return sum(_up(v, 128) for v in sizes)
+
+
 def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False) -> int:
-    """Shared memory one window's block of kernel A (or, with ``backward``,
-    kernel 6) needs: the layouts of ``csrc/fold_attn.cu`` and
-    ``csrc/fold_attn_bwd.cu``, mirrored here so the route can be chosen
-    without the library (``chip_smoke.py`` holds the two against each other)."""
+    """Shared memory one block of kernel A (or, with ``backward``, kernel 6)
+    needs: the layouts of ``csrc/fold_attn_mma.cuh`` (bf16 forward),
+    ``csrc/fold_attn.cuh`` (fp32 forward) and ``csrc/fold_attn_bwd.cu``,
+    mirrored here so the route can be chosen without the library
+    (``chip_smoke.py`` holds the two against each other).  The bf16 forward
+    block is the weight ring plus, per window, LN1(x), the pre-projection
+    tile and the double-buffered K and V of one head: two blocks fit an SM at
+    N = 98, C = 96 (89,728 B), one at C = 192 (154,240 B)."""
     hd = c // num_heads
     if not bf16:
         hdp = hd + 1
@@ -83,15 +121,16 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
         p1 = n * c + 5 * n * hdp + 2 * n * n
         p2 = n * c + 33 * c + 33 * n + _WARPS * 2 * c
         return 8 * n + 4 * (2 * n + max(p1, p2))
-    m = _up(n, 16)  # the window's rows padded to the 16-row tensor-core tiles
+    if not backward:
+        rows = fold_padded_rows(n)
+        window = 2 * (2 * rows * (c + PACK_PAD) + 4 * rows * (FOLD_HEAD_DIM + 8))
+        return 128 + 2 * 2 * c * (_SLICE + PACK_PAD) + fold_windows_per_block(n) * window
+    m = _up(n, 16)
 
     def total(sizes):
         return sum(_up(v, 128) for v in sizes)
 
     stage = 4 * 256 * _WARPS
-    if not backward:
-        return total([8 * m, 2 * m * c, 2 * m * c, 2 * m * hd, 2 * m * hd, 2 * m * hd,
-                      4 * m * m, 2 * m * m, stage])
     p1 = total([2 * m * c] + [2 * m * hd] * 4 + [4 * m * m, 4 * m * m, 2 * m * m]
                + [4 * m * hd] * 3 + [stage])
     p2 = total([2 * m * 64, 4 * m * c, 4 * _WARPS * 2 * c])
@@ -101,16 +140,24 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
 def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
               backward: bool = False) -> bool:
     """Whether a window of ``n`` tokens at width ``c`` runs in the fold
-    kernel (A, or 6 with ``backward``): its block must fit ``SMEM_LIMIT``.
-    The fold kernels hold a whole (n, n) score tile per head, so large
-    windows (n = 392: window (8, 7, 7) on 16-frame clips) do not fit."""
-    return fold_smem_bytes(n, c, num_heads, dtype == torch.bfloat16, backward) <= SMEM_LIMIT
+    kernel (A, or 6 with ``backward``): its block must fit ``SMEM_LIMIT``,
+    and the bf16 forward, whose warps hold a 16 x N strip of scores in
+    registers, takes at most ``FOLD_MAX_TOKENS`` tokens (the cap is explicit:
+    kernel 6 would not follow a larger window, and N = 392, window (8, 7, 7)
+    on 16-frame clips, belongs to the row-tiled kernels still to be ported).
+    A bf16 head width that is a multiple of 16 other than 16 goes to the
+    partitioned-window kernels, which take it."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and not backward:
+        hd = c // num_heads
+        if n > FOLD_MAX_TOKENS or (hd % 16 == 0 and hd != FOLD_HEAD_DIM):
+            return False
+    return fold_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT
 
 
-# Whether a window runs in kernel 10.  Its block has kernel A's layout: the
-# per-head qkv tile passes through an fp32 stage before it rounds, so keeping
-# q fp32 until it is scaled costs no shared memory, and one predicate (and one
-# size function of the library) serves both kernels.
+# Whether a window runs in kernel 10.  It is kernel A's device code behind a
+# template flag (q is scaled in the accumulator registers before it rounds),
+# so one predicate (and one size function of the library) serves both kernels.
 fold_packed_fits = fold_fits
 
 
@@ -140,8 +187,9 @@ def fold_block_smem_bytes(n: int, c: int, num_heads: int, bf16: bool,
     if backward:
         tokens = _up(8 * n, 128)
         groups = max(1, min(_TAIL_GROUPS_MAX, (SMEM_LIMIT - tokens) // _mlp_bwd_group_bytes(c)))
-        return max(fold_smem_bytes(n, c, num_heads, bf16),
-                   fold_smem_bytes(n, c, num_heads, bf16, backward=True),
+        body = (fold_body_smem_bytes(n, c, num_heads) if bf16
+                else fold_smem_bytes(n, c, num_heads, False))
+        return max(body, fold_smem_bytes(n, c, num_heads, bf16, backward=True),
                    tokens + groups * _mlp_bwd_group_bytes(c))
     if not bf16:
         hdp = hd + 1
@@ -643,10 +691,114 @@ def _f32(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
     return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
 
-def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes):
+_packs = PackCache()
+
+
+def pack_fold_weights(qkv_w: torch.Tensor, proj_w: torch.Tensor, num_heads: int,
+                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The attention weights in the bf16 kernel's layout:
+    ``(nH + ceil(C / 3hd), C, 3hd + 8)`` in ``dtype``.  Slice ``h < nH`` is
+    head h's columns of ``qkv_w`` (its hd of q, then of k, then of v); slice
+    ``nH + j`` is columns ``3hd*j ..`` of ``proj_w`` (zero past C).  The 8
+    trailing elements of every row are zero padding, so that the
+    tensor-core operand loads read no shared-memory bank twice, and a slice is
+    one contiguous copy into the kernel's ring."""
+    c = qkv_w.shape[0]
+    hd = c // num_heads
+    if tuple(qkv_w.shape) != (c, 3 * c) or tuple(proj_w.shape) != (c, c) or c % num_heads:
+        raise ValueError(f"pack_fold_weights: {tuple(qkv_w.shape)}, {tuple(proj_w.shape)}, "
+                         f"{num_heads} heads")
+    width = 3 * hd
+    nproj = -(-c // width)
+    full = c // width  # projection slices without a ragged edge
+    # three copies (each casts and permutes in one pass) into a zeroed buffer
+    out = torch.zeros(num_heads + nproj, c, width + PACK_PAD, dtype=dtype, device=qkv_w.device)
+    out[:num_heads, :, :width].view(num_heads, c, 3, hd).copy_(
+        qkv_w.detach().reshape(c, 3, num_heads, hd).permute(2, 0, 1, 3))
+    pw = proj_w.detach()
+    if full:
+        out[num_heads:num_heads + full, :, :width].copy_(
+            pw[:, : full * width].reshape(c, full, width).permute(1, 0, 2))
+    if nproj > full:
+        out[-1, :, : c - full * width].copy_(pw[:, full * width:])
+    return out
+
+
+def unpack_fold_weights(packed: torch.Tensor, num_heads: int):
+    """``(qkv_w, proj_w)`` in the packed dtype: the inverse of
+    ``pack_fold_weights``."""
+    _, c, padded = packed.shape
+    width = padded - PACK_PAD
+    hd = c // num_heads
+    body = packed[..., :width]
+    qkv = body[:num_heads].reshape(num_heads, c, 3, hd).permute(1, 2, 0, 3).reshape(c, 3 * c)
+    proj = body[num_heads:].permute(1, 0, 2).reshape(c, -1)[:, :c]
+    return qkv, proj
+
+
+@functools.lru_cache(maxsize=None)
+def _score_index(n: int) -> np.ndarray:
+    """For each slot of the packed score layout (strip, n-tile, lane, 4) the
+    flat index into an (n * n + 2) row: the (row, col) entry the mma.sync
+    accumulator holds there, ``n * n`` for a padded key column, ``n * n + 1``
+    for a padded query row."""
+    rows_p = fold_padded_rows(n)
+    strips, ntiles = rows_p // 16, rows_p // 8
+    s, nt, lane, e = np.meshgrid(np.arange(strips), np.arange(ntiles), np.arange(32),
+                                 np.arange(4), indexing="ij")
+    row = 16 * s + lane // 4 + 8 * (e // 2)
+    col = 8 * nt + 2 * (lane % 4) + e % 2
+    idx = np.where(col >= n, n * n, np.where(row >= n, n * n + 1, row * n + col))
+    return idx.reshape(-1).astype(np.int64)
+
+
+_score_indices: dict = {}
+
+
+def _score_index_on(n: int, device) -> torch.Tensor:
+    key = (n, str(device))
+    if key not in _score_indices:
+        with torch.inference_mode(False):
+            _score_indices[key] = torch.from_numpy(_score_index(n)).to(device)
+    return _score_indices[key]
+
+
+def pack_fold_scores(t: torch.Tensor, pad_col: float) -> torch.Tensor:
+    """A stack of (N, N) score terms (the rel-pos bias ``(nH, N, N)`` or the
+    shift mask ``(nW, N, N)``) in the order of the bf16 kernel's score
+    accumulator: ``(G, strips, N' / 8, 32, 4)`` fp32, where strip s, n-tile
+    j, lane l, element e is entry ``(16s + l // 4 + 8 (e // 2), 8j + 2 (l % 4)
+    + e % 2)``; N' is N padded to 64 or 112.  Padded key columns hold
+    ``pad_col`` (-inf in the bias, so that they get probability 0; 0 in the
+    mask), padded query rows 0."""
+    g, n, _ = t.shape
+    rows_p = fold_padded_rows(n)
+    flat = t.detach().to(torch.float32).reshape(g, n * n)
+    ext = torch.nn.functional.pad(flat, (0, 2), value=pad_col)
+    ext[:, -1] = 0.0
+    return ext.index_select(1, _score_index_on(n, t.device)).reshape(
+        g, rows_p // 16, rows_p // 8, 32, 4)
+
+
+def unpack_fold_scores(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """``(G, N, N)``: the inverse of ``pack_fold_scores`` (padding dropped)."""
+    g = packed.shape[0]
+    idx = _score_index_on(n, packed.device)
+    ext = packed.new_zeros((g, n * n + 2))
+    ext[:, idx] = packed.reshape(g, -1)
+    return ext[:, : n * n].reshape(g, n, n)
+
+
+def _vec(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
+    """``_f32`` with an aligned base: the redesigned kernels read their fp32
+    vectors 16 bytes at a time."""
+    return cuda_lib.aligned(_f32(t, n, device))
+
+
+def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes, register_scores=False):
     """The checks kernels A and 6 share; ``smem_bytes`` is the library's
     shared-memory size function of the kernel (what ``fold_smem_bytes``
-    mirrors)."""
+    mirrors); ``register_scores`` adds the bf16 forward's limits."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: dtype {x.dtype} not supported")
     B, D, H, W, C = x.shape
@@ -668,6 +820,14 @@ def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes):
         raise ValueError(f"{what}: bias {tuple(bias.shape)} != {(num_heads, n, n)}")
     if mask is not None and tuple(mask.shape) != (nw, n, n):
         raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(nw, n, n)}")
+    if register_scores and x.dtype == torch.bfloat16 and (
+            C // num_heads != FOLD_HEAD_DIM or n > FOLD_MAX_TOKENS):
+        raise NotImplementedError(
+            f"{what}: the bf16 kernel keeps a 16 x N strip of scores in a warp's "
+            f"registers and needs head_dim {FOLD_HEAD_DIM} and at most {FOLD_MAX_TOKENS} "
+            f"tokens per window (got head_dim {C // num_heads}, N={n}): fold_fits() is "
+            "false here and the Swin block takes the partitioned-window kernels instead"
+        )
     smem = smem_bytes(n, C, num_heads, int(x.dtype == torch.bfloat16))
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
@@ -695,27 +855,49 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
     """Kernel A, or with ``packed`` kernel 10 (same arguments and layout)."""
     lib = cuda_lib.library()
     what = "fold_attention_packed" if packed else "fold_attention"
-    _check_fold(what, x, bias, mask, num_heads, window, lib.vadcl_fold_attn_smem_bytes)
+    _check_fold(what, x, bias, mask, num_heads, window, lib.vadcl_fold_attn_smem_bytes,
+                register_scores=True)
     B, D, H, W, C = x.shape
     dev = x.device
-    xc = x.contiguous()
+    xc = cuda_lib.aligned(x)  # (contiguous; the bf16 kernel loads rows 16 bytes at a time)
     out = torch.empty_like(xc)
     has_ln = ln_scale is not None
-    ln_s = _f32(ln_scale, C, dev) if has_ln else None
-    ln_b = _f32(ln_bias, C, dev) if has_ln else None
-    qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
-    pb = _f32(proj_b, C, dev)
-    err = (lib.vadcl_fold_attn_packed if packed else lib.vadcl_fold_attn)(
-        xc.data_ptr(),
-        ln_s.data_ptr() if has_ln else None,
-        ln_b.data_ptr() if has_ln else None,
-        qw.data_ptr(), qb.data_ptr(), pw.data_ptr(), pb.data_ptr(),
-        bs.data_ptr(), mk.data_ptr() if mk is not None else None,
-        out.data_ptr(),
-        B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H,
-        shift[2] % W, float(scale), int(bool(residual)), int(x.dtype == torch.bfloat16),
-        cuda_lib.stream_ptr(xc),
-    )
+    geometry = (B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H, shift[2] % W,
+                float(scale), int(bool(residual)))
+    if x.dtype == torch.bfloat16:
+        # packed operands, made once per tensor version (ops/packed.py)
+        wp = _packs.get((qkv_w, proj_w), ("fold weights", num_heads, str(dev)),
+                        lambda: pack_fold_weights(qkv_w.to(dev), proj_w.to(dev), num_heads,
+                                                  x.dtype))
+        vec_src = tuple(t for t in (ln_scale, ln_bias, qkv_b, proj_b) if t is not None)
+        ln_s, ln_b, qb, pb = _packs.get(
+            vec_src, ("fold vectors", has_ln, qkv_b is None, str(dev)),
+            lambda: (_vec(ln_scale, C, dev) if has_ln else None,
+                     _vec(ln_bias, C, dev) if has_ln else None,
+                     _vec(qkv_b, 3 * C, dev), _vec(proj_b, C, dev)))
+        bs = _packs.get((bias,), ("fold bias", str(dev)),
+                        lambda: pack_fold_scores(bias.to(dev), float("-inf")))
+        mk = None if mask is None else _packs.get(
+            (mask,), ("fold mask", str(dev)), lambda: pack_fold_scores(mask.to(dev), 0.0))
+        err = lib.vadcl_fold_attn_bf16(
+            xc.data_ptr(),
+            ln_s.data_ptr() if has_ln else None, ln_b.data_ptr() if has_ln else None,
+            wp.data_ptr(), qb.data_ptr(), pb.data_ptr(), bs.data_ptr(),
+            mk.data_ptr() if mk is not None else None, out.data_ptr(),
+            *geometry, int(packed), cuda_lib.stream_ptr(xc),
+        )
+    else:
+        ln_s = _f32(ln_scale, C, dev) if has_ln else None
+        ln_b = _f32(ln_bias, C, dev) if has_ln else None
+        qw, qb, pw, bs, mk = _fold_operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
+        pb = _f32(proj_b, C, dev)
+        err = (lib.vadcl_fold_attn_packed if packed else lib.vadcl_fold_attn)(
+            xc.data_ptr(),
+            ln_s.data_ptr() if has_ln else None, ln_b.data_ptr() if has_ln else None,
+            qw.data_ptr(), qb.data_ptr(), pw.data_ptr(), pb.data_ptr(),
+            bs.data_ptr(), mk.data_ptr() if mk is not None else None, out.data_ptr(),
+            *geometry, 0, cuda_lib.stream_ptr(xc),
+        )
     cuda_lib.check(err, what)
     (fold_attention_packed if packed else fold_attention).launches += 1
     return out

@@ -2,10 +2,15 @@
 kernel 5, its backward.
 
 Kernel B replaces ``vadcl_tpu/ops/pallas_mlp.py:_fwd_kernel`` (entry
-``fused_ln_mlp``).  Its CUDA kernel is ``csrc/ln_mlp.cu``: one block per
-token tile, walking the 4C hidden width in chunks so the hidden activation
-never reaches device memory; bf16 runs on the tensor cores and needs
-C % 16 == 0, C <= 192 and a hidden width divisible by 128.
+``fused_ln_mlp``).  Its CUDA kernels are in ``csrc/ln_mlp.cu``; both walk
+the 4C hidden width in chunks so the hidden activation never reaches device
+memory.  bf16 is a persistent grid of warpgroups that each own 64 tokens,
+run fc1 and fc2 as warpgroup matrix multiplies (wgmma), keep the hidden
+activation in registers between the two, and read the weights from a
+shared-memory ring that a producer warp fills with bulk copies; it needs
+C % 32 == 0, C <= 192 and a hidden width divisible by 128, and takes both
+weight matrices packed by hidden chunk (``pack_mlp_weights``, cached per
+parameter version in ``_packs``).
 
 Kernel 5 replaces ``_bwd_kernel`` (entry ``_vjp_bwd``).  Its CUDA kernel is
 ``csrc/ln_mlp_bwd.cu``: per token tile it recomputes the forward and emits
@@ -24,7 +29,43 @@ from __future__ import annotations
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
-from vadcl_tpu_torch.ops.fold_attn import _f32, _ln_fast, _ln_stats, _ln_vjp
+from vadcl_tpu_torch.ops.fold_attn import _f32, _ln_fast, _ln_stats, _ln_vjp, _vec
+from vadcl_tpu_torch.ops.packed import PackCache
+
+MLP_CHUNK = 64  # hidden columns per packed chunk (csrc/ln_mlp.cu:kMmaChunk)
+_packs = PackCache()
+
+
+def pack_mlp_weights(w1: torch.Tensor, w2: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Both weight matrices of the MLP in the bf16 kernel's layout:
+    ``(hidden / 64, 2 * C * 64)`` in ``dtype``.  Row j is hidden chunk j:
+    ``w1[:, 64j:64j+64]`` then ``w2[64j:64j+64, :]``, each as a (k, n) matrix
+    in the N-major core-matrix layout the warpgroup matrix multiply reads its
+    B operand in, ``[n // 8][k][n % 8]`` (8 consecutive k rows of 8 columns
+    are 128 contiguous bytes).  One chunk is one contiguous copy into the
+    kernel's shared-memory ring."""
+    c, ch = w1.shape
+    if tuple(w2.shape) != (ch, c) or ch % MLP_CHUNK or c % 8:
+        raise ValueError(f"pack_mlp_weights: {tuple(w1.shape)}, {tuple(w2.shape)}")
+    n = ch // MLP_CHUNK
+    half = c * MLP_CHUNK
+    # two copies (each casts and permutes in one pass)
+    out = torch.empty(n, 2 * half, dtype=dtype, device=w1.device)
+    out[:, :half].view(n, MLP_CHUNK // 8, c, 8).copy_(
+        w1.detach().reshape(c, n, MLP_CHUNK // 8, 8).permute(1, 2, 0, 3))
+    out[:, half:].view(n, c // 8, MLP_CHUNK, 8).copy_(
+        w2.detach().reshape(n, MLP_CHUNK, c // 8, 8).permute(0, 2, 1, 3))
+    return out
+
+
+def unpack_mlp_weights(packed: torch.Tensor, c: int):
+    """``(w1, w2)`` in the packed dtype: the inverse of ``pack_mlp_weights``."""
+    n = packed.shape[0]
+    half = c * MLP_CHUNK
+    a = packed[:, :half].reshape(n, MLP_CHUNK // 8, c, 8).permute(2, 0, 1, 3)
+    b = packed[:, half:].reshape(n, c // 8, MLP_CHUNK, 8).permute(0, 2, 1, 3)
+    return a.reshape(c, n * MLP_CHUNK), b.reshape(n * MLP_CHUNK, c)
 
 
 def gelu_exact_f32(h32: torch.Tensor) -> torch.Tensor:
@@ -119,26 +160,39 @@ def _check_mlp(what, x, w1, w2):
 
 def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     c, ch = _check_mlp("ln_mlp", x, w1, w2)
-    if x.dtype == torch.bfloat16 and (c % 16 or c > 192 or ch % 128):
+    if x.dtype == torch.bfloat16 and (c % 32 or c > 192 or ch % 128):
         raise NotImplementedError(
-            f"ln_mlp: the bf16 kernel runs on 16x16 tensor-core tiles and needs "
-            f"C % 16 == 0, C <= 192 and a hidden width divisible by 128 "
-            f"(got C={c}, hidden {ch})"
+            f"ln_mlp: the bf16 kernel runs on 64-row tensor-core tiles with 32 output "
+            f"columns per instruction and needs C % 32 == 0, C <= 192 and a hidden "
+            f"width divisible by 128 (got C={c}, hidden {ch})"
         )
     dev, dt = x.device, x.dtype
     shape = x.shape
-    x2 = x.reshape(-1, c).contiguous()
+    x2 = cuda_lib.aligned(x.reshape(-1, c))  # (contiguous; rows are read 16 bytes at a time)
     y = torch.empty_like(x2)
-    w1c = cuda_lib.aligned(w1.detach().to(device=dev, dtype=dt))
-    w2c = cuda_lib.aligned(w2.detach().to(device=dev, dtype=dt))
-    ls, lb = _f32(ln_scale, c, dev), _f32(ln_bias, c, dev)
-    b1c, b2c = _f32(b1, ch, dev), _f32(b2, c, dev)
     lib = cuda_lib.library()
-    err = lib.vadcl_ln_mlp(
-        x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1c.data_ptr(),
-        b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(), y.data_ptr(),
-        x2.shape[0], c, ch, int(dt == torch.bfloat16), cuda_lib.stream_ptr(x2),
-    )
+    if dt == torch.bfloat16:
+        # packed weights and fp32 vectors: made once per parameter version
+        wp = _packs.get((w1, w2), ("mlp", str(dev)),
+                        lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
+        ls, lb, b1c, b2c = _packs.get(
+            (ln_scale, ln_bias, b1, b2), ("mlp vectors", str(dev)),
+            lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev),
+                     _vec(b2, c, dev)))
+        err = lib.vadcl_ln_mlp_bf16(
+            x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), wp.data_ptr(), b1c.data_ptr(),
+            b2c.data_ptr(), y.data_ptr(), x2.shape[0], c, ch, cuda_lib.stream_ptr(x2),
+        )
+    else:
+        ls, lb = _f32(ln_scale, c, dev), _f32(ln_bias, c, dev)
+        b1c, b2c = _f32(b1, ch, dev), _f32(b2, c, dev)
+        w1c = w1.detach().to(device=dev, dtype=dt).contiguous()
+        w2c = w2.detach().to(device=dev, dtype=dt).contiguous()
+        err = lib.vadcl_ln_mlp(
+            x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1c.data_ptr(),
+            b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(), y.data_ptr(),
+            x2.shape[0], c, ch, cuda_lib.stream_ptr(x2),
+        )
     cuda_lib.check(err, "ln_mlp")
     ln_mlp.launches += 1
     return y.reshape(shape)
