@@ -51,9 +51,8 @@ Phases (any failure raises and the script exits non-zero):
      optimizer; a ``"packed"``, ``"fold_packed"`` or ``"fold_mix"`` train
      step is refused before any launch.
 The second-to-last line is a JSON object describing each of the twelve
-kernels (its time beside its roofline bound on an H100's published peaks; the
-three redesigned forward kernels also carry ``prev_ms``, the quoted time of
-the kernel each replaced);
+kernels (its time beside its roofline bound on an H100's published peaks:
+every number in it but the bound is measured in this run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -194,7 +193,7 @@ def phase_build():
     from vadcl_tpu_torch.ops.fold_attn import fold_smem_bytes
 
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
-                     (98, 24, 2), (392, 96, 6)):
+                     (98, 24, 2), (392, 96, 6), (98, 96, 3), (98, 192, 6), (49, 64, 2)):
         for bf16 in (0, 1):
             if bf16 and c % 16:
                 continue
@@ -499,6 +498,29 @@ def phase_kernels():
         x = torch.randn(*shape, C, generator=gen).to(DEV, torch.bfloat16)
         check_close(f"ln_mlp C={C}, {x[..., 0].numel()} tokens", ln_mlp(x, *p),
                     ln_mlp_plain(x, *p), *BOUNDS[torch.bfloat16])
+    print("  head width 32 (kernels A and 10), widths that are multiples of 16 but not of "
+          "32 and missing LN or bias vectors (kernel B), bf16:")
+    for batch, dhwc, nh, window in ((3, (2, 14, 14, 96), 3, (2, 7, 7)),
+                                    (4, (2, 28, 28, 192), 6, (2, 7, 7)),
+                                    (3, (1, 14, 14, 64), 2, (1, 7, 7))):
+        for shift in ((0, 0, 0), (0, 3, 3)):
+            a = _fold_case((batch, *dhwc), nh, window, shift, torch.bfloat16, gen)
+            for kname, kernel, plain in fold_kernels():
+                check_fold(f"{kname} head_dim 32, C={dhwc[-1]}, N={window[0] * 49}, "
+                           f"shift {shift}", a, kernel, plain)
+    for C, tokens in ((16, 147), (48, 1000), (80, 8192), (112, 147), (144, 20000),
+                      (176, 9000)):
+        p = _mlp_case(C, 4 * C if C % 32 == 0 else 8 * C, gen)  # (hidden % 128 == 0)
+        x = torch.randn(tokens, C, generator=gen).to(DEV, torch.bfloat16)
+        check_close(f"ln_mlp C={C}, {tokens} tokens", ln_mlp(x, *p), ln_mlp_plain(x, *p),
+                    *BOUNDS[torch.bfloat16])
+    p = _mlp_case(96, 384, gen)
+    x = torch.randn(300, 96, generator=gen).to(DEV, torch.bfloat16)
+    zeros = lambda n: torch.zeros(n, device=DEV)
+    check_close("ln_mlp without b1 and b2",
+                ln_mlp(x, p[0], p[1], p[2], None, p[4], None),
+                ln_mlp_plain(x, p[0], p[1], p[2], zeros(384), p[4], zeros(96)),
+                *BOUNDS[torch.bfloat16])
     print("  edge shapes (tiny preset widths, fp32 widths off the tensor-core "
           "tiles, ragged counts), correctness only:")
     # C=32 / head_dim 16 (the tiny preset) in both dtypes; C=24 / head_dim 12
@@ -1164,13 +1186,6 @@ REPLACES = {
     "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
                        "vadcl_tpu/ops/pallas_attn_fold.py:870"),
 }
-# The time of the kernel each redesigned kernel replaced, at the kernels line's
-# shape (batch 16, enc stage 0, shifted).  Quoted, not measured in this run:
-# the replaced device code is no longer in the tree.  From PERF.md's kernel
-# table (NVIDIA H100 80GB HBM3, 700.00 W; a CUDA-event pair around single
-# calls, which also counts the host's path to the launch).  Both trees side by
-# side in one call: tools/kernel_times_torch.py.
-PREV_MS = {"fold_attention": 1.6140, "fold_attention_packed": 1.3693, "ln_mlp": 0.6277}
 # The main path whose launch count the kernels line reports for each kernel.
 COUNTED_ON = {
     "fold_attention": "scoring fold", "ln_mlp": "scoring fold",
@@ -1205,11 +1220,9 @@ def main():
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],
-             **stats[name], **({"prev_ms": PREV_MS[name]} if name in PREV_MS else {}))
+             **stats[name])
         for name in REPLACES
     ]
-    print("prev_ms of the three redesigned kernels is quoted from PERF.md (the replaced "
-          "kernels' times at the same shape), not measured in this run")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -82,9 +82,48 @@ def test_large_windows_are_refused_by_name():
         assert not fold_packed_fits(392, 96, 6, dtype)
     assert not fold_fits(128, 32, 2, torch.bfloat16)  # would fit 227 KB, is over the cap
     assert fold_smem_bytes(128, 32, 2, True) <= SMEM_LIMIT
-    # a tensor-core head width other than 16 goes to the partitioned-window kernels
-    assert not fold_fits(98, 96, 3, torch.bfloat16)
-    assert fold_fits(98, 96, 3, torch.float32)
+
+
+def test_head_widths_of_the_bf16_forward():
+    """The bf16 forward is built for head widths 16 and 32; 48 and wider
+    multiples of 16 go to the partitioned-window kernels (a route lost to the
+    redesign, listed in ROADMAP.md), but stay with the whole-block kernels,
+    whose predicate does not depend on the fold kernel's."""
+    assert fold_attn.FOLD_HEAD_DIMS == (16, 32)
+    for c, nh in ((96, 3), (192, 6), (64, 2)):  # head width 32
+        assert fold_fits(98, c, nh, torch.bfloat16) and fold_packed_fits(49, c, nh, torch.bfloat16)
+    assert fold_smem_bytes(98, 192, 6, True) == 205440  # one block per SM
+    for c, nh in ((96, 2), (192, 3), (128, 2)):  # head widths 48, 64
+        assert not fold_fits(98, c, nh, torch.bfloat16)
+        assert fold_fits(49, c, nh, torch.float32)
+        assert not fold_fits(49, c, nh, torch.bfloat16)
+        assert fold_fits(49, c, nh, torch.bfloat16, backward=True)
+        assert fold_block_fits(49, c, nh, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel,route", [
+    ("fold_block", ["fold_block"]), ("fold", ["window_attention_fused", "ln_mlp"]),
+    ("fold_packed", ["window_attention_fused", "ln_mlp"])])
+def test_routes_at_a_head_width_the_bf16_forward_does_not_take(monkeypatch, kernel, route):
+    """bf16 at head width 48: the whole-block kernel keeps the block, kernels
+    A and 10 hand it to kernel 7."""
+    from vadcl_tpu_torch.models import swin
+
+    block = swin.SwinBlock3D(96, 2, (1, 7, 7), (0, 3, 3), fused=True, attn_kernel=kernel)
+    gen = torch.Generator().manual_seed(1)
+    block.attn.reset_parameters(gen)
+    with torch.no_grad():
+        for lin in (block.mlp.fc1, block.mlp.fc2):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) * 0.1)
+    seen = []
+    for name in ("fold_block", "fold_attention", "fold_attention_packed",
+                 "window_attention_fused", "ln_mlp"):
+        real = getattr(swin, name)
+        monkeypatch.setattr(swin, name, lambda *a, _n=name, _f=real, **k: seen.append(_n)
+                            or _f(*a, **k))
+    with torch.no_grad():
+        out = block(torch.rand(1, 1, 14, 14, 96).bfloat16())
+    assert seen == route and bool(torch.isfinite(out.float()).all())
 
 
 @pytest.mark.parametrize("geom,blocks_per_sm", [
@@ -130,7 +169,7 @@ def test_fold_weights_pack_and_unpack(c, nh):
     assert torch.equal(packed[h, :, : 3 * hd], want.bfloat16())
 
 
-@pytest.mark.parametrize("c", [32, 64, 96, 192])
+@pytest.mark.parametrize("c", [32, 48, 64, 80, 96, 192])
 def test_mlp_weights_pack_and_unpack(c):
     rng = np.random.RandomState(c)
     w1, w2 = T(rng.randn(c, 4 * c).astype(np.float32)), T(rng.randn(4 * c, c).astype(np.float32))
@@ -319,8 +358,9 @@ def test_bf16_forward_refuses_what_it_does_not_take():
     smem = lambda n, c, nh, bf16: fold_smem_bytes(n, c, nh, bool(bf16))  # noqa: E731
     x = torch.zeros(1, 2, 14, 14, 96, dtype=torch.bfloat16)
     fold_attn._check_fold("k", x, torch.zeros(6, 98, 98), None, 6, (2, 7, 7), smem, True)
-    with pytest.raises(NotImplementedError, match="head_dim 16"):
-        fold_attn._check_fold("k", x, torch.zeros(3, 98, 98), None, 3, (2, 7, 7), smem, True)
+    fold_attn._check_fold("k", x, torch.zeros(3, 98, 98), None, 3, (2, 7, 7), smem, True)
+    with pytest.raises(NotImplementedError, match="head_dim 16 or 32"):
+        fold_attn._check_fold("k", x, torch.zeros(2, 98, 98), None, 2, (2, 7, 7), smem, True)
     big = torch.zeros(1, 8, 7, 7, 96, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="at most 112"):
         fold_attn._check_fold("k", big, torch.zeros(6, 392, 392), None, 6, (8, 7, 7), smem, True)

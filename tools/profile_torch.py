@@ -1,5 +1,5 @@
-"""Where the time goes in the port's scoring forward, or in one training
-step, on one NVIDIA GPU.
+"""Where the time goes in the port's scoring forward, in one training step,
+or in its three hot forward kernels alone, on one NVIDIA GPU.
 
 Runs the flagship predict model (bf16, fused kernels, seeded init) on
 ``--batch`` 4x224^2 clips under ``torch.profiler`` and prints the device
@@ -10,44 +10,139 @@ forward, the work of one ``evaluate_videos`` batch; with ``--train`` one
 
     python tools/profile_torch.py [--batch 16] [--steps 5]
     python tools/profile_torch.py --train --batch 4 --attn-kernel base
+
+With ``--kernels-only`` it times fold attention, its packed variant and
+LN->MLP at every flagship geometry (``chip_smoke.py``'s table and operands),
+bf16, shifted and not, and prints one JSON object per line: ``ms`` is
+``chip_smoke.cuda_ms`` (CUDA events around wrapper calls issued back to back:
+the device's time per call unless the host's path to the launch is longer),
+``kernel_ms`` the device time of the hand-written kernel alone from the
+profiler; last, the host's time per wrapper call on a tiny input:
+
+    python tools/profile_torch.py --kernels-only [--batches 4 16] [--head-dim 32] [--tag NAME]
+
+(``--head-dim`` runs the attention kernels at the same widths with fewer,
+wider heads than the flagship's 16.)
+
+``--root`` names the tree whose ``vadcl_tpu_torch`` package is run (default:
+the tree this file is in), so that two commits can be compared on one card in
+one call: unpack the other commit's package into a git-ignored directory
+(``git archive <commit> vadcl_tpu_torch | tar -x -C log_dir/parent``) and run
+this file once per tree, in turns (parent, change, change, parent).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
+import json
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from vadcl_tpu_torch.core.config import ATTN_KERNELS, TRAINABLE_ATTN_KERNELS, preset
-from vadcl_tpu_torch.models import VADModel
-from vadcl_tpu_torch.train import create_train_state, make_train_step
-
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the hand-written kernels (csrc/*.cu)
 OURS = ("fold_attn", "fold_block", "window_attn", "ln_mlp", "cluster_assign", "space_cluster",
         "center_sq", "sum_partials", "atb_partial", "sum_rows")
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--train", action="store_true",
-                    help="profile training steps (loss, backward, Adam) instead of the forward")
-    ap.add_argument("--attn-kernel", default="fold", choices=sorted(ATTN_KERNELS),
-                    help="fused attention kernel; with --train one of "
-                         f"{sorted(TRAINABLE_ATTN_KERNELS)} (the others are inference only)")
-    args = ap.parse_args(argv)
-    if args.train and args.attn_kernel not in TRAINABLE_ATTN_KERNELS:
-        ap.error(f"--train needs a trainable kernel: {sorted(TRAINABLE_ATTN_KERNELS)}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("profiling needs a CUDA device")
+def device_ms_by_kernel(prof) -> dict:
+    """Device milliseconds by kernel name over a profiler's trace, without the
+    user annotations the profiler also puts on the device timeline (e.g.
+    Optimizer.step#Adam.step spans the kernels)."""
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    return by_name
+
+
+def own_kernel_ms(fn, calls: int = 10) -> float:
+    """Device time per call of ``fn``'s hand-written kernels alone: what the
+    card spends in them whatever the host does around the launch."""
+    fn()
+    total = 0.0
+    for _ in range(3):  # (a trace now and then comes back empty: read again)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ms for name, ms in device_ms_by_kernel(prof).items() if "vadcl" in name)
+        if total > 0:
+            break
+    return total / calls
+
+
+def host_us(fn, calls: int = 200) -> float:
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def kernels_only(args) -> None:
+    from vadcl_tpu_torch.ops import cuda_lib
+    from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_packed
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp
+
+    # the geometry table, the operands and the timer are chip_smoke.py's
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    print(json.dumps({"tag": args.tag, "root": args.root, "card": smoke.smi_line(),
+                      "build_s": round(time.perf_counter() - t0, 2)}))
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    folds = (("fold_attention", fold_attention), ("fold_attention_packed", fold_attention_packed))
+    # (no_grad, not inference_mode: tensors made under inference_mode track no
+    # version, and the wrappers then pack their operands at every call)
+    with torch.no_grad():
+        for batch in args.batches:
+            for gname, (dhwc, _, window, shift) in smoke.FOLD_GEOMETRIES.items():
+                nh = dhwc[-1] // args.head_dim
+                for shifted in (False, True):
+                    a = smoke._fold_case((batch, *dhwc), nh, window,
+                                         shift if shifted else (0, 0, 0), bf, gen)
+                    for name, k in folds:
+                        print(json.dumps({
+                            "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch,
+                            "heads": nh, "shifted": shifted, "ms": round(smoke.cuda_ms(lambda: k(**a)), 4),
+                            "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4)}))
+                C = dhwc[-1]
+                m = smoke._mlp_case(C, 4 * C, gen)
+                x = a["x"]
+                print(json.dumps({
+                    "tag": args.tag, "kernel": "ln_mlp", "geometry": gname, "batch": batch,
+                    "tokens": x[..., 0].numel(), "C": C,
+                    "ms": round(smoke.cuda_ms(lambda: ln_mlp(x, *m)), 4),
+                    "kernel_ms": round(own_kernel_ms(lambda: ln_mlp(x, *m)), 4)}))
+        # the host's path to one launch, on an input too small to matter
+        a = smoke._fold_case((1, 2, 7, 7, 32), 2, (2, 7, 7), (0, 0, 0), bf, gen)
+        m = smoke._mlp_case(32, 128, gen)
+        print(json.dumps({"tag": args.tag, "host_us_per_call": {
+            "fold_attention": round(host_us(lambda: fold_attention(**a)), 1),
+            "ln_mlp": round(host_us(lambda: ln_mlp(a["x"], *m)), 1)}}))
+
+
+def model_profile(args) -> None:
+    from vadcl_tpu_torch.core.config import preset
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+
     cfg = preset("shanghaitech")
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, predict=True, fused_attention=True, fused_cluster=True,
@@ -83,13 +178,7 @@ def main(argv=None):
             run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device events, without the user annotations the profiler also puts on
-    # the device timeline (e.g. Optimizer.step#Adam.step spans the kernels)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    by_name = device_ms_by_kernel(prof)
     busy = sum(by_name.values())
     ours = sum(v for k, v in by_name.items() if any(o in k for o in OURS))
     print(f"attn_kernel {args.attn_kernel}, batch {args.batch}: {what} {untraced * 1e3:.2f} ms untraced "
@@ -101,6 +190,37 @@ def main(argv=None):
           f"({100 * ours / busy:.1f}% of device time)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]:
         print(f"  {ms / args.steps:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--train", action="store_true",
+                    help="profile training steps (loss, backward, Adam) instead of the forward")
+    ap.add_argument("--attn-kernel", default="fold",
+                    help="fused attention kernel (core/config.py:ATTN_KERNELS); with --train "
+                         "a trainable one (the others are inference only)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time fold attention, its packed variant and LN->MLP alone")
+    ap.add_argument("--batches", type=int, nargs="+", default=[4, 16],
+                    help="with --kernels-only: the batch sizes")
+    ap.add_argument("--head-dim", type=int, default=16,
+                    help="with --kernels-only: the attention kernels' head width")
+    ap.add_argument("--tag", default="", help="with --kernels-only: a name on every line")
+    ap.add_argument("--root", default=HERE, help="the tree whose vadcl_tpu_torch is run")
+    args = ap.parse_args(argv)
+    args.root = os.path.abspath(args.root)
+    sys.path.insert(0, args.root)
+    from vadcl_tpu_torch.core.config import ATTN_KERNELS, TRAINABLE_ATTN_KERNELS
+
+    if args.attn_kernel not in ATTN_KERNELS:
+        ap.error(f"--attn-kernel is one of {sorted(ATTN_KERNELS)}")
+    if args.train and args.attn_kernel not in TRAINABLE_ATTN_KERNELS:
+        ap.error(f"--train needs a trainable kernel: {sorted(TRAINABLE_ATTN_KERNELS)}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device")
+    (kernels_only if args.kernels_only else model_profile)(args)
 
 
 if __name__ == "__main__":

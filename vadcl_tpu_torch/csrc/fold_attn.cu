@@ -42,8 +42,8 @@
 //     cp.async.bulk through an mbarrier ring, bias and mask read once per
 //     head in accumulator order, one named barrier per head.  89.7 KB of
 //     shared memory per window at N = 98, C = 96 (two windows per SM), 154 KB
-//     at C = 192; two N = 49 windows share a block.  head_dim must be 16 and
-//     N <= 112.
+//     at C = 192; two N = 49 windows share a block.  head_dim must be 16 or
+//     32 and N <= 112.
 //     What bounds it: instruction throughput and latency, not bytes or
 //     tensor-core time.  The softmax costs about ten fp32 instructions per score
 //     against one mma per 128 scores; every bias and mask value is read from
@@ -130,7 +130,7 @@ extern "C" {
 // geometries above the card's limit before launching.  Kernels A and 10 share
 // one layout, and so this one entry.
 long long vadcl_fold_attn_smem_bytes(int n, int c, int nh, int is_bf16) {
-  if (is_bf16) return (long long)vadcl::fa_smem_bytes(n, c);
+  if (is_bf16) return (long long)vadcl::fa_smem_bytes(n, c, nh > 0 ? c / nh : 0);
   return (long long)vadcl::fold_plan_smem(n, c, nh, 0);
 }
 

@@ -42,19 +42,20 @@
 //     rounds, applies GELU and rounds there, and feeds the packed pairs
 //     straight back as the register A operand of fc2 (the accumulator layout
 //     of two neighbouring 8-column tiles is the A layout of one k-step, see
-//     mma.cuh): 4 x C/32 wgmma.m64n32k16 into the 64 x C fp32 accumulator that
-//     stays in registers across chunks.  fc2 is left in flight behind the next
+//     mma.cuh): 4 x C/32 wgmma.m64n32k16 (m64n16k16 where C is a multiple of 16
+//     but not of 32) into the 64 x C fp32 accumulator that stays in registers
+//     across chunks.  fc2 is left in flight behind the next
 //     chunk's fc1; the hidden activation never touches shared memory.  The
 //     epilogue adds b2 and the residual in fp32 in the warp's x rows and
 //     writes them out 16 bytes per lane.  One named barrier per warpgroup after
 //     LN2 and one at the end of a tile; the two warpgroups run independently,
 //     so one's LN2 or GELU overlaps the other's products.
 //   * The producer warpgroup gives its registers up (setmaxnreg) so that the
-//     consumers can hold 232 each.  C is a template parameter (32 .. 192 in
-//     steps of 32): a wgmma inside a data-dependent branch is serialised by
+//     consumers can hold 232 each.  C is a template parameter (16 .. 192 in
+//     steps of 16): a wgmma inside a data-dependent branch is serialised by
 //     the compiler.  The last tile's missing rows are zero rows, masked at the
 //     store.
-// It needs C % 32 == 0, C <= 192 and the hidden width a multiple of 64 (the
+// It needs C % 16 == 0, C <= 192 and the hidden width a multiple of 64 (the
 // wrapper asks for 128, the whole-block kernel's chunk).
 // What bounds it: the erff GELU, 4C per token at ~40 issue slots each on eight
 // warps per SM, costs more issue time than the products cost tensor-core time;
@@ -139,7 +140,7 @@ constexpr int kWgThreads = 128;    // a warpgroup
 constexpr int kWgRows = 64;        // tokens per warpgroup tile (wgmma's M)
 
 inline bool mlp_mma_eligible(int c, int ch) {
-  return c % 32 == 0 && c <= kMmaMaxC && ch > 0 && ch % kMmaChunk == 0;
+  return c > 0 && c % 16 == 0 && c <= kMmaMaxC && ch > 0 && ch % kMmaChunk == 0;
 }
 
 // One packed chunk: W1[:, chunk] (C x 64) then W2[chunk, :] (64 x C), both in
@@ -182,7 +183,7 @@ inline MlpPlan mlp_plan(int ntok, int c, int ch, int sms) {
   return p;
 }
 
-// C is a template parameter (a multiple of 32): every wgmma then sits in
+// C is a template parameter (a multiple of 16): every wgmma then sits in
 // straight-line code, which the compiler needs to leave them asynchronous.
 template <int C>
 __global__ void __launch_bounds__((kMmaGroups + 1) * kWgThreads, 1)
@@ -201,6 +202,7 @@ __global__ void __launch_bounds__((kMmaGroups + 1) * kWgThreads, 1)
   const int nchunks = Ch / kMmaChunk;
   const uint32_t chunk_bytes = (uint32_t)mlp_chunk_bytes(C);
   const int ld = C + kMmaPad;
+  constexpr int kN2 = C % 32 == 0 ? 32 : 16;  // output columns per fc2 wgmma
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -257,11 +259,11 @@ __global__ void __launch_bounds__((kMmaGroups + 1) * kWgThreads, 1)
     fence_async_shared();  // wgmma reads z through the asynchronous proxy
     named_barrier(1 + wg, kWgThreads);
 
-    float acc[C / 32][16];
+    float acc[C / kN2][kN2 / 2];
 #pragma unroll
-    for (int i = 0; i < C / 32; ++i)
+    for (int i = 0; i < C / kN2; ++i)
 #pragma unroll
-      for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
+      for (int e = 0; e < kN2 / 2; ++e) acc[i][e] = 0.f;
 
     int prev = -1;  // the stage whose release waits for its fc2 to complete
     for (int j = 0; j < nchunks; ++j, ++seq) {
@@ -304,17 +306,17 @@ __global__ void __launch_bounds__((kMmaGroups + 1) * kWgThreads, 1)
           ga[nt >> 1][(nt & 1) * 2] = pack_bf16(g0, g1);      // row g
           ga[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(g2, g3);  // row g + 8
         }
-        // fc2: acc (64 x C) += g . W2[chunk, :], 32 output columns per wgmma
+        // fc2: acc (64 x C) += g . W2[chunk, :], kN2 output columns per wgmma
         wgmma_fence();
 #pragma unroll
         for (int k2 = 0; k2 < kMmaChunk / 16; ++k2) {
 #pragma unroll
-          for (int p = 0; p < C / 32; ++p) {
-            // B: rows 16 k2.. of the slice, columns 32 p..; next 8 rows 128 B on,
+          for (int p = 0; p < C / kN2; ++p) {
+            // B: rows 16 k2.. of the slice, columns kN2 p..; next 8 rows 128 B on,
             // next 8 columns 64 * 16 B on
             const uint64_t db = wgmma_desc(
-                w2s + ((size_t)(4 * p) * kMmaChunk + 16 * k2) * 8, 128, kMmaChunk * 16);
-            wgmma_m64n32k16_rs(acc[p], ga[k2], db, 1);
+                w2s + ((size_t)(kN2 / 8 * p) * kMmaChunk + 16 * k2) * 8, 128, kMmaChunk * 16);
+            wgmma_k16_rs(acc[p], ga[k2], db, 1);
           }
         }
         wgmma_commit();  // left in flight: the next chunk's fc1 is issued behind it
@@ -329,11 +331,11 @@ __global__ void __launch_bounds__((kMmaGroups + 1) * kWgThreads, 1)
     if (active) {
       // y = x + (acc + b2) in fp32, rounded into the warp's x rows ...
 #pragma unroll
-      for (int p = 0; p < C / 32; ++p) {
+      for (int p = 0; p < C / kN2; ++p) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < kN2 / 8; ++q) {
           {
-            const int col = p * 32 + q * 8 + 2 * t;
+            const int col = p * kN2 + q * 8 + 2 * t;
             const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
             uint32_t* p0 = reinterpret_cast<uint32_t*>(xs + g * ld + col);
             uint32_t* p1 = reinterpret_cast<uint32_t*>(xs + (g + 8) * ld + col);
@@ -369,10 +371,12 @@ cudaError_t launch_ln_mlp_mma(const void* x, const float* ln_s, const float* ln_
     return cudaErrorInvalidValue;
   using Kernel = void (*)(const bf16*, const float*, const float*, const bf16*, const float*,
                           const float*, bf16*, int, int, int, int);
-  static const Kernel kernels[kMmaMaxC / 32] = {
-      ln_mlp_wgmma_kernel<32>,  ln_mlp_wgmma_kernel<64>,  ln_mlp_wgmma_kernel<96>,
-      ln_mlp_wgmma_kernel<128>, ln_mlp_wgmma_kernel<160>, ln_mlp_wgmma_kernel<192>};
-  const Kernel kernel = kernels[C / 32 - 1];
+  static const Kernel kernels[kMmaMaxC / 16] = {
+      ln_mlp_wgmma_kernel<16>,  ln_mlp_wgmma_kernel<32>,  ln_mlp_wgmma_kernel<48>,
+      ln_mlp_wgmma_kernel<64>,  ln_mlp_wgmma_kernel<80>,  ln_mlp_wgmma_kernel<96>,
+      ln_mlp_wgmma_kernel<112>, ln_mlp_wgmma_kernel<128>, ln_mlp_wgmma_kernel<144>,
+      ln_mlp_wgmma_kernel<160>, ln_mlp_wgmma_kernel<176>, ln_mlp_wgmma_kernel<192>};
+  const Kernel kernel = kernels[C / 16 - 1];
   cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
   kernel<<<p.blocks, (p.groups + 1) * kWgThreads, p.smem, stream>>>(

@@ -17,8 +17,9 @@ With ``fused=True`` a block runs hand-written kernels, chosen by
   or more, ``"fold"`` in the others.
 * ``"fold_block"``: the whole block (LN1, attention, residual, LN2, MLP,
   residual) is one kernel each way (``fold_block``) where no padding is
-  needed, the fold kernel fits and ``fold_block_fits`` holds; otherwise the
-  block is a ``"fold"`` block in every respect.
+  needed and ``fold_block_fits`` holds (its own predicate: the whole-block
+  kernels take head widths the fold kernel does not); otherwise the block is
+  a ``"fold"`` block in every respect.
 * ``"base"`` (trainable) and ``"packed"`` (inference only): plain LN1, pad,
   roll, ``window_partition``, the partitioned-window kernel
   (``ops/window_attn``), ``window_reverse``, roll back, slice, plain
@@ -170,17 +171,19 @@ class SwinBlock3D(nn.Module):
         fold = (self.fused and kind in _FOLD_FAMILY
                 and fits(n, C, self.num_heads, x.dtype))
         fold_kernel = fold_attention_packed if kind == "fold_packed" else fold_attention
+        if (self.fused and kind == "fold_block" and not any(pads)
+                and fold_block_fits(n, C, self.num_heads, x.dtype)):
+            # the whole block, MLP tail included, is one kernel each way
+            return fold_block(
+                x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
+                attn.qkv_bias, attn.proj_weight, attn.proj_bias, attn.bias(n),
+                self._mask(D, H, W, window, shift, x.device),
+                self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                self.num_heads, window, attn.scale, shift=shift,
+            )
         if fold and not any(pads):
             mask = self._mask(D, H, W, window, shift, x.device)
-            if kind == "fold_block" and fold_block_fits(n, C, self.num_heads, x.dtype):
-                # the whole block, MLP tail included, is one kernel each way
-                return fold_block(
-                    x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
-                    attn.qkv_bias, attn.proj_weight, attn.proj_bias, attn.bias(n), mask,
-                    self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
-                    self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-                    self.num_heads, window, attn.scale, shift=shift,
-                )
             # LN1, the shift roll both ways and the residual are in the kernel
             x = fold_kernel(
                 x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,

@@ -9,7 +9,7 @@ Kernel A replaces ``vadcl_tpu/ops/pallas_attn_fold.py:_fold_kernel`` (entry
 ``csrc/fold_attn.cu``: blocks that address their windows' tokens in the
 unpartitioned (B, D, H, W, C) tensor by strides.  In bf16
 (``csrc/fold_attn_mma.cuh``) a warp owns 16 query rows and keeps scores and
-probabilities in tensor-core registers; it needs head_dim 16 and windows of
+probabilities in tensor-core registers; it needs head_dim 16 or 32 and windows of
 at most 112 tokens, and takes its weights, rel-pos bias and mask packed
 (``pack_fold_weights``, ``pack_fold_scores``; cached per tensor version in
 ``_packs``).
@@ -78,9 +78,8 @@ def _up(v: int, m: int) -> int:
 
 
 FOLD_MAX_TOKENS = 112  # largest window of the bf16 forward: 7 strips of 16 query rows
-FOLD_HEAD_DIM = 16  # head width the bf16 forward is written for
+FOLD_HEAD_DIMS = (16, 32)  # head widths the bf16 forward is built for
 PACK_PAD = 8  # elements of padding per packed weight row
-_SLICE = 3 * FOLD_HEAD_DIM  # columns of one packed weight slice
 
 
 def fold_padded_rows(n: int) -> int:
@@ -111,8 +110,8 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     mirrored here so the route can be chosen without the library
     (``chip_smoke.py`` holds the two against each other).  The bf16 forward
     block is the weight ring plus, per window, LN1(x), the pre-projection
-    tile and the double-buffered K and V of one head: two blocks fit an SM at
-    N = 98, C = 96 (89,728 B), one at C = 192 (154,240 B)."""
+    tile and the double-buffered K and V of one head: at head width 16 two
+    blocks fit an SM at N = 98, C = 96 (89,728 B), one at C = 192 (154,240 B)."""
     hd = c // num_heads
     if not bf16:
         hdp = hd + 1
@@ -123,8 +122,8 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
         return 8 * n + 4 * (2 * n + max(p1, p2))
     if not backward:
         rows = fold_padded_rows(n)
-        window = 2 * (2 * rows * (c + PACK_PAD) + 4 * rows * (FOLD_HEAD_DIM + 8))
-        return 128 + 2 * 2 * c * (_SLICE + PACK_PAD) + fold_windows_per_block(n) * window
+        window = 2 * (2 * rows * (c + PACK_PAD) + 4 * rows * (hd + 8))
+        return 128 + 2 * 2 * c * (3 * hd + PACK_PAD) + fold_windows_per_block(n) * window
     m = _up(n, 16)
 
     def total(sizes):
@@ -145,12 +144,13 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
     registers, takes at most ``FOLD_MAX_TOKENS`` tokens (the cap is explicit:
     kernel 6 would not follow a larger window, and N = 392, window (8, 7, 7)
     on 16-frame clips, belongs to the row-tiled kernels still to be ported).
-    A bf16 head width that is a multiple of 16 other than 16 goes to the
-    partitioned-window kernels, which take it."""
+    A bf16 head width of 48 or a larger multiple of 16 goes to the
+    partitioned-window kernels, which take it; ``fold_block_fits`` does not
+    depend on this predicate, so the whole-block kernels keep such a width."""
     bf16 = dtype == torch.bfloat16
     if bf16 and not backward:
         hd = c // num_heads
-        if n > FOLD_MAX_TOKENS or (hd % 16 == 0 and hd != FOLD_HEAD_DIM):
+        if n > FOLD_MAX_TOKENS or (hd % 16 == 0 and hd not in FOLD_HEAD_DIMS):
             return False
     return fold_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT
 
@@ -821,10 +821,10 @@ def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes, register_sco
     if mask is not None and tuple(mask.shape) != (nw, n, n):
         raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(nw, n, n)}")
     if register_scores and x.dtype == torch.bfloat16 and (
-            C // num_heads != FOLD_HEAD_DIM or n > FOLD_MAX_TOKENS):
+            C // num_heads not in FOLD_HEAD_DIMS or n > FOLD_MAX_TOKENS):
         raise NotImplementedError(
             f"{what}: the bf16 kernel keeps a 16 x N strip of scores in a warp's "
-            f"registers and needs head_dim {FOLD_HEAD_DIM} and at most {FOLD_MAX_TOKENS} "
+            f"registers and needs head_dim 16 or 32 and at most {FOLD_MAX_TOKENS} "
             f"tokens per window (got head_dim {C // num_heads}, N={n}): fold_fits() is "
             "false here and the Swin block takes the partitioned-window kernels instead"
         )

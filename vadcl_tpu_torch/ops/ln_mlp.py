@@ -8,7 +8,7 @@ memory.  bf16 is a persistent grid of warpgroups that each own 64 tokens,
 run fc1 and fc2 as warpgroup matrix multiplies (wgmma), keep the hidden
 activation in registers between the two, and read the weights from a
 shared-memory ring that a producer warp fills with bulk copies; it needs
-C % 32 == 0, C <= 192 and a hidden width divisible by 128, and takes both
+C % 16 == 0, C <= 192 and a hidden width divisible by 128, and takes both
 weight matrices packed by hidden chunk (``pack_mlp_weights``, cached per
 parameter version in ``_packs``).
 
@@ -160,11 +160,11 @@ def _check_mlp(what, x, w1, w2):
 
 def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     c, ch = _check_mlp("ln_mlp", x, w1, w2)
-    if x.dtype == torch.bfloat16 and (c % 32 or c > 192 or ch % 128):
+    if x.dtype == torch.bfloat16 and (c % 16 or c > 192 or ch % 128):
         raise NotImplementedError(
-            f"ln_mlp: the bf16 kernel runs on 64-row tensor-core tiles with 32 output "
-            f"columns per instruction and needs C % 32 == 0, C <= 192 and a hidden "
-            f"width divisible by 128 (got C={c}, hidden {ch})"
+            f"ln_mlp: the bf16 kernel runs on 64-row tensor-core tiles and needs "
+            f"C % 16 == 0, C <= 192 and a hidden width divisible by 128 (got C={c}, "
+            f"hidden {ch})"
         )
     dev, dt = x.device, x.dtype
     shape = x.shape
@@ -175,8 +175,10 @@ def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
         # packed weights and fp32 vectors: made once per parameter version
         wp = _packs.get((w1, w2), ("mlp", str(dev)),
                         lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
+        vecs = (ln_scale, ln_bias, b1, b2)  # (a missing one is zeros, as in fp32)
         ls, lb, b1c, b2c = _packs.get(
-            (ln_scale, ln_bias, b1, b2), ("mlp vectors", str(dev)),
+            tuple(t for t in vecs if t is not None),
+            ("mlp vectors", tuple(t is None for t in vecs), str(dev)),
             lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev),
                      _vec(b2, c, dev)))
         err = lib.vadcl_ln_mlp_bf16(
