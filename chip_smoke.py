@@ -7,11 +7,13 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 Phases (any failure raises and the script exits non-zero):
   0. device: CUDA must be available (no CPU fallback); print the card's
      name and power limit as nvidia-smi reports them.
-  1. build the twelve CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
+  1. build the fifteen CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
      process per source, all started together); the Python mirrors of the
-     fold kernels' shared-memory sizes (the routes' fit predicates) are held
-     against the library's, and kernel 10 and the whole-block kernels must
-     fit at the four flagship geometries in bf16 and fp32.
+     kernels' shared-memory sizes (the routes' fit predicates and the body
+     choice of kernels 7, 8 and 9: whole-tile or row-tiled) are held against
+     the library's; kernel 10 and the whole-block kernels must fit at the
+     four flagship geometries in bf16 and fp32, and every window of up to
+     392 tokens at the flagship widths and head width 32 must map to a body.
   2. each forward kernel (A-D, 7: window attention, 9: its packed variant,
      10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
@@ -28,29 +30,43 @@ Phases (any failure raises and the script exits non-zero):
      plain versions at the training batch of 4, bf16 and fp32, every
      gradient tensor held separately; times (the whole-block backward beside
      6 then 5); workspaces; edge shapes.
-  3. the whole flagship model (shanghaitech, predict, fused attention and
-     fused cluster heads) in fp32 with TF32 off, the card (kernels) against
-     the CPU (plain versions) on 224^2 clips: ``attn_kernel="base"``,
-     ``"packed"``, ``"fold_packed"`` and ``"fold_block"`` at full depth,
-     ``"fold"`` and ``"fold_mix"`` at a reduced depth.
+  2/2b, row-tiled: the row-tiled bodies of 7, 9 and 8 against their plain
+     versions at N = 147, 196, 245 and 392, C = 96 / 6 heads, 192 / 12 and
+     head width 32, shifted and not, bf16 and fp32, on an odd batch of 3;
+     both bodies at the largest N the whole-tile body holds; then the
+     frame-8 path's four geometries (forward at batch 16, backward at batch
+     4), timed, and the backward's workspace.
+  3. the flagship model (shanghaitech, fused attention and fused cluster
+     heads) in fp32 with TF32 off, the card (kernels) against the CPU (plain
+     versions) on 224^2 clips: predict mode under ``"base"``, ``"packed"``,
+     ``"fold_packed"`` and ``"fold_block"`` at full depth, ``"fold"`` and
+     ``"fold_mix"`` at a reduced depth; reconstruction on 8-frame clips under
+     ``"fold"`` at full depth and ``"packed"`` at a reduced depth.
   3b. the training loss and backward on 1 clip, card against CPU (the loss,
      the set of parameters with a gradient, and every parameter gradient):
      ``"base"`` and ``"fold_block"`` at full depth, ``"fold"`` at a reduced
-     depth, and ``"fold"`` on a 240^2 clip, whose 60^2 and 30^2 token grids
-     need window padding.
+     depth, ``"fold"`` on a 240^2 clip, whose 60^2 and 30^2 token grids need
+     window padding, and ``"fold"`` in reconstruction on 8-frame clips at
+     224^2 and 240^2 (reduced depth).
   4. the scoring path in bf16: in-memory uint8 videos through
      ``evaluate_videos`` (PSNR -> anomaly score -> per-scene AUC) with
      batch_windows=16, once per ``attn_kernel`` in fold, base, packed,
-     fold_packed, fold_mix, fold_block; the kernels each path must run have
-     launched (the three new paths: exactly so many times) and the others
-     have not.
+     fold_packed, fold_mix, fold_block in predict mode, and under fold, base
+     and packed in reconstruction mode at frame_num 8 at full width and
+     depth; the kernels each path must run have launched (the newer paths:
+     exactly so many times, 18 row-tiled forwards a forward at frame_num 8)
+     and the others have not, and no plain version of an attention or MLP
+     kernel was handed a CUDA tensor.
   5. the training path in bf16: ``train()`` on the flagship config from a
      seeded init with an in-memory uint8 loader at batch 4, 2 warm-up and
-     8 timed steps, under ``"fold"``, ``"base"`` and ``"fold_block"``, with
-     the same launch checks; a checkpoint round trip into a fresh model and
-     optimizer; a ``"packed"``, ``"fold_packed"`` or ``"fold_mix"`` train
-     step is refused before any launch.
-The second-to-last line is a JSON object describing each of the twelve
+     8 timed steps, under ``"fold"``, ``"base"`` and ``"fold_block"`` in
+     predict mode and ``"fold"`` and ``"base"`` in reconstruction at
+     frame_num 8 (18 row-tiled launches each way a step), with the same
+     launch and plain-version checks; a checkpoint round trip into a fresh
+     model and optimizer; a ``"packed"``, ``"fold_packed"`` or
+     ``"fold_mix"`` train step is refused before any launch.
+No earlier path was cut: the whole run takes about two minutes on an H100.
+The second-to-last line is a JSON object describing each of the fifteen
 kernels (its time beside its roofline bound on an H100's published peaks:
 every number in it but the bound is measured in this run);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -58,6 +74,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -230,6 +247,34 @@ def phase_build():
                                      "do not fit 227 KB of shared memory")
     print("  fold_packed_fits / fold_block_fits agree with the library and hold at the four "
           "flagship geometries, bf16 and fp32")
+    from vadcl_tpu_torch.ops.window_attn import rows_smem_bytes, tile_smem_bytes, window_body
+
+    checked = 0
+    for c, nh in ((96, 6), (192, 12), (96, 3), (192, 6), (32, 2), (64, 4), (24, 2), (64, 1)):
+        for n in (1, 16, 49, 98, 112, 113, 147, 196, 245, 343, 392):
+            for bf16 in (0, 1):
+                if bf16 and (c % 16 or (c // nh) % 16):
+                    continue
+                mine = (tile_smem_bytes(n, c, nh, bool(bf16)),
+                        tile_smem_bytes(n, c, nh, bool(bf16), backward=True),
+                        rows_smem_bytes(n, c, nh, bool(bf16)),
+                        rows_smem_bytes(n, c, nh, bool(bf16), backward=True))
+                theirs = (lib.vadcl_window_attn_smem_bytes(n, c, nh, bf16),
+                          lib.vadcl_window_attn_bwd_smem_bytes(n, c, nh, bf16),
+                          lib.vadcl_window_attn_rows_smem_bytes(n, c, nh, bf16),
+                          lib.vadcl_window_attn_bwd_rows_smem_bytes(n, c, nh, bf16))
+                if mine != theirs:
+                    raise AssertionError(f"window attention shared memory {(n, c, nh, bf16)}: "
+                                         f"{mine} but the library says {theirs}")
+                checked += 1
+    for c, nh in ROW_WIDTHS:
+        for n in range(1, 393):
+            for dtype in (torch.bfloat16, torch.float32):
+                for backward in (False, True):
+                    window_body(n, c, nh, dtype, backward)  # raises where no body fits
+    print(f"  tile_smem_bytes / rows_smem_bytes (the body choice of kernels 7, 8, 9) agree "
+          f"with the library at {checked} cases; every N up to 392 at C=96/6, 192/12 and head "
+          "width 32 maps to a body, both dtypes and directions")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -567,15 +612,9 @@ def phase_kernels():
             print(f"  {kname} bf16 C=24 refused (NotImplementedError), as it should be")
         else:
             raise AssertionError(f"{kname}: bf16 C=24 launched instead of being refused")
-        a = _win_case_at(1, (8, 14, 14), 96, 6, (8, 7, 7), (0, 0, 0), torch.bfloat16, gen)
-        try:
-            kernel(**a)
-        except NotImplementedError:
-            print(f"  {kname} N=392 refused (NotImplementedError): no row-tiled variant yet")
-        else:
-            raise AssertionError(f"{kname}: N=392 launched instead of being refused")
     # kernels A and 10 as a block at a window-padded geometry runs them: no
-    # LN, no residual; then without a qkv bias; N=392 fits none of the family
+    # LN, no residual; then without a qkv bias; N=392 fits neither (it runs
+    # the row-tiled bodies of 7, 8 and 9, phase_row_kernels)
     for kname, kernel, plain in fold_kernels():
         for dtype in (torch.bfloat16, torch.float32):
             dhwc, nh, window, shift = PADDED_FOLD
@@ -843,17 +882,157 @@ def phase_bwd_kernels(batch: int = 4):
     return stats
 
 
+def recon_geometries(frame_num: int) -> dict:
+    """name: ((D, H, W, C) per clip, heads, runtime window, shift) of the
+    flagship's four Swin stages on ``frame_num``-frame reconstruction clips:
+    the encoder's token grid has D = frame_num / 2, the decoder's frame_num
+    (timedebd doubles it).  At frame_num 8 every window holds 196 or 392
+    tokens and runs the row-tiled bodies of kernels 7, 8 and 9."""
+    from vadcl_tpu_torch.ops.window import get_window_size
+
+    out = {}
+    for name, d, hw, c, nh in (("enc_stage0", frame_num // 2, 56, 96, 6),
+                               ("enc_stage1", frame_num // 2, 28, 192, 12),
+                               ("dec_stage0", frame_num, 28, 192, 12),
+                               ("dec_stage1", frame_num, 56, 96, 6)):
+        window, shift = get_window_size((d, hw, hw), (8, 7, 7), (4, 3, 3))
+        out[name] = ((d, hw, hw, c), nh, window, shift)
+    return out
+
+
+ROW_WIDTHS = ((96, 6), (192, 12), (96, 3))  # the flagship's, and head width 32
+
+
+def row_kernels():
+    from vadcl_tpu_torch.ops import window_attn as wa
+
+    return (("window_attention_fused_rows", wa.window_attention_fused_rows,
+             wa.window_attention_fused_plain),
+            ("window_attention_packed_rows", wa.window_attention_packed_rows,
+             wa.window_attention_packed_plain))
+
+
+def _win_case_n(windows, n, C, nh, dtype, gen, masked):
+    """Kernel 7's arguments for ``windows`` windows of ``n`` tokens that no
+    window shape need give: two mask groups of 0 / -100 entries."""
+    r = lambda *s: torch.randn(*s, generator=gen).to(DEV)  # noqa: E731
+    mask = (torch.rand(2, n, n, generator=gen) < 0.3).float().mul(-100.0).to(DEV)
+    return dict(
+        x_windows=r(windows, n, C).to(dtype), qkv_w=r(C, 3 * C) / C**0.5, qkv_b=0.1 * r(3 * C),
+        proj_w=r(C, C) / C**0.5, proj_b=0.1 * r(C), bias=r(nh, n, n),
+        mask=mask if masked else None, num_heads=nh, n_windows=2, scale=(C // nh) ** -0.5,
+    )
+
+
+def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
+    """The row-tiled bodies of kernels 7, 9 (forward) and 8 (backward)
+    against their plain versions: at N = 147, 196, 245 and 392 at C = 96 / 6
+    heads, 192 / 12 and head width 32, shifted and not, bf16 and fp32, on an
+    odd batch of 3 clips; both bodies at the largest N the whole-tile body
+    still holds; then the frame-8 path's own shapes (forward at ``batch``
+    clips, backward at ``train_batch``), whose numbers go into the kernels
+    line, and the backward's workspace.  Returns {kernel: stats}."""
+    from vadcl_tpu_torch.ops import cuda_lib
+    from vadcl_tpu_torch.ops import window_attn as wa
+
+    gen = torch.Generator().manual_seed(7)
+    bwd = ("window_attention_fused_bwd_rows", wa.window_attention_fused_bwd_rows,
+           wa.window_attention_fused_bwd_plain)
+    errs = {name: [] for name, *_ in row_kernels() + (bwd,)}
+    print("[2] row-tiled kernels 7, 9 and [2b] 8 vs plain versions, N 147-392, batch 3")
+    for depth in (3, 4, 5, 8):
+        for C, nh in ROW_WIDTHS:
+            for dtype in (torch.bfloat16, torch.float32):
+                for shift in ((0, 0, 0), (0, 3, 3)):
+                    a = _win_case_at(3, (depth, 14, 14), C, nh, (depth, 7, 7), shift, dtype, gen)
+                    tag = f"N={49 * depth} C={C} nH={nh} shift {shift} {str(dtype)[6:]}"
+                    for name, kernel, plain in row_kernels():
+                        errs[name].append(check_close(f"{name} {tag}", kernel(**a), plain(**a),
+                                                      *BOUNDS[dtype]))
+                    w = _win_bwd_case(a, gen)
+                    errs[bwd[0]].append(check_grads(f"{bwd[0]} {tag}", WIN_BWD_NAMES,
+                                                    bwd[1](**w), bwd[2](**w), BWD_TOL[dtype]))
+    print("  both bodies at the largest N the whole-tile body holds:")
+    for C, nh in ROW_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for backward in (False, True):
+                n = max(k for k in range(1, 393)
+                        if wa.window_body(k, C, nh, dtype, backward) == "tile")
+                a = _win_case_n(6, n, C, nh, dtype, gen, masked=True)
+                tag = f"N={n} C={C} nH={nh} {str(dtype)[6:]}"
+                if backward:
+                    w = _win_bwd_case(a, gen)
+                    want = bwd[2](**w)
+                    check_grads(f"whole-tile kernel 8 {tag}", WIN_BWD_NAMES,
+                                wa.window_attention_fused_bwd(**w), want, BWD_TOL[dtype])
+                    check_grads(f"row-tiled kernel 8 {tag}", WIN_BWD_NAMES, bwd[1](**w), want,
+                                BWD_TOL[dtype])
+                    continue
+                for (name, rows, plain), whole in zip(row_kernels(), (
+                        wa.window_attention_fused, wa.window_attention_packed)):
+                    want = plain(**a)
+                    check_close(f"whole-tile {name[:-5]} {tag}", whole(**a), want, *BOUNDS[dtype])
+                    check_close(f"row-tiled {name[:-5]} {tag}", rows(**a), want, *BOUNDS[dtype])
+
+    stats = {}
+    print(f"  the frame-8 path's shapes, bf16, forward at batch {batch}, backward at batch "
+          f"{train_batch}, shifted:")
+    for gname, ((D, H, W, C), nh, window, shift) in recon_geometries(RECON_FRAMES).items():
+        n = window[0] * window[1] * window[2]
+        for name, kernel, plain in row_kernels():
+            a = _win_case_at(batch, (D, H, W), C, nh, window, shift, torch.bfloat16, gen)
+            out = kernel(**a)
+            errs[name].append(check_close(f"{name} {gname}", out, plain(**a),
+                                          *BOUNDS[torch.bfloat16]))
+            ms, pms = time_pair(lambda: kernel(**a), lambda: plain(**a))
+            if gname == "dec_stage1":
+                stats[name] = dict(
+                    ms=ms, plain_ms=pms, shape=f"x_windows ({a['x_windows'].shape[0]},{n},{C}) "
+                    f"bf16, nH {nh}, shifted",
+                    **bound(tensors_of(a) + [out],
+                            attn_flops(a["x_windows"].shape[0] * n, C, n), "bf16"))
+            del a, out
+        w = _win_bwd_case(_win_case_at(train_batch, (D, H, W), C, nh, window, shift,
+                                       torch.bfloat16, gen), gen)
+        got = bwd[1](**w)
+        errs[bwd[0]].append(check_grads(f"{bwd[0]} {gname}", WIN_BWD_NAMES, got, bwd[2](**w),
+                                        BWD_TOL[torch.bfloat16]))
+        ms, pms = time_pair(lambda: bwd[1](**w), lambda: bwd[2](**w))
+        if gname == "dec_stage1":
+            stats[bwd[0]] = dict(
+                ms=ms, plain_ms=pms, shape=f"x_windows ({w['x_windows'].shape[0]},{n},{C}) "
+                f"bf16, nH {nh}, shifted",
+                **bound(tensors_of(w, got),
+                        attn_flops(w["x_windows"].shape[0] * n, C, n, backward=True), "bf16"))
+        del w, got
+        torch.cuda.empty_cache()
+    lib = cuda_lib.library()
+    for gname, ((D, H, W, C), nh, window, _) in recon_geometries(RECON_FRAMES).items():
+        n = window[0] * window[1] * window[2]
+        bn = train_batch * (D // window[0]) * (H // window[1]) * (W // window[2])
+        ws = lib.vadcl_window_attn_bwd_rows_workspace_bytes(bn, n, C, nh, 1)
+        part = lib.vadcl_window_attn_bwd_rows_dbias_bytes(bn, n, nh)
+        print(f"  row-tiled kernel 8 workspace, bf16, batch {train_batch}, {gname} (N={n}): "
+              f"{ws / 1e6:.1f} MB, of it the d(bias) partials {part / 1e6:.1f} MB "
+              f"(one per window would be {bn * nh * n * n * 4 / 1e6:.1f} MB)")
+    for k in stats:
+        stats[k]["max_abs_err"] = max(errs[k])
+    return stats
+
+
 REDUCED_DEPTHS = ((1, 2), (2, 1))  # encoder, decoder: one block per kind of every stage
 
 
-def flagship_config(attn_kernel: str = "fold", depths=None, image_size: int = 224):
-    """The shanghaitech predict model at full width with fused attention and
-    cluster heads; ``depths`` cuts (encoder, decoder) depths, ``image_size``
-    moves the spatial cluster head with the input."""
+def flagship_config(attn_kernel: str = "fold", depths=None, image_size: int = 224,
+                    predict: bool = True):
+    """The shanghaitech model (predict, or with ``predict=False``
+    reconstruction) at full width with fused attention and cluster heads;
+    ``depths`` cuts (encoder, decoder) depths, ``image_size`` moves the
+    spatial cluster head with the input."""
     from vadcl_tpu_torch.core.config import preset
 
     m = dataclasses.replace(
-        preset("shanghaitech").model, predict=True, fused_attention=True, fused_cluster=True,
+        preset("shanghaitech").model, predict=predict, fused_attention=True, fused_cluster=True,
         attn_kernel=attn_kernel,
     )
     if depths is not None:
@@ -864,15 +1043,19 @@ def flagship_config(attn_kernel: str = "fold", depths=None, image_size: int = 22
     return m
 
 
-def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2):
+def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2, recon: int = 0):
+    """The model's outputs, card against CPU; ``recon`` > 0: reconstruction
+    mode on clips of that many frames (predict mode on 4 frames otherwise)."""
     from vadcl_tpu_torch.models import VADModel
 
+    frames = recon or 4
     print(f"[3] flagship model, attn_kernel={attn_kernel}, depths "
-          f"{depths or 'full'}, fp32: card (kernels) vs CPU (plain versions)")
-    cpu_model = VADModel(flagship_config(attn_kernel, depths), torch.float32,
+          f"{depths or 'full'}, {f'reconstruction, {frames} frames' if recon else 'predict'}, "
+          "fp32: card (kernels) vs CPU (plain versions)")
+    cpu_model = VADModel(flagship_config(attn_kernel, depths, predict=not recon), torch.float32,
                          torch.Generator().manual_seed(0)).eval()
     gpu_model = copy.deepcopy(cpu_model).cuda()
-    clips = torch.rand(clips, 4, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    clips = torch.rand(clips, frames, 224, 224, 3, generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         t0 = time.perf_counter()
         want = cpu_model(clips)
@@ -880,7 +1063,7 @@ def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2):
         got = gpu_model(clips.cuda())
         torch.cuda.synchronize()
     print(f"  recon {tuple(got.recon.shape)}; CPU forward {t_cpu:.1f} s")
-    if tuple(got.recon.shape) != (len(clips), 1, 224, 224, 3) or not bool(
+    if tuple(got.recon.shape) != (len(clips), frames if recon else 1, 224, 224, 3) or not bool(
             torch.isfinite(got.recon).all()):
         raise AssertionError("flagship recon has the wrong shape or is not finite")
     check_close("model recon", got.recon.cpu(), want.recon, MODEL_TOL, MODEL_TOL)
@@ -895,29 +1078,37 @@ def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2):
 MODEL_GRAD_TOL = 2e-3  # phase 3b, per tensor: fp32, summation order through ~30 layers
 
 
-def flagship_train_config(attn_kernel: str = "fold", depths=None, image_size: int = 224):
+def flagship_train_config(attn_kernel: str = "fold", depths=None, image_size: int = 224,
+                          recon: int = 0):
+    """The flagship training config; ``recon`` > 0: reconstruction mode on
+    clips of that many frames."""
     from vadcl_tpu_torch.core.config import preset
 
-    return preset("shanghaitech").replace(
-        model=flagship_config(attn_kernel, depths, image_size))
+    cfg = preset("shanghaitech")
+    if recon:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, frame_num=recon))
+    return cfg.replace(model=flagship_config(attn_kernel, depths, image_size, not recon))
 
 
-def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 224):
+def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 224,
+                      recon: int = 0):
     """Training loss and backward of the flagship model in fp32 with TF32
     off, the card (the forward kernels and their backward kernels) against
     the CPU (plain versions), on one uint8 clip at step 0 with every gate
     on.  At ``image_size`` 240 the 60^2 and 30^2 token grids need window
-    padding against the 7x7 windows."""
+    padding against the 7x7 windows; ``recon`` > 0: reconstruction mode on
+    clips of that many frames."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train.step import make_loss_fn
 
     print(f"[3b] flagship loss + backward, attn_kernel={attn_kernel}, depths "
-          f"{depths or 'full'}, {image_size}^2, fp32: card vs CPU")
-    cfg = flagship_train_config(attn_kernel, depths, image_size)
+          f"{depths or 'full'}, {image_size}^2, "
+          f"{f'reconstruction, {recon} frames' if recon else 'predict'}, fp32: card vs CPU")
+    cfg = flagship_train_config(attn_kernel, depths, image_size, recon)
     cpu_model = VADModel(cfg.model, torch.float32, torch.Generator().manual_seed(0))
     gpu_model = copy.deepcopy(cpu_model).to(DEV)
     clip = torch.from_numpy(np.random.RandomState(2).randint(
-        0, 256, (1, 4, image_size, image_size, 3)).astype(np.uint8))
+        0, 256, (1, recon or 4, image_size, image_size, 3)).astype(np.uint8))
     t0 = time.perf_counter()
     want, _ = make_loss_fn(cpu_model, cfg)(clip, 0)
     want.backward()
@@ -954,10 +1145,10 @@ class MemLoader:
     """In-memory uint8 clips with the HostDataLoader protocol; stamps the
     wall clock, after a device synchronize, at every batch request."""
 
-    def __init__(self, batch_size: int, steps: int, seed: int = 0):
+    def __init__(self, batch_size: int, steps: int, seed: int = 0, frames: int = 4):
         rng = np.random.RandomState(seed)
         self.batch_size, self.steps = batch_size, steps
-        self.data = rng.randint(0, 256, (4, batch_size, 4, 224, 224, 3)).astype(np.uint8)
+        self.data = rng.randint(0, 256, (4, batch_size, frames, 224, 224, 3)).astype(np.uint8)
         self.stamps = []
 
     def steps_per_epoch(self) -> int:
@@ -994,6 +1185,50 @@ SCORING_COUNTS = {
     "fold_block": {"fold_block": 144},
 }
 TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180}}
+# Reconstruction at frame_num = 8: every window holds 196 or 392 tokens, so
+# all 18 blocks of a forward run a row-tiled body (kernel A stops at 112
+# tokens, so a "fold" block takes the partitioned-window route) and the
+# whole-tile bodies never launch.  Exact counts: 18 a forward (7 scoring
+# forwards of 16 windows), 18 each way a training step (10 steps).
+RECON_FRAMES = 8
+RECON_SCORING_KERNELS = {
+    "fold": COMMON_FWD | {"window_attention_fused_rows"},
+    "base": COMMON_FWD | {"window_attention_fused_rows"},
+    "packed": COMMON_FWD | {"window_attention_packed_rows"},
+}
+RECON_TRAINING_KERNELS = {
+    k: RECON_SCORING_KERNELS[k] | {"ln_mlp_bwd", "window_attention_fused_bwd_rows"}
+    for k in ("fold", "base")
+}
+
+
+@contextlib.contextmanager
+def plain_versions_refuse_the_card():
+    """While open, the plain version of every attention and MLP kernel raises
+    when it is handed a CUDA tensor: the wrappers take them for CPU tensors
+    only, so a main-path run that passes shows no kernel of it fell back.
+    (The cluster heads' backward recomputes its plain forward by design: the
+    JAX custom VJPs recompute in XLA, no Pallas kernel to port.)"""
+    from vadcl_tpu_torch.ops import fold_attn, ln_mlp, window_attn
+
+    saved = []
+    for mod in (fold_attn, ln_mlp, window_attn):
+        for name in [n for n in vars(mod) if n.endswith("_plain")]:
+            fn = getattr(mod, name)
+
+            def guard(*args, _fn=fn, _name=name, **kw):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in (*args, *kw.values())):
+                    raise AssertionError(f"{_name} was called on a CUDA tensor")
+                return _fn(*args, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, guard)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def reset_launches():
@@ -1025,29 +1260,39 @@ def read_launches(expected, path: str, counts=None, heads: int = 0) -> dict:
     return launches
 
 
-def phase_training(attn_kernel: str = "fold"):
+def phase_training(attn_kernel: str = "fold", recon: int = 0):
     """``train()`` on the flagship config in bf16 at batch 4: finite losses,
     moved parameters, exactly this path's kernels launched, and a checkpoint
-    that restores params and Adam moments exactly.  Returns the launch
+    that restores params and Adam moments exactly; ``recon`` > 0:
+    reconstruction mode on clips of that many frames.  Returns the launch
     counts."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train import CheckpointManager, create_train_state, train
 
-    print(f"[5] training path, attn_kernel={attn_kernel}, bf16: train() at batch "
+    mode = f"reconstruction, {recon} frames" if recon else "predict"
+    print(f"[5] training path, attn_kernel={attn_kernel}, {mode}, bf16: train() at batch "
           f"{TRAIN_BATCH}, {WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
     steps = WARMUP_STEPS + TIMED_STEPS
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_train_") as out:
-        cfg = flagship_train_config(attn_kernel).replace(
+        cfg = flagship_train_config(attn_kernel, recon=recon).replace(
             output_dir=out, batch_size_per_device=TRAIN_BATCH)
-        loader = MemLoader(TRAIN_BATCH, steps)
+        loader = MemLoader(TRAIN_BATCH, steps, frames=recon or 4)
         torch.cuda.reset_peak_memory_stats()
+        if recon:
+            expected = RECON_TRAINING_KERNELS[attn_kernel]
+            counts = {"window_attention_fused_rows": 18 * steps,
+                      "window_attention_fused_bwd_rows": 18 * steps,
+                      "ln_mlp": 18 * steps, "ln_mlp_bwd": 18 * steps}
+        else:
+            expected, counts = TRAINING_KERNELS[attn_kernel], TRAINING_COUNTS.get(attn_kernel)
         reset_launches()
-        state = train(cfg, loader, max_steps=steps, device=DEV)
-        torch.cuda.synchronize()
+        with plain_versions_refuse_the_card():
+            state = train(cfg, loader, max_steps=steps, device=DEV)
+            torch.cuda.synchronize()
         t_end = time.perf_counter()
-        launches = read_launches(TRAINING_KERNELS[attn_kernel], f"training, {attn_kernel}",
-                                 TRAINING_COUNTS.get(attn_kernel), heads=steps)
+        launches = read_launches(expected, f"training, {attn_kernel}, {mode}", counts,
+                                 heads=steps)
         losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
         wall = t_end - loader.stamps[WARMUP_STEPS]
         print(f"  per-step losses: {[round(float(v), 4) for v in losses]}")
@@ -1124,41 +1369,54 @@ def make_videos(seed: int = 0):
     return videos
 
 
-def phase_scoring(attn_kernel: str = "fold"):
+def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
+    """``evaluate_videos`` under ``attn_kernel``; ``recon`` > 0:
+    reconstruction mode, scoring windows of that many frames (per-window
+    MSE of shape (n, recon), one score per frame of each window)."""
     from vadcl_tpu_torch.eval.predict import (
         eval_input_frames, evaluate_videos, make_video_scorer, sliding_windows,
     )
     from vadcl_tpu_torch.models import VADModel
 
-    print(f"[4] scoring path, attn_kernel={attn_kernel}, bf16: evaluate_videos on "
+    predict, fn = not recon, recon or 4
+    mode = f"reconstruction, {fn} frames" if recon else "predict"
+    print(f"[4] scoring path, attn_kernel={attn_kernel}, {mode}, bf16: evaluate_videos on "
           "in-memory uint8 videos")
-    model = VADModel(flagship_config(attn_kernel), torch.bfloat16,
+    model = VADModel(flagship_config(attn_kernel, predict=predict), torch.bfloat16,
                      torch.Generator().manual_seed(0))
     model = model.cuda().eval()
     scorer = make_video_scorer(
-        lambda clips: model(clips).recon, frame_num=4, predict=True,
-        batch_windows=16, input_frames=eval_input_frames("swin", True, 4),
+        lambda clips: model(clips).recon, frame_num=fn, predict=predict,
+        batch_windows=BATCH_WINDOWS, input_frames=eval_input_frames("swin", predict, fn),
         device="cuda",
     )
     videos = make_videos()
-    evaluate_videos(scorer, videos[:1], 4, True)  # warm-up (cuDNN autotune etc.)
+    evaluate_videos(scorer, videos[:1], fn, predict)  # warm-up (cuDNN autotune etc.)
     torch.cuda.synchronize()
+    n_windows = sum(len(sliding_windows(v[0].shape[0], fn, "stride1")) for v in videos)
+    forwards = sum(-(-len(sliding_windows(v[0].shape[0], fn, "stride1")) // BATCH_WINDOWS)
+                   for v in videos)
+    if recon:
+        rows = "window_attention_packed_rows" if attn_kernel == "packed" else \
+            "window_attention_fused_rows"
+        expected = RECON_SCORING_KERNELS[attn_kernel]
+        counts = {rows: 18 * forwards, "ln_mlp": 18 * forwards}
+    else:
+        expected, counts = SCORING_KERNELS[attn_kernel], SCORING_COUNTS.get(attn_kernel)
     reset_launches()
     t0 = time.perf_counter()
-    auc, per_scene, per_video = evaluate_videos(scorer, videos, 4, True, "stride1")
-    torch.cuda.synchronize()
+    with plain_versions_refuse_the_card():
+        auc, per_scene, per_video = evaluate_videos(scorer, videos, fn, predict, "stride1")
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_windows = sum(len(sliding_windows(v[0].shape[0], 4, "stride1")) for v in videos)
-    forwards = sum(-(-len(sliding_windows(v[0].shape[0], 4, "stride1")) // BATCH_WINDOWS)
-                   for v in videos)
-    launches = read_launches(SCORING_KERNELS[attn_kernel], f"scoring, {attn_kernel}",
-                             SCORING_COUNTS.get(attn_kernel), heads=forwards)
+    launches = read_launches(expected, f"scoring, {attn_kernel}, {mode}", counts,
+                             heads=forwards)
     print(f"  {n_windows} windows in {wall:.3f} s = {n_windows / wall:.2f} windows/s; "
           f"mean scene AUC {auc:.4f}; per scene {per_scene}")
     for (frames, _, _), vs in zip(videos, per_video):
-        if len(vs.scores) != len(sliding_windows(frames.shape[0], 4, "stride1")) or not np.all(
-            np.isfinite(vs.scores)
-        ):
+        per_window = fn if recon else 1
+        if len(vs.scores) != per_window * len(sliding_windows(frames.shape[0], fn, "stride1")) \
+                or not np.all(np.isfinite(vs.scores)):
             raise AssertionError("per-video scores have the wrong length or are not finite")
     if not (np.isfinite(auc) and 0.0 <= auc <= 1.0):
         raise AssertionError(f"mean scene AUC {auc} is not a finite probability")
@@ -1185,6 +1443,12 @@ REPLACES = {
     "fold_block": ("vadcl_tpu_torch/csrc/fold_attn.cu", "vadcl_tpu/ops/pallas_attn_fold.py:341"),
     "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
                        "vadcl_tpu/ops/pallas_attn_fold.py:870"),
+    "window_attention_fused_rows": ("vadcl_tpu_torch/csrc/window_attn_rows.cu",
+                                    "vadcl_tpu/ops/pallas_attn.py:30"),
+    "window_attention_fused_bwd_rows": ("vadcl_tpu_torch/csrc/window_attn_bwd_rows.cu",
+                                        "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
+    "window_attention_packed_rows": ("vadcl_tpu_torch/csrc/window_attn_rows.cu",
+                                     "vadcl_tpu/ops/pallas_attn.py:113"),
 }
 # The main path whose launch count the kernels line reports for each kernel.
 COUNTED_ON = {
@@ -1195,6 +1459,9 @@ COUNTED_ON = {
     "window_attention_packed": "scoring packed",
     "fold_attention_packed": "scoring fold_packed", "fold_block": "scoring fold_block",
     "fold_block_bwd": "training fold_block",
+    "window_attention_fused_rows": "scoring fold, reconstruction",
+    "window_attention_fused_bwd_rows": "training fold, reconstruction",
+    "window_attention_packed_rows": "scoring packed, reconstruction",
 }
 
 
@@ -1203,20 +1470,29 @@ def main():
     phase_build()
     stats = phase_kernels()
     stats.update(phase_bwd_kernels(TRAIN_BATCH))
+    stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_model("fold", REDUCED_DEPTHS)
     phase_model("base")
     phase_model("packed", clips=1)
     phase_model("fold_packed", clips=1)
     phase_model("fold_mix", REDUCED_DEPTHS, clips=1)
     phase_model("fold_block", clips=1)
+    phase_model("fold", clips=1, recon=RECON_FRAMES)
+    phase_model("packed", REDUCED_DEPTHS, clips=1, recon=RECON_FRAMES)
     phase_model_grads("fold", REDUCED_DEPTHS)
     phase_model_grads("base")
     phase_model_grads("fold", ((2, 2), (2, 2)), image_size=240)
     phase_model_grads("fold_block")
+    phase_model_grads("fold", REDUCED_DEPTHS, recon=RECON_FRAMES)
+    phase_model_grads("fold", REDUCED_DEPTHS, image_size=240, recon=RECON_FRAMES)
     counts = {f"scoring {k}": phase_scoring(k) for k in SCORING_KERNELS}
     counts.update({f"training {k}": phase_training(k) for k in TRAINING_KERNELS})
     for k in ("packed", "fold_packed", "fold_mix"):
         phase_training_refused(k)
+    counts.update({f"scoring {k}, reconstruction": phase_scoring(k, RECON_FRAMES)
+                   for k in RECON_SCORING_KERNELS})
+    counts.update({f"training {k}, reconstruction": phase_training(k, RECON_FRAMES)
+                   for k in RECON_TRAINING_KERNELS})
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],

@@ -2,7 +2,8 @@
 variant, LN->MLP): what a CPU can hold of them.
 
 * The Python mirror of the bf16 fold kernel's shared-memory layout: every
-  geometry that took the fold route still does, N = 392 does not, and a block
+  geometry that took the fold route still does, N = 392 does not (it takes
+  the row-tiled partitioned-window bodies), and a block
   leaves room for the blocks per SM the design counts on.
 * The packed operand layouts: pack -> unpack gives the bf16 weights (and the
   fp32 score terms) back, and the plain versions fed through them agree
@@ -50,6 +51,7 @@ from vadcl_tpu_torch.ops.ln_mlp import (
     unpack_mlp_weights,
 )
 from vadcl_tpu_torch.ops.packed import PackCache
+from vadcl_tpu_torch.ops.window_attn import window_body
 
 T = torch.from_numpy
 SM_SHARED = 233472  # shared memory of one Hopper SM (228 KB); a block also reserves 1 KB
@@ -74,12 +76,15 @@ def test_fold_route_is_kept(geom):
 
 
 def test_large_windows_are_refused_by_name():
-    """N = 392 stays with the row-tiled kernels still to be ported: the bf16
-    forward caps the window explicitly, whatever its shared memory would be."""
+    """N = 392 leaves the fold kernels for the row-tiled bodies of kernels 7,
+    8 and 9: the bf16 forward caps the window explicitly, whatever its shared
+    memory would be."""
     assert FOLD_MAX_TOKENS == 112
     for dtype in (torch.bfloat16, torch.float32):
         assert not fold_fits(392, 96, 6, dtype)
         assert not fold_packed_fits(392, 96, 6, dtype)
+        assert window_body(392, 96, 6, dtype) == "rows"
+        assert window_body(392, 96, 6, dtype, backward=True) == "rows"
     assert not fold_fits(128, 32, 2, torch.bfloat16)  # would fit 227 KB, is over the cap
     assert fold_smem_bytes(128, 32, 2, True) <= SMEM_LIMIT
 

@@ -39,6 +39,7 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused_bwd,
     window_attention_fused_plain,
     window_attention_packed,
+    window_body,
 )
 
 T = torch.from_numpy
@@ -286,14 +287,18 @@ def test_fold_backward_falls_back_to_window_kernel(monkeypatch, shifted, with_ln
 
 def test_fold_fits_is_the_shared_memory_predicate():
     """Every flagship and tiny window fits the fold kernels both ways and in
-    both dtypes; the (8, 7, 7) window of 16-frame clips (N = 392) does not,
-    which sends a fold block to the partitioned-window route."""
+    both dtypes; the (8, 7, 7) window of 8-frame reconstruction clips
+    (N = 392) does not, which sends a fold block to the partitioned-window
+    route, whose row-tiled bodies take it both ways."""
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2)):
         for dtype in (torch.float32, torch.bfloat16):
             for backward in (False, True):
                 assert fold_fits(n, c, nh, dtype, backward), (n, c, nh, dtype, backward)
     assert not fold_fits(392, 96, 6, torch.bfloat16)
     assert not fold_fits(392, 96, 6, torch.float32, backward=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            assert window_body(392, 96, 6, dtype, backward) == "rows"
     # the bf16 forward at the flagship's widest block: the figures the kernels' headers
     # state (kernel A's block, and the body with score tiles in shared memory that the
     # whole-block kernels keep)
@@ -306,7 +311,9 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
     names = [k.__name__ for k in KERNELS]
     assert names[6:9] == ["window_attention_fused", "window_attention_fused_bwd",
                           "window_attention_packed"]
-    assert len(names) == 12 and len(set(names)) == 12
+    assert names[12:] == ["window_attention_fused_rows", "window_attention_fused_bwd_rows",
+                          "window_attention_packed_rows"]
+    assert len(names) == 15 and len(set(names)) == 15
     before = [k.launches for k in KERNELS]
     a = _case(GEOMS["N49_C24"], True, seed=11)
     x = T(a["x"]).requires_grad_()
@@ -319,18 +326,19 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
 
 
 def test_window_attention_checks_its_arguments():
-    """The checks that guard the launch are reachable without a card."""
+    """The checks that guard the launch are reachable without a card; a
+    window the whole-tile body cannot hold goes to the row-tiled body."""
     from vadcl_tpu_torch.ops.window_attn import _check_windows
 
-    smem = lambda n, c, nh, bf16: fold_smem_bytes(n, c, nh, bool(bf16))  # noqa: E731
     x = torch.zeros(8, 49, 24)
     bias, mask = torch.zeros(2, 49, 49), torch.zeros(4, 49, 49)
-    _check_windows("k", x, bias, mask, 2, 4, smem)
+    _check_windows("k", x, bias, mask, 2, 4)
     with pytest.raises(NotImplementedError, match="multiples of 16"):
-        _check_windows("k", x.bfloat16(), bias, mask, 2, 4, smem)
+        _check_windows("k", x.bfloat16(), bias, mask, 2, 4)
     with pytest.raises(ValueError, match="bias"):
-        _check_windows("k", x, bias[:1], mask, 2, 4, smem)
+        _check_windows("k", x, bias[:1], mask, 2, 4)
     with pytest.raises(ValueError, match="mask"):
-        _check_windows("k", x, bias, mask[:3], 2, 4, smem)
-    with pytest.raises(NotImplementedError, match="tiles the query rows"):
-        _check_windows("k", torch.zeros(2, 392, 96), torch.zeros(6, 392, 392), None, 6, 1, smem)
+        _check_windows("k", x, bias, mask[:3], 2, 4)
+    _check_windows("k", torch.zeros(2, 392, 96), torch.zeros(6, 392, 392), None, 6, 1)
+    assert window_body(392, 96, 6, torch.bfloat16) == "rows"
+    assert window_body(49, 24, 2, torch.float32) == "tile"

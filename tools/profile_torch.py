@@ -2,7 +2,8 @@
 or in its three hot forward kernels alone, on one NVIDIA GPU.
 
 Runs the flagship predict model (bf16, fused kernels, seeded init) on
-``--batch`` 4x224^2 clips under ``torch.profiler`` and prints the device
+``--batch`` 4x224^2 clips (``--recon --frame-num F``: the reconstruction
+model on Fx224^2 clips) under ``torch.profiler`` and prints the device
 time by kernel name, the share of the hand-written kernels, and the
 device's idle share over the traced window.  By default it times the
 forward, the work of one ``evaluate_videos`` batch; with ``--train`` one
@@ -10,6 +11,7 @@ forward, the work of one ``evaluate_videos`` batch; with ``--train`` one
 
     python tools/profile_torch.py [--batch 16] [--steps 5]
     python tools/profile_torch.py --train --batch 4 --attn-kernel base
+    python tools/profile_torch.py --recon --frame-num 8 [--train --batch 4]
 
 With ``--kernels-only`` it times fold attention, its packed variant and
 LN->MLP at every flagship geometry (``chip_smoke.py``'s table and operands),
@@ -22,7 +24,11 @@ profiler; last, the host's time per wrapper call on a tiny input:
     python tools/profile_torch.py --kernels-only [--batches 4 16] [--head-dim 32] [--tag NAME]
 
 (``--head-dim`` runs the attention kernels at the same widths with fewer,
-wider heads than the flagship's 16.)
+wider heads than the flagship's 16.)  With ``--recon --frame-num F`` it times
+instead the partitioned-window kernels 7, 9 (forward, at each batch) and 8
+(backward, at the smallest batch) at the window geometries of F-frame
+reconstruction clips (F = 8: windows of 196 and 392 tokens, the row-tiled
+bodies).
 
 ``--root`` names the tree whose ``vadcl_tpu_torch`` package is run (default:
 the tree this file is in), so that two commits can be compared on one card in
@@ -47,7 +53,8 @@ from torch.profiler import ProfilerActivity, profile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the hand-written kernels (csrc/*.cu)
 OURS = ("fold_attn", "fold_block", "window_attn", "ln_mlp", "cluster_assign", "space_cluster",
-        "center_sq", "sum_partials", "atb_partial", "sum_rows")
+        "center_sq", "sum_partials", "atb_partial", "sum_rows", "rows_attn", "rows_gemm",
+        "rows_bwd")
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -91,6 +98,38 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
+def window_kernels_only(args, smoke, gen) -> None:
+    """Kernels 7 and 9 at each batch and kernel 8 at the smallest, bf16,
+    shifted, at the reconstruction geometries of ``args.frame_num``."""
+    from vadcl_tpu_torch.ops.window_attn import (
+        window_attention_fused, window_attention_fused_bwd, window_attention_packed, window_body,
+    )
+
+    for gname, ((D, H, W, C), nh, window, shift) in smoke.recon_geometries(args.frame_num).items():
+        n = window[0] * window[1] * window[2]
+        for batch in args.batches:
+            a = smoke._win_case_at(batch, (D, H, W), C, nh, window, shift, torch.bfloat16, gen)
+            for name, k in (("window_attention_fused", window_attention_fused),
+                            ("window_attention_packed", window_attention_packed)):
+                print(json.dumps({
+                    "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch, "N": n,
+                    "body": window_body(n, C, nh, torch.bfloat16),
+                    "ms": round(smoke.cuda_ms(lambda: k(**a)), 4),
+                    "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4)}))
+            if batch == min(args.batches):
+                w = smoke._win_bwd_case(a, gen)
+                print(json.dumps({
+                    "tag": args.tag, "kernel": "window_attention_fused_bwd", "geometry": gname,
+                    "batch": batch, "N": n,
+                    "body": window_body(n, C, nh, torch.bfloat16, backward=True),
+                    "ms": round(smoke.cuda_ms(lambda: window_attention_fused_bwd(**w)), 4),
+                    "kernel_ms": round(own_kernel_ms(lambda: window_attention_fused_bwd(**w)),
+                                       4)}))
+                del w
+            del a
+            torch.cuda.empty_cache()
+
+
 def kernels_only(args) -> None:
     from vadcl_tpu_torch.ops import cuda_lib
     from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_packed
@@ -106,6 +145,10 @@ def kernels_only(args) -> None:
     print(json.dumps({"tag": args.tag, "root": args.root, "card": smoke.smi_line(),
                       "build_s": round(time.perf_counter() - t0, 2)}))
     gen = torch.Generator().manual_seed(0)
+    if args.recon:
+        with torch.no_grad():
+            window_kernels_only(args, smoke, gen)
+        return
     bf = torch.bfloat16
     folds = (("fold_attention", fold_attention), ("fold_attention_packed", fold_attention_packed))
     # (no_grad, not inference_mode: tensors made under inference_mode track no
@@ -145,19 +188,20 @@ def model_profile(args) -> None:
 
     cfg = preset("shanghaitech")
     cfg = cfg.replace(model=dataclasses.replace(
-        cfg.model, predict=True, fused_attention=True, fused_cluster=True,
+        cfg.model, predict=not args.recon, fused_attention=True, fused_cluster=True,
         attn_kernel=args.attn_kernel,
     ))
+    frames = args.frame_num
     model = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).cuda()
     if args.train:
         state = create_train_state(model, cfg)
         step_fn = make_train_step(model, cfg, steps_per_epoch=1000)
-        clips = torch.randint(0, 256, (args.batch, 4, 224, 224, 3), dtype=torch.uint8,
+        clips = torch.randint(0, 256, (args.batch, frames, 224, 224, 3), dtype=torch.uint8,
                               device="cuda")
         run, what = (lambda: step_fn(state, clips)), "train step"
     else:
         model.eval()
-        clips = torch.rand(args.batch, 4, 224, 224, 3, device="cuda")
+        clips = torch.rand(args.batch, frames, 224, 224, 3, device="cuda")
 
         def run():
             with torch.inference_mode():
@@ -181,7 +225,9 @@ def model_profile(args) -> None:
     by_name = device_ms_by_kernel(prof)
     busy = sum(by_name.values())
     ours = sum(v for k, v in by_name.items() if any(o in k for o in OURS))
-    print(f"attn_kernel {args.attn_kernel}, batch {args.batch}: {what} {untraced * 1e3:.2f} ms untraced "
+    mode = f"reconstruction, {frames} frames" if args.recon else "predict"
+    print(f"attn_kernel {args.attn_kernel}, {mode}, batch {args.batch}: {what} "
+          f"{untraced * 1e3:.2f} ms untraced "
           f"({args.batch / untraced:.1f} clips/s), {wall / args.steps * 1e3:.2f} ms traced")
     print(f"device busy {busy / args.steps:.2f} ms per {what} = "
           f"{100 * busy / (wall * 1e3):.1f}% of the traced wall; idle share "
@@ -209,7 +255,13 @@ def main(argv=None):
                     help="with --kernels-only: the attention kernels' head width")
     ap.add_argument("--tag", default="", help="with --kernels-only: a name on every line")
     ap.add_argument("--root", default=HERE, help="the tree whose vadcl_tpu_torch is run")
+    ap.add_argument("--recon", action="store_true",
+                    help="the reconstruction model (predict=False) on --frame-num frames")
+    ap.add_argument("--frame-num", type=int, default=4,
+                    help="frames per clip (predict mode takes 4)")
     args = ap.parse_args(argv)
+    if not args.recon and args.frame_num != 4:
+        ap.error("predict mode takes 4-frame clips: add --recon for --frame-num")
     args.root = os.path.abspath(args.root)
     sys.path.insert(0, args.root)
     from vadcl_tpu_torch.core.config import ATTN_KERNELS, TRAINABLE_ATTN_KERNELS

@@ -171,6 +171,12 @@ _PRESETS: Dict[str, Dict[str, Any]] = {
     "shanghaitech": dict(
         data=DataConfig(name="shanghaitech", frame_num=4),
     ),
+    "avenue": dict(
+        data=DataConfig(name="avenue", frame_num=4),
+    ),
+    "ped2": dict(
+        data=DataConfig(name="ped2", frame_num=4),
+    ),
     # tiny synthetic config used by tests
     "tiny": dict(
         model=ModelConfig(

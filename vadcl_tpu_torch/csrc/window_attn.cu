@@ -31,10 +31,12 @@
 // pre-projection tile, one head's q/k/v, its N x N fp32 scores and their
 // rounded copy), four block-wide barriers per head, the fp32 softmax
 // between the score and value products, and the weight tiles read from L2
-// by every block.  A block holds a whole (N, N) score tile, so windows whose
-// tile does not fit 227 KB (N = 392) are refused; tiling the query rows is
-// still to do.  Left on the table: wgmma with TMA-staged weights, several
-// windows per block at N = 49, bias + mask staged once per block.
+// by every block.  A block holds a whole (N, N) score tile, so it takes only
+// windows whose plan fits 227 KB; the others (N = 196 and 392 of 8-frame
+// reconstruction clips, and from N = 147 at C = 96 in bf16) run the row-tiled
+// body of window_attn_rows.cu, which ops/window_attn.py:window_body picks.
+// Left on the table: wgmma with TMA-staged weights, several windows per
+// block at N = 49, bias + mask staged once per block.
 #include <mma.h>
 
 #include "common.cuh"

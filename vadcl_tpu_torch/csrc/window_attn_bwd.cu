@@ -30,8 +30,10 @@
 // What bounds it: as kernel 6, one block per SM, nine block-wide barriers
 // per head and the fp32 softmax backward between the products; the d(bias)
 // partials are the largest workspace (nH*N*N floats per window).  A block
-// holds whole (N, N) tiles, so N = 392 is refused; tiling the query rows is
-// still to do.
+// holds whole (N, N) tiles, so it takes only windows whose plan fits 227 KB;
+// the others (N = 196 and 392 of 8-frame reconstruction clips, N = 147 in
+// bf16) run the row-tiled body of window_attn_bwd_rows.cu, which
+// ops/window_attn.py:window_body picks.
 #include <mma.h>
 
 #include "reduce.cuh"

@@ -24,7 +24,10 @@ from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd
 from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
     window_attention_fused_bwd,
+    window_attention_fused_bwd_rows,
+    window_attention_fused_rows,
     window_attention_packed,
+    window_attention_packed_rows,
 )
 from vadcl_tpu_torch.ops.window import (
     compute_attn_mask,
@@ -38,11 +41,15 @@ from vadcl_tpu_torch.ops.window import (
 # The wrappers of the hand-written CUDA kernels, each with a ``launches``
 # counter that counts its kernel launches (CPU calls run the plain version
 # and do not count): forward kernels A-D, backward kernels 5 and 6, then the
-# partitioned-window attention kernels 7, 8 and 9, then kernel 10 (the packed
-# fold attention) and the whole-Swin-block kernel each way.
+# partitioned-window attention kernels 7, 8 and 9 (whole-tile bodies), then
+# kernel 10 (the packed fold attention), the whole-Swin-block kernel each way,
+# and the row-tiled bodies of 7, 8 and 9 (windows the whole-tile bodies
+# cannot hold).
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
-           window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd)
+           window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd,
+           window_attention_fused_rows, window_attention_fused_bwd_rows,
+           window_attention_packed_rows)
 
 __all__ = [
     "KERNELS",
@@ -71,7 +78,10 @@ __all__ = [
     "window_attention",
     "window_attention_fused",
     "window_attention_fused_bwd",
+    "window_attention_fused_bwd_rows",
+    "window_attention_fused_rows",
     "window_attention_packed",
+    "window_attention_packed_rows",
     "window_partition",
     "window_reverse",
 ]

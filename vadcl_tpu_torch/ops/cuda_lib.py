@@ -55,7 +55,15 @@ _SIGNATURES = {
     "vadcl_window_attn": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_packed": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_smem_bytes": ([_I] * 4, _L),
+    "vadcl_window_attn_rows": ([_P] * 9 + [_I] * 5 + [_F, _I, _P], _I),
+    "vadcl_window_attn_rows_packed": ([_P] * 9 + [_I] * 5 + [_F, _I, _P], _I),
+    "vadcl_window_attn_rows_smem_bytes": ([_I] * 4, _L),
+    "vadcl_window_attn_rows_workspace_bytes": ([_I] * 4, _L),
     "vadcl_window_attn_bwd": ([_P] * 14 + [_I] * 5 + [_F, _I, _P], _I),
+    "vadcl_window_attn_bwd_rows": ([_P] * 15 + [_I] * 5 + [_F, _I, _P], _I),
+    "vadcl_window_attn_bwd_rows_smem_bytes": ([_I] * 4, _L),
+    "vadcl_window_attn_bwd_rows_workspace_bytes": ([_I] * 5, _L),
+    "vadcl_window_attn_bwd_rows_dbias_bytes": ([_I] * 3, _L),
     "vadcl_window_attn_bwd_smem_bytes": ([_I] * 4, _L),
     "vadcl_window_attn_bwd_workspace_bytes": ([_I] * 5, _L),
     "vadcl_ln_mlp_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),

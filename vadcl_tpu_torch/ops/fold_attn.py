@@ -142,8 +142,9 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
     kernel (A, or 6 with ``backward``): its block must fit ``SMEM_LIMIT``,
     and the bf16 forward, whose warps hold a 16 x N strip of scores in
     registers, takes at most ``FOLD_MAX_TOKENS`` tokens (the cap is explicit:
-    kernel 6 would not follow a larger window, and N = 392, window (8, 7, 7)
-    on 16-frame clips, belongs to the row-tiled kernels still to be ported).
+    kernel 6 would not follow a larger window, and the N = 196 and N = 392
+    windows of 8-frame reconstruction clips go to the row-tiled bodies of the
+    partitioned-window kernels).
     A bf16 head width of 48 or a larger multiple of 16 goes to the
     partitioned-window kernels, which take it; ``fold_block_fits`` does not
     depend on this predicate, so the whole-block kernels keep such a width."""

@@ -18,15 +18,27 @@ where its window does not fit the fold kernels' shared memory
 * ``window_attention_packed``: kernel 9 (``_attn_kernel_packed``); asking it
   for a gradient raises.
 
-CUDA sources: ``csrc/window_attn.cu`` (7 and 9 share device code behind a
-template flag, with an entry point each) and ``csrc/window_attn_bwd.cu``
-(whose cross-window sums go through ``csrc/reduce.cu``).  On a CPU tensor
-each wrapper runs its plain version; on a CUDA tensor it launches the kernel
-or raises.  bf16 runs on 16x16 tensor-core tiles and needs C and head_dim to
-be multiples of 16; fp32 takes any width.  A block holds a whole (N, N)
-score tile per head, so a window must fit 227 KB of shared memory: N = 392
-(window (8, 7, 7) on 16-frame clips) does not, and is refused with
-``NotImplementedError`` (ROADMAP.md queues the row-tiled variant).
+Each kernel has two bodies.  The whole-tile body (``csrc/window_attn.cu``:
+7 and 9 share device code behind a template flag, with an entry point each;
+``csrc/window_attn_bwd.cu``, whose cross-window sums go through
+``csrc/reduce.cu``) holds a whole (N, N) score tile per head in shared memory
+and takes a window only where that fits 227 KB.  The row-tiled body
+(``csrc/window_attn_rows.cu``, ``csrc/window_attn_bwd_rows.cu``) walks the
+keys of a 16-row strip of queries in blocks with a running max and sum and
+takes every N, e.g. N = 196 and N = 392 (windows (4, 7, 7) and (8, 7, 7) of
+8-frame reconstruction clips).  ``window_body`` picks the whole-tile body
+where it fits and the row-tiled one elsewhere; ``tile_smem_bytes`` and
+``rows_smem_bytes`` mirror the library's size functions (``chip_smoke.py``
+holds them against each other).  Each body counts its own launches: the
+row-tiled ones on ``window_attention_fused_rows``,
+``window_attention_fused_bwd_rows`` and ``window_attention_packed_rows``,
+which also force that body whatever N (to hold it against the plain version
+where the whole-tile body would run).
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches a kernel or raises.  bf16 runs on tensor-core tiles and needs C and
+head_dim to be multiples of 16 (the row-tiled body: head_dim at most 64);
+fp32 takes any width.
 """
 
 from __future__ import annotations
@@ -139,20 +151,89 @@ def window_attention_fused_bwd_plain(x_windows, dout, qkv_w, qkv_b, proj_w, bias
     return dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
 
 
+ROWS_MAX_HEAD_DIM = 64  # widest bf16 head the row-tiled bodies are built for
+_ROWS_WARPS = 8  # warps of a row-tiled attention-core block
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tile_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False) -> int:
+    """Shared memory of one block of the whole-tile body (forward, or with
+    ``backward`` kernel 8): the layouts of ``csrc/window_attn.cu`` and
+    ``csrc/window_attn_bwd.cu``."""
+    hd = c // num_heads
+    if not bf16:
+        hdp = hd + 1
+        if not backward:
+            return 4 * (2 * n * c + 3 * n * hdp + n * n)
+        return 4 * max(n * c + 5 * n * hdp + 2 * n * n, n * c + 33 * c + 33 * n)
+    m = _up(n, 16)
+    stage = 4 * 256 * 16
+    if not backward:
+        sizes = [2 * m * c, 2 * m * c] + [2 * m * hd] * 3 + [4 * m * m, 2 * m * m, stage]
+        return sum(_up(v, 128) for v in sizes)
+    p1 = sum(_up(v, 128) for v in [2 * m * c] + [2 * m * hd] * 4
+             + [4 * m * m, 4 * m * m, 2 * m * m] + [4 * m * hd] * 3 + [stage])
+    p2 = _up(2 * m * 64, 128) + _up(4 * m * c, 128)
+    return max(p1, p2)
+
+
+def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False) -> int:
+    """Shared memory of one block of the row-tiled attention core
+    (``csrc/window_attn_rows.cu:rows_fwd_smem``, with ``backward``
+    ``csrc/window_attn_bwd_rows.cu:rows_bwd_smem``): K and V of one head
+    (the backward also q and dout's head slice) plus, in the backward, three
+    row statistics and the strips' column sums.  38,400 B forward and 86,400 B
+    backward at N = 392, head_dim 16 in bf16."""
+    hd = c // num_heads
+    if bf16:
+        m = _up(n, 16)
+        if not backward:
+            return 2 * 2 * m * (hd + 8)
+        return 2 * 4 * m * (hd + 8) + 4 * (3 * m + m // 16 * 3 * hd)
+    if not backward:
+        return 4 * (2 * n * (hd + 1) + _ROWS_WARPS * (n + hd))
+    return 4 * (4 * n * hd + 3 * n + 2 * _ROWS_WARPS * n)
+
+
+def window_body(n: int, c: int, num_heads: int, dtype: torch.dtype,
+                backward: bool = False) -> str:
+    """The body a window of ``n`` tokens at width ``c`` runs in: ``"tile"``
+    where the whole-tile body's block fits ``SMEM_LIMIT``, else ``"rows"``.
+    Raises ``NotImplementedError`` only where neither fits (a bf16 head wider
+    than ``ROWS_MAX_HEAD_DIM`` at a window the whole-tile body cannot hold,
+    or a row-tiled block above 227 KB)."""
+    bf16 = dtype == torch.bfloat16
+    if tile_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT:
+        return "tile"
+    if ((not bf16 or c // num_heads <= ROWS_MAX_HEAD_DIM)
+            and rows_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT):
+        return "rows"
+    raise NotImplementedError(
+        f"window attention: a window of {n} tokens at C={c}, {num_heads} heads "
+        f"({str(dtype)[6:]}) fits neither the whole-tile body nor the row-tiled body "
+        f"(bf16 head widths up to {ROWS_MAX_HEAD_DIM})"
+    )
+
+
 class _WindowAttention(torch.autograd.Function):
     """Forward kernel 7, backward kernel 8
     (``fused_window_attention_trainable``'s custom VJP): the inputs are
-    saved, the backward recomputes the forward."""
+    saved, the backward recomputes the forward.  ``rows`` forces the
+    forward's row-tiled body (else ``window_body`` picks); the backward's is
+    picked."""
 
     @staticmethod
     def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
-                scale):
+                scale, rows):
         ctx.save_for_backward(x, qkv_w, qkv_b, proj_w, bias, mask)
         ctx.meta = (num_heads, n_windows, scale)
         args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
         if x.device.type == "cpu":
             return window_attention_fused_plain(*args)
-        return _forward_cuda("window_attention_fused", False, *args)
+        return _forward_cuda("window_attention_fused", False, rows, *args)
 
     @staticmethod
     def backward(ctx, dout):
@@ -161,7 +242,7 @@ class _WindowAttention(torch.autograd.Function):
             x, dout, qkv_w, qkv_b, proj_w, bias, mask, *ctx.meta)
         # weight gradients come back in the parameters' dtype
         return (dx, dqw.to(qkv_w.dtype), None if dqb is None else dqb.to(qkv_b.dtype),
-                dpw.to(proj_w.dtype), dpb, dbias.to(bias.dtype), None, None, None, None)
+                dpw.to(proj_w.dtype), dpb, dbias.to(bias.dtype), None, None, None, None, None)
 
 
 class _WindowAttentionPacked(torch.autograd.Function):
@@ -169,11 +250,11 @@ class _WindowAttentionPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
-                scale):
+                scale, rows):
         args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
         if x.device.type == "cpu":
             return window_attention_packed_plain(*args)
-        return _forward_cuda("window_attention_packed", True, *args)
+        return _forward_cuda("window_attention_packed", True, rows, *args)
 
     @staticmethod
     def backward(ctx, dout):
@@ -193,45 +274,84 @@ def window_attention_fused(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
     """``proj(attention(x_windows))`` over windows ``(Bn, N, C)``: the
     contract of ``fused_window_attention_trainable``.  ``bias`` is the
     pre-gathered (nH, N, N) rel-pos bias, ``mask`` (n_windows, N, N) or None.
-    Differentiable (kernel 8); the mask gets no gradient."""
+    Differentiable (kernel 8); the mask gets no gradient.  Counts the
+    whole-tile body's launches."""
     _check_device("window_attention_fused", x_windows)
     return _WindowAttention.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-                                  num_heads, n_windows, float(scale))
+                                  num_heads, n_windows, float(scale), False)
 
 
 window_attention_fused.launches = 0
 
 
+def window_attention_fused_rows(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                num_heads: int, n_windows: int, scale: float) -> torch.Tensor:
+    """``window_attention_fused`` with the forward on the row-tiled body
+    whatever N; counts that body's launches (also those the route makes
+    through ``window_attention_fused``)."""
+    _check_device("window_attention_fused_rows", x_windows)
+    return _WindowAttention.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                  num_heads, n_windows, float(scale), True)
+
+
+window_attention_fused_rows.launches = 0
+
+
 def window_attention_packed(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                             num_heads: int, n_windows: int, scale: float) -> torch.Tensor:
-    """The contract of ``fused_window_attention_packed`` (inference only)."""
+    """The contract of ``fused_window_attention_packed`` (inference only).
+    Counts the whole-tile body's launches."""
     _check_device("window_attention_packed", x_windows)
     return _WindowAttentionPacked.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias,
-                                        mask, num_heads, n_windows, float(scale))
+                                        mask, num_heads, n_windows, float(scale), False)
 
 
 window_attention_packed.launches = 0
 
 
+def window_attention_packed_rows(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                 num_heads: int, n_windows: int, scale: float) -> torch.Tensor:
+    """``window_attention_packed`` on the row-tiled body whatever N; counts
+    that body's launches."""
+    _check_device("window_attention_packed_rows", x_windows)
+    return _WindowAttentionPacked.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias,
+                                        mask, num_heads, n_windows, float(scale), True)
+
+
+window_attention_packed_rows.launches = 0
+
+
 def window_attention_fused_bwd(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
-                               num_heads: int, n_windows: int, scale: float):
+                               num_heads: int, n_windows: int, scale: float,
+                               rows: bool = False):
     """Kernel 8: (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias) of
     ``window_attention_fused``, as ``window_attention_fused_bwd_plain``
-    returns them (the contract of ``_bwd_call``)."""
+    returns them (the contract of ``_bwd_call``).  Counts the whole-tile
+    body's launches; ``rows`` forces the row-tiled body (else
+    ``window_body`` picks)."""
     _check_device("window_attention_fused_bwd", x_windows)
     args = (x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows,
             float(scale))
     if x_windows.device.type == "cpu":
         return window_attention_fused_bwd_plain(*args)
-    return _backward_cuda(*args)
+    return _backward_cuda(rows, *args)
 
 
 window_attention_fused_bwd.launches = 0
 
 
-def _check_windows(what, x, bias, mask, num_heads, n_windows, smem_bytes):
-    """The checks the three kernels share; ``smem_bytes`` is the library's
-    shared-memory size function of the kernel."""
+def window_attention_fused_bwd_rows(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
+                                    num_heads: int, n_windows: int, scale: float):
+    """Kernel 8 on the row-tiled body whatever N; counts that body's launches."""
+    return window_attention_fused_bwd(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
+                                      num_heads, n_windows, scale, rows=True)
+
+
+window_attention_fused_bwd_rows.launches = 0
+
+
+def _check_windows(what, x, bias, mask, num_heads, n_windows):
+    """The checks the three kernels share, whichever body runs."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: dtype {x.dtype} not supported")
     if x.dim() != 3:
@@ -252,13 +372,19 @@ def _check_windows(what, x, bias, mask, num_heads, n_windows, smem_bytes):
             f"{what}: mask {tuple(mask.shape)} != {(n_windows, N, N)}, or the window "
             f"batch {Bn} is not a multiple of n_windows={n_windows}"
         )
-    smem = smem_bytes(N, C, num_heads, int(x.dtype == torch.bfloat16))
-    if smem > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"{what}: a window of {N} tokens at C={C} needs {smem} B of shared "
-            "memory per block (> 227 KB): the kernel holds a whole (N, N) score "
-            "tile per head; the variant that tiles the query rows is still to port"
-        )
+
+
+def _pick_body(what, rows, x, num_heads, backward) -> str:
+    """``window_body``'s choice, or (``rows``) the row-tiled body where it fits."""
+    N, C = x.shape[1:]
+    if not rows:
+        return window_body(N, C, num_heads, x.dtype, backward)
+    bf16 = x.dtype == torch.bfloat16
+    if (rows_smem_bytes(N, C, num_heads, bf16, backward) > SMEM_LIMIT
+            or (bf16 and C // num_heads > ROWS_MAX_HEAD_DIM)):
+        raise NotImplementedError(f"{what}: the row-tiled body does not take N={N}, C={C}, "
+                                  f"{num_heads} heads in {str(x.dtype)[6:]}")
+    return "rows"
 
 
 def _operands(x, qkv_w, qkv_b, proj_w, bias, mask):
@@ -272,53 +398,76 @@ def _operands(x, qkv_w, qkv_b, proj_w, bias, mask):
     return qw, qb, pw, f32(bias), None if mask is None else f32(mask)
 
 
-def _forward_cuda(what, packed, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
+def _workspace(nbytes: int, dev) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _forward_cuda(what, packed, rows, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
                   n_windows, scale):
     lib = cuda_lib.library()
-    _check_windows(what, x, bias, mask, num_heads, n_windows, lib.vadcl_window_attn_smem_bytes)
+    _check_windows(what, x, bias, mask, num_heads, n_windows)
+    body = _pick_body(what, rows, x, num_heads, backward=False)
     Bn, N, C = x.shape
-    xc = x.detach().contiguous()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    xc = cuda_lib.aligned(x.detach())
     out = torch.empty_like(xc)
     qw, qb, pw, bs, mk = _operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
     pb = proj_b.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    entry = lib.vadcl_window_attn_packed if packed else lib.vadcl_window_attn
-    err = entry(
-        xc.data_ptr(), qw.data_ptr(), qb.data_ptr(), pw.data_ptr(), pb.data_ptr(),
-        bs.data_ptr(), mk.data_ptr() if mk is not None else None, out.data_ptr(),
-        Bn, N, C, num_heads, max(int(n_windows), 1), float(scale),
-        int(x.dtype == torch.bfloat16), cuda_lib.stream_ptr(xc),
-    )
-    cuda_lib.check(err, what)
-    (window_attention_packed if packed else window_attention_fused).launches += 1
+    ptrs = (xc.data_ptr(), qw.data_ptr(), qb.data_ptr(), pw.data_ptr(), pb.data_ptr(),
+            bs.data_ptr(), mk.data_ptr() if mk is not None else None, out.data_ptr())
+    dims = (Bn, N, C, num_heads, max(int(n_windows), 1), float(scale), is_bf16,
+            cuda_lib.stream_ptr(xc))
+    if body == "rows":
+        ws = _workspace(lib.vadcl_window_attn_rows_workspace_bytes(Bn, N, C, is_bf16), x.device)
+        entry = lib.vadcl_window_attn_rows_packed if packed else lib.vadcl_window_attn_rows
+        err = entry(*ptrs, ws.data_ptr(), *dims)
+        counter = window_attention_packed_rows if packed else window_attention_fused_rows
+    else:
+        entry = lib.vadcl_window_attn_packed if packed else lib.vadcl_window_attn
+        err = entry(*ptrs, *dims)
+        counter = window_attention_packed if packed else window_attention_fused
+    cuda_lib.check(err, f"{what} ({body} body)")
+    counter.launches += 1
     return out
 
 
-def _backward_cuda(x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows, scale):
+def _backward_cuda(rows, x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows,
+                   scale):
     what = "window_attention_fused_bwd"
     lib = cuda_lib.library()
-    _check_windows(what, x, bias, mask, num_heads, n_windows,
-                   lib.vadcl_window_attn_bwd_smem_bytes)
+    _check_windows(what, x, bias, mask, num_heads, n_windows)
+    body = _pick_body(what, rows, x, num_heads, backward=True)
     Bn, N, C = x.shape
     dev, dt = x.device, x.dtype
     is_bf16 = int(dt == torch.bfloat16)
-    xc = x.detach().contiguous()
-    doc = dout.detach().to(dt).contiguous()
+    xc = cuda_lib.aligned(x.detach())
+    doc = cuda_lib.aligned(dout.detach().to(dt))
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(xc)
     dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), torch.empty(3 * C, **f32)
     dproj_w, dproj_b = torch.empty(C, C, **f32), torch.empty(C, **f32)
     dbias = torch.empty(num_heads, N, N, **f32)
-    ws = torch.empty(lib.vadcl_window_attn_bwd_workspace_bytes(Bn, N, C, num_heads, is_bf16),
-                     dtype=torch.uint8, device=dev)
     qw, qb, pw, bs, mk = _operands(xc, qkv_w, qkv_b, proj_w, bias, mask)
-    err = lib.vadcl_window_attn_bwd(
-        xc.data_ptr(), doc.data_ptr(), qw.data_ptr(), qb.data_ptr(), pw.data_ptr(),
-        bs.data_ptr(), mk.data_ptr() if mk is not None else None,
-        dx.data_ptr(), dqkv_w.data_ptr(), dqkv_b.data_ptr(), dproj_w.data_ptr(),
-        dproj_b.data_ptr(), dbias.data_ptr(), ws.data_ptr(),
-        Bn, N, C, num_heads, max(int(n_windows), 1), float(scale), is_bf16,
-        cuda_lib.stream_ptr(xc),
-    )
-    cuda_lib.check(err, what)
-    window_attention_fused_bwd.launches += 1
+    outs = (dx.data_ptr(), dqkv_w.data_ptr(), dqkv_b.data_ptr(), dproj_w.data_ptr(),
+            dproj_b.data_ptr(), dbias.data_ptr())
+    dims = (Bn, N, C, num_heads, max(int(n_windows), 1), float(scale), is_bf16,
+            cuda_lib.stream_ptr(xc))
+    mp = mk.data_ptr() if mk is not None else None
+    if body == "rows":
+        ws = _workspace(lib.vadcl_window_attn_bwd_rows_workspace_bytes(Bn, N, C, num_heads,
+                                                                       is_bf16), dev)
+        qwt, pwt = cuda_lib.aligned(qw.t()), cuda_lib.aligned(pw.t())
+        err = lib.vadcl_window_attn_bwd_rows(
+            xc.data_ptr(), doc.data_ptr(), qw.data_ptr(), qb.data_ptr(), qwt.data_ptr(),
+            pwt.data_ptr(), bs.data_ptr(), mp, *outs, ws.data_ptr(), *dims)
+        counter = window_attention_fused_bwd_rows
+    else:
+        ws = _workspace(lib.vadcl_window_attn_bwd_workspace_bytes(Bn, N, C, num_heads, is_bf16),
+                        dev)
+        err = lib.vadcl_window_attn_bwd(
+            xc.data_ptr(), doc.data_ptr(), qw.data_ptr(), qb.data_ptr(), pw.data_ptr(),
+            bs.data_ptr(), mp, *outs, ws.data_ptr(), *dims)
+        counter = window_attention_fused_bwd
+    cuda_lib.check(err, f"{what} ({body} body)")
+    counter.launches += 1
     return dx, dqkv_w, dqkv_b if qkv_b is not None else None, dproj_w, dproj_b, dbias
