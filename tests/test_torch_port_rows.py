@@ -22,8 +22,9 @@ bf16 max|port - jax| <= 2e-2 * max|jax| (both round at the same casts; a
 different fp32 summation order can flip one bf16 rounding); gradients
 max|port - jax| <= 1e-4 * max|jax| per tensor (fp32, summation order only);
 model recon atol 1e-4, cluster losses rtol 1e-4, labels equal
-(``tests/test_torch_port_model.py``); model gradients 1e-3 per tensor
-(``tests/test_torch_port_train.py``); per-window scores atol 1e-4.
+(``tests/test_torch_port_model.py``); model gradients 1e-3 * max|jax| per
+tensor (fp32, summation order only; ``tests/test_torch_port_train.py`` allows
+2e-3 over several steps); per-window scores atol 1e-4.
 """
 
 import dataclasses
