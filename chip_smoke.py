@@ -12,8 +12,9 @@ Phases (any failure raises and the script exits non-zero):
      kernels' shared-memory sizes (the routes' fit predicates and the body
      choice of kernels 7, 8 and 9: whole-tile or row-tiled) are held against
      the library's; kernel 10 and the whole-block kernels must fit at the
-     four flagship geometries in bf16 and fp32, and every window of up to
-     392 tokens at the flagship widths and head width 32 must map to a body.
+     four flagship geometries in bf16 and fp32, every window of up to
+     392 tokens at the flagship widths and head width 32 must map to a body,
+     and every flagship geometry must take the tensor-core bodies of 5 and 6.
   2. each forward kernel (A-D, 7: window attention, 9: its packed variant,
      10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
@@ -28,8 +29,12 @@ Phases (any failure raises and the script exits non-zero):
   2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
      modes, 8: window attention, the whole-block backward) against their
      plain versions at the training batch of 4, bf16 and fp32, every
-     gradient tensor held separately; times (the whole-block backward beside
-     6 then 5); workspaces; edge shapes.
+     gradient tensor held separately (its worst err/(tol*max) printed);
+     two calls of the tensor-core bodies of 5 and 6 give the same bits;
+     times (5 and 6 beside their old bodies, the whole-block backward beside
+     6 then 5); 5 at C = 16 .. 176 and at token counts that fill no whole
+     tile, 6 at head width 32; the old bodies through their routes (5 at
+     C = 24, 6 at head width 48); workspaces; edge shapes.
   2/2b, row-tiled: the row-tiled bodies of 7, 9 and 8 against their plain
      versions at N = 147, 196, 245 and 392, C = 96 / 6 heads, 192 / 12 and
      head width 32, shifted and not, bf16 and fp32, on an odd batch of 3;
@@ -65,7 +70,7 @@ Phases (any failure raises and the script exits non-zero):
      launch and plain-version checks; a checkpoint round trip into a fresh
      model and optimizer; a ``"packed"``, ``"fold_packed"`` or
      ``"fold_mix"`` train step is refused before any launch.
-No earlier path was cut: the whole run takes about two minutes on an H100.
+No earlier path was cut: the whole run takes about four minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels (its time beside its roofline bound on an H100's published peaks:
 every number in it but the bound is measured in this run);
@@ -222,6 +227,26 @@ def phase_build():
                 raise AssertionError(f"fold_smem_bytes{(n, c, nh, bf16)} = {mine} but the "
                                      f"library says {theirs}")
     print("  fold_smem_bytes (the route's predicate) agrees with the library's layouts")
+    from vadcl_tpu_torch.ops.fold_attn import fold_bwd_body, fold_bwd_mma_smem_bytes
+    from vadcl_tpu_torch.ops.ln_mlp import mlp_bwd_body, mlp_bwd_mma_smem_bytes
+
+    for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
+                     (98, 64, 4), (49, 32, 2), (98, 96, 3), (98, 192, 6), (49, 192, 6),
+                     (112, 96, 6), (65, 96, 6), (16, 32, 2), (49, 256, 16)):
+        mine, theirs = fold_bwd_mma_smem_bytes(n, c, nh), lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh)
+        if mine != theirs:
+            raise AssertionError(f"fold_bwd_mma_smem_bytes{(n, c, nh)} = {mine} but the library "
+                                 f"says {theirs}")
+    for c in range(16, 193, 16):
+        if mlp_bwd_mma_smem_bytes(c) != lib.vadcl_ln_mlp_bwd_bf16_smem_bytes(c):
+            raise AssertionError(f"mlp_bwd_mma_smem_bytes({c}) disagrees with the library")
+    for gname, ((_, _, _, c), nh, window, _) in FOLD_GEOMETRIES.items():
+        n = window[0] * window[1] * window[2]
+        if (fold_bwd_body(n, c, nh, torch.bfloat16) != "mma"
+                or mlp_bwd_body(c, 4 * c, torch.bfloat16) != "mma"):
+            raise AssertionError(f"{gname}: kernels 5 and 6 must run their tensor-core bodies")
+    print("  the tensor-core bodies of kernels 5 and 6: their layout mirrors agree with the "
+          "library, and every flagship geometry takes them in bf16")
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_block_fits, fold_block_smem_bytes, fold_packed_fits,
     )
@@ -674,12 +699,18 @@ MLP_BWD_NAMES = ("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2")
 BLOCK_BWD_NAMES = FOLD_BWD_NAMES + ("dln2_s", "dln2_b", "dw1", "db1", "dw2", "db2")
 
 
-def check_rel(name, got, want, tol) -> float:
-    """Per-tensor bound max|got - want| <= tol * max|want|; returns the max
-    abs error."""
+def rel_error(got, want, tol) -> tuple:
+    """(max abs error, max|want|, err / (tol * max|want|))."""
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     ratio = err / (tol * scale) if scale > 0 else (0.0 if err == 0 else float("inf"))
+    return err, scale, ratio
+
+
+def check_rel(name, got, want, tol) -> float:
+    """Per-tensor bound max|got - want| <= tol * max|want|; returns the max
+    abs error."""
+    err, scale, ratio = rel_error(got, want, tol)
     print(f"  {name}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
           f"err/(tol*max)={ratio:.3f} (tol {tol:g})")
     if not ratio <= 1.0:
@@ -688,10 +719,31 @@ def check_rel(name, got, want, tol) -> float:
 
 
 def check_grads(name, names, got, want, tol) -> float:
+    """Every gradient of a case against its plain version; prints the case's
+    worst err/(tol*max) and returns its largest max abs error."""
     if [g is None for g in got] != [w is None for w in want]:
         raise AssertionError(f"{name}: kernel and plain version return different gradients")
-    return max(check_rel(f"{name} {n}", g, w, tol)
-               for n, g, w in zip(names, got, want) if w is not None)
+    pairs = [(n, g, w) for n, g, w in zip(names, got, want) if w is not None]
+    err = max(check_rel(f"{name} {n}", g, w, tol) for n, g, w in pairs)
+    worst = max((rel_error(g, w, tol)[2], n) for n, g, w in pairs)
+    print(f"  {name}: worst err/(tol*max) {worst[0]:.3f} ({worst[1]})")
+    return err
+
+
+def same_bits(name, got, again) -> None:
+    """Two calls of a kernel on the same inputs give the same bits: its sums
+    run in a fixed order (no float atomics)."""
+    for g, h in zip(got, again):
+        if g is not None and not torch.equal(g, h):
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+    print(f"  {name}: two calls bit-identical")
+
+
+def mlp_split_flops(tokens: int, c: int) -> float:
+    """Kernel 5's products as its tensor-core body runs them (hidden 4C):
+    the fc1 recompute and dy.w2^T one bf16 pass each, dz.w1^T and dw2 two
+    (hi and lo of dh, of g), dw1 three (hi.hi, hi.lo, lo.hi): 9 x 8C^2."""
+    return tokens * 72.0 * c * c
 
 
 def _fold_bwd_case(shape, nh, window, shift, dtype, gen):
@@ -731,13 +783,16 @@ def phase_bwd_kernels(batch: int = 4):
     ``batch`` (the training batch), bf16 and fp32: kernels 6 and 8 at the
     four attention geometries, shifted and unshifted, kernel 5 at C=96 and
     C=192; kernel 6 also without LN and residual on a window-padded shape.
+    In bf16, 5 and 6 run their tensor-core bodies, each called twice for
+    equal bits and timed beside its old body; then the widths, token counts
+    and head widths the model does not send, and the old bodies' routes.
     The rel-pos bias and the upstream gradient are drawn at unit scale.
     Returns {kernel: stats of the bf16 case the kernels line reports}."""
     from vadcl_tpu_torch.ops.fold_attn import (
-        fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_block_bwd,
-        fold_block_bwd_plain,
+        fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_attention_bwd_tiles,
+        fold_block_bwd, fold_block_bwd_plain,
     )
-    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_plain
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_plain, ln_mlp_bwd_tiles
     from vadcl_tpu_torch.ops.window_attn import (
         window_attention_fused_bwd, window_attention_fused_bwd_plain,
     )
@@ -756,11 +811,16 @@ def phase_bwd_kernels(batch: int = 4):
                 name = f"fold_attention_bwd {gname} {'shifted' if shifted else 'plain'} {str(dtype)[6:]}"
                 got, want = fold_attention_bwd(**a), fold_attention_bwd_plain(**a)
                 errs["fold_attention_bwd"].append(check_grads(name, FOLD_BWD_NAMES, got, want, tol))
+                if dtype == torch.bfloat16:
+                    same_bits(name, got, fold_attention_bwd(**a))
                 ms, pms = time_pair(lambda: fold_attention_bwd(**a),
                                     lambda: fold_attention_bwd_plain(**a))
+                if dtype == torch.bfloat16:
+                    old_ms = cuda_ms(lambda: fold_attention_bwd_tiles(**a))
+                    print(f"    the shared-memory body on the same inputs: {old_ms:.4f} ms")
                 if dtype == torch.bfloat16 and gname == "enc_stage0" and shifted:
                     stats["fold_attention_bwd"] = dict(
-                        ms=ms, plain_ms=pms,
+                        ms=ms, plain_ms=pms, old_body_ms=old_ms, earlier_ms=1.2232,
                         shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted",
                         **bound(tensors_of(a, got), attn_flops(a["x"][..., 0].numel(), 96, 98,
                                                                backward=True), "bf16"))
@@ -824,16 +884,79 @@ def phase_bwd_kernels(batch: int = 4):
             name = f"ln_mlp_bwd C={C} {str(dtype)[6:]}"
             got, want = ln_mlp_bwd(x, dy, *p), ln_mlp_bwd_plain(x, dy, *p)
             errs["ln_mlp_bwd"].append(check_grads(name, MLP_BWD_NAMES, got, want, tol))
+            if dtype == torch.bfloat16:
+                same_bits(name, got, ln_mlp_bwd(x, dy, *p))
             ms, pms = time_pair(lambda: ln_mlp_bwd(x, dy, *p), lambda: ln_mlp_bwd_plain(x, dy, *p))
+            if dtype == torch.bfloat16:
+                old_ms = cuda_ms(lambda: ln_mlp_bwd_tiles(x, dy, *p))
+                print(f"    the CUDA-core body on the same inputs: {old_ms:.4f} ms")
             if dtype == torch.bfloat16 and C == 96:
-                # fc1 recomputed, dw2, dy.w2^T, dw1, dz.w1^T: 8C^2 per token each, fp32 FMA
-                stats["ln_mlp_bwd"] = dict(ms=ms, plain_ms=pms,
+                # fc1 recomputed, dw2, dy.w2^T, dw1, dz.w1^T: 8C^2 per token each, fp32
+                # operations by the contract; beside it the split bf16 passes the
+                # tensor-core body runs, over the bf16 peak
+                tokens = x[..., 0].numel()
+                stats["ln_mlp_bwd"] = dict(ms=ms, plain_ms=pms, old_body_ms=old_ms,
+                                           earlier_ms=1.7042,
+                                           split_bound_ms=mlp_split_flops(tokens, C)
+                                           / PEAK_FLOPS["bf16"] * 1e3,
                                            shape=f"x ({batch},2,56,56,96) bf16, hidden 384",
                                            **bound([x, dy, *p, *got],
-                                                   x[..., 0].numel() * 40.0 * C * C, "fp32"))
+                                                   tokens * 40.0 * C * C, "fp32"))
+    bf, tol16 = torch.bfloat16, BWD_TOL[torch.bfloat16]
+    print("  the tensor-core bodies at the widths and token counts the model does not "
+          "send but they take, bf16:")
+    for C, dhw, b in [(C, (1, 7, 7), 3) for C in (16, 48, 80, 112, 144, 176)] + [
+            (96, (1, 10, 10), 5), (192, (1, 10, 10), 5)]:
+        p = _mlp_case(C, 4 * C, gen)[:5]
+        x = torch.randn(b, *dhw, C, generator=gen).to(DEV, bf)
+        dy = torch.randn(x.shape, generator=gen).to(DEV, bf)
+        name = f"ln_mlp_bwd C={C}, {x[..., 0].numel()} tokens bf16"
+        got = ln_mlp_bwd(x, dy, *p)
+        errs["ln_mlp_bwd"].append(check_grads(name, MLP_BWD_NAMES, got,
+                                              ln_mlp_bwd_plain(x, dy, *p), tol16))
+        same_bits(name, got, ln_mlp_bwd(x, dy, *p))
+    for dhwc, nh, window, shift in (((2, 56, 56, 96), 3, (2, 7, 7), (0, 3, 3)),
+                                    ((1, 28, 28, 64), 2, (1, 7, 7), (0, 3, 3)),
+                                    ((2, 14, 14, 32), 2, (2, 7, 7), (0, 0, 0))):
+        a = _fold_bwd_case((batch, *dhwc), nh, window, shift, bf, gen)
+        name = f"fold_attention_bwd head width 32, C={dhwc[-1]}, N={window[0] * 49}, shift {shift} bf16"
+        got = fold_attention_bwd(**a)
+        errs["fold_attention_bwd"].append(check_grads(name, FOLD_BWD_NAMES, got,
+                                                      fold_attention_bwd_plain(**a), tol16))
+        same_bits(name, got, fold_attention_bwd(**a))
+        a["qkv_b"] = None
+        check_grads(f"{name} without qkv bias", FOLD_BWD_NAMES, fold_attention_bwd(**a),
+                    fold_attention_bwd_plain(**a), tol16)
+    print("  the bodies the tensor-core ones leave geometries to, through their route, bf16:")
+    before = (ln_mlp_bwd.launches, ln_mlp_bwd_tiles.launches)
+    p = _mlp_case(24, 96, gen)[:5]
+    x = torch.randn(3, 1, 7, 7, 24, generator=gen).to(DEV, bf)
+    dy = torch.randn(x.shape, generator=gen).to(DEV, bf)
+    check_grads("ln_mlp_bwd C=24 bf16 (CUDA-core body)", MLP_BWD_NAMES, ln_mlp_bwd(x, dy, *p),
+                ln_mlp_bwd_plain(x, dy, *p), tol16)
+    if (ln_mlp_bwd.launches, ln_mlp_bwd_tiles.launches) != (before[0], before[1] + 1):
+        raise AssertionError("ln_mlp_bwd C=24 bf16 did not take the CUDA-core body's route")
+    before = (fold_attention_bwd.launches, fold_attention_bwd_tiles.launches)
+    a = _fold_bwd_case((batch, 1, 28, 28, 96), 2, (1, 7, 7), (0, 3, 3), bf, gen)
+    check_grads("fold_attention_bwd head width 48, N=49 bf16 (shared-memory body)",
+                FOLD_BWD_NAMES, fold_attention_bwd(**a), fold_attention_bwd_plain(**a), tol16)
+    if (fold_attention_bwd.launches, fold_attention_bwd_tiles.launches) != (before[0],
+                                                                            before[1] + 1):
+        raise AssertionError("fold_attention_bwd head width 48 did not take the shared-memory "
+                             "body's route")
     from vadcl_tpu_torch.ops import cuda_lib
 
     lib = cuda_lib.library()
+    ntok = batch * 2 * 56 * 56
+    print(f"  kernel 5 workspace, bf16, {ntok} tokens, C=96: tensor-core body "
+          f"{lib.vadcl_ln_mlp_bwd_bf16_workspace_bytes(ntok, 96, 384) / 1e6:.2f} MB, CUDA-core "
+          f"body {lib.vadcl_ln_mlp_bwd_workspace_bytes(ntok, 96, 384) / 1e6:.2f} MB")
+    for gname, ((D, H, W, C), nh, window, _) in FOLD_GEOMETRIES.items():
+        n = window[0] * window[1] * window[2]
+        chunks = lib.vadcl_fold_attn_bwd_bf16_dbias_partials(batch, D, H, W, C, nh, *window)
+        print(f"  kernel 6 tensor-core body, bf16, batch {batch}, {gname}: workspace "
+              f"{lib.vadcl_fold_attn_bwd_bf16_workspace_bytes(batch, D, H, W, C, nh, *window) / 1e6:.1f}"
+              f" MB, of it {chunks} d(bias) partials, {chunks * nh * n * n * 4 / 1e6:.1f} MB")
     for gname, ((D, H, W, C), nh, window, _) in FOLD_GEOMETRIES.items():
         n = window[0] * window[1] * window[2]
         bn = batch * (D // window[0]) * (H // window[1]) * (W // window[2])
@@ -1184,7 +1307,9 @@ SCORING_COUNTS = {
     "fold_mix": {"fold_attention_packed": 96, "fold_attention": 48, "ln_mlp": 144},
     "fold_block": {"fold_block": 144},
 }
-TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180}}
+TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180},
+                   "fold": {"fold_attention_bwd": 180, "ln_mlp_bwd": 180},
+                   "base": {"window_attention_fused_bwd": 180, "ln_mlp_bwd": 180}}
 # Reconstruction at frame_num = 8: every window holds 196 or 392 tokens, so
 # all 18 blocks of a forward run a row-tiled body (kernel A stops at 112
 # tokens, so a "fold" block takes the partitioned-window route) and the
@@ -1429,8 +1554,8 @@ REPLACES = {
     "ln_mlp": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
     "cluster_assign": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:33"),
     "space_cluster_loss": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:175"),
-    "ln_mlp_bwd": ("vadcl_tpu_torch/csrc/ln_mlp_bwd.cu", "vadcl_tpu/ops/pallas_mlp.py:87"),
-    "fold_attention_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
+    "ln_mlp_bwd": ("vadcl_tpu_torch/csrc/ln_mlp_bwd_mma.cu", "vadcl_tpu/ops/pallas_mlp.py:87"),
+    "fold_attention_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd_mma.cu",
                            "vadcl_tpu/ops/pallas_attn_fold.py:704"),
     "window_attention_fused": ("vadcl_tpu_torch/csrc/window_attn.cu",
                                "vadcl_tpu/ops/pallas_attn.py:30"),

@@ -59,7 +59,7 @@ def test_evaluate_videos_matches_jax(models, protocol):
     )
     pscorer = port_predict.make_video_scorer(
         lambda c: tmodel(c).recon, frame_num=4, predict=True, batch_windows=4,
-        first_frame_quirk=quirk, input_frames=4,
+        first_frame_quirk=quirk, input_frames=4, device="cpu",
     )
     jauc, jscenes, jvideos = jax_predict.evaluate_videos(jscorer, _videos(), 4, True, proto)
     pauc, pscenes, pvideos = port_predict.evaluate_videos(pscorer, _videos(), 4, True, proto)
@@ -84,7 +84,8 @@ def test_recon_mode_window_mse_matches_jax():
         return c * 0.5 + 0.1
 
     jscorer = jax_predict.make_video_scorer(jfn, 4, False, batch_windows=3)
-    pscorer = port_predict.make_video_scorer(lambda c: c * 0.5 + 0.1, 4, False, batch_windows=3)
+    pscorer = port_predict.make_video_scorer(lambda c: c * 0.5 + 0.1, 4, False, batch_windows=3,
+                                           device="cpu")
     want = jscorer(frames, starts)
     got = pscorer(frames, starts)
     assert got.shape == want.shape == (len(starts), 4)
@@ -113,7 +114,7 @@ def test_pipeline_holds_at_most_lookahead_videos():
             assert len(decoded) - len(scored) <= 2
             yield np.zeros((5, 2, 2, 3), np.uint8), np.zeros(5, np.int64), "01"
 
-    scorer = port_predict.make_video_scorer(lambda c: c, 4, True, batch_windows=2)
+    scorer = port_predict.make_video_scorer(lambda c: c, 4, True, batch_windows=2, device="cpu")
     for _ in port_predict.pipeline_videos(scorer, videos(), lookahead=2):
         scored.append(1)
     assert len(scored) == 6

@@ -320,9 +320,11 @@ def test_fold_block_fits_is_one_predicate_for_both_directions(monkeypatch):
 
 def test_twelve_kernels_count_their_launches_and_cpu_calls_do_not():
     """The twelve kernels of PRs 1-5 and, since the row-tiled bodies of 7, 8
-    and 9 count their own launches, three more counters: fifteen."""
+    and 9 count their own launches, three more counters, and two for the
+    CUDA-core and shared-memory bodies of 5 and 6 beside their tensor-core
+    bodies: seventeen."""
     names = [k.__name__ for k in KERNELS]
-    assert len(names) == len(set(names)) == 15
+    assert len(names) == len(set(names)) == 17
     assert {"fold_attention_packed", "fold_block", "fold_block_bwd"} <= set(names)
     before = [k.launches for k in KERNELS]
     a = _case(seed=12)

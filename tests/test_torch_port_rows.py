@@ -333,7 +333,8 @@ def test_frame8_evaluate_videos_matches_jax(frame8):
         lambda c: jm.apply(variables, c).recon, frame_num=FRAMES, predict=False,
         batch_windows=4)
     pscorer = port_predict.make_video_scorer(
-        lambda c: model(c).recon, frame_num=FRAMES, predict=False, batch_windows=4)
+        lambda c: model(c).recon, frame_num=FRAMES, predict=False, batch_windows=4,
+        device="cpu")
     jauc, jscenes, jvideos = jax_predict.evaluate_videos(jscorer, _videos(), FRAMES, False)
     with torch.inference_mode():
         pauc, pscenes, pvideos = port_predict.evaluate_videos(pscorer, _videos(), FRAMES, False)

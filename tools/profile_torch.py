@@ -15,7 +15,9 @@ forward, the work of one ``evaluate_videos`` batch; with ``--train`` one
 
 With ``--kernels-only`` it times fold attention, its packed variant and
 LN->MLP at every flagship geometry (``chip_smoke.py``'s table and operands),
-bf16, shifted and not, and prints one JSON object per line: ``ms`` is
+bf16, shifted and not, then their backward kernels 6 and 5 at
+``--bwd-batch`` clips on both of their bodies (tensor-core and ``*_tiles``),
+and prints one JSON object per line: ``ms`` is
 ``chip_smoke.cuda_ms`` (CUDA events around wrapper calls issued back to back:
 the device's time per call unless the host's path to the launch is longer),
 ``kernel_ms`` the device time of the hand-written kernel alone from the
@@ -54,7 +56,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the hand-written kernels (csrc/*.cu)
 OURS = ("fold_attn", "fold_block", "window_attn", "ln_mlp", "cluster_assign", "space_cluster",
         "center_sq", "sum_partials", "atb_partial", "sum_rows", "rows_attn", "rows_gemm",
-        "rows_bwd")
+        "rows_bwd", "atb_mma")
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -130,6 +132,41 @@ def window_kernels_only(args, smoke, gen) -> None:
             torch.cuda.empty_cache()
 
 
+def backward_kernels_only(args, smoke, gen) -> None:
+    """Kernels 6 and 5 at the training batch (``--bwd-batch``), bf16, at every
+    flagship geometry, each on both of its bodies: the tensor-core body the
+    route picks (``fold_attention_bwd``, ``ln_mlp_bwd``) and the one it
+    leaves other geometries to (``*_tiles``).  ``kernel_ms`` includes the
+    second pass."""
+    from vadcl_tpu_torch.ops.fold_attn import fold_attention_bwd, fold_attention_bwd_tiles
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_tiles
+
+    bf, batch = torch.bfloat16, args.bwd_batch
+    for gname, (dhwc, _, window, shift) in smoke.FOLD_GEOMETRIES.items():
+        nh = dhwc[-1] // args.head_dim
+        for shifted in (False, True):
+            a = smoke._fold_bwd_case((batch, *dhwc), nh, window,
+                                     shift if shifted else (0, 0, 0), bf, gen)
+            for name, k in (("fold_attention_bwd", fold_attention_bwd),
+                            ("fold_attention_bwd_tiles", fold_attention_bwd_tiles)):
+                print(json.dumps({
+                    "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch,
+                    "heads": nh, "shifted": shifted,
+                    "ms": round(smoke.cuda_ms(lambda: k(**a)), 4),
+                    "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4)}))
+        C = dhwc[-1]
+        p = smoke._mlp_case(C, 4 * C, gen)[:5]
+        x, dy = a["x"], a["dout"]
+        for name, k in (("ln_mlp_bwd", ln_mlp_bwd), ("ln_mlp_bwd_tiles", ln_mlp_bwd_tiles)):
+            print(json.dumps({
+                "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch,
+                "tokens": x[..., 0].numel(), "C": C,
+                "ms": round(smoke.cuda_ms(lambda: k(x, dy, *p)), 4),
+                "kernel_ms": round(own_kernel_ms(lambda: k(x, dy, *p)), 4)}))
+        del a, x, dy
+        torch.cuda.empty_cache()
+
+
 def kernels_only(args) -> None:
     from vadcl_tpu_torch.ops import cuda_lib
     from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_packed
@@ -173,6 +210,7 @@ def kernels_only(args) -> None:
                     "tokens": x[..., 0].numel(), "C": C,
                     "ms": round(smoke.cuda_ms(lambda: ln_mlp(x, *m)), 4),
                     "kernel_ms": round(own_kernel_ms(lambda: ln_mlp(x, *m)), 4)}))
+        backward_kernels_only(args, smoke, gen)
         # the host's path to one launch, on an input too small to matter
         a = smoke._fold_case((1, 2, 7, 7, 32), 2, (2, 7, 7), (0, 0, 0), bf, gen)
         m = smoke._mlp_case(32, 128, gen)
@@ -248,11 +286,14 @@ def main(argv=None):
                     help="fused attention kernel (core/config.py:ATTN_KERNELS); with --train "
                          "a trainable one (the others are inference only)")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="time fold attention, its packed variant and LN->MLP alone")
+                    help="time fold attention, its packed variant, LN->MLP and the "
+                         "backward kernels 6 and 5 alone")
     ap.add_argument("--batches", type=int, nargs="+", default=[4, 16],
                     help="with --kernels-only: the batch sizes")
     ap.add_argument("--head-dim", type=int, default=16,
                     help="with --kernels-only: the attention kernels' head width")
+    ap.add_argument("--bwd-batch", type=int, default=4,
+                    help="with --kernels-only: the clips of the backward kernels' inputs")
     ap.add_argument("--tag", default="", help="with --kernels-only: a name on every line")
     ap.add_argument("--root", default=HERE, help="the tree whose vadcl_tpu_torch is run")
     ap.add_argument("--recon", action="store_true",

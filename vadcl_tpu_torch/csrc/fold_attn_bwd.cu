@@ -20,8 +20,10 @@
 //   ds = P * (dp - rowsum(dp * P));  dq = round(ds * scale) . k;
 //   dk = round(ds * scale)^T . q;  dxa = round(dqkv) . qkv_w^T;
 //   dx = LN-vjp(dxa) + dout  (stored in the compute dtype).
-// Two kernels, one per compute dtype, as for kernel A.  bf16 (the model's
-// compute dtype on the card): fold_attn_bwd_tc_kernel runs every product
+// Two kernels, one per compute dtype, as for kernel A.  The model's bf16
+// geometries (head width 16 or 32, at most 112 tokens) run the tensor-core
+// body of fold_attn_bwd_mma.cu instead; the bf16 kernel here takes the other
+// bf16 geometries whose block fits.  bf16: fold_attn_bwd_tc_kernel runs every product
 // (qkv, q.k, p.v, dout.proj_w^T, p^T.doa, doa.v^T, dss.k, dss^T.q and
 // dqkv.qkv_w^T) as WMMA 16x16x16 bf16 tiles with fp32 accumulation, the
 // window padded to Np = ceil(N/16)*16 rows (padded rows and columns carry

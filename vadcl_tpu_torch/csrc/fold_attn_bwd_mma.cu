@@ -1,0 +1,740 @@
+// Kernel 6's bf16 body for Hopper: the backward of the folded Swin attention
+// front half,  out = x + proj(attention(LN1 x))  ->  dx, dLN1, dqkv_w, dqkv_b,
+// dproj_w, dproj_b, d(bias),  per (8,7,7)-shrunk window of the unpartitioned
+// (B, D, H, W, C) tensor with the shift roll folded into the addressing; also
+// the no-LN/no-residual mode (ln_s == null, residual == 0).
+//
+// Replaces vadcl_tpu/ops/pallas_attn_fold.py:_fold_bwd_kernel (entry
+// _fold_bwd_call) for bf16 windows of at most 112 tokens at head width 16 or
+// 32 whose block fits 227 KB (the model's geometries); fold_attn_bwd.cu's
+// bodies keep fp32 and every other bf16 geometry (ops/fold_attn.py:
+// fold_bwd_body picks).  Numerical contract: fold_attention_bwd_plain's, the
+// order and cast boundaries of fold_attn_bwd.cu.  Every product has operands
+// the contract already rounds to bf16 (LN1 output, q, k, v, round(P), dout,
+// round(dout . proj_w^T), round(ds * scale), round(dqkv), the weights), so
+// each runs as one bf16 mma.sync.m16n8k16 pass with fp32 accumulation: exact
+// products, another summation order.  The softmax, its backward and d(bias)
+// are fp32.
+//
+// Design (kernel A's, fold_attn_mma.cuh, turned around).  A window is padded to
+// Np = 64 or 112 rows and cut into strips of 16; warp w owns query strip w and,
+// in the column phase, key strip w: the same 16 tokens.  A block walks a
+// chunk of consecutive windows; one producer warp streams weights through a
+// two-stage cp.async.bulk / mbarrier ring from kernel A's own pack
+// (ops/fold_attn.py:pack_fold_weights: slice h holds head h's C x 3hd columns
+// of W_qkv, slice nH + j columns 3hd j .. of W_proj), so the pack the forward
+// made in the same step is a cache hit.  Per window:
+//   * LN1 of the warp's rows into a row tile (bf16, also written out for
+//     dqkv_w's sum);
+//   * per head, one ring stage = slice h plus the rows h hd .. h hd + hd - 1
+//     of every W_proj slice (contiguous in the pack):
+//     (a) q, k, v = round(row . W + b) of the strip (q also kept as register
+//         fragments) and doa = round(dout . W_proj[head rows]^T) (dout read
+//         as A fragments straight from device memory) into double-buffered
+//         Q, K, V, DOA tiles; one named barrier;
+//     (b) row phase, registers only: S = q.k^T on top of the packed bias and
+//         mask (kernel A's pack_fold_scores), P = e / l (ex2.approx.ftz, the
+//         division fa_div: e flushed to zero never takes IEEE division's slow
+//         path), round(P) into the P tile, o = round(P).V to the workspace,
+//         rowsum(dp * P) with dp = doa.v^T, then dp again, ds = P * (dp - r),
+//         d(bias) added into the chunk's partial, round(ds * scale) into the
+//         ds tile and dq = dss.k; one named barrier;
+//     (c) column phase: dv = round(P)^T . doa and dk = dss^T . q from the P
+//         and ds tiles (transposed ldmatrix), then round(dqkv) of the warp's
+//         tokens to the workspace and its unrounded column sums.
+//   * dxa = round(dqkv) . W_qkv^T over the heads (the slices streamed a second
+//     time, the warp's own dqkv rows as A fragments) into fp32 rows that
+//     overlay the per-head tiles, then the LN vjp and the residual per row.
+// Only round(P) and round(ds * scale) ever reach shared memory as score-sized
+// tiles (bf16); the fp32 softmax, dp and ds stay in mma.sync registers.
+//
+// Deterministic sums.  d(bias) is summed over the block's chunk of windows by
+// the one thread that holds each (h, i, j) in its accumulator: written by the
+// chunk's first window, added to by the others in window order; the partials
+// are nH x N x N per chunk (at most kFbBlocks chunks), not per window (enc
+// stage 0, batch 4: 128 x 6 x 98 x 98 floats, 29.5 MB, where the per-window
+// partials of fold_attn_bwd.cu are 59 MB).  dqkv_b and dLN1 go the same way
+// per (chunk, strip).  The second pass sums the partials in chunk order
+// (sum_rows) and forms dqkv_w = row^T . round(dqkv) and dproj_w = o^T . dout
+// (with dproj_b = colsum dout) on the tensor cores (reduce_mma.cu, one bf16
+// pass each: both operands are exactly bf16).  No float atomics.
+//
+// What bounds it: 7 GFLOP of bf16 products at enc stage 0, batch 4 (0.008 ms
+// at 989 TFLOP/s) against per-head named barriers, the d(bias) partial
+// traffic (read and written once per window through L2) and a grid of at
+// most one 8-warp block per SM (encoder stage 1 has 64 windows).  Left on
+// the table: wgmma, several heads or windows in flight per block, d(bias) held
+// on chip across a chunk.
+#include "fold_attn_mma.cuh"
+#include "reduce.cuh"
+#include "reduce_mma.cuh"
+
+namespace vadcl {
+
+constexpr int kFbBlocks = 132;  // target blocks: windows are chunked to about this many
+constexpr int kFbMaxC = 256;    // the LN vjp keeps C / 32 column sums a lane
+constexpr int kFbDxaPad = 4;    // floats of padding per dxa row
+
+__host__ __device__ inline int fb_proj_slices(int c, int hd) {
+  return (c + fa_slice(hd) - 1) / fa_slice(hd);
+}
+
+struct FbLayout {
+  size_t stage, ring, row, tiles, ptile, dtile, dxa, bytes;
+};
+
+// Shared memory of one block for a window of n tokens, width c, head width hd.
+__host__ __device__ inline FbLayout fb_layout(int n, int c, int hd) {
+  const size_t np = fa_padded_rows(n), ldw = fa_ldw(hd), ldkv = fa_ldkv(hd), bf = 2;
+  FbLayout l;
+  l.stage = bf * ((size_t)c * ldw + (size_t)fb_proj_slices(c, hd) * hd * ldw);
+  size_t o = kFaBarrierBytes;
+  l.ring = o;  o += 2 * l.stage;
+  l.row = o;   o += bf * np * (c + kFaPad);
+  const size_t region = o;
+  l.tiles = o; o += bf * 2 * 4 * np * ldkv;  // [head parity][Q, K, V, DOA][np][ldkv]
+  l.ptile = o; o += bf * np * (np + 8);
+  l.dtile = o; o += bf * np * (np + 8);
+  l.dxa = region;
+  const size_t dxa_end = region + sizeof(float) * np * (c + kFbDxaPad);
+  l.bytes = o > dxa_end ? o : dxa_end;
+  return l;
+}
+
+inline bool fb_eligible(int n, int c, int nh) {
+  if (nh <= 0 || c % nh || c % 16 || c > kFbMaxC || n <= 0 || n > kFaMaxTokens) return false;
+  const int hd = c / nh;
+  return (hd == 16 || hd == 32) && fb_layout(n, c, hd).bytes <= (size_t)kMaxSmemBytes;
+}
+
+struct FoldBwdMmaArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* dout;
+  const float* ln_s;  // null: no LayerNorm (and no residual)
+  const float* ln_b;
+  const __nv_bfloat16* wpack;  // kernel A's pack
+  const float* qkv_b;          // (3C,)
+  const float* biasp;          // kernel A's packed bias
+  const float* maskp;          // kernel A's packed mask, or null
+  __nv_bfloat16* dx;
+  __nv_bfloat16* row_ws;   // (T, C)
+  __nv_bfloat16* o_ws;     // (T, C)
+  __nv_bfloat16* dqkv_ws;  // (T, 3C)
+  float* dqkvb_part;  // (blocks, strips, 3C)
+  float* dln_part;    // (blocks, strips, 2C)
+  float* dbias_part;  // (blocks, nH, N, N)
+  int B, D, H, W, C, nh, wd, wh, ww;
+  int sd, sh, sw;
+  float scale;
+  int residual;
+  int chunk;  // windows per block
+};
+
+// Element offset of window token i (of the window at (b, wi_d, wi_h, wi_w)),
+// the roll folded in; -1 for a padded row.
+__device__ __forceinline__ long long fb_tok(const FoldBwdMmaArgs& a, int b, int wi_d, int wi_h,
+                                            int wi_w, int i, int N) {
+  if (i >= N) return -1;
+  const int d = wi_d * a.wd + i / (a.wh * a.ww), h = wi_h * a.wh + (i / a.ww) % a.wh,
+            w = wi_w * a.ww + i % a.ww;
+  const long long dd = (d + a.sd) % a.D, hh = (h + a.sh) % a.H, ww = (w + a.sw) % a.W;
+  return (((b * (long long)a.D + dd) * a.H + hh) * a.W + ww) * a.C;
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* base, long long off) {
+  return off < 0 ? 0u : *reinterpret_cast<const uint32_t*>(base + off);
+}
+
+// A partial owned by one thread: the chunk's first window writes, the others add.
+__device__ __forceinline__ void own_add(float* p, float v, bool first) {
+  *p = first ? v : *p + v;
+}
+
+// One of dq, dk, dv (16 rows x kHt 8-column tiles, accumulator layout) of the
+// warp's tokens: rounded into dqkv at columns col0 .., and its unrounded column
+// sums (reduced over the warp's rows) into the warp's dqkv_b partial.
+template <int kHt>
+__device__ __forceinline__ void fb_emit_dqkv(const float (&v)[kHt][4], __nv_bfloat16* dqkv,
+                                             float* part, int col0, long long tok0,
+                                             long long tok1, int t, int g, bool first) {
+#pragma unroll
+  for (int i = 0; i < kHt; ++i) {
+    const int col = col0 + i * 8 + 2 * t;
+    float c0 = 0.f, c1 = 0.f;
+    if (tok0 >= 0) {
+      *reinterpret_cast<uint32_t*>(dqkv + 3 * tok0 + col) = pack_bf16(v[i][0], v[i][1]);
+      c0 += v[i][0], c1 += v[i][1];
+    }
+    if (tok1 >= 0) {
+      *reinterpret_cast<uint32_t*>(dqkv + 3 * tok1 + col) = pack_bf16(v[i][2], v[i][3]);
+      c0 += v[i][2], c1 += v[i][3];
+    }
+#pragma unroll
+    for (int o = 4; o < kWarp; o <<= 1) {
+      c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+      c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+    }
+    if (g == 0) {
+      own_add(part + col, c0, first);
+      own_add(part + col + 1, c1, first);
+    }
+  }
+}
+
+// kNt = Np / 8 (8 or 14), kHd the head width (16 or 32).
+template <int kNt, int kHd>
+__global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
+    fold_attn_bwd_mma_kernel(FoldBwdMmaArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kStrips = kNt / 2, Np = kNt * 8, kHt = kHd / 8, kQt = 3 * kHt;
+  constexpr int kLdw = fa_ldw(kHd), kLdkv = fa_ldkv(kHd), kLdp = Np + 8;
+  constexpr int kConsumers = kStrips * kWarp;
+  extern __shared__ __align__(128) unsigned char sm[];
+
+  const int C = a.C, nh = a.nh, C3 = 3 * C, ldr = C + kFaPad, ldx = C + kFbDxaPad;
+  const int N = a.wd * a.wh * a.ww;
+  const FbLayout L = fb_layout(N, C, kHd);
+  const int npc = fb_proj_slices(C, kHd);
+  const uint32_t slice_bytes = (uint32_t)(sizeof(bf16) * C * kLdw);
+  const uint32_t part_bytes = (uint32_t)(sizeof(bf16) * kHd * kLdw);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm);
+  uint64_t* empty = full + 2;
+  unsigned char* ring = sm + L.ring;
+
+  const int nwh = a.H / a.wh, nww = a.W / a.ww;
+  const int nw = (a.D / a.wd) * nwh * nww;
+  const long long total = (long long)a.B * nw;
+  const long long wbeg = (long long)blockIdx.x * a.chunk;
+  const long long wend = wbeg + a.chunk < total ? wbeg + a.chunk : total;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kStrips);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();  // the only block-wide barrier
+
+  if (warp == kStrips) {
+    // producer: per window, nH stages of (slice h, head h's W_proj rows), then
+    // the nH slices again for dxa
+    if (lane == 0) {
+      int seq = 0;
+      for (long long widx = wbeg; widx < wend; ++widx)
+        for (int item = 0; item < 2 * nh; ++item, ++seq) {
+          const int s = seq & 1, use = seq >> 1, h = item % nh;
+          const bool proj = item < nh;
+          if (use > 0) mbar_wait(empty + s, (uint32_t)((use - 1) & 1));
+          mbar_expect_tx(full + s, slice_bytes + (proj ? npc * part_bytes : 0u));
+          unsigned char* dst = ring + (size_t)s * L.stage;
+          bulk_copy_g2s(dst, a.wpack + (size_t)h * C * kLdw, slice_bytes, full + s);
+          if (proj)
+            for (int j = 0; j < npc; ++j)
+              bulk_copy_g2s(dst + slice_bytes + (size_t)j * part_bytes,
+                            a.wpack + ((size_t)(nh + j) * C + (size_t)h * kHd) * kLdw,
+                            part_bytes, full + s);
+        }
+    }
+    return;
+  }
+
+  const int strip = warp, g = lane >> 2, t = lane & 3;
+  bf16* rowt = reinterpret_cast<bf16*>(sm + L.row);
+  bf16* tiles = reinterpret_cast<bf16*>(sm + L.tiles);
+  bf16* Pt = reinterpret_cast<bf16*>(sm + L.ptile);
+  bf16* Dt = reinterpret_cast<bf16*>(sm + L.dtile);
+  float* dxa = reinterpret_cast<float*>(sm + L.dxa) + (size_t)strip * 16 * ldx;
+  const bool has_ln = a.ln_s != nullptr;
+  const float pre = 1.f / a.scale, post = a.scale * kLog2e;
+  const size_t nn = (size_t)N * N;
+  float* dbias_blk = a.dbias_part + (size_t)blockIdx.x * nh * nn;
+  float* dqkvb = a.dqkvb_part + ((size_t)blockIdx.x * kStrips + strip) * C3;
+  float* dln = a.dln_part + ((size_t)blockIdx.x * kStrips + strip) * 2 * C;
+  int seq = 0;
+
+  for (long long widx = wbeg; widx < wend; ++widx) {
+    const bool first = widx == wbeg;
+    const int win = (int)(widx % nw), b = (int)(widx / nw);
+    const int wi_d = win / (nwh * nww), wi_h = (win / nww) % nwh, wi_w = win % nww;
+    const int i0 = strip * 16 + g, i1 = i0 + 8;  // the fragment rows of this lane
+    const long long tok0 = fb_tok(a, b, wi_d, wi_h, wi_w, i0, N);
+    const long long tok1 = fb_tok(a, b, wi_d, wi_h, wi_w, i1, N);
+
+    // LN1 (or a copy) of the warp's 16 rows into the row tile, then to row_ws
+    {
+      const int r = lane >> 1;
+      const long long tr = fb_tok(a, b, wi_d, wi_h, wi_w, strip * 16 + r, N);
+      warp_ln_16rows(tr < 0 ? nullptr : a.x + tr, C, a.ln_s, a.ln_b,
+                     reinterpret_cast<uint4*>(rowt + (size_t)(strip * 16 + r) * ldr), 1, nullptr,
+                     lane);
+    }
+    __syncwarp();
+    for (int e = lane; e < 16 * (C / 8); e += kWarp) {
+      const int r = e / (C / 8), v = e % (C / 8);
+      const long long tr = fb_tok(a, b, wi_d, wi_h, wi_w, strip * 16 + r, N);
+      if (tr >= 0)
+        *reinterpret_cast<uint4*>(a.row_ws + tr + 8 * v) =
+            *reinterpret_cast<const uint4*>(rowt + (size_t)(strip * 16 + r) * ldr + 8 * v);
+    }
+
+    const float4* bfrag =
+        reinterpret_cast<const float4*>(a.biasp) + (size_t)strip * kNt * kWarp + lane;
+    const float4* mfrag =
+        a.maskp == nullptr ? nullptr
+                           : reinterpret_cast<const float4*>(a.maskp) +
+                                 ((size_t)win * kStrips + strip) * kNt * kWarp + lane;
+
+    for (int h = 0; h < nh; ++h, ++seq) {
+      const int s = seq & 1;
+      bf16* Qb = tiles + (size_t)((h & 1) * 4) * Np * kLdkv;
+      bf16* Kb = Qb + (size_t)Np * kLdkv;
+      bf16* Vb = Kb + (size_t)Np * kLdkv;
+      bf16* Db = Vb + (size_t)Np * kLdkv;
+      mbar_wait(full + s, (uint32_t)((seq >> 1) & 1));
+      const bf16* slice = reinterpret_cast<const bf16*>(ring + (size_t)s * L.stage);
+      const bf16* projp = slice + (size_t)C * kLdw;
+
+      // (a) q, k, v of the strip
+      float qa[kQt][4];
+#pragma unroll
+      for (int i = 0; i < kQt; ++i) qa[i][0] = qa[i][1] = qa[i][2] = qa[i][3] = 0.f;
+      warp_gemm_16xn<kQt>(rowt + (size_t)strip * 16 * ldr, ldr, slice, kLdw, C, lane, qa);
+#pragma unroll
+      for (int i = 0; i < kQt; ++i) {
+        const float2 bb = *reinterpret_cast<const float2*>(a.qkv_b + (i / kHt) * C + h * kHd +
+                                                           (i % kHt) * 8 + 2 * t);
+        qa[i][0] += bb.x, qa[i][1] += bb.y, qa[i][2] += bb.x, qa[i][3] += bb.y;
+      }
+      uint32_t qf[kHd / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kHd / 16; ++ks) acc_to_a(qf[ks], qa[2 * ks], qa[2 * ks + 1]);
+#pragma unroll
+      for (int i = 0; i < kQt; ++i) {
+        bf16* dst = (i < kHt ? Qb : (i < 2 * kHt ? Kb : Vb)) + (size_t)strip * 16 * kLdkv +
+                    (i % kHt) * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(dst + g * kLdkv) = pack_bf16(qa[i][0], qa[i][1]);
+        *reinterpret_cast<uint32_t*>(dst + (g + 8) * kLdkv) = pack_bf16(qa[i][2], qa[i][3]);
+      }
+      // doa = round(dout . W_proj[h hd .. h hd + hd - 1, :]^T); B (k = c, n = d) is
+      // stored [n][k] in the stage's W_proj rows, one block of 3hd columns per slice
+      float da[kHt][4];
+#pragma unroll
+      for (int i = 0; i < kHt; ++i) da[i][0] = da[i][1] = da[i][2] = da[i][3] = 0.f;
+      for (int c0 = 0; c0 < C; c0 += 16) {
+        uint32_t af[4];
+        af[0] = ld_pair(a.dout, tok0 < 0 ? -1 : tok0 + c0 + 2 * t);
+        af[1] = ld_pair(a.dout, tok1 < 0 ? -1 : tok1 + c0 + 2 * t);
+        af[2] = ld_pair(a.dout, tok0 < 0 ? -1 : tok0 + c0 + 8 + 2 * t);
+        af[3] = ld_pair(a.dout, tok1 < 0 ? -1 : tok1 + c0 + 8 + 2 * t);
+        const bf16* pj =
+            projp + (size_t)(c0 / fa_slice(kHd)) * kHd * kLdw + c0 % fa_slice(kHd);
+#pragma unroll
+        for (int np = 0; np < kHd / 16; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(bf, b_frag_row_nk(pj + (size_t)np * 16 * kLdw, kLdw, lane));
+          mma_bf16(da[2 * np], af, bf[0], bf[1]);
+          mma_bf16(da[2 * np + 1], af, bf[2], bf[3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);  // the stage comes back for dxa later
+      uint32_t df[kHd / 16][4];  // round(doa) as the A fragments of dp = doa . v^T
+#pragma unroll
+      for (int ks = 0; ks < kHd / 16; ++ks) acc_to_a(df[ks], da[2 * ks], da[2 * ks + 1]);
+#pragma unroll
+      for (int i = 0; i < kHt; ++i) {
+        bf16* dst = Db + (size_t)strip * 16 * kLdkv + i * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(dst + g * kLdkv) = pack_bf16(da[i][0], da[i][1]);
+        *reinterpret_cast<uint32_t*>(dst + (g + 8) * kLdkv) = pack_bf16(da[i][2], da[i][3]);
+      }
+      named_barrier(1, kConsumers);  // every strip's q, k, v, doa of head h are in
+
+      // (b) row phase: S on top of (bias + mask) / scale, then the softmax
+      float sacc[kNt][4];
+      {
+        const float4* bp = bfrag + (size_t)h * kStrips * kNt * kWarp;
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          float4 v = __ldg(bp + nt * kWarp);
+          if (mfrag != nullptr) {
+            const float4 m = __ldg(mfrag + nt * kWarp);
+            v.x += m.x, v.y += m.y, v.z += m.z, v.w += m.w;
+          }
+          sacc[nt][0] = v.x * pre, sacc[nt][1] = v.y * pre;
+          sacc[nt][2] = v.z * pre, sacc[nt][3] = v.w * pre;
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < kNt / 2; ++np)
+#pragma unroll
+        for (int ks = 0; ks < kHd / 16; ++ks) {
+          uint32_t kf[4];
+          ldsm_x4(kf, b_frag_row_nk(Kb + (size_t)np * 16 * kLdkv + ks * 16, kLdkv, lane));
+          mma_bf16(sacc[2 * np], qf[ks], kf[0], kf[1]);
+          mma_bf16(sacc[2 * np + 1], qf[ks], kf[2], kf[3]);
+        }
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        sacc[nt][0] *= post, sacc[nt][1] *= post, sacc[nt][2] *= post, sacc[nt][3] *= post;
+        m0 = fmaxf(m0, fmaxf(sacc[nt][0], sacc[nt][1]));
+        m1 = fmaxf(m1, fmaxf(sacc[nt][2], sacc[nt][3]));
+      }
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        sacc[nt][0] = ex2_ftz(sacc[nt][0] - m0), sacc[nt][1] = ex2_ftz(sacc[nt][1] - m0);
+        sacc[nt][2] = ex2_ftz(sacc[nt][2] - m1), sacc[nt][3] = ex2_ftz(sacc[nt][3] - m1);
+        l0 += sacc[nt][0] + sacc[nt][1];
+        l1 += sacc[nt][2] + sacc[nt][3];
+      }
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float r0 = 1.f / l0, r1 = 1.f / l1;
+      // P (fp32, in place) and round(P) into the P tile
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        sacc[nt][0] = fa_div(sacc[nt][0], l0, r0), sacc[nt][1] = fa_div(sacc[nt][1], l0, r0);
+        sacc[nt][2] = fa_div(sacc[nt][2], l1, r1), sacc[nt][3] = fa_div(sacc[nt][3], l1, r1);
+        bf16* dst = Pt + (size_t)(strip * 16) * kLdp + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(dst + g * kLdp) = pack_bf16(sacc[nt][0], sacc[nt][1]);
+        *reinterpret_cast<uint32_t*>(dst + (g + 8) * kLdp) = pack_bf16(sacc[nt][2], sacc[nt][3]);
+      }
+      // o = round(P) . V to the workspace
+      {
+        float oacc[kHt][4];
+#pragma unroll
+        for (int i = 0; i < kHt; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
+#pragma unroll
+        for (int k2 = 0; k2 < kNt / 2; ++k2) {
+          uint32_t pf[4];
+          acc_to_a(pf, sacc[2 * k2], sacc[2 * k2 + 1]);
+#pragma unroll
+          for (int nq = 0; nq < kHd / 16; ++nq) {
+            uint32_t vf[4];
+            ldsm_x4_t(vf, b_frag_row_kn(Vb + (size_t)k2 * 16 * kLdkv + nq * 16, kLdkv, lane));
+            mma_bf16(oacc[2 * nq], pf, vf[0], vf[1]);
+            mma_bf16(oacc[2 * nq + 1], pf, vf[2], vf[3]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kHt; ++i) {
+          const int col = h * kHd + i * 8 + 2 * t;
+          if (tok0 >= 0)
+            *reinterpret_cast<uint32_t*>(a.o_ws + tok0 + col) = pack_bf16(oacc[i][0], oacc[i][1]);
+          if (tok1 >= 0)
+            *reinterpret_cast<uint32_t*>(a.o_ws + tok1 + col) = pack_bf16(oacc[i][2], oacc[i][3]);
+        }
+      }
+      // rowsum(dp * P), dp = doa . v^T a 16-key block at a time
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int np = 0; np < kNt / 2; ++np) {
+        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < kHd / 16; ++ks) {
+          uint32_t vf[4];
+          ldsm_x4(vf, b_frag_row_nk(Vb + (size_t)np * 16 * kLdkv + ks * 16, kLdkv, lane));
+          mma_bf16(dp[0], df[ks], vf[0], vf[1]);
+          mma_bf16(dp[1], df[ks], vf[2], vf[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          rs0 += dp[q][0] * sacc[2 * np + q][0] + dp[q][1] * sacc[2 * np + q][1];
+          rs1 += dp[q][2] * sacc[2 * np + q][2] + dp[q][3] * sacc[2 * np + q][3];
+        }
+      }
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+      // dp again, ds = P (dp - r) into the chunk's d(bias), dss = round(ds * scale)
+      // into the ds tile and dq = dss . k
+      float dq[kHt][4];
+#pragma unroll
+      for (int i = 0; i < kHt; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+      float* dbh = dbias_blk + (size_t)h * nn;
+#pragma unroll
+      for (int np = 0; np < kNt / 2; ++np) {
+        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < kHd / 16; ++ks) {
+          uint32_t vf[4];
+          ldsm_x4(vf, b_frag_row_nk(Vb + (size_t)np * 16 * kLdkv + ks * 16, kLdkv, lane));
+          mma_bf16(dp[0], df[ks], vf[0], vf[1]);
+          mma_bf16(dp[1], df[ks], vf[2], vf[3]);
+        }
+        float ss[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int nt = 2 * np + q;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ds = sacc[nt][e] * (dp[q][e] - (e < 2 ? rs0 : rs1));
+            ss[q][e] = ds * a.scale;
+            const int i = e < 2 ? i0 : i1, j = nt * 8 + 2 * t + (e & 1);
+            if (i < N && j < N) own_add(dbh + (size_t)i * N + j, ds, first);
+          }
+          bf16* dst = Dt + (size_t)(strip * 16) * kLdp + nt * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(dst + g * kLdp) = pack_bf16(ss[q][0], ss[q][1]);
+          *reinterpret_cast<uint32_t*>(dst + (g + 8) * kLdp) = pack_bf16(ss[q][2], ss[q][3]);
+        }
+        uint32_t sf[4];
+        acc_to_a(sf, ss[0], ss[1]);
+#pragma unroll
+        for (int nq = 0; nq < kHd / 16; ++nq) {
+          uint32_t kf[4];
+          ldsm_x4_t(kf, b_frag_row_kn(Kb + (size_t)np * 16 * kLdkv + nq * 16, kLdkv, lane));
+          mma_bf16(dq[2 * nq], sf, kf[0], kf[1]);
+          mma_bf16(dq[2 * nq + 1], sf, kf[2], kf[3]);
+        }
+      }
+      named_barrier(1, kConsumers);  // the P and ds tiles are complete
+
+      // (c) column phase: dv = round(P)^T . doa, dk = dss^T . q for key strip `strip`
+      float dv[kHt][4], dk[kHt][4];
+#pragma unroll
+      for (int i = 0; i < kHt; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv[i][e] = dk[i][e] = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < kNt / 2; ++k2) {
+        uint32_t ap[4], as[4];
+        ldsm_x4_t(ap, a_frag_row_km(Pt + (size_t)k2 * 16 * kLdp + strip * 16, kLdp, lane));
+        ldsm_x4_t(as, a_frag_row_km(Dt + (size_t)k2 * 16 * kLdp + strip * 16, kLdp, lane));
+#pragma unroll
+        for (int nq = 0; nq < kHd / 16; ++nq) {
+          uint32_t bd[4], bq[4];
+          ldsm_x4_t(bd, b_frag_row_kn(Db + (size_t)k2 * 16 * kLdkv + nq * 16, kLdkv, lane));
+          ldsm_x4_t(bq, b_frag_row_kn(Qb + (size_t)k2 * 16 * kLdkv + nq * 16, kLdkv, lane));
+          mma_bf16(dv[2 * nq], ap, bd[0], bd[1]);
+          mma_bf16(dv[2 * nq + 1], ap, bd[2], bd[3]);
+          mma_bf16(dk[2 * nq], as, bq[0], bq[1]);
+          mma_bf16(dk[2 * nq + 1], as, bq[2], bq[3]);
+        }
+      }
+      // round(dqkv) of the warp's tokens to the workspace; unrounded column sums
+      fb_emit_dqkv<kHt>(dq, a.dqkv_ws, dqkvb, 0 * C + h * kHd, tok0, tok1, t, g, first);
+      fb_emit_dqkv<kHt>(dk, a.dqkv_ws, dqkvb, 1 * C + h * kHd, tok0, tok1, t, g, first);
+      fb_emit_dqkv<kHt>(dv, a.dqkv_ws, dqkvb, 2 * C + h * kHd, tok0, tok1, t, g, first);
+    }
+
+    // dxa = round(dqkv) . W_qkv^T: fp32 rows that overlay the per-head tiles,
+    // once every warp is done with them
+    named_barrier(1, kConsumers);
+    for (int e = lane; e < 16 * C; e += kWarp) dxa[(e / C) * ldx + e % C] = 0.f;
+    __syncwarp();  // (also makes the warp's dqkv rows visible to all its lanes)
+    for (int h = 0; h < nh; ++h, ++seq) {
+      const int s = seq & 1;
+      uint32_t af[3 * kHd / 16][4];  // the warp's round(dqkv) rows of head h (q | k | v)
+#pragma unroll
+      for (int ks = 0; ks < 3 * kHd / 16; ++ks) {
+        const int col = (16 * ks / kHd) * C + h * kHd + (16 * ks) % kHd;
+        af[ks][0] = ld_pair(a.dqkv_ws, tok0 < 0 ? -1 : 3 * tok0 + col + 2 * t);
+        af[ks][1] = ld_pair(a.dqkv_ws, tok1 < 0 ? -1 : 3 * tok1 + col + 2 * t);
+        af[ks][2] = ld_pair(a.dqkv_ws, tok0 < 0 ? -1 : 3 * tok0 + col + 8 + 2 * t);
+        af[ks][3] = ld_pair(a.dqkv_ws, tok1 < 0 ? -1 : 3 * tok1 + col + 8 + 2 * t);
+      }
+      mbar_wait(full + s, (uint32_t)((seq >> 1) & 1));
+      const bf16* slice = reinterpret_cast<const bf16*>(ring + (size_t)s * L.stage);
+      for (int nc = 0; nc < C / 16; ++nc) {
+        float acc[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = nc * 16 + q * 8 + 2 * t;
+          const float2 u = *reinterpret_cast<const float2*>(dxa + g * ldx + col);
+          const float2 v = *reinterpret_cast<const float2*>(dxa + (g + 8) * ldx + col);
+          acc[q][0] = u.x, acc[q][1] = u.y, acc[q][2] = v.x, acc[q][3] = v.y;
+        }
+#pragma unroll
+        for (int ks = 0; ks < 3 * kHd / 16; ++ks) {
+          uint32_t bf[4];  // B (k = the slice's columns, n = c) stored [n][k]
+          ldsm_x4(bf, b_frag_row_nk(slice + (size_t)nc * 16 * kLdw + ks * 16, kLdw, lane));
+          mma_bf16(acc[0], af[ks], bf[0], bf[1]);
+          mma_bf16(acc[1], af[ks], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = nc * 16 + q * 8 + 2 * t;
+          *reinterpret_cast<float2*>(dxa + g * ldx + col) = make_float2(acc[q][0], acc[q][1]);
+          *reinterpret_cast<float2*>(dxa + (g + 8) * ldx + col) =
+              make_float2(acc[q][2], acc[q][3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+
+    // dx = LN-vjp(dxa) + dout (or round(dxa) without LN), one row at a time;
+    // the dLN1 column sums per lane
+    float cx[kFbMaxC / kWarp], cz[kFbMaxC / kWarp];
+#pragma unroll
+    for (int k = 0; k < kFbMaxC / kWarp; ++k) cx[k] = cz[k] = 0.f;
+    for (int r = 0; r < 16; ++r) {
+      const long long tr = fb_tok(a, b, wi_d, wi_h, wi_w, strip * 16 + r, N);
+      if (tr < 0) break;
+      const float* dr = dxa + r * ldx;
+      if (!has_ln) {
+        for (int c = lane; c < C; c += kWarp)
+          a.dx[tr + c] = __float2bfloat16(
+              dr[c] + (a.residual ? __bfloat162float(a.dout[tr + c]) : 0.f));
+        continue;
+      }
+      float m, rstd;
+      warp_ln_stats(a.x + tr, C, &m, &rstd);
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = lane; c < C; c += kWarp) {
+        const float dxh = dr[c] * a.ln_s[c];
+        s1 += dxh;
+        s2 += dxh * ((__bfloat162float(a.x[tr + c]) - m) * rstd);
+      }
+      s1 = warp_sum(s1) / C;
+      s2 = warp_sum(s2) / C;
+#pragma unroll
+      for (int k = 0; k < kFbMaxC / kWarp; ++k) {
+        const int c = lane + k * kWarp;
+        if (c >= C) break;
+        const float xh = (__bfloat162float(a.x[tr + c]) - m) * rstd;
+        const float v = rstd * (dr[c] * a.ln_s[c] - s1 - xh * s2) +
+                        (a.residual ? __bfloat162float(a.dout[tr + c]) : 0.f);
+        a.dx[tr + c] = __float2bfloat16(v);
+        cx[k] += dr[c] * xh;
+        cz[k] += dr[c];
+      }
+    }
+    if (has_ln) {
+#pragma unroll
+      for (int k = 0; k < kFbMaxC / kWarp; ++k) {
+        const int c = lane + k * kWarp;
+        if (c >= C) break;
+        own_add(dln + c, cx[k], first);
+        own_add(dln + C + c, cz[k], first);
+      }
+    }
+    named_barrier(1, kConsumers);  // the next window's tiles overlay other warps' dxa rows
+  }
+}
+
+template <int kNt, int kHd>
+cudaError_t launch_fb_as(const FoldBwdMmaArgs& a, unsigned blocks, size_t smem,
+                         cudaStream_t stream) {
+  const cudaError_t err = allow_smem(fold_attn_bwd_mma_kernel<kNt, kHd>, smem);
+  if (err != cudaSuccess) return err;
+  fold_attn_bwd_mma_kernel<kNt, kHd><<<blocks, (kNt / 2 + 1) * kWarp, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+inline int fb_chunk(long long windows) {
+  return (int)((windows + kFbBlocks - 1) / kFbBlocks);
+}
+
+struct FbWorkspace {
+  size_t row, o, dqkv, dqkvb, dln, dbias, atb, bytes;
+  int blocks, chunk, strips;
+};
+
+inline FbWorkspace fb_workspace(int B, int D, int H, int W, int C, int nh, int wd, int wh,
+                                int ww) {
+  const int n = wd * wh * ww;
+  const size_t T = (size_t)B * D * H * W, bf = 2;
+  const long long windows = (long long)B * (D / wd) * (H / wh) * (W / ww);
+  FbWorkspace l;
+  l.chunk = fb_chunk(windows);
+  l.blocks = (int)((windows + l.chunk - 1) / l.chunk);
+  l.strips = fa_padded_rows(n) / 16;
+  const size_t rows = (size_t)l.blocks * l.strips;
+  const size_t atb_a = atb_mma_partial_floats((int)T, C, 3 * C);
+  const size_t atb_b = atb_mma_partial_floats((int)T, C, C);
+  size_t o = 0;
+  l.row = o;   o = align256(o + bf * T * C);
+  l.o = o;     o = align256(o + bf * T * C);
+  l.dqkv = o;  o = align256(o + bf * T * 3 * C);
+  l.dqkvb = o; o = align256(o + sizeof(float) * rows * 3 * C);
+  l.dln = o;   o = align256(o + sizeof(float) * rows * 2 * C);
+  l.dbias = o; o = align256(o + sizeof(float) * l.blocks * nh * (size_t)n * n);
+  l.atb = o;   o = align256(o + sizeof(float) * (atb_a > atb_b ? atb_a : atb_b));
+  l.bytes = o;
+  return l;
+}
+
+}  // namespace vadcl
+
+extern "C" {
+
+long long vadcl_fold_attn_bwd_bf16_smem_bytes(int n, int c, int nh) {
+  return (long long)vadcl::fb_layout(n, c, c / nh).bytes;
+}
+
+long long vadcl_fold_attn_bwd_bf16_workspace_bytes(int B, int D, int H, int W, int C, int nh,
+                                                   int wd, int wh, int ww) {
+  return (long long)vadcl::fb_workspace(B, D, H, W, C, nh, wd, wh, ww).bytes;
+}
+
+// Partials of d(bias) (nH x N x N floats each) this body sums: one per chunk.
+long long vadcl_fold_attn_bwd_bf16_dbias_partials(int B, int D, int H, int W, int C, int nh,
+                                                  int wd, int wh, int ww) {
+  return (long long)vadcl::fb_workspace(B, D, H, W, C, nh, wd, wh, ww).blocks;
+}
+
+// x, dout (B, D, H, W, C) bf16; wpack, biasp, maskp: kernel A's packs
+// (ops/fold_attn.py); qkv_b (3C,) fp32 (zeros without a bias); the gradients
+// fp32 except dx (bf16).
+int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
+                             const float* ln_b, const void* wpack, const float* qkv_b,
+                             const float* biasp, const float* maskp, void* dx, float* dln_s,
+                             float* dln_b, float* dqkv_w, float* dqkv_b, float* dproj_w,
+                             float* dproj_b, float* dbias, void* workspace, int B, int D, int H,
+                             int W, int C, int nh, int wd, int wh, int ww, int sd, int sh, int sw,
+                             float scale, int residual, void* stream) {
+  using namespace vadcl;
+  using bf16 = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = wd * wh * ww;
+  if (B <= 0 || D % wd || H % wh || W % ww || !fb_eligible(n, C, nh))
+    return cudaErrorInvalidValue;
+  if ((ln_s != nullptr) != (residual != 0)) return cudaErrorInvalidValue;
+  const int hd = C / nh;
+  const size_t smem = fb_layout(n, C, hd).bytes;
+  const FbWorkspace l = fb_workspace(B, D, H, W, C, nh, wd, wh, ww);
+  char* ws = static_cast<char*>(workspace);
+  FoldBwdMmaArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(dout), ln_s, ln_b,
+                   static_cast<const bf16*>(wpack), qkv_b, biasp, maskp, static_cast<bf16*>(dx),
+                   reinterpret_cast<bf16*>(ws + l.row), reinterpret_cast<bf16*>(ws + l.o),
+                   reinterpret_cast<bf16*>(ws + l.dqkv),
+                   reinterpret_cast<float*>(ws + l.dqkvb), reinterpret_cast<float*>(ws + l.dln),
+                   reinterpret_cast<float*>(ws + l.dbias),
+                   B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, residual, l.chunk};
+  cudaError_t err;
+  const bool wide = fa_padded_rows(n) == kFaMaxTokens;
+  if (hd == 16)
+    err = wide ? launch_fb_as<14, 16>(a, l.blocks, smem, s) : launch_fb_as<8, 16>(a, l.blocks, smem, s);
+  else
+    err = wide ? launch_fb_as<14, 32>(a, l.blocks, smem, s) : launch_fb_as<8, 32>(a, l.blocks, smem, s);
+  if (err != cudaSuccess) return err;
+  // the second pass
+  const int T = B * D * H * W, rows = l.blocks * l.strips;
+  float* part = reinterpret_cast<float*>(ws + l.atb);
+  if ((err = launch_atb_mma(a.row_ws, nullptr, a.dqkv_ws, nullptr, T, C, 3 * C, part, dqkv_w,
+                            nullptr, s)))
+    return err;
+  if ((err = launch_atb_mma(a.o_ws, nullptr, a.dout, nullptr, T, C, C, part, dproj_w, dproj_b,
+                            s)))
+    return err;
+  if ((err = launch_sum_rows(a.dqkvb_part, dqkv_b, rows, 3 * C, 3 * C, s))) return err;
+  if (ln_s != nullptr) {
+    if ((err = launch_sum_rows(a.dln_part, dln_s, rows, C, 2 * C, s))) return err;
+    if ((err = launch_sum_rows(a.dln_part + C, dln_b, rows, C, 2 * C, s))) return err;
+  }
+  return launch_sum_rows(a.dbias_part, dbias, l.blocks, (long long)nh * n * n,
+                         (long long)nh * n * n, s);
+}
+
+}  // extern "C"

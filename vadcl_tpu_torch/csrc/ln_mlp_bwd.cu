@@ -2,7 +2,9 @@
 // (T, C) tokens (kernel 5): dx, dLN2, dw1, db1, dw2, db2.
 //
 // Replaces vadcl_tpu/ops/pallas_mlp.py:_bwd_kernel (entry _vjp_bwd, the
-// custom VJP of fused_ln_mlp).
+// custom VJP of fused_ln_mlp) in fp32, and in bf16 at the widths the
+// tensor-core body of ln_mlp_bwd_mma.cu does not take (C not a multiple of 16
+// or above 192, a hidden width not a multiple of 64).
 //
 // Pass 1, ln_mlp_bwd_kernel: one block per 16-token tile.  It recomputes
 // LN2 in fp32 (flax fast variance) keeping xhat and rstd, then walks the 4C

@@ -72,7 +72,7 @@ def make_video_scorer(
     batch_windows: int,
     first_frame_quirk: bool = False,
     input_frames: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
     """Build ``run(frames, starts) -> per-window MSE``: (n,) in predict mode,
     (n, frame_num) in reconstruction mode.  ``apply_fn(clips) -> recon``

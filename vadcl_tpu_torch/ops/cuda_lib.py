@@ -68,6 +68,13 @@ _SIGNATURES = {
     "vadcl_window_attn_bwd_workspace_bytes": ([_I] * 5, _L),
     "vadcl_ln_mlp_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
     "vadcl_ln_mlp_bwd_workspace_bytes": ([_I] * 3, _L),
+    "vadcl_ln_mlp_bwd_bf16": ([_P] * 14 + [_I] * 3 + [_P], _I),
+    "vadcl_ln_mlp_bwd_bf16_workspace_bytes": ([_I] * 3, _L),
+    "vadcl_ln_mlp_bwd_bf16_smem_bytes": ([_I], _L),
+    "vadcl_fold_attn_bwd_bf16": ([_P] * 17 + [_I] * 12 + [_F, _I, _P], _I),
+    "vadcl_fold_attn_bwd_bf16_smem_bytes": ([_I] * 3, _L),
+    "vadcl_fold_attn_bwd_bf16_workspace_bytes": ([_I] * 9, _L),
+    "vadcl_fold_attn_bwd_bf16_dbias_partials": ([_I] * 9, _L),
     "vadcl_cluster_assign": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
     "vadcl_cluster_assign_scratch": ([_I, _I], _L),
     "vadcl_space_cluster_loss": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),

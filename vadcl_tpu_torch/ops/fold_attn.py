@@ -19,9 +19,16 @@ modes the JAX package calls it in without a tail: ``fuse_ln=True,
 residual=True`` (through ``_blk_bwd``, the Swin block's front half) and
 ``fuse_ln=False, residual=False`` (the backward of
 ``folded_window_attention_trainable``, which a block at a window-padded
-geometry runs).  Its CUDA kernel is ``csrc/fold_attn_bwd.cu``: the same
-per-window blocks recompute the forward and emit dx; the cross-window sums
-(weight, bias and LN gradients) go through a deterministic second pass.
+geometry runs).  Its blocks recompute the forward per window and emit dx;
+the cross-window sums (weight, bias and LN gradients) go through a
+deterministic second pass.  ``fold_bwd_body`` picks one of two bodies: in
+bf16 at head width 16 or 32 and at most 112 tokens,
+``csrc/fold_attn_bwd_mma.cu`` (kernel A's design turned around: a warp owns
+16 query rows and the same 16 key rows, scores and their gradients in
+mma.sync registers, kernel A's packs, d(bias) summed per chunk of windows,
+the second pass on the tensor cores); fp32 and other bf16 geometries the
+shared-memory body of ``csrc/fold_attn_bwd.cu`` (``fold_attention_bwd_tiles``
+counts its launches).
 
 Kernel 10 replaces ``_fold_packed_kernel`` (entry
 ``fused_window_attention_folded_packed``; ``attn_kernel="fold_packed"`` and
@@ -136,24 +143,64 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     return total([8 * m, 4 * m, 4 * m]) + max(p1, p2)
 
 
+FOLD_BWD_MAX_C = 256  # widest C of kernel 6's tensor-core body (C / 32 column sums a lane)
+
+
+def fold_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
+    """Shared memory of one block of kernel 6's tensor-core body
+    (``csrc/fold_attn_bwd_mma.cu:fb_layout``): the mbarriers, two ring stages
+    (head h's weight slice of kernel A's pack and its W_proj rows), the LN1
+    row tile, then a region holding the double-buffered Q, K, V, DOA tiles
+    and the round(P) and round(ds * scale) tiles, which the fp32 dxa rows
+    overlay after the heads."""
+    hd = c // num_heads
+    rows = fold_padded_rows(n)
+    ldw, ldkv = 3 * hd + PACK_PAD, hd + 8
+    npc = -(-c // (3 * hd))
+    stage = 2 * (c * ldw + npc * hd * ldw)
+    region = 128 + 2 * stage + 2 * rows * (c + PACK_PAD)
+    tiles = region + 2 * 2 * 4 * rows * ldkv + 2 * 2 * rows * (rows + 8)
+    return max(tiles, region + 4 * rows * (c + 4))
+
+
+def fold_bwd_body(n: int, c: int, num_heads: int, dtype: torch.dtype) -> Optional[str]:
+    """The body kernel 6 runs a window of ``n`` tokens in: ``"mma"`` (the
+    tensor-core body: bf16, head width 16 or 32, at most ``FOLD_MAX_TOKENS``
+    tokens, C % 16 == 0 and at most ``FOLD_BWD_MAX_C``, its block within
+    ``SMEM_LIMIT``), else ``"tiles"`` (the shared-memory body, fp32 and
+    every bf16 geometry whose block fits), else None (the Swin block then
+    replays LN1 and runs kernel 8)."""
+    bf16 = dtype == torch.bfloat16
+    if (bf16 and c % num_heads == 0 and c % 16 == 0 and c // num_heads in FOLD_HEAD_DIMS
+            and n <= FOLD_MAX_TOKENS and c <= FOLD_BWD_MAX_C
+            and fold_bwd_mma_smem_bytes(n, c, num_heads) <= SMEM_LIMIT):
+        return "mma"
+    if fold_smem_bytes(n, c, num_heads, bf16, backward=True) <= SMEM_LIMIT:
+        return "tiles"
+    return None
+
+
 def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
               backward: bool = False) -> bool:
     """Whether a window of ``n`` tokens at width ``c`` runs in the fold
-    kernel (A, or 6 with ``backward``): its block must fit ``SMEM_LIMIT``,
-    and the bf16 forward, whose warps hold a 16 x N strip of scores in
-    registers, takes at most ``FOLD_MAX_TOKENS`` tokens (the cap is explicit:
-    kernel 6 would not follow a larger window, and the N = 196 and N = 392
+    kernel (A, or 6 with ``backward``: one of its bodies, ``fold_bwd_body``,
+    takes it): its block must fit ``SMEM_LIMIT``, and the bf16 forward, whose
+    warps hold a 16 x N strip of scores in registers, takes at most
+    ``FOLD_MAX_TOKENS`` tokens (the cap is explicit: kernel 6 would not
+    follow a larger window, and the N = 196 and N = 392
     windows of 8-frame reconstruction clips go to the row-tiled bodies of the
     partitioned-window kernels).
     A bf16 head width of 48 or a larger multiple of 16 goes to the
     partitioned-window kernels, which take it; ``fold_block_fits`` does not
     depend on this predicate, so the whole-block kernels keep such a width."""
     bf16 = dtype == torch.bfloat16
-    if bf16 and not backward:
+    if backward:
+        return fold_bwd_body(n, c, num_heads, dtype) is not None
+    if bf16:
         hd = c // num_heads
         if n > FOLD_MAX_TOKENS or (hd % 16 == 0 and hd not in FOLD_HEAD_DIMS):
             return False
-    return fold_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT
+    return fold_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
 
 
 # Whether a window runs in kernel 10.  It is kernel A's device code behind a
@@ -569,12 +616,14 @@ fold_attention.launches = 0
 
 
 def fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
-                       mask, num_heads, window, scale, shift=(0, 0, 0), residual=True):
+                       mask, num_heads, window, scale, shift=(0, 0, 0), residual=True,
+                       tiles: bool = False):
     """Kernel 6: the gradients of ``fold_attention`` with LN1 and the
     residual, or (``ln_scale=None, residual=False``) with neither, as
     ``fold_attention_bwd_plain`` returns them (the contract of
     ``_fold_bwd_call(..., fuse_ln=, residual=)`` with the shift roll folded
-    in)."""
+    in).  ``fold_bwd_body`` picks the body; ``tiles`` forces the
+    shared-memory body.  Counts the tensor-core body's launches."""
     _check_mode(ln_scale, residual)
     args = (x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask,
             num_heads, tuple(window), scale, tuple(shift), bool(residual))
@@ -582,10 +631,26 @@ def fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
         return fold_attention_bwd_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fold_attention_bwd: unsupported device {x.device}")
+    n = window[0] * window[1] * window[2]
+    if not tiles and fold_bwd_body(n, x.shape[-1], num_heads, x.dtype) == "mma":
+        return _fold_attention_bwd_mma(*args)
     return _fold_attention_bwd_cuda(*args)
 
 
 fold_attention_bwd.launches = 0
+
+
+def fold_attention_bwd_tiles(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
+                             mask, num_heads, window, scale, shift=(0, 0, 0), residual=True):
+    """Kernel 6 on its shared-memory body (``csrc/fold_attn_bwd.cu``) whatever
+    the geometry; counts that body's launches (also those the route makes
+    through ``fold_attention_bwd``: fp32, and bf16 geometries the tensor-core
+    body does not take)."""
+    return fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask,
+                              num_heads, window, scale, shift, residual, tiles=True)
+
+
+fold_attention_bwd_tiles.launches = 0
 
 
 class _FoldAttentionPacked(torch.autograd.Function):
@@ -1040,6 +1105,59 @@ def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
         ws.data_ptr(),
         B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H,
         shift[2] % W, float(scale), int(residual), is_bf16, cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, "fold_attention_bwd")
+    fold_attention_bwd_tiles.launches += 1
+    return (dx, dln_s, dln_b, dqkv_w, dqkv_b if qkv_b is not None else None,
+            dproj_w, dproj_b, dbias)
+
+
+def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
+                            bias, mask, num_heads, window, scale, shift, residual):
+    """Kernel 6's tensor-core body, on kernel A's packs of the same tensors."""
+    lib = cuda_lib.library()
+    _check_fold("fold_attention_bwd", x, bias, mask, num_heads, window,
+                lambda n, c, nh, _: lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh),
+                register_scores=True)
+    B, D, H, W, C = x.shape
+    dev, dt = x.device, x.dtype
+    n = window[0] * window[1] * window[2]
+    xc = cuda_lib.aligned(x)
+    doc = cuda_lib.aligned(dout.to(dt))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(xc)
+    has_ln = ln_scale is not None
+    dln_s = torch.empty(C, **f32) if has_ln else None
+    dln_b = torch.empty(C, **f32) if has_ln else None
+    dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), torch.empty(3 * C, **f32)
+    dproj_w, dproj_b = torch.empty(C, C, **f32), torch.empty(C, **f32)
+    dbias = torch.empty(num_heads, n, n, **f32)
+    ws = torch.empty(
+        lib.vadcl_fold_attn_bwd_bf16_workspace_bytes(B, D, H, W, C, num_heads, *window),
+        dtype=torch.uint8, device=dev,
+    )
+    # the forward's packs of these tensor versions (cache hits within a step)
+    wp = _packs.get((qkv_w, proj_w), ("fold weights", num_heads, str(dev)),
+                    lambda: pack_fold_weights(qkv_w.to(dev), proj_w.to(dev), num_heads, dt))
+    vec_src = tuple(t for t in (ln_scale, ln_bias, qkv_b) if t is not None)
+    ls, lb, qb = _packs.get(
+        vec_src, ("fold bwd vectors", has_ln, qkv_b is None, str(dev)),
+        lambda: (_vec(ln_scale, C, dev) if has_ln else None,
+                 _vec(ln_bias, C, dev) if has_ln else None, _vec(qkv_b, 3 * C, dev)))
+    bs = _packs.get((bias,), ("fold bias", str(dev)),
+                    lambda: pack_fold_scores(bias.to(dev), float("-inf")))
+    mk = None if mask is None else _packs.get(
+        (mask,), ("fold mask", str(dev)), lambda: pack_fold_scores(mask.to(dev), 0.0))
+    err = lib.vadcl_fold_attn_bwd_bf16(
+        xc.data_ptr(), doc.data_ptr(),
+        ls.data_ptr() if has_ln else None, lb.data_ptr() if has_ln else None,
+        wp.data_ptr(), qb.data_ptr(), bs.data_ptr(),
+        mk.data_ptr() if mk is not None else None, dx.data_ptr(),
+        dln_s.data_ptr() if has_ln else None, dln_b.data_ptr() if has_ln else None,
+        dqkv_w.data_ptr(), dqkv_b.data_ptr(), dproj_w.data_ptr(), dproj_b.data_ptr(),
+        dbias.data_ptr(), ws.data_ptr(),
+        B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H, shift[2] % W,
+        float(scale), int(residual), cuda_lib.stream_ptr(xc),
     )
     cuda_lib.check(err, "fold_attention_bwd")
     fold_attention_bwd.launches += 1

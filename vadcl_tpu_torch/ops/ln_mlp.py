@@ -12,10 +12,17 @@ C % 16 == 0, C <= 192 and a hidden width divisible by 128, and takes both
 weight matrices packed by hidden chunk (``pack_mlp_weights``, cached per
 parameter version in ``_packs``).
 
-Kernel 5 replaces ``_bwd_kernel`` (entry ``_vjp_bwd``).  Its CUDA kernel is
-``csrc/ln_mlp_bwd.cu``: per token tile it recomputes the forward and emits
-dx; the weight and bias sums over tokens go through a deterministic second
-pass.  Like the Pallas backward, every product is fp32 on fp32 operands.
+Kernel 5 replaces ``_bwd_kernel`` (entry ``_vjp_bwd``).  Like the Pallas
+backward, every product is fp32 on fp32 operands; per token tile the kernel
+recomputes the forward and emits dx, and the weight and bias sums over tokens
+go through a deterministic second pass.  It has two bodies, picked by
+``mlp_bwd_body``: in bf16 at C % 16 == 0, C <= 192 and a hidden width
+divisible by 64 (the model's widths) ``csrc/ln_mlp_bwd_mma.cu`` runs every
+product on the tensor cores (mma.sync), an fp32 operand split into bf16 hi
+and lo parts whose products are summed in fp32, reads B's cached pack and
+runs its second pass on the tensor cores too (``csrc/reduce_mma.cu``); fp32
+and every other width run the CUDA-core body of ``csrc/ln_mlp_bwd.cu``
+(``ln_mlp_bwd_tiles`` counts its launches).
 
 ``ln_mlp`` is a ``torch.autograd.Function``: forward kernel B, backward
 kernel 5.  On a CPU tensor both run their plain versions (``ln_mlp_plain``,
@@ -29,11 +36,43 @@ from __future__ import annotations
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
-from vadcl_tpu_torch.ops.fold_attn import _f32, _ln_fast, _ln_stats, _ln_vjp, _vec
+from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT, _f32, _ln_fast, _ln_stats, _ln_vjp, _vec
 from vadcl_tpu_torch.ops.packed import PackCache
 
 MLP_CHUNK = 64  # hidden columns per packed chunk (csrc/ln_mlp.cu:kMmaChunk)
 _packs = PackCache()
+
+# Kernel 5's tensor-core body (csrc/ln_mlp_bwd_mma.cu): a block of 8 warps owns
+# 128 tokens; a warp keeps its 16 x C dz accumulator in registers, C being a
+# template parameter of the kernel (16 .. 192 in steps of 16).
+MLP_BWD_MMA_MAX_C = 192
+_M5_ROWS, _M5_WARPS, _M5_PAD = 128, 8, 8
+
+
+def mlp_bwd_mma_smem_bytes(c: int) -> int:
+    """Shared memory of one block of kernel 5's tensor-core body
+    (``csrc/ln_mlp_bwd_mma.cu:m5_smem``): two mbarriers, two ring stages of
+    one packed chunk, the round(z) and dy tiles (rows padded by 8), the rows'
+    LN statistics and the warps' dLN2 column sums: 214,144 B at C = 192."""
+    return (128 + 2 * 2 * 2 * c * MLP_CHUNK + 2 * 2 * _M5_ROWS * (c + _M5_PAD)
+            + 4 * 2 * _M5_ROWS + 4 * _M5_WARPS * 2 * c)
+
+
+def mlp_bwd_body(c: int, ch: int, dtype: torch.dtype) -> str:
+    """The body kernel 5 runs at width ``c`` and hidden width ``ch``:
+    ``"mma"`` (the tensor-core body: bf16, C % 16 == 0, 16 <= C <= 192, a
+    hidden width divisible by 64, its block within ``SMEM_LIMIT``) or
+    ``"tiles"`` (the CUDA-core body: fp32, and bf16 at the widths the
+    tensor-core body does not take).  Raises where neither takes it."""
+    if (dtype == torch.bfloat16 and c % 16 == 0 and 16 <= c <= MLP_BWD_MMA_MAX_C
+            and ch % MLP_CHUNK == 0 and mlp_bwd_mma_smem_bytes(c) <= SMEM_LIMIT):
+        return "mma"
+    if c % 4 == 0 and ch % 4 == 0:
+        return "tiles"
+    raise NotImplementedError(
+        f"ln_mlp_bwd: the kernel's vector loads need C and the hidden width to be "
+        f"multiples of 4 (got C={c}, hidden {ch})"
+    )
 
 
 def pack_mlp_weights(w1: torch.Tensor, w2: torch.Tensor,
@@ -200,29 +239,79 @@ def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     return y.reshape(shape)
 
 
-def ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
+def ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, tiles: bool = False):
     """Kernel 5: the gradients of ``ln_mlp`` as ``ln_mlp_bwd_plain`` returns
-    them (the contract of ``fused_ln_mlp``'s ``_vjp_bwd``)."""
+    them (the contract of ``fused_ln_mlp``'s ``_vjp_bwd``).  ``mlp_bwd_body``
+    picks the body; ``tiles`` forces the CUDA-core body.  Counts the
+    tensor-core body's launches."""
     if x.device.type == "cpu":
         return ln_mlp_bwd_plain(x, dy, ln_scale, ln_bias, w1, b1, w2)
     if x.device.type != "cuda":
         raise ValueError(f"ln_mlp_bwd: unsupported device {x.device}")
     c, ch = _check_mlp("ln_mlp_bwd", x, w1, w2)
-    if c % 4 or ch % 4:
-        raise NotImplementedError(
-            f"ln_mlp_bwd: the kernel's vector loads need C and the hidden width to be "
-            f"multiples of 4 (got C={c}, hidden {ch})"
-        )
+    if tiles or mlp_bwd_body(c, ch, x.dtype) == "tiles":  # (raises where neither body takes it)
+        return _ln_mlp_bwd_tiles(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch)
+    return _ln_mlp_bwd_mma(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch)
+
+
+ln_mlp_bwd.launches = 0
+
+
+def ln_mlp_bwd_tiles(x, dy, ln_scale, ln_bias, w1, b1, w2):
+    """Kernel 5 on its CUDA-core body (``csrc/ln_mlp_bwd.cu``) whatever the
+    dtype and width; counts that body's launches (also those the route makes
+    through ``ln_mlp_bwd``: fp32, and bf16 widths the tensor-core body does
+    not take)."""
+    return ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, tiles=True)
+
+
+ln_mlp_bwd_tiles.launches = 0
+
+
+def _bwd_outputs(c, ch, dev):
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(c, ch, **f32),
+            torch.empty(ch, **f32), torch.empty(ch, c, **f32), torch.empty(c, **f32))
+
+
+def _ln_mlp_bwd_mma(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch):
+    dev, dt = x.device, x.dtype
+    shape = x.shape
+    x2 = cuda_lib.aligned(x.reshape(-1, c))
+    dy2 = cuda_lib.aligned(dy.reshape(-1, c).to(dt))
+    ntok = x2.shape[0]
+    dx = torch.empty_like(x2)
+    dls, dlb, dw1, db1, dw2, db2 = _bwd_outputs(c, ch, dev)
+    lib = cuda_lib.library()
+    ws = torch.empty(lib.vadcl_ln_mlp_bwd_bf16_workspace_bytes(ntok, c, ch),
+                     dtype=torch.uint8, device=dev)
+    # the forward's pack of this parameter version (a cache hit within a step)
+    wp = _packs.get((w1, w2), ("mlp", str(dev)),
+                    lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
+    vecs = (ln_scale, ln_bias, b1)
+    ls, lb, b1c = _packs.get(
+        tuple(t for t in vecs if t is not None),
+        ("mlp bwd vectors", tuple(t is None for t in vecs), str(dev)),
+        lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev)))
+    err = lib.vadcl_ln_mlp_bwd_bf16(
+        x2.data_ptr(), dy2.data_ptr(), ls.data_ptr(), lb.data_ptr(), wp.data_ptr(),
+        b1c.data_ptr(), dx.data_ptr(), dls.data_ptr(), dlb.data_ptr(), dw1.data_ptr(),
+        db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), ntok, c, ch,
+        cuda_lib.stream_ptr(x2),
+    )
+    cuda_lib.check(err, "ln_mlp_bwd")
+    ln_mlp_bwd.launches += 1
+    return dx.reshape(shape), dls, dlb, dw1, db1, dw2, db2
+
+
+def _ln_mlp_bwd_tiles(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch):
     dev, dt = x.device, x.dtype
     shape = x.shape
     x2 = x.reshape(-1, c).contiguous()
     dy2 = dy.reshape(-1, c).to(dt).contiguous()
     ntok = x2.shape[0]
-    f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x2)
-    dls, dlb, db2 = torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(c, **f32)
-    dw1, db1 = torch.empty(c, ch, **f32), torch.empty(ch, **f32)
-    dw2 = torch.empty(ch, c, **f32)
+    dls, dlb, dw1, db1, dw2, db2 = _bwd_outputs(c, ch, dev)
     lib = cuda_lib.library()
     ws = torch.empty(lib.vadcl_ln_mlp_bwd_workspace_bytes(ntok, c, ch),
                      dtype=torch.uint8, device=dev)
@@ -237,8 +326,5 @@ def ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2):
         cuda_lib.stream_ptr(x2),
     )
     cuda_lib.check(err, "ln_mlp_bwd")
-    ln_mlp_bwd.launches += 1
+    ln_mlp_bwd_tiles.launches += 1
     return dx.reshape(shape), dls, dlb, dw1, db1, dw2, db2
-
-
-ln_mlp_bwd.launches = 0

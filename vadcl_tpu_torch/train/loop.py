@@ -93,14 +93,24 @@ def train(
     eval_fn: Optional[Callable[[TrainState], float]] = None,
     eval_every_epochs: int = 0,
     max_steps: Optional[int] = None,
-    device: Optional[str] = None,
+    device: str = "cuda",
 ) -> TrainState:
     """Train ``VADModel(cfg.model)`` from its seeded init (``cfg.seed``) or
-    from the newest checkpoint under ``<output_dir>/ckpt``.  ``device``
-    defaults to CUDA when a card is visible; the compute dtype is bf16 there
-    (``cfg.bf16``) and fp32 on the CPU."""
-    dev = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    from the newest checkpoint under ``<output_dir>/ckpt``.  Runs on the card
+    (``device="cuda"``, compute dtype bf16 with ``cfg.bf16``) unless the
+    caller asks for ``device="cpu"`` (fp32, the plain versions of the
+    kernels); without a visible card the default raises instead of training
+    on the CPU.  Stamps ``run_meta.json`` into the output directory."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "train(): no CUDA device is visible; pass device=\"cpu\" to train on the CPU "
+            "(fp32, the kernels' plain versions)"
+        )
     os.makedirs(cfg.output_dir, exist_ok=True)
+    from vadcl_tpu_torch.utils.provenance import write_run_stamp
+
+    write_run_stamp(cfg.output_dir, cfg, device=dev)
     logger = get_logger(os.path.join(cfg.output_dir, "exp.log"))
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
     if cfg.dump_every_iters:
