@@ -820,7 +820,7 @@ def phase_bwd_kernels(batch: int = 4):
                     print(f"    the shared-memory body on the same inputs: {old_ms:.4f} ms")
                 if dtype == torch.bfloat16 and gname == "enc_stage0" and shifted:
                     stats["fold_attention_bwd"] = dict(
-                        ms=ms, plain_ms=pms, old_body_ms=old_ms, earlier_ms=1.2232,
+                        ms=ms, plain_ms=pms, old_body_ms=old_ms,
                         shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted",
                         **bound(tensors_of(a, got), attn_flops(a["x"][..., 0].numel(), 96, 98,
                                                                backward=True), "bf16"))
@@ -892,13 +892,12 @@ def phase_bwd_kernels(batch: int = 4):
                 print(f"    the CUDA-core body on the same inputs: {old_ms:.4f} ms")
             if dtype == torch.bfloat16 and C == 96:
                 # fc1 recomputed, dw2, dy.w2^T, dw1, dz.w1^T: 8C^2 per token each, fp32
-                # operations by the contract; beside it the split bf16 passes the
-                # tensor-core body runs, over the bf16 peak
+                # operations by the contract; the split bf16 passes the tensor-core
+                # body runs, over the bf16 peak, are printed beside it
                 tokens = x[..., 0].numel()
+                print(f"    the split bf16 products over the bf16 peak: "
+                      f"{mlp_split_flops(tokens, C) / PEAK_FLOPS['bf16'] * 1e3:.4f} ms")
                 stats["ln_mlp_bwd"] = dict(ms=ms, plain_ms=pms, old_body_ms=old_ms,
-                                           earlier_ms=1.7042,
-                                           split_bound_ms=mlp_split_flops(tokens, C)
-                                           / PEAK_FLOPS["bf16"] * 1e3,
                                            shape=f"x ({batch},2,56,56,96) bf16, hidden 384",
                                            **bound([x, dy, *p, *got],
                                                    tokens * 40.0 * C * C, "fp32"))

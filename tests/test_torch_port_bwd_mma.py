@@ -31,7 +31,7 @@ from vadcl_tpu_torch.ops.fold_attn import (
     pack_fold_weights,
 )
 from vadcl_tpu_torch.ops.ln_mlp import (
-    MLP_CHUNK, dgelu_exact_f32, gelu_exact_f32, ln_mlp_bwd_plain, mlp_bwd_body,
+    MLP_CHUNK, _mlp_vectors, dgelu_exact_f32, gelu_exact_f32, ln_mlp_bwd_plain, mlp_bwd_body,
     mlp_bwd_mma_smem_bytes, pack_mlp_weights,
 )
 from vadcl_tpu_torch.ops.packed import PackCache
@@ -287,6 +287,38 @@ def test_pack_is_made_again_after_an_in_place_update():
     assert len(made) == 2 and fresh is not first
     torch.testing.assert_close(fresh, pack_mlp_weights(w1, w2), rtol=0, atol=0)
     assert not torch.equal(fresh, first)
+
+
+@pytest.mark.parametrize("kernel", ["mlp", "fold", "fold without LN"])
+def test_forward_and_backward_share_one_vector_entry(kernel):
+    """Kernel 5's and 6's tensor-core bodies read the fp32 vectors of their
+    forwards' cache entry (B's, A's): a second call for the same parameter
+    versions returns the very same tensors, and an in-place update makes
+    fresh ones."""
+    rng = np.random.RandomState(6)
+    C = 32
+    ls, lb = (torch.nn.Parameter(T(rng.randn(C).astype(np.float32))) for _ in range(2))
+    bias = torch.nn.Parameter(T(rng.randn(4 * C if kernel == "mlp" else 3 * C)
+                                .astype(np.float32)))
+    if kernel == "mlp":
+        get = lambda: _mlp_vectors(ls, lb, bias, C, 4 * C, "cpu")
+    else:
+        with_ln = kernel == "fold"
+        get = lambda: fold_attn._fold_vectors(ls if with_ln else None,
+                                              lb if with_ln else None, bias, C, "cpu")
+    first = get()
+    assert all(a is b for a, b in zip(get(), first))
+    want = (ls, lb) if kernel != "fold without LN" else (None, None)
+    for got, w in zip(first, (*want, bias)):
+        if w is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, w.detach(), rtol=0, atol=0)
+    with torch.no_grad():
+        bias.add_(1.0)
+    fresh = get()
+    assert fresh[2] is not first[2]
+    torch.testing.assert_close(fresh[2], bias.detach(), rtol=0, atol=0)
 
 
 # --- entry points -------------------------------------------------------------

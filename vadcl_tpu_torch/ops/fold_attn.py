@@ -861,6 +861,18 @@ def _vec(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
     return cuda_lib.aligned(_f32(t, n, device))
 
 
+def _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev):
+    """The fp32 LN1 scale and bias (None without LN) and qkv bias that kernel
+    A and kernel 6's tensor-core body both read: one entry per parameter
+    version, so the backward of a step reuses its forward's."""
+    has_ln = ln_scale is not None
+    return _packs.get(
+        tuple(t for t in (ln_scale, ln_bias, qkv_b) if t is not None),
+        ("fold vectors", has_ln, qkv_b is None, C, str(dev)),
+        lambda: (_vec(ln_scale, C, dev) if has_ln else None,
+                 _vec(ln_bias, C, dev) if has_ln else None, _vec(qkv_b, 3 * C, dev)))
+
+
 def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes, register_scores=False):
     """The checks kernels A and 6 share; ``smem_bytes`` is the library's
     shared-memory size function of the kernel (what ``fold_smem_bytes``
@@ -935,12 +947,9 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
         wp = _packs.get((qkv_w, proj_w), ("fold weights", num_heads, str(dev)),
                         lambda: pack_fold_weights(qkv_w.to(dev), proj_w.to(dev), num_heads,
                                                   x.dtype))
-        vec_src = tuple(t for t in (ln_scale, ln_bias, qkv_b, proj_b) if t is not None)
-        ln_s, ln_b, qb, pb = _packs.get(
-            vec_src, ("fold vectors", has_ln, qkv_b is None, str(dev)),
-            lambda: (_vec(ln_scale, C, dev) if has_ln else None,
-                     _vec(ln_bias, C, dev) if has_ln else None,
-                     _vec(qkv_b, 3 * C, dev), _vec(proj_b, C, dev)))
+        ln_s, ln_b, qb = _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev)
+        pb = _packs.get(() if proj_b is None else (proj_b,), ("fold proj_b", C, str(dev)),
+                        lambda: _vec(proj_b, C, dev))
         bs = _packs.get((bias,), ("fold bias", str(dev)),
                         lambda: pack_fold_scores(bias.to(dev), float("-inf")))
         mk = None if mask is None else _packs.get(
@@ -1139,11 +1148,7 @@ def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
     # the forward's packs of these tensor versions (cache hits within a step)
     wp = _packs.get((qkv_w, proj_w), ("fold weights", num_heads, str(dev)),
                     lambda: pack_fold_weights(qkv_w.to(dev), proj_w.to(dev), num_heads, dt))
-    vec_src = tuple(t for t in (ln_scale, ln_bias, qkv_b) if t is not None)
-    ls, lb, qb = _packs.get(
-        vec_src, ("fold bwd vectors", has_ln, qkv_b is None, str(dev)),
-        lambda: (_vec(ln_scale, C, dev) if has_ln else None,
-                 _vec(ln_bias, C, dev) if has_ln else None, _vec(qkv_b, 3 * C, dev)))
+    ls, lb, qb = _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev)
     bs = _packs.get((bias,), ("fold bias", str(dev)),
                     lambda: pack_fold_scores(bias.to(dev), float("-inf")))
     mk = None if mask is None else _packs.get(

@@ -197,6 +197,18 @@ def _check_mlp(what, x, w1, w2):
     return c, ch
 
 
+def _mlp_vectors(ln_scale, ln_bias, b1, c, ch, dev):
+    """The fp32 LN2 scale and bias and first bias that kernel B and kernel 5's
+    tensor-core body both read: one entry per parameter version, so the
+    backward of a step reuses its forward's (a missing one is zeros, as in
+    fp32)."""
+    vecs = (ln_scale, ln_bias, b1)
+    return _packs.get(
+        tuple(t for t in vecs if t is not None),
+        ("mlp vectors", tuple(t is None for t in vecs), c, ch, str(dev)),
+        lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev)))
+
+
 def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     c, ch = _check_mlp("ln_mlp", x, w1, w2)
     if x.dtype == torch.bfloat16 and (c % 16 or c > 192 or ch % 128):
@@ -214,12 +226,9 @@ def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
         # packed weights and fp32 vectors: made once per parameter version
         wp = _packs.get((w1, w2), ("mlp", str(dev)),
                         lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
-        vecs = (ln_scale, ln_bias, b1, b2)  # (a missing one is zeros, as in fp32)
-        ls, lb, b1c, b2c = _packs.get(
-            tuple(t for t in vecs if t is not None),
-            ("mlp vectors", tuple(t is None for t in vecs), str(dev)),
-            lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev),
-                     _vec(b2, c, dev)))
+        ls, lb, b1c = _mlp_vectors(ln_scale, ln_bias, b1, c, ch, dev)
+        b2c = _packs.get(() if b2 is None else (b2,), ("mlp b2", c, str(dev)),
+                         lambda: _vec(b2, c, dev))
         err = lib.vadcl_ln_mlp_bf16(
             x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), wp.data_ptr(), b1c.data_ptr(),
             b2c.data_ptr(), y.data_ptr(), x2.shape[0], c, ch, cuda_lib.stream_ptr(x2),
@@ -288,11 +297,7 @@ def _ln_mlp_bwd_mma(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch):
     # the forward's pack of this parameter version (a cache hit within a step)
     wp = _packs.get((w1, w2), ("mlp", str(dev)),
                     lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
-    vecs = (ln_scale, ln_bias, b1)
-    ls, lb, b1c = _packs.get(
-        tuple(t for t in vecs if t is not None),
-        ("mlp bwd vectors", tuple(t is None for t in vecs), str(dev)),
-        lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev)))
+    ls, lb, b1c = _mlp_vectors(ln_scale, ln_bias, b1, c, ch, dev)
     err = lib.vadcl_ln_mlp_bwd_bf16(
         x2.data_ptr(), dy2.data_ptr(), ls.data_ptr(), lb.data_ptr(), wp.data_ptr(),
         b1c.data_ptr(), dx.data_ptr(), dls.data_ptr(), dlb.data_ptr(), dw1.data_ptr(),
