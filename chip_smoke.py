@@ -25,7 +25,11 @@ Phases (any failure raises and the script exits non-zero):
      neither) and as the attention branch alone at every geometry, shifted
      and not; an odd batch of 3 and token counts that fill no whole tile of
      kernel B; then edge shapes, a missing qkv bias, and kernels A and 10
-     without LN and residual on a window-padded shape.
+     without LN and residual on a window-padded shape.  Kernel C (cluster
+     assign) also at N = 1, N off its 64-token block, K = 1, K off its
+     32-center chunk, C = 30, the tiny preset's head, a center duplicated
+     across chunks and a minimum in the last chunk; two flagship calls give
+     the same bits.
   2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
      modes, 8: window attention, the whole-block backward) against their
      plain versions at the training batch of 4, bf16 and fp32, every
@@ -100,8 +104,10 @@ FOLD_GEOMETRIES = {  # name: ((D, H, W, C) per clip, heads, runtime window, shif
 MLP_SHAPES = {96: (2, 56, 56), 192: (2, 28, 28)}  # C: (D, H, W) per clip
 PADDED_FOLD = ((2, 63, 63, 96), 6, (2, 7, 7), (0, 3, 3))  # a 240^2 clip's stage 0, padded
 # Published peaks of one H100 SXM (dense), the yardstick of every bound_ms:
-# device memory rate, bf16 tensor-core rate, fp32 rate outside the tensor cores.
-HBM_BYTES_PER_S, PEAK_FLOPS = 3.35e12, {"bf16": 989e12, "fp32": 67e12}
+# device memory rate, bf16 and tf32 tensor-core rates, fp32 rate outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 BATCH_WINDOWS = 16  # phase 4's batch: the shapes the main path gives each kernel
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise.  fp32: only the
 # summation order differs (~1e-6 at O(1) outputs).  bf16: both round at the
@@ -113,7 +119,7 @@ BATCH_WINDOWS = 16  # phase 4's batch: the shapes the main path gives each kerne
 # transposes or misplaces the bias, the mask or the softmax fails.
 BOUNDS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 MODEL_TOL = 1e-4  # phase 3 recon atol and rtol, fp32: summation order only
-CLUSTER_RTOL = 1e-4  # recon and loss: fp32 FMA in another order
+CLUSTER_RTOL = 1e-4  # recon and loss: 3xTF32 products (~2^-21) and another sum order
 LABEL_GAP = 1e-3  # labels must agree where best and second-best differ by more
 DEV = "cuda"  # where the phases put their tensors
 
@@ -150,10 +156,10 @@ def cuda_ms(fn, reps: int = 4, batch: int = 5, warmup: int = 3) -> float:
 def bound(tensors, flops: float, peak: str, fp32_flops: float = 0.0) -> dict:
     """The least time the card could take for one call: the largest of the
     bytes of ``tensors`` (every input and output once) over the memory rate,
-    ``flops`` over the peak rate of ``peak`` ("bf16" or "fp32"), and, where a
-    bf16 kernel also has products its contract keeps in fp32, ``fp32_flops``
-    over the fp32 rate (the tensor cores and the fp32 units can work at the
-    same time, so the two do not add)."""
+    ``flops`` over the peak rate of ``peak`` ("bf16", "tf32" or "fp32"), and,
+    where a bf16 kernel also has products its contract keeps in fp32,
+    ``fp32_flops`` over the fp32 rate (the tensor cores and the fp32 units can
+    work at the same time, so the two do not add)."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / PEAK_FLOPS[peak], fp32_flops / PEAK_FLOPS["fp32"]) * 1e3
@@ -533,13 +539,27 @@ def phase_kernels():
               f"{bool(agree[decided].all())}")
         if not bool(agree[decided].all()):
             raise AssertionError("cluster_assign: labels differ where the argmin is decided")
+        same_bits("cluster_assign", got, cluster_assign(tokens, centers, 16.0))
+        # the split products do not follow the TF32 switch of torch's matmul
+        allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = not allow_tf32
+        try:
+            same_bits("cluster_assign, allow_tf32 flipped", got,
+                      cluster_assign(tokens, centers, 16.0))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
         ms, pms = time_pair(lambda: cluster_assign(tokens, centers, 16.0),
                             lambda: cluster_assign_plain(tokens, centers, 16.0))
+        # cdist and assign @ centers, 2 n K c flops each, as the body runs them:
+        # three tf32 passes (hi.hi, hi.lo, lo.hi) over the tf32 peak; the same
+        # work as fp32 FMA over the fp32 peak is printed beside it
+        cl_flops = 4.0 * n_tok * 1024 * 192
+        print(f"    the products as fp32 FMA over the fp32 peak: "
+              f"{cl_flops / PEAK_FLOPS['fp32'] * 1e3:.4f} ms")
         stats["cluster_assign"] = dict(
             max_abs_err=e1, ms=ms, plain_ms=pms,
             shape=f"tokens ({n_tok},192) x centers (1024,192) fp32",
-            # cdist and assign @ centers: 2 n K c each, fp32 FMA
-            **bound([tokens, centers, *got], 4.0 * n_tok * 1024 * 192, "fp32"))
+            **bound([tokens, centers, *got], 3 * cl_flops, "tf32"))
 
         maps = torch.randn(192, 2 * batch, 784, generator=gen).cuda()
         scen = torch.rand(192, 128, 784, generator=gen).cuda()
@@ -668,9 +688,23 @@ def phase_kernels():
                   "false there")
         else:
             raise AssertionError(f"{name}: N=392 launched instead of being refused")
-    for n, c, k in ((200, 64, 16), (100, 30, 70)):
+    # kernel C's edge shapes: narrow widths (C = 30 pads to 32), the tiny
+    # preset's feature head (2 clips x 98 tokens of 64, K = 16), K not a
+    # multiple of the 32-center chunk, K = 1, N = 1, N not a multiple of the
+    # 64-token block; then centers duplicated at k = 5 and 900 (the first
+    # wins across chunks) and at 18 and 40 (across the two warps of a row
+    # tile), and a token whose minimum lies in the last chunk
+    for n, c, k in ((200, 64, 16), (100, 30, 70), (196, 64, 16), (1000, 192, 1000),
+                    (300, 192, 1), (1, 192, 1024), (1, 30, 7), (77, 192, 1024),
+                    (64, 192, 1000)):
         t, cen = torch.randn(n, c, generator=gen).cuda(), torch.rand(k, c, generator=gen).cuda()
+        if (n, k) == (64, 1000):
+            cen[900], cen[40] = cen[5], cen[18]
+            t[0], t[1], t[2] = cen[5], cen[997] + 1e-3, cen[40]
         got, want = cluster_assign(t, cen, 16.0), cluster_assign_plain(t, cen, 16.0)
+        if (n, k) == (64, 1000) and got.labels[:3].tolist() != [5, 997, 18]:
+            raise AssertionError(f"cluster_assign: labels {got.labels[:3].tolist()} where the "
+                                 "first occurrences are 5 and 18 and the late minimum 997")
         check_close(f"cluster_assign ({n},{c})x({k},{c}) recon", got.recon, want.recon,
                     1e-5, CLUSTER_RTOL)
         check_close(f"cluster_assign ({n},{c})x({k},{c}) loss", got.loss_sq_sum,
@@ -1551,7 +1585,7 @@ REPLACES = {
     "fold_attention": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                        "vadcl_tpu/ops/pallas_attn_fold.py:165"),
     "ln_mlp": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
-    "cluster_assign": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:33"),
+    "cluster_assign": ("vadcl_tpu_torch/csrc/cluster_mma.cu", "vadcl_tpu/ops/pallas_cluster.py:33"),
     "space_cluster_loss": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:175"),
     "ln_mlp_bwd": ("vadcl_tpu_torch/csrc/ln_mlp_bwd_mma.cu", "vadcl_tpu/ops/pallas_mlp.py:87"),
     "fold_attention_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd_mma.cu",

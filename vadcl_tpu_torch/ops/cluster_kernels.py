@@ -2,9 +2,12 @@
 
 C replaces ``vadcl_tpu/ops/pallas_cluster.py:_cluster_kernel`` (entry
 ``fused_cluster_assign``); D replaces ``_space_kernel`` (entry
-``fused_space_cluster_loss``).  Both CUDA kernels are in ``csrc/cluster.cu``:
-fp32 FMA only (no TF32), the expanded cdist form, first-occurrence argmin,
-and a deterministic two-pass reduction of the loss.
+``fused_space_cluster_loss``).  C is in ``csrc/cluster_mma.cu``: tensor-core
+products on operands split into two tf32 parts (3xTF32, fp32-level accuracy
+whatever ``torch.backends.cuda.matmul.allow_tf32`` says) and an online
+soft-assign over chunks of centers, for C <= 192 and any N and K.  D is in
+``csrc/cluster.cu``, fp32 FMA only.  Both use the expanded cdist form, a
+first-occurrence argmin and a deterministic two-pass reduction of the loss.
 
 Both wrappers are ``torch.autograd.Function``s.  Their backward is what the
 JAX package's custom VJPs (``_bwd``, ``_space_bwd``) do: recompute the plain
@@ -14,8 +17,7 @@ gradient.
 
 On CPU tensors the forwards run the plain versions below (built from
 ``ops/cluster.py``); on CUDA tensors they launch the kernels or raise.
-Bounds on the card and what the simple design leaves are in the header of
-``csrc/cluster.cu``.
+Bounds on the card and the designs are in the headers of the two sources.
 """
 
 from __future__ import annotations
@@ -107,13 +109,15 @@ def _cluster_assign_cuda(tokens, centers, alpha: float) -> FusedClusterOut:
     if c2 != c:
         raise ValueError(f"cluster_assign: tokens {tuple(tokens.shape)} vs centers {tuple(centers.shape)}")
     lib = cuda_lib.library()
+    n_scratch = lib.vadcl_cluster_assign_scratch(n, c, k)
+    if n_scratch < 0:
+        raise ValueError(f"cluster_assign: the kernel takes 1 <= C <= 192 and N, K >= 1, "
+                         f"got tokens {tuple(tokens.shape)}, centers {tuple(centers.shape)}")
     x = _f32c(tokens)
     cen = _f32c(centers.to(tokens.device))
     recon = torch.empty((n, c), dtype=torch.float32, device=x.device)
     labels = torch.empty((n,), dtype=torch.int32, device=x.device)
-    scratch = torch.empty(
-        (lib.vadcl_cluster_assign_scratch(n, k),), dtype=torch.float32, device=x.device
-    )
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     err = lib.vadcl_cluster_assign(
         x.data_ptr(), cen.data_ptr(), recon.data_ptr(), labels.data_ptr(),

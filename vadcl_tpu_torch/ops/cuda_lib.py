@@ -76,7 +76,7 @@ _SIGNATURES = {
     "vadcl_fold_attn_bwd_bf16_workspace_bytes": ([_I] * 9, _L),
     "vadcl_fold_attn_bwd_bf16_dbias_partials": ([_I] * 9, _L),
     "vadcl_cluster_assign": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
-    "vadcl_cluster_assign_scratch": ([_I, _I], _L),
+    "vadcl_cluster_assign_scratch": ([_I] * 3, _L),
     "vadcl_space_cluster_loss": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
     "vadcl_space_cluster_scratch": ([_I, _I], _L),
     "vadcl_error_string": ([_I], ctypes.c_char_p),
