@@ -29,7 +29,11 @@ Phases (any failure raises and the script exits non-zero):
      assign) also at N = 1, N off its 64-token block, K = 1, K off its
      32-center chunk, C = 30, the tiny preset's head, a center duplicated
      across chunks and a minimum in the last chunk; two flagship calls give
-     the same bits.
+     the same bits.  Kernel D (space-cluster loss) at BD = 8, 32 and 64 (the
+     training, scoring and 8-frame batches), each timed beside its bytes
+     bound; two calls, and a call with ``allow_tf32`` flipped, give the same
+     bits; then BD = 1, 17 and 130, K = 1, 130 and 1000, HW = 49 and 785,
+     maps at a 4-byte offset and a map row equal to a center.
   2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
      modes, 8: window attention, the whole-block backward) against their
      plain versions at the training batch of 4, bf16 and fp32, every
@@ -421,10 +425,7 @@ def phase_kernels():
     fp32, then the main path's own shapes (batch 16, bf16), whose numbers go
     into the kernels line.  Returns {kernel: stats at batch 16}."""
     from vadcl_tpu_torch.ops.cluster import cdist
-    from vadcl_tpu_torch.ops.cluster_kernels import (
-        cluster_assign, cluster_assign_plain, space_cluster_loss,
-        space_cluster_loss_plain,
-    )
+    from vadcl_tpu_torch.ops.cluster_kernels import cluster_assign, cluster_assign_plain
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_attention, fold_attention_packed, fold_attention_packed_plain,
         fold_attention_plain, fold_block, fold_block_plain,
@@ -560,18 +561,6 @@ def phase_kernels():
             max_abs_err=e1, ms=ms, plain_ms=pms,
             shape=f"tokens ({n_tok},192) x centers (1024,192) fp32",
             **bound([tokens, centers, *got], 3 * cl_flops, "tf32"))
-
-        maps = torch.randn(192, 2 * batch, 784, generator=gen).cuda()
-        scen = torch.rand(192, 128, 784, generator=gen).cuda()
-        e = check_close("space_cluster_loss", space_cluster_loss(maps, scen, 32.0),
-                        space_cluster_loss_plain(maps, scen, 32.0), 0.0, CLUSTER_RTOL)
-        ms, pms = time_pair(lambda: space_cluster_loss(maps, scen, 32.0),
-                            lambda: space_cluster_loss_plain(maps, scen, 32.0))
-        stats["space_cluster_loss"] = dict(
-            max_abs_err=e, ms=ms, plain_ms=pms,
-            shape=f"maps (192,{2 * batch},784) x centers (192,128,784) fp32",
-            # the per-channel cdist product, fp32 FMA
-            **bound([maps, scen], 2.0 * 192 * 2 * batch * 128 * 784, "fp32"))
 
     print("  an odd batch (the last block of paired windows holds one) and token counts "
           "that fill no whole tile of kernel B, bf16:")
@@ -711,9 +700,88 @@ def phase_kernels():
                     want.loss_sq_sum, 0.0, CLUSTER_RTOL)
         if not bool((got.labels == want.labels).all()):
             raise AssertionError("cluster_assign: labels differ at an edge shape")
-    m, sc = torch.randn(64, 3, 49, generator=gen).cuda(), torch.rand(64, 8, 49, generator=gen).cuda()
-    check_close("space_cluster_loss (64,3,49)x(64,8,49)", space_cluster_loss(m, sc, 32.0),
+    return stats
+
+
+def phase_space_kernel() -> dict:
+    """Kernel D (space-cluster loss) against its plain version, fp32, at the
+    flagship width (192 channels of 28^2 maps, K = 128) at BD = 8 (the
+    training batch of 4 clips of 2 frames), 32 (the scoring batch of 16) and
+    64 (8-frame reconstruction at batch 16), each timed beside its bound
+    (``ms`` in the kernels line: the C entry called back to back, the
+    device's time; ``wrapper_ms``: through ``space_cluster_loss``, whose
+    host path is longer than the kernel);
+    two calls, and a call with ``allow_tf32`` flipped, give the same bits.
+    Then edge shapes: the tiny preset's head, BD = 1, 17 and 130 (three
+    blocks a channel), K = 1, 130 (two K tiles) and 1000, HW = 785 and maps
+    at a 4-byte offset (both through the 4-byte copies), and a map row equal
+    to a center (d = 0 through the clamp).  Returns {kernel: stats at BD 32}."""
+    from vadcl_tpu_torch.ops import cuda_lib
+    from vadcl_tpu_torch.ops.cluster_kernels import space_cluster_loss, space_cluster_loss_plain
+
+    lib = cuda_lib.library()
+
+    def c_entry(maps, scen):
+        """The kernel's C entry called directly: its device time, which its
+        wrapper's host path (tens of microseconds) would hide."""
+        cc, bd, hw = maps.shape
+        scratch = torch.empty(lib.vadcl_space_cluster_scratch(cc, bd), device=DEV)
+        loss = torch.empty((), device=DEV)
+        args = (maps.data_ptr(), scen.data_ptr(), scratch.data_ptr(), loss.data_ptr(), cc, bd,
+                hw, scen.shape[1], 32.0, cuda_lib.stream_ptr(maps))
+        return lambda: cuda_lib.check(lib.vadcl_space_cluster_loss(*args), "space_cluster_loss")
+
+    gen = torch.Generator().manual_seed(1)
+    stats = {}
+    print("[2] kernel D (space_cluster_loss) vs its plain version, fp32, flagship width")
+    for bd in (2 * TRAIN_BATCH, 2 * BATCH_WINDOWS, 64):
+        maps = torch.randn(192, bd, 784, generator=gen).cuda()
+        scen = torch.rand(192, 128, 784, generator=gen).cuda()
+        got = space_cluster_loss(maps, scen, 32.0)
+        e = check_close(f"space_cluster_loss (192,{bd},784)x(192,128,784)", got,
+                        space_cluster_loss_plain(maps, scen, 32.0), 0.0, CLUSTER_RTOL)
+        # the per-channel cdist product, 2 BD K HW flops a channel, as the
+        # body runs it (three tf32 passes: hi.hi, hi.lo, lo.hi) and as fp32 FMA
+        flops = 2.0 * 192 * bd * 128 * 784
+        print(f"    the products as three TF32 passes over the TF32 peak: "
+              f"{3 * flops / PEAK_FLOPS['tf32'] * 1e3:.4f} ms; as fp32 FMA over the fp32 "
+              f"peak: {flops / PEAK_FLOPS['fp32'] * 1e3:.4f} ms")
+        wms, pms = time_pair(lambda: space_cluster_loss(maps, scen, 32.0),
+                             lambda: space_cluster_loss_plain(maps, scen, 32.0))
+        ms = cuda_ms(c_entry(maps, scen), batch=20)
+        b = bound([maps, scen], 3 * flops, "tf32")
+        print(f"    the C entry alone (no wrapper): {ms:.4f} ms; bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}): the kernel at {100 * b['bound_ms'] / ms:.2f}% of it")
+        if bd == 2 * BATCH_WINDOWS:
+            same_bits("space_cluster_loss", (got,), (space_cluster_loss(maps, scen, 32.0),))
+            # the split products do not follow the TF32 switch of torch's matmul
+            allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = not allow_tf32
+            try:
+                same_bits("space_cluster_loss, allow_tf32 flipped", (got,),
+                          (space_cluster_loss(maps, scen, 32.0),))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+            stats["space_cluster_loss"] = dict(
+                max_abs_err=e, ms=ms, wrapper_ms=wms, plain_ms=pms,
+                shape=f"maps (192,{bd},784) x centers (192,128,784) fp32", **b)
+    for cc, bd, k, hw in ((64, 3, 8, 49), (16, 1, 128, 784), (16, 17, 128, 784),
+                          (16, 130, 128, 784), (16, 32, 1, 784), (16, 32, 130, 784),
+                          (8, 32, 1000, 784), (16, 32, 128, 785)):
+        m = torch.randn(cc, bd, hw, generator=gen).cuda()
+        sc = torch.rand(cc, k, hw, generator=gen).cuda()
+        check_close(f"space_cluster_loss ({cc},{bd},{hw})x({cc},{k},{hw})",
+                    space_cluster_loss(m, sc, 32.0), space_cluster_loss_plain(m, sc, 32.0),
+                    0.0, CLUSTER_RTOL)
+    m = torch.randn(16 * 32 * 784 + 1, generator=gen).cuda()[1:].view(16, 32, 784)
+    sc = torch.rand(16, 128, 784, generator=gen).cuda()
+    check_close("space_cluster_loss, maps at a 4-byte offset", space_cluster_loss(m, sc, 32.0),
                 space_cluster_loss_plain(m, sc, 32.0), 0.0, CLUSTER_RTOL)
+    m = torch.randn(16, 32, 784, generator=gen).cuda()
+    m[3, 5] = sc[3, 77]
+    check_close("space_cluster_loss, a map row equal to a center",
+                space_cluster_loss(m, sc, 32.0), space_cluster_loss_plain(m, sc, 32.0),
+                0.0, CLUSTER_RTOL)
     return stats
 
 
@@ -1586,7 +1654,8 @@ REPLACES = {
                        "vadcl_tpu/ops/pallas_attn_fold.py:165"),
     "ln_mlp": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
     "cluster_assign": ("vadcl_tpu_torch/csrc/cluster_mma.cu", "vadcl_tpu/ops/pallas_cluster.py:33"),
-    "space_cluster_loss": ("vadcl_tpu_torch/csrc/cluster.cu", "vadcl_tpu/ops/pallas_cluster.py:175"),
+    "space_cluster_loss": ("vadcl_tpu_torch/csrc/space_cluster_mma.cu",
+                           "vadcl_tpu/ops/pallas_cluster.py:175"),
     "ln_mlp_bwd": ("vadcl_tpu_torch/csrc/ln_mlp_bwd_mma.cu", "vadcl_tpu/ops/pallas_mlp.py:87"),
     "fold_attention_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd_mma.cu",
                            "vadcl_tpu/ops/pallas_attn_fold.py:704"),
@@ -1627,6 +1696,7 @@ def main():
     smi = phase_device()
     phase_build()
     stats = phase_kernels()
+    stats.update(phase_space_kernel())
     stats.update(phase_bwd_kernels(TRAIN_BATCH))
     stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_model("fold", REDUCED_DEPTHS)

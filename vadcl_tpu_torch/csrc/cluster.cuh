@@ -1,5 +1,6 @@
 // The fixed-order sum of per-block loss partials that both cluster heads
-// end with (cluster.cu); kernel C's body (cluster_mma.cu) launches it too.
+// end with (cluster.cu); kernel C (cluster_mma.cu) and kernel D
+// (space_cluster_mma.cu) launch it.
 #pragma once
 
 #include "common.cuh"

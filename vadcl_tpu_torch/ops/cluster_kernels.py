@@ -2,12 +2,14 @@
 
 C replaces ``vadcl_tpu/ops/pallas_cluster.py:_cluster_kernel`` (entry
 ``fused_cluster_assign``); D replaces ``_space_kernel`` (entry
-``fused_space_cluster_loss``).  C is in ``csrc/cluster_mma.cu``: tensor-core
-products on operands split into two tf32 parts (3xTF32, fp32-level accuracy
-whatever ``torch.backends.cuda.matmul.allow_tf32`` says) and an online
-soft-assign over chunks of centers, for C <= 192 and any N and K.  D is in
-``csrc/cluster.cu``, fp32 FMA only.  Both use the expanded cdist form, a
-first-occurrence argmin and a deterministic two-pass reduction of the loss.
+``fused_space_cluster_loss``).  C is in ``csrc/cluster_mma.cu``, D in
+``csrc/space_cluster_mma.cu``: tensor-core products on operands split into
+two tf32 parts (3xTF32, fp32-level accuracy whatever
+``torch.backends.cuda.matmul.allow_tf32`` says) and an online soft-assign
+over chunks of centers with no (rows x K) tile; C takes C <= 192 and any N
+and K, D any shape.  Both use the expanded cdist form and a deterministic
+two-pass reduction of the loss (``csrc/cluster.cu``); C's labels are the
+first-occurrence argmin.
 
 Both wrappers are ``torch.autograd.Function``s.  Their backward is what the
 JAX package's custom VJPs (``_bwd``, ``_space_bwd``) do: recompute the plain
@@ -165,11 +167,13 @@ def _space_cluster_loss_cuda(maps, centers, alpha: float) -> torch.Tensor:
     if (cc2, hw2) != (cc, hw):
         raise ValueError(f"space_cluster_loss: maps {tuple(maps.shape)} vs centers {tuple(centers.shape)}")
     lib = cuda_lib.library()
+    n_scratch = lib.vadcl_space_cluster_scratch(cc, bd)
+    if n_scratch < 0 or hw <= 0 or k <= 0:
+        raise ValueError(f"space_cluster_loss: the kernel takes non-empty inputs, got maps "
+                         f"{tuple(maps.shape)}, centers {tuple(centers.shape)}")
     x = _f32c(maps)
     cen = _f32c(centers.to(maps.device))
-    scratch = torch.empty(
-        (lib.vadcl_space_cluster_scratch(cc, bd),), dtype=torch.float32, device=x.device
-    )
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     err = lib.vadcl_space_cluster_loss(
         x.data_ptr(), cen.data_ptr(), scratch.data_ptr(), loss.data_ptr(),
