@@ -10,8 +10,9 @@ Phases (any failure raises and the script exits non-zero):
   1. build the fifteen CUDA kernels from ``vadcl_tpu_torch/csrc`` (nvcc, one
      process per source, all started together); the Python mirrors of the
      kernels' shared-memory sizes (the routes' fit predicates and the body
-     choice of kernels 7, 8 and 9: whole-tile or row-tiled) are held against
-     the library's; kernel 10 and the whole-block kernels must fit at the
+     choice of kernels 7, 8 and 9: whole-tile or row-tiled; the windows a
+     block of the bf16 row-tiled forward core takes) are held against the
+     library's; kernel 10 and the whole-block kernels must fit at the
      four flagship geometries in bf16 and fp32, every window of up to
      392 tokens at the flagship widths and head width 32 must map to a body,
      and every flagship geometry must take the tensor-core bodies of 5 and 6.
@@ -46,9 +47,13 @@ Phases (any failure raises and the script exits non-zero):
   2/2b, row-tiled: the row-tiled bodies of 7, 9 and 8 against their plain
      versions at N = 147, 196, 245 and 392, C = 96 / 6 heads, 192 / 12 and
      head width 32, shifted and not, bf16 and fp32, on an odd batch of 3;
-     both bodies at the largest N the whole-tile body holds; then the
-     frame-8 path's four geometries (forward at batch 16, backward at batch
-     4), timed, and the backward's workspace.
+     both bodies at the largest N the whole-tile body holds; the bf16
+     forward core's edge cases (one mask index or none, a group of windows
+     cut short, head widths 32, 48 and 64, N % 4 != 0, the smallest N the
+     row-tiled body takes, one strip, no qkv bias), each called twice for the
+     same bits; then the frame-8 path's four geometries (forward at batch 16,
+     backward at batch 4), timed, the forward's three launches apart by the
+     profiler, shifted and not, and the backward's workspace.
   3. the flagship model (shanghaitech, fused attention and fused cluster
      heads) in fp32 with TF32 off, the card (kernels) against the CPU (plain
      versions) on 224^2 clips: predict mode under ``"base"``, ``"packed"``,
@@ -155,6 +160,32 @@ def cuda_ms(fn, reps: int = 4, batch: int = 5, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return float(np.median(times))
+
+
+def launch_ms(fn, calls: int = 10) -> list:
+    """Device ms per call of each hand-written kernel ``fn`` launches, in
+    launch order, by the profiler: ``[[name, ms], ...]`` (the row-tiled
+    forward's qkv product, attention core and projection apart, though both
+    products share one kernel's name); empty if the trace has none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):  # (a trace now and then comes back empty: read again)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ours = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and "vadcl" in e.name),
+                      key=lambda e: e.time_range.start)
+        if ours and len(ours) % calls == 0:
+            per = len(ours) // calls
+            return [[ours[i].name.replace("(anonymous namespace)::", "").split("(")[0]
+                     .replace("void ", ""),
+                     sum(e.device_time_total for e in ours[i::per]) / calls / 1e3]
+                    for i in range(per)]
+    return []
 
 
 def bound(tensors, flops: float, peak: str, fp32_flops: float = 0.0) -> dict:
@@ -302,6 +333,22 @@ def phase_build():
                     raise AssertionError(f"window attention shared memory {(n, c, nh, bf16)}: "
                                          f"{mine} but the library says {theirs}")
                 checked += 1
+    from vadcl_tpu_torch.ops.window_attn import rows_group
+
+    groups = 0
+    for c, nh in ((96, 6), (192, 12), (96, 3), (64, 2), (128, 2), (96, 2), (64, 1)):
+        for n in (1, 16, 98, 113, 147, 196, 245, 343, 392, 432, 433, 848, 849):
+            for per_class in (1, 2, 3, 5, 8, 16, 64):
+                mine = rows_group(n, c, nh, per_class)
+                theirs = lib.vadcl_window_attn_rows_group(n, c, nh, per_class)
+                if mine != theirs:
+                    raise AssertionError(f"rows_group{(n, c, nh, per_class)} = {mine} but the "
+                                         f"library says {theirs}")
+                if mine and (rows_smem_bytes(n, c, nh, True, group=mine)
+                             != lib.vadcl_window_attn_rows_group_smem_bytes(n, c, nh, mine)):
+                    raise AssertionError(f"rows_smem_bytes{(n, c, nh)} at group {mine} disagrees "
+                                         "with the library")
+                groups += 1
     for c, nh in ROW_WIDTHS:
         for n in range(1, 393):
             for dtype in (torch.bfloat16, torch.float32):
@@ -309,7 +356,8 @@ def phase_build():
                     window_body(n, c, nh, dtype, backward)  # raises where no body fits
     print(f"  tile_smem_bytes / rows_smem_bytes (the body choice of kernels 7, 8, 9) agree "
           f"with the library at {checked} cases; every N up to 392 at C=96/6, 192/12 and head "
-          "width 32 maps to a body, both dtypes and directions")
+          "width 32 maps to a body, both dtypes and directions; the bf16 row-tiled core's "
+          f"group of windows and its layout agree with the library at {groups} cases")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -1136,15 +1184,16 @@ def row_kernels():
              wa.window_attention_packed_plain))
 
 
-def _win_case_n(windows, n, C, nh, dtype, gen, masked):
+def _win_case_n(windows, n, C, nh, dtype, gen, masked, n_windows=2, qkv_bias=True):
     """Kernel 7's arguments for ``windows`` windows of ``n`` tokens that no
-    window shape need give: two mask groups of 0 / -100 entries."""
+    window shape need give: ``n_windows`` mask groups of 0 / -100 entries."""
     r = lambda *s: torch.randn(*s, generator=gen).to(DEV)  # noqa: E731
-    mask = (torch.rand(2, n, n, generator=gen) < 0.3).float().mul(-100.0).to(DEV)
+    mask = (torch.rand(n_windows, n, n, generator=gen) < 0.3).float().mul(-100.0).to(DEV)
     return dict(
-        x_windows=r(windows, n, C).to(dtype), qkv_w=r(C, 3 * C) / C**0.5, qkv_b=0.1 * r(3 * C),
-        proj_w=r(C, C) / C**0.5, proj_b=0.1 * r(C), bias=r(nh, n, n),
-        mask=mask if masked else None, num_heads=nh, n_windows=2, scale=(C // nh) ** -0.5,
+        x_windows=r(windows, n, C).to(dtype), qkv_w=r(C, 3 * C) / C**0.5,
+        qkv_b=0.1 * r(3 * C) if qkv_bias else None, proj_w=r(C, C) / C**0.5,
+        proj_b=0.1 * r(C), bias=r(nh, n, n), mask=mask if masked else None, num_heads=nh,
+        n_windows=n_windows, scale=(C // nh) ** -0.5,
     )
 
 
@@ -1198,6 +1247,32 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
                     check_close(f"whole-tile {name[:-5]} {tag}", whole(**a), want, *BOUNDS[dtype])
                     check_close(f"row-tiled {name[:-5]} {tag}", rows(**a), want, *BOUNDS[dtype])
 
+    print("  the bf16 forward core's edge cases (windows, N, C / heads, masks; G = windows a "
+          "block):")
+    smallest = min(k for k in range(1, 393)
+                   if wa.window_body(k, 96, 6, torch.bfloat16) == "rows")
+    for windows, n, C, nh, nw, masked, qb in (
+            (7, 392, 96, 6, 1, False, True),     # nW 1, no mask, odd batch: groups 4 + 3
+            (5, 392, 96, 6, 1, True, True),      # one mask for every window: 4 + 1
+            (20, 392, 96, 6, 4, True, False),    # 5 windows a mask: 4 + 1, no qkv bias
+            (6, 392, 128, 2, 2, True, True),     # head width 64: one window a block
+            (6, 196, 128, 2, 2, True, True),     # head width 64 at N 196: two
+            (6, 245, 96, 2, 3, True, True),      # head width 48, N % 4 != 0
+            (9, 392, 64, 2, 3, True, True),      # head width 32: 3 windows a mask: 2 + 1
+            (6, smallest, 96, 6, 2, True, True),  # the smallest N the row-tiled body takes
+            (4, 16, 32, 2, 2, True, True)):      # one strip, forced
+        for name, kernel, plain in row_kernels():
+            a = _win_case_n(windows, n, C, nh, torch.bfloat16, gen, masked, nw, qb)
+            per = windows // nw if masked else windows
+            tag = (f"{windows} windows N={n} C={C} nH={nh} nW={nw} "
+                   f"{'masked' if masked else 'no mask'}{'' if qb else ', no qkv bias'} "
+                   f"G={wa.rows_group(n, C, nh, per)}")
+            got = kernel(**a)
+            errs[name].append(check_close(f"{name} {tag}", got, plain(**a),
+                                          *BOUNDS[torch.bfloat16]))
+            same_bits(f"{name} {tag}", (got,), (kernel(**a),))
+            del a, got
+
     stats = {}
     print(f"  the frame-8 path's shapes, bf16, forward at batch {batch}, backward at batch "
           f"{train_batch}, shifted:")
@@ -1208,7 +1283,15 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
             out = kernel(**a)
             errs[name].append(check_close(f"{name} {gname}", out, plain(**a),
                                           *BOUNDS[torch.bfloat16]))
+            same_bits(f"{name} {gname}", (out,), (kernel(**a),))
             ms, pms = time_pair(lambda: kernel(**a), lambda: plain(**a))
+            bn = a["x_windows"].shape[0]
+            for tag, args, per in (("shifted", a, bn // a["n_windows"]),
+                                   ("unshifted", dict(a, mask=None), bn)):
+                split = launch_ms(lambda: kernel(**args))
+                print(f"    {tag}: wrapper {cuda_ms(lambda: kernel(**args)):.4f} ms; launches "
+                      + ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}" for k, v in split)
+                      + f" ms (G={wa.rows_group(n, C, nh, per)})")
             if gname == "dec_stage1":
                 stats[name] = dict(
                     ms=ms, plain_ms=pms, shape=f"x_windows ({a['x_windows'].shape[0]},{n},{C}) "
@@ -1670,11 +1753,11 @@ REPLACES = {
     "fold_block": ("vadcl_tpu_torch/csrc/fold_attn.cu", "vadcl_tpu/ops/pallas_attn_fold.py:341"),
     "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
                        "vadcl_tpu/ops/pallas_attn_fold.py:870"),
-    "window_attention_fused_rows": ("vadcl_tpu_torch/csrc/window_attn_rows.cu",
+    "window_attention_fused_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                     "vadcl_tpu/ops/pallas_attn.py:30"),
     "window_attention_fused_bwd_rows": ("vadcl_tpu_torch/csrc/window_attn_bwd_rows.cu",
                                         "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
-    "window_attention_packed_rows": ("vadcl_tpu_torch/csrc/window_attn_rows.cu",
+    "window_attention_packed_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                      "vadcl_tpu/ops/pallas_attn.py:113"),
 }
 # The main path whose launch count the kernels line reports for each kernel.

@@ -30,7 +30,9 @@ wider heads than the flagship's 16.)  With ``--recon --frame-num F`` it times
 instead the partitioned-window kernels 7, 9 (forward, at each batch) and 8
 (backward, at the smallest batch) at the window geometries of F-frame
 reconstruction clips (F = 8: windows of 196 and 392 tokens, the row-tiled
-bodies).
+bodies), shifted and not, with each launch's device ms apart (``launches``:
+the qkv product, the attention core and the projection of the row-tiled
+forward).
 
 ``--root`` names the tree whose ``vadcl_tpu_torch`` package is run (default:
 the tree this file is in), so that two commits can be compared on one card in
@@ -101,8 +103,9 @@ def host_us(fn, calls: int = 200) -> float:
 
 
 def window_kernels_only(args, smoke, gen) -> None:
-    """Kernels 7 and 9 at each batch and kernel 8 at the smallest, bf16,
-    shifted, at the reconstruction geometries of ``args.frame_num``."""
+    """Kernels 7 and 9 at each batch, shifted and not, and kernel 8 at the
+    smallest, shifted, bf16, at the reconstruction geometries of
+    ``args.frame_num``."""
     from vadcl_tpu_torch.ops.window_attn import (
         window_attention_fused, window_attention_fused_bwd, window_attention_packed, window_body,
     )
@@ -110,14 +113,19 @@ def window_kernels_only(args, smoke, gen) -> None:
     for gname, ((D, H, W, C), nh, window, shift) in smoke.recon_geometries(args.frame_num).items():
         n = window[0] * window[1] * window[2]
         for batch in args.batches:
-            a = smoke._win_case_at(batch, (D, H, W), C, nh, window, shift, torch.bfloat16, gen)
-            for name, k in (("window_attention_fused", window_attention_fused),
-                            ("window_attention_packed", window_attention_packed)):
-                print(json.dumps({
-                    "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch, "N": n,
-                    "body": window_body(n, C, nh, torch.bfloat16),
-                    "ms": round(smoke.cuda_ms(lambda: k(**a)), 4),
-                    "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4)}))
+            for shifted in (False, True):
+                a = smoke._win_case_at(batch, (D, H, W), C, nh, window,
+                                       shift if shifted else (0, 0, 0), torch.bfloat16, gen)
+                for name, k in (("window_attention_fused", window_attention_fused),
+                                ("window_attention_packed", window_attention_packed)):
+                    print(json.dumps({
+                        "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch,
+                        "N": n, "shifted": shifted,
+                        "body": window_body(n, C, nh, torch.bfloat16),
+                        "ms": round(smoke.cuda_ms(lambda: k(**a)), 4),
+                        "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4),
+                        "launches": [[name, round(ms, 4)] for name, ms in
+                                     smoke.launch_ms(lambda: k(**a))]}))
             if batch == min(args.batches):
                 w = smoke._win_bwd_case(a, gen)
                 print(json.dumps({

@@ -15,31 +15,22 @@
 // e * (1 / sum e)); o = round(p . v) per head; out = round(o . W_proj + b).
 //
 // Three launches on the caller's stream:
-//   1. qkv of every token into a workspace (window_rows.cuh);
-//   2. the attention core: one block per (window, head), eight warps.  K and
-//      V of that head (N x hd each) are the only shared tiles (bf16: 4 x Np x
-//      (hd + 8) bytes, 38.4 KB at N = 392, hd 16), so no whole (N, N) score
-//      tile and not the window's x (150.5 KB at C = 192) ever sits in shared
-//      memory: x is read once by launch 1.  A warp owns a strip of 16 query
-//      rows at a time and walks the keys in blocks of 16 twice.  The first
-//      walk carries a running row max and a running sum rescaled to it (the
-//      FlashAttention rescale); the second recomputes the scores, forms
-//      p = round(e / l) exactly at the contract's cast boundary and
-//      accumulates p . v.  bf16 runs q . k^T and p . v as mma.sync.m16n8k16
-//      with scores, probabilities and the output strip in registers (kernel
-//      A's strip body, csrc/fold_attn_mma.cuh); e = ex2.approx.ftz (flushed to
-//      zero below the smallest normal) and the division is fa_div, never
-//      IEEE division's slow path.  fp32 (the exact comparisons): one query
-//      row per warp on CUDA cores, expf and fa_div.  bf16 needs C and the head
-//      width to be multiples of 16, the head width at most 64;
-//   3. the projection out = round(o . W_proj + b_proj) (window_rows.cuh).
+//   1. qkv of every token into a workspace (bf16: window_attn_rows_mma.cu,
+//      fp32: window_rows.cuh);
+//   2. the attention core.  bf16: window_attn_rows_mma.cu (one block per
+//      head, mask index and group of windows sharing it, the strip's bias and
+//      mask staged once in shared memory; head width 16, 32, 48 or 64, C a
+//      multiple of 16).  fp32 (the exact comparisons), here: one block per
+//      (window, head), K and V of that head in shared memory, one query row
+//      per warp on CUDA cores, a running max and sum over the keys, then
+//      p = e / l by fa_div (kernel 9: e * (1 / l)) and p . v;
+//   3. the projection out = round(o . W_proj + b_proj), as launch 1.
 //
 // What bounds it: the qkv and o workspaces add 8 C bytes a token of device
-// traffic (bf16) on top of x and out; the core recomputes q . k^T once; the
-// products are mma.sync, not wgmma.  Left on the table: one fused launch,
-// wgmma, keeping the window's qkv in shared memory across heads.
+// traffic (bf16) on top of x and out.  Left on the table: one fused launch,
+// wgmma for the products.
 #include "reduce.cuh"  // align256
-#include "window_rows.cuh"
+#include "window_attn_rows_mma.cuh"
 
 namespace vadcl {
 
@@ -52,81 +43,12 @@ struct RowsFwdArgs {
   float scale;
 };
 
-// Shared memory of one attention-core block.
+// Shared memory of one attention-core block (bf16: at one window a block,
+// the least the core needs).
 inline size_t rows_fwd_smem(int n, int c, int nh, int is_bf16) {
   const size_t hd = c / nh;
-  if (is_bf16) return sizeof(__nv_bfloat16) * 2 * (size_t)rows_padded(n) * (hd + 8);
+  if (is_bf16) return rows_mma_layout(n, (int)hd, 1).bytes;
   return sizeof(float) * (2 * (size_t)n * (hd + 1) + (size_t)kRowsWarps * (n + hd));
-}
-
-template <int kHd, bool PACKED>
-__global__ void __launch_bounds__(kRowsThreads) rows_attn_bf16_kernel(RowsFwdArgs a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kLd = kHd + 8, kKs = kHd / 16, kHt = kHd / 8;
-  extern __shared__ __align__(16) unsigned char sm[];
-  const int N = a.N, C = a.C, C3 = 3 * C, Np = rows_padded(N), nblk = Np / 16;
-  const int win = blockIdx.x / a.nh, h = blockIdx.x % a.nh;
-  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  bf16* ks = reinterpret_cast<bf16*>(sm);
-  bf16* vs = ks + (size_t)Np * kLd;
-  const bf16* qkv = static_cast<const bf16*>(a.qkv) + (size_t)win * N * C3;
-  bf16* o = static_cast<bf16*>(a.o) + (size_t)win * N * C;
-
-  // K and V of this head; rows past the window are zero
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int e = tid; e < 2 * Np * (kHd / 8); e += kRowsThreads) {
-    const int part = e / (Np * (kHd / 8)), r = (e / (kHd / 8)) % Np, v = e % (kHd / 8);
-    uint4 val = zero;
-    if (r < N)
-      val = *reinterpret_cast<const uint4*>(qkv + (size_t)r * C3 + (1 + part) * C + h * kHd +
-                                            v * 8);
-    *reinterpret_cast<uint4*>((part ? vs : ks) + (size_t)r * kLd + v * 8) = val;
-  }
-  __syncthreads();
-
-  const float* bias = a.bias + (size_t)h * N * N;
-  const float* mask = a.mask != nullptr ? a.mask + (size_t)(win % a.nW) * N * N : nullptr;
-  const float smul = PACKED ? 1.f : a.scale;
-
-  for (int strip = warp; strip < nblk; strip += kRowsWarps) {
-    const int i0 = strip * 16 + g, i1 = i0 + 8;
-    uint32_t qf[kKs][4];
-    {
-      const bf16* q0 = qkv + (size_t)i0 * C3 + h * kHd + 2 * t;
-      const bf16* q1 = qkv + (size_t)i1 * C3 + h * kHd + 2 * t;
-#pragma unroll
-      for (int k = 0; k < kKs; ++k) {
-        qf[k][0] = i0 < N ? *reinterpret_cast<const uint32_t*>(q0 + k * 16) : 0u;
-        qf[k][1] = i1 < N ? *reinterpret_cast<const uint32_t*>(q1 + k * 16) : 0u;
-        qf[k][2] = i0 < N ? *reinterpret_cast<const uint32_t*>(q0 + k * 16 + 8) : 0u;
-        qf[k][3] = i1 < N ? *reinterpret_cast<const uint32_t*>(q1 + k * 16 + 8) : 0u;
-      }
-    }
-    // walk 1: the rows' running max and sum; walk 2: p = round(e / l)
-    // (kernel 9: e * (1 / l)) and O = p . V
-    float m[2], l[2];
-    rows_stats<kKs>(qf, ks, kLd, nblk, i0, i1, N, smul, bias, mask, lane, m, l);
-    const float rinv[2] = {1.f / l[0], 1.f / l[1]};
-    float oacc[kHt][4];
-#pragma unroll
-    for (int i = 0; i < kHt; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-    for (int kb = 0; kb < nblk; ++kb) {
-      float s[2][4], p[2][4];
-      rows_scores<kKs>(qf, ks, kLd, kb, i0, i1, N, smul, bias, mask, lane, s);
-      rows_probs<PACKED>(s, m, l, rinv, p);
-      uint32_t pf[4];
-      rows_a_frag(p, pf);
-#pragma unroll
-      for (int nq = 0; nq < kKs; ++nq) {
-        uint32_t vf[4];
-        ldsm_x4_t(vf, b_frag_row_kn(vs + (size_t)kb * 16 * kLd + nq * 16, kLd, lane));
-        mma_bf16(oacc[2 * nq], pf, vf[0], vf[1]);
-        mma_bf16(oacc[2 * nq + 1], pf, vf[2], vf[3]);
-      }
-    }
-    strip_store<kHt>(oacc, o, C, i0, i1, N, h * kHd, t);
-  }
 }
 
 template <bool PACKED>
@@ -194,14 +116,6 @@ inline RowsFwdWs rows_fwd_ws(int Bn, int N, int C, int is_bf16) {
   return l;
 }
 
-template <int kHd, bool PACKED>
-cudaError_t launch_rows_core_bf16(const RowsFwdArgs& a, size_t smem, cudaStream_t s) {
-  const cudaError_t err = allow_smem(rows_attn_bf16_kernel<kHd, PACKED>, smem);
-  if (err != cudaSuccess) return err;
-  rows_attn_bf16_kernel<kHd, PACKED><<<(unsigned)(a.Bn * a.nh), kRowsThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
 template <bool PACKED>
 cudaError_t launch_window_attn_rows(const void* x, const void* qkv_w, const float* qkv_b,
                                     const void* proj_w, const float* proj_b, const float* bias,
@@ -216,24 +130,22 @@ cudaError_t launch_window_attn_rows(const void* x, const void* qkv_w, const floa
   char* ws = static_cast<char*>(workspace);
   const int T = Bn * N;
   cudaError_t err;
-  if ((err = launch_rows_gemm(x, qkv_w, qkv_b, ws + l.qkv, T, C, 3 * C, PACKED ? C : 0, scale,
-                              is_bf16, s)))
-    return err;
+  err = is_bf16 ? launch_rows_fwd_gemm(x, qkv_w, qkv_b, ws + l.qkv, T, C, 3 * C, PACKED ? C : 0,
+                                       scale, s)
+                : launch_rows_gemm(x, qkv_w, qkv_b, ws + l.qkv, T, C, 3 * C, PACKED ? C : 0, scale,
+                                   0, s);
+  if (err != cudaSuccess) return err;
   const RowsFwdArgs a{ws + l.qkv, ws + l.o, bias, mask, Bn, N, C, nh, nW, scale};
   if (is_bf16) {
-    switch (C / nh) {
-      case 16: err = launch_rows_core_bf16<16, PACKED>(a, smem, s); break;
-      case 32: err = launch_rows_core_bf16<32, PACKED>(a, smem, s); break;
-      case 48: err = launch_rows_core_bf16<48, PACKED>(a, smem, s); break;
-      default: err = launch_rows_core_bf16<64, PACKED>(a, smem, s); break;
-    }
+    err = launch_rows_mma_core(a.qkv, a.o, bias, mask, Bn, N, C, nh, nW, scale, PACKED, s);
   } else {
     if ((err = allow_smem(rows_attn_f32_kernel<PACKED>, smem)) != cudaSuccess) return err;
     rows_attn_f32_kernel<PACKED><<<(unsigned)(Bn * nh), kRowsThreads, smem, s>>>(a);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  return launch_rows_gemm(ws + l.o, proj_w, proj_b, out, T, C, C, 0, 1.f, is_bf16, s);
+  return is_bf16 ? launch_rows_fwd_gemm(ws + l.o, proj_w, proj_b, out, T, C, C, 0, 1.f, s)
+                 : launch_rows_gemm(ws + l.o, proj_w, proj_b, out, T, C, C, 0, 1.f, 0, s);
 }
 
 }  // namespace vadcl

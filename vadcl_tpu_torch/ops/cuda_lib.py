@@ -59,6 +59,8 @@ _SIGNATURES = {
     "vadcl_window_attn_rows_packed": ([_P] * 9 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_rows_smem_bytes": ([_I] * 4, _L),
     "vadcl_window_attn_rows_workspace_bytes": ([_I] * 4, _L),
+    "vadcl_window_attn_rows_group": ([_I] * 4, _I),
+    "vadcl_window_attn_rows_group_smem_bytes": ([_I] * 4, _L),
     "vadcl_window_attn_bwd": ([_P] * 14 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_bwd_rows": ([_P] * 15 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_bwd_rows_smem_bytes": ([_I] * 4, _L),

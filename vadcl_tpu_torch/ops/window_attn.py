@@ -23,7 +23,8 @@ Each kernel has two bodies.  The whole-tile body (``csrc/window_attn.cu``:
 ``csrc/window_attn_bwd.cu``, whose cross-window sums go through
 ``csrc/reduce.cu``) holds a whole (N, N) score tile per head in shared memory
 and takes a window only where that fits 227 KB.  The row-tiled body
-(``csrc/window_attn_rows.cu``, ``csrc/window_attn_bwd_rows.cu``) walks the
+(``csrc/window_attn_rows.cu`` with its bf16 core and products in
+``csrc/window_attn_rows_mma.cu``, ``csrc/window_attn_bwd_rows.cu``) walks the
 keys of a 16-row strip of queries in blocks with a running max and sum and
 takes every N, e.g. N = 196 and N = 392 (windows (4, 7, 7) and (8, 7, 7) of
 8-frame reconstruction clips).  ``window_body`` picks the whole-tile body
@@ -180,22 +181,48 @@ def tile_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     return max(p1, p2)
 
 
-def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False) -> int:
+def rows_warps(head_dim: int) -> int:
+    """Warps of one block of the bf16 row-tiled forward core
+    (``csrc/window_attn_rows_mma.cuh:rows_mma_warps``)."""
+    return 16 if head_dim <= 32 else 8
+
+
+def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False,
+                    group: int = 1) -> int:
     """Shared memory of one block of the row-tiled attention core
     (``csrc/window_attn_rows.cu:rows_fwd_smem``, with ``backward``
-    ``csrc/window_attn_bwd_rows.cu:rows_bwd_smem``): K and V of one head
-    (the backward also q and dout's head slice) plus, in the backward, three
-    row statistics and the strips' column sums.  38,400 B forward and 86,400 B
-    backward at N = 392, head_dim 16 in bf16."""
+    ``csrc/window_attn_bwd_rows.cu:rows_bwd_smem``).  bf16 forward
+    (``csrc/window_attn_rows_mma.cuh:rows_mma_layout``): K and V of the head
+    of ``group`` windows, the strip's (bias + mask) tile, the next strip's
+    bias and mask rows, the warps' (m, l) pairs and partial output strips;
+    at ``group`` 1 the least the core needs (129,536 B at N = 392, head_dim
+    16).  Otherwise K and V of one head (the backward also q and dout's head
+    slice) plus, in the backward, three row statistics and the strips' column
+    sums (86,400 B backward at N = 392, head_dim 16 in bf16)."""
     hd = c // num_heads
     if bf16:
         m = _up(n, 16)
         if not backward:
-            return 2 * 2 * m * (hd + 8)
+            warps = rows_warps(hd)
+            return (group * 4 * m * hd + 64 * (m + 8) + 128 * m + 128 * warps
+                    + 64 * warps * (hd + 8))
         return 2 * 4 * m * (hd + 8) + 4 * (3 * m + m // 16 * 3 * hd)
     if not backward:
         return 4 * (2 * n * (hd + 1) + _ROWS_WARPS * (n + hd))
     return 4 * (4 * n * hd + 3 * n + 2 * _ROWS_WARPS * n)
+
+
+def rows_group(n: int, c: int, num_heads: int, per_class: int) -> int:
+    """Windows one block of the bf16 row-tiled forward core takes
+    (``csrc/window_attn_rows_mma.cuh:rows_mma_group``): the largest of 8, 4,
+    2, 1 that is at most ``per_class`` (the windows sharing one mask; all
+    windows without a mask) and fits ``SMEM_LIMIT``; 0 where none fits.  The
+    block's ``rows_warps(head_dim) // group`` warps a window each take every
+    so-many-th key block."""
+    for g in (8, 4, 2, 1):
+        if g <= per_class and rows_smem_bytes(n, c, num_heads, True, group=g) <= SMEM_LIMIT:
+            return g
+    return 0
 
 
 def window_body(n: int, c: int, num_heads: int, dtype: torch.dtype,
