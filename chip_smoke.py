@@ -337,15 +337,16 @@ def phase_build():
 
     groups = 0
     for c, nh in ((96, 6), (192, 12), (96, 3), (64, 2), (128, 2), (96, 2), (64, 1)):
-        for n in (1, 16, 98, 113, 147, 196, 245, 343, 392, 432, 433, 848, 849):
+        for n in (1, 16, 98, 113, 147, 196, 245, 343, 392, 432, 433, 800, 801, 848, 849, 1440,
+                  2416, 2417):
             for per_class in (1, 2, 3, 5, 8, 16, 64):
                 mine = rows_group(n, c, nh, per_class)
                 theirs = lib.vadcl_window_attn_rows_group(n, c, nh, per_class)
                 if mine != theirs:
                     raise AssertionError(f"rows_group{(n, c, nh, per_class)} = {mine} but the "
                                          f"library says {theirs}")
-                if mine and (rows_smem_bytes(n, c, nh, True, group=mine)
-                             != lib.vadcl_window_attn_rows_group_smem_bytes(n, c, nh, mine)):
+                if (rows_smem_bytes(n, c, nh, True, group=mine)
+                        != lib.vadcl_window_attn_rows_group_smem_bytes(n, c, nh, mine)):
                     raise AssertionError(f"rows_smem_bytes{(n, c, nh)} at group {mine} disagrees "
                                          "with the library")
                 groups += 1
@@ -357,7 +358,8 @@ def phase_build():
     print(f"  tile_smem_bytes / rows_smem_bytes (the body choice of kernels 7, 8, 9) agree "
           f"with the library at {checked} cases; every N up to 392 at C=96/6, 192/12 and head "
           "width 32 maps to a body, both dtypes and directions; the bf16 row-tiled core's "
-          f"group of windows and its layout agree with the library at {groups} cases")
+          f"group of windows (0: the direct layout) and its layout agree with the library at "
+          f"{groups} cases")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -1248,7 +1250,7 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
                     check_close(f"row-tiled {name[:-5]} {tag}", rows(**a), want, *BOUNDS[dtype])
 
     print("  the bf16 forward core's edge cases (windows, N, C / heads, masks; G = windows a "
-          "block):")
+          "block, 0: the direct layout):")
     smallest = min(k for k in range(1, 393)
                    if wa.window_body(k, 96, 6, torch.bfloat16) == "rows")
     for windows, n, C, nh, nw, masked, qb in (
@@ -1260,7 +1262,13 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
             (6, 245, 96, 2, 3, True, True),      # head width 48, N % 4 != 0
             (9, 392, 64, 2, 3, True, True),      # head width 32: 3 windows a mask: 2 + 1
             (6, smallest, 96, 6, 2, True, True),  # the smallest N the row-tiled body takes
-            (4, 16, 32, 2, 2, True, True)):      # one strip, forced
+            (4, 16, 32, 2, 2, True, True),       # one strip, forced
+            (4, 441, 128, 2, 2, True, True),     # head width 64 above the staged limit: direct
+            (2, 800, 128, 2, 1, True, True),     # the largest N at head width 64: direct
+            (2, 2416, 96, 6, 2, False, True),    # the largest N at head width 16: direct
+            (3, 833, 32, 2, 3, True, True),      # head width 16 above the staged limit: direct
+            (4, 196, 544, 17, 2, True, True),    # C 544: products over two panels of K
+            (2, 147, 1040, 65, 2, True, False)):  # C 1040: three panels, no qkv bias
         for name, kernel, plain in row_kernels():
             a = _win_case_n(windows, n, C, nh, torch.bfloat16, gen, masked, nw, qb)
             per = windows // nw if masked else windows

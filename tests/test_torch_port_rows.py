@@ -183,7 +183,7 @@ def test_frame8_geometries_take_the_row_tiled_bodies():
         assert not fold_fits(n, c, nh, torch.bfloat16)
         for backward in (False, True):
             assert window_body(n, c, nh, torch.bfloat16, backward) == "rows"
-    assert rows_smem_bytes(392, 96, 6, True) == 129536
+    assert rows_smem_bytes(392, 96, 6, True) == 38400
     assert rows_smem_bytes(392, 96, 6, True, backward=True) == 86400
     assert ROWS_MAX_HEAD_DIM == 64
     with pytest.raises(NotImplementedError, match="neither"):

@@ -13,14 +13,17 @@ pair of blocks and its sum kept per lane of a quad, the warps' (m, l)
 merged in warp order, p rounded to bf16 at the contract's cast
 boundary (kernel 7: e / l, kernel 9: e * (1 / l)), the warps' partial
 ``p . v`` strips summed in warp order, G (windows a block) from the layout
-mirror ``rows_group``.  Sums inside one ``mma`` are taken in torch's order,
+mirror ``rows_group`` (0: the direct layout, a warp a window and strip).
+Sums inside one ``mma`` are taken in torch's order,
 and where nvcc contracts ``a * b + c`` into one fma the emulation rounds once
 in float64 first: both a fp32 rounding apart from the card.
 
 The emulation is held against the plain version and the Pallas kernels in
 interpret mode (``fused_window_attention`` / ``_packed``, as
 ``tests/test_torch_port_rows.py`` runs them) at N = 196 and 392, head widths
-16, 32 and 48, shifted and not, and on a group of windows cut short.
+16, 32 and 48, shifted and not, on a group of windows cut short, and in
+the direct layout above the largest window a staged block holds (N = 441
+at head width 64, N = 833 at 16).
 Bound: |emulation - reference| <= 2e-2 + 2e-2 |reference| elementwise,
 ``chip_smoke.py``'s ``BOUNDS[bfloat16]`` for a bf16 kernel against its plain
 version (both round at the same casts; a different fp32 order can flip one
@@ -35,19 +38,21 @@ import torch
 
 from vadcl_tpu.ops.pallas_attn import fused_window_attention, fused_window_attention_packed
 from vadcl_tpu.ops.window import compute_attn_mask
+from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
 from vadcl_tpu_torch.ops.window_attn import (
     rows_group,
     rows_smem_bytes,
     rows_warps,
     window_attention_fused_plain,
     window_attention_packed_plain,
+    window_body,
 )
 
 T = torch.from_numpy
 L2E = np.float32(1.4426950408889634)  # csrc/mma.cuh:kLog2e
 TINY = 2.0 ** -126  # smallest normal fp32: ex2.approx.ftz flushes below it
 ATOL = RTOL = 2e-2  # chip_smoke.py:BOUNDS[torch.bfloat16]
-WIDTHS = {"hd16": (32, 2), "hd32": (64, 2), "hd48": (96, 2)}
+WIDTHS = {"hd16": (32, 2), "hd32": (64, 2), "hd48": (96, 2), "hd64": (128, 2)}
 IMPLS = {"base": (False, window_attention_fused_plain, fused_window_attention),
          "packed": (True, window_attention_packed_plain, fused_window_attention_packed)}
 
@@ -139,7 +144,8 @@ def forward_emulation(x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_
     per_class = Bn // n_windows if mask is not None else Bn
     g = rows_group(N, C, nh, per_class)
     smul = L2E if packed else np.float32(scale) * L2E
-    o = core_emulation(qkv[0], qkv[1], qkv[2], tile, smul, packed, rows_warps(hd) // g)
+    wu = rows_warps(hd) // g if g else 1  # the direct layout: a warp a strip
+    o = core_emulation(qkv[0], qkv[1], qkv[2], tile, smul, packed, wu)
     o = o.transpose(1, 2).reshape(Bn, N, C)
     return bf16(o @ bf16(proj_w) + proj_b.float())
 
@@ -179,7 +185,7 @@ def worst(got, want) -> float:
     return float(np.max(np.abs(got - want) / (ATOL + RTOL * np.abs(want))))
 
 
-CASES = [(n, w, s) for n in (196, 392) for w in WIDTHS for s in (False, True)]
+CASES = [(n, w, s) for n in (196, 392) for w in ("hd16", "hd32", "hd48") for s in (False, True)]
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -231,11 +237,43 @@ def test_the_bound_catches_a_dropped_mask():
 
 def test_groups_at_the_frame8_geometries():
     """The windows a block takes at the flagship's frame-8 geometries (64
-    and 16 windows share a mask at batch 16), and the layout's size."""
+    and 16 windows share a mask at batch 16), and the layouts' sizes."""
     assert rows_group(196, 96, 6, 16) == rows_group(196, 192, 12, 16) == 8
     assert rows_group(392, 96, 6, 16) == rows_group(392, 192, 12, 16) == 4
     assert rows_group(392, 128, 2, 16) == 1  # head width 64
     assert rows_group(392, 96, 6, 3) == 2 and rows_group(392, 96, 6, 1) == 1
-    assert rows_smem_bytes(392, 96, 6, True) == 129536
+    assert rows_smem_bytes(392, 96, 6, True, group=1) == 129536
     assert rows_smem_bytes(392, 96, 6, True, group=4) == 206336
     assert rows_smem_bytes(392, 96, 6, True, group=8) > 232448
+    assert rows_smem_bytes(392, 96, 6, True) == 38400  # the direct layout
+
+
+DIRECT = [(441, "hd64"), (833, "hd16")]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("n, width", DIRECT, ids=[f"{n}-{w}" for n, w in DIRECT])
+def test_the_direct_layout_above_the_staged_limit(n, width, impl):
+    """Windows no staged block holds (N above 432 at head width 64, 800 at
+    16) take the direct layout: a warp a strip over every key block."""
+    packed, plain, pallas = IMPLS[impl]
+    C, nh = WIDTHS[width]
+    assert rows_group(n, C, nh, 1) == 0 and rows_group(n - 49, C, nh, 1) >= 1
+    a = _case(n, width, True, seed=n)
+    got = forward_emulation(*_args(a), packed=packed)
+    assert got.shape == (4, n, C) and bool(torch.isfinite(got).all())
+    assert worst(got, plain(*_args(a)).float()) <= 1.0
+    assert worst(got, np.asarray(_pallas(pallas, a).astype(jnp.float32))) <= 1.0
+
+
+@pytest.mark.parametrize("hd, largest", [(16, 2416), (32, 1440), (48, 1024), (64, 800)])
+def test_every_window_the_body_before_took_still_maps_to_rows(hd, largest):
+    """The bf16 forward takes every window the row-tiled body before this
+    core took (its one-head layout, K and V in rows padded to hd + 8) and
+    no more: ``window_body`` routes N up to ``largest`` to it, and raises
+    above."""
+    C, nh = 2 * hd, 2
+    assert window_body(largest, C, nh, torch.bfloat16) == "rows"
+    assert rows_smem_bytes(largest, C, nh, True) <= SMEM_LIMIT
+    with pytest.raises(NotImplementedError, match="neither"):
+        window_body(largest + 16, C, nh, torch.bfloat16)

@@ -19,8 +19,9 @@
 //      fp32: window_rows.cuh);
 //   2. the attention core.  bf16: window_attn_rows_mma.cu (one block per
 //      head, mask index and group of windows sharing it, the strip's bias and
-//      mask staged once in shared memory; head width 16, 32, 48 or 64, C a
-//      multiple of 16).  fp32 (the exact comparisons), here: one block per
+//      mask staged once in shared memory; above the largest window that
+//      layout holds, one block per window and head reading them from device
+//      memory; head width 16, 32, 48 or 64, C a multiple of 16).  fp32 (the exact comparisons), here: one block per
 //      (window, head), K and V of that head in shared memory, one query row
 //      per warp on CUDA cores, a running max and sum over the keys, then
 //      p = e / l by fa_div (kernel 9: e * (1 / l)) and p . v;
@@ -43,11 +44,11 @@ struct RowsFwdArgs {
   float scale;
 };
 
-// Shared memory of one attention-core block (bf16: at one window a block,
-// the least the core needs).
+// Shared memory of one attention-core block (bf16: the direct layout, the
+// least the core needs).
 inline size_t rows_fwd_smem(int n, int c, int nh, int is_bf16) {
   const size_t hd = c / nh;
-  if (is_bf16) return rows_mma_layout(n, (int)hd, 1).bytes;
+  if (is_bf16) return rows_mma_layout(n, (int)hd, 0).bytes;
   return sizeof(float) * (2 * (size_t)n * (hd + 1) + (size_t)kRowsWarps * (n + hd));
 }
 

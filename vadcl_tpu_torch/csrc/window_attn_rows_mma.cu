@@ -41,6 +41,11 @@
 //     a score, 8 warps) was no faster at N = 392 on an H100.
 // G is the largest of 8, 4, 2, 1 that fits 227 KB (rows_mma_layout): 8 at
 // N = 196 and 4 at N = 392 at head width 16; 1 at N = 392, head width 64.
+// Windows that not even one fits with its strip's tile (N above 800, 576,
+// 512, 432 at head widths 16, 32, 48, 64) take the direct layout
+// (rows_attn_direct_kernel): K and V of one head in padded rows, a warp a
+// strip, bias and mask read from device memory per score, the same walks.  It
+// holds every window the body before it held (N up to 2416, 1440, 1024, 800).
 // Products are mma.sync.m16n8k16 with scores, probabilities and the output
 // strip in registers.  What bounds it now is not one unit: at (1024, 392, 96)
 // / 6 heads, builds without the 2^, without the tile's reads, without
@@ -68,7 +73,7 @@ struct RowsMmaArgs {
 
 // Physical 16-byte chunk of logical chunk c of row r in a [Np][kHd] bf16 tile:
 // the 8 rows an ldmatrix reads at one logical chunk land on 8 different bank
-// groups.
+// groups.  kPad: the direct layout's rows padded to kHd + 8 instead.
 template <int kHd>
 __device__ __forceinline__ int rm_swz(int r, int c) {
   if constexpr (kHd == 32) return c ^ ((r >> 1) & 3);
@@ -76,18 +81,47 @@ __device__ __forceinline__ int rm_swz(int r, int c) {
   else return c ^ ((r >> 2) & 1);  // 16, 48
 }
 
-template <int kHd>
+template <int kHd, bool kPad>
 __device__ __forceinline__ const bf16* rm_at(const bf16* tile, int r, int c) {
-  return tile + r * kHd + rm_swz<kHd>(r, c) * 8;
+  if constexpr (kPad) return tile + r * (kHd + 8) + c * 8;
+  else return tile + r * kHd + rm_swz<kHd>(r, c) * 8;
 }
 
+// (bias + mask) * log2 e at keys col, col + 1 of the strip's rows g (a) and
+// g + 8 (b); keys past the window -inf, rows past it 0 over the real keys.
+// From the strip's tile in shared memory (t0, t1: its rows g and g + 8) ...
+struct RmTileBM {
+  const float *t0, *t1;
+  __device__ __forceinline__ void operator()(int col, float2& a, float2& b) const {
+    a = *reinterpret_cast<const float2*>(t0 + col);
+    b = *reinterpret_cast<const float2*>(t1 + col);
+  }
+};
+
+// ... or from device memory (the direct layout), rows i0 and i1 of the
+// head's bias and the window's mask, summed and scaled as the tile is.
+struct RmGlobalBM {
+  const float *bias, *mask;
+  int i0, i1, N;
+  __device__ __forceinline__ float at(int i, int j) const {
+    if (j >= N) return -INFINITY;
+    if (i >= N) return 0.f;
+    float v = __ldg(bias + (size_t)i * N + j);
+    if (mask != nullptr) v += __ldg(mask + (size_t)i * N + j);
+    return v * kLog2e;
+  }
+  __device__ __forceinline__ void operator()(int col, float2& a, float2& b) const {
+    a = make_float2(at(i0, col), at(i0, col + 1));
+    b = make_float2(at(i1, col), at(i1, col + 1));
+  }
+};
+
 // v' of the strip's 16 x 16 block kb (lane = 4 g + t holds rows g, g + 8 in
-// mma.sync's C layout): q . k^T by mma, then fma(s, smul, tile); t0, t1 are
-// the tile's rows g and g + 8.
-template <int kHd>
+// mma.sync's C layout): q . k^T by mma, then fma(s, smul, (bias + mask) log2 e).
+template <int kHd, bool kPad, class BM>
 __device__ __forceinline__ void rm_scores(const uint32_t (&qf)[kHd / 16][4], const bf16* ks,
-                                          const float* t0, const float* t1, int kb, float smul,
-                                          int lane, float (&v)[2][4]) {
+                                          const BM& bm, int kb, float smul, int lane,
+                                          float (&v)[2][4]) {
   float s[2][4];
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -95,20 +129,117 @@ __device__ __forceinline__ void rm_scores(const uint32_t (&qf)[kHd / 16][4], con
 #pragma unroll
   for (int k = 0; k < kHd / 16; ++k) {
     uint32_t kf[4];
-    ldsm_x4(kf, rm_at<kHd>(ks, r, 2 * k + c));
+    ldsm_x4(kf, rm_at<kHd, kPad>(ks, r, 2 * k + c));
     mma_bf16(s[0], qf[k], kf[0], kf[1]);
     mma_bf16(s[1], qf[k], kf[2], kf[3]);
   }
   const int t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) {
-    const int col = kb * 16 + nt * 8 + 2 * t;
-    const float2 a = *reinterpret_cast<const float2*>(t0 + col);
-    const float2 b = *reinterpret_cast<const float2*>(t1 + col);
+    float2 a, b;
+    bm(kb * 16 + nt * 8 + 2 * t, a, b);
     v[nt][0] = fmaf(s[nt][0], smul, a.x);
     v[nt][1] = fmaf(s[nt][1], smul, a.y);
     v[nt][2] = fmaf(s[nt][2], smul, b.x);
     v[nt][3] = fmaf(s[nt][3], smul, b.y);
+  }
+}
+
+// The q fragments of strip s's rows g and g + 8 of a window (zeros past it);
+// q0 points at the window's first token's head slice.
+template <int kKs>
+__device__ __forceinline__ void rm_load_q(const bf16* q0, int C3, int s, int N, int lane,
+                                          uint32_t (&qf)[kKs][4]) {
+  const int i0 = s * 16 + (lane >> 2), i1 = i0 + 8;
+  const bf16* p0 = q0 + (size_t)i0 * C3 + 2 * (lane & 3);
+  const bf16* p1 = q0 + (size_t)i1 * C3 + 2 * (lane & 3);
+#pragma unroll
+  for (int k = 0; k < kKs; ++k) {
+    qf[k][0] = i0 < N ? *reinterpret_cast<const uint32_t*>(p0 + k * 16) : 0u;
+    qf[k][1] = i1 < N ? *reinterpret_cast<const uint32_t*>(p1 + k * 16) : 0u;
+    qf[k][2] = i0 < N ? *reinterpret_cast<const uint32_t*>(p0 + k * 16 + 8) : 0u;
+    qf[k][3] = i1 < N ? *reinterpret_cast<const uint32_t*>(p1 + k * 16 + 8) : 0u;
+  }
+}
+
+// Walk 1 over key blocks kb0, kb0 + step, ... two at a time (one rescale of
+// the running sum per pair): the running max m and sum l of rows g, g + 8,
+// l summed over the quad that shares a row.
+template <int kHd, bool kPad, class BM>
+__device__ __forceinline__ void rm_walk1(const uint32_t (&qf)[kHd / 16][4], const bf16* ks,
+                                         const BM& bm, int nblk, int kb0, int step, float smul,
+                                         int lane, float (&m)[2], float (&l)[2]) {
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+#pragma unroll 2
+  for (int kb = kb0; kb < nblk; kb += 2 * step) {
+    float va[2][4], vb[2][4];
+    rm_scores<kHd, kPad>(qf, ks, bm, kb, smul, lane, va);
+    if (kb + step < nblk) {
+      rm_scores<kHd, kPad>(qf, ks, bm, kb + step, smul, lane, vb);
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) vb[nt][0] = vb[nt][1] = vb[nt][2] = vb[nt][3] = -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float b = fmaxf(fmaxf(fmaxf(va[0][2 * r], va[0][2 * r + 1]),
+                            fmaxf(va[1][2 * r], va[1][2 * r + 1])),
+                      fmaxf(fmaxf(vb[0][2 * r], vb[0][2 * r + 1]),
+                            fmaxf(vb[1][2 * r], vb[1][2 * r + 1])));
+      b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, 1));
+      b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, 2));
+      const float n = fmaxf(m[r], b);
+      float add = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        add += ex2_ftz(va[nt][2 * r] - n) + ex2_ftz(va[nt][2 * r + 1] - n);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        add += ex2_ftz(vb[nt][2 * r] - n) + ex2_ftz(vb[nt][2 * r + 1] - n);
+      l[r] = l[r] * ex2_ftz(m[r] - n) + add;
+      m[r] = n;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+}
+
+// Walk 2 over the same key blocks: p = round(e / l) (kernel 9: e * (1 / l)),
+// oacc = p . V over them.
+template <int kHd, bool kPad, bool PACKED, class BM>
+__device__ __forceinline__ void rm_walk2(const uint32_t (&qf)[kHd / 16][4], const bf16* ks,
+                                         const bf16* vs, const BM& bm, int nblk, int kb0,
+                                         int step, float smul, int lane, const float (&m)[2],
+                                         const float (&l)[2], float (&oacc)[kHd / 8][4]) {
+  const float rinv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int i = 0; i < kHd / 8; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
+  const int vr = (lane & 7) + ((lane >> 3) & 1) * 8, vc = lane >> 4;
+#pragma unroll 2
+  for (int kb = kb0; kb < nblk; kb += step) {
+    float v[2][4], p[2][4];
+    rm_scores<kHd, kPad>(qf, ks, bm, kb, smul, lane, v);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float ex = ex2_ftz(v[nt][e] - m[r]);
+        p[nt][e] = PACKED ? ex * rinv[r] : fa_div(ex, l[r], rinv[r]);
+      }
+    uint32_t pf[4];
+    rows_a_frag(p, pf);
+#pragma unroll
+    for (int nq = 0; nq < kHd / 16; ++nq) {
+      uint32_t vf[4];
+      ldsm_x4_t(vf, rm_at<kHd, kPad>(vs, kb * 16 + vr, 2 * nq + vc));
+      mma_bf16(oacc[2 * nq], pf, vf[0], vf[1]);
+      mma_bf16(oacc[2 * nq + 1], pf, vf[2], vf[3]);
+    }
   }
 }
 
@@ -200,25 +331,11 @@ __global__ void __launch_bounds__(rows_mma_warps(kHd) * kWarp, 1)
 
   const bf16* ks = kv + (size_t)2 * unit * Np * kHd;
   const bf16* vs = ks + (size_t)Np * kHd;
-  const float* t0 = tile + g * tld;
-  const float* t1 = t0 + 8 * tld;
+  const RmTileBM bm{tile + g * tld, tile + (g + 8) * tld};
   bf16* o = a.o + win * N * C;
-  const bf16* qkv = a.qkv + win * N * C3;
-  // the q fragments of strip s's rows g and g + 8 (zeros past the window)
-  auto load_q = [&](int s, uint32_t (&qf)[kKs][4]) {
-    const int i0 = s * 16 + g, i1 = i0 + 8;
-    const bf16* q0 = qkv + (size_t)i0 * C3 + h * kHd + 2 * t;
-    const bf16* q1 = qkv + (size_t)i1 * C3 + h * kHd + 2 * t;
-#pragma unroll
-    for (int k = 0; k < kKs; ++k) {
-      qf[k][0] = i0 < N ? *reinterpret_cast<const uint32_t*>(q0 + k * 16) : 0u;
-      qf[k][1] = i1 < N ? *reinterpret_cast<const uint32_t*>(q1 + k * 16) : 0u;
-      qf[k][2] = i0 < N ? *reinterpret_cast<const uint32_t*>(q0 + k * 16 + 8) : 0u;
-      qf[k][3] = i1 < N ? *reinterpret_cast<const uint32_t*>(q1 + k * 16 + 8) : 0u;
-    }
-  };
+  const bf16* q0 = a.qkv + win * N * C3 + h * kHd;
   uint32_t qf[kKs][4], qn[kKs][4];
-  if (valid) load_q(0, qf);
+  if (valid) rm_load_q<kKs>(q0, C3, 0, N, lane, qf);
   for (int s = 0; s < nblk; ++s) {
     if (s + 1 < nblk) stage(s + 1);
     cp_async_commit();
@@ -226,43 +343,8 @@ __global__ void __launch_bounds__(rows_mma_warps(kHd) * kWarp, 1)
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float oacc[kHt][4];
     if (valid) {
-      if (s + 1 < nblk) load_q(s + 1, qn);  // in flight during the walks
-      // walk 1: this warp's key blocks (part, part + Wu, ...) two at a time
-#pragma unroll 2
-      for (int kb = part; kb < nblk; kb += 2 * Wu) {
-        float va[2][4], vb[2][4];
-        rm_scores<kHd>(qf, ks, t0, t1, kb, a.smul, lane, va);
-        if (kb + Wu < nblk) {
-          rm_scores<kHd>(qf, ks, t0, t1, kb + Wu, a.smul, lane, vb);
-        } else {
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) vb[nt][0] = vb[nt][1] = vb[nt][2] = vb[nt][3] = -INFINITY;
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float b = fmaxf(fmaxf(fmaxf(va[0][2 * r], va[0][2 * r + 1]),
-                                fmaxf(va[1][2 * r], va[1][2 * r + 1])),
-                          fmaxf(fmaxf(vb[0][2 * r], vb[0][2 * r + 1]),
-                                fmaxf(vb[1][2 * r], vb[1][2 * r + 1])));
-          b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, 1));
-          b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, 2));
-          const float n = fmaxf(m[r], b);
-          float add = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-            add += ex2_ftz(va[nt][2 * r] - n) + ex2_ftz(va[nt][2 * r + 1] - n);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-            add += ex2_ftz(vb[nt][2 * r] - n) + ex2_ftz(vb[nt][2 * r + 1] - n);
-          l[r] = l[r] * ex2_ftz(m[r] - n) + add;
-          m[r] = n;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      }
+      if (s + 1 < nblk) rm_load_q<kKs>(q0, C3, s + 1, N, lane, qn);  // in flight during the walks
+      rm_walk1<kHd, false>(qf, ks, bm, nblk, part, Wu, a.smul, lane, m, l);
     }
     if (Wu > 1) {  // the window's Wu partial (m, l), merged in warp order
       if (valid && t == 0) {
@@ -283,34 +365,7 @@ __global__ void __launch_bounds__(rows_mma_warps(kHd) * kWarp, 1)
         }
       }
     }
-    if (valid) {  // walk 2: p = round(e / l) (kernel 9: e * (1 / l)), O += p . V
-      const float rinv[2] = {1.f / l[0], 1.f / l[1]};
-#pragma unroll
-      for (int i = 0; i < kHt; ++i) oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-      const int vr = (lane & 7) + ((lane >> 3) & 1) * 8, vc = lane >> 4;
-#pragma unroll 2
-      for (int kb = part; kb < nblk; kb += Wu) {
-        float v[2][4], p[2][4];
-        rm_scores<kHd>(qf, ks, t0, t1, kb, a.smul, lane, v);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            const float ex = ex2_ftz(v[nt][e] - m[r]);
-            p[nt][e] = PACKED ? ex * rinv[r] : fa_div(ex, l[r], rinv[r]);
-          }
-        uint32_t pf[4];
-        rows_a_frag(p, pf);
-#pragma unroll
-        for (int nq = 0; nq < kKs; ++nq) {
-          uint32_t vf[4];
-          ldsm_x4_t(vf, rm_at<kHd>(vs, kb * 16 + vr, 2 * nq + vc));
-          mma_bf16(oacc[2 * nq], pf, vf[0], vf[1]);
-          mma_bf16(oacc[2 * nq + 1], pf, vf[2], vf[3]);
-        }
-      }
-    }
+    if (valid) rm_walk2<kHd, false, PACKED>(qf, ks, vs, bm, nblk, part, Wu, a.smul, lane, m, l, oacc);
     if (Wu > 1) {  // the window's Wu partial strips, summed in warp order
       if (valid) {
         float* mine = op + (size_t)warp * 16 * kOld;
@@ -354,8 +409,53 @@ __global__ void __launch_bounds__(rows_mma_warps(kHd) * kWarp, 1)
   }
 }
 
+// The direct layout, for windows whose K and V beside one strip's tile fit no
+// block (rows_mma_group 0: N above 800, 576, 512, 432 at head widths 16, 32,
+// 48, 64): one block per (window, head), K and V in padded rows, each of the
+// kRowsWarps warps a whole strip (every kRowsWarps-th), both walks over every
+// key block, bias and mask read from device memory per score.  The same
+// arithmetic as the staged kernel at one warp a window.
+template <int kHd, bool PACKED>
+__global__ void __launch_bounds__(kRowsThreads) rows_attn_direct_kernel(RowsMmaArgs a) {
+  constexpr int kKs = kHd / 16, kHt = kHd / 8, kCh = kHd / 8, kLd = kHd + 8;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int N = a.N, C = a.C, C3 = 3 * C, Np = rows_padded(N), nblk = Np / 16;
+  const int win = blockIdx.x / a.nh, h = blockIdx.x % a.nh;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  bf16* ks = reinterpret_cast<bf16*>(sm);
+  bf16* vs = ks + (size_t)Np * kLd;
+  const bf16* q0 = a.qkv + (size_t)win * N * C3 + h * kHd;
+  for (int e = tid; e < 2 * Np * kCh; e += kRowsThreads) {
+    const int p = e / (Np * kCh), r = (e / kCh) % Np, c = e % kCh;
+    cp_async16((p ? vs : ks) + r * kLd + c * 8, q0 + (size_t)min(r, N - 1) * C3 + (1 + p) * C + c * 8,
+               r < N);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const float* bias = a.bias + (size_t)h * N * N;
+  const float* mask = a.mask != nullptr ? a.mask + (size_t)(win % a.nW) * N * N : nullptr;
+  bf16* o = a.o + (size_t)win * N * C;
+  for (int s = warp; s < nblk; s += kRowsWarps) {
+    const int i0 = s * 16 + (lane >> 2), i1 = i0 + 8;
+    const RmGlobalBM bm{bias, mask, i0, i1, N};
+    uint32_t qf[kKs][4];
+    rm_load_q<kKs>(q0, C3, s, N, lane, qf);
+    float m[2], l[2], oacc[kHt][4];
+    rm_walk1<kHd, true>(qf, ks, bm, nblk, 0, 1, a.smul, lane, m, l);
+    rm_walk2<kHd, true, PACKED>(qf, ks, vs, bm, nblk, 0, 1, a.smul, lane, m, l, oacc);
+    strip_store<kHt>(oacc, o, C, i0, i1, N, h * kHd, lane & 3);
+  }
+}
+
 template <int kHd, bool PACKED>
 cudaError_t launch_core(const RowsMmaArgs& a, size_t smem, unsigned blocks, cudaStream_t s) {
+  if (a.group == 0) {
+    const cudaError_t err = allow_smem(rows_attn_direct_kernel<kHd, PACKED>, smem);
+    if (err != cudaSuccess) return err;
+    rows_attn_direct_kernel<kHd, PACKED><<<blocks, kRowsThreads, smem, s>>>(a);
+    return cudaGetLastError();
+  }
   const cudaError_t err = allow_smem(rows_attn_mma_kernel<kHd, PACKED>, smem);
   if (err != cudaSuccess) return err;
   rows_attn_mma_kernel<kHd, PACKED><<<blocks, rows_mma_warps(kHd) * kWarp, smem, s>>>(a);
@@ -375,7 +475,7 @@ cudaError_t launch_core_hd(const RowsMmaArgs& a, int hd, size_t smem, unsigned b
 }
 
 // --- the forward's token-wise products --------------------------------------
-//   out[T, Nc] = round((A[T, K] . B[K, Nc] + bias[Nc]) * (scale on the first
+//   out[T, Nc] = round((A[T, K] . B[K, Nc] (+ bias[Nc])) * (scale on the first
 //   scale_cols columns)), bf16 A, B, out, fp32 sum: the qkv product and the
 //   projection, the same arithmetic as window_rows.cuh's rows_gemm_bf16_kernel
 //   (which the backward keeps).  Bound by bytes (x 77 MB in, qkv 231 MB out at
@@ -383,11 +483,16 @@ cudaError_t launch_core_hd(const RowsMmaArgs& a, int hd, size_t smem, unsigned b
 //   4 bytes a lane.  Here a block of four warps owns 64 rows and every column:
 //   its A rows are copied once (cp.async), B walks past in 64-column chunks
 //   through a two-stage cp.async ring, and each chunk's output goes through
-//   shared memory to 16-byte stores, whole rows of 128 bytes.
+//   shared memory to 16-byte stores, whole rows of 128 bytes.  Where K is
+//   above kFgMaxK, A's rows are held in panels of kFgMaxK columns, each
+//   chunk walks every panel in turn (A then is read once per chunk, as in the
+//   old kernel), the sum taken in the same order of k.
 constexpr int kFgRows = 64, kFgCols = 64, kFgThreads = 128, kFgLdb = kFgCols + 8;
+constexpr int kFgMaxK = 512;
 
 inline size_t fwd_gemm_smem(int K) {
-  return (size_t)kFgRows * (K + 8) * 2 + 2 * (size_t)K * kFgLdb * 2 + (size_t)kFgRows * kFgLdb * 2;
+  const size_t kp = K < kFgMaxK ? K : kFgMaxK;
+  return (size_t)kFgRows * (kp + 8) * 2 + 2 * kp * kFgLdb * 2 + (size_t)kFgRows * kFgLdb * 2;
 }
 
 __global__ void __launch_bounds__(kFgThreads)
@@ -395,58 +500,75 @@ __global__ void __launch_bounds__(kFgThreads)
                          const float* __restrict__ bias, bf16* __restrict__ out, int T, int K,
                          int Nc, int scale_cols, float scale) {
   extern __shared__ __align__(16) unsigned char sm[];
-  const int lda = K + 8;
-  bf16* as = reinterpret_cast<bf16*>(sm);
-  bf16* bs = as + (size_t)kFgRows * lda;           // two stages of K x kFgLdb
-  bf16* os = bs + 2 * (size_t)K * kFgLdb;          // kFgRows x kFgLdb
+  const int KP = min(K, kFgMaxK), lda = KP + 8, panels = (K + KP - 1) / KP;
+  bf16* as = reinterpret_cast<bf16*>(sm);           // kFgRows x KP: A's panel
+  bf16* bs = as + (size_t)kFgRows * lda;           // two stages of KP x kFgLdb
+  bf16* os = bs + 2 * (size_t)KP * kFgLdb;         // kFgRows x kFgLdb
   const int r0 = blockIdx.x * kFgRows, tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  const int kv = K / 8, chunks = (Nc + kFgCols - 1) / kFgCols;
-  for (int e = tid; e < kFgRows * kv; e += kFgThreads) {
-    const int r = e / kv, v = e % kv;
-    cp_async16(as + r * lda + v * 8, A + (size_t)min(r0 + r, T - 1) * K + v * 8, r0 + r < T);
-  }
-  auto load_b = [&](int j) {
-    bf16* dst = bs + (size_t)(j & 1) * K * kFgLdb;
-    const int c0 = j * kFgCols;
-    for (int e = tid; e < K * (kFgCols / 8); e += kFgThreads) {
-      const int k = e / (kFgCols / 8), v = e % (kFgCols / 8);
-      const bool ok = c0 + v * 8 < Nc;
-      cp_async16(dst + k * kFgLdb + v * 8, B + (size_t)k * Nc + (ok ? c0 + v * 8 : 0), ok);
+  const int chunks = (Nc + kFgCols - 1) / kFgCols, steps = chunks * panels;
+  auto load_a = [&](int p) {
+    const int k0 = p * KP, kv = min(KP, K - k0) / 8;
+    for (int e = tid; e < kFgRows * kv; e += kFgThreads) {
+      const int r = e / kv, v = e % kv;
+      cp_async16(as + r * lda + v * 8, A + (size_t)min(r0 + r, T - 1) * K + k0 + v * 8,
+                 r0 + r < T);
     }
   };
+  // step st: columns of chunk st / panels, rows of B of panel st % panels
+  auto load_b = [&](int st) {
+    bf16* dst = bs + (size_t)(st & 1) * KP * kFgLdb;
+    const int c0 = st / panels * kFgCols, k0 = st % panels * KP, kp = min(KP, K - k0);
+    for (int e = tid; e < kp * (kFgCols / 8); e += kFgThreads) {
+      const int k = e / (kFgCols / 8), v = e % (kFgCols / 8);
+      const bool ok = c0 + v * 8 < Nc;
+      cp_async16(dst + k * kFgLdb + v * 8, B + (size_t)(k0 + k) * Nc + (ok ? c0 + v * 8 : 0), ok);
+    }
+  };
+  load_a(0);
   load_b(0);
   cp_async_commit();
   const int g = lane >> 2, t = lane & 3;
-  for (int j = 0; j < chunks; ++j) {
-    if (j + 1 < chunks) load_b(j + 1);
+  float acc[8][4];
+  for (int st = 0; st < steps; ++st) {
+    const int p = st % panels, c0 = st / panels * kFgCols;
+    if (st + 1 < steps) load_b(st + 1);
     cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();  // chunk j (and A) landed; os free
-    float acc[8][4];
+    __syncthreads();  // A's panel p and step st's B landed; os free
+    if (p == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    warp_gemm_16xn<8>(as + warp * 16 * lda, lda, bs + (size_t)(j & 1) * K * kFgLdb, kFgLdb, K,
-                      lane, acc);
-    const int c0 = j * kFgCols;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = c0 + i * 8 + 2 * t;
-      float bx = 0.f, by = 0.f;
-      if (col < Nc) bx = bias[col], by = bias[col + 1];
-      const float mx = col < scale_cols ? scale : 1.f, my = col + 1 < scale_cols ? scale : 1.f;
-      const int r = warp * 16 + g;
-      *reinterpret_cast<uint32_t*>(os + r * kFgLdb + i * 8 + 2 * t) =
-          pack_bf16((acc[i][0] + bx) * mx, (acc[i][1] + by) * my);
-      *reinterpret_cast<uint32_t*>(os + (r + 8) * kFgLdb + i * 8 + 2 * t) =
-          pack_bf16((acc[i][2] + bx) * mx, (acc[i][3] + by) * my);
+      for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
     }
-    __syncthreads();  // os complete; bs stage j free for chunk j + 2
-    const int cv = min(kFgCols, Nc - c0) / 8;
-    for (int e = tid; e < kFgRows * cv; e += kFgThreads) {
-      const int r = e / cv, v = e % cv;
-      if (r0 + r < T)
-        *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * Nc + c0 + v * 8) =
-            *reinterpret_cast<const uint4*>(os + r * kFgLdb + v * 8);
+    warp_gemm_16xn<8>(as + warp * 16 * lda, lda, bs + (size_t)(st & 1) * KP * kFgLdb, kFgLdb,
+                      min(KP, K - p * KP), lane, acc);
+    const bool last = p == panels - 1;
+    if (last) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = c0 + i * 8 + 2 * t;
+        float bx = 0.f, by = 0.f;
+        if (bias != nullptr && col < Nc) bx = bias[col], by = bias[col + 1];
+        const float mx = col < scale_cols ? scale : 1.f, my = col + 1 < scale_cols ? scale : 1.f;
+        const int r = warp * 16 + g;
+        *reinterpret_cast<uint32_t*>(os + r * kFgLdb + i * 8 + 2 * t) =
+            pack_bf16((acc[i][0] + bx) * mx, (acc[i][1] + by) * my);
+        *reinterpret_cast<uint32_t*>(os + (r + 8) * kFgLdb + i * 8 + 2 * t) =
+            pack_bf16((acc[i][2] + bx) * mx, (acc[i][3] + by) * my);
+      }
+    }
+    __syncthreads();  // os complete; A's panel and B's stage st free
+    if (panels > 1 && st + 1 < steps) {
+      load_a((p + 1) % panels);  // waited for with step st + 1's B
+      cp_async_commit();
+    }
+    if (last) {
+      const int cv = min(kFgCols, Nc - c0) / 8;
+      for (int e = tid; e < kFgRows * cv; e += kFgThreads) {
+        const int r = e / cv, v = e % cv;
+        if (r0 + r < T)
+          *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * Nc + c0 + v * 8) =
+              *reinterpret_cast<const uint4*>(os + r * kFgLdb + v * 8);
+      }
     }
   }
 }
@@ -456,10 +578,8 @@ __global__ void __launch_bounds__(kFgThreads)
 cudaError_t launch_rows_fwd_gemm(const void* A, const void* B, const float* bias, void* out,
                                  int T, int K, int Nc, int scale_cols, float scale,
                                  cudaStream_t stream) {
-  if (T <= 0 || K <= 0 || Nc <= 0 || K % 16 || Nc % 16 || bias == nullptr)
-    return cudaErrorInvalidValue;
+  if (T <= 0 || K <= 0 || Nc <= 0 || K % 16 || Nc % 16) return cudaErrorInvalidValue;
   const size_t smem = fwd_gemm_smem(K);
-  if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(rows_fwd_gemm_kernel, smem);
   if (err != cudaSuccess) return err;
   rows_fwd_gemm_kernel<<<(unsigned)((T + kFgRows - 1) / kFgRows), kFgThreads, smem, stream>>>(
@@ -475,7 +595,8 @@ cudaError_t launch_rows_mma_core(const void* qkv, void* o, const float* bias, co
   const int hd = C / nh, classes = mask != nullptr ? nW : 1;
   if (Bn % classes) return cudaErrorInvalidValue;
   const int per = Bn / classes, G = rows_mma_group(N, hd, per);
-  if (G == 0) return cudaErrorInvalidValue;
+  const size_t smem = rows_mma_layout(N, hd, G).bytes;
+  if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   const auto aligned16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   RowsMmaArgs a;
   a.qkv = static_cast<const bf16*>(qkv);
@@ -485,10 +606,9 @@ cudaError_t launch_rows_mma_core(const void* qkv, void* o, const float* bias, co
   a.N = N, a.C = C, a.nh = nh, a.nW = classes;
   a.per_class = per;
   a.group = G;
-  a.groups = (per + G - 1) / G;
+  a.groups = G ? (per + G - 1) / G : per;
   a.vec = N % 4 == 0 && aligned16(bias) && (mask == nullptr || aligned16(mask));
   a.smul = (packed ? 1.f : scale) * kLog2e;
-  const size_t smem = rows_mma_layout(N, hd, G).bytes;
   const unsigned blocks = (unsigned)((size_t)classes * nh * a.groups);
   return packed ? launch_core_hd<true>(a, hd, smem, blocks, stream)
                 : launch_core_hd<false>(a, hd, smem, blocks, stream);
@@ -498,13 +618,15 @@ cudaError_t launch_rows_mma_core(const void* qkv, void* o, const float* bias, co
 
 extern "C" {
 
-// Windows one block of the bf16 core takes, given the windows that share a mask.
+// Windows one block of the bf16 core takes, given the windows that share a
+// mask; 0: the direct layout.
 int vadcl_window_attn_rows_group(int n, int c, int nh, int per_class) {
   if (nh <= 0 || c % nh) return 0;
   return vadcl::rows_mma_group(n, c / nh, per_class);
 }
 
-// Shared memory of one block of the bf16 core at `group` windows a block.
+// Shared memory of one block of the bf16 core at `group` windows a block (0:
+// the direct layout).
 long long vadcl_window_attn_rows_group_smem_bytes(int n, int c, int nh, int group) {
   if (nh <= 0 || c % nh) return 0;
   return (long long)vadcl::rows_mma_layout(n, c / nh, group).bytes;

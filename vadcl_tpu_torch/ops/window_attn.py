@@ -188,21 +188,25 @@ def rows_warps(head_dim: int) -> int:
 
 
 def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False,
-                    group: int = 1) -> int:
+                    group: int = 0) -> int:
     """Shared memory of one block of the row-tiled attention core
     (``csrc/window_attn_rows.cu:rows_fwd_smem``, with ``backward``
     ``csrc/window_attn_bwd_rows.cu:rows_bwd_smem``).  bf16 forward
-    (``csrc/window_attn_rows_mma.cuh:rows_mma_layout``): K and V of the head
-    of ``group`` windows, the strip's (bias + mask) tile, the next strip's
-    bias and mask rows, the warps' (m, l) pairs and partial output strips;
-    at ``group`` 1 the least the core needs (129,536 B at N = 392, head_dim
-    16).  Otherwise K and V of one head (the backward also q and dout's head
-    slice) plus, in the backward, three row statistics and the strips' column
-    sums (86,400 B backward at N = 392, head_dim 16 in bf16)."""
+    (``csrc/window_attn_rows_mma.cuh:rows_mma_layout``): at ``group`` G >= 1,
+    K and V of the head of G windows, the strip's (bias + mask) tile, the
+    next strip's bias and mask rows, the warps' (m, l) pairs and partial
+    output strips (206,336 B at N = 392, head_dim 16, G = 4); at ``group`` 0
+    the direct layout, the least the core needs: K and V of one head in
+    padded rows (38,400 B at N = 392, head_dim 16).  Otherwise K and V of one
+    head (the backward also q and dout's head slice) plus, in the backward,
+    three row statistics and the strips' column sums (86,400 B backward at
+    N = 392, head_dim 16 in bf16)."""
     hd = c // num_heads
     if bf16:
         m = _up(n, 16)
         if not backward:
+            if group == 0:
+                return 2 * 2 * m * (hd + 8)
             warps = rows_warps(hd)
             return (group * 4 * m * hd + 64 * (m + 8) + 128 * m + 128 * warps
                     + 64 * warps * (hd + 8))
@@ -216,9 +220,10 @@ def rows_group(n: int, c: int, num_heads: int, per_class: int) -> int:
     """Windows one block of the bf16 row-tiled forward core takes
     (``csrc/window_attn_rows_mma.cuh:rows_mma_group``): the largest of 8, 4,
     2, 1 that is at most ``per_class`` (the windows sharing one mask; all
-    windows without a mask) and fits ``SMEM_LIMIT``; 0 where none fits.  The
-    block's ``rows_warps(head_dim) // group`` warps a window each take every
-    so-many-th key block."""
+    windows without a mask) and fits ``SMEM_LIMIT``; 0 where none fits, and
+    the core takes the direct layout (a block per window and head, bias and
+    mask read from device memory).  The block's ``rows_warps(head_dim) //
+    group`` warps a window each take every so-many-th key block."""
     for g in (8, 4, 2, 1):
         if g <= per_class and rows_smem_bytes(n, c, num_heads, True, group=g) <= SMEM_LIMIT:
             return g
