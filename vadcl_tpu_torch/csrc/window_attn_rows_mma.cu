@@ -495,12 +495,13 @@ inline size_t fwd_gemm_smem(int K) {
   return (size_t)kFgRows * (kp + 8) * 2 + 2 * kp * kFgLdb * 2 + (size_t)kFgRows * kFgLdb * 2;
 }
 
+template <bool kPanels>  // K above kFgMaxK; false: one panel
 __global__ void __launch_bounds__(kFgThreads)
     rows_fwd_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                          const float* __restrict__ bias, bf16* __restrict__ out, int T, int K,
                          int Nc, int scale_cols, float scale) {
   extern __shared__ __align__(16) unsigned char sm[];
-  const int KP = min(K, kFgMaxK), lda = KP + 8, panels = (K + KP - 1) / KP;
+  const int KP = kPanels ? kFgMaxK : K, lda = KP + 8, panels = kPanels ? (K + KP - 1) / KP : 1;
   bf16* as = reinterpret_cast<bf16*>(sm);           // kFgRows x KP: A's panel
   bf16* bs = as + (size_t)kFgRows * lda;           // two stages of KP x kFgLdb
   bf16* os = bs + 2 * (size_t)KP * kFgLdb;         // kFgRows x kFgLdb
@@ -514,10 +515,10 @@ __global__ void __launch_bounds__(kFgThreads)
                  r0 + r < T);
     }
   };
-  // step st: columns of chunk st / panels, rows of B of panel st % panels
-  auto load_b = [&](int st) {
+  // step st's B (stage st & 1): rows k0 .. of the panel at chunk c0's columns
+  auto load_b = [&](int st, int c0, int k0) {
     bf16* dst = bs + (size_t)(st & 1) * KP * kFgLdb;
-    const int c0 = st / panels * kFgCols, k0 = st % panels * KP, kp = min(KP, K - k0);
+    const int kp = min(KP, K - k0);
     for (int e = tid; e < kp * (kFgCols / 8); e += kFgThreads) {
       const int k = e / (kFgCols / 8), v = e % (kFgCols / 8);
       const bool ok = c0 + v * 8 < Nc;
@@ -525,50 +526,47 @@ __global__ void __launch_bounds__(kFgThreads)
     }
   };
   load_a(0);
-  load_b(0);
+  load_b(0, 0, 0);
   cp_async_commit();
   const int g = lane >> 2, t = lane & 3;
-  float acc[8][4];
-  for (int st = 0; st < steps; ++st) {
-    const int p = st % panels, c0 = st / panels * kFgCols;
-    if (st + 1 < steps) load_b(st + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // A's panel p and step st's B landed; os free
-    if (p == 0) {
+  for (int j = 0, st = 0; j < chunks; ++j) {
+    const int c0 = j * kFgCols;
+    float acc[8][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    }
-    warp_gemm_16xn<8>(as + warp * 16 * lda, lda, bs + (size_t)(st & 1) * KP * kFgLdb, kFgLdb,
-                      min(KP, K - p * KP), lane, acc);
-    const bool last = p == panels - 1;
-    if (last) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int col = c0 + i * 8 + 2 * t;
-        float bx = 0.f, by = 0.f;
-        if (bias != nullptr && col < Nc) bx = bias[col], by = bias[col + 1];
-        const float mx = col < scale_cols ? scale : 1.f, my = col + 1 < scale_cols ? scale : 1.f;
-        const int r = warp * 16 + g;
-        *reinterpret_cast<uint32_t*>(os + r * kFgLdb + i * 8 + 2 * t) =
-            pack_bf16((acc[i][0] + bx) * mx, (acc[i][1] + by) * my);
-        *reinterpret_cast<uint32_t*>(os + (r + 8) * kFgLdb + i * 8 + 2 * t) =
-            pack_bf16((acc[i][2] + bx) * mx, (acc[i][3] + by) * my);
-      }
-    }
-    __syncthreads();  // os complete; A's panel and B's stage st free
-    if (panels > 1 && st + 1 < steps) {
-      load_a((p + 1) % panels);  // waited for with step st + 1's B
+    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int p = 0; p < panels; ++p, ++st) {
+      const bool more = p + 1 < panels;  // step st + 1 is this chunk's next panel
+      if (st + 1 < steps) load_b(st + 1, more ? c0 : c0 + kFgCols, more ? (p + 1) * KP : 0);
       cp_async_commit();
-    }
-    if (last) {
-      const int cv = min(kFgCols, Nc - c0) / 8;
-      for (int e = tid; e < kFgRows * cv; e += kFgThreads) {
-        const int r = e / cv, v = e % cv;
-        if (r0 + r < T)
-          *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * Nc + c0 + v * 8) =
-              *reinterpret_cast<const uint4*>(os + r * kFgLdb + v * 8);
+      cp_async_wait<1>();
+      __syncthreads();  // A's panel p and step st's B landed; os free
+      warp_gemm_16xn<8>(as + warp * 16 * lda, lda, bs + (size_t)(st & 1) * KP * kFgLdb, kFgLdb,
+                        min(KP, K - p * KP), lane, acc);
+      if (kPanels && st + 1 < steps) {
+        __syncthreads();  // A's panel and B's stage st free
+        load_a(more ? p + 1 : 0);  // waited for with step st + 1's B
+        cp_async_commit();
       }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = c0 + i * 8 + 2 * t;
+      float bx = 0.f, by = 0.f;
+      if (bias != nullptr && col < Nc) bx = bias[col], by = bias[col + 1];
+      const float mx = col < scale_cols ? scale : 1.f, my = col + 1 < scale_cols ? scale : 1.f;
+      const int r = warp * 16 + g;
+      *reinterpret_cast<uint32_t*>(os + r * kFgLdb + i * 8 + 2 * t) =
+          pack_bf16((acc[i][0] + bx) * mx, (acc[i][1] + by) * my);
+      *reinterpret_cast<uint32_t*>(os + (r + 8) * kFgLdb + i * 8 + 2 * t) =
+          pack_bf16((acc[i][2] + bx) * mx, (acc[i][3] + by) * my);
+    }
+    __syncthreads();  // os complete; (one panel) B's stage st free for step st + 2
+    const int cv = min(kFgCols, Nc - c0) / 8;
+    for (int e = tid; e < kFgRows * cv; e += kFgThreads) {
+      const int r = e / cv, v = e % cv;
+      if (r0 + r < T)
+        *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * Nc + c0 + v * 8) =
+            *reinterpret_cast<const uint4*>(os + r * kFgLdb + v * 8);
     }
   }
 }
@@ -580,9 +578,10 @@ cudaError_t launch_rows_fwd_gemm(const void* A, const void* B, const float* bias
                                  cudaStream_t stream) {
   if (T <= 0 || K <= 0 || Nc <= 0 || K % 16 || Nc % 16) return cudaErrorInvalidValue;
   const size_t smem = fwd_gemm_smem(K);
-  const cudaError_t err = allow_smem(rows_fwd_gemm_kernel, smem);
+  const auto kernel = K > kFgMaxK ? rows_fwd_gemm_kernel<true> : rows_fwd_gemm_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  rows_fwd_gemm_kernel<<<(unsigned)((T + kFgRows - 1) / kFgRows), kFgThreads, smem, stream>>>(
+  kernel<<<(unsigned)((T + kFgRows - 1) / kFgRows), kFgThreads, smem, stream>>>(
       static_cast<const bf16*>(A), static_cast<const bf16*>(B), bias, static_cast<bf16*>(out), T,
       K, Nc, scale_cols, scale);
   return cudaGetLastError();
