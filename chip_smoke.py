@@ -288,6 +288,22 @@ def phase_build():
             raise AssertionError(f"{gname}: kernels 5 and 6 must run their tensor-core bodies")
     print("  the tensor-core bodies of kernels 5 and 6: their layout mirrors agree with the "
           "library, and every flagship geometry takes them in bf16")
+    from vadcl_tpu_torch.ops.cluster_kernels import cluster_assign_shape
+    from vadcl_tpu_torch.ops.ln_mlp import mlp_fwd_smem_bytes
+
+    for c in range(1, 801):
+        if mlp_fwd_smem_bytes(c) != lib.vadcl_ln_mlp_smem_bytes(c):
+            raise AssertionError(f"mlp_fwd_smem_bytes({c}) disagrees with the library")
+        packed = lib.vadcl_cluster_assign_shape(c)
+        try:
+            nt, parts, chunk, stages = cluster_assign_shape(c)
+            mine = nt | parts << 8 | chunk << 12 | stages << 20
+        except ValueError:
+            mine = 0
+        if mine != packed:
+            raise AssertionError(f"cluster_assign_shape({c}) disagrees with the library")
+    print("  kernel B's CUDA-core block and kernel C's instance by width (C = 1 .. 800) agree "
+          "with the library")
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_block_fits, fold_block_smem_bytes, fold_packed_fits,
     )
@@ -668,11 +684,14 @@ def phase_kernels():
                     *BOUNDS[dtype])
     a = _fold_case((2, 2, 14, 14, 24), 2, (2, 7, 7), (0, 0, 0), torch.bfloat16, gen)
     p = _mlp_case(24, 96, gen)
+    # kernel B takes C=24 in bf16 on its CUDA-core body; A, 10 and the whole
+    # block run on 16x16 tensor-core tiles and refuse it
+    check_close("ln_mlp bf16 C=24 (CUDA-core body)", ln_mlp(a["x"], *p),
+                ln_mlp_plain(a["x"], *p), *BOUNDS[torch.bfloat16])
     blk = _block_case(a, gen)
     for name, call in (("fold_attention", lambda: fold_attention(**a)),
                        ("fold_attention_packed", lambda: fold_attention_packed(**a)),
-                       ("fold_block", lambda: fold_block(**blk)),
-                       ("ln_mlp", lambda: ln_mlp(a["x"], *p))):
+                       ("fold_block", lambda: fold_block(**blk))):
         try:
             call()
         except NotImplementedError:
@@ -750,6 +769,91 @@ def phase_kernels():
                     want.loss_sq_sum, 0.0, CLUSTER_RTOL)
         if not bool((got.labels == want.labels).all()):
             raise AssertionError("cluster_assign: labels differ at an edge shape")
+    return stats
+
+
+WIDE_MLP_CASES = ((256, 1024, (4, 2, 28, 28)), (100, 400, (1000,)))  # C, hidden, token shape
+WIDE_CLUSTER_CASES = ((6272, 256, 1024), (1000, 200, 1000), (1000, 384, 1024),
+                      (777, 512, 1000), (500, 768, 1024))  # N, C, K
+
+
+def phase_width_kernels() -> dict:
+    """Kernels B and C above the flagship's widths, which the JAX package
+    runs (``fused_ln_mlp`` at any C, ``_cluster_kernel`` at any C): bf16
+    ``ln_mlp`` at C = 256 / hidden 1024 (an ``embed_dim`` 128 model's inner
+    stages) and C = 100 / hidden 400 (C % 16 != 0) on the CUDA-core body,
+    which must count on ``ln_mlp_tiles``; fp32 ``cluster_assign`` at
+    C = 256 (that model's feature head), 200, 384, 512 and 768, each
+    instance of ``csrc/cluster_mma.cu:kCaShapes`` above 192; two calls give
+    the same bits.  Returns the CUDA-core body's stats at C = 256 for the
+    kernels line."""
+    from vadcl_tpu_torch.ops.cluster import cdist
+    from vadcl_tpu_torch.ops.cluster_kernels import (
+        cluster_assign, cluster_assign_plain, cluster_assign_shape,
+    )
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_plain, ln_mlp_tiles, mlp_fwd_body
+
+    print("[2] kernels B and C above the flagship's widths")
+    gen = torch.Generator().manual_seed(3)
+    stats, errs = {}, []
+    for C, hidden, shape in WIDE_MLP_CASES:
+        p = _mlp_case(C, hidden, gen)
+        x = torch.randn(*shape, C, generator=gen).to(DEV, torch.bfloat16)
+        name = f"ln_mlp C={C} hidden {hidden} bf16 ({mlp_fwd_body(C, hidden, x.dtype)} body)"
+        before = (ln_mlp.launches, ln_mlp_tiles.launches)
+        got = ln_mlp(x, *p)
+        if (ln_mlp.launches, ln_mlp_tiles.launches) != (before[0], before[1] + 1):
+            raise AssertionError(f"{name}: did not run the CUDA-core body")
+        errs.append(check_close(name, got, ln_mlp_plain(x, *p), *BOUNDS[torch.bfloat16]))
+        same_bits(name, (got,), (ln_mlp(x, *p),))
+        if C == 256:
+            ms, pms = time_pair(lambda: ln_mlp(x, *p), lambda: ln_mlp_plain(x, *p))
+            tokens = x[..., 0].numel()
+            stats["ln_mlp_tiles"] = dict(
+                ms=ms, plain_ms=pms, shape=f"x ({tokens},256) bf16, hidden 1024",
+                **bound([x, got, *p], mlp_flops(tokens, C), "bf16"))
+    x = torch.randn(2048, 96, generator=gen).to(DEV)
+    p = _mlp_case(96, 384, gen)
+    errs.append(check_close("ln_mlp C=96 fp32 (CUDA-core body)", ln_mlp_tiles(x, *p),
+                            ln_mlp_plain(x, *p), *BOUNDS[torch.float32]))
+    stats["ln_mlp_tiles"]["max_abs_err"] = max(errs)
+
+    for n, c, k in WIDE_CLUSTER_CASES:
+        tokens = torch.randn(n, c, generator=gen).cuda()
+        centers = torch.rand(k, c, generator=gen).cuda()
+        name = f"cluster_assign ({n},{c})x({k},{c}) instance {cluster_assign_shape(c)}"
+        got = cluster_assign(tokens, centers, 16.0)
+        want = cluster_assign_plain(tokens, centers, 16.0)
+        check_close(f"{name} recon", got.recon, want.recon, 1e-5, CLUSTER_RTOL)
+        check_close(f"{name} loss", got.loss_sq_sum, want.loss_sq_sum, 0.0, CLUSTER_RTOL)
+        top2 = cdist(tokens, centers).topk(2, dim=-1, largest=False).values
+        decided = (top2[:, 1] - top2[:, 0]) > LABEL_GAP
+        agree = got.labels == want.labels
+        print(f"  {name} labels: {int(agree.sum())}/{agree.numel()} equal; "
+              f"{int(decided.sum())} with gap > {LABEL_GAP:g}, all equal there: "
+              f"{bool(agree[decided].all())}")
+        if not bool(agree[decided].all()):
+            raise AssertionError(f"{name}: labels differ where the argmin is decided")
+        same_bits(name, got, cluster_assign(tokens, centers, 16.0))
+        if c == 256:
+            allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = not allow_tf32
+            try:
+                same_bits(f"{name}, allow_tf32 flipped", got,
+                          cluster_assign(tokens, centers, 16.0))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+            ms, pms = time_pair(lambda: cluster_assign(tokens, centers, 16.0),
+                                lambda: cluster_assign_plain(tokens, centers, 16.0))
+            b = bound([tokens, centers, *got], 3 * 4.0 * n * k * c, "tf32")
+            print(f"    bound {b['bound_ms']:.5f} ms ({b['bound_by']}): "
+                  f"{b['bound_ms'] / ms:.2%} of it")
+    try:
+        cluster_assign(torch.randn(4, 769, device=DEV), torch.rand(8, 769, device=DEV), 16.0)
+    except ValueError as e:
+        print(f"  cluster_assign C=769 refused: {e}")
+    else:
+        raise AssertionError("cluster_assign: C=769 launched instead of being refused")
     return stats
 
 
@@ -1456,6 +1560,87 @@ def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 
           f"sides; worst err/(tol*max) {worst[1]:.3f} at {worst[0]} (tol {MODEL_GRAD_TOL:g})")
 
 
+WIDE_MODEL_TOL = {torch.float32: (1e-4, 2e-3), torch.bfloat16: (2e-2, 1e-1)}
+WIDE_MODEL_REQUIRED = {"ln_mlp_tiles", "ln_mlp_bwd_tiles", "cluster_assign"}
+
+
+def wide_config():
+    """The tiny preset fused at ``embed_dim`` 128, encoder heads (4, 8),
+    decoder heads (8, 4) (head width 32; C = 128 and 256, the feature head
+    256), as ``tests/test_torch_port_widths.py`` holds it against the JAX
+    package on the CPU, at its published 56^2."""
+    from vadcl_tpu_torch.core.config import preset
+
+    m = preset("tiny").model
+    return dataclasses.replace(
+        m, embed_dim=128, encoder_heads=(4, 8), decoder_heads=(8, 4), predict=True,
+        fused_attention=True, fused_cluster=True, attn_kernel="fold",
+        cluster=dataclasses.replace(m.cluster, space_size=56 // 8))
+
+
+def phase_wide_model(dtype=torch.bfloat16) -> dict:
+    """The ``embed_dim`` 128 model's forward, loss (recon . probe + cluster +
+    space losses) and every parameter gradient, card against CPU in
+    ``dtype``: the kernels at C = 256 (kernel B's CUDA-core body, kernel 5's,
+    kernel C's two-part instance) launch, and nothing on the path refuses
+    the width.  Bounds (recon atol = rtol, gradients per tensor against
+    max|CPU grad|): fp32 1e-4 / 2e-3 (phase 3's: summation order only); bf16
+    2e-2 / 1e-1 (both sides round at the same casts, but a different fp32
+    order flips single bf16 roundings, which four blocks, the decoder and the
+    backward carry).  Returns the launch counts (bf16: the kernels line's
+    count for ``ln_mlp_tiles``)."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.ops import KERNELS
+
+    name = str(dtype)[6:]
+    print(f"[3c] fused tiny model at embed_dim 128 (C = 128 and 256, head width 32), {name}: "
+          "forward, loss and gradients, card vs CPU")
+    rng = np.random.RandomState(21)
+    clip = torch.from_numpy(rng.rand(2, 4, 56, 56, 3).astype(np.float32))
+    probe = torch.from_numpy(rng.randn(2, 1, 56, 56, 3).astype(np.float32))
+    cpu_model = VADModel(wide_config(), dtype, torch.Generator().manual_seed(21))
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    atol, gtol = WIDE_MODEL_TOL[dtype]
+
+    def run(model, dev):
+        out = model(clip.to(dev))
+        loss = (out.recon.float() * probe.to(dev)).sum() + out.cluster_loss + out.space_loss
+        loss.backward()
+        return out, loss
+
+    want, wloss = run(cpu_model, "cpu")
+    reset_launches()
+    with plain_versions_refuse_the_card():
+        got, gloss = run(gpu_model, DEV)
+        torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    print(f"  kernel launches on this path: {launches}")
+    missing = sorted(k for k in WIDE_MODEL_REQUIRED if launches[k] == 0)
+    if missing:
+        raise AssertionError(f"wide model: kernels never launched {missing}")
+    if tuple(got.recon.shape) != (2, 1, 56, 56, 3) or not bool(torch.isfinite(got.recon).all()):
+        raise AssertionError("wide model recon has the wrong shape or is not finite")
+    check_close("wide model recon", got.recon.detach().cpu(), want.recon.detach(), atol, atol)
+    check_close("wide model loss", gloss.detach().cpu(), wloss.detach(), 0.0, atol)
+    cpu_params = dict(cpu_model.named_parameters())
+    worst, n = ("", 0.0), 0
+    for k, p in gpu_model.named_parameters():
+        w = cpu_params[k].grad
+        if (p.grad is None) != (w is None):
+            raise AssertionError(f"{k}: a gradient on one side only")
+        if w is None:
+            continue
+        n += 1
+        err = float((p.grad.float().cpu() - w.float()).abs().max())
+        ratio = err / (gtol * float(w.float().abs().max()) + 1e-12)
+        worst = max(worst, (k, ratio), key=lambda v: v[1])
+        if not ratio <= 1.0:
+            raise AssertionError(f"{k}: gradient max abs err {err} exceeds {gtol} * max|CPU grad|")
+    print(f"  {n} parameter gradients; worst err/(tol*max) {worst[1]:.3f} at {worst[0]} "
+          f"(tol {gtol:g})")
+    return launches
+
+
 class MemLoader:
     """In-memory uint8 clips with the HostDataLoader protocol; stamps the
     wall clock, after a device synchronize, at every batch request."""
@@ -1767,6 +1952,7 @@ REPLACES = {
                                         "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
     "window_attention_packed_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                      "vadcl_tpu/ops/pallas_attn.py:113"),
+    "ln_mlp_tiles": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
 }
 # The main path whose launch count the kernels line reports for each kernel.
 COUNTED_ON = {
@@ -1780,6 +1966,7 @@ COUNTED_ON = {
     "window_attention_fused_rows": "scoring fold, reconstruction",
     "window_attention_fused_bwd_rows": "training fold, reconstruction",
     "window_attention_packed_rows": "scoring packed, reconstruction",
+    "ln_mlp_tiles": "wide model",
 }
 
 
@@ -1788,6 +1975,7 @@ def main():
     phase_build()
     stats = phase_kernels()
     stats.update(phase_space_kernel())
+    stats.update(phase_width_kernels())
     stats.update(phase_bwd_kernels(TRAIN_BATCH))
     stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_model("fold", REDUCED_DEPTHS)
@@ -1804,7 +1992,9 @@ def main():
     phase_model_grads("fold_block")
     phase_model_grads("fold", REDUCED_DEPTHS, recon=RECON_FRAMES)
     phase_model_grads("fold", REDUCED_DEPTHS, image_size=240, recon=RECON_FRAMES)
-    counts = {f"scoring {k}": phase_scoring(k) for k in SCORING_KERNELS}
+    phase_wide_model(torch.float32)
+    counts = {"wide model": phase_wide_model(torch.bfloat16)}
+    counts.update({f"scoring {k}": phase_scoring(k) for k in SCORING_KERNELS})
     counts.update({f"training {k}": phase_training(k) for k in TRAINING_KERNELS})
     for k in ("packed", "fold_packed", "fold_mix"):
         phase_training_refused(k)

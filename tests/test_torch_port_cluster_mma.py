@@ -4,8 +4,9 @@ The CUDA body runs only on the card (``chip_smoke.py`` phase 2 holds it
 against its plain version).  What a CPU can check is its arithmetic:
 ``cluster_assign_tf32x3_emulation`` below does in torch what the body does,
 step by step: tf32 rounding by bit masking, the hi/lo split of both operands
-of both products, the channel padding, the 32-center chunks split between
-two warps with product 2's permuted k order, the online minimum / sum /
+of both products, the channel padding, the chunks of centers (32, or 16 in
+the instances above C = 384) split between two warps with product 2's
+permuted k order, the online minimum / sum /
 sum-of-squares / recon recurrence with its rescaling, and the merge of the
 two warps' states.  It is held to the bounds ``chip_smoke.py`` holds the
 kernel to, against the plain version and against the Pallas kernel in
@@ -19,12 +20,14 @@ import torch
 
 from vadcl_tpu.ops.pallas_cluster import fused_cluster_assign
 from vadcl_tpu_torch.ops.cluster import cdist
-from vadcl_tpu_torch.ops.cluster_kernels import FusedClusterOut, cluster_assign_plain
+from vadcl_tpu_torch.ops.cluster_kernels import (
+    FusedClusterOut,
+    cluster_assign_plain,
+    cluster_assign_shape,
+)
 
 T = torch.from_numpy
-CHUNK = 32  # csrc/cluster_mma.cu:kCaChunk
-HALF = CHUNK // 2  # the centers of a chunk one of a row tile's two warps takes
-CHANNEL_TILES = (2, 4, 8, 12, 16, 24)  # csrc/cluster_mma.cu:ca_tiles
+KP_ALIGN = 32  # csrc/cluster_mma.cu:kCaKpAlign, centers padded to a multiple of it
 CLUSTER_RTOL = 1e-4  # chip_smoke.py: recon and loss
 RECON_ATOL = 1e-5  # chip_smoke.py: recon
 LABEL_GAP = 1e-3  # chip_smoke.py: labels must agree where the top-2 gap exceeds it
@@ -53,20 +56,22 @@ def split_product(a, b, passes: int) -> torch.Tensor:
     return terms.sum(-1)
 
 
-def _online_state(x, xsq, cen, csq, k, alpha, passes, starts):
-    """One warp's online soft-assign over the centers at ``starts`` + 0..15 of
-    every chunk: (m, arg, s, Q, recon accumulator) per row."""
+def _online_state(x, xsq, cen, csq, k, alpha, passes, starts, half):
+    """One warp's online soft-assign over the centers at ``starts`` + 0 ..
+    ``half`` - 1 of every chunk: (m, arg, s, Q, recon accumulator) per row.
+    (The channel parts of a wide instance each run this same state and split
+    only the recon's columns, so they change no value.)"""
     n, cp = x.shape
     m = torch.full((n,), float("inf"))
     arg = torch.zeros(n, dtype=torch.int32)
     s = torch.zeros(n)
     q = torch.zeros(n)
     acc = torch.zeros(n, cp)
-    perm = torch.cat([8 * j + K_PERM for j in range(HALF // 8)])
+    perm = torch.cat([8 * j + K_PERM for j in range(half // 8)])
     for k0 in starts:
-        rows = cen[k0:k0 + HALF]
-        valid = torch.arange(k0, k0 + HALF) < k
-        d2 = (xsq[:, None] + csq[None, k0:k0 + HALF]) - 2.0 * split_product(x, rows, passes)
+        rows = cen[k0:k0 + half]
+        valid = torch.arange(k0, k0 + half) < k
+        d2 = (xsq[:, None] + csq[None, k0:k0 + half]) - 2.0 * split_product(x, rows, passes)
         d = torch.where(valid, torch.sqrt(d2.clamp_min(0.0)), torch.tensor(float("inf")))
         cmin, cidx = d.min(-1)  # torch.min: the first index of the minimum
         better = cmin < m  # strictly smaller: an earlier chunk keeps a tie
@@ -85,22 +90,25 @@ def _online_state(x, xsq, cen, csq, k, alpha, passes, starts):
 def cluster_assign_tf32x3_emulation(tokens, centers, alpha: float, passes: int = 3):
     """Kernel C's body on the CPU: tokens (N, C), centers (K, C) fp32 ->
     recon, labels, loss_sq_sum.  Two warps share each row tile, one taking
-    centers 0-15 of every 32-center chunk, the other 16-31; the second's
+    the first half of every chunk of centers (32 centers, or 16 in the
+    instance of ``cluster_assign_shape``), the other the second; the second's
     state merges into the first's at the end.  ``passes=1`` keeps only
     hi.hi (one TF32 rounding of each operand)."""
     n, c = tokens.shape
     k = centers.shape[0]
-    cp = 8 * next(nt for nt in CHANNEL_TILES if c <= 8 * nt)
-    kp = -(-k // CHUNK) * CHUNK
+    tiles, _, chunk, _ = cluster_assign_shape(c)
+    cp, half = 8 * tiles, chunk // 2
+    kp = -(-k // KP_ALIGN) * KP_ALIGN
     x = torch.zeros(n, cp)
     x[:, :c] = tokens
     cen = torch.zeros(kp, cp)
     cen[:k, :c] = centers
     xsq = (x * x).sum(-1)
     csq = (cen * cen).sum(-1)
-    m0, a0, s0, q0, r0 = _online_state(x, xsq, cen, csq, k, alpha, passes, range(0, kp, CHUNK))
+    m0, a0, s0, q0, r0 = _online_state(x, xsq, cen, csq, k, alpha, passes,
+                                       range(0, kp, chunk), half)
     m1, a1, s1, q1, r1 = _online_state(x, xsq, cen, csq, k, alpha, passes,
-                                       range(HALF, kp, CHUNK))
+                                       range(half, kp, chunk), half)
     labels = torch.where((m1 < m0) | ((m1 == m0) & (a1 < a0)), a1, a0)
     mm = torch.minimum(m0, m1)
     f0 = torch.where(torch.isinf(m0), torch.zeros(()), torch.exp(-alpha * (m0 - mm)))

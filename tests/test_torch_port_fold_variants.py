@@ -322,9 +322,9 @@ def test_twelve_kernels_count_their_launches_and_cpu_calls_do_not():
     """The twelve kernels of PRs 1-5 and, since the row-tiled bodies of 7, 8
     and 9 count their own launches, three more counters, and two for the
     CUDA-core and shared-memory bodies of 5 and 6 beside their tensor-core
-    bodies: seventeen."""
+    bodies, and one for kernel B's CUDA-core body: eighteen."""
     names = [k.__name__ for k in KERNELS]
-    assert len(names) == len(set(names)) == 17
+    assert len(names) == len(set(names)) == 18
     assert {"fold_attention_packed", "fold_block", "fold_block_bwd"} <= set(names)
     before = [k.launches for k in KERNELS]
     a = _case(seed=12)

@@ -55,6 +55,17 @@
 //    the A loads hit 32 distinct banks.
 //  - Padded centers (k >= K) get e = 0 and never win the argmin; padded tokens
 //    write nothing and add nothing to the partial.
+//  - Widths above 192 (kCaShapes): the recon accumulator (4 NT floats a lane)
+//    and the ring (two stages of 2 x 32 rows of Cp + 4 words) outgrow the
+//    registers and the 227 KB.  So an instance may split the recon's channel
+//    tiles over P warps of a row tile (each of the P runs the same product 1
+//    and softmax state, bit for bit, and product 2 for NT / P channel tiles;
+//    the block then holds 4 / P row tiles), take 16-center chunks (each warp
+//    8 of them), and run its ring with one stage.  Every instance keeps the
+//    first-occurrence argmin, the 3xTF32 products and the loss partials'
+//    fixed order; the instances of C <= 192 are the ones before (P = 1,
+//    32-center chunks, two stages), so their bits are unchanged.  C above 768
+//    would need a split of the channels across blocks and is refused.
 #include <stdint.h>
 
 #include <type_traits>
@@ -64,34 +75,47 @@
 
 namespace vadcl {
 
-constexpr int kCaTiles = 4;                       // 16-token row tiles per block
-constexpr int kCaThreads = 2 * kCaTiles * kWarp;  // two warps per tile
-constexpr int kCaTokens = 16 * kCaTiles;          // tokens per block
-constexpr int kCaChunk = 32;                      // centers per ring stage
-constexpr int kCaPrepThreads = 256;               // pre-pass: one warp per center
+constexpr int kCaThreads = 256;      // eight warps: row tiles x channel parts x two halves
+constexpr int kCaMaxTokens = 64;     // tokens of a block with four row tiles
+constexpr int kCaKpAlign = 32;       // centers are padded to a multiple of this
+constexpr int kCaPrepThreads = 256;  // pre-pass: one warp per center
 
-// Channel tiles of 8 a width is padded to: the smallest instantiated count
-// that holds C (C <= 192), else 0.
-inline int ca_tiles(int C) {
-  const int tiles[] = {2, 4, 8, 12, 16, 24};
-  for (int nt : tiles)
-    if (C <= 8 * nt) return nt;
-  return 0;
+// One instance of the main kernel: NT channel tiles of 8 (C <= 8 NT), P
+// channel parts (warps of a row tile splitting product 2's output channels;
+// 4 / P row tiles a block), CH centers per ring stage (each of the two warps
+// of a (row tile, part) takes CH / 2) and the ring's stages.
+struct CaShape {
+  int nt, parts, chunk, stages;
+};
+constexpr CaShape kCaShapes[] = {{2, 1, 32, 2},  {4, 1, 32, 2},  {8, 1, 32, 2},
+                                 {12, 1, 32, 2}, {16, 1, 32, 2}, {24, 1, 32, 2},
+                                 {32, 2, 32, 2}, {48, 2, 16, 2}, {64, 4, 16, 2},
+                                 {96, 4, 16, 1}};
+constexpr int kCaShapeCount = sizeof(kCaShapes) / sizeof(kCaShapes[0]);
+
+// The instance a width takes: the first whose channel tiles hold C, else -1
+// (C above 768).
+inline int ca_shape(int C) {
+  for (int i = 0; i < kCaShapeCount; ++i)
+    if (C <= 8 * kCaShapes[i].nt) return i;
+  return -1;
 }
 
+__host__ __device__ constexpr int ca_tokens(int parts) { return 16 * (4 / parts); }
 __host__ __device__ inline int ca_kp(int K) {
-  return (K + kCaChunk - 1) / kCaChunk * kCaChunk;
+  return (K + kCaKpAlign - 1) / kCaKpAlign * kCaKpAlign;
 }
-inline int ca_blocks(int N) { return (N + kCaTokens - 1) / kCaTokens; }
+inline int ca_blocks(int N, int parts) { return (N + ca_tokens(parts) - 1) / ca_tokens(parts); }
 
-// Shared memory of the main kernel: the split token tile, then two ring
+// Shared memory of the main kernel: the split token tile, then the ring's
 // stages of (hi chunk, lo chunk, |c|^2), in 32-bit words.
 __host__ __device__ constexpr int ca_stride(int nt) { return 8 * nt + 4; }
-__host__ __device__ constexpr int ca_stage_words(int nt) {
-  return 2 * kCaChunk * ca_stride(nt) + kCaChunk;
+__host__ __device__ constexpr int ca_stage_words(int nt, int chunk) {
+  return 2 * chunk * ca_stride(nt) + chunk;
 }
-constexpr size_t ca_smem_bytes(int nt) {
-  return sizeof(uint32_t) * (2 * kCaTokens * ca_stride(nt) + 2 * ca_stage_words(nt));
+constexpr size_t ca_smem_bytes(int nt, int parts, int chunk, int stages) {
+  return sizeof(uint32_t) *
+         (2 * ca_tokens(parts) * ca_stride(nt) + stages * ca_stage_words(nt, chunk));
 }
 
 // |c|^2 and the tf32 split of every center, zero-padded to Kp rows of
@@ -118,38 +142,46 @@ __global__ void __launch_bounds__(kCaPrepThreads)
 }
 
 // NT = Cp / 8 channel tiles (a compile-time count: the recon accumulator,
-// 4 NT floats a lane, lives in registers).
-template <int NT>
+// 4 NT / P floats a lane, lives in registers); the other parameters as
+// CaShape's.
+template <int NT, int P, int CH, int STAGES>
 __global__ void __launch_bounds__(kCaThreads, 1)
     cluster_assign_mma_kernel(const float* __restrict__ x, const float* __restrict__ csq_g,
                               const uint32_t* __restrict__ hi_g,
                               const uint32_t* __restrict__ lo_g, float* __restrict__ recon,
                               int32_t* __restrict__ labels, float* __restrict__ partials,
                               int N, int C, int K, float alpha) {
-  constexpr int Cp = 8 * NT, S = ca_stride(NT), kStage = ca_stage_words(NT);
-  constexpr uint32_t kPartBytes = 4 * kCaChunk * S;  // a chunk's hi (or lo) rows
-  constexpr int kHalf = kCaChunk / 2;  // the centers of a chunk one warp takes
-  constexpr int kXch = 4 * NT + 8;     // floats a lane hands over at the end
+  constexpr int Cp = 8 * NT, S = ca_stride(NT), kStage = ca_stage_words(NT, CH);
+  constexpr int kTiles = 4 / P, kTokens = ca_tokens(P);
+  constexpr int NTL = NT / P;           // the recon channel tiles of one warp
+  constexpr uint32_t kPartBytes = 4 * CH * S;  // a chunk's hi (or lo) rows
+  constexpr int kHalf = CH / 2;         // the centers of a chunk one warp takes
+  constexpr int kJ = kHalf / 8;         // their 8-center tiles
+  constexpr int kXch = 4 * NTL + 8;     // floats a lane hands over at the end
+  static_assert(NT % P == 0 && kHalf % 8 == 0 && (STAGES == 1 || STAGES == 2), "shape");
+  static_assert(kTiles * P * kXch * kWarp <= STAGES * kStage, "the hand-over fits the ring");
   extern __shared__ __align__(16) uint32_t smem[];
-  __shared__ float xsq_s[kCaTokens];
-  __shared__ float tile_loss[kCaTiles];
-  uint32_t* xh = smem;                  // kCaTokens x S, tf32 hi of the tokens
-  uint32_t* xl = xh + kCaTokens * S;    // and their lo
-  uint32_t* ring = xl + kCaTokens * S;  // 2 x kStage
+  __shared__ float xsq_s[kCaMaxTokens];
+  __shared__ float tile_loss[4];
+  uint32_t* xh = smem;                 // kTokens x S, tf32 hi of the tokens
+  uint32_t* xl = xh + kTokens * S;     // and their lo
+  uint32_t* ring = xl + kTokens * S;   // STAGES x kStage
 
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int g = lane >> 2, t = lane & 3;
-  const int tile = warp % kCaTiles, half = warp / kCaTiles;
-  const int row0 = blockIdx.x * kCaTokens + tile * 16;  // this warp's first token
-  const int nchunks = ca_kp(K) / kCaChunk;
+  const int tile = warp % kTiles, part = (warp / kTiles) % P, half = warp / (kTiles * P);
+  const int n0 = part * NTL;  // this warp's first recon channel tile
+  const int row0 = blockIdx.x * kTokens + tile * 16;  // this warp's first token
+  const int nchunks = ca_kp(K) / CH;
 
   // The ring: stage s is full when its copies have landed (full[s], one
   // arrival plus the bytes) and empty when all warps have read it (empty[s]).
   // Thread 0 refills a stage once it is empty: three bulk copies, since the
-  // pre-pass laid the centers out in the ring's own rows.
-  __shared__ uint64_t full[2], empty[2];
+  // pre-pass laid the centers out in the ring's own rows.  With one stage the
+  // next chunk is issued once every warp has released this one.
+  __shared__ uint64_t full[STAGES], empty[STAGES];
   if (tid == 0) {
-    for (int st = 0; st < 2; ++st) {
+    for (int st = 0; st < STAGES; ++st) {
       mbar_init(full + st, 1);
       mbar_init(empty + st, kCaThreads / kWarp);
     }
@@ -157,30 +189,30 @@ __global__ void __launch_bounds__(kCaThreads, 1)
   }
   __syncthreads();
   auto issue = [&](int chunk) {
-    const int st = chunk & 1, use = chunk >> 1;
+    const int st = chunk % STAGES, use = chunk / STAGES;
     if (use > 0) mbar_wait(empty + st, (use - 1) & 1);
     uint32_t* dst = ring + st * kStage;
-    const size_t k0 = (size_t)chunk * kCaChunk;
-    mbar_expect_tx(full + st, 2 * kPartBytes + 4 * kCaChunk);
+    const size_t k0 = (size_t)chunk * CH;
+    mbar_expect_tx(full + st, 2 * kPartBytes + 4 * CH);
     bulk_copy_g2s(dst, hi_g + k0 * S, kPartBytes, full + st);
-    bulk_copy_g2s(dst + kCaChunk * S, lo_g + k0 * S, kPartBytes, full + st);
-    bulk_copy_g2s(dst + 2 * kCaChunk * S, csq_g + k0, 4 * kCaChunk, full + st);
+    bulk_copy_g2s(dst + CH * S, lo_g + k0 * S, kPartBytes, full + st);
+    bulk_copy_g2s(dst + 2 * CH * S, csq_g + k0, 4 * CH, full + st);
   };
-  if (tid == 0) issue(0);
+  if (tid == 0 && STAGES == 2) issue(0);
 
-  // The block's tokens go raw into xh (every thread, many loads in flight);
+// The block's tokens go raw into xh (every thread, many loads in flight);
   // then the first warp of each tile splits its rows, each quad rows g and
   // g + 8 (channels t mod 4), and sums their squares; a barrier publishes the
   // split tile and |x|^2 to both warps of the tile.
-  const int t0 = blockIdx.x * kCaTokens;
+  const int t0 = blockIdx.x * kTokens;
 #pragma unroll 8
-  for (int i = tid; i < kCaTokens * Cp; i += kCaThreads) {
+  for (int i = tid; i < kTokens * Cp; i += kCaThreads) {
     const int r = i / Cp, c = i % Cp;
     const float v = (t0 + r < N && c < C) ? x[(size_t)(t0 + r) * C + c] : 0.f;
     xh[r * S + c] = __float_as_uint(v);
   }
   __syncthreads();
-  if (half == 0) {
+  if (warp < kTiles) {  // (half 0, part 0)
     uint32_t* wxh = xh + tile * 16 * S;
     uint32_t* wxl = xl + tile * 16 * S;
 #pragma unroll
@@ -209,53 +241,53 @@ __global__ void __launch_bounds__(kCaThreads, 1)
   float m[2] = {INFINITY, INFINITY}, s_part[2] = {0.f, 0.f}, q_part[2] = {0.f, 0.f};
   int arg[2] = {0, 0};
   const float xsq[2] = {xsq_s[tile * 16 + g], xsq_s[tile * 16 + g + 8]};
-  float acc[NT][4];
+  float acc[NTL][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < NTL; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int ci = 0; ci < nchunks; ++ci) {
-    if (tid == 0 && ci + 1 < nchunks) issue(ci + 1);
-    mbar_wait(full + (ci & 1), (ci >> 1) & 1);
-    const uint32_t* stage = ring + (ci & 1) * kStage;
-    const uint32_t* ch = stage + half * kHalf * S;  // this warp's 16 center rows
-    const uint32_t* cl = ch + kCaChunk * S;
-    const float* cs = reinterpret_cast<const float*>(stage + 2 * kCaChunk * S) + half * kHalf;
-    const int k0 = ci * kCaChunk + half * kHalf;
+    if (tid == 0 && ci + STAGES - 1 < nchunks) issue(ci + STAGES - 1);
+    mbar_wait(full + ci % STAGES, (ci / STAGES) & 1);
+    const uint32_t* stage = ring + (ci % STAGES) * kStage;
+    const uint32_t* ch = stage + half * kHalf * S;  // this warp's kHalf center rows
+    const uint32_t* cl = ch + CH * S;
+    const float* cs = reinterpret_cast<const float*>(stage + 2 * CH * S) + half * kHalf;
+    const int k0 = ci * CH + half * kHalf;
 
-    // product 1: cross (16 x 16) over the channels; four accumulator sets by
-    // k step keep eight independent chains in flight
-    float cr[4][2][4];
+    // product 1: cross (16 x kHalf) over the channels; four accumulator sets
+    // by k step keep independent chains in flight
+    float cr[4][kJ][4];
 #pragma unroll
     for (int p = 0; p < 4; ++p)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) cr[p][j][0] = cr[p][j][1] = cr[p][j][2] = cr[p][j][3] = 0.f;
+      for (int j = 0; j < kJ; ++j) cr[p][j][0] = cr[p][j][1] = cr[p][j][2] = cr[p][j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
       const uint32_t ah[4] = {ah_row[8 * kk], ah_row[8 * S + 8 * kk], ah_row[8 * kk + 4],
                               ah_row[8 * S + 8 * kk + 4]};
       const uint32_t al[4] = {al_row[8 * kk], al_row[8 * S + 8 * kk], al_row[8 * kk + 4],
                               al_row[8 * S + 8 * kk + 4]};
-      uint32_t bh[2][2], bl[2][2];
+      uint32_t bh[kJ][2], bl[kJ][2];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         const int off = (8 * j + g) * S + 8 * kk + t;
         bh[j][0] = ch[off], bh[j][1] = ch[off + 4];
         bl[j][0] = cl[off], bl[j][1] = cl[off + 4];
       }
       // pass by pass, so that neighbouring mma do not depend on each other
 #pragma unroll
-      for (int j = 0; j < 2; ++j) mma_tf32(cr[kk & 3][j], ah, bl[j][0], bl[j][1]);
+      for (int j = 0; j < kJ; ++j) mma_tf32(cr[kk & 3][j], ah, bl[j][0], bl[j][1]);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) mma_tf32(cr[kk & 3][j], al, bh[j][0], bh[j][1]);
+      for (int j = 0; j < kJ; ++j) mma_tf32(cr[kk & 3][j], al, bh[j][0], bh[j][1]);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) mma_tf32(cr[kk & 3][j], ah, bh[j][0], bh[j][1]);
+      for (int j = 0; j < kJ; ++j) mma_tf32(cr[kk & 3][j], ah, bh[j][0], bh[j][1]);
     }
 
     // distances; this chunk's first-occurrence minimum of each row
-    float d[2][4], cmin[2] = {INFINITY, INFINITY};
+    float d[kJ][4], cmin[2] = {INFINITY, INFINITY};
     int cidx[2] = {0x7fffffff, 0x7fffffff};
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kc = 8 * j + 2 * t + (e & 1), h = e >> 1;
@@ -285,14 +317,14 @@ __global__ void __launch_bounds__(kCaThreads, 1)
     }
     if (__any_sync(0xffffffffu, f[0] != 1.f || f[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < NTL; ++n) {
         acc[n][0] *= f[0], acc[n][1] *= f[0];
         acc[n][2] *= f[1], acc[n][3] *= f[1];
       }
     }
-    float ev[2][4];
+    float ev[kJ][4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
@@ -306,19 +338,20 @@ __global__ void __launch_bounds__(kCaThreads, 1)
         ev[j][e] = v;
       }
 
-    // product 2: recon += e . chunk, one 8-center k step per tile of product 1,
-    // A column t <-> center 2t, column t + 4 <-> center 2t + 1
+    // product 2: recon += e . chunk over this warp's channel tiles, one
+    // 8-center k step per tile of product 1, A column t <-> center 2t,
+    // column t + 4 <-> center 2t + 1
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < kJ; ++kk) {
       uint32_t ah[4], al[4];
       split_tf32(ev[kk][0], ah[0], al[0]);  // row g,     center 2t
       split_tf32(ev[kk][2], ah[1], al[1]);  // row g + 8, center 2t
       split_tf32(ev[kk][1], ah[2], al[2]);  // row g,     center 2t + 1
       split_tf32(ev[kk][3], ah[3], al[3]);  // row g + 8, center 2t + 1
-      const uint32_t* bh = ch + (8 * kk + 2 * t) * S + g;
-      const uint32_t* bl = cl + (8 * kk + 2 * t) * S + g;
+      const uint32_t* bh = ch + (8 * kk + 2 * t) * S + 8 * n0 + g;
+      const uint32_t* bl = cl + (8 * kk + 2 * t) * S + 8 * n0 + g;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < NTL; ++n) {
         const uint32_t h0 = bh[8 * n], h1 = bh[S + 8 * n];
         const uint32_t l0 = bl[8 * n], l1 = bl[S + 8 * n];
         mma_tf32(acc[n], ah, l0, l1);
@@ -327,7 +360,7 @@ __global__ void __launch_bounds__(kCaThreads, 1)
       }
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + (ci & 1));
+    if (lane == 0) mbar_arrive(empty + ci % STAGES);
   }
 
 #pragma unroll
@@ -338,21 +371,22 @@ __global__ void __launch_bounds__(kCaThreads, 1)
     q_part[h] += __shfl_xor_sync(0xffffffffu, q_part[h], 2);
   }
   __syncthreads();  // every chunk read: the ring is free
-  // The second warp of each tile hands its state to the first through the
-  // ring, lane to lane; the first merges the two (a split-K
-  // softmax: both rescale to the smaller minimum, a tie to the lower index).
-  float* xch = reinterpret_cast<float*>(ring) + tile * kXch * kWarp + lane;
+  // The second warp of each (tile, part) hands its state to the first through
+  // the ring, lane to lane; the first merges the two (a split-K softmax: both
+  // rescale to the smaller minimum, a tie to the lower index).  The P parts
+  // of a tile hold the same state; part 0 writes the labels and the loss.
+  float* xch = reinterpret_cast<float*>(ring) + (tile * P + part) * kXch * kWarp + lane;
   if (half == 1) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NTL; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) xch[(4 * n + e) * kWarp] = acc[n][e];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      xch[(4 * NT + h) * kWarp] = m[h];
-      xch[(4 * NT + 2 + h) * kWarp] = __int_as_float(arg[h]);
-      xch[(4 * NT + 4 + h) * kWarp] = s_part[h];
-      xch[(4 * NT + 6 + h) * kWarp] = q_part[h];
+      xch[(4 * NTL + h) * kWarp] = m[h];
+      xch[(4 * NTL + 2 + h) * kWarp] = __int_as_float(arg[h]);
+      xch[(4 * NTL + 4 + h) * kWarp] = s_part[h];
+      xch[(4 * NTL + 6 + h) * kWarp] = q_part[h];
     }
   }
   __syncthreads();
@@ -360,53 +394,57 @@ __global__ void __launch_bounds__(kCaThreads, 1)
     float row_loss = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float m1 = xch[(4 * NT + h) * kWarp];
-      const int a1 = __float_as_int(xch[(4 * NT + 2 + h) * kWarp]);
+      const float m1 = xch[(4 * NTL + h) * kWarp];
+      const int a1 = __float_as_int(xch[(4 * NTL + 2 + h) * kWarp]);
       if (m1 < m[h] || (m1 == m[h] && a1 < arg[h])) arg[h] = a1;
       const float mm = fminf(m[h], m1);
       const float f0 = m[h] == INFINITY ? 0.f : expf(-alpha * (m[h] - mm));
       const float f1 = m1 == INFINITY ? 0.f : expf(-alpha * (m1 - mm));
-      const float s = s_part[h] * f0 + xch[(4 * NT + 4 + h) * kWarp] * f1;
-      const float q = q_part[h] * (f0 * f0) + xch[(4 * NT + 6 + h) * kWarp] * (f1 * f1);
+      const float s = s_part[h] * f0 + xch[(4 * NTL + 4 + h) * kWarp] * f1;
+      const float q = q_part[h] * (f0 * f0) + xch[(4 * NTL + 6 + h) * kWarp] * (f1 * f1);
       const int tok = row0 + g + 8 * h;
       if (tok < N) {
         float* out = recon + (size_t)tok * C;
         const float inv = 1.f / s;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const int c = 8 * n + 2 * t;
+        for (int n = 0; n < NTL; ++n) {
+          const int c = 8 * (n0 + n) + 2 * t;
           const float r0 = acc[n][2 * h] * f0 + xch[(4 * n + 2 * h) * kWarp] * f1;
           const float r1 = acc[n][2 * h + 1] * f0 + xch[(4 * n + 2 * h + 1) * kWarp] * f1;
           if (c < C) out[c] = r0 * inv;
           if (c + 1 < C) out[c + 1] = r1 * inv;
         }
-        if (t == 0) {
+        if (t == 0 && part == 0) {
           labels[tok] = arg[h];
           row_loss += q / (s * s);
         }
       }
     }
     row_loss = warp_sum(row_loss);
-    if (lane == 0) tile_loss[tile] = row_loss;
+    if (lane == 0 && part == 0) tile_loss[tile] = row_loss;
   }
   __syncthreads();
   if (tid == 0) {
     float sum = 0.f;
-    for (int w = 0; w < kCaTiles; ++w) sum += tile_loss[w];
+    for (int w = 0; w < kTiles; ++w) sum += tile_loss[w];
     partials[blockIdx.x] = sum;
   }
 }
 
-template <int NT>
+template <int I>
 cudaError_t launch_cluster_assign(const float* x, const float* csq, const uint32_t* hi,
                                   const uint32_t* lo, float* recon, int32_t* labels,
                                   float* partials, int N, int C, int K, float alpha,
                                   cudaStream_t s) {
-  const size_t smem = ca_smem_bytes(NT);
-  cudaError_t err = allow_smem(cluster_assign_mma_kernel<NT>, smem);
+  constexpr CaShape sh = kCaShapes[I];
+  constexpr size_t smem = ca_smem_bytes(sh.nt, sh.parts, sh.chunk, sh.stages);
+  static_assert(smem + 4 * (kCaMaxTokens + 4) + 2 * 8 * sh.stages <= (size_t)kMaxSmemBytes,
+                "the block fits 227 KB");
+  const auto kernel = cluster_assign_mma_kernel<sh.nt, sh.parts, sh.chunk, sh.stages>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  cluster_assign_mma_kernel<NT><<<ca_blocks(N), kCaThreads, smem, s>>>(
-      x, csq, hi, lo, recon, labels, partials, N, C, K, alpha);
+  kernel<<<ca_blocks(N, sh.parts), kCaThreads, smem, s>>>(x, csq, hi, lo, recon, labels,
+                                                          partials, N, C, K, alpha);
   return cudaGetLastError();
 }
 
@@ -415,13 +453,24 @@ cudaError_t launch_cluster_assign(const float* x, const float* csq, const uint32
 extern "C" {
 
 // Scratch floats the wrapper allocates: |c|^2 (Kp), the centers' hi and lo
-// parts (Kp x Cp each) and one loss partial per block; -1 if C is too wide.
+// parts (Kp x Cp each) and one loss partial per block; -1 if C is too wide
+// (above 768).
 long long vadcl_cluster_assign_scratch(int N, int C, int K) {
   using namespace vadcl;
-  const int nt = ca_tiles(C);
-  if (nt == 0 || N <= 0 || K <= 0 || C <= 0) return -1;
+  const int i = ca_shape(C);
+  if (i < 0 || N <= 0 || K <= 0 || C <= 0) return -1;
   const long long kp = ca_kp(K);
-  return kp + 2 * kp * ca_stride(nt) + ca_blocks(N);
+  return kp + 2 * kp * ca_stride(kCaShapes[i].nt) + ca_blocks(N, kCaShapes[i].parts);
+}
+
+// The instance a width takes, as nt | parts << 8 | chunk << 12 | stages << 20
+// (0 above 768): what ops/cluster_kernels.py:cluster_assign_shape mirrors.
+int vadcl_cluster_assign_shape(int C) {
+  using namespace vadcl;
+  const int i = C > 0 ? ca_shape(C) : -1;
+  if (i < 0) return 0;
+  const CaShape& sh = kCaShapes[i];
+  return sh.nt | sh.parts << 8 | sh.chunk << 12 | sh.stages << 20;
 }
 
 int vadcl_cluster_assign(const float* x, const float* centers, float* recon,
@@ -429,9 +478,9 @@ int vadcl_cluster_assign(const float* x, const float* centers, float* recon,
                          int C, int K, float alpha, void* stream) {
   using namespace vadcl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = ca_tiles(C);
-  if (nt == 0 || N <= 0 || K <= 0 || C <= 0) return cudaErrorInvalidValue;
-  const int kp = ca_kp(K), stride = ca_stride(nt);
+  const int i = ca_shape(C);
+  if (i < 0 || N <= 0 || K <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const int kp = ca_kp(K), stride = ca_stride(kCaShapes[i].nt);
   float* csq = scratch;
   uint32_t* hi = reinterpret_cast<uint32_t*>(scratch + kp);
   uint32_t* lo = hi + (size_t)kp * stride;
@@ -441,20 +490,24 @@ int vadcl_cluster_assign(const float* x, const float* centers, float* recon,
       centers, K, C, kp, stride, csq, hi, lo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const auto launch = [&](auto tiles) {
-    return launch_cluster_assign<decltype(tiles)::value>(x, csq, hi, lo, recon, labels,
-                                                         partials, N, C, K, alpha, s);
+  const auto launch = [&](auto inst) {
+    return launch_cluster_assign<decltype(inst)::value>(x, csq, hi, lo, recon, labels,
+                                                        partials, N, C, K, alpha, s);
   };
-  switch (nt) {
+  switch (i) {
+    case 0: err = launch(std::integral_constant<int, 0>()); break;
+    case 1: err = launch(std::integral_constant<int, 1>()); break;
     case 2: err = launch(std::integral_constant<int, 2>()); break;
+    case 3: err = launch(std::integral_constant<int, 3>()); break;
     case 4: err = launch(std::integral_constant<int, 4>()); break;
+    case 5: err = launch(std::integral_constant<int, 5>()); break;
+    case 6: err = launch(std::integral_constant<int, 6>()); break;
+    case 7: err = launch(std::integral_constant<int, 7>()); break;
     case 8: err = launch(std::integral_constant<int, 8>()); break;
-    case 12: err = launch(std::integral_constant<int, 12>()); break;
-    case 16: err = launch(std::integral_constant<int, 16>()); break;
-    default: err = launch(std::integral_constant<int, 24>()); break;
+    default: err = launch(std::integral_constant<int, 9>()); break;
   }
   if (err != cudaSuccess) return err;
-  return launch_sum_partials(partials, ca_blocks(N), loss, s);
+  return launch_sum_partials(partials, ca_blocks(N, kCaShapes[i].parts), loss, s);
 }
 
 }  // extern "C"

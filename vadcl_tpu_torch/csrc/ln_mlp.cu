@@ -80,12 +80,12 @@ inline size_t mlp_smem_bytes(int c) {
   return sizeof(float) * (2 * (size_t)kTokens * c + (size_t)kTokens * kMlpChunk);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMlpThreads)
-    ln_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ln_s,
-                  const float* __restrict__ ln_b, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ b2, float* __restrict__ y, int ntok, int C,
-                  int Ch) {
+    ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
+                  const float* __restrict__ ln_b, const T* __restrict__ w1,
+                  const float* __restrict__ b1, const T* __restrict__ w2,
+                  const float* __restrict__ b2, T* __restrict__ y, int ntok, int C, int Ch) {
   extern __shared__ __align__(16) float smem[];
   float* z = smem;                  // kTokens*C   LN output
   float* acc = z + kTokens * C;     // kTokens*C   fc2 accumulator
@@ -97,33 +97,43 @@ __global__ void __launch_bounds__(kMlpThreads)
   const int warp = tid / kWarp, lane = tid % kWarp, nwarps = nthr / kWarp;
 
   for (int t = warp; t < nt; t += nwarps) {
-    const float* xt = x + (size_t)(t0 + t) * C;
+    const T* xt = x + (size_t)(t0 + t) * C;
     float mu, rstd;
     warp_ln_stats(xt, C, &mu, &rstd);
     for (int c = lane; c < C; c += kWarp)
-      z[t * C + c] = (xt[c] - mu) * rstd * ln_s[c] + ln_b[c];
+      z[t * C + c] = round_to<T>((to_f(xt[c]) - mu) * rstd * ln_s[c] + ln_b[c]);
   }
   mlp_chunks_f32(z, acc, g, w1, b1, w2, nt, C, Ch);
 
   for (int idx = tid; idx < nt * C; idx += nthr) {
     const int t = idx / C, c = idx % C;
     const size_t off = (size_t)(t0 + t) * C + c;
-    y[off] = x[off] + (acc[idx] + b2[c]);
+    y[off] = from_f<T>(to_f(x[off]) + (acc[idx] + b2[c]));
   }
 }
 
+// The CUDA-core body in either dtype (is_bf16: __nv_bfloat16 x, weights and
+// y; weights as they are, not packed).
 cudaError_t launch_ln_mlp(const void* x, const float* ln_s, const float* ln_b,
                           const void* w1, const float* b1, const void* w2,
-                          const float* b2, void* y, int ntok, int C, int Ch,
+                          const float* b2, void* y, int ntok, int C, int Ch, int is_bf16,
                           cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
   const size_t smem = mlp_smem_bytes(C);
   if (smem > (size_t)kMaxSmemBytes || ntok <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(ln_mlp_kernel, smem);
-  if (err != cudaSuccess) return err;
   const int blocks = (ntok + kTokens - 1) / kTokens;
-  ln_mlp_kernel<<<blocks, kMlpThreads, smem, stream>>>(
-      static_cast<const float*>(x), ln_s, ln_b, static_cast<const float*>(w1), b1,
-      static_cast<const float*>(w2), b2, static_cast<float*>(y), ntok, C, Ch);
+  cudaError_t err;
+  if (is_bf16) {
+    if ((err = allow_smem(ln_mlp_kernel<bf16>, smem)) != cudaSuccess) return err;
+    ln_mlp_kernel<bf16><<<blocks, kMlpThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), ln_s, ln_b, static_cast<const bf16*>(w1), b1,
+        static_cast<const bf16*>(w2), b2, static_cast<bf16*>(y), ntok, C, Ch);
+  } else {
+    if ((err = allow_smem(ln_mlp_kernel<float>, smem)) != cudaSuccess) return err;
+    ln_mlp_kernel<float><<<blocks, kMlpThreads, smem, stream>>>(
+        static_cast<const float*>(x), ln_s, ln_b, static_cast<const float*>(w1), b1,
+        static_cast<const float*>(w2), b2, static_cast<float*>(y), ntok, C, Ch);
+  }
   return cudaGetLastError();
 }
 
@@ -387,13 +397,19 @@ cudaError_t launch_ln_mlp_mma(const void* x, const float* ln_s, const float* ln_
 
 }  // namespace vadcl
 
-// fp32: w1 (C, Ch) and w2 (Ch, C) as they are.
+// The CUDA-core body: w1 (C, Ch) and w2 (Ch, C) as they are, in the compute
+// dtype (is_bf16).
 extern "C" int vadcl_ln_mlp(const void* x, const float* ln_s, const float* ln_b,
                             const void* w1, const float* b1, const void* w2,
-                            const float* b2, void* y, int ntok, int C, int Ch,
+                            const float* b2, void* y, int ntok, int C, int Ch, int is_bf16,
                             void* stream) {
-  return vadcl::launch_ln_mlp(x, ln_s, ln_b, w1, b1, w2, b2, y, ntok, C, Ch,
+  return vadcl::launch_ln_mlp(x, ln_s, ln_b, w1, b1, w2, b2, y, ntok, C, Ch, is_bf16,
                               static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory of one block of the CUDA-core body.
+extern "C" long long vadcl_ln_mlp_smem_bytes(int C) {
+  return (long long)vadcl::mlp_smem_bytes(C);
 }
 
 // bf16: both weight matrices packed by hidden chunk (ops/ln_mlp.py:pack_mlp_weights).

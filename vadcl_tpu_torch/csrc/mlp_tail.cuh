@@ -24,13 +24,18 @@ __device__ __forceinline__ float gelu_erf(float h) {
   return h * 0.5f * (1.f + erff(h * 0.7071067811865476f));
 }
 
-// fp32 on CUDA cores, all threads of the block.  z: nt x C (LN output),
-// acc: nt x C (the fc2 sums, zeroed here), g: nt x kMlpChunk scratch, all in
-// shared memory.  The caller has written z (no barrier needed before the
-// call); on return acc is complete and visible to every thread.
+// On CUDA cores in fp32, all threads of the block, weights of element type T
+// (float, or __nv_bfloat16 for kernel B's CUDA-core bf16 body).  z: nt x C
+// (LN output, already rounded to T), acc: nt x C (the fc2 sums, zeroed here),
+// g: nt x kMlpChunk scratch, all fp32 in shared memory.  h = z . W1 + b1 and
+// g = gelu(h) round to T (round_to<float> is the identity, so the fp32
+// instance is the loop the whole-block kernel has always run).  The caller
+// has written z (no barrier needed before the call); on return acc is
+// complete and visible to every thread.
+template <typename T>
 __device__ __forceinline__ void mlp_chunks_f32(const float* z, float* acc, float* g,
-                                               const float* w1, const float* b1,
-                                               const float* w2, int nt, int C, int Ch) {
+                                               const T* w1, const float* b1,
+                                               const T* w2, int nt, int C, int Ch) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   for (int idx = tid; idx < nt * C; idx += nthr) acc[idx] = 0.f;
   __syncthreads();
@@ -40,15 +45,15 @@ __device__ __forceinline__ void mlp_chunks_f32(const float* z, float* acc, float
       const int t = idx / hc, j = idx % hc;
       const float* zt = z + t * C;
       float h = 0.f;
-      for (int c = 0; c < C; ++c) h += zt[c] * w1[(size_t)c * Ch + j0 + j];
-      g[t * kMlpChunk + j] = gelu_erf(h + b1[j0 + j]);
+      for (int c = 0; c < C; ++c) h += zt[c] * to_f(w1[(size_t)c * Ch + j0 + j]);
+      g[t * kMlpChunk + j] = round_to<T>(gelu_erf(round_to<T>(h + b1[j0 + j])));
     }
     __syncthreads();
     for (int idx = tid; idx < nt * C; idx += nthr) {
       const int t = idx / C, c = idx % C;
       const float* gt = g + t * kMlpChunk;
       float a = acc[idx];
-      for (int j = 0; j < hc; ++j) a += gt[j] * w2[(size_t)(j0 + j) * C + c];
+      for (int j = 0; j < hc; ++j) a += gt[j] * to_f(w2[(size_t)(j0 + j) * C + c]);
       acc[idx] = a;
     }
     __syncthreads();

@@ -21,7 +21,7 @@ from vadcl_tpu_torch.ops.fold_attn import (
     fold_block,
     fold_block_bwd,
 )
-from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd, ln_mlp_bwd_tiles
+from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd, ln_mlp_bwd_tiles, ln_mlp_tiles
 from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
     window_attention_fused_bwd,
@@ -45,13 +45,16 @@ from vadcl_tpu_torch.ops.window import (
 # partitioned-window attention kernels 7, 8 and 9 (whole-tile bodies), then
 # kernel 10 (the packed fold attention), the whole-Swin-block kernel each way,
 # the row-tiled bodies of 7, 8 and 9 (windows the whole-tile bodies cannot
-# hold), and the CUDA-core and shared-memory bodies of 5 and 6 (fp32, and the
-# bf16 geometries their tensor-core bodies do not take).
+# hold), the CUDA-core and shared-memory bodies of 5 and 6 (fp32, and the
+# bf16 geometries their tensor-core bodies do not take), and kernel B's
+# CUDA-core body (fp32, and the bf16 widths its tensor-core body does not
+# take).
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
            window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd,
            window_attention_fused_rows, window_attention_fused_bwd_rows,
-           window_attention_packed_rows, ln_mlp_bwd_tiles, fold_attention_bwd_tiles)
+           window_attention_packed_rows, ln_mlp_bwd_tiles, fold_attention_bwd_tiles,
+           ln_mlp_tiles)
 
 __all__ = [
     "KERNELS",
@@ -72,6 +75,7 @@ __all__ = [
     "ln_mlp",
     "ln_mlp_bwd",
     "ln_mlp_bwd_tiles",
+    "ln_mlp_tiles",
     "max_pool3d_same",
     "neg_soft_assign",
     "patchify_matmul",

@@ -6,8 +6,9 @@ C replaces ``vadcl_tpu/ops/pallas_cluster.py:_cluster_kernel`` (entry
 ``csrc/space_cluster_mma.cu``: tensor-core products on operands split into
 two tf32 parts (3xTF32, fp32-level accuracy whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says) and an online soft-assign
-over chunks of centers with no (rows x K) tile; C takes C <= 192 and any N
-and K, D any shape.  Both use the expanded cdist form and a deterministic
+over chunks of centers with no (rows x K) tile; C takes C <= 768 and any N
+and K (``cluster_assign_shape`` mirrors the instance a width takes), D any
+shape.  Both use the expanded cdist form and a deterministic
 two-pass reduction of the loss (``csrc/cluster.cu``); C's labels are the
 first-occurrence argmin.
 
@@ -56,6 +57,28 @@ def space_cluster_loss_plain(maps, centers, alpha: float) -> torch.Tensor:
     a = neg_soft_assign(d, alpha)
     da = d * a
     return (da * da).sum()
+
+
+# Kernel C's instances (csrc/cluster_mma.cu:kCaShapes): channel tiles of 8
+# (C <= 8 * tiles), channel parts (warps of a row tile splitting the recon's
+# channels; 4 / parts row tiles of 16 tokens a block), centers per ring stage,
+# ring stages.
+CLUSTER_SHAPES = ((2, 1, 32, 2), (4, 1, 32, 2), (8, 1, 32, 2), (12, 1, 32, 2),
+                  (16, 1, 32, 2), (24, 1, 32, 2), (32, 2, 32, 2), (48, 2, 16, 2),
+                  (64, 4, 16, 2), (96, 4, 16, 1))
+CLUSTER_MAX_C = 8 * CLUSTER_SHAPES[-1][0]
+
+
+def cluster_assign_shape(c: int) -> tuple:
+    """(tiles, parts, chunk, stages) of the instance kernel C runs at width
+    ``c`` (``csrc/cluster_mma.cu:ca_shape``): the first whose channel tiles
+    hold C.  Raises above ``CLUSTER_MAX_C`` (768), where the channels would
+    have to be split across blocks."""
+    for shape in CLUSTER_SHAPES:
+        if 0 < c <= 8 * shape[0]:
+            return shape
+    raise ValueError(f"cluster_assign: the kernel takes 1 <= C <= {CLUSTER_MAX_C} (a wider "
+                     f"feature needs its channels split across blocks), got C={c}")
 
 
 def _f32c(t: torch.Tensor) -> torch.Tensor:
@@ -110,11 +133,12 @@ def _cluster_assign_cuda(tokens, centers, alpha: float) -> FusedClusterOut:
     k, c2 = centers.shape
     if c2 != c:
         raise ValueError(f"cluster_assign: tokens {tuple(tokens.shape)} vs centers {tuple(centers.shape)}")
+    cluster_assign_shape(c)  # (raises above the widest instance)
     lib = cuda_lib.library()
     n_scratch = lib.vadcl_cluster_assign_scratch(n, c, k)
     if n_scratch < 0:
-        raise ValueError(f"cluster_assign: the kernel takes 1 <= C <= 192 and N, K >= 1, "
-                         f"got tokens {tuple(tokens.shape)}, centers {tuple(centers.shape)}")
+        raise ValueError(f"cluster_assign: the kernel takes N, K >= 1, got tokens "
+                         f"{tuple(tokens.shape)}, centers {tuple(centers.shape)}")
     x = _f32c(tokens)
     cen = _f32c(centers.to(tokens.device))
     recon = torch.empty((n, c), dtype=torch.float32, device=x.device)

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "vadcl_fold_attn_packed": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_block": ([_P] * 16 + [_I] * 13 + [_F, _I, _P], _I),
     "vadcl_fold_block_smem_bytes": ([_I] * 4, _L),
-    "vadcl_ln_mlp": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "vadcl_ln_mlp_smem_bytes": ([_I], _L),
     "vadcl_ln_mlp_bf16": ([_P] * 7 + [_I] * 3 + [_P], _I),
     "vadcl_fold_attn_bwd": ([_P] * 18 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_bwd_smem_bytes": ([_I] * 4, _L),
@@ -79,6 +80,7 @@ _SIGNATURES = {
     "vadcl_fold_attn_bwd_bf16_dbias_partials": ([_I] * 9, _L),
     "vadcl_cluster_assign": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
     "vadcl_cluster_assign_scratch": ([_I] * 3, _L),
+    "vadcl_cluster_assign_shape": ([_I], _I),
     "vadcl_space_cluster_loss": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
     "vadcl_space_cluster_scratch": ([_I, _I], _L),
     "vadcl_error_string": ([_I], ctypes.c_char_p),

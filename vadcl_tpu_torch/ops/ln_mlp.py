@@ -10,7 +10,10 @@ activation in registers between the two, and read the weights from a
 shared-memory ring that a producer warp fills with bulk copies; it needs
 C % 16 == 0, C <= 192 and a hidden width divisible by 128, and takes both
 weight matrices packed by hidden chunk (``pack_mlp_weights``, cached per
-parameter version in ``_packs``).
+parameter version in ``_packs``).  Every other width, and fp32, runs the
+CUDA-core body (32 tokens a block, fp32 arithmetic, the same cast
+boundaries), which ``mlp_fwd_body`` picks by width and ``ln_mlp_tiles``
+counts.
 
 Kernel 5 replaces ``_bwd_kernel`` (entry ``_vjp_bwd``).  Like the Pallas
 backward, every product is fp32 on fp32 operands; per token tile the kernel
@@ -56,6 +59,37 @@ def mlp_bwd_mma_smem_bytes(c: int) -> int:
     LN statistics and the warps' dLN2 column sums: 214,144 B at C = 192."""
     return (128 + 2 * 2 * 2 * c * MLP_CHUNK + 2 * 2 * _M5_ROWS * (c + _M5_PAD)
             + 4 * 2 * _M5_ROWS + 4 * _M5_WARPS * 2 * c)
+
+
+# Kernel B's CUDA-core body (csrc/ln_mlp.cu:ln_mlp_kernel): 32 tokens a block,
+# the hidden width walked 128 columns at a time (csrc/mlp_tail.cuh).
+_MLP_TILE_TOKENS, _MLP_TILE_CHUNK = 32, 128
+MLP_FWD_MMA_MAX_C = 192
+
+
+def mlp_fwd_smem_bytes(c: int) -> int:
+    """Shared memory of one block of kernel B's CUDA-core body
+    (``csrc/ln_mlp.cu:mlp_smem_bytes``): the LN output and the fc2 sums of 32
+    tokens and one GELU chunk, fp32: 81,920 B at C = 256."""
+    return 4 * (2 * _MLP_TILE_TOKENS * c + _MLP_TILE_TOKENS * _MLP_TILE_CHUNK)
+
+
+def mlp_fwd_body(c: int, ch: int, dtype: torch.dtype) -> str:
+    """The body kernel B runs at width ``c`` and hidden width ``ch``:
+    ``"wgmma"`` (the tensor-core body: bf16, C % 16 == 0, 16 <= C <= 192, a
+    hidden width divisible by 128) or ``"tiles"`` (the CUDA-core body: fp32,
+    and bf16 at every other width).  Raises only where the CUDA-core body's
+    block exceeds ``SMEM_LIMIT`` (C above 844), which no width of the JAX
+    package's presets reaches."""
+    if (dtype == torch.bfloat16 and c % 16 == 0 and 16 <= c <= MLP_FWD_MMA_MAX_C
+            and ch % 128 == 0):
+        return "wgmma"
+    if mlp_fwd_smem_bytes(c) <= SMEM_LIMIT:
+        return "tiles"
+    raise NotImplementedError(
+        f"ln_mlp: a block of 32 tokens at C={c} needs {mlp_fwd_smem_bytes(c)} B of shared "
+        f"memory, above the card's {SMEM_LIMIT}"
+    )
 
 
 def mlp_bwd_body(c: int, ch: int, dtype: torch.dtype) -> str:
@@ -160,31 +194,46 @@ def ln_mlp_bwd_plain(x, dy, ln_scale, ln_bias, w1, b1, w2):
 
 
 class _LnMlp(torch.autograd.Function):
-    """Forward kernel B, backward kernel 5 (``fused_ln_mlp``'s custom VJP)."""
+    """Forward kernel B, backward kernel 5 (``fused_ln_mlp``'s custom VJP).
+    ``tiles`` forces the forward's CUDA-core body."""
 
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2):
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, tiles):
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2)
         if x.device.type == "cpu":
             return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2)
-        return _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        return _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles)
 
     @staticmethod
     def backward(ctx, dy):
         x, *params = ctx.saved_tensors
-        return ln_mlp_bwd(x, dy, *params)
+        return (*ln_mlp_bwd(x, dy, *params), None)
 
 
 def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     """``y = x + fc2(gelu(fc1(LN(x))))`` over the last axis of x (any
     leading shape); same contract as ``fused_ln_mlp``, differentiable
-    (kernel 5)."""
+    (kernel 5).  ``mlp_fwd_body`` picks the body; counts the tensor-core
+    body's launches."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ln_mlp: unsupported device {x.device}")
-    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2)
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, False)
 
 
 ln_mlp.launches = 0
+
+
+def ln_mlp_tiles(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
+    """``ln_mlp`` with the forward on its CUDA-core body whatever the dtype
+    and width; counts that body's launches (also those the route makes
+    through ``ln_mlp``: fp32, and bf16 widths the tensor-core body does not
+    take)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ln_mlp_tiles: unsupported device {x.device}")
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, True)
+
+
+ln_mlp_tiles.launches = 0
 
 
 def _check_mlp(what, x, w1, w2):
@@ -209,20 +258,17 @@ def _mlp_vectors(ln_scale, ln_bias, b1, c, ch, dev):
         lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev)))
 
 
-def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
+def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles=False) -> torch.Tensor:
     c, ch = _check_mlp("ln_mlp", x, w1, w2)
-    if x.dtype == torch.bfloat16 and (c % 16 or c > 192 or ch % 128):
-        raise NotImplementedError(
-            f"ln_mlp: the bf16 kernel runs on 64-row tensor-core tiles and needs "
-            f"C % 16 == 0, C <= 192 and a hidden width divisible by 128 (got C={c}, "
-            f"hidden {ch})"
-        )
+    body = mlp_fwd_body(c, ch, x.dtype)  # (raises where neither body takes it)
+    if tiles:
+        body = "tiles"
     dev, dt = x.device, x.dtype
     shape = x.shape
     x2 = cuda_lib.aligned(x.reshape(-1, c))  # (contiguous; rows are read 16 bytes at a time)
     y = torch.empty_like(x2)
     lib = cuda_lib.library()
-    if dt == torch.bfloat16:
+    if body == "wgmma":
         # packed weights and fp32 vectors: made once per parameter version
         wp = _packs.get((w1, w2), ("mlp", str(dev)),
                         lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
@@ -241,10 +287,10 @@ def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
         err = lib.vadcl_ln_mlp(
             x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1c.data_ptr(),
             b1c.data_ptr(), w2c.data_ptr(), b2c.data_ptr(), y.data_ptr(),
-            x2.shape[0], c, ch, cuda_lib.stream_ptr(x2),
+            x2.shape[0], c, ch, int(dt == torch.bfloat16), cuda_lib.stream_ptr(x2),
         )
-    cuda_lib.check(err, "ln_mlp")
-    ln_mlp.launches += 1
+    cuda_lib.check(err, f"ln_mlp ({body} body)")
+    (ln_mlp if body == "wgmma" else ln_mlp_tiles).launches += 1
     return y.reshape(shape)
 
 
