@@ -366,6 +366,21 @@ def phase_build():
                     raise AssertionError(f"rows_smem_bytes{(n, c, nh)} at group {mine} disagrees "
                                          "with the library")
                 groups += 1
+    from vadcl_tpu_torch.ops.window_attn import rows_bwd_group
+
+    for c, nh in ((96, 6), (192, 12), (96, 3), (64, 2), (128, 2), (96, 2), (64, 1)):
+        for n in (1, 16, 98, 113, 147, 196, 245, 343, 392, 432, 433, 512, 513, 640, 1072):
+            for per_class in (1, 2, 3, 4, 5, 8, 16, 64, 256):
+                mine = rows_bwd_group(n, c, nh, per_class)
+                theirs = lib.vadcl_window_attn_bwd_rows_group(n, c, nh, per_class)
+                if mine != theirs:
+                    raise AssertionError(f"rows_bwd_group{(n, c, nh, per_class)} = {mine} but "
+                                         f"the library says {theirs}")
+                if (rows_smem_bytes(n, c, nh, True, backward=True, group=mine)
+                        != lib.vadcl_window_attn_bwd_rows_group_smem_bytes(n, c, nh, mine)):
+                    raise AssertionError(f"rows_smem_bytes{(n, c, nh)}, backward, at group "
+                                         f"{mine} disagrees with the library")
+                groups += 1
     for c, nh in ROW_WIDTHS:
         for n in range(1, 393):
             for dtype in (torch.bfloat16, torch.float32):
@@ -373,9 +388,9 @@ def phase_build():
                     window_body(n, c, nh, dtype, backward)  # raises where no body fits
     print(f"  tile_smem_bytes / rows_smem_bytes (the body choice of kernels 7, 8, 9) agree "
           f"with the library at {checked} cases; every N up to 392 at C=96/6, 192/12 and head "
-          "width 32 maps to a body, both dtypes and directions; the bf16 row-tiled core's "
-          f"group of windows (0: the direct layout) and its layout agree with the library at "
-          f"{groups} cases")
+          "width 32 maps to a body, both dtypes and directions; the bf16 row-tiled cores' "
+          f"groups of windows (0: the direct layout) and their layouts, forward and backward, "
+          f"agree with the library at {groups} cases")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -1384,6 +1399,36 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
                                           *BOUNDS[torch.bfloat16]))
             same_bits(f"{name} {tag}", (got,), (kernel(**a),))
             del a, got
+    print("  the bf16 backward core's edge cases (G = windows a block, 0: the direct layout, "
+          "the body before's footprint, up to its largest N at each head width):")
+    smallest = min(k for k in range(1, 393)
+                   if wa.window_body(k, 96, 6, torch.bfloat16, backward=True) == "rows")
+    for windows, n, C, nh, nw, masked, qb in (
+            (12, 196, 96, 6, 4, True, True),     # 3 windows a mask: groups 2 + 1 (cut short)
+            (7, 392, 96, 6, 1, False, True),     # no mask, odd batch: groups 4 + 3
+            (20, 392, 96, 6, 4, True, False),    # 5 windows a mask: 4 + 1, no qkv bias
+            (6, 245, 96, 2, 3, True, True),      # head width 48, N % 4 != 0
+            (6, 196, 128, 2, 2, True, True),     # head width 64
+            (9, 392, 64, 2, 3, True, True),      # head width 32: 3 windows a mask
+            (6, smallest, 96, 6, 2, True, True),  # the smallest N the row-tiled body takes
+            (4, 16, 32, 2, 2, True, True),       # one strip, forced
+            (4, 539, 32, 2, 2, True, True),      # above N = 512: direct
+            (4, 343, 128, 2, 2, True, True),     # head width 64 at N 343: direct
+            (2, 1072, 32, 2, 1, True, True),     # the largest N at head width 16: direct
+            (2, 640, 64, 2, 1, True, True),      # at 32
+            (2, 464, 96, 2, 1, True, True),      # at 48
+            (2, 352, 128, 2, 1, True, False)):   # at 64, no qkv bias
+        w = _win_bwd_case(_win_case_n(windows, n, C, nh, torch.bfloat16, gen, masked, nw, qb),
+                          gen)
+        per = windows // nw if masked else windows
+        tag = (f"{windows} windows N={n} C={C} nH={nh} nW={nw} "
+               f"{'masked' if masked else 'no mask'}{'' if qb else ', no qkv bias'} "
+               f"G={wa.rows_bwd_group(n, C, nh, per)}")
+        got = bwd[1](**w)
+        errs[bwd[0]].append(check_grads(f"{bwd[0]} {tag}", WIN_BWD_NAMES, got, bwd[2](**w),
+                                        BWD_TOL[torch.bfloat16]))
+        same_bits(f"{bwd[0]} {tag}", got, bwd[1](**w))
+        del w, got
 
     stats = {}
     print(f"  the frame-8 path's shapes, bf16, forward at batch {batch}, backward at batch "
@@ -1411,29 +1456,42 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
                     **bound(tensors_of(a) + [out],
                             attn_flops(a["x_windows"].shape[0] * n, C, n), "bf16"))
             del a, out
-        w = _win_bwd_case(_win_case_at(train_batch, (D, H, W), C, nh, window, shift,
-                                       torch.bfloat16, gen), gen)
-        got = bwd[1](**w)
-        errs[bwd[0]].append(check_grads(f"{bwd[0]} {gname}", WIN_BWD_NAMES, got, bwd[2](**w),
-                                        BWD_TOL[torch.bfloat16]))
-        ms, pms = time_pair(lambda: bwd[1](**w), lambda: bwd[2](**w))
-        if gname == "dec_stage1":
-            stats[bwd[0]] = dict(
-                ms=ms, plain_ms=pms, shape=f"x_windows ({w['x_windows'].shape[0]},{n},{C}) "
-                f"bf16, nH {nh}, shifted",
-                **bound(tensors_of(w, got),
-                        attn_flops(w["x_windows"].shape[0] * n, C, n, backward=True), "bf16"))
-        del w, got
-        torch.cuda.empty_cache()
+        for shifted in (False, True):
+            w = _win_bwd_case(_win_case_at(train_batch, (D, H, W), C, nh, window,
+                                           shift if shifted else (0, 0, 0), torch.bfloat16,
+                                           gen), gen)
+            bn = w["x_windows"].shape[0]
+            per = bn // w["n_windows"] if shifted else bn
+            tag = f"{gname} {'shifted' if shifted else 'unshifted'}"
+            got = bwd[1](**w)
+            errs[bwd[0]].append(check_grads(f"{bwd[0]} {tag}", WIN_BWD_NAMES, got, bwd[2](**w),
+                                            BWD_TOL[torch.bfloat16]))
+            same_bits(f"{bwd[0]} {tag}", got, bwd[1](**w))
+            ms, pms = time_pair(lambda: bwd[1](**w), lambda: bwd[2](**w))
+            split = launch_ms(lambda: bwd[1](**w))
+            print(f"    {tag}: wrapper {ms:.4f} ms; launches "
+                  + ", ".join(f"{k.split('<')[0].split('::')[-1]} {v:.4f}" for k, v in split)
+                  + f" ms (G={wa.rows_bwd_group(n, C, nh, per)})")
+            if gname == "dec_stage1" and shifted:
+                stats[bwd[0]] = dict(
+                    ms=ms, plain_ms=pms, shape=f"x_windows ({bn},{n},{C}) bf16, nH {nh}, "
+                    "shifted",
+                    **bound(tensors_of(w, got), attn_flops(bn * n, C, n, backward=True), "bf16"))
+            del w, got
+            torch.cuda.empty_cache()
     lib = cuda_lib.library()
     for gname, ((D, H, W, C), nh, window, _) in recon_geometries(RECON_FRAMES).items():
         n = window[0] * window[1] * window[2]
         bn = train_batch * (D // window[0]) * (H // window[1]) * (W // window[2])
         ws = lib.vadcl_window_attn_bwd_rows_workspace_bytes(bn, n, C, nh, 1)
         part = lib.vadcl_window_attn_bwd_rows_dbias_bytes(bn, n, nh)
+        g = wa.rows_bwd_group(n, C, nh, train_batch)  # shifted: a mask index a clip's window
+        groups = (bn // train_batch) * -(-train_batch // g)
         print(f"  row-tiled kernel 8 workspace, bf16, batch {train_batch}, {gname} (N={n}): "
               f"{ws / 1e6:.1f} MB, of it the d(bias) partials {part / 1e6:.1f} MB "
-              f"(one per window would be {bn * nh * n * n * 4 / 1e6:.1f} MB)")
+              f"(one per window would be {bn * nh * n * n * 4 / 1e6:.1f} MB); shifted, "
+              f"{groups} groups of {g} windows a head over "
+              f"{min(groups, part // (nh * n * n * 4))} blocks a head")
     for k in stats:
         stats[k]["max_abs_err"] = max(errs[k])
     return stats

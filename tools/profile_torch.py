@@ -32,7 +32,8 @@ instead the partitioned-window kernels 7, 9 (forward, at each batch) and 8
 reconstruction clips (F = 8: windows of 196 and 392 tokens, the row-tiled
 bodies), shifted and not, with each launch's device ms apart (``launches``:
 the qkv product, the attention core and the projection of the row-tiled
-forward).
+forward; the two products, the core, the second pass's partials and sums
+and the dx product of the backward).
 
 ``--root`` names the tree whose ``vadcl_tpu_torch`` package is run (default:
 the tree this file is in), so that two commits can be compared on one card in
@@ -58,7 +59,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the hand-written kernels (csrc/*.cu)
 OURS = ("fold_attn", "fold_block", "window_attn", "ln_mlp", "cluster_assign", "space_cluster",
         "center_sq", "sum_partials", "atb_partial", "sum_rows", "rows_attn", "rows_gemm",
-        "rows_bwd", "atb_mma")
+        "rows_fwd_gemm", "rows_bwd", "atb_mma")
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -103,9 +104,9 @@ def host_us(fn, calls: int = 200) -> float:
 
 
 def window_kernels_only(args, smoke, gen) -> None:
-    """Kernels 7 and 9 at each batch, shifted and not, and kernel 8 at the
-    smallest, shifted, bf16, at the reconstruction geometries of
-    ``args.frame_num``."""
+    """Kernels 7 and 9 at each batch and kernel 8 at the smallest, shifted
+    and not, bf16, at the reconstruction geometries of ``args.frame_num``,
+    each with its launches' device ms apart."""
     from vadcl_tpu_torch.ops.window_attn import (
         window_attention_fused, window_attention_fused_bwd, window_attention_packed, window_body,
     )
@@ -126,18 +127,19 @@ def window_kernels_only(args, smoke, gen) -> None:
                         "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4),
                         "launches": [[name, round(ms, 4)] for name, ms in
                                      smoke.launch_ms(lambda: k(**a))]}))
-            if batch == min(args.batches):
-                w = smoke._win_bwd_case(a, gen)
-                print(json.dumps({
-                    "tag": args.tag, "kernel": "window_attention_fused_bwd", "geometry": gname,
-                    "batch": batch, "N": n,
-                    "body": window_body(n, C, nh, torch.bfloat16, backward=True),
-                    "ms": round(smoke.cuda_ms(lambda: window_attention_fused_bwd(**w)), 4),
-                    "kernel_ms": round(own_kernel_ms(lambda: window_attention_fused_bwd(**w)),
-                                       4)}))
-                del w
-            del a
-            torch.cuda.empty_cache()
+                if batch == min(args.batches):
+                    w = smoke._win_bwd_case(a, gen)
+                    bwd = lambda: window_attention_fused_bwd(**w)  # noqa: E731
+                    print(json.dumps({
+                        "tag": args.tag, "kernel": "window_attention_fused_bwd",
+                        "geometry": gname, "batch": batch, "N": n, "shifted": shifted,
+                        "body": window_body(n, C, nh, torch.bfloat16, backward=True),
+                        "ms": round(smoke.cuda_ms(bwd), 4),
+                        "kernel_ms": round(own_kernel_ms(bwd), 4),
+                        "launches": [[name, round(ms, 4)] for name, ms in smoke.launch_ms(bwd)]}))
+                    del w
+                del a
+                torch.cuda.empty_cache()
 
 
 def backward_kernels_only(args, smoke, gen) -> None:

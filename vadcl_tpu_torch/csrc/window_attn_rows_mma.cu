@@ -71,97 +71,6 @@ struct RowsMmaArgs {
   float smul;         // scale * log2 e (kernel 9: log2 e)
 };
 
-// Physical 16-byte chunk of logical chunk c of row r in a [Np][kHd] bf16 tile:
-// the 8 rows an ldmatrix reads at one logical chunk land on 8 different bank
-// groups.  kPad: the direct layout's rows padded to kHd + 8 instead.
-template <int kHd>
-__device__ __forceinline__ int rm_swz(int r, int c) {
-  if constexpr (kHd == 32) return c ^ ((r >> 1) & 3);
-  else if constexpr (kHd == 64) return c ^ (r & 7);
-  else return c ^ ((r >> 2) & 1);  // 16, 48
-}
-
-template <int kHd, bool kPad>
-__device__ __forceinline__ const bf16* rm_at(const bf16* tile, int r, int c) {
-  if constexpr (kPad) return tile + r * (kHd + 8) + c * 8;
-  else return tile + r * kHd + rm_swz<kHd>(r, c) * 8;
-}
-
-// (bias + mask) * log2 e at keys col, col + 1 of the strip's rows g (a) and
-// g + 8 (b); keys past the window -inf, rows past it 0 over the real keys.
-// From the strip's tile in shared memory (t0, t1: its rows g and g + 8) ...
-struct RmTileBM {
-  const float *t0, *t1;
-  __device__ __forceinline__ void operator()(int col, float2& a, float2& b) const {
-    a = *reinterpret_cast<const float2*>(t0 + col);
-    b = *reinterpret_cast<const float2*>(t1 + col);
-  }
-};
-
-// ... or from device memory (the direct layout), rows i0 and i1 of the
-// head's bias and the window's mask, summed and scaled as the tile is.
-struct RmGlobalBM {
-  const float *bias, *mask;
-  int i0, i1, N;
-  __device__ __forceinline__ float at(int i, int j) const {
-    if (j >= N) return -INFINITY;
-    if (i >= N) return 0.f;
-    float v = __ldg(bias + (size_t)i * N + j);
-    if (mask != nullptr) v += __ldg(mask + (size_t)i * N + j);
-    return v * kLog2e;
-  }
-  __device__ __forceinline__ void operator()(int col, float2& a, float2& b) const {
-    a = make_float2(at(i0, col), at(i0, col + 1));
-    b = make_float2(at(i1, col), at(i1, col + 1));
-  }
-};
-
-// v' of the strip's 16 x 16 block kb (lane = 4 g + t holds rows g, g + 8 in
-// mma.sync's C layout): q . k^T by mma, then fma(s, smul, (bias + mask) log2 e).
-template <int kHd, bool kPad, class BM>
-__device__ __forceinline__ void rm_scores(const uint32_t (&qf)[kHd / 16][4], const bf16* ks,
-                                          const BM& bm, int kb, float smul, int lane,
-                                          float (&v)[2][4]) {
-  float s[2][4];
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  const int r = kb * 16 + (lane & 7) + (lane >> 4) * 8, c = (lane >> 3) & 1;
-#pragma unroll
-  for (int k = 0; k < kHd / 16; ++k) {
-    uint32_t kf[4];
-    ldsm_x4(kf, rm_at<kHd, kPad>(ks, r, 2 * k + c));
-    mma_bf16(s[0], qf[k], kf[0], kf[1]);
-    mma_bf16(s[1], qf[k], kf[2], kf[3]);
-  }
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    float2 a, b;
-    bm(kb * 16 + nt * 8 + 2 * t, a, b);
-    v[nt][0] = fmaf(s[nt][0], smul, a.x);
-    v[nt][1] = fmaf(s[nt][1], smul, a.y);
-    v[nt][2] = fmaf(s[nt][2], smul, b.x);
-    v[nt][3] = fmaf(s[nt][3], smul, b.y);
-  }
-}
-
-// The q fragments of strip s's rows g and g + 8 of a window (zeros past it);
-// q0 points at the window's first token's head slice.
-template <int kKs>
-__device__ __forceinline__ void rm_load_q(const bf16* q0, int C3, int s, int N, int lane,
-                                          uint32_t (&qf)[kKs][4]) {
-  const int i0 = s * 16 + (lane >> 2), i1 = i0 + 8;
-  const bf16* p0 = q0 + (size_t)i0 * C3 + 2 * (lane & 3);
-  const bf16* p1 = q0 + (size_t)i1 * C3 + 2 * (lane & 3);
-#pragma unroll
-  for (int k = 0; k < kKs; ++k) {
-    qf[k][0] = i0 < N ? *reinterpret_cast<const uint32_t*>(p0 + k * 16) : 0u;
-    qf[k][1] = i1 < N ? *reinterpret_cast<const uint32_t*>(p1 + k * 16) : 0u;
-    qf[k][2] = i0 < N ? *reinterpret_cast<const uint32_t*>(p0 + k * 16 + 8) : 0u;
-    qf[k][3] = i1 < N ? *reinterpret_cast<const uint32_t*>(p1 + k * 16 + 8) : 0u;
-  }
-}
-
 // Walk 1 over key blocks kb0, kb0 + step, ... two at a time (one rescale of
 // the running sum per pair): the running max m and sum l of rows g, g + 8,
 // l summed over the quad that shares a row.

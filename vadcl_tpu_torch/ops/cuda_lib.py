@@ -67,6 +67,8 @@ _SIGNATURES = {
     "vadcl_window_attn_bwd_rows_smem_bytes": ([_I] * 4, _L),
     "vadcl_window_attn_bwd_rows_workspace_bytes": ([_I] * 5, _L),
     "vadcl_window_attn_bwd_rows_dbias_bytes": ([_I] * 3, _L),
+    "vadcl_window_attn_bwd_rows_group": ([_I] * 4, _I),
+    "vadcl_window_attn_bwd_rows_group_smem_bytes": ([_I] * 4, _L),
     "vadcl_window_attn_bwd_smem_bytes": ([_I] * 4, _L),
     "vadcl_window_attn_bwd_workspace_bytes": ([_I] * 5, _L),
     "vadcl_ln_mlp_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),

@@ -24,7 +24,8 @@ Each kernel has two bodies.  The whole-tile body (``csrc/window_attn.cu``:
 ``csrc/reduce.cu``) holds a whole (N, N) score tile per head in shared memory
 and takes a window only where that fits 227 KB.  The row-tiled body
 (``csrc/window_attn_rows.cu`` with its bf16 core and products in
-``csrc/window_attn_rows_mma.cu``, ``csrc/window_attn_bwd_rows.cu``) walks the
+``csrc/window_attn_rows_mma.cu``, ``csrc/window_attn_bwd_rows.cu`` with its
+bf16 core in ``csrc/window_attn_bwd_rows_mma.cu``) walks the
 keys of a 16-row strip of queries in blocks with a running max and sum and
 takes every N, e.g. N = 196 and N = 392 (windows (4, 7, 7) and (8, 7, 7) of
 8-frame reconstruction clips).  ``window_body`` picks the whole-tile body
@@ -187,6 +188,9 @@ def rows_warps(head_dim: int) -> int:
     return 16 if head_dim <= 32 else 8
 
 
+_ROWS_BWD_WARPS, _ROWS_BWD_KEY_MAX, _ROWS_BWD_TLD = 8, 4, 20  # window_attn_bwd_rows_mma.cuh
+
+
 def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False,
                     group: int = 0) -> int:
     """Shared memory of one block of the row-tiled attention core
@@ -197,10 +201,18 @@ def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     next strip's bias and mask rows, the warps' (m, l) pairs and partial
     output strips (206,336 B at N = 392, head_dim 16, G = 4); at ``group`` 0
     the direct layout, the least the core needs: K and V of one head in
-    padded rows (38,400 B at N = 392, head_dim 16).  Otherwise K and V of one
-    head (the backward also q and dout's head slice) plus, in the backward,
-    three row statistics and the strips' column sums (86,400 B backward at
-    N = 392, head_dim 16 in bf16)."""
+    padded rows (38,400 B at N = 392, head_dim 16).  bf16 backward
+    (``csrc/window_attn_bwd_rows_mma.cuh:rows_bwd_layout``): at ``group`` G
+    >= 1, two tiles of the head of G windows (K and V, then q and dout's
+    slice), the strip's (bias + mask) tile (16 rows, or the strip's 16
+    columns of every row), the next strip's bias and mask, the row
+    statistics of G windows, the warps' partial statistics and strips, the
+    windows' column sums (228,096 B at N = 392, head_dim 16, G = 4); at
+    ``group`` 0 the direct layout: q, K, V and dout's slice of one head in
+    padded rows, three row statistics and the strips' column sums (86,400 B
+    at N = 392, head_dim 16).  fp32: K and V of one head (the backward also
+    q and dout's slice) plus, in the backward, the row statistics and two
+    rows a warp."""
     hd = c // num_heads
     if bf16:
         m = _up(n, 16)
@@ -210,7 +222,11 @@ def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
             warps = rows_warps(hd)
             return (group * 4 * m * hd + 64 * (m + 8) + 128 * m + 128 * warps
                     + 64 * warps * (hd + 8))
-        return 2 * 4 * m * (hd + 8) + 4 * (3 * m + m // 16 * 3 * hd)
+        if group == 0:
+            return 2 * 4 * m * (hd + 8) + 4 * (3 * m + m // 16 * 3 * hd)
+        w = _ROWS_BWD_WARPS
+        return (group * 4 * m * hd + 4 * max(16 * (m + 8), m * _ROWS_BWD_TLD) + 128 * m
+                + group * 12 * m + 256 * w + 64 * w * (2 * hd + 8) + group * 12 * hd)
     if not backward:
         return 4 * (2 * n * (hd + 1) + _ROWS_WARPS * (n + hd))
     return 4 * (4 * n * hd + 3 * n + 2 * _ROWS_WARPS * n)
@@ -226,6 +242,21 @@ def rows_group(n: int, c: int, num_heads: int, per_class: int) -> int:
     group`` warps a window each take every so-many-th key block."""
     for g in (8, 4, 2, 1):
         if g <= per_class and rows_smem_bytes(n, c, num_heads, True, group=g) <= SMEM_LIMIT:
+            return g
+    return 0
+
+
+def rows_bwd_group(n: int, c: int, num_heads: int, per_class: int) -> int:
+    """Windows one block of the bf16 row-tiled backward core takes
+    (``csrc/window_attn_bwd_rows_mma.cuh:rows_bwd_group``): the largest of 8,
+    4, 2, 1 that is at most ``per_class`` and fits ``SMEM_LIMIT``, where a
+    warp's key blocks of a strip (every 8th) number at most 4 (N <= 512); 0
+    elsewhere: the direct layout (a block per chunk of windows and head,
+    bias and mask read from device memory)."""
+    if _up(n, 16) // 16 > _ROWS_BWD_WARPS * _ROWS_BWD_KEY_MAX:
+        return 0
+    for g in (8, 4, 2, 1):
+        if g <= per_class and rows_smem_bytes(n, c, num_heads, True, True, g) <= SMEM_LIMIT:
             return g
     return 0
 
