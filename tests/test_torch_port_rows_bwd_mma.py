@@ -17,7 +17,9 @@ with the warps' partial strips summed in warp order; d(bias) summed over a
 group's windows in window order, then into the block's partial once per
 group, the partials summed in order; phase B's walk over the query blocks
 from phase A's row statistics (``dk``, ``dv``); the column sums of the
-unrounded dqkv per window; the weight sums and dx from the rounded dqkv.
+unrounded dqkv per window, each warp's share over its partial strips, strips
+in order, then the warps in order; the weight sums and dx from the rounded
+dqkv.
 Sums inside one ``mma`` are taken in torch's order, and where the kernel
 calls ``fmaf`` the emulation rounds once in float64 first.
 
@@ -129,7 +131,8 @@ def core_emulation(q, k, v, do, tile, tile_t, smul, scale, warps):
     """One window-head core for (W, nh, Np, hd) q, k, v, do (bf16 values,
     padded rows zero), the phase A tile (.., Np, Np) and phase B's (key rows
     first), with ``warps`` warps on a strip (1: the direct layout).  Returns
-    o, dq, dk, dv (fp32 before rounding), ds (.., Np, Np)."""
+    o, dq, dk, dv (fp32 before rounding), ds (.., Np, Np) and the warps'
+    partial dq, dk, dv (lists of (.., Np, hd))."""
     nblk = q.shape[-2] // 16
     s = q @ k.transpose(-2, -1)
     d = do @ v.transpose(-2, -1)
@@ -145,16 +148,16 @@ def core_emulation(q, k, v, do, tile, tile_t, smul, scale, warps):
     P = ex2(vv - m[..., None]) / l[..., None]
     ds = P * (d - r[..., None])
     dss, p = bf16(ds * np.float32(scale)), bf16(P)
-    dq = _ordered([_acc(dss, k, kbs) for kbs in blocks])
+    dqs = [_acc(dss, k, kbs) for kbs in blocks]
     o = _ordered([_acc(p, v, kbs) for kbs in blocks])
     # phase B: key strips over the query blocks, from the row statistics
     st = k @ q.transpose(-2, -1)
     dt = v @ do.transpose(-2, -1)
     pt = ex2(fma32(st, smul, tile_t) - m[..., None, :]) / l[..., None, :]
     dst = bf16(pt * (dt - r[..., None, :]) * np.float32(scale))
-    dk = _ordered([_acc(dst, q, kbs) for kbs in blocks])
-    dv = _ordered([_acc(bf16(pt), do, kbs) for kbs in blocks])
-    return o, dq, dk, dv, ds
+    dks = [_acc(dst, q, kbs) for kbs in blocks]
+    dvs = [_acc(bf16(pt), do, kbs) for kbs in blocks]
+    return o, _ordered(dqs), _ordered(dks), _ordered(dvs), ds, (dqs, dks, dvs)
 
 
 def backward_emulation(x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows, scale,
@@ -187,8 +190,8 @@ def backward_emulation(x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_w
     per = Bn // n_windows if mask is not None else Bn
     classes = Bn // per
     G = rows_bwd_group(N, C, nh, per)
-    o, dq, dk, dv, ds = core_emulation(q, k, v, do, tile, tile_t, L2E * np.float32(scale),
-                                       scale, WARPS if G else 1)
+    o, dq, dk, dv, ds, parts = core_emulation(q, k, v, do, tile, tile_t,
+                                              L2E * np.float32(scale), scale, WARPS if G else 1)
     ds = ds[..., :N, :N]
     chunk, chunks = _chunks(Bn, nh)
     if G:  # groups of windows sharing a mask index, spread over the head's blocks
@@ -217,8 +220,13 @@ def backward_emulation(x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_w
     unpad = lambda t: t[..., :N, :].transpose(1, 2).reshape(Bn, N, C)  # noqa: E731
     o = bf16(unpad(o))
     dqkv = torch.stack([unpad(t) for t in (dq, dk, dv)], 2).reshape(Bn, N, 3 * C)
-    strips = torch.stack([dqkv[:, i:i + 16].sum(1) for i in range(0, N, 16)]).sum(0)
-    dqkv_b = strips.sum(0) if qkv_b is not None else None
+    # each warp's column sums of its partial strips, strips in order, then the
+    # warps in order (per window and head), then the windows in order
+    colsum = lambda t: _ordered([t[..., i:i + 16, :].sum(-2)  # noqa: E731
+                                 for i in range(0, N, 16)])
+    sums = [_ordered([colsum(t[..., :N, :]) for t in ws]) for ws in parts]  # (Bn, nh, hd)
+    dqkv_b = _ordered(list(torch.stack(sums, 1).reshape(Bn, 3 * C))) if qkv_b is not None \
+        else None
     dqkv_c = bf16(dqkv)
     do_c = bf16(dout).reshape(-1, C)
     return (bf16(dqkv_c @ qw.T), xf.reshape(-1, C).T @ dqkv_c.reshape(-1, 3 * C), dqkv_b,
@@ -336,7 +344,7 @@ def test_groups_and_layouts_at_the_frame8_geometries():
     for c, nh in ((96, 6), (192, 12)):
         assert rows_bwd_group(196, c, nh, 4) == 4 and rows_bwd_group(196, c, nh, 256) == 8
         assert rows_bwd_group(392, c, nh, 4) == rows_bwd_group(392, c, nh, 256) == 4
-    assert rows_smem_bytes(392, 96, 6, True, backward=True, group=4) == 228096
+    assert rows_smem_bytes(392, 96, 6, True, backward=True, group=4) == 227584
     assert rows_smem_bytes(392, 96, 6, True, backward=True, group=8) > SMEM_LIMIT
     assert rows_smem_bytes(392, 96, 6, True, backward=True) == 86400
     assert rows_bwd_group(512, 32, 2, 1) == 1 and rows_bwd_group(513, 32, 2, 1) == 0

@@ -97,14 +97,13 @@ struct RbGlobalBMT {
   }
 };
 
-// ... or from phase B's column tile in shared memory: [Np][kRbTld], column
-// jl = the key's row in the strip.
+// ... or from phase B's tile in shared memory: the strip's 16 keys as rows,
+// every query a column (t0, t1: its rows g and g + 8).
 struct RbTileBMT {
-  const float* tile;
-  int g;
+  const float *t0, *t1;
   __device__ __forceinline__ void operator()(int col, float2& a, float2& b) const {
-    a = make_float2(tile[col * kRbTld + g], tile[(col + 1) * kRbTld + g]);
-    b = make_float2(tile[col * kRbTld + g + 8], tile[(col + 1) * kRbTld + g + 8]);
+    a = *reinterpret_cast<const float2*>(t0 + col);
+    b = *reinterpret_cast<const float2*>(t1 + col);
   }
 };
 
@@ -216,8 +215,9 @@ __device__ __forceinline__ void rb_blockB(const uint32_t (&kf)[kHd / 16][4],
 }
 
 // Column sums of a 16 x kHd fp32 strip (rows past the window left out) into
-// out[0 .. kHd): lanes 0-3 write, in the C fragment's column order.
-template <int kHt>
+// out[0 .. kHd) (kAdd: added to it): lanes 0-3 write, in the C fragment's
+// column order.
+template <int kHt, bool kAdd = false>
 __device__ __forceinline__ void strip_colsum(const float (&acc)[kHt][4], bool r0, bool r1,
                                              float* out, int lane) {
 #pragma unroll
@@ -229,7 +229,10 @@ __device__ __forceinline__ void strip_colsum(const float (&acc)[kHt][4], bool r0
       c0 += __shfl_xor_sync(0xffffffffu, c0, o);
       c1 += __shfl_xor_sync(0xffffffffu, c1, o);
     }
-    if (lane < 4) out[i * 8 + 2 * lane] = c0, out[i * 8 + 2 * lane + 1] = c1;
+    if (lane < 4) {
+      if (kAdd) c0 += out[i * 8 + 2 * lane], c1 += out[i * 8 + 2 * lane + 1];
+      out[i * 8 + 2 * lane] = c0, out[i * 8 + 2 * lane + 1] = c1;
+    }
   }
 }
 
@@ -257,8 +260,7 @@ __device__ __forceinline__ void rb_put(float* slot, const float (&a)[kHd / 8][4]
 
 // The block's kRbWarps partial strips summed in warp order; row r of the
 // strip (rows past the window skipped) goes rounded to dst0 (the first kHd
-// columns; rows ld0 elements apart) and dst1 (the second; ld1), and the fp32
-// sums back into warp 0's slot (for the column sums).  All threads.
+// columns; rows ld0 elements apart) and dst1 (the second; ld1).  All threads.
 template <int kHd>
 __device__ __forceinline__ void rb_merge(float* op, int rows, bf16* dst0, size_t ld0, bf16* dst1,
                                          size_t ld1) {
@@ -273,31 +275,15 @@ __device__ __forceinline__ void rb_merge(float* op, int rows, bf16* dst0, size_t
       acc.x += v.x;
       acc.y += v.y;
     }
-    *reinterpret_cast<float2*>(op + r * kLd + col) = acc;
     bf16* dst = col < kHd ? dst0 + r * ld0 + col : dst1 + r * ld1 + (col - kHd);
     *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc.x, acc.y);
   }
 }
 
-// Column sums of warp 0's merged strip (its first `rows` rows, in order)
-// added into cs0[0 .. kHd) and cs1[0 .. kHd) (either may be null: not
-// summed), one thread a column.
-template <int kHd>
-__device__ __forceinline__ void rb_colsum(const float* op, int rows, float* cs0, float* cs1) {
-  constexpr int kLd = 2 * kHd + 8;
-  const int c = threadIdx.x;
-  if (c >= 2 * kHd) return;
-  float* dst = c < kHd ? (cs0 != nullptr ? cs0 + c : nullptr)
-                       : (cs1 != nullptr ? cs1 + (c - kHd) : nullptr);
-  if (dst == nullptr) return;
-  float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += op[r * kLd + c];
-  *dst += s;
-}
-
 template <int kHd>
 __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsBwdMmaArgs a) {
   constexpr int kKs = kHd / 16, kHt = kHd / 8, kCh = kHd / 8, kThreads = kRbWarps * kWarp;
+  constexpr int kOld = 2 * kHd + 8;  // floats a row of a warp's partial strips
   extern __shared__ __align__(16) unsigned char sm[];
   const int N = a.N, C = a.C, C3 = 3 * C, Np = rows_padded(N), nblk = Np / 16, tld = Np + 8;
   const int G = a.group;
@@ -309,15 +295,16 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
   float* stats = reinterpret_cast<float*>(sm + lay.st);  // [G][m, l, r][Np]
   float4* ml = reinterpret_cast<float4*>(sm + lay.ml);
   float* op = reinterpret_cast<float*>(sm + lay.op);
-  float* cs = reinterpret_cast<float*>(sm + lay.cs);  // [G][3 kHd]
+  float* cs = reinterpret_cast<float*>(sm + lay.cs);  // [G][warp][dq, dk, dv column sums]
 
   const int h = blockIdx.x % a.nh, slot = blockIdx.x / a.nh;
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2;
   const float* bias = a.bias + (size_t)h * N * N;
   const long long ng = (long long)a.nW * a.gpc;  // the head's groups
   const int g_begin = (int)(ng * slot / a.slots), g_end = (int)(ng * (slot + 1) / a.slots);
   float* dbias = a.dbias_part + ((size_t)slot * a.nh + h) * N * N;
+  float* mine = op + (size_t)warp * 16 * kOld;  // this warp's partial strips
 
   for (int gg = g_begin; gg < g_end; ++gg) {
     const int w = gg / a.gpc, gi = gg % a.gpc;
@@ -325,6 +312,11 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
     const float* mask = a.mask != nullptr ? a.mask + (size_t)w * N * N : nullptr;
     auto win = [&](int u) { return (size_t)w + (size_t)a.nW * (gi * G + u); };
     const bool first = gg == g_begin;
+    // the pair after (strip s, window u) in the walk's order: false past the last
+    auto next = [&](int& s, int& u) {
+      if (++u == gv) u = 0, ++s;
+      return s < nblk;
+    };
 
     // two [Np][kHd] tiles a window: the head's slice of the columns at col0
     // of base0 (rows ld0 elements apart) and at col1 of base1 (ld1); rows past
@@ -343,7 +335,8 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         }
       }
     };
-    // phase A: query strip s's bias and mask rows into raw, a warp a row
+    // phase A: query strip s's bias and mask rows into raw ([16][Np] each), a
+    // warp a row
     auto stage_rows = [&](int s) {
       const int rows = min(16, N - s * 16);
       for (int r = warp; r < rows; r += kRbWarps) {
@@ -359,6 +352,8 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         }
       }
     };
+    // raw -> tile ([16][Np + 8]): (bias + mask) * log2 e; keys past the
+    // window -inf, rows past it 0 over the real keys
     auto combine_rows = [&](int s) {
       for (int r = warp; r < 16; r += kRbWarps) {
         const bool real = s * 16 + r < N;
@@ -400,6 +395,8 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         }
       }
     };
+    // raw -> tile ([16][Np + 8], the strip's keys as rows): -inf past the
+    // window either way
     auto combine_cols = [&](int js) {
       for (int e = tid; e < Np * 16; e += kThreads) {
         const int i = e >> 4, c = e & 15;
@@ -409,7 +406,7 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
           if (mask != nullptr) v += rawm[i * 16 + c];
           v *= kLog2e;
         }
-        tile[i * kRbTld + c] = v;
+        tile[c * tld + i] = v;
       }
     };
 
@@ -417,7 +414,14 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
     stage_kv(a.qkv, C3, C, a.qkv, C3, 2 * C);  // K and V
     stage_rows(0);
     cp_async_commit();
-    for (int e = tid; e < gv * 3 * kHd; e += kThreads) cs[e] = 0.f;
+    for (int e = tid; e < gv * kRbWarps * 3 * kHd; e += kThreads) cs[e] = 0.f;
+    // q and do of a (strip, window): in flight during the pair before
+    uint32_t qf[kKs][4], df[kKs][4], qn[kKs][4], dn[kKs][4];
+    auto load_qd = [&](int s, int u, uint32_t (&qx)[kKs][4], uint32_t (&dx)[kKs][4]) {
+      rm_load_q<kKs>(a.qkv + win(u) * N * C3 + h * kHd, C3, s, N, lane, qx);
+      rm_load_q<kKs>(a.doa + win(u) * N * C + h * kHd, C, s, N, lane, dx);
+    };
+    load_qd(0, 0, qf, df);
     cp_async_wait<0>();
     __syncthreads();
     combine_rows(0);
@@ -432,19 +436,19 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         const size_t wn = win(u);
         const bf16* ks = kv + (size_t)2 * u * Np * kHd;
         const bf16* vs = ks + (size_t)Np * kHd;
-        uint32_t qf[kKs][4], df[kKs][4];
-        rm_load_q<kKs>(a.qkv + wn * N * C3 + h * kHd, C3, s, N, lane, qf);
-        rm_load_q<kKs>(a.doa + wn * N * C + h * kHd, C, s, N, lane, df);
         float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
         for (int kb = warp; kb < nblk; kb += kRbWarps)
           rb_block1<kHd, false>(qf, df, ks, vs, bm, kb, a.smul, lane, m, l, rs);
         rb_quad_sum(l);
         rb_quad_sum(rs);
-        if (t == 0) {
+        if ((lane & 3) == 0) {
           ml[warp * 16 + g] = make_float4(m[0], l[0], rs[0], 0.f);
           ml[warp * 16 + g + 8] = make_float4(m[1], l[1], rs[1], 0.f);
         }
         __syncthreads();
+        int s2 = s, u2 = u;
+        const bool more = next(s2, u2);
+        if (more) load_qd(s2, u2, qn, dn);
         // the warps' (m, l, rowsum) merged in warp order
         float r[2], rinv[2];
 #pragma unroll
@@ -463,7 +467,7 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
           r[hh] = rsum / lsum;
           rinv[hh] = 1.f / lsum;
         }
-        if (warp == 0 && t == 0) {
+        if (warp == 0 && (lane & 3) == 0) {
           float* su = stats + (size_t)u * 3 * Np;
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
@@ -477,21 +481,30 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
 #pragma unroll
         for (int i = 0; i < kRbKeyMax; ++i) {
           const int kb = warp + i * kRbWarps;
-          if (kb >= nblk) break;
-          float ds[2][4];
-          rb_block2<kHd, false>(qf, df, ks, vs, bm, kb, a.smul, a.scale, lane, m, l, r, rinv,
-                                dq, oa, ds);
+          if (kb < nblk) {
+            float ds[2][4];
+            rb_block2<kHd, false>(qf, df, ks, vs, bm, kb, a.smul, a.scale, lane, m, l, r, rinv,
+                                  dq, oa, ds);
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
+            for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) dbr[i][nt][e] = u == 0 ? ds[nt][e] : dbr[i][nt][e] + ds[nt][e];
+              for (int e = 0; e < 4; ++e)
+                dbr[i][nt][e] = u == 0 ? ds[nt][e] : dbr[i][nt][e] + ds[nt][e];
+          }
         }
-        rb_put<kHd>(op + (size_t)warp * 16 * (2 * kHd + 8), dq, oa, lane);
+        // this warp's share of the window's dq column sums, strips in order
+        strip_colsum<kHt, true>(dq, s * 16 + g < N, s * 16 + g + 8 < N,
+                                cs + ((size_t)u * kRbWarps + warp) * 3 * kHd, lane);
+        rb_put<kHd>(mine, dq, oa, lane);
         __syncthreads();
         rb_merge<kHd>(op, rows, a.dqkv + (wn * N + s * 16) * C3 + h * kHd, C3,
                       a.o + (wn * N + s * 16) * C + h * kHd, C);
-        __syncthreads();
-        rb_colsum<kHd>(op, rows, cs + u * 3 * kHd, nullptr);
+        if (more) {
+#pragma unroll
+          for (int k = 0; k < kKs; ++k)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qf[k][e] = qn[k][e], df[k][e] = dn[k][e];
+        }
       }
       // the group's d(bias) of this strip into the block's partial, once
 #pragma unroll
@@ -502,7 +515,8 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = s * 16 + g + 8 * (e >> 1), col = kb * 16 + nt * 8 + 2 * t + (e & 1);
+            const int row = s * 16 + g + 8 * (e >> 1);
+            const int col = kb * 16 + nt * 8 + 2 * (lane & 3) + (e & 1);
             if (row < N && col < N) {
               float* db = dbias + (size_t)row * N + col;
               *db = first ? dbr[i][nt][e] : *db + dbr[i][nt][e];
@@ -521,36 +535,50 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
     stage_kv(a.qkv, C3, 0, a.doa, C, 0);  // q and do
     stage_cols(0);
     cp_async_commit();
+    // k and v of a (strip, window): in flight during the pair before
+    uint32_t kf[kKs][4], vf[kKs][4], kn[kKs][4], vn[kKs][4];
+    auto load_kv = [&](int js, int u, uint32_t (&kx)[kKs][4], uint32_t (&vx)[kKs][4]) {
+      rm_load_q<kKs>(a.qkv + win(u) * N * C3 + C + h * kHd, C3, js, N, lane, kx);
+      rm_load_q<kKs>(a.qkv + win(u) * N * C3 + 2 * C + h * kHd, C3, js, N, lane, vx);
+    };
+    load_kv(0, 0, kf, vf);
     cp_async_wait<0>();
     __syncthreads();
     combine_cols(0);
     __syncthreads();
+    const RbTileBMT bmt{tile + g * tld, tile + (g + 8) * tld};
     for (int js = 0; js < nblk; ++js) {
       if (js + 1 < nblk) stage_cols(js + 1);
       cp_async_commit();
       const int rows = min(16, N - js * 16);
-      const RbTileBMT bmt{tile + 0, g};
       for (int u = 0; u < gv; ++u) {
         const size_t wn = win(u);
         const bf16* qs = kv + (size_t)2 * u * Np * kHd;
         const bf16* dos = qs + (size_t)Np * kHd;
         const float* su = stats + (size_t)u * 3 * Np;
-        uint32_t kf[kKs][4], vf[kKs][4];
-        rm_load_q<kKs>(a.qkv + wn * N * C3 + C + h * kHd, C3, js, N, lane, kf);
-        rm_load_q<kKs>(a.qkv + wn * N * C3 + 2 * C + h * kHd, C3, js, N, lane, vf);
+        int s2 = js, u2 = u;
+        const bool more = next(s2, u2);
+        if (more) load_kv(s2, u2, kn, vn);
         float dk[kHt][4], dv[kHt][4];
         zero_acc<kHd>(dk);
         zero_acc<kHd>(dv);
         for (int qb = warp; qb < nblk; qb += kRbWarps)
           rb_blockB<kHd, false>(kf, vf, qs, dos, bmt, su, su + Np, su + 2 * Np, qb, a.smul,
                                 a.scale, lane, dk, dv);
-        rb_put<kHd>(op + (size_t)warp * 16 * (2 * kHd + 8), dk, dv, lane);
+        float* cw = cs + ((size_t)u * kRbWarps + warp) * 3 * kHd;
+        strip_colsum<kHt, true>(dk, js * 16 + g < N, js * 16 + g + 8 < N, cw + kHd, lane);
+        strip_colsum<kHt, true>(dv, js * 16 + g < N, js * 16 + g + 8 < N, cw + 2 * kHd, lane);
+        rb_put<kHd>(mine, dk, dv, lane);
         __syncthreads();
         bf16* d0 = a.dqkv + (wn * N + js * 16) * C3 + h * kHd;
         rb_merge<kHd>(op, rows, d0 + C, C3, d0 + 2 * C, C3);
-        __syncthreads();
-        rb_colsum<kHd>(op, rows, cs + u * 3 * kHd + kHd, cs + u * 3 * kHd + 2 * kHd);
         __syncthreads();  // op is rewritten by the next window's walk
+        if (more) {
+#pragma unroll
+          for (int k = 0; k < kKs; ++k)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) kf[k][e] = kn[k][e], vf[k][e] = vn[k][e];
+        }
       }
       cp_async_wait<0>();
       __syncthreads();
@@ -559,9 +587,13 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         __syncthreads();
       }
     }
+    // the windows' dqkv column sums: the warps' shares in warp order
     for (int e = tid; e < gv * 3 * kHd; e += kThreads) {
       const int u = e / (3 * kHd), j = e % (3 * kHd);
-      a.dqkvb_part[win(u) * C3 + (j / kHd) * C + h * kHd + j % kHd] = cs[e];
+      const float* cw = cs + (size_t)u * kRbWarps * 3 * kHd + j;
+      float sum = cw[0];
+      for (int q = 1; q < kRbWarps; ++q) sum += cw[q * 3 * kHd];
+      a.dqkvb_part[win(u) * C3 + (j / kHd) * C + h * kHd + j % kHd] = sum;
     }
     __syncthreads();  // the next group restages every tile
   }

@@ -10,22 +10,22 @@ namespace vadcl {
 
 constexpr int kRbWarps = 8;   // warps of a block of the core (both layouts)
 constexpr int kRbKeyMax = 4;  // key blocks a warp holds a strip's d(bias) of
-constexpr int kRbTld = 20;    // floats a row of phase B's (bias + mask) column tile
 
 // Byte offsets of one block's shared memory for windows of n tokens, head
 // width hd and `group` G windows a block:
 //   kv   two [Np][hd] bf16 tiles for each window of the group, 16-byte chunks
 //        swizzled (rm_swz): K and V in phase A (query strips), q and dout's
 //        head slice in phase B (key strips);
-//   t    the strip's (bias + mask) * log2 e, fp32: phase A 16 rows of Np + 8,
-//        phase B Np rows of kRbTld (the strip's 16 keys);
+//   t    the strip's (bias + mask) * log2 e, fp32, 16 rows of Np + 8: phase A
+//        the strip's query rows, phase B its keys (every query a column);
 //   raw  the next strip's bias and mask as copied, fp32, 16 x Np each;
 //   st   the row statistics (m, l, rowsum(dp * P)) of every query row of each
 //        window of the group, fp32, [G][3][Np];
 //   ml   each warp's partial (m, l, rowsum) of its strip's 16 rows, float4;
 //   op   each warp's two partial 16 x hd output strips (dq and o; dk and dv),
 //        fp32, rows of 2 hd + 8;
-//   cs   each window's column sums of dq, dk, dv, fp32, [G][3 hd].
+//   cs   each warp's share of each window's column sums of dq, dk, dv, fp32,
+//        [G][kRbWarps][3 hd].
 // `group` 0 is the direct layout, for windows no group fits: q, K, V and
 // dout's slice of one window's head in rows padded to hd + 8, its row
 // statistics and the strips' column sums, the footprint of the body before
@@ -43,14 +43,13 @@ __host__ __device__ inline RowsBwdLayout rows_bwd_layout(int n, int hd, int grou
         2 * 4 * np * (hd + 8) + 4 * (3 * np + np / 16 * 3 * hd);
     return l;
   }
-  const size_t ta = 16 * (np + 8), tb = np * kRbTld;
   l.t = (size_t)group * 2 * np * hd * 2;
-  l.raw = l.t + 4 * (ta > tb ? ta : tb);
+  l.raw = l.t + 16 * (np + 8) * 4;
   l.st = l.raw + 2 * 16 * np * 4;
   l.ml = l.st + (size_t)group * 3 * np * 4;
   l.op = l.ml + (size_t)kRbWarps * 16 * 16;
   l.cs = l.op + (size_t)kRbWarps * 16 * (2 * hd + 8) * 4;
-  l.bytes = l.cs + (size_t)group * 3 * hd * 4;
+  l.bytes = l.cs + (size_t)group * kRbWarps * 3 * hd * 4;
   return l;
 }
 

@@ -188,7 +188,7 @@ def rows_warps(head_dim: int) -> int:
     return 16 if head_dim <= 32 else 8
 
 
-_ROWS_BWD_WARPS, _ROWS_BWD_KEY_MAX, _ROWS_BWD_TLD = 8, 4, 20  # window_attn_bwd_rows_mma.cuh
+_ROWS_BWD_WARPS, _ROWS_BWD_KEY_MAX = 8, 4  # csrc/window_attn_bwd_rows_mma.cuh
 
 
 def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False,
@@ -204,10 +204,10 @@ def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     padded rows (38,400 B at N = 392, head_dim 16).  bf16 backward
     (``csrc/window_attn_bwd_rows_mma.cuh:rows_bwd_layout``): at ``group`` G
     >= 1, two tiles of the head of G windows (K and V, then q and dout's
-    slice), the strip's (bias + mask) tile (16 rows, or the strip's 16
-    columns of every row), the next strip's bias and mask, the row
-    statistics of G windows, the warps' partial statistics and strips, the
-    windows' column sums (228,096 B at N = 392, head_dim 16, G = 4); at
+    slice), the strip's (bias + mask) tile (its 16 rows, or its 16 keys as
+    rows), the next strip's bias and mask, the row statistics of G windows,
+    the warps' partial statistics and strips and their shares of the
+    windows' column sums (227,584 B at N = 392, head_dim 16, G = 4); at
     ``group`` 0 the direct layout: q, K, V and dout's slice of one head in
     padded rows, three row statistics and the strips' column sums (86,400 B
     at N = 392, head_dim 16).  fp32: K and V of one head (the backward also
@@ -225,8 +225,8 @@ def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
         if group == 0:
             return 2 * 4 * m * (hd + 8) + 4 * (3 * m + m // 16 * 3 * hd)
         w = _ROWS_BWD_WARPS
-        return (group * 4 * m * hd + 4 * max(16 * (m + 8), m * _ROWS_BWD_TLD) + 128 * m
-                + group * 12 * m + 256 * w + 64 * w * (2 * hd + 8) + group * 12 * hd)
+        return (group * 4 * m * hd + 64 * (m + 8) + 128 * m + group * 12 * m + 256 * w
+                + 64 * w * (2 * hd + 8) + group * w * 12 * hd)
     if not backward:
         return 4 * (2 * n * (hd + 1) + _ROWS_WARPS * (n + hd))
     return 4 * (4 * n * hd + 3 * n + 2 * _ROWS_WARPS * n)
