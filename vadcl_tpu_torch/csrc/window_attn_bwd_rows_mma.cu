@@ -506,22 +506,51 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
             for (int e = 0; e < 4; ++e) qf[k][e] = qn[k][e], df[k][e] = dn[k][e];
         }
       }
-      // the group's d(bias) of this strip into the block's partial, once
+      // the group's d(bias) of this strip into the block's partial, once: the
+      // partial's old values all read first (one round trip, not one per
+      // element), then the sums stored; pairs of columns as one 8-byte access
+      // where N is even
+      if (!first) {
+#pragma unroll
+        for (int i = 0; i < kRbKeyMax; ++i) {
+          const int kb = warp + i * kRbWarps;
+          if (kb < nblk) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const int row = s * 16 + g + 8 * hh, col = kb * 16 + nt * 8 + 2 * (lane & 3);
+                const float* db = dbias + (size_t)row * N + col;
+                if (row < N && (N & 1) == 0 && col < N) {
+                  const float2 o2 = *reinterpret_cast<const float2*>(db);
+                  dbr[i][nt][2 * hh] += o2.x, dbr[i][nt][2 * hh + 1] += o2.y;
+                } else if (row < N) {
+                  if (col < N) dbr[i][nt][2 * hh] += db[0];
+                  if (col + 1 < N) dbr[i][nt][2 * hh + 1] += db[1];
+                }
+              }
+          }
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kRbKeyMax; ++i) {
         const int kb = warp + i * kRbWarps;
-        if (kb >= nblk) break;
+        if (kb < nblk) {
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+          for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = s * 16 + g + 8 * (e >> 1);
-            const int col = kb * 16 + nt * 8 + 2 * (lane & 3) + (e & 1);
-            if (row < N && col < N) {
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = s * 16 + g + 8 * hh, col = kb * 16 + nt * 8 + 2 * (lane & 3);
               float* db = dbias + (size_t)row * N + col;
-              *db = first ? dbr[i][nt][e] : *db + dbr[i][nt][e];
+              if (row < N && (N & 1) == 0 && col < N) {
+                *reinterpret_cast<float2*>(db) =
+                    make_float2(dbr[i][nt][2 * hh], dbr[i][nt][2 * hh + 1]);
+              } else if (row < N) {
+                if (col < N) db[0] = dbr[i][nt][2 * hh];
+                if (col + 1 < N) db[1] = dbr[i][nt][2 * hh + 1];
+              }
             }
-          }
+        }
       }
       cp_async_wait<0>();
       __syncthreads();
