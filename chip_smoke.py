@@ -11,8 +11,9 @@ Phases (any failure raises and the script exits non-zero):
      process per source, all started together); the Python mirrors of the
      kernels' shared-memory sizes (the routes' fit predicates and the body
      choice of kernels 7, 8 and 9: whole-tile or row-tiled; the windows a
-     block of the bf16 row-tiled forward core takes) are held against the
-     library's; kernel 10 and the whole-block kernels must fit at the
+     block of the bf16 row-tiled forward and backward cores takes; kernel
+     B's CUDA-core block and kernel C's instance by width) are held against
+     the library's; kernel 10 and the whole-block kernels must fit at the
      four flagship geometries in bf16 and fp32, every window of up to
      392 tokens at the flagship widths and head width 32 must map to a body,
      and every flagship geometry must take the tensor-core bodies of 5 and 6.
@@ -34,7 +35,11 @@ Phases (any failure raises and the script exits non-zero):
      training, scoring and 8-frame batches), each timed beside its bytes
      bound; two calls, and a call with ``allow_tf32`` flipped, give the same
      bits; then BD = 1, 17 and 130, K = 1, 130 and 1000, HW = 49 and 785,
-     maps at a 4-byte offset and a map row equal to a center.
+     maps at a 4-byte offset and a map row equal to a center.  Kernels B and
+     C above the flagship's widths: bf16 ``ln_mlp`` at C = 256 / hidden 1024
+     and C = 100 / hidden 400 on its CUDA-core body (``ln_mlp_tiles``), fp32
+     ``cluster_assign`` at C = 200, 256, 384, 512 and 768 (each wider
+     instance), two calls for the same bits, C = 769 refused.
   2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
      modes, 8: window attention, the whole-block backward) against their
      plain versions at the training batch of 4, bf16 and fp32, every
@@ -52,8 +57,12 @@ Phases (any failure raises and the script exits non-zero):
      cut short, head widths 32, 48 and 64, N % 4 != 0, the smallest N the
      row-tiled body takes, one strip, no qkv bias), each called twice for the
      same bits; then the frame-8 path's four geometries (forward at batch 16,
-     backward at batch 4), timed, the forward's three launches apart by the
-     profiler, shifted and not, and the backward's workspace.
+     backward at batch 4), timed, each body's launches apart by the
+     profiler, shifted and not, two calls for the same bits, and the
+     backward's workspace; the bf16 backward core's edge cases (groups cut
+     short, no mask, head widths 32-64, the smallest N, one strip, the direct
+     layout above N = 512 up to the body before's largest N at each head
+     width).
   3. the flagship model (shanghaitech, fused attention and fused cluster
      heads) in fp32 with TF32 off, the card (kernels) against the CPU (plain
      versions) on 224^2 clips: predict mode under ``"base"``, ``"packed"``,
@@ -66,6 +75,10 @@ Phases (any failure raises and the script exits non-zero):
      depth, ``"fold"`` on a 240^2 clip, whose 60^2 and 30^2 token grids need
      window padding, and ``"fold"`` in reconstruction on 8-frame clips at
      224^2 and 240^2 (reduced depth).
+  3c. a fused tiny model at ``embed_dim`` 128 (C = 128 and 256, head width
+     32): forward, loss and every gradient, card against CPU in fp32 and
+     bf16; kernel B's and kernel 5's CUDA-core bodies and kernel C's
+     two-part instance must launch.
   4. the scoring path in bf16: in-memory uint8 videos through
      ``evaluate_videos`` (PSNR -> anomaly score -> per-scene AUC) with
      batch_windows=16, once per ``attn_kernel`` in fold, base, packed,
@@ -85,8 +98,9 @@ Phases (any failure raises and the script exits non-zero):
      ``"fold_mix"`` train step is refused before any launch.
 No earlier path was cut: the whole run takes about four minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
-kernels (its time beside its roofline bound on an H100's published peaks:
-every number in it but the bound is measured in this run);
+kernels and kernel B's CUDA-core body (its time beside its roofline bound on
+an H100's published peaks: every number in it but the bound is measured in
+this run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -827,10 +841,16 @@ def phase_width_kernels() -> dict:
             stats["ln_mlp_tiles"] = dict(
                 ms=ms, plain_ms=pms, shape=f"x ({tokens},256) bf16, hidden 1024",
                 **bound([x, got, *p], mlp_flops(tokens, C), "bf16"))
-    x = torch.randn(2048, 96, generator=gen).to(DEV)
+    # the CUDA-core body forced at the flagship's enc stage 0 width (which the
+    # route gives the tensor-core body), beside it, and in fp32 (its route)
     p = _mlp_case(96, 384, gen)
-    errs.append(check_close("ln_mlp C=96 fp32 (CUDA-core body)", ln_mlp_tiles(x, *p),
-                            ln_mlp_plain(x, *p), *BOUNDS[torch.float32]))
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(4, 2, 56, 56, 96, generator=gen).to(DEV, dtype)
+        name = f"ln_mlp_tiles C=96 hidden 384 {str(dtype)[6:]}"
+        errs.append(check_close(name, ln_mlp_tiles(x, *p), ln_mlp_plain(x, *p), *BOUNDS[dtype]))
+        if dtype == torch.bfloat16:
+            print(f"    time: CUDA-core body {cuda_ms(lambda: ln_mlp_tiles(x, *p)):.4f} ms, "
+                  f"tensor-core body {cuda_ms(lambda: ln_mlp(x, *p)):.4f} ms")
     stats["ln_mlp_tiles"]["max_abs_err"] = max(errs)
 
     for n, c, k in WIDE_CLUSTER_CASES:

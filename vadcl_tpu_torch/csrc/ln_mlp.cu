@@ -11,9 +11,10 @@
 // (exact to ~2 ulp) where the Pallas kernel uses the Abramowitz-Stegun 7.1.26
 // form (1.5e-7 abs error).
 //
-// Two kernels, one per compute dtype.
+// Two bodies, picked by width (ops/ln_mlp.py:mlp_fwd_body).
 //
-// bf16 (the model's compute dtype on the card): ln_mlp_wgmma_kernel, a
+// bf16 at C % 16 == 0, C <= 192 and a hidden width divisible by 128 (every
+// preset's widths): ln_mlp_wgmma_kernel, a
 // persistent grid of at most one block per SM.  A block is two consumer
 // warpgroups (64 tokens each; one where the token count would leave SMs
 // without a block) and a producer warpgroup, and no block-wide barrier after
@@ -64,10 +65,14 @@
 // table: a cheaper erf of the same accuracy, 64-token tiles with two blocks per
 // SM at C = 192, TMA multicast of the weight chunks across a cluster.
 //
-// fp32 (the path the model's exact comparisons run): ln_mlp_kernel, CUDA-core
-// loops, 32 tokens per block, one block per token tile.  Its chunk loop lives
-// in mlp_tail.cuh, which the whole-Swin-block kernel (fold_attn.cuh) shares
-// together with the WMMA tail that kernel still runs.
+// fp32 (the path the model's exact comparisons run) and bf16 at every other
+// width (C = 256 of an embed_dim 128 model's inner stages, C % 16 != 0):
+// ln_mlp_kernel<T>, CUDA-core loops in fp32 on T loads and stores, 32 tokens
+// per block, one block per token tile, z, h and g rounded to T.  Its chunk
+// loop lives in mlp_tail.cuh, which the whole-Swin-block kernel
+// (fold_attn.cuh) shares (its fp32 instance) together with the WMMA tail that
+// kernel still runs.  What bounds it: every product on the fp32 units, and
+// both weight matrices re-read from L2 by every block of 32 tokens.
 #include "mlp_tail.cuh"
 #include "mma.cuh"
 

@@ -1,6 +1,7 @@
-// The deterministic second pass of kernels 5 and 6 on the tensor cores
-// (reduce_mma.cu).  Kernel 8, its row-tiled body and the whole-block backward
-// keep reduce.cu's fp32 pass.
+// The deterministic second pass of kernels 5 and 6 and of kernel 8's bf16
+// row-tiled body on the tensor cores (reduce_mma.cu).  Kernel 8's whole-tile
+// body, the fp32 bodies and the whole-block backward keep reduce.cu's fp32
+// pass.
 #pragma once
 
 #include <cstddef>

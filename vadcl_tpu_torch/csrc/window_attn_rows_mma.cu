@@ -386,8 +386,8 @@ cudaError_t launch_core_hd(const RowsMmaArgs& a, int hd, size_t smem, unsigned b
 // --- the forward's token-wise products --------------------------------------
 //   out[T, Nc] = round((A[T, K] . B[K, Nc] (+ bias[Nc])) * (scale on the first
 //   scale_cols columns)), bf16 A, B, out, fp32 sum: the qkv product and the
-//   projection, the same arithmetic as window_rows.cuh's rows_gemm_bf16_kernel
-//   (which the backward keeps).  Bound by bytes (x 77 MB in, qkv 231 MB out at
+//   projection, and (through window_rows.cuh:launch_rows_gemm) the backward's
+//   qkv, dout . W_proj^T and dx products.  Bound by bytes (x 77 MB in, qkv 231 MB out at
 //   (1024, 392, 96)); that kernel read A once per 64-column tile and stored
 //   4 bytes a lane.  Here a block of four warps owns 64 rows and every column:
 //   its A rows are copied once (cp.async), B walks past in 64-column chunks
