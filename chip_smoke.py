@@ -2026,7 +2026,7 @@ REPLACES = {
                        "vadcl_tpu/ops/pallas_attn_fold.py:870"),
     "window_attention_fused_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                     "vadcl_tpu/ops/pallas_attn.py:30"),
-    "window_attention_fused_bwd_rows": ("vadcl_tpu_torch/csrc/window_attn_bwd_rows.cu",
+    "window_attention_fused_bwd_rows": ("vadcl_tpu_torch/csrc/window_attn_bwd_rows_mma.cu",
                                         "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
     "window_attention_packed_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                      "vadcl_tpu/ops/pallas_attn.py:113"),
