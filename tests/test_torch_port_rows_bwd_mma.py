@@ -16,7 +16,9 @@ in warp order; ``r = rowsum / l``; the second walk's ``P = 2^(v' - m) / l``,
 with the warps' partial strips summed in warp order; d(bias) summed over a
 group's windows in window order, then into the block's partial once per
 group, the partials summed in order; phase B's walk over the query blocks
-from phase A's row statistics (``dk``, ``dv``); the column sums of the
+from phase A's row statistics (``dk``, ``dv``), the group's windows
+together, 8 / G warps a window each taking every (8 / G)-th query block,
+merged in warp order; the column sums of the
 unrounded dqkv per window, each warp's share over its partial strips, strips
 in order, then the warps in order; the weight sums and dx from the rounded
 dqkv.
@@ -127,10 +129,11 @@ def _ordered(parts):
     return out
 
 
-def core_emulation(q, k, v, do, tile, tile_t, smul, scale, warps):
+def core_emulation(q, k, v, do, tile, tile_t, smul, scale, warps, warps_b):
     """One window-head core for (W, nh, Np, hd) q, k, v, do (bf16 values,
     padded rows zero), the phase A tile (.., Np, Np) and phase B's (key rows
-    first), with ``warps`` warps on a strip (1: the direct layout).  Returns
+    first), with ``warps`` warps on a query strip and ``warps_b`` on a key
+    strip of a window (1 and 1: the direct layout).  Returns
     o, dq, dk, dv (fp32 before rounding), ds (.., Np, Np) and the warps'
     partial dq, dk, dv (lists of (.., Np, hd))."""
     nblk = q.shape[-2] // 16
@@ -155,8 +158,9 @@ def core_emulation(q, k, v, do, tile, tile_t, smul, scale, warps):
     dt = v @ do.transpose(-2, -1)
     pt = ex2(fma32(st, smul, tile_t) - m[..., None, :]) / l[..., None, :]
     dst = bf16(pt * (dt - r[..., None, :]) * np.float32(scale))
-    dks = [_acc(dst, q, kbs) for kbs in blocks]
-    dvs = [_acc(bf16(pt), do, kbs) for kbs in blocks]
+    qblocks = _blocks_of(warps_b, nblk)
+    dks = [_acc(dst, q, qbs) for qbs in qblocks]
+    dvs = [_acc(bf16(pt), do, qbs) for qbs in qblocks]
     return o, _ordered(dqs), _ordered(dks), _ordered(dvs), ds, (dqs, dks, dvs)
 
 
@@ -191,7 +195,8 @@ def backward_emulation(x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_w
     classes = Bn // per
     G = rows_bwd_group(N, C, nh, per)
     o, dq, dk, dv, ds, parts = core_emulation(q, k, v, do, tile, tile_t,
-                                              L2E * np.float32(scale), scale, WARPS if G else 1)
+                                              L2E * np.float32(scale), scale,
+                                              WARPS if G else 1, WARPS // G if G else 1)
     ds = ds[..., :N, :N]
     chunk, chunks = _chunks(Bn, nh)
     if G:  # groups of windows sharing a mask index, spread over the head's blocks

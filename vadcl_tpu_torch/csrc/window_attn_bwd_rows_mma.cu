@@ -42,9 +42,12 @@
 //     d(bias) partial once per strip and group (nothing atomic: every element
 //     has one owner, so two calls give the same bits).  The warps' partial dq
 //     and o strips are summed in warp order through shared memory;
-//   * phase B walks the 16-row key strips the same way, with q and do of the
-//     group in shared memory and the strip's (bias + mask) columns staged as
-//     a column tile: P and ds from phase A's row statistics, dk and dv;
+//   * phase B walks the 16-row key strips with q and do of the group in
+//     shared memory and the strip's (bias + mask) for its keys staged as a
+//     tile: P and ds from phase A's row statistics, dk and dv.  No d(bias)
+//     ties a warp to a block here, so the group's windows walk together,
+//     8 / G warps a window splitting its query blocks, one block barrier a
+//     strip, the partial strips merged per window in warp order;
 //   * at N above 512 (or where not one window fits) the direct layout
 //     (rows_bwd_direct_kernel) takes the body before it's footprint: a block
 //     per (chunk of consecutive windows, head), q, K, V, do of one window in
@@ -258,19 +261,19 @@ __device__ __forceinline__ void rb_put(float* slot, const float (&a)[kHd / 8][4]
   }
 }
 
-// The block's kRbWarps partial strips summed in warp order; row r of the
-// strip (rows past the window skipped) goes rounded to dst0 (the first kHd
-// columns; rows ld0 elements apart) and dst1 (the second; ld1).  All threads.
+// The `slots` partial strips from op on (consecutive warps' slots) summed in
+// warp order; row r of the strip (rows past the window skipped) goes rounded
+// to dst0 (the first kHd columns; rows ld0 elements apart) and dst1 (the
+// second; ld1).  All threads.
 template <int kHd>
-__device__ __forceinline__ void rb_merge(float* op, int rows, bf16* dst0, size_t ld0, bf16* dst1,
-                                         size_t ld1) {
+__device__ __forceinline__ void rb_merge(const float* op, int slots, int rows, bf16* dst0,
+                                         size_t ld0, bf16* dst1, size_t ld1) {
   constexpr int kLd = 2 * kHd + 8;
   for (int e = threadIdx.x; e < 16 * kHd; e += kRbWarps * kWarp) {
     const int r = e / kHd, col = 2 * (e % kHd);  // col < 2 kHd
     if (r >= rows) continue;
     float2 acc = *reinterpret_cast<const float2*>(op + r * kLd + col);
-#pragma unroll
-    for (int w = 1; w < kRbWarps; ++w) {
+    for (int w = 1; w < slots; ++w) {
       const float2 v = *reinterpret_cast<const float2*>(op + (w * 16 + r) * kLd + col);
       acc.x += v.x;
       acc.y += v.y;
@@ -497,7 +500,7 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
                                 cs + ((size_t)u * kRbWarps + warp) * 3 * kHd, lane);
         rb_put<kHd>(mine, dq, oa, lane);
         __syncthreads();
-        rb_merge<kHd>(op, rows, a.dqkv + (wn * N + s * 16) * C3 + h * kHd, C3,
+        rb_merge<kHd>(op, kRbWarps, rows, a.dqkv + (wn * N + s * 16) * C3 + h * kHd, C3,
                       a.o + (wn * N + s * 16) * C + h * kHd, C);
         if (more) {
 #pragma unroll
@@ -561,56 +564,58 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
     }
 
     // ---- phase B: key strips ----
+    // The windows of the group walk together: kRbWarps / G warps a window
+    // (no d(bias) here ties a warp to a key block across windows), each taking
+    // every (kRbWarps / G)-th query block, merged per window in warp order.
+    const int wu = kRbWarps / G, ub = warp / wu, part = warp % wu;
+    const bool active = ub < gv;
     stage_kv(a.qkv, C3, 0, a.doa, C, 0);  // q and do
     stage_cols(0);
     cp_async_commit();
-    // k and v of a (strip, window): in flight during the pair before
+    // k and v of this warp's window's key strip: in flight during the strip
+    // before
     uint32_t kf[kKs][4], vf[kKs][4], kn[kKs][4], vn[kKs][4];
-    auto load_kv = [&](int js, int u, uint32_t (&kx)[kKs][4], uint32_t (&vx)[kKs][4]) {
-      rm_load_q<kKs>(a.qkv + win(u) * N * C3 + C + h * kHd, C3, js, N, lane, kx);
-      rm_load_q<kKs>(a.qkv + win(u) * N * C3 + 2 * C + h * kHd, C3, js, N, lane, vx);
+    auto load_kv = [&](int js, uint32_t (&kx)[kKs][4], uint32_t (&vx)[kKs][4]) {
+      rm_load_q<kKs>(a.qkv + win(ub) * N * C3 + C + h * kHd, C3, js, N, lane, kx);
+      rm_load_q<kKs>(a.qkv + win(ub) * N * C3 + 2 * C + h * kHd, C3, js, N, lane, vx);
     };
-    load_kv(0, 0, kf, vf);
+    if (active) load_kv(0, kf, vf);
     cp_async_wait<0>();
     __syncthreads();
     combine_cols(0);
     __syncthreads();
     const RbTileBMT bmt{tile + g * tld, tile + (g + 8) * tld};
+    const bf16* qs = kv + (size_t)2 * ub * Np * kHd;
+    const bf16* dos = qs + (size_t)Np * kHd;
+    const float* su = stats + (size_t)ub * 3 * Np;
+    float* cw = cs + ((size_t)ub * kRbWarps + warp) * 3 * kHd;
     for (int js = 0; js < nblk; ++js) {
       if (js + 1 < nblk) stage_cols(js + 1);
       cp_async_commit();
       const int rows = min(16, N - js * 16);
-      for (int u = 0; u < gv; ++u) {
-        const size_t wn = win(u);
-        const bf16* qs = kv + (size_t)2 * u * Np * kHd;
-        const bf16* dos = qs + (size_t)Np * kHd;
-        const float* su = stats + (size_t)u * 3 * Np;
-        int s2 = js, u2 = u;
-        const bool more = next(s2, u2);
-        if (more) load_kv(s2, u2, kn, vn);
+      if (active) {
+        if (js + 1 < nblk) load_kv(js + 1, kn, vn);
         float dk[kHt][4], dv[kHt][4];
         zero_acc<kHd>(dk);
         zero_acc<kHd>(dv);
-        for (int qb = warp; qb < nblk; qb += kRbWarps)
+        for (int qb = part; qb < nblk; qb += wu)
           rb_blockB<kHd, false>(kf, vf, qs, dos, bmt, su, su + Np, su + 2 * Np, qb, a.smul,
                                 a.scale, lane, dk, dv);
-        float* cw = cs + ((size_t)u * kRbWarps + warp) * 3 * kHd;
         strip_colsum<kHt, true>(dk, js * 16 + g < N, js * 16 + g + 8 < N, cw + kHd, lane);
         strip_colsum<kHt, true>(dv, js * 16 + g < N, js * 16 + g + 8 < N, cw + 2 * kHd, lane);
         rb_put<kHd>(mine, dk, dv, lane);
-        __syncthreads();
-        bf16* d0 = a.dqkv + (wn * N + js * 16) * C3 + h * kHd;
-        rb_merge<kHd>(op, rows, d0 + C, C3, d0 + 2 * C, C3);
-        __syncthreads();  // op is rewritten by the next window's walk
-        if (more) {
 #pragma unroll
-          for (int k = 0; k < kKs; ++k)
+        for (int k = 0; k < kKs; ++k)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) kf[k][e] = kn[k][e], vf[k][e] = vn[k][e];
-        }
+          for (int e = 0; e < 4; ++e) kf[k][e] = kn[k][e], vf[k][e] = vn[k][e];
+      }
+      __syncthreads();
+      for (int u = 0; u < gv; ++u) {
+        bf16* d0 = a.dqkv + (win(u) * N + js * 16) * C3 + h * kHd;
+        rb_merge<kHd>(op + (size_t)u * wu * 16 * kOld, wu, rows, d0 + C, C3, d0 + 2 * C, C3);
       }
       cp_async_wait<0>();
-      __syncthreads();
+      __syncthreads();  // (also: op is rewritten by the next strip's walk)
       if (js + 1 < nblk) {
         combine_cols(js + 1);
         __syncthreads();
