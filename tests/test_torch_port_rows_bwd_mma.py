@@ -8,10 +8,12 @@ and ``dout . W_proj^T`` products rounded once from fp32 sums; per head, the
 groups of G windows that share a mask index (``rows_bwd_group``; 0: the
 direct layout, one warp a strip) spread over the head's blocks in order; the
 strip's (bias + mask) tile summed first and scaled by log2 e; scores
-``v' = fma(s, scale * log2 e, tile)``; phase A's first walk, each of the 8
-warps over every 8th key block, with the online (m, l, rowsum(dp * 2^(v' -
-m))) kept per lane of a quad and merged over the quad, then over the warps
-in warp order; ``r = rowsum / l``; the second walk's ``P = 2^(v' - m) / l``,
+``v' = fma(s, scale * log2 e, tile)``; phase A's first walk, the group's
+windows together, 8 / G warps a window each over every (8 / G)-th key block,
+with the online (m, l, rowsum(dp * 2^(v' - m))) kept per lane of a quad and
+merged over the quad, then over the window's warps in warp order;
+``r = rowsum / l``; the second walk, a window at a time, each of the 8 warps
+over every 8th key block: ``P = 2^(v' - m) / l``,
 ``ds = P * (dp - r)``, ``dq += round(ds * scale) . k``, ``o += round(P) . v``
 with the warps' partial strips summed in warp order; d(bias) summed over a
 group's windows in window order, then into the block's partial once per
@@ -132,8 +134,9 @@ def _ordered(parts):
 def core_emulation(q, k, v, do, tile, tile_t, smul, scale, warps, warps_b):
     """One window-head core for (W, nh, Np, hd) q, k, v, do (bf16 values,
     padded rows zero), the phase A tile (.., Np, Np) and phase B's (key rows
-    first), with ``warps`` warps on a query strip and ``warps_b`` on a key
-    strip of a window (1 and 1: the direct layout).  Returns
+    first), with ``warps`` warps on a query strip's second walk and
+    ``warps_b`` on its first walk and on a key strip of a window (1 and 1:
+    the direct layout).  Returns
     o, dq, dk, dv (fp32 before rounding), ds (.., Np, Np) and the warps'
     partial dq, dk, dv (lists of (.., Np, hd))."""
     nblk = q.shape[-2] // 16
@@ -141,7 +144,7 @@ def core_emulation(q, k, v, do, tile, tile_t, smul, scale, warps, warps_b):
     d = do @ v.transpose(-2, -1)
     vv = fma32(s, smul, tile)
     blocks = _blocks_of(warps, nblk)
-    states = [_walk1(vv, d, kbs) for kbs in blocks]
+    states = [_walk1(vv, d, kbs) for kbs in _blocks_of(warps_b, nblk)]
     m = torch.stack([st[0] for st in states]).amax(0)
     l, r = torch.zeros_like(m), torch.zeros_like(m)
     for mw, lw, rw in states:  # merged in warp order

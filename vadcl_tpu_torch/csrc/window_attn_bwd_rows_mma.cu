@@ -34,9 +34,11 @@
 //     mask rows are copied once by cp.async during the strip before, summed
 //     and scaled into one fp32 tile and read by every window of the group.
 //     K and V of the group's windows sit in shared memory as swizzled
-//     16-byte chunks.  For each window in turn the block's 8 warps split the
-//     strip's key blocks (every 8th): a first walk gives each warp's running
-//     (m, l, rowsum), merged in warp order; a second forms P, ds, dq and o.
+//     16-byte chunks.  A first walk gives the running (m, l, rowsum) of
+//     every window of the group at once, 8 / G warps a window splitting its
+//     key blocks, merged in warp order; then for each window in turn the
+//     block's 8 warps split the strip's key blocks (every 8th) in a second
+//     walk that forms P, ds, dq and o.
 //     A warp keeps the ds of its key blocks in registers across the group's
 //     windows, summed in window order, and adds the sum into the block's
 //     d(bias) partial once per strip and group (nothing atomic: every element
@@ -315,11 +317,6 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
     const float* mask = a.mask != nullptr ? a.mask + (size_t)w * N * N : nullptr;
     auto win = [&](int u) { return (size_t)w + (size_t)a.nW * (gi * G + u); };
     const bool first = gg == g_begin;
-    // the pair after (strip s, window u) in the walk's order: false past the last
-    auto next = [&](int& s, int& u) {
-      if (++u == gv) u = 0, ++s;
-      return s < nblk;
-    };
 
     // two [Np][kHd] tiles a window: the head's slice of the columns at col0
     // of base0 (rows ld0 elements apart) and at col1 of base1 (ld1); rows past
@@ -414,17 +411,21 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
     };
 
     // ---- phase A: query strips ----
+    // Walk 1 has no d(bias) either: the group's windows take it together, 8 / G
+    // warps a window each taking every (8 / G)-th key block; walk 2 then takes
+    // the windows in turn, all warps on one, every 8th key block a warp.
+    const int wu = kRbWarps / G, ub = warp / wu, part = warp % wu;
+    const bool active = ub < gv;
     stage_kv(a.qkv, C3, C, a.qkv, C3, 2 * C);  // K and V
     stage_rows(0);
     cp_async_commit();
     for (int e = tid; e < gv * kRbWarps * 3 * kHd; e += kThreads) cs[e] = 0.f;
-    // q and do of a (strip, window): in flight during the pair before
+    // q and do of a (strip, window): in flight during the walk before
     uint32_t qf[kKs][4], df[kKs][4], qn[kKs][4], dn[kKs][4];
     auto load_qd = [&](int s, int u, uint32_t (&qx)[kKs][4], uint32_t (&dx)[kKs][4]) {
       rm_load_q<kKs>(a.qkv + win(u) * N * C3 + h * kHd, C3, s, N, lane, qx);
       rm_load_q<kKs>(a.doa + win(u) * N * C + h * kHd, C, s, N, lane, dx);
     };
-    load_qd(0, 0, qf, df);
     cp_async_wait<0>();
     __syncthreads();
     combine_rows(0);
@@ -434,33 +435,42 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
       if (s + 1 < nblk) stage_rows(s + 1);
       cp_async_commit();
       const int rows = min(16, N - s * 16);
-      float dbr[kRbKeyMax][2][4];
-      for (int u = 0; u < gv; ++u) {
-        const size_t wn = win(u);
-        const bf16* ks = kv + (size_t)2 * u * Np * kHd;
-        const bf16* vs = ks + (size_t)Np * kHd;
+      load_qd(s, 0, qn, dn);  // walk 2's first window, in flight during walk 1
+      if (active) {
+        uint32_t q1[kKs][4], d1[kKs][4];
+        load_qd(s, ub, q1, d1);
+        const bf16* ks = kv + (size_t)2 * ub * Np * kHd;
         float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
-        for (int kb = warp; kb < nblk; kb += kRbWarps)
-          rb_block1<kHd, false>(qf, df, ks, vs, bm, kb, a.smul, lane, m, l, rs);
+        for (int kb = part; kb < nblk; kb += wu)
+          rb_block1<kHd, false>(q1, d1, ks, ks + (size_t)Np * kHd, bm, kb, a.smul, lane, m, l,
+                                rs);
         rb_quad_sum(l);
         rb_quad_sum(rs);
         if ((lane & 3) == 0) {
           ml[warp * 16 + g] = make_float4(m[0], l[0], rs[0], 0.f);
           ml[warp * 16 + g + 8] = make_float4(m[1], l[1], rs[1], 0.f);
         }
-        __syncthreads();
-        int s2 = s, u2 = u;
-        const bool more = next(s2, u2);
-        if (more) load_qd(s2, u2, qn, dn);
-        // the warps' (m, l, rowsum) merged in warp order
-        float r[2], rinv[2];
+      }
+      __syncthreads();
+      float dbr[kRbKeyMax][2][4];
+      for (int u = 0; u < gv; ++u) {
+        const size_t wn = win(u);
+        const bf16* ks = kv + (size_t)2 * u * Np * kHd;
+        const bf16* vs = ks + (size_t)Np * kHd;
+#pragma unroll
+        for (int k = 0; k < kKs; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[k][e] = qn[k][e], df[k][e] = dn[k][e];
+        if (u + 1 < gv) load_qd(s, u + 1, qn, dn);
+        // the window's wu partial (m, l, rowsum), merged in warp order
+        float m[2], l[2], r[2], rinv[2];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const float4* pm = ml + g + 8 * hh;
+          const float4* pm = ml + u * wu * 16 + g + 8 * hh;
           float mx = pm[0].x;
-          for (int q = 1; q < kRbWarps; ++q) mx = fmaxf(mx, pm[q * 16].x);
+          for (int q = 1; q < wu; ++q) mx = fmaxf(mx, pm[q * 16].x);
           float lsum = 0.f, rsum = 0.f;
-          for (int q = 0; q < kRbWarps; ++q) {
+          for (int q = 0; q < wu; ++q) {
             const float f = ex2_ftz(pm[q * 16].x - mx);
             lsum = fmaf(pm[q * 16].y, f, lsum);
             rsum = fmaf(pm[q * 16].z, f, rsum);
@@ -502,12 +512,7 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         __syncthreads();
         rb_merge<kHd>(op, kRbWarps, rows, a.dqkv + (wn * N + s * 16) * C3 + h * kHd, C3,
                       a.o + (wn * N + s * 16) * C + h * kHd, C);
-        if (more) {
-#pragma unroll
-          for (int k = 0; k < kKs; ++k)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) qf[k][e] = qn[k][e], df[k][e] = dn[k][e];
-        }
+        if (u + 1 < gv) __syncthreads();  // op is rewritten by the next window's walk
       }
       // the group's d(bias) of this strip into the block's partial, once: the
       // partial's old values all read first (one round trip, not one per
@@ -564,11 +569,9 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
     }
 
     // ---- phase B: key strips ----
-    // The windows of the group walk together: kRbWarps / G warps a window
+    // The windows of the group walk together, as in walk 1: wu warps a window
     // (no d(bias) here ties a warp to a key block across windows), each taking
-    // every (kRbWarps / G)-th query block, merged per window in warp order.
-    const int wu = kRbWarps / G, ub = warp / wu, part = warp % wu;
-    const bool active = ub < gv;
+    // every wu-th query block, merged per window in warp order.
     stage_kv(a.qkv, C3, 0, a.doa, C, 0);  // q and do
     stage_cols(0);
     cp_async_commit();
