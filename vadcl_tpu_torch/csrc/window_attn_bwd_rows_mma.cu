@@ -515,31 +515,33 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
         if (u + 1 < gv) __syncthreads();  // op is rewritten by the next window's walk
       }
       // the group's d(bias) of this strip into the block's partial, once: the
-      // partial's old values all read first (one round trip, not one per
-      // element), then the sums stored; pairs of columns as one 8-byte access
-      // where N is even
-      if (!first) {
+      // partial's old values all read first (one round trip, in flight across
+      // the barrier and the next strip's combine), then the sums stored;
+      // pairs of columns as one 8-byte access where N is even
+      float old[kRbKeyMax][2][4];
 #pragma unroll
-        for (int i = 0; i < kRbKeyMax; ++i) {
-          const int kb = warp + i * kRbWarps;
-          if (kb < nblk) {
+      for (int i = 0; i < kRbKeyMax; ++i)
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt)
+        for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-              for (int hh = 0; hh < 2; ++hh) {
-                const int row = s * 16 + g + 8 * hh, col = kb * 16 + nt * 8 + 2 * (lane & 3);
-                const float* db = dbias + (size_t)row * N + col;
-                if (row < N && (N & 1) == 0 && col < N) {
-                  const float2 o2 = *reinterpret_cast<const float2*>(db);
-                  dbr[i][nt][2 * hh] += o2.x, dbr[i][nt][2 * hh + 1] += o2.y;
-                } else if (row < N) {
-                  if (col < N) dbr[i][nt][2 * hh] += db[0];
-                  if (col + 1 < N) dbr[i][nt][2 * hh + 1] += db[1];
-                }
+          for (int hh = 0; hh < 2; ++hh) {
+            const int kb = warp + i * kRbWarps;
+            const int row = s * 16 + g + 8 * hh, col = kb * 16 + nt * 8 + 2 * (lane & 3);
+            const float* db = dbias + (size_t)row * N + col;
+            float2 o2 = make_float2(0.f, 0.f);
+            if (!first && kb < nblk && row < N) {
+              if ((N & 1) == 0 && col < N) {
+                o2 = *reinterpret_cast<const float2*>(db);
+              } else {
+                if (col < N) o2.x = db[0];
+                if (col + 1 < N) o2.y = db[1];
               }
+            }
+            old[i][nt][2 * hh] = o2.x, old[i][nt][2 * hh + 1] = o2.y;
           }
-        }
-      }
+      cp_async_wait<0>();
+      __syncthreads();
+      if (s + 1 < nblk) combine_rows(s + 1);
 #pragma unroll
       for (int i = 0; i < kRbKeyMax; ++i) {
         const int kb = warp + i * kRbWarps;
@@ -550,22 +552,19 @@ __global__ void __launch_bounds__(kRbWarps * kWarp, 1) rows_bwd_mma_kernel(RowsB
             for (int hh = 0; hh < 2; ++hh) {
               const int row = s * 16 + g + 8 * hh, col = kb * 16 + nt * 8 + 2 * (lane & 3);
               float* db = dbias + (size_t)row * N + col;
+              const float v0 = first ? dbr[i][nt][2 * hh] : dbr[i][nt][2 * hh] + old[i][nt][2 * hh];
+              const float v1 =
+                  first ? dbr[i][nt][2 * hh + 1] : dbr[i][nt][2 * hh + 1] + old[i][nt][2 * hh + 1];
               if (row < N && (N & 1) == 0 && col < N) {
-                *reinterpret_cast<float2*>(db) =
-                    make_float2(dbr[i][nt][2 * hh], dbr[i][nt][2 * hh + 1]);
+                *reinterpret_cast<float2*>(db) = make_float2(v0, v1);
               } else if (row < N) {
-                if (col < N) db[0] = dbr[i][nt][2 * hh];
-                if (col + 1 < N) db[1] = dbr[i][nt][2 * hh + 1];
+                if (col < N) db[0] = v0;
+                if (col + 1 < N) db[1] = v1;
               }
             }
         }
       }
-      cp_async_wait<0>();
-      __syncthreads();
-      if (s + 1 < nblk) {
-        combine_rows(s + 1);
-        __syncthreads();
-      }
+      if (s + 1 < nblk) __syncthreads();  // the combined tile, before the next strip
     }
 
     // ---- phase B: key strips ----
