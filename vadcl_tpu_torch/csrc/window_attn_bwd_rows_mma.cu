@@ -51,13 +51,17 @@
 //     8 / G warps a window splitting its query blocks, one block barrier a
 //     strip, the partial strips merged per window in warp order;
 //   * at N above 512 (or where not one window fits) the direct layout
-//     (rows_bwd_direct_kernel) takes the body before it's footprint: a block
+//     (rows_bwd_direct_kernel) takes the footprint of the body before it: a block
 //     per (chunk of consecutive windows, head), q, K, V, do of one window in
 //     padded rows, a warp a strip, bias and mask from device memory, the
 //     same walks; it holds every window the body before it held (N up to
 //     1072, 640, 464, 352 at head widths 16, 32, 48, 64).
 // Products are mma.sync.m16n8k16 with scores, probabilities and output strips
-// in registers.
+// in registers.  What bounds it now is neither bytes nor the tensor-core rate
+// (at (256, 392, 96) / 6 heads both allow well under a tenth of its time):
+// one 8-warp block an SM (240 registers a thread at head width 16), and
+// walk 2's window-at-a-time split, where warp 0 takes 4 of 25 key blocks and
+// two block barriers follow each (strip, window).
 #include "window_attn_bwd_rows_mma.cuh"
 
 namespace vadcl {
