@@ -287,14 +287,13 @@ def worst(got, want) -> dict:
     return out
 
 
-def _hold(a, pallas=True):
+def _hold(a):
     got = backward_emulation(*_args(a))
     assert all(bool(torch.isfinite(t).all()) for t in got)
     plain = worst(got, window_attention_fused_bwd_plain(*_args(a)))
     assert max(plain.values()) <= 1.0, plain
-    if pallas:
-        ref = worst(got, _pallas(a))
-        assert max(ref.values()) <= 1.0, ref
+    ref = worst(got, _pallas(a))
+    assert max(ref.values()) <= 1.0, ref
     return got
 
 
@@ -329,7 +328,7 @@ def test_the_direct_layout_above_the_staged_limit():
              dout=rng.randn(4, n, 32).astype(np.float32),
              bias=rng.randn(2, n, n).astype(np.float32))
     assert rows_bwd_group(n, 32, 2, 4) == 0 and window_body(n, 32, 2, torch.bfloat16, True) == "rows"
-    _hold(a, pallas=False)
+    _hold(a)
 
 
 def test_the_bound_catches_d_bias_added_once_per_window():
