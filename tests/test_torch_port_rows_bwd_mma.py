@@ -31,7 +31,7 @@ It is held against ``window_attention_fused_bwd_plain`` (bf16) and against
 ``jax.vjp`` of ``fused_window_attention_trainable`` in bf16 (``_bwd_kernel``
 in interpret mode) at N = 196 and 392, head widths 16 and 32, shifted and
 not, on groups cut short, and in the direct layout (N = 539 at head width
-16).  Bound: every gradient separately, d(bias) included,
+16); with a mask of arbitrary values against the plain version.  Bound: every gradient separately, d(bias) included,
 max|emulation - reference| <= 2e-2 * max|reference|: ``chip_smoke.py``'s
 ``BWD_TOL[torch.bfloat16]`` for a bf16 kernel against its plain version (both
 round at the same casts; a different fp32 order can flip one bf16 rounding
@@ -329,6 +329,18 @@ def test_the_direct_layout_above_the_staged_limit():
              bias=rng.randn(2, n, n).astype(np.float32))
     assert rows_bwd_group(n, 32, 2, 4) == 0 and window_body(n, 32, 2, torch.bfloat16, True) == "rows"
     _hold(a)
+
+
+def test_bias_and_mask_summed_first_with_a_general_mask():
+    """The core adds bias and mask before the score (JAX adds the score to
+    the bias first).  With a mask of arbitrary values, not only 0 / -100,
+    every gradient of that order stays within the bound of the plain
+    version's."""
+    a = _case(392, "hd16", True, seed=5)
+    a["mask"] = (3 * np.random.RandomState(5).randn(4, 392, 392)).astype(np.float32)
+    got = backward_emulation(*_args(a))
+    plain = worst(got, window_attention_fused_bwd_plain(*_args(a)))
+    assert max(plain.values()) <= 1.0, plain
 
 
 def test_the_bound_catches_d_bias_added_once_per_window():
