@@ -59,7 +59,7 @@
 // Products are mma.sync.m16n8k16 with scores, probabilities and output strips
 // in registers.  What bounds it now is neither bytes nor the tensor-core rate
 // (at (256, 392, 96) / 6 heads both allow well under a tenth of its time):
-// one 8-warp block an SM (240 registers a thread at head width 16), and
+// one 8-warp block an SM (255 registers a thread at head width 16), and
 // walk 2's window-at-a-time split, where warp 0 takes 4 of 25 key blocks and
 // two block barriers follow each (strip, window).
 #include "window_attn_bwd_rows_mma.cuh"
