@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.ops.pallas_mlp import fused_ln_mlp
 from vadcl_tpu.utils.provenance import write_run_stamp as jax_write_run_stamp

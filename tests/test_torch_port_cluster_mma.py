@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.ops.pallas_cluster import fused_cluster_assign
 from vadcl_tpu_torch.ops.cluster import cdist
 from vadcl_tpu_torch.ops.cluster_kernels import (
@@ -47,13 +48,22 @@ def split(x: torch.Tensor, passes: int):
     return hi, (tf32(x - hi) if passes == 3 else torch.zeros_like(x))
 
 
-def split_product(a, b, passes: int) -> torch.Tensor:
-    """a (M, k) . b (N, k)^T as the body's mma.sync passes: lo terms, then hi.hi,
-    each product of two tf32 values exact in fp32, summed in fp32."""
-    ah, al = split(a, passes)
-    bh, bl = split(b, passes)
-    terms = ah[:, None, :] * bl[None] + al[:, None, :] * bh[None] + ah[:, None, :] * bh[None]
+def parts_product(ah, al, bh, bl) -> torch.Tensor:
+    """(ah + al) (M, k) . (bh + bl) (N, k)^T as the body's mma.sync passes: lo
+    terms, then hi.hi, each product of two tf32 values exact in fp32, summed in
+    fp32.  The terms accumulate in place (``addcmul_`` adds an exact product
+    with one rounding, as ``+`` of the product does), so one M x N x k
+    temporary serves all three."""
+    terms = ah[:, None, :] * bl[None]
+    terms.addcmul_(al[:, None, :], bh[None])
+    terms.addcmul_(ah[:, None, :], bh[None])
     return terms.sum(-1)
+
+
+def split_product(a, b, passes: int) -> torch.Tensor:
+    """a (M, k) . b (N, k)^T as the body's passes (``parts_product``) on the
+    splits of both operands."""
+    return parts_product(*split(a, passes), *split(b, passes))
 
 
 def _online_state(x, xsq, cen, csq, k, alpha, passes, starts, half):
@@ -68,10 +78,12 @@ def _online_state(x, xsq, cen, csq, k, alpha, passes, starts, half):
     q = torch.zeros(n)
     acc = torch.zeros(n, cp)
     perm = torch.cat([8 * j + K_PERM for j in range(half // 8)])
+    # the splits of the tokens and of every center, once per call
+    xs, (ch, cl) = split(x, passes), split(cen, passes)
     for k0 in starts:
-        rows = cen[k0:k0 + half]
         valid = torch.arange(k0, k0 + half) < k
-        d2 = (xsq[:, None] + csq[None, k0:k0 + half]) - 2.0 * split_product(x, rows, passes)
+        d2 = (xsq[:, None] + csq[None, k0:k0 + half]) - 2.0 * parts_product(
+            *xs, ch[k0:k0 + half], cl[k0:k0 + half])
         d = torch.where(valid, torch.sqrt(d2.clamp_min(0.0)), torch.tensor(float("inf")))
         cmin, cidx = d.min(-1)  # torch.min: the first index of the minimum
         better = cmin < m  # strictly smaller: an earlier chunk keeps a tie
@@ -83,7 +95,9 @@ def _online_state(x, xsq, cen, csq, k, alpha, passes, starts, half):
         e = torch.where(valid, torch.exp(-alpha * (d - m[:, None])), torch.zeros(()))
         s = s + e.sum(-1)
         q = q + ((d.nan_to_num(posinf=0.0) * e) ** 2).sum(-1)
-        acc = acc + split_product(e[:, perm], rows[perm].T.contiguous(), passes)
+        acc = acc + parts_product(*split(e[:, perm], passes),
+                                  ch[k0:k0 + half][perm].T.contiguous(),
+                                  cl[k0:k0 + half][perm].T.contiguous())
     return m, arg, s, q, acc
 
 

@@ -20,6 +20,7 @@ import vadcl_tpu.data.native as jax_native
 import vadcl_tpu.viz.dumps as jax_dumps
 import vadcl_tpu_torch.data as port_data
 import vadcl_tpu_torch.viz.dumps as port_dumps
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -17,6 +17,7 @@ import vadcl_tpu.eval.scoring as jax_scoring
 import vadcl_tpu_torch.core.config as port_config
 import vadcl_tpu_torch.eval.predict as port_predict
 import vadcl_tpu_torch.eval.scoring as port_scoring
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
 from vadcl_tpu.train.checkpoint import flatten_state
 from vadcl_tpu_torch.convert import load_state_dict_strict, state_dict_from_jax

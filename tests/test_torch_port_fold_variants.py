@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.ops.pallas_attn_fold import (
     folded_full_block_trainable,
     fused_window_attention_folded_packed,

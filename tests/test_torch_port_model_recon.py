@@ -19,6 +19,7 @@ from test_torch_port_model import (
     jax_unfused,
     port_model,
 )
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
 from vadcl_tpu.train.checkpoint import flatten_state

@@ -13,6 +13,7 @@ import vadcl_tpu.ops.window as jw
 import vadcl_tpu_torch.ops.cluster as pc
 import vadcl_tpu_torch.ops.convs as pconv
 import vadcl_tpu_torch.ops.window as pw
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu_torch.models.layers import FrozenBatchNorm, LayerNorm
 
 T = torch.from_numpy

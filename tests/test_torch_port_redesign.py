@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.ops.pallas_attn_fold import fused_window_attention_folded
 from vadcl_tpu.ops.pallas_mlp import fused_ln_mlp
 from vadcl_tpu.ops.window import compute_attn_mask

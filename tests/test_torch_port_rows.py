@@ -37,6 +37,7 @@ import torch
 
 import vadcl_tpu.eval.predict as jax_predict
 from test_torch_port_model import assert_outputs_match
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
 from vadcl_tpu.ops.pallas_attn import fused_window_attention, fused_window_attention_packed

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.ops.pallas_attn import fused_window_attention, fused_window_attention_packed
 from vadcl_tpu.ops.window import compute_attn_mask
 from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT

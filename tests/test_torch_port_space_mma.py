@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.ops.pallas_cluster import fused_space_cluster_loss
 from vadcl_tpu_torch.ops.cluster_kernels import space_cluster_loss_plain
 

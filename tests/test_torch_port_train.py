@@ -12,6 +12,13 @@ Bounds: loss rtol 1e-4; every parameter gradient max|port - jax| <=
 the two packages sum in different orders through a deep network, and the
 cluster heads' cdist gradients amplify that); after several Adam steps the
 final-parameter bound of ``test_reference_train_parity.py:261-284``.
+
+This file holds the loss and gradients against the JAX XLA path and the
+training options; its neighbours hold the same path against the JAX fused
+kernels (``test_torch_port_train_fused.py``), over several steps and across
+checkpoints (``test_torch_port_train_steps.py``) and through ``train()``
+(``test_torch_port_train_loop.py``).  The files share the helpers here, and
+each JAX reference is computed once per file.
 """
 
 import dataclasses
@@ -25,27 +32,21 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
-from vadcl_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
-from vadcl_tpu.train.checkpoint import flatten_state, unflatten_into
-from vadcl_tpu.train.optim import build_optimizer as jax_build_optimizer
+from vadcl_tpu.train.checkpoint import flatten_state
 from vadcl_tpu.train.optim import cosine_epoch_lr as jax_cosine_epoch_lr
 from vadcl_tpu.train.optim import param_gate_thresholds as jax_param_gates
-from vadcl_tpu.train.step import TrainState as JaxTrainState
 from vadcl_tpu.train.step import make_loss_fn as jax_make_loss_fn
-from vadcl_tpu.train.step import make_train_step as jax_make_train_step
 from vadcl_tpu_torch.convert import jax_from_state_dict, load_state_dict_strict, state_dict_from_jax
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.models import VADModel
 from vadcl_tpu_torch.train import (
-    CheckpointManager,
     cosine_epoch_lr,
-    create_train_state,
     make_loss_fn,
     make_train_step,
     param_gate_thresholds,
-    train,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,41 +109,44 @@ def _assert_rel(name, got, want, tol):
 
 
 _JAX_GRAD_FNS = {}
+_JAX_RESULTS = {}
 _RECON_VARIABLES = {}
 PHASES = {0: "cluster_losses_gated", 1: "compactness_off", 2: "compactness_on"}
+SCHED = dict(compactness_start_iter=2, cluster_start_iter=1)
 
 
-@pytest.mark.parametrize(
-    "fused, jax_fused, predict, step",
-    [(f, f, True, s) for f in (False, True) for s in PHASES]
-    # reconstruction mode changes the decoder head and the target, not the
-    # kernels: both port variants against the JAX XLA path
-    + [(False, False, False, 2), (True, False, False, 2)],
-    ids=[f"{'fused' if f else 'unfused'}-predict-{PHASES[s]}" for f in (False, True)
-         for s in PHASES] + ["unfused-recon", "fused-vs-xla-recon"],
-)
-def test_loss_and_grads_match_jax(jax_variables, fused, jax_fused, predict, step):
-    """Loss and every parameter gradient of ``make_loss_fn`` against
-    ``jax.value_and_grad`` of the JAX ``make_loss_fn`` at the same weights,
-    in each phase of the schedule: cluster losses gated off (step 0), on
-    without compactness (step 1), with compactness (step 2)."""
-    sched = dict(compactness_start_iter=2, cluster_start_iter=1)
-    jcfg, _ = _configs(jax_fused, predict, **sched)
-    _, pcfg = _configs(fused, predict, **sched)
+def _variables(jax_variables, predict):
     if not predict and not _RECON_VARIABLES:
         _RECON_VARIABLES["v"] = _init(predict=False)
-    variables = jax_variables if predict else _RECON_VARIABLES["v"]
-    clip = _clips(1, seed=1)[0]
-    key = (jax_fused, predict)
-    if key not in _JAX_GRAD_FNS:
-        _JAX_GRAD_FNS[key] = jax.jit(jax.value_and_grad(
-            jax_make_loss_fn(JaxVADModel(config=jcfg.model), jcfg), has_aux=True))
-    params = variables["params"]
-    extras = {k: v for k, v in variables.items() if k != "params"}
-    (loss_j, aux_j), grads_j = _JAX_GRAD_FNS[key](
-        params, extras, jnp.asarray(clip), jnp.asarray(step, jnp.int32))
+    return jax_variables if predict else _RECON_VARIABLES["v"]
 
-    model = _port_model(variables, pcfg)
+
+def jax_loss_and_grads(jax_variables, jax_fused, predict, step, attn_kernel="fold"):
+    """``jax.value_and_grad`` of the JAX ``make_loss_fn`` on ``_clips(1,
+    seed=1)[0]`` at ``step``: ((loss, aux), grads), computed once per file
+    and argument tuple (one jitted function per model)."""
+    key = (jax_fused, predict, step, attn_kernel)
+    if key not in _JAX_RESULTS:
+        jcfg, _ = _configs(jax_fused, predict, attn_kernel, **SCHED)
+        fkey = key[:2] + key[3:]
+        if fkey not in _JAX_GRAD_FNS:
+            _JAX_GRAD_FNS[fkey] = jax.jit(jax.value_and_grad(
+                jax_make_loss_fn(JaxVADModel(config=jcfg.model), jcfg), has_aux=True))
+        variables = _variables(jax_variables, predict)
+        extras = {k: v for k, v in variables.items() if k != "params"}
+        _JAX_RESULTS[key] = _JAX_GRAD_FNS[fkey](
+            variables["params"], extras, jnp.asarray(_clips(1, seed=1)[0]),
+            jnp.asarray(step, jnp.int32))
+    return _JAX_RESULTS[key]
+
+
+def check_loss_and_grads(jax_variables, fused, jax_fused, predict, step):
+    """Loss, the first three aux terms and every parameter gradient of the
+    port's ``make_loss_fn`` against ``jax_loss_and_grads``."""
+    _, pcfg = _configs(fused, predict, **SCHED)
+    (loss_j, aux_j), grads_j = jax_loss_and_grads(jax_variables, jax_fused, predict, step)
+    clip = _clips(1, seed=1)[0]
+    model = _port_model(_variables(jax_variables, predict), pcfg)
     loss_t, aux_t = make_loss_fn(model, pcfg)(torch.from_numpy(clip), step)
     loss_t.backward()
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-4)
@@ -156,6 +160,25 @@ def test_loss_and_grads_match_jax(jax_variables, fused, jax_fused, predict, step
         g = got[k]
         assert g is not None, f"{k}: no gradient"
         _assert_rel(k, g.numpy(), w.numpy(), GRAD_TOL)
+
+
+@pytest.mark.parametrize(
+    "fused, jax_fused, predict, step",
+    [(False, False, True, s) for s in PHASES]
+    # reconstruction mode changes the decoder head and the target, not the
+    # kernels: both port variants against the JAX XLA path
+    + [(False, False, False, 2), (True, False, False, 2)],
+    ids=[f"unfused-predict-{PHASES[s]}" for s in PHASES] + ["unfused-recon",
+                                                            "fused-vs-xla-recon"],
+)
+def test_loss_and_grads_match_jax(jax_variables, fused, jax_fused, predict, step):
+    """Loss and every parameter gradient of ``make_loss_fn`` against
+    ``jax.value_and_grad`` of the JAX ``make_loss_fn`` at the same weights,
+    in each phase of the schedule: cluster losses gated off (step 0), on
+    without compactness (step 1), with compactness (step 2).  The fused
+    predict-mode cases against the JAX fused kernels are in
+    ``test_torch_port_train_fused.py``."""
+    check_loss_and_grads(jax_variables, fused, jax_fused, predict, step)
 
 
 def test_fused_model_grads_cover_every_parameter_the_unfused_one_does(jax_variables):
@@ -175,161 +198,14 @@ def test_fused_model_grads_cover_every_parameter_the_unfused_one_does(jax_variab
     assert "cluster1.cluster_center" in sets[1] and "space_cluster.cluster_center" in sets[1]
 
 
-def test_gated_parameters_get_no_update(jax_variables):
-    """Before ``cluster_train_start_iter`` the parameters named "cluster"
-    (the heads' LayerNorms included) get grad=None: no weight decay, no
-    moments, no step count; every other parameter moves."""
-    _, pcfg = _configs(True, cluster_train_start_iter=1)
-    model = _port_model(jax_variables, pcfg)
-    before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    state = create_train_state(model, pcfg)
-    step_fn = make_train_step(model, pcfg, STEPS_PER_EPOCH)
-    step_fn(state, torch.from_numpy(_clips(1)[0]))
-    gated = {k for k, v in param_gate_thresholds(model.named_parameters(), 1).items() if v}
-    assert gated == {k for k, _ in model.named_parameters() if "cluster" in k}
-    assert "cluster1.norm.weight" in gated
-    for k, p in model.named_parameters():
-        moved = not torch.equal(p.detach(), before[k])
-        assert moved == (k not in gated), k
-        assert (p in state.optimizer.state) == (k not in gated), k
-    step_fn(state, torch.from_numpy(_clips(2)[1]))  # step 1: the heads unfreeze
-    assert all(p in state.optimizer.state for _, p in model.named_parameters())
-
-
-@pytest.fixture(scope="module")
-def jax_trajectory(jax_variables, tmp_path_factory):
-    """JAX make_train_step (XLA path) over STEPS uint8 batches: per-step
-    losses, the final params, and a JAX checkpoint after 3 steps."""
-    jcfg, _ = _configs(False, **SCHEDULE)
-    params = jax_variables["params"]
-    extras = {k: v for k, v in jax_variables.items() if k != "params"}
-    o = jcfg.optim
-    lr = jax_cosine_epoch_lr(o.lr, o.min_lr, o.epochs, STEPS_PER_EPOCH, o.warmup_epochs)
-    tx = jax_build_optimizer(
-        o.optimizer, lr, weight_decay=o.weight_decay, b1=o.b1, b2=o.b2, eps=o.eps,
-        gate_thresholds=jax_param_gates(params, jcfg.schedule.cluster_train_start_iter),
-    )
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, extras=extras,
-                          opt_state=tx.init(params))
-    step_fn = jax_make_train_step(JaxVADModel(config=jcfg.model), jcfg, tx, STEPS_PER_EPOCH)
-    ckpt_dir = str(tmp_path_factory.mktemp("jax_ckpt"))
-    losses, lrs = [], []
-    for i, clip in enumerate(_clips(STEPS, seed=2)):
-        state, m = step_fn(state, jnp.asarray(clip))
-        losses.append(float(m.loss))
-        lrs.append(float(m.lr))
-        if i == 2:
-            JaxCheckpointManager(ckpt_dir).save("3", state, {"epoch": 0, "iter": 2})
-    return dict(losses=losses, lrs=lrs, params=flatten_state({"params": state.params}),
-                ckpt_dir=ckpt_dir, state=state)
-
-
-def _assert_params_close(model, jax_flat, init_flat, steps):
-    """test_reference_train_parity's final-parameter bound: Adam moves an
-    element by ~lr per step whatever its gradient, so elements whose
-    gradient is within rounding of zero may step opposite ways; hold every
-    leaf to 2.5 * lr * steps and at most 2% of its elements to one lr-step."""
-    got = jax_from_state_dict(dict(model.named_parameters()), predict=True)
-    for k, w in jax_flat.items():
-        diff = np.abs(got[k] - np.asarray(w, np.float32))
-        assert float(diff.max()) <= 2.5 * LR * steps, (k, float(diff.max()))
-        assert float(np.mean(diff > LR)) < 0.02, k
-        init = np.asarray(init_flat[k], np.float32)
-        if float(np.max(np.abs(np.asarray(w) - init))) > 0:
-            assert float(np.max(np.abs(got[k] - init))) > 0, k
-
-
-def test_six_step_trajectory_matches_jax(jax_variables, jax_trajectory):
-    """The port's make_train_step (fused config, plain versions on the CPU)
-    against the JAX make_train_step (XLA path) over six steps that cross
-    the pre-cluster, compactness and cluster-unfreeze phases and an epoch
-    boundary of the cosine schedule."""
-    _, pcfg = _configs(True, **SCHEDULE)
-    model = _port_model(jax_variables, pcfg)
-    state = create_train_state(model, pcfg)
-    step_fn = make_train_step(model, pcfg, STEPS_PER_EPOCH)
-    metrics = [step_fn(state, torch.from_numpy(c)) for c in _clips(STEPS, seed=2)]
-    np.testing.assert_allclose([float(m.loss) for m in metrics], jax_trajectory["losses"],
-                               rtol=1e-4)
-    np.testing.assert_allclose([m.lr for m in metrics], jax_trajectory["lrs"], rtol=1e-6)
-    assert state.step == STEPS
-    _assert_params_close(model, jax_trajectory["params"],
-                         flatten_state({"params": jax_variables["params"]}), STEPS)
-
-
-def test_base_kernel_trajectory_matches_jax(jax_variables, jax_trajectory):
-    """``attn_kernel="base"`` (kernel 7 forward, kernel 8 backward, plain
-    LN1 and residual around them) through the same six steps against the JAX
-    make_train_step with ``fused_attention=False``: the JAX model cannot run
-    its ``base`` kernels on the CPU, and the XLA path is their oracle."""
-    _, pcfg = _configs(True, attn_kernel="base", **SCHEDULE)
-    assert pcfg.model.fused_attention and pcfg.model.attn_kernel == "base"
-    model = _port_model(jax_variables, pcfg)
-    state = create_train_state(model, pcfg)
-    step_fn = make_train_step(model, pcfg, STEPS_PER_EPOCH)
-    metrics = [step_fn(state, torch.from_numpy(c)) for c in _clips(STEPS, seed=2)]
-    np.testing.assert_allclose([float(m.loss) for m in metrics], jax_trajectory["losses"],
-                               rtol=1e-4)
-    _assert_params_close(model, jax_trajectory["params"],
-                         flatten_state({"params": jax_variables["params"]}), STEPS)
-
-
 def test_base_kernel_loss_and_grads_match_jax(jax_variables):
     """Loss and every parameter gradient under ``attn_kernel="base"`` against
     ``jax.value_and_grad`` of the JAX unfused loss, with compactness on."""
-    sched = dict(compactness_start_iter=2, cluster_start_iter=1)
-    jcfg, _ = _configs(False, **sched)
-    _, pcfg = _configs(True, attn_kernel="base", **sched)
+    _, pcfg = _configs(True, attn_kernel="base", **SCHED)
     clip = _clips(1, seed=1)[0]
-    fn = jax.jit(jax.value_and_grad(
-        jax_make_loss_fn(JaxVADModel(config=jcfg.model), jcfg), has_aux=True))
-    extras = {k: v for k, v in jax_variables.items() if k != "params"}
-    (loss_j, _), grads_j = fn(jax_variables["params"], extras, jnp.asarray(clip),
-                              jnp.asarray(2, jnp.int32))
+    (loss_j, _), grads_j = jax_loss_and_grads(jax_variables, False, True, 2)
     model = _port_model(jax_variables, pcfg)
     loss_t, _ = make_loss_fn(model, pcfg)(torch.from_numpy(clip), 2)
-    loss_t.backward()
-    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-4)
-    want = state_dict_from_jax(flatten_state({"params": grads_j}), predict=True)
-    for k, p in model.named_parameters():
-        assert p.grad is not None, f"{k}: no gradient"
-        _assert_rel(k, p.grad.numpy(), want[k].numpy(), GRAD_TOL)
-
-
-def test_fold_block_trajectory_matches_jax(jax_variables, jax_trajectory):
-    """``attn_kernel="fold_block"`` (every block the whole-block kernel each
-    way; on the CPU its plain versions) through the same six steps against
-    the JAX make_train_step on the XLA path, within the bounds the ``fold``
-    and ``base`` trajectories are held to."""
-    _, pcfg = _configs(True, attn_kernel="fold_block", **SCHEDULE)
-    model = _port_model(jax_variables, pcfg)
-    state = create_train_state(model, pcfg)
-    step_fn = make_train_step(model, pcfg, STEPS_PER_EPOCH)
-    metrics = [step_fn(state, torch.from_numpy(c)) for c in _clips(STEPS, seed=2)]
-    np.testing.assert_allclose([float(m.loss) for m in metrics], jax_trajectory["losses"],
-                               rtol=1e-4)
-    assert state.step == STEPS
-    _assert_params_close(model, jax_trajectory["params"],
-                         flatten_state({"params": jax_variables["params"]}), STEPS)
-
-
-def test_fold_block_loss_and_grads_match_jax(jax_variables):
-    """Loss and every parameter gradient under ``attn_kernel="fold_block"``
-    against ``jax.value_and_grad`` of the JAX loss built with the same
-    ``attn_kernel`` (``folded_full_block_trainable`` and its ``_full_bwd`` in
-    interpret mode), with compactness on."""
-    sched = dict(compactness_start_iter=2, cluster_start_iter=1)
-    jcfg, pcfg = _configs(True, attn_kernel="fold_block", **sched)
-    assert jcfg.model.attn_kernel == pcfg.model.attn_kernel == "fold_block"
-    clip = _clips(1, seed=1)[0]
-    fn = jax.jit(jax.value_and_grad(
-        jax_make_loss_fn(JaxVADModel(config=jcfg.model), jcfg), has_aux=True))
-    extras = {k: v for k, v in jax_variables.items() if k != "params"}
-    (loss_j, _), grads_j = fn(jax_variables["params"], extras, jnp.asarray(clip),
-                              jnp.asarray(2, jnp.int32))
-    model = _port_model(jax_variables, pcfg)
-    loss_t, _ = make_loss_fn(model, pcfg)(torch.from_numpy(clip), 2)
-    assert any("FoldBlock" in type(f).__name__ for f in _graph_nodes(loss_t.grad_fn))
     loss_t.backward()
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-4)
     want = state_dict_from_jax(flatten_state({"params": grads_j}), predict=True)
@@ -373,44 +249,6 @@ def test_packed_kernel_is_refused_for_training(jax_variables):
         make_loss_fn(model, pcfg)
 
 
-def test_checkpoints_cross_packages(jax_variables, jax_trajectory, tmp_path):
-    """JAX trains 3 steps and saves; the port restores into a fresh model
-    and optimizer and trains 3 more, landing on JAX's 6-step result.  The
-    port's checkpoint then restores into a JAX TrainState template."""
-    _, pcfg = _configs(True, **SCHEDULE)
-    model = VADModel(pcfg.model, torch.float32, torch.Generator().manual_seed(123))
-    state = create_train_state(model, pcfg)
-    jmgr = CheckpointManager(jax_trajectory["ckpt_dir"])
-    assert jmgr.latest_tag() == "3" and jmgr.metadata("3") == {"epoch": 0, "iter": 2}
-    jmgr.restore("3", state)
-    assert state.step == 3
-    step_fn = make_train_step(model, pcfg, STEPS_PER_EPOCH)
-    losses = [float(step_fn(state, torch.from_numpy(c)).loss)
-              for c in _clips(STEPS, seed=2)[3:]]
-    np.testing.assert_allclose(losses, jax_trajectory["losses"][3:], rtol=1e-4)
-    _assert_params_close(model, jax_trajectory["params"],
-                         flatten_state({"params": jax_variables["params"]}), STEPS)
-
-    CheckpointManager(str(tmp_path)).save("6", state, {"epoch": 1, "iter": 2})
-    template = jax.tree_util.tree_map(jnp.zeros_like, jax_trajectory["state"])
-    with np.load(tmp_path / "ckpt_6.npz") as z:
-        restored = unflatten_into(template, {k: z[k] for k in z.files if k != "__meta__"})
-    assert int(restored.step) == 6
-    assert JaxCheckpointManager(str(tmp_path)).metadata("6") == {"epoch": 1, "iter": 2}
-    flat = flatten_state(restored)
-    ours = jax_from_state_dict(dict(model.named_parameters()), predict=True)
-    for k, v in ours.items():
-        np.testing.assert_array_equal(np.asarray(flat[k]), v)
-    p = model.decoder.patchdebed.deconv1.weight  # a transposed conv: layout mapped
-    mu = jax_from_state_dict({"decoder.patchdebed.deconv1.weight":
-                              state.optimizer.state[p]["exp_avg"]}, predict=True)
-    np.testing.assert_array_equal(
-        np.asarray(flat["opt_state/mu/decoder/patchdebed/deconv1/kernel"]),
-        mu["params/decoder/patchdebed/deconv1/kernel"])
-    assert int(flat["opt_state/count/cluster1/cluster_center"]) == 3  # unfroze at step 3
-    assert int(flat["opt_state/count/encoder/patch_embed/kernel"]) == 6
-
-
 def test_cosine_lr_and_gates_match_jax():
     for warm in (0, 2):
         j = jax_cosine_epoch_lr(6e-6, 1e-6, 10, 7, warm)
@@ -438,63 +276,6 @@ def test_unported_training_options_raise():
     cfg = pcfg.replace(model=dataclasses.replace(pcfg.model, drop_path_rate=0.1))
     with pytest.raises(NotImplementedError, match="drop"):
         make_loss_fn(VADModel(cfg.model), cfg)
-
-
-class _Loader:
-    """In-memory uint8 loader with the HostDataLoader protocol."""
-
-    batch_size = 2
-
-    def __init__(self, crash_after=None):
-        self.data = _clips(6, seed=3)
-        self.crash_after = crash_after
-
-    def steps_per_epoch(self):
-        return 3
-
-    def epoch(self, e, start_iter=0):
-        for i in range(start_iter, 3):
-            if self.crash_after is not None and e * 3 + i >= self.crash_after:
-                raise KeyboardInterrupt("simulated kill")
-            yield self.data[(e * 3 + i) % 6]
-
-
-def test_train_loop_crash_resume_matches_uninterrupted(tmp_path):
-    """train() on an in-memory loader; a run killed mid-epoch after an
-    iteration checkpoint resumes inside the epoch and ends on the loss
-    records and (within the Adam bound) the parameters of an uninterrupted
-    run."""
-    base = preset("tiny")
-    cfg = base.replace(
-        model=dataclasses.replace(base.model, predict=True, fused_attention=True,
-                                  fused_cluster=True, attn_kernel="fold"),
-        optim=dataclasses.replace(base.optim, lr=LR, epochs=2),
-        save_every_iters=2,
-    )
-    ref = train(cfg.replace(output_dir=str(tmp_path / "a")), _Loader(), device="cpu")
-    assert ref.step == 6
-    want = np.load(tmp_path / "a" / "loss_record" / "loss.npy")
-    assert want.shape == (6,) and np.all(np.isfinite(want))
-
-    out = str(tmp_path / "b")
-    with pytest.raises(KeyboardInterrupt):
-        train(cfg.replace(output_dir=out), _Loader(crash_after=4), device="cpu")
-    mid = np.load(os.path.join(out, "loss_record", "loss.npy"))
-    np.testing.assert_allclose(mid, want[:4], rtol=1e-6)
-    got = train(cfg.replace(output_dir=out), _Loader(), device="cpu")
-    assert got.step == 6
-    np.testing.assert_allclose(np.load(os.path.join(out, "loss_record", "loss.npy")), want,
-                               rtol=1e-6)
-    # CPU backward sums are not bitwise deterministic between runs, and Adam
-    # turns a last-bit gradient difference into up to one lr-step: the
-    # final-parameter bound of the trajectory tests
-    for (k, a), (_, b) in zip(ref.model.named_parameters(), got.model.named_parameters()):
-        diff = (a - b).abs().detach()
-        assert float(diff.max()) <= 2.5 * LR * 6, k
-        assert float((diff > LR).float().mean()) < 0.02, k
-    log = open(os.path.join(out, "exp.log")).read()
-    assert "resumed from checkpoint 4 at epoch 1 iter 1" in log
-    assert "Epoch:[1/2]\t batch:[2/3]\t loss=" in log
 
 
 def test_training_modules_import_without_jax_or_pil():

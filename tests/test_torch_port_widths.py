@@ -36,6 +36,7 @@ import torch
 
 from test_torch_port_cluster_mma import _check, _inputs, cluster_assign_tf32x3_emulation
 from test_torch_port_fold_models import assert_outputs_match
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
 from vadcl_tpu.train.checkpoint import flatten_state, unflatten_into

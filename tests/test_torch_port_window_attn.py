@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from vadcl_tpu.ops.pallas_attn import fused_window_attention, fused_window_attention_packed
 from vadcl_tpu.ops.pallas_attn_bwd import fused_window_attention_trainable
 from vadcl_tpu.ops.pallas_attn_fold import folded_window_attention_trainable
