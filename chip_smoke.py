@@ -16,7 +16,8 @@ Phases (any failure raises and the script exits non-zero):
      the library's; kernel 10 and the whole-block kernels must fit at the
      four flagship geometries in bf16 and fp32, every window of up to
      392 tokens at the flagship widths and head width 32 must map to a body,
-     and every flagship geometry must take the tensor-core bodies of 5 and 6.
+     and every flagship geometry must take the tensor-core bodies of 5 and 6
+     and of the whole-block backward.
   2. each forward kernel (A-D, 7: window attention, 9: its packed variant,
      10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
@@ -44,11 +45,14 @@ Phases (any failure raises and the script exits non-zero):
      modes, 8: window attention, the whole-block backward) against their
      plain versions at the training batch of 4, bf16 and fp32, every
      gradient tensor held separately (its worst err/(tol*max) printed);
-     two calls of the tensor-core bodies of 5 and 6 give the same bits;
-     times (5 and 6 beside their old bodies, the whole-block backward beside
-     6 then 5); 5 at C = 16 .. 176 and at token counts that fill no whole
+     two calls of the tensor-core bodies of 5, 6 and the whole-block
+     backward give the same bits; times (5 and 6 beside their old bodies,
+     the whole-block backward beside PR 4's body and beside A, 5 and 6 in
+     turn); 5 at C = 16 .. 176 and at token counts that fill no whole
      tile, 6 at head width 32; the old bodies through their routes (5 at
-     C = 24, 6 at head width 48); workspaces; edge shapes.
+     C = 24, 6 at head width 48, the whole-block backward at head width 48
+     in bf16 and in fp32); a chunk of windows cut short; workspaces; edge
+     shapes.
   2/2b, row-tiled: the row-tiled bodies of 7, 9 and 8 against their plain
      versions at N = 147, 196, 245 and 392, C = 96 / 6 heads, 192 / 12 and
      head width 32, shifted and not, bf16 and fp32, on an odd batch of 3;
@@ -98,7 +102,8 @@ Phases (any failure raises and the script exits non-zero):
      ``"fold_mix"`` train step is refused before any launch.
 No earlier path was cut: the whole run takes about four minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
-kernels and kernel B's CUDA-core body (its time beside its roofline bound on
+kernels, kernel B's CUDA-core body and the whole-block backward's
+shared-memory body (its time beside its roofline bound on
 an H100's published peaks: every number in it but the bound is measured in
 this run);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -343,6 +348,23 @@ def phase_build():
                                      "do not fit 227 KB of shared memory")
     print("  fold_packed_fits / fold_block_fits agree with the library and hold at the four "
           "flagship geometries, bf16 and fp32")
+    from vadcl_tpu_torch.ops.fold_attn import fold_block_bwd_body, fold_block_bwd_mma_smem_bytes
+
+    for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
+                     (98, 64, 4), (49, 32, 2), (98, 96, 3), (98, 192, 6), (49, 192, 6),
+                     (112, 96, 6), (65, 96, 6), (16, 32, 2), (49, 128, 4)):
+        mine = fold_block_bwd_mma_smem_bytes(n, c, nh)
+        theirs = lib.vadcl_fold_block_bwd_bf16_smem_bytes(n, c, nh)
+        if mine != theirs:
+            raise AssertionError(f"fold_block_bwd_mma_smem_bytes{(n, c, nh)} = {mine} but the "
+                                 f"library says {theirs}")
+    for gname, ((_, _, _, c), nh, window, _) in FOLD_GEOMETRIES.items():
+        n = window[0] * window[1] * window[2]
+        if fold_block_bwd_body(n, c, nh, 4 * c, torch.bfloat16) != "mma":
+            raise AssertionError(f"{gname}: the whole-block backward must run its tensor-core "
+                                 "body in bf16")
+    print("  the whole-block backward's tensor-core body: its layout mirror agrees with the "
+          "library, and every flagship geometry takes it in bf16")
     from vadcl_tpu_torch.ops.window_attn import rows_smem_bytes, tile_smem_bytes, window_body
 
     checked = 0
@@ -1069,6 +1091,23 @@ def _win_bwd_case(a, gen):
     return b
 
 
+def check_block_bwd_route(name, blk, body):
+    """The whole-block backward on ``blk`` against its plain version, and the
+    body (``"mma"``: the tensor-core body; ``"tiles"``: PR 4's) that launched."""
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_block_bwd, fold_block_bwd_plain, fold_block_bwd_tiles,
+    )
+
+    before = (fold_block_bwd.launches, fold_block_bwd_tiles.launches)
+    got = fold_block_bwd(**blk)
+    check_grads(f"{name} ({body})", BLOCK_BWD_NAMES, got, fold_block_bwd_plain(**blk),
+                BWD_TOL[blk["x"].dtype])
+    want = (before[0] + 1, before[1]) if body == "mma" else (before[0], before[1] + 1)
+    if (fold_block_bwd.launches, fold_block_bwd_tiles.launches) != want:
+        raise AssertionError(f"{name}: did not take the {body} body")
+    return got
+
+
 def phase_bwd_kernels(batch: int = 4):
     """Kernels 5, 6 and 8 against their plain versions on the card at batch
     ``batch`` (the training batch), bf16 and fp32: kernels 6 and 8 at the
@@ -1081,7 +1120,7 @@ def phase_bwd_kernels(batch: int = 4):
     Returns {kernel: stats of the bf16 case the kernels line reports}."""
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_attention_bwd_tiles,
-        fold_block_bwd, fold_block_bwd_plain,
+        fold_block_bwd, fold_block_bwd_plain, fold_block_bwd_tiles,
     )
     from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_plain, ln_mlp_bwd_tiles
     from vadcl_tpu_torch.ops.window_attn import (
@@ -1116,14 +1155,25 @@ def phase_bwd_kernels(batch: int = 4):
                         **bound(tensors_of(a, got), attn_flops(a["x"][..., 0].numel(), 96, 98,
                                                                backward=True), "bf16"))
                 # the whole-block backward on the same inputs, all 14 outputs,
-                # beside kernel 6 then kernel 5 (with A's recompute of y1 between)
+                # beside PR 4's body and kernels A, 5 and 6 in turn
                 blk = _block_bwd_case(a, gen)
                 name = f"fold_block_bwd {gname} {'shifted' if shifted else 'plain'} {str(dtype)[6:]}"
+                before = (fold_block_bwd.launches, fold_block_bwd_tiles.launches)
                 got, want = fold_block_bwd(**blk), fold_block_bwd_plain(**blk)
+                body = ("mma" if (fold_block_bwd.launches, fold_block_bwd_tiles.launches)
+                        == (before[0] + 1, before[1]) else "tiles")
+                if body != ("mma" if dtype == torch.bfloat16 else "tiles"):
+                    raise AssertionError(f"{name}: took the {body} body")
                 errs["fold_block_bwd"].append(check_grads(name, BLOCK_BWD_NAMES, got, want, tol))
                 ms, pms = time_pair(lambda: fold_block_bwd(**blk),
                                     lambda: fold_block_bwd_plain(**blk))
                 if dtype == torch.bfloat16:
+                    same_bits(name, got, fold_block_bwd(**blk))
+                    old = fold_block_bwd_tiles(**blk)
+                    old_err = check_grads(f"{name}, PR 4's body", BLOCK_BWD_NAMES, old, want, tol)
+                    old_ms = cuda_ms(lambda: fold_block_bwd_tiles(**blk))
+                    print(f"    PR 4's body (fold_block_bwd_tiles) on the same inputs: "
+                          f"{old_ms:.4f} ms")
                     fwd = {k: v for k, v in blk.items() if k in a and k != "dout"}
                     tail = [blk[k] for k in ("ln2_scale", "ln2_bias", "w1", "b1", "w2")]
 
@@ -1136,15 +1186,25 @@ def phase_bwd_kernels(batch: int = 4):
                     print(f"    kernel A, then 5, then 6 on the same inputs: {two:.4f} ms")
                     if gname == "enc_stage0" and shifted:
                         tokens = a["x"][..., 0].numel()
+                        shape = f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted, hidden 384"
+                        # the attention products in bf16 (the forward to y1 once,
+                        # then the backward's), the MLP tail's backward in fp32
+                        # FMA, as the contract; beside it the products as the
+                        # new body runs them (the tail's split bf16 passes), all
+                        # over the bf16 peak
+                        attn = attn_flops(tokens, 96, 98, backward=True, through_proj=True)
+                        split_bound = bound(tensors_of(blk, got),
+                                            attn + mlp_split_flops(tokens, 96), "bf16")
+                        print(f"    bound: fp32 FMA tail {bound(tensors_of(blk, got), attn, 'bf16', mlp_flops(tokens, 96, backward=True))['bound_ms']:.5f} ms, "
+                              f"split bf16 products {split_bound['bound_ms']:.5f} ms")
                         stats["fold_block_bwd"] = dict(
-                            ms=ms, plain_ms=pms, split_ms=two,
-                            shape=f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted, hidden 384",
-                            # the attention products in bf16 (the forward to y1
-                            # once, then the backward's), the MLP tail's backward
-                            # in fp32 FMA, as the kernel's contract
-                            **bound(tensors_of(blk, got),
-                                    attn_flops(tokens, 96, 98, backward=True,
-                                               through_proj=True), "bf16",
+                            ms=ms, plain_ms=pms, split_ms=two, old_body_ms=old_ms, shape=shape,
+                            split_bound_ms=split_bound["bound_ms"],
+                            **bound(tensors_of(blk, got), attn, "bf16",
+                                    mlp_flops(tokens, 96, backward=True)))
+                        stats["fold_block_bwd_tiles"] = dict(
+                            ms=old_ms, plain_ms=pms, max_abs_err=old_err, shape=shape,
+                            **bound(tensors_of(blk, old), attn, "bf16",
                                     mlp_flops(tokens, 96, backward=True)))
                 w = _win_bwd_case(_win_case(batch, gname, shifted, dtype, gen), gen)
                 name = (f"window_attention_fused_bwd {gname} "
@@ -1256,9 +1316,11 @@ def phase_bwd_kernels(batch: int = 4):
         ws6 = lib.vadcl_fold_attn_bwd_workspace_bytes(batch, D, H, W, C, nh, *window, 1)
         ws5 = lib.vadcl_ln_mlp_bwd_workspace_bytes(batch * D * H * W, C, 4 * C)
         wsb = lib.vadcl_fold_block_bwd_workspace_bytes(batch, D, H, W, C, nh, 4 * C, *window, 1)
-        print(f"  whole-block backward workspace, bf16, batch {batch}, {gname}: "
-              f"{wsb / 1e6:.1f} MB (kernel 6 alone {ws6 / 1e6:.1f} MB, kernel 5 alone "
-              f"{ws5 / 1e6:.1f} MB)")
+        wsn = lib.vadcl_fold_block_bwd_bf16_workspace_bytes(batch, D, H, W, C, nh, 4 * C,
+                                                            *window)
+        print(f"  whole-block backward workspace, bf16, batch {batch}, {gname}: tensor-core "
+              f"body {wsn / 1e6:.1f} MB, PR 4's body {wsb / 1e6:.1f} MB (kernel 6 alone "
+              f"{ws6 / 1e6:.1f} MB, kernel 5 alone {ws5 / 1e6:.1f} MB)")
     print("  edge shapes (tiny widths, C=24 / head_dim 12, 147 tokens), fp32 and bf16:")
     for dtype, C, nh in ((torch.bfloat16, 32, 2), (torch.float32, 32, 2),
                          (torch.float32, 24, 2)):
@@ -1269,9 +1331,8 @@ def phase_bwd_kernels(batch: int = 4):
             blk = _block_bwd_case(a, gen)
             if not qkv_bias:
                 blk["qkv_b"] = None
-            check_grads(f"fold_block_bwd C={C} qkv_bias={qkv_bias} {str(dtype)[6:]}",
-                        BLOCK_BWD_NAMES, fold_block_bwd(**blk), fold_block_bwd_plain(**blk),
-                        BWD_TOL[dtype])
+            check_block_bwd_route(f"fold_block_bwd C={C} qkv_bias={qkv_bias} {str(dtype)[6:]}",
+                                  blk, "mma" if dtype == torch.bfloat16 else "tiles")
         for qkv_bias in (True, False):
             w = _win_bwd_case(_win_case_at(2, (2, 14, 14), C, nh, (2, 7, 7), (0, 3, 3), dtype,
                                            gen, qkv_bias), gen)
@@ -1283,6 +1344,19 @@ def phase_bwd_kernels(batch: int = 4):
         dy = torch.randn(x.shape, generator=gen).to(DEV, dtype)
         check_grads(f"ln_mlp_bwd C={C} {str(dtype)[6:]}", MLP_BWD_NAMES,
                     ln_mlp_bwd(x, dy, *p), ln_mlp_bwd_plain(x, dy, *p), BWD_TOL[dtype])
+    # a bf16 geometry the tensor-core body leaves to PR 4's body: head width 48
+    a = _fold_bwd_case((batch, 1, 28, 28, 96), 2, (1, 7, 7), (0, 3, 3), torch.bfloat16, gen)
+    for qkv_bias in (True, False):
+        blk = _block_bwd_case(a, gen)
+        if not qkv_bias:
+            blk["qkv_b"] = None
+        check_block_bwd_route(f"fold_block_bwd head width 48, N=49, qkv_bias={qkv_bias} bf16",
+                              blk, "tiles")
+    # a chunk of windows cut short: 320 windows at chunks of 3
+    a = _fold_bwd_case((5, 2, 56, 56, 96), 6, (2, 7, 7), (0, 3, 3), torch.bfloat16, gen)
+    blk = _block_bwd_case(a, gen)
+    got = check_block_bwd_route("fold_block_bwd batch 5 (a chunk cut short) bf16", blk, "mma")
+    same_bits("fold_block_bwd batch 5 bf16", got, fold_block_bwd(**blk))
     a = _fold_bwd_case((2, 2, 14, 14, 24), 2, (2, 7, 7), (0, 0, 0), torch.bfloat16, gen)
     try:
         fold_attention_bwd(**a)
@@ -1291,7 +1365,8 @@ def phase_bwd_kernels(batch: int = 4):
     else:
         raise AssertionError("fold_attention_bwd: bf16 C=24 launched instead of being refused")
     for k in stats:
-        stats[k]["max_abs_err"] = max(errs[k])
+        if k in errs:
+            stats[k]["max_abs_err"] = max(errs[k])
     return stats
 
 
@@ -1610,9 +1685,13 @@ def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 
     want, _ = make_loss_fn(cpu_model, cfg)(clip, 0)
     want.backward()
     t_cpu = time.perf_counter() - t0
+    reset_launches()
     got, _ = make_loss_fn(gpu_model, cfg)(clip.to(DEV), 0)
     got.backward()
     torch.cuda.synchronize()
+    from vadcl_tpu_torch.ops import KERNELS
+
+    launches = {k.__name__: k.launches for k in KERNELS}
     print(f"  loss card {got.item():.6f} CPU {want.item():.6f}; CPU forward+backward {t_cpu:.1f} s")
     check_close("loss", got.detach().cpu(), want.detach(), 0.0, 1e-4)
     with_grad = [{k for k, p in m.named_parameters() if p.grad is not None}
@@ -1636,6 +1715,8 @@ def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 
                                  f"{MODEL_GRAD_TOL} * max|CPU grad|")
     print(f"  {len(with_grad[0])} of {len(cpu_params)} parameters have a gradient on both "
           f"sides; worst err/(tol*max) {worst[1]:.3f} at {worst[0]} (tol {MODEL_GRAD_TOL:g})")
+    print(f"  kernel launches on the card: {launches}")
+    return launches
 
 
 WIDE_MODEL_TOL = {torch.float32: (1e-4, 2e-3), torch.bfloat16: (2e-2, 1e-1)}
@@ -2022,8 +2103,10 @@ REPLACES = {
     "fold_attention_packed": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                               "vadcl_tpu/ops/pallas_attn_fold.py:386"),
     "fold_block": ("vadcl_tpu_torch/csrc/fold_attn.cu", "vadcl_tpu/ops/pallas_attn_fold.py:341"),
-    "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
+    "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_block_bwd_mma.cu",
                        "vadcl_tpu/ops/pallas_attn_fold.py:870"),
+    "fold_block_bwd_tiles": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
+                             "vadcl_tpu/ops/pallas_attn_fold.py:870"),
     "window_attention_fused_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                     "vadcl_tpu/ops/pallas_attn.py:30"),
     "window_attention_fused_bwd_rows": ("vadcl_tpu_torch/csrc/window_attn_bwd_rows_mma.cu",
@@ -2045,6 +2128,7 @@ COUNTED_ON = {
     "window_attention_fused_bwd_rows": "training fold, reconstruction",
     "window_attention_packed_rows": "scoring packed, reconstruction",
     "ln_mlp_tiles": "wide model",
+    "fold_block_bwd_tiles": "model grads fold_block fp32",
 }
 
 
@@ -2067,11 +2151,15 @@ def main():
     phase_model_grads("fold", REDUCED_DEPTHS)
     phase_model_grads("base")
     phase_model_grads("fold", ((2, 2), (2, 2)), image_size=240)
-    phase_model_grads("fold_block")
+    counts = {"model grads fold_block fp32": phase_model_grads("fold_block")}
+    if (counts["model grads fold_block fp32"]["fold_block_bwd_tiles"] != 18
+            or counts["model grads fold_block fp32"]["fold_block_bwd"]):
+        raise AssertionError("the fp32 fold_block model must run PR 4's whole-block backward "
+                             "in each of its 18 blocks")
     phase_model_grads("fold", REDUCED_DEPTHS, recon=RECON_FRAMES)
     phase_model_grads("fold", REDUCED_DEPTHS, image_size=240, recon=RECON_FRAMES)
     phase_wide_model(torch.float32)
-    counts = {"wide model": phase_wide_model(torch.bfloat16)}
+    counts["wide model"] = phase_wide_model(torch.bfloat16)
     counts.update({f"scoring {k}": phase_scoring(k) for k in SCORING_KERNELS})
     counts.update({f"training {k}": phase_training(k) for k in TRAINING_KERNELS})
     for k in ("packed", "fold_packed", "fold_mix"):

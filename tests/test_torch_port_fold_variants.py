@@ -41,6 +41,7 @@ from vadcl_tpu_torch.ops.fold_attn import (
     fold_attention_plain,
     fold_block,
     fold_block_bwd,
+    fold_block_bwd_tiles,
     fold_block_fits,
     fold_block_plain,
     fold_block_smem_bytes,
@@ -323,16 +324,20 @@ def test_twelve_kernels_count_their_launches_and_cpu_calls_do_not():
     """The twelve kernels of PRs 1-5 and, since the row-tiled bodies of 7, 8
     and 9 count their own launches, three more counters, and two for the
     CUDA-core and shared-memory bodies of 5 and 6 beside their tensor-core
-    bodies, and one for kernel B's CUDA-core body: eighteen."""
+    bodies, and one for kernel B's CUDA-core body, and one for the
+    whole-block backward's shared-memory body beside its tensor-core body:
+    nineteen."""
     names = [k.__name__ for k in KERNELS]
-    assert len(names) == len(set(names)) == 18
+    assert len(names) == len(set(names)) == 19
     assert {"fold_attention_packed", "fold_block", "fold_block_bwd"} <= set(names)
+    assert "fold_block_bwd_tiles" in names
     before = [k.launches for k in KERNELS]
     a = _case(seed=12)
     args = _port_block_args(a, False)
     fold_block(*args, a["nh"], a["window"], a["scale"])
     fold_block_bwd(args[0], T(a["dout"]), *args[1:14], a["nh"], a["window"], a["scale"])
     _port_packed(a, False, True)
+    fold_block_bwd_tiles(args[0], T(a["dout"]), *args[1:14], a["nh"], a["window"], a["scale"])
     assert [k.launches for k in KERNELS] == before
 
 

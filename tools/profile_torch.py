@@ -15,15 +15,17 @@ forward, the work of one ``evaluate_videos`` batch; with ``--train`` one
 
 With ``--kernels-only`` it times fold attention, its packed variant and
 LN->MLP at every flagship geometry (``chip_smoke.py``'s table and operands),
-bf16, shifted and not, then their backward kernels 6 and 5 at
-``--bwd-batch`` clips on both of their bodies (tensor-core and ``*_tiles``),
-and prints one JSON object per line: ``ms`` is
+bf16, shifted and not, then their backward kernels 6 and 5 and the
+whole-block backward at ``--bwd-batch`` clips on both of their bodies
+(tensor-core and ``*_tiles``; ``--backward-only``: these alone), and prints
+one JSON object per line: ``ms`` is
 ``chip_smoke.cuda_ms`` (CUDA events around wrapper calls issued back to back:
 the device's time per call unless the host's path to the launch is longer),
 ``kernel_ms`` the device time of the hand-written kernel alone from the
 profiler; last, the host's time per wrapper call on a tiny input:
 
-    python tools/profile_torch.py --kernels-only [--batches 4 16] [--head-dim 32] [--tag NAME]
+    python tools/profile_torch.py --kernels-only [--backward-only] [--batches 4 16]
+        [--head-dim 32] [--tag NAME]
 
 (``--head-dim`` runs the attention kernels at the same widths with fewer,
 wider heads than the flagship's 16.)  With ``--recon --frame-num F`` it times
@@ -143,13 +145,19 @@ def window_kernels_only(args, smoke, gen) -> None:
 
 
 def backward_kernels_only(args, smoke, gen) -> None:
-    """Kernels 6 and 5 at the training batch (``--bwd-batch``), bf16, at every
-    flagship geometry, each on both of its bodies: the tensor-core body the
-    route picks (``fold_attention_bwd``, ``ln_mlp_bwd``) and the one it
-    leaves other geometries to (``*_tiles``).  ``kernel_ms`` includes the
-    second pass."""
+    """Kernels 6 and 5 and the whole-block backward at the training batch
+    (``--bwd-batch``), bf16, at every flagship geometry, each on both of its
+    bodies: the tensor-core body the route picks (``fold_attention_bwd``,
+    ``ln_mlp_bwd``, ``fold_block_bwd``) and the one it leaves other
+    geometries to (``*_tiles``; a tree without ``fold_block_bwd_tiles`` has
+    one whole-block body).  ``kernel_ms`` includes the second pass."""
+    from vadcl_tpu_torch.ops import fold_attn
     from vadcl_tpu_torch.ops.fold_attn import fold_attention_bwd, fold_attention_bwd_tiles
     from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_tiles
+
+    blocks = [("fold_block_bwd", fold_attn.fold_block_bwd)]
+    if hasattr(fold_attn, "fold_block_bwd_tiles"):
+        blocks.append(("fold_block_bwd_tiles", fold_attn.fold_block_bwd_tiles))
 
     bf, batch = torch.bfloat16, args.bwd_batch
     for gname, (dhwc, _, window, shift) in smoke.FOLD_GEOMETRIES.items():
@@ -164,6 +172,14 @@ def backward_kernels_only(args, smoke, gen) -> None:
                     "heads": nh, "shifted": shifted,
                     "ms": round(smoke.cuda_ms(lambda: k(**a)), 4),
                     "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4)}))
+            blk = smoke._block_bwd_case(a, gen)
+            for name, k in blocks:
+                print(json.dumps({
+                    "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch,
+                    "heads": nh, "shifted": shifted,
+                    "ms": round(smoke.cuda_ms(lambda: k(**blk)), 4),
+                    "kernel_ms": round(own_kernel_ms(lambda: k(**blk)), 4)}))
+            del blk
         C = dhwc[-1]
         p = smoke._mlp_case(C, 4 * C, gen)[:5]
         x, dy = a["x"], a["dout"]
@@ -195,6 +211,10 @@ def kernels_only(args) -> None:
     if args.recon:
         with torch.no_grad():
             window_kernels_only(args, smoke, gen)
+        return
+    if args.backward_only:
+        with torch.no_grad():
+            backward_kernels_only(args, smoke, gen)
         return
     bf = torch.bfloat16
     folds = (("fold_attention", fold_attention), ("fold_attention_packed", fold_attention_packed))
@@ -304,6 +324,8 @@ def main(argv=None):
                     help="with --kernels-only: the attention kernels' head width")
     ap.add_argument("--bwd-batch", type=int, default=4,
                     help="with --kernels-only: the clips of the backward kernels' inputs")
+    ap.add_argument("--backward-only", action="store_true",
+                    help="with --kernels-only: the backward kernels alone")
     ap.add_argument("--tag", default="", help="with --kernels-only: a name on every line")
     ap.add_argument("--root", default=HERE, help="the tree whose vadcl_tpu_torch is run")
     ap.add_argument("--recon", action="store_true",

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "vadcl_fold_block_bwd": ([_P] * 30 + [_I] * 13 + [_F, _I, _P], _I),
     "vadcl_fold_block_bwd_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_block_bwd_workspace_bytes": ([_I] * 11, _L),
+    "vadcl_fold_block_bwd_bf16": ([_P] * 26 + [_I] * 13 + [_F, _P], _I),
+    "vadcl_fold_block_bwd_bf16_smem_bytes": ([_I] * 3, _L),
+    "vadcl_fold_block_bwd_bf16_workspace_bytes": ([_I] * 10, _L),
     "vadcl_window_attn": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_packed": ([_P] * 8 + [_I] * 5 + [_F, _I, _P], _I),
     "vadcl_window_attn_smem_bytes": ([_I] * 4, _L),

@@ -43,7 +43,13 @@ The whole-block kernels replace ``_fold_kernel`` with ``tail=`` and
 ``attn_kernel="fold_block"``): ``fold_block`` computes
 ``y1 + fc2(gelu(fc1(LN2(y1))))`` with ``y1 = round(x + proj(attn(LN1 x)))``
 in one launch, ``fold_block_bwd`` its 14 gradients in one launch plus the
-second pass.  Both reuse the device code of kernels A, B, 5 and 6.
+second pass.  ``fold_block_bwd_body`` picks the backward's body: in bf16 at
+head width 16 or 32, at most 112 tokens, C % 16 == 0 and C <= 192,
+``csrc/fold_block_bwd_mma.cu`` (the strip bodies of kernels A, 5 and 6 in
+turn per window, on kernel A's and kernel B's packs, the second pass on the
+tensor cores); fp32 and other geometries the body of
+``csrc/fold_attn_bwd.cu`` (``fold_block_bwd_tiles`` counts its launches),
+which, like the forward, reuses the older device code of A, B, 5 and 6.
 
 ``fold_attention`` and ``fold_block`` are ``torch.autograd.Function``s (the
 backward of ``fold_attention_packed`` raises).  On a CPU tensor every
@@ -249,6 +255,44 @@ def fold_block_smem_bytes(n: int, c: int, num_heads: int, bf16: bool,
     return front + max(total([2 * m * hd] * 3 + [4 * m * m, 2 * m * m, stage]),
                        total([4 * m * _MLP_CHUNK, 2 * m * _MLP_CHUNK]),
                        total([4 * m * c]))
+
+
+FOLD_BLOCK_BWD_MAX_C = 192  # widest C of the whole-block backward's tensor-core body
+_BB_PIECE = 32  # hidden columns per ring stage of its MLP step
+
+
+def fold_block_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
+    """Shared memory of one block of the whole-block backward's tensor-core
+    body (``csrc/fold_block_bwd_mma.cu:bb_layout``): the mbarriers, two ring
+    stages (the larger of kernel 6's stage and 32 hidden columns of kernel
+    B's pack), the LN1 / y1 row tile, then the largest of the three steps'
+    regions: K, V and the o tile (step 1), the round(z) and dY tiles and the
+    rows' LN2 statistics (step 2), kernel 6's tiles or its dxa rows (step 3)."""
+    hd = c // num_heads
+    rows = fold_padded_rows(n)
+    ldw, ldkv = 3 * hd + PACK_PAD, hd + 8
+    npc = -(-c // (3 * hd))
+    stage = max(2 * (c * ldw + npc * hd * ldw), 2 * 2 * c * _BB_PIECE)
+    tile = 2 * rows * (c + PACK_PAD)
+    region = max(2 * 2 * 2 * rows * ldkv + tile, 2 * tile + 4 * 2 * rows,
+                 2 * 2 * 4 * rows * ldkv + 2 * 2 * rows * (rows + 8), 4 * rows * (c + 4))
+    return 128 + 2 * stage + tile + region
+
+
+def fold_block_bwd_body(n: int, c: int, num_heads: int, ch: int, dtype: torch.dtype) -> str:
+    """The body the whole-block backward runs a window of ``n`` tokens in:
+    ``"mma"`` (the tensor-core body, ``csrc/fold_block_bwd_mma.cu``: bf16,
+    head width 16 or 32, at most ``FOLD_MAX_TOKENS`` tokens, C % 16 == 0 and
+    at most ``FOLD_BLOCK_BWD_MAX_C``, a hidden width divisible by 64, its
+    block within ``SMEM_LIMIT``), else ``"tiles"`` (the body of
+    ``csrc/fold_attn_bwd.cu``: fp32 and every other geometry
+    ``fold_block_fits`` admits).  It picks by geometry alone."""
+    if (dtype == torch.bfloat16 and c % num_heads == 0 and c % 16 == 0
+            and c // num_heads in FOLD_HEAD_DIMS and n <= FOLD_MAX_TOKENS
+            and c <= FOLD_BLOCK_BWD_MAX_C and ch > 0 and ch % 64 == 0
+            and fold_block_bwd_mma_smem_bytes(n, c, num_heads) <= SMEM_LIMIT):
+        return "mma"
+    return "tiles"
 
 
 def _tail_acc_fits(n: int, c: int) -> bool:
@@ -735,20 +779,41 @@ fold_block.launches = 0
 
 def fold_block_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                    ln2_scale, ln2_bias, w1, b1, w2, num_heads, window, scale,
-                   shift=(0, 0, 0)):
+                   shift=(0, 0, 0), tiles: bool = False):
     """The whole-block backward: the gradients of ``fold_block`` as
     ``fold_block_bwd_plain`` returns them (the contract of ``_full_bwd``
-    with the shift roll folded in)."""
+    with the shift roll folded in).  ``fold_block_bwd_body`` picks the body;
+    ``tiles`` forces the shared-memory body.  Counts the tensor-core body's
+    launches."""
     args = (x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
             ln2_scale, ln2_bias, w1, b1, w2, num_heads, tuple(window), scale, tuple(shift))
     if x.device.type == "cpu":
         return fold_block_bwd_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fold_block_bwd: unsupported device {x.device}")
+    n = window[0] * window[1] * window[2]
+    if not tiles and fold_block_bwd_body(n, x.shape[-1], num_heads, w1.shape[1],
+                                         x.dtype) == "mma":
+        return _fold_block_bwd_mma(*args)
     return _fold_block_bwd_cuda(*args)
 
 
 fold_block_bwd.launches = 0
+
+
+def fold_block_bwd_tiles(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                         ln2_scale, ln2_bias, w1, b1, w2, num_heads, window, scale,
+                         shift=(0, 0, 0)):
+    """The whole-block backward on its shared-memory body
+    (``csrc/fold_attn_bwd.cu``) whatever the geometry; counts that body's
+    launches (also those the route makes through ``fold_block_bwd``: fp32,
+    and the bf16 geometries the tensor-core body does not take)."""
+    return fold_block_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                          ln2_scale, ln2_bias, w1, b1, w2, num_heads, window, scale, shift,
+                          tiles=True)
+
+
+fold_block_bwd_tiles.launches = 0
 
 
 def _f32(t: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
@@ -873,6 +938,24 @@ def _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev):
                  _vec(ln_bias, C, dev) if has_ln else None, _vec(qkv_b, 3 * C, dev)))
 
 
+def _fold_packs(qkv_w, proj_w, bias, mask, num_heads, dev, dt):
+    """Kernel A's packs that A, 10, 6's tensor-core body and the whole-block
+    backward read: the weights, the rel-pos bias and the mask (None without
+    one), each made once per tensor version."""
+    wp = _packs.get((qkv_w, proj_w), ("fold weights", num_heads, str(dev)),
+                    lambda: pack_fold_weights(qkv_w.to(dev), proj_w.to(dev), num_heads, dt))
+    bs = _packs.get((bias,), ("fold bias", str(dev)),
+                    lambda: pack_fold_scores(bias.to(dev), float("-inf")))
+    mk = None if mask is None else _packs.get(
+        (mask,), ("fold mask", str(dev)), lambda: pack_fold_scores(mask.to(dev), 0.0))
+    return wp, bs, mk
+
+
+def _fold_proj_b(proj_b, C, dev):
+    return _packs.get(() if proj_b is None else (proj_b,), ("fold proj_b", C, str(dev)),
+                      lambda: _vec(proj_b, C, dev))
+
+
 def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes, register_scores=False):
     """The checks kernels A and 6 share; ``smem_bytes`` is the library's
     shared-memory size function of the kernel (what ``fold_smem_bytes``
@@ -944,16 +1027,9 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
                 float(scale), int(bool(residual)))
     if x.dtype == torch.bfloat16:
         # packed operands, made once per tensor version (ops/packed.py)
-        wp = _packs.get((qkv_w, proj_w), ("fold weights", num_heads, str(dev)),
-                        lambda: pack_fold_weights(qkv_w.to(dev), proj_w.to(dev), num_heads,
-                                                  x.dtype))
+        wp, bs, mk = _fold_packs(qkv_w, proj_w, bias, mask, num_heads, dev, x.dtype)
         ln_s, ln_b, qb = _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev)
-        pb = _packs.get(() if proj_b is None else (proj_b,), ("fold proj_b", C, str(dev)),
-                        lambda: _vec(proj_b, C, dev))
-        bs = _packs.get((bias,), ("fold bias", str(dev)),
-                        lambda: pack_fold_scores(bias.to(dev), float("-inf")))
-        mk = None if mask is None else _packs.get(
-            (mask,), ("fold mask", str(dev)), lambda: pack_fold_scores(mask.to(dev), 0.0))
+        pb = _fold_proj_b(proj_b, C, dev)
         err = lib.vadcl_fold_attn_bf16(
             xc.data_ptr(),
             ln_s.data_ptr() if has_ln else None, ln_b.data_ptr() if has_ln else None,
@@ -1072,8 +1148,61 @@ def _fold_block_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_
         float(scale), is_bf16, cuda_lib.stream_ptr(xc),
     )
     cuda_lib.check(err, "fold_block_bwd")
-    fold_block_bwd.launches += 1
+    fold_block_bwd_tiles.launches += 1
     return tuple(None if (t is dqkv_b and qkv_b is None) else t for t in outs)
+
+
+def _fold_block_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                        ln2_scale, ln2_bias, w1, b1, w2, num_heads, window, scale, shift):
+    """The whole-block backward's tensor-core body, on kernel A's and kernel
+    B's packs of the same tensors."""
+    from vadcl_tpu_torch.ops.ln_mlp import _mlp_vectors
+    from vadcl_tpu_torch.ops.ln_mlp import _packs as mlp_packs
+    from vadcl_tpu_torch.ops.ln_mlp import pack_mlp_weights
+
+    lib = cuda_lib.library()
+    _check_fold("fold_block_bwd", x, bias, mask, num_heads, window,
+                lambda n, c, nh, _: lib.vadcl_fold_block_bwd_bf16_smem_bytes(n, c, nh),
+                register_scores=True)
+    B, D, H, W, C = x.shape
+    ch = _check_block("fold_block_bwd", x, w1, w2, window, 64)
+    dev, dt = x.device, x.dtype
+    n = window[0] * window[1] * window[2]
+    xc = cuda_lib.aligned(x.detach())
+    doc = cuda_lib.aligned(dout.detach().to(dt))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(xc)
+    vec = lambda k: torch.empty(k, **f32)  # noqa: E731
+    dln, dln2 = torch.empty(2, C, **f32), torch.empty(2, C, **f32)  # (scale, bias) each
+    dproj_b, db2 = vec(C), vec(C)
+    dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), vec(3 * C)
+    dproj_w, dbias = torch.empty(C, C, **f32), torch.empty(num_heads, n, n, **f32)
+    dw1, db1, dw2 = torch.empty(C, ch, **f32), vec(ch), torch.empty(ch, C, **f32)
+    ws = torch.empty(
+        lib.vadcl_fold_block_bwd_bf16_workspace_bytes(B, D, H, W, C, num_heads, ch, *window),
+        dtype=torch.uint8, device=dev,
+    )
+    # the packs kernels A, 6, B and 5 read (cache hits where they ran on these versions)
+    wp, bs, mk = _fold_packs(qkv_w, proj_w, bias, mask, num_heads, dev, dt)
+    ls, lb, qb = _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev)
+    pb = _fold_proj_b(proj_b, C, dev)
+    mp = mlp_packs.get((w1, w2), ("mlp", str(dev)),
+                       lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
+    l2s, l2b, b1c = _mlp_vectors(ln2_scale, ln2_bias, b1, C, ch, dev)
+    err = lib.vadcl_fold_block_bwd_bf16(
+        xc.data_ptr(), doc.data_ptr(), ls.data_ptr(), lb.data_ptr(), wp.data_ptr(),
+        qb.data_ptr(), pb.data_ptr(), bs.data_ptr(),
+        mk.data_ptr() if mk is not None else None,
+        l2s.data_ptr(), l2b.data_ptr(), mp.data_ptr(), b1c.data_ptr(),
+        *(t.data_ptr() for t in (dx, dln, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias, dln2, dw1,
+                                 db1, dw2, db2)), ws.data_ptr(),
+        B, D, H, W, C, num_heads, ch, *window, shift[0] % D, shift[1] % H, shift[2] % W,
+        float(scale), cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, "fold_block_bwd")
+    fold_block_bwd.launches += 1
+    return (dx, dln[0], dln[1], dqkv_w, dqkv_b if qkv_b is not None else None, dproj_w,
+            dproj_b, dbias, dln2[0], dln2[1], dw1, db1, dw2, db2)
 
 
 def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
@@ -1146,13 +1275,8 @@ def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
         dtype=torch.uint8, device=dev,
     )
     # the forward's packs of these tensor versions (cache hits within a step)
-    wp = _packs.get((qkv_w, proj_w), ("fold weights", num_heads, str(dev)),
-                    lambda: pack_fold_weights(qkv_w.to(dev), proj_w.to(dev), num_heads, dt))
+    wp, bs, mk = _fold_packs(qkv_w, proj_w, bias, mask, num_heads, dev, dt)
     ls, lb, qb = _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev)
-    bs = _packs.get((bias,), ("fold bias", str(dev)),
-                    lambda: pack_fold_scores(bias.to(dev), float("-inf")))
-    mk = None if mask is None else _packs.get(
-        (mask,), ("fold mask", str(dev)), lambda: pack_fold_scores(mask.to(dev), 0.0))
     err = lib.vadcl_fold_attn_bwd_bf16(
         xc.data_ptr(), doc.data_ptr(),
         ls.data_ptr() if has_ln else None, lb.data_ptr() if has_ln else None,
