@@ -284,7 +284,7 @@ def test_new_kernels_fit_the_flagship_geometries(geom, dtype):
     ``fold_block`` model runs one kernel per block each way."""
     n, c, nh = FLAGSHIP[geom]
     assert fold_packed_fits(n, c, nh, dtype)
-    assert fold_block_fits(n, c, nh, dtype)
+    assert fold_block_fits(n, c, nh, 4 * c, dtype)
     bf16 = dtype == torch.bfloat16
     for backward in (False, True):
         assert fold_block_smem_bytes(n, c, nh, bf16, backward) <= fold_attn.SMEM_LIMIT
@@ -300,7 +300,7 @@ def test_large_windows_fit_none_of_the_new_kernels():
     shared memory: the blocks take the partitioned route."""
     for dtype in (torch.bfloat16, torch.float32):
         assert not fold_packed_fits(392, 96, 6, dtype)
-        assert not fold_block_fits(392, 96, 6, dtype)
+        assert not fold_block_fits(392, 96, 6, 384, dtype)
 
 
 def test_fold_block_fits_is_one_predicate_for_both_directions(monkeypatch):
@@ -312,11 +312,11 @@ def test_fold_block_fits_is_one_predicate_for_both_directions(monkeypatch):
     bwd = fold_block_smem_bytes(n, c, nh, True, backward=True)
     assert fwd < bwd
     monkeypatch.setattr(fold_attn, "SMEM_LIMIT", (fwd + bwd) // 2)
-    assert not fold_block_fits(n, c, nh, torch.bfloat16)
+    assert not fold_block_fits(n, c, nh, 4 * c, torch.bfloat16)
     monkeypatch.setattr(fold_attn, "SMEM_LIMIT", bwd)
-    assert fold_block_fits(n, c, nh, torch.bfloat16)
+    assert fold_block_fits(n, c, nh, 4 * c, torch.bfloat16)
     # the bf16 tail keeps its fc2 sums in the warps' fragments: 96 tiles at most
-    assert not fold_block_fits(98, 256, 16, torch.bfloat16)
+    assert not fold_block_fits(98, 256, 16, 1024, torch.bfloat16)
     assert fold_fits(98, 96, 6, torch.bfloat16)
 
 

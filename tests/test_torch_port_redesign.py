@@ -73,7 +73,7 @@ def test_fold_route_is_kept(geom):
         for backward in (False, True):
             assert fold_fits(n, c, nh, dtype, backward), (geom, dtype, backward)
         assert fold_packed_fits(n, c, nh, dtype)
-        assert fold_block_fits(n, c, nh, dtype)
+        assert fold_block_fits(n, c, nh, 4 * c, dtype)
 
 
 def test_large_windows_are_refused_by_name():
@@ -104,7 +104,7 @@ def test_head_widths_of_the_bf16_forward():
         assert fold_fits(49, c, nh, torch.float32)
         assert not fold_fits(49, c, nh, torch.bfloat16)
         assert fold_fits(49, c, nh, torch.bfloat16, backward=True)
-        assert fold_block_fits(49, c, nh, torch.bfloat16)
+        assert fold_block_fits(49, c, nh, 4 * c, torch.bfloat16)
 
 
 @pytest.mark.parametrize("kernel,route", [

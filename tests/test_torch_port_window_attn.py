@@ -330,14 +330,15 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
 
 def test_window_attention_checks_its_arguments():
     """The checks that guard the launch are reachable without a card; a
-    window the whole-tile body cannot hold goes to the row-tiled body."""
-    from vadcl_tpu_torch.ops.window_attn import _check_windows
+    window the whole-tile body cannot hold goes to the row-tiled body; bf16
+    at head width 12 is taken (by the CUDA-core bodies)."""
+    from vadcl_tpu_torch.ops.window_attn import _check_windows, window_core
 
     x = torch.zeros(8, 49, 24)
     bias, mask = torch.zeros(2, 49, 49), torch.zeros(4, 49, 49)
     _check_windows("k", x, bias, mask, 2, 4)
-    with pytest.raises(NotImplementedError, match="multiples of 16"):
-        _check_windows("k", x.bfloat16(), bias, mask, 2, 4)
+    _check_windows("k", x.bfloat16(), bias, mask, 2, 4)
+    assert window_core(24, 2, torch.bfloat16) == "cuda_core"
     with pytest.raises(ValueError, match="bias"):
         _check_windows("k", x, bias[:1], mask, 2, 4)
     with pytest.raises(ValueError, match="mask"):

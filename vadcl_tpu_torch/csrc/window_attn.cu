@@ -19,13 +19,15 @@
 // and have no counterpart here: both kernels share this file's device code
 // behind the PACKED template flag, each with its own entry point.
 //
-// Two kernels per flag, one per compute dtype, as for the fold kernels.
-// bf16: window_attn_tc_kernel runs the four products (qkv, q.k, p.v, proj)
-// as WMMA 16x16x16 bf16 tiles with fp32 accumulation; the window pads to
-// Np = ceil(N/16)*16 rows inside the block (padded input rows are zero,
-// padded key columns get probability 0, padded output rows are dropped); it
-// needs C and head_dim to be multiples of 16.  fp32 (the exact
-// comparisons): window_attn_kernel, CUDA-core loops, any width.
+// Two kernels per flag, as for the fold kernels.  bf16 at C and head_dim
+// multiples of 16: window_attn_tc_kernel runs the four products (qkv, q.k,
+// p.v, proj) as WMMA 16x16x16 bf16 tiles with fp32 accumulation; the window
+// pads to Np = ceil(N/16)*16 rows inside the block (padded input rows are
+// zero, padded key columns get probability 0, padded output rows are
+// dropped).  fp32 (the exact comparisons), and bf16 at every other width
+// (head width 12 of an embed_dim 24 or 72 model): window_attn_kernel<T>,
+// CUDA-core loops in fp32 on T loads and stores, any width, rounding to T
+// where the bf16 contract rounds (qkv, p, o, out).
 //
 // What bounds it: one block per SM (shared memory: the window, the
 // pre-projection tile, one head's q/k/v, its N x N fp32 scores and their
@@ -64,7 +66,7 @@ inline size_t win_smem_bytes(int n, int c, int nh) {
   return sizeof(float) * (2 * (size_t)n * c + 3 * (size_t)n * hdp + (size_t)n * n);
 }
 
-template <bool PACKED>
+template <bool PACKED, typename T>
 __global__ void __launch_bounds__(kWinThreads) window_attn_kernel(WinArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int C = a.C, nh = a.nh, N = a.N;
@@ -77,13 +79,13 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_kernel(WinArgs a) {
   float* sc = vs + N * hdp;  // N*N
 
   const int blk = blockIdx.x;
-  const float* x = static_cast<const float*>(a.x) + (size_t)blk * N * C;
-  const float* wqkv = static_cast<const float*>(a.qkv_w);
-  const float* wproj = static_cast<const float*>(a.proj_w);
-  float* out = static_cast<float*>(a.out) + (size_t)blk * N * C;
+  const T* x = static_cast<const T*>(a.x) + (size_t)blk * N * C;
+  const T* wqkv = static_cast<const T*>(a.qkv_w);
+  const T* wproj = static_cast<const T*>(a.proj_w);
+  T* out = static_cast<T*>(a.out) + (size_t)blk * N * C;
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
 
-  for (int idx = tid; idx < N * C; idx += kWinThreads) xs[idx] = x[idx];
+  for (int idx = tid; idx < N * C; idx += kWinThreads) xs[idx] = to_f(x[idx]);
   __syncthreads();
 
   // window i of the flat axis takes mask[i % nW]
@@ -95,11 +97,11 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_kernel(WinArgs a) {
       const int col = part * C + hh * hd + dd;
       const float* xr = xs + i * C;
       float acc = 0.f;
-      for (int c = 0; c < C; ++c) acc += xr[c] * wqkv[(size_t)c * C3 + col];
+      for (int c = 0; c < C; ++c) acc += xr[c] * to_f(wqkv[(size_t)c * C3 + col]);
       float v = acc + a.qkv_b[col];
       if (PACKED && part == 0) v *= a.scale;
       float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-      dst[i * hdp + dd] = v;
+      dst[i * hdp + dd] = round_to<T>(v);
     }
     __syncthreads();
 
@@ -128,7 +130,7 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_kernel(WinArgs a) {
       const float inv = 1.f / s;
       for (int j = lane; j < N; j += kWarp) {
         const float e = expf(row[j] - m);
-        row[j] = PACKED ? e * inv : e / s;
+        row[j] = round_to<T>(PACKED ? e * inv : e / s);
       }
     }
     __syncthreads();
@@ -138,7 +140,7 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_kernel(WinArgs a) {
       const float* p = sc + i * N;
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc += p[j] * vs[j * hdp + dd];
-      ob[i * C + hh * hd + dd] = acc;
+      ob[i * C + hh * hd + dd] = round_to<T>(acc);
     }
     __syncthreads();
   }
@@ -147,8 +149,8 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_kernel(WinArgs a) {
     const int i = idx / C, c = idx % C;
     const float* o = ob + i * C;
     float acc = 0.f;
-    for (int k = 0; k < C; ++k) acc += o[k] * wproj[(size_t)k * C + c];
-    out[idx] = acc + a.proj_b[c];
+    for (int k = 0; k < C; ++k) acc += o[k] * to_f(wproj[(size_t)k * C + c]);
+    out[idx] = from_f<T>(acc + a.proj_b[c]);
   }
 }
 
@@ -339,23 +341,29 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_tc_kernel(WinArgs a) 
   }
 }
 
+// Shared memory of the kernel a launch runs: the tensor-core body's layout in
+// bf16 at the widths it takes, window_attn_kernel's fp32 tiles otherwise.
 inline size_t win_plan_smem(int n, int c, int nh, int is_bf16) {
-  return is_bf16 ? win_tc_layout(n, c, nh).bytes : win_smem_bytes(n, c, nh);
+  return is_bf16 && win_tc_eligible(c, nh) ? win_tc_layout(n, c, nh).bytes
+                                           : win_smem_bytes(n, c, nh);
 }
 
 template <bool PACKED>
 cudaError_t launch_window_attn(const WinArgs& a, int is_bf16, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
   if (a.Bn <= 0 || a.N <= 0 || a.C % a.nh != 0 || a.nW <= 0) return cudaErrorInvalidValue;
-  if (is_bf16 && !win_tc_eligible(a.C, a.nh)) return cudaErrorInvalidValue;
   const size_t smem = win_plan_smem(a.N, a.C, a.nh, is_bf16);
   if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   cudaError_t err;
-  if (is_bf16) {
+  if (is_bf16 && win_tc_eligible(a.C, a.nh)) {
     if ((err = allow_smem(window_attn_tc_kernel<PACKED>, smem)) != cudaSuccess) return err;
     window_attn_tc_kernel<PACKED><<<(unsigned)a.Bn, kWinThreads, smem, stream>>>(a);
+  } else if (is_bf16) {
+    if ((err = allow_smem(window_attn_kernel<PACKED, bf16>, smem)) != cudaSuccess) return err;
+    window_attn_kernel<PACKED, bf16><<<(unsigned)a.Bn, kWinThreads, smem, stream>>>(a);
   } else {
-    if ((err = allow_smem(window_attn_kernel<PACKED>, smem)) != cudaSuccess) return err;
-    window_attn_kernel<PACKED><<<(unsigned)a.Bn, kWinThreads, smem, stream>>>(a);
+    if ((err = allow_smem(window_attn_kernel<PACKED, float>, smem)) != cudaSuccess) return err;
+    window_attn_kernel<PACKED, float><<<(unsigned)a.Bn, kWinThreads, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }

@@ -14,10 +14,13 @@
 //   do = round(dout . proj_w^T);  dv = p^T . do;  dp = do . v^T;
 //   ds = P * (dp - rowsum(dp * P));  dss = round(ds * scale);
 //   dq = dss . k;  dk = dss^T . q;  dx = round(round(dqkv) . qkv_w^T).
-// Two kernels, one per compute dtype: bf16 on WMMA 16x16x16 tiles with fp32
-// accumulation, the window padded to Np = ceil(N/16)*16 rows inside the
-// block (padded rows and columns carry zeros and are dropped), C and
-// head_dim multiples of 16; fp32 on CUDA cores for any width.
+// Two kernels: bf16 at C and head_dim multiples of 16 on WMMA 16x16x16 tiles
+// with fp32 accumulation, the window padded to Np = ceil(N/16)*16 rows
+// inside the block (padded rows and columns carry zeros and are dropped);
+// fp32, and bf16 at every other width, window_attn_bwd_kernel<T> on CUDA
+// cores for any width, fp32 arithmetic on T loads and stores, rounding to T
+// where the bf16 contract rounds (qkv, do, p in p.v and p^T.do, o, ds *
+// scale, the stored dqkv, dx; dqkv_b sums the unrounded dqkv).
 //
 // The TPU grid runs in order and adds dqkv_w, dqkv_b, dproj_w, dproj_b and
 // d(bias) into constant-index output blocks.  Blocks here run in any order,
@@ -67,6 +70,7 @@ inline size_t win_bwd_smem_bytes(int n, int c, int nh) {
   return sizeof(float) * (p1 > p2 ? p1 : p2);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int C = a.C, nh = a.nh, hd = C / nh, hdp = hd + 1, C3 = 3 * C, N = a.N;
@@ -86,16 +90,16 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
 
   const int blk = blockIdx.x;
   const size_t t0 = (size_t)blk * N;  // first token of this window
-  const float* x = static_cast<const float*>(a.x) + t0 * C;
-  const float* dout = static_cast<const float*>(a.dout) + t0 * C;
-  const float* wqkv = static_cast<const float*>(a.qkv_w);
-  const float* wproj = static_cast<const float*>(a.proj_w);
-  float* dx = static_cast<float*>(a.dx) + t0 * C;
-  float* o_ws = static_cast<float*>(a.o_ws) + t0 * C;
-  float* dqkv_ws = static_cast<float*>(a.dqkv_ws) + t0 * C3;
+  const T* x = static_cast<const T*>(a.x) + t0 * C;
+  const T* dout = static_cast<const T*>(a.dout) + t0 * C;
+  const T* wqkv = static_cast<const T*>(a.qkv_w);
+  const T* wproj = static_cast<const T*>(a.proj_w);
+  T* dx = static_cast<T*>(a.dx) + t0 * C;
+  T* o_ws = static_cast<T*>(a.o_ws) + t0 * C;
+  T* dqkv_ws = static_cast<T*>(a.dqkv_ws) + t0 * C3;
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
 
-  for (int idx = tid; idx < N * C; idx += kWbThreads) row[idx] = x[idx];
+  for (int idx = tid; idx < N * C; idx += kWbThreads) row[idx] = to_f(x[idx]);
   __syncthreads();
 
   const float* mask = a.mask != nullptr ? a.mask + (size_t)(blk % a.nW) * N * N : nullptr;
@@ -106,17 +110,17 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
       const int part = j / hd, d = j % hd, col = part * C + h * hd + d;
       const float* ri = row + i * C;
       float acc = 0.f;
-      for (int c = 0; c < C; ++c) acc += ri[c] * wqkv[(size_t)c * C3 + col];
+      for (int c = 0; c < C; ++c) acc += ri[c] * to_f(wqkv[(size_t)c * C3 + col]);
       float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-      dst[i * hdp + d] = acc + a.qkv_b[col];
+      dst[i * hdp + d] = round_to<T>(acc + a.qkv_b[col]);
     }
     for (int idx = tid; idx < N * hd; idx += kWbThreads) {
       const int i = idx / hd, d = idx % hd;
-      const float* di = dout + (size_t)i * C;
-      const float* wp = wproj + (size_t)(h * hd + d) * C;
+      const T* di = dout + (size_t)i * C;
+      const T* wp = wproj + (size_t)(h * hd + d) * C;
       float acc = 0.f;
-      for (int c = 0; c < C; ++c) acc += di[c] * wp[c];
-      das[i * hdp + d] = acc;
+      for (int c = 0; c < C; ++c) acc += to_f(di[c]) * to_f(wp[c]);
+      das[i * hdp + d] = round_to<T>(acc);
     }
     __syncthreads();
 
@@ -142,17 +146,17 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
     }
     __syncthreads();
 
-    // o = P . v (to the workspace), dv = P^T . do, dp = do . v^T
+    // o = p . v (to the workspace), dv = p^T . do, dp = do . v^T, p = round(P)
     for (int idx = tid; idx < N * hd; idx += kWbThreads) {
       const int i = idx / hd, d = idx % hd;
       float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc += pb[i * N + j] * vs[j * hdp + d];
-      o_ws[(size_t)i * C + h * hd + d] = acc;
+      for (int j = 0; j < N; ++j) acc += round_to<T>(pb[i * N + j]) * vs[j * hdp + d];
+      o_ws[(size_t)i * C + h * hd + d] = from_f<T>(acc);
     }
     for (int idx = tid; idx < N * hd; idx += kWbThreads) {
       const int j = idx / hd, d = idx % hd;
       float acc = 0.f;
-      for (int i = 0; i < N; ++i) acc += pb[i * N + j] * das[i * hdp + d];
+      for (int i = 0; i < N; ++i) acc += round_to<T>(pb[i * N + j]) * das[i * hdp + d];
       dvs[j * hdp + d] = acc;
     }
     for (int idx = tid; idx < N * N; idx += kWbThreads) {
@@ -174,7 +178,7 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
       for (int j = lane; j < N; j += kWarp) {
         const float ds = prow[j] * (srow[j] - r);
         dbias[i * N + j] = ds;
-        srow[j] = ds * a.scale;
+        srow[j] = round_to<T>(ds * a.scale);
       }
     }
     __syncthreads();
@@ -198,7 +202,7 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
     for (int idx = tid; idx < N * 3 * hd; idx += kWbThreads) {
       const int i = idx / (3 * hd), j = idx % (3 * hd), part = j / hd, d = j % hd;
       const float* src = part == 0 ? vs : (part == 1 ? das : dvs);
-      dqkv_ws[(size_t)i * C3 + part * C + h * hd + d] = src[i * hdp + d];
+      dqkv_ws[(size_t)i * C3 + part * C + h * hd + d] = from_f<T>(src[i * hdp + d]);
     }
     for (int j = tid; j < 3 * hd; j += kWbThreads) {
       const int part = j / hd, d = j % hd;
@@ -217,11 +221,11 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
     const int jw = min(32, C3 - j0);
     for (int idx = tid; idx < C * 32; idx += kWbThreads) {
       const int c = idx / 32, jj = idx % 32;
-      wsm[c * 33 + jj] = jj < jw ? wqkv[(size_t)c * C3 + j0 + jj] : 0.f;
+      wsm[c * 33 + jj] = jj < jw ? to_f(wqkv[(size_t)c * C3 + j0 + jj]) : 0.f;
     }
     for (int idx = tid; idx < N * 32; idx += kWbThreads) {
       const int i = idx / 32, jj = idx % 32;
-      dqs[i * 33 + jj] = jj < jw ? dqkv_ws[(size_t)i * C3 + j0 + jj] : 0.f;
+      dqs[i * 33 + jj] = jj < jw ? to_f(dqkv_ws[(size_t)i * C3 + j0 + jj]) : 0.f;
     }
     __syncthreads();
     for (int idx = tid; idx < N * C; idx += kWbThreads) {
@@ -234,7 +238,7 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
     }
     __syncthreads();
   }
-  for (int idx = tid; idx < N * C; idx += kWbThreads) dx[idx] = dxa[idx];
+  for (int idx = tid; idx < N * C; idx += kWbThreads) dx[idx] = from_f<T>(dxa[idx]);
 }
 
 // ---------------------------------------------------------------------------
@@ -586,9 +590,12 @@ inline WinBwdWsLayout win_bwd_ws_layout(int Bn, int N, int C, int nh, int is_bf1
 
 extern "C" {
 
+// The tensor-core body's layout in bf16 at the widths it takes, the CUDA-core
+// body's fp32 tiles otherwise.
 long long vadcl_window_attn_bwd_smem_bytes(int n, int c, int nh, int is_bf16) {
-  return (long long)(is_bf16 ? vadcl::win_bwd_tc_layout(n, c, nh).bytes
-                             : vadcl::win_bwd_smem_bytes(n, c, nh));
+  return (long long)(is_bf16 && vadcl::win_bwd_tc_eligible(c, nh)
+                         ? vadcl::win_bwd_tc_layout(n, c, nh).bytes
+                         : vadcl::win_bwd_smem_bytes(n, c, nh));
 }
 
 long long vadcl_window_attn_bwd_workspace_bytes(int Bn, int N, int C, int nh, int is_bf16) {
@@ -605,9 +612,8 @@ int vadcl_window_attn_bwd(const void* x, const void* dout, const void* qkv_w,
   using namespace vadcl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Bn <= 0 || N <= 0 || C % nh != 0 || nW <= 0) return cudaErrorInvalidValue;
-  if (is_bf16 && !win_bwd_tc_eligible(C, nh)) return cudaErrorInvalidValue;
-  const size_t smem =
-      is_bf16 ? win_bwd_tc_layout(N, C, nh).bytes : win_bwd_smem_bytes(N, C, nh);
+  const bool tc = is_bf16 && win_bwd_tc_eligible(C, nh);
+  const size_t smem = tc ? win_bwd_tc_layout(N, C, nh).bytes : win_bwd_smem_bytes(N, C, nh);
   if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   const WinBwdWsLayout l = win_bwd_ws_layout(Bn, N, C, nh, is_bf16);
   char* ws = static_cast<char*>(workspace);
@@ -615,12 +621,15 @@ int vadcl_window_attn_bwd(const void* x, const void* dout, const void* qkv_w,
                reinterpret_cast<float*>(ws + l.dqkvb), reinterpret_cast<float*>(ws + l.dbias),
                Bn, N, C, nh, nW, scale};
   cudaError_t err;
-  if (is_bf16) {
+  if (tc) {
     if ((err = allow_smem(window_attn_bwd_tc_kernel, smem)) != cudaSuccess) return err;
     window_attn_bwd_tc_kernel<<<Bn, kWbThreads, smem, s>>>(a);
+  } else if (is_bf16) {
+    if ((err = allow_smem(window_attn_bwd_kernel<__nv_bfloat16>, smem)) != cudaSuccess) return err;
+    window_attn_bwd_kernel<__nv_bfloat16><<<Bn, kWbThreads, smem, s>>>(a);
   } else {
-    if ((err = allow_smem(window_attn_bwd_kernel, smem)) != cudaSuccess) return err;
-    window_attn_bwd_kernel<<<Bn, kWbThreads, smem, s>>>(a);
+    if ((err = allow_smem(window_attn_bwd_kernel<float>, smem)) != cudaSuccess) return err;
+    window_attn_bwd_kernel<float><<<Bn, kWbThreads, smem, s>>>(a);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 

@@ -20,19 +20,24 @@
 //      rows_fwd_gemm_kernel; W_proj^T and W_qkv^T come transposed from the
 //      wrapper);
 //   2. the core, which writes o, dqkv, the per-window dqkv column sums and
-//      the d(bias) partials.  bf16: window_attn_bwd_rows_mma.cu (a block per
-//      head walking groups of windows that share a mask index, the strips'
-//      bias and mask staged once per group, d(bias) summed over the group on
-//      chip; above N = 512 a block per chunk of windows reading them from
-//      device memory).  fp32 (the exact comparisons), here: one block per
-//      (chunk of consecutive windows, head), a query (then key) row per warp
-//      on CUDA cores, expf, the division fa_div, d(bias) added into the
-//      chunk's partial per window;
+//      the d(bias) partials.  bf16 at head width 16, 32, 48 or 64 and C a
+//      multiple of 16: window_attn_bwd_rows_mma.cu (a block per head walking
+//      groups of windows that share a mask index, the strips' bias and mask
+//      staged once per group, d(bias) summed over the group on chip; above
+//      N = 512 a block per chunk of windows reading them from device memory).
+//      fp32 (the exact comparisons), and bf16 at every other width, here:
+//      rows_bwd_f32_kernel<T>, one block per (chunk of consecutive windows,
+//      head), a query (then key) row per warp on CUDA cores, expf, the
+//      division fa_div, d(bias) added into the chunk's partial per window;
+//      it writes dqkv unrounded in fp32 (its column sums are dqkv_b's), and
+//      in bf16 round_dqkv_kernel then rounds it into the bf16 copy the
+//      products read;
 //   3. the deterministic second pass: dqkv_w = x^T . dqkv and dproj_w =
-//      o^T . do with dproj_b = colsum(do), bf16 on the tensor cores
-//      (reduce_mma.cu: exact bf16 products, fp32 sums over 1024-token chunks
-//      in order), fp32 on CUDA cores (reduce.cu); the per-window dqkv_b and
-//      the d(bias) partials summed in a fixed order (sum_rows);
+//      o^T . do with dproj_b = colsum(do), behind the tensor-core core on
+//      the tensor cores (reduce_mma.cu: exact bf16 products, fp32 sums over
+//      1024-token chunks in order), behind the CUDA-core core on CUDA cores
+//      (reduce.cu); the per-window dqkv_b and the d(bias) partials summed in
+//      a fixed order (sum_rows);
 //   4. dx = round(round(dqkv) . W_qkv^T), as launch 1.
 //
 // The d(bias) partials are nH x N x N floats per block of the core's grid
@@ -56,22 +61,25 @@ struct RowsBwdArgs {
   const float* bias;  // (nH, N, N)
   const float* mask;  // (nW, N, N) or null
   void* o;            // (T, C) round(p . v), all heads
-  void* dqkv;         // (T, 3C) round(dq | dk | dv)
+  void* dqkv;         // (T, 3C) dq | dk | dv (the CUDA-core core: fp32, unrounded)
   float* dqkvb_part;  // (Bn, 3C) per-window column sums of the unrounded dqkv
   float* dbias_part;  // (chunks, nH, N, N)
   int Bn, N, C, nh, nW, chunk;
   float scale;
 };
 
-// Shared memory of one attention-core block (bf16: the direct layout, the
-// least the core needs).
+// Shared memory of one attention-core block (the bf16 tensor-core core: the
+// direct layout, the least it needs).
 inline size_t rows_bwd_smem(int n, int c, int nh, int is_bf16) {
   const size_t hd = c / nh;
-  if (is_bf16) return rows_bwd_layout(n, (int)hd, 0).bytes;
+  if (is_bf16 && rows_bf16_eligible(c, nh)) return rows_bwd_layout(n, (int)hd, 0).bytes;
   // fp32: rows unpadded, so that head width 32 fits at N = 392
   return sizeof(float) * (4 * (size_t)n * hd + 3 * (size_t)n + 2 * (size_t)kRowsWarps * n);
 }
 
+// T: the compute dtype of qkv, do and o; p and ds * scale round to it where
+// they enter a product, as in window_attn_bwd.cu's CUDA-core body.
+template <typename T>
 __global__ void __launch_bounds__(kRowsThreads) rows_bwd_f32_kernel(RowsBwdArgs a) {
   extern __shared__ __align__(16) float smf[];
   const int N = a.N, C = a.C, C3 = 3 * C, nh = a.nh, hd = C / nh, hdp = hd;
@@ -92,16 +100,16 @@ __global__ void __launch_bounds__(kRowsThreads) rows_bwd_f32_kernel(RowsBwdArgs 
   const int w_begin = chunk * a.chunk, w_end = min(a.Bn, w_begin + a.chunk);
 
   for (int w = w_begin; w < w_end; ++w) {
-    const float* qkv = static_cast<const float*>(a.qkv) + (size_t)w * N * C3;
-    const float* doa = static_cast<const float*>(a.doa) + (size_t)w * N * C;
-    float* o = static_cast<float*>(a.o) + (size_t)w * N * C;
+    const T* qkv = static_cast<const T*>(a.qkv) + (size_t)w * N * C3;
+    const T* doa = static_cast<const T*>(a.doa) + (size_t)w * N * C;
+    T* o = static_cast<T*>(a.o) + (size_t)w * N * C;
     float* dqkv = static_cast<float*>(a.dqkv) + (size_t)w * N * C3;
     const float* mask = a.mask != nullptr ? a.mask + (size_t)(w % a.nW) * N * N : nullptr;
     const bool first = w == w_begin;
     for (int e = tid; e < 4 * N * hd; e += kRowsThreads) {
       const int part = e / (N * hd), r = (e / hd) % N, d = e % hd;
-      qs[((size_t)part * N + r) * hdp + d] =
-          part < 3 ? qkv[(size_t)r * C3 + part * C + h * hd + d] : doa[(size_t)r * C + h * hd + d];
+      qs[((size_t)part * N + r) * hdp + d] = to_f(
+          part < 3 ? qkv[(size_t)r * C3 + part * C + h * hd + d] : doa[(size_t)r * C + h * hd + d]);
     }
     __syncthreads();
     auto dot = [&](const float* u, const float* v) {
@@ -138,16 +146,16 @@ __global__ void __launch_bounds__(kRowsThreads) rows_bwd_f32_kernel(RowsBwdArgs 
         const float dsv = pw[j] * (sw[j] - r);
         float* db = dbias + (size_t)i * N + j;
         *db = first ? dsv : *db + dsv;
-        sw[j] = dsv * scale;
+        sw[j] = round_to<T>(dsv * scale);
       }
       __syncwarp();
       for (int d = lane; d < hd; d += kWarp) {
         float oa = 0.f, dq = 0.f;
         for (int j = 0; j < N; ++j) {
-          oa += pw[j] * vs[j * hdp + d];
+          oa += round_to<T>(pw[j]) * vs[j * hdp + d];
           dq += sw[j] * ks[j * hdp + d];
         }
-        o[(size_t)i * C + h * hd + d] = oa;
+        o[(size_t)i * C + h * hd + d] = from_f<T>(oa);
         dqkv[(size_t)i * C3 + h * hd + d] = dq;
       }
       if (lane == 0) mrow[i] = M, lrow[i] = L, rrow[i] = r;
@@ -161,14 +169,14 @@ __global__ void __launch_bounds__(kRowsThreads) rows_bwd_f32_kernel(RowsBwdArgs 
         const float l = lrow[i];
         const float p = fa_div(expf(score(i, j) - mrow[i]), l, 1.f / l);
         pw[i] = p;
-        sw[i] = p * (dot(das + i * hdp, vs + j * hdp) - rrow[i]) * scale;
+        sw[i] = round_to<T>(p * (dot(das + i * hdp, vs + j * hdp) - rrow[i]) * scale);
       }
       __syncwarp();
       for (int d = lane; d < hd; d += kWarp) {
         float dk = 0.f, dv = 0.f;
         for (int i = 0; i < N; ++i) {
           dk += sw[i] * qs[i * hdp + d];
-          dv += pw[i] * das[i * hdp + d];
+          dv += round_to<T>(pw[i]) * das[i * hdp + d];
         }
         dqkv[(size_t)j * C3 + C + h * hd + d] = dk;
         dqkv[(size_t)j * C3 + 2 * C + h * hd + d] = dv;
@@ -187,23 +195,36 @@ __global__ void __launch_bounds__(kRowsThreads) rows_bwd_f32_kernel(RowsBwdArgs 
   }
 }
 
+// dq | dk | dv rounded to bf16, from the CUDA-core core's fp32 rows.
+__global__ void round_dqkv_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+                                  long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    dst[i] = __float2bfloat16(src[i]);
+}
+
 struct RowsBwdWs {
-  size_t qkv, doa, o, dqkv, dqkvb, dbias, atb, bytes;
+  size_t qkv, doa, o, dqkv, dqkv16, dqkvb, dbias, atb, bytes;
 };
 
+// The workspace: dqkv in the compute dtype behind the tensor-core core, in
+// fp32 behind the CUDA-core core (and, in bf16, its rounded copy dqkv16).
 inline RowsBwdWs rows_bwd_ws(int Bn, int N, int C, int nh, int is_bf16) {
   const size_t T = (size_t)Bn * N, es = is_bf16 ? 2 : 4;
+  const bool tc = is_bf16 && rows_bf16_eligible(C, nh);
   RowsBwdWs l;
   size_t o = 0;
   l.qkv = o;   o = align256(o + T * 3 * C * es);
   l.doa = o;   o = align256(o + T * C * es);
   l.o = o;     o = align256(o + T * C * es);
-  l.dqkv = o;  o = align256(o + T * 3 * C * es);
+  l.dqkv = o;  o = align256(o + T * 3 * C * (tc ? 2 : 4));
+  l.dqkv16 = o;
+  if (is_bf16 && !tc) o = align256(o + T * 3 * C * 2);
   l.dqkvb = o; o = align256(o + sizeof(float) * (size_t)Bn * 3 * C);
   l.dbias = o; o = align256(o + sizeof(float) * (size_t)rows_bwd_chunks(Bn, nh) * nh * N * N);
   l.atb = o;
-  o = align256(o + sizeof(float) * (is_bf16 ? atb_mma_partial_floats((int)T, C, 3 * C)
-                                            : atb_partial_floats((int)T, C, 3 * C)));
+  o = align256(o + sizeof(float) * (tc ? atb_mma_partial_floats((int)T, C, 3 * C)
+                                       : atb_partial_floats((int)T, C, 3 * C)));
   l.bytes = o;
   return l;
 }
@@ -236,7 +257,7 @@ int vadcl_window_attn_bwd_rows(const void* x, const void* dout, const void* qkv_
   using namespace vadcl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Bn <= 0 || N <= 0 || nh <= 0 || C % nh != 0 || nW <= 0) return cudaErrorInvalidValue;
-  if (is_bf16 && !rows_bf16_eligible(C, nh)) return cudaErrorInvalidValue;
+  const bool tc = is_bf16 && rows_bf16_eligible(C, nh);
   const size_t smem = rows_bwd_smem(N, C, nh, is_bf16);
   if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   const RowsBwdWs l = rows_bwd_ws(Bn, N, C, nh, is_bf16);
@@ -251,7 +272,8 @@ int vadcl_window_attn_bwd_rows(const void* x, const void* dout, const void* qkv_
   float* dbias_part = reinterpret_cast<float*>(ws + l.dbias);
   float* part = reinterpret_cast<float*>(ws + l.atb);
   int partials = chunks;
-  if (is_bf16) {
+  const void* dqkv = ws + l.dqkv;  // what the weight sum and dx read: round(dqkv)
+  if (tc) {
     using bf16 = __nv_bfloat16;
     if ((err = launch_rows_bwd_mma_core(ws + l.qkv, ws + l.doa, bias, mask, ws + l.o,
                                         ws + l.dqkv, dqkvb_part, dbias_part, &partials, Bn, N,
@@ -268,18 +290,29 @@ int vadcl_window_attn_bwd_rows(const void* x, const void* dout, const void* qkv_
   } else {
     const RowsBwdArgs a{ws + l.qkv, ws + l.doa, bias, mask, ws + l.o, ws + l.dqkv,
                         dqkvb_part, dbias_part, Bn, N, C, nh, nW, rows_bwd_chunk(Bn, nh), scale};
-    if ((err = allow_smem(rows_bwd_f32_kernel, smem)) != cudaSuccess) return err;
-    rows_bwd_f32_kernel<<<(unsigned)(chunks * nh), kRowsThreads, smem, s>>>(a);
+    const unsigned grid = (unsigned)(chunks * nh);
+    if (is_bf16) {
+      if ((err = allow_smem(rows_bwd_f32_kernel<__nv_bfloat16>, smem)) != cudaSuccess) return err;
+      rows_bwd_f32_kernel<__nv_bfloat16><<<grid, kRowsThreads, smem, s>>>(a);
+      if ((err = cudaGetLastError())) return err;
+      const long long n = (long long)T * 3 * C;
+      round_dqkv_kernel<<<(unsigned)((n + 1023) / 1024), 1024, 0, s>>>(
+          static_cast<const float*>(a.dqkv), reinterpret_cast<__nv_bfloat16*>(ws + l.dqkv16), n);
+      dqkv = ws + l.dqkv16;
+    } else {
+      if ((err = allow_smem(rows_bwd_f32_kernel<float>, smem)) != cudaSuccess) return err;
+      rows_bwd_f32_kernel<float><<<grid, kRowsThreads, smem, s>>>(a);
+    }
     if ((err = cudaGetLastError())) return err;
-    if ((err = launch_atb(x, 0, a.dqkv, 0, T, C, 3 * C, part, dqkv_w, s))) return err;
-    if ((err = launch_atb(a.o, 0, dout, 0, T, C, C, part, dproj_w, s))) return err;
-    if ((err = launch_atb(nullptr, 0, dout, 0, T, 1, C, part, dproj_b, s))) return err;
+    if ((err = launch_atb(x, is_bf16, dqkv, is_bf16, T, C, 3 * C, part, dqkv_w, s))) return err;
+    if ((err = launch_atb(a.o, is_bf16, dout, is_bf16, T, C, C, part, dproj_w, s))) return err;
+    if ((err = launch_atb(nullptr, 0, dout, is_bf16, T, 1, C, part, dproj_b, s))) return err;
   }
   if ((err = launch_sum_rows(dqkvb_part, dqkv_b, Bn, 3 * C, 3 * C, s))) return err;
   if ((err = launch_sum_rows(dbias_part, dbias, partials, (long long)nh * N * N,
                              (long long)nh * N * N, s)))
     return err;
-  return launch_rows_gemm(ws + l.dqkv, qkv_wt, nullptr, dx, T, 3 * C, C, 0, 1.f, is_bf16, s);
+  return launch_rows_gemm(dqkv, qkv_wt, nullptr, dx, T, 3 * C, C, 0, 1.f, is_bf16, s);
 }
 
 }  // extern "C"

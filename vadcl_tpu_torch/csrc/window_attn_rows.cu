@@ -17,14 +17,16 @@
 // Three launches on the caller's stream:
 //   1. qkv of every token into a workspace (bf16: window_attn_rows_mma.cu,
 //      fp32: window_rows.cuh);
-//   2. the attention core.  bf16: window_attn_rows_mma.cu (one block per
-//      head, mask index and group of windows sharing it, the strip's bias and
-//      mask staged once in shared memory; above the largest window that
-//      layout holds, one block per window and head reading them from device
-//      memory; head width 16, 32, 48 or 64, C a multiple of 16).  fp32 (the exact comparisons), here: one block per
-//      (window, head), K and V of that head in shared memory, one query row
-//      per warp on CUDA cores, a running max and sum over the keys, then
-//      p = e / l by fa_div (kernel 9: e * (1 / l)) and p . v;
+//   2. the attention core.  bf16 at head width 16, 32, 48 or 64 and C a
+//      multiple of 16: window_attn_rows_mma.cu (one block per head, mask
+//      index and group of windows sharing it, the strip's bias and mask
+//      staged once in shared memory; above the largest window that layout
+//      holds, one block per window and head reading them from device
+//      memory).  fp32 (the exact comparisons), and bf16 at every other width,
+//      here: rows_attn_f32_kernel<PACKED, T>, one block per (window, head), K
+//      and V of that head in shared memory, one query row per warp on CUDA
+//      cores, a running max and sum over the keys, then p = e / l by fa_div
+//      (kernel 9: e * (1 / l)), rounded to T, and p . v;
 //   3. the projection out = round(o . W_proj + b_proj), as launch 1.
 //
 // What bounds it: the qkv and o workspaces add 8 C bytes a token of device
@@ -44,15 +46,15 @@ struct RowsFwdArgs {
   float scale;
 };
 
-// Shared memory of one attention-core block (bf16: the direct layout, the
-// least the core needs).
+// Shared memory of one attention-core block (the bf16 tensor-core core: the
+// direct layout, the least it needs).
 inline size_t rows_fwd_smem(int n, int c, int nh, int is_bf16) {
   const size_t hd = c / nh;
-  if (is_bf16) return rows_mma_layout(n, (int)hd, 0).bytes;
+  if (is_bf16 && rows_bf16_eligible(c, nh)) return rows_mma_layout(n, (int)hd, 0).bytes;
   return sizeof(float) * (2 * (size_t)n * (hd + 1) + (size_t)kRowsWarps * (n + hd));
 }
 
-template <bool PACKED>
+template <bool PACKED, typename T>
 __global__ void __launch_bounds__(kRowsThreads) rows_attn_f32_kernel(RowsFwdArgs a) {
   extern __shared__ __align__(16) float smf[];
   const int N = a.N, C = a.C, C3 = 3 * C, hd = C / a.nh, hdp = hd + 1;
@@ -62,18 +64,18 @@ __global__ void __launch_bounds__(kRowsThreads) rows_attn_f32_kernel(RowsFwdArgs
   float* vs = ks + (size_t)N * hdp;               // N x hdp
   float* prow = vs + (size_t)N * hdp + warp * N;  // this warp's probabilities
   float* qrow = vs + (size_t)N * hdp + kRowsWarps * N + warp * hd;
-  const float* qkv = static_cast<const float*>(a.qkv) + (size_t)win * N * C3;
-  float* o = static_cast<float*>(a.o) + (size_t)win * N * C;
+  const T* qkv = static_cast<const T*>(a.qkv) + (size_t)win * N * C3;
+  T* o = static_cast<T*>(a.o) + (size_t)win * N * C;
   for (int e = tid; e < 2 * N * hd; e += kRowsThreads) {
     const int part = e / (N * hd), r = (e / hd) % N, d = e % hd;
-    (part ? vs : ks)[r * hdp + d] = qkv[(size_t)r * C3 + (1 + part) * C + h * hd + d];
+    (part ? vs : ks)[r * hdp + d] = to_f(qkv[(size_t)r * C3 + (1 + part) * C + h * hd + d]);
   }
   __syncthreads();
   const float* bias = a.bias + (size_t)h * N * N;
   const float* mask = a.mask != nullptr ? a.mask + (size_t)(win % a.nW) * N * N : nullptr;
   const float smul = PACKED ? 1.f : a.scale;
   for (int i = warp; i < N; i += kRowsWarps) {
-    for (int d = lane; d < hd; d += kWarp) qrow[d] = qkv[(size_t)i * C3 + h * hd + d];
+    for (int d = lane; d < hd; d += kWarp) qrow[d] = to_f(qkv[(size_t)i * C3 + h * hd + d]);
     __syncwarp();
     auto score = [&](int j) {
       float s = 0.f;
@@ -92,13 +94,13 @@ __global__ void __launch_bounds__(kRowsThreads) rows_attn_f32_kernel(RowsFwdArgs
     const float L = warp_sum(m == -INFINITY ? 0.f : l * expf(m - M)), R = 1.f / L;
     for (int j = lane; j < N; j += kWarp) {
       const float e = expf(score(j) - M);
-      prow[j] = PACKED ? e * R : fa_div(e, L, R);
+      prow[j] = round_to<T>(PACKED ? e * R : fa_div(e, L, R));
     }
     __syncwarp();
     for (int d = lane; d < hd; d += kWarp) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc += prow[j] * vs[j * hdp + d];
-      o[(size_t)i * C + h * hd + d] = acc;
+      o[(size_t)i * C + h * hd + d] = from_f<T>(acc);
     }
     __syncwarp();
   }
@@ -123,30 +125,32 @@ cudaError_t launch_window_attn_rows(const void* x, const void* qkv_w, const floa
                                     const float* mask, void* out, void* workspace, int Bn, int N,
                                     int C, int nh, int nW, float scale, int is_bf16,
                                     cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
   if (Bn <= 0 || N <= 0 || nh <= 0 || C % nh != 0 || nW <= 0) return cudaErrorInvalidValue;
-  if (is_bf16 && !rows_bf16_eligible(C, nh)) return cudaErrorInvalidValue;
+  const bool tc = is_bf16 && rows_bf16_eligible(C, nh);
   const size_t smem = rows_fwd_smem(N, C, nh, is_bf16);
   if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   const RowsFwdWs l = rows_fwd_ws(Bn, N, C, is_bf16);
   char* ws = static_cast<char*>(workspace);
   const int T = Bn * N;
   cudaError_t err;
-  err = is_bf16 ? launch_rows_fwd_gemm(x, qkv_w, qkv_b, ws + l.qkv, T, C, 3 * C, PACKED ? C : 0,
-                                       scale, s)
-                : launch_rows_gemm(x, qkv_w, qkv_b, ws + l.qkv, T, C, 3 * C, PACKED ? C : 0, scale,
-                                   0, s);
+  err = launch_rows_gemm(x, qkv_w, qkv_b, ws + l.qkv, T, C, 3 * C, PACKED ? C : 0, scale,
+                         is_bf16, s);
   if (err != cudaSuccess) return err;
   const RowsFwdArgs a{ws + l.qkv, ws + l.o, bias, mask, Bn, N, C, nh, nW, scale};
-  if (is_bf16) {
+  if (tc) {
     err = launch_rows_mma_core(a.qkv, a.o, bias, mask, Bn, N, C, nh, nW, scale, PACKED, s);
+  } else if (is_bf16) {
+    if ((err = allow_smem(rows_attn_f32_kernel<PACKED, bf16>, smem)) != cudaSuccess) return err;
+    rows_attn_f32_kernel<PACKED, bf16><<<(unsigned)(Bn * nh), kRowsThreads, smem, s>>>(a);
+    err = cudaGetLastError();
   } else {
-    if ((err = allow_smem(rows_attn_f32_kernel<PACKED>, smem)) != cudaSuccess) return err;
-    rows_attn_f32_kernel<PACKED><<<(unsigned)(Bn * nh), kRowsThreads, smem, s>>>(a);
+    if ((err = allow_smem(rows_attn_f32_kernel<PACKED, float>, smem)) != cudaSuccess) return err;
+    rows_attn_f32_kernel<PACKED, float><<<(unsigned)(Bn * nh), kRowsThreads, smem, s>>>(a);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  return is_bf16 ? launch_rows_fwd_gemm(ws + l.o, proj_w, proj_b, out, T, C, C, 0, 1.f, s)
-                 : launch_rows_gemm(ws + l.o, proj_w, proj_b, out, T, C, C, 0, 1.f, 0, s);
+  return launch_rows_gemm(ws + l.o, proj_w, proj_b, out, T, C, C, 0, 1.f, is_bf16, s);
 }
 
 }  // namespace vadcl

@@ -52,11 +52,13 @@ __device__ __forceinline__ void rows_a_frag(const float (&v)[2][4], uint32_t (&a
 //   out[T, Nc] = round(A[T, K] . B[K, Nc] (+ bias[Nc])),
 // the first `scale_cols` columns multiplied by `scale` before the rounding
 // (kernel 9's q).  A and B are row-major and contiguous, bias fp32 or null,
-// the sum fp32; `round` is the cast to the compute dtype.  bf16:
-// window_attn_rows_mma.cu's rows_fwd_gemm_kernel (K and Nc multiples of 16).
-// fp32: the classic 64 x 64 tile on CUDA cores, 16-deep slices, four by four
-// outputs a thread, any width; what bounds it is one barrier pair per slice
-// and no overlap of loads with products.
+// the sum fp32; `round` is the cast to the compute dtype.  bf16 at K and Nc
+// multiples of 16: window_attn_rows_mma.cu's rows_fwd_gemm_kernel.  fp32,
+// and bf16 at other widths (an embed_dim 24 model's C = 24):
+// rows_gemm_f32_kernel<T>, the classic 64 x 64 tile on CUDA cores, 16-deep
+// slices, four by four outputs a thread, any width, fp32 arithmetic on T
+// loads; what bounds it is one barrier pair per slice and no overlap of loads
+// with products.
 constexpr int kRgTile = 64;  // output rows and columns of a block
 constexpr int kRgF32Depth = 16;
 constexpr int kRgF32Threads = 256;
@@ -65,10 +67,10 @@ cudaError_t launch_rows_fwd_gemm(const void* A, const void* B, const float* bias
                                  int T, int K, int Nc, int scale_cols, float scale,
                                  cudaStream_t stream);
 
-template <int kDummy = 0>
+template <typename E>
 __global__ void __launch_bounds__(kRgF32Threads)
-    rows_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                         const float* __restrict__ bias, float* __restrict__ out, int T, int K,
+    rows_gemm_f32_kernel(const E* __restrict__ A, const E* __restrict__ B,
+                         const float* __restrict__ bias, E* __restrict__ out, int T, int K,
                          int Nc, int scale_cols, float scale) {
   __shared__ float as[kRgF32Depth][kRgTile + 1];  // [k][row]
   __shared__ float bs[kRgF32Depth][kRgTile];      // [k][col]
@@ -78,9 +80,9 @@ __global__ void __launch_bounds__(kRgF32Threads)
   for (int k0 = 0; k0 < K; k0 += kRgF32Depth) {
     for (int e = tid; e < kRgTile * kRgF32Depth; e += kRgF32Threads) {
       const int r = e / kRgF32Depth, k = e % kRgF32Depth;
-      as[k][r] = (r0 + r < T && k0 + k < K) ? A[(size_t)(r0 + r) * K + k0 + k] : 0.f;
+      as[k][r] = (r0 + r < T && k0 + k < K) ? to_f(A[(size_t)(r0 + r) * K + k0 + k]) : 0.f;
       const int kb = e / kRgTile, c = e % kRgTile;
-      bs[kb][c] = (k0 + kb < K && c0 + c < Nc) ? B[(size_t)(k0 + kb) * Nc + c0 + c] : 0.f;
+      bs[kb][c] = (k0 + kb < K && c0 + c < Nc) ? to_f(B[(size_t)(k0 + kb) * Nc + c0 + c]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -105,7 +107,7 @@ __global__ void __launch_bounds__(kRgF32Threads)
       if (c >= Nc) continue;
       float v = acc[i][j] + (bias != nullptr ? bias[c] : 0.f);
       if (c < scale_cols) v *= scale;
-      out[(size_t)r * Nc + c] = v;
+      out[(size_t)r * Nc + c] = from_f<E>(v);
     }
   }
 }
@@ -115,13 +117,20 @@ __global__ void __launch_bounds__(kRgF32Threads)
 inline cudaError_t launch_rows_gemm(const void* A, const void* B, const float* bias, void* out,
                                     int T, int K, int Nc, int scale_cols, float scale,
                                     int is_bf16, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
   if (T <= 0 || K <= 0 || Nc <= 0) return cudaErrorInvalidValue;
-  if (is_bf16) return launch_rows_fwd_gemm(A, B, bias, out, T, K, Nc, scale_cols, scale, stream);
+  if (is_bf16 && K % 16 == 0 && Nc % 16 == 0)
+    return launch_rows_fwd_gemm(A, B, bias, out, T, K, Nc, scale_cols, scale, stream);
   const dim3 grid((unsigned)((T + kRgTile - 1) / kRgTile),
                   (unsigned)((Nc + kRgTile - 1) / kRgTile));
-  rows_gemm_f32_kernel<<<grid, kRgF32Threads, 0, stream>>>(
-      static_cast<const float*>(A), static_cast<const float*>(B), bias,
-      static_cast<float*>(out), T, K, Nc, scale_cols, scale);
+  if (is_bf16)
+    rows_gemm_f32_kernel<bf16><<<grid, kRgF32Threads, 0, stream>>>(
+        static_cast<const bf16*>(A), static_cast<const bf16*>(B), bias, static_cast<bf16*>(out),
+        T, K, Nc, scale_cols, scale);
+  else
+    rows_gemm_f32_kernel<float><<<grid, kRgF32Threads, 0, stream>>>(
+        static_cast<const float*>(A), static_cast<const float*>(B), bias,
+        static_cast<float*>(out), T, K, Nc, scale_cols, scale);
   return cudaGetLastError();
 }
 

@@ -172,7 +172,8 @@ class SwinBlock3D(nn.Module):
                 and fits(n, C, self.num_heads, x.dtype))
         fold_kernel = fold_attention_packed if kind == "fold_packed" else fold_attention
         if (self.fused and kind == "fold_block" and not any(pads)
-                and fold_block_fits(n, C, self.num_heads, x.dtype)):
+                and fold_block_fits(n, C, self.num_heads, self.mlp.fc1.weight.shape[1],
+                                    x.dtype)):
             # the whole block, MLP tail included, is one kernel each way
             return fold_block(
                 x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,

@@ -174,16 +174,24 @@ def fold_bwd_body(n: int, c: int, num_heads: int, dtype: torch.dtype) -> Optiona
     tensor-core body: bf16, head width 16 or 32, at most ``FOLD_MAX_TOKENS``
     tokens, C % 16 == 0 and at most ``FOLD_BWD_MAX_C``, its block within
     ``SMEM_LIMIT``), else ``"tiles"`` (the shared-memory body, fp32 and
-    every bf16 geometry whose block fits), else None (the Swin block then
-    replays LN1 and runs kernel 8)."""
+    every bf16 geometry on whole 16x16 tiles whose block fits), else None
+    (the Swin block then replays LN1 and runs kernel 8)."""
     bf16 = dtype == torch.bfloat16
     if (bf16 and c % num_heads == 0 and c % 16 == 0 and c // num_heads in FOLD_HEAD_DIMS
             and n <= FOLD_MAX_TOKENS and c <= FOLD_BWD_MAX_C
             and fold_bwd_mma_smem_bytes(n, c, num_heads) <= SMEM_LIMIT):
         return "mma"
+    if bf16 and not _whole_tiles(c, num_heads):
+        return None
     if fold_smem_bytes(n, c, num_heads, bf16, backward=True) <= SMEM_LIMIT:
         return "tiles"
     return None
+
+
+def _whole_tiles(c: int, num_heads: int) -> bool:
+    """Whether C and the head width are multiples of 16: what the bf16
+    bodies on 16x16 tensor-core tiles (``_check_fold``) take."""
+    return c % num_heads == 0 and c % 16 == 0 and (c // num_heads) % 16 == 0
 
 
 def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
@@ -196,16 +204,16 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
     follow a larger window, and the N = 196 and N = 392
     windows of 8-frame reconstruction clips go to the row-tiled bodies of the
     partitioned-window kernels).
-    A bf16 head width of 48 or a larger multiple of 16 goes to the
+    Every other bf16 head width (48 and larger multiples of 16, and widths
+    off 16 such as the 12 of an ``embed_dim`` 24 model) goes to the
     partitioned-window kernels, which take it; ``fold_block_fits`` does not
-    depend on this predicate, so the whole-block kernels keep such a width."""
+    depend on this predicate, so the whole-block kernels keep 48."""
     bf16 = dtype == torch.bfloat16
     if backward:
         return fold_bwd_body(n, c, num_heads, dtype) is not None
-    if bf16:
-        hd = c // num_heads
-        if n > FOLD_MAX_TOKENS or (hd % 16 == 0 and hd not in FOLD_HEAD_DIMS):
-            return False
+    if bf16 and (n > FOLD_MAX_TOKENS or c // num_heads not in FOLD_HEAD_DIMS
+                 or c % num_heads):
+        return False
     return fold_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
 
 
@@ -301,17 +309,36 @@ def _tail_acc_fits(n: int, c: int) -> bool:
     return _up(n, 16) // 16 * (c // 16) <= _TC_ACC * _WARPS
 
 
-def fold_block_fits(n: int, c: int, num_heads: int, dtype: torch.dtype) -> bool:
+def _block_tiles_take(c: int, num_heads: int, ch: int, dtype: torch.dtype,
+                      backward: bool) -> bool:
+    """Whether PR 4's whole-block bodies (``csrc/fold_attn.cu``, the
+    backward ``csrc/fold_attn_bwd.cu``) take the widths (``_check_block``,
+    ``_check_fold``): C and the hidden width multiples of 4, in bf16 whole
+    16x16 tiles and a forward hidden width in whole 128-column chunks."""
+    if c % 4 or ch % 4 or ch <= 0:
+        return False
+    if dtype != torch.bfloat16:
+        return True
+    return _whole_tiles(c, num_heads) and (backward or ch % _MLP_CHUNK == 0)
+
+
+def fold_block_fits(n: int, c: int, num_heads: int, ch: int, dtype: torch.dtype) -> bool:
     """Whether a window runs in the whole-block kernels, forward **and**
-    backward (one predicate, as ``folded_full_block_applicable``): both
-    blocks fit ``SMEM_LIMIT`` and, in bf16, the warps' fragments hold the fc2
-    accumulator (at most ``_TC_ACC`` 16x16 tiles each).  The hidden width
-    does not enter: the tail walks it in fixed chunks."""
+    backward (one predicate, as ``folded_full_block_applicable``): both of
+    PR 4's blocks fit ``SMEM_LIMIT`` and, in bf16, the warps' fragments hold
+    the fc2 accumulator (at most ``_TC_ACC`` 16x16 tiles each), the memory
+    gate as it stood; and some body of each direction takes the geometry at
+    hidden width ``ch`` (``fold_block_bwd_body``, ``_block_tiles_take``), so
+    that a true answer never ends in a refused launch."""
     bf16 = dtype == torch.bfloat16
     if bf16 and not _tail_acc_fits(n, c):
         return False
-    return (fold_block_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
-            and fold_block_smem_bytes(n, c, num_heads, bf16, backward=True) <= SMEM_LIMIT)
+    if not (fold_block_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
+            and fold_block_smem_bytes(n, c, num_heads, bf16, backward=True) <= SMEM_LIMIT):
+        return False
+    return (_block_tiles_take(c, num_heads, ch, dtype, backward=False)
+            and (fold_block_bwd_body(n, c, num_heads, ch, dtype) == "mma"
+                 or _block_tiles_take(c, num_heads, ch, dtype, backward=True)))
 
 
 def _ln_stats(x32: torch.Tensor):

@@ -38,9 +38,13 @@ which also force that body whatever N (to hold it against the plain version
 where the whole-tile body would run).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches a kernel or raises.  bf16 runs on tensor-core tiles and needs C and
-head_dim to be multiples of 16 (the row-tiled body: head_dim at most 64);
-fp32 takes any width.
+launches a kernel or raises.  bf16 runs on tensor-core tiles where C and
+head_dim are multiples of 16 (the row-tiled body: head_dim at most 64);
+fp32, and bf16 at every other width (head width 12 of an ``embed_dim`` 24
+or 72 model), run the CUDA-core bodies, whose fp32 arithmetic rounds to the
+compute dtype where the bf16 contract rounds (``window_core`` names the
+arithmetic a geometry runs; its launches count as those of the same body in
+fp32).
 """
 
 from __future__ import annotations
@@ -153,7 +157,7 @@ def window_attention_fused_bwd_plain(x_windows, dout, qkv_w, qkv_b, proj_w, bias
     return dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
 
 
-ROWS_MAX_HEAD_DIM = 64  # widest bf16 head the row-tiled bodies are built for
+ROWS_MAX_HEAD_DIM = 64  # widest bf16 head the row-tiled tensor-core cores are built for
 _ROWS_WARPS = 8  # warps of a row-tiled attention-core block
 
 
@@ -161,12 +165,28 @@ def _up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def window_core(c: int, num_heads: int, dtype: torch.dtype, rows: bool = False) -> str:
+    """The arithmetic kernels 7, 8 and 9 run at width ``c`` (the whole-tile
+    body, or with ``rows`` the row-tiled one): ``"mma"``, the bf16
+    tensor-core bodies (C and head_dim multiples of 16; row-tiled head_dim at
+    most ``ROWS_MAX_HEAD_DIM``), or ``"cuda_core"``, the CUDA-core bodies
+    (``window_attn_kernel<T>``, ``window_attn_bwd_kernel<T>``,
+    ``rows_attn_f32_kernel<PACKED, T>``, ``rows_bwd_f32_kernel<T>``): fp32,
+    and bf16 at every other width."""
+    hd = c // num_heads
+    if (dtype == torch.bfloat16 and c % 16 == 0 and hd % 16 == 0
+            and (not rows or hd <= ROWS_MAX_HEAD_DIM)):
+        return "mma"
+    return "cuda_core"
+
+
 def tile_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool = False) -> int:
     """Shared memory of one block of the whole-tile body (forward, or with
     ``backward`` kernel 8): the layouts of ``csrc/window_attn.cu`` and
-    ``csrc/window_attn_bwd.cu``."""
+    ``csrc/window_attn_bwd.cu``; in bf16 at widths the tensor-core body does
+    not take, the CUDA-core body's fp32 tiles."""
     hd = c // num_heads
-    if not bf16:
+    if not bf16 or window_core(c, num_heads, torch.bfloat16) != "mma":
         hdp = hd + 1
         if not backward:
             return 4 * (2 * n * c + 3 * n * hdp + n * n)
@@ -212,9 +232,9 @@ def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     padded rows, three row statistics and the strips' column sums (86,400 B
     at N = 392, head_dim 16).  fp32: K and V of one head (the backward also
     q and dout's slice) plus, in the backward, the row statistics and two
-    rows a warp."""
+    rows a warp; also bf16 at widths the tensor-core cores do not take."""
     hd = c // num_heads
-    if bf16:
+    if bf16 and window_core(c, num_heads, torch.bfloat16, rows=True) == "mma":
         m = _up(n, 16)
         if not backward:
             if group == 0:
@@ -264,20 +284,19 @@ def rows_bwd_group(n: int, c: int, num_heads: int, per_class: int) -> int:
 def window_body(n: int, c: int, num_heads: int, dtype: torch.dtype,
                 backward: bool = False) -> str:
     """The body a window of ``n`` tokens at width ``c`` runs in: ``"tile"``
-    where the whole-tile body's block fits ``SMEM_LIMIT``, else ``"rows"``.
-    Raises ``NotImplementedError`` only where neither fits (a bf16 head wider
-    than ``ROWS_MAX_HEAD_DIM`` at a window the whole-tile body cannot hold,
-    or a row-tiled block above 227 KB)."""
+    where the whole-tile body's block fits ``SMEM_LIMIT``, else ``"rows"``
+    (``window_core`` says which arithmetic).  Raises ``NotImplementedError``
+    only where neither fits (a row-tiled block above 227 KB: a bf16 head wider
+    than ``ROWS_MAX_HEAD_DIM`` runs the CUDA-core core, which holds K and V
+    in fp32)."""
     bf16 = dtype == torch.bfloat16
     if tile_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT:
         return "tile"
-    if ((not bf16 or c // num_heads <= ROWS_MAX_HEAD_DIM)
-            and rows_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT):
+    if rows_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT:
         return "rows"
     raise NotImplementedError(
         f"window attention: a window of {n} tokens at C={c}, {num_heads} heads "
-        f"({str(dtype)[6:]}) fits neither the whole-tile body nor the row-tiled body "
-        f"(bf16 head widths up to {ROWS_MAX_HEAD_DIM})"
+        f"({str(dtype)[6:]}) fits neither the whole-tile body nor the row-tiled body"
     )
 
 
@@ -422,12 +441,6 @@ def _check_windows(what, x, bias, mask, num_heads, n_windows):
     Bn, N, C = x.shape
     if C % num_heads:
         raise ValueError(f"{what}: C={C} is not divisible by {num_heads} heads")
-    if x.dtype == torch.bfloat16 and (C % 16 or (C // num_heads) % 16):
-        raise NotImplementedError(
-            f"{what}: the bf16 kernel runs on 16x16 tensor-core tiles and "
-            f"needs C and head_dim to be multiples of 16 (got C={C}, "
-            f"head_dim={C // num_heads})"
-        )
     if tuple(bias.shape) != (num_heads, N, N):
         raise ValueError(f"{what}: bias {tuple(bias.shape)} != {(num_heads, N, N)}")
     if mask is not None and (tuple(mask.shape) != (n_windows, N, N) or Bn % n_windows):
@@ -443,8 +456,7 @@ def _pick_body(what, rows, x, num_heads, backward) -> str:
     if not rows:
         return window_body(N, C, num_heads, x.dtype, backward)
     bf16 = x.dtype == torch.bfloat16
-    if (rows_smem_bytes(N, C, num_heads, bf16, backward) > SMEM_LIMIT
-            or (bf16 and C // num_heads > ROWS_MAX_HEAD_DIM)):
+    if rows_smem_bytes(N, C, num_heads, bf16, backward) > SMEM_LIMIT:
         raise NotImplementedError(f"{what}: the row-tiled body does not take N={N}, C={C}, "
                                   f"{num_heads} heads in {str(x.dtype)[6:]}")
     return "rows"
