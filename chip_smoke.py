@@ -15,16 +15,19 @@ Phases (any failure raises and the script exits non-zero):
      B's CUDA-core block and kernel C's instance by width) are held against
      the library's; kernel 10 and the whole-block kernels must fit at the
      four flagship geometries in bf16 and fp32, every window of up to
-     392 tokens at the flagship widths and head width 32 must map to a body,
-     and every flagship geometry must take the tensor-core bodies of 5 and 6
-     and of the whole-block backward.
+     392 tokens at the flagship widths, head width 32 and head width 12 must
+     map to a body, and every flagship geometry must take the tensor-core
+     bodies of 5 and 6 and of the whole-block forward and backward.
   2. each forward kernel (A-D, 7: window attention, 9: its packed variant,
      10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
      at batch 4 (bf16 and fp32) and at the scoring path's batch of 16
      windows (bf16): error against the stated bound and the device time
-     of both (kernel 10 beside A, the whole-block kernel beside A then B, on
-     the same inputs); kernels A and 10 in both their modes (LN1 + residual;
+     of both (kernel 10 beside A, the whole-block kernel beside PR 4's body
+     and beside A then B, on the same inputs, two calls for the same bits,
+     each body asserted by its counter; then hidden 192, N = 49 on odd
+     batches and PR 4's body through its route at head width 48); kernels A
+     and 10 in both their modes (LN1 + residual;
      neither) and as the attention branch alone at every geometry, shifted
      and not; an odd batch of 3 and token counts that fill no whole tile of
      kernel B; then edge shapes, a missing qkv bias, and kernels A and 10
@@ -41,6 +44,9 @@ Phases (any failure raises and the script exits non-zero):
      and C = 100 / hidden 400 on its CUDA-core body (``ln_mlp_tiles``), fp32
      ``cluster_assign`` at C = 200, 256, 384, 512 and 768 (each wider
      instance), two calls for the same bits, C = 769 refused.
+  2/2b, head width 12: the bf16 CUDA-core bodies of 7, 9 and 8 against their
+     plain versions, whole-tile (N = 98) and row-tiled (N = 196), shifted,
+     two calls for the same bits, each timed beside the same body in fp32.
   2b. the backward kernels (5: LN->MLP, 6: fold attention in both its
      modes, 8: window attention, the whole-block backward) against their
      plain versions at the training batch of 4, bf16 and fp32, every
@@ -83,6 +89,12 @@ Phases (any failure raises and the script exits non-zero):
      32): forward, loss and every gradient, card against CPU in fp32 and
      bf16; kernel B's and kernel 5's CUDA-core bodies and kernel C's
      two-part instance must launch.
+  3d. a fused tiny model at ``embed_dim`` 24 (head width 12, C = 24 and 48)
+     in bf16, card against CPU: forward, loss and every gradient under
+     ``"fold"``, ``"fold_block"`` and ``"base"``, the forward under
+     ``"packed"``, and in reconstruction on 8-frame clips under ``"base"``
+     and ``"packed"``: no fold kernel launches, the partitioned-window
+     kernels 4 times each way.
   4. the scoring path in bf16: in-memory uint8 videos through
      ``evaluate_videos`` (PSNR -> anomaly score -> per-scene AUC) with
      batch_windows=16, once per ``attn_kernel`` in fold, base, packed,
@@ -102,8 +114,10 @@ Phases (any failure raises and the script exits non-zero):
      ``"fold_mix"`` train step is refused before any launch.
 No earlier path was cut: the whole run takes about four minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
-kernels, kernel B's CUDA-core body and the whole-block backward's
-shared-memory body (its time beside its roofline bound on
+kernels, kernel B's CUDA-core body, the whole-block forward's and
+backward's bodies of PR 4, and the bf16 CUDA-core instances of 7, 8 and 9
+(counted on their fp32 bodies' counters, reported from the embed_dim 24
+model's runs) (its time beside its roofline bound on
 an H100's published peaks: every number in it but the bound is measured in
 this run);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -324,7 +338,8 @@ def phase_build():
     print("  kernel B's CUDA-core block and kernel C's instance by width (C = 1 .. 800) agree "
           "with the library")
     from vadcl_tpu_torch.ops.fold_attn import (
-        fold_block_fits, fold_block_smem_bytes, fold_packed_fits,
+        fold_block_fits, fold_block_fwd_body, fold_block_fwd_mma_smem_bytes,
+        fold_block_smem_bytes, fold_packed_fits,
     )
 
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
@@ -343,11 +358,25 @@ def phase_build():
     for gname, ((_, _, _, c), nh, window, _) in FOLD_GEOMETRIES.items():
         n = window[0] * window[1] * window[2]
         for dtype in (torch.bfloat16, torch.float32):
-            if not (fold_packed_fits(n, c, nh, dtype) and fold_block_fits(n, c, nh, dtype)):
+            if not (fold_packed_fits(n, c, nh, dtype)
+                    and fold_block_fits(n, c, nh, 4 * c, dtype)):
                 raise AssertionError(f"{gname} {dtype}: kernel 10 or the whole-block kernels "
                                      "do not fit 227 KB of shared memory")
+        if fold_block_fwd_body(n, c, nh, 4 * c, torch.bfloat16) != "mma":
+            raise AssertionError(f"{gname}: the whole-block forward must run its tensor-core "
+                                 "body in bf16")
+    for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
+                     (98, 64, 4), (49, 32, 2), (98, 96, 3), (98, 192, 6), (49, 192, 6),
+                     (112, 96, 6), (65, 96, 6), (16, 32, 2), (49, 128, 4), (98, 48, 3)):
+        mine = fold_block_fwd_mma_smem_bytes(n, c, nh)
+        theirs = lib.vadcl_fold_block_bf16_smem_bytes(n, c, nh)
+        if mine != theirs:
+            raise AssertionError(f"fold_block_fwd_mma_smem_bytes{(n, c, nh)} = {mine} but the "
+                                 f"library says {theirs}")
     print("  fold_packed_fits / fold_block_fits agree with the library and hold at the four "
-          "flagship geometries, bf16 and fp32")
+          "flagship geometries, bf16 and fp32; the whole-block forward's tensor-core body: "
+          "its layout mirror agrees with the library, and every flagship geometry takes it "
+          "in bf16")
     from vadcl_tpu_torch.ops.fold_attn import fold_block_bwd_body, fold_block_bwd_mma_smem_bytes
 
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
@@ -368,11 +397,10 @@ def phase_build():
     from vadcl_tpu_torch.ops.window_attn import rows_smem_bytes, tile_smem_bytes, window_body
 
     checked = 0
-    for c, nh in ((96, 6), (192, 12), (96, 3), (192, 6), (32, 2), (64, 4), (24, 2), (64, 1)):
+    for c, nh in ((96, 6), (192, 12), (96, 3), (192, 6), (32, 2), (64, 4), (24, 2), (64, 1),
+                  (48, 4), (72, 6), (80, 1)):
         for n in (1, 16, 49, 98, 112, 113, 147, 196, 245, 343, 392):
             for bf16 in (0, 1):
-                if bf16 and (c % 16 or (c // nh) % 16):
-                    continue
                 mine = (tile_smem_bytes(n, c, nh, bool(bf16)),
                         tile_smem_bytes(n, c, nh, bool(bf16), backward=True),
                         rows_smem_bytes(n, c, nh, bool(bf16)),
@@ -472,15 +500,28 @@ def check_fold(name, a, kernel=None, plain=None) -> float:
     return max(e, check_close(f"{name} no LN/residual", kernel(**c), plain(**c), *bounds))
 
 
-def _block_case(a, gen):
-    """Kernel A's case ``a`` plus the MLP tail's operands: the arguments of
-    the whole-block kernel and its plain version."""
+def _block_case(a, gen, hidden=None):
+    """Kernel A's case ``a`` plus the MLP tail's operands (hidden 4C unless
+    given): the arguments of the whole-block kernel and its plain version."""
     C = a["x"].shape[-1]
-    ln2_s, ln2_b, w1, b1, w2, b2 = _mlp_case(C, 4 * C, gen)
+    ln2_s, ln2_b, w1, b1, w2, b2 = _mlp_case(C, hidden or 4 * C, gen)
     b = {k: v for k, v in a.items() if k not in ("num_heads", "window", "scale", "shift")}
     b.update(ln2_scale=ln2_s, ln2_bias=ln2_b, w1=w1, b1=b1, w2=w2, b2=b2)
     b.update({k: a[k] for k in ("num_heads", "window", "scale", "shift")})
     return b
+
+
+def check_block_route(name, blk, body):
+    """The whole-block forward on ``blk``, and the body (``"mma"``: the
+    tensor-core body; ``"tiles"``: PR 4's) that launched."""
+    from vadcl_tpu_torch.ops.fold_attn import fold_block, fold_block_tiles
+
+    before = (fold_block.launches, fold_block_tiles.launches)
+    got = fold_block(**blk)
+    want = (before[0] + 1, before[1]) if body == "mma" else (before[0], before[1] + 1)
+    if (fold_block.launches, fold_block_tiles.launches) != want:
+        raise AssertionError(f"{name}: did not take the {body} body")
+    return got
 
 
 def mlp_flops(tokens: int, c: int, backward: bool = False) -> float:
@@ -545,17 +586,17 @@ def phase_kernels():
     from vadcl_tpu_torch.ops.cluster_kernels import cluster_assign, cluster_assign_plain
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_attention, fold_attention_packed, fold_attention_packed_plain,
-        fold_attention_plain, fold_block, fold_block_plain,
+        fold_attention_plain, fold_block, fold_block_plain, fold_block_tiles,
     )
     from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_plain
 
     gen = torch.Generator().manual_seed(0)
-    stats = {}
+    stats, block_table = {}, []
     for batch in (4, BATCH_WINDOWS):
         dtypes = (torch.bfloat16,) if batch == BATCH_WINDOWS else (torch.bfloat16, torch.float32)
         print(f"[2] kernels vs plain versions, flagship shapes, batch {batch}")
 
-        errs, errs10, errs_blk, times = [], [], [], {}
+        errs, errs10, errs_blk, errs_old, times = [], [], [], [], {}
         for dtype in dtypes:
             for gname, (dhwc, nh, window, shift) in FOLD_GEOMETRIES.items():
                 for shifted in (False, True):
@@ -576,7 +617,8 @@ def phase_kernels():
                     blk = _block_case(a, gen)
                     tail = [blk[k] for k in ("ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")]
                     name = f"fold_block {tag}"
-                    got = fold_block(**blk)
+                    body = "mma" if dtype == torch.bfloat16 else "tiles"
+                    got = check_block_route(name, blk, body)
                     errs_blk.append(check_close(name, got, fold_block_plain(**blk),
                                                 *BOUNDS[dtype]))
                     if dtype == torch.bfloat16:
@@ -591,8 +633,19 @@ def phase_kernels():
                                             lambda: fold_block_plain(**blk))
                     two = cuda_ms(lambda: ln_mlp(fold_attention(**a), *tail))
                     print(f"    kernel A then kernel B on the same inputs: {two:.4f} ms")
+                    if dtype == torch.bfloat16:
+                        # the tensor-core body: two calls, the same bits; PR 4's
+                        # body (forced) on the same inputs, held and timed
+                        same_bits(name, [got], [fold_block(**blk)])
+                        old = fold_block_tiles(**blk)
+                        errs_old.append(check_close(f"{name} PR 4's body", old,
+                                                    fold_block_plain(**blk), *BOUNDS[dtype]))
+                        old_ms = cuda_ms(lambda: fold_block_tiles(**blk))
+                        print(f"    PR 4's body (fold_block_tiles) on the same inputs: "
+                              f"{old_ms:.4f} ms")
+                        block_table.append((batch, tag, times[name][0], old_ms, two))
                     if tag == "enc_stage0 shifted bfloat16":
-                        rep_case, rep_blk, rep_two = a, blk, two
+                        rep_case, rep_blk, rep_two, rep_old = a, blk, two, old_ms
         # the representative time: the flagship's largest block, enc stage 0, bf16, shifted
         tokens = batch * 2 * 56 * 56
         shape = f"x ({batch},2,56,56,96) bf16, nH 6, N 98, shifted"
@@ -603,11 +656,14 @@ def phase_kernels():
                 **bound(tensors_of(rep_case) + [rep_case["x"]],
                         attn_flops(tokens, 96, 98), "bf16"))
         ms, pms = times["fold_block enc_stage0 shifted bfloat16"]
+        blk_bound = bound(tensors_of(rep_blk) + [rep_blk["x"]],
+                          attn_flops(tokens, 96, 98) + mlp_flops(tokens, 96), "bf16")
         stats["fold_block"] = dict(
             max_abs_err=max(errs_blk), ms=ms, plain_ms=pms, two_kernel_ms=rep_two,
-            shape=shape + ", hidden 384",
-            **bound(tensors_of(rep_blk) + [rep_blk["x"]],
-                    attn_flops(tokens, 96, 98) + mlp_flops(tokens, 96), "bf16"))
+            old_body_ms=rep_old, shape=shape + ", hidden 384", **blk_bound)
+        stats["fold_block_tiles"] = dict(
+            max_abs_err=max(errs_old), ms=rep_old, plain_ms=pms,
+            shape=shape + ", hidden 384 (forced)", **blk_bound)
 
         for kname, kernel, plain in window_kernels():
             errs, times = [], {}
@@ -679,6 +735,10 @@ def phase_kernels():
             shape=f"tokens ({n_tok},192) x centers (1024,192) fp32",
             **bound([tokens, centers, *got], 3 * cl_flops, "tf32"))
 
+    print("  the whole-block forward, bf16, ms: the tensor-core body | PR 4's body | "
+          "kernels A then B")
+    for batch, tag, ms, old_ms, two in block_table:
+        print(f"    batch {batch:2d} {tag:32s} {ms:.4f} | {old_ms:.4f} | {two:.4f}")
     print("  an odd batch (the last block of paired windows holds one) and token counts "
           "that fill no whole tile of kernel B, bf16:")
     for gname, (dhwc, nh, window, shift) in FOLD_GEOMETRIES.items():
@@ -736,7 +796,9 @@ def phase_kernels():
     a = _fold_case((2, 2, 14, 14, 24), 2, (2, 7, 7), (0, 0, 0), torch.bfloat16, gen)
     p = _mlp_case(24, 96, gen)
     # kernel B takes C=24 in bf16 on its CUDA-core body; A, 10 and the whole
-    # block run on 16x16 tensor-core tiles and refuse it
+    # block run on 16x16 tensor-core tiles and refuse it (the route's
+    # predicates are false there: the block takes kernels 7, 8 and 9, whose
+    # CUDA-core bodies phase_narrow_kernels holds)
     check_close("ln_mlp bf16 C=24 (CUDA-core body)", ln_mlp(a["x"], *p),
                 ln_mlp_plain(a["x"], *p), *BOUNDS[torch.bfloat16])
     blk = _block_case(a, gen)
@@ -759,13 +821,6 @@ def phase_kernels():
             a = _win_case(4, "dec_stage1", True, dtype, gen, qkv_bias=False)
             check_close(f"{kname} no qkv bias {str(dtype)[6:]}", kernel(**a), plain(**a),
                         *BOUNDS[dtype])
-        a = _win_case_at(2, (2, 14, 14), 24, 2, (2, 7, 7), (0, 0, 0), torch.bfloat16, gen)
-        try:
-            kernel(**a)
-        except NotImplementedError:
-            print(f"  {kname} bf16 C=24 refused (NotImplementedError), as it should be")
-        else:
-            raise AssertionError(f"{kname}: bf16 C=24 launched instead of being refused")
     # kernels A and 10 as a block at a window-padded geometry runs them: no
     # LN, no residual; then without a qkv bias; N=392 fits neither (it runs
     # the row-tiled bodies of 7, 8 and 9, phase_row_kernels)
@@ -784,8 +839,24 @@ def phase_kernels():
         dhwc, nh, window, shift = FOLD_GEOMETRIES["dec_stage1"]
         blk = _block_case(dict(_fold_case((4, *dhwc), nh, window, shift, dtype, gen),
                                qkv_b=None), gen)
-        check_close(f"fold_block no qkv bias {str(dtype)[6:]}", fold_block(**blk),
+        check_close(f"fold_block no qkv bias {str(dtype)[6:]}",
+                    check_block_route(f"fold_block no qkv bias {str(dtype)[6:]}", blk,
+                                      "mma" if dtype == torch.bfloat16 else "tiles"),
                     fold_block_plain(**blk), *BOUNDS[dtype])
+    # the tensor-core body at hidden 192 (C = 96: off PR 4's 128-column
+    # chunks) and at N = 49 on an odd batch (a chunk of windows cut short);
+    # PR 4's body through its route: bf16 head width 48
+    for gname, hidden, batch, nh in (("enc_stage0", 192, 2, 6), ("dec_stage1", 384, 3, 6),
+                                     ("dec_stage0", 768, 5, 12), ("dec_stage1", 384, 4, 2)):
+        dhwc, _, window, shift = FOLD_GEOMETRIES[gname]
+        a = _fold_case((batch, *dhwc), nh, window, shift, torch.bfloat16, gen)
+        blk = _block_case(a, gen, hidden)
+        body = "mma" if nh != 2 else "tiles"
+        name = f"fold_block {gname} batch {batch} hidden {hidden} head width {dhwc[-1] // nh}"
+        got = check_block_route(name, blk, body)
+        check_close(name, got, fold_block_plain(**blk), *BOUNDS[torch.bfloat16])
+        if body == "mma":
+            same_bits(name, [got], [fold_block(**blk)])
     a = _fold_case((1, 8, 14, 14, 96), 6, (8, 7, 7), (0, 0, 0), torch.bfloat16, gen)
     blk = _block_case(a, gen)
     for name, call in (("fold_attention_packed", lambda: fold_attention_packed(**a)),
@@ -1800,6 +1871,186 @@ def phase_wide_model(dtype=torch.bfloat16) -> dict:
     return launches
 
 
+# The widths of the embed_dim 24 tiny model (heads (2, 4) / (4, 2)): head
+# width 12, which the bf16 tensor-core bodies of 7, 8 and 9 refuse.
+NARROW_WIDTHS = ((24, 2), (48, 4))
+
+
+def phase_narrow_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
+    """Kernels 7, 9 (forward) and 8 (backward) in bf16 at head width 12 on
+    their CUDA-core bodies (window_attn.cu, window_attn_bwd.cu and the
+    row-tiled cores' ``<T>`` instances): against their plain versions,
+    whole-tile (N = 98) and row-tiled (N = 196, the row-tiled wrappers),
+    shifted, each called twice for the same bits, and timed beside the same
+    body in fp32 on the same inputs.  Forward at ``batch`` clips' windows,
+    backward at ``train_batch``'s.  Returns the kernels line's stats of the
+    six instances (C = 48, 4 heads)."""
+    from vadcl_tpu_torch.ops import window_attn as wa
+
+    print("[2/2b] kernels 7, 9 and 8 in bf16 at head width 12 (their CUDA-core bodies) vs plain")
+    gen = torch.Generator().manual_seed(14)
+    stats = {}
+    fwd = (("window_attention_fused", wa.window_attention_fused, wa.window_attention_fused_rows,
+            wa.window_attention_fused_plain),
+           ("window_attention_packed", wa.window_attention_packed,
+            wa.window_attention_packed_rows, wa.window_attention_packed_plain))
+    for C, nh in NARROW_WIDTHS:
+        if wa.window_core(C, nh, torch.bfloat16) != "cuda_core":
+            raise AssertionError(f"C={C}/{nh}: not a width of the CUDA-core bodies")
+        for rows, window, dhw in ((False, (2, 7, 7), (2, 28, 28)), (True, (4, 7, 7), (4, 28, 28))):
+            n = window[0] * window[1] * window[2]
+            shift = tuple(w // 2 for w in window)
+            for fname, whole, tiled, plain in fwd:
+                kernel = tiled if rows else whole
+                name = f"{kernel.__name__} C={C} nH={nh} N={n} shifted bf16"
+                a = _win_case_at(batch, dhw, C, nh, window, shift, torch.bfloat16, gen)
+                before = kernel.launches
+                got = kernel(**a)
+                if kernel.launches != before + 1:
+                    raise AssertionError(f"{name}: {kernel.__name__} did not launch")
+                e = check_close(name, got, plain(**a), *BOUNDS[torch.bfloat16])
+                same_bits(name, [got], [kernel(**a)])
+                if C == NARROW_WIDTHS[0][0]:
+                    print(f"    launches: {[k for k, _ in launch_ms(lambda: kernel(**a), 2)]}")
+                ms, pms = time_pair(lambda: kernel(**a), lambda: plain(**a))
+                a32 = dict(a, x_windows=a["x_windows"].float())
+                f32_ms = cuda_ms(lambda: kernel(**a32))
+                print(f"    the same body in fp32 on the same inputs: {f32_ms:.4f} ms")
+                tokens = a["x_windows"].shape[0] * n
+                stats[f"{kernel.__name__} bf16 CUDA-core"] = dict(
+                    max_abs_err=e, ms=ms, plain_ms=pms, fp32_ms=f32_ms,
+                    shape=f"x_windows {tuple(a['x_windows'].shape)} bf16, nH {nh}, shifted",
+                    **bound(tensors_of(a) + [got], attn_flops(tokens, C, n), "bf16"))
+            kernel = wa.window_attention_fused_bwd_rows if rows else wa.window_attention_fused_bwd
+            name = f"{kernel.__name__} C={C} nH={nh} N={n} shifted bf16"
+            b = _win_bwd_case(_win_case_at(train_batch, dhw, C, nh, window, shift,
+                                           torch.bfloat16, gen), gen)
+            before = kernel.launches
+            got = kernel(**b)
+            if kernel.launches != before + 1:
+                raise AssertionError(f"{name}: {kernel.__name__} did not launch")
+            e = check_grads(name, WIN_BWD_NAMES, got, wa.window_attention_fused_bwd_plain(**b),
+                            BWD_TOL[torch.bfloat16])
+            same_bits(name, got, kernel(**b))
+            ms, pms = time_pair(lambda: kernel(**b),
+                                lambda: wa.window_attention_fused_bwd_plain(**b))
+            b32 = dict(b, x_windows=b["x_windows"].float(), dout=b["dout"].float())
+            f32_ms = cuda_ms(lambda: kernel(**b32))
+            print(f"    the same body in fp32 on the same inputs: {f32_ms:.4f} ms")
+            tokens = b["x_windows"].shape[0] * n
+            stats[f"{kernel.__name__} bf16 CUDA-core"] = dict(
+                max_abs_err=e, ms=ms, plain_ms=pms, fp32_ms=f32_ms,
+                shape=f"x_windows {tuple(b['x_windows'].shape)} bf16, nH {nh}, shifted",
+                **bound(tensors_of(b, got), attn_flops(tokens, C, n, backward=True), "bf16"))
+    return stats
+
+
+def narrow_config(attn_kernel: str, recon: int = 0):
+    """The tiny preset fused at ``embed_dim`` 24 (head width 12 at C = 24
+    and 48, hidden 96 and 192), as ``tests/test_torch_port_bf16_widths.py``
+    holds it against the JAX package on the CPU; ``recon`` > 0:
+    reconstruction mode on clips of that many frames."""
+    from vadcl_tpu_torch.core.config import preset
+
+    m = preset("tiny").model
+    return dataclasses.replace(
+        m, embed_dim=24, predict=not recon, fused_attention=True, fused_cluster=True,
+        attn_kernel=attn_kernel, cluster=dataclasses.replace(m.cluster, space_size=56 // 8))
+
+
+# What the embed_dim 24 model may launch: every Swin block takes kernels 7,
+# 8 (or 9) and B, 5 at head width 12, never a fold kernel.
+NARROW_FOLD_KERNELS = {"fold_attention", "fold_attention_packed", "fold_block",
+                       "fold_block_tiles", "fold_attention_bwd", "fold_attention_bwd_tiles",
+                       "fold_block_bwd", "fold_block_bwd_tiles"}
+
+
+def phase_narrow_model() -> dict:
+    """The ``embed_dim`` 24 model in bf16, card against CPU: under
+    ``fold``, ``fold_block`` and ``base`` the forward, the loss (recon .
+    probe + cluster + space losses) and every parameter gradient; under
+    ``packed`` the forward; in reconstruction on 8-frame clips (N = 196:
+    the row-tiled bodies) under ``base`` and ``packed`` the same.  Nothing
+    on the path refuses the width, no fold kernel launches, and the
+    partitioned-window kernels do, 4 a forward (its 4 Swin blocks).
+    Bounds: phase 3c's in bf16 (recon atol = rtol 2e-2, each gradient 1e-1
+    of max|CPU grad|).  The CPU side runs torch's own convolutions: oneDNN's
+    bf16 convolution backward returns NaN in some runs of this model.
+    Returns the launch counts per run."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.ops import KERNELS
+
+    print("[3d] fused tiny model at embed_dim 24 (C = 24 and 48, head width 12), bf16: "
+          "card vs CPU")
+    atol, gtol = WIDE_MODEL_TOL[torch.bfloat16]
+    counts = {}
+    runs = (("fold", 0, True), ("fold_block", 0, True), ("base", 0, True), ("packed", 0, False),
+            ("base", RECON_FRAMES, True), ("packed", RECON_FRAMES, False))
+    for attn_kernel, recon, train in runs:
+        path = f"narrow model {attn_kernel}" + (", reconstruction" if recon else "")
+        rng = np.random.RandomState(24)
+        clip = torch.from_numpy(rng.rand(2, recon or 4, 56, 56, 3).astype(np.float32))
+        cpu_model = VADModel(narrow_config(attn_kernel, recon), torch.bfloat16,
+                             torch.Generator().manual_seed(24))
+        gpu_model = copy.deepcopy(cpu_model).to(DEV)
+
+        def run(model, dev):
+            out = model(clip.to(dev))
+            probe = torch.from_numpy(rng.randn(*out.recon.shape).astype(np.float32)).to(dev)
+            loss = (out.recon.float() * probe).sum() + out.cluster_loss + out.space_loss
+            if train:
+                loss.backward()
+            return out, loss
+
+        mkldnn = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = False
+        try:
+            rng = np.random.RandomState(25)
+            want, wloss = run(cpu_model, "cpu")
+        finally:
+            torch.backends.mkldnn.enabled = mkldnn
+        reset_launches()
+        grad = contextlib.nullcontext() if train else torch.no_grad()
+        with plain_versions_refuse_the_card(), grad:
+            rng = np.random.RandomState(25)
+            got, gloss = run(gpu_model, DEV)
+            torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in KERNELS}
+        print(f"  {path}: kernel launches {launches}")
+        stray = sorted(k for k in NARROW_FOLD_KERNELS if launches[k])
+        window = ("window_attention_packed" if attn_kernel == "packed"
+                  else "window_attention_fused")
+        fwd = launches[window] + launches[window + "_rows"]
+        bwd = launches["window_attention_fused_bwd"] + launches["window_attention_fused_bwd_rows"]
+        if stray or fwd != 4 or bwd != (4 if train else 0):
+            raise AssertionError(f"{path}: fold kernels launched {stray}, or not 4 "
+                                 f"partitioned-window launches each way ({fwd}, {bwd})")
+        if not bool(torch.isfinite(got.recon.float()).all()):
+            raise AssertionError(f"{path}: recon is not finite")
+        check_close(f"{path} recon", got.recon.detach().cpu(), want.recon.detach(), atol, atol)
+        check_close(f"{path} loss", gloss.detach().cpu(), wloss.detach(), 0.0, atol)
+        if train:
+            cpu_params = dict(cpu_model.named_parameters())
+            worst, n = ("", 0.0), 0
+            for k, p in gpu_model.named_parameters():
+                w = cpu_params[k].grad
+                if (p.grad is None) != (w is None):
+                    raise AssertionError(f"{k}: a gradient on one side only")
+                if w is None:
+                    continue
+                n += 1
+                err = float((p.grad.float().cpu() - w.float()).abs().max())
+                ratio = err / (gtol * float(w.float().abs().max()) + 1e-12)
+                worst = max(worst, (k, ratio), key=lambda v: v[1])
+                if not ratio <= 1.0:
+                    raise AssertionError(f"{path} {k}: gradient max abs err {err} exceeds "
+                                         f"{gtol} * max|CPU grad|")
+            print(f"  {path}: {n} parameter gradients; worst err/(tol*max) {worst[1]:.3f} at "
+                  f"{worst[0]} (tol {gtol:g})")
+        counts[path] = launches
+    return counts
+
+
 class MemLoader:
     """In-memory uint8 clips with the HostDataLoader protocol; stamps the
     wall clock, after a device synchronize, at every batch request."""
@@ -2102,7 +2353,10 @@ REPLACES = {
                                 "vadcl_tpu/ops/pallas_attn.py:113"),
     "fold_attention_packed": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                               "vadcl_tpu/ops/pallas_attn_fold.py:386"),
-    "fold_block": ("vadcl_tpu_torch/csrc/fold_attn.cu", "vadcl_tpu/ops/pallas_attn_fold.py:341"),
+    "fold_block": ("vadcl_tpu_torch/csrc/fold_block_mma.cu",
+                   "vadcl_tpu/ops/pallas_attn_fold.py:341"),
+    "fold_block_tiles": ("vadcl_tpu_torch/csrc/fold_attn.cu",
+                         "vadcl_tpu/ops/pallas_attn_fold.py:341"),
     "fold_block_bwd": ("vadcl_tpu_torch/csrc/fold_block_bwd_mma.cu",
                        "vadcl_tpu/ops/pallas_attn_fold.py:870"),
     "fold_block_bwd_tiles": ("vadcl_tpu_torch/csrc/fold_attn_bwd.cu",
@@ -2114,6 +2368,30 @@ REPLACES = {
     "window_attention_packed_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                      "vadcl_tpu/ops/pallas_attn.py:113"),
     "ln_mlp_tiles": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
+}
+# The bf16 CUDA-core instances of 7, 8 and 9 (head widths the tensor-core
+# bodies refuse) count their launches on the counter of the same body in
+# fp32; each is reported from a run of the embed_dim 24 model, every one of
+# whose Swin blocks is at head width 12: (counter, source, TPU kernel, run).
+NARROW_ENTRIES = {
+    "window_attention_fused bf16 CUDA-core": (
+        "window_attention_fused", "vadcl_tpu_torch/csrc/window_attn.cu",
+        "vadcl_tpu/ops/pallas_attn.py:30", "narrow model base"),
+    "window_attention_packed bf16 CUDA-core": (
+        "window_attention_packed", "vadcl_tpu_torch/csrc/window_attn.cu",
+        "vadcl_tpu/ops/pallas_attn.py:113", "narrow model packed"),
+    "window_attention_fused_bwd bf16 CUDA-core": (
+        "window_attention_fused_bwd", "vadcl_tpu_torch/csrc/window_attn_bwd.cu",
+        "vadcl_tpu/ops/pallas_attn_bwd.py:27", "narrow model base"),
+    "window_attention_fused_rows bf16 CUDA-core": (
+        "window_attention_fused_rows", "vadcl_tpu_torch/csrc/window_attn_rows.cu",
+        "vadcl_tpu/ops/pallas_attn.py:30", "narrow model base, reconstruction"),
+    "window_attention_packed_rows bf16 CUDA-core": (
+        "window_attention_packed_rows", "vadcl_tpu_torch/csrc/window_attn_rows.cu",
+        "vadcl_tpu/ops/pallas_attn.py:113", "narrow model packed, reconstruction"),
+    "window_attention_fused_bwd_rows bf16 CUDA-core": (
+        "window_attention_fused_bwd_rows", "vadcl_tpu_torch/csrc/window_attn_bwd_rows.cu",
+        "vadcl_tpu/ops/pallas_attn_bwd.py:27", "narrow model base, reconstruction"),
 }
 # The main path whose launch count the kernels line reports for each kernel.
 COUNTED_ON = {
@@ -2129,6 +2407,7 @@ COUNTED_ON = {
     "window_attention_packed_rows": "scoring packed, reconstruction",
     "ln_mlp_tiles": "wide model",
     "fold_block_bwd_tiles": "model grads fold_block fp32",
+    "fold_block_tiles": "model grads fold_block fp32",
 }
 
 
@@ -2140,6 +2419,7 @@ def main():
     stats.update(phase_width_kernels())
     stats.update(phase_bwd_kernels(TRAIN_BATCH))
     stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
+    stats.update(phase_narrow_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_model("fold", REDUCED_DEPTHS)
     phase_model("base")
     phase_model("packed", clips=1)
@@ -2152,14 +2432,16 @@ def main():
     phase_model_grads("base")
     phase_model_grads("fold", ((2, 2), (2, 2)), image_size=240)
     counts = {"model grads fold_block fp32": phase_model_grads("fold_block")}
-    if (counts["model grads fold_block fp32"]["fold_block_bwd_tiles"] != 18
-            or counts["model grads fold_block fp32"]["fold_block_bwd"]):
-        raise AssertionError("the fp32 fold_block model must run PR 4's whole-block backward "
-                             "in each of its 18 blocks")
+    fp32_block = counts["model grads fold_block fp32"]
+    if (fp32_block["fold_block_bwd_tiles"] != 18 or fp32_block["fold_block_bwd"]
+            or fp32_block["fold_block_tiles"] != 18 or fp32_block["fold_block"]):
+        raise AssertionError("the fp32 fold_block model must run PR 4's whole-block forward "
+                             "and backward in each of its 18 blocks")
     phase_model_grads("fold", REDUCED_DEPTHS, recon=RECON_FRAMES)
     phase_model_grads("fold", REDUCED_DEPTHS, image_size=240, recon=RECON_FRAMES)
     phase_wide_model(torch.float32)
     counts["wide model"] = phase_wide_model(torch.bfloat16)
+    counts.update(phase_narrow_model())
     counts.update({f"scoring {k}": phase_scoring(k) for k in SCORING_KERNELS})
     counts.update({f"training {k}": phase_training(k) for k in TRAINING_KERNELS})
     for k in ("packed", "fold_packed", "fold_mix"):
@@ -2173,6 +2455,10 @@ def main():
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],
              **stats[name])
         for name in REPLACES
+    ] + [
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=counts[run][counter], counted_on=run, **stats[name])
+        for name, (counter, source, replaces, run) in NARROW_ENTRIES.items()
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

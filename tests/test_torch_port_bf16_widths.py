@@ -116,14 +116,14 @@ def _block(attn_kernel, dim, heads, ch):
     ("fold_block", 48, 4, 192, ["window_attention_fused", "ln_mlp"]),
     ("fold_mix", 72, 6, 288, ["window_attention_fused", "ln_mlp"]),
     ("packed", 24, 2, 96, ["window_attention_packed", "ln_mlp"]),
-    ("fold_block", 48, 3, 192, ["fold_attention", "ln_mlp"]),
+    ("fold_block", 48, 3, 192, ["fold_block"]),
 ])
 def test_bf16_block_routes(monkeypatch, kernel, dim, heads, ch, route):
     """Which wrappers one fused bf16 Swin block calls: at head width 12 the
     partitioned-window route under every ``attn_kernel``; at head width 16
     with hidden 192 (off the 128-column chunks of PR 4's whole-block
-    forward) a ``fold_block`` block runs kernels A then B.  Forward and
-    backward run."""
+    forward, which the tensor-core body takes) the whole-block kernel.
+    Forward and backward run."""
     block = _block(kernel, dim, heads, ch).to(BF16)
     x = torch.rand(1, 2, 14, 14, dim, generator=torch.Generator().manual_seed(4)).to(BF16)
     seen = _spy(monkeypatch, *ROUTE_FNS)

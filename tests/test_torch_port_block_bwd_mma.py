@@ -381,7 +381,7 @@ def test_fold_block_fits_answers_as_before(dtype):
 def test_both_bodies_count_their_launches_and_cpu_calls_do_not():
     names = {k.__name__ for k in KERNELS}
     assert {"fold_block_bwd", "fold_block_bwd_tiles"} <= names
-    assert len(KERNELS) == 19
+    assert len(KERNELS) == 20
     a = _case("enc_stage0", seed=2)
     x, dout = (T(a[k]).to(torch.bfloat16) for k in ("x", "dout"))
     args = [T(a[k]) for k in ("ln_s", "ln_b", "qkv_w", "qkv_b", "proj_w", "proj_b", "bias")]

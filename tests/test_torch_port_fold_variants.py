@@ -324,13 +324,13 @@ def test_twelve_kernels_count_their_launches_and_cpu_calls_do_not():
     """The twelve kernels of PRs 1-5 and, since the row-tiled bodies of 7, 8
     and 9 count their own launches, three more counters, and two for the
     CUDA-core and shared-memory bodies of 5 and 6 beside their tensor-core
-    bodies, and one for kernel B's CUDA-core body, and one for the
-    whole-block backward's shared-memory body beside its tensor-core body:
-    nineteen."""
+    bodies, and one for kernel B's CUDA-core body, and one each for the
+    whole-block backward's and forward's bodies of PR 4 beside their
+    tensor-core bodies: twenty."""
     names = [k.__name__ for k in KERNELS]
-    assert len(names) == len(set(names)) == 19
+    assert len(names) == len(set(names)) == 20
     assert {"fold_attention_packed", "fold_block", "fold_block_bwd"} <= set(names)
-    assert "fold_block_bwd_tiles" in names
+    assert {"fold_block_bwd_tiles", "fold_block_tiles"} <= set(names)
     before = [k.launches for k in KERNELS]
     a = _case(seed=12)
     args = _port_block_args(a, False)

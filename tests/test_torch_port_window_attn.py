@@ -315,8 +315,8 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
     assert names[12:15] == ["window_attention_fused_rows", "window_attention_fused_bwd_rows",
                             "window_attention_packed_rows"]
     assert names[15:] == ["ln_mlp_bwd_tiles", "fold_attention_bwd_tiles", "ln_mlp_tiles",
-                          "fold_block_bwd_tiles"]
-    assert len(names) == 19 and len(set(names)) == 19
+                          "fold_block_bwd_tiles", "fold_block_tiles"]
+    assert len(names) == 20 and len(set(names)) == 20
     before = [k.launches for k in KERNELS]
     a = _case(GEOMS["N49_C24"], True, seed=11)
     x = T(a["x"]).requires_grad_()

@@ -17,15 +17,17 @@ With ``--kernels-only`` it times fold attention, its packed variant and
 LN->MLP at every flagship geometry (``chip_smoke.py``'s table and operands),
 bf16, shifted and not, then their backward kernels 6 and 5 and the
 whole-block backward at ``--bwd-batch`` clips on both of their bodies
-(tensor-core and ``*_tiles``; ``--backward-only``: these alone), and prints
-one JSON object per line: ``ms`` is
+(tensor-core and ``*_tiles``; ``--backward-only``: these alone;
+``--forward-only``: the whole-block forward alone, on both of its bodies
+beside kernels A then B on the same inputs, at each of ``--batches``), and
+prints one JSON object per line: ``ms`` is
 ``chip_smoke.cuda_ms`` (CUDA events around wrapper calls issued back to back:
 the device's time per call unless the host's path to the launch is longer),
 ``kernel_ms`` the device time of the hand-written kernel alone from the
 profiler; last, the host's time per wrapper call on a tiny input:
 
-    python tools/profile_torch.py --kernels-only [--backward-only] [--batches 4 16]
-        [--head-dim 32] [--tag NAME]
+    python tools/profile_torch.py --kernels-only [--backward-only | --forward-only]
+        [--batches 4 16] [--head-dim 32] [--tag NAME]
 
 (``--head-dim`` runs the attention kernels at the same widths with fewer,
 wider heads than the flagship's 16.)  With ``--recon --frame-num F`` it times
@@ -193,6 +195,37 @@ def backward_kernels_only(args, smoke, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def block_forward_only(args, smoke, gen) -> None:
+    """The whole-block forward at each of ``args.batches``, bf16, at every
+    flagship geometry, shifted and not, on both of its bodies: the one the
+    route picks (``fold_block``) and PR 4's (``fold_block_tiles``; a tree
+    without it runs PR 4's body on ``fold_block``), beside kernels A then B
+    (``fold_attention``, ``ln_mlp``) on the same inputs."""
+    from vadcl_tpu_torch.ops import fold_attn
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp
+
+    names = ["fold_block"] + (["fold_block_tiles"] if hasattr(fold_attn, "fold_block_tiles")
+                              else [])
+    keys = ("ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+    for batch in args.batches:
+        for gname, (dhwc, _, window, shift) in smoke.FOLD_GEOMETRIES.items():
+            nh = dhwc[-1] // args.head_dim
+            for shifted in (False, True):
+                a = smoke._fold_case((batch, *dhwc), nh, window,
+                                     shift if shifted else (0, 0, 0), torch.bfloat16, gen)
+                blk = smoke._block_case(a, gen)
+                calls = [(name, lambda k=getattr(fold_attn, name): k(**blk)) for name in names]
+                calls.append(("fold_attention+ln_mlp", lambda: ln_mlp(
+                    fold_attn.fold_attention(**a), *(blk[k] for k in keys))))
+                for name, fn in calls:
+                    print(json.dumps({
+                        "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch,
+                        "heads": nh, "shifted": shifted, "ms": round(smoke.cuda_ms(fn), 4),
+                        "kernel_ms": round(own_kernel_ms(fn), 4)}))
+                del a, blk
+                torch.cuda.empty_cache()
+
+
 def kernels_only(args) -> None:
     from vadcl_tpu_torch.ops import cuda_lib
     from vadcl_tpu_torch.ops.fold_attn import fold_attention, fold_attention_packed
@@ -215,6 +248,10 @@ def kernels_only(args) -> None:
     if args.backward_only:
         with torch.no_grad():
             backward_kernels_only(args, smoke, gen)
+        return
+    if args.forward_only:
+        with torch.no_grad():
+            block_forward_only(args, smoke, gen)
         return
     bf = torch.bfloat16
     folds = (("fold_attention", fold_attention), ("fold_attention_packed", fold_attention_packed))
@@ -326,6 +363,8 @@ def main(argv=None):
                     help="with --kernels-only: the clips of the backward kernels' inputs")
     ap.add_argument("--backward-only", action="store_true",
                     help="with --kernels-only: the backward kernels alone")
+    ap.add_argument("--forward-only", action="store_true",
+                    help="with --kernels-only: the whole-block forward alone, both bodies")
     ap.add_argument("--tag", default="", help="with --kernels-only: a name on every line")
     ap.add_argument("--root", default=HERE, help="the tree whose vadcl_tpu_torch is run")
     ap.add_argument("--recon", action="store_true",

@@ -11,7 +11,9 @@
 //   vadcl_fold_attn_packed -> _fold_packed_kernel (entry
 //                             fused_window_attention_folded_packed; inference);
 //   vadcl_fold_block       -> _fold_kernel with tail= (entry
-//                             folded_full_block_trainable; _mlp_tail_rows).
+//                             folded_full_block_trainable; _mlp_tail_rows)
+//                             in fp32 and at the bf16 geometries
+//                             fold_block_mma.cu's body does not take.
 // The device code is in fold_attn_mma.cuh (kernels A and 10 in bf16) and
 // fold_attn.cuh (fp32, and the whole-block body, which the whole-block backward
 // reuses).
@@ -58,8 +60,9 @@
 //     512 threads per window; the LN'd window, the pre-projection output, one
 //     head's q/k/v (N x hd, padded to hd+1 against bank conflicts) and its
 //     N x N scores sit in fp32 shared memory.
-//   * vadcl_fold_block (both dtypes; in bf16 fold_attn_tc_body<.., kTail=true>,
-//     which the whole-block backward's recompute shares): the four products
+//   * vadcl_fold_block (fp32, and the bf16 geometries fold_block_mma.cu does
+//     not take; in bf16 fold_attn_tc_body<.., kTail=true>, which the old
+//     whole-block backward's recompute shares): the four products
 //     as WMMA 16x16x16 tiles with fp32 accumulation, score and probability
 //     tiles in shared memory (189 KB at N = 98, C = 192), one block per window
 //     and SM, four block-wide barriers per head.
@@ -73,8 +76,7 @@
 // chunk and the fp32 fc2 sums reuse the region of q, k, v, scores and
 // probabilities, and the fc2 accumulator lives in the warps' fragments (at
 // most 6 tiles a warp: ceil(N/16) * C/16 <= 96).  y1 never reaches device
-// memory.  Its redesign should start from the bodies of fold_attn_mma.cuh and
-// ln_mlp.cu.
+// memory.  Its redesign for bf16 is fold_block_mma.cu.
 #include "fold_attn.cuh"
 #include "fold_attn_mma.cuh"
 

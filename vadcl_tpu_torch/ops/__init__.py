@@ -21,6 +21,7 @@ from vadcl_tpu_torch.ops.fold_attn import (
     fold_block,
     fold_block_bwd,
     fold_block_bwd_tiles,
+    fold_block_tiles,
 )
 from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd, ln_mlp_bwd_tiles, ln_mlp_tiles
 from vadcl_tpu_torch.ops.window_attn import (
@@ -49,14 +50,15 @@ from vadcl_tpu_torch.ops.window import (
 # hold), the CUDA-core and shared-memory bodies of 5 and 6 (fp32, and the
 # bf16 geometries their tensor-core bodies do not take), and kernel B's
 # CUDA-core body (fp32, and the bf16 widths its tensor-core body does not
-# take), and the whole-block backward's shared-memory body (fp32, and the
-# bf16 geometries its tensor-core body does not take).
+# take), the whole-block backward's shared-memory body (fp32, and the bf16
+# geometries its tensor-core body does not take), and the whole-block
+# forward's body of PR 4 (the same).
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
            window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd,
            window_attention_fused_rows, window_attention_fused_bwd_rows,
            window_attention_packed_rows, ln_mlp_bwd_tiles, fold_attention_bwd_tiles,
-           ln_mlp_tiles, fold_block_bwd_tiles)
+           ln_mlp_tiles, fold_block_bwd_tiles, fold_block_tiles)
 
 __all__ = [
     "KERNELS",
@@ -73,6 +75,7 @@ __all__ = [
     "fold_block",
     "fold_block_bwd",
     "fold_block_bwd_tiles",
+    "fold_block_tiles",
     "frobenius_norm",
     "get_window_size",
     "ln_mlp",

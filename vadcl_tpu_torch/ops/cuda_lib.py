@@ -44,6 +44,8 @@ _SIGNATURES = {
     "vadcl_fold_attn_packed": ([_P] * 10 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_block": ([_P] * 16 + [_I] * 13 + [_F, _I, _P], _I),
     "vadcl_fold_block_smem_bytes": ([_I] * 4, _L),
+    "vadcl_fold_block_bf16": ([_P] * 14 + [_I] * 13 + [_F, _P], _I),
+    "vadcl_fold_block_bf16_smem_bytes": ([_I] * 3, _L),
     "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "vadcl_ln_mlp_smem_bytes": ([_I], _L),
     "vadcl_ln_mlp_bf16": ([_P] * 7 + [_I] * 3 + [_P], _I),

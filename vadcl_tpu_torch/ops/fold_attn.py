@@ -43,13 +43,16 @@ The whole-block kernels replace ``_fold_kernel`` with ``tail=`` and
 ``attn_kernel="fold_block"``): ``fold_block`` computes
 ``y1 + fc2(gelu(fc1(LN2(y1))))`` with ``y1 = round(x + proj(attn(LN1 x)))``
 in one launch, ``fold_block_bwd`` its 14 gradients in one launch plus the
-second pass.  ``fold_block_bwd_body`` picks the backward's body: in bf16 at
-head width 16 or 32, at most 112 tokens, C % 16 == 0 and C <= 192,
-``csrc/fold_block_bwd_mma.cu`` (the strip bodies of kernels A, 5 and 6 in
-turn per window, on kernel A's and kernel B's packs, the second pass on the
-tensor cores); fp32 and other geometries the body of
-``csrc/fold_attn_bwd.cu`` (``fold_block_bwd_tiles`` counts its launches),
-which, like the forward, reuses the older device code of A, B, 5 and 6.
+second pass.  ``fold_block_fwd_body`` and ``fold_block_bwd_body`` pick the
+bodies: in bf16 at head width 16 or 32, at most 112 tokens, C % 16 == 0,
+C <= 192 and a hidden width divisible by 64, ``csrc/fold_block_mma.cu``
+(kernel A's strip body to y1, then the MLP on the same 16-row strips, the
+hidden activation in registers) and ``csrc/fold_block_bwd_mma.cu`` (the
+strip bodies of kernels A, 5 and 6 in turn per window, the second pass on
+the tensor cores), both on kernel A's and kernel B's packs; fp32 and other
+geometries PR 4's bodies, ``csrc/fold_attn.cu`` and ``csrc/fold_attn_bwd.cu``
+(``fold_block_tiles`` and ``fold_block_bwd_tiles`` count their launches),
+which reuse the older device code of A, B, 5 and 6.
 
 ``fold_attention`` and ``fold_block`` are ``torch.autograd.Function``s (the
 backward of ``fold_attention_packed`` raises).  On a CPU tensor every
@@ -265,8 +268,8 @@ def fold_block_smem_bytes(n: int, c: int, num_heads: int, bf16: bool,
                        total([4 * m * c]))
 
 
-FOLD_BLOCK_BWD_MAX_C = 192  # widest C of the whole-block backward's tensor-core body
-_BB_PIECE = 32  # hidden columns per ring stage of its MLP step
+FOLD_BLOCK_MMA_MAX_C = 192  # widest C of the whole-block tensor-core bodies
+_BB_PIECE = 32  # hidden columns per ring stage of their MLP steps
 
 
 def fold_block_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
@@ -287,20 +290,50 @@ def fold_block_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
     return 128 + 2 * stage + tile + region
 
 
+def fold_block_fwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
+    """Shared memory of one block of the whole-block forward's tensor-core
+    body (``csrc/fold_block_mma.cu:fb_layout``): the mbarriers, two ring
+    stages (the larger of a head slice of kernel A's pack and 32 hidden
+    columns of kernel B's pack), the LN1 / y1 row tile, K and V of two heads,
+    and the o tile, which holds round(LN2 y1) in the MLP step."""
+    hd = c // num_heads
+    rows = fold_padded_rows(n)
+    stage = max(2 * c * (3 * hd + PACK_PAD), 2 * 2 * c * _BB_PIECE)
+    tile = 2 * rows * (c + PACK_PAD)
+    return 128 + 2 * stage + tile + 2 * 2 * 2 * rows * (hd + 8) + tile
+
+
+def fold_block_fwd_body(n: int, c: int, num_heads: int, ch: int, dtype: torch.dtype) -> str:
+    """The body the whole-block forward runs a window of ``n`` tokens in:
+    ``"mma"`` (the tensor-core body, ``csrc/fold_block_mma.cu``: bf16, head
+    width 16 or 32, at most ``FOLD_MAX_TOKENS`` tokens, C % 16 == 0 and at
+    most ``FOLD_BLOCK_MMA_MAX_C``, a hidden width divisible by 64, its block
+    within ``SMEM_LIMIT``), else ``"tiles"`` (PR 4's body of
+    ``csrc/fold_attn.cu``: fp32 and every other geometry ``fold_block_fits``
+    admits).  It picks by geometry alone."""
+    return "mma" if _block_mma_takes(n, c, num_heads, ch, dtype,
+                                     fold_block_fwd_mma_smem_bytes) else "tiles"
+
+
+def _block_mma_takes(n, c, num_heads, ch, dtype, smem_bytes) -> bool:
+    """The conditions both whole-block tensor-core bodies share, with
+    ``smem_bytes`` the layout mirror of the one asked about."""
+    return (dtype == torch.bfloat16 and c % num_heads == 0 and c % 16 == 0
+            and c // num_heads in FOLD_HEAD_DIMS and n <= FOLD_MAX_TOKENS
+            and c <= FOLD_BLOCK_MMA_MAX_C and ch > 0 and ch % 64 == 0
+            and smem_bytes(n, c, num_heads) <= SMEM_LIMIT)
+
+
 def fold_block_bwd_body(n: int, c: int, num_heads: int, ch: int, dtype: torch.dtype) -> str:
     """The body the whole-block backward runs a window of ``n`` tokens in:
     ``"mma"`` (the tensor-core body, ``csrc/fold_block_bwd_mma.cu``: bf16,
     head width 16 or 32, at most ``FOLD_MAX_TOKENS`` tokens, C % 16 == 0 and
-    at most ``FOLD_BLOCK_BWD_MAX_C``, a hidden width divisible by 64, its
+    at most ``FOLD_BLOCK_MMA_MAX_C``, a hidden width divisible by 64, its
     block within ``SMEM_LIMIT``), else ``"tiles"`` (the body of
     ``csrc/fold_attn_bwd.cu``: fp32 and every other geometry
     ``fold_block_fits`` admits).  It picks by geometry alone."""
-    if (dtype == torch.bfloat16 and c % num_heads == 0 and c % 16 == 0
-            and c // num_heads in FOLD_HEAD_DIMS and n <= FOLD_MAX_TOKENS
-            and c <= FOLD_BLOCK_BWD_MAX_C and ch > 0 and ch % 64 == 0
-            and fold_block_bwd_mma_smem_bytes(n, c, num_heads) <= SMEM_LIMIT):
-        return "mma"
-    return "tiles"
+    return "mma" if _block_mma_takes(n, c, num_heads, ch, dtype,
+                                     fold_block_bwd_mma_smem_bytes) else "tiles"
 
 
 def _tail_acc_fits(n: int, c: int) -> bool:
@@ -328,15 +361,17 @@ def fold_block_fits(n: int, c: int, num_heads: int, ch: int, dtype: torch.dtype)
     PR 4's blocks fit ``SMEM_LIMIT`` and, in bf16, the warps' fragments hold
     the fc2 accumulator (at most ``_TC_ACC`` 16x16 tiles each), the memory
     gate as it stood; and some body of each direction takes the geometry at
-    hidden width ``ch`` (``fold_block_bwd_body``, ``_block_tiles_take``), so
-    that a true answer never ends in a refused launch."""
+    hidden width ``ch`` (``fold_block_fwd_body``, ``fold_block_bwd_body``,
+    ``_block_tiles_take``), so that a true answer never ends in a refused
+    launch."""
     bf16 = dtype == torch.bfloat16
     if bf16 and not _tail_acc_fits(n, c):
         return False
     if not (fold_block_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
             and fold_block_smem_bytes(n, c, num_heads, bf16, backward=True) <= SMEM_LIMIT):
         return False
-    return (_block_tiles_take(c, num_heads, ch, dtype, backward=False)
+    return ((fold_block_fwd_body(n, c, num_heads, ch, dtype) == "mma"
+             or _block_tiles_take(c, num_heads, ch, dtype, backward=False))
             and (fold_block_bwd_body(n, c, num_heads, ch, dtype) == "mma"
                  or _block_tiles_take(c, num_heads, ch, dtype, backward=True)))
 
@@ -769,7 +804,7 @@ class _FoldBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-                ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift):
+                ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift, tiles):
         ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
                               mask, ln2_scale, ln2_bias, w1, b1, w2)
         ctx.meta = (num_heads, window, scale, shift)
@@ -777,14 +812,14 @@ class _FoldBlock(torch.autograd.Function):
                 ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift)
         if x.device.type == "cpu":
             return fold_block_plain(*args)
-        return _fold_block_cuda(*args)
+        return _fold_block_cuda(*args, tiles=tiles)
 
     @staticmethod
     def backward(ctx, dout):
         x, *params = ctx.saved_tensors
         g = fold_block_bwd(x, dout, *params, *ctx.meta)
         # (dx, dln1 x2, dqkv x2, dproj x2, dbias), mask, (dln2 x2, dw1, db1, dw2, db2)
-        return (*g[:8], None, *g[8:], None, None, None, None)
+        return (*g[:8], None, *g[8:], None, None, None, None, None)
 
 
 def fold_block(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
@@ -793,15 +828,34 @@ def fold_block(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
     """The whole Swin block in one kernel: ``y1 + fc2(gelu(fc1(LN2 y1)))``
     with ``y1 = x + proj(attn(LN1 x))`` per window, on the unpartitioned
     tensor, the shift roll folded in.  With a zero shift, the contract of
-    ``folded_full_block_trainable``.  Differentiable (``fold_block_bwd``)."""
+    ``folded_full_block_trainable``.  Differentiable (``fold_block_bwd``).
+    ``fold_block_fwd_body`` picks the forward's body; counts the
+    tensor-core body's launches."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fold_block: unsupported device {x.device}")
     return _FoldBlock.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                             ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, tuple(window),
-                            scale, tuple(shift))
+                            scale, tuple(shift), False)
 
 
 fold_block.launches = 0
+
+
+def fold_block_tiles(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                     ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads: int, window: Tri,
+                     scale: float, shift: Tri = (0, 0, 0)) -> torch.Tensor:
+    """``fold_block`` with the forward on PR 4's body (``csrc/fold_attn.cu``)
+    whatever the geometry; counts that body's launches (also those the route
+    makes through ``fold_block``: fp32, and the bf16 geometries the
+    tensor-core body does not take)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fold_block_tiles: unsupported device {x.device}")
+    return _FoldBlock.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                            ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, tuple(window),
+                            scale, tuple(shift), True)
+
+
+fold_block_tiles.launches = 0
 
 
 def fold_block_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
@@ -1104,7 +1158,16 @@ def _check_block(what, x, w1, w2, window, hidden_multiple):
 
 
 def _fold_block_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-                     ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift):
+                     ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift,
+                     tiles=False):
+    """The whole-block forward: ``fold_block_fwd_body``'s body, or with
+    ``tiles`` PR 4's."""
+    n = window[0] * window[1] * window[2]
+    if not tiles and fold_block_fwd_body(n, x.shape[-1], num_heads, w1.shape[1],
+                                         x.dtype) == "mma":
+        return _fold_block_mma(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                               ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale,
+                               shift)
     lib = cuda_lib.library()
     B, D, H, W, C = x.shape
     ch = _check_block("fold_block", x, w1, w2, window, _MLP_CHUNK)
@@ -1127,6 +1190,43 @@ def _fold_block_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, m
         b2c.data_ptr(), out.data_ptr(),
         B, D, H, W, C, num_heads, ch, *window, shift[0] % D, shift[1] % H, shift[2] % W,
         float(scale), int(dt == torch.bfloat16), cuda_lib.stream_ptr(xc),
+    )
+    cuda_lib.check(err, "fold_block")
+    fold_block_tiles.launches += 1
+    return out
+
+
+def _fold_block_mma(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                    ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift):
+    """The whole-block forward's tensor-core body, on kernel A's and kernel
+    B's packs of the same tensors (the entries the backward reads)."""
+    from vadcl_tpu_torch.ops.ln_mlp import _mlp_vectors
+    from vadcl_tpu_torch.ops.ln_mlp import _packs as mlp_packs
+    from vadcl_tpu_torch.ops.ln_mlp import pack_mlp_weights
+
+    lib = cuda_lib.library()
+    _check_fold("fold_block", x, bias, mask, num_heads, window,
+                lambda n, c, nh, _: lib.vadcl_fold_block_bf16_smem_bytes(n, c, nh),
+                register_scores=True)
+    B, D, H, W, C = x.shape
+    ch = _check_block("fold_block", x, w1, w2, window, 64)
+    dev, dt = x.device, x.dtype
+    xc = cuda_lib.aligned(x.detach())
+    out = torch.empty_like(xc)
+    wp, bs, mk = _fold_packs(qkv_w, proj_w, bias, mask, num_heads, dev, dt)
+    ls, lb, qb = _fold_vectors(ln_scale, ln_bias, qkv_b, C, dev)
+    pb = _fold_proj_b(proj_b, C, dev)
+    mp = mlp_packs.get((w1, w2), ("mlp", str(dev)),
+                       lambda: pack_mlp_weights(w1.to(dev), w2.to(dev), dt))
+    l2s, l2b, b1c = _mlp_vectors(ln2_scale, ln2_bias, b1, C, ch, dev)
+    b2c = mlp_packs.get(() if b2 is None else (b2,), ("mlp b2", C, str(dev)),
+                        lambda: _vec(b2, C, dev))
+    err = lib.vadcl_fold_block_bf16(
+        xc.data_ptr(), ls.data_ptr(), lb.data_ptr(), wp.data_ptr(), qb.data_ptr(),
+        pb.data_ptr(), bs.data_ptr(), mk.data_ptr() if mk is not None else None,
+        l2s.data_ptr(), l2b.data_ptr(), mp.data_ptr(), b1c.data_ptr(), b2c.data_ptr(),
+        out.data_ptr(), B, D, H, W, C, num_heads, ch, *window, shift[0] % D, shift[1] % H,
+        shift[2] % W, float(scale), cuda_lib.stream_ptr(xc),
     )
     cuda_lib.check(err, "fold_block")
     fold_block.launches += 1
