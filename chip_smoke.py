@@ -17,7 +17,9 @@ Phases (any failure raises and the script exits non-zero):
      four flagship geometries in bf16 and fp32, every window of up to
      392 tokens at the flagship widths, head width 32 and head width 12 must
      map to a body, and every flagship geometry must take the tensor-core
-     bodies of 5 and 6 and of the whole-block forward and backward.
+     bodies of 5 and 6 and of the whole-block forward and backward, and, in
+     kernels 7 and 8, those of A and 6 (``window_tile_core``), whose blocks
+     the library must take wherever the route sends a window.
   2. each forward kernel (A-D, 7: window attention, 9: its packed variant,
      10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
@@ -44,6 +46,11 @@ Phases (any failure raises and the script exits non-zero):
      and C = 100 / hidden 400 on its CUDA-core body (``ln_mlp_tiles``), fp32
      ``cluster_assign`` at C = 200, 256, 384, 512 and 768 (each wider
      instance), two calls for the same bits, C = 769 refused.
+  2/2b, kernels 7 and 8 on A's and 6's bodies: at every 4-frame geometry,
+     shifted and not, bf16, the forward at batch 16 and the backward at
+     batch 4 against their plain versions and against their whole-tile
+     bodies forced on the same inputs (``*_tiles``), the counter of each
+     call's body asserted, two calls for the same bits, the three timed.
   2/2b, head width 12: the bf16 CUDA-core bodies of 7, 9 and 8 against their
      plain versions, whole-tile (N = 98) and row-tiled (N = 196), shifted,
      two calls for the same bits, each timed beside the same body in fp32.
@@ -119,7 +126,9 @@ backward's bodies of PR 4, and the bf16 CUDA-core instances of 7, 8 and 9
 (counted on their fp32 bodies' counters, reported from the embed_dim 24
 model's runs) (its time beside its roofline bound on
 an H100's published peaks: every number in it but the bound is measured in
-this run);
+this run); since kernels 7 and 8 run on A's and 6's bodies, their entries
+name those sources and two more entries report their whole-tile bodies
+(launched by the fp32 ``base`` model, phases 3 and 3b);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -455,6 +464,33 @@ def phase_build():
           "width 32 maps to a body, both dtypes and directions; the bf16 row-tiled cores' "
           f"groups of windows (0: the direct layout) and their layouts, forward and backward, "
           f"agree with the library at {groups} cases")
+    from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
+    from vadcl_tpu_torch.ops.window_attn import window_tile_core
+
+    for gname, ((_, _, _, c), nh, window, _) in FOLD_GEOMETRIES.items():
+        n = window[0] * window[1] * window[2]
+        for backward in (False, True):
+            if (window_body(n, c, nh, torch.bfloat16, backward) != "tile"
+                    or window_tile_core(n, c, nh, torch.bfloat16, backward) != "fold_mma"):
+                raise AssertionError(f"{gname}: bf16 kernels 7 and 8 must run on the "
+                                     "tensor-core bodies of kernels A and 6")
+    folds = 0
+    for c, nh in ROW_WIDTHS + ((32, 2), (64, 4), (96, 2), (256, 8), (256, 16), (128, 4)):
+        for n in range(1, 150):
+            for backward in (False, True):
+                # the route: the whole-tile body's windows, where A's or 6's body takes them
+                if (window_body(n, c, nh, torch.bfloat16, backward) != "tile"
+                        or window_tile_core(n, c, nh, torch.bfloat16, backward) != "fold_mma"):
+                    continue
+                folds += 1
+                smem = (lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh) if backward
+                        else lib.vadcl_fold_attn_smem_bytes(n, c, nh, 1))
+                if smem > SMEM_LIMIT:
+                    raise AssertionError(f"window_tile_core{(n, c, nh, backward)} sends a "
+                                         "window to a body whose block the library refuses")
+    print(f"  the whole-tile route of kernels 7 and 8 (window_tile_core): every flagship "
+          f"geometry takes kernels A's and 6's tensor-core bodies in bf16; at the {folds} "
+          "geometries it sends there the library's blocks fit")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -1441,6 +1477,117 @@ def phase_bwd_kernels(batch: int = 4):
     return stats
 
 
+def _launched(fn):
+    """``fn()`` and the launches it added, {counter: count} of those that moved."""
+    from vadcl_tpu_torch.ops import KERNELS
+
+    before = [k.launches for k in KERNELS]
+    out = fn()
+    return out, {k.__name__: k.launches - b for k, b in zip(KERNELS, before) if k.launches != b}
+
+
+def phase_window_fold_route(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
+    """Kernels 7 and 8 in bf16 at the flagship's widths, where the route runs
+    them on kernel A's and kernel 6's tensor-core bodies without LN and
+    residual on ``window_grid``'s view of the windows: at every 4-frame
+    geometry, shifted and not, the forward at ``batch`` clips' windows and
+    the backward at ``train_batch``'s, each against its plain version and
+    against the whole-tile body forced on the same inputs
+    (``window_attention_fused_tiles``, ``window_attention_fused_bwd_tiles``),
+    each call's body shown by the one counter that moved, two calls for the
+    same bits, each timed beside the other body and the plain version; the
+    blocks of both grids printed.  Returns the kernels line's stats of the
+    two whole-tile bodies."""
+    from vadcl_tpu_torch.ops import cuda_lib
+    from vadcl_tpu_torch.ops import window_attn as wa
+
+    print(f"[2/2b] kernels 7 and 8 on the tensor-core bodies of A and 6 (window_grid's view) "
+          f"vs plain and vs the whole-tile bodies, bf16, forward at batch {batch}, backward at "
+          f"batch {train_batch}")
+    lib = cuda_lib.library()
+    gen = torch.Generator().manual_seed(15)
+    bf, tol = torch.bfloat16, BWD_TOL[torch.bfloat16]
+    errs = {"window_attention_fused_tiles": [], "window_attention_fused_bwd_tiles": []}
+    stats, table = {}, []
+    for gname, ((D, H, W, C), nh, window, shift) in FOLD_GEOMETRIES.items():
+        n = window[0] * window[1] * window[2]
+        for shifted in (False, True):
+            tag = f"{gname} {'shifted' if shifted else 'plain'}"
+            a = _win_case(batch, gname, shifted, bf, gen)
+            new = lambda: wa.window_attention_fused(**a)  # noqa: E731
+            old = lambda: wa.window_attention_fused_tiles(**a)  # noqa: E731
+            got, moved = _launched(new)
+            if moved != {"window_attention_fused": 1}:
+                raise AssertionError(f"kernel 7 {tag}: launched {moved}, not kernel A's body "
+                                     "counted on window_attention_fused")
+            tiles, moved = _launched(old)
+            if moved != {"window_attention_fused_tiles": 1}:
+                raise AssertionError(f"kernel 7 {tag}: the forced whole-tile body launched "
+                                     f"{moved}")
+            want = wa.window_attention_fused_plain(**a)
+            check_close(f"kernel 7 on A's body {tag}", got, want, *BOUNDS[bf])
+            errs["window_attention_fused_tiles"].append(
+                check_close(f"kernel 7 whole-tile body {tag}", tiles, want, *BOUNDS[bf]))
+            check_close(f"kernel 7 on A's body vs the whole-tile body {tag}", got, tiles,
+                        *BOUNDS[bf])
+            same_bits(f"kernel 7 on A's body {tag}", [got], [new()])
+            ms, old_ms = cuda_ms(new), cuda_ms(old)
+            pms = cuda_ms(lambda: wa.window_attention_fused_plain(**a))
+            bn = a["x_windows"].shape[0]
+            print(f"    time: A's body {ms:.4f} ms, whole-tile body {old_ms:.4f} ms, plain "
+                  f"{pms:.4f} ms; {-(-bn // (2 if n <= 64 else 1))} blocks")
+            table.append(("7", batch, tag, ms, old_ms, pms))
+            if gname == "enc_stage0" and shifted:
+                stats["window_attention_fused_tiles"] = dict(
+                    ms=old_ms, plain_ms=pms, shape=f"x_windows ({bn},{n},{C}) bf16, nH {nh}, "
+                    "shifted (forced)",
+                    **bound(tensors_of(a) + [tiles], attn_flops(bn * n, C, n), "bf16"))
+            del a, got, tiles, want
+
+            w = _win_bwd_case(_win_case(train_batch, gname, shifted, bf, gen), gen)
+            new = lambda: wa.window_attention_fused_bwd(**w)  # noqa: E731
+            old = lambda: wa.window_attention_fused_bwd_tiles(**w)  # noqa: E731
+            got, moved = _launched(new)
+            if moved != {"window_attention_fused_bwd": 1}:
+                raise AssertionError(f"kernel 8 {tag}: launched {moved}, not kernel 6's body "
+                                     "counted on window_attention_fused_bwd")
+            tiles, moved = _launched(old)
+            if moved != {"window_attention_fused_bwd_tiles": 1}:
+                raise AssertionError(f"kernel 8 {tag}: the forced whole-tile body launched "
+                                     f"{moved}")
+            want = wa.window_attention_fused_bwd_plain(**w)
+            check_grads(f"kernel 8 on 6's body {tag}", WIN_BWD_NAMES, got, want, tol)
+            errs["window_attention_fused_bwd_tiles"].append(
+                check_grads(f"kernel 8 whole-tile body {tag}", WIN_BWD_NAMES, tiles, want, tol))
+            check_grads(f"kernel 8 on 6's body vs the whole-tile body {tag}", WIN_BWD_NAMES,
+                        got, tiles, tol)
+            same_bits(f"kernel 8 on 6's body {tag}", got, new())
+            ms, old_ms = cuda_ms(new), cuda_ms(old)
+            pms = cuda_ms(lambda: wa.window_attention_fused_bwd_plain(**w))
+            bn = w["x_windows"].shape[0]
+            grid = wa.window_grid(w["x_windows"], w["mask"], w["n_windows"])[0].shape
+            chunks = lib.vadcl_fold_attn_bwd_bf16_dbias_partials(
+                grid[0], 1, 1, grid[3], C, nh, 1, 1, n)
+            print(f"    time: 6's body {ms:.4f} ms, whole-tile body {old_ms:.4f} ms, plain "
+                  f"{pms:.4f} ms; {chunks} blocks of {-(-bn // chunks)} windows (the d(bias) "
+                  "partials)")
+            table.append(("8", train_batch, tag, ms, old_ms, pms))
+            if gname == "enc_stage0" and shifted:
+                stats["window_attention_fused_bwd_tiles"] = dict(
+                    ms=old_ms, plain_ms=pms, shape=f"x_windows ({bn},{n},{C}) bf16, nH {nh}, "
+                    "shifted (forced)",
+                    **bound(tensors_of(w, tiles), attn_flops(bn * n, C, n, backward=True),
+                            "bf16"))
+            del w, got, tiles, want
+            torch.cuda.empty_cache()
+    print("  kernels 7 and 8, bf16, ms: A's or 6's body | the whole-tile body | plain")
+    for k, b, tag, ms, old_ms, pms in table:
+        print(f"    {k} batch {b:2d} {tag:22s} {ms:.4f} | {old_ms:.4f} | {pms:.4f}")
+    for k in stats:
+        stats[k]["max_abs_err"] = max(errs[k])
+    return stats
+
+
 def recon_geometries(frame_num: int) -> dict:
     """name: ((D, H, W, C) per clip, heads, runtime window, shift) of the
     flagship's four Swin stages on ``frame_num``-frame reconstruction clips:
@@ -1524,12 +1671,16 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
                     w = _win_bwd_case(a, gen)
                     want = bwd[2](**w)
                     check_grads(f"whole-tile kernel 8 {tag}", WIN_BWD_NAMES,
-                                wa.window_attention_fused_bwd(**w), want, BWD_TOL[dtype])
+                                wa.window_attention_fused_bwd_tiles(**w), want, BWD_TOL[dtype])
                     check_grads(f"row-tiled kernel 8 {tag}", WIN_BWD_NAMES, bwd[1](**w), want,
                                 BWD_TOL[dtype])
+                    if wa.window_tile_core(n, C, nh, dtype, backward) == "fold_mma":
+                        # the largest window kernel 6's tensor-core body takes
+                        check_grads(f"kernel 8 on 6's body {tag}", WIN_BWD_NAMES,
+                                    wa.window_attention_fused_bwd(**w), want, BWD_TOL[dtype])
                     continue
                 for (name, rows, plain), whole in zip(row_kernels(), (
-                        wa.window_attention_fused, wa.window_attention_packed)):
+                        wa.window_attention_fused_tiles, wa.window_attention_packed)):
                     want = plain(**a)
                     check_close(f"whole-tile {name[:-5]} {tag}", whole(**a), want, *BOUNDS[dtype])
                     check_close(f"row-tiled {name[:-5]} {tag}", rows(**a), want, *BOUNDS[dtype])
@@ -1688,7 +1839,8 @@ def flagship_config(attn_kernel: str = "fold", depths=None, image_size: int = 22
 
 def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2, recon: int = 0):
     """The model's outputs, card against CPU; ``recon`` > 0: reconstruction
-    mode on clips of that many frames (predict mode on 4 frames otherwise)."""
+    mode on clips of that many frames (predict mode on 4 frames otherwise).
+    Returns the card's kernel launches."""
     from vadcl_tpu_torch.models import VADModel
 
     frames = recon or 4
@@ -1703,8 +1855,12 @@ def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2, recon: i
         t0 = time.perf_counter()
         want = cpu_model(clips)
         t_cpu = time.perf_counter() - t0
+        reset_launches()
         got = gpu_model(clips.cuda())
         torch.cuda.synchronize()
+    from vadcl_tpu_torch.ops import KERNELS
+
+    launches = {k.__name__: k.launches for k in KERNELS}
     print(f"  recon {tuple(got.recon.shape)}; CPU forward {t_cpu:.1f} s")
     if tuple(got.recon.shape) != (len(clips), frames if recon else 1, 224, 224, 3) or not bool(
             torch.isfinite(got.recon).all()):
@@ -1716,6 +1872,8 @@ def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2, recon: i
     print(f"  feature labels equal: {agree:.5f}")
     if agree < 0.995:
         raise AssertionError("flagship labels disagree on more than 0.5% of tokens")
+    print(f"  kernel launches on the card: {launches}")
+    return launches
 
 
 MODEL_GRAD_TOL = 2e-3  # phase 3b, per tensor: fp32, summation order through ~30 layers
@@ -1890,9 +2048,10 @@ def phase_narrow_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> di
     print("[2/2b] kernels 7, 9 and 8 in bf16 at head width 12 (their CUDA-core bodies) vs plain")
     gen = torch.Generator().manual_seed(14)
     stats = {}
-    fwd = (("window_attention_fused", wa.window_attention_fused, wa.window_attention_fused_rows,
-            wa.window_attention_fused_plain),
-           ("window_attention_packed", wa.window_attention_packed,
+    # (the route's wrapper, the counter of its whole-tile body, the row-tiled wrapper, plain)
+    fwd = ((wa.window_attention_fused, wa.window_attention_fused_tiles,
+            wa.window_attention_fused_rows, wa.window_attention_fused_plain),
+           (wa.window_attention_packed, wa.window_attention_packed,
             wa.window_attention_packed_rows, wa.window_attention_packed_plain))
     for C, nh in NARROW_WIDTHS:
         if wa.window_core(C, nh, torch.bfloat16) != "cuda_core":
@@ -1900,14 +2059,13 @@ def phase_narrow_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> di
         for rows, window, dhw in ((False, (2, 7, 7), (2, 28, 28)), (True, (4, 7, 7), (4, 28, 28))):
             n = window[0] * window[1] * window[2]
             shift = tuple(w // 2 for w in window)
-            for fname, whole, tiled, plain in fwd:
-                kernel = tiled if rows else whole
-                name = f"{kernel.__name__} C={C} nH={nh} N={n} shifted bf16"
+            for whole, counter, tiled, plain in fwd:
+                kernel, counter = (tiled, tiled) if rows else (whole, counter)
+                name = f"{counter.__name__} C={C} nH={nh} N={n} shifted bf16"
                 a = _win_case_at(batch, dhw, C, nh, window, shift, torch.bfloat16, gen)
-                before = kernel.launches
-                got = kernel(**a)
-                if kernel.launches != before + 1:
-                    raise AssertionError(f"{name}: {kernel.__name__} did not launch")
+                got, moved = _launched(lambda: kernel(**a))
+                if moved != {counter.__name__: 1}:
+                    raise AssertionError(f"{name}: launched {moved}, not {counter.__name__}")
                 e = check_close(name, got, plain(**a), *BOUNDS[torch.bfloat16])
                 same_bits(name, [got], [kernel(**a)])
                 if C == NARROW_WIDTHS[0][0]:
@@ -1917,18 +2075,18 @@ def phase_narrow_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> di
                 f32_ms = cuda_ms(lambda: kernel(**a32))
                 print(f"    the same body in fp32 on the same inputs: {f32_ms:.4f} ms")
                 tokens = a["x_windows"].shape[0] * n
-                stats[f"{kernel.__name__} bf16 CUDA-core"] = dict(
+                stats[f"{counter.__name__} bf16 CUDA-core"] = dict(
                     max_abs_err=e, ms=ms, plain_ms=pms, fp32_ms=f32_ms,
                     shape=f"x_windows {tuple(a['x_windows'].shape)} bf16, nH {nh}, shifted",
                     **bound(tensors_of(a) + [got], attn_flops(tokens, C, n), "bf16"))
-            kernel = wa.window_attention_fused_bwd_rows if rows else wa.window_attention_fused_bwd
-            name = f"{kernel.__name__} C={C} nH={nh} N={n} shifted bf16"
+            kernel, counter = ((wa.window_attention_fused_bwd_rows,) * 2 if rows else
+                               (wa.window_attention_fused_bwd, wa.window_attention_fused_bwd_tiles))
+            name = f"{counter.__name__} C={C} nH={nh} N={n} shifted bf16"
             b = _win_bwd_case(_win_case_at(train_batch, dhw, C, nh, window, shift,
                                            torch.bfloat16, gen), gen)
-            before = kernel.launches
-            got = kernel(**b)
-            if kernel.launches != before + 1:
-                raise AssertionError(f"{name}: {kernel.__name__} did not launch")
+            got, moved = _launched(lambda: kernel(**b))
+            if moved != {counter.__name__: 1}:
+                raise AssertionError(f"{name}: launched {moved}, not {counter.__name__}")
             e = check_grads(name, WIN_BWD_NAMES, got, wa.window_attention_fused_bwd_plain(**b),
                             BWD_TOL[torch.bfloat16])
             same_bits(name, got, kernel(**b))
@@ -1938,7 +2096,7 @@ def phase_narrow_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> di
             f32_ms = cuda_ms(lambda: kernel(**b32))
             print(f"    the same body in fp32 on the same inputs: {f32_ms:.4f} ms")
             tokens = b["x_windows"].shape[0] * n
-            stats[f"{kernel.__name__} bf16 CUDA-core"] = dict(
+            stats[f"{counter.__name__} bf16 CUDA-core"] = dict(
                 max_abs_err=e, ms=ms, plain_ms=pms, fp32_ms=f32_ms,
                 shape=f"x_windows {tuple(b['x_windows'].shape)} bf16, nH {nh}, shifted",
                 **bound(tensors_of(b, got), attn_flops(tokens, C, n, backward=True), "bf16"))
@@ -1959,10 +2117,12 @@ def narrow_config(attn_kernel: str, recon: int = 0):
 
 
 # What the embed_dim 24 model may launch: every Swin block takes kernels 7,
-# 8 (or 9) and B, 5 at head width 12, never a fold kernel.
+# 8 (or 9) and B, 5 at head width 12 on their CUDA-core bodies, never a fold
+# kernel's body (nor kernels 7 and 8 on A's and 6's).
 NARROW_FOLD_KERNELS = {"fold_attention", "fold_attention_packed", "fold_block",
                        "fold_block_tiles", "fold_attention_bwd", "fold_attention_bwd_tiles",
-                       "fold_block_bwd", "fold_block_bwd_tiles"}
+                       "fold_block_bwd", "fold_block_bwd_tiles", "window_attention_fused",
+                       "window_attention_fused_bwd"}
 
 
 def phase_narrow_model() -> dict:
@@ -2019,9 +2179,10 @@ def phase_narrow_model() -> dict:
         print(f"  {path}: kernel launches {launches}")
         stray = sorted(k for k in NARROW_FOLD_KERNELS if launches[k])
         window = ("window_attention_packed" if attn_kernel == "packed"
-                  else "window_attention_fused")
-        fwd = launches[window] + launches[window + "_rows"]
-        bwd = launches["window_attention_fused_bwd"] + launches["window_attention_fused_bwd_rows"]
+                  else "window_attention_fused_tiles")
+        fwd = launches[window] + launches[window.replace("_tiles", "") + "_rows"]
+        bwd = (launches["window_attention_fused_bwd_tiles"]
+               + launches["window_attention_fused_bwd_rows"])
         if stray or fwd != 4 or bwd != (4 if train else 0):
             raise AssertionError(f"{path}: fold kernels launched {stray}, or not 4 "
                                  f"partitioned-window launches each way ({fwd}, {bwd})")
@@ -2072,6 +2233,14 @@ class MemLoader:
 
 
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 4, 2, 8
+# The fp32 base model runs kernels 7 and 8 on their whole-tile bodies in each
+# of its 18 blocks, never on A's and 6's (phases 3 and 3b).
+FP32_BASE_COUNTS = {
+    "model base fp32": {"window_attention_fused_tiles": 18, "window_attention_fused": 0},
+    "model grads base fp32": {"window_attention_fused_tiles": 18, "window_attention_fused": 0,
+                              "window_attention_fused_bwd_tiles": 18,
+                              "window_attention_fused_bwd": 0},
+}
 # The kernels each path must launch; every other kernel of KERNELS must not.
 COMMON_FWD = {"ln_mlp", "cluster_assign", "space_cluster_loss"}
 SCORING_KERNELS = {
@@ -2090,13 +2259,15 @@ TRAINING_KERNELS = {
 # Exact launch counts of the new paths: 18 Swin blocks (12 of them with 12
 # heads) a forward, 8 scoring forwards, 10 training steps.
 SCORING_COUNTS = {
+    "base": {"window_attention_fused": 144, "ln_mlp": 144},
     "fold_packed": {"fold_attention_packed": 144, "ln_mlp": 144},
     "fold_mix": {"fold_attention_packed": 96, "fold_attention": 48, "ln_mlp": 144},
     "fold_block": {"fold_block": 144},
 }
 TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180},
                    "fold": {"fold_attention_bwd": 180, "ln_mlp_bwd": 180},
-                   "base": {"window_attention_fused_bwd": 180, "ln_mlp_bwd": 180}}
+                   "base": {"window_attention_fused": 180, "window_attention_fused_bwd": 180,
+                            "ln_mlp_bwd": 180}}
 # Reconstruction at frame_num = 8: every window holds 196 or 392 tokens, so
 # all 18 blocks of a forward run a row-tiled body (kernel A stops at 112
 # tokens, so a "fold" block takes the partitioned-window route) and the
@@ -2345,9 +2516,9 @@ REPLACES = {
     "ln_mlp_bwd": ("vadcl_tpu_torch/csrc/ln_mlp_bwd_mma.cu", "vadcl_tpu/ops/pallas_mlp.py:87"),
     "fold_attention_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd_mma.cu",
                            "vadcl_tpu/ops/pallas_attn_fold.py:704"),
-    "window_attention_fused": ("vadcl_tpu_torch/csrc/window_attn.cu",
+    "window_attention_fused": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                                "vadcl_tpu/ops/pallas_attn.py:30"),
-    "window_attention_fused_bwd": ("vadcl_tpu_torch/csrc/window_attn_bwd.cu",
+    "window_attention_fused_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd_mma.cu",
                                    "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
     "window_attention_packed": ("vadcl_tpu_torch/csrc/window_attn.cu",
                                 "vadcl_tpu/ops/pallas_attn.py:113"),
@@ -2368,20 +2539,24 @@ REPLACES = {
     "window_attention_packed_rows": ("vadcl_tpu_torch/csrc/window_attn_rows_mma.cu",
                                      "vadcl_tpu/ops/pallas_attn.py:113"),
     "ln_mlp_tiles": ("vadcl_tpu_torch/csrc/ln_mlp.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
+    "window_attention_fused_tiles": ("vadcl_tpu_torch/csrc/window_attn.cu",
+                                     "vadcl_tpu/ops/pallas_attn.py:30"),
+    "window_attention_fused_bwd_tiles": ("vadcl_tpu_torch/csrc/window_attn_bwd.cu",
+                                         "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
 }
 # The bf16 CUDA-core instances of 7, 8 and 9 (head widths the tensor-core
 # bodies refuse) count their launches on the counter of the same body in
 # fp32; each is reported from a run of the embed_dim 24 model, every one of
 # whose Swin blocks is at head width 12: (counter, source, TPU kernel, run).
 NARROW_ENTRIES = {
-    "window_attention_fused bf16 CUDA-core": (
-        "window_attention_fused", "vadcl_tpu_torch/csrc/window_attn.cu",
+    "window_attention_fused_tiles bf16 CUDA-core": (
+        "window_attention_fused_tiles", "vadcl_tpu_torch/csrc/window_attn.cu",
         "vadcl_tpu/ops/pallas_attn.py:30", "narrow model base"),
     "window_attention_packed bf16 CUDA-core": (
         "window_attention_packed", "vadcl_tpu_torch/csrc/window_attn.cu",
         "vadcl_tpu/ops/pallas_attn.py:113", "narrow model packed"),
-    "window_attention_fused_bwd bf16 CUDA-core": (
-        "window_attention_fused_bwd", "vadcl_tpu_torch/csrc/window_attn_bwd.cu",
+    "window_attention_fused_bwd_tiles bf16 CUDA-core": (
+        "window_attention_fused_bwd_tiles", "vadcl_tpu_torch/csrc/window_attn_bwd.cu",
         "vadcl_tpu/ops/pallas_attn_bwd.py:27", "narrow model base"),
     "window_attention_fused_rows bf16 CUDA-core": (
         "window_attention_fused_rows", "vadcl_tpu_torch/csrc/window_attn_rows.cu",
@@ -2408,6 +2583,8 @@ COUNTED_ON = {
     "ln_mlp_tiles": "wide model",
     "fold_block_bwd_tiles": "model grads fold_block fp32",
     "fold_block_tiles": "model grads fold_block fp32",
+    "window_attention_fused_tiles": "model base fp32",
+    "window_attention_fused_bwd_tiles": "model grads base fp32",
 }
 
 
@@ -2418,10 +2595,11 @@ def main():
     stats.update(phase_space_kernel())
     stats.update(phase_width_kernels())
     stats.update(phase_bwd_kernels(TRAIN_BATCH))
+    stats.update(phase_window_fold_route(BATCH_WINDOWS, TRAIN_BATCH))
     stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     stats.update(phase_narrow_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_model("fold", REDUCED_DEPTHS)
-    phase_model("base")
+    counts = {"model base fp32": phase_model("base")}
     phase_model("packed", clips=1)
     phase_model("fold_packed", clips=1)
     phase_model("fold_mix", REDUCED_DEPTHS, clips=1)
@@ -2429,9 +2607,13 @@ def main():
     phase_model("fold", clips=1, recon=RECON_FRAMES)
     phase_model("packed", REDUCED_DEPTHS, clips=1, recon=RECON_FRAMES)
     phase_model_grads("fold", REDUCED_DEPTHS)
-    phase_model_grads("base")
+    counts["model grads base fp32"] = phase_model_grads("base")
+    for run, want in FP32_BASE_COUNTS.items():
+        got = {k: counts[run][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{run}: launches {got}, expected {want}")
     phase_model_grads("fold", ((2, 2), (2, 2)), image_size=240)
-    counts = {"model grads fold_block fp32": phase_model_grads("fold_block")}
+    counts["model grads fold_block fp32"] = phase_model_grads("fold_block")
     fp32_block = counts["model grads fold_block fp32"]
     if (fp32_block["fold_block_bwd_tiles"] != 18 or fp32_block["fold_block_bwd"]
             or fp32_block["fold_block_tiles"] != 18 or fp32_block["fold_block"]):

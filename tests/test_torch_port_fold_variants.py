@@ -325,12 +325,15 @@ def test_twelve_kernels_count_their_launches_and_cpu_calls_do_not():
     and 9 count their own launches, three more counters, and two for the
     CUDA-core and shared-memory bodies of 5 and 6 beside their tensor-core
     bodies, and one for kernel B's CUDA-core body, and one each for the
-    whole-block backward's and forward's bodies of PR 4 beside their
-    tensor-core bodies: twenty."""
+    whole-block backward's and forward's older bodies beside their
+    tensor-core bodies, and one each for the whole-tile bodies of 7 and 8
+    beside A's and 6's tensor-core bodies, which 7 and 8 run in bf16:
+    twenty-two."""
     names = [k.__name__ for k in KERNELS]
-    assert len(names) == len(set(names)) == 20
+    assert len(names) == len(set(names)) == 22
     assert {"fold_attention_packed", "fold_block", "fold_block_bwd"} <= set(names)
     assert {"fold_block_bwd_tiles", "fold_block_tiles"} <= set(names)
+    assert {"window_attention_fused_tiles", "window_attention_fused_bwd_tiles"} <= set(names)
     before = [k.launches for k in KERNELS]
     a = _case(seed=12)
     args = _port_block_args(a, False)

@@ -38,7 +38,9 @@ from vadcl_tpu_torch.ops.window import window_partition
 from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
     window_attention_fused_bwd,
+    window_attention_fused_bwd_tiles,
     window_attention_fused_plain,
+    window_attention_fused_tiles,
     window_attention_packed,
     window_body,
 )
@@ -314,9 +316,10 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
                           "window_attention_packed"]
     assert names[12:15] == ["window_attention_fused_rows", "window_attention_fused_bwd_rows",
                             "window_attention_packed_rows"]
-    assert names[15:] == ["ln_mlp_bwd_tiles", "fold_attention_bwd_tiles", "ln_mlp_tiles",
-                          "fold_block_bwd_tiles", "fold_block_tiles"]
-    assert len(names) == 20 and len(set(names)) == 20
+    assert names[15:20] == ["ln_mlp_bwd_tiles", "fold_attention_bwd_tiles", "ln_mlp_tiles",
+                            "fold_block_bwd_tiles", "fold_block_tiles"]
+    assert names[20:] == ["window_attention_fused_tiles", "window_attention_fused_bwd_tiles"]
+    assert len(names) == 22 and len(set(names)) == 22
     before = [k.launches for k in KERNELS]
     a = _case(GEOMS["N49_C24"], True, seed=11)
     x = T(a["x"]).requires_grad_()
@@ -325,6 +328,13 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
     window_attention_fused(x, T(a["qkv_w"]), T(a["qkv_b"]), T(a["proj_w"]), T(a["proj_b"]),
                            T(a["bias"]), T(a["mask"]), a["nH"], a["nW"], a["scale"]).sum().backward()
     assert out.shape == a["x"].shape and x.grad is not None
+    # the forcing wrappers of the whole-tile bodies run the plain versions here too
+    tiles = _port_forward(window_attention_fused_tiles, a)
+    np.testing.assert_array_equal(tiles.numpy(), out.detach().numpy())
+    grads = window_attention_fused_bwd_tiles(
+        T(a["x"]), T(a["dout"]), T(a["qkv_w"]), T(a["qkv_b"]), T(a["proj_w"]), T(a["bias"]),
+        T(a["mask"]), a["nH"], a["nW"], a["scale"])
+    assert len(grads) == 6 and grads[0].shape == a["x"].shape
     assert [k.launches for k in KERNELS] == before
 
 

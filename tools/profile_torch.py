@@ -26,18 +26,22 @@ the device's time per call unless the host's path to the launch is longer),
 ``kernel_ms`` the device time of the hand-written kernel alone from the
 profiler; last, the host's time per wrapper call on a tiny input:
 
-    python tools/profile_torch.py --kernels-only [--backward-only | --forward-only]
+    python tools/profile_torch.py --kernels-only [--backward-only | --forward-only |
+        --window-only]
         [--batches 4 16] [--head-dim 32] [--tag NAME]
 
 (``--head-dim`` runs the attention kernels at the same widths with fewer,
-wider heads than the flagship's 16.)  With ``--recon --frame-num F`` it times
+wider heads than the flagship's 16.)  With ``--window-only`` it times
 instead the partitioned-window kernels 7, 9 (forward, at each batch) and 8
-(backward, at the smallest batch) at the window geometries of F-frame
-reconstruction clips (F = 8: windows of 196 and 392 tokens, the row-tiled
-bodies), shifted and not, with each launch's device ms apart (``launches``:
-the qkv product, the attention core and the projection of the row-tiled
-forward; the two products, the core, the second pass's partials and sums
-and the dx product of the backward).
+(backward, at ``--bwd-batch``) at the 4-frame geometries, shifted and not,
+7 and 8 on the body the route picks (kernel A's and kernel 6's tensor-core
+bodies in bf16) and on their whole-tile bodies forced (``*_tiles``, where
+the tree has them); with ``--recon --frame-num F`` the same at the window
+geometries of F-frame reconstruction clips (F = 8: windows of 196 and 392
+tokens, the row-tiled bodies).  Each launch's device ms is apart
+(``launches``: e.g. the qkv product, the attention core and the projection
+of the row-tiled forward; the two products, the core, the second pass's
+partials and sums and the dx product of the backward).
 
 ``--root`` names the tree whose ``vadcl_tpu_torch`` package is run (default:
 the tree this file is in), so that two commits can be compared on one card in
@@ -107,40 +111,52 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
-def window_kernels_only(args, smoke, gen) -> None:
-    """Kernels 7 and 9 at each batch and kernel 8 at the smallest, shifted
-    and not, bf16, at the reconstruction geometries of ``args.frame_num``,
-    each with its launches' device ms apart."""
-    from vadcl_tpu_torch.ops.window_attn import (
-        window_attention_fused, window_attention_fused_bwd, window_attention_packed, window_body,
-    )
+def window_kernels_only(args, smoke, gen, geometries) -> None:
+    """Kernels 7 and 9 at each of ``args.batches`` and kernel 8 at
+    ``args.bwd_batch``, shifted and not, bf16, at ``geometries`` (name:
+    ((D, H, W, C), heads, window, shift)), each with its launches' device ms
+    apart; 7 and 8 also on their whole-tile bodies forced (``*_tiles``)
+    where the tree has them.  ``body`` names what the route runs
+    (``window_body``, and where that is the whole-tile body
+    ``window_tile_core``, where the tree has it)."""
+    from vadcl_tpu_torch.ops import window_attn as wa
 
-    for gname, ((D, H, W, C), nh, window, shift) in smoke.recon_geometries(args.frame_num).items():
+    def body(n, C, nh, backward=False):
+        b = wa.window_body(n, C, nh, torch.bfloat16, backward)
+        if b == "tile" and hasattr(wa, "window_tile_core"):
+            b = wa.window_tile_core(n, C, nh, torch.bfloat16, backward)
+        return b
+
+    def line(name, gname, batch, n, shifted, fn, what):
+        print(json.dumps({
+            "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch, "N": n,
+            "shifted": shifted, "body": what, "ms": round(smoke.cuda_ms(fn), 4),
+            "kernel_ms": round(own_kernel_ms(fn), 4),
+            "launches": [[k, round(ms, 4)] for k, ms in smoke.launch_ms(fn)]}))
+
+    forward = [("window_attention_fused", wa.window_attention_fused, None),
+               ("window_attention_packed", wa.window_attention_packed, "tile/rows")]
+    backward = [("window_attention_fused_bwd", wa.window_attention_fused_bwd, None)]
+    if hasattr(wa, "window_attention_fused_tiles"):
+        forward.insert(1, ("window_attention_fused_tiles", wa.window_attention_fused_tiles,
+                           "tile (forced)"))
+        backward.append(("window_attention_fused_bwd_tiles", wa.window_attention_fused_bwd_tiles,
+                         "tile (forced)"))
+    for gname, ((D, H, W, C), nh, window, shift) in geometries.items():
         n = window[0] * window[1] * window[2]
-        for batch in args.batches:
+        for batch in sorted(set(args.batches) | {args.bwd_batch}):
             for shifted in (False, True):
                 a = smoke._win_case_at(batch, (D, H, W), C, nh, window,
                                        shift if shifted else (0, 0, 0), torch.bfloat16, gen)
-                for name, k in (("window_attention_fused", window_attention_fused),
-                                ("window_attention_packed", window_attention_packed)):
-                    print(json.dumps({
-                        "tag": args.tag, "kernel": name, "geometry": gname, "batch": batch,
-                        "N": n, "shifted": shifted,
-                        "body": window_body(n, C, nh, torch.bfloat16),
-                        "ms": round(smoke.cuda_ms(lambda: k(**a)), 4),
-                        "kernel_ms": round(own_kernel_ms(lambda: k(**a)), 4),
-                        "launches": [[name, round(ms, 4)] for name, ms in
-                                     smoke.launch_ms(lambda: k(**a))]}))
-                if batch == min(args.batches):
+                if batch in args.batches:
+                    for name, k, what in forward:
+                        line(name, gname, batch, n, shifted, lambda: k(**a),
+                             what or body(n, C, nh))
+                if batch == args.bwd_batch:
                     w = smoke._win_bwd_case(a, gen)
-                    bwd = lambda: window_attention_fused_bwd(**w)  # noqa: E731
-                    print(json.dumps({
-                        "tag": args.tag, "kernel": "window_attention_fused_bwd",
-                        "geometry": gname, "batch": batch, "N": n, "shifted": shifted,
-                        "body": window_body(n, C, nh, torch.bfloat16, backward=True),
-                        "ms": round(smoke.cuda_ms(bwd), 4),
-                        "kernel_ms": round(own_kernel_ms(bwd), 4),
-                        "launches": [[name, round(ms, 4)] for name, ms in smoke.launch_ms(bwd)]}))
+                    for name, k, what in backward:
+                        line(name, gname, batch, n, shifted, lambda: k(**w),
+                             what or body(n, C, nh, backward=True))
                     del w
                 del a
                 torch.cuda.empty_cache()
@@ -241,9 +257,11 @@ def kernels_only(args) -> None:
     print(json.dumps({"tag": args.tag, "root": args.root, "card": smoke.smi_line(),
                       "build_s": round(time.perf_counter() - t0, 2)}))
     gen = torch.Generator().manual_seed(0)
-    if args.recon:
+    if args.recon or args.window_only:
+        geometries = (smoke.recon_geometries(args.frame_num) if args.recon
+                      else smoke.FOLD_GEOMETRIES)
         with torch.no_grad():
-            window_kernels_only(args, smoke, gen)
+            window_kernels_only(args, smoke, gen, geometries)
         return
     if args.backward_only:
         with torch.no_grad():
@@ -365,6 +383,9 @@ def main(argv=None):
                     help="with --kernels-only: the backward kernels alone")
     ap.add_argument("--forward-only", action="store_true",
                     help="with --kernels-only: the whole-block forward alone, both bodies")
+    ap.add_argument("--window-only", action="store_true",
+                    help="with --kernels-only: kernels 7, 9 and 8 alone at the 4-frame "
+                         "geometries, 7 and 8 on both bodies")
     ap.add_argument("--tag", default="", help="with --kernels-only: a name on every line")
     ap.add_argument("--root", default=HERE, help="the tree whose vadcl_tpu_torch is run")
     ap.add_argument("--recon", action="store_true",

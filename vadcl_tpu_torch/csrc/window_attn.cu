@@ -39,6 +39,15 @@
 // body of window_attn_rows.cu, which ops/window_attn.py:window_body picks.
 // Left on the table: wgmma with TMA-staged weights, several windows per
 // block at N = 49, bias + mask staged once per block.
+//
+// Where kernel A's tensor-core body takes the geometry (bf16, head width 16
+// or 32, N <= 112, its block within 227 KB), kernel 7 does not come here:
+// ops/window_attn.py:window_tile_core sends it to fold_attn_mma.cuh without
+// LN and residual, on a view of the windows as one row of windows per batch
+// (window_grid).  This file keeps kernel 7 in fp32 and at the other bf16
+// widths (head width 12, 48, 64; C = 256 with 8 heads), kernel 7 where its
+// whole-tile body is forced (window_attention_fused_tiles), and kernel 9.
+// Softmax quotients go through fa_div (common.cuh).
 #include <mma.h>
 
 #include "common.cuh"
@@ -130,7 +139,7 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_kernel(WinArgs a) {
       const float inv = 1.f / s;
       for (int j = lane; j < N; j += kWarp) {
         const float e = expf(row[j] - m);
-        row[j] = round_to<T>(PACKED ? e * inv : e / s);
+        row[j] = round_to<T>(PACKED ? e * inv : fa_div(e, s, inv));
       }
     }
     __syncthreads();
@@ -289,7 +298,7 @@ __global__ void __launch_bounds__(kWinThreads) window_attn_tc_kernel(WinArgs a) 
         float p = 0.f;
         if (j < N) {
           const float e = expf(row[j] - m);
-          p = PACKED ? e * inv : e / s;
+          p = PACKED ? e * inv : fa_div(e, s, inv);
         }
         prow[j] = __float2bfloat16(p);
       }

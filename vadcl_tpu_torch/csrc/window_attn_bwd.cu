@@ -37,6 +37,14 @@
 // the others (N = 196 and 392 of 8-frame reconstruction clips, N = 147 in
 // bf16) run the row-tiled body of window_attn_bwd_rows.cu, which
 // ops/window_attn.py:window_body picks.
+//
+// Where kernel 6's tensor-core body takes the geometry (ops/fold_attn.py:
+// fold_bwd_body says "mma"), kernel 8 runs that body in its no-LN,
+// no-residual mode on the windows viewed as one row of windows per batch
+// (ops/window_attn.py:window_tile_core, window_grid).  This file keeps fp32,
+// the other bf16 widths and the forced whole-tile body
+// (window_attention_fused_bwd_tiles).  Softmax quotients go through fa_div
+// (common.cuh).
 #include <mma.h>
 
 #include "reduce.cuh"
@@ -142,7 +150,8 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_kernel(WinBwdArgs 
       float s = 0.f;
       for (int j = lane; j < N; j += kWarp) s += expf(prow[j] - m);
       s = warp_sum(s);
-      for (int j = lane; j < N; j += kWarp) prow[j] = expf(prow[j] - m) / s;
+      const float inv = 1.f / s;
+      for (int j = lane; j < N; j += kWarp) prow[j] = fa_div(expf(prow[j] - m), s, inv);
     }
     __syncthreads();
 
@@ -424,8 +433,9 @@ __global__ void __launch_bounds__(kWbThreads) window_attn_bwd_tc_kernel(WinBwdAr
       float s = 0.f;
       for (int j = lane; j < N; j += kWarp) s += expf(prow[j] - m);
       s = warp_sum(s);
+      const float inv = 1.f / s;
       for (int j = lane; j < Np; j += kWarp) {
-        const float p = j < N ? expf(prow[j] - m) / s : 0.f;
+        const float p = j < N ? fa_div(expf(prow[j] - m), s, inv) : 0.f;
         prow[j] = p;
         brow[j] = __float2bfloat16(p);
       }

@@ -28,7 +28,9 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
     window_attention_fused_bwd,
     window_attention_fused_bwd_rows,
+    window_attention_fused_bwd_tiles,
     window_attention_fused_rows,
+    window_attention_fused_tiles,
     window_attention_packed,
     window_attention_packed_rows,
 )
@@ -51,14 +53,18 @@ from vadcl_tpu_torch.ops.window import (
 # bf16 geometries their tensor-core bodies do not take), and kernel B's
 # CUDA-core body (fp32, and the bf16 widths its tensor-core body does not
 # take), the whole-block backward's shared-memory body (fp32, and the bf16
-# geometries its tensor-core body does not take), and the whole-block
-# forward's body of PR 4 (the same).
+# geometries its tensor-core body does not take), the whole-block
+# forward's older body (the same), and the whole-tile bodies of 7 and 8
+# (fp32, and the bf16 geometries kernels A's and 6's tensor-core bodies do
+# not take: ``window_attention_fused`` and ``window_attention_fused_bwd``
+# count those bodies' launches on windows of at most 112 tokens).
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
            window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd,
            window_attention_fused_rows, window_attention_fused_bwd_rows,
            window_attention_packed_rows, ln_mlp_bwd_tiles, fold_attention_bwd_tiles,
-           ln_mlp_tiles, fold_block_bwd_tiles, fold_block_tiles)
+           ln_mlp_tiles, fold_block_bwd_tiles, fold_block_tiles,
+           window_attention_fused_tiles, window_attention_fused_bwd_tiles)
 
 __all__ = [
     "KERNELS",
@@ -93,7 +99,9 @@ __all__ = [
     "window_attention_fused",
     "window_attention_fused_bwd",
     "window_attention_fused_bwd_rows",
+    "window_attention_fused_bwd_tiles",
     "window_attention_fused_rows",
+    "window_attention_fused_tiles",
     "window_attention_packed",
     "window_attention_packed_rows",
     "window_partition",

@@ -1093,10 +1093,12 @@ def _fold_operands(x, qkv_w, qkv_b, proj_w, bias, mask):
 
 def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
                          bias, mask, num_heads, window, scale, residual, shift,
-                         packed=False):
-    """Kernel A, or with ``packed`` kernel 10 (same arguments and layout)."""
+                         packed=False, counter=None):
+    """Kernel A, or with ``packed`` kernel 10 (same arguments and layout).
+    The launch counts on ``counter`` (default: the wrapper of A or 10)."""
     lib = cuda_lib.library()
     what = "fold_attention_packed" if packed else "fold_attention"
+    counter = counter or (fold_attention_packed if packed else fold_attention)
     _check_fold(what, x, bias, mask, num_heads, window, lib.vadcl_fold_attn_smem_bytes,
                 register_scores=True)
     B, D, H, W, C = x.shape
@@ -1131,7 +1133,7 @@ def _fold_attention_cuda(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
             *geometry, 0, cuda_lib.stream_ptr(xc),
         )
     cuda_lib.check(err, what)
-    (fold_attention_packed if packed else fold_attention).launches += 1
+    counter.launches += 1
     return out
 
 
@@ -1378,8 +1380,10 @@ def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
 
 
 def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
-                            bias, mask, num_heads, window, scale, shift, residual):
-    """Kernel 6's tensor-core body, on kernel A's packs of the same tensors."""
+                            bias, mask, num_heads, window, scale, shift, residual,
+                            counter=None):
+    """Kernel 6's tensor-core body, on kernel A's packs of the same tensors.
+    The launch counts on ``counter`` (default: ``fold_attention_bwd``)."""
     lib = cuda_lib.library()
     _check_fold("fold_attention_bwd", x, bias, mask, num_heads, window,
                 lambda n, c, nh, _: lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh),
@@ -1416,6 +1420,6 @@ def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
         float(scale), int(residual), cuda_lib.stream_ptr(xc),
     )
     cuda_lib.check(err, "fold_attention_bwd")
-    fold_attention_bwd.launches += 1
+    (counter or fold_attention_bwd).launches += 1
     return (dx, dln_s, dln_b, dqkv_w, dqkv_b if qkv_b is not None else None,
             dproj_w, dproj_b, dbias)

@@ -37,6 +37,18 @@ row-tiled ones on ``window_attention_fused_rows``,
 which also force that body whatever N (to hold it against the plain version
 where the whole-tile body would run).
 
+Where a window fits the whole-tile body, kernels 7 and 8 run it there only
+where kernel A's tensor-core body (forward) and kernel 6's (backward) do not
+take the geometry: in bf16 at head width 16 or 32 and at most 112 tokens
+(``window_tile_core`` says ``"fold_mma"``) they run those bodies without LN
+and residual on ``window_grid``'s view of the windows, the rows of one batch
+element's windows laid end to end as one row of windows, which is exactly
+the layout of ``x_windows``.  Those launches count on
+``window_attention_fused`` and ``window_attention_fused_bwd``; the whole-tile
+bodies count on ``window_attention_fused_tiles`` and
+``window_attention_fused_bwd_tiles``, which also force them.  Kernel 9 keeps
+its whole-tile body.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches a kernel or raises.  bf16 runs on tensor-core tiles where C and
 head_dim are multiples of 16 (the row-tiled body: head_dim at most 64);
@@ -54,7 +66,13 @@ from typing import Optional
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
-from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
+from vadcl_tpu_torch.ops.fold_attn import (
+    SMEM_LIMIT,
+    _fold_attention_bwd_mma,
+    _fold_attention_cuda,
+    fold_bwd_body,
+    fold_fits,
+)
 
 
 def _forward_plain(x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
@@ -300,22 +318,52 @@ def window_body(n: int, c: int, num_heads: int, dtype: torch.dtype,
     )
 
 
+def window_tile_core(n: int, c: int, num_heads: int, dtype: torch.dtype,
+                     backward: bool = False) -> str:
+    """What runs a window that ``window_body`` gives the whole-tile body:
+    ``"fold_mma"``, kernel A's tensor-core body (or with ``backward`` kernel
+    6's) without LN and residual on ``window_grid``'s view, where that body
+    takes the geometry (bf16, head width 16 or 32, at most
+    ``FOLD_MAX_TOKENS`` tokens, its block within ``SMEM_LIMIT``: ``fold_fits``
+    for A, ``fold_bwd_body(...) == "mma"`` for 6); else ``"tile"``, the
+    whole-tile body of ``csrc/window_attn.cu`` / ``csrc/window_attn_bwd.cu``."""
+    if dtype != torch.bfloat16:
+        return "tile"
+    if backward:
+        takes = fold_bwd_body(n, c, num_heads, dtype) == "mma"
+    else:
+        takes = fold_fits(n, c, num_heads, dtype)
+    return "fold_mma" if takes else "tile"
+
+
+def window_grid(x_windows: torch.Tensor, mask: Optional[torch.Tensor], n_windows: int):
+    """``(grid, window, shift)``: the windows ``(Bn, N, C)`` as the
+    unpartitioned tensor kernels A and 6 address, ``(Bn / nW, 1, 1, nW * N,
+    C)`` cut by the window ``(1, 1, N)`` with no shift, a view of the same
+    memory.  Window ``w`` of batch element ``b`` is window ``b * nW + w`` and
+    takes ``mask[w]``, kernel 7's ``mask[i % nW]``.  ``nW`` is ``n_windows``
+    with a mask and 1 without one (``Bn`` need not divide then)."""
+    Bn, N, C = x_windows.shape
+    nw = n_windows if mask is not None else 1
+    return x_windows.reshape(Bn // nw, 1, 1, nw * N, C), (1, 1, N), (0, 0, 0)
+
+
 class _WindowAttention(torch.autograd.Function):
     """Forward kernel 7, backward kernel 8
     (``fused_window_attention_trainable``'s custom VJP): the inputs are
-    saved, the backward recomputes the forward.  ``rows`` forces the
-    forward's row-tiled body (else ``window_body`` picks); the backward's is
-    picked."""
+    saved, the backward recomputes the forward.  ``body`` forces the
+    forward's body (``"rows"``, ``"tile"``; None: ``_pick_body`` picks); the
+    backward's is picked."""
 
     @staticmethod
     def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
-                scale, rows):
+                scale, body):
         ctx.save_for_backward(x, qkv_w, qkv_b, proj_w, bias, mask)
         ctx.meta = (num_heads, n_windows, scale)
         args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
         if x.device.type == "cpu":
             return window_attention_fused_plain(*args)
-        return _forward_cuda("window_attention_fused", False, rows, *args)
+        return _forward_cuda("window_attention_fused", False, body, *args)
 
     @staticmethod
     def backward(ctx, dout):
@@ -332,11 +380,11 @@ class _WindowAttentionPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
-                scale, rows):
+                scale, body):
         args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
         if x.device.type == "cpu":
             return window_attention_packed_plain(*args)
-        return _forward_cuda("window_attention_packed", True, rows, *args)
+        return _forward_cuda("window_attention_packed", True, body, *args)
 
     @staticmethod
     def backward(ctx, dout):
@@ -357,13 +405,29 @@ def window_attention_fused(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
     contract of ``fused_window_attention_trainable``.  ``bias`` is the
     pre-gathered (nH, N, N) rel-pos bias, ``mask`` (n_windows, N, N) or None.
     Differentiable (kernel 8); the mask gets no gradient.  Counts the
-    whole-tile body's launches."""
+    launches of kernel A's tensor-core body on ``window_grid``'s view
+    (``window_tile_core``: ``"fold_mma"``)."""
     _check_device("window_attention_fused", x_windows)
     return _WindowAttention.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-                                  num_heads, n_windows, float(scale), False)
+                                  num_heads, n_windows, float(scale), None)
 
 
 window_attention_fused.launches = 0
+
+
+def window_attention_fused_tiles(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                 num_heads: int, n_windows: int,
+                                 scale: float) -> torch.Tensor:
+    """``window_attention_fused`` with the forward on the whole-tile body of
+    ``csrc/window_attn.cu`` wherever it fits; counts that body's launches
+    (also those the route makes through ``window_attention_fused``: fp32,
+    and the bf16 geometries kernel A's body does not take)."""
+    _check_device("window_attention_fused_tiles", x_windows)
+    return _WindowAttention.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                  num_heads, n_windows, float(scale), "tile")
+
+
+window_attention_fused_tiles.launches = 0
 
 
 def window_attention_fused_rows(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
@@ -373,7 +437,7 @@ def window_attention_fused_rows(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, m
     through ``window_attention_fused``)."""
     _check_device("window_attention_fused_rows", x_windows)
     return _WindowAttention.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-                                  num_heads, n_windows, float(scale), True)
+                                  num_heads, n_windows, float(scale), "rows")
 
 
 window_attention_fused_rows.launches = 0
@@ -385,7 +449,7 @@ def window_attention_packed(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
     Counts the whole-tile body's launches."""
     _check_device("window_attention_packed", x_windows)
     return _WindowAttentionPacked.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias,
-                                        mask, num_heads, n_windows, float(scale), False)
+                                        mask, num_heads, n_windows, float(scale), None)
 
 
 window_attention_packed.launches = 0
@@ -397,7 +461,7 @@ def window_attention_packed_rows(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, 
     that body's launches."""
     _check_device("window_attention_packed_rows", x_windows)
     return _WindowAttentionPacked.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias,
-                                        mask, num_heads, n_windows, float(scale), True)
+                                        mask, num_heads, n_windows, float(scale), "rows")
 
 
 window_attention_packed_rows.launches = 0
@@ -405,28 +469,43 @@ window_attention_packed_rows.launches = 0
 
 def window_attention_fused_bwd(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
                                num_heads: int, n_windows: int, scale: float,
-                               rows: bool = False):
+                               body: Optional[str] = None):
     """Kernel 8: (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias) of
     ``window_attention_fused``, as ``window_attention_fused_bwd_plain``
-    returns them (the contract of ``_bwd_call``).  Counts the whole-tile
-    body's launches; ``rows`` forces the row-tiled body (else
-    ``window_body`` picks)."""
+    returns them (the contract of ``_bwd_call``).  Counts the launches of
+    kernel 6's tensor-core body on ``window_grid``'s view
+    (``window_tile_core``: ``"fold_mma"``); ``body`` forces the row-tiled
+    (``"rows"``) or the whole-tile (``"tile"``) body (else ``_pick_body``
+    picks)."""
     _check_device("window_attention_fused_bwd", x_windows)
     args = (x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows,
             float(scale))
     if x_windows.device.type == "cpu":
         return window_attention_fused_bwd_plain(*args)
-    return _backward_cuda(rows, *args)
+    return _backward_cuda(body, *args)
 
 
 window_attention_fused_bwd.launches = 0
+
+
+def window_attention_fused_bwd_tiles(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
+                                     num_heads: int, n_windows: int, scale: float):
+    """Kernel 8 on the whole-tile body of ``csrc/window_attn_bwd.cu`` wherever
+    it fits; counts that body's launches (also those the route makes through
+    ``window_attention_fused_bwd``: fp32, and the bf16 geometries kernel 6's
+    tensor-core body does not take)."""
+    return window_attention_fused_bwd(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
+                                      num_heads, n_windows, scale, body="tile")
+
+
+window_attention_fused_bwd_tiles.launches = 0
 
 
 def window_attention_fused_bwd_rows(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
                                     num_heads: int, n_windows: int, scale: float):
     """Kernel 8 on the row-tiled body whatever N; counts that body's launches."""
     return window_attention_fused_bwd(x_windows, dout, qkv_w, qkv_b, proj_w, bias, mask,
-                                      num_heads, n_windows, scale, rows=True)
+                                      num_heads, n_windows, scale, body="rows")
 
 
 window_attention_fused_bwd_rows.launches = 0
@@ -450,16 +529,24 @@ def _check_windows(what, x, bias, mask, num_heads, n_windows):
         )
 
 
-def _pick_body(what, rows, x, num_heads, backward) -> str:
-    """``window_body``'s choice, or (``rows``) the row-tiled body where it fits."""
+def _pick_body(what, body, x, num_heads, backward, packed=False) -> str:
+    """``window_body``'s choice, and where that is the whole-tile body
+    ``window_tile_core``'s (``"fold_mma"`` or ``"tile"``; kernel 9 keeps the
+    whole-tile body); or the forced ``body`` (``"rows"``, ``"tile"``) where
+    its block fits."""
     N, C = x.shape[1:]
-    if not rows:
-        return window_body(N, C, num_heads, x.dtype, backward)
+    if body is None:
+        body = window_body(N, C, num_heads, x.dtype, backward)
+        if body == "tile" and not packed:
+            body = window_tile_core(N, C, num_heads, x.dtype, backward)
+        return body
     bf16 = x.dtype == torch.bfloat16
-    if rows_smem_bytes(N, C, num_heads, bf16, backward) > SMEM_LIMIT:
-        raise NotImplementedError(f"{what}: the row-tiled body does not take N={N}, C={C}, "
-                                  f"{num_heads} heads in {str(x.dtype)[6:]}")
-    return "rows"
+    size = rows_smem_bytes if body == "rows" else tile_smem_bytes
+    if size(N, C, num_heads, bf16, backward) > SMEM_LIMIT:
+        raise NotImplementedError(f"{what}: the {'row-tiled' if body == 'rows' else 'whole-tile'}"
+                                  f" body does not take N={N}, C={C}, {num_heads} heads in "
+                                  f"{str(x.dtype)[6:]}")
+    return body
 
 
 def _operands(x, qkv_w, qkv_b, proj_w, bias, mask):
@@ -477,11 +564,16 @@ def _workspace(nbytes: int, dev) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
-def _forward_cuda(what, packed, rows, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
+def _forward_cuda(what, packed, body, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
                   n_windows, scale):
     lib = cuda_lib.library()
     _check_windows(what, x, bias, mask, num_heads, n_windows)
-    body = _pick_body(what, rows, x, num_heads, backward=False)
+    body = _pick_body(what, body, x, num_heads, backward=False, packed=packed)
+    if body == "fold_mma":
+        grid, window, shift = window_grid(x.detach(), mask, n_windows)
+        return _fold_attention_cuda(
+            grid, None, None, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window,
+            scale, False, shift, counter=window_attention_fused).reshape(x.shape)
     Bn, N, C = x.shape
     is_bf16 = int(x.dtype == torch.bfloat16)
     xc = cuda_lib.aligned(x.detach())
@@ -500,18 +592,25 @@ def _forward_cuda(what, packed, rows, x, qkv_w, qkv_b, proj_w, proj_b, bias, mas
     else:
         entry = lib.vadcl_window_attn_packed if packed else lib.vadcl_window_attn
         err = entry(*ptrs, *dims)
-        counter = window_attention_packed if packed else window_attention_fused
+        counter = window_attention_packed if packed else window_attention_fused_tiles
     cuda_lib.check(err, f"{what} ({body} body)")
     counter.launches += 1
     return out
 
 
-def _backward_cuda(rows, x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows,
+def _backward_cuda(body, x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n_windows,
                    scale):
     what = "window_attention_fused_bwd"
     lib = cuda_lib.library()
     _check_windows(what, x, bias, mask, num_heads, n_windows)
-    body = _pick_body(what, rows, x, num_heads, backward=True)
+    body = _pick_body(what, body, x, num_heads, backward=True)
+    if body == "fold_mma":
+        grid, window, shift = window_grid(x.detach(), mask, n_windows)
+        dx, _, _, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias = _fold_attention_bwd_mma(
+            grid, dout.detach().reshape(grid.shape), None, None, qkv_w, qkv_b, proj_w, bias,
+            mask, num_heads, window, scale, shift, False,
+            counter=window_attention_fused_bwd)
+        return dx.reshape(x.shape), dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
     Bn, N, C = x.shape
     dev, dt = x.device, x.dtype
     is_bf16 = int(dt == torch.bfloat16)
@@ -542,7 +641,7 @@ def _backward_cuda(rows, x, dout, qkv_w, qkv_b, proj_w, bias, mask, num_heads, n
         err = lib.vadcl_window_attn_bwd(
             xc.data_ptr(), doc.data_ptr(), qw.data_ptr(), qb.data_ptr(), pw.data_ptr(),
             bs.data_ptr(), mp, *outs, ws.data_ptr(), *dims)
-        counter = window_attention_fused_bwd
+        counter = window_attention_fused_bwd_tiles
     cuda_lib.check(err, f"{what} ({body} body)")
     counter.launches += 1
     return dx, dqkv_w, dqkv_b if qkv_b is not None else None, dproj_w, dproj_b, dbias
