@@ -18,8 +18,9 @@ Phases (any failure raises and the script exits non-zero):
      392 tokens at the flagship widths, head width 32 and head width 12 must
      map to a body, and every flagship geometry must take the tensor-core
      bodies of 5 and 6 and of the whole-block forward and backward, and, in
-     kernels 7 and 8, those of A and 6 (``window_tile_core``), whose blocks
-     the library must take wherever the route sends a window.
+     kernels 7, 9 and 8, those of A and 6 (``window_tile_core``), whose blocks
+     the library must take wherever the route sends a window, and in the
+     ``base`` and ``packed`` blocks unpartitioned (``window_grid_route``).
   2. each forward kernel (A-D, 7: window attention, 9: its packed variant,
      10: the packed fold attention, and the whole-Swin-block kernel)
      against its plain PyTorch version on the card at the flagship shapes,
@@ -46,11 +47,17 @@ Phases (any failure raises and the script exits non-zero):
      and C = 100 / hidden 400 on its CUDA-core body (``ln_mlp_tiles``), fp32
      ``cluster_assign`` at C = 200, 256, 384, 512 and 768 (each wider
      instance), two calls for the same bits, C = 769 refused.
-  2/2b, kernels 7 and 8 on A's and 6's bodies: at every 4-frame geometry,
-     shifted and not, bf16, the forward at batch 16 and the backward at
-     batch 4 against their plain versions and against their whole-tile
-     bodies forced on the same inputs (``*_tiles``), the counter of each
-     call's body asserted, two calls for the same bits, the three timed.
+  2/2b, kernels 7, 9 and 8 on A's and 6's bodies: at every 4-frame
+     geometry, shifted and not, bf16, the forwards at batch 16 and the
+     backward at batch 4 against their plain versions and against their
+     whole-tile bodies forced on the same inputs (``*_tiles``), the counter
+     of each call's body asserted, two calls for the same bits, the three
+     timed.
+  2/2b, blocks: bf16 ``base`` and ``packed`` Swin blocks at every 4-frame
+     geometry and a window-padded one, shifted and not, at batch 4: the
+     unpartitioned route (``window_attention_grid``) against the same
+     block forced down the partitioned route, forward and ``base``'s
+     gradients, launches and ``window_partition`` calls asserted.
   2/2b, head width 12: the bf16 CUDA-core bodies of 7, 9 and 8 against their
      plain versions, whole-tile (N = 98) and row-tiled (N = 196), shifted,
      two calls for the same bits, each timed beside the same body in fp32.
@@ -85,7 +92,9 @@ Phases (any failure raises and the script exits non-zero):
      versions) on 224^2 clips: predict mode under ``"base"``, ``"packed"``,
      ``"fold_packed"`` and ``"fold_block"`` at full depth, ``"fold"`` and
      ``"fold_mix"`` at a reduced depth; reconstruction on 8-frame clips under
-     ``"fold"`` at full depth and ``"packed"`` at a reduced depth.
+     ``"fold"`` at full depth and ``"packed"`` at a reduced depth; the fp32
+     ``"base"`` and ``"packed"`` models run the whole-tile bodies of 7 and 9
+     and partition the windows of each of their 18 blocks.
   3b. the training loss and backward on 1 clip, card against CPU (the loss,
      the set of parameters with a gradient, and every parameter gradient):
      ``"base"`` and ``"fold_block"`` at full depth, ``"fold"`` at a reduced
@@ -109,8 +118,10 @@ Phases (any failure raises and the script exits non-zero):
      and packed in reconstruction mode at frame_num 8 at full width and
      depth; the kernels each path must run have launched (the newer paths:
      exactly so many times, 18 row-tiled forwards a forward at frame_num 8)
-     and the others have not, and no plain version of an attention or MLP
-     kernel was handed a CUDA tensor.
+     and the others have not, no plain version of an attention or MLP
+     kernel was handed a CUDA tensor, and ``window_partition`` ran no time
+     at 4 frames (the bf16 ``base`` and ``packed`` blocks hand kernels A and
+     6 the unpartitioned tensor) and 18 times a forward at frame_num 8.
   5. the training path in bf16: ``train()`` on the flagship config from a
      seeded init with an in-memory uint8 loader at batch 4, 2 warm-up and
      8 timed steps, under ``"fold"``, ``"base"`` and ``"fold_block"`` in
@@ -126,9 +137,10 @@ backward's bodies of PR 4, and the bf16 CUDA-core instances of 7, 8 and 9
 (counted on their fp32 bodies' counters, reported from the embed_dim 24
 model's runs) (its time beside its roofline bound on
 an H100's published peaks: every number in it but the bound is measured in
-this run); since kernels 7 and 8 run on A's and 6's bodies, their entries
-name those sources and two more entries report their whole-tile bodies
-(launched by the fp32 ``base`` model, phases 3 and 3b);
+this run); since kernels 7, 9 and 8 run on A's and 6's bodies, their
+entries name those sources and three more entries report their whole-tile
+bodies (launched by the fp32 ``base`` and ``packed`` models, phases 3 and
+3b);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -465,15 +477,18 @@ def phase_build():
           f"groups of windows (0: the direct layout) and their layouts, forward and backward, "
           f"agree with the library at {groups} cases")
     from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
-    from vadcl_tpu_torch.ops.window_attn import window_tile_core
+    from vadcl_tpu_torch.ops.window_attn import window_grid_route, window_tile_core
 
     for gname, ((_, _, _, c), nh, window, _) in FOLD_GEOMETRIES.items():
         n = window[0] * window[1] * window[2]
         for backward in (False, True):
             if (window_body(n, c, nh, torch.bfloat16, backward) != "tile"
                     or window_tile_core(n, c, nh, torch.bfloat16, backward) != "fold_mma"):
-                raise AssertionError(f"{gname}: bf16 kernels 7 and 8 must run on the "
+                raise AssertionError(f"{gname}: bf16 kernels 7, 9 and 8 must run on the "
                                      "tensor-core bodies of kernels A and 6")
+        if not all(window_grid_route(n, c, nh, torch.bfloat16, p) for p in (False, True)):
+            raise AssertionError(f"{gname}: bf16 base and packed blocks must hand kernels A "
+                                 "and 6 the unpartitioned tensor")
     folds = 0
     for c, nh in ROW_WIDTHS + ((32, 2), (64, 4), (96, 2), (256, 8), (256, 16), (128, 4)):
         for n in range(1, 150):
@@ -488,9 +503,10 @@ def phase_build():
                 if smem > SMEM_LIMIT:
                     raise AssertionError(f"window_tile_core{(n, c, nh, backward)} sends a "
                                          "window to a body whose block the library refuses")
-    print(f"  the whole-tile route of kernels 7 and 8 (window_tile_core): every flagship "
-          f"geometry takes kernels A's and 6's tensor-core bodies in bf16; at the {folds} "
-          "geometries it sends there the library's blocks fit")
+    print(f"  the whole-tile route of kernels 7, 9 and 8 (window_tile_core): every flagship "
+          f"geometry takes kernels A's and 6's tensor-core bodies in bf16, unpartitioned in "
+          f"base and packed blocks (window_grid_route); at the {folds} geometries it sends "
+          "there the library's blocks fit")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -1487,62 +1503,71 @@ def _launched(fn):
 
 
 def phase_window_fold_route(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
-    """Kernels 7 and 8 in bf16 at the flagship's widths, where the route runs
-    them on kernel A's and kernel 6's tensor-core bodies without LN and
-    residual on ``window_grid``'s view of the windows: at every 4-frame
-    geometry, shifted and not, the forward at ``batch`` clips' windows and
-    the backward at ``train_batch``'s, each against its plain version and
-    against the whole-tile body forced on the same inputs
-    (``window_attention_fused_tiles``, ``window_attention_fused_bwd_tiles``),
+    """Kernels 7, 9 and 8 in bf16 at the flagship's widths, where the route
+    runs them on kernel A's (9: its ``packed`` instance) and kernel 6's
+    tensor-core bodies without LN and residual on ``window_grid``'s view of
+    the windows: at every 4-frame geometry, shifted and not, the forwards at
+    ``batch`` clips' windows and the backward at ``train_batch``'s, each
+    against its plain version and against the whole-tile body forced on the
+    same inputs (``window_attention_fused_tiles``,
+    ``window_attention_packed_tiles``, ``window_attention_fused_bwd_tiles``),
     each call's body shown by the one counter that moved, two calls for the
     same bits, each timed beside the other body and the plain version; the
     blocks of both grids printed.  Returns the kernels line's stats of the
-    two whole-tile bodies."""
+    three whole-tile bodies."""
     from vadcl_tpu_torch.ops import cuda_lib
     from vadcl_tpu_torch.ops import window_attn as wa
 
-    print(f"[2/2b] kernels 7 and 8 on the tensor-core bodies of A and 6 (window_grid's view) "
-          f"vs plain and vs the whole-tile bodies, bf16, forward at batch {batch}, backward at "
-          f"batch {train_batch}")
+    print(f"[2/2b] kernels 7, 9 and 8 on the tensor-core bodies of A and 6 (window_grid's "
+          f"view) vs plain and vs the whole-tile bodies, bf16, forward at batch {batch}, "
+          f"backward at batch {train_batch}")
     lib = cuda_lib.library()
     gen = torch.Generator().manual_seed(15)
     bf, tol = torch.bfloat16, BWD_TOL[torch.bfloat16]
-    errs = {"window_attention_fused_tiles": [], "window_attention_fused_bwd_tiles": []}
+    errs = {"window_attention_fused_tiles": [], "window_attention_packed_tiles": [],
+            "window_attention_fused_bwd_tiles": []}
+    forwards = (("7", wa.window_attention_fused, wa.window_attention_fused_tiles,
+                 wa.window_attention_fused_plain),
+                ("9", wa.window_attention_packed, wa.window_attention_packed_tiles,
+                 wa.window_attention_packed_plain))
     stats, table = {}, []
     for gname, ((D, H, W, C), nh, window, shift) in FOLD_GEOMETRIES.items():
         n = window[0] * window[1] * window[2]
         for shifted in (False, True):
             tag = f"{gname} {'shifted' if shifted else 'plain'}"
             a = _win_case(batch, gname, shifted, bf, gen)
-            new = lambda: wa.window_attention_fused(**a)  # noqa: E731
-            old = lambda: wa.window_attention_fused_tiles(**a)  # noqa: E731
-            got, moved = _launched(new)
-            if moved != {"window_attention_fused": 1}:
-                raise AssertionError(f"kernel 7 {tag}: launched {moved}, not kernel A's body "
-                                     "counted on window_attention_fused")
-            tiles, moved = _launched(old)
-            if moved != {"window_attention_fused_tiles": 1}:
-                raise AssertionError(f"kernel 7 {tag}: the forced whole-tile body launched "
-                                     f"{moved}")
-            want = wa.window_attention_fused_plain(**a)
-            check_close(f"kernel 7 on A's body {tag}", got, want, *BOUNDS[bf])
-            errs["window_attention_fused_tiles"].append(
-                check_close(f"kernel 7 whole-tile body {tag}", tiles, want, *BOUNDS[bf]))
-            check_close(f"kernel 7 on A's body vs the whole-tile body {tag}", got, tiles,
-                        *BOUNDS[bf])
-            same_bits(f"kernel 7 on A's body {tag}", [got], [new()])
-            ms, old_ms = cuda_ms(new), cuda_ms(old)
-            pms = cuda_ms(lambda: wa.window_attention_fused_plain(**a))
-            bn = a["x_windows"].shape[0]
-            print(f"    time: A's body {ms:.4f} ms, whole-tile body {old_ms:.4f} ms, plain "
-                  f"{pms:.4f} ms; {-(-bn // (2 if n <= 64 else 1))} blocks")
-            table.append(("7", batch, tag, ms, old_ms, pms))
-            if gname == "enc_stage0" and shifted:
-                stats["window_attention_fused_tiles"] = dict(
-                    ms=old_ms, plain_ms=pms, shape=f"x_windows ({bn},{n},{C}) bf16, nH {nh}, "
-                    "shifted (forced)",
-                    **bound(tensors_of(a) + [tiles], attn_flops(bn * n, C, n), "bf16"))
-            del a, got, tiles, want
+            for k, kernel, forced, plain in forwards:
+                new = lambda: kernel(**a)  # noqa: E731
+                old = lambda: forced(**a)  # noqa: E731
+                body = "A's packed body" if k == "9" else "A's body"
+                got, moved = _launched(new)
+                if moved != {kernel.__name__: 1}:
+                    raise AssertionError(f"kernel {k} {tag}: launched {moved}, not {body} "
+                                         f"counted on {kernel.__name__}")
+                tiles, moved = _launched(old)
+                if moved != {forced.__name__: 1}:
+                    raise AssertionError(f"kernel {k} {tag}: the forced whole-tile body "
+                                         f"launched {moved}")
+                want = plain(**a)
+                check_close(f"kernel {k} on {body} {tag}", got, want, *BOUNDS[bf])
+                errs[forced.__name__].append(
+                    check_close(f"kernel {k} whole-tile body {tag}", tiles, want, *BOUNDS[bf]))
+                check_close(f"kernel {k} on {body} vs the whole-tile body {tag}", got, tiles,
+                            *BOUNDS[bf])
+                same_bits(f"kernel {k} on {body} {tag}", [got], [new()])
+                ms, old_ms = cuda_ms(new), cuda_ms(old)
+                pms = cuda_ms(lambda: plain(**a))
+                bn = a["x_windows"].shape[0]
+                print(f"    time: {body} {ms:.4f} ms, whole-tile body {old_ms:.4f} ms, plain "
+                      f"{pms:.4f} ms; {-(-bn // (2 if n <= 64 else 1))} blocks")
+                table.append((k, batch, tag, ms, old_ms, pms))
+                if gname == "enc_stage0" and shifted:
+                    stats[forced.__name__] = dict(
+                        ms=old_ms, plain_ms=pms, shape=f"x_windows ({bn},{n},{C}) bf16, "
+                        f"nH {nh}, shifted (forced)",
+                        **bound(tensors_of(a) + [tiles], attn_flops(bn * n, C, n), "bf16"))
+                del got, tiles, want
+            del a
 
             w = _win_bwd_case(_win_case(train_batch, gname, shifted, bf, gen), gen)
             new = lambda: wa.window_attention_fused_bwd(**w)  # noqa: E731
@@ -1580,12 +1605,115 @@ def phase_window_fold_route(batch: int = BATCH_WINDOWS, train_batch: int = 4) ->
                             "bf16"))
             del w, got, tiles, want
             torch.cuda.empty_cache()
-    print("  kernels 7 and 8, bf16, ms: A's or 6's body | the whole-tile body | plain")
+    print("  kernels 7, 9 and 8, bf16, ms: A's or 6's body | the whole-tile body | plain")
     for k, b, tag, ms, old_ms, pms in table:
         print(f"    {k} batch {b:2d} {tag:22s} {ms:.4f} | {old_ms:.4f} | {pms:.4f}")
     for k in stats:
         stats[k]["max_abs_err"] = max(errs[k])
     return stats
+
+
+def _grid_block(name, C, nh, window, shift, gen):
+    """A fused Swin block at width ``C`` under ``name`` from a seeded init,
+    with non-zero biases and LN affine terms, on the card."""
+    from vadcl_tpu_torch.models.layers import init_parameters
+    from vadcl_tpu_torch.models.swin import SwinBlock3D
+
+    blk = SwinBlock3D(C, nh, window, shift, fused=True, attn_kernel=name)
+    init_parameters(blk, gen)
+    with torch.no_grad():
+        for p in (blk.attn.qkv_bias, blk.attn.proj_bias, blk.norm1.bias, blk.norm2.bias,
+                  blk.mlp.fc1.bias, blk.mlp.fc2.bias):
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        blk.attn.relative_position_bias_table.normal_(0.0, 1.0, generator=gen)
+    return blk.to(DEV)
+
+
+def phase_grid_blocks(batch: int = 4) -> dict:
+    """bf16 ``base`` and ``packed`` Swin blocks at every 4-frame flagship
+    geometry, shifted and not, and at the window-padded 63^2 grid of a 240^2
+    clip (60^2 tokens), on ``batch`` clips: the unpartitioned route
+    (``window_attention_grid``: no roll, partition, reverse or roll back)
+    against the same block forced down the partitioned route, on the card.
+    Each call's launches and ``window_partition`` calls are asserted (the
+    unpartitioned route: 7 or 9 and B, under ``base`` with 8 and 5 in the
+    backward, no partition; the partitioned one: the same kernels on the
+    view, one partition); the forward within kernel 7's bf16 bound (bit for
+    bit expected: A's body computes each window alike on either grid),
+    ``base``'s gradients of x and of every parameter within kernel 8's (the
+    weight sums may run in another order; kernel 6's blocks, one a chunk of
+    windows, are printed: a count of windows, alike on both grids); both
+    timed.  Returns {path:
+    launches} of the unpartitioned calls."""
+    from vadcl_tpu_torch.models import swin
+    from vadcl_tpu_torch.ops import cuda_lib
+
+    print(f"[2/2b] bf16 base and packed blocks without partition copies vs the partitioned "
+          f"route, batch {batch}")
+    gen = torch.Generator().manual_seed(16)
+    bf = torch.bfloat16
+    # stage 0 of a 240^2 clip: 60^2 tokens, padded to 63^2 by the block
+    geometries = dict(FOLD_GEOMETRIES, padded_60=((2, 60, 60, 96), 6, (2, 7, 7), (0, 3, 3)))
+    out = {}
+    for gname, ((D, H, W, C), nh, window, shift) in geometries.items():
+        for shifted in (False, True):
+            sh = shift if shifted else (0, 0, 0)
+            x0 = torch.randn(batch, D, H, W, C, generator=gen).to(DEV, bf)
+            probe = torch.randn(batch, D, H, W, C, generator=gen).to(DEV)
+            for name in ("base", "packed"):
+                tag = f"{name} {gname} {'shifted' if shifted else 'plain'}"
+                blk = _grid_block(name, C, nh, window, sh, gen)
+                train = name == "base"
+                attn = "window_attention_packed" if name == "packed" else "window_attention_fused"
+                want_moved = {attn: 1, "ln_mlp": 1}
+                if train:
+                    want_moved.update(window_attention_fused_bwd=1, ln_mlp_bwd=1)
+
+                def run():
+                    x = x0.clone().requires_grad_(train)
+                    with torch.set_grad_enabled(train):
+                        y = blk(x)
+                        if train:
+                            (y.float() * probe).sum().backward()
+                    grads = [x.grad] + [p.grad for p in blk.parameters()] if train else []
+                    blk.zero_grad(set_to_none=True)
+                    return y.detach(), grads
+
+                results = []
+                for grid in (True, False):
+                    real = swin.window_grid_route
+                    if not grid:
+                        swin.window_grid_route = lambda *a, **k: False
+                    try:
+                        with counting_partitions() as parts:
+                            res, moved = _launched(run)
+                        if moved != want_moved or parts[0] != (0 if grid else 1):
+                            raise AssertionError(
+                                f"{tag} ({'unpartitioned' if grid else 'partitioned'}): "
+                                f"launched {moved}, {parts[0]} partitions")
+                        ms = cuda_ms(run, reps=2, batch=2, warmup=1)
+                    finally:
+                        swin.window_grid_route = real
+                    results.append((res, ms))
+                    if grid:
+                        out[f"grid block {tag}"] = moved
+                (got, ggrads), ms = results[0]
+                (want, wgrads), pms = results[1]
+                check_close(f"{tag} forward", got, want, *BOUNDS[bf])
+                print(f"  {tag}: forward bit for bit {torch.equal(got, want)}; "
+                      f"{'step' if train else 'forward'} {ms:.4f} ms unpartitioned, "
+                      f"{pms:.4f} ms partitioned")
+                if train:
+                    names = ["dx"] + [k for k, _ in blk.named_parameters()]
+                    check_grads(f"{tag} gradients", names, ggrads, wgrads,
+                                BWD_TOL[bf])
+                    dp, hp, wp = (-(-v // w) * w for v, w in zip((D, H, W), window))
+                    chunks = cuda_lib.library().vadcl_fold_attn_bwd_bf16_dbias_partials(
+                        batch, dp, hp, wp, C, nh, *window)
+                    print(f"  {tag}: kernel 6's blocks (d(bias) chunks) {chunks}")
+                del blk, results
+            torch.cuda.empty_cache()
+    return out
 
 
 def recon_geometries(frame_num: int) -> dict:
@@ -1680,7 +1808,7 @@ def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
                                     wa.window_attention_fused_bwd(**w), want, BWD_TOL[dtype])
                     continue
                 for (name, rows, plain), whole in zip(row_kernels(), (
-                        wa.window_attention_fused_tiles, wa.window_attention_packed)):
+                        wa.window_attention_fused_tiles, wa.window_attention_packed_tiles)):
                     want = plain(**a)
                     check_close(f"whole-tile {name[:-5]} {tag}", whole(**a), want, *BOUNDS[dtype])
                     check_close(f"row-tiled {name[:-5]} {tag}", rows(**a), want, *BOUNDS[dtype])
@@ -1856,11 +1984,13 @@ def phase_model(attn_kernel: str = "fold", depths=None, clips: int = 2, recon: i
         want = cpu_model(clips)
         t_cpu = time.perf_counter() - t0
         reset_launches()
-        got = gpu_model(clips.cuda())
-        torch.cuda.synchronize()
+        with counting_partitions() as parts:
+            got = gpu_model(clips.cuda())
+            torch.cuda.synchronize()
     from vadcl_tpu_torch.ops import KERNELS
 
     launches = {k.__name__: k.launches for k in KERNELS}
+    launches["window_partition"] = parts[0]
     print(f"  recon {tuple(got.recon.shape)}; CPU forward {t_cpu:.1f} s")
     if tuple(got.recon.shape) != (len(clips), frames if recon else 1, 224, 224, 3) or not bool(
             torch.isfinite(got.recon).all()):
@@ -1915,12 +2045,14 @@ def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 
     want.backward()
     t_cpu = time.perf_counter() - t0
     reset_launches()
-    got, _ = make_loss_fn(gpu_model, cfg)(clip.to(DEV), 0)
-    got.backward()
-    torch.cuda.synchronize()
+    with counting_partitions() as parts:
+        got, _ = make_loss_fn(gpu_model, cfg)(clip.to(DEV), 0)
+        got.backward()
+        torch.cuda.synchronize()
     from vadcl_tpu_torch.ops import KERNELS
 
     launches = {k.__name__: k.launches for k in KERNELS}
+    launches["window_partition"] = parts[0]
     print(f"  loss card {got.item():.6f} CPU {want.item():.6f}; CPU forward+backward {t_cpu:.1f} s")
     check_close("loss", got.detach().cpu(), want.detach(), 0.0, 1e-4)
     with_grad = [{k for k, p in m.named_parameters() if p.grad is not None}
@@ -2051,7 +2183,7 @@ def phase_narrow_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> di
     # (the route's wrapper, the counter of its whole-tile body, the row-tiled wrapper, plain)
     fwd = ((wa.window_attention_fused, wa.window_attention_fused_tiles,
             wa.window_attention_fused_rows, wa.window_attention_fused_plain),
-           (wa.window_attention_packed, wa.window_attention_packed,
+           (wa.window_attention_packed, wa.window_attention_packed_tiles,
             wa.window_attention_packed_rows, wa.window_attention_packed_plain))
     for C, nh in NARROW_WIDTHS:
         if wa.window_core(C, nh, torch.bfloat16) != "cuda_core":
@@ -2118,11 +2250,11 @@ def narrow_config(attn_kernel: str, recon: int = 0):
 
 # What the embed_dim 24 model may launch: every Swin block takes kernels 7,
 # 8 (or 9) and B, 5 at head width 12 on their CUDA-core bodies, never a fold
-# kernel's body (nor kernels 7 and 8 on A's and 6's).
+# kernel's body (nor kernels 7, 9 and 8 on A's and 6's).
 NARROW_FOLD_KERNELS = {"fold_attention", "fold_attention_packed", "fold_block",
                        "fold_block_tiles", "fold_attention_bwd", "fold_attention_bwd_tiles",
                        "fold_block_bwd", "fold_block_bwd_tiles", "window_attention_fused",
-                       "window_attention_fused_bwd"}
+                       "window_attention_fused_bwd", "window_attention_packed"}
 
 
 def phase_narrow_model() -> dict:
@@ -2178,7 +2310,7 @@ def phase_narrow_model() -> dict:
         launches = {k.__name__: k.launches for k in KERNELS}
         print(f"  {path}: kernel launches {launches}")
         stray = sorted(k for k in NARROW_FOLD_KERNELS if launches[k])
-        window = ("window_attention_packed" if attn_kernel == "packed"
+        window = ("window_attention_packed_tiles" if attn_kernel == "packed"
                   else "window_attention_fused_tiles")
         fwd = launches[window] + launches[window.replace("_tiles", "") + "_rows"]
         bwd = (launches["window_attention_fused_bwd_tiles"]
@@ -2233,13 +2365,17 @@ class MemLoader:
 
 
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 4, 2, 8
-# The fp32 base model runs kernels 7 and 8 on their whole-tile bodies in each
-# of its 18 blocks, never on A's and 6's (phases 3 and 3b).
+# The fp32 base and packed models run kernels 7 and 8 (or 9) on their
+# whole-tile bodies in each of their 18 blocks, never on A's and 6's, and
+# partition the windows of each block (phases 3 and 3b).
 FP32_BASE_COUNTS = {
-    "model base fp32": {"window_attention_fused_tiles": 18, "window_attention_fused": 0},
+    "model base fp32": {"window_attention_fused_tiles": 18, "window_attention_fused": 0,
+                        "window_attention_packed_tiles": 0, "window_partition": 18},
+    "model packed fp32": {"window_attention_packed_tiles": 18, "window_attention_packed": 0,
+                          "window_attention_fused_tiles": 0, "window_partition": 18},
     "model grads base fp32": {"window_attention_fused_tiles": 18, "window_attention_fused": 0,
                               "window_attention_fused_bwd_tiles": 18,
-                              "window_attention_fused_bwd": 0},
+                              "window_attention_fused_bwd": 0, "window_partition": 18},
 }
 # The kernels each path must launch; every other kernel of KERNELS must not.
 COMMON_FWD = {"ln_mlp", "cluster_assign", "space_cluster_loss"}
@@ -2260,6 +2396,7 @@ TRAINING_KERNELS = {
 # heads) a forward, 8 scoring forwards, 10 training steps.
 SCORING_COUNTS = {
     "base": {"window_attention_fused": 144, "ln_mlp": 144},
+    "packed": {"window_attention_packed": 144, "ln_mlp": 144},
     "fold_packed": {"fold_attention_packed": 144, "ln_mlp": 144},
     "fold_mix": {"fold_attention_packed": 96, "fold_attention": 48, "ln_mlp": 144},
     "fold_block": {"fold_block": 144},
@@ -2314,6 +2451,27 @@ def plain_versions_refuse_the_card():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def counting_partitions():
+    """While open, counts the calls of ``vadcl_tpu_torch.models.swin``'s
+    ``window_partition`` (a Swin block's partition copy; the bf16 ``base``
+    and ``packed`` blocks of 4-frame clips hand kernels A and 6 the
+    unpartitioned tensor instead): yields a one-element list."""
+    from vadcl_tpu_torch.models import swin
+
+    calls, real = [0], swin.window_partition
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    swin.window_partition = counted
+    try:
+        yield calls
+    finally:
+        swin.window_partition = real
+
+
 def reset_launches():
     from vadcl_tpu_torch.ops import KERNELS
 
@@ -2343,6 +2501,17 @@ def read_launches(expected, path: str, counts=None, heads: int = 0) -> dict:
     return launches
 
 
+def check_partitions(path: str, calls: int, want: int) -> int:
+    """Fails unless a path called ``window_partition`` exactly ``want``
+    times: no time on the 4-frame bf16 paths (every route there runs its
+    kernels on the unpartitioned tensor), 18 a forward at 8 frames (every
+    block partitions its windows for the row-tiled bodies)."""
+    print(f"  window_partition calls: {calls}")
+    if calls != want:
+        raise AssertionError(f"{path}: window_partition called {calls} times, expected {want}")
+    return calls
+
+
 def phase_training(attn_kernel: str = "fold", recon: int = 0):
     """``train()`` on the flagship config in bf16 at batch 4: finite losses,
     moved parameters, exactly this path's kernels launched, and a checkpoint
@@ -2370,12 +2539,14 @@ def phase_training(attn_kernel: str = "fold", recon: int = 0):
         else:
             expected, counts = TRAINING_KERNELS[attn_kernel], TRAINING_COUNTS.get(attn_kernel)
         reset_launches()
-        with plain_versions_refuse_the_card():
+        with plain_versions_refuse_the_card(), counting_partitions() as parts:
             state = train(cfg, loader, max_steps=steps, device=DEV)
             torch.cuda.synchronize()
         t_end = time.perf_counter()
         launches = read_launches(expected, f"training, {attn_kernel}, {mode}", counts,
                                  heads=steps)
+        launches["window_partition"] = check_partitions(
+            f"training, {attn_kernel}, {mode}", parts[0], 18 * steps if recon else 0)
         losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
         wall = t_end - loader.stamps[WARMUP_STEPS]
         print(f"  per-step losses: {[round(float(v), 4) for v in losses]}")
@@ -2488,12 +2659,14 @@ def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
         expected, counts = SCORING_KERNELS[attn_kernel], SCORING_COUNTS.get(attn_kernel)
     reset_launches()
     t0 = time.perf_counter()
-    with plain_versions_refuse_the_card():
+    with plain_versions_refuse_the_card(), counting_partitions() as parts:
         auc, per_scene, per_video = evaluate_videos(scorer, videos, fn, predict, "stride1")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(expected, f"scoring, {attn_kernel}, {mode}", counts,
                              heads=forwards)
+    launches["window_partition"] = check_partitions(
+        f"scoring, {attn_kernel}, {mode}", parts[0], 18 * forwards if recon else 0)
     print(f"  {n_windows} windows in {wall:.3f} s = {n_windows / wall:.2f} windows/s; "
           f"mean scene AUC {auc:.4f}; per scene {per_scene}")
     for (frames, _, _), vs in zip(videos, per_video):
@@ -2520,7 +2693,7 @@ REPLACES = {
                                "vadcl_tpu/ops/pallas_attn.py:30"),
     "window_attention_fused_bwd": ("vadcl_tpu_torch/csrc/fold_attn_bwd_mma.cu",
                                    "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
-    "window_attention_packed": ("vadcl_tpu_torch/csrc/window_attn.cu",
+    "window_attention_packed": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                                 "vadcl_tpu/ops/pallas_attn.py:113"),
     "fold_attention_packed": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                               "vadcl_tpu/ops/pallas_attn_fold.py:386"),
@@ -2543,6 +2716,8 @@ REPLACES = {
                                      "vadcl_tpu/ops/pallas_attn.py:30"),
     "window_attention_fused_bwd_tiles": ("vadcl_tpu_torch/csrc/window_attn_bwd.cu",
                                          "vadcl_tpu/ops/pallas_attn_bwd.py:27"),
+    "window_attention_packed_tiles": ("vadcl_tpu_torch/csrc/window_attn.cu",
+                                      "vadcl_tpu/ops/pallas_attn.py:113"),
 }
 # The bf16 CUDA-core instances of 7, 8 and 9 (head widths the tensor-core
 # bodies refuse) count their launches on the counter of the same body in
@@ -2552,8 +2727,8 @@ NARROW_ENTRIES = {
     "window_attention_fused_tiles bf16 CUDA-core": (
         "window_attention_fused_tiles", "vadcl_tpu_torch/csrc/window_attn.cu",
         "vadcl_tpu/ops/pallas_attn.py:30", "narrow model base"),
-    "window_attention_packed bf16 CUDA-core": (
-        "window_attention_packed", "vadcl_tpu_torch/csrc/window_attn.cu",
+    "window_attention_packed_tiles bf16 CUDA-core": (
+        "window_attention_packed_tiles", "vadcl_tpu_torch/csrc/window_attn.cu",
         "vadcl_tpu/ops/pallas_attn.py:113", "narrow model packed"),
     "window_attention_fused_bwd_tiles bf16 CUDA-core": (
         "window_attention_fused_bwd_tiles", "vadcl_tpu_torch/csrc/window_attn_bwd.cu",
@@ -2585,6 +2760,7 @@ COUNTED_ON = {
     "fold_block_tiles": "model grads fold_block fp32",
     "window_attention_fused_tiles": "model base fp32",
     "window_attention_fused_bwd_tiles": "model grads base fp32",
+    "window_attention_packed_tiles": "model packed fp32",
 }
 
 
@@ -2596,11 +2772,12 @@ def main():
     stats.update(phase_width_kernels())
     stats.update(phase_bwd_kernels(TRAIN_BATCH))
     stats.update(phase_window_fold_route(BATCH_WINDOWS, TRAIN_BATCH))
+    phase_grid_blocks(TRAIN_BATCH)
     stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     stats.update(phase_narrow_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_model("fold", REDUCED_DEPTHS)
     counts = {"model base fp32": phase_model("base")}
-    phase_model("packed", clips=1)
+    counts["model packed fp32"] = phase_model("packed", clips=1)
     phase_model("fold_packed", clips=1)
     phase_model("fold_mix", REDUCED_DEPTHS, clips=1)
     phase_model("fold_block", clips=1)

@@ -327,13 +327,14 @@ def test_twelve_kernels_count_their_launches_and_cpu_calls_do_not():
     bodies, and one for kernel B's CUDA-core body, and one each for the
     whole-block backward's and forward's older bodies beside their
     tensor-core bodies, and one each for the whole-tile bodies of 7 and 8
-    beside A's and 6's tensor-core bodies, which 7 and 8 run in bf16:
-    twenty-two."""
+    beside A's and 6's tensor-core bodies, which 7 and 8 run in bf16, and
+    one for the whole-tile body of 9 beside A's packed body: twenty-three."""
     names = [k.__name__ for k in KERNELS]
-    assert len(names) == len(set(names)) == 22
+    assert len(names) == len(set(names)) == 23
     assert {"fold_attention_packed", "fold_block", "fold_block_bwd"} <= set(names)
     assert {"fold_block_bwd_tiles", "fold_block_tiles"} <= set(names)
-    assert {"window_attention_fused_tiles", "window_attention_fused_bwd_tiles"} <= set(names)
+    assert {"window_attention_fused_tiles", "window_attention_fused_bwd_tiles",
+            "window_attention_packed_tiles"} <= set(names)
     before = [k.launches for k in KERNELS]
     a = _case(seed=12)
     args = _port_block_args(a, False)

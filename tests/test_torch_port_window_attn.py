@@ -26,6 +26,7 @@ from vadcl_tpu.ops.pallas_attn import fused_window_attention, fused_window_atten
 from vadcl_tpu.ops.pallas_attn_bwd import fused_window_attention_trainable
 from vadcl_tpu.ops.pallas_attn_fold import folded_window_attention_trainable
 from vadcl_tpu.ops.window import compute_attn_mask
+from vadcl_tpu_torch import ops
 from vadcl_tpu_torch.ops import KERNELS, fold_attn
 from vadcl_tpu_torch.ops.fold_attn import (
     fold_attention,
@@ -34,7 +35,7 @@ from vadcl_tpu_torch.ops.fold_attn import (
     fold_fits,
     fold_smem_bytes,
 )
-from vadcl_tpu_torch.ops.window import window_partition
+from vadcl_tpu_torch.ops.window import window_partition, window_reverse
 from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
     window_attention_fused_bwd,
@@ -42,6 +43,7 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused_plain,
     window_attention_fused_tiles,
     window_attention_packed,
+    window_attention_packed_tiles,
     window_body,
 )
 
@@ -318,8 +320,12 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
                             "window_attention_packed_rows"]
     assert names[15:20] == ["ln_mlp_bwd_tiles", "fold_attention_bwd_tiles", "ln_mlp_tiles",
                             "fold_block_bwd_tiles", "fold_block_tiles"]
-    assert names[20:] == ["window_attention_fused_tiles", "window_attention_fused_bwd_tiles"]
-    assert len(names) == 22 and len(set(names)) == 22
+    assert names[20:] == ["window_attention_fused_tiles", "window_attention_fused_bwd_tiles",
+                          "window_attention_packed_tiles"]
+    assert len(names) == 23 and len(set(names)) == 23
+    # the unpartitioned route counts on the counters of 7, 9 and 8, not on its own
+    assert {"window_attention_grid", "window_attention_packed_tiles"} <= set(ops.__all__)
+    assert "window_attention_grid" not in names
     before = [k.launches for k in KERNELS]
     a = _case(GEOMS["N49_C24"], True, seed=11)
     x = T(a["x"]).requires_grad_()
@@ -335,6 +341,18 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
         T(a["x"]), T(a["dout"]), T(a["qkv_w"]), T(a["qkv_b"]), T(a["proj_w"]), T(a["bias"]),
         T(a["mask"]), a["nH"], a["nW"], a["scale"])
     assert len(grads) == 6 and grads[0].shape == a["x"].shape
+    packed_tiles = _port_forward(window_attention_packed_tiles, a)
+    np.testing.assert_array_equal(packed_tiles.numpy(),
+                                  _port_forward(window_attention_packed, a).numpy())
+    # the unpartitioned route on the CPU: (1, 14, 14) tokens, window (1, 7, 7), shifted
+    y = window_reverse(T(a["x"]), (1, 7, 7), 2, 1, 14, 14).requires_grad_()
+    for packed in (True, False):
+        out = ops.window_attention_grid(
+            y, T(a["qkv_w"]), T(a["qkv_b"]), T(a["proj_w"]), T(a["proj_b"]), T(a["bias"]),
+            T(a["mask"]), a["nH"], (1, 7, 7), a["scale"], (0, 3, 3), packed)
+        assert out.shape == y.shape
+    out.sum().backward()
+    assert y.grad is not None and y.grad.shape == y.shape
     assert [k.launches for k in KERNELS] == before
 
 

@@ -178,8 +178,8 @@ def test_flagship_windows_take_the_tensor_core_bodies_in_bf16(geom, backward):
     assert window_tile_core(n, c, nh, torch.float32, backward) == "tile"
     x = torch.empty(4, n, c, dtype=torch.bfloat16, device="meta")
     assert window_attn._pick_body("k", None, x, nh, backward) == "fold_mma"
-    # the packed forward (kernel 9) keeps its whole-tile body
-    assert window_attn._pick_body("k", None, x, nh, False, packed=True) == "tile"
+    # the packed forward (kernel 9) takes A's body too (the route of both names)
+    assert window_attn.window_grid_route(n, c, nh, torch.bfloat16, packed=True)
     assert window_attn._pick_body("k", "tile", x, nh, backward) == "tile"
 
 

@@ -34,9 +34,9 @@ profiler; last, the host's time per wrapper call on a tiny input:
 wider heads than the flagship's 16.)  With ``--window-only`` it times
 instead the partitioned-window kernels 7, 9 (forward, at each batch) and 8
 (backward, at ``--bwd-batch``) at the 4-frame geometries, shifted and not,
-7 and 8 on the body the route picks (kernel A's and kernel 6's tensor-core
-bodies in bf16) and on their whole-tile bodies forced (``*_tiles``, where
-the tree has them); with ``--recon --frame-num F`` the same at the window
+on the body the route picks (kernel A's and kernel 6's tensor-core bodies
+in bf16) and on their whole-tile bodies forced (``*_tiles``, where the tree
+has them); with ``--recon --frame-num F`` the same at the window
 geometries of F-frame reconstruction clips (F = 8: windows of 196 and 392
 tokens, the row-tiled bodies).  Each launch's device ms is apart
 (``launches``: e.g. the qkv product, the attention core and the projection
@@ -115,7 +115,7 @@ def window_kernels_only(args, smoke, gen, geometries) -> None:
     """Kernels 7 and 9 at each of ``args.batches`` and kernel 8 at
     ``args.bwd_batch``, shifted and not, bf16, at ``geometries`` (name:
     ((D, H, W, C), heads, window, shift)), each with its launches' device ms
-    apart; 7 and 8 also on their whole-tile bodies forced (``*_tiles``)
+    apart; 7, 9 and 8 also on their whole-tile bodies forced (``*_tiles``)
     where the tree has them.  ``body`` names what the route runs
     (``window_body``, and where that is the whole-tile body
     ``window_tile_core``, where the tree has it)."""
@@ -134,14 +134,20 @@ def window_kernels_only(args, smoke, gen, geometries) -> None:
             "kernel_ms": round(own_kernel_ms(fn), 4),
             "launches": [[k, round(ms, 4)] for k, ms in smoke.launch_ms(fn)]}))
 
+    # (a tree without window_attention_packed_tiles runs 9 on its whole-tile body)
+    packed_tiles = hasattr(wa, "window_attention_packed_tiles")
     forward = [("window_attention_fused", wa.window_attention_fused, None),
-               ("window_attention_packed", wa.window_attention_packed, "tile/rows")]
+               ("window_attention_packed", wa.window_attention_packed,
+                None if packed_tiles else "tile/rows")]
     backward = [("window_attention_fused_bwd", wa.window_attention_fused_bwd, None)]
     if hasattr(wa, "window_attention_fused_tiles"):
         forward.insert(1, ("window_attention_fused_tiles", wa.window_attention_fused_tiles,
                            "tile (forced)"))
         backward.append(("window_attention_fused_bwd_tiles", wa.window_attention_fused_bwd_tiles,
                          "tile (forced)"))
+    if packed_tiles:
+        forward.append(("window_attention_packed_tiles", wa.window_attention_packed_tiles,
+                        "tile (forced)"))
     for gname, ((D, H, W, C), nh, window, shift) in geometries.items():
         n = window[0] * window[1] * window[2]
         for batch in sorted(set(args.batches) | {args.bwd_batch}):
@@ -385,7 +391,7 @@ def main(argv=None):
                     help="with --kernels-only: the whole-block forward alone, both bodies")
     ap.add_argument("--window-only", action="store_true",
                     help="with --kernels-only: kernels 7, 9 and 8 alone at the 4-frame "
-                         "geometries, 7 and 8 on both bodies")
+                         "geometries, each on both bodies")
     ap.add_argument("--tag", default="", help="with --kernels-only: a name on every line")
     ap.add_argument("--root", default=HERE, help="the tree whose vadcl_tpu_torch is run")
     ap.add_argument("--recon", action="store_true",

@@ -23,7 +23,11 @@ With ``fused=True`` a block runs hand-written kernels, chosen by
 * ``"base"`` (trainable) and ``"packed"`` (inference only): plain LN1, pad,
   roll, ``window_partition``, the partitioned-window kernel
   (``ops/window_attn``), ``window_reverse``, roll back, slice, plain
-  residual add, then the fused tail.
+  residual add, then the fused tail.  Where the partitioned-window kernels
+  run on kernels A's and 6's tensor-core bodies (``window_grid_route``: bf16,
+  head width 16 or 32, at most 112 tokens) the roll, partition, reverse
+  and roll back are left to those bodies' addressing: plain LN1, pad,
+  ``window_attention_grid`` on the padded tensor, slice, residual, tail.
 
 With ``fused=False`` it is the plain PyTorch block of the JAX default
 config.  Parameter names and shapes are the same either way, so one
@@ -56,7 +60,12 @@ from vadcl_tpu_torch.ops.window import (
     window_partition,
     window_reverse,
 )
-from vadcl_tpu_torch.ops.window_attn import window_attention_fused, window_attention_packed
+from vadcl_tpu_torch.ops.window_attn import (
+    window_attention_fused,
+    window_attention_grid,
+    window_attention_packed,
+    window_grid_route,
+)
 
 Tri = Tuple[int, int, int]
 
@@ -201,6 +210,7 @@ class SwinBlock3D(nn.Module):
             y = nn.functional.pad(y, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
         _, Dp, Hp, Wp, _ = y.shape
         mask = self._mask(Dp, Hp, Wp, window, shift, x.device)
+        packed = self.attn_kernel == "packed"
         if fold:
             # the fold kernel on the padded tensor, without LN and residual,
             # the shift roll folded into its addressing
@@ -209,14 +219,20 @@ class SwinBlock3D(nn.Module):
                 attn.proj_bias, attn.bias(n), mask, self.num_heads, window,
                 attn.scale, residual=False, shift=shift,
             )
+        elif self.fused and window_grid_route(n, C, self.num_heads, x.dtype, packed):
+            # kernel 7 (or 9) and 8 on A's and 6's bodies, which gather the
+            # windows and roll by the shift in their addressing: no copies
+            y = window_attention_grid(
+                y, attn.qkv_weight, attn.qkv_bias, attn.proj_weight, attn.proj_bias,
+                attn.bias(n), mask, self.num_heads, window, attn.scale, shift, packed,
+            )
         else:
             if shifted:
                 y = torch.roll(y, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
             wins = window_partition(y, window)
             if self.fused:
                 n_windows = wins.shape[0] // B
-                kernel = (window_attention_packed if self.attn_kernel == "packed"
-                          else window_attention_fused)
+                kernel = window_attention_packed if packed else window_attention_fused
                 wins = kernel(
                     wins, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
                     attn.proj_bias, attn.bias(n), mask, self.num_heads, n_windows,

@@ -31,8 +31,10 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused_bwd_tiles,
     window_attention_fused_rows,
     window_attention_fused_tiles,
+    window_attention_grid,
     window_attention_packed,
     window_attention_packed_rows,
+    window_attention_packed_tiles,
 )
 from vadcl_tpu_torch.ops.window import (
     compute_attn_mask,
@@ -57,14 +59,18 @@ from vadcl_tpu_torch.ops.window import (
 # forward's older body (the same), and the whole-tile bodies of 7 and 8
 # (fp32, and the bf16 geometries kernels A's and 6's tensor-core bodies do
 # not take: ``window_attention_fused`` and ``window_attention_fused_bwd``
-# count those bodies' launches on windows of at most 112 tokens).
+# count those bodies' launches on windows of at most 112 tokens), and the
+# whole-tile body of 9 (the same, ``window_attention_packed`` counting A's
+# packed body).  ``window_attention_grid`` counts on the counters of 7, 9
+# and 8.
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
            window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd,
            window_attention_fused_rows, window_attention_fused_bwd_rows,
            window_attention_packed_rows, ln_mlp_bwd_tiles, fold_attention_bwd_tiles,
            ln_mlp_tiles, fold_block_bwd_tiles, fold_block_tiles,
-           window_attention_fused_tiles, window_attention_fused_bwd_tiles)
+           window_attention_fused_tiles, window_attention_fused_bwd_tiles,
+           window_attention_packed_tiles)
 
 __all__ = [
     "KERNELS",
@@ -102,8 +108,10 @@ __all__ = [
     "window_attention_fused_bwd_tiles",
     "window_attention_fused_rows",
     "window_attention_fused_tiles",
+    "window_attention_grid",
     "window_attention_packed",
     "window_attention_packed_rows",
+    "window_attention_packed_tiles",
     "window_partition",
     "window_reverse",
 ]

@@ -37,17 +37,24 @@ row-tiled ones on ``window_attention_fused_rows``,
 which also force that body whatever N (to hold it against the plain version
 where the whole-tile body would run).
 
-Where a window fits the whole-tile body, kernels 7 and 8 run it there only
-where kernel A's tensor-core body (forward) and kernel 6's (backward) do not
-take the geometry: in bf16 at head width 16 or 32 and at most 112 tokens
+Where a window fits the whole-tile body, kernels 7, 8 and 9 run it there
+only where kernel A's tensor-core body (forward; its ``packed`` instance,
+kernel 10's arithmetic, for 9) and kernel 6's (backward) do not take the
+geometry: in bf16 at head width 16 or 32 and at most 112 tokens
 (``window_tile_core`` says ``"fold_mma"``) they run those bodies without LN
 and residual on ``window_grid``'s view of the windows, the rows of one batch
 element's windows laid end to end as one row of windows, which is exactly
 the layout of ``x_windows``.  Those launches count on
-``window_attention_fused`` and ``window_attention_fused_bwd``; the whole-tile
-bodies count on ``window_attention_fused_tiles`` and
-``window_attention_fused_bwd_tiles``, which also force them.  Kernel 9 keeps
-its whole-tile body.
+``window_attention_fused``, ``window_attention_packed`` and
+``window_attention_fused_bwd``; the whole-tile bodies count on
+``window_attention_fused_tiles``, ``window_attention_packed_tiles`` and
+``window_attention_fused_bwd_tiles``, which also force them.
+
+Where those bodies take a Swin block's geometry both ways
+(``window_grid_route``), a ``base`` or ``packed`` block does not partition at
+all: ``window_attention_grid`` hands them the padded, LN1'd ``(B, D, H, W,
+C)`` tensor with the block's shift, which their addressing gathers and
+rolls, and counts on the same three counters.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches a kernel or raises.  bf16 runs on tensor-core tiles where C and
@@ -70,6 +77,9 @@ from vadcl_tpu_torch.ops.fold_attn import (
     SMEM_LIMIT,
     _fold_attention_bwd_mma,
     _fold_attention_cuda,
+    fold_attention_bwd_plain,
+    fold_attention_packed_plain,
+    fold_attention_plain,
     fold_bwd_body,
     fold_fits,
 )
@@ -336,6 +346,23 @@ def window_tile_core(n: int, c: int, num_heads: int, dtype: torch.dtype,
     return "fold_mma" if takes else "tile"
 
 
+def window_grid_route(n: int, c: int, num_heads: int, dtype: torch.dtype,
+                      packed: bool = False) -> bool:
+    """Whether a Swin block with windows of ``n`` tokens at width ``c`` runs
+    kernel 7 (with ``packed`` kernel 9) and its backward 8 on kernels A's and
+    6's tensor-core bodies, so that ``window_attention_grid`` can hand them
+    the unpartitioned tensor: ``window_body`` says ``"tile"`` and
+    ``window_tile_core`` says ``"fold_mma"`` for the forward and, for 7,
+    which trains, for the backward too (9 has no backward).  Elsewhere (fp32,
+    head widths 12, 48 and 64, C = 256 with 8 heads, windows above 112
+    tokens) the block partitions its windows as before."""
+    if dtype != torch.bfloat16:
+        return False
+    return all(window_tile_core(n, c, num_heads, dtype, backward) == "fold_mma"
+               and window_body(n, c, num_heads, dtype, backward) == "tile"
+               for backward in ((False,) if packed else (False, True)))
+
+
 def window_grid(x_windows: torch.Tensor, mask: Optional[torch.Tensor], n_windows: int):
     """``(grid, window, shift)``: the windows ``(Bn, N, C)`` as the
     unpartitioned tensor kernels A and 6 address, ``(Bn / nW, 1, 1, nW * N,
@@ -394,6 +421,61 @@ class _WindowAttentionPacked(torch.autograd.Function):
         )
 
 
+class _WindowAttentionGrid(torch.autograd.Function):
+    """Kernel 7 (or with ``packed`` kernel 9) and its backward 8 on the
+    unpartitioned tensor: kernel A's tensor-core body without LN and residual,
+    with the block's shift, and kernel 6's in its no-LN, no-residual mode.
+    The inputs are saved, the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, y, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window, scale,
+                shift, packed):
+        ctx.save_for_backward(y, qkv_w, qkv_b, proj_w, bias, mask)
+        ctx.meta = (num_heads, window, scale, shift, packed)
+        args = (y, None, None, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window,
+                scale, False, shift)
+        if y.device.type == "cpu":
+            return (fold_attention_packed_plain if packed else fold_attention_plain)(*args)
+        counter = window_attention_packed if packed else window_attention_fused
+        return _fold_attention_cuda(*args, packed=packed, counter=counter)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, qkv_w, qkv_b, proj_w, bias, mask = ctx.saved_tensors
+        num_heads, window, scale, shift, packed = ctx.meta
+        if packed:
+            _WindowAttentionPacked.backward(ctx, dout)
+        args = (y, dout, None, None, qkv_w, qkv_b, proj_w, bias, mask, num_heads, window,
+                scale, shift, False)
+        if y.device.type == "cpu":
+            grads = fold_attention_bwd_plain(*args)
+        else:
+            grads = _fold_attention_bwd_mma(*args, counter=window_attention_fused_bwd)
+        dy, _, _, dqw, dqb, dpw, dpb, dbias = grads
+        # weight gradients come back in the parameters' dtype
+        return (dy, dqw.to(qkv_w.dtype), None if dqb is None else dqb.to(qkv_b.dtype),
+                dpw.to(proj_w.dtype), dpb, dbias.to(bias.dtype), None, None, None, None, None,
+                None)
+
+
+def window_attention_grid(y, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads: int,
+                          window, scale: float, shift=(0, 0, 0),
+                          packed: bool = False) -> torch.Tensor:
+    """``proj(attention(y))`` per window of the padded, LN1'd Swin block input
+    ``y`` (B, D, H, W, C), shifted by ``shift`` (``mask``: the shifted
+    blocks' (nW, N, N) mask, or None), without partitioning it: what
+    roll, ``window_partition``, kernel 7 (with ``packed`` kernel 9),
+    ``window_reverse`` and the roll back compute, bit for bit on the CPU.
+    Where ``window_grid_route`` holds, on the card kernel A's tensor-core
+    body runs (counted on ``window_attention_fused``, or
+    ``window_attention_packed``) and the backward kernel 6's (counted on
+    ``window_attention_fused_bwd``); with ``packed`` asking for a gradient
+    raises."""
+    _check_device("window_attention_grid", y)
+    return _WindowAttentionGrid.apply(y, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
+                                      tuple(window), float(scale), tuple(shift), bool(packed))
+
+
 def _check_device(what: str, x: torch.Tensor) -> None:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
@@ -446,13 +528,29 @@ window_attention_fused_rows.launches = 0
 def window_attention_packed(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                             num_heads: int, n_windows: int, scale: float) -> torch.Tensor:
     """The contract of ``fused_window_attention_packed`` (inference only).
-    Counts the whole-tile body's launches."""
+    Counts the launches of kernel A's ``packed`` tensor-core body on
+    ``window_grid``'s view (``window_tile_core``: ``"fold_mma"``)."""
     _check_device("window_attention_packed", x_windows)
     return _WindowAttentionPacked.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias,
                                         mask, num_heads, n_windows, float(scale), None)
 
 
 window_attention_packed.launches = 0
+
+
+def window_attention_packed_tiles(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                  num_heads: int, n_windows: int,
+                                  scale: float) -> torch.Tensor:
+    """``window_attention_packed`` on the whole-tile body of
+    ``csrc/window_attn.cu`` wherever it fits; counts that body's launches
+    (also those the route makes through ``window_attention_packed``: fp32,
+    and the bf16 geometries kernel A's body does not take)."""
+    _check_device("window_attention_packed_tiles", x_windows)
+    return _WindowAttentionPacked.apply(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias,
+                                        mask, num_heads, n_windows, float(scale), "tile")
+
+
+window_attention_packed_tiles.launches = 0
 
 
 def window_attention_packed_rows(x_windows, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
@@ -529,15 +627,14 @@ def _check_windows(what, x, bias, mask, num_heads, n_windows):
         )
 
 
-def _pick_body(what, body, x, num_heads, backward, packed=False) -> str:
+def _pick_body(what, body, x, num_heads, backward) -> str:
     """``window_body``'s choice, and where that is the whole-tile body
-    ``window_tile_core``'s (``"fold_mma"`` or ``"tile"``; kernel 9 keeps the
-    whole-tile body); or the forced ``body`` (``"rows"``, ``"tile"``) where
-    its block fits."""
+    ``window_tile_core``'s (``"fold_mma"`` or ``"tile"``); or the forced
+    ``body`` (``"rows"``, ``"tile"``) where its block fits."""
     N, C = x.shape[1:]
     if body is None:
         body = window_body(N, C, num_heads, x.dtype, backward)
-        if body == "tile" and not packed:
+        if body == "tile":
             body = window_tile_core(N, C, num_heads, x.dtype, backward)
         return body
     bf16 = x.dtype == torch.bfloat16
@@ -568,12 +665,14 @@ def _forward_cuda(what, packed, body, x, qkv_w, qkv_b, proj_w, proj_b, bias, mas
                   n_windows, scale):
     lib = cuda_lib.library()
     _check_windows(what, x, bias, mask, num_heads, n_windows)
-    body = _pick_body(what, body, x, num_heads, backward=False, packed=packed)
+    body = _pick_body(what, body, x, num_heads, backward=False)
     if body == "fold_mma":
         grid, window, shift = window_grid(x.detach(), mask, n_windows)
         return _fold_attention_cuda(
             grid, None, None, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window,
-            scale, False, shift, counter=window_attention_fused).reshape(x.shape)
+            scale, False, shift, packed=packed,
+            counter=window_attention_packed if packed else window_attention_fused,
+        ).reshape(x.shape)
     Bn, N, C = x.shape
     is_bf16 = int(x.dtype == torch.bfloat16)
     xc = cuda_lib.aligned(x.detach())
@@ -592,7 +691,7 @@ def _forward_cuda(what, packed, body, x, qkv_w, qkv_b, proj_w, proj_b, bias, mas
     else:
         entry = lib.vadcl_window_attn_packed if packed else lib.vadcl_window_attn
         err = entry(*ptrs, *dims)
-        counter = window_attention_packed if packed else window_attention_fused_tiles
+        counter = window_attention_packed_tiles if packed else window_attention_fused_tiles
     cuda_lib.check(err, f"{what} ({body} body)")
     counter.launches += 1
     return out
