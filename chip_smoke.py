@@ -55,9 +55,12 @@ Phases (any failure raises and the script exits non-zero):
      timed.
   2/2b, blocks: bf16 ``base`` and ``packed`` Swin blocks at every 4-frame
      geometry and a window-padded one, shifted and not, at batch 4: the
-     unpartitioned route (``window_attention_grid``) against the same
-     block forced down the partitioned route, forward and ``base``'s
-     gradients, launches and ``window_partition`` calls asserted.
+     unpartitioned route (the fold wrappers on the padded tensor, counted
+     on 7, 9 and 8) against the same block forced down the partitioned
+     route, forward and ``base``'s gradients, launches and
+     ``window_partition`` calls asserted; the attention call that route
+     makes inside the block, and under ``base`` its gradients, against
+     their plain versions on the inputs it was handed.
   2/2b, head width 12: the bf16 CUDA-core bodies of 7, 9 and 8 against their
      plain versions, whole-tile (N = 98) and row-tiled (N = 196), shifted,
      two calls for the same bits, each timed beside the same body in fp32.
@@ -1629,11 +1632,77 @@ def _grid_block(name, C, nh, window, shift, gen):
     return blk.to(DEV)
 
 
+@contextlib.contextmanager
+def recording_grid_attention():
+    """While open, records the first call a Swin block makes to
+    ``fold_attention`` or ``fold_attention_packed`` (the unpartitioned route
+    of a ``base`` or ``packed`` block): its arguments and output, and, where
+    its input wants a gradient, the gradients that reach its output, its
+    input, the relative-position bias and the four weights (hooks, removed
+    on the way out).  Yields the record, a dict."""
+    from vadcl_tpu_torch.models import swin
+
+    rec, handles = {}, []
+    real = {k: getattr(swin, k) for k in ("fold_attention", "fold_attention_packed")}
+
+    def keep(key):
+        return lambda g: rec.__setitem__(key, g)
+
+    def recorder(fn):
+        def call(y, *args, **kw):
+            out = fn(y, *args, **kw)
+            if not rec:
+                rec.update(fn=fn, y=y.detach(), args=args, kw=kw, out=out.detach())
+                if y.requires_grad:
+                    out.register_hook(keep("dout"))
+                    y.register_hook(keep("dy"))
+                    args[6].register_hook(keep("dbias"))
+                    handles.extend(args[i].register_hook(keep(i)) for i in (2, 3, 4, 5))
+            return out
+        return call
+
+    for k, fn in real.items():
+        setattr(swin, k, recorder(fn))
+    try:
+        yield rec
+    finally:
+        for k, fn in real.items():
+            setattr(swin, k, fn)
+        for h in handles:
+            h.remove()
+
+
+def _grid_attention_vs_plain(tag, rec) -> None:
+    """The attention call a block made on the unpartitioned route
+    (``recording_grid_attention``) against its plain version on the same
+    inputs: the output within kernel 7's bf16 bound and, where gradients
+    were recorded, kernel 6's gradients within kernel 8's."""
+    from vadcl_tpu_torch.ops import fold_attn as fa
+
+    plain = (fa.fold_attention_packed_plain if rec["fn"] is fa.fold_attention_packed
+             else fa.fold_attention_plain)
+    args = [a.detach() if torch.is_tensor(a) else a for a in rec["args"]]
+    y, shift = rec["y"], rec["kw"]["shift"]
+    if rec["kw"]["residual"] or args[0] is not None:
+        raise AssertionError(f"{tag}: the unpartitioned route ran LN1 or the residual")
+    want = plain(y, *args, False, shift)
+    check_close(f"{tag} attention on the unpartitioned tensor vs plain", rec["out"], want,
+                *BOUNDS[torch.bfloat16])
+    if "dout" in rec:
+        _, _, qw, qb, pw, _, bias, mask, nh, window, scale = args
+        want = fa.fold_attention_bwd_plain(y, rec["dout"], None, None, qw, qb, pw, bias,
+                                           mask, nh, window, scale, shift, False)
+        got = (rec["dy"], None, None, rec[2], rec[3], rec[4], rec[5], rec["dbias"])
+        check_grads(f"{tag} kernel 6 on the unpartitioned tensor vs plain", FOLD_BWD_NAMES,
+                    got, want, BWD_TOL[torch.bfloat16])
+
+
 def phase_grid_blocks(batch: int = 4) -> dict:
     """bf16 ``base`` and ``packed`` Swin blocks at every 4-frame flagship
     geometry, shifted and not, and at the window-padded 63^2 grid of a 240^2
     clip (60^2 tokens), on ``batch`` clips: the unpartitioned route
-    (``window_attention_grid``: no roll, partition, reverse or roll back)
+    (``fold_attention`` / ``fold_attention_packed`` on the padded tensor,
+    counted on 7, 9 and 8: no roll, partition, reverse or roll back)
     against the same block forced down the partitioned route, on the card.
     Each call's launches and ``window_partition`` calls are asserted (the
     unpartitioned route: 7 or 9 and B, under ``base`` with 8 and 5 in the
@@ -1643,8 +1712,11 @@ def phase_grid_blocks(batch: int = 4) -> dict:
     ``base``'s gradients of x and of every parameter within kernel 8's (the
     weight sums may run in another order; kernel 6's blocks, one a chunk of
     windows, are printed: a count of windows, alike on both grids); both
-    timed.  Returns {path:
-    launches} of the unpartitioned calls."""
+    timed.  The attention call of the unpartitioned route's first run, and
+    under ``base`` its gradients, are held against their plain versions on
+    the inputs the block handed it (``recording_grid_attention``): kernel
+    7's and 8's bf16 bounds.  Returns {path: launches} of the
+    unpartitioned calls."""
     from vadcl_tpu_torch.models import swin
     from vadcl_tpu_torch.ops import cuda_lib
 
@@ -1685,12 +1757,18 @@ def phase_grid_blocks(batch: int = 4) -> dict:
                     if not grid:
                         swin.window_grid_route = lambda *a, **k: False
                     try:
-                        with counting_partitions() as parts:
+                        with counting_partitions() as parts, recording_grid_attention() as rec:
                             res, moved = _launched(run)
                         if moved != want_moved or parts[0] != (0 if grid else 1):
                             raise AssertionError(
                                 f"{tag} ({'unpartitioned' if grid else 'partitioned'}): "
                                 f"launched {moved}, {parts[0]} partitions")
+                        if bool(rec) != grid or (train and grid and "dbias" not in rec):
+                            raise AssertionError(f"{tag}: the fold wrappers ran {bool(rec)}, "
+                                                 f"gradients {sorted(map(str, rec))}")
+                        if grid:
+                            _grid_attention_vs_plain(tag, rec)
+                            del rec
                         ms = cuda_ms(run, reps=2, batch=2, warmup=1)
                     finally:
                         swin.window_grid_route = real

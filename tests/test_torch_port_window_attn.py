@@ -323,9 +323,9 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
     assert names[20:] == ["window_attention_fused_tiles", "window_attention_fused_bwd_tiles",
                           "window_attention_packed_tiles"]
     assert len(names) == 23 and len(set(names)) == 23
-    # the unpartitioned route counts on the counters of 7, 9 and 8, not on its own
-    assert {"window_attention_grid", "window_attention_packed_tiles"} <= set(ops.__all__)
-    assert "window_attention_grid" not in names
+    # the unpartitioned route runs the fold wrappers on the counters of 7, 9 and 8
+    assert "window_attention_packed_tiles" in ops.__all__
+    assert "window_attention_grid" not in ops.__all__
     before = [k.launches for k in KERNELS]
     a = _case(GEOMS["N49_C24"], True, seed=11)
     x = T(a["x"]).requires_grad_()
@@ -346,10 +346,13 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
                                   _port_forward(window_attention_packed, a).numpy())
     # the unpartitioned route on the CPU: (1, 14, 14) tokens, window (1, 7, 7), shifted
     y = window_reverse(T(a["x"]), (1, 7, 7), 2, 1, 14, 14).requires_grad_()
-    for packed in (True, False):
-        out = ops.window_attention_grid(
-            y, T(a["qkv_w"]), T(a["qkv_b"]), T(a["proj_w"]), T(a["proj_b"]), T(a["bias"]),
-            T(a["mask"]), a["nH"], (1, 7, 7), a["scale"], (0, 3, 3), packed)
+    for kernel, counters in ((ops.fold_attention_packed, {"counter": window_attention_packed}),
+                             (ops.fold_attention, {"counter": window_attention_fused,
+                                                   "bwd_counter": window_attention_fused_bwd})):
+        out = kernel(
+            y, None, None, T(a["qkv_w"]), T(a["qkv_b"]), T(a["proj_w"]), T(a["proj_b"]),
+            T(a["bias"]), T(a["mask"]), a["nH"], (1, 7, 7), a["scale"], residual=False,
+            shift=(0, 3, 3), **counters)
         assert out.shape == y.shape
     out.sum().backward()
     assert y.grad is not None and y.grad.shape == y.shape

@@ -7,8 +7,9 @@ tensor-core body (kernel 10's arithmetic) without LN and residual on
 ``window_grid``'s view of the windows, as kernel 7 runs A's plain one.  Where
 kernels A's and 6's bodies take a block's geometry both ways
 (``window_grid_route``), a ``base`` or ``packed`` block hands them its padded,
-LN1'd tensor with the shift (``window_attention_grid``) instead of rolling,
-partitioning, reversing and rolling back.  The CUDA bodies run only on the
+LN1'd tensor with the shift (``fold_attention`` or ``fold_attention_packed``
+without LN and residual, counted on kernels 7's, 9's and 8's counters)
+instead of rolling, partitioning, reversing and rolling back.  The CUDA bodies run only on the
 card (``chip_smoke.py`` holds them there); here the view is held against
 kernel 9's plain version bit for bit and against ``_attn_kernel_packed`` in
 interpret mode within the bounds of ``tests/test_torch_port_window_attn.py``;
@@ -129,8 +130,8 @@ def _run(blk, x, backward):
 @pytest.mark.parametrize("name", NAMES)
 def test_blocks_without_partition_copies_equal_the_partitioned_route(name, geometry,
                                                                      monkeypatch):
-    """A bf16 ``base`` or ``packed`` block through ``window_attention_grid``
-    (no roll, partition, reverse or roll back) against the same block forced
+    """A bf16 ``base`` or ``packed`` block on the unpartitioned tensor (no
+    roll, partition, reverse or roll back) against the same block forced
     down the partitioned route, bit for bit: the output and, under ``base``,
     the gradients of x and of every block parameter.  The unpartitioned
     branch calls ``window_partition`` no time, the partitioned one once."""

@@ -26,8 +26,10 @@ With ``fused=True`` a block runs hand-written kernels, chosen by
   residual add, then the fused tail.  Where the partitioned-window kernels
   run on kernels A's and 6's tensor-core bodies (``window_grid_route``: bf16,
   head width 16 or 32, at most 112 tokens) the roll, partition, reverse
-  and roll back are left to those bodies' addressing: plain LN1, pad,
-  ``window_attention_grid`` on the padded tensor, slice, residual, tail.
+  and roll back are left to those bodies' addressing: the block runs as a
+  padded ``"fold"`` (or ``"fold_packed"``) block, plain LN1, pad, the fold
+  kernel without LN and residual, slice, residual, tail, with the launches
+  counted on ``window_attention_fused`` / ``_packed`` / ``_fused_bwd``.
 
 With ``fused=False`` it is the plain PyTorch block of the JAX default
 config.  Parameter names and shapes are the same either way, so one
@@ -62,7 +64,7 @@ from vadcl_tpu_torch.ops.window import (
 )
 from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
-    window_attention_grid,
+    window_attention_fused_bwd,
     window_attention_packed,
     window_grid_route,
 )
@@ -211,20 +213,23 @@ class SwinBlock3D(nn.Module):
         _, Dp, Hp, Wp, _ = y.shape
         mask = self._mask(Dp, Hp, Wp, window, shift, x.device)
         packed = self.attn_kernel == "packed"
-        if fold:
+        counters = {}
+        grid = (not fold and self.fused
+                and window_grid_route(n, C, self.num_heads, x.dtype, packed))
+        if grid:
+            # kernels 7 (or 9) and 8 would run A's and 6's bodies: run those on
+            # the padded tensor as below, counted on the kernels of this route
+            fold_kernel = fold_attention_packed if packed else fold_attention
+            counters = ({"counter": window_attention_packed} if packed else
+                        {"counter": window_attention_fused,
+                         "bwd_counter": window_attention_fused_bwd})
+        if fold or grid:
             # the fold kernel on the padded tensor, without LN and residual,
             # the shift roll folded into its addressing
             y = fold_kernel(
                 y, None, None, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
                 attn.proj_bias, attn.bias(n), mask, self.num_heads, window,
-                attn.scale, residual=False, shift=shift,
-            )
-        elif self.fused and window_grid_route(n, C, self.num_heads, x.dtype, packed):
-            # kernel 7 (or 9) and 8 on A's and 6's bodies, which gather the
-            # windows and roll by the shift in their addressing: no copies
-            y = window_attention_grid(
-                y, attn.qkv_weight, attn.qkv_bias, attn.proj_weight, attn.proj_bias,
-                attn.bias(n), mask, self.num_heads, window, attn.scale, shift, packed,
+                attn.scale, residual=False, shift=shift, **counters,
             )
         else:
             if shifted:

@@ -31,7 +31,6 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused_bwd_tiles,
     window_attention_fused_rows,
     window_attention_fused_tiles,
-    window_attention_grid,
     window_attention_packed,
     window_attention_packed_rows,
     window_attention_packed_tiles,
@@ -61,8 +60,9 @@ from vadcl_tpu_torch.ops.window import (
 # not take: ``window_attention_fused`` and ``window_attention_fused_bwd``
 # count those bodies' launches on windows of at most 112 tokens), and the
 # whole-tile body of 9 (the same, ``window_attention_packed`` counting A's
-# packed body).  ``window_attention_grid`` counts on the counters of 7, 9
-# and 8.
+# packed body).  A ``base`` or ``packed`` block on the unpartitioned tensor
+# (``window_grid_route``) counts its ``fold_attention`` launches on those of
+# 7, 9 and 8.
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
            window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd,
@@ -108,7 +108,6 @@ __all__ = [
     "window_attention_fused_bwd_tiles",
     "window_attention_fused_rows",
     "window_attention_fused_tiles",
-    "window_attention_grid",
     "window_attention_packed",
     "window_attention_packed_rows",
     "window_attention_packed_tiles",

@@ -663,30 +663,28 @@ class _FoldAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
-                mask, num_heads, window, scale, residual, shift):
+                mask, num_heads, window, scale, residual, shift, counter, bwd_counter):
         args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                 num_heads, window, scale, residual, shift)
         ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask)
-        ctx.meta = (num_heads, window, scale, residual, shift)
+        ctx.meta = (num_heads, window, scale, residual, shift, bwd_counter)
         if x.device.type == "cpu":
             return fold_attention_plain(*args)
-        return _fold_attention_cuda(*args)
+        return _fold_attention_cuda(*args, counter=counter)
 
     @staticmethod
     def backward(ctx, dout):
         x, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask = ctx.saved_tensors
-        num_heads, window, scale, residual, shift = ctx.meta
+        num_heads, window, scale, residual, shift, bwd_counter = ctx.meta
         _check_mode(ln_s, residual)
         n = window[0] * window[1] * window[2]
-        bwd = fold_attention_bwd
-        if not fold_fits(n, x.shape[-1], num_heads, x.dtype, backward=True):
-            bwd = _fold_bwd_through_windows
-        dx, dls, dlb, dqw, dqb, dpw, dpb, dbias = bwd(
-            x, dout, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask, num_heads,
-            window, scale, shift, residual,
-        )
-        return (dx, dls, dlb, dqw, dqb, dpw, dpb, dbias,
-                None, None, None, None, None, None)
+        args = (x, dout, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, mask, num_heads,
+                window, scale, shift, residual)
+        if fold_fits(n, x.shape[-1], num_heads, x.dtype, backward=True):
+            grads = fold_attention_bwd(*args, counter=bwd_counter)
+        else:
+            grads = _fold_bwd_through_windows(*args)
+        return (*grads, None, None, None, None, None, None, None, None)
 
 
 def fold_attention(
@@ -704,18 +702,23 @@ def fold_attention(
     scale: float,
     residual: bool = True,
     shift: Tri = (0, 0, 0),
+    counter=None,
+    bwd_counter=None,
 ) -> torch.Tensor:
     """``x + proj(attn(LN1(x)))`` per window (without ``+ x`` when not
     ``residual``), computed on the unpartitioned tensor.  With ``shift`` the
     shifted-window roll is folded in (``mask`` is then the shifted blocks'
     mask).  With a zero shift, the contract of
     ``fused_window_attention_folded(..., ln_scale=, ln_bias=, residual=)``.
-    Differentiable (kernel 6) with LN1 and the residual, or with neither."""
+    Differentiable (kernel 6) with LN1 and the residual, or with neither.
+    The launches count on ``counter`` and ``bwd_counter`` where given (a
+    ``base`` block's kernels 7 and 8), else on this wrapper and
+    ``fold_attention_bwd``."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fold_attention: unsupported device {x.device}")
     return _FoldAttention.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
                                 bias, mask, num_heads, tuple(window), scale,
-                                residual, tuple(shift))
+                                residual, tuple(shift), counter, bwd_counter)
 
 
 fold_attention.launches = 0
@@ -723,13 +726,14 @@ fold_attention.launches = 0
 
 def fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
                        mask, num_heads, window, scale, shift=(0, 0, 0), residual=True,
-                       tiles: bool = False):
+                       tiles: bool = False, counter=None):
     """Kernel 6: the gradients of ``fold_attention`` with LN1 and the
     residual, or (``ln_scale=None, residual=False``) with neither, as
     ``fold_attention_bwd_plain`` returns them (the contract of
     ``_fold_bwd_call(..., fuse_ln=, residual=)`` with the shift roll folded
     in).  ``fold_bwd_body`` picks the body; ``tiles`` forces the
-    shared-memory body.  Counts the tensor-core body's launches."""
+    shared-memory body.  Counts the tensor-core body's launches (on
+    ``counter`` where given)."""
     _check_mode(ln_scale, residual)
     args = (x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask,
             num_heads, tuple(window), scale, tuple(shift), bool(residual))
@@ -739,7 +743,7 @@ def fold_attention_bwd(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
         raise ValueError(f"fold_attention_bwd: unsupported device {x.device}")
     n = window[0] * window[1] * window[2]
     if not tiles and fold_bwd_body(n, x.shape[-1], num_heads, x.dtype) == "mma":
-        return _fold_attention_bwd_mma(*args)
+        return _fold_attention_bwd_mma(*args, counter=counter)
     return _fold_attention_bwd_cuda(*args)
 
 
@@ -764,17 +768,17 @@ class _FoldAttentionPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-                num_heads, window, scale, residual, shift):
+                num_heads, window, scale, residual, shift, counter):
         args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                 num_heads, window, scale, residual, shift)
         if x.device.type == "cpu":
             return fold_attention_packed_plain(*args)
-        return _fold_attention_cuda(*args, packed=True)
+        return _fold_attention_cuda(*args, packed=True, counter=counter)
 
     @staticmethod
     def backward(ctx, dout):
         raise NotImplementedError(
-            "fold_attention_packed (attn_kernel='fold_packed', 'fold_mix') is "
+            "fold_attention_packed (attn_kernel='fold_packed', 'fold_mix', 'packed') is "
             "inference-only: it has no backward; train with attn_kernel='fold', "
             "'fold_block' or 'base'"
         )
@@ -782,16 +786,17 @@ class _FoldAttentionPacked(torch.autograd.Function):
 
 def fold_attention_packed(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                           num_heads: int, window: Tri, scale: float, residual: bool = True,
-                          shift: Tri = (0, 0, 0)) -> torch.Tensor:
+                          shift: Tri = (0, 0, 0), counter=None) -> torch.Tensor:
     """Kernel 10: ``fold_attention``'s contract (optional LN1, optional
     residual, the shift roll folded in) with the packed arithmetic; with a
     zero shift, the contract of ``fused_window_attention_folded_packed``.
-    Inference only: asking it for a gradient raises."""
+    Inference only: asking it for a gradient raises.  The launches count on
+    ``counter`` where given (a ``packed`` block's kernel 9), else here."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fold_attention_packed: unsupported device {x.device}")
     return _FoldAttentionPacked.apply(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b,
                                       bias, mask, num_heads, tuple(window), scale,
-                                      residual, tuple(shift))
+                                      residual, tuple(shift), counter)
 
 
 fold_attention_packed.launches = 0

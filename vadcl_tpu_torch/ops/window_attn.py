@@ -52,9 +52,9 @@ the layout of ``x_windows``.  Those launches count on
 
 Where those bodies take a Swin block's geometry both ways
 (``window_grid_route``), a ``base`` or ``packed`` block does not partition at
-all: ``window_attention_grid`` hands them the padded, LN1'd ``(B, D, H, W,
-C)`` tensor with the block's shift, which their addressing gathers and
-rolls, and counts on the same three counters.
+all: it hands ``fold_attention`` (or ``fold_attention_packed``) the padded,
+LN1'd ``(B, D, H, W, C)`` tensor with the block's shift, which their
+addressing gathers and rolls, counted on the same three counters.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches a kernel or raises.  bf16 runs on tensor-core tiles where C and
@@ -77,9 +77,6 @@ from vadcl_tpu_torch.ops.fold_attn import (
     SMEM_LIMIT,
     _fold_attention_bwd_mma,
     _fold_attention_cuda,
-    fold_attention_bwd_plain,
-    fold_attention_packed_plain,
-    fold_attention_plain,
     fold_bwd_body,
     fold_fits,
 )
@@ -350,12 +347,13 @@ def window_grid_route(n: int, c: int, num_heads: int, dtype: torch.dtype,
                       packed: bool = False) -> bool:
     """Whether a Swin block with windows of ``n`` tokens at width ``c`` runs
     kernel 7 (with ``packed`` kernel 9) and its backward 8 on kernels A's and
-    6's tensor-core bodies, so that ``window_attention_grid`` can hand them
-    the unpartitioned tensor: ``window_body`` says ``"tile"`` and
-    ``window_tile_core`` says ``"fold_mma"`` for the forward and, for 7,
-    which trains, for the backward too (9 has no backward).  Elsewhere (fp32,
-    head widths 12, 48 and 64, C = 256 with 8 heads, windows above 112
-    tokens) the block partitions its windows as before."""
+    6's tensor-core bodies, so that the block can hand them the unpartitioned
+    tensor through ``fold_attention`` (``fold_attention_packed``):
+    ``window_body`` says ``"tile"`` and ``window_tile_core`` says
+    ``"fold_mma"`` for the forward and, for 7, which trains, for the backward
+    too (9 has no backward).  Elsewhere (fp32, head widths 12, 48 and 64,
+    C = 256 with 8 heads, windows above 112 tokens) the block partitions its
+    windows as before."""
     if dtype != torch.bfloat16:
         return False
     return all(window_tile_core(n, c, num_heads, dtype, backward) == "fold_mma"
@@ -419,61 +417,6 @@ class _WindowAttentionPacked(torch.autograd.Function):
             "window_attention_packed (attn_kernel='packed') is inference-only: "
             "it has no backward; train with attn_kernel='base' or 'fold'"
         )
-
-
-class _WindowAttentionGrid(torch.autograd.Function):
-    """Kernel 7 (or with ``packed`` kernel 9) and its backward 8 on the
-    unpartitioned tensor: kernel A's tensor-core body without LN and residual,
-    with the block's shift, and kernel 6's in its no-LN, no-residual mode.
-    The inputs are saved, the backward recomputes the forward."""
-
-    @staticmethod
-    def forward(ctx, y, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window, scale,
-                shift, packed):
-        ctx.save_for_backward(y, qkv_w, qkv_b, proj_w, bias, mask)
-        ctx.meta = (num_heads, window, scale, shift, packed)
-        args = (y, None, None, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, window,
-                scale, False, shift)
-        if y.device.type == "cpu":
-            return (fold_attention_packed_plain if packed else fold_attention_plain)(*args)
-        counter = window_attention_packed if packed else window_attention_fused
-        return _fold_attention_cuda(*args, packed=packed, counter=counter)
-
-    @staticmethod
-    def backward(ctx, dout):
-        y, qkv_w, qkv_b, proj_w, bias, mask = ctx.saved_tensors
-        num_heads, window, scale, shift, packed = ctx.meta
-        if packed:
-            _WindowAttentionPacked.backward(ctx, dout)
-        args = (y, dout, None, None, qkv_w, qkv_b, proj_w, bias, mask, num_heads, window,
-                scale, shift, False)
-        if y.device.type == "cpu":
-            grads = fold_attention_bwd_plain(*args)
-        else:
-            grads = _fold_attention_bwd_mma(*args, counter=window_attention_fused_bwd)
-        dy, _, _, dqw, dqb, dpw, dpb, dbias = grads
-        # weight gradients come back in the parameters' dtype
-        return (dy, dqw.to(qkv_w.dtype), None if dqb is None else dqb.to(qkv_b.dtype),
-                dpw.to(proj_w.dtype), dpb, dbias.to(bias.dtype), None, None, None, None, None,
-                None)
-
-
-def window_attention_grid(y, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads: int,
-                          window, scale: float, shift=(0, 0, 0),
-                          packed: bool = False) -> torch.Tensor:
-    """``proj(attention(y))`` per window of the padded, LN1'd Swin block input
-    ``y`` (B, D, H, W, C), shifted by ``shift`` (``mask``: the shifted
-    blocks' (nW, N, N) mask, or None), without partitioning it: what
-    roll, ``window_partition``, kernel 7 (with ``packed`` kernel 9),
-    ``window_reverse`` and the roll back compute, bit for bit on the CPU.
-    Where ``window_grid_route`` holds, on the card kernel A's tensor-core
-    body runs (counted on ``window_attention_fused``, or
-    ``window_attention_packed``) and the backward kernel 6's (counted on
-    ``window_attention_fused_bwd``); with ``packed`` asking for a gradient
-    raises."""
-    _check_device("window_attention_grid", y)
-    return _WindowAttentionGrid.apply(y, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads,
-                                      tuple(window), float(scale), tuple(shift), bool(packed))
 
 
 def _check_device(what: str, x: torch.Tensor) -> None:
