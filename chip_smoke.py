@@ -133,7 +133,21 @@ Phases (any failure raises and the script exits non-zero):
      launch and plain-version checks; a checkpoint round trip into a fresh
      model and optimizer; a ``"packed"``, ``"fold_packed"`` or
      ``"fold_mix"`` train step is refused before any launch.
-No earlier path was cut: the whole run takes about four minutes on an H100.
+  6. data parallelism: the flagship ``fold`` train step under
+     ``DistributedDataParallel`` on an in-process NCCL group of world size
+     1, 3 steps at batch 4, against the one-process step from the same
+     weights on the same batches (and the one-process step repeated, the
+     card's own run-to-run spread): the loss sums all-reduced and the
+     gradients summed every step, the training kernels launched every step,
+     the losses and parameters within the bounds of ``DDP_STEPS``' comment;
+     its step time beside the FLOP count of a training step
+     (``FlopCounterMode`` on the plain model) and the bf16 peak.
+  7. the attention-kernel autotune (``measure_attn_kernels``): base, packed,
+     fold and fold_packed through a Swin block's attention half at batch 32,
+     kernels 7, 9, A and 10 and nothing else launched; both picks.
+  8. ``train(profile_steps=1)``: the trace of step 3 holds host ops and
+     the hand-written kernels.
+No earlier path was cut: the whole run takes about five minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels, kernel B's CUDA-core body, the whole-block forward's and
 backward's bodies of PR 4, and the bf16 CUDA-core instances of 7, 8 and 9
@@ -2757,6 +2771,231 @@ def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
     return launches
 
 
+DDP_STEPS = 3
+# phase 6, the data-parallel step against the one-process step on the same
+# global batch and weights: the loss to the bf16 kernel bound (BOUNDS), the
+# parameters to the trajectory tests' Adam bound (each element within 2.5
+# lr a step, at most 2% of the elements beyond one lr), but the key third of
+# each qkv_bias: its gradient is zero in exact arithmetic (a constant added
+# to every key of a query leaves the softmax unchanged), so both runs hold
+# rounding noise there, which Adam turns into steps of +-lr whatever its
+# size; those elements are held to 2 lr a step.
+DDP_LOSS_RTOL = BOUNDS[torch.bfloat16][1]
+
+
+def key_bias(name: str, p: torch.Tensor) -> torch.Tensor:
+    """True on the key third of a ``qkv_bias``, False elsewhere."""
+    mask = torch.zeros_like(p, dtype=torch.bool)
+    if name.endswith("attn.qkv_bias"):
+        c = p.numel() // 3
+        mask[c:2 * c] = True
+    return mask
+
+
+def check_adam_bound(label: str, model, ref_model, lr: float, steps: int) -> None:
+    """``model``'s parameters against ``ref_model``'s after ``steps`` Adam
+    steps from the same weights (``DDP_STEPS``' comment)."""
+    ref = dict(ref_model.named_parameters())
+    same, worst, beyond = 0, 0.0, 0.0
+    for k, p in model.named_parameters():
+        diff = (p.detach() - ref[k].detach()).abs()
+        same += int(torch.equal(p, ref[k]))
+        key = key_bias(k, p)
+        if key.any() and float(diff[key].max()) > 2 * lr * steps:
+            raise AssertionError(f"{label}: {k}'s key bias moved more than 2 lr a step")
+        rest = diff[~key]
+        worst = max(worst, float(rest.max()))
+        beyond = max(beyond, float((rest > lr).float().mean()))
+        if float(rest.max()) > 2.5 * lr * steps or float((rest > lr).float().mean()) >= 0.02:
+            raise AssertionError(f"{label}: {k} leaves the Adam bound")
+    print(f"  {label}: {same} of {len(ref)} parameter tensors bit for bit equal to one "
+          f"process; largest difference {worst:.3e} (bound {2.5 * lr * steps:.3e}), at most "
+          f"{beyond:.2%} of a tensor beyond one lr (bound 2%), key biases apart")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def counting_data_parallel():
+    """While open, counts the loss sums all-reduced in the forward
+    (``train.step.global_sum``) and the gradient buckets all-reduced by
+    DDP's hook (``train.step._sum_gradients``): yields a dict."""
+    from vadcl_tpu_torch.train import step
+
+    seen = {"loss_sums": 0, "grad_buckets": 0}
+    real_sum, real_hook = step.global_sum, step._sum_gradients
+
+    def counted_sum(t):
+        seen["loss_sums"] += 1
+        return real_sum(t)
+
+    def counted_hook(group, bucket):
+        seen["grad_buckets"] += 1
+        return real_hook(group, bucket)
+
+    step.global_sum, step._sum_gradients = counted_sum, counted_hook
+    try:
+        yield seen
+    finally:
+        step.global_sum, step._sum_gradients = real_sum, real_hook
+
+
+def train_flops_per_clip(cfg) -> float:
+    """FLOPs of one training step per clip as ``FlopCounterMode`` counts them
+    (2*M*N*K a product, every convolution tap): the plain model (the
+    kernels' arithmetic, which the counter cannot see) on meta tensors."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.train.step import make_loss_fn
+    from vadcl_tpu_torch.utils.flops import counted_flops
+
+    plain = cfg.replace(model=dataclasses.replace(cfg.model, fused_attention=False,
+                                                  fused_cluster=False))
+    model = VADModel(plain.model, torch.float32).to("meta")
+    loss_fn = make_loss_fn(model, plain)
+
+    def step():
+        loss, _ = loss_fn(torch.zeros(1, 4, 224, 224, 3, dtype=torch.uint8, device="meta"), 0)
+        loss.backward()
+
+    return counted_flops(step)
+
+
+def phase_ddp(smi: str) -> dict:
+    """The flagship ``fold`` train step under ``DistributedDataParallel`` on
+    an in-process NCCL group of world size 1 (one card), 3 steps at batch
+    4, against the one-process ``make_train_step`` from the same weights
+    on the same batches; the data-parallel run must launch the training
+    path's kernels every step (and no plain version on the card), all-reduce
+    the three loss sums a step and sum the gradients through the hook.
+    Prints the step's time and FLOP rate beside the card's peak."""
+    import torch.distributed as dist
+
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+    from vadcl_tpu_torch.utils.flops import device_peak_tflops, mfu_pct
+
+    print(f"[6] data-parallel training, fold, bf16: {DDP_STEPS} steps at batch {TRAIN_BATCH} "
+          f"through DistributedDataParallel, world size 1 (in-process NCCL group; "
+          f"{torch.cuda.device_count()} card(s) visible), against one process")
+    cfg = flagship_train_config("fold")
+    clips = np.random.RandomState(4).randint(
+        0, 256, (DDP_STEPS, TRAIN_BATCH, 4, 224, 224, 3)).astype(np.uint8)
+    init = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0))
+
+    def run():
+        model = copy.deepcopy(init).to(DEV)
+        state = create_train_state(model, cfg)
+        step_fn = make_train_step(model, cfg, steps_per_epoch=10)
+        losses, times = [], []
+        for c in clips:
+            batch = torch.from_numpy(c).to(DEV)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step_fn(state, batch).loss))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return model, losses, times
+
+    ref_model, ref_losses, ref_times = run()
+    # the one-process step again: the card's own run-to-run spread (cuDNN's
+    # convolution backward may sum in another order from one call to the next)
+    again_model, again_losses, again_times = run()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        reset_launches()
+        with plain_versions_refuse_the_card(), counting_partitions() as parts, \
+                counting_data_parallel() as seen:
+            model, losses, times = run()
+        counts = {"fold_attention_bwd": 18 * DDP_STEPS, "ln_mlp_bwd": 18 * DDP_STEPS}
+        launches = read_launches(TRAINING_KERNELS["fold"], "data-parallel training, fold",
+                                 counts, heads=DDP_STEPS)
+        check_partitions("data-parallel training, fold", parts[0], 0)
+    finally:
+        dist.destroy_process_group()
+    print(f"  loss sums all-reduced: {seen['loss_sums']}; gradient buckets summed: "
+          f"{seen['grad_buckets']}")
+    if seen["loss_sums"] != 3 * DDP_STEPS or seen["grad_buckets"] < DDP_STEPS:
+        raise AssertionError("the data-parallel step did not all-reduce its loss sums and "
+                             "gradients every step")
+    print(f"  losses: data-parallel {losses}; one process {ref_losses}, again {again_losses}")
+    check_close("one process again, loss", torch.tensor(again_losses), torch.tensor(ref_losses),
+                0.0, DDP_LOSS_RTOL)
+    check_close("data-parallel loss", torch.tensor(losses), torch.tensor(ref_losses), 0.0,
+                DDP_LOSS_RTOL)
+    check_adam_bound("one process again", again_model, ref_model, cfg.optim.lr, DDP_STEPS)
+    check_adam_bound("data-parallel", model, ref_model, cfg.optim.lr, DDP_STEPS)
+    flops = train_flops_per_clip(cfg)
+    step_s = float(np.median(times[1:]))
+    rate = flops * TRAIN_BATCH / step_s
+    peak = device_peak_tflops()
+    mfu = mfu_pct(rate, peak)
+    print(f"  step time (median of steps 2-{DDP_STEPS}, host clock): data-parallel "
+          f"{step_s * 1e3:.1f} ms, one process {float(np.median(ref_times[1:])) * 1e3:.1f} ms "
+          f"(first run), {float(np.median(again_times[1:])) * 1e3:.1f} ms (again); "
+          f"{flops / 1e9:.2f} GFLOP a clip (FlopCounterMode on the plain model) -> "
+          f"{rate / 1e12:.2f} TFLOP/s = {mfu if mfu is None else round(mfu, 2)}% of the "
+          f"{peak} TFLOP/s bf16 peak [{smi}]")
+    return launches
+
+
+def phase_autotune(smi: str) -> dict:
+    """``measure_attn_kernels``: the attention half of a Swin block at the
+    flagship stage-0 geometry under base, packed, fold and fold_packed
+    (kernels 7, 9, A and 10 and nothing else, no plain version on the
+    card), and both picks."""
+    from vadcl_tpu_torch.utils.autotune import measure_attn_kernels, pick_from_times
+
+    print("[7] attention-kernel autotune: B=32, (2, 56, 56, 96), window (2, 7, 7), 6 heads, "
+          "bf16, the attention half of a Swin block")
+    reset_launches()
+    with plain_versions_refuse_the_card(), counting_partitions() as parts:
+        times = measure_attn_kernels()
+    launches = read_launches({"window_attention_fused", "window_attention_packed",
+                              "fold_attention", "fold_attention_packed"}, "autotune")
+    check_partitions("autotune", parts[0], 0)
+    print(f"  ms a call: {json.dumps({k: v * 1e3 for k, v in times.items()})} [{smi}]")
+    picks = {t: pick_from_times(times, t) for t in (False, True)}
+    print(f"  pick: {picks[False]}; trainable only: {picks[True]}")
+    if picks[True] not in ("base", "fold", "fold_block"):
+        raise AssertionError(f"the trainable pick {picks[True]!r} has no backward")
+    return launches
+
+
+def phase_profile() -> dict:
+    """``train(profile_steps=1)`` on the flagship ``fold`` config: steps
+    [2, 3) traced into ``profile/trace.json``, which must hold the step's
+    host ops and name the hand-written kernels."""
+    from vadcl_tpu_torch.train import train
+
+    print(f"[8] profiled training, fold, bf16: train(profile_steps=1) at batch {TRAIN_BATCH}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_profile_") as out:
+        cfg = flagship_train_config("fold").replace(output_dir=out,
+                                                    batch_size_per_device=TRAIN_BATCH)
+        train(cfg, MemLoader(TRAIN_BATCH, 3), max_steps=3, device=DEV, profile_steps=1)
+        path = os.path.join(out, "profile", "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if "vadcl" in e.get("name", "")]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    print(f"  trace {size} bytes: {len(ops)} host ops, {len(kernels)} device kernels "
+          f"({len(ours)} hand-written), {busy:.1f} ms of kernel time")
+    if not ops or not ours:
+        raise AssertionError("the profiled step's trace holds no host op or no hand-written "
+                             "kernel")
+    return {"trace_bytes": size, "kernels": len(kernels), "vadcl_kernels": len(ours)}
+
+
 REPLACES = {
     "fold_attention": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                        "vadcl_tpu/ops/pallas_attn_fold.py:165"),
@@ -2887,6 +3126,9 @@ def main():
                    for k in RECON_SCORING_KERNELS})
     counts.update({f"training {k}, reconstruction": phase_training(k, RECON_FRAMES)
                    for k in RECON_TRAINING_KERNELS})
+    counts["data-parallel training fold"] = phase_ddp(smi)
+    phase_autotune(smi)
+    phase_profile()
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],

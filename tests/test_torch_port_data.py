@@ -126,10 +126,13 @@ for name in ("jax", "jaxlib", "flax", "vadcl_tpu"):
 import vadcl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vadcl_tpu_torch.__path__, "vadcl_tpu_torch.")]
 for name in names + ["chip_smoke", "tools.evaluate_torch", "tools.train_torch",
-                     "tools.profile_torch"]:
+                     "tools.profile_torch", "tools.autotune_torch", "tools.ddp_check_torch"]:
     importlib.import_module(name)
 for name in ("vadcl_tpu_torch.data.dataset", "vadcl_tpu_torch.data.loader",
-             "vadcl_tpu_torch.viz.dumps", "vadcl_tpu_torch.ops.window_attn"):
+             "vadcl_tpu_torch.viz.dumps", "vadcl_tpu_torch.ops.window_attn",
+             "vadcl_tpu_torch.core.mesh", "vadcl_tpu_torch.parallel.sharding",
+             "vadcl_tpu_torch.utils.profiling", "vadcl_tpu_torch.utils.autotune",
+             "vadcl_tpu_torch.utils.flops"):
     assert name in names, name
 bad = sorted(k for k, v in sys.modules.items()
              if v is not None and k.split(".")[0] in ("jax", "jaxlib", "flax", "vadcl_tpu"))
@@ -150,7 +153,7 @@ print("ok", len(names))
 
 def test_port_imports_nothing_of_jax_and_reads_a_frame_folder():
     """With ``jax``, ``flax`` and ``vadcl_tpu`` made unimportable, every
-    module of the port, ``chip_smoke`` and the three CLIs import, and a
+    module of the port, ``chip_smoke`` and the five CLIs import, and a
     ``ClipDataset`` reads a synthetic frame folder."""
     out = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, capture_output=True,
                          text=True, timeout=300)

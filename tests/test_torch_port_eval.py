@@ -139,7 +139,7 @@ def test_scoring_functions_equal_jax():
 
 @pytest.mark.parametrize(
     "name", ["ClusterConfig", "ModelConfig", "DataConfig", "EvalConfig", "OptimConfig",
-             "ScheduleConfig"]
+             "ScheduleConfig", "MeshConfig", "Config"]
 )
 def test_config_dataclasses_equal_jax(name):
     pc, jc = getattr(port_config, name), getattr(jax_config, name)
@@ -155,7 +155,7 @@ def test_config_dataclasses_equal_jax(name):
 @pytest.mark.parametrize("name", sorted(jax_config._PRESETS))
 def test_presets_equal_jax(name):
     p, j = port_config.preset(name), jax_config.preset(name)
-    for part in ("model", "data", "optim", "schedule", "eval"):
+    for part in ("model", "data", "optim", "schedule", "eval", "mesh"):
         assert dataclasses.asdict(getattr(p, part)) == dataclasses.asdict(getattr(j, part))
     for f in ("seed", "batch_size_per_device", "output_dir", "save_every_epochs",
               "save_every_iters", "dump_every_iters", "bf16"):

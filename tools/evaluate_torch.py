@@ -1,11 +1,17 @@
 """Evaluation CLI of the PyTorch + CUDA port: checkpoint -> per-scene
-frame-level AUROC, with the flags of ``tools/evaluate.py`` (single process,
-swin backbone):
+frame-level AUROC, with the flags of ``tools/evaluate.py`` (swin backbone):
 
   python tools/evaluate_torch.py --fused --predict \\
       --test-data-path /data/test/frames --label-path /data/test/labels \\
       [--ckpt log_dir/ckpt/ckpt_100.npz] \\
       [--protocol stride1|nonoverlap|stride1_first_frame]
+
+On N cards of one host, one process per card: ``torchrun --nproc_per_node
+N tools/evaluate_torch.py ...``.  Process r scores videos r, r+N, ... on
+``cuda:LOCAL_RANK``; the per-frame scores gather and every process computes
+the same per-scene AUC (``evaluate_videos_distributed``), which rank 0
+prints; each process writes its own videos' curves to
+``<out>.proc<rank>.npz``.
 
 ``--ckpt`` takes a checkpoint written by the JAX package (``params/...``
 plus ``extras/batch_stats/...``); without it the model runs from its seeded
@@ -32,11 +38,20 @@ import torch
 from vadcl_tpu_torch.convert import load_jax_checkpoint
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.core.dtypes import compute_dtype
+from vadcl_tpu_torch.core.mesh import (
+    local_device,
+    maybe_initialize_distributed,
+    process_count,
+    process_index,
+    shutdown_distributed,
+)
 from vadcl_tpu_torch.data import ClipDataset
 from vadcl_tpu_torch.eval.predict import (
     eval_input_frames,
     evaluate_videos,
+    evaluate_videos_distributed,
     make_video_scorer,
+    scene_names,
 )
 from vadcl_tpu_torch.models import VADModel
 
@@ -92,11 +107,14 @@ def main(argv=None):
             "--device cuda: no CUDA device is visible; pass --device cpu to "
             "score on the CPU with the kernels' plain versions"
         )
-    device = torch.device(args.device)
+    maybe_initialize_distributed(args.device)
+    device = local_device(args.device)
+    main_process = process_index() == 0
     model = VADModel(model_cfg, compute_dtype(device), torch.Generator().manual_seed(0))
     if args.ckpt:
         load_jax_checkpoint(model, args.ckpt)
-        print(f"checkpoint: {args.ckpt} loaded (strict)")
+        if main_process:
+            print(f"checkpoint: {args.ckpt} loaded (strict)")
     model = model.to(device).eval()
 
     scorer = make_video_scorer(
@@ -113,23 +131,36 @@ def main(argv=None):
         label_root=args.label_path, istest=True,
     )
     proto = "stride1" if args.protocol == "stride1_first_frame" else args.protocol
-    auc, per_scene, per_video = evaluate_videos(
-        scorer, ds.iter_test_videos(), frame_num=args.frame_num,
-        predict=args.predict, protocol=proto,
-    )
-    for scene, a in sorted(per_scene.items()):
-        print(f"scene {scene}: AUC = {a:.4f}")
-    print(f"mean scene AUC = {auc:.4f}")
+    out = args.out
+    if process_count() > 1:
+        auc, per_scene, per_video = evaluate_videos_distributed(
+            scorer, len(ds.videos), ds.get_test_video, all_scenes=scene_names(ds.videos),
+            frame_num=args.frame_num, predict=args.predict, protocol=proto,
+        )
+        stem, ext = os.path.splitext(args.out)
+        out = f"{stem}.proc{process_index()}{ext}"  # this process's videos only
+    else:
+        auc, per_scene, per_video = evaluate_videos(
+            scorer, ds.iter_test_videos(), frame_num=args.frame_num,
+            predict=args.predict, protocol=proto,
+        )
+    if main_process:
+        for scene, a in sorted(per_scene.items()):
+            print(f"scene {scene}: AUC = {a:.4f}")
+        print(f"mean scene AUC = {auc:.4f}")
     np.savez(
-        args.out,
+        out,
         **{
             f"video{i}_{v.scene}": np.stack([v.scores, v.labels.astype(np.float64)])
             for i, v in enumerate(per_video)
         },
     )
-    print("per-video score curves ->", args.out)
+    print("per-video score curves ->", out)
     return auc
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown_distributed()

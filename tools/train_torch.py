@@ -1,9 +1,18 @@
 """Training CLI of the PyTorch + CUDA port, with the flags of
-``tools/train.py`` (single process, swin backbone):
+``tools/train.py`` (swin backbone):
 
   python tools/train_torch.py --preset shanghaitech --data-path /data/frames \\
       --predict --fused [--epochs N] [--max-steps N] [--output-dir log_dir] \\
       [--test-data-path ... --label-path ... --eval-every 4]
+
+Data-parallel on N cards of one host, one process per card:
+
+  torchrun --nproc_per_node N tools/train_torch.py --preset shanghaitech ...
+
+Each process takes ``cuda:LOCAL_RANK`` and its shard of every epoch; the
+batch size is per process, the loss is the global batch's, and only rank 0
+writes into the output directory (``train/loop.py``); the periodic eval
+deals the test videos over the processes (``evaluate_videos_distributed``).
 
 Checkpoints land under ``<output-dir>/ckpt`` in the JAX package's npz
 layout, with auto-resume (either package resumes from the other's).
@@ -11,7 +20,9 @@ layout, with auto-resume (either package resumes from the other's).
 hand-written kernels, forward and backward (``--attn-kernel
 fold|base|fold_block`` picks the attention kernel, fold by default); it
 fails when no GPU is visible.  ``--device cpu`` trains in fp32 with the
-kernels' plain versions.
+kernels' plain versions (under torchrun: gloo).  ``--profile-steps N``
+traces steps [2, 2+N) into ``<output-dir>/profile/trace.json``;
+``--debug-nans`` turns on autograd's anomaly detection.
 """
 
 from __future__ import annotations
@@ -26,6 +37,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 from vadcl_tpu_torch.core.config import preset
+from vadcl_tpu_torch.core.mesh import (
+    local_device,
+    maybe_initialize_distributed,
+    process_count,
+    process_index,
+    shutdown_distributed,
+)
 from vadcl_tpu_torch.data import ClipDataset, HostDataLoader
 from vadcl_tpu_torch.train.loop import train
 
@@ -36,7 +54,9 @@ def build_eval_fn(cfg, test_dir: str, label_dir: str, device: torch.device):
     from vadcl_tpu_torch.eval.predict import (
         eval_input_frames,
         evaluate_videos,
+        evaluate_videos_distributed,
         make_video_scorer,
+        scene_names,
     )
 
     test_ds = ClipDataset(test_dir, frame_num=cfg.data.frame_num, size=cfg.data.image_size,
@@ -56,12 +76,20 @@ def build_eval_fn(cfg, test_dir: str, label_dir: str, device: torch.device):
             input_frames=eval_input_frames(cfg.model.backbone, predict, cfg.data.frame_num),
             device=device,
         )
-        auc, per_scene, _ = evaluate_videos(
-            scorer, test_ds.iter_test_videos(), frame_num=cfg.data.frame_num,
-            predict=predict, protocol=cfg.eval.protocol,
-        )
-        print("per-scene AUC:", {k: round(v, 4) for k, v in per_scene.items()})
-        print("mean scene AUC:", round(auc, 4))
+        if process_count() > 1:
+            auc, per_scene, _ = evaluate_videos_distributed(
+                scorer, len(test_ds.videos), test_ds.get_test_video,
+                all_scenes=scene_names(test_ds.videos), frame_num=cfg.data.frame_num,
+                predict=predict, protocol=cfg.eval.protocol,
+            )
+        else:
+            auc, per_scene, _ = evaluate_videos(
+                scorer, test_ds.iter_test_videos(), frame_num=cfg.data.frame_num,
+                predict=predict, protocol=cfg.eval.protocol,
+            )
+        if process_index() == 0:
+            print("per-scene AUC:", {k: round(v, 4) for k, v in per_scene.items()})
+            print("mean scene AUC:", round(auc, 4))
         return auc
 
     return eval_fn
@@ -97,6 +125,10 @@ def main(argv=None):
                          "only; auto = 'fold' when --fused")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu trains with the kernels' plain versions in fp32")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="trace steps [2, 2+N) into <output-dir>/profile/trace.json")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly detection: name the op that first makes a NaN")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -104,6 +136,8 @@ def main(argv=None):
             "--device cuda: no CUDA device is visible; pass --device cpu to "
             "train on the CPU with the kernels' plain versions"
         )
+    maybe_initialize_distributed(args.device)
+    device = local_device(args.device)
     attn_kernel = args.attn_kernel
     if attn_kernel == "auto":
         attn_kernel = "fold" if args.fused else "base"
@@ -133,15 +167,20 @@ def main(argv=None):
 
     ds = ClipDataset(cfg.data.data_path, frame_num=cfg.data.frame_num, size=cfg.data.image_size)
     loader = HostDataLoader(ds, batch_size=cfg.batch_size_per_device, seed=cfg.seed,
-                            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch)
-    print(f"{len(ds)} train clips on {args.device}")
+                            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
+                            host_id=process_index(), num_hosts=process_count())
+    if process_index() == 0:
+        print(f"{len(ds)} train clips on {process_count()} x {device}")
     eval_fn = None
     if args.test_data_path and args.eval_every:
-        eval_fn = build_eval_fn(cfg, args.test_data_path, args.label_path,
-                                torch.device(args.device))
+        eval_fn = build_eval_fn(cfg, args.test_data_path, args.label_path, device)
     return train(cfg, loader, eval_fn=eval_fn, eval_every_epochs=args.eval_every,
-                 max_steps=args.max_steps or None, device=args.device)
+                 max_steps=args.max_steps or None, device=str(device),
+                 profile_steps=args.profile_steps, debug_nans=args.debug_nans)
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown_distributed()

@@ -3,6 +3,7 @@ from vadcl_tpu_torch.core.config import (
     Config,
     DataConfig,
     EvalConfig,
+    MeshConfig,
     ModelConfig,
     preset,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "Config",
     "DataConfig",
     "EvalConfig",
+    "MeshConfig",
     "ModelConfig",
     "preset",
     "compute_dtype",

@@ -1,7 +1,6 @@
-"""Typed configuration tree: the part of ``vadcl_tpu/core/config.py`` the
-scoring and single-process training paths need, with the same field names
-and defaults (the JAX ``MeshConfig`` has no counterpart yet: multi-process
-training is still to port).
+"""Typed configuration tree: the port's copy of ``vadcl_tpu/core/config.py``,
+with the same field names and defaults.  ``MeshConfig`` describes the data
+axis; under the port it is one process per card (``core/mesh.py``).
 
 It is a copy, not an import: ``vadcl_tpu/core/__init__.py`` imports the jax
 mesh helpers, so importing ``vadcl_tpu.core.config`` would pull jax into this
@@ -147,14 +146,27 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data-parallel axis.  The JAX package lays a 1-D ``data`` mesh over
+    its devices; the port runs one process per card instead
+    (``core/mesh.py``), whose process group is that axis.  The fields are
+    kept so the tree and its run stamp match the JAX package's; the port's
+    world size comes from the launcher, not from ``num_devices``."""
+
+    data_axis: str = "data"
+    num_devices: int = 0  # 0 = all available
+
+
+@dataclass(frozen=True)
 class Config:
-    """The JAX ``Config`` tree without its mesh."""
+    """The JAX ``Config`` tree."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     seed: int = 0
     batch_size_per_device: int = 4
     output_dir: str = "log_dir"

@@ -1,5 +1,6 @@
 """Sliding-window video evaluation driving PSNR -> anomaly score -> AUC
-(``vadcl_tpu/eval/predict.py``, single process).
+(``vadcl_tpu/eval/predict.py``), in one process (``evaluate_videos``) or
+across a process group (``evaluate_videos_distributed``).
 
 Protocols: ``stride1`` (a window at every frame), ``nonoverlap`` (every
 ``frame_num`` frames), and ``stride1_first_frame`` (stride-1 windows scored
@@ -14,6 +15,7 @@ normalisation and the per-scene AUC run on the host.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
@@ -21,7 +23,9 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequenc
 import numpy as np
 import torch
 
+from vadcl_tpu_torch.core.mesh import process_count, process_index
 from vadcl_tpu_torch.eval.scoring import anomaly_score, mean_scene_auc, per_scene_auc, psnr
+from vadcl_tpu_torch.parallel.sharding import cross_host_gather_ragged
 
 # the reference's literal ``video[:, :, 0:4]`` (vadcl_tpu/train/step.py:63)
 PREDICT_INPUT_FRAMES = 4
@@ -212,5 +216,58 @@ def evaluate_videos(
         else:
             scene_scores[scene] = scores
             scene_labels[scene] = frame_labels
+    aucs = per_scene_auc(scene_scores, scene_labels)
+    return mean_scene_auc(aucs), aucs, per_video
+
+
+def scene_names(video_dirs: Iterable[str]) -> List[str]:
+    """The ordered scenes of a test split: each video directory's name up
+    to its first "_" (``ClipDataset.get_test_video``'s scene)."""
+    return sorted({os.path.basename(v).split("_")[0] for v in video_dirs})
+
+
+def evaluate_videos_distributed(
+    scorer,
+    num_videos: int,
+    get_video: Callable[[int], Tuple[np.ndarray, np.ndarray, str]],
+    all_scenes: Sequence[str],
+    frame_num: int,
+    predict: bool,
+    protocol: str = "stride1",
+    lookahead: int = 2,
+) -> Tuple[float, Dict[str, float], List[VideoScores]]:
+    """``evaluate_videos`` across a process group: process ``r`` of ``P``
+    scores videos ``r, r + P, ...`` on its own card, then the per-frame
+    anomaly scores (float64), labels (int64) and scene ids gather in rank
+    order (``cross_host_gather_ragged``; a process may have scored none),
+    and every process computes the same per-scene AUC and its mean.
+
+    ``all_scenes`` is the same ordered scene list on every process (from
+    the full dataset listing).  The returned ``per_video`` holds this
+    process's videos only.  Outside a group: ``evaluate_videos`` over every
+    video."""
+    rank, world = process_index(), process_count()
+    scene_to_idx = {s: i for i, s in enumerate(all_scenes)}
+    per_video: List[VideoScores] = []
+    local = (get_video(i) for i in range(rank, num_videos, world))
+    for frames, labels, scene in pipeline_videos(scorer, local, lookahead):
+        frame_mse, frame_labels = score_video(
+            scorer, frames, labels, frame_num, predict, protocol
+        )
+        if frame_mse.size == 0:
+            continue
+        per_video.append(VideoScores(scores=anomaly_score(psnr(frame_mse)),
+                                     labels=frame_labels, scene=scene))
+
+    def gathered(part: Callable[[VideoScores], np.ndarray], dtype) -> np.ndarray:
+        mine = [np.asarray(part(v), dtype) for v in per_video]
+        return cross_host_gather_ragged(np.concatenate(mine) if mine else np.zeros(0, dtype))
+
+    g_scores = gathered(lambda v: v.scores, np.float64)
+    g_labels = gathered(lambda v: v.labels, np.int64)
+    g_scene = gathered(lambda v: np.full(len(v.scores), scene_to_idx[v.scene]), np.int64)
+    scene_scores = {s: g_scores[g_scene == i] for i, s in enumerate(all_scenes)
+                    if np.any(g_scene == i)}
+    scene_labels = {s: g_labels[g_scene == scene_to_idx[s]] for s in scene_scores}
     aucs = per_scene_auc(scene_scores, scene_labels)
     return mean_scene_auc(aucs), aucs, per_video

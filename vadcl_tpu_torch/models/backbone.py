@@ -11,7 +11,7 @@ convae_predict) are still to port (ROADMAP.md, queue 1 item 8).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -22,6 +22,10 @@ from vadcl_tpu_torch.models.decoder import SwinDecoder3D
 from vadcl_tpu_torch.models.encoder import SwinEncoder3D
 from vadcl_tpu_torch.models.layers import LayerNorm, init_parameters
 from vadcl_tpu_torch.ops.cluster import frobenius_norm
+
+
+def _summed(s: torch.Tensor, global_sum) -> torch.Tensor:
+    return s if global_sum is None else global_sum(s)
 
 
 class VADOutput(NamedTuple):
@@ -77,7 +81,9 @@ class VADModel(nn.Module):
         init_parameters(self, generator if generator is not None else torch.Generator().manual_seed(0))
 
     def forward(self, clip: torch.Tensor, detach_cluster_input: Optional[bool] = None,
-                compactness_gate: Optional[torch.Tensor] = None) -> VADOutput:
+                compactness_gate: Optional[torch.Tensor] = None,
+                global_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> VADOutput:
         """clip (B, D, H, W, 3) in [0, 1] -> VADOutput.
 
         ``compactness_gate`` (a 0/1 scalar tensor) is the staged
@@ -87,7 +93,12 @@ class VADModel(nn.Module):
         consumes ``assign @ centers``.  ``None`` keeps the static
         ``config.compactness`` behaviour, with the heads' input detached
         unless ``detach_cluster_input`` (default: ``not compactness``) says
-        otherwise."""
+        otherwise.
+
+        ``global_sum`` takes each cluster loss's sum of squares before its
+        square root: a data-parallel train step passes the all-reduce
+        (``parallel.sharding.global_sum``), so every process gets the
+        losses of the global batch, as the JAX step computes them."""
         cfg = self.config
         x = self.encoder(clip.to(self.dtype))
         B, Dp, Hp, Wp, C = x.shape
@@ -104,13 +115,13 @@ class VADModel(nn.Module):
             fc = self.cluster1(x_for_cluster)
             sc = self.space_cluster(x_for_cluster)
             if fc.loss_sq_sum is not None:
-                cluster_loss = torch.sqrt(fc.loss_sq_sum)
+                cluster_loss = torch.sqrt(_summed(fc.loss_sq_sum, global_sum))
             else:
-                cluster_loss = frobenius_norm(fc.distance * fc.assign)
+                cluster_loss = frobenius_norm(fc.distance * fc.assign, global_sum)
             if sc.loss_sq_sum is not None:
-                space_loss = torch.sqrt(sc.loss_sq_sum)
+                space_loss = torch.sqrt(_summed(sc.loss_sq_sum, global_sum))
             else:
-                space_loss = frobenius_norm(sc.distance * sc.assign)
+                space_loss = frobenius_norm(sc.distance * sc.assign, global_sum)
             if cfg.compactness:
                 if gate is not None:
                     x = gate * fc.recon.to(self.dtype) + (1 - gate) * x

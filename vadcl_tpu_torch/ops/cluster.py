@@ -86,7 +86,11 @@ def space_cluster_assign(
     )
 
 
-def frobenius_norm(x: torch.Tensor) -> torch.Tensor:
-    """torch.norm(x): Frobenius norm over the whole tensor, fp32."""
+def frobenius_norm(x: torch.Tensor, global_sum=None) -> torch.Tensor:
+    """torch.norm(x): Frobenius norm over the whole tensor, fp32.
+    ``global_sum`` (``parallel.sharding.global_sum`` in a data-parallel
+    train step) sums the squares over every process's shard before the
+    root, so the norm is the global batch's."""
     x = x.float()
-    return torch.sqrt((x * x).sum())
+    s = (x * x).sum()
+    return torch.sqrt(s if global_sum is None else global_sum(s))

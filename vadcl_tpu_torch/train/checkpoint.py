@@ -59,9 +59,12 @@ def load_train_state(flat: Dict[str, np.ndarray], state: TrainState) -> TrainSta
 
 
 class CheckpointManager:
+    """The checkpoints under ``directory``, which the first ``save``
+    creates (so that a process that only reads, such as a data-parallel
+    rank other than 0, writes nothing)."""
+
     def __init__(self, directory: str, max_to_keep: int = 5):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
 
     def _path(self, tag: str) -> str:
@@ -69,6 +72,7 @@ class CheckpointManager:
 
     def save(self, tag: str, state: TrainState, metadata: Optional[dict] = None) -> None:
         flat = flatten_train_state(state)
+        os.makedirs(self.directory, exist_ok=True)
         if metadata is not None:
             flat["__meta__"] = np.frombuffer(json.dumps(metadata).encode(), dtype=np.uint8)
         # atomic write: tmp file + rename
@@ -92,6 +96,8 @@ class CheckpointManager:
         return {}
 
     def _numeric_tags(self):
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(_NUMERIC.fullmatch, os.listdir(self.directory))
                       if m)
 

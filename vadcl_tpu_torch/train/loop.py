@@ -1,5 +1,5 @@
-"""Epoch training loop (``vadcl_tpu/train/loop.py``), single process: data,
-step, logging, checkpoints, eval hook.
+"""Epoch training loop (``vadcl_tpu/train/loop.py``): data, step, logging,
+checkpoints, eval hook, profiler window.
 
 Kept from the JAX loop: the ``exp.log`` line format; mid-epoch auto-resume
 from the newest checkpoint (the loader fast-forwards with ``start_iter``);
@@ -7,16 +7,27 @@ one-step-lagged metrics; ``loss_record/*.npy`` truncated to the resumed
 step; ``save_every_iters`` / ``save_every_epochs``; ``auc_record.csv`` and
 the ``best`` checkpoint; the non-finite-loss abort; the loss-spike batch
 dump and the periodic input/recon dump (both need PIL, through
-``vadcl_tpu_torch/viz/dumps.py``, which imports it only when used).  Multi-process data
-parallelism and the profiler hook are still to port.
+``vadcl_tpu_torch/viz/dumps.py``, which imports it only when used); a
+profiler trace of a window of steps; anomaly detection (``debug_nans``).
+
+Inside a process group (``core/mesh.py``, one process per card) every
+process runs this loop on its own loader shard and the step is
+data-parallel (``train/step.py``).  Only process 0 writes into
+``output_dir``: the run stamp, ``exp.log``, checkpoints, loss records,
+``auc_record.csv``, dumps and the trace; the others log nowhere.  Every
+process resumes from process 0's newest checkpoint, and every save is
+followed by a barrier, so no process reads a file half written.
 
 The loader is anything with ``batch_size``, ``steps_per_epoch()`` and
 ``epoch(e, start_iter=0)`` yielding uint8 (B, T, H, W, 3) numpy batches
-(the JAX package's ``HostDataLoader`` protocol).
+(the JAX package's ``HostDataLoader`` protocol); in a group, this
+process's shard (``HostDataLoader(host_id=rank, num_hosts=world)``), with
+the same ``steps_per_epoch()`` on every process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -27,6 +38,7 @@ import torch
 
 from vadcl_tpu_torch.core.config import Config
 from vadcl_tpu_torch.core.dtypes import compute_dtype
+from vadcl_tpu_torch.core.mesh import barrier, process_count, process_index
 from vadcl_tpu_torch.models.backbone import VADModel
 from vadcl_tpu_torch.train.checkpoint import CheckpointManager
 from vadcl_tpu_torch.train.step import (
@@ -35,16 +47,26 @@ from vadcl_tpu_torch.train.step import (
     make_train_step,
     split_predict_batch,
 )
+from vadcl_tpu_torch.utils.profiling import StepTimer, trace_steps
+
+__all__ = ["StepTimer", "get_logger", "train"]
 
 
-def get_logger(path: str, name: str = "vadcl_torch") -> logging.Logger:
+def get_logger(path: str, name: str = "vadcl_torch", to_file: bool = True) -> logging.Logger:
     """File logger in the reference's [time][file][line][level] format,
-    truncated per run (``misc/utils.py:79-95``)."""
+    truncated per run (``misc/utils.py:79-95``).  ``to_file=False`` gives
+    a silent logger (a ``NullHandler``, no propagation): the processes
+    other than 0 of a group log nowhere."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
+    if not to_file:
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+        return logger
+    logger.propagate = True
     fh = logging.FileHandler(path, "w")
     fh.setFormatter(logging.Formatter(
         "[%(asctime)s][%(filename)s][line:%(lineno)d][%(levelname)s] %(message)s"))
@@ -66,27 +88,6 @@ def _dumps():
     return save_clip_frames
 
 
-class StepTimer:
-    """Clips per second from an EMA of the wall time between ticks."""
-
-    def __init__(self, clips_per_step: int, ema: float = 0.9):
-        self.clips_per_step, self.ema = clips_per_step, ema
-        self._last: Optional[float] = None
-        self.step_time: Optional[float] = None
-
-    def tick(self) -> None:
-        now = time.time()
-        if self._last is not None:
-            dt = now - self._last
-            self.step_time = dt if self.step_time is None else (
-                self.ema * self.step_time + (1 - self.ema) * dt)
-        self._last = now
-
-    @property
-    def clips_per_sec(self) -> float:
-        return self.clips_per_step / self.step_time if self.step_time else 0.0
-
-
 def train(
     cfg: Config,
     loader,
@@ -94,26 +95,38 @@ def train(
     eval_every_epochs: int = 0,
     max_steps: Optional[int] = None,
     device: str = "cuda",
+    profile_steps: int = 0,
+    debug_nans: bool = False,
 ) -> TrainState:
     """Train ``VADModel(cfg.model)`` from its seeded init (``cfg.seed``) or
     from the newest checkpoint under ``<output_dir>/ckpt``.  Runs on the card
     (``device="cuda"``, compute dtype bf16 with ``cfg.bf16``) unless the
     caller asks for ``device="cpu"`` (fp32, the plain versions of the
     kernels); without a visible card the default raises instead of training
-    on the CPU.  Stamps ``run_meta.json`` into the output directory."""
+    on the CPU.  Stamps ``run_meta.json`` into the output directory.
+
+    ``profile_steps`` > 0 traces steps ``[2, 2 + profile_steps)`` into
+    ``<output_dir>/profile/trace.json`` (``utils/profiling.trace_steps``);
+    ``debug_nans`` runs the loop under ``torch.autograd``'s anomaly
+    detection, which names the backward op that first makes a NaN (the
+    JAX loop's ``jax_debug_nans``).  In a process group (the module
+    docstring) ``eval_fn`` runs on every process and must return the same
+    AUC on each (``eval.predict.evaluate_videos_distributed``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "train(): no CUDA device is visible; pass device=\"cpu\" to train on the CPU "
             "(fp32, the kernels' plain versions)"
         )
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    from vadcl_tpu_torch.utils.provenance import write_run_stamp
+    is_main, world = process_index() == 0, process_count()
+    if is_main:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        from vadcl_tpu_torch.utils.provenance import write_run_stamp
 
-    write_run_stamp(cfg.output_dir, cfg, device=dev)
-    logger = get_logger(os.path.join(cfg.output_dir, "exp.log"))
+        write_run_stamp(cfg.output_dir, cfg, device=dev)
+    logger = get_logger(os.path.join(cfg.output_dir, "exp.log"), to_file=is_main)
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
-    if cfg.dump_every_iters:
+    if cfg.dump_every_iters and is_main:
         _dumps()  # fail now, not at the first dump, when PIL is missing
 
     dtype = compute_dtype(dev) if cfg.bf16 else torch.float32
@@ -141,20 +154,25 @@ def train(
             return t.pin_memory().to(dev, non_blocking=True)
         return t
 
-    timer = StepTimer(clips_per_step=loader.batch_size)
+    def save_checkpoint(tag: str, meta: dict) -> None:
+        if is_main:
+            ckpt.save(tag, state, meta)
+        barrier()  # no process goes on (or resumes) before the file is whole
+
+    timer = StepTimer(clips_per_step=loader.batch_size * world)
     best_auc = -1.0
     spike = {"prev_loss": None, "dumped": False}
     loss_record_dir = os.path.join(cfg.output_dir, "loss_record")
     loss_log = {"loss": [], "loss_pixel": [], "cluster_loss": [], "space_loss": []}
 
     def flush_loss_records():
-        if not loss_log["loss"]:
+        if not is_main or not loss_log["loss"]:
             return
         os.makedirs(loss_record_dir, exist_ok=True)
         for name, vals in loss_log.items():
             np.save(os.path.join(loss_record_dir, f"{name}.npy"), np.asarray(vals))
 
-    if latest is not None:  # carry the records across the resume, cut at its step
+    if latest is not None and is_main:  # carry the records across the resume, cut at its step
         for name in loss_log:
             p = os.path.join(loss_record_dir, f"{name}.npy")
             if os.path.exists(p):
@@ -166,7 +184,7 @@ def train(
             logger.error(f"Loss is {loss}, stopping training")
             raise FloatingPointError(f"non-finite loss at step {step_h}")
         prev = spike["prev_loss"]
-        if prev is not None and abs(loss - prev) > 10.0 and not spike["dumped"]:
+        if is_main and prev is not None and abs(loss - prev) > 10.0 and not spike["dumped"]:
             spike["dumped"] = True  # once per run (main_predict.py:290-294)
             try:
                 save = _dumps()
@@ -176,7 +194,7 @@ def train(
                 save(batch_h, os.path.join(cfg.output_dir, "bug_data_detect"))
                 logger.warning(f"loss jumped {prev:.3f} -> {loss:.3f}; batch dumped")
         spike["prev_loss"] = loss
-        if cfg.dump_every_iters and step_h % cfg.dump_every_iters == 0:
+        if is_main and cfg.dump_every_iters and step_h % cfg.dump_every_iters == 0:
             save = _dumps()
             batch_f = np.asarray(batch_h)
             if batch_f.dtype == np.uint8:
@@ -195,40 +213,52 @@ def train(
 
     lagged = None
     t0 = time.time()
-    for epoch in range(start_epoch, cfg.optim.epochs):
-        first_iter = start_iter if epoch == start_epoch else 0
-        for it, batch in enumerate(loader.epoch(epoch, start_iter=first_iter), start=first_iter):
-            m = step_fn(state, to_device(batch))
-            timer.tick()
-            # metrics with a one-step lag, as the JAX loop consumes them
-            if lagged is not None:
-                process_metrics(*lagged)
-            lagged = (m, epoch, it, batch, state.step)
-            if cfg.save_every_iters and state.step % cfg.save_every_iters == 0:
-                # the checkpoint says step N: the records must hold steps 1..N
-                process_metrics(*lagged)
-                lagged = None
-                ckpt.save(str(state.step), state, {"epoch": epoch, "iter": it})
-                flush_loss_records()
-            if max_steps is not None and state.step >= max_steps:
+    trace = contextlib.ExitStack()
+    trace_stop = None
+    # (set_detect_anomaly restores the former mode when the loop ends)
+    with trace, torch.autograd.set_detect_anomaly(debug_nans or torch.is_anomaly_enabled()):
+        for epoch in range(start_epoch, cfg.optim.epochs):
+            first_iter = start_iter if epoch == start_epoch else 0
+            for it, batch in enumerate(loader.epoch(epoch, start_iter=first_iter),
+                                       start=first_iter):
+                if profile_steps and trace_stop is None and state.step >= 2:
+                    trace.enter_context(trace_steps(os.path.join(cfg.output_dir, "profile"),
+                                                    enabled=is_main))
+                    trace_stop = state.step + profile_steps
+                m = step_fn(state, to_device(batch))
+                if trace_stop is not None and state.step == trace_stop:
+                    trace.close()  # the trace holds steps [2, 2 + profile_steps)
+                timer.tick()
+                # metrics with a one-step lag, as the JAX loop consumes them
                 if lagged is not None:
                     process_metrics(*lagged)
-                flush_loss_records()
-                return state
-        if lagged is not None:
-            process_metrics(*lagged)
-            lagged = None
-        flush_loss_records()
-        if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
-            ckpt.save(str(state.step), state, {"epoch": epoch, "iter": steps_per_epoch - 1})
-        if eval_fn is not None and eval_every_epochs and (epoch + 1) % eval_every_epochs == 0:
-            auc = eval_fn(state)
-            logger.info(f"epoch {epoch} AUC={auc:.4f}")
-            with open(os.path.join(cfg.output_dir, "auc_record.csv"), "a") as f:
-                f.write(f"{epoch},{auc:.6f}\n")
-            if auc > best_auc:
-                best_auc = auc
-                ckpt.save("best", state, {"epoch": epoch, "auc": auc})
+                lagged = (m, epoch, it, batch, state.step)
+                if cfg.save_every_iters and state.step % cfg.save_every_iters == 0:
+                    # the checkpoint says step N: the records must hold steps 1..N
+                    process_metrics(*lagged)
+                    lagged = None
+                    save_checkpoint(str(state.step), {"epoch": epoch, "iter": it})
+                    flush_loss_records()
+                if max_steps is not None and state.step >= max_steps:
+                    if lagged is not None:
+                        process_metrics(*lagged)
+                    flush_loss_records()
+                    return state
+            if lagged is not None:
+                process_metrics(*lagged)
+                lagged = None
+            flush_loss_records()
+            if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
+                save_checkpoint(str(state.step), {"epoch": epoch, "iter": steps_per_epoch - 1})
+            if eval_fn is not None and eval_every_epochs and (epoch + 1) % eval_every_epochs == 0:
+                auc = eval_fn(state)
+                logger.info(f"epoch {epoch} AUC={auc:.4f}")
+                if is_main:
+                    with open(os.path.join(cfg.output_dir, "auc_record.csv"), "a") as f:
+                        f.write(f"{epoch},{auc:.6f}\n")
+                if auc > best_auc:
+                    best_auc = auc
+                    save_checkpoint("best", {"epoch": epoch, "auc": auc})
     if lagged is not None:
         process_metrics(*lagged)
     flush_loss_records()

@@ -12,7 +12,18 @@ overlaps the input, the reference's quirk).  Cluster losses turn on at
 
 Unlike the JAX step, which returns a new state, this step updates the
 model's parameters and the optimizer's state in place (``TrainState`` holds
-both).  Single process; data parallelism is still to port.
+both).
+
+Data parallelism: inside a process group (``core/mesh.py``) every process
+runs the step on its own shard of the global batch.  The JAX step computes
+its loss over the global batch, and all three terms are square roots of
+batch sums, which do not split over processes: the sums are all-reduced
+before each root (``parallel.sharding.global_sum``), so every process holds
+the global loss and the gradient of it through its own shard.  The model
+runs under ``DistributedDataParallel``, whose gradient all-reduce is made
+to SUM those gradients (``_sum_gradients``, a communication hook; the
+default hook averages), which gives the JAX step's global gradient.
+Outside a group the step runs exactly as a single process always has.
 """
 
 from __future__ import annotations
@@ -21,10 +32,14 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from vadcl_tpu_torch.core.config import TRAINABLE_ATTN_KERNELS, Config
+from vadcl_tpu_torch.core.mesh import is_distributed
 from vadcl_tpu_torch.models.backbone import VADModel
 from vadcl_tpu_torch.ops.cluster import frobenius_norm
+from vadcl_tpu_torch.parallel.sharding import global_sum
 from vadcl_tpu_torch.train.optim import (
     apply_gates,
     build_optimizer,
@@ -90,9 +105,13 @@ def _check_trainable(cfg: Config) -> None:
 
 def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
     """loss_fn(clip, step) -> (loss, (loss_pixel, cluster_loss, space_loss,
-    recon or None)); ``step`` is the host-side step count."""
+    recon or None)); ``step`` is the host-side step count.  Inside a
+    process group ``clip`` is this process's shard and the losses are the
+    global batch's (the module docstring); ``model`` may be the
+    ``DistributedDataParallel`` wrapper of a ``VADModel``."""
     _check_trainable(cfg)
     sched = cfg.schedule
+    reduce = global_sum  # the identity outside a process group
 
     def loss_fn(clip: torch.Tensor, step: int):
         clip = normalize_clip(clip)
@@ -101,9 +120,9 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
         if cfg.model.compactness:
             gate = torch.tensor(float(step >= sched.compactness_start_iter),
                                 device=clip.device)
-        out = model(inputs, compactness_gate=gate)
+        out = model(inputs, compactness_gate=gate, global_sum=reduce)
         err = out.recon.float() - target.float()
-        loss_pixel = frobenius_norm(err * err)
+        loss_pixel = frobenius_norm(err * err, reduce)
         cluster_gate = float(step >= sched.cluster_start_iter)
         cluster_loss = out.cluster_loss * cluster_gate
         space_loss = out.space_loss * cluster_gate
@@ -126,6 +145,31 @@ def global_grad_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
 
 
+def _sum_gradients(process_group, bucket):
+    """DDP communication hook: all-reduce a bucket of gradients as a sum
+    (the default hook divides it by the world size)."""
+    group = process_group if process_group is not None else dist.group.WORLD
+    fut = dist.all_reduce(bucket.buffer(), group=group, async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
+
+
+def data_parallel(model: VADModel) -> DistributedDataParallel:
+    """``model`` under ``DistributedDataParallel``, its gradients summed
+    over the group.  ``broadcast_buffers=False``: the buffers (relative
+    position indices) are constant, and a broadcast before every forward
+    would bump their version counters, which key the kernels' packed-weight
+    cache (``ops/packed.py``).  ``find_unused_parameters`` stays False:
+    every parameter enters the loss's graph at every step (a gated loss
+    term is multiplied by 0, not skipped; a gated parameter's gradient is
+    dropped after the all-reduce)."""
+    dev = next(model.parameters()).device
+    ddp = DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        broadcast_buffers=False)
+    ddp.register_comm_hook(None, _sum_gradients)
+    return ddp
+
+
 def make_train_step(model: VADModel, cfg: Config,
                     steps_per_epoch: int) -> Callable[[TrainState, torch.Tensor], StepMetrics]:
     """step_fn(state, clip) -> StepMetrics for ``state.model is model``,
@@ -136,8 +180,16 @@ def make_train_step(model: VADModel, cfg: Config,
     gradient; the optimizer steps at lr(step); then the step count
     advances.  A non-finite loss skips the optimizer step, so parameters
     and optimizer state are held (the JAX step's ``jnp.where`` guard); it
-    costs one host read of the loss per step."""
-    loss_fn = make_loss_fn(model, cfg, return_recon=cfg.dump_every_iters > 0)
+    costs one host read of the loss per step.
+
+    Inside a process group the step is data-parallel (the module
+    docstring): ``clip`` is this process's shard, the model runs under
+    ``data_parallel`` (which first broadcasts rank 0's parameters), and the
+    gradients are the global sum when ``backward`` returns, so the clipping
+    norm, the non-finite decision (the loss is the global loss) and the
+    update are the same on every process."""
+    fwd = data_parallel(model) if is_distributed() else model
+    loss_fn = make_loss_fn(fwd, cfg, return_recon=cfg.dump_every_iters > 0)
     lr_sched = cosine_epoch_lr(cfg.optim.lr, cfg.optim.min_lr, cfg.optim.epochs,
                                steps_per_epoch, cfg.optim.warmup_epochs)
     named = list(model.named_parameters())

@@ -70,14 +70,18 @@ def resolved_config(cfg: Any) -> Any:
 
 def topology(device: Any = None) -> Dict[str, Any]:
     """The devices a run sees: on a CUDA ``device`` the card's name and the
-    visible card count, else ``"cpu"`` with count 0."""
+    visible card count, else ``"cpu"`` with count 0; and the number of
+    processes of its data-parallel group (1 without one)."""
     import torch
+
+    from vadcl_tpu_torch.core.mesh import process_count
 
     dev = torch.device(device) if device is not None else None
     if dev is not None and dev.type == "cuda":
         return {"backend": "cuda", "device": torch.cuda.get_device_name(dev),
-                "device_count": torch.cuda.device_count(), "process_count": 1}
-    return {"backend": "cpu", "device": "cpu", "device_count": 0, "process_count": 1}
+                "device_count": torch.cuda.device_count(), "process_count": process_count()}
+    return {"backend": "cpu", "device": "cpu", "device_count": 0,
+            "process_count": process_count()}
 
 
 def write_run_stamp(output_dir: str, cfg: Any, extra: Optional[Dict[str, Any]] = None,
