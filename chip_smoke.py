@@ -169,11 +169,14 @@ import dataclasses
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+from vadcl_tpu_torch.utils.provenance import smi_line
 
 FOLD_GEOMETRIES = {  # name: ((D, H, W, C) per clip, heads, runtime window, shift)
     "enc_stage0": ((2, 56, 56, 96), 6, (2, 7, 7), (0, 3, 3)),
@@ -202,14 +205,6 @@ MODEL_TOL = 1e-4  # phase 3 recon atol and rtol, fp32: summation order only
 CLUSTER_RTOL = 1e-4  # recon and loss: 3xTF32 products (~2^-21) and another sum order
 LABEL_GAP = 1e-3  # labels must agree where best and second-best differ by more
 DEV = "cuda"  # where the phases put their tensors
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 4, batch: int = 5, warmup: int = 3) -> float:
@@ -2772,45 +2767,11 @@ def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
 
 
 DDP_STEPS = 3
-# phase 6, the data-parallel step against the one-process step on the same
-# global batch and weights: the loss to the bf16 kernel bound (BOUNDS), the
-# parameters to the trajectory tests' Adam bound (each element within 2.5
-# lr a step, at most 2% of the elements beyond one lr), but the key third of
-# each qkv_bias: its gradient is zero in exact arithmetic (a constant added
-# to every key of a query leaves the softmax unchanged), so both runs hold
-# rounding noise there, which Adam turns into steps of +-lr whatever its
-# size; those elements are held to 2 lr a step.
-DDP_LOSS_RTOL = BOUNDS[torch.bfloat16][1]
-
-
-def key_bias(name: str, p: torch.Tensor) -> torch.Tensor:
-    """True on the key third of a ``qkv_bias``, False elsewhere."""
-    mask = torch.zeros_like(p, dtype=torch.bool)
-    if name.endswith("attn.qkv_bias"):
-        c = p.numel() // 3
-        mask[c:2 * c] = True
-    return mask
-
-
-def check_adam_bound(label: str, model, ref_model, lr: float, steps: int) -> None:
-    """``model``'s parameters against ``ref_model``'s after ``steps`` Adam
-    steps from the same weights (``DDP_STEPS``' comment)."""
-    ref = dict(ref_model.named_parameters())
-    same, worst, beyond = 0, 0.0, 0.0
-    for k, p in model.named_parameters():
-        diff = (p.detach() - ref[k].detach()).abs()
-        same += int(torch.equal(p, ref[k]))
-        key = key_bias(k, p)
-        if key.any() and float(diff[key].max()) > 2 * lr * steps:
-            raise AssertionError(f"{label}: {k}'s key bias moved more than 2 lr a step")
-        rest = diff[~key]
-        worst = max(worst, float(rest.max()))
-        beyond = max(beyond, float((rest > lr).float().mean()))
-        if float(rest.max()) > 2.5 * lr * steps or float((rest > lr).float().mean()) >= 0.02:
-            raise AssertionError(f"{label}: {k} leaves the Adam bound")
-    print(f"  {label}: {same} of {len(ref)} parameter tensors bit for bit equal to one "
-          f"process; largest difference {worst:.3e} (bound {2.5 * lr * steps:.3e}), at most "
-          f"{beyond:.2%} of a tensor beyond one lr (bound 2%), key biases apart")
+# phase 6 holds the data-parallel step against the one-process step on the
+# same global batch and weights: the losses to the bf16 kernel bound
+# (DDP_LOSS_RTOL), the parameters to the trajectory tests' Adam bound
+# (utils/parity.py's check_adam_bound, the key biases apart).
+DDP_CHECK_TIMEOUT = 600  # seconds for tools/ddp_check_torch.py's 2 processes
 
 
 def _free_port() -> int:
@@ -2866,23 +2827,73 @@ def train_flops_per_clip(cfg) -> float:
     return counted_flops(step)
 
 
-def phase_ddp(smi: str) -> dict:
-    """The flagship ``fold`` train step under ``DistributedDataParallel`` on
-    an in-process NCCL group of world size 1 (one card), 3 steps at batch
-    4, against the one-process ``make_train_step`` from the same weights
-    on the same batches; the data-parallel run must launch the training
-    path's kernels every step (and no plain version on the card), all-reduce
-    the three loss sums a step and sum the gradients through the hook.
-    Prints the step's time and FLOP rate beside the card's peak."""
-    import torch.distributed as dist
+@contextlib.contextmanager
+def torchrun_env_of_one():
+    """While open, the variables torchrun gives a run of one process on
+    card 0 (a free localhost port for the rendezvous); the former values
+    come back on exit."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
+
+def ddp_check_two_cards() -> dict:
+    """``tools/ddp_check_torch.py`` under torchrun with 2 processes, one a
+    card, at global batch 4: its JSON line, which must say ok."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "2", os.path.join(root, "tools", "ddp_check_torch.py"), "--global-batch", "4",
+         "--steps", str(DDP_STEPS)],
+        capture_output=True, text=True, timeout=DDP_CHECK_TIMEOUT, cwd=root)
+    lines = [l for l in out.stdout.splitlines() if l.startswith("{")]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"tools/ddp_check_torch.py on 2 cards exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    result = json.loads(lines[-1])
+    if not result["ok"]:
+        raise AssertionError(f"tools/ddp_check_torch.py on 2 cards: {lines[-1]}")
+    return result
+
+
+def phase_ddp(smi: str) -> dict:
+    """The flagship ``fold`` train step under ``DistributedDataParallel`` in
+    a process group of one process on NCCL, started as a torchrun launch
+    starts it (``core.mesh.maybe_initialize_distributed`` from the
+    launcher's variables), 3 steps at batch 4, against the one-process
+    ``make_train_step`` from the same weights on the same batches; the
+    data-parallel run must launch the training path's kernels every step
+    (and no plain version on the card), all-reduce the three loss sums a
+    step and sum the gradients through the hook.  Prints the step's time
+    and FLOP rate beside the card's peak.  Where two or more cards are
+    visible, ``tools/ddp_check_torch.py`` then runs as 2 processes at half
+    batch each against one process (the train step and the eval)."""
+    from vadcl_tpu_torch.core.mesh import (
+        is_distributed,
+        maybe_initialize_distributed,
+        process_count,
+        shutdown_distributed,
+    )
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train import create_train_state, make_train_step
     from vadcl_tpu_torch.utils.flops import device_peak_tflops, mfu_pct
+    from vadcl_tpu_torch.utils.parity import DDP_LOSS_RTOL, check_adam_bound
 
+    cards = torch.cuda.device_count()
     print(f"[6] data-parallel training, fold, bf16: {DDP_STEPS} steps at batch {TRAIN_BATCH} "
-          f"through DistributedDataParallel, world size 1 (in-process NCCL group; "
-          f"{torch.cuda.device_count()} card(s) visible), against one process")
+          f"through DistributedDataParallel, one process on NCCL from torchrun's variables "
+          f"({cards} card(s) visible: "
+          f"{'then 2 processes at batch 2 each' if cards >= 2 else 'no 2-process run'}), "
+          f"against one process")
     cfg = flagship_train_config("fold")
     clips = np.random.RandomState(4).randint(
         0, 256, (DDP_STEPS, TRAIN_BATCH, 4, 224, 224, 3)).astype(np.uint8)
@@ -2906,19 +2917,24 @@ def phase_ddp(smi: str) -> dict:
     # the one-process step again: the card's own run-to-run spread (cuDNN's
     # convolution backward may sum in another order from one call to the next)
     again_model, again_losses, again_times = run()
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
-                            world_size=1)
-    try:
-        reset_launches()
-        with plain_versions_refuse_the_card(), counting_partitions() as parts, \
-                counting_data_parallel() as seen:
-            model, losses, times = run()
-        counts = {"fold_attention_bwd": 18 * DDP_STEPS, "ln_mlp_bwd": 18 * DDP_STEPS}
-        launches = read_launches(TRAINING_KERNELS["fold"], "data-parallel training, fold",
-                                 counts, heads=DDP_STEPS)
-        check_partitions("data-parallel training, fold", parts[0], 0)
-    finally:
-        dist.destroy_process_group()
+    with torchrun_env_of_one():
+        if not maybe_initialize_distributed("cuda") or process_count() != 1:
+            raise AssertionError("maybe_initialize_distributed did not start a group of one")
+        try:
+            print(f"  process group: {torch.distributed.get_backend()}, world size "
+                  f"{process_count()}, card {torch.cuda.current_device()}")
+            reset_launches()
+            with plain_versions_refuse_the_card(), counting_partitions() as parts, \
+                    counting_data_parallel() as seen:
+                model, losses, times = run()
+            counts = {"fold_attention_bwd": 18 * DDP_STEPS, "ln_mlp_bwd": 18 * DDP_STEPS}
+            launches = read_launches(TRAINING_KERNELS["fold"], "data-parallel training, fold",
+                                     counts, heads=DDP_STEPS)
+            check_partitions("data-parallel training, fold", parts[0], 0)
+        finally:
+            shutdown_distributed()
+    if is_distributed():
+        raise AssertionError("the process group outlived the phase")
     print(f"  loss sums all-reduced: {seen['loss_sums']}; gradient buckets summed: "
           f"{seen['grad_buckets']}")
     if seen["loss_sums"] != 3 * DDP_STEPS or seen["grad_buckets"] < DDP_STEPS:
@@ -2929,8 +2945,13 @@ def phase_ddp(smi: str) -> dict:
                 0.0, DDP_LOSS_RTOL)
     check_close("data-parallel loss", torch.tensor(losses), torch.tensor(ref_losses), 0.0,
                 DDP_LOSS_RTOL)
-    check_adam_bound("one process again", again_model, ref_model, cfg.optim.lr, DDP_STEPS)
-    check_adam_bound("data-parallel", model, ref_model, cfg.optim.lr, DDP_STEPS)
+    ref = dict(ref_model.named_parameters())
+    for label, m in (("one process again", again_model), ("data-parallel", model)):
+        b = check_adam_bound(label, dict(m.named_parameters()), ref, cfg.optim.lr, DDP_STEPS)
+        print(f"  {label}: {b['same']} of {b['tensors']} parameter tensors bit for bit equal "
+              f"to one process; largest difference {b['worst']:.3e} (bound {b['bound']:.3e}), "
+              f"at most {b['beyond']:.2%} of a tensor beyond one lr (bound 2%), key biases "
+              f"apart")
     flops = train_flops_per_clip(cfg)
     step_s = float(np.median(times[1:]))
     rate = flops * TRAIN_BATCH / step_s
@@ -2942,6 +2963,14 @@ def phase_ddp(smi: str) -> dict:
           f"{flops / 1e9:.2f} GFLOP a clip (FlopCounterMode on the plain model) -> "
           f"{rate / 1e12:.2f} TFLOP/s = {mfu if mfu is None else round(mfu, 2)}% of the "
           f"{peak} TFLOP/s bf16 peak [{smi}]")
+    if cards >= 2:
+        two = ddp_check_two_cards()
+        print(f"  2 processes (tools/ddp_check_torch.py, NCCL): losses within "
+              f"{two['loss_rel_err']:.3e} of one process (bound {two['loss_bound']}), the same "
+              f"parameters on every process, AUC {two['auc']} against one process's "
+              f"{two['one_process_auc']}; step ms {two['step_ms']} [{two['card']}]")
+    else:
+        print("  2 processes: not run (one card visible)")
     return launches
 
 

@@ -132,7 +132,7 @@ for name in ("vadcl_tpu_torch.data.dataset", "vadcl_tpu_torch.data.loader",
              "vadcl_tpu_torch.viz.dumps", "vadcl_tpu_torch.ops.window_attn",
              "vadcl_tpu_torch.core.mesh", "vadcl_tpu_torch.parallel.sharding",
              "vadcl_tpu_torch.utils.profiling", "vadcl_tpu_torch.utils.autotune",
-             "vadcl_tpu_torch.utils.flops"):
+             "vadcl_tpu_torch.utils.flops", "vadcl_tpu_torch.utils.parity"):
     assert name in names, name
 bad = sorted(k for k, v in sys.modules.items()
              if v is not None and k.split(".")[0] in ("jax", "jaxlib", "flax", "vadcl_tpu"))

@@ -111,6 +111,32 @@ def test_tuned_cache_keyed_by_card(fake_card, tmp_path):
     assert fake_card["calls"] == 4
 
 
+def test_autotune_cli_reads_the_cache_unless_refreshed(fake_card, tmp_path, monkeypatch,
+                                                       capsys):
+    """``tools/autotune_torch.py``: the first run measures and caches; a
+    second prints the cached pick and times and measures nothing, even
+    where the card would now pick otherwise; ``--refresh`` measures again."""
+    from tools import autotune_torch
+
+    monkeypatch.setattr(autotune_torch, "smi_line", lambda: "Fake GPU A, 700.00 W")
+    path = str(tmp_path / "autotune.json")
+
+    def run(*flags):
+        pick = autotune_torch.main(["--cache", path, *flags])
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["pick"] == pick and line["nvidia_smi"] == "Fake GPU A, 700.00 W"
+        return line
+
+    first = run()
+    assert first["pick"] == "packed" and not first["from_cache"] and fake_card["calls"] == 1
+    fake_card["times"] = dict(TIMES, fold=0.4)
+    again = run()
+    assert again == first | {"from_cache": True} and fake_card["calls"] == 1
+    fresh = run("--refresh")
+    assert fresh["pick"] == "fold" and not fresh["from_cache"] and fake_card["calls"] == 2
+    assert fresh["times_ms"]["fold"] == pytest.approx(400.0)
+
+
 def test_tuned_unreadable_cache_is_measured_anew(fake_card, tmp_path):
     path = tmp_path / "autotune.json"
     path.write_text("{not json")

@@ -61,6 +61,47 @@ def run_steps(inputs, rank, world):
     )
 
 
+def run_half_batches(inputs):
+    """The control for ``run_steps`` on two ranks, in one process and with
+    no collective: each global batch is taken as two half-batch passes
+    whose gradients accumulate before the one optimizer step, and each
+    half's loss adds the other half's batch sums (from a first pass over
+    each half whose graph is dropped) where two ranks would all-reduce
+    them.  It does the arithmetic of two ranks at half batch in the order
+    they do it."""
+    real_make, real_sum = step_mod.make_loss_fn, step_mod.global_sum
+    other = {"sums": None}
+    seen = []
+
+    def summed(t):
+        seen.append(t.detach())
+        return t if other["sums"] is None else t + other["sums"].pop(0)
+
+    def make_loss_fn(model, cfg, return_recon=False):
+        loss_fn = real_make(model, cfg, return_recon)
+
+        def halves(clip, step):
+            a, b = clip[:len(clip) // 2], clip[len(clip) // 2:]
+            own = []
+            for half in (a, b):
+                other["sums"] = None
+                seen.clear()
+                loss_fn(half, step)
+                own.append(list(seen))
+            other["sums"] = own[1]
+            loss_fn(a, step)[0].backward()
+            other["sums"] = own[0]
+            return loss_fn(b, step)  # the step's own backward adds b's gradients
+
+        return halves
+
+    step_mod.make_loss_fn, step_mod.global_sum = make_loss_fn, summed
+    try:
+        return run_steps(inputs, 0, 1)
+    finally:
+        step_mod.make_loss_fn, step_mod.global_sum = real_make, real_sum
+
+
 def mode_step(inputs, rank, world):
     out = {"global": run_steps(inputs, rank, world)}
     # the reference's semantics: per-rank losses, gradients averaged by DDP

@@ -6,7 +6,10 @@ pick (``tools/autotune.py``):
 Prints one JSON line: the card's name and power limit, each family's time
 through a Swin block's attention half at the flagship stage-0 geometry
 (``vadcl_tpu_torch/utils/autotune.py``), and the pick, which is cached per
-kind of card (default ``~/.cache/vadcl_tpu_torch/autotune.json``).
+kind of card (default ``~/.cache/vadcl_tpu_torch/autotune.json``).  Where
+the cache already holds a pick for this card and ``--trainable-only``,
+that pick and the times it was made from are printed (``from_cache``) and
+nothing is measured; ``--refresh`` measures anyway and rewrites the entry.
 ``--attn-kernel auto`` in ``tools/train_torch.py`` and
 ``tools/evaluate_torch.py`` stays the fixed choice (``fold`` with
 ``--fused``); pass the printed pick to use the measured one.  Without a
@@ -18,7 +21,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -31,6 +33,7 @@ from vadcl_tpu_torch.utils.autotune import (
     read_cache,
     tuned_attn_kernel,
 )
+from vadcl_tpu_torch.utils.provenance import smi_line
 
 
 def main(argv=None):
@@ -44,15 +47,15 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print(json.dumps({"pick": "base", "note": "no CUDA device: nothing measured"}))
         return "base"
-    pick = tuned_attn_kernel(trainable_only=args.trainable_only, cache_path=args.cache,
-                             refresh=True)
-    times = read_cache(args.cache or DEFAULT_CACHE)[cache_key(args.trainable_only)]["times_s"]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
+    path, key = args.cache or DEFAULT_CACHE, cache_key(args.trainable_only)
+    entry = read_cache(path).get(key)
+    cached = not args.refresh and isinstance(entry, dict) and "pick" in entry
+    pick = tuned_attn_kernel(trainable_only=args.trainable_only, cache_path=path,
+                             refresh=args.refresh)
+    times = read_cache(path)[key].get("times_s", {})
     print(json.dumps({
-        "device": torch.cuda.get_device_name(), "nvidia_smi": smi[0] if smi else None,
-        "times_ms": {k: v * 1e3 for k, v in times.items()},
+        "device": torch.cuda.get_device_name(), "nvidia_smi": smi_line(),
+        "times_ms": {k: v * 1e3 for k, v in times.items()}, "from_cache": cached,
         "pick": pick, "trainable_only": args.trainable_only,
     }))
     return pick

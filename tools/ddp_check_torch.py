@@ -11,8 +11,9 @@ seeded init over four synthetic uint8 videos in two scenes.  Then every
 process joins the group (``maybe_initialize_distributed``), runs the same
 steps on its shard of each global batch (``--global-batch`` / N clips) and
 ``evaluate_videos_distributed``.  Rank 0 holds the data-parallel run to the
-bounds of ``chip_smoke.py``'s phase 6 (the losses within the bf16 kernel
-bound, the parameters within the Adam bound, the key biases apart), checks
+bounds of ``chip_smoke.py``'s phase 6 (``vadcl_tpu_torch/utils/parity.py``:
+the losses within the bf16 kernel bound, the parameters within the Adam
+bound, the key biases apart), checks
 that every process ends on the same parameters and that the AUCs are the
 one-process ones to 1e-12, and prints one JSON line (on the card with its
 name and power limit); a failed check exits non-zero.
@@ -32,7 +33,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import torch
 
-from chip_smoke import DDP_LOSS_RTOL, check_adam_bound, smi_line
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.core.dtypes import compute_dtype
 from vadcl_tpu_torch.core.mesh import (
@@ -49,6 +49,8 @@ from vadcl_tpu_torch.eval.predict import (
 from vadcl_tpu_torch.models import VADModel
 from vadcl_tpu_torch.parallel import cross_host_concat
 from vadcl_tpu_torch.train import create_train_state, make_train_step
+from vadcl_tpu_torch.utils.parity import DDP_LOSS_RTOL, check_adam_bound
+from vadcl_tpu_torch.utils.provenance import smi_line
 
 
 def synthetic_videos(size: int, seed: int = 0):
@@ -136,10 +138,11 @@ def main(argv=None) -> int:
     if rank != 0:
         return 0
 
-    ok = True
+    ok, bound = True, {}
     worst_loss = float(np.max(np.abs(np.subtract(losses, ref_losses)) / np.abs(ref_losses)))
     try:
-        check_adam_bound("data-parallel", model, ref_model, cfg.optim.lr, args.steps)
+        bound = check_adam_bound("data-parallel", dict(model.named_parameters()),
+                                 dict(ref_model.named_parameters()), cfg.optim.lr, args.steps)
     except AssertionError as e:
         print(f"FAILED: {e}")
         ok = False
@@ -152,6 +155,7 @@ def main(argv=None) -> int:
         "global_batch": args.global_batch, "losses": losses, "one_process_losses": ref_losses,
         "loss_rel_err": worst_loss, "loss_bound": DDP_LOSS_RTOL,
         "same_params_on_every_rank": len(set(sums)) == 1,
+        "param_max_diff": bound.get("worst"), "param_bound": bound.get("bound"),
         "auc": auc, "one_process_auc": ref_auc, "auc_abs_err": auc_err,
         "step_ms": [t * 1e3 for t in times], "one_process_step_ms": [t * 1e3 for t in ref_times],
     }))

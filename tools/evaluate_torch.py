@@ -48,7 +48,6 @@ from vadcl_tpu_torch.core.mesh import (
 from vadcl_tpu_torch.data import ClipDataset
 from vadcl_tpu_torch.eval.predict import (
     eval_input_frames,
-    evaluate_videos,
     evaluate_videos_distributed,
     make_video_scorer,
     scene_names,
@@ -131,19 +130,14 @@ def main(argv=None):
         label_root=args.label_path, istest=True,
     )
     proto = "stride1" if args.protocol == "stride1_first_frame" else args.protocol
+    auc, per_scene, per_video = evaluate_videos_distributed(
+        scorer, len(ds.videos), ds.get_test_video, all_scenes=scene_names(ds.videos),
+        frame_num=args.frame_num, predict=args.predict, protocol=proto,
+    )
     out = args.out
     if process_count() > 1:
-        auc, per_scene, per_video = evaluate_videos_distributed(
-            scorer, len(ds.videos), ds.get_test_video, all_scenes=scene_names(ds.videos),
-            frame_num=args.frame_num, predict=args.predict, protocol=proto,
-        )
         stem, ext = os.path.splitext(args.out)
         out = f"{stem}.proc{process_index()}{ext}"  # this process's videos only
-    else:
-        auc, per_scene, per_video = evaluate_videos(
-            scorer, ds.iter_test_videos(), frame_num=args.frame_num,
-            predict=args.predict, protocol=proto,
-        )
     if main_process:
         for scene, a in sorted(per_scene.items()):
             print(f"scene {scene}: AUC = {a:.4f}")

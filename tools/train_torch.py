@@ -53,7 +53,6 @@ def build_eval_fn(cfg, test_dir: str, label_dir: str, device: torch.device):
     (``vadcl_tpu_torch.eval``), for the loop's eval hook."""
     from vadcl_tpu_torch.eval.predict import (
         eval_input_frames,
-        evaluate_videos,
         evaluate_videos_distributed,
         make_video_scorer,
         scene_names,
@@ -76,17 +75,11 @@ def build_eval_fn(cfg, test_dir: str, label_dir: str, device: torch.device):
             input_frames=eval_input_frames(cfg.model.backbone, predict, cfg.data.frame_num),
             device=device,
         )
-        if process_count() > 1:
-            auc, per_scene, _ = evaluate_videos_distributed(
-                scorer, len(test_ds.videos), test_ds.get_test_video,
-                all_scenes=scene_names(test_ds.videos), frame_num=cfg.data.frame_num,
-                predict=predict, protocol=cfg.eval.protocol,
-            )
-        else:
-            auc, per_scene, _ = evaluate_videos(
-                scorer, test_ds.iter_test_videos(), frame_num=cfg.data.frame_num,
-                predict=predict, protocol=cfg.eval.protocol,
-            )
+        auc, per_scene, _ = evaluate_videos_distributed(
+            scorer, len(test_ds.videos), test_ds.get_test_video,
+            all_scenes=scene_names(test_ds.videos), frame_num=cfg.data.frame_num,
+            predict=predict, protocol=cfg.eval.protocol,
+        )
         if process_index() == 0:
             print("per-scene AUC:", {k: round(v, 4) for k, v in per_scene.items()})
             print("mean scene AUC:", round(auc, 4))

@@ -201,6 +201,22 @@ def evaluate_videos(
     scene, mean over scenes (``tool/contrast_evaluae.py:258-299``)."""
     scene_scores: Dict[str, np.ndarray] = {}
     scene_labels: Dict[str, np.ndarray] = {}
+    per_video = _score_videos(scorer, videos, frame_num, predict, protocol, lookahead)
+    for v in per_video:
+        if v.scene in scene_scores:
+            scene_scores[v.scene] = np.append(scene_scores[v.scene], v.scores)
+            scene_labels[v.scene] = np.append(scene_labels[v.scene], v.labels)
+        else:
+            scene_scores[v.scene] = v.scores
+            scene_labels[v.scene] = v.labels
+    aucs = per_scene_auc(scene_scores, scene_labels)
+    return mean_scene_auc(aucs), aucs, per_video
+
+
+def _score_videos(scorer, videos, frame_num, predict, protocol, lookahead
+                  ) -> List[VideoScores]:
+    """Each video's per-frame anomaly scores (PSNR -> min-max), in order;
+    a video too short for one window is left out."""
     per_video: List[VideoScores] = []
     for frames, labels, scene in pipeline_videos(scorer, videos, lookahead):
         frame_mse, frame_labels = score_video(
@@ -208,16 +224,9 @@ def evaluate_videos(
         )
         if frame_mse.size == 0:
             continue
-        scores = anomaly_score(psnr(frame_mse))
-        per_video.append(VideoScores(scores=scores, labels=frame_labels, scene=scene))
-        if scene in scene_scores:
-            scene_scores[scene] = np.append(scene_scores[scene], scores)
-            scene_labels[scene] = np.append(scene_labels[scene], frame_labels)
-        else:
-            scene_scores[scene] = scores
-            scene_labels[scene] = frame_labels
-    aucs = per_scene_auc(scene_scores, scene_labels)
-    return mean_scene_auc(aucs), aucs, per_video
+        per_video.append(VideoScores(scores=anomaly_score(psnr(frame_mse)),
+                                     labels=frame_labels, scene=scene))
+    return per_video
 
 
 def scene_names(video_dirs: Iterable[str]) -> List[str]:
@@ -244,20 +253,13 @@ def evaluate_videos_distributed(
 
     ``all_scenes`` is the same ordered scene list on every process (from
     the full dataset listing).  The returned ``per_video`` holds this
-    process's videos only.  Outside a group: ``evaluate_videos`` over every
-    video."""
+    process's videos only.  Outside a group this process scores every
+    video, and the AUCs are ``evaluate_videos``' (the scenes in
+    ``all_scenes`` order)."""
     rank, world = process_index(), process_count()
     scene_to_idx = {s: i for i, s in enumerate(all_scenes)}
-    per_video: List[VideoScores] = []
     local = (get_video(i) for i in range(rank, num_videos, world))
-    for frames, labels, scene in pipeline_videos(scorer, local, lookahead):
-        frame_mse, frame_labels = score_video(
-            scorer, frames, labels, frame_num, predict, protocol
-        )
-        if frame_mse.size == 0:
-            continue
-        per_video.append(VideoScores(scores=anomaly_score(psnr(frame_mse)),
-                                     labels=frame_labels, scene=scene))
+    per_video = _score_videos(scorer, local, frame_num, predict, protocol, lookahead)
 
     def gathered(part: Callable[[VideoScores], np.ndarray], dtype) -> np.ndarray:
         mine = [np.asarray(part(v), dtype) for v in per_video]

@@ -68,6 +68,17 @@ def resolved_config(cfg: Any) -> Any:
     return repr(cfg)
 
 
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (the first card's line): written
+    beside every time measured on it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
 def topology(device: Any = None) -> Dict[str, Any]:
     """The devices a run sees: on a CUDA ``device`` the card's name and the
     visible card count, else ``"cpu"`` with count 0; and the number of
