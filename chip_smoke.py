@@ -147,6 +147,22 @@ Phases (any failure raises and the script exits non-zero):
      kernels 7, 9, A and 10 and nothing else launched; both picks.
   8. ``train(profile_steps=1)``: the trace of step 3 holds host ops and
      the hand-written kernels.
+  9. the alternate families at full width (the shanghaitech preset, 224^2,
+     frame_num 4: UNet3D at channels 64-1024, ConvAE and ConvAEPredict at
+     64-512 with a bank of 10 x 512), none of whose paths launches a
+     hand-written kernel (asserted): two ``make_train_step`` steps at batch
+     2 in fp32 with TF32 off, card against CPU from the same state each
+     step (every loss term, every parameter within the Adam bound, the
+     memory bank against the CPU's update and against the plain update of
+     the card's own inputs, a query sent to another slot only at a near
+     tie: ``utils/parity.py``); ``train()`` in bf16 at batch 4, 5 steps,
+     step 2 traced (host-clock ms a step, device-busy ms, unit-norm bank
+     rows, a checkpoint round trip with the bank); ``evaluate_videos`` of
+     two videos twice with the model left in train mode (the bank bit for
+     bit unmoved, the two scorings equal, windows/s).
+ 10. the flagship ``fold`` scoring forward in bf16 at batch 16 with and
+     without ``subpixel_deconv``: the reconstructions within the bf16
+     bound, the decoder's three transposed convs timed both ways.
 No earlier path was cut: the whole run takes about five minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels, kernel B's CUDA-core body, the whole-block forward's and
@@ -2435,10 +2451,11 @@ class MemLoader:
     """In-memory uint8 clips with the HostDataLoader protocol; stamps the
     wall clock, after a device synchronize, at every batch request."""
 
-    def __init__(self, batch_size: int, steps: int, seed: int = 0, frames: int = 4):
+    def __init__(self, batch_size: int, steps: int, seed: int = 0, frames: int = 4,
+                 size: int = 224):
         rng = np.random.RandomState(seed)
         self.batch_size, self.steps = batch_size, steps
-        self.data = rng.randint(0, 256, (4, batch_size, frames, 224, 224, 3)).astype(np.uint8)
+        self.data = rng.randint(0, 256, (4, batch_size, frames, size, size, 3)).astype(np.uint8)
         self.stamps = []
 
     def steps_per_epoch(self) -> int:
@@ -3025,6 +3042,284 @@ def phase_profile() -> dict:
     return {"trace_bytes": size, "kernels": len(kernels), "vadcl_kernels": len(ours)}
 
 
+ZOO_BACKBONES = ("unet3d", "convae", "convae_predict")
+ZOO_SIZE = 224  # the shanghaitech preset's frames
+ZOO_CHECK_BATCH, ZOO_CHECK_STEPS = 2, 2  # phase 9's fp32 steps, card against CPU
+ZOO_BATCH, ZOO_STEPS = 4, 5  # its bf16 train() run: steps 0-1 warm up, 2 traced, 3-4 timed
+
+
+def zoo_train_config(backbone: str):
+    """The shanghaitech preset (224^2, frame_num 4) with ``backbone``: UNet3D
+    at channels 64-1024, ConvAE at 64-512 with a bank of 10 x 512."""
+    from vadcl_tpu_torch.core.config import preset
+
+    cfg = preset("shanghaitech")
+    return cfg.replace(model=dataclasses.replace(cfg.model, backbone=backbone),
+                       data=dataclasses.replace(cfg.data, image_size=(ZOO_SIZE, ZOO_SIZE)))
+
+
+def zoo_model(cfg, dtype, seed: int = 0):
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.models.backbone import model_input_frames
+
+    return VADModel(cfg.model, dtype, torch.Generator().manual_seed(seed),
+                    model_input_frames(cfg.model.backbone, cfg.data.frame_num))
+
+
+@contextlib.contextmanager
+def recording_bank_updates():
+    """While open, records every memory-bank update (``models.memory``'s
+    ``memory_update``): the query and bank it was given (on the CPU), the
+    bank it returned, and the top-1 slot of each query and the gap of its
+    two best scores, computed where the update ran.  Yields the list."""
+    from vadcl_tpu_torch.models import memory
+    from vadcl_tpu_torch.utils.parity import top1_slots
+
+    calls, real = [], memory.memory_update
+
+    def recorded(query, keys, global_sum=None, global_max=None):
+        out = real(query, keys, global_sum, global_max)
+        slots, gap = top1_slots(query.detach(), keys)
+        calls.append(dict(query=query.detach().float().reshape(-1, keys.shape[-1]).cpu(),
+                          keys=keys.detach().cpu(), new=out.detach().cpu(), slots=slots.cpu(),
+                          gap=gap.cpu()))
+        return out
+
+    memory.memory_update = recorded
+    try:
+        yield calls
+    finally:
+        memory.memory_update = real
+
+
+def phase_zoo_check(backbone: str) -> dict:
+    """``make_train_step`` of ``backbone`` in fp32 with TF32 off, the card
+    against the CPU, ``ZOO_CHECK_STEPS`` steps at batch ``ZOO_CHECK_BATCH``
+    on uint8 224^2 clips, each step from the same state (the CPU model and
+    optimizer take the card's after a step): every loss term within
+    ``FP32_LOSS_RTOL``, every parameter within the Adam bound, and a memory
+    family's bank (``check_bank``: a query may take another top-1 slot only
+    at a near tie, whose two rows are left out) against the CPU's update of
+    the CPU's inputs and against the plain update of the card's own
+    inputs.  No hand-written kernel launches on these paths."""
+    from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES
+    from vadcl_tpu_torch.ops.memory import memory_update
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+    from vadcl_tpu_torch.utils.parity import (
+        FP32_LOSS_RTOL, check_adam_bound, check_bank, top1_slots,
+    )
+
+    cfg = zoo_train_config(backbone)
+    print(f"[9] {backbone}: {ZOO_CHECK_STEPS} train steps at batch {ZOO_CHECK_BATCH}, "
+          f"{ZOO_SIZE}^2, fp32, TF32 off: card vs CPU, each step from the same state")
+    cpu_model = zoo_model(cfg, torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    cpu_state, gpu_state = create_train_state(cpu_model, cfg), create_train_state(gpu_model, cfg)
+    cpu_step, gpu_step = (make_train_step(m, cfg, steps_per_epoch=10)
+                          for m in (cpu_model, gpu_model))
+    clips = np.random.RandomState(5).randint(
+        0, 256, (ZOO_CHECK_STEPS, ZOO_CHECK_BATCH, cfg.data.frame_num, ZOO_SIZE, ZOO_SIZE, 3)
+    ).astype(np.uint8)
+    memory = backbone in MEMORY_BACKBONES
+    reset_launches()
+    out = {}
+    for i, clip in enumerate(clips):
+        if i:  # the same state on both sides
+            cpu_model.load_state_dict(gpu_model.state_dict())
+            cpu_state.optimizer.load_state_dict(gpu_state.optimizer.state_dict())
+        with recording_bank_updates() as rec:
+            t0 = time.perf_counter()
+            mc = cpu_step(cpu_state, torch.from_numpy(clip))
+            t_cpu = time.perf_counter() - t0
+            with plain_versions_refuse_the_card():
+                mg = gpu_step(gpu_state, torch.from_numpy(clip).to(DEV))
+            torch.cuda.synchronize()
+        terms = ("loss", "loss_pixel", "cluster_loss", "space_loss")
+        got = torch.tensor([float(getattr(mg, t)) for t in terms])
+        want = torch.tensor([float(getattr(mc, t)) for t in terms])
+        print(f"  step {i + 1}: losses card {got.tolist()} CPU {want.tolist()}; CPU step "
+              f"{t_cpu:.1f} s")
+        # (atol: unet3d's memory-loss slots are 0 on both sides)
+        check_close(f"{backbone} step {i + 1} losses", got, want, 1e-9, FP32_LOSS_RTOL)
+        b = check_adam_bound(f"{backbone} step {i + 1}",
+                             {k: p.detach().cpu() for k, p in gpu_model.named_parameters()},
+                             dict(cpu_model.named_parameters()), cfg.optim.lr, 1)
+        print(f"  parameters: {b['same']} of {b['tensors']} tensors bit for bit, largest "
+              f"difference {b['worst']:.3e} (bound {b['bound']:.3e}), at most "
+              f"{b['beyond']:.2%} of a tensor beyond one lr")
+        if memory:
+            cpu_call, gpu_call = rec
+            own = memory_update(gpu_call["query"], gpu_call["keys"])
+            own_slots, own_gap = top1_slots(gpu_call["query"], gpu_call["keys"])
+            a = check_bank(f"{backbone} step {i + 1}, the update of the card's inputs",
+                           gpu_call["new"], own, gpu_call["slots"], own_slots, own_gap)
+            c = check_bank(f"{backbone} step {i + 1}, card against CPU", gpu_call["new"],
+                           cpu_call["new"], gpu_call["slots"], cpu_call["slots"],
+                           cpu_call["gap"])
+            bank = gpu_model.convae.memory.keys
+            norm_err = float((bank.norm(dim=1) - 1).abs().max())
+            print(f"  bank: against the plain update of the card's inputs {a['worst']:.3e} "
+                  f"({a['moved']} queries apart); against the CPU's {c['worst']:.3e} "
+                  f"({c['moved']} of {len(gpu_call['slots'])} queries at near ties, "
+                  f"{c['rows_apart']} rows left out); | |row| - 1 | <= {norm_err:.1e}")
+            if not torch.equal(bank.cpu(), gpu_call["new"]) or norm_err > 1e-5:
+                raise AssertionError(f"{backbone}: the bank is not the update's, or not unit")
+            out[f"step {i + 1} queries apart"] = c["moved"]
+    read_launches(set(), f"{backbone} train step, fp32")
+    return out
+
+
+def phase_zoo_train(backbone: str, smi: str):
+    """``train()`` of ``backbone`` in the card's compute dtype (bf16) at
+    batch ``ZOO_BATCH`` for ``ZOO_STEPS`` steps, step 2 traced by
+    ``profile_steps``: finite losses, moved parameters, unit-norm bank
+    rows, a checkpoint round trip (the bank included); prints the host-clock
+    ms of steps 3-4 and the traced step's device-busy ms.  Returns the
+    trained model (in train mode, as ``train()`` leaves it)."""
+    from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES
+    from vadcl_tpu_torch.train import CheckpointManager, create_train_state, train
+
+    print(f"[9] {backbone}: train() at batch {ZOO_BATCH}, bf16, {ZOO_STEPS} steps")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_zoo_") as out:
+        cfg = zoo_train_config(backbone).replace(output_dir=out, batch_size_per_device=ZOO_BATCH)
+        loader = MemLoader(ZOO_BATCH, ZOO_STEPS, frames=cfg.data.frame_num, size=ZOO_SIZE)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with plain_versions_refuse_the_card():
+            state = train(cfg, loader, max_steps=ZOO_STEPS, device=DEV, profile_steps=1)
+            torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        read_launches(set(), f"{backbone} train(), bf16")
+        losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
+        with open(os.path.join(out, "profile", "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        busy = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+        step_ms = (t_end - loader.stamps[3]) / (ZOO_STEPS - 3) * 1e3
+        print(f"  losses {[round(float(v), 4) for v in losses]}")
+        print(f"  {step_ms:.1f} ms a step (host clock, steps 3-4), traced step 2: {busy:.1f} ms "
+              f"device busy; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+        if state.step != ZOO_STEPS or len(losses) != ZOO_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{backbone}: training did not run every step with a finite loss")
+        init = zoo_model(cfg, torch.bfloat16, cfg.seed)
+        still = [k for (k, p), (_, q) in zip(state.model.named_parameters(),
+                                             init.named_parameters())
+                 if torch.equal(p.detach().cpu(), q.detach())]
+        if still:
+            raise AssertionError(f"{backbone}: parameters that training did not move: {still}")
+        mgr = CheckpointManager(os.path.join(out, "ckpt"))
+        mgr.save(str(state.step), state, {"epoch": 0, "iter": ZOO_STEPS - 1})
+        fresh = create_train_state(zoo_model(cfg, torch.bfloat16, 1).to(DEV), cfg)
+        mgr.restore(str(state.step), fresh)
+        for (k, a), b in zip(state.model.state_dict().items(), fresh.model.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{backbone}: checkpoint round trip changed {k}")
+        if cfg.model.backbone in MEMORY_BACKBONES:
+            bank = state.model.convae.memory.keys
+            norm_err = float((bank.norm(dim=1) - 1).abs().max())
+            moved = float((bank.cpu() - init.convae.memory.keys).abs().max())
+            print(f"  bank: | |row| - 1 | <= {norm_err:.1e}, moved {moved:.3e} from its init; "
+                  "restored bit for bit")
+            if norm_err > 1e-5 or moved == 0.0:
+                raise AssertionError(f"{backbone}: the bank's rows are not unit, or it never moved")
+    return state.model, {"step_ms": step_ms, "busy_ms": busy}
+
+
+def phase_zoo_scoring(backbone: str, model, smi: str) -> dict:
+    """``evaluate_videos`` of two synthetic 224^2 videos with the model
+    ``train()`` left (train mode, bf16), twice: the bank bit for bit the
+    same after both, the two scorings' scores equal; windows/s of the
+    second."""
+    from vadcl_tpu_torch.eval.predict import (
+        eval_input_frames, evaluate_videos, make_video_scorer, sliding_windows,
+    )
+    from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES, predicts
+
+    cfg = model.config
+    predict = predicts(cfg)
+    print(f"[9] {backbone}: scoring, {'predict' if predict else 'reconstruction'}, bf16, the "
+          "model in train mode")
+    scorer = make_video_scorer(lambda c: model(c).recon, frame_num=4, predict=predict,
+                               batch_windows=BATCH_WINDOWS,
+                               input_frames=eval_input_frames(cfg.backbone, predict, 4),
+                               device=DEV)
+    videos = make_videos()[:2]
+    memory = cfg.backbone in MEMORY_BACKBONES
+    before = model.convae.memory.keys.clone() if memory else None
+    reset_launches()
+    with plain_versions_refuse_the_card():
+        first = evaluate_videos(scorer, videos, 4, predict)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        auc, _, per_video = evaluate_videos(scorer, videos, 4, predict)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_launches(set(), f"{backbone} scoring")
+    n = sum(len(sliding_windows(v[0].shape[0], 4, "stride1")) for v in videos)
+    for a, b in zip(first[2], per_video):
+        if not (np.all(np.isfinite(b.scores)) and np.allclose(a.scores, b.scores, rtol=0,
+                                                                atol=1e-6)):
+            raise AssertionError(f"{backbone}: two scorings disagree or are not finite")
+    if memory and not torch.equal(model.convae.memory.keys, before):
+        raise AssertionError(f"{backbone}: scoring moved the memory bank")
+    print(f"  {n} windows in {wall:.3f} s = {n / wall:.2f} windows/s; mean scene AUC {auc:.4f}; "
+          f"two scorings agree{'; the bank unmoved' if memory else ''} [{smi}]")
+    return {"windows_per_s": n / wall}
+
+
+def phase_subpixel(smi: str) -> dict:
+    """The flagship ``fold`` scoring forward in bf16 at batch
+    ``BATCH_WINDOWS`` with and without ``subpixel_deconv`` (the same
+    weights): the reconstructions within the bf16 kernel bound, and the
+    decoder's transposed convs (``upsample0.proj``, ``patchdebed.deconv1``,
+    ``deconv2``) timed both ways on the inputs the forward gave them."""
+    from vadcl_tpu_torch.models import VADModel
+
+    print(f"[10] sub-pixel deconvolution: the flagship fold forward, bf16, batch {BATCH_WINDOWS}")
+    cfg = flagship_config("fold")
+    plain = VADModel(cfg, torch.bfloat16, torch.Generator().manual_seed(0)).to(DEV).eval()
+    sub = VADModel(dataclasses.replace(cfg, subpixel_deconv=True), torch.bfloat16).to(DEV).eval()
+    sub.load_state_dict(plain.state_dict())
+    names = ("upsample0.proj", "patchdebed.deconv1", "patchdebed.deconv2")
+    inputs = {}
+    hooks = [plain.decoder.get_submodule(n).register_forward_hook(
+        lambda mod, args, out, n=n: inputs.__setitem__(n, args[0])) for n in names]
+    clips = torch.rand(BATCH_WINDOWS, 4, 224, 224, 3, generator=torch.Generator().manual_seed(6))
+    with torch.inference_mode(), plain_versions_refuse_the_card():
+        want = plain(clips.to(DEV)).recon
+        got = sub(clips.to(DEV)).recon
+        for h in hooks:
+            h.remove()
+        check_close("subpixel recon", got.float(), want.float(), *BOUNDS[torch.bfloat16])
+        out = {}
+        for n in names:
+            a, b = plain.decoder.get_submodule(n), sub.decoder.get_submodule(n)
+            if a.subpixel or not b.subpixel:
+                raise AssertionError(f"{n}: the sub-pixel flag did not reach the layer")
+            x = inputs[n]
+            out[n] = (cuda_ms(lambda: a(x)), cuda_ms(lambda: b(x)))
+    total = [sum(v[i] for v in out.values()) for i in (0, 1)]
+    print(f"  device ms a call, dilated -> sub-pixel: "
+          f"{json.dumps({n: [round(v, 4) for v in t] for n, t in out.items()})}; the three "
+          f"{total[0]:.4f} -> {total[1]:.4f} ms [{smi}]")
+    return out
+
+
+def phase_zoo(smi: str) -> dict:
+    """Phase 9: the alternate families at full width, then phase 10."""
+    out = {}
+    for backbone in ZOO_BACKBONES:
+        out[backbone] = phase_zoo_check(backbone)
+        model, times = phase_zoo_train(backbone, smi)
+        out[backbone].update(times)
+        out[backbone].update(phase_zoo_scoring(backbone, model, smi))
+        del model
+        torch.cuda.empty_cache()
+    out["subpixel"] = phase_subpixel(smi)
+    return out
+
+
 REPLACES = {
     "fold_attention": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                        "vadcl_tpu/ops/pallas_attn_fold.py:165"),
@@ -3158,6 +3453,7 @@ def main():
     counts["data-parallel training fold"] = phase_ddp(smi)
     phase_autotune(smi)
     phase_profile()
+    phase_zoo(smi)
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],

@@ -222,6 +222,13 @@ def test_fold_block_too_large_for_shared_memory_takes_the_window_route(monkeypat
 
 
 def test_alternate_backbones_raise():
+    """Every family of the JAX package builds (none is refused as unported:
+    ``tests/test_torch_port_zoo.py`` holds them against JAX); what raises is
+    an unknown family, and a ConvAE family built without the clip length
+    its first conv takes."""
     m = dataclasses.replace(preset("tiny").model, backbone="unet3d")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VADModel(m)
+    assert hasattr(VADModel(m), "unet3d")
+    with pytest.raises(ValueError, match="unknown backbone"):
+        VADModel(dataclasses.replace(m, backbone="resnet"))
+    with pytest.raises(ValueError, match="needs input_frames"):
+        VADModel(dataclasses.replace(m, backbone="convae"))

@@ -16,6 +16,9 @@ test wrote to ``<workdir>/inputs.pt``; it writes what the test checks to
   makes below the workdir (it must make none).
 * ``eval``: ``cross_host_gather_ragged`` (rank 1 holds no rows),
   ``cross_host_concat`` and ``evaluate_videos_distributed``.
+* ``memory_step``: ``step`` for a memory family (``convae``): three steps
+  on this rank's shard, the bank after each; then the same with each
+  rank's bank update over its own shard alone (the losses still global).
 """
 
 import datetime
@@ -31,6 +34,8 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from vadcl_tpu_torch.models import VADModel  # noqa: E402
+from vadcl_tpu_torch.models import memory as memory_mod  # noqa: E402
+from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES, model_input_frames  # noqa: E402
 from vadcl_tpu_torch.train import step as step_mod  # noqa: E402
 
 GROUP_TIMEOUT = datetime.timedelta(seconds=90)
@@ -43,22 +48,29 @@ def shard(batch, rank, world):
 
 
 def run_steps(inputs, rank, world):
-    model = VADModel(inputs["cfg"].model, torch.float32)
+    cfg = inputs["cfg"]
+    model = VADModel(cfg.model, torch.float32,
+                     input_frames=model_input_frames(cfg.model.backbone, cfg.data.frame_num))
     model.load_state_dict(inputs["state_dict"])
-    state = step_mod.create_train_state(model, inputs["cfg"])
-    step_fn = step_mod.make_train_step(model, inputs["cfg"], inputs["steps_per_epoch"])
-    losses = []
+    state = step_mod.create_train_state(model, cfg)
+    step_fn = step_mod.make_train_step(model, cfg, inputs["steps_per_epoch"])
+    losses, banks = [], []
     for clip in inputs["clips"]:
         m = step_fn(state, torch.from_numpy(shard(clip, rank, world)))
         losses.append([float(m.loss), float(m.loss_pixel), float(m.cluster_loss),
                        float(m.space_loss)])
+        if cfg.model.backbone in MEMORY_BACKBONES:
+            banks.append(model.convae.memory.keys.clone())
     opt = state.optimizer.state
-    return dict(
+    out = dict(
         losses=losses,
         params={k: p.detach().clone() for k, p in model.named_parameters()},
         moments={k: (opt[p]["exp_avg"].clone(), opt[p]["exp_avg_sq"].clone())
                  for k, p in model.named_parameters() if p in opt},
     )
+    if banks:
+        out["banks"] = banks
+    return out
 
 
 def run_half_batches(inputs):
@@ -109,6 +121,21 @@ def mode_step(inputs, rank, world):
     step_mod.data_parallel = lambda m: torch.nn.parallel.DistributedDataParallel(
         m, broadcast_buffers=False)
     out["per_rank"] = run_steps(inputs, rank, world)
+    return out
+
+
+def mode_memory_step(inputs, rank, world):
+    out = {"global": run_steps(inputs, rank, world)}
+    real = memory_mod.memory_update
+
+    def own_shard(query, keys, global_sum=None, global_max=None):
+        return real(query, keys)  # this rank's queries alone
+
+    memory_mod.memory_update = own_shard
+    try:
+        out["per_rank_bank"] = run_steps(inputs, rank, world)
+    finally:
+        memory_mod.memory_update = real
     return out
 
 
@@ -215,6 +242,8 @@ def main():
             out = mode_train(inputs, rank, world, workdir)
         elif mode == "eval":
             out = mode_eval(inputs, rank, world)
+        elif mode == "memory_step":
+            out = mode_memory_step(inputs, rank, world)
         else:
             raise ValueError(mode)
         torch.save(out, os.path.join(workdir, f"{mode}_rank{rank}.pt"))

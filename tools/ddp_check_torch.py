@@ -2,20 +2,24 @@
 train step and the eval, on the cards (NCCL) or the CPU (gloo).
 
   torchrun --standalone --nproc_per_node N tools/ddp_check_torch.py \\
-      [--device cuda|cpu] [--preset shanghaitech|tiny] [--global-batch 4] [--steps 3]
+      [--device cuda|cpu] [--preset shanghaitech|tiny] [--global-batch 4] [--steps 3] \\
+      [--backbone swin|unet3d|convae|convae_predict]
 
 Rank 0 first runs the one-process reference, before any process group
-exists: ``make_train_step`` (``fold``, fused) on each global batch for
-``--steps`` steps from the seeded init, and ``evaluate_videos`` of the
-seeded init over four synthetic uint8 videos in two scenes.  Then every
+exists: ``make_train_step`` (the flagship: ``fold``, fused, predict mode;
+another ``--backbone``: that family, reconstruction unless it predicts) on
+each global batch for ``--steps`` steps from the seeded init, and
+``evaluate_videos`` of the seeded init over four synthetic uint8 videos in
+two scenes.  Then every
 process joins the group (``maybe_initialize_distributed``), runs the same
 steps on its shard of each global batch (``--global-batch`` / N clips) and
 ``evaluate_videos_distributed``.  Rank 0 holds the data-parallel run to the
 bounds of ``chip_smoke.py``'s phase 6 (``vadcl_tpu_torch/utils/parity.py``:
 the losses within the bf16 kernel bound, the parameters within the Adam
 bound, the key biases apart), checks
-that every process ends on the same parameters and that the AUCs are the
-one-process ones to 1e-12, and prints one JSON line (on the card with its
+that every process ends on the same parameters (and a memory family on the
+same bank, whose difference to one process's it prints) and that the AUCs
+are the one-process ones to 1e-12, and prints one JSON line (on the card with its
 name and power limit); a failed check exits non-zero.
 """
 
@@ -42,11 +46,18 @@ from vadcl_tpu_torch.core.mesh import (
     shutdown_distributed,
 )
 from vadcl_tpu_torch.eval.predict import (
+    eval_input_frames,
     evaluate_videos,
     evaluate_videos_distributed,
     make_video_scorer,
 )
 from vadcl_tpu_torch.models import VADModel
+from vadcl_tpu_torch.models.backbone import (
+    BACKBONES,
+    MEMORY_BACKBONES,
+    model_input_frames,
+    predicts,
+)
 from vadcl_tpu_torch.parallel import cross_host_concat
 from vadcl_tpu_torch.train import create_train_state, make_train_step
 from vadcl_tpu_torch.utils.parity import DDP_LOSS_RTOL, check_adam_bound
@@ -67,10 +78,23 @@ def synthetic_videos(size: int, seed: int = 0):
     return out
 
 
+def build_model(cfg, dev):
+    """The seeded init of ``cfg``'s family, built for 4-frame clips."""
+    return VADModel(cfg.model, compute_dtype(dev), torch.Generator().manual_seed(0),
+                    model_input_frames(cfg.model.backbone, 4)).to(dev)
+
+
+def bank_of(model):
+    """A memory family's bank (None for the others)."""
+    if model.config.backbone not in MEMORY_BACKBONES:
+        return None
+    return model.convae.memory.keys.detach().cpu()
+
+
 def run_steps(cfg, dev, clips, rows: slice):
     """``make_train_step`` from the seeded init over ``clips[:, rows]``: the
     model, the per-step losses and host-clock step times."""
-    model = VADModel(cfg.model, compute_dtype(dev), torch.Generator().manual_seed(0)).to(dev)
+    model = build_model(cfg, dev)
     state = create_train_state(model, cfg)
     step_fn = make_train_step(model, cfg, steps_per_epoch=10)
     losses, times = [], []
@@ -86,15 +110,19 @@ def run_steps(cfg, dev, clips, rows: slice):
 
 def score(cfg, dev, videos, distributed: bool):
     """Mean and per-scene AUC of the seeded init over ``videos``."""
-    model = VADModel(cfg.model, compute_dtype(dev), torch.Generator().manual_seed(0)).to(dev)
+    model = build_model(cfg, dev)
     model.eval()
-    scorer = make_video_scorer(lambda c: model(c).recon, frame_num=4, predict=True,
-                               batch_windows=8, input_frames=4, device=dev)
+    predict = predicts(cfg.model)
+    scorer = make_video_scorer(lambda c: model(c).recon, frame_num=4, predict=predict,
+                               batch_windows=8,
+                               input_frames=eval_input_frames(cfg.model.backbone, predict, 4),
+                               device=dev)
     if distributed:
         auc, scenes, _ = evaluate_videos_distributed(
-            scorer, len(videos), lambda i: videos[i], sorted({v[2] for v in videos}), 4, True)
+            scorer, len(videos), lambda i: videos[i], sorted({v[2] for v in videos}), 4,
+            predict)
     else:
-        auc, scenes, _ = evaluate_videos(scorer, videos, 4, True)
+        auc, scenes, _ = evaluate_videos(scorer, videos, 4, predict)
     return auc, scenes
 
 
@@ -104,6 +132,7 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="shanghaitech")
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--backbone", default="swin", choices=list(BACKBONES))
     args = ap.parse_args(argv)
 
     if "RANK" not in os.environ:
@@ -120,7 +149,8 @@ def main(argv=None) -> int:
         torch.set_num_threads(1)
     base = preset(args.preset)
     cfg = base.replace(model=dataclasses.replace(
-        base.model, predict=True, fused_attention=True, fused_cluster=True, attn_kernel="fold"))
+        base.model, backbone=args.backbone, predict=args.backbone == "swin",
+        fused_attention=True, fused_cluster=True, attn_kernel="fold"))
     size = cfg.data.image_size[0]
     clips = np.random.RandomState(4).randint(
         0, 256, (args.steps, args.global_batch, 4, size, size, 3)).astype(np.uint8)
@@ -135,6 +165,8 @@ def main(argv=None) -> int:
     model, losses, times = run_steps(cfg, dev, clips, slice(rank * per, (rank + 1) * per))
     auc, scenes = score(cfg, dev, videos, distributed=True)
     sums = cross_host_concat([float(sum(p.detach().double().sum() for p in model.parameters()))])
+    bank = bank_of(model)
+    banks = cross_host_concat([None if bank is None else float(bank.double().sum())])
     if rank != 0:
         return 0
 
@@ -147,14 +179,16 @@ def main(argv=None) -> int:
         print(f"FAILED: {e}")
         ok = False
     auc_err = max([abs(auc - ref_auc)] + [abs(scenes[s] - ref_scenes[s]) for s in ref_scenes])
-    ok = (ok and worst_loss <= DDP_LOSS_RTOL and len(set(sums)) == 1 and auc_err <= 1e-12
-          and scenes.keys() == ref_scenes.keys())
+    ok = (ok and worst_loss <= DDP_LOSS_RTOL and len(set(sums)) == 1 and len(set(banks)) == 1
+          and auc_err <= 1e-12 and scenes.keys() == ref_scenes.keys())
+    bank_diff = None if bank is None else float((bank - bank_of(ref_model)).abs().max())
     print(json.dumps({
-        "ok": ok, "world": world, "device": str(dev),
+        "ok": ok, "world": world, "device": str(dev), "backbone": args.backbone,
         "card": smi_line() if dev.type == "cuda" else "cpu",
         "global_batch": args.global_batch, "losses": losses, "one_process_losses": ref_losses,
         "loss_rel_err": worst_loss, "loss_bound": DDP_LOSS_RTOL,
         "same_params_on_every_rank": len(set(sums)) == 1,
+        "same_bank_on_every_rank": len(set(banks)) == 1, "bank_max_diff": bank_diff,
         "param_max_diff": bound.get("worst"), "param_bound": bound.get("bound"),
         "auc": auc, "one_process_auc": ref_auc, "auc_abs_err": auc_err,
         "step_ms": [t * 1e3 for t in times], "one_process_step_ms": [t * 1e3 for t in ref_times],

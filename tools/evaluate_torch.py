@@ -1,10 +1,16 @@
 """Evaluation CLI of the PyTorch + CUDA port: checkpoint -> per-scene
-frame-level AUROC, with the flags of ``tools/evaluate.py`` (swin backbone):
+frame-level AUROC, with the flags of ``tools/evaluate.py``:
 
   python tools/evaluate_torch.py --fused --predict \\
       --test-data-path /data/test/frames --label-path /data/test/labels \\
       [--ckpt log_dir/ckpt/ckpt_100.npz] \\
-      [--protocol stride1|nonoverlap|stride1_first_frame]
+      [--protocol stride1|nonoverlap|stride1_first_frame] \\
+      [--backbone swin|unet3d|convae|convae_predict]
+
+``--backbone`` picks the model family: the flagship Swin+I3D model
+(``swin``), the 3D U-Net, or the MNAD memory autoencoders, of which
+``convae_predict`` always scores its predicted frame (``--predict`` or
+not) from the window's first ``frame_num - 1`` frames.
 
 On N cards of one host, one process per card: ``torchrun --nproc_per_node
 N tools/evaluate_torch.py ...``.  Process r scores videos r, r+N, ... on
@@ -13,9 +19,10 @@ the same per-scene AUC (``evaluate_videos_distributed``), which rank 0
 prints; each process writes its own videos' curves to
 ``<out>.proc<rank>.npz``.
 
-``--ckpt`` takes a checkpoint written by the JAX package (``params/...``
-plus ``extras/batch_stats/...``); without it the model runs from its seeded
-init (seed 0).  ``--device cuda`` (the default) computes in bf16 and
+``--ckpt`` takes a checkpoint written by either package (``params/...``
+plus ``extras/batch_stats/...`` and a memory family's bank
+``extras/memory/...``), loaded strictly; without it the model runs from
+its seeded init (seed 0).  ``--device cuda`` (the default) computes in bf16 and
 ``--fused`` runs the hand-written kernels (``--attn-kernel
 fold|base|packed|fold_packed|fold_mix|fold_block`` picks the attention kernel,
 fold by default); it fails when no GPU is visible.
@@ -53,6 +60,7 @@ from vadcl_tpu_torch.eval.predict import (
     scene_names,
 )
 from vadcl_tpu_torch.models import VADModel
+from vadcl_tpu_torch.models.backbone import BACKBONES, model_input_frames, predicts
 
 
 def main(argv=None):
@@ -68,7 +76,7 @@ def main(argv=None):
     ap.add_argument("--frame-num", type=int, default=4)
     ap.add_argument("--image-size", type=int, default=0,
                     help="override square eval resolution (must match training)")
-    ap.add_argument("--backbone", default="swin", choices=["swin"])
+    ap.add_argument("--backbone", default="swin", choices=list(BACKBONES))
     ap.add_argument("--fused", action="store_true",
                     help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
     ap.add_argument("--attn-kernel", default="auto",
@@ -109,7 +117,9 @@ def main(argv=None):
     maybe_initialize_distributed(args.device)
     device = local_device(args.device)
     main_process = process_index() == 0
-    model = VADModel(model_cfg, compute_dtype(device), torch.Generator().manual_seed(0))
+    predict = predicts(model_cfg)
+    model = VADModel(model_cfg, compute_dtype(device), torch.Generator().manual_seed(0),
+                     model_input_frames(args.backbone, args.frame_num))
     if args.ckpt:
         load_jax_checkpoint(model, args.ckpt)
         if main_process:
@@ -119,10 +129,10 @@ def main(argv=None):
     scorer = make_video_scorer(
         lambda clips: model(clips).recon,
         frame_num=args.frame_num,
-        predict=args.predict,
+        predict=predict,
         batch_windows=args.batch_windows,
         first_frame_quirk=args.protocol == "stride1_first_frame",
-        input_frames=eval_input_frames(args.backbone, args.predict, args.frame_num),
+        input_frames=eval_input_frames(args.backbone, predict, args.frame_num),
         device=device,
     )
     ds = ClipDataset(
@@ -132,7 +142,7 @@ def main(argv=None):
     proto = "stride1" if args.protocol == "stride1_first_frame" else args.protocol
     auc, per_scene, per_video = evaluate_videos_distributed(
         scorer, len(ds.videos), ds.get_test_video, all_scenes=scene_names(ds.videos),
-        frame_num=args.frame_num, predict=args.predict, protocol=proto,
+        frame_num=args.frame_num, predict=predict, protocol=proto,
     )
     out = args.out
     if process_count() > 1:

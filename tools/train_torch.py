@@ -1,9 +1,15 @@
 """Training CLI of the PyTorch + CUDA port, with the flags of
-``tools/train.py`` (swin backbone):
+``tools/train.py``:
 
   python tools/train_torch.py --preset shanghaitech --data-path /data/frames \\
       --predict --fused [--epochs N] [--max-steps N] [--output-dir log_dir] \\
-      [--test-data-path ... --label-path ... --eval-every 4]
+      [--test-data-path ... --label-path ... --eval-every 4] \\
+      [--backbone swin|unet3d|convae|convae_predict]
+
+``--backbone`` picks the model family: the flagship Swin+I3D model
+(``swin``), the 3D U-Net, or the MNAD memory autoencoders, whose bank
+updates every step and is saved in every checkpoint; ``convae_predict``
+always trains to predict the clip's last frame from the frames before it.
 
 Data-parallel on N cards of one host, one process per card:
 
@@ -45,6 +51,7 @@ from vadcl_tpu_torch.core.mesh import (
     shutdown_distributed,
 )
 from vadcl_tpu_torch.data import ClipDataset, HostDataLoader
+from vadcl_tpu_torch.models.backbone import BACKBONES, predicts
 from vadcl_tpu_torch.train.loop import train
 
 
@@ -60,7 +67,7 @@ def build_eval_fn(cfg, test_dir: str, label_dir: str, device: torch.device):
 
     test_ds = ClipDataset(test_dir, frame_num=cfg.data.frame_num, size=cfg.data.image_size,
                           label_root=label_dir, istest=True)
-    predict = cfg.model.predict
+    predict = predicts(cfg.model)
 
     def eval_fn(state) -> float:
         model = state.model
@@ -107,7 +114,7 @@ def main(argv=None):
     ap.add_argument("--dump-every-iters", type=int, default=0,
                     help="dump target+recon JPEGs every N steps (needs PIL); 0 disables")
     ap.add_argument("--no-cluster", action="store_true")
-    ap.add_argument("--backbone", default="swin", choices=["swin"])
+    ap.add_argument("--backbone", default="swin", choices=list(BACKBONES))
     ap.add_argument("--fused", action="store_true",
                     help="hand-written CUDA kernels (fold attention, LN->MLP, cluster heads)")
     ap.add_argument("--attn-kernel", default="auto",

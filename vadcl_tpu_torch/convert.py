@@ -1,20 +1,25 @@
 """Weight bridge between the JAX package's flat parameter dict and the
 port's ``state_dict``.
 
-The JAX side is the ``"params/<path>"`` / ``"batch_stats/<path>"`` dict that
-``vadcl_tpu.train.checkpoint.flatten_state`` makes from ``VADModel``
-variables.  Module paths are the same in both packages, so the bridge is a
-rename plus layout transposes:
+The JAX side is the ``"params/<path>"`` / ``"batch_stats/<path>"`` /
+``"memory/<path>"`` dict that ``vadcl_tpu.train.checkpoint.flatten_state``
+makes from ``VADModel`` variables.  Module paths are the same in both
+packages, so the bridge is a rename plus layout transposes:
 
   Dense / attention kernels (in, out)          kept as (in, out)
   Conv3d kernel DHWIO                          -> OIDHW (torch Conv3d)
   ConvTranspose3d kernel (kd, kh, kw, Ci, Co)  -> (Ci, Co, kd, kh, kw)
   LayerNorm / BatchNorm scale, bias            -> weight, bias
   BatchNorm batch_stats mean, var              -> running_mean, running_var
+  the MNAD bank memory/.../keys (M, d)         -> the buffer .../keys (M, d)
 
-Which 5-D kernels are transposed convs depends on the decoder head
+Which 5-D kernels are transposed convs is a list of module paths
+(``_CONVT``: the Swin decoder's, ConvAE's ``up*``, UNet3D's
+``up*.deconv``, the legacy decoder's), plus the decoder head
 (``timedebd`` is a Conv3d in predict mode and a ConvTranspose3d in
-reconstruction mode), hence the ``predict`` argument.  Loading is strict.
+reconstruction mode), hence the ``predict`` argument.  A wrong entry would
+transpose a kernel silently; every family's variables round-trip bit for
+bit in the tests.  Loading is strict.
 
 The optimizer state maps the same way: the JAX package's ``torch_adam``
 state (``opt_state/count|mu|nu/<param path>``) and ``torch_sgd`` state
@@ -38,9 +43,16 @@ _RENAME = {
     "proj_kernel": "proj_weight",
 }
 _STATS = {"mean": "running_mean", "var": "running_var"}
-_CONVT = re.compile(r"^decoder\.(upsample\d+\.proj|patchdebed\.deconv\d)\.weight$")
+_CONVT = re.compile(
+    r"^(decoder\.(upsample\d+\.proj|patchdebed\.deconv\d)"  # SwinDecoder3D
+    r"|convae\.up\d|unet3d\.up\d\.deconv"  # ConvAE / ConvAEPredict, UNet3D
+    r"|(decoder\.)?(upsample\d+|patchdebed))\.weight$")  # LegacySwinDecoder
 _CONV_TO_TORCH = (4, 3, 0, 1, 2)  # DHWIO -> OIDHW
 _CONVT_TO_TORCH = (3, 4, 0, 1, 2)  # (kd, kh, kw, Ci, Co) -> (Ci, Co, kd, kh, kw)
+
+
+# the non-parameter collections of a JAX TrainState's ``extras``
+EXTRAS = ("extras/batch_stats/", "extras/memory/")
 
 
 def _is_convt(key: str, predict: bool) -> bool:
@@ -48,14 +60,16 @@ def _is_convt(key: str, predict: bool) -> bool:
 
 
 def _torch_key(path: str) -> str:
-    """``params/a/b/kernel`` or ``batch_stats/a/b/mean`` -> ``a.b.weight`` etc."""
+    """``params/a/b/kernel``, ``batch_stats/a/b/mean`` or
+    ``memory/a/memory/keys`` -> ``a.b.weight``, ``a.b.running_mean``,
+    ``a.memory.keys``."""
     coll, _, rest = path.partition("/")
     parts = rest.split("/")
     if coll == "params":
         parts[-1] = _RENAME.get(parts[-1], parts[-1])
     elif coll == "batch_stats":
         parts[-1] = _STATS[parts[-1]]
-    else:
+    elif coll != "memory":
         raise KeyError(f"unexpected collection in {path!r}")
     return ".".join(parts)
 
@@ -68,6 +82,8 @@ def _jax_path(key: str, ndim: int) -> str:
     if parts[-1] in inv_stats:
         parts[-1] = inv_stats[parts[-1]]
         return "batch_stats/" + "/".join(parts)
+    if parts[-1] == "keys":  # the MNAD bank (models/memory.py)
+        return "memory/" + "/".join(parts)
     if parts[-1] == "weight" and ndim == 1:  # LayerNorm / BatchNorm
         parts[-1] = "scale"
     else:
@@ -159,7 +175,8 @@ def opt_state_from_jax(flat: Dict[str, np.ndarray], model: torch.nn.Module,
 
 def load_jax_checkpoint(model: torch.nn.Module, npz_path: str) -> None:
     """Load a JAX-package checkpoint (``params/...`` plus
-    ``extras/batch_stats/...``, as ``CheckpointManager.save`` writes a
+    ``extras/batch_stats/...`` and, for the memory families, the bank
+    ``extras/memory/...``, as ``CheckpointManager.save`` writes a
     TrainState) into ``model``, strictly: a missing or leftover key raises
     with the list of keys."""
     with np.load(npz_path) as z:
@@ -167,7 +184,7 @@ def load_jax_checkpoint(model: torch.nn.Module, npz_path: str) -> None:
         for k in z.files:
             if k.startswith("params/"):
                 flat[k] = z[k]
-            elif k.startswith("extras/batch_stats/"):
+            elif k.startswith(EXTRAS):
                 flat[k.split("/", 1)[1]] = z[k]
     sd = state_dict_from_jax(flat, predict=model.config.predict)
     load_state_dict_strict(model, sd)

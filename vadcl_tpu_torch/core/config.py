@@ -42,9 +42,12 @@ TRAINABLE_ATTN_KERNELS = frozenset({"base", "fold", "fold_block"})
 class ModelConfig:
     """Hybrid Video-Swin-3D + I3D-Inception autoencoder (see the JAX
     package's ``ModelConfig`` for the meaning of every field).  The port's
-    inference forward does not read ``remat``, the dropout rates,
-    ``subpixel_deconv`` (an exact re-lowering) or ``memory_*``; like the JAX
-    package's deterministic forward, its result does not depend on them."""
+    inference forward does not read ``remat`` or the dropout rates; like the
+    JAX package's deterministic forward, its result does not depend on
+    them.  ``subpixel_deconv`` (an exact re-lowering) picks how the
+    decoder's transposed convs run (``models/decoder.py``), and
+    ``memory_size`` / ``memory_dim`` size the bank of the ``convae`` and
+    ``convae_predict`` families (``models/memory.py``)."""
 
     backbone: str = "swin"  # swin | unet3d | convae | convae_predict
     in_channels: int = 3

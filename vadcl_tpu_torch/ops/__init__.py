@@ -3,6 +3,7 @@ from vadcl_tpu_torch.ops.cluster import (
     feature_cluster_assign,
     frobenius_norm,
     neg_soft_assign,
+    pos_soft_assign,
     space_cluster_assign,
 )
 from vadcl_tpu_torch.ops.cluster_kernels import cluster_assign, space_cluster_loss
@@ -24,6 +25,7 @@ from vadcl_tpu_torch.ops.fold_attn import (
     fold_block_tiles,
 )
 from vadcl_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_bwd, ln_mlp_bwd_tiles, ln_mlp_tiles
+from vadcl_tpu_torch.ops.memory import memory_losses, memory_read, memory_update
 from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused,
     window_attention_fused_bwd,
@@ -95,8 +97,12 @@ __all__ = [
     "ln_mlp_bwd_tiles",
     "ln_mlp_tiles",
     "max_pool3d_same",
+    "memory_losses",
+    "memory_read",
+    "memory_update",
     "neg_soft_assign",
     "patchify_matmul",
+    "pos_soft_assign",
     "relative_position_index",
     "same_pad_amounts",
     "space_cluster_assign",

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def cdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -30,6 +32,13 @@ def neg_soft_assign(d: torch.Tensor, alpha: float) -> torch.Tensor:
     d = d.float()
     d_min = d.min(-1, keepdim=True).values
     e = torch.exp(-alpha * (d - d_min))
+    return e / e.sum(-1, keepdim=True)
+
+
+def pos_soft_assign(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """softmax(alpha * (x - max(x))) over the last axis (PosSoftAssign)."""
+    x = x.float()
+    e = torch.exp(alpha * (x - x.max(-1, keepdim=True).values))
     return e / e.sum(-1, keepdim=True)
 
 
@@ -94,3 +103,25 @@ def frobenius_norm(x: torch.Tensor, global_sum=None) -> torch.Tensor:
     x = x.float()
     s = (x * x).sum()
     return torch.sqrt(s if global_sum is None else global_sum(s))
+
+
+def cluster_alpha_schedule(max_n: int = 40) -> np.ndarray:
+    """The reference's annealing schedule of the soft-assign temperature
+    (defined, unused by its live path): alphas[0] = 0.1, alphas[i] =
+    2^(1 / log(i + 1)^2) * alphas[i - 1], in float64."""
+    alphas = np.zeros(max_n, dtype=np.float64)
+    alphas[0] = 0.1
+    for i in range(1, max_n):
+        alphas[i] = (2 ** (1 / (np.log(i + 1)) ** 2)) * alphas[i - 1]
+    return alphas
+
+
+def l1_recon_loss(recon: torch.Tensor, target: torch.Tensor, patch_t: int = 2) -> torch.Tensor:
+    """The reference's ``Recon_Loss``: zero-pad the time axis of both
+    (B, T, H, W, C) tensors to a multiple of the temporal patch, then the
+    mean absolute error (the padded frames count in the mean)."""
+    pad = (-target.shape[1]) % patch_t
+    if pad:
+        target = F.pad(target, (0, 0, 0, 0, 0, 0, 0, pad))
+        recon = F.pad(recon, (0, 0, 0, 0, 0, 0, 0, pad))
+    return (recon.float() - target.float()).abs().mean()

@@ -5,8 +5,9 @@ Each process keeps its own shard of the batch (the loader's per-rank
 slice), so the JAX package's ``local_batch_to_global``, which assembles the
 global array from the hosts' shards, has no counterpart here:
 ``DistributedDataParallel`` sums the gradients instead (``train/step.py``).
-What remains is the loss's batch sums (``global_sum``) and gathering eval
-results (``cross_host_gather_ragged``, ``cross_host_concat``).  Outside a
+What remains is the loss's batch sums (``global_sum``), the memory bank's
+maxima over the batch (``global_max``, ``ops/memory.py``) and gathering
+eval results (``cross_host_gather_ragged``, ``cross_host_concat``).  Outside a
 process group every function returns its input.
 """
 
@@ -44,6 +45,17 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the process group, with the gradient of that sum
     reaching this rank's ``t``; ``t`` itself outside a group."""
     return _GlobalSum.apply(t) if is_distributed() else t
+
+
+def global_max(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elementwise maximum over the process group, without a
+    gradient (the memory bank's update, which is detached, is its only
+    user); ``t`` itself outside a group."""
+    if not is_distributed():
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
 
 
 def _comm_device() -> torch.device:

@@ -2,9 +2,10 @@
 
 A checkpoint is the JAX package's file: one flat npz per tag,
 ``<dir>/ckpt_<tag>.npz``, holding a ``TrainState`` as "/"-joined paths:
-``step``, ``params/...``, ``extras/batch_stats/...`` and the optimizer's
-``opt_state/...`` (``convert.py`` maps every leaf), plus a JSON ``__meta__``
-entry.  So each package resumes from the other's checkpoints.
+``step``, ``params/...``, ``extras/batch_stats/...``, the memory families'
+bank ``extras/memory/...`` and the optimizer's ``opt_state/...``
+(``convert.py`` maps every leaf), plus a JSON ``__meta__`` entry.  So each
+package resumes from the other's checkpoints.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from vadcl_tpu_torch.convert import (
+    EXTRAS,
     jax_from_state_dict,
     load_state_dict_strict,
     opt_state_from_jax,
@@ -41,14 +43,15 @@ def flatten_train_state(state: TrainState) -> Dict[str, np.ndarray]:
 
 
 def load_train_state(flat: Dict[str, np.ndarray], state: TrainState) -> TrainState:
-    """Fill ``state`` (model, optimizer, step) from a flat TrainState dict,
-    strictly: a missing or leftover parameter raises."""
+    """Fill ``state`` (model with its bank, optimizer, step) from a flat
+    TrainState dict, strictly: a missing or leftover parameter, statistic
+    or bank raises."""
     predict = state.model.config.predict
     weights = {}
     for k, v in flat.items():
         if k.startswith("params/"):
             weights[k] = v
-        elif k.startswith("extras/batch_stats/"):
+        elif k.startswith(EXTRAS):
             weights[k.split("/", 1)[1]] = v
         elif not (k == "step" or k.startswith("opt_state/")):
             raise KeyError(f"checkpoint leaf {k!r} has no place in the port's TrainState")

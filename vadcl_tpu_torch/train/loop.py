@@ -39,7 +39,7 @@ import torch
 from vadcl_tpu_torch.core.config import Config
 from vadcl_tpu_torch.core.dtypes import compute_dtype
 from vadcl_tpu_torch.core.mesh import barrier, process_count, process_index
-from vadcl_tpu_torch.models.backbone import VADModel
+from vadcl_tpu_torch.models.backbone import VADModel, model_input_frames, predicts
 from vadcl_tpu_torch.train.checkpoint import CheckpointManager
 from vadcl_tpu_torch.train.step import (
     TrainState,
@@ -98,8 +98,10 @@ def train(
     profile_steps: int = 0,
     debug_nans: bool = False,
 ) -> TrainState:
-    """Train ``VADModel(cfg.model)`` from its seeded init (``cfg.seed``) or
-    from the newest checkpoint under ``<output_dir>/ckpt``.  Runs on the card
+    """Train ``VADModel(cfg.model)`` (any family; the ConvAE families built
+    for ``cfg.data.frame_num``-frame clips) from its seeded init
+    (``cfg.seed``) or from the newest checkpoint under
+    ``<output_dir>/ckpt``, the memory bank included.  Runs on the card
     (``device="cuda"``, compute dtype bf16 with ``cfg.bf16``) unless the
     caller asks for ``device="cpu"`` (fp32, the plain versions of the
     kernels); without a visible card the default raises instead of training
@@ -130,7 +132,8 @@ def train(
         _dumps()  # fail now, not at the first dump, when PIL is missing
 
     dtype = compute_dtype(dev) if cfg.bf16 else torch.float32
-    model = VADModel(cfg.model, dtype, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    model = VADModel(cfg.model, dtype, torch.Generator().manual_seed(cfg.seed),
+                     model_input_frames(cfg.model.backbone, cfg.data.frame_num)).to(dev)
     model.train()
     steps_per_epoch = loader.steps_per_epoch()
     state = create_train_state(model, cfg)
@@ -199,7 +202,8 @@ def train(
             batch_f = np.asarray(batch_h)
             if batch_f.dtype == np.uint8:
                 batch_f = batch_f.astype(np.float32) / 255.0
-            _, target = split_predict_batch(batch_f, cfg.data.frame_num, cfg.model.predict)
+            _, target = split_predict_batch(batch_f, cfg.data.frame_num, predicts(cfg.model),
+                                            overlap_quirk=cfg.model.backbone == "swin")
             save(np.asarray(target), os.path.join(cfg.output_dir, "video_show_origin"))
             save(m.recon.float().cpu().numpy(), os.path.join(cfg.output_dir, "video_show"))
         loss_log["loss"].append(loss)

@@ -94,8 +94,8 @@ def build_optimizer(
         return torch.optim.SGD(params, lr=0.0, momentum=b1, weight_decay=weight_decay)
     if name == "lars":
         raise NotImplementedError(
-            "optimizer 'lars' is not ported yet (ROADMAP.md, queue 1 item 4); "
-            "use adam, adamw or sgd"
+            "optimizer 'lars' is not ported yet (ROADMAP.md, queue 1, train-step "
+            "leftovers); use adam, adamw or sgd"
         )
     raise ValueError(f"unknown optimizer {name!r}")
 

@@ -5,10 +5,13 @@ Loss parity with ``main_predict.py:273-284``:
   loss = ||(recon - target)^2||_F  +  cluster_loss  +  space_loss
 with the predict-mode frame split of ``main_predict.py:234-241`` (input = the
 first 4 frames, target = the clip's last frame: at frame_num=4 the target
-overlaps the input, the reference's quirk).  Cluster losses turn on at
-``cluster_start_iter``; parameters named "cluster" train from
-``cluster_train_start_iter``; compactness engages at
-``compactness_start_iter``.
+overlaps the input, the reference's quirk; ``convae_predict`` takes all but
+the last frame and targets the true future frame).  Cluster losses turn on
+at ``cluster_start_iter``; parameters named "cluster" train from
+``cluster_train_start_iter``; the flagship's compactness engages at
+``compactness_start_iter``.  The memory families (``convae``,
+``convae_predict``) update their bank at every step; their separateness
+and compactness ride the cluster and space loss slots.
 
 Unlike the JAX step, which returns a new state, this step updates the
 model's parameters and the optimizer's state in place (``TrainState`` holds
@@ -19,7 +22,10 @@ runs the step on its own shard of the global batch.  The JAX step computes
 its loss over the global batch, and all three terms are square roots of
 batch sums, which do not split over processes: the sums are all-reduced
 before each root (``parallel.sharding.global_sum``), so every process holds
-the global loss and the gradient of it through its own shard.  The model
+the global loss and the gradient of it through its own shard.  The memory
+families' losses are global sums over global counts, and their bank's
+update reduces its softmax, maxima and sums over the group
+(``global_sum``, ``global_max``), so every process holds the same bank.  The model
 runs under ``DistributedDataParallel``, whose gradient all-reduce is made
 to SUM those gradients (``_sum_gradients``, a communication hook; the
 default hook averages), which gives the JAX step's global gradient.
@@ -37,9 +43,9 @@ from torch.nn.parallel import DistributedDataParallel
 
 from vadcl_tpu_torch.core.config import TRAINABLE_ATTN_KERNELS, Config
 from vadcl_tpu_torch.core.mesh import is_distributed
-from vadcl_tpu_torch.models.backbone import VADModel
+from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES, VADModel, predicts
 from vadcl_tpu_torch.ops.cluster import frobenius_norm
-from vadcl_tpu_torch.parallel.sharding import global_sum
+from vadcl_tpu_torch.parallel.sharding import global_max, global_sum
 from vadcl_tpu_torch.train.optim import (
     apply_gates,
     build_optimizer,
@@ -79,13 +85,18 @@ def normalize_clip(clip: torch.Tensor) -> torch.Tensor:
     return clip
 
 
-def split_predict_batch(clip, frame_num: int, predict: bool) -> Tuple:
+def split_predict_batch(clip, frame_num: int, predict: bool,
+                        overlap_quirk: bool = True) -> Tuple:
     """``main_predict.py:234-241``: predict mode feeds the first 4 frames
     (hard-coded in the reference whatever ``frame_num`` is) and targets the
     clip's last frame; at the default frame_num=4 the target is also the
-    last input frame.  Reconstruction mode targets the whole clip."""
+    last input frame.  Reconstruction mode targets the whole clip.
+    ``overlap_quirk=False`` is MNAD's split, which ``convae_predict`` takes:
+    every frame but the last in, the true future frame as the target."""
     if predict:
-        return clip[:, :PREDICT_INPUT_FRAMES], clip[:, -1:]
+        if overlap_quirk:
+            return clip[:, :PREDICT_INPUT_FRAMES], clip[:, -1:]
+        return clip[:, :-1], clip[:, -1:]
     return clip, clip
 
 
@@ -98,8 +109,8 @@ def _check_trainable(cfg: Config) -> None:
         )
     if m.drop_rate > 0 or m.attn_drop_rate > 0 or m.drop_path_rate > 0:
         raise NotImplementedError(
-            "dropout and drop-path are not ported yet (ROADMAP.md, queue 1 "
-            "item 3); train with every drop rate 0"
+            "dropout and drop-path are not ported yet (ROADMAP.md, queue 1, "
+            "train-step leftovers); train with every drop rate 0"
         )
 
 
@@ -111,16 +122,22 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
     ``DistributedDataParallel`` wrapper of a ``VADModel``."""
     _check_trainable(cfg)
     sched = cfg.schedule
-    reduce = global_sum  # the identity outside a process group
+    reduce, reduce_max = global_sum, global_max  # the identity outside a process group
+    backbone = cfg.model.backbone
+    predict, memory = predicts(cfg.model), backbone in MEMORY_BACKBONES
 
     def loss_fn(clip: torch.Tensor, step: int):
         clip = normalize_clip(clip)
-        inputs, target = split_predict_batch(clip, cfg.data.frame_num, cfg.model.predict)
-        gate = None
-        if cfg.model.compactness:
-            gate = torch.tensor(float(step >= sched.compactness_start_iter),
-                                device=clip.device)
-        out = model(inputs, compactness_gate=gate, global_sum=reduce)
+        inputs, target = split_predict_batch(clip, cfg.data.frame_num, predict,
+                                             overlap_quirk=backbone == "swin")
+        if memory:  # the bank's update over the global batch
+            out = model(inputs, global_sum=reduce, global_max=reduce_max, update_memory=True)
+        else:
+            gate = None
+            if cfg.model.compactness and backbone == "swin":
+                gate = torch.tensor(float(step >= sched.compactness_start_iter),
+                                    device=clip.device)
+            out = model(inputs, compactness_gate=gate, global_sum=reduce)
         err = out.recon.float() - target.float()
         loss_pixel = frobenius_norm(err * err, reduce)
         cluster_gate = float(step >= sched.cluster_start_iter)

@@ -1,8 +1,9 @@
 """Bounds that hold one training run against another of the same Adam
 steps from the same weights: a data-parallel run against one process
 (``chip_smoke.py``'s phase 6, ``tools/ddp_check_torch.py``, the CPU
-distributed tests) and the port against the JAX step (the CPU
-train-step parity tests)."""
+distributed tests), the port against the JAX step (the CPU train-step
+parity tests), and the card against the CPU in fp32 (``chip_smoke.py``'s
+phase 9, the alternate families and the memory bank)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,16 @@ import torch
 # the data-parallel step's losses against one process's in bf16: the bf16
 # kernel bound (``chip_smoke.py``'s ``BOUNDS``)
 DDP_LOSS_RTOL = 2e-2
+# the same fp32 step on the card (TF32 off) and on the CPU: the repo's fp32
+# loss bound
+FP32_LOSS_RTOL = 1e-4
+# a memory bank after the same fp32 update of the same bank (a unit row's
+# elements are ~0.04; summation order moves them ~1e-7)
+BANK_ATOL = 1e-5
+# two fp32 runs may send a query to different top-1 slots only where its
+# two best scores (cosines) lie closer than this: their scores differ by
+# ~1e-6, and a slot chosen apart where the gap is wider is a fault
+TIE_GAP = 1e-4
 
 
 def _tensor(x) -> torch.Tensor:
@@ -66,3 +77,38 @@ def check_adam_bound(label: str, got: Mapping, want: Mapping, lr: float, steps: 
         worst, beyond = max(worst, float(rest.max())), max(beyond, share)
     return {"same": same, "tensors": len(want), "worst": worst, "beyond": beyond,
             "bound": bound}
+
+
+def top1_slots(query: torch.Tensor, keys: torch.Tensor):
+    """Each query's best slot of the bank and the gap between its two best
+    scores (cosines of the L2-normalised query (..., d) and ``keys``)."""
+    score = query.float().reshape(-1, keys.shape[-1]) @ keys.float().t()
+    top = score.topk(2, dim=1)
+    return top.indices[:, 0], top.values[:, 0] - top.values[:, 1]
+
+
+def check_bank(label: str, got, want, slots_got, slots_want, gap) -> Dict[str, float]:
+    """Hold a bank ``got`` after an update against ``want``, another run's
+    update: ``slots_*`` are the top-1 slot each run gave each query
+    (``top1_slots``), ``gap`` the second run's score gaps.  A query whose
+    slot differs must be a near tie (gap below ``TIE_GAP``): its weight
+    then lands in another row, which is a legitimate fp32 outcome, and the
+    rows of both slots are left out; every other row is within
+    ``BANK_ATOL``.  Raises ``AssertionError``; returns the queries sent
+    apart (``moved``), the rows left out (``rows_apart``) and the largest
+    difference of the rest (``worst``)."""
+    got, want = _tensor(got).float().cpu(), _tensor(want).float().cpu()
+    slots_got, slots_want = _tensor(slots_got).cpu(), _tensor(slots_want).cpu()
+    gap = _tensor(gap).float().cpu()
+    apart = slots_got != slots_want
+    if apart.any() and float(gap[apart].max()) >= TIE_GAP:
+        raise AssertionError(f"{label}: a query took another top-1 slot at a score gap of "
+                             f"{float(gap[apart].max()):.3e} (ties below {TIE_GAP:g} only)")
+    rows = torch.zeros(got.shape[0], dtype=torch.bool)
+    rows[slots_got[apart]] = True
+    rows[slots_want[apart]] = True
+    err = (got - want).abs().amax(dim=1)
+    worst = float(err[~rows].max()) if bool((~rows).any()) else 0.0
+    if worst > BANK_ATOL:
+        raise AssertionError(f"{label}: bank rows differ by {worst:.3e} (bound {BANK_ATOL:g})")
+    return {"moved": int(apart.sum()), "rows_apart": int(rows.sum()), "worst": worst}
