@@ -141,7 +141,12 @@ Phases (any failure raises and the script exits non-zero):
      gradients summed every step, the training kernels launched every step,
      the losses and parameters within the bounds of ``DDP_STEPS``' comment;
      its step time beside the FLOP count of a training step
-     (``FlopCounterMode`` on the plain model) and the bf16 peak.
+     (``FlopCounterMode`` on the plain model) and the bf16 peak.  Then,
+     in the same group of one, 2 ``convae`` steps at batch 4 (full width,
+     bf16) against one process: the bank's maxima all-reduced over NCCL
+     (``global_max``) and its buffer rebound under DDP every step, the
+     losses and parameters within the same bounds and the bank within the
+     bf16 bank bound (``utils/parity.py``'s ``check_bank``).
   7. the attention-kernel autotune (``measure_attn_kernels``): base, packed,
      fold and fold_packed through a Swin block's attention half at batch 32,
      kernels 7, 9, A and 10 and nothing else launched; both picks.
@@ -156,13 +161,12 @@ Phases (any failure raises and the script exits non-zero):
      memory bank against the CPU's update and against the plain update of
      the card's own inputs, a query sent to another slot only at a near
      tie: ``utils/parity.py``); ``train()`` in bf16 at batch 4, 5 steps,
-     step 2 traced (host-clock ms a step, device-busy ms, unit-norm bank
-     rows, a checkpoint round trip with the bank); ``evaluate_videos`` of
-     two videos twice with the model left in train mode (the bank bit for
-     bit unmoved, the two scorings equal, windows/s).
- 10. the flagship ``fold`` scoring forward in bf16 at batch 16 with and
-     without ``subpixel_deconv``: the reconstructions within the bf16
-     bound, the decoder's three transposed convs timed both ways.
+     step 2 traced (host-clock ms a step, device-busy ms, and the step's
+     FLOP count, ``FlopCounterMode`` on meta tensors, over each: the rate
+     and its share of the bf16 peak; unit-norm bank rows, a checkpoint
+     round trip with the bank); ``evaluate_videos`` of two videos twice
+     with the model left in train mode (the bank bit for bit unmoved, the
+     two scorings equal, windows/s).
 No earlier path was cut: the whole run takes about five minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels, kernel B's CUDA-core body, the whole-block forward's and
@@ -2789,6 +2793,11 @@ DDP_STEPS = 3
 # (DDP_LOSS_RTOL), the parameters to the trajectory tests' Adam bound
 # (utils/parity.py's check_adam_bound, the key biases apart).
 DDP_CHECK_TIMEOUT = 600  # seconds for tools/ddp_check_torch.py's 2 processes
+DDP_ZOO_STEPS = 2  # phase 6's convae steps in the group of one
+# the reductions a convae step makes over the group: the pixel loss's sum,
+# the memory losses' two sums and two counts, the update's sum of
+# exponentials and w.T @ q (loss_sums); its two maxima (bank_maxima)
+DDP_ZOO_SUMS, DDP_ZOO_MAXIMA = 7, 2
 
 
 def _free_port() -> int:
@@ -2802,43 +2811,55 @@ def _free_port() -> int:
 @contextlib.contextmanager
 def counting_data_parallel():
     """While open, counts the loss sums all-reduced in the forward
-    (``train.step.global_sum``) and the gradient buckets all-reduced by
-    DDP's hook (``train.step._sum_gradients``): yields a dict."""
+    (``train.step.global_sum``), the memory bank's maxima all-reduced in
+    its update (``train.step.global_max``) and the gradient buckets
+    all-reduced by DDP's hook (``train.step._sum_gradients``): yields a
+    dict."""
     from vadcl_tpu_torch.train import step
 
-    seen = {"loss_sums": 0, "grad_buckets": 0}
-    real_sum, real_hook = step.global_sum, step._sum_gradients
+    seen = {"loss_sums": 0, "grad_buckets": 0, "bank_maxima": 0}
+    real_sum, real_max, real_hook = step.global_sum, step.global_max, step._sum_gradients
 
     def counted_sum(t):
         seen["loss_sums"] += 1
         return real_sum(t)
 
+    def counted_max(t):
+        seen["bank_maxima"] += 1
+        return real_max(t)
+
     def counted_hook(group, bucket):
         seen["grad_buckets"] += 1
         return real_hook(group, bucket)
 
-    step.global_sum, step._sum_gradients = counted_sum, counted_hook
+    step.global_sum, step.global_max, step._sum_gradients = counted_sum, counted_max, counted_hook
     try:
         yield seen
     finally:
-        step.global_sum, step._sum_gradients = real_sum, real_hook
+        step.global_sum, step.global_max, step._sum_gradients = real_sum, real_max, real_hook
 
 
-def train_flops_per_clip(cfg) -> float:
-    """FLOPs of one training step per clip as ``FlopCounterMode`` counts them
-    (2*M*N*K a product, every convolution tap): the plain model (the
-    kernels' arithmetic, which the counter cannot see) on meta tensors."""
+def train_flops_per_clip(cfg, size: int = 224) -> float:
+    """FLOPs of one training step per clip of ``cfg.data.frame_num``
+    ``size``^2 frames as ``FlopCounterMode`` counts them (2*M*N*K a
+    product, every convolution tap): the plain model (the kernels'
+    arithmetic, which the counter cannot see) of ``cfg``'s family on meta
+    tensors."""
     from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.models.backbone import model_input_frames
     from vadcl_tpu_torch.train.step import make_loss_fn
     from vadcl_tpu_torch.utils.flops import counted_flops
 
     plain = cfg.replace(model=dataclasses.replace(cfg.model, fused_attention=False,
                                                   fused_cluster=False))
-    model = VADModel(plain.model, torch.float32).to("meta")
+    frames = cfg.data.frame_num
+    model = VADModel(plain.model, torch.float32, None,
+                     model_input_frames(cfg.model.backbone, frames)).to("meta")
     loss_fn = make_loss_fn(model, plain)
 
     def step():
-        loss, _ = loss_fn(torch.zeros(1, 4, 224, 224, 3, dtype=torch.uint8, device="meta"), 0)
+        clip = torch.zeros(1, frames, size, size, 3, dtype=torch.uint8, device="meta")
+        loss, _ = loss_fn(clip, 0)
         loss.backward()
 
     return counted_flops(step)
@@ -2863,22 +2884,24 @@ def torchrun_env_of_one():
                 os.environ[k] = v
 
 
-def ddp_check_two_cards() -> dict:
+def ddp_check_two_cards(*args: str, control: bool = False) -> dict:
     """``tools/ddp_check_torch.py`` under torchrun with 2 processes, one a
-    card, at global batch 4: its JSON line, which must say ok."""
+    card, at global batch 4, with ``args``: its JSON line, which must say
+    ok; with ``control`` (``--per-rank-bank``) the bank gate must refuse."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
          "2", os.path.join(root, "tools", "ddp_check_torch.py"), "--global-batch", "4",
-         "--steps", str(DDP_STEPS)],
+         "--steps", str(DDP_STEPS), *args] + (["--per-rank-bank"] if control else []),
         capture_output=True, text=True, timeout=DDP_CHECK_TIMEOUT, cwd=root)
     lines = [l for l in out.stdout.splitlines() if l.startswith("{")]
-    if out.returncode != 0 or not lines:
-        raise AssertionError(f"tools/ddp_check_torch.py on 2 cards exited {out.returncode}:\n"
-                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    if (out.returncode != 0) != control or not lines:
+        raise AssertionError(f"tools/ddp_check_torch.py {' '.join(args)} on 2 cards exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     result = json.loads(lines[-1])
-    if not result["ok"]:
-        raise AssertionError(f"tools/ddp_check_torch.py on 2 cards: {lines[-1]}")
+    refused = not result["ok"] and result.get("bank_rows_diff") is None
+    if (not result["ok"], refused) != (control, control):
+        raise AssertionError(f"tools/ddp_check_torch.py {' '.join(args)} on 2 cards: {lines[-1]}")
     return result
 
 
@@ -2893,7 +2916,15 @@ def phase_ddp(smi: str) -> dict:
     step and sum the gradients through the hook.  Prints the step's time
     and FLOP rate beside the card's peak.  Where two or more cards are
     visible, ``tools/ddp_check_torch.py`` then runs as 2 processes at half
-    batch each against one process (the train step and the eval)."""
+    batch each against one process (the train step and the eval), for the
+    flagship, for ``convae`` (the bank gated too) and for its control
+    (``--per-rank-bank``, which the bank gate must refuse).  Last, in the
+    same group of one, ``DDP_ZOO_STEPS`` ``convae`` steps (full
+    width, bf16) against the one-process step and the one-process step
+    repeated: the losses and bank maxima reduced over NCCL every step,
+    the losses and parameters within the same bounds, the bank within the
+    bf16 bank bound (``check_bank``: a query sent to another slot only at
+    a near tie)."""
     from vadcl_tpu_torch.core.mesh import (
         is_distributed,
         maybe_initialize_distributed,
@@ -2903,7 +2934,9 @@ def phase_ddp(smi: str) -> dict:
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train import create_train_state, make_train_step
     from vadcl_tpu_torch.utils.flops import device_peak_tflops, mfu_pct
-    from vadcl_tpu_torch.utils.parity import DDP_LOSS_RTOL, check_adam_bound
+    from vadcl_tpu_torch.utils.parity import (
+        BANK_BOUNDS, DDP_LOSS_RTOL, check_adam_bound, check_bank, recording_bank_updates,
+    )
 
     cards = torch.cuda.device_count()
     print(f"[6] data-parallel training, fold, bf16: {DDP_STEPS} steps at batch {TRAIN_BATCH} "
@@ -2930,10 +2963,25 @@ def phase_ddp(smi: str) -> dict:
             times.append(time.perf_counter() - t0)
         return model, losses, times
 
+    zoo_cfg = zoo_train_config("convae")
+    zoo_clips = np.random.RandomState(7).randint(
+        0, 256, (DDP_ZOO_STEPS, TRAIN_BATCH, 4, ZOO_SIZE, ZOO_SIZE, 3)).astype(np.uint8)
+    zoo_init = zoo_model(zoo_cfg, torch.bfloat16)
+
+    def run_zoo():
+        model = copy.deepcopy(zoo_init).to(DEV)
+        state = create_train_state(model, zoo_cfg)
+        step_fn = make_train_step(model, zoo_cfg, steps_per_epoch=10)
+        with recording_bank_updates() as rec:
+            losses = [float(step_fn(state, torch.from_numpy(c).to(DEV)).loss)
+                      for c in zoo_clips]
+        return model, losses, rec
+
     ref_model, ref_losses, ref_times = run()
     # the one-process step again: the card's own run-to-run spread (cuDNN's
     # convolution backward may sum in another order from one call to the next)
     again_model, again_losses, again_times = run()
+    zoo_ref, zoo_again = run_zoo(), run_zoo()
     with torchrun_env_of_one():
         if not maybe_initialize_distributed("cuda") or process_count() != 1:
             raise AssertionError("maybe_initialize_distributed did not start a group of one")
@@ -2948,6 +2996,10 @@ def phase_ddp(smi: str) -> dict:
             launches = read_launches(TRAINING_KERNELS["fold"], "data-parallel training, fold",
                                      counts, heads=DDP_STEPS)
             check_partitions("data-parallel training, fold", parts[0], 0)
+            reset_launches()
+            with plain_versions_refuse_the_card(), counting_data_parallel() as zoo_seen:
+                zoo_ddp = run_zoo()
+            read_launches(set(), "data-parallel training, convae")
         finally:
             shutdown_distributed()
     if is_distributed():
@@ -2986,8 +3038,44 @@ def phase_ddp(smi: str) -> dict:
               f"{two['loss_rel_err']:.3e} of one process (bound {two['loss_bound']}), the same "
               f"parameters on every process, AUC {two['auc']} against one process's "
               f"{two['one_process_auc']}; step ms {two['step_ms']} [{two['card']}]")
+        bank = ddp_check_two_cards("--backbone", "convae")
+        control = ddp_check_two_cards("--backbone", "convae", control=True)
+        print(f"  2 processes, convae: the bank within {bank['bank_rows_diff']:.3e} of one "
+              f"process (bound {bank['bank_bound']:g}), {bank['bank_queries_apart']} queries sent "
+              f"to another slot; the control (--per-rank-bank) {control['bank_max_diff']:.3e} "
+              f"apart, refused [{bank['card']}]")
     else:
         print("  2 processes: not run (one card visible)")
+    print(f"  convae, {DDP_ZOO_STEPS} steps at batch {TRAIN_BATCH}, {ZOO_SIZE}^2, bf16: loss sums "
+          f"all-reduced {zoo_seen['loss_sums']}, bank maxima all-reduced "
+          f"{zoo_seen['bank_maxima']}, gradient buckets summed {zoo_seen['grad_buckets']}")
+    if (zoo_seen["loss_sums"] != DDP_ZOO_SUMS * DDP_ZOO_STEPS
+            or zoo_seen["bank_maxima"] != DDP_ZOO_MAXIMA * DDP_ZOO_STEPS
+            or zoo_seen["grad_buckets"] < DDP_ZOO_STEPS):
+        raise AssertionError("the data-parallel convae step did not reduce its losses, its "
+                             "bank's update and its gradients over the group every step")
+    z_model, z_losses, z_rec = zoo_ddp
+    print(f"  convae losses: data-parallel {z_losses}; one process {zoo_ref[1]}, again "
+          f"{zoo_again[1]}")
+    ref = dict(zoo_ref[0].named_parameters())
+    for label, (m, zl, rec) in (("convae, one process again", zoo_again),
+                                ("convae, data-parallel", zoo_ddp)):
+        check_close(f"{label}, loss", torch.tensor(zl), torch.tensor(zoo_ref[1]), 0.0,
+                    DDP_LOSS_RTOL)
+        b = check_adam_bound(label, dict(m.named_parameters()), ref, zoo_cfg.optim.lr,
+                             DDP_ZOO_STEPS, key_biases_apart=False)
+        k = check_bank(f"{label}, bank", m.convae.memory.keys, zoo_ref[0].convae.memory.keys,
+                       torch.cat([c["slots"] for c in rec]),
+                       torch.cat([c["slots"] for c in zoo_ref[2]]),
+                       torch.cat([c["gap"] for c in zoo_ref[2]]), BANK_BOUNDS[torch.bfloat16])
+        print(f"  {label}: parameters {b['same']} of {b['tensors']} tensors bit for bit, "
+              f"largest difference {b['worst']:.3e} (bound {b['bound']:.3e}); bank rows within "
+              f"{k['worst']:.3e} (bound {BANK_BOUNDS[torch.bfloat16][0]:g}), {k['moved']} of "
+              f"{sum(len(c['slots']) for c in rec)} queries sent to another slot (largest gap "
+              f"{k['gap_apart']:.3e}, tie bound {BANK_BOUNDS[torch.bfloat16][1]:g}), "
+              f"{k['rows_apart']} rows left out [{smi}]")
+    if not torch.equal(z_model.convae.memory.keys.cpu(), z_rec[-1]["new"]):
+        raise AssertionError("the data-parallel convae model does not hold its last update")
     return launches
 
 
@@ -3048,6 +3136,10 @@ ZOO_CHECK_BATCH, ZOO_CHECK_STEPS = 2, 2  # phase 9's fp32 steps, card against CP
 ZOO_BATCH, ZOO_STEPS = 4, 5  # its bf16 train() run: steps 0-1 warm up, 2 traced, 3-4 timed
 
 
+def _round(v, digits: int = 2):
+    return v if v is None else round(v, digits)
+
+
 def zoo_train_config(backbone: str):
     """The shanghaitech preset (224^2, frame_num 4) with ``backbone``: UNet3D
     at channels 64-1024, ConvAE at 64-512 with a bank of 10 x 512."""
@@ -3066,32 +3158,6 @@ def zoo_model(cfg, dtype, seed: int = 0):
                     model_input_frames(cfg.model.backbone, cfg.data.frame_num))
 
 
-@contextlib.contextmanager
-def recording_bank_updates():
-    """While open, records every memory-bank update (``models.memory``'s
-    ``memory_update``): the query and bank it was given (on the CPU), the
-    bank it returned, and the top-1 slot of each query and the gap of its
-    two best scores, computed where the update ran.  Yields the list."""
-    from vadcl_tpu_torch.models import memory
-    from vadcl_tpu_torch.utils.parity import top1_slots
-
-    calls, real = [], memory.memory_update
-
-    def recorded(query, keys, global_sum=None, global_max=None):
-        out = real(query, keys, global_sum, global_max)
-        slots, gap = top1_slots(query.detach(), keys)
-        calls.append(dict(query=query.detach().float().reshape(-1, keys.shape[-1]).cpu(),
-                          keys=keys.detach().cpu(), new=out.detach().cpu(), slots=slots.cpu(),
-                          gap=gap.cpu()))
-        return out
-
-    memory.memory_update = recorded
-    try:
-        yield calls
-    finally:
-        memory.memory_update = real
-
-
 def phase_zoo_check(backbone: str) -> dict:
     """``make_train_step`` of ``backbone`` in fp32 with TF32 off, the card
     against the CPU, ``ZOO_CHECK_STEPS`` steps at batch ``ZOO_CHECK_BATCH``
@@ -3106,7 +3172,7 @@ def phase_zoo_check(backbone: str) -> dict:
     from vadcl_tpu_torch.ops.memory import memory_update
     from vadcl_tpu_torch.train import create_train_state, make_train_step
     from vadcl_tpu_torch.utils.parity import (
-        FP32_LOSS_RTOL, check_adam_bound, check_bank, top1_slots,
+        FP32_LOSS_RTOL, check_adam_bound, check_bank, recording_bank_updates, top1_slots,
     )
 
     cfg = zoo_train_config(backbone)
@@ -3174,10 +3240,12 @@ def phase_zoo_train(backbone: str, smi: str):
     batch ``ZOO_BATCH`` for ``ZOO_STEPS`` steps, step 2 traced by
     ``profile_steps``: finite losses, moved parameters, unit-norm bank
     rows, a checkpoint round trip (the bank included); prints the host-clock
-    ms of steps 3-4 and the traced step's device-busy ms.  Returns the
-    trained model (in train mode, as ``train()`` leaves it)."""
+    ms of steps 3-4 and the traced step's device-busy ms, and the step's
+    FLOPs (``train_flops_per_clip``) over each, beside the bf16 peak.
+    Returns the trained model (in train mode, as ``train()`` leaves it)."""
     from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES
     from vadcl_tpu_torch.train import CheckpointManager, create_train_state, train
+    from vadcl_tpu_torch.utils.flops import device_peak_tflops, mfu_pct
 
     print(f"[9] {backbone}: train() at batch {ZOO_BATCH}, bf16, {ZOO_STEPS} steps")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3200,6 +3268,15 @@ def phase_zoo_train(backbone: str, smi: str):
         print(f"  {step_ms:.1f} ms a step (host clock, steps 3-4), traced step 2: {busy:.1f} ms "
               f"device busy; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+        clip_flops = train_flops_per_clip(cfg, ZOO_SIZE)
+        peak = device_peak_tflops()
+        rates = {"busy": clip_flops * ZOO_BATCH / (busy / 1e3),
+                 "host": clip_flops * ZOO_BATCH / (step_ms / 1e3)}
+        print(f"  {clip_flops / 1e9:.1f} GFLOP a clip (FlopCounterMode on meta tensors), "
+              f"{clip_flops * ZOO_BATCH / 1e12:.3f} TFLOP a step: "
+              + "; ".join(f"{r / 1e12:.1f} TFLOP/s over the {k} ms = "
+                          f"{_round(mfu_pct(r, peak))}% of the {peak} TFLOP/s bf16 peak"
+                          for k, r in rates.items()) + f" [{smi}]")
         if state.step != ZOO_STEPS or len(losses) != ZOO_STEPS or not np.all(np.isfinite(losses)):
             raise AssertionError(f"{backbone}: training did not run every step with a finite loss")
         init = zoo_model(cfg, torch.bfloat16, cfg.seed)
@@ -3223,7 +3300,8 @@ def phase_zoo_train(backbone: str, smi: str):
                   "restored bit for bit")
             if norm_err > 1e-5 or moved == 0.0:
                 raise AssertionError(f"{backbone}: the bank's rows are not unit, or it never moved")
-    return state.model, {"step_ms": step_ms, "busy_ms": busy}
+    return state.model, {"step_ms": step_ms, "busy_ms": busy, "gflop_per_clip": clip_flops / 1e9,
+                         "busy_peak_pct": mfu_pct(rates["busy"], peak)}
 
 
 def phase_zoo_scoring(backbone: str, model, smi: str) -> dict:
@@ -3268,46 +3346,8 @@ def phase_zoo_scoring(backbone: str, model, smi: str) -> dict:
     return {"windows_per_s": n / wall}
 
 
-def phase_subpixel(smi: str) -> dict:
-    """The flagship ``fold`` scoring forward in bf16 at batch
-    ``BATCH_WINDOWS`` with and without ``subpixel_deconv`` (the same
-    weights): the reconstructions within the bf16 kernel bound, and the
-    decoder's transposed convs (``upsample0.proj``, ``patchdebed.deconv1``,
-    ``deconv2``) timed both ways on the inputs the forward gave them."""
-    from vadcl_tpu_torch.models import VADModel
-
-    print(f"[10] sub-pixel deconvolution: the flagship fold forward, bf16, batch {BATCH_WINDOWS}")
-    cfg = flagship_config("fold")
-    plain = VADModel(cfg, torch.bfloat16, torch.Generator().manual_seed(0)).to(DEV).eval()
-    sub = VADModel(dataclasses.replace(cfg, subpixel_deconv=True), torch.bfloat16).to(DEV).eval()
-    sub.load_state_dict(plain.state_dict())
-    names = ("upsample0.proj", "patchdebed.deconv1", "patchdebed.deconv2")
-    inputs = {}
-    hooks = [plain.decoder.get_submodule(n).register_forward_hook(
-        lambda mod, args, out, n=n: inputs.__setitem__(n, args[0])) for n in names]
-    clips = torch.rand(BATCH_WINDOWS, 4, 224, 224, 3, generator=torch.Generator().manual_seed(6))
-    with torch.inference_mode(), plain_versions_refuse_the_card():
-        want = plain(clips.to(DEV)).recon
-        got = sub(clips.to(DEV)).recon
-        for h in hooks:
-            h.remove()
-        check_close("subpixel recon", got.float(), want.float(), *BOUNDS[torch.bfloat16])
-        out = {}
-        for n in names:
-            a, b = plain.decoder.get_submodule(n), sub.decoder.get_submodule(n)
-            if a.subpixel or not b.subpixel:
-                raise AssertionError(f"{n}: the sub-pixel flag did not reach the layer")
-            x = inputs[n]
-            out[n] = (cuda_ms(lambda: a(x)), cuda_ms(lambda: b(x)))
-    total = [sum(v[i] for v in out.values()) for i in (0, 1)]
-    print(f"  device ms a call, dilated -> sub-pixel: "
-          f"{json.dumps({n: [round(v, 4) for v in t] for n, t in out.items()})}; the three "
-          f"{total[0]:.4f} -> {total[1]:.4f} ms [{smi}]")
-    return out
-
-
 def phase_zoo(smi: str) -> dict:
-    """Phase 9: the alternate families at full width, then phase 10."""
+    """Phase 9: the alternate families at full width."""
     out = {}
     for backbone in ZOO_BACKBONES:
         out[backbone] = phase_zoo_check(backbone)
@@ -3316,7 +3356,6 @@ def phase_zoo(smi: str) -> dict:
         out[backbone].update(phase_zoo_scoring(backbone, model, smi))
         del model
         torch.cuda.empty_cache()
-    out["subpixel"] = phase_subpixel(smi)
     return out
 
 

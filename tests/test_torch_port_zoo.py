@@ -7,9 +7,10 @@ gradient); ``VADModel`` of each family through three train steps against
 ``vadcl_tpu.train.step.make_train_step`` (losses, every parameter, the
 bank); scoring, which leaves the bank alone in train mode too; the bank's
 write (a rebound buffer); checkpoints across the packages; the weight
-bridge for each family; the CLIs with ``--backbone``; the sub-pixel
-transposed conv; ``pos_soft_assign``, ``cluster_alpha_schedule`` and
-``l1_recon_loss``; ``LegacySwinDecoder``.
+bridge for each family; the CLIs with ``--backbone``; the transposed conv
+against the JAX package's lowerings, ``subpixel_deconv`` read as a no-op;
+``pos_soft_assign``, ``cluster_alpha_schedule`` and ``l1_recon_loss``;
+``LegacySwinDecoder``; ``utils.parity.check_bank``.
 
 Inputs from numpy ``RandomState`` seeds, the JAX weights and bank carried
 across by ``convert.state_dict_from_jax``, 32x32 clips at the families'
@@ -18,8 +19,8 @@ full widths (ConvAE 64-512, a bank of 6 x 512; UNet3D 64-1024 and a narrow
 losses rtol 1e-4; each parameter gradient within 2e-3 max|JAX| (the
 repo's train-parity bound, ``GRAD_TOL``); after three Adam steps every
 parameter within ``utils.parity.check_adam_bound`` and the bank within
-1e-5 absolute (``BANK_ATOL``) with unit-norm rows; the sub-pixel
-transposed conv within 1e-5 of max|plain|.  Each JAX reference runs once
+1e-5 absolute (``BANK_ATOL``) with unit-norm rows; the transposed conv
+within 1e-5 of max|JAX| for each lowering.  Each JAX reference runs once
 per module (module-scoped fixtures).
 """
 
@@ -558,68 +559,49 @@ def test_clis_train_and_score_the_families(tmp_path):
 # ------------------------------------------------------------ the zoo's ops
 
 
-SUBPIXEL_CASES = [((3, 2, 2), (1, 2, 2), (1, 0, 0)), ((1, 2, 2), (1, 2, 2), (0, 0, 0)),
-                  ((2, 3, 3), (1, 3, 3), (0, 0, 0))]
+DECONV_CASES = [((3, 2, 2), (1, 2, 2), (1, 0, 0)), ((1, 2, 2), (1, 2, 2), (0, 0, 0)),
+                ((2, 3, 3), (1, 3, 3), (0, 0, 0)), ((2, 2, 3), (2, 2, 3), (0, 0, 0))]
 
 
-@pytest.mark.parametrize("kernel,stride,padding", SUBPIXEL_CASES)
-def test_subpixel_deconv_matches_plain_and_jax(kernel, stride, padding):
+@pytest.mark.parametrize("kernel,stride,padding", DECONV_CASES)
+def test_conv_transpose3d_matches_both_jax_lowerings(kernel, stride, padding):
+    """The port's one transposed conv (the decoders' shapes, and kernel ==
+    stride) against the JAX package's dilated form and its TPU lowerings,
+    the sub-pixel form and the unpatchify matmul, where they apply: the
+    port reads ``subpixel_deconv`` as a no-op."""
     rng = np.random.RandomState(13)
     x = rng.randn(2, 3, 5, 6, 7).astype(np.float32)
     w = rng.randn(7, 4, *kernel).astype(np.float32)  # (Cin, Cout, kd, kh, kw)
     b = rng.randn(4).astype(np.float32)
-    tx, tw, tb = map(torch.from_numpy, (x, w, b))
-    assert port_convs.subpixel_applicable(kernel, stride, padding)
-    got = port_convs.conv_transpose3d_subpixel(tx, tw, tb, stride, padding)
-    plain = port_convs.conv_transpose3d(tx, tw, tb, stride, padding)
-    assert _rel(got.numpy(), plain.numpy()) <= FWD_TOL
+    got = port_convs.conv_transpose3d(*map(torch.from_numpy, (x, w, b)), stride, padding).numpy()
     jw = w.transpose(2, 3, 4, 0, 1)  # (kd, kh, kw, Cin, Cout)
-    want = jax_convs.conv_transpose3d_subpixel(x, jw, b, stride, padding)
-    assert _rel(got.numpy(), want) <= FWD_TOL
-    assert not port_convs.subpixel_applicable((3, 2, 2), (2, 2, 2), (1, 0, 0))
-    assert not port_convs.subpixel_applicable((3, 3, 3), (1, 2, 2), (0, 1, 1))
-
-
-def test_unpatchify_matmul_matches_jax():
-    rng = np.random.RandomState(14)
-    x = rng.randn(2, 3, 4, 5, 6).astype(np.float32)
-    w = rng.randn(6, 5, 2, 2, 3).astype(np.float32)
-    got = port_convs.unpatchify_matmul(torch.from_numpy(x), torch.from_numpy(w))
-    assert _rel(got.numpy(), jax_convs.unpatchify_matmul(x, w.transpose(2, 3, 4, 0, 1))) <= FWD_TOL
-    plain = port_convs.conv_transpose3d(torch.from_numpy(x), torch.from_numpy(w), None, (2, 2, 3))
-    assert _rel(got.numpy(), plain.numpy()) <= FWD_TOL
+    assert _rel(got, jax_convs.conv_transpose3d(x, jw, b, stride, padding)) <= FWD_TOL
+    if jax_convs.subpixel_applicable(kernel, stride, padding):
+        assert _rel(got, jax_convs.conv_transpose3d_subpixel(x, jw, b, stride, padding)) <= FWD_TOL
+    if tuple(kernel) == tuple(stride):
+        assert _rel(got, jax_convs.unpatchify_matmul(x, jw, b)) <= FWD_TOL
 
 
 @pytest.mark.parametrize("predict", [True, False])
-def test_flagship_tiny_model_with_subpixel_deconv(predict):
-    """The tiny flagship with ``subpixel_deconv`` on and off: the same
-    parameters, the decoder's upsampling and patch-debed through the
-    sub-pixel form, the same reconstruction and gradients; and (in
-    reconstruction mode) on against the JAX model with the flag on."""
+def test_flagship_tiny_model_reads_subpixel_deconv_as_a_no_op(predict):
+    """The tiny flagship with ``subpixel_deconv`` on: the same parameters
+    and the same reconstruction, bit for bit, as with it off, and within
+    the forward bound of the JAX model with the flag on (its sub-pixel
+    lowering)."""
     base = dataclasses.replace(preset("tiny").model, predict=predict)
     clip = np.random.RandomState(15).rand(1, 4, 56, 56, 3).astype(np.float32)
-    outs, grads = [], []
-    for subpixel in (False, True):
-        model = VADModel(dataclasses.replace(base, subpixel_deconv=subpixel), torch.float32)
-        assert model.decoder.patchdebed.deconv1.subpixel == subpixel
-        out = model(torch.from_numpy(clip))
-        out.recon.square().sum().backward()
-        outs.append(out.recon.detach().numpy())
-        grads.append({k: p.grad for k, p in model.named_parameters()})
-    assert _rel(outs[1], outs[0]) <= FWD_TOL
-    for k, g in grads[0].items():
-        assert (g is None) == (grads[1][k] is None), k
-        if g is not None:
-            assert _rel(grads[1][k].numpy(), g.numpy()) <= GRAD_TOL, k
-    if predict:
-        return  # the flag changes the same transposed convs in both modes
     jm = dataclasses.replace(jax_preset("tiny").model, predict=predict, subpixel_deconv=True)
     jmodel = JaxVADModel(config=jm)
     variables = jax.jit(jmodel.init)(jax.random.key(0), clip)
-    load_state_dict_strict(model, state_dict_from_jax(flatten_state(variables), predict=predict))
-    with torch.no_grad():
-        got = model(torch.from_numpy(clip)).recon.numpy()
-    assert _rel(got, jax.jit(jmodel.apply)(variables, clip).recon) <= FWD_TOL
+    state = state_dict_from_jax(flatten_state(variables), predict=predict)
+    outs = []
+    for subpixel in (False, True):
+        model = VADModel(dataclasses.replace(base, subpixel_deconv=subpixel), torch.float32)
+        load_state_dict_strict(model, state)
+        with torch.no_grad():
+            outs.append(model(torch.from_numpy(clip)).recon.numpy())
+    np.testing.assert_array_equal(outs[1], outs[0])
+    assert _rel(outs[1], jax.jit(jmodel.apply)(variables, clip).recon) <= FWD_TOL
 
 
 def test_cluster_extras_match_jax():
@@ -654,19 +636,22 @@ def test_legacy_swin_decoder_matches_jax():
     assert _rel(got.numpy(), want) <= FWD_TOL
 
 
-def test_check_bank_allows_only_near_ties():
-    """``utils.parity.check_bank`` (the card against the CPU in
-    ``chip_smoke.py``): a query sent to another slot at a near tie leaves
-    its two rows out; one sent apart at a clear gap, or a row off by more
-    than the bound, fails."""
-    from vadcl_tpu_torch.utils.parity import BANK_ATOL, TIE_GAP, check_bank, top1_slots
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_bank_allows_only_near_ties(dtype):
+    """``utils.parity.check_bank`` at each dtype's bounds (the card against
+    the CPU, and the data-parallel step against one process): a query sent
+    to another slot at a near tie leaves its two rows out; one sent apart
+    at a clear gap, a row off by more than the bound, or near ties that
+    leave every row out fail."""
+    from vadcl_tpu_torch.utils.parity import BANK_BOUNDS, check_bank, top1_slots
 
+    BANK_ATOL, TIE_GAP = bounds = BANK_BOUNDS[dtype]
     q, keys = _memory_inputs(18)
     tq, tk = torch.from_numpy(q), torch.from_numpy(keys)
     slots, gap = top1_slots(tq, tk)
     np.testing.assert_array_equal(slots.numpy(), port_memory.memory_top1(tq, tk).index.numpy())
     new = port_memory.memory_update(tq, tk)
-    assert check_bank("same", new + BANK_ATOL / 2, new, slots, slots, gap)["moved"] == 0
+    assert check_bank("same", new + BANK_ATOL / 2, new, slots, slots, gap, bounds)["moved"] == 0
     moved = slots.clone()
     i = int(gap.argmin())
     moved[i] = (slots[i] + 1) % keys.shape[0]
@@ -674,12 +659,16 @@ def test_check_bank_allows_only_near_ties():
     wrong[slots[i]] += 1.0
     wrong[moved[i]] -= 1.0
     with pytest.raises(AssertionError, match="bank rows differ"):
-        check_bank("moved row", wrong, new, slots, slots, gap)
+        check_bank("moved row", wrong, new, slots, slots, gap, bounds)
     near = gap.clone()
     near[i] = TIE_GAP / 2
-    out = check_bank("near tie", wrong, new, moved, slots, near)
+    out = check_bank("near tie", wrong, new, moved, slots, near, bounds)
     assert out["moved"] == 1 and out["rows_apart"] == 2 and out["worst"] == 0.0
     far = gap.clone()
     far[i] = 2 * TIE_GAP
     with pytest.raises(AssertionError, match="another top-1 slot"):
-        check_bank("clear gap", wrong, new, moved, slots, far)
+        check_bank("clear gap", wrong, new, moved, slots, far, bounds)
+    every = torch.arange(keys.shape[0])
+    with pytest.raises(AssertionError, match="every row"):
+        check_bank("all ties", new, new, every, (every + 1) % keys.shape[0],
+                   torch.zeros(keys.shape[0]), bounds)

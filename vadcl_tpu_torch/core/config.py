@@ -44,10 +44,13 @@ class ModelConfig:
     package's ``ModelConfig`` for the meaning of every field).  The port's
     inference forward does not read ``remat`` or the dropout rates; like the
     JAX package's deterministic forward, its result does not depend on
-    them.  ``subpixel_deconv`` (an exact re-lowering) picks how the
-    decoder's transposed convs run (``models/decoder.py``), and
-    ``memory_size`` / ``memory_dim`` size the bank of the ``convae`` and
-    ``convae_predict`` families (``models/memory.py``)."""
+    them.  Nothing reads ``subpixel_deconv`` either: it picks the JAX
+    package's TPU lowering of the decoder's transposed convs (a dense conv
+    and a pixel shuffle, the same result), which the H100 runs slower than
+    its transposed convolution (ROADMAP.md), so the port's decoder takes
+    the transposed convolution whatever it says.  ``memory_size`` /
+    ``memory_dim`` size the bank of the ``convae`` and ``convae_predict``
+    families (``models/memory.py``)."""
 
     backbone: str = "swin"  # swin | unet3d | convae | convae_predict
     in_channels: int = 3

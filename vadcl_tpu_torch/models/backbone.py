@@ -115,7 +115,7 @@ class VADModel(nn.Module):
         self.decoder = SwinDecoder3D(
             latent, cfg.decoder_depths, cfg.decoder_heads, cfg.window_size,
             cfg.mlp_ratio, cfg.qkv_bias, cfg.predict, cfg.in_channels,
-            cfg.fused_attention, cfg.attn_kernel, cfg.subpixel_deconv,
+            cfg.fused_attention, cfg.attn_kernel,
         )
 
     def forward(self, clip: torch.Tensor, detach_cluster_input: Optional[bool] = None,

@@ -3,8 +3,6 @@ and the v1 conv decoder ``LegacySwinDecoder`` (``vadcl_tpu/models/decoder.py``).
 
 ``timedebd``: prediction collapses the latent time axis with Conv3d
 k=s=(2,1,1); reconstruction expands it with ConvTranspose3d k=s=(2,1,1).
-``subpixel`` (``ModelConfig.subpixel_deconv``) computes the upsampling and
-patch-debed transposed convs as dense convs and pixel shuffles.
 """
 
 from __future__ import annotations
@@ -29,10 +27,9 @@ from vadcl_tpu_torch.models.swin import SwinStage
 class UpSampling(nn.Module):
     """ConvTranspose3d(1,2,2) stride (1,2,2) halving channels, + GELU."""
 
-    def __init__(self, dim: int, subpixel: bool = False):
+    def __init__(self, dim: int):
         super().__init__()
-        self.proj = ConvTranspose3d(dim, dim // 2, (1, 2, 2), stride=(1, 2, 2),
-                                    subpixel=subpixel)
+        self.proj = ConvTranspose3d(dim, dim // 2, (1, 2, 2), stride=(1, 2, 2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return gelu(self.proj(x))
@@ -42,14 +39,12 @@ class PatchDebed3D(nn.Module):
     """Inverse patchify: ConvT(3,2,2)s(1,2,2) -> GELU -> Conv3d(3,3,3) ->
     GELU -> ConvT(3,2,2)s(1,2,2)."""
 
-    def __init__(self, in_channels: int, out_channels: int = 3, subpixel: bool = False):
+    def __init__(self, in_channels: int, out_channels: int = 3):
         super().__init__()
         c = in_channels
-        self.deconv1 = ConvTranspose3d(c, 2 * c, (3, 2, 2), stride=(1, 2, 2), padding=(1, 0, 0),
-                                       subpixel=subpixel)
+        self.deconv1 = ConvTranspose3d(c, 2 * c, (3, 2, 2), stride=(1, 2, 2), padding=(1, 0, 0))
         self.conv = Conv3d(2 * c, c, (3, 3, 3), padding=(1, 1, 1))
-        self.deconv2 = ConvTranspose3d(c, out_channels, (3, 2, 2), stride=(1, 2, 2),
-                                       padding=(1, 0, 0), subpixel=subpixel)
+        self.deconv2 = ConvTranspose3d(c, out_channels, (3, 2, 2), stride=(1, 2, 2), padding=(1, 0, 0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = gelu(self.deconv1(x))
@@ -112,8 +107,7 @@ class SwinDecoder3D(nn.Module):
                  num_heads: Sequence[int] = (12, 6), window_size=(8, 7, 7),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  predict: bool = False, out_channels: int = 3,
-                 fused_attention: bool = False, attn_kernel: str = "base",
-                 subpixel_deconv: bool = False):
+                 fused_attention: bool = False, attn_kernel: str = "base"):
         super().__init__()
         self.num_layers = len(depths)
         conv = Conv3d if predict else ConvTranspose3d
@@ -126,10 +120,10 @@ class SwinDecoder3D(nn.Module):
                 fused=fused_attention, attn_kernel=attn_kernel,
             ))
             if i < self.num_layers - 1:
-                self.add_module(f"upsample{i}", UpSampling(dim, subpixel_deconv))
+                self.add_module(f"upsample{i}", UpSampling(dim))
         last = in_chans // (2 ** (self.num_layers - 1))
         self.norm = LayerNorm(last)
-        self.patchdebed = PatchDebed3D(last, out_channels, subpixel_deconv)
+        self.patchdebed = PatchDebed3D(last, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, D, H, W, in_chans) latent -> (B, D_out, H*8, W*8, 3);

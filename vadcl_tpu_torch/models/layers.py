@@ -16,13 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vadcl_tpu_torch.ops.convs import (
-    conv3d,
-    conv_transpose3d,
-    conv_transpose3d_subpixel,
-    max_pool3d_same,
-    subpixel_applicable,
-)
+from vadcl_tpu_torch.ops.convs import conv3d, conv_transpose3d, max_pool3d_same
 
 Tri = Tuple[int, int, int]
 
@@ -150,20 +144,14 @@ class Conv3d(nn.Module):
 
 
 class ConvTranspose3d(nn.Module):
-    """torch.nn.ConvTranspose3d over NDHWC; weight (Cin, Cout, kd, kh, kw).
-    ``subpixel`` computes it as a dense conv and a pixel shuffle where
-    ``ops.convs.subpixel_applicable`` holds (the same parameters, the same
-    result up to summation order; ``ModelConfig.subpixel_deconv``)."""
+    """torch.nn.ConvTranspose3d over NDHWC; weight (Cin, Cout, kd, kh, kw)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: Tri,
                  stride: Tri = (1, 1, 1), padding: Tri = (0, 0, 0),
-                 bias: bool = True, output_padding: Tri = (0, 0, 0),
-                 subpixel: bool = False):
+                 bias: bool = True, output_padding: Tri = (0, 0, 0)):
         super().__init__()
         self.stride, self.padding = tuple(stride), tuple(padding)
         self.output_padding = tuple(output_padding)
-        self.subpixel = (subpixel and not any(self.output_padding)
-                         and subpixel_applicable(kernel_size, stride, padding))
         self.weight = nn.Parameter(torch.empty(in_channels, out_channels, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
@@ -176,8 +164,6 @@ class ConvTranspose3d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.subpixel:
-            return conv_transpose3d_subpixel(x, self.weight, self.bias, self.stride, self.padding)
         return conv_transpose3d(x, self.weight, self.bias, self.stride, self.padding,
                                 self.output_padding)
 

@@ -98,66 +98,6 @@ def patchify_matmul(
     return out
 
 
-def subpixel_applicable(kernel: IntOr3, stride: IntOr3, padding: IntOr3) -> bool:
-    """True when ``conv_transpose3d_subpixel`` computes ``conv_transpose3d``'s
-    result: unit temporal stride, spatial kernel == spatial stride and no
-    spatial padding, so each output pixel receives exactly one spatial tap."""
-    k, s, p = _triple(kernel), _triple(stride), _triple(padding)
-    return s[0] == 1 and k[1] == s[1] and k[2] == s[2] and p[1] == p[2] == 0
-
-
-def conv_transpose3d_subpixel(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    b: Optional[torch.Tensor] = None,
-    stride: IntOr3 = 1,
-    padding: IntOr3 = 0,
-) -> torch.Tensor:
-    """ConvTranspose3d as a dense conv and a pixel shuffle, where
-    ``subpixel_applicable`` holds: output pixel (s_h*h + r_h, s_w*w + r_w)
-    receives one spatial tap, so the op is a stride-1 conv with kernel
-    (kd, 1, 1) and kh*kw*Cout output channels (the temporal transposed conv
-    at stride 1 is a correlation with the kd-flipped kernel, padded
-    kd - 1 - p_d), then a space interleave.  The zero taps of the dilated
-    formulation (3 of 4 at the decoder's (x, 2, 2) kernels) are never
-    multiplied.  w (Cin, Cout, kd, kh, kw)."""
-    s, p = _triple(stride), _triple(padding)
-    cin, cout, kd, kh, kw = w.shape
-    if not subpixel_applicable((kd, kh, kw), s, p):
-        raise ValueError(f"subpixel: kernel {tuple(w.shape[2:])}, stride {s}, padding {p}")
-    # W2[(a, b, co), ci, t, 0, 0] = w[ci, co, kd - 1 - t, a, b]
-    w2 = w.flip(2).permute(3, 4, 1, 0, 2).reshape(kh * kw * cout, cin, kd, 1, 1)
-    out = F.conv3d(_ncdhw(x), w2.to(x.dtype), None, padding=(kd - 1 - p[0], 0, 0))
-    out = _ndhwc(out)
-    B, D, H, W, _ = out.shape
-    out = out.reshape(B, D, H, W, kh, kw, cout).permute(0, 1, 2, 4, 3, 5, 6)
-    out = out.reshape(B, D, H * kh, W * kw, cout)
-    if b is not None:
-        out = out + b.to(out.dtype)
-    return out
-
-
-def unpatchify_matmul(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    b: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """ConvTranspose3d with kernel == stride as one matmul and a pixel
-    shuffle (the taps do not overlap: every output element receives one).
-    w (Cin, Cout, kd, kh, kw)."""
-    cin, cout, kd, kh, kw = w.shape
-    B, D, H, W, C = x.shape
-    if C != cin:
-        raise ValueError(f"unpatchify: input {tuple(x.shape)} vs kernel {tuple(w.shape)}")
-    wm = w.permute(0, 2, 3, 4, 1).reshape(cin, kd * kh * kw * cout)
-    out = x @ wm.to(x.dtype)
-    out = out.reshape(B, D, H, W, kd, kh, kw, cout).permute(0, 1, 4, 2, 5, 3, 6, 7)
-    out = out.reshape(B, D * kd, H * kh, W * kw, cout)
-    if b is not None:
-        out = out + b.to(out.dtype)
-    return out
-
-
 def max_pool3d(x: torch.Tensor, kernel: IntOr3, stride: IntOr3) -> torch.Tensor:
     """Max-pool with VALID padding (a trailing row that fills no window is
     dropped), the ``reduce_window`` pools of ConvAE and UNet3D."""

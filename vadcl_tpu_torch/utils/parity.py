@@ -7,7 +7,8 @@ phase 9, the alternate families and the memory bank)."""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import contextlib
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +26,16 @@ BANK_ATOL = 1e-5
 # two best scores (cosines) lie closer than this: their scores differ by
 # ~1e-6, and a slot chosen apart where the gap is wider is a fault
 TIE_GAP = 1e-4
+# the same for a bank updated from bf16 queries (the card's compute dtype):
+# a data-parallel run against one process (``chip_smoke.py``'s phase 6,
+# ``tools/ddp_check_torch.py``).  A bf16 query is off by up to 2^-9 of
+# each element, which moves a cosine by up to ~2e-3 and a unit row's
+# elements (~0.04) by ~1e-4: ten times that, and five times the score's
+# worst case.  An update left per rank moves the bank ~1.5e-2 (the 2-rank
+# gloo control at the tiny preset), past both.
+BF16_BANK_ATOL = 1e-3
+BF16_TIE_GAP = 1e-2
+BANK_BOUNDS = {torch.float32: (BANK_ATOL, TIE_GAP), torch.bfloat16: (BF16_BANK_ATOL, BF16_TIE_GAP)}
 
 
 def _tensor(x) -> torch.Tensor:
@@ -87,28 +98,62 @@ def top1_slots(query: torch.Tensor, keys: torch.Tensor):
     return top.indices[:, 0], top.values[:, 0] - top.values[:, 1]
 
 
-def check_bank(label: str, got, want, slots_got, slots_want, gap) -> Dict[str, float]:
-    """Hold a bank ``got`` after an update against ``want``, another run's
-    update: ``slots_*`` are the top-1 slot each run gave each query
-    (``top1_slots``), ``gap`` the second run's score gaps.  A query whose
-    slot differs must be a near tie (gap below ``TIE_GAP``): its weight
-    then lands in another row, which is a legitimate fp32 outcome, and the
-    rows of both slots are left out; every other row is within
-    ``BANK_ATOL``.  Raises ``AssertionError``; returns the queries sent
-    apart (``moved``), the rows left out (``rows_apart``) and the largest
-    difference of the rest (``worst``)."""
+def check_bank(label: str, got, want, slots_got, slots_want, gap,
+               bounds: Tuple[float, float] = (BANK_ATOL, TIE_GAP)) -> Dict[str, float]:
+    """Hold a bank ``got`` after its updates against ``want``, another
+    run's: ``slots_*`` are the top-1 slot each run gave each query of each
+    update (``top1_slots``, concatenated in the same order), ``gap`` the
+    second run's score gaps.  ``bounds`` is (row bound, tie gap),
+    ``BANK_BOUNDS`` of the queries' dtype.  A query whose slot differs must
+    be a near tie (gap below the tie gap): its weight then lands in another
+    row, which is a legitimate outcome, and the rows of both slots are left
+    out; every other row is within the row bound, and at least one row must
+    remain.  Raises ``AssertionError``; returns the queries sent apart
+    (``moved``), the largest gap among them (``gap_apart``), the rows left
+    out (``rows_apart``) and the largest difference of the rest
+    (``worst``)."""
+    atol, tie_gap = bounds
     got, want = _tensor(got).float().cpu(), _tensor(want).float().cpu()
     slots_got, slots_want = _tensor(slots_got).cpu(), _tensor(slots_want).cpu()
     gap = _tensor(gap).float().cpu()
     apart = slots_got != slots_want
-    if apart.any() and float(gap[apart].max()) >= TIE_GAP:
+    gap_apart = float(gap[apart].max()) if bool(apart.any()) else 0.0
+    if gap_apart >= tie_gap:
         raise AssertionError(f"{label}: a query took another top-1 slot at a score gap of "
-                             f"{float(gap[apart].max()):.3e} (ties below {TIE_GAP:g} only)")
+                             f"{gap_apart:.3e} (ties below {tie_gap:g} only)")
     rows = torch.zeros(got.shape[0], dtype=torch.bool)
     rows[slots_got[apart]] = True
     rows[slots_want[apart]] = True
-    err = (got - want).abs().amax(dim=1)
-    worst = float(err[~rows].max()) if bool((~rows).any()) else 0.0
-    if worst > BANK_ATOL:
-        raise AssertionError(f"{label}: bank rows differ by {worst:.3e} (bound {BANK_ATOL:g})")
-    return {"moved": int(apart.sum()), "rows_apart": int(rows.sum()), "worst": worst}
+    if bool(rows.all()):
+        raise AssertionError(f"{label}: queries at near ties left every row out")
+    worst = float((got - want).abs().amax(dim=1)[~rows].max())
+    if worst > atol:
+        raise AssertionError(f"{label}: bank rows differ by {worst:.3e} (bound {atol:g})")
+    return {"moved": int(apart.sum()), "gap_apart": gap_apart, "rows_apart": int(rows.sum()),
+            "worst": worst}
+
+
+@contextlib.contextmanager
+def recording_bank_updates():
+    """While open, records every memory-bank update
+    (``models.memory.memory_update``, as the train step calls it): the
+    query (fp32, flattened) and bank it was given and the bank it returned,
+    all on the CPU, and the top-1 slot of each query and the gap of its two
+    best scores, computed where the update ran.  Yields the list."""
+    from vadcl_tpu_torch.models import memory
+
+    calls, real = [], memory.memory_update
+
+    def recorded(query, keys, global_sum=None, global_max=None):
+        out = real(query, keys, global_sum, global_max)
+        slots, gap = top1_slots(query.detach(), keys)
+        calls.append(dict(query=query.detach().float().reshape(-1, keys.shape[-1]).cpu(),
+                          keys=keys.detach().cpu(), new=out.detach().cpu(), slots=slots.cpu(),
+                          gap=gap.cpu()))
+        return out
+
+    memory.memory_update = recorded
+    try:
+        yield calls
+    finally:
+        memory.memory_update = real
