@@ -167,6 +167,26 @@ Phases (any failure raises and the script exits non-zero):
      round trip with the bank); ``evaluate_videos`` of two videos twice
      with the model left in train mode (the bank bit for bit unmoved, the
      two scorings equal, windows/s).
+  10. the serving export at full width (shanghaitech, 224^2, 4-frame
+     predict, bf16): ``export_window_scorer`` of the flagship scorer under
+     ``"fold"`` and ``"base"`` at batch 16, saved, then loaded and called in
+     a second process that must not import ``vadcl_tpu_torch.models``: the
+     graph's kernel ops, one call's launches (18 of A or of 7, 18 of B, 1
+     of C, 1 of D, nothing else), the scores against the live scorer's
+     within the bf16 score bound (``utils/parity.py``), two calls the same
+     bits; windows/s of artifact and live, device-busy ms and host ops of a
+     traced call of each.
+  11. the train-step leftovers at full width: ``train()`` 2 steps at batch 4
+     in bf16 under ``"fold"`` and ``"base"`` with ``drop_rate`` 0.1 and
+     ``drop_path_rate`` 0.2: exactly A and 6 (or 7 and 8) in every block
+     each way, C and D, no kernel B or 5 and no whole-block kernel; the
+     fused step against the plain-attention model with the same masks in
+     fp32 (loss and every gradient, phase 3b's bounds); host-clock ms,
+     device-busy ms and host ops of the dropout step beside the rate-0
+     step's, and the time of one mask draw; ``remat`` on against off in
+     bf16 with masks drawn (each gradient within the bf16 bound, and the
+     run without remat repeated for the card's own spread); one LARS step
+     on the card's gradients against the float64 plain update.
 No earlier path was cut: the whole run takes about five minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels, kernel B's CUDA-core body, the whole-block forward's and
@@ -3359,6 +3379,346 @@ def phase_zoo(smi: str) -> dict:
     return out
 
 
+EXPORT_BATCH = 16  # the scoring path's batch: the artifact's static batch
+EXPORT_TIMEOUT = 600  # seconds for the loading process of one artifact
+# a forward of the flagship artifact: one launch a Swin block on the route's
+# attention counter and on kernel B's, one of each cluster kernel
+EXPORT_COUNTS = {
+    "fold": {"fold_attention": 18, "ln_mlp": 18, "cluster_assign": 1, "space_cluster_loss": 1},
+    "base": {"window_attention_fused": 18, "ln_mlp": 18, "cluster_assign": 1,
+             "space_cluster_loss": 1},
+}
+EXPORT_OPS = ["vadcl.cluster_assign.default", "vadcl.fold_attention.default",
+              "vadcl.ln_mlp.default", "vadcl.space_cluster_loss.default"]
+# The loading process: the artifact alone, no model code.  Scores the
+# windows, counts a call's launches, checks two calls for the same bits and
+# traces one call.
+SERVE_RUNNER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from vadcl_tpu_torch.serve import load_artifact
+from vadcl_tpu_torch.ops import KERNELS
+path, windows_path, out_path = sys.argv[1:4]
+art = load_artifact(path)
+models = sorted(k for k in sys.modules if k.startswith("vadcl_tpu_torch.models"))
+w = torch.from_numpy(np.load(windows_path)).cuda()
+art.score(w)
+torch.cuda.synchronize()
+for k in KERNELS:
+    k.launches = 0
+got = art.score(w)
+torch.cuda.synchronize()
+launches = {k.__name__: k.launches for k in KERNELS}
+same = bool(torch.equal(got, art.score(w)))
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    art.score(w)
+    torch.cuda.synchronize()
+events = prof.events()
+busy = sum(e.device_time_total for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+host_ops = sum(e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("aten::")
+               for e in events)
+json.dump(dict(scores=got.float().cpu().tolist(), launches=launches, same_bits=same,
+               busy_ms=busy, host_ops=host_ops, models=models), open(out_path, "w"))
+"""
+
+
+def traced_call(fn) -> tuple:
+    """(device-busy ms, host ``aten::`` ops) of one call of ``fn``: the sum
+    of the durations of the device work the profiler traced in it, and the
+    ATen operators the host dispatched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # (a trace now and then comes back empty: read again)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        busy = sum(e.device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        host_ops = sum(e.device_type == torch.autograd.DeviceType.CPU
+                       and e.name.startswith("aten::") for e in events)
+        if busy > 0:
+            return busy, host_ops
+    raise AssertionError("the profiler traced no device work")
+
+
+def phase_export(smi: str) -> dict:
+    """The serving export at full width: the flagship scorer (shanghaitech,
+    224^2, 4-frame predict, bf16) under ``fold`` and ``base`` exported by
+    ``export_window_scorer`` at batch 16 and saved; a second process loads
+    it (importing nothing of ``vadcl_tpu_torch.models``) and scores the
+    same uint8 windows as the live scorer, within the bf16 score bound
+    (``utils/parity.py``); a call of the loaded program launches one
+    attention kernel and one kernel B a block and each cluster kernel once,
+    and nothing else; two calls give the same bits.  Then, in this
+    process, the artifact and the live scorer in turns (live, artifact,
+    artifact, live; ``cuda_ms`` each: back-to-back calls, so the slower of
+    host and device is read); windows/s of each, and the device-busy ms and
+    host aten ops of one traced call of each."""
+    from vadcl_tpu_torch.eval.predict import window_score_fn
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.serve import export_window_scorer, load_artifact, save_artifact
+    from vadcl_tpu_torch.utils.parity import score_bound
+
+    out = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    windows = np.random.RandomState(3).randint(
+        0, 256, (EXPORT_BATCH, 4, 224, 224, 3)).astype(np.uint8)
+    for kernel in ("fold", "base"):
+        print(f"[10] serving export, attn_kernel={kernel}, bf16: export_window_scorer at "
+              f"batch {EXPORT_BATCH}, loaded in a process without the model code")
+        model = VADModel(flagship_config(kernel), torch.bfloat16,
+                         torch.Generator().manual_seed(0)).cuda().eval()
+        live = window_score_fn(lambda clips: model(clips).recon, True, input_frames=4)
+        w = torch.from_numpy(windows).cuda()
+        with torch.no_grad():
+            want = live(w).float().cpu().numpy()
+            live_busy, live_ops = traced_call(lambda: live(w))
+        t0 = time.perf_counter()
+        program, meta = export_window_scorer(model, batch_windows=EXPORT_BATCH, frame_num=4,
+                                             image_size=(224, 224), predict=True,
+                                             input_frames=4)
+        export_s = time.perf_counter() - t0
+        if meta["ops"] != EXPORT_OPS:
+            raise AssertionError(f"export, {kernel}: the graph's kernel ops {meta['ops']}")
+        with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_export_") as tmp:
+            path = os.path.join(tmp, "artifact")
+            save_artifact(path, program, meta)
+            size = os.path.getsize(os.path.join(path, "scorer.pt2"))
+            np.save(os.path.join(tmp, "windows.npy"), windows)
+            res_path = os.path.join(tmp, "result.json")
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-c", SERVE_RUNNER, path, os.path.join(tmp, "windows.npy"),
+                 res_path], capture_output=True, text=True, timeout=EXPORT_TIMEOUT, cwd=root)
+            load_s = time.perf_counter() - t0
+            if run.returncode != 0:
+                raise AssertionError(f"export, {kernel}: the loading process exited "
+                                     f"{run.returncode}:\n{run.stderr[-3000:]}")
+            with open(res_path) as f:
+                res = json.load(f)
+            art = load_artifact(path)
+        turns = {"live": [], "artifact": []}
+        with torch.no_grad():
+            for who in ("live", "artifact", "artifact", "live"):
+                fn = (lambda: live(w)) if who == "live" else (lambda: art.score(w))
+                turns[who].append(cuda_ms(fn))
+        got = np.asarray(res["scores"], np.float32)
+        err = float(np.max(np.abs(got - want)))
+        limit = score_bound(want, torch.bfloat16)
+        print(f"  exported in {export_s:.1f} s, {size / 1e6:.1f} MB; loading process "
+              f"{load_s:.1f} s; scores max |artifact - live| = {err:.3e} (bound {limit:.3e}); "
+              f"two artifact calls same bits: {res['same_bits']}")
+        nonzero = {k: n for k, n in res["launches"].items() if n}
+        print(f"  launches of one artifact call: {nonzero}")
+        if res["models"]:
+            raise AssertionError(f"export, {kernel}: the loading process imported {res['models']}")
+        if not err <= limit or not np.all(np.isfinite(got)):
+            raise AssertionError(f"export, {kernel}: artifact scores disagree with the live "
+                                 "scorer")
+        if nonzero != EXPORT_COUNTS[kernel]:
+            raise AssertionError(f"export, {kernel}: launches {nonzero}, expected "
+                                 f"{EXPORT_COUNTS[kernel]}")
+        if not res["same_bits"]:
+            raise AssertionError(f"export, {kernel}: two artifact calls differ")
+        for who, ms in turns.items():
+            print(f"  {who}: {', '.join(f'{EXPORT_BATCH / t * 1e3:.1f}' for t in ms)} windows/s "
+                  f"({', '.join(f'{t:.2f}' for t in ms)} ms a call, CUDA events around 5 calls "
+                  "back to back)")
+        print(f"  one traced call: artifact {res['busy_ms']:.2f} ms device busy, "
+              f"{res['host_ops']} host aten ops (in the loading process); live "
+              f"{live_busy:.2f} ms, {live_ops} ops [{smi}]")
+        out[kernel] = dict(turns, busy_ms=res["busy_ms"], live_busy_ms=live_busy,
+                           max_abs_err=err)
+        del model, program, art
+        torch.cuda.empty_cache()
+    return out
+
+
+DROP_RATES = dict(drop_rate=0.1, drop_path_rate=0.2)
+DROP_STEPS = 2
+# A step that draws masks: the attention kernel without LN and residual
+# forward and backward in every block (A and 6 under fold; 7 and 8, on A's
+# and 6's bodies, under base), C and D; no kernel B or 5, no whole-block
+# kernel (the JAX block's deterministic=False routes).
+DROP_KERNELS = {
+    "fold": {"fold_attention", "fold_attention_bwd", "cluster_assign", "space_cluster_loss"},
+    "base": {"window_attention_fused", "window_attention_fused_bwd", "cluster_assign",
+             "space_cluster_loss"},
+}
+DROP_TIMED_STEPS = 5
+
+
+def _drop_config(kernel: str, depths=None, **model):
+    cfg = flagship_train_config(kernel, depths)
+    return cfg.replace(model=dataclasses.replace(cfg.model, **DROP_RATES, **model))
+
+
+def _loss_grads(model, cfg, clip, step: int = 0):
+    from vadcl_tpu_torch.train.step import make_loss_fn
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = make_loss_fn(model, cfg)(clip, step)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def _step_times(cfg, dtype) -> tuple:
+    """(host-clock ms a step over ``DROP_TIMED_STEPS`` untraced steps,
+    device-busy ms and host aten ops of one traced step) of
+    ``make_train_step`` at batch 4."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+
+    model = VADModel(cfg.model, dtype, torch.Generator().manual_seed(0)).to(DEV).train()
+    state = create_train_state(model, cfg)
+    step_fn = make_train_step(model, cfg, steps_per_epoch=100)
+    clips = torch.from_numpy(MemLoader(TRAIN_BATCH, 1).data[0]).to(DEV)
+    for _ in range(2):
+        step_fn(state, clips)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DROP_TIMED_STEPS):
+        step_fn(state, clips)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DROP_TIMED_STEPS * 1e3
+    return (step_ms, *traced_call(lambda: step_fn(state, clips)))
+
+
+def phase_dropout(smi: str) -> dict:
+    """The train-step leftovers at full width (shanghaitech, 224^2, 4-frame
+    predict): ``train()`` 2 steps at batch 4 in bf16 under ``fold`` and
+    ``base`` with ``drop_rate`` 0.1 and ``drop_path_rate`` 0.2, exactly
+    the stochastic route's kernels launched (no kernel B or 5, no
+    whole-block kernel); the fused step against the plain-attention model
+    with the same masks in fp32 (loss to 1e-4, each gradient to phase 3b's
+    bound); ``remat`` on against off in bf16 with masks drawn (each
+    gradient to the bf16 bound); one LARS step on the card's gradients
+    against the plain update in float64; the host-clock and device-busy ms
+    of the dropout step beside the rate-0 step's."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.models.layers import (
+        DROPOUT_SEED_OFFSET,
+        DropKeys,
+        drop_keys,
+        keep_mask,
+    )
+    from vadcl_tpu_torch.train import Lars, train
+
+    out = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for kernel in ("fold", "base"):
+        print(f"[11] dropout {DROP_RATES['drop_rate']} and drop-path "
+              f"{DROP_RATES['drop_path_rate']}, attn_kernel={kernel}, bf16: train() at batch "
+              f"{TRAIN_BATCH}, {DROP_STEPS} steps")
+        with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_drop_") as tmp:
+            cfg = _drop_config(kernel).replace(output_dir=tmp, batch_size_per_device=TRAIN_BATCH)
+            reset_launches()
+            with plain_versions_refuse_the_card(), counting_partitions() as parts:
+                state = train(cfg, MemLoader(TRAIN_BATCH, DROP_STEPS), max_steps=DROP_STEPS,
+                              device=DEV)
+                torch.cuda.synchronize()
+            attn = sorted(DROP_KERNELS[kernel] - {"cluster_assign", "space_cluster_loss"})
+            out[f"dropout training {kernel}"] = read_launches(
+                DROP_KERNELS[kernel], f"dropout training, {kernel}",
+                {k: 18 * DROP_STEPS for k in attn}, heads=DROP_STEPS)
+            check_partitions(f"dropout training, {kernel}", parts[0], 0)
+            losses = np.load(os.path.join(tmp, "loss_record", "loss.npy"))
+            print(f"  losses {[round(float(v), 4) for v in losses]}")
+            if state.step != DROP_STEPS or not np.all(np.isfinite(losses)):
+                raise AssertionError(f"dropout training, {kernel}: a step did not run or its "
+                                     "loss is not finite")
+        del state
+
+        print(f"[11] the {kernel} step with masks drawn against the plain-attention model, "
+              "fp32, the same masks: loss and gradients")
+        cfg = _drop_config(kernel)
+        plain_cfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_attention=False))
+        fused = VADModel(cfg.model, torch.float32, torch.Generator().manual_seed(0)).to(DEV)
+        plain = VADModel(plain_cfg.model, torch.float32, torch.Generator().manual_seed(0)).to(DEV)
+        clip = torch.from_numpy(np.random.RandomState(2).randint(
+            0, 256, (1, 4, 224, 224, 3)).astype(np.uint8)).to(DEV)
+        got_loss, got = _loss_grads(fused, cfg, clip)
+        want_loss, want = _loss_grads(plain, plain_cfg, clip)
+        check_close("loss", got_loss.cpu(), want_loss.cpu(), 0.0, 1e-4)
+        if got.keys() != want.keys():
+            raise AssertionError(f"{kernel}: the parameters with a gradient differ")
+        worst = max((float((got[k] - want[k]).abs().max())
+                     / (MODEL_GRAD_TOL * float(want[k].abs().max()) + 1e-12), k) for k in want)
+        print(f"  {len(want)} gradients: worst err/(tol*max) {worst[0]:.2e} at {worst[1]} "
+              f"(tol {MODEL_GRAD_TOL:g})")
+        if not worst[0] <= 1.0:
+            raise AssertionError(f"{kernel}: {worst[1]}'s gradient exceeds the bound")
+        del fused, plain, got, want
+
+        print(f"[11] step time with masks drawn against rate 0, {kernel}, bf16, batch "
+              f"{TRAIN_BATCH}")
+        times = {}
+        for label, c in (("rate 0", flagship_train_config(kernel)), ("dropout", cfg)):
+            times[label] = _step_times(c, torch.bfloat16)
+            print(f"  {label}: {times[label][0]:.1f} ms a step (host clock, "
+                  f"{DROP_TIMED_STEPS} untraced steps), one traced step {times[label][1]:.1f} ms "
+                  f"device busy, {times[label][2]} host aten ops [{smi}]")
+        keys = DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, 0, 0, TRAIN_BATCH)
+        for shape in ((TRAIN_BATCH, 1, 1, 1, 1), (TRAIN_BATCH, 2, 56, 56, 384)):
+            with drop_keys(keys):
+                draw_ms = cuda_ms(lambda: keep_mask("site", shape, 0.9, DEV), batch=20)
+            print(f"  one mask draw of {shape}: {draw_ms * 1e3:.1f} us (CUDA events around 20 "
+                  "draws back to back)")
+        out[kernel] = times
+
+    print("[11] remat on against off, fold, bf16, masks drawn: loss and gradients; then one "
+          "LARS step on those gradients")
+    runs = []
+    clip = torch.from_numpy(MemLoader(2, 1).data[0]).to(DEV)
+    for remat in (False, True, False):
+        cfg = _drop_config("fold", remat=remat)
+        model = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).to(DEV)
+        runs.append((model,) + _loss_grads(model, cfg, clip))
+    (m0, l0, g0), (_, l1, g1), (_, l2, g2) = runs
+    same = sum(bool(torch.equal(g0[k], g1[k])) for k in g0)
+    again = sum(bool(torch.equal(g0[k], g2[k])) for k in g0)
+    worst = max((rel_error(g1[k], g0[k], BWD_TOL[torch.bfloat16])[2], k) for k in g0)
+    print(f"  loss {float(l0):.6f} / {float(l1):.6f}; {same} of {len(g0)} gradients the same "
+          f"bits (remat off run twice: {again}); worst err/(tol*max) {worst[0]:.3f} at "
+          f"{worst[1]} (tol {BWD_TOL[torch.bfloat16]:g})")
+    if g0.keys() != g1.keys() or not worst[0] <= 1.0 or float(l0) != float(l1):
+        raise AssertionError("remat changed the loss or a gradient beyond the bf16 bound")
+    lr, wd, mom = 1e-2, 1e-4, 0.9
+    params = [p for p in m0.parameters() if p.grad is not None]
+    before = [p.detach().double().cpu() for p in params]
+    grads = [p.grad.detach().double().cpu() for p in params]
+    opt = Lars(params, lr=lr, weight_decay=wd, momentum=mom)
+    opt.step()
+    torch.cuda.synchronize()
+    worst = (0.0, -1)
+    for i, (p, p0, g) in enumerate(zip(params, before, grads)):
+        u = g + wd * p0
+        pn, un = p0.norm(), u.norm()
+        ratio = 1.0 if float(pn) == 0.0 or float(un) == 0.0 else 0.001 * pn / un
+        step = -lr * u * ratio
+        want = p0 + step
+        # the fp32 parameter rounds the sum (an ulp of it), and the fp32 norms
+        # and products move the update (1e-5 of the largest)
+        tol = 2.0 ** -23 * want.abs() + 1e-5 * float(step.abs().max())
+        ratio_err = float(((p.detach().double().cpu() - want).abs() / tol).max())
+        worst = max(worst, (ratio_err, i))
+    print(f"  LARS step on {len(params)} tensors: worst |card - plain| / (ulp + 1e-5 "
+          f"max|update|) {worst[0]:.3f}")
+    if not worst[0] <= 1.0:
+        raise AssertionError("the LARS step disagrees with its plain update")
+    del runs, m0
+    torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
     "fold_attention": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                        "vadcl_tpu/ops/pallas_attn_fold.py:165"),
@@ -3493,6 +3853,8 @@ def main():
     phase_autotune(smi)
     phase_profile()
     phase_zoo(smi)
+    phase_export(smi)
+    phase_dropout(smi)
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],

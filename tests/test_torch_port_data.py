@@ -126,9 +126,11 @@ for name in ("jax", "jaxlib", "flax", "vadcl_tpu"):
 import vadcl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vadcl_tpu_torch.__path__, "vadcl_tpu_torch.")]
 for name in names + ["chip_smoke", "tools.evaluate_torch", "tools.train_torch",
-                     "tools.profile_torch", "tools.autotune_torch", "tools.ddp_check_torch"]:
+                     "tools.profile_torch", "tools.autotune_torch", "tools.ddp_check_torch",
+                     "tools.export_torch", "tools.serve_torch"]:
     importlib.import_module(name)
 for name in ("vadcl_tpu_torch.data.dataset", "vadcl_tpu_torch.data.loader",
+             "vadcl_tpu_torch.serve.export", "vadcl_tpu_torch.ops.library",
              "vadcl_tpu_torch.viz.dumps", "vadcl_tpu_torch.ops.window_attn",
              "vadcl_tpu_torch.core.mesh", "vadcl_tpu_torch.parallel.sharding",
              "vadcl_tpu_torch.utils.profiling", "vadcl_tpu_torch.utils.autotune",
@@ -153,8 +155,8 @@ print("ok", len(names))
 
 def test_port_imports_nothing_of_jax_and_reads_a_frame_folder():
     """With ``jax``, ``flax`` and ``vadcl_tpu`` made unimportable, every
-    module of the port, ``chip_smoke`` and the five CLIs import, and a
-    ``ClipDataset`` reads a synthetic frame folder."""
+    module of the port (``serve/`` too), ``chip_smoke`` and the seven CLIs
+    import, and a ``ClipDataset`` reads a synthetic frame folder."""
     out = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -163,7 +165,9 @@ def test_port_imports_nothing_of_jax_and_reads_a_frame_folder():
 
 def test_port_sources_name_no_jax_import():
     """The same rule read off the sources: no ``import jax``/``flax``/
-    ``vadcl_tpu`` statement in the port, ``chip_smoke.py`` or the CLIs."""
+    ``vadcl_tpu`` statement in the port, ``chip_smoke.py`` or the CLIs
+    (``tools/*_torch.py``: ``export_torch.py`` and ``serve_torch.py``
+    among them)."""
     import re
 
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|vadcl_tpu)(\.|\s|$)", re.M)

@@ -268,14 +268,20 @@ def test_cosine_lr_and_gates_match_jax():
 
 
 def test_unported_training_options_raise():
-    from vadcl_tpu_torch.train.optim import build_optimizer
+    """The training option the port refuses is the one the JAX package
+    refuses: attention dropout on the fused kernels, which have no
+    attention-dropout path.  LARS and the dropout and drop-path rates
+    build (``test_torch_port_stochastic.py`` holds what they compute)."""
+    from vadcl_tpu_torch.train.optim import Lars, build_optimizer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer("lars", [torch.nn.Parameter(torch.zeros(2))], 0.0, 0.9, 0.999, 1e-8)
     _, pcfg = _configs(False)
-    cfg = pcfg.replace(model=dataclasses.replace(pcfg.model, drop_path_rate=0.1))
-    with pytest.raises(NotImplementedError, match="drop"):
-        make_loss_fn(VADModel(cfg.model), cfg)
+    with pytest.raises(ValueError, match="attention-dropout"):
+        dataclasses.replace(pcfg.model, fused_attention=True, attn_drop_rate=0.1)
+    opt = build_optimizer("lars", [torch.nn.Parameter(torch.zeros(2))], 0.0, 0.9, 0.999, 1e-8)
+    assert isinstance(opt, Lars)
+    cfg = pcfg.replace(model=dataclasses.replace(pcfg.model, drop_path_rate=0.1, drop_rate=0.1,
+                                                 attn_drop_rate=0.1))
+    make_loss_fn(VADModel(cfg.model), cfg)
 
 
 def test_training_modules_import_without_jax_or_pil():

@@ -16,6 +16,8 @@ test wrote to ``<workdir>/inputs.pt``; it writes what the test checks to
   makes below the workdir (it must make none).
 * ``eval``: ``cross_host_gather_ragged`` (rank 1 holds no rows),
   ``cross_host_concat`` and ``evaluate_videos_distributed``.
+* ``dropout_step``: ``step``'s first half alone, for a model that draws
+  dropout and drop-path masks (each rank draws its own samples' masks).
 * ``memory_step``: ``step`` for a memory family (``convae``): three steps
   on this rank's shard, the bank after each; then the same with each
   rank's bank update over its own shard alone (the losses still global).
@@ -242,6 +244,8 @@ def main():
             out = mode_train(inputs, rank, world, workdir)
         elif mode == "eval":
             out = mode_eval(inputs, rank, world)
+        elif mode == "dropout_step":
+            out = {"global": run_steps(inputs, rank, world)}
         elif mode == "memory_step":
             out = mode_memory_step(inputs, rank, world)
         else:

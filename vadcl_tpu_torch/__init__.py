@@ -11,6 +11,8 @@ ops       window/conv/cluster primitives and the CUDA kernel wrappers
 models    nn.Modules: Swin3D encoder/decoder, cluster heads, VADModel
 train     loss, gated torch optimizers, train step, checkpoints, epoch loop
 eval      PSNR -> anomaly score -> per-scene AUROC, sliding-window scorer
+serve     the scorer as a ``torch.export`` artifact that loads without the
+          model code (the kernels as ``torch.library`` ops, ``ops/library.py``)
 convert   weight bridge from/to the JAX package's flat parameter dict
 
 This package imports torch and numpy, never jax/flax (and not PIL).

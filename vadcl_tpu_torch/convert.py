@@ -25,7 +25,10 @@ The optimizer state maps the same way: the JAX package's ``torch_adam``
 state (``opt_state/count|mu|nu/<param path>``) and ``torch_sgd`` state
 (``opt_state/momentum/<param path>``) against torch's per-parameter Adam /
 AdamW ``step``, ``exp_avg``, ``exp_avg_sq`` and SGD ``momentum_buffer``,
-the moments transposed like their parameters.
+the moments transposed like their parameters; and the state of
+``optax.chain(optax.lars(...))`` (``opt_state/0/2/count``, the schedule's
+step count, and ``opt_state/0/3/trace/<param path>``) against the port's
+``Lars`` ``count`` and ``trace``.
 """
 
 from __future__ import annotations
@@ -120,7 +123,15 @@ def jax_from_state_dict(sd: Dict[str, torch.Tensor], *, predict: bool) -> Dict[s
     return dict(_to_jax_layout(key, t, predict) for key, t in sd.items())
 
 
+LARS_COUNT = "opt_state/0/2/count"
+LARS_TRACE = "opt_state/0/3/trace/"
+
+
 def _opt_kind(optimizer: torch.optim.Optimizer) -> str:
+    from vadcl_tpu_torch.train.optim import Lars
+
+    if isinstance(optimizer, Lars):
+        return "lars"
     if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
         return "adam"
     if isinstance(optimizer, torch.optim.SGD):
@@ -136,6 +147,8 @@ def opt_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Optimizer, *
     ``torch_adam``."""
     kind = _opt_kind(optimizer)
     out: Dict[str, np.ndarray] = {}
+    if kind == "lars":
+        out[LARS_COUNT] = np.asarray(optimizer.count, np.int32)
     for key, p in model.named_parameters():
         st = optimizer.state.get(p, {})
         leaf = _jax_path(key, p.ndim).split("/", 1)[1]
@@ -144,6 +157,9 @@ def opt_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Optimizer, *
             for name, sk in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
                 out[f"opt_state/{name}/{leaf}"] = _to_jax_layout(
                     key, st[sk] if st else torch.zeros_like(p), predict)[1]
+        elif kind == "lars":
+            out[LARS_TRACE + leaf] = _to_jax_layout(
+                key, st["trace"] if "trace" in st else torch.zeros_like(p), predict)[1]
         else:
             buf = st.get("momentum_buffer")
             out[f"opt_state/momentum/{leaf}"] = _to_jax_layout(
@@ -156,6 +172,7 @@ def opt_state_from_jax(flat: Dict[str, np.ndarray], model: torch.nn.Module,
     """Inverse of ``opt_state_to_jax``: fills ``optimizer.state`` for every
     parameter of ``model`` (a missing leaf raises ``KeyError``)."""
     kind = _opt_kind(optimizer)
+    count = int(flat[LARS_COUNT]) if kind == "lars" else 0
     for key, p in model.named_parameters():
         leaf = _jax_path(key, p.ndim).split("/", 1)[1]
         optimizer.state.pop(p, None)
@@ -167,6 +184,10 @@ def opt_state_from_jax(flat: Dict[str, np.ndarray], model: torch.nn.Module,
                     "exp_avg": _to_torch_layout(key, flat[f"opt_state/mu/{leaf}"], predict).to(p.device),
                     "exp_avg_sq": _to_torch_layout(key, flat[f"opt_state/nu/{leaf}"], predict).to(p.device),
                 }
+        elif kind == "lars":
+            trace = _to_torch_layout(key, flat[LARS_TRACE + leaf], predict)
+            if count > 0:
+                optimizer.state[p] = {"trace": trace.to(p.device), "count": count}
         else:
             buf = _to_torch_layout(key, flat[f"opt_state/momentum/{leaf}"], predict)
             if bool(buf.any()):

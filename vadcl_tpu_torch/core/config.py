@@ -41,10 +41,10 @@ TRAINABLE_ATTN_KERNELS = frozenset({"base", "fold", "fold_block"})
 @dataclass(frozen=True)
 class ModelConfig:
     """Hybrid Video-Swin-3D + I3D-Inception autoencoder (see the JAX
-    package's ``ModelConfig`` for the meaning of every field).  The port's
-    inference forward does not read ``remat`` or the dropout rates; like the
-    JAX package's deterministic forward, its result does not depend on
-    them.  Nothing reads ``subpixel_deconv`` either: it picks the JAX
+    package's ``ModelConfig`` for the meaning of every field).  The dropout
+    rates and ``remat`` act in the train step only (``models/layers.py``,
+    ``models/swin.py``); like the JAX package's deterministic forward, a
+    scoring forward's result does not depend on them.  Nothing reads ``subpixel_deconv`` either: it picks the JAX
     package's TPU lowering of the decoder's transposed convs (a dense conv
     and a pixel shuffle, the same result), which the H100 runs slower than
     its transposed convolution (ROADMAP.md), so the port's decoder takes

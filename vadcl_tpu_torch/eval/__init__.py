@@ -3,8 +3,10 @@ from vadcl_tpu_torch.eval.predict import (
     eval_input_frames,
     evaluate_videos,
     make_video_scorer,
+    make_window_scorer,
     score_video,
     sliding_windows,
+    window_score_fn,
 )
 from vadcl_tpu_torch.eval.scoring import (
     anomaly_score,
@@ -20,10 +22,12 @@ __all__ = [
     "eval_input_frames",
     "evaluate_videos",
     "make_video_scorer",
+    "make_window_scorer",
     "mean_scene_auc",
     "per_scene_auc",
     "psnr",
     "roc_auc",
     "score_video",
     "sliding_windows",
+    "window_score_fn",
 ]

@@ -8,9 +8,11 @@ against the *first* input frame, the quirk of ``main_predict.py:415-420``).
 
 Each video goes to the device once, as uint8; ``/255`` runs on the device
 and windows are gathered there by index, ``batch_windows`` at a time (the
-last batch may be short).  A producer thread decodes ahead, holding at most
-``lookahead`` decoded-but-unscored videos.  The per-video min-max
-normalisation and the per-scene AUC run on the host.
+last batch may be short).  The per-window math is ``window_score_fn``,
+which the serving export (``vadcl_tpu_torch/serve``) traces as it stands.
+A producer thread decodes ahead, holding at most ``lookahead``
+decoded-but-unscored videos.  The per-video min-max normalisation and the
+per-scene AUC run on the host.
 """
 
 from __future__ import annotations
@@ -69,6 +71,70 @@ def eval_input_frames(backbone: str, predict: bool, frame_num: int) -> Optional[
     return None
 
 
+def window_score_fn(
+    apply_fn: Callable[[torch.Tensor], torch.Tensor],
+    predict: bool,
+    first_frame_quirk: bool = False,
+    input_frames: Optional[int] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The window-scoring math (``vadcl_tpu/eval/predict.py:122-148``):
+    (B, frame_num, H, W, C) uint8 windows (``/255`` inside) or float
+    windows in [0, 1] -> the per-window MSE (B,) in predict mode, against
+    the last frame (the first with ``first_frame_quirk``), or the per-frame
+    MSE (B, frame_num) in reconstruction mode.  ``apply_fn(inputs) ->
+    recon`` sees the first ``input_frames`` frames (all when None)."""
+
+    def score(clips: torch.Tensor) -> torch.Tensor:
+        clips = clips.float() / 255.0 if clips.dtype == torch.uint8 else clips.float()
+        inputs = clips[:, :input_frames] if input_frames is not None else clips
+        recon = apply_fn(inputs).float()
+        if predict:
+            target = clips[:, 0:1] if first_frame_quirk else clips[:, -1:]
+            return ((recon - target) ** 2).mean(dim=(1, 2, 3, 4))
+        return ((recon - clips) ** 2).mean(dim=(2, 3, 4))
+
+    return score
+
+
+def padded_batches(score: Callable[[torch.Tensor], torch.Tensor], windows: torch.Tensor,
+                   batch_windows: int) -> torch.Tensor:
+    """``score`` over ``windows`` ``batch_windows`` at a time, the tail batch
+    padded by repeating the last window (its scores dropped)."""
+    n = windows.shape[0]
+    pad = (-n) % batch_windows
+    if pad:
+        windows = torch.cat([windows, windows[-1:].expand(pad, *windows.shape[1:])])
+    outs = [score(windows[i:i + batch_windows]) for i in range(0, windows.shape[0], batch_windows)]
+    return torch.cat(outs)[:n]
+
+
+def make_window_scorer(
+    apply_fn: Callable[[torch.Tensor], torch.Tensor],
+    frame_num: int,
+    predict: bool,
+    batch_windows: int,
+    first_frame_quirk: bool = False,
+    input_frames: Optional[int] = None,
+    device: torch.device | str = "cuda",
+) -> Callable[[np.ndarray], np.ndarray]:
+    """``run(windows) -> scores`` (``vadcl_tpu/eval/predict.py:151-222``):
+    (n, frame_num, H, W, C) numpy windows -> (n,) or (n, frame_num), scored
+    ``batch_windows`` at a time on ``device``, the tail batch padded by
+    repeating the last window.  (No ``mesh``: across a process group the
+    port deals videos, ``evaluate_videos_distributed``.)"""
+    device = torch.device(device)
+    score = window_score_fn(apply_fn, predict, first_frame_quirk, input_frames)
+
+    @torch.inference_mode()
+    def run(windows: np.ndarray) -> np.ndarray:
+        if windows.shape[0] == 0:
+            return np.zeros((0,) if predict else (0, frame_num), np.float32)
+        w = torch.from_numpy(np.ascontiguousarray(windows)).to(device)
+        return padded_batches(score, w, batch_windows).cpu().numpy()
+
+    return run
+
+
 def make_video_scorer(
     apply_fn: Callable[[torch.Tensor], torch.Tensor],
     frame_num: int,
@@ -83,6 +149,19 @@ def make_video_scorer(
     is the model forward; it receives the first ``input_frames`` frames of
     each window (all of them when None).  ``frames`` is a (T, H, W, C)
     numpy video (uint8 or float in [0, 1]) or a ``StagedVideo``."""
+    score_windows = window_score_fn(apply_fn, predict, first_frame_quirk, input_frames)
+    return windows_video_scorer(score_windows, frame_num, predict, batch_windows, device)
+
+
+def windows_video_scorer(score_windows: Callable[[torch.Tensor], torch.Tensor],
+                         frame_num: int, predict: bool, batch_windows: int,
+                         device: torch.device | str = "cuda", pad_tail: bool = False):
+    """``make_video_scorer``'s ``run`` over a window scorer: the windows of
+    a staged video, gathered on ``device`` by index, go to
+    ``score_windows`` (uint8 windows of a uint8 video) ``batch_windows`` at
+    a time; with ``pad_tail`` the last batch is padded to ``batch_windows``
+    by repeating its last window (a scorer of one batch size, such as a
+    static-batch serving artifact)."""
     device = torch.device(device)
     offsets = torch.arange(frame_num, device=device)
 
@@ -92,16 +171,10 @@ def make_video_scorer(
 
     @torch.inference_mode()
     def score(video: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-        idx = starts[:, None] + offsets[None, :]
-        clips = video[idx].float()  # (B, frame_num, H, W, C)
-        if video.dtype == torch.uint8:
-            clips = clips / 255.0
-        inputs = clips[:, :input_frames] if input_frames is not None else clips
-        recon = apply_fn(inputs).float()
-        if predict:
-            target = clips[:, 0:1] if first_frame_quirk else clips[:, -1:]
-            return ((recon - target) ** 2).mean(dim=(1, 2, 3, 4))
-        return ((recon - clips) ** 2).mean(dim=(2, 3, 4))
+        windows = video[starts[:, None] + offsets[None, :]]  # (B, frame_num, H, W, C)
+        if pad_tail:
+            return padded_batches(score_windows, windows, batch_windows)
+        return score_windows(windows)
 
     def run(frames, starts: Sequence[int]) -> np.ndarray:
         starts_np = np.asarray(list(starts), np.int64)

@@ -12,11 +12,15 @@ from vadcl_tpu_torch.models.layers import (
     Conv3d,
     ConvTranspose3d,
     Dense,
+    DropKeys,
+    DropPath,
+    Dropout,
     FrozenBatchNorm,
     InceptionModule,
     LayerNorm,
     Mlp,
     Unit3D,
+    drop_keys,
 )
 from vadcl_tpu_torch.models.memory import MemoryModule
 from vadcl_tpu_torch.models.swin import (
@@ -33,6 +37,9 @@ __all__ = [
     "ConvAEPredict",
     "ConvTranspose3d",
     "Dense",
+    "DropKeys",
+    "DropPath",
+    "Dropout",
     "FeatureClusterHead",
     "FrozenBatchNorm",
     "InceptionModule",
@@ -53,4 +60,5 @@ __all__ = [
     "VADModel",
     "VADOutput",
     "WindowAttention3D",
+    "drop_keys",
 ]

@@ -24,7 +24,7 @@ from vadcl_tpu_torch.models.cluster_heads import FeatureClusterHead, SpaceCluste
 from vadcl_tpu_torch.models.conv_ae import ConvAE, ConvAEPredict
 from vadcl_tpu_torch.models.decoder import SwinDecoder3D
 from vadcl_tpu_torch.models.encoder import SwinEncoder3D
-from vadcl_tpu_torch.models.layers import LayerNorm, init_parameters
+from vadcl_tpu_torch.models.layers import LayerNorm, init_parameters, name_draw_sites
 from vadcl_tpu_torch.models.unet3d import UNet3D
 from vadcl_tpu_torch.ops.cluster import frobenius_norm
 
@@ -94,13 +94,15 @@ class VADModel(nn.Module):
         else:
             self._build_swin(cfg)
         init_parameters(self, gen)
+        name_draw_sites(self)
 
     def _build_swin(self, cfg: ModelConfig) -> None:
         latent = int(cfg.embed_dim * 2 ** (len(cfg.encoder_depths) - 1))
         self.encoder = SwinEncoder3D(
             cfg.patch_size, cfg.in_channels, cfg.embed_dim, cfg.encoder_depths,
             cfg.encoder_heads, cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
-            cfg.fused_attention, cfg.attn_kernel,
+            cfg.fused_attention, cfg.attn_kernel, cfg.drop_rate, cfg.attn_drop_rate,
+            cfg.drop_path_rate, cfg.remat,
         )
         if cfg.use_cluster:
             cl = cfg.cluster
@@ -115,7 +117,8 @@ class VADModel(nn.Module):
         self.decoder = SwinDecoder3D(
             latent, cfg.decoder_depths, cfg.decoder_heads, cfg.window_size,
             cfg.mlp_ratio, cfg.qkv_bias, cfg.predict, cfg.in_channels,
-            cfg.fused_attention, cfg.attn_kernel,
+            cfg.fused_attention, cfg.attn_kernel, cfg.drop_rate, cfg.attn_drop_rate,
+            cfg.drop_path_rate, cfg.remat,
         )
 
     def forward(self, clip: torch.Tensor, detach_cluster_input: Optional[bool] = None,

@@ -21,7 +21,7 @@ from vadcl_tpu_torch.models.layers import (
     LayerNorm,
     gelu,
 )
-from vadcl_tpu_torch.models.swin import SwinStage
+from vadcl_tpu_torch.models.swin import SwinStage, drop_path_schedule
 
 
 class UpSampling(nn.Module):
@@ -107,9 +107,12 @@ class SwinDecoder3D(nn.Module):
                  num_heads: Sequence[int] = (12, 6), window_size=(8, 7, 7),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  predict: bool = False, out_channels: int = 3,
-                 fused_attention: bool = False, attn_kernel: str = "base"):
+                 fused_attention: bool = False, attn_kernel: str = "base",
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, remat: bool = False):
         super().__init__()
         self.num_layers = len(depths)
+        dpr = drop_path_schedule(drop_path_rate, depths)  # (vadcl_tpu/models/decoder.py:172)
         conv = Conv3d if predict else ConvTranspose3d
         self.timedebd = conv(in_chans, in_chans, (2, 1, 1), stride=(2, 1, 1))
         for i in range(self.num_layers):
@@ -117,7 +120,8 @@ class SwinDecoder3D(nn.Module):
             self.add_module(f"inception{i}", InceptionModule(dim, inception_channels(dim)))
             self.add_module(f"stage{i}", SwinStage(
                 dim, depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias,
-                fused=fused_attention, attn_kernel=attn_kernel,
+                fused=fused_attention, attn_kernel=attn_kernel, drop=drop_rate,
+                attn_drop=attn_drop_rate, drop_path=dpr[i], remat=remat,
             ))
             if i < self.num_layers - 1:
                 self.add_module(f"upsample{i}", UpSampling(dim))

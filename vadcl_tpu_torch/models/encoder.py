@@ -2,7 +2,8 @@
 
 Each stage fuses windowed attention with a parallel Inception branch as
 ``x = attn + attn * conv + x``; a strided conv + GELU downsamples between
-stages.
+stages.  Dropout follows the patch embedding, and the drop-path rate rises
+linearly over all blocks (``swin.drop_path_schedule``).
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from vadcl_tpu_torch.models.layers import Conv3d, InceptionModule, gelu
-from vadcl_tpu_torch.models.swin import PatchEmbed3D, SwinStage
+from vadcl_tpu_torch.models.layers import Conv3d, Dropout, InceptionModule, gelu
+from vadcl_tpu_torch.models.swin import PatchEmbed3D, SwinStage, drop_path_schedule
 
 # Inception branch channel plans per stage dim (model/swin_transformer.py:550-555).
 INCEPTION_CHANNELS = {
@@ -43,15 +44,20 @@ class SwinEncoder3D(nn.Module):
                  embed_dim: int = 96, depths: Sequence[int] = (3, 6),
                  num_heads: Sequence[int] = (6, 12), window_size=(8, 7, 7),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 fused_attention: bool = False, attn_kernel: str = "base"):
+                 fused_attention: bool = False, attn_kernel: str = "base",
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, remat: bool = False):
         super().__init__()
         self.num_layers = len(depths)
         self.patch_embed = PatchEmbed3D(patch_size, in_channels, embed_dim)
+        self.pos_drop = Dropout(drop_rate)
+        dpr = drop_path_schedule(drop_path_rate, depths)
         for i in range(self.num_layers):
             dim = int(embed_dim * 2**i)
             self.add_module(f"stage{i}", SwinStage(
                 dim, depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias,
-                fused=fused_attention, attn_kernel=attn_kernel,
+                fused=fused_attention, attn_kernel=attn_kernel, drop=drop_rate,
+                attn_drop=attn_drop_rate, drop_path=dpr[i], remat=remat,
             ))
             self.add_module(f"inception{i}", InceptionModule(dim, inception_channels(dim)))
             if i < self.num_layers - 1:
@@ -62,7 +68,7 @@ class SwinEncoder3D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, D, H, W, C) raw clip -> latent
         (B, D/pd, H/(4*2^(L-1)), W/(4*2^(L-1)), embed_dim*2^(L-1))."""
-        x = self.patch_embed(x)
+        x = self.pos_drop(self.patch_embed(x))
         for i in range(self.num_layers):
             attn_x = getattr(self, f"stage{i}")(x)
             conv_x = getattr(self, f"inception{i}")(x)

@@ -5,12 +5,27 @@ the model sets (bf16 on CUDA, fp32 on the CPU).  Every module with
 parameters has ``reset_parameters(generator)``, the JAX package's init:
 kaiming-uniform fan-in weights U(-1/sqrt(fan_in), 1/sqrt(fan_in)), zero
 biases, unit norm scales.
+
+Dropout and drop-path (``Dropout``, ``DropPath``) draw their masks only in
+training mode inside ``drop_keys(...)``, which the train step enters: that
+is the JAX forward's ``deterministic=False`` with a ``dropout`` rng.
+Elsewhere (scoring, export, a forward outside the step) they are the
+identity.  A mask is a pure function of the step's ``DropKeys``, the
+module's site (its name in the model, ``name_draw_sites``) and the global
+index of the sample: each draw seeds its own ``torch.Generator`` and draws
+the global batch's mask, of which a process keeps its own rows.  So a
+recompute under ``torch.utils.checkpoint`` draws the same masks (whose
+``preserve_rng_state`` restores only the default generators), and a
+data-parallel rank draws the masks of its samples in one process's run.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Sequence, Tuple
+import zlib
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,6 +53,117 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if m is not module and hasattr(m, "reset_parameters"):
             m.reset_parameters(generator)
+
+
+DROPOUT_SEED_OFFSET = 0x5EED  # the JAX step's ``key(seed + 0x5EED)``
+
+
+class DropKeys(NamedTuple):
+    """What a step's masks derive from: ``seed`` (the run's seed plus
+    ``DROPOUT_SEED_OFFSET``), ``step``, the global index of this process's
+    first sample and the global batch size."""
+
+    seed: int
+    step: int
+    offset: int = 0
+    global_batch: int = 0  # 0: this process's batch is the global batch
+
+
+_KEYS: contextvars.ContextVar[Optional[DropKeys]] = contextvars.ContextVar(
+    "vadcl_drop_keys", default=None)
+
+
+@contextlib.contextmanager
+def drop_keys(keys: Optional[DropKeys]) -> Iterator[None]:
+    """Draw the masks of the forwards inside from ``keys`` (None: none)."""
+    token = _KEYS.set(keys)
+    try:
+        yield
+    finally:
+        _KEYS.reset(token)
+
+
+def current_drop_keys() -> Optional[DropKeys]:
+    return _KEYS.get()
+
+
+def _mix64(*words: int) -> int:
+    """splitmix64 over ``words``: a 63-bit generator seed."""
+    h = 0
+    for w in words:
+        h = (h ^ (w & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15 & 0xFFFFFFFFFFFFFFFF
+        h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
+        h = (h ^ (h >> 27)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
+        h ^= h >> 31
+    return h >> 1
+
+
+def keep_mask(site: str, shape: Sequence[int], keep: float, device) -> torch.Tensor:
+    """The bool keep mask of ``shape`` (this process's rows first) for the
+    module at ``site``: rows ``offset..offset + shape[0]`` of the global
+    batch's uniform draw, kept below ``keep``."""
+    keys = _KEYS.get()
+    if keys is None:
+        raise RuntimeError("keep_mask: no DropKeys; draw inside drop_keys(...)")
+    b = int(shape[0])
+    total = keys.global_batch or b
+    if keys.offset + b > total:
+        raise ValueError(f"keep_mask: rows {keys.offset}..{keys.offset + b} of a global "
+                         f"batch of {total}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_mix64(keys.seed, keys.step, zlib.crc32(site.encode())))
+    u = torch.rand((total, *shape[1:]), generator=gen, device=device)
+    return u[keys.offset:keys.offset + b] < keep
+
+
+class _Stochastic(nn.Module):
+    """A module that drops at ``rate`` while it draws (``drawing``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.site = ""  # its name in the model (``name_draw_sites``)
+
+    def drawing(self) -> bool:
+        return self.training and self.rate > 0.0 and _KEYS.get() is not None
+
+    def _drop(self, x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+        keep = 1.0 - self.rate
+        mask = keep_mask(self.site, shape, keep, x.device)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(_Stochastic):
+    """flax ``nn.Dropout``: each element kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``."""
+
+    def forward(self, x: torch.Tensor, shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """``shape`` (default ``x.shape``): the mask's shape, sample axis
+        first, where ``x`` holds several rows a sample (windows)."""
+        if not self.drawing():
+            return x
+        if shape is None:
+            return self._drop(x, x.shape)
+        return self._drop(x.reshape(shape), shape).reshape(x.shape)
+
+
+class DropPath(_Stochastic):
+    """Per-sample stochastic depth (``vadcl_tpu/models/layers.py:77-92``,
+    timm's DropPath): a sample's whole branch is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.drawing():
+            return x
+        return self._drop(x, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def name_draw_sites(root: nn.Module) -> None:
+    """Name every ``Dropout`` and ``DropPath`` under ``root`` by its path,
+    the site its masks derive from."""
+    for name, m in root.named_modules():
+        if isinstance(m, _Stochastic):
+            m.site = name
 
 
 class LayerNorm(nn.Module):
@@ -86,15 +212,18 @@ class Dense(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 (``model/swin_transformer.py:17-35``; dropout 0)."""
+    """fc1 -> GELU -> dropout -> fc2 -> dropout
+    (``model/swin_transformer.py:17-35``)."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = Dense(dim, hidden)
         self.fc2 = Dense(hidden, dim)
+        self.drop1 = Dropout(drop)
+        self.drop2 = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return self.drop2(self.fc2(self.drop1(gelu(self.fc1(x)))))
 
 
 class FrozenBatchNorm(nn.Module):

@@ -34,16 +34,47 @@ With ``fused=True`` a block runs hand-written kernels, chosen by
 With ``fused=False`` it is the plain PyTorch block of the JAX default
 config.  Parameter names and shapes are the same either way, so one
 state_dict loads into every variant.
+
+A block that draws dropout or drop-path masks (training inside the train
+step's ``drop_keys`` at a rate above 0: ``layers.py``) routes as the JAX
+block does with ``deterministic=False``: no kernel holds LN1, the residual
+or the MLP tail, so the whole-block kernel and the in-kernel LN1 are off, a
+fold-family block runs the fold kernel without LN and residual on the LN1'd
+tensor (the padded branch), ``base`` runs kernels 7 and 8 as at rate 0, and
+the MLP runs plain with its dropout.  Proj dropout applies to the
+attention's output in the block's own layout, after the windows are merged
+back and the padding cut, so that every route draws the same mask for the
+same token; drop-path scales both residual branches.  ``SwinStage`` with
+``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``).
+
+Two memos (the gathered rel-pos bias, the shift masks) hand the kernels the
+same tensors from call to call, whose packed forms the kernels cache.  Under
+``torch.export`` tracing (``torch.compiler.is_compiling()``) nothing enters
+a memo: the masks are made anew (constants of the traced program), and the
+bias memo is read as it stands where it holds the block's window (the
+exporter fills it with one forward just before it traces), else gathered in
+the graph.  So a loaded program hands the kernels the same bias tensor at
+every call, as the live model does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from vadcl_tpu_torch.models.layers import LayerNorm, Mlp, _uniform_fan_in
+from vadcl_tpu_torch.models.layers import (
+    Dropout,
+    DropPath,
+    LayerNorm,
+    Mlp,
+    _uniform_fan_in,
+    current_drop_keys,
+    drop_keys,
+)
 from vadcl_tpu_torch.ops.convs import patchify_matmul
 from vadcl_tpu_torch.ops.fold_attn import (
     fold_attention,
@@ -88,7 +119,8 @@ class WindowAttention3D(nn.Module):
     *configured* window; the bias gathers ``rel_index[:N, :N]``."""
 
     def __init__(self, dim: int, window_size: Tri, num_heads: int,
-                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         wd, wh, ww = window_size
         self.num_heads = num_heads
@@ -106,6 +138,8 @@ class WindowAttention3D(nn.Module):
             torch.from_numpy(relative_position_index(tuple(window_size))).long(),
             persistent=False,
         )
+        self.attn_drop = Dropout(attn_drop)  # on the softmax (the plain route only)
+        self.proj_drop = Dropout(proj_drop)
         self._bias_memo = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -122,8 +156,15 @@ class WindowAttention3D(nn.Module):
         """(nH, N, N) fp32: ``table[rel_index(configured)[:N, :N]]``.  Where no
         gradient is wanted the gathered bias is kept until the table changes,
         so that scoring hands the kernels one tensor (whose packed form they
-        cache) instead of gathering anew in every forward."""
+        cache) instead of gathering anew in every forward.  While
+        ``torch.export`` traces, a memo of ``n`` tokens is read (it becomes
+        a constant of the program) and none is written."""
         table = self.relative_position_bias_table
+        if torch.compiler.is_compiling():
+            memo = self._bias_memo
+            if memo is not None and memo[0][0] == n:
+                return memo[1]
+            return self._gather_bias(table, n)
         if (torch.is_grad_enabled() and table.requires_grad) or table.is_inference():
             return self._gather_bias(table, n)
         key = (n, table.data_ptr(), table._version, table.dtype, str(table.device))
@@ -145,7 +186,8 @@ class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: Tri = (2, 7, 7),
                  shift_size: Tri = (0, 0, 0), mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 fused: bool = False, attn_kernel: str = "base"):
+                 fused: bool = False, attn_kernel: str = "base", drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
@@ -153,12 +195,18 @@ class SwinBlock3D(nn.Module):
         self.fused = fused
         self.attn_kernel = attn_kernel
         self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention3D(dim, self.window_size, num_heads, qkv_bias, qk_scale)
+        self.attn = WindowAttention3D(dim, self.window_size, num_heads, qkv_bias, qk_scale,
+                                      attn_drop, drop)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
         self._masks: Dict[tuple, torch.Tensor] = {}
 
     def _mask(self, Dp, Hp, Wp, window, shift, device) -> Optional[torch.Tensor]:
+        if torch.compiler.is_compiling():
+            m = compute_attn_mask(Dp, Hp, Wp, window, shift)
+            return None if m is None else torch.from_numpy(m).to(device)
         key = (Dp, Hp, Wp, window, shift, str(device))
         if key not in self._masks:
             m = compute_attn_mask(Dp, Hp, Wp, window, shift)
@@ -175,6 +223,9 @@ class SwinBlock3D(nn.Module):
         shifted = any(s > 0 for s in shift)
         n = window[0] * window[1] * window[2]
         attn = self.attn
+        # dropout or drop-path drawn in this forward: no kernel holds LN1,
+        # the residual or the MLP tail (the JAX block's deterministic=False)
+        stochastic = any(m.drawing() for m in (attn.proj_drop, self.mlp.drop1, self.drop_path1))
         # the resolved name picks the fold kernel and its gate; the
         # partitioned route below tests the configured name, as the JAX block
         kind = resolve_attn_kernel(self.attn_kernel, self.num_heads)
@@ -182,7 +233,7 @@ class SwinBlock3D(nn.Module):
         fold = (self.fused and kind in _FOLD_FAMILY
                 and fits(n, C, self.num_heads, x.dtype))
         fold_kernel = fold_attention_packed if kind == "fold_packed" else fold_attention
-        if (self.fused and kind == "fold_block" and not any(pads)
+        if (self.fused and kind == "fold_block" and not any(pads) and not stochastic
                 and fold_block_fits(n, C, self.num_heads, self.mlp.fc1.weight.shape[1],
                                     x.dtype)):
             # the whole block, MLP tail included, is one kernel each way
@@ -194,7 +245,7 @@ class SwinBlock3D(nn.Module):
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
                 self.num_heads, window, attn.scale, shift=shift,
             )
-        if fold and not any(pads):
+        if fold and not any(pads) and not stochastic:
             mask = self._mask(D, H, W, window, shift, x.device)
             # LN1, the shift roll both ways and the residual are in the kernel
             x = fold_kernel(
@@ -244,49 +295,83 @@ class SwinBlock3D(nn.Module):
                     attn.scale,
                 )
             else:
+                n_windows = wins.shape[0] // B
                 wins = window_attention(
                     wins, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
                     attn.proj_bias, attn.bias(n), self.num_heads, mask=mask,
                     scale=attn.qk_scale,
+                    attn_dropout=lambda p: attn.attn_drop(p, (B, n_windows, *p.shape[1:])),
                 )
             y = window_reverse(wins, window, B, Dp, Hp, Wp)
             if shifted:
                 y = torch.roll(y, shift, (1, 2, 3))
         if any(pads):
             y = y[:, :D, :H, :W, :]
-        return self._tail(shortcut + y)
+        y = attn.proj_drop(y)
+        return self._tail(shortcut + self.drop_path1(y))
 
     def _tail(self, x: torch.Tensor) -> torch.Tensor:
-        """LN2 -> MLP -> residual: one kernel when fused."""
-        if self.fused:
+        """LN2 -> MLP -> residual: one kernel when fused and no mask is
+        drawn."""
+        if self.fused and not (self.mlp.drop1.drawing() or self.drop_path2.drawing()):
             return ln_mlp(
                 x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
             )
-        return x + self.mlp(self.norm2(x))
+        return x + self.drop_path2(self.mlp(self.norm2(x)))
+
+
+def _run_block(block: nn.Module, x: torch.Tensor, keys) -> torch.Tensor:
+    """``block(x)`` drawing from ``keys``: a recompute in the backward runs
+    outside the step's ``drop_keys`` and draws the forward's masks again."""
+    with drop_keys(keys):
+        return block(x)
 
 
 class SwinStage(nn.Module):
-    """Blocks ``block0..`` with alternating shift (BasicLayer parity)."""
+    """Blocks ``block0..`` with alternating shift (BasicLayer parity).
+    ``drop_path`` is the per-block rate (one value: every block); with
+    ``remat`` each block is recomputed in the backward, as
+    ``nn.remat(SwinBlock3D)``."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: Tri = (8, 7, 7), mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 fused: bool = False, attn_kernel: str = "base"):
+                 fused: bool = False, attn_kernel: str = "base", drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: Sequence[float] = (0.0,),
+                 remat: bool = False):
         super().__init__()
         self.depth = depth
+        self.remat = remat
         shift = tuple(w // 2 for w in window_size)
+        dp = list(drop_path) * depth if len(drop_path) == 1 else list(drop_path)
         for i in range(depth):
             self.add_module(f"block{i}", SwinBlock3D(
                 dim, num_heads, window_size,
                 (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio, qkv_bias,
-                qk_scale, fused, attn_kernel,
+                qk_scale, fused, attn_kernel, drop, attn_drop, dp[i],
             ))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled() and not torch.compiler.is_compiling()
+        keys = current_drop_keys()
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            if remat:
+                x = checkpoint(_run_block, block, x, keys, use_reentrant=False)
+            else:
+                x = block(x)
         return x
+
+
+def drop_path_schedule(rate: float, depths: Sequence[int]):
+    """The per-stage drop-path rates: ``rate * i / (total - 1)`` over all
+    ``total`` blocks (``torch.linspace`` semantics, as
+    ``vadcl_tpu/models/encoder.py:79-82``)."""
+    total = sum(depths)
+    dpr = [rate * i / max(total - 1, 1) for i in range(total)]
+    starts = [sum(depths[:i]) for i in range(len(depths) + 1)]
+    return [tuple(dpr[starts[i]:starts[i + 1]]) for i in range(len(depths))]
 
 
 class PatchEmbed3D(nn.Module):

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
+from vadcl_tpu_torch.ops import library as _library
 from vadcl_tpu_torch.ops.cluster import cdist, neg_soft_assign
 
 
@@ -100,10 +101,7 @@ class _ClusterAssign(torch.autograd.Function):
     def forward(ctx, tokens, centers, alpha):
         ctx.save_for_backward(tokens, centers)
         ctx.alpha = alpha
-        if tokens.device.type == "cpu":
-            out = cluster_assign_plain(tokens, centers, alpha)
-        else:
-            out = _cluster_assign_cuda(tokens, centers, alpha)
+        out = FusedClusterOut(*_library.cluster_assign(tokens, centers, alpha))
         ctx.mark_non_differentiable(out.labels)
         return tuple(out)
 
@@ -163,9 +161,7 @@ class _SpaceClusterLoss(torch.autograd.Function):
     def forward(ctx, maps, centers, alpha):
         ctx.save_for_backward(maps, centers)
         ctx.alpha = alpha
-        if maps.device.type == "cpu":
-            return space_cluster_loss_plain(maps, centers, alpha)
-        return _space_cluster_loss_cuda(maps, centers, alpha)
+        return _library.space_cluster_loss(maps, centers, alpha)
 
     @staticmethod
     def backward(ctx, d_loss):

@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
+from vadcl_tpu_torch.ops import library as _library
 from vadcl_tpu_torch.ops.packed import PackCache
 from vadcl_tpu_torch.ops.window import window_partition, window_reverse
 
@@ -656,6 +657,12 @@ def _fold_bwd_through_windows(x, dout, ln_s, ln_b, qkv_w, qkv_b, proj_w, bias, m
     return dx, dln_s, dln_b, dqw, dqb, dpw, dpb, dbias
 
 
+def _counter_name(counter) -> str:
+    """The ``vadcl::fold_attention`` op's counter argument: the wrapper's
+    name ("" for the op's own)."""
+    return "" if counter is None else counter.__name__
+
+
 class _FoldAttention(torch.autograd.Function):
     """Forward kernel A, backward kernel 6
     (``folded_block_attention_trainable``'s custom VJP with LN1 and the
@@ -668,9 +675,7 @@ class _FoldAttention(torch.autograd.Function):
                 num_heads, window, scale, residual, shift)
         ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, mask)
         ctx.meta = (num_heads, window, scale, residual, shift, bwd_counter)
-        if x.device.type == "cpu":
-            return fold_attention_plain(*args)
-        return _fold_attention_cuda(*args, counter=counter)
+        return _library.fold_attention(*args, False, _counter_name(counter))
 
     @staticmethod
     def backward(ctx, dout):
@@ -771,9 +776,7 @@ class _FoldAttentionPacked(torch.autograd.Function):
                 num_heads, window, scale, residual, shift, counter):
         args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
                 num_heads, window, scale, residual, shift)
-        if x.device.type == "cpu":
-            return fold_attention_packed_plain(*args)
-        return _fold_attention_cuda(*args, packed=True, counter=counter)
+        return _library.fold_attention(*args, True, _counter_name(counter))
 
     @staticmethod
     def backward(ctx, dout):
@@ -813,11 +816,9 @@ class _FoldBlock(torch.autograd.Function):
         ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
                               mask, ln2_scale, ln2_bias, w1, b1, w2)
         ctx.meta = (num_heads, window, scale, shift)
-        args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
-                ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads, window, scale, shift)
-        if x.device.type == "cpu":
-            return fold_block_plain(*args)
-        return _fold_block_cuda(*args, tiles=tiles)
+        return _library.fold_block(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                                   mask, ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
+                                   window, scale, shift, tiles)
 
     @staticmethod
     def backward(ctx, dout):

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
+from vadcl_tpu_torch.ops import library as _library
 from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT, _f32, _ln_fast, _ln_stats, _ln_vjp, _vec
 from vadcl_tpu_torch.ops.packed import PackCache
 
@@ -200,9 +201,7 @@ class _LnMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, tiles):
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2)
-        if x.device.type == "cpu":
-            return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2)
-        return _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles)
+        return _library.ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles)
 
     @staticmethod
     def backward(ctx, dy):

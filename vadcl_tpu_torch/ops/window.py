@@ -9,7 +9,7 @@ plain (unfused) multi-head window attention of the JAX default config.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,11 +121,14 @@ def window_attention(
     num_heads: int,
     mask: Optional[torch.Tensor] = None,  # (nW, N, N) fp32
     scale: Optional[float] = None,
+    attn_dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Multi-head window attention with relative position bias and optional
     shift mask (``vadcl_tpu/ops/window.py:window_attention``): q is scaled
     before the scores, scores and softmax are fp32, the value product
-    accumulates in fp32 and rounds to the compute dtype."""
+    accumulates in fp32 and rounds to the compute dtype.  ``attn_dropout``
+    takes the (Bn, nH, N, N) probabilities (the reference's ``attn_drop``
+    after the softmax)."""
     Bn, N, C = x_windows.shape
     dt = x_windows.dtype
     head_dim = C // num_heads
@@ -145,6 +148,8 @@ def window_attention(
         attn = attn.reshape(Bn // nW, nW, num_heads, N, N) + mask[None, :, None]
         attn = attn.reshape(Bn, num_heads, N, N)
     attn = torch.softmax(attn, dim=-1).to(dt)
+    if attn_dropout is not None:
+        attn = attn_dropout(attn)
     out = (attn.float() @ v.float()).to(dt)
     out = out.transpose(1, 2).reshape(Bn, N, C)
     out = out @ proj_w.to(dt)

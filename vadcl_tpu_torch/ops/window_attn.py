@@ -73,6 +73,7 @@ from typing import Optional
 import torch
 
 from vadcl_tpu_torch.ops import cuda_lib
+from vadcl_tpu_torch.ops import library as _library
 from vadcl_tpu_torch.ops.fold_attn import (
     SMEM_LIMIT,
     _fold_attention_bwd_mma,
@@ -385,10 +386,8 @@ class _WindowAttention(torch.autograd.Function):
                 scale, body):
         ctx.save_for_backward(x, qkv_w, qkv_b, proj_w, bias, mask)
         ctx.meta = (num_heads, n_windows, scale)
-        args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
-        if x.device.type == "cpu":
-            return window_attention_fused_plain(*args)
-        return _forward_cuda("window_attention_fused", False, body, *args)
+        return _library.window_attention(x, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                         num_heads, n_windows, scale, False, body or "")
 
     @staticmethod
     def backward(ctx, dout):
@@ -406,10 +405,8 @@ class _WindowAttentionPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows,
                 scale, body):
-        args = (x, qkv_w, qkv_b, proj_w, proj_b, bias, mask, num_heads, n_windows, scale)
-        if x.device.type == "cpu":
-            return window_attention_packed_plain(*args)
-        return _forward_cuda("window_attention_packed", True, body, *args)
+        return _library.window_attention(x, qkv_w, qkv_b, proj_w, proj_b, bias, mask,
+                                         num_heads, n_windows, scale, True, body or "")
 
     @staticmethod
     def backward(ctx, dout):

@@ -2,9 +2,11 @@ from vadcl_tpu_torch.train.checkpoint import (
     CheckpointManager,
     flatten_train_state,
     load_train_state,
+    tolerant_merge,
 )
 from vadcl_tpu_torch.train.loop import train
 from vadcl_tpu_torch.train.optim import (
+    Lars,
     apply_gates,
     build_optimizer,
     cosine_epoch_lr,
@@ -22,6 +24,7 @@ from vadcl_tpu_torch.train.step import (
 
 __all__ = [
     "CheckpointManager",
+    "Lars",
     "StepMetrics",
     "TrainState",
     "apply_gates",
@@ -35,5 +38,6 @@ __all__ = [
     "normalize_clip",
     "param_gate_thresholds",
     "split_predict_batch",
+    "tolerant_merge",
     "train",
 ]

@@ -5,7 +5,9 @@ A checkpoint is the JAX package's file: one flat npz per tag,
 ``step``, ``params/...``, ``extras/batch_stats/...``, the memory families'
 bank ``extras/memory/...`` and the optimizer's ``opt_state/...``
 (``convert.py`` maps every leaf), plus a JSON ``__meta__`` entry.  So each
-package resumes from the other's checkpoints.
+package resumes from the other's checkpoints.  ``tolerant_merge`` is the
+partial load of the JAX package's export CLI: whatever matches, the rest
+kept.
 """
 
 from __future__ import annotations
@@ -14,12 +16,15 @@ import json
 import os
 import re
 import tempfile
-from typing import Dict, Optional
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from vadcl_tpu_torch.convert import (
     EXTRAS,
+    _to_torch_layout,
+    _torch_key,
     jax_from_state_dict,
     load_state_dict_strict,
     opt_state_from_jax,
@@ -59,6 +64,39 @@ def load_train_state(flat: Dict[str, np.ndarray], state: TrainState) -> TrainSta
     opt_state_from_jax(flat, state.model, state.optimizer, predict=predict)
     state.step = int(flat["step"])
     return state
+
+
+def tolerant_merge(
+    target: Union[torch.nn.Module, Dict[str, torch.Tensor]],
+    flat: Mapping[str, np.ndarray],
+    predict: Optional[bool] = None,
+) -> Tuple[Union[torch.nn.Module, Dict[str, torch.Tensor]], List[str], List[str]]:
+    """``vadcl_tpu/train/checkpoint.py:tolerant_merge`` on the port: every
+    tensor of ``target`` (a ``VADModel``, or a state_dict with ``predict``
+    given) whose JAX path (``params/...``, ``batch_stats/...``,
+    ``memory/...``: ``convert.py``'s key map) is a key of ``flat`` with the
+    same JAX-layout shape takes that value; the rest are kept.  Returns
+    (the model, loaded in place, or a new state_dict; the hit paths; the
+    missed paths), the paths sorted."""
+    model = target if isinstance(target, torch.nn.Module) else None
+    if predict is None:
+        predict = model.config.predict
+    sd = dict(model.state_dict() if model is not None else target)
+    own = jax_from_state_dict(sd, predict=predict)
+    hits: List[str] = []
+    misses: List[str] = []
+    for path in sorted(own):
+        if path in flat and tuple(np.shape(flat[path])) == tuple(own[path].shape):
+            key = _torch_key(path)
+            sd[key] = _to_torch_layout(key, flat[path], predict).to(
+                device=sd[key].device, dtype=sd[key].dtype)
+            hits.append(path)
+        else:
+            misses.append(path)
+    if model is None:
+        return sd, hits, misses
+    load_state_dict_strict(model, sd)
+    return model, hits, misses
 
 
 class CheckpointManager:

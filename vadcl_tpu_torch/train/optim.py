@@ -11,6 +11,9 @@ optimizers then skip it entirely, so it gets no weight decay, no moment
 update and no step-count advance, which is what the JAX package's
 ``torch_adam`` gates reproduce.  A zero gradient would not do: Adam would
 still decay the weight and advance its moments.
+
+``lars`` is ``optax.lars(lr, weight_decay=wd, momentum=b1)`` with optax's
+defaults (``Lars``), without staged gating, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -93,11 +96,59 @@ def build_optimizer(
     if name == "sgd":
         return torch.optim.SGD(params, lr=0.0, momentum=b1, weight_decay=weight_decay)
     if name == "lars":
-        raise NotImplementedError(
-            "optimizer 'lars' is not ported yet (ROADMAP.md, queue 1, train-step "
-            "leftovers); use adam, adamw or sgd"
-        )
+        return Lars(params, weight_decay=weight_decay, momentum=b1)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+class Lars(torch.optim.Optimizer):
+    """``optax.lars(lr, weight_decay, momentum=momentum)`` with its defaults
+    (trust coefficient 0.001, eps 0, weight decay and trust ratio on every
+    tensor, ``trace`` momentum without Nesterov), in fp32 per tensor:
+
+      u = g + wd * p
+      u = u * (tc * |p| / (|u| + eps))     (* 1 where |p| or |u| is 0)
+      trace = -lr * u + momentum * trace
+      p = p + trace
+
+    Every tensor steps at every step (no gating; a tensor without a gradient
+    steps with a zero one).  ``count`` is the number of steps taken, optax's
+    schedule count: the train step sets ``lr`` from the schedule at it.
+    The state of a tensor is its ``trace`` and ``count``."""
+
+    def __init__(self, params, lr: float = 0.0, weight_decay: float = 0.0,
+                 momentum: float = 0.9, trust_coefficient: float = 0.001, eps: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, momentum=momentum,
+                                      trust_coefficient=trust_coefficient, eps=eps))
+
+    @property
+    def count(self) -> int:
+        for group in self.param_groups:
+            for p in group["params"]:
+                if "count" in self.state.get(p, {}):
+                    return int(self.state[p]["count"])
+        return 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        count = self.count
+        for group in self.param_groups:
+            lr = torch.tensor(-group["lr"], dtype=torch.float32)
+            wd, tc = group["weight_decay"], group["trust_coefficient"]
+            for p in group["params"]:
+                st = self.state[p]
+                if "trace" not in st:
+                    st["trace"] = torch.zeros_like(p, dtype=torch.float32)
+                p32 = p.float()
+                g = p.grad.float() if p.grad is not None else torch.zeros_like(p32)
+                u = g + wd * p32
+                pn, un = torch.linalg.vector_norm(p32), torch.linalg.vector_norm(u)
+                ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                                    tc * pn / (un + group["eps"]))
+                u = (u * ratio) * lr.to(u.device)
+                st["trace"] = u + group["momentum"] * st["trace"]
+                st["count"] = count + 1
+                p.add_(st["trace"].to(p.dtype))
+        return None
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -30,6 +30,14 @@ runs under ``DistributedDataParallel``, whose gradient all-reduce is made
 to SUM those gradients (``_sum_gradients``, a communication hook; the
 default hook averages), which gives the JAX step's global gradient.
 Outside a group the step runs exactly as a single process always has.
+
+Dropout and drop-path: with any rate above 0 the forward draws its masks
+from ``DropKeys(seed + 0x5EED, step, rank * batch, world * batch)``
+(``models/layers.py``), as the JAX step folds the step into
+``key(seed + 0x5EED)``: a mask is a function of the step, the module and
+the sample's global index, so a data-parallel rank draws the masks its
+samples get in one process, and a recompute (``remat``) draws the
+forward's.  The masks are not the JAX step's bits.
 """
 
 from __future__ import annotations
@@ -42,11 +50,13 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from vadcl_tpu_torch.core.config import TRAINABLE_ATTN_KERNELS, Config
-from vadcl_tpu_torch.core.mesh import is_distributed
+from vadcl_tpu_torch.core.mesh import is_distributed, process_count, process_index
 from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES, VADModel, predicts
+from vadcl_tpu_torch.models.layers import DROPOUT_SEED_OFFSET, DropKeys, drop_keys
 from vadcl_tpu_torch.ops.cluster import frobenius_norm
 from vadcl_tpu_torch.parallel.sharding import global_max, global_sum
 from vadcl_tpu_torch.train.optim import (
+    Lars,
     apply_gates,
     build_optimizer,
     cosine_epoch_lr,
@@ -107,11 +117,12 @@ def _check_trainable(cfg: Config) -> None:
             f"attn_kernel={m.attn_kernel!r} is inference-only (no backward); "
             f"trainable kernels: {sorted(TRAINABLE_ATTN_KERNELS)}"
         )
-    if m.drop_rate > 0 or m.attn_drop_rate > 0 or m.drop_path_rate > 0:
-        raise NotImplementedError(
-            "dropout and drop-path are not ported yet (ROADMAP.md, queue 1, "
-            "train-step leftovers); train with every drop rate 0"
-        )
+
+
+def stochastic(cfg: Config) -> bool:
+    """Whether the step draws dropout or drop-path masks."""
+    m = cfg.model
+    return m.drop_rate > 0 or m.attn_drop_rate > 0 or m.drop_path_rate > 0
 
 
 def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
@@ -125,19 +136,25 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
     reduce, reduce_max = global_sum, global_max  # the identity outside a process group
     backbone = cfg.model.backbone
     predict, memory = predicts(cfg.model), backbone in MEMORY_BACKBONES
+    draws = stochastic(cfg)
 
     def loss_fn(clip: torch.Tensor, step: int):
         clip = normalize_clip(clip)
         inputs, target = split_predict_batch(clip, cfg.data.frame_num, predict,
                                              overlap_quirk=backbone == "swin")
-        if memory:  # the bank's update over the global batch
-            out = model(inputs, global_sum=reduce, global_max=reduce_max, update_memory=True)
-        else:
-            gate = None
-            if cfg.model.compactness and backbone == "swin":
-                gate = torch.tensor(float(step >= sched.compactness_start_iter),
-                                    device=clip.device)
-            out = model(inputs, compactness_gate=gate, global_sum=reduce)
+        b = clip.shape[0]
+        keys = (DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, int(step), process_index() * b,
+                         process_count() * b) if draws else None)
+        with drop_keys(keys):
+            if memory:  # the bank's update over the global batch
+                out = model(inputs, global_sum=reduce, global_max=reduce_max,
+                            update_memory=True)
+            else:
+                gate = None
+                if cfg.model.compactness and backbone == "swin":
+                    gate = torch.tensor(float(step >= sched.compactness_start_iter),
+                                        device=clip.device)
+                out = model(inputs, compactness_gate=gate, global_sum=reduce)
         err = out.recon.float() - target.float()
         loss_pixel = frobenius_norm(err * err, reduce)
         cluster_gate = float(step >= sched.cluster_start_iter)
@@ -194,8 +211,9 @@ def make_train_step(model: VADModel, cfg: Config,
 
     One step: loss and backward at ``state.step``; global-norm clipping
     (``clip_grad`` > 0) over every gradient; gated parameters get no
-    gradient; the optimizer steps at lr(step); then the step count
-    advances.  A non-finite loss skips the optimizer step, so parameters
+    gradient (``lars`` gates none); the optimizer steps at lr(step) (LARS at
+    lr of its own step count, optax's schedule count, which a skipped step
+    does not advance); then the step count advances.  A non-finite loss skips the optimizer step, so parameters
     and optimizer state are held (the JAX step's ``jnp.where`` guard); it
     costs one host read of the loss per step.
 
@@ -220,7 +238,8 @@ def make_train_step(model: VADModel, cfg: Config,
         loss, (lp, lc, ls, recon) = loss_fn(clip, state.step)
         loss.backward()
         finite = bool(torch.isfinite(loss))
-        lr = lr_sched(state.step)
+        lars = isinstance(opt, Lars)
+        lr = lr_sched(opt.count if lars else state.step)
         if finite:
             if cfg.optim.clip_grad > 0:
                 grads = [p.grad for _, p in named if p.grad is not None]
@@ -228,7 +247,8 @@ def make_train_step(model: VADModel, cfg: Config,
                                     max=1.0)
                 for g in grads:
                     g.mul_(scale)
-            apply_gates(named, gates, state.step)
+            if not lars:
+                apply_gates(named, gates, state.step)
             set_lr(opt, lr)
             opt.step()
         opt.zero_grad(set_to_none=True)

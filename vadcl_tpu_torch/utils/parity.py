@@ -3,7 +3,8 @@ steps from the same weights: a data-parallel run against one process
 (``chip_smoke.py``'s phase 6, ``tools/ddp_check_torch.py``, the CPU
 distributed tests), the port against the JAX step (the CPU train-step
 parity tests), and the card against the CPU in fp32 (``chip_smoke.py``'s
-phase 9, the alternate families and the memory bank)."""
+phase 9, the alternate families and the memory bank); and a serving
+artifact's scores against the live scorer's."""
 
 from __future__ import annotations
 
@@ -36,6 +37,16 @@ TIE_GAP = 1e-4
 BF16_BANK_ATOL = 1e-3
 BF16_TIE_GAP = 1e-2
 BANK_BOUNDS = {torch.float32: (BANK_ATOL, TIE_GAP), torch.bfloat16: (BF16_BANK_ATOL, BF16_TIE_GAP)}
+# a serving artifact's scores against the live scorer's on the same windows
+# (``tools/export_torch.py --check``, ``chip_smoke.py``'s export phase): the
+# JAX export CLI's 1e-5 + 1e-3 max|want| in fp32, the bf16 kernel bound
+# (``DDP_LOSS_RTOL``) in bf16
+SCORE_RTOL = {torch.float32: 1e-3, torch.bfloat16: DDP_LOSS_RTOL}
+
+
+def score_bound(want, dtype: torch.dtype) -> float:
+    """The largest |artifact - live| allowed for scores ``want``."""
+    return 1e-5 + SCORE_RTOL[dtype] * float(np.max(np.abs(np.asarray(want))))
 
 
 def _tensor(x) -> torch.Tensor:
