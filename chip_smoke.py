@@ -187,7 +187,32 @@ Phases (any failure raises and the script exits non-zero):
      bf16 with masks drawn (each gradient within the bf16 bound, and the
      run without remat repeated for the card's own spread); one LARS step
      on the card's gradients against the float64 plain update.
-No earlier path was cut: the whole run takes about five minutes on an H100.
+  12. tensor parallelism by turns at full width (224^2, 4-frame predict,
+     bf16, batch 4) under ``"fold"`` and ``"fold_block"`` at model sizes 2
+     and 4 (``parallel/tp.py:model_parallel_by_turns``): each virtual rank's
+     window rows through the real kernels in turn (the roll, the row and
+     mask-slice splits a model group uses), the outputs gathered, the
+     ranks' gradients summed by autograd; the forward the unsplit model's
+     bits, the loss and every gradient within the bf16 bound, exactly 18
+     launches a rank of each kernel each way; each rank's launches and
+     CUDA-event ms inside its turns.
+  13. tensor parallelism across cards where two or more are visible:
+     ``tools/ddp_check_torch.py --model-parallel 2`` as 2 NCCL processes,
+     and dp2 x tp2 on 4 cards, against one process; on one card it says it
+     did not run.
+  14. the C++ JPEG decoder (``data/native.py``): whether ``g++`` and
+     ``jpeglib.h`` are here; where they are, the port's build and decode
+     must succeed, its largest difference from PIL and both decoders'
+     frames/s are printed; where not, the port reads frames with PIL.
+  15. a reference ``.pth`` at the flagship (a seeded model's weights under
+     the reference's names and layouts): ``tools/evaluate_torch.py
+     --torch-ckpt`` scores two JPEG videos with the bits of ``--ckpt`` of
+     the same weights, 18 A, 18 B, 1 C, 1 D a forward and nothing else;
+     ``tools/export_torch.py --torch-ckpt`` and ``--ckpt`` give artifacts
+     that score the same bits and launch the same kernels.
+  16. ``tools/train_synthetic_torch.py --fused`` a few steps on the card in
+     a process of its own: exit 0 and a per-scene AUC.
+No earlier path was cut: the whole run takes about six minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels, kernel B's CUDA-core body, the whole-block forward's and
 backward's bodies of PR 4, and the bf16 CUDA-core instances of 7, 8 and 9
@@ -2840,13 +2865,13 @@ def counting_data_parallel():
     seen = {"loss_sums": 0, "grad_buckets": 0, "bank_maxima": 0}
     real_sum, real_max, real_hook = step.global_sum, step.global_max, step._sum_gradients
 
-    def counted_sum(t):
+    def counted_sum(t, group=None):
         seen["loss_sums"] += 1
-        return real_sum(t)
+        return real_sum(t, group)
 
-    def counted_max(t):
+    def counted_max(t, group=None):
         seen["bank_maxima"] += 1
-        return real_max(t)
+        return real_max(t, group)
 
     def counted_hook(group, bucket):
         seen["grad_buckets"] += 1
@@ -2904,24 +2929,27 @@ def torchrun_env_of_one():
                 os.environ[k] = v
 
 
-def ddp_check_two_cards(*args: str, control: bool = False) -> dict:
-    """``tools/ddp_check_torch.py`` under torchrun with 2 processes, one a
-    card, at global batch 4, with ``args``: its JSON line, which must say
-    ok; with ``control`` (``--per-rank-bank``) the bank gate must refuse."""
+def ddp_check_two_cards(*args: str, control: bool = False, procs: int = 2) -> dict:
+    """``tools/ddp_check_torch.py`` under torchrun with ``procs`` processes
+    (2 by default), one a card, at global batch 4, with ``args``: its JSON
+    line, which must say ok; with ``control`` (``--per-rank-bank``) the bank
+    gate must refuse."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-         "2", os.path.join(root, "tools", "ddp_check_torch.py"), "--global-batch", "4",
+         str(procs), os.path.join(root, "tools", "ddp_check_torch.py"), "--global-batch", "4",
          "--steps", str(DDP_STEPS), *args] + (["--per-rank-bank"] if control else []),
         capture_output=True, text=True, timeout=DDP_CHECK_TIMEOUT, cwd=root)
     lines = [l for l in out.stdout.splitlines() if l.startswith("{")]
     if (out.returncode != 0) != control or not lines:
-        raise AssertionError(f"tools/ddp_check_torch.py {' '.join(args)} on 2 cards exited "
-                             f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        raise AssertionError(f"tools/ddp_check_torch.py {' '.join(args)} on {procs} cards "
+                             f"exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
     result = json.loads(lines[-1])
     refused = not result["ok"] and result.get("bank_rows_diff") is None
     if (not result["ok"], refused) != (control, control):
-        raise AssertionError(f"tools/ddp_check_torch.py {' '.join(args)} on 2 cards: {lines[-1]}")
+        raise AssertionError(f"tools/ddp_check_torch.py {' '.join(args)} on {procs} cards: "
+                             f"{lines[-1]}")
     return result
 
 
@@ -3719,6 +3747,400 @@ def phase_dropout(smi: str) -> dict:
     return out
 
 
+TP_SIZES = (2, 4)  # virtual model sizes: every flagship stage's window rows (8 or 4) split
+TP_KERNELS = ("fold", "fold_block")
+# One forward and backward of the flagship by turns at model size m: each of
+# the 18 blocks runs its forward kernels and its backward kernels once a
+# virtual rank (A and B, 6 and 5; the whole-block kernel each way).
+TP_COUNTS = {
+    "fold": ("fold_attention", "ln_mlp", "fold_attention_bwd", "ln_mlp_bwd"),
+    "fold_block": ("fold_block", "fold_block_bwd"),
+}
+
+
+class TurnClock:
+    """The recorder of ``model_parallel_by_turns``: a CUDA event and the sum
+    of every kernel counter at each start and end of a virtual rank's turn,
+    forward and backward; ``per_rank()`` sums each rank's launches and the
+    event-timed ms inside its turns."""
+
+    def __init__(self):
+        from vadcl_tpu_torch.ops import KERNELS
+
+        self.kernels, self.marks = KERNELS, []
+
+    def mark(self, rank: int, phase: str, edge: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((rank, phase, edge, ev, sum(k.launches for k in self.kernels)))
+
+    def per_rank(self) -> dict:
+        torch.cuda.synchronize()
+        out, open_ = {}, {}
+        for rank, phase, edge, ev, n in self.marks:
+            if edge == "start":
+                open_[(rank, phase)] = (ev, n)
+                continue
+            ev0, n0 = open_.pop((rank, phase))
+            slot = out.setdefault(rank, {"fwd_launches": 0, "bwd_launches": 0,
+                                         "fwd_ms": 0.0, "bwd_ms": 0.0})
+            slot[f"{phase}_launches"] += n - n0
+            slot[f"{phase}_ms"] += ev0.elapsed_time(ev)
+        if open_:
+            raise AssertionError(f"turns opened and never closed: {sorted(open_)}")
+        return out
+
+
+def phase_tp(smi: str) -> dict:
+    """Tensor parallelism by turns on one card at the flagship (shanghaitech,
+    224^2, 4-frame predict, bf16, batch 4) under ``fold`` and
+    ``fold_block``: ``parallel/tp.py:model_parallel_by_turns`` at model
+    sizes 2 and 4 runs each virtual rank's window rows (and kernel B's
+    rows) through the real kernels in turn, with the row splits, the mask
+    slices and the roll of ``shard_windows_call`` a multi-card run uses;
+    the outputs are gathered and autograd sums the ranks' gradients.  The
+    forward is held against the unsplit model bit for bit (each window and
+    token is computed alone, the same kernel on the same values), the loss
+    and every gradient within the bf16 gradient bound (``BWD_TOL``); the
+    launches are exactly one a block and rank each way; each virtual rank's
+    launches and event-timed ms inside its turns are printed."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.parallel.tp import model_parallel_by_turns
+    from vadcl_tpu_torch.train.step import make_loss_fn
+
+    out = {}
+    clip = torch.from_numpy(MemLoader(TRAIN_BATCH, 1).data[0]).to(DEV)
+    for kernel in TP_KERNELS:
+        cfg = flagship_train_config(kernel)
+        model = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).to(DEV)
+        loss_fn = make_loss_fn(model, cfg)
+        with torch.no_grad():
+            want = model(clip[:, :4].float() / 255.0)
+        l0, g0 = _loss_grads(model, cfg, clip)
+        for size in TP_SIZES:
+            print(f"[12] tensor parallelism by turns, attn_kernel={kernel}, model size {size}, "
+                  f"bf16, batch {TRAIN_BATCH}: forward and one step's gradients against the "
+                  "unsplit model")
+            clock = TurnClock()
+            with model_parallel_by_turns(size, clock), plain_versions_refuse_the_card():
+                with torch.no_grad():
+                    got = model(clip[:, :4].float() / 255.0)
+                clock.marks.clear()
+                reset_launches()
+                model.zero_grad(set_to_none=True)
+                loss, _ = loss_fn(clip, 0)
+                loss.backward()
+                torch.cuda.synchronize()
+            per_rank = clock.per_rank()
+            launches = {k: n for k, n in ((k.__name__, k.launches) for k in clock.kernels) if n}
+            want_counts = {name: 18 * size for name in TP_COUNTS[kernel]}
+            want_counts.update(cluster_assign=1, space_cluster_loss=1)
+            grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                     if p.grad is not None}
+            same = all(torch.equal(a, b) for a, b in (
+                (got.recon, want.recon), (got.cluster_loss, want.cluster_loss),
+                (got.space_loss, want.space_loss)))
+            worst = max((rel_error(grads[k], g0[k], BWD_TOL[torch.bfloat16])[2], k) for k in g0)
+            print(f"  forward the same bits as unsplit: {same}; loss {float(loss.detach()):.6f} "
+                  f"unsplit {float(l0):.6f}; worst gradient err/(tol*max) {worst[0]:.3f} at "
+                  f"{worst[1]} (tol {BWD_TOL[torch.bfloat16]:g}); launches {launches}")
+            for rank, r in sorted(per_rank.items()):
+                print(f"  virtual rank {rank}: forward {r['fwd_launches']} launches "
+                      f"{r['fwd_ms']:.2f} ms, backward {r['bwd_launches']} launches "
+                      f"{r['bwd_ms']:.2f} ms (CUDA events around its turns) [{smi}]")
+            if not same:
+                raise AssertionError(f"tensor parallelism by turns, {kernel}, model {size}: the "
+                                     "forward differs from the unsplit model's")
+            if grads.keys() != g0.keys() or not worst[0] <= 1.0:
+                raise AssertionError(f"tensor parallelism by turns, {kernel}, model {size}: a "
+                                     "gradient leaves the bf16 bound")
+            check_rel(f"tp {kernel} {size} loss", loss.detach().float().cpu(),
+                      l0.float().cpu(), BWD_TOL[torch.bfloat16])
+            if launches != want_counts or sorted(per_rank) != list(range(size)):
+                raise AssertionError(f"tensor parallelism by turns, {kernel}, model {size}: "
+                                     f"launches {launches}, expected {want_counts}")
+            per = {r["fwd_launches"] + r["bwd_launches"] for r in per_rank.values()}
+            if per != {len(TP_COUNTS[kernel]) * 18}:
+                raise AssertionError(f"tensor parallelism by turns: per-rank launches {per_rank}")
+            out[f"{kernel} {size}"] = per_rank
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_cards(smi: str) -> dict:
+    """Tensor parallelism across cards, where two or more are visible:
+    ``tools/ddp_check_torch.py --model-parallel 2`` as 2 NCCL processes (one
+    model group of 2), and on 4 cards dp2 x tp2, each against one process
+    (the data-parallel bounds)."""
+    cards = torch.cuda.device_count()
+    out = {}
+    if cards < 2:
+        print(f"[13] tensor parallelism across cards: not run, {cards} card visible "
+              "(NCCL puts one rank on a card; phase 12 checked the row splits by turns)")
+        return out
+    for n in (2, 4) if cards >= 4 else (2,):
+        print(f"[13] tensor parallelism across {n} cards: tools/ddp_check_torch.py "
+              f"--model-parallel 2 ({n // 2} data x 2 model) against one process")
+        r = ddp_check_two_cards("--model-parallel", "2", procs=n)
+        print(f"  ok {r['ok']}, loss rel err {r['loss_rel_err']:.3e}, param max diff "
+              f"{r['param_max_diff']:.3e} (bound {r['param_bound']:.3e}), step ms "
+              f"{[round(t, 1) for t in r['step_ms']]} [{smi}]")
+        out[n] = r
+    return out
+
+
+_REF_BLOCK = {  # a Swin block's JAX path -> (the reference's name, layout)
+    "norm1/scale": ("norm1.weight", None), "norm1/bias": ("norm1.bias", None),
+    "norm2/scale": ("norm2.weight", None), "norm2/bias": ("norm2.bias", None),
+    "attn/relative_position_bias_table": ("attn.relative_position_bias_table", None),
+    "attn/qkv_kernel": ("attn.qkv.weight", "linear"), "attn/qkv_bias": ("attn.qkv.bias", None),
+    "attn/proj_kernel": ("attn.proj.weight", "linear"),
+    "attn/proj_bias": ("attn.proj.bias", None),
+    "mlp/fc1/kernel": ("mlp.fc1.weight", "linear"), "mlp/fc1/bias": ("mlp.fc1.bias", None),
+    "mlp/fc2/kernel": ("mlp.fc2.weight", "linear"), "mlp/fc2/bias": ("mlp.fc2.bias", None),
+}
+_REF_UNIT = {"conv3d/kernel": ("conv3d.weight", "conv"), "bn/scale": ("bn.weight", None),
+             "bn/bias": ("bn.bias", None), "bn/mean": ("bn.running_mean", None),
+             "bn/var": ("bn.running_var", None)}
+_REF_LAYOUT = {"linear": (1, 0), "conv": (4, 3, 0, 1, 2), "convT": (3, 4, 0, 1, 2)}
+
+
+def _reference_name(path: str):
+    """A flagship predict-mode JAX path -> (the reference ``Mymodel`` key,
+    its layout): the name map of ``train/torch_import.py`` backwards."""
+    import re
+
+    p = path.partition("/")[2]
+    m = re.fullmatch(r"(encoder|decoder)/stage(\d+)/block(\d+)/(.*)", p)
+    if m:
+        side = "layers" if m[1] == "encoder" else "ST_layers"
+        name, kind = _REF_BLOCK[m[4]]
+        return f"{m[1]}.{side}.{m[2]}.blocks.{m[3]}.{name}", kind
+    m = re.fullmatch(r"(encoder|decoder)/inception(\d+)/(\w+)/(.*)", p)
+    if m:
+        side = "conv_layers" if m[1] == "encoder" else "I3D_layers"
+        name, kind = _REF_UNIT[m[4]]
+        return f"{m[1]}.{side}.{m[2]}.0.{m[3]}.{name}", kind
+    if p.endswith("cluster_center"):
+        return p.replace("/", "."), None
+    leaf = {"kernel": "weight", "scale": "weight", "bias": "bias"}[p.rsplit("/", 1)[1]]
+    head = p.rsplit("/", 1)[0]
+    fixed = {"encoder/patch_embed": ("encoder.patch_embed.proj", "conv"),
+             "decoder/timedebd": ("decoder.timedebd", "conv"),
+             "decoder/upsample0/proj": ("decoder.upsampling.0.proj.0", "convT"),
+             "decoder/norm": ("decoder.norm", None),
+             "decoder/patchdebed/deconv1": ("decoder.patchdebed.proj.0", "convT"),
+             "decoder/patchdebed/conv": ("decoder.patchdebed.proj.2", "conv"),
+             "decoder/patchdebed/deconv2": ("decoder.patchdebed.proj.4", "convT"),
+             "cluster1/norm": ("cluster1.norm", None),
+             "space_cluster/norm": ("space_cluster.norm", None), "norm": ("norm", None)}
+    m = re.fullmatch(r"encoder/downsample(\d+)", head)
+    if m:
+        return f"encoder.downsample.{m[1]}.0.{leaf}", "conv" if leaf == "weight" else None
+    name, kind = fixed[head]
+    return f"{name}.{leaf}", kind if p.endswith("kernel") else None
+
+
+def reference_state_dict(model) -> dict:
+    """The flagship predict-mode ``model``'s weights as the reference's
+    ``Mymodel`` state_dict would hold them (DDP ``module.`` prefix, torch
+    layouts), built as ``tests/test_torch_port_torch_import.py`` builds its
+    key set."""
+    from vadcl_tpu_torch.convert import jax_from_state_dict
+
+    out = {}
+    for path, a in jax_from_state_dict(model.state_dict(), predict=True).items():
+        key, kind = _reference_name(path)
+        a = np.ascontiguousarray(a.transpose(_REF_LAYOUT[kind]) if kind else a)
+        out["module." + key] = torch.from_numpy(a)
+    return out
+
+
+REF_BATCH = 16  # the scoring path's batch, for the CLI and the artifact
+
+
+@contextlib.contextmanager
+def counting_forwards():
+    """While open, counts the calls of ``VADModel.forward``: yields a
+    one-element list."""
+    from vadcl_tpu_torch.models import backbone
+
+    calls, real = [0], backbone.VADModel.forward
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return real(self, *args, **kw)
+
+    backbone.VADModel.forward = counted
+    try:
+        yield calls
+    finally:
+        backbone.VADModel.forward = real
+
+
+def phase_reference_ckpt(smi: str) -> dict:
+    """The reference-checkpoint bridge at the flagship (shanghaitech, 224^2,
+    4-frame predict, bf16, fused ``fold``): a seeded model's weights written
+    as a reference-keyed ``.pth`` and as a JAX-layout checkpoint; two JPEG
+    test videos written at 224^2.  ``tools/evaluate_torch.py --torch-ckpt``
+    scores them with every weight matched (the printed counts), the same
+    score curves, bit for bit, as ``--ckpt`` of the same weights, and one
+    launch of A and of B a block and of C and D a forward, nothing else;
+    ``tools/export_torch.py --torch-ckpt`` and ``--ckpt`` give artifacts
+    whose scores of the same windows are the same bits, and a call of the
+    first launches the same kernels as a forward."""
+    from tools import evaluate_torch, export_torch
+    from vadcl_tpu_torch.convert import jax_from_state_dict
+    from vadcl_tpu_torch.data import make_synthetic_dataset
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.serve import load_artifact
+
+    print("[15] reference checkpoint at the flagship, fold, bf16: --torch-ckpt through "
+          "tools/evaluate_torch.py and tools/export_torch.py against --ckpt of the same weights")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_ref_") as tmp:
+        model = VADModel(flagship_config("fold"), torch.float32, torch.Generator().manual_seed(3))
+        pth, npz = os.path.join(tmp, "ref.pth"), os.path.join(tmp, "weights.npz")
+        torch.save(reference_state_dict(model), pth)
+        flat = jax_from_state_dict(model.state_dict(), predict=True)
+        np.savez(npz, **{(k if k.startswith("params/") else "extras/" + k): v
+                         for k, v in flat.items()})
+        n_keys = len(flat)
+        del model
+        _, test_dir, label_dir = make_synthetic_dataset(
+            os.path.join(tmp, "data"), num_train_videos=1, num_test_videos=2,
+            frames_per_video=12, size=224)
+        common = ["--preset", "shanghaitech", "--predict", "--fused", "--attn-kernel", "fold",
+                  "--test-data-path", test_dir, "--label-path", label_dir,
+                  "--batch-windows", str(REF_BATCH)]
+        curves = {}
+        for flag, path in (("--torch-ckpt", pth), ("--ckpt", npz)):
+            reset_launches()
+            t0 = time.perf_counter()
+            with plain_versions_refuse_the_card(), counting_forwards() as calls:
+                curves[flag] = evaluate_torch.main(
+                    common + [flag, path, "--out", os.path.join(tmp, f"scores-{flag[2:]}.npz")])
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches(set(EXPORT_COUNTS["fold"]), f"evaluate {flag}",
+                                     {k: n * calls[0] for k, n in EXPORT_COUNTS["fold"].items()})
+            print(f"  evaluate_torch {flag}: {calls[0]} forwards at batch {REF_BATCH}, mean "
+                  f"AUC {curves[flag]:.4f}, {wall:.1f} s (the CLI's own wall clock) [{smi}]")
+            out[flag] = dict(forwards=calls[0], launches=launches)
+        with np.load(os.path.join(tmp, "scores-torch-ckpt.npz")) as a, np.load(
+                os.path.join(tmp, "scores-ckpt.npz")) as b:
+            same = a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+        print(f"  score curves of --torch-ckpt and --ckpt the same bits: {same}")
+        if not same or curves["--torch-ckpt"] != curves["--ckpt"]:
+            raise AssertionError("--torch-ckpt scores differ from the same weights loaded "
+                                 "directly")
+        windows = torch.from_numpy(np.random.RandomState(5).randint(
+            0, 256, (REF_BATCH, 4, 224, 224, 3)).astype(np.uint8)).cuda()
+        scores = {}
+        for flag, path in (("--torch-ckpt", pth), ("--ckpt", npz)):
+            art_dir = os.path.join(tmp, f"art{flag[2:]}")
+            export_torch.main(["--preset", "shanghaitech", "--predict", "--fused",
+                               "--attn-kernel", "fold", "--batch-windows", str(REF_BATCH),
+                               flag, path, "--out", art_dir])
+            art = load_artifact(art_dir)
+            reset_launches()
+            with torch.no_grad():
+                scores[flag] = art.score(windows).float().cpu()
+            torch.cuda.synchronize()
+            read_launches(set(EXPORT_COUNTS["fold"]), f"artifact {flag}", EXPORT_COUNTS["fold"])
+            del art
+        if not torch.equal(scores["--torch-ckpt"], scores["--ckpt"]):
+            raise AssertionError("the --torch-ckpt artifact scores differ from the --ckpt one's")
+        print(f"  artifacts of --torch-ckpt and --ckpt: the same score bits on {REF_BATCH} "
+              f"windows; {n_keys} weights a checkpoint")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_native(smi: str) -> dict:
+    """The C++ JPEG decoder (``data/native.py``): whether ``g++`` and
+    ``jpeglib.h`` are on this machine; where they are, the port's build must
+    succeed and decode (a failure raises), its largest difference from PIL
+    on 64 JPEG frames (640x360 -> 224^2) is printed with both decoders'
+    frames/s; where they are not, the port reads frames with PIL, as the
+    JAX package does there."""
+    import shutil
+
+    from PIL import Image
+
+    from vadcl_tpu_torch.data import native
+    from vadcl_tpu_torch.data.dataset import load_clip
+
+    gxx = shutil.which("g++")
+    header = gxx is not None and subprocess.run(
+        [gxx, "-fsyntax-only", "-x", "c++", "-"], input="#include <cstdio>\n#include <jpeglib.h>\n",
+        capture_output=True, text=True).returncode == 0
+    print(f"[14] native JPEG decoder: g++ {'at ' + gxx if gxx else 'missing'}, jpeglib.h "
+          f"{'found' if header else 'missing'}")
+    if not (gxx and header):
+        print("  the port reads frames with PIL here, as the JAX package does without them")
+        return {"native": False}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_jpeg_") as tmp:
+        rng = np.random.RandomState(0)
+        yy, xx = np.mgrid[0:360, 0:640]
+        paths = []
+        for i in range(64):
+            img = np.stack([127 + 120 * np.sin(xx / (30.0 + i) + i),
+                            127 + 120 * np.cos(yy / 47.0), rng.randint(0, 40, xx.shape)],
+                           -1).astype(np.uint8)
+            paths.append(os.path.join(tmp, f"{i:03d}.jpg"))
+            Image.fromarray(img).save(paths[-1], quality=90)
+        t0 = time.perf_counter()
+        lib = native.get_lib()
+        build_s = time.perf_counter() - t0
+        if lib is None:
+            raise AssertionError(f"g++ and jpeglib.h are here but the decoder did not build: "
+                                 f"{native.last_error}")
+        timing = {}
+        for name, use in (("native", True), ("PIL", False)):
+            load_clip(paths[:4], (224, 224), use_native=use, as_uint8=True)  # warm
+            t0 = time.perf_counter()
+            frames = load_clip(paths, (224, 224), use_native=use, as_uint8=True)
+            timing[name] = (time.perf_counter() - t0, frames)
+        diff = int(np.abs(timing["native"][1].astype(np.int32)
+                          - timing["PIL"][1].astype(np.int32)).max())
+        fps = {k: len(paths) / t for k, (t, _) in timing.items()}
+        print(f"  built in {build_s:.1f} s at {native.library_path()}; 64 frames 640x360 -> "
+              f"224^2 uint8: native {fps['native']:.0f} frames/s, PIL {fps['PIL']:.0f} frames/s "
+              f"(this host's CPU, files warm in the page cache); max |native - PIL| = {diff} "
+              f"uint8 steps [{smi}]")
+        if diff > 3:
+            raise AssertionError(f"the native decoder is {diff} steps from PIL (bound 3)")
+    return {"native": True, "fps": fps, "max_diff": diff}
+
+
+SYNTH_STEPS = 5
+SYNTH_TIMEOUT = 300
+
+
+def phase_train_synthetic(smi: str) -> dict:
+    """``tools/train_synthetic_torch.py --fused`` for a few steps on the
+    card, in a process of its own: exit 0 and a per-scene AUC printed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    print(f"[16] tools/train_synthetic_torch.py --fused --steps {SYNTH_STEPS} on the card")
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_synth_") as tmp:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "train_synthetic_torch.py"), "--fused",
+             "--steps", str(SYNTH_STEPS), "--root", tmp], capture_output=True, text=True,
+            timeout=SYNTH_TIMEOUT, cwd=root)
+        wall = time.perf_counter() - t0
+    lines = [l for l in run.stdout.splitlines() if "AUC" in l]
+    print("\n".join(f"  {l}" for l in lines) + f"\n  exit {run.returncode} in {wall:.1f} s [{smi}]")
+    if run.returncode != 0 or not any(l.startswith("per-scene AUC:") for l in lines):
+        raise AssertionError(f"tools/train_synthetic_torch.py exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    return {"wall_s": wall}
+
+
 REPLACES = {
     "fold_attention": ("vadcl_tpu_torch/csrc/fold_attn_mma.cuh",
                        "vadcl_tpu/ops/pallas_attn_fold.py:165"),
@@ -3855,6 +4277,11 @@ def main():
     phase_zoo(smi)
     phase_export(smi)
     phase_dropout(smi)
+    phase_tp(smi)
+    phase_tp_cards(smi)
+    phase_native(smi)
+    phase_reference_ckpt(smi)
+    phase_train_synthetic(smi)
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],

@@ -4,8 +4,9 @@ hygiene: nothing of ``vadcl_tpu_torch``, ``chip_smoke.py`` or
 ``tools/*_torch.py`` may import ``jax``, ``flax`` or ``vadcl_tpu``.
 
 The drift tests run the same frame folder and the same seed through both
-packages and ask for equal arrays (both decode with PIL here: the JAX
-package's C++ decoder is switched off so that the comparison is exact).
+packages and ask for equal arrays (both decode with PIL here: both
+packages' C++ decoders are switched off, so that the PIL paths are held
+against each other; ``tests/test_torch_port_native.py`` holds the decoders).
 """
 
 import os
@@ -19,6 +20,7 @@ import vadcl_tpu.data as jax_data
 import vadcl_tpu.data.native as jax_native
 import vadcl_tpu.viz.dumps as jax_dumps
 import vadcl_tpu_torch.data as port_data
+import vadcl_tpu_torch.data.native as port_native
 import vadcl_tpu_torch.viz.dumps as port_dumps
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -35,6 +37,7 @@ def frame_folder(tmp_path_factory):
 @pytest.fixture()
 def pil_only(monkeypatch):
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
 
 
 def test_synthetic_fixture_equals_jax(tmp_path, frame_folder):
@@ -79,6 +82,7 @@ def test_load_clip_and_video_equal_jax(frame_folder, pil_only):
                                   jax_data.load_video(vdir, (48, 48)))
     paths = sorted(os.path.join(vdir, f) for f in os.listdir(vdir))[:3]
     got = port_data.load_clip(paths, (40, 40))
+    np.testing.assert_array_equal(got, port_data.load_clip(paths, (40, 40), use_native=False))
     assert got.dtype == np.float32 and got.max() <= 1.0
     np.testing.assert_array_equal(got, jax_data.load_clip(paths, (40, 40), use_native=False))
 
@@ -127,19 +131,29 @@ import vadcl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vadcl_tpu_torch.__path__, "vadcl_tpu_torch.")]
 for name in names + ["chip_smoke", "tools.evaluate_torch", "tools.train_torch",
                      "tools.profile_torch", "tools.autotune_torch", "tools.ddp_check_torch",
-                     "tools.export_torch", "tools.serve_torch"]:
+                     "tools.export_torch", "tools.serve_torch", "tools.train_synthetic_torch",
+                     "tools.visualize_torch", "tools.center_training_experiment_torch"]:
     importlib.import_module(name)
 for name in ("vadcl_tpu_torch.data.dataset", "vadcl_tpu_torch.data.loader",
              "vadcl_tpu_torch.serve.export", "vadcl_tpu_torch.ops.library",
              "vadcl_tpu_torch.viz.dumps", "vadcl_tpu_torch.ops.window_attn",
              "vadcl_tpu_torch.core.mesh", "vadcl_tpu_torch.parallel.sharding",
              "vadcl_tpu_torch.utils.profiling", "vadcl_tpu_torch.utils.autotune",
-             "vadcl_tpu_torch.utils.flops", "vadcl_tpu_torch.utils.parity"):
+             "vadcl_tpu_torch.utils.flops", "vadcl_tpu_torch.utils.parity",
+             "vadcl_tpu_torch.parallel.tp", "vadcl_tpu_torch.data.native",
+             "vadcl_tpu_torch.data.synthetic", "vadcl_tpu_torch.train.torch_import"):
     assert name in names, name
 bad = sorted(k for k, v in sys.modules.items()
              if v is not None and k.split(".")[0] in ("jax", "jaxlib", "flax", "vadcl_tpu"))
 assert not bad, bad
 from vadcl_tpu_torch.data import ClipDataset, HostDataLoader, make_synthetic_dataset
+from vadcl_tpu_torch.parallel.tp import model_parallel_by_turns, shard_tokens_call
+from vadcl_tpu_torch.train.torch_import import resize_bicubic
+import numpy as np, torch
+with model_parallel_by_turns(2):
+    assert torch.equal(shard_tokens_call(lambda t: t * 2, torch.ones(1, 1, 4, 2, 3)),
+                       torch.full((1, 1, 4, 2, 3), 2.0))
+assert resize_bicubic(np.ones((23, 23, 2), np.float32), (13, 13)).shape == (13, 13, 2)
 with tempfile.TemporaryDirectory() as root:
     train_dir, test_dir, label_dir = make_synthetic_dataset(
         root, num_train_videos=1, num_test_videos=1, frames_per_video=6, size=32)
@@ -155,8 +169,11 @@ print("ok", len(names))
 
 def test_port_imports_nothing_of_jax_and_reads_a_frame_folder():
     """With ``jax``, ``flax`` and ``vadcl_tpu`` made unimportable, every
-    module of the port (``serve/`` too), ``chip_smoke`` and the seven CLIs
-    import, and a ``ClipDataset`` reads a synthetic frame folder."""
+    module of the port (``serve/``, ``parallel/tp.py``, ``data/native.py``
+    and ``train/torch_import.py`` too), ``chip_smoke`` and the ten CLIs
+    import, the tensor-parallel splits and the bicubic resize run, and a
+    ``ClipDataset`` reads a synthetic frame folder (through the C++ decoder
+    where it builds)."""
     out = subprocess.run([sys.executable, "-c", HYGIENE], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr

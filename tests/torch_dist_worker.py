@@ -21,6 +21,13 @@ test wrote to ``<workdir>/inputs.pt``; it writes what the test checks to
 * ``memory_step``: ``step`` for a memory family (``convae``): three steps
   on this rank's shard, the bank after each; then the same with each
   rank's bank update over its own shard alone (the losses still global).
+* ``tp_forward``: tensor parallelism at (1, world): each case's forward
+  under ``model_parallel`` on the whole batch, with the number of split
+  calls that gathered rows and summed partials; then ``same_gradients`` of
+  gradients that differ by rank.
+* ``tp_step``: tensor parallelism at (world / model, model): one
+  ``make_train_step(mesh=, model_axis="model")`` step a case on this
+  rank's data shard of the global batch.
 """
 
 import datetime
@@ -87,12 +94,12 @@ def run_half_batches(inputs):
     other = {"sums": None}
     seen = []
 
-    def summed(t):
+    def summed(t, group=None):
         seen.append(t.detach())
         return t if other["sums"] is None else t + other["sums"].pop(0)
 
-    def make_loss_fn(model, cfg, return_recon=False):
-        loss_fn = real_make(model, cfg, return_recon)
+    def make_loss_fn(model, cfg, return_recon=False, **kw):
+        loss_fn = real_make(model, cfg, return_recon, **kw)
 
         def halves(clip, step):
             a, b = clip[:len(clip) // 2], clip[len(clip) // 2:]
@@ -119,7 +126,7 @@ def run_half_batches(inputs):
 def mode_step(inputs, rank, world):
     out = {"global": run_steps(inputs, rank, world)}
     # the reference's semantics: per-rank losses, gradients averaged by DDP
-    step_mod.global_sum = lambda t: t
+    step_mod.global_sum = lambda t, group=None: t
     step_mod.data_parallel = lambda m: torch.nn.parallel.DistributedDataParallel(
         m, broadcast_buffers=False)
     out["per_rank"] = run_steps(inputs, rank, world)
@@ -231,6 +238,80 @@ def mode_eval(inputs, rank, world):
     return out
 
 
+def _tp_model(case):
+    cfg = case["cfg"]
+    model = VADModel(cfg.model, torch.float32)
+    model.load_state_dict(case["state_dict"])
+    return cfg, model
+
+
+def mode_tp_forward(inputs, rank, world):
+    from vadcl_tpu_torch.core.mesh import make_mesh_2d
+    from vadcl_tpu_torch.parallel import tp
+
+    mesh = make_mesh_2d(1, world)
+    calls = {"rows": 0, "partials": 0}
+    gather, partial_sum = tp._GatherRows.apply, tp._SumPartials.apply
+
+    def rows(*a):
+        calls["rows"] += 1
+        return gather(*a)
+
+    def partials(*a):
+        calls["partials"] += 1
+        return partial_sum(*a)
+
+    tp._GatherRows.apply, tp._SumPartials.apply = rows, partials
+    out = {}
+    for name, case in inputs["cases"].items():
+        _, model = _tp_model(case)
+        calls.update(rows=0, partials=0)
+        with torch.no_grad(), tp.model_parallel(mesh, "model"):
+            o = model(torch.from_numpy(case["clip"]))
+        out[name] = dict(recon=o.recon.clone(), cluster_loss=o.cluster_loss.clone(),
+                         space_loss=o.space_loss.clone(), calls=dict(calls))
+    # same_gradients: every process ends on the model group's first one's
+    params = [torch.nn.Parameter(torch.zeros(3, 2)), torch.nn.Parameter(torch.zeros(5))]
+    for i, p in enumerate(params):
+        p.grad = torch.full_like(p, 10.0 * rank + i)
+    step_mod.same_gradients(params, mesh.group("model"))
+    out["same_gradients"] = [p.grad.clone() for p in params]
+    return out
+
+
+def tp_step_result(model, state, m):
+    """A step's loss terms, parameters and Adam moments (the first moment
+    after one step is (1 - b1) times the gradient)."""
+    opt = state.optimizer.state
+    return dict(loss=[float(m.loss), float(m.loss_pixel), float(m.cluster_loss),
+                      float(m.space_loss)],
+                params={k: p.detach().clone() for k, p in model.named_parameters()},
+                moments={k: opt[p]["exp_avg"].clone() for k, p in model.named_parameters()
+                         if p in opt})
+
+
+def mode_tp_step(inputs, rank, world):
+    from vadcl_tpu_torch.core.mesh import make_mesh_2d
+    from vadcl_tpu_torch.parallel import tp
+
+    tp_size = inputs["model"]
+    mesh = make_mesh_2d(world // tp_size, tp_size)
+    data, shards = mesh.index("data"), world // tp_size
+    out = {}
+    replicate = tp._Replicate.apply
+    for name, case in inputs["cases"].items():
+        if case.get("unsummed"):  # the control: no gradient sum over the model group
+            tp._Replicate.apply = lambda t, group: t
+        cfg, model = _tp_model(case)
+        state = step_mod.create_train_state(model, cfg)
+        step_fn = step_mod.make_train_step(model, cfg, inputs["steps_per_epoch"], mesh=mesh,
+                                           model_axis="model")
+        m = step_fn(state, torch.from_numpy(shard(case["clip"], data, shards)))
+        tp._Replicate.apply = replicate
+        out[name] = tp_step_result(model, state, m)
+    return out
+
+
 def main():
     mode, rank, world, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     torch.set_num_threads(1)
@@ -248,6 +329,10 @@ def main():
             out = {"global": run_steps(inputs, rank, world)}
         elif mode == "memory_step":
             out = mode_memory_step(inputs, rank, world)
+        elif mode == "tp_forward":
+            out = mode_tp_forward(inputs, rank, world)
+        elif mode == "tp_step":
+            out = mode_tp_step(inputs, rank, world)
         else:
             raise ValueError(mode)
         torch.save(out, os.path.join(workdir, f"{mode}_rank{rank}.pt"))

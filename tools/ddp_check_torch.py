@@ -3,7 +3,8 @@ train step and the eval, on the cards (NCCL) or the CPU (gloo).
 
   torchrun --standalone --nproc_per_node N tools/ddp_check_torch.py \\
       [--device cuda|cpu] [--preset shanghaitech|tiny] [--global-batch 4] [--steps 3] \\
-      [--backbone swin|unet3d|convae|convae_predict] [--per-rank-bank]
+      [--backbone swin|unet3d|convae|convae_predict] [--per-rank-bank] \
+      [--model-parallel M]
 
 Rank 0 first runs the one-process reference, before any process group
 exists: ``make_train_step`` (the flagship: ``fold``, fused, predict mode;
@@ -25,6 +26,13 @@ limit); a failed check exits non-zero.  ``--per-rank-bank`` is the
 control: each process updates the bank over its own shard alone (the
 group's reductions left out of the update), which the bank gate must
 refuse.
+
+``--model-parallel M`` makes the run tensor-parallel: the N processes form
+(N / M data) x (M model) groups (``core/mesh.py:make_mesh_2d``), each model
+group takes one data shard (``--global-batch`` / (N / M) clips) and splits
+the fold kernels' window rows, kernel B's rows and the plain path's heads
+and hidden width over its M processes (``parallel/tp.py``); the bounds are
+the same.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.core.dtypes import compute_dtype
 from vadcl_tpu_torch.core.mesh import (
     local_device,
+    make_mesh_2d,
     maybe_initialize_distributed,
     process_count,
     shutdown_distributed,
@@ -103,14 +112,16 @@ def bank_of(model):
     return model.convae.memory.keys.detach().cpu()
 
 
-def run_steps(cfg, dev, clips, rows: slice):
-    """``make_train_step`` from the seeded init over ``clips[:, rows]``: the
+def run_steps(cfg, dev, clips, rows: slice, mesh=None):
+    """``make_train_step`` from the seeded init over ``clips[:, rows]``
+    (tensor-parallel over ``mesh``'s model axis where one is given): the
     model, the per-step losses and host-clock step times, and the top-1
     slots of each bank update's queries and their score gaps (a memory
     family; empty otherwise)."""
     model = build_model(cfg, dev)
     state = create_train_state(model, cfg)
-    step_fn = make_train_step(model, cfg, steps_per_epoch=10)
+    step_fn = make_train_step(model, cfg, steps_per_epoch=10, mesh=mesh,
+                              model_axis=None if mesh is None else "model")
     losses, times = [], []
     with recording_bank_updates() as rec:
         for clip in clips:
@@ -162,13 +173,17 @@ def main(argv=None) -> int:
     ap.add_argument("--backbone", default="swin", choices=list(BACKBONES))
     ap.add_argument("--per-rank-bank", action="store_true",
                     help="the control: each process updates the bank over its own shard alone")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model groups of this many processes (tensor parallelism)")
     args = ap.parse_args(argv)
 
     if "RANK" not in os.environ:
         raise SystemExit("run under torchrun: torchrun --standalone --nproc_per_node N ...")
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    if args.global_batch % world:
-        raise SystemExit(f"--global-batch {args.global_batch} does not split over {world}")
+    tp = args.model_parallel
+    if world % tp or args.global_batch % (world // tp):
+        raise SystemExit(f"--global-batch {args.global_batch} does not split over "
+                         f"{world // tp} data shards of {world} processes")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is visible")
     dev = local_device(args.device)
@@ -190,10 +205,13 @@ def main(argv=None) -> int:
         ref_auc, ref_scenes = score(cfg, dev, videos, distributed=False)
     maybe_initialize_distributed(args.device)
     assert process_count() == world
-    per = args.global_batch // world
+    mesh, shard, per = None, rank, args.global_batch // world
+    if tp > 1:
+        mesh = make_mesh_2d(world // tp, tp)
+        shard, per = mesh.index("data"), args.global_batch // (world // tp)
     with per_rank_bank_updates() if args.per_rank_bank else contextlib.nullcontext():
         model, losses, times, updates = run_steps(cfg, dev, clips,
-                                                  slice(rank * per, (rank + 1) * per))
+                                                  slice(shard * per, (shard + 1) * per), mesh)
     auc, scenes = score(cfg, dev, videos, distributed=True)
     sums = cross_host_concat([float(sum(p.detach().double().sum() for p in model.parameters()))])
     bank = bank_of(model)
@@ -212,7 +230,7 @@ def main(argv=None) -> int:
         ok = False
     bank_bounds = BANK_BOUNDS[compute_dtype(dev)]
     if bank is not None:  # each update's queries in global batch order, step after step
-        slots = torch.cat([torch.cat([r[i][0] for r in every_rank_updates])
+        slots = torch.cat([torch.cat([r[i][0] for r in every_rank_updates[::tp]])
                            for i in range(args.steps)])
         try:
             bank_check = check_bank(
@@ -227,7 +245,8 @@ def main(argv=None) -> int:
           and auc_err <= 1e-12 and scenes.keys() == ref_scenes.keys())
     bank_diff = None if bank is None else float((bank - bank_of(ref_model)).abs().max())
     print(json.dumps({
-        "ok": ok, "world": world, "device": str(dev), "backbone": args.backbone,
+        "ok": ok, "world": world, "model_parallel": tp, "device": str(dev),
+        "backbone": args.backbone,
         "per_rank_bank": args.per_rank_bank,
         "card": smi_line() if dev.type == "cuda" else "cpu",
         "global_batch": args.global_batch, "losses": losses, "one_process_losses": ref_losses,

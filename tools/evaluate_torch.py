@@ -3,7 +3,7 @@ frame-level AUROC, with the flags of ``tools/evaluate.py``:
 
   python tools/evaluate_torch.py --fused --predict \\
       --test-data-path /data/test/frames --label-path /data/test/labels \\
-      [--ckpt log_dir/ckpt/ckpt_100.npz] \\
+      [--ckpt log_dir/ckpt/ckpt_100.npz | --torch-ckpt reference.pth] \\
       [--protocol stride1|nonoverlap|stride1_first_frame] \\
       [--backbone swin|unet3d|convae|convae_predict]
 
@@ -22,7 +22,12 @@ prints; each process writes its own videos' curves to
 ``--ckpt`` takes a checkpoint written by either package (``params/...``
 plus ``extras/batch_stats/...`` and a memory family's bank
 ``extras/memory/...``), loaded strictly; without it the model runs from
-its seeded init (seed 0).  ``--device cuda`` (the default) computes in bf16 and
+its seeded init (seed 0).  ``--torch-ckpt`` takes the reference's own
+PyTorch ``Mymodel`` state_dict (a ``.pth``, ``module.``-prefixed or not):
+``train/torch_import.py`` renames it to the JAX package's paths and
+``tolerant_merge`` loads whatever matches in name and shape, the rest
+keeping the seeded init, with the counts printed as ``tools/evaluate.py``
+prints them.  ``--device cuda`` (the default) computes in bf16 and
 ``--fused`` runs the hand-written kernels (``--attn-kernel
 fold|base|packed|fold_packed|fold_mix|fold_block`` picks the attention kernel,
 fold by default); it fails when no GPU is visible.
@@ -61,12 +66,15 @@ from vadcl_tpu_torch.eval.predict import (
 )
 from vadcl_tpu_torch.models import VADModel
 from vadcl_tpu_torch.models.backbone import BACKBONES, model_input_frames, predicts
+from vadcl_tpu_torch.train.torch_import import merge_reference_checkpoint
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="shanghaitech")
     ap.add_argument("--ckpt", default="")
+    ap.add_argument("--torch-ckpt", default="",
+                    help="a reference PyTorch .pth (Mymodel state_dict), translated")
     ap.add_argument("--test-data-path", required=True)
     ap.add_argument("--label-path", required=True)
     ap.add_argument("--predict", action="store_true")
@@ -120,7 +128,12 @@ def main(argv=None):
     predict = predicts(model_cfg)
     model = VADModel(model_cfg, compute_dtype(device), torch.Generator().manual_seed(0),
                      model_input_frames(args.backbone, args.frame_num))
-    if args.ckpt:
+    if args.torch_ckpt:
+        hits, misses, unmatched = merge_reference_checkpoint(model, args.torch_ckpt)
+        if main_process:
+            print(f"translated torch ckpt: {len(hits)} loaded, {len(misses)} kept, "
+                  f"{len(unmatched)} unmatched torch keys")
+    elif args.ckpt:
         load_jax_checkpoint(model, args.ckpt)
         if main_process:
             print(f"checkpoint: {args.ckpt} loaded (strict)")

@@ -17,8 +17,8 @@ fp32 model (the kernels' plain versions).  ``--fused`` needs a static
 plain model).  ``--check`` reloads the artifact and holds its scores on
 random windows against the live ``window_score_fn``: ``1e-5 + 1e-3 *
 max|want|`` in fp32, the bf16 bound of ``utils/parity.py`` in bf16.
-(``tools/export.py``'s ``--torch-ckpt``, a reference ``.pth``, is not
-ported.)
+``--torch-ckpt`` reads a reference PyTorch ``.pth`` instead, renamed by
+``train/torch_import.py`` and merged the same way.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from vadcl_tpu_torch.models import VADModel
 from vadcl_tpu_torch.models.backbone import BACKBONES, model_input_frames, predicts
 from vadcl_tpu_torch.serve import export_window_scorer, load_artifact, save_artifact
 from vadcl_tpu_torch.train.checkpoint import tolerant_merge
+from vadcl_tpu_torch.train.torch_import import merge_reference_checkpoint
 from vadcl_tpu_torch.utils.parity import score_bound
 
 
@@ -47,6 +48,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="shanghaitech")
     ap.add_argument("--ckpt", default="")
+    ap.add_argument("--torch-ckpt", default="",
+                    help="a reference PyTorch .pth (Mymodel state_dict), translated")
     ap.add_argument("--out", required=True)
     ap.add_argument("--predict", action="store_true")
     ap.add_argument("--first-frame-quirk", action="store_true")
@@ -85,7 +88,10 @@ def main(argv=None):
     dtype = compute_dtype(device)
     model = VADModel(model_cfg, dtype, torch.Generator().manual_seed(0),
                      model_input_frames(args.backbone, args.frame_num))
-    if args.ckpt:
+    if args.torch_ckpt:
+        hits, misses, _ = merge_reference_checkpoint(model, args.torch_ckpt)
+        print(f"translated torch ckpt: {len(hits)} loaded, {len(misses)} kept")
+    elif args.ckpt:
         with np.load(args.ckpt) as z:
             flat = {}
             for k in z.files:

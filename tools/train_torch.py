@@ -20,6 +20,19 @@ batch size is per process, the loss is the global batch's, and only rank 0
 writes into the output directory (``train/loop.py``); the periodic eval
 deals the test videos over the processes (``evaluate_videos_distributed``).
 
+Tensor parallelism, the world cut into (N / M data) x (M model) groups of
+consecutive ranks (``core/mesh.py:make_mesh_2d``):
+
+  torchrun --nproc_per_node N tools/train_torch.py --model-parallel M ...
+
+Each model group holds one shard of the batch (the batch size is per data
+shard) and splits its forward and backward over its M processes: the plain
+path's heads and MLP hidden width (``parallel/tp.py``).  As
+``tools/train.py`` does, ``--model-parallel`` above 1 turns ``--fused``
+off; the fold kernels on window-row shards are reached through
+``train(mesh=, model_axis=)`` with a fused ``fold`` or ``fold_block``
+config.  M must divide N.
+
 Checkpoints land under ``<output-dir>/ckpt`` in the JAX package's npz
 layout, with auto-resume (either package resumes from the other's).
 ``--device cuda`` (the default) computes in bf16 and ``--fused`` runs the
@@ -45,6 +58,7 @@ import torch
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.core.mesh import (
     local_device,
+    make_mesh_2d,
     maybe_initialize_distributed,
     process_count,
     process_index,
@@ -129,6 +143,11 @@ def main(argv=None):
                     help="trace steps [2, 2+N) into <output-dir>/profile/trace.json")
     ap.add_argument("--debug-nans", action="store_true",
                     help="autograd anomaly detection: name the op that first makes a NaN")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="split heads + MLP hidden over model groups of this many processes "
+                         "(tensor parallelism, parallel/tp.py); the processes split as "
+                         "(N/M data) x (M model); the plain attention path, so --fused is "
+                         "forced off.  1 = pure data parallelism (default)")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -138,9 +157,12 @@ def main(argv=None):
         )
     maybe_initialize_distributed(args.device)
     device = local_device(args.device)
+    fused = args.fused
+    if args.model_parallel > 1:
+        fused = False  # as tools/train.py: the plain path splits its heads and hidden width
     attn_kernel = args.attn_kernel
     if attn_kernel == "auto":
-        attn_kernel = "fold" if args.fused else "base"
+        attn_kernel = "fold" if fused else "base"
     cfg = preset(args.preset)
     cfg = cfg.replace(
         data=dataclasses.replace(
@@ -149,8 +171,8 @@ def main(argv=None):
         ),
         model=dataclasses.replace(
             cfg.model, predict=args.predict, backbone=args.backbone,
-            use_cluster=not args.no_cluster, fused_attention=args.fused,
-            fused_cluster=args.fused, attn_kernel=attn_kernel,
+            use_cluster=not args.no_cluster, fused_attention=fused,
+            fused_cluster=fused, attn_kernel=attn_kernel,
         ),
         schedule=dataclasses.replace(
             cfg.schedule, cluster_start_iter=args.cluster_start_iter,
@@ -165,18 +187,28 @@ def main(argv=None):
     if args.batch_size:
         cfg = cfg.replace(batch_size_per_device=args.batch_size)
 
+    mesh, model_axis = None, None
+    shard, shards = process_index(), process_count()
+    if args.model_parallel > 1:
+        tp = args.model_parallel
+        if shards % tp:
+            raise SystemExit(f"--model-parallel {tp} must divide the process count {shards}")
+        mesh, model_axis = make_mesh_2d(shards // tp, tp), "model"
+        shard, shards = mesh.index("data"), shards // tp  # the batch shards over data only
     ds = ClipDataset(cfg.data.data_path, frame_num=cfg.data.frame_num, size=cfg.data.image_size)
     loader = HostDataLoader(ds, batch_size=cfg.batch_size_per_device, seed=cfg.seed,
                             num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
-                            host_id=process_index(), num_hosts=process_count())
+                            host_id=shard, num_hosts=shards)
     if process_index() == 0:
-        print(f"{len(ds)} train clips on {process_count()} x {device}")
+        print(f"{len(ds)} train clips on {process_count()} x {device}"
+              + (f" ({shards} data x {args.model_parallel} model)" if mesh else ""))
     eval_fn = None
     if args.test_data_path and args.eval_every:
         eval_fn = build_eval_fn(cfg, args.test_data_path, args.label_path, device)
     return train(cfg, loader, eval_fn=eval_fn, eval_every_epochs=args.eval_every,
                  max_steps=args.max_steps or None, device=str(device),
-                 profile_steps=args.profile_steps, debug_nans=args.debug_nans)
+                 profile_steps=args.profile_steps, debug_nans=args.debug_nans,
+                 mesh=mesh, model_axis=model_axis)
 
 
 if __name__ == "__main__":

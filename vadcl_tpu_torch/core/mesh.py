@@ -6,12 +6,15 @@ instead, as ``torchrun --nproc_per_node N`` launches it: the process group
 is the data axis, each process drives the card ``cuda:LOCAL_RANK``, and the
 collectives are ``torch.distributed``'s (NCCL on the card, gloo on the
 CPU).  There is no single-process, many-card mode (no ``DataParallel``).
+``make_mesh_2d`` cuts that group into data and model groups for tensor
+parallelism (``parallel/tp.py``).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -74,3 +77,56 @@ def barrier() -> None:
     """Wait for every process of the group (no-op outside a group)."""
     if is_distributed():
         dist.barrier()
+
+
+class Mesh2D:
+    """The process group's ranks laid out as a ``(data, model)`` grid with
+    the model axis innermost: rank ``r`` sits at data index ``r // model``
+    and model index ``r % model``, so consecutive ranks share a model group
+    (on one host, the cards NVLink joins most directly).  ``group(axis)`` is
+    this process's process group along ``axis`` (the ranks that differ from
+    it only in that coordinate), ``index(axis)`` its coordinate there.  A
+    1-process grid has no groups (``None``)."""
+
+    def __init__(self, data: int, model: int, axis_names: Sequence[str] = ("data", "model"),
+                 groups: Optional[Dict[str, object]] = None, rank: int = 0):
+        self.axis_names = tuple(axis_names)
+        self.shape = {self.axis_names[0]: data, self.axis_names[1]: model}
+        self._groups = groups or {}
+        self._coords = dict(zip(self.axis_names, divmod(rank, model)))
+
+    def group(self, axis: str):
+        return self._groups.get(axis)
+
+    def index(self, axis: str) -> int:
+        return self._coords[axis]
+
+    def __repr__(self) -> str:
+        return f"Mesh2D({self.shape})"
+
+
+def make_mesh_2d(data: int, model: int, axis_names: Sequence[str] = ("data", "model")) -> Mesh2D:
+    """``vadcl_tpu/core/mesh.py:make_mesh_2d`` on the process group: the
+    world (``data * model`` processes, torchrun's) cut into ``data`` model
+    groups of ``model`` consecutive ranks and ``model`` data groups of
+    ranks ``model`` apart.  The batch shards over the data groups
+    (``train/step.py``), the window rows, heads and hidden width over the
+    model groups (``parallel/tp.py``).  Every process creates every group,
+    in one order, as ``torch.distributed.new_group`` requires."""
+    world, rank = process_count(), process_index()
+    if data * model != world:
+        raise ValueError(f"make_mesh_2d: {data} x {model} processes, but the group has {world}")
+    if world == 1:
+        return Mesh2D(data, model, axis_names)
+    mine = {}
+    for d in range(data):
+        ranks = [d * model + m for m in range(model)]
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine[axis_names[1]] = g
+    for m in range(model):
+        ranks = [d * model + m for d in range(data)]
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine[axis_names[0]] = g
+    return Mesh2D(data, model, axis_names, mine, rank)

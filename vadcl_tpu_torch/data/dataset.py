@@ -11,10 +11,11 @@ numpy + PIL only; ``tests/test_torch_port_data.py`` guards it against drift).
   the device (train step, video scorer).  No mean/std normalisation, as in the
   reference.
 
-Frames are decoded with PIL, imported at first use so the package imports
-without it.  The threaded C++ JPEG decoder of the JAX package
-(``vadcl_tpu/data/native.py``) has no counterpart here yet (ROADMAP.md).
-Arrays are NDHWC.
+JPEG frames are decoded by the threaded C++ decoder (``data/native.py``, the
+port's build of ``native/vadcl_decode.cpp``) where it builds, as the JAX
+loader does by default; other files, a machine without ``g++`` or libjpeg,
+and a file the decoder refuses take PIL, imported at first use so the
+package imports without it.  Arrays are NDHWC.
 """
 
 from __future__ import annotations
@@ -41,11 +42,30 @@ def _decode_resize(path: str, size: Tuple[int, int]) -> np.ndarray:
 def load_clip(
     frame_paths: Sequence[str],
     size: Tuple[int, int] = (224, 224),
+    use_native: bool = True,
     as_uint8: bool = False,
 ) -> np.ndarray:
     """(T, H, W, C) float32 in [0, 1], or uint8 pixels with ``as_uint8``: the
     reference pipeline's quantisation point (resize as a uint8 image, then
-    /255), so every pixel is k/255."""
+    /255), so every pixel is k/255.
+
+    With ``use_native`` and every frame a JPEG, the C++ decoder
+    (``data/native.py``) decodes where it is built; a frame it refuses, or
+    no decoder, falls back to PIL.  Its float output is rounded to the uint8
+    grid for ``as_uint8`` where its library lacks the uint8 entry."""
+    if use_native and all(p.lower().endswith((".jpg", ".jpeg")) for p in frame_paths):
+        from vadcl_tpu_torch.data import native
+
+        if native.available():
+            try:
+                if as_uint8 and native.has_u8():
+                    return native.decode_resize_batch_u8(frame_paths, size)
+                out = native.decode_resize_batch(frame_paths, size)
+                if as_uint8:
+                    return np.rint(out * 255.0).astype(np.uint8)
+                return out
+            except (IOError, RuntimeError):
+                pass
     out = np.stack([_decode_resize(p, size) for p in frame_paths])
     if as_uint8:
         return np.rint(out * 255.0).astype(np.uint8)

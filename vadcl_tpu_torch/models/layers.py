@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vadcl_tpu_torch.ops.convs import conv3d, conv_transpose3d, max_pool3d_same
+from vadcl_tpu_torch.parallel.tp import shard_sum_call
 
 Tri = Tuple[int, int, int]
 
@@ -127,9 +128,16 @@ class _Stochastic(nn.Module):
     def drawing(self) -> bool:
         return self.training and self.rate > 0.0 and _KEYS.get() is not None
 
-    def _drop(self, x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, shape: Sequence[int], index=None) -> torch.Tensor:
+        """``x`` dropped by the mask of ``shape``, or by its part
+        ``mask[index]`` (a model rank's heads or hidden columns), which has
+        ``x``'s elements."""
         keep = 1.0 - self.rate
         mask = keep_mask(self.site, shape, keep, x.device)
+        if index is not None:
+            mask = mask[index]
+        if mask.shape != x.shape and mask.numel() == x.numel():
+            mask = mask.reshape(x.shape)  # (a per-sample mask broadcasts instead)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -137,14 +145,15 @@ class Dropout(_Stochastic):
     """flax ``nn.Dropout``: each element kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``."""
 
-    def forward(self, x: torch.Tensor, shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shape: Optional[Sequence[int]] = None,
+                index=None) -> torch.Tensor:
         """``shape`` (default ``x.shape``): the mask's shape, sample axis
-        first, where ``x`` holds several rows a sample (windows)."""
+        first, where ``x`` holds several rows a sample (windows); ``index``
+        picks the part of that mask ``x`` holds, where a model axis split
+        the heads or the hidden width (``parallel/tp.py``)."""
         if not self.drawing():
             return x
-        if shape is None:
-            return self._drop(x, x.shape)
-        return self._drop(x.reshape(shape), shape).reshape(x.shape)
+        return self._drop(x, x.shape if shape is None else shape, index)
 
 
 class DropPath(_Stochastic):
@@ -223,7 +232,24 @@ class Mlp(nn.Module):
         self.drop2 = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop2(self.fc2(self.drop1(gelu(self.fc1(x)))))
+        """Under a model axis (``parallel/tp.py``) the hidden width splits
+        over it where its size divides it: each rank runs its columns of fc1
+        and its rows of fc2, and the partial fc2 products are summed before
+        fc2's bias, Megatron style (the JAX ``Mlp``'s ``shard_dim``)."""
+        fc1, fc2 = self.fc1, self.fc2
+        hidden = fc1.weight.shape[1]
+
+        def hidden_part(x, cols, w1, b1, w2):
+            h = x @ w1[:, cols].to(x.dtype)
+            if b1 is not None:
+                h = h + b1[cols].to(h.dtype)
+            h = self.drop1(gelu(h), (*h.shape[:-1], hidden), (Ellipsis, cols))
+            return h @ w2[cols].to(h.dtype)
+
+        y = shard_sum_call(hidden_part, hidden, x, (fc1.weight, fc1.bias, fc2.weight))
+        if fc2.bias is not None:
+            y = y + fc2.bias.to(y.dtype)
+        return self.drop2(y)
 
 
 class FrozenBatchNorm(nn.Module):

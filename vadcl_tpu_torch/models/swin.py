@@ -31,6 +31,13 @@ With ``fused=True`` a block runs hand-written kernels, chosen by
   kernel without LN and residual, slice, residual, tail, with the launches
   counted on ``window_attention_fused`` / ``_packed`` / ``_fused_bwd``.
 
+Under a model axis (``parallel/tp.py``) a fold-family block's fold kernel
+(A, 10, the whole-block kernel, or the padded branch's A without LN) runs
+on window-row shards through ``shard_windows_call`` and its kernel B on
+the same rows through ``shard_tokens_call``, as the JAX block dispatches
+its kernels; the ``base`` and ``packed`` blocks stay unsplit, as there,
+even where they run A's body.
+
 With ``fused=False`` it is the plain PyTorch block of the JAX default
 config.  Parameter names and shapes are the same either way, so one
 state_dict loads into every variant.
@@ -99,6 +106,7 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_attention_packed,
     window_grid_route,
 )
+from vadcl_tpu_torch.parallel.tp import shard_tokens_call, shard_windows_call
 
 Tri = Tuple[int, int, int]
 
@@ -237,21 +245,26 @@ class SwinBlock3D(nn.Module):
                 and fold_block_fits(n, C, self.num_heads, self.mlp.fc1.weight.shape[1],
                                     x.dtype)):
             # the whole block, MLP tail included, is one kernel each way
-            return fold_block(
-                x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
-                attn.qkv_bias, attn.proj_weight, attn.proj_bias, attn.bias(n),
-                self._mask(D, H, W, window, shift, x.device),
-                self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
-                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-                self.num_heads, window, attn.scale, shift=shift,
+            def block_call(xl, ml, sh, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, bias,
+                           *tail):
+                return fold_block(xl, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, bias, ml,
+                                  *tail, self.num_heads, window, attn.scale, shift=sh)
+
+            return shard_windows_call(
+                block_call, x, self._mask(D, H, W, window, shift, x.device), window, shift,
+                (self.norm1.weight, self.norm1.bias, *self._attn_weights(n),
+                 self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias),
             )
         if fold and not any(pads) and not stochastic:
-            mask = self._mask(D, H, W, window, shift, x.device)
             # LN1, the shift roll both ways and the residual are in the kernel
-            x = fold_kernel(
-                x, self.norm1.weight, self.norm1.bias, attn.qkv_weight,
-                attn.qkv_bias, attn.proj_weight, attn.proj_bias, attn.bias(n),
-                mask, self.num_heads, window, attn.scale, residual=True, shift=shift,
+            def fold_call(xl, ml, sh, ln_s, ln_b, *w):
+                return fold_kernel(xl, ln_s, ln_b, *w, ml, self.num_heads, window,
+                                   attn.scale, residual=True, shift=sh)
+
+            x = shard_windows_call(
+                fold_call, x, self._mask(D, H, W, window, shift, x.device), window, shift,
+                (self.norm1.weight, self.norm1.bias, *self._attn_weights(n)),
             )
             return self._tail(x)
 
@@ -276,12 +289,17 @@ class SwinBlock3D(nn.Module):
                          "bwd_counter": window_attention_fused_bwd})
         if fold or grid:
             # the fold kernel on the padded tensor, without LN and residual,
-            # the shift roll folded into its addressing
-            y = fold_kernel(
-                y, None, None, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
-                attn.proj_bias, attn.bias(n), mask, self.num_heads, window,
-                attn.scale, residual=False, shift=shift, **counters,
-            )
+            # the shift roll folded into its addressing; a fold block's rows
+            # split over a model axis, a grid (base, packed) block's do not
+            def pad_call(yl, ml, sh, *w):
+                return fold_kernel(yl, None, None, *w, ml, self.num_heads, window,
+                                   attn.scale, residual=False, shift=sh, **counters)
+
+            if fold:
+                y = shard_windows_call(pad_call, y, mask, window, shift,
+                                       self._attn_weights(n))
+            else:
+                y = pad_call(y, mask, shift, *self._attn_weights(n))
         else:
             if shifted:
                 y = torch.roll(y, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
@@ -300,7 +318,9 @@ class SwinBlock3D(nn.Module):
                     wins, attn.qkv_weight, attn.qkv_bias, attn.proj_weight,
                     attn.proj_bias, attn.bias(n), self.num_heads, mask=mask,
                     scale=attn.qk_scale,
-                    attn_dropout=lambda p: attn.attn_drop(p, (B, n_windows, *p.shape[1:])),
+                    attn_dropout=lambda p, heads: attn.attn_drop(
+                        p, (B, n_windows, self.num_heads, *p.shape[2:]),
+                        (slice(None), slice(None), heads)),
                 )
             y = window_reverse(wins, window, B, Dp, Hp, Wp)
             if shifted:
@@ -310,13 +330,21 @@ class SwinBlock3D(nn.Module):
         y = attn.proj_drop(y)
         return self._tail(shortcut + self.drop_path1(y))
 
+    def _attn_weights(self, n: int):
+        """What the fold kernels read of the attention: (qkv_w, qkv_b,
+        proj_w, proj_b, the gathered bias)."""
+        attn = self.attn
+        return (attn.qkv_weight, attn.qkv_bias, attn.proj_weight, attn.proj_bias,
+                attn.bias(n))
+
     def _tail(self, x: torch.Tensor) -> torch.Tensor:
         """LN2 -> MLP -> residual: one kernel when fused and no mask is
-        drawn."""
+        drawn, its H rows split over a model axis (``shard_tokens_call``)."""
         if self.fused and not (self.mlp.drop1.drawing() or self.drop_path2.drawing()):
-            return ln_mlp(
-                x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
-                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+            return shard_tokens_call(
+                ln_mlp, x, 2,
+                (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                 self.mlp.fc2.weight, self.mlp.fc2.bias),
             )
         return x + self.drop_path2(self.mlp(self.norm2(x)))
 

@@ -14,6 +14,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vadcl_tpu_torch.parallel.tp import shard_sum_call
+
 Tri = Tuple[int, int, int]
 
 
@@ -121,38 +123,49 @@ def window_attention(
     num_heads: int,
     mask: Optional[torch.Tensor] = None,  # (nW, N, N) fp32
     scale: Optional[float] = None,
-    attn_dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    attn_dropout: Optional[Callable[[torch.Tensor, slice], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Multi-head window attention with relative position bias and optional
     shift mask (``vadcl_tpu/ops/window.py:window_attention``): q is scaled
     before the scores, scores and softmax are fp32, the value product
-    accumulates in fp32 and rounds to the compute dtype.  ``attn_dropout``
-    takes the (Bn, nH, N, N) probabilities (the reference's ``attn_drop``
-    after the softmax)."""
+    accumulates in fp32 and rounds to the compute dtype.  ``attn_dropout(p,
+    heads)`` takes the (Bn, nH', N, N) probabilities of the heads in the
+    slice ``heads`` (the reference's ``attn_drop`` after the softmax).
+
+    Under a model axis (``parallel/tp.py``) the heads split over it where
+    its size divides ``num_heads``: each rank runs its heads' columns of
+    the qkv product and its rows of the projection, and the partial
+    projections are summed before the projection bias, Megatron style (the
+    JAX package's ``shard_dim`` on the head axis)."""
     Bn, N, C = x_windows.shape
     dt = x_windows.dtype
     head_dim = C // num_heads
     scale = scale if scale is not None else head_dim**-0.5
 
-    qkv = x_windows @ qkv_w.to(dt)
-    if qkv_b is not None:
-        qkv = qkv + qkv_b.to(dt)
-    qkv = qkv.reshape(Bn, N, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
-    q = qkv[0] * torch.tensor(scale, dtype=dt)
-    k, v = qkv[1], qkv[2]  # (Bn, nH, N, hd)
+    def heads_part(x, heads, qkv_w, qkv_b, proj_w, bias):
+        h = heads.stop - heads.start
+        w = qkv_w.reshape(C, 3, num_heads, head_dim)[:, :, heads].reshape(C, 3 * h * head_dim)
+        qkv = x @ w.to(dt)
+        if qkv_b is not None:
+            qkv = qkv + qkv_b.reshape(3, num_heads, head_dim)[:, heads].reshape(-1).to(dt)
+        qkv = qkv.reshape(Bn, N, 3, h, head_dim).permute(2, 0, 3, 1, 4)
+        q = qkv[0] * torch.tensor(scale, dtype=dt)
+        k, v = qkv[1], qkv[2]  # (Bn, h, N, hd)
 
-    attn = q.float() @ k.float().transpose(-2, -1)  # (Bn, nH, N, N) fp32
-    attn = attn + bias[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        attn = attn.reshape(Bn // nW, nW, num_heads, N, N) + mask[None, :, None]
-        attn = attn.reshape(Bn, num_heads, N, N)
-    attn = torch.softmax(attn, dim=-1).to(dt)
-    if attn_dropout is not None:
-        attn = attn_dropout(attn)
-    out = (attn.float() @ v.float()).to(dt)
-    out = out.transpose(1, 2).reshape(Bn, N, C)
-    out = out @ proj_w.to(dt)
+        attn = q.float() @ k.float().transpose(-2, -1)  # (Bn, h, N, N) fp32
+        attn = attn + bias[heads][None]
+        if mask is not None:
+            nW = mask.shape[0]
+            attn = attn.reshape(Bn // nW, nW, h, N, N) + mask[None, :, None]
+            attn = attn.reshape(Bn, h, N, N)
+        attn = torch.softmax(attn, dim=-1).to(dt)
+        if attn_dropout is not None:
+            attn = attn_dropout(attn, heads)
+        out = (attn.float() @ v.float()).to(dt)
+        out = out.transpose(1, 2).reshape(Bn, N, h * head_dim)
+        return out @ proj_w[heads.start * head_dim:heads.stop * head_dim].to(dt)
+
+    out = shard_sum_call(heads_part, num_heads, x_windows, (qkv_w, qkv_b, proj_w, bias))
     if proj_b is not None:
         out = out + proj_b.to(dt)
     return out

@@ -31,30 +31,32 @@ class _GlobalSum(torch.autograd.Function):
     global gradient."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad
+        return grad, None
 
 
-def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the process group, with the gradient of that sum
-    reaching this rank's ``t``; ``t`` itself outside a group."""
-    return _GlobalSum.apply(t) if is_distributed() else t
+def global_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over ``group`` (default: the whole process group; under
+    tensor parallelism the data group, ``core/mesh.py:make_mesh_2d``), with
+    the gradient of that sum reaching this rank's ``t``; ``t`` itself
+    outside a group."""
+    return _GlobalSum.apply(t, group) if is_distributed() else t
 
 
-def global_max(t: torch.Tensor) -> torch.Tensor:
-    """``t``'s elementwise maximum over the process group, without a
-    gradient (the memory bank's update, which is detached, is its only
-    user); ``t`` itself outside a group."""
+def global_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t``'s elementwise maximum over ``group`` (as ``global_sum``),
+    without a gradient (the memory bank's update, which is detached, is its
+    only user); ``t`` itself outside a group."""
     if not is_distributed():
         return t
     out = t.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 

@@ -97,6 +97,8 @@ def train(
     device: str = "cuda",
     profile_steps: int = 0,
     debug_nans: bool = False,
+    mesh=None,
+    model_axis: Optional[str] = None,
 ) -> TrainState:
     """Train ``VADModel(cfg.model)`` (any family; the ConvAE families built
     for ``cfg.data.frame_num``-frame clips) from its seeded init
@@ -113,7 +115,13 @@ def train(
     detection, which names the backward op that first makes a NaN (the
     JAX loop's ``jax_debug_nans``).  In a process group (the module
     docstring) ``eval_fn`` runs on every process and must return the same
-    AUC on each (``eval.predict.evaluate_videos_distributed``)."""
+    AUC on each (``eval.predict.evaluate_videos_distributed``).
+
+    ``mesh`` (``core/mesh.py:make_mesh_2d``) and ``model_axis`` make the
+    step tensor-parallel over that axis (``train/step.py``); the loader
+    then holds this process's data shard (``host_id`` its data index,
+    ``num_hosts`` the data size), the same on every process of its model
+    group."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -137,7 +145,7 @@ def train(
     model.train()
     steps_per_epoch = loader.steps_per_epoch()
     state = create_train_state(model, cfg)
-    step_fn = make_train_step(model, cfg, steps_per_epoch)
+    step_fn = make_train_step(model, cfg, steps_per_epoch, mesh=mesh, model_axis=model_axis)
 
     # auto-resume inside the epoch from the newest checkpoint (epoch, iter)
     latest = ckpt.latest_tag()
@@ -162,7 +170,8 @@ def train(
             ckpt.save(tag, state, meta)
         barrier()  # no process goes on (or resumes) before the file is whole
 
-    timer = StepTimer(clips_per_step=loader.batch_size * world)
+    shards = world // mesh.shape[model_axis] if model_axis is not None else world
+    timer = StepTimer(clips_per_step=loader.batch_size * shards)
     best_auc = -1.0
     spike = {"prev_loss": None, "dumped": False}
     loss_record_dir = os.path.join(cfg.output_dir, "loss_record")

@@ -38,11 +38,23 @@ from ``DropKeys(seed + 0x5EED, step, rank * batch, world * batch)``
 the sample's global index, so a data-parallel rank draws the masks its
 samples get in one process, and a recompute (``remat``) draws the
 forward's.  The masks are not the JAX step's bits.
+
+Tensor parallelism: with ``mesh`` (``core/mesh.py:make_mesh_2d``) and
+``model_axis``, the processes form a (data, model) grid.  The processes of
+a model group hold the same shard of the batch and split each forward and
+backward over the group (``parallel/tp.py``: the fold kernels' window rows,
+kernel B's rows, the plain path's heads and MLP hidden width); the batch
+sums, the bank's reductions and the DDP gradient sum run over the data
+group only, and the dropout masks are drawn by data index, so every
+process of a model group draws the same masks.  After the backward every
+process of a model group takes its first process's gradients
+(``same_gradients``), so all hold the same update.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -55,6 +67,7 @@ from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES, VADModel, predicts
 from vadcl_tpu_torch.models.layers import DROPOUT_SEED_OFFSET, DropKeys, drop_keys
 from vadcl_tpu_torch.ops.cluster import frobenius_norm
 from vadcl_tpu_torch.parallel.sharding import global_max, global_sum
+from vadcl_tpu_torch.parallel.tp import model_parallel
 from vadcl_tpu_torch.train.optim import (
     Lars,
     apply_gates,
@@ -125,15 +138,24 @@ def stochastic(cfg: Config) -> bool:
     return m.drop_rate > 0 or m.attn_drop_rate > 0 or m.drop_path_rate > 0
 
 
-def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
+def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False,
+                 data_group=None, data_index: Optional[int] = None,
+                 data_size: Optional[int] = None):
     """loss_fn(clip, step) -> (loss, (loss_pixel, cluster_loss, space_loss,
     recon or None)); ``step`` is the host-side step count.  Inside a
     process group ``clip`` is this process's shard and the losses are the
     global batch's (the module docstring); ``model`` may be the
-    ``DistributedDataParallel`` wrapper of a ``VADModel``."""
+    ``DistributedDataParallel`` wrapper of a ``VADModel``.  Under tensor
+    parallelism ``data_group``, ``data_index`` and ``data_size`` name the
+    data group the batch is split over (default: the whole group)."""
     _check_trainable(cfg)
     sched = cfg.schedule
-    reduce, reduce_max = global_sum, global_max  # the identity outside a process group
+    # over the data group (default: the whole process group; the identity
+    # outside one)
+    reduce = partial(global_sum, group=data_group)
+    reduce_max = partial(global_max, group=data_group)
+    rank = process_index() if data_index is None else data_index
+    world = process_count() if data_size is None else data_size
     backbone = cfg.model.backbone
     predict, memory = predicts(cfg.model), backbone in MEMORY_BACKBONES
     draws = stochastic(cfg)
@@ -143,8 +165,8 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False):
         inputs, target = split_predict_batch(clip, cfg.data.frame_num, predict,
                                              overlap_quirk=backbone == "swin")
         b = clip.shape[0]
-        keys = (DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, int(step), process_index() * b,
-                         process_count() * b) if draws else None)
+        keys = (DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, int(step), rank * b, world * b)
+                if draws else None)
         with drop_keys(keys):
             if memory:  # the bank's update over the global batch
                 out = model(inputs, global_sum=reduce, global_max=reduce_max,
@@ -187,9 +209,10 @@ def _sum_gradients(process_group, bucket):
     return fut.then(lambda f: f.value()[0])
 
 
-def data_parallel(model: VADModel) -> DistributedDataParallel:
+def data_parallel(model: VADModel, group=None) -> DistributedDataParallel:
     """``model`` under ``DistributedDataParallel``, its gradients summed
-    over the group.  ``broadcast_buffers=False``: the buffers (relative
+    over ``group`` (default: the whole group; the data group under tensor
+    parallelism).  ``broadcast_buffers=False``: the buffers (relative
     position indices) are constant, and a broadcast before every forward
     would bump their version counters, which key the kernels' packed-weight
     cache (``ops/packed.py``).  ``find_unused_parameters`` stays False:
@@ -199,13 +222,50 @@ def data_parallel(model: VADModel) -> DistributedDataParallel:
     dev = next(model.parameters()).device
     ddp = DistributedDataParallel(
         model, device_ids=[dev.index] if dev.type == "cuda" else None,
-        broadcast_buffers=False)
-    ddp.register_comm_hook(None, _sum_gradients)
+        broadcast_buffers=False, process_group=group)
+    ddp.register_comm_hook(group, _sum_gradients)
     return ddp
 
 
-def make_train_step(model: VADModel, cfg: Config,
-                    steps_per_epoch: int) -> Callable[[TrainState, torch.Tensor], StepMetrics]:
+def same_gradients(params, group) -> None:
+    """Hand every process of a model ``group`` the gradients of its first
+    process (one broadcast of them all, flattened).  The parameters used in
+    a split region already hold the same summed gradient on every process;
+    the others each process computed alone on the same values, and cuDNN's
+    weight gradients are not bit-reproducible on the card, so without this
+    the processes' parameters would drift apart by rounding, where the JAX
+    package holds one replicated value."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _check_model_axis(cfg: Config, mesh, model_axis: Optional[str]) -> None:
+    """The JAX step's two guards, in its words."""
+    if model_axis is None:
+        return
+    if mesh is None or model_axis not in mesh.axis_names:
+        raise ValueError(
+            f"model_axis={model_axis!r} requires a mesh with that axis "
+            f"(got {mesh and mesh.axis_names})"
+        )
+    if cfg.model.fused_attention and cfg.model.attn_kernel not in ("fold", "fold_block"):
+        raise ValueError(
+            "model-axis parallelism runs the plain attention path or the "
+            "fold kernels (attn_kernel='fold'/'fold_block', their window rows "
+            "split over the model group); the 'base'/'packed' window-layout "
+            "kernels are single-device — set fused_attention=False or "
+            "attn_kernel='fold'"
+        )
+
+
+def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=None,
+                    model_axis: Optional[str] = None
+                    ) -> Callable[[TrainState, torch.Tensor], StepMetrics]:
     """step_fn(state, clip) -> StepMetrics for ``state.model is model``,
     updating ``state`` in place.
 
@@ -222,9 +282,27 @@ def make_train_step(model: VADModel, cfg: Config,
     ``data_parallel`` (which first broadcasts rank 0's parameters), and the
     gradients are the global sum when ``backward`` returns, so the clipping
     norm, the non-finite decision (the loss is the global loss) and the
-    update are the same on every process."""
-    fwd = data_parallel(model) if is_distributed() else model
-    loss_fn = make_loss_fn(fwd, cfg, return_recon=cfg.dump_every_iters > 0)
+    update are the same on every process.
+
+    With ``mesh`` (a ``core.mesh.Mesh2D``) and ``model_axis`` the step is
+    tensor-parallel over that axis and data-parallel over the other (the
+    module docstring).  ``model_axis`` without a mesh holding it raises, and
+    so does a fused model on the single-device ``base`` or ``packed``
+    kernels, as in the JAX step."""
+    _check_trainable(cfg)
+    _check_model_axis(cfg, mesh, model_axis)
+    model_group = None
+    if mesh is None:
+        fwd = data_parallel(model) if is_distributed() else model
+        loss_fn = make_loss_fn(fwd, cfg, return_recon=cfg.dump_every_iters > 0)
+    else:
+        data_axis = next(a for a in mesh.axis_names if a != model_axis)
+        group, size = mesh.group(data_axis), mesh.shape[data_axis]
+        fwd = data_parallel(model, group) if size > 1 else model
+        loss_fn = make_loss_fn(fwd, cfg, cfg.dump_every_iters > 0, group,
+                               mesh.index(data_axis), size)
+        if model_axis is not None and mesh.shape[model_axis] > 1:
+            model_group = mesh.group(model_axis)
     lr_sched = cosine_epoch_lr(cfg.optim.lr, cfg.optim.min_lr, cfg.optim.epochs,
                                steps_per_epoch, cfg.optim.warmup_epochs)
     named = list(model.named_parameters())
@@ -235,8 +313,12 @@ def make_train_step(model: VADModel, cfg: Config,
             raise ValueError("make_train_step: the state holds another model")
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, (lp, lc, ls, recon) = loss_fn(clip, state.step)
-        loss.backward()
+        # the backward inside too: a remat block recomputes its forward there
+        with model_parallel(mesh, model_axis):
+            loss, (lp, lc, ls, recon) = loss_fn(clip, state.step)
+            loss.backward()
+        if model_group is not None:
+            same_gradients(model.parameters(), model_group)
         finite = bool(torch.isfinite(loss))
         lars = isinstance(opt, Lars)
         lr = lr_sched(opt.count if lars else state.step)

@@ -1,11 +1,13 @@
-"""Visual-inspection dumps (the port's copy of ``save_clip_frames`` and
-``error_heatmap`` in ``vadcl_tpu/viz/dumps.py``; numpy + PIL, PIL imported at
-first use; ``tests/test_torch_port_data.py`` guards it against drift)."""
+"""Visual-inspection dumps (the port's copy of ``save_clip_frames``,
+``error_heatmap`` and ``export_cluster_embedding`` in
+``vadcl_tpu/viz/dumps.py``; numpy + PIL, PIL imported at first use, sklearn
+only for the t-SNE; ``tests/test_torch_port_data.py`` guards it against
+drift)."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -52,3 +54,34 @@ def error_heatmap(recon: np.ndarray, origin: np.ndarray, gain: float = 10.0) -> 
 
     d = np.abs(gray_norm(origin) - gray_norm(recon)) ** 2 * gain
     return _jet(d)
+
+
+def export_cluster_embedding(
+    features: np.ndarray,
+    labels: np.ndarray,
+    out_path: str,
+    top_clusters: int = 5,
+    max_points: int = 2000,
+    run_tsne: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Bucket features by hard cluster label, keep the top-occupancy clusters,
+    optionally run t-SNE, and save arrays (``聚类可视化.py:132-158``)."""
+    labels = np.asarray(labels).ravel()
+    features = np.asarray(features)
+    counts = np.bincount(labels)
+    top = np.argsort(counts)[::-1][:top_clusters]
+    mask = np.isin(labels, top)
+    f, l = features[mask], labels[mask]
+    if f.shape[0] > max_points:
+        sel = np.random.RandomState(0).choice(f.shape[0], max_points, replace=False)
+        f, l = f[sel], l[sel]
+    emb = f
+    if run_tsne:
+        from sklearn.manifold import TSNE
+
+        emb = TSNE(
+            n_components=2, init="pca", random_state=0, learning_rate=200.0
+        ).fit_transform(f)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    np.savez(out_path, embedding=emb, labels=l)
+    return emb, l
