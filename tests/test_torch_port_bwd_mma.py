@@ -107,10 +107,15 @@ def test_kernel5_routes_every_width(c):
 
 
 def test_kernel5_refuses_what_no_body_takes():
+    """The CUDA-core body takes C = 30 (scalar loads), which raised before;
+    only above C = 3,500, where no two-token tile fits, does the choice
+    raise."""
     assert mlp_bwd_body(96, 96 * 4 + 32, torch.bfloat16) == "tiles"  # hidden not a multiple of 64
     assert mlp_bwd_mma_smem_bytes(192) == 214144
+    assert mlp_bwd_body(30, 120, torch.bfloat16) == "tiles"
+    assert mlp_bwd_body(18, 70, torch.float32) == "tiles"
     with pytest.raises(NotImplementedError):
-        mlp_bwd_body(30, 120, torch.bfloat16)
+        mlp_bwd_body(3501, 4 * 3501, torch.bfloat16)
 
 
 # --- kernel 5's split products -------------------------------------------------

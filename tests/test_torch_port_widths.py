@@ -1,17 +1,21 @@
 """Fused widths above 192: kernel B's body choice, kernel C's instances, and
-a fused model whose Swin tails and cluster head run at C = 256, against the
-JAX package on the CPU.
+fused models whose Swin tails and cluster head run at C = 256 (and at 896),
+against the JAX package on the CPU.
 
-Kernel B (``ln_mlp``) runs its tensor-core body in bf16 at C % 16 == 0,
-C <= 192 and a hidden width divisible by 128, and its CUDA-core body
+Kernel B (``ln_mlp``) runs its wgmma body in bf16 at C % 16 == 0, C <= 192
+and a hidden width divisible by 128, its slab body
+(``csrc/ln_mlp_slab.cu``) in bf16 at C % 16 == 0, 192 < C <= 1024 and a
+hidden width divisible by 64, and its CUDA-core body
 (``csrc/ln_mlp.cu:ln_mlp_kernel``, the same cast boundaries) at every other
 width; ``mlp_fwd_body`` is that choice.  Kernel C (``cluster_assign``) takes
-C up to 768 through the instances of ``csrc/cluster_mma.cu:kCaShapes``,
-mirrored by ``cluster_assign_shape``; the instances above 384 take 16-center
-chunks, whose arithmetic ``tests/test_torch_port_cluster_mma.py``'s
-emulation repeats here at C = 256 and 384.  Both kernels run only on the
+C up to 768 in one block a row tile through the instances of
+``csrc/cluster_mma.cu:kCaShapes``, mirrored by ``cluster_assign_shape``, and
+wider C over a cluster of 2, 4 or 8 blocks; the instances above 384 take
+16-center chunks, whose arithmetic ``tests/test_torch_port_cluster_mma.py``'s
+emulation repeats here at C = 256 and 384.  The kernels run only on the
 card (``chip_smoke.py``'s ``phase_width_kernels`` holds them against their
-plain versions there).
+plain versions there).  ``tests/test_torch_port_every_width.py`` sweeps
+every width up to 2048.
 
 The model is the tiny preset fused (``attn_kernel="fold"``) at
 ``embed_dim`` 128 with encoder heads (4, 8) and decoder heads (8, 4): head
@@ -43,14 +47,17 @@ from vadcl_tpu.train.checkpoint import flatten_state, unflatten_into
 from vadcl_tpu_torch.convert import jax_from_state_dict, state_dict_from_jax
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.models import VADModel
+from test_torch_port_every_width import check_tiny_model_matches_jax
 from vadcl_tpu_torch.ops.cluster_kernels import (
+    CLUSTER_BLOCK_C,
     CLUSTER_MAX_C,
     CLUSTER_SHAPES,
+    cluster_assign_blocks,
     cluster_assign_plain,
     cluster_assign_shape,
 )
 from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
-from vadcl_tpu_torch.ops.ln_mlp import mlp_fwd_body, mlp_fwd_smem_bytes
+from vadcl_tpu_torch.ops.ln_mlp import mlp_fwd_body, mlp_fwd_smem_bytes, mlp_fwd_tokens
 
 T = torch.from_numpy
 CSRC = Path(__file__).resolve().parent.parent / "vadcl_tpu_torch" / "csrc"
@@ -59,28 +66,37 @@ CSRC = Path(__file__).resolve().parent.parent / "vadcl_tpu_torch" / "csrc"
 @pytest.mark.parametrize("c, ch, dtype, body", [
     (96, 384, torch.bfloat16, "wgmma"), (192, 768, torch.bfloat16, "wgmma"),
     (128, 512, torch.bfloat16, "wgmma"), (16, 128, torch.bfloat16, "wgmma"),
-    (256, 1024, torch.bfloat16, "tiles"), (100, 400, torch.bfloat16, "tiles"),
+    (256, 1024, torch.bfloat16, "slab"), (100, 400, torch.bfloat16, "tiles"),
     (24, 96, torch.bfloat16, "tiles"), (96, 192, torch.bfloat16, "tiles"),
-    (96, 384, torch.float32, "tiles"), (768, 3072, torch.bfloat16, "tiles"),
+    (96, 384, torch.float32, "tiles"), (768, 3072, torch.bfloat16, "slab"),
     (30, 120, torch.float32, "tiles"),
 ])
 def test_mlp_forward_body_by_width(c, ch, dtype, body):
-    """The tensor-core body where it takes the width, the CUDA-core body at
+    """The tensor-core bodies where they take the width, the CUDA-core body at
     every other width and in fp32: no width the JAX package runs is refused."""
     assert mlp_fwd_body(c, ch, dtype) == body
 
 
 def test_mlp_forward_body_refuses_only_above_shared_memory():
-    """The CUDA-core body's block (32 tokens, fp32) is the only limit, and
-    its size mirrors the source's layout."""
+    """Above C = 844, where 32 tokens' fp32 rows outgrow the CUDA-core body's
+    block, that body takes 16 tokens (8, ... 1 wider still) and bf16 at
+    C % 16 == 0 up to 1024 takes the slab body: C = 848, which raised
+    before, runs on both; the block's size mirrors the source's layout, and
+    only above C = 28,992, where one token's rows do not fit, does the
+    choice raise."""
     consts = {name: int(v) for name, v in re.findall(
         r"constexpr int (kTokens|kMlpChunk) = (\d+);",
         (CSRC / "ln_mlp.cu").read_text() + (CSRC / "mlp_tail.cuh").read_text())}
     assert consts == {"kTokens": 32, "kMlpChunk": 128}
     assert mlp_fwd_smem_bytes(256) == 4 * (2 * 32 * 256 + 32 * 128) == 81920
-    assert mlp_fwd_smem_bytes(844) <= SMEM_LIMIT < mlp_fwd_smem_bytes(848)
+    assert mlp_fwd_smem_bytes(844) <= SMEM_LIMIT and mlp_fwd_tokens(844) == 32
+    assert mlp_fwd_smem_bytes(848) == 4 * (2 * 16 * 848 + 16 * 128) <= SMEM_LIMIT
+    assert mlp_fwd_tokens(848) == 16
+    assert mlp_fwd_body(848, 3392, torch.bfloat16) == "slab"
+    assert mlp_fwd_body(848, 3392, torch.float32) == "tiles"
+    assert mlp_fwd_body(850, 3400, torch.bfloat16) == "tiles"
     with pytest.raises(NotImplementedError, match="shared memory"):
-        mlp_fwd_body(848, 3392, torch.bfloat16)
+        mlp_fwd_body(28993, 4 * 28993, torch.bfloat16)
 
 
 def _ca_smem(nt, parts, chunk, stages):
@@ -115,9 +131,14 @@ def test_cluster_instance_by_width(c, shape):
 
 
 def test_cluster_refuses_only_above_768():
-    assert CLUSTER_MAX_C == 768
-    with pytest.raises(ValueError, match="768"):
-        cluster_assign_shape(769)
+    """C = 769, which raised before, splits its channels over two blocks of
+    385 on the 64-tile instance; one block a row tile holds 768 at most, and
+    the split takes C up to 6144 (eight blocks), above which it raises."""
+    assert CLUSTER_BLOCK_C == 768 and CLUSTER_MAX_C == 6144
+    assert cluster_assign_blocks(768) == 1 and cluster_assign_blocks(769) == 2
+    assert cluster_assign_shape(769) == (64, 4, 16, 2)
+    with pytest.raises(ValueError, match="6144"):
+        cluster_assign_shape(6145)
 
 
 @pytest.mark.parametrize("c", [256, 384])
@@ -174,13 +195,15 @@ def reference():
 
 def test_wide_fused_model_widths():
     """The model's Swin tails run at C = 128 and 256 and its feature head at
-    256: the tensor-core MLP body in the outer stages, the CUDA-core one in
-    the inner stages, and kernel C's two-part instance."""
+    256: the wgmma MLP body in the outer stages, the slab body in the inner
+    stages in bf16 (the CUDA-core one in fp32), and kernel C's two-part
+    instance."""
     _, pcfg = _configs()
     widths = {pcfg.embed_dim * 2 ** i for i in range(len(pcfg.encoder_depths))}
     assert widths == {128, 256}
     assert mlp_fwd_body(128, 512, torch.bfloat16) == "wgmma"
-    assert mlp_fwd_body(256, 1024, torch.bfloat16) == "tiles"
+    assert mlp_fwd_body(256, 1024, torch.bfloat16) == "slab"
+    assert mlp_fwd_body(256, 1024, torch.float32) == "tiles"
     assert cluster_assign_shape(256) == (32, 2, 32, 2)
 
 
@@ -200,3 +223,11 @@ def test_wide_fused_model_matches_jax(reference):
         scale = float(w.abs().max())
         err = float((got[k] - w).abs().max())
         assert err <= 1e-8 + 2e-3 * scale, f"{k}: max abs err {err} > 2e-3 * {scale}"
+
+
+def test_embed448_model_matches_jax():
+    """The tiny preset fused at ``embed_dim`` 448, heads (14, 28) / (28, 14):
+    Swin tails at C = 448 and 896 and the feature head at 896 (kernel C's
+    channel split on the card), forward and every parameter gradient against
+    the JAX model (``tests/test_torch_port_every_width.py``'s bounds)."""
+    check_tiny_model_matches_jax("embed448")

@@ -64,8 +64,27 @@
 //    8 of them), and run its ring with one stage.  Every instance keeps the
 //    first-occurrence argmin, the 3xTF32 products and the loss partials'
 //    fixed order; the instances of C <= 192 are the ones before (P = 1,
-//    32-center chunks, two stages), so their bits are unchanged.  C above 768
-//    would need a split of the channels across blocks and is refused.
+//    32-center chunks, two stages), so their bits are unchanged.
+//  - Widths above 768 (768 < C <= 6144): the token tile (hi and lo) and a
+//    chunk of centers no longer fit one block.  A thread-block cluster of 2,
+//    4 or 8 blocks (the fewest whose slabs of ceil(C / blocks) channels fit
+//    768) shares each row tile: block r holds channel slab r of the tokens and,
+//    through the ring, of every chunk of centers (the pre-pass lays the
+//    centers out slab by slab), and runs the widest instances (NT = 64 or 96,
+//    P = 4) on it.  Per chunk every warp writes its partial cross products
+//    (over its slab) to shared memory, the cluster synchronises, and every
+//    block reads the partials of blocks 0, 1, ... in that order from
+//    distributed shared memory and sums them, as it sums |x|^2's partials once
+//    per call: every block holds the same cross products bit for bit, so all
+//    run the same online soft-assign (minimum, first-occurrence index, s, Q)
+//    and each accumulates the recon of its own slab only.  Block 0 writes the
+//    labels and the loss partial.  Two exchange buffers alternate by chunk, so
+//    one cluster barrier a chunk orders a block's next write after every
+//    block's read; a last barrier keeps each block's shared memory alive until
+//    the others have read it.  Chosen over two passes (minimum and sum, then
+//    the recon per channel slab), which would run product 1 twice and write
+//    per-row state to device memory; the clustered body keeps one pass and the
+//    instances up to 768 unchanged (a template flag).
 #include <stdint.h>
 
 #include <type_traits>
@@ -93,11 +112,25 @@ constexpr CaShape kCaShapes[] = {{2, 1, 32, 2},  {4, 1, 32, 2},  {8, 1, 32, 2},
                                  {96, 4, 16, 1}};
 constexpr int kCaShapeCount = sizeof(kCaShapes) / sizeof(kCaShapes[0]);
 
-// The instance a width takes: the first whose channel tiles hold C, else -1
-// (C above 768).
+constexpr int kCaMaxBlocks = 8;  // the largest portable cluster
+
+// Blocks splitting a row tile's channels: 1 up to 768, else the fewest of 2,
+// 4, 8 whose slabs fit the widest instance (0 above 6144).
+inline int ca_blocks(int C) {
+  const int widest = 8 * kCaShapes[kCaShapeCount - 1].nt;
+  for (int b = 1; b <= kCaMaxBlocks; b *= 2)
+    if (C <= b * widest) return b;
+  return 0;
+}
+// Channels of one block's slab.
+inline int ca_slab(int C) { return (C + ca_blocks(C) - 1) / ca_blocks(C); }
+
+// The instance a block runs: the first whose channel tiles hold its slab,
+// else -1 (C above 6144).
 inline int ca_shape(int C) {
+  if (C <= 0 || ca_blocks(C) == 0) return -1;
   for (int i = 0; i < kCaShapeCount; ++i)
-    if (C <= 8 * kCaShapes[i].nt) return i;
+    if (ca_slab(C) <= 8 * kCaShapes[i].nt) return i;
   return -1;
 }
 
@@ -105,7 +138,9 @@ __host__ __device__ constexpr int ca_tokens(int parts) { return 16 * (4 / parts)
 __host__ __device__ inline int ca_kp(int K) {
   return (K + kCaKpAlign - 1) / kCaKpAlign * kCaKpAlign;
 }
-inline int ca_blocks(int N, int parts) { return (N + ca_tokens(parts) - 1) / ca_tokens(parts); }
+inline int ca_row_blocks(int N, int parts) {
+  return (N + ca_tokens(parts) - 1) / ca_tokens(parts);
+}
 
 // Shared memory of the main kernel: the split token tile, then the ring's
 // stages of (hi chunk, lo chunk, |c|^2), in 32-bit words.
@@ -113,29 +148,39 @@ __host__ __device__ constexpr int ca_stride(int nt) { return 8 * nt + 4; }
 __host__ __device__ constexpr int ca_stage_words(int nt, int chunk) {
   return 2 * chunk * ca_stride(nt) + chunk;
 }
-constexpr size_t ca_smem_bytes(int nt, int parts, int chunk, int stages) {
-  return sizeof(uint32_t) *
-         (2 * ca_tokens(parts) * ca_stride(nt) + stages * ca_stage_words(nt, chunk));
+// The split instances' exchange of partial cross products: two buffers of
+// one (16 x chunk / 2) tile per warp.
+__host__ __device__ constexpr int ca_xbuf_words(int chunk) {
+  return 2 * (kCaThreads / kWarp) * (chunk / 2) * 16;
+}
+constexpr size_t ca_smem_bytes(int nt, int parts, int chunk, int stages, bool split = false) {
+  return sizeof(uint32_t) * (2 * ca_tokens(parts) * ca_stride(nt) +
+                             stages * ca_stage_words(nt, chunk) + (split ? ca_xbuf_words(chunk) : 0));
 }
 
 // |c|^2 and the tf32 split of every center, zero-padded to Kp rows of
-// `stride` words (the main kernel's shared-memory rows).
+// `stride` words (the main kernel's shared-memory rows), one (Kp x stride)
+// array per channel slab of `slab` channels (one slab, slab = C, up to 768).
 __global__ void __launch_bounds__(kCaPrepThreads)
     cluster_assign_prep_kernel(const float* __restrict__ centers, int K, int C, int Kp,
-                               int stride, float* __restrict__ csq, uint32_t* __restrict__ hi,
-                               uint32_t* __restrict__ lo) {
+                               int stride, int slab, int slabs, float* __restrict__ csq,
+                               uint32_t* __restrict__ hi, uint32_t* __restrict__ lo) {
   const int warps = blockDim.x / kWarp;
   const int k = blockIdx.x * warps + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (k >= Kp) return;
   float s = 0.f;
-  for (int c = lane; c < stride; c += kWarp) {
-    const float v = (k < K && c < C) ? centers[(size_t)k * C + c] : 0.f;
-    s += v * v;
-    uint32_t h, l;
-    split_tf32(v, h, l);
-    hi[(size_t)k * stride + c] = h;
-    lo[(size_t)k * stride + c] = l;
+  for (int r = 0; r < slabs; ++r) {
+    const int c0 = r * slab, cl = min(slab, C - c0);
+    const size_t row = ((size_t)r * Kp + k) * stride;
+    for (int c = lane; c < stride; c += kWarp) {
+      const float v = (k < K && c < cl) ? centers[(size_t)k * C + c0 + c] : 0.f;
+      s += v * v;
+      uint32_t h, l;
+      split_tf32(v, h, l);
+      hi[row + c] = h;
+      lo[row + c] = l;
+    }
   }
   s = warp_sum(s);
   if (lane == 0) csq[k] = s;
@@ -143,14 +188,15 @@ __global__ void __launch_bounds__(kCaPrepThreads)
 
 // NT = Cp / 8 channel tiles (a compile-time count: the recon accumulator,
 // 4 NT / P floats a lane, lives in registers); the other parameters as
-// CaShape's.
-template <int NT, int P, int CH, int STAGES>
+// CaShape's.  SPLIT: a block of a cluster holding channel slab
+// %cluster_ctarank of `slab` channels (see the header); else slab = C.
+template <int NT, int P, int CH, int STAGES, bool SPLIT>
 __global__ void __launch_bounds__(kCaThreads, 1)
     cluster_assign_mma_kernel(const float* __restrict__ x, const float* __restrict__ csq_g,
                               const uint32_t* __restrict__ hi_g,
                               const uint32_t* __restrict__ lo_g, float* __restrict__ recon,
                               int32_t* __restrict__ labels, float* __restrict__ partials,
-                              int N, int C, int K, float alpha) {
+                              int N, int C, int K, float alpha, int slab) {
   constexpr int Cp = 8 * NT, S = ca_stride(NT), kStage = ca_stage_words(NT, CH);
   constexpr int kTiles = 4 / P, kTokens = ca_tokens(P);
   constexpr int NTL = NT / P;           // the recon channel tiles of one warp
@@ -171,8 +217,16 @@ __global__ void __launch_bounds__(kCaThreads, 1)
   const int g = lane >> 2, t = lane & 3;
   const int tile = warp % kTiles, part = (warp / kTiles) % P, half = warp / (kTiles * P);
   const int n0 = part * NTL;  // this warp's first recon channel tile
-  const int row0 = blockIdx.x * kTokens + tile * 16;  // this warp's first token
+  const int rank = SPLIT ? (int)cluster_ctarank() : 0;     // this block's channel slab
+  const int nranks = SPLIT ? (int)cluster_nctarank() : 1;
+  const int rb = blockIdx.x / nranks;                      // the row tile's block index
+  const int cbase = rank * slab, clen = SPLIT ? min(slab, C - cbase) : C;  // the slab
+  const int row0 = rb * kTokens + tile * 16;  // this warp's first token
   const int nchunks = ca_kp(K) / CH;
+  if (SPLIT) {  // this slab's split centers
+    hi_g += (size_t)rank * ca_kp(K) * S;
+    lo_g += (size_t)rank * ca_kp(K) * S;
+  }
 
   // The ring: stage s is full when its copies have landed (full[s], one
   // arrival plus the bytes) and empty when all warps have read it (empty[s]).
@@ -204,11 +258,11 @@ __global__ void __launch_bounds__(kCaThreads, 1)
   // then the first warp of each tile splits its rows, each quad rows g and
   // g + 8 (channels t mod 4), and sums their squares; a barrier publishes the
   // split tile and |x|^2 to both warps of the tile.
-  const int t0 = blockIdx.x * kTokens;
+  const int t0 = rb * kTokens;
 #pragma unroll 8
   for (int i = tid; i < kTokens * Cp; i += kCaThreads) {
     const int r = i / Cp, c = i % Cp;
-    const float v = (t0 + r < N && c < C) ? x[(size_t)(t0 + r) * C + c] : 0.f;
+    const float v = (t0 + r < N && c < clen) ? x[(size_t)(t0 + r) * C + cbase + c] : 0.f;
     xh[r * S + c] = __float_as_uint(v);
   }
   __syncthreads();
@@ -232,15 +286,24 @@ __global__ void __launch_bounds__(kCaThreads, 1)
     }
   }
   __syncthreads();
+  if (SPLIT) cluster_sync();  // every block's |x|^2 partials written
   const uint32_t* ah_row = xh + (tile * 16 + g) * S + t;
   const uint32_t* al_row = xl + (tile * 16 + g) * S + t;
+  // |x|^2 of rows g and g + 8: the slabs' partials summed in block order
+  auto row_sq = [&](int r) {
+    if (!SPLIT) return xsq_s[r];
+    float v = 0.f;
+    for (int b = 0; b < nranks; ++b) v += ld_cluster_f32(cluster_map(xsq_s + r, b));
+    return v;
+  };
+  float* xbuf = reinterpret_cast<float*>(smem + 2 * kTokens * S + STAGES * kStage);
 
   // Running state of rows g (index 0) and g + 8 (index 1) over this warp's
   // centers (half `half` of every chunk); s and Q are this lane's share (its
   // centers 2t, 2t + 1 of each 8), summed over the quad at the end.
   float m[2] = {INFINITY, INFINITY}, s_part[2] = {0.f, 0.f}, q_part[2] = {0.f, 0.f};
   int arg[2] = {0, 0};
-  const float xsq[2] = {xsq_s[tile * 16 + g], xsq_s[tile * 16 + g + 8]};
+  const float xsq[2] = {row_sq(tile * 16 + g), row_sq(tile * 16 + g + 8)};
   float acc[NTL][4];
 #pragma unroll
   for (int n = 0; n < NTL; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -283,6 +346,31 @@ __global__ void __launch_bounds__(kCaThreads, 1)
       for (int j = 0; j < kJ; ++j) mma_tf32(cr[kk & 3][j], ah, bh[j][0], bh[j][1]);
     }
 
+    float cross[kJ][4];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cross[j][e] = (cr[0][j][e] + cr[1][j][e]) + (cr[2][j][e] + cr[3][j][e]);
+    if (SPLIT) {
+      // the slabs' partials, summed in block order from every block's buffer
+      float* mine = xbuf + (((ci & 1) * (kCaThreads / kWarp) + warp) * kJ * 4) * kWarp + lane;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * j + e) * kWarp] = cross[j][e];
+      cluster_sync();
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = 0.f;
+          for (int b = 0; b < nranks; ++b)
+            v += ld_cluster_f32(cluster_map(mine + (4 * j + e) * kWarp, b));
+          cross[j][e] = v;
+        }
+    }
+
     // distances; this chunk's first-occurrence minimum of each row
     float d[kJ][4], cmin[2] = {INFINITY, INFINITY};
     int cidx[2] = {0x7fffffff, 0x7fffffff};
@@ -291,8 +379,7 @@ __global__ void __launch_bounds__(kCaThreads, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kc = 8 * j + 2 * t + (e & 1), h = e >> 1;
-        const float cross = (cr[0][j][e] + cr[1][j][e]) + (cr[2][j][e] + cr[3][j][e]);
-        const float d2 = (xsq[h] + cs[kc]) - 2.f * cross;
+        const float d2 = (xsq[h] + cs[kc]) - 2.f * cross[j][e];
         const float dv = k0 + kc < K ? sqrtf(fmaxf(d2, 0.f)) : INFINITY;
         d[j][e] = dv;
         if (dv < cmin[h]) cmin[h] = dv, cidx[h] = k0 + kc;  // ascending k: first wins
@@ -404,17 +491,17 @@ __global__ void __launch_bounds__(kCaThreads, 1)
       const float q = q_part[h] * (f0 * f0) + xch[(4 * NTL + 6 + h) * kWarp] * (f1 * f1);
       const int tok = row0 + g + 8 * h;
       if (tok < N) {
-        float* out = recon + (size_t)tok * C;
+        float* out = recon + (size_t)tok * C + cbase;
         const float inv = 1.f / s;
 #pragma unroll
         for (int n = 0; n < NTL; ++n) {
           const int c = 8 * (n0 + n) + 2 * t;
           const float r0 = acc[n][2 * h] * f0 + xch[(4 * n + 2 * h) * kWarp] * f1;
           const float r1 = acc[n][2 * h + 1] * f0 + xch[(4 * n + 2 * h + 1) * kWarp] * f1;
-          if (c < C) out[c] = r0 * inv;
-          if (c + 1 < C) out[c + 1] = r1 * inv;
+          if (c < clen) out[c] = r0 * inv;
+          if (c + 1 < clen) out[c + 1] = r1 * inv;
         }
-        if (t == 0 && part == 0) {
+        if (t == 0 && part == 0 && rank == 0) {
           labels[tok] = arg[h];
           row_loss += q / (s * s);
         }
@@ -424,27 +511,49 @@ __global__ void __launch_bounds__(kCaThreads, 1)
     if (lane == 0 && part == 0) tile_loss[tile] = row_loss;
   }
   __syncthreads();
-  if (tid == 0) {
+  if (tid == 0 && rank == 0) {
     float sum = 0.f;
     for (int w = 0; w < kTiles; ++w) sum += tile_loss[w];
-    partials[blockIdx.x] = sum;
+    partials[rb] = sum;
   }
+  if (SPLIT) cluster_sync();  // no block leaves while another may read its buffers
 }
 
-template <int I>
+// Instance I on one block per row tile, or (SPLIT) on clusters of `blocks`
+// blocks per row tile, each on a slab of `slab` channels.
+template <int I, bool SPLIT>
 cudaError_t launch_cluster_assign(const float* x, const float* csq, const uint32_t* hi,
                                   const uint32_t* lo, float* recon, int32_t* labels,
-                                  float* partials, int N, int C, int K, float alpha,
-                                  cudaStream_t s) {
+                                  float* partials, int N, int C, int K, float alpha, int blocks,
+                                  int slab, cudaStream_t s) {
   constexpr CaShape sh = kCaShapes[I];
-  constexpr size_t smem = ca_smem_bytes(sh.nt, sh.parts, sh.chunk, sh.stages);
+  constexpr size_t smem = ca_smem_bytes(sh.nt, sh.parts, sh.chunk, sh.stages, SPLIT);
   static_assert(smem + 4 * (kCaMaxTokens + 4) + 2 * 8 * sh.stages <= (size_t)kMaxSmemBytes,
                 "the block fits 227 KB");
-  const auto kernel = cluster_assign_mma_kernel<sh.nt, sh.parts, sh.chunk, sh.stages>;
+  const auto kernel = cluster_assign_mma_kernel<sh.nt, sh.parts, sh.chunk, sh.stages, SPLIT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<ca_blocks(N, sh.parts), kCaThreads, smem, s>>>(x, csq, hi, lo, recon, labels,
-                                                          partials, N, C, K, alpha);
+  const int rows = ca_row_blocks(N, sh.parts);
+  if (!SPLIT) {
+    kernel<<<rows, kCaThreads, smem, s>>>(x, csq, hi, lo, recon, labels, partials, N, C, K,
+                                          alpha, C);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * blocks));
+  cfg.blockDim = dim3(kCaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, csq, hi, lo, recon, labels, partials, N, C, K,
+                           alpha, slab);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -453,24 +562,27 @@ cudaError_t launch_cluster_assign(const float* x, const float* csq, const uint32
 extern "C" {
 
 // Scratch floats the wrapper allocates: |c|^2 (Kp), the centers' hi and lo
-// parts (Kp x Cp each) and one loss partial per block; -1 if C is too wide
-// (above 768).
+// parts (Kp x Cp each, per channel slab) and one loss partial per row tile;
+// -1 if C is too wide (above 6144).
 long long vadcl_cluster_assign_scratch(int N, int C, int K) {
   using namespace vadcl;
   const int i = ca_shape(C);
   if (i < 0 || N <= 0 || K <= 0 || C <= 0) return -1;
   const long long kp = ca_kp(K);
-  return kp + 2 * kp * ca_stride(kCaShapes[i].nt) + ca_blocks(N, kCaShapes[i].parts);
+  return kp + 2 * ca_blocks(C) * kp * ca_stride(kCaShapes[i].nt) +
+         ca_row_blocks(N, kCaShapes[i].parts);
 }
 
 // The instance a width takes, as nt | parts << 8 | chunk << 12 | stages << 20
-// (0 above 768): what ops/cluster_kernels.py:cluster_assign_shape mirrors.
+// | blocks << 24 (blocks splitting the channels; 0 above 6144): what
+// ops/cluster_kernels.py:cluster_assign_shape and cluster_assign_blocks
+// mirror.
 int vadcl_cluster_assign_shape(int C) {
   using namespace vadcl;
   const int i = C > 0 ? ca_shape(C) : -1;
   if (i < 0) return 0;
   const CaShape& sh = kCaShapes[i];
-  return sh.nt | sh.parts << 8 | sh.chunk << 12 | sh.stages << 20;
+  return sh.nt | sh.parts << 8 | sh.chunk << 12 | sh.stages << 20 | ca_blocks(C) << 24;
 }
 
 int vadcl_cluster_assign(const float* x, const float* centers, float* recon,
@@ -481,33 +593,43 @@ int vadcl_cluster_assign(const float* x, const float* centers, float* recon,
   const int i = ca_shape(C);
   if (i < 0 || N <= 0 || K <= 0 || C <= 0) return cudaErrorInvalidValue;
   const int kp = ca_kp(K), stride = ca_stride(kCaShapes[i].nt);
+  const int blocks = ca_blocks(C), slab = ca_slab(C);
   float* csq = scratch;
   uint32_t* hi = reinterpret_cast<uint32_t*>(scratch + kp);
-  uint32_t* lo = hi + (size_t)kp * stride;
-  float* partials = reinterpret_cast<float*>(lo + (size_t)kp * stride);
+  uint32_t* lo = hi + (size_t)blocks * kp * stride;
+  float* partials = reinterpret_cast<float*>(lo + (size_t)blocks * kp * stride);
   const int warps = kCaPrepThreads / kWarp;
   cluster_assign_prep_kernel<<<(kp + warps - 1) / warps, kCaPrepThreads, 0, s>>>(
-      centers, K, C, kp, stride, csq, hi, lo);
+      centers, K, C, kp, stride, slab, blocks, csq, hi, lo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const auto launch = [&](auto inst) {
-    return launch_cluster_assign<decltype(inst)::value>(x, csq, hi, lo, recon, labels,
-                                                        partials, N, C, K, alpha, s);
+    return launch_cluster_assign<decltype(inst)::value, false>(
+        x, csq, hi, lo, recon, labels, partials, N, C, K, alpha, 1, C, s);
   };
-  switch (i) {
-    case 0: err = launch(std::integral_constant<int, 0>()); break;
-    case 1: err = launch(std::integral_constant<int, 1>()); break;
-    case 2: err = launch(std::integral_constant<int, 2>()); break;
-    case 3: err = launch(std::integral_constant<int, 3>()); break;
-    case 4: err = launch(std::integral_constant<int, 4>()); break;
-    case 5: err = launch(std::integral_constant<int, 5>()); break;
-    case 6: err = launch(std::integral_constant<int, 6>()); break;
-    case 7: err = launch(std::integral_constant<int, 7>()); break;
-    case 8: err = launch(std::integral_constant<int, 8>()); break;
-    default: err = launch(std::integral_constant<int, 9>()); break;
+  const auto launch_split = [&](auto inst) {
+    return launch_cluster_assign<decltype(inst)::value, true>(
+        x, csq, hi, lo, recon, labels, partials, N, C, K, alpha, blocks, slab, s);
+  };
+  if (blocks > 1) {  // the widest two instances, on a slab of the channels each
+    err = i == 8 ? launch_split(std::integral_constant<int, 8>())
+                 : launch_split(std::integral_constant<int, 9>());
+  } else {
+    switch (i) {
+      case 0: err = launch(std::integral_constant<int, 0>()); break;
+      case 1: err = launch(std::integral_constant<int, 1>()); break;
+      case 2: err = launch(std::integral_constant<int, 2>()); break;
+      case 3: err = launch(std::integral_constant<int, 3>()); break;
+      case 4: err = launch(std::integral_constant<int, 4>()); break;
+      case 5: err = launch(std::integral_constant<int, 5>()); break;
+      case 6: err = launch(std::integral_constant<int, 6>()); break;
+      case 7: err = launch(std::integral_constant<int, 7>()); break;
+      case 8: err = launch(std::integral_constant<int, 8>()); break;
+      default: err = launch(std::integral_constant<int, 9>()); break;
+    }
   }
   if (err != cudaSuccess) return err;
-  return launch_sum_partials(partials, ca_blocks(N, kCaShapes[i].parts), loss, s);
+  return launch_sum_partials(partials, ca_row_blocks(N, kCaShapes[i].parts), loss, s);
 }
 
 }  // extern "C"

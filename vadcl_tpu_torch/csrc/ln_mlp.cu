@@ -11,7 +11,7 @@
 // (exact to ~2 ulp) where the Pallas kernel uses the Abramowitz-Stegun 7.1.26
 // form (1.5e-7 abs error).
 //
-// Two bodies, picked by width (ops/ln_mlp.py:mlp_fwd_body).
+// Three bodies, picked by width (ops/ln_mlp.py:mlp_fwd_body).
 //
 // bf16 at C % 16 == 0, C <= 192 and a hidden width divisible by 128 (every
 // preset's widths): ln_mlp_wgmma_kernel, a
@@ -65,10 +65,17 @@
 // table: a cheaper erf of the same accuracy, 64-token tiles with two blocks per
 // SM at C = 192, TMA multicast of the weight chunks across a cluster.
 //
+// bf16 at C % 16 == 0, 192 < C <= 1024 and a hidden width divisible by 64:
+// ln_mlp_slab.cu's tensor-core body (output columns in slabs across blocks).
+//
 // fp32 (the path the model's exact comparisons run) and bf16 at every other
-// width (C = 256 of an embed_dim 128 model's inner stages, C % 16 != 0):
-// ln_mlp_kernel<T>, CUDA-core loops in fp32 on T loads and stores, 32 tokens
-// per block, one block per token tile, z, h and g rounded to T.  Its chunk
+// width (C % 16 != 0, C above 1024): ln_mlp_kernel<T>, CUDA-core loops in fp32
+// on T loads and stores, one block per token tile of 32 tokens, or of 16, 8,
+// ... 1 where 32 tokens' fp32 rows outgrow 227 KB (C above 844;
+// mlp_tokens), so that it takes every width up to C = 28,992 (the card has
+// run it up to C = 4,096, 4 tokens a block; the 2- and 1-token tiles above
+// C = 7,200 have not run there); z, h and g
+// rounded to T (the sums' order does not depend on the tile).  Its chunk
 // loop lives in mlp_tail.cuh, which the whole-Swin-block kernel
 // (fold_attn.cuh) shares (its fp32 instance) together with the WMMA tail that
 // kernel still runs.  What bounds it: every product on the fp32 units, and
@@ -79,10 +86,18 @@
 namespace vadcl {
 
 constexpr int kMlpThreads = 256;
-constexpr int kTokens = 32;
+constexpr int kTokens = 32;  // tokens of a block where they fit
 
-inline size_t mlp_smem_bytes(int c) {
-  return sizeof(float) * (2 * (size_t)kTokens * c + (size_t)kTokens * kMlpChunk);
+inline size_t mlp_smem_bytes(int c, int tokens) {
+  return sizeof(float) * (2 * (size_t)tokens * c + (size_t)tokens * kMlpChunk);
+}
+
+// Tokens a block holds: the most of 32, 16, ..., 1 whose block fits 227 KB
+// (0 above C = 28,992).
+inline int mlp_tokens(int c) {
+  for (int t = kTokens; t >= 1; t /= 2)
+    if (mlp_smem_bytes(c, t) <= (size_t)kMaxSmemBytes) return t;
+  return 0;
 }
 
 template <typename T>
@@ -90,14 +105,15 @@ __global__ void __launch_bounds__(kMlpThreads)
     ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
                   const float* __restrict__ ln_b, const T* __restrict__ w1,
                   const float* __restrict__ b1, const T* __restrict__ w2,
-                  const float* __restrict__ b2, T* __restrict__ y, int ntok, int C, int Ch) {
+                  const float* __restrict__ b2, T* __restrict__ y, int ntok, int C, int Ch,
+                  int tokens) {
   extern __shared__ __align__(16) float smem[];
-  float* z = smem;                  // kTokens*C   LN output
-  float* acc = z + kTokens * C;     // kTokens*C   fc2 accumulator
-  float* g = acc + kTokens * C;     // kTokens*kMlpChunk  GELU chunk
+  float* z = smem;                 // tokens*C   LN output
+  float* acc = z + tokens * C;     // tokens*C   fc2 accumulator
+  float* g = acc + tokens * C;     // tokens*kMlpChunk  GELU chunk
 
-  const int t0 = blockIdx.x * kTokens;
-  const int nt = min(kTokens, ntok - t0);
+  const int t0 = blockIdx.x * tokens;
+  const int nt = min(tokens, ntok - t0);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid / kWarp, lane = tid % kWarp, nwarps = nthr / kWarp;
 
@@ -124,20 +140,21 @@ cudaError_t launch_ln_mlp(const void* x, const float* ln_s, const float* ln_b,
                           const float* b2, void* y, int ntok, int C, int Ch, int is_bf16,
                           cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const size_t smem = mlp_smem_bytes(C);
-  if (smem > (size_t)kMaxSmemBytes || ntok <= 0) return cudaErrorInvalidValue;
-  const int blocks = (ntok + kTokens - 1) / kTokens;
+  const int tokens = mlp_tokens(C);
+  if (tokens == 0 || ntok <= 0) return cudaErrorInvalidValue;
+  const size_t smem = mlp_smem_bytes(C, tokens);
+  const int blocks = (ntok + tokens - 1) / tokens;
   cudaError_t err;
   if (is_bf16) {
     if ((err = allow_smem(ln_mlp_kernel<bf16>, smem)) != cudaSuccess) return err;
     ln_mlp_kernel<bf16><<<blocks, kMlpThreads, smem, stream>>>(
         static_cast<const bf16*>(x), ln_s, ln_b, static_cast<const bf16*>(w1), b1,
-        static_cast<const bf16*>(w2), b2, static_cast<bf16*>(y), ntok, C, Ch);
+        static_cast<const bf16*>(w2), b2, static_cast<bf16*>(y), ntok, C, Ch, tokens);
   } else {
     if ((err = allow_smem(ln_mlp_kernel<float>, smem)) != cudaSuccess) return err;
     ln_mlp_kernel<float><<<blocks, kMlpThreads, smem, stream>>>(
         static_cast<const float*>(x), ln_s, ln_b, static_cast<const float*>(w1), b1,
-        static_cast<const float*>(w2), b2, static_cast<float*>(y), ntok, C, Ch);
+        static_cast<const float*>(w2), b2, static_cast<float*>(y), ntok, C, Ch, tokens);
   }
   return cudaGetLastError();
 }
@@ -412,10 +429,14 @@ extern "C" int vadcl_ln_mlp(const void* x, const float* ln_s, const float* ln_b,
                               static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of one block of the CUDA-core body.
+// Shared memory of one block of the CUDA-core body (-1 where no tile fits).
 extern "C" long long vadcl_ln_mlp_smem_bytes(int C) {
-  return (long long)vadcl::mlp_smem_bytes(C);
+  const int tokens = vadcl::mlp_tokens(C);
+  return tokens == 0 ? -1 : (long long)vadcl::mlp_smem_bytes(C, tokens);
 }
+
+// Tokens a block of the CUDA-core body holds at width C.
+extern "C" int vadcl_ln_mlp_tokens(int C) { return vadcl::mlp_tokens(C); }
 
 // bf16: both weight matrices packed by hidden chunk (ops/ln_mlp.py:pack_mlp_weights).
 extern "C" int vadcl_ln_mlp_bf16(const void* x, const float* ln_s, const float* ln_b,

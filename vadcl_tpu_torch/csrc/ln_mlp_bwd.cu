@@ -29,8 +29,11 @@
 // in pass 1 and two in pass 2).  Pass 1 gives each thread a 2-token x
 // 4-column register tile fed by vector loads, the weights read through L1
 // from L2 by every block; the fp32 g and dh workspace is 2 x T x 4C floats,
-// written and read once.  Needs C and the hidden width to be multiples of 4.
-// The tile body is in mlp_bwd.cuh, which the whole-Swin-block backward
+// written and read once.  It takes every width: vector loads of the weights
+// where C and the hidden width are multiples of 4 and the matrices aligned,
+// scalar loads elsewhere (a template flag), and tiles of 16 tokens, or of 8, 4
+// or 2 where 16 tokens' fp32 rows outgrow 227 KB (C above 772: a narrower
+// tile widens the hidden chunk, mlp_bwd_chunk).  The tile body is in mlp_bwd.cuh, which the whole-Swin-block backward
 // (fold_attn_bwd.cu) shares.  Left on the table: TF32 or 3xTF32 tensor-core
 // products within a stated tolerance, the weight chunks staged in shared
 // memory, weight-gradient partials kept per block instead of the g/dh
@@ -40,19 +43,35 @@
 
 namespace vadcl {
 
-template <typename T>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kMbThreads)
     ln_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ ln_s, const float* __restrict__ ln_b,
                       const T* __restrict__ w1, const float* __restrict__ b1,
                       const T* __restrict__ w2, T* __restrict__ dx, float* __restrict__ z_ws,
                       float* __restrict__ g_ws, float* __restrict__ dh_ws,
-                      float* __restrict__ dln_part, int ntok, int C, int Ch) {
+                      float* __restrict__ dln_part, int ntok, int C, int Ch, int mt) {
   extern __shared__ __align__(16) float smem[];
-  const int t0 = blockIdx.x * kMbTok;
-  mlp_bwd_tile<T>(smem, x, dy, ln_s, ln_b, w1, b1, w2, dx, z_ws, g_ws, dh_ws,
-                  dln_part + (size_t)blockIdx.x * 2 * C, nullptr, t0, min(kMbTok, ntok - t0), C,
-                  Ch, threadIdx.x, BlockBarrier());
+  const int t0 = blockIdx.x * mt;
+  mlp_bwd_tile<T, BlockBarrier, kVec>(smem, x, dy, ln_s, ln_b, w1, b1, w2, dx, z_ws, g_ws,
+                                      dh_ws, dln_part + (size_t)blockIdx.x * 2 * C, nullptr, t0,
+                                      min(mt, ntok - t0), C, Ch, threadIdx.x, BlockBarrier(),
+                                      mt);
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_mlp_bwd_tiles(const void* x, const void* dy, const float* ln_s,
+                                 const float* ln_b, const void* w1, const float* b1,
+                                 const void* w2, void* dx, float* z, float* g, float* dh,
+                                 float* dln, int ntok, int C, int Ch, int mt, size_t smem,
+                                 cudaStream_t s) {
+  const auto kernel = ln_mlp_bwd_kernel<T, kVec>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(ntok + mt - 1) / mt, kMbThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), ln_s, ln_b, static_cast<const T*>(w1),
+      b1, static_cast<const T*>(w2), static_cast<T*>(dx), z, g, dh, dln, ntok, C, Ch, mt);
+  return cudaGetLastError();
 }
 
 struct MlpBwdLayout {
@@ -60,7 +79,8 @@ struct MlpBwdLayout {
 };
 
 inline MlpBwdLayout mlp_bwd_layout(int ntok, int C, int Ch) {
-  const size_t T = ntok, blocks = (ntok + kMbTok - 1) / kMbTok;
+  const int mt = mlp_bwd_tokens(C) > 0 ? mlp_bwd_tokens(C) : kMbTok;
+  const size_t T = ntok, blocks = (ntok + mt - 1) / mt;
   const size_t atb_c = atb_partial_floats(ntok, C, Ch);
   MlpBwdLayout l;
   size_t o = 0;
@@ -77,6 +97,9 @@ inline MlpBwdLayout mlp_bwd_layout(int ntok, int C, int Ch) {
 
 extern "C" {
 
+// Tokens a tile of the CUDA-core body holds at width C (0: no tile fits).
+int vadcl_ln_mlp_bwd_tokens(int C) { return C > 0 ? vadcl::mlp_bwd_tokens(C) : 0; }
+
 long long vadcl_ln_mlp_bwd_workspace_bytes(int ntok, int C, int Ch) {
   return (long long)vadcl::mlp_bwd_layout(ntok, C, Ch).bytes;
 }
@@ -87,9 +110,9 @@ int vadcl_ln_mlp_bwd(const void* x, const void* dy, const float* ln_s, const flo
                      void* workspace, int ntok, int C, int Ch, int is_bf16, void* stream) {
   using namespace vadcl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ntok <= 0 || C <= 0 || !mlp_bwd_eligible(C, Ch)) return cudaErrorInvalidValue;
-  const size_t smem = mlp_bwd_smem_bytes(C);
-  if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
+  const int mt = C > 0 ? mlp_bwd_tokens(C) : 0;
+  if (ntok <= 0 || Ch <= 0 || mt == 0) return cudaErrorInvalidValue;
+  const size_t smem = mlp_bwd_smem_bytes(C, mt);
   const MlpBwdLayout l = mlp_bwd_layout(ntok, C, Ch);
   char* ws = static_cast<char*>(workspace);
   float* z = reinterpret_cast<float*>(ws + l.z);
@@ -97,25 +120,16 @@ int vadcl_ln_mlp_bwd(const void* x, const void* dy, const float* ln_s, const flo
   float* dh = reinterpret_cast<float*>(ws + l.dh);
   float* dln = reinterpret_cast<float*>(ws + l.dln);
   float* part = reinterpret_cast<float*>(ws + l.atb);
-  const int blocks = (ntok + kMbTok - 1) / kMbTok;
-  cudaError_t err;
-  if (is_bf16) {
-    using bf16 = __nv_bfloat16;
-    err = allow_smem(ln_mlp_bwd_kernel<bf16>, smem);
-    if (err != cudaSuccess) return err;
-    ln_mlp_bwd_kernel<bf16><<<blocks, kMbThreads, smem, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), ln_s, ln_b,
-        static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2),
-        static_cast<bf16*>(dx), z, g, dh, dln, ntok, C, Ch);
-  } else {
-    err = allow_smem(ln_mlp_bwd_kernel<float>, smem);
-    if (err != cudaSuccess) return err;
-    ln_mlp_bwd_kernel<float><<<blocks, kMbThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), ln_s, ln_b,
-        static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-        static_cast<float*>(dx), z, g, dh, dln, ntok, C, Ch);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int blocks = (ntok + mt - 1) / mt;
+  using bf16 = __nv_bfloat16;
+  const bool vec = mlp_bwd_vector_loads(C, Ch, w1, w2, is_bf16 ? sizeof(bf16) : sizeof(float));
+  const auto launch = is_bf16 ? (vec ? launch_mlp_bwd_tiles<bf16, true>
+                                     : launch_mlp_bwd_tiles<bf16, false>)
+                              : (vec ? launch_mlp_bwd_tiles<float, true>
+                                     : launch_mlp_bwd_tiles<float, false>);
+  cudaError_t err = launch(x, dy, ln_s, ln_b, w1, b1, w2, dx, z, g, dh, dln, ntok, C, Ch, mt,
+                           smem, s);
+  if (err != cudaSuccess) return err;
   if ((err = launch_atb(g, 0, dy, is_bf16, ntok, Ch, C, part, dw2, s))) return err;
   if ((err = launch_atb(z, 0, dh, 0, ntok, C, Ch, part, dw1, s))) return err;
   if ((err = launch_atb(nullptr, 0, dh, 0, ntok, 1, Ch, part, db1, s))) return err;

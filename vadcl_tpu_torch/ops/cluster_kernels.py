@@ -6,8 +6,10 @@ C replaces ``vadcl_tpu/ops/pallas_cluster.py:_cluster_kernel`` (entry
 ``csrc/space_cluster_mma.cu``: tensor-core products on operands split into
 two tf32 parts (3xTF32, fp32-level accuracy whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says) and an online soft-assign
-over chunks of centers with no (rows x K) tile; C takes C <= 768 and any N
-and K (``cluster_assign_shape`` mirrors the instance a width takes), D any
+over chunks of centers with no (rows x K) tile; C takes any N and K and
+C <= 6144: one block per row tile up to 768 (``cluster_assign_shape``
+mirrors the instance a width takes), above it a thread-block cluster of 2, 4
+or 8 blocks splitting the channels (``cluster_assign_blocks``); D any
 shape.  Both use the expanded cdist form and a deterministic
 two-pass reduction of the loss (``csrc/cluster.cu``); C's labels are the
 first-occurrence argmin.
@@ -67,19 +69,30 @@ def space_cluster_loss_plain(maps, centers, alpha: float) -> torch.Tensor:
 CLUSTER_SHAPES = ((2, 1, 32, 2), (4, 1, 32, 2), (8, 1, 32, 2), (12, 1, 32, 2),
                   (16, 1, 32, 2), (24, 1, 32, 2), (32, 2, 32, 2), (48, 2, 16, 2),
                   (64, 4, 16, 2), (96, 4, 16, 1))
-CLUSTER_MAX_C = 8 * CLUSTER_SHAPES[-1][0]
+CLUSTER_BLOCK_C = 8 * CLUSTER_SHAPES[-1][0]  # the widest one block holds (768)
+CLUSTER_SPLITS = (1, 2, 4, 8)  # blocks of a cluster splitting the channels
+CLUSTER_MAX_C = CLUSTER_SPLITS[-1] * CLUSTER_BLOCK_C
+
+
+def cluster_assign_blocks(c: int) -> int:
+    """Blocks sharing a row tile at width ``c``, each on a slab of
+    ``ceil(c / blocks)`` channels (``csrc/cluster_mma.cu:ca_blocks``): 1 up
+    to 768, then the fewest of 2, 4, 8 whose slabs fit 768.  Raises above
+    ``CLUSTER_MAX_C`` (6144)."""
+    for blocks in CLUSTER_SPLITS:
+        if 0 < c <= blocks * CLUSTER_BLOCK_C:
+            return blocks
+    raise ValueError(f"cluster_assign: the kernel takes 1 <= C <= {CLUSTER_MAX_C}, got C={c}")
 
 
 def cluster_assign_shape(c: int) -> tuple:
-    """(tiles, parts, chunk, stages) of the instance kernel C runs at width
-    ``c`` (``csrc/cluster_mma.cu:ca_shape``): the first whose channel tiles
-    hold C.  Raises above ``CLUSTER_MAX_C`` (768), where the channels would
-    have to be split across blocks."""
-    for shape in CLUSTER_SHAPES:
-        if 0 < c <= 8 * shape[0]:
-            return shape
-    raise ValueError(f"cluster_assign: the kernel takes 1 <= C <= {CLUSTER_MAX_C} (a wider "
-                     f"feature needs its channels split across blocks), got C={c}")
+    """(tiles, parts, chunk, stages) of the instance each block of kernel C
+    runs at width ``c`` (``csrc/cluster_mma.cu:ca_shape``): the first whose
+    channel tiles hold C, or above 768 its slab of the channels
+    (``cluster_assign_blocks``).  Raises above ``CLUSTER_MAX_C`` (6144)."""
+    blocks = cluster_assign_blocks(c)
+    slab = -(-c // blocks)
+    return next(shape for shape in CLUSTER_SHAPES if slab <= 8 * shape[0])
 
 
 def _f32c(t: torch.Tensor) -> torch.Tensor:
@@ -131,7 +144,7 @@ def _cluster_assign_cuda(tokens, centers, alpha: float) -> FusedClusterOut:
     k, c2 = centers.shape
     if c2 != c:
         raise ValueError(f"cluster_assign: tokens {tuple(tokens.shape)} vs centers {tuple(centers.shape)}")
-    cluster_assign_shape(c)  # (raises above the widest instance)
+    cluster_assign_shape(c)  # (raises above the widest split)
     lib = cuda_lib.library()
     n_scratch = lib.vadcl_cluster_assign_scratch(n, c, k)
     if n_scratch < 0:

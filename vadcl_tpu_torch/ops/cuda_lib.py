@@ -49,6 +49,10 @@ _SIGNATURES = {
     "vadcl_ln_mlp": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "vadcl_ln_mlp_smem_bytes": ([_I], _L),
     "vadcl_ln_mlp_bf16": ([_P] * 7 + [_I] * 3 + [_P], _I),
+    "vadcl_ln_mlp_tokens": ([_I], _I),
+    "vadcl_ln_mlp_slab": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "vadcl_ln_mlp_slab_shape": ([_I], _I),
+    "vadcl_ln_mlp_slab_smem_bytes": ([_I] * 3, _L),
     "vadcl_fold_attn_bwd": ([_P] * 18 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_bwd_smem_bytes": ([_I] * 4, _L),
     "vadcl_fold_attn_bwd_workspace_bytes": ([_I] * 10, _L),
@@ -78,6 +82,7 @@ _SIGNATURES = {
     "vadcl_window_attn_bwd_workspace_bytes": ([_I] * 5, _L),
     "vadcl_ln_mlp_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
     "vadcl_ln_mlp_bwd_workspace_bytes": ([_I] * 3, _L),
+    "vadcl_ln_mlp_bwd_tokens": ([_I], _I),
     "vadcl_ln_mlp_bwd_bf16": ([_P] * 14 + [_I] * 3 + [_P], _I),
     "vadcl_ln_mlp_bwd_bf16_workspace_bytes": ([_I] * 3, _L),
     "vadcl_ln_mlp_bwd_bf16_smem_bytes": ([_I], _L),

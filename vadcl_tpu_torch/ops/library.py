@@ -127,13 +127,13 @@ def _(x, *args):
 
 @torch.library.custom_op(f"{NAMESPACE}::ln_mlp", mutates_args=(), device_types="cpu")
 def ln_mlp(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w1: Tensor, b1: Optional[Tensor],
-           w2: Tensor, b2: Optional[Tensor], tiles: bool) -> Tensor:
+           w2: Tensor, b2: Optional[Tensor], body: str) -> Tensor:
     return _ops_module("ln_mlp").ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2)
 
 
 @ln_mlp.register_kernel("cuda")
-def _(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles):
-    return _ops_module("ln_mlp")._ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles)
+def _(x, ln_scale, ln_bias, w1, b1, w2, b2, body):
+    return _ops_module("ln_mlp")._ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, body)
 
 
 @ln_mlp.register_fake

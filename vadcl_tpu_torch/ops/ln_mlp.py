@@ -2,18 +2,24 @@
 kernel 5, its backward.
 
 Kernel B replaces ``vadcl_tpu/ops/pallas_mlp.py:_fwd_kernel`` (entry
-``fused_ln_mlp``).  Its CUDA kernels are in ``csrc/ln_mlp.cu``; both walk
-the 4C hidden width in chunks so the hidden activation never reaches device
-memory.  bf16 is a persistent grid of warpgroups that each own 64 tokens,
-run fc1 and fc2 as warpgroup matrix multiplies (wgmma), keep the hidden
-activation in registers between the two, and read the weights from a
-shared-memory ring that a producer warp fills with bulk copies; it needs
-C % 16 == 0, C <= 192 and a hidden width divisible by 128, and takes both
-weight matrices packed by hidden chunk (``pack_mlp_weights``, cached per
-parameter version in ``_packs``).  Every other width, and fp32, runs the
-CUDA-core body (32 tokens a block, fp32 arithmetic, the same cast
-boundaries), which ``mlp_fwd_body`` picks by width and ``ln_mlp_tiles``
-counts.
+``fused_ln_mlp``).  Its CUDA kernels are in ``csrc/ln_mlp.cu`` and
+``csrc/ln_mlp_slab.cu``; all walk the 4C hidden width in chunks so the
+hidden activation never reaches device memory, and ``mlp_fwd_body`` picks
+one by width.  bf16 at C % 16 == 0, C <= 192 and a hidden width divisible by
+128 is a persistent grid of warpgroups that each own 64 tokens, run fc1 and
+fc2 as warpgroup matrix multiplies (wgmma), keep the hidden activation in
+registers between the two, and read the weights from a shared-memory ring
+that a producer warp fills with bulk copies, both weight matrices packed by
+hidden chunk (``pack_mlp_weights``, cached per parameter version in
+``_packs``); ``ln_mlp`` counts it.  bf16 at C % 16 == 0, 192 < C <= 1024
+and a hidden width divisible by 64 runs the slab body: the same design with
+fc2's output columns cut into slabs of 256 or 128 across blocks
+(``MLP_SLAB_SHAPES``, weights packed by ``pack_mlp_slabs``); ``ln_mlp_slab``
+counts it.  Every other width, and fp32, runs the CUDA-core body (32 tokens
+a block, fewer above C = 844, fp32 arithmetic, the same cast boundaries),
+which ``ln_mlp_tiles`` counts: no width up to C = 28,992 is refused (the
+card has run it up to C = 4,096, 4 tokens a block; the 2- and 1-token
+blocks above C = 7,200 are routed but have not run on the card).
 
 Kernel 5 replaces ``_bwd_kernel`` (entry ``_vjp_bwd``).  Like the Pallas
 backward, every product is fp32 on fp32 operands; per token tile the kernel
@@ -25,7 +31,9 @@ product on the tensor cores (mma.sync), an fp32 operand split into bf16 hi
 and lo parts whose products are summed in fp32, reads B's cached pack and
 runs its second pass on the tensor cores too (``csrc/reduce_mma.cu``); fp32
 and every other width run the CUDA-core body of ``csrc/ln_mlp_bwd.cu``
-(``ln_mlp_bwd_tiles`` counts its launches).
+(vector loads where C and the hidden width are multiples of 4, scalar loads
+elsewhere; 16-token tiles, fewer above C = 772), which ``ln_mlp_bwd_tiles``
+counts: no width up to C = 3,500 is refused.
 
 ``ln_mlp`` is a ``torch.autograd.Function``: forward kernel B, backward
 kernel 5.  On a CPU tensor both run their plain versions (``ln_mlp_plain``,
@@ -62,34 +70,101 @@ def mlp_bwd_mma_smem_bytes(c: int) -> int:
             + 4 * 2 * _M5_ROWS + 4 * _M5_WARPS * 2 * c)
 
 
-# Kernel B's CUDA-core body (csrc/ln_mlp.cu:ln_mlp_kernel): 32 tokens a block,
-# the hidden width walked 128 columns at a time (csrc/mlp_tail.cuh).
-_MLP_TILE_TOKENS, _MLP_TILE_CHUNK = 32, 128
+# Kernel 5's CUDA-core body (csrc/mlp_bwd.cuh): tiles of 16 tokens, or 8, 4, 2
+# where 16 tokens' fp32 rows outgrow the block (mlp_bwd_tokens), 128 threads.
+_M5T_TOKENS, _M5T_THREADS, _M5T_WARPS, _M5T_PAD = (16, 8, 4, 2), 128, 4, 4
+
+
+def mlp_bwd_tiles_smem_bytes(c: int, tokens: int = 16) -> int:
+    """Shared memory of one block of kernel 5's CUDA-core body at ``tokens``
+    tokens a tile (``csrc/mlp_bwd.cuh:mlp_bwd_smem_bytes``): four C-wide fp32
+    rows a token (rows padded to 4, then 4), the hidden chunk's two rows
+    (4 * 128 / (tokens / 2) columns, padded by 4), rstd, and the warps'
+    dLN2 partials."""
+    cs = -(-c // 4) * 4 + _M5T_PAD
+    hs = 4 * _M5T_THREADS // (tokens // 2) + _M5T_PAD
+    return 4 * (4 * tokens * cs + 2 * tokens * hs + tokens + _M5T_WARPS * 2 * c)
+
+
+def mlp_bwd_tokens(c: int) -> int:
+    """Tokens a tile of kernel 5's CUDA-core body holds at width ``c``
+    (``csrc/mlp_bwd.cuh:mlp_bwd_tokens``): the most of 16, 8, 4, 2 whose block
+    fits ``SMEM_LIMIT``, 0 above C = 3,500."""
+    return next((t for t in _M5T_TOKENS if mlp_bwd_tiles_smem_bytes(c, t) <= SMEM_LIMIT), 0)
+
+
+# Kernel B's CUDA-core body (csrc/ln_mlp.cu:ln_mlp_kernel): 32 tokens a block
+# (fewer where they do not fit), the hidden width walked 128 columns at a time
+# (csrc/mlp_tail.cuh).
+_MLP_TILE_TOKENS, _MLP_TILE_CHUNK = (32, 16, 8, 4, 2, 1), 128
 MLP_FWD_MMA_MAX_C = 192
+
+# Kernel B's slab body (csrc/ln_mlp_slab.cu:kMsShapes): (output columns per
+# slab, hidden columns per streamed chunk, the widest C), for bf16 at
+# C % 16 == 0 from kMsMinC and a hidden width divisible by 64; the route
+# gives it the widths above 192 only.
+MLP_SLAB_SHAPES = ((256, 64, 256), (128, 16, 1024))
+MLP_SLAB_MIN_C, MLP_SLAB_MAX_C = 16, MLP_SLAB_SHAPES[-1][2]
+_MS_ROWS, _MS_MAX_STAGES, _MS_HIDDEN = 64, 4, 64
+
+
+def mlp_fwd_tokens(c: int) -> int:
+    """Tokens a block of kernel B's CUDA-core body holds at width ``c``
+    (``csrc/ln_mlp.cu:mlp_tokens``): the most of 32, 16, ..., 1 whose block
+    fits ``SMEM_LIMIT``, 0 above C = 28,992."""
+    return next((t for t in _MLP_TILE_TOKENS
+                 if 4 * (2 * t * c + t * _MLP_TILE_CHUNK) <= SMEM_LIMIT), 0)
 
 
 def mlp_fwd_smem_bytes(c: int) -> int:
     """Shared memory of one block of kernel B's CUDA-core body
-    (``csrc/ln_mlp.cu:mlp_smem_bytes``): the LN output and the fc2 sums of 32
-    tokens and one GELU chunk, fp32: 81,920 B at C = 256."""
-    return 4 * (2 * _MLP_TILE_TOKENS * c + _MLP_TILE_TOKENS * _MLP_TILE_CHUNK)
+    (``csrc/ln_mlp.cu:mlp_smem_bytes``): the LN output and the fc2 sums of
+    its tokens and one GELU chunk, fp32: 81,920 B at C = 256 (32 tokens)."""
+    t = mlp_fwd_tokens(c) or 1
+    return 4 * (2 * t * c + t * _MLP_TILE_CHUNK)
+
+
+def mlp_slab_shape(c: int):
+    """(slab, chunk, max C) of the slab body's instance at width ``c``
+    (``csrc/ln_mlp_slab.cu:ms_shape``), or None where none takes it."""
+    if c < MLP_SLAB_MIN_C or c % 16:
+        return None
+    return next((sh for sh in MLP_SLAB_SHAPES if c <= sh[2]), None)
+
+
+def mlp_slab_smem_bytes(c: int, groups: int = 1, stages: int = 2) -> int:
+    """Shared memory of one block of the slab body
+    (``csrc/ln_mlp_slab.cu:ms_smem_bytes``): the ring's mbarriers, each
+    consumer warpgroup's 64 x C bf16 z tile, and ``stages`` ring stages of
+    W1 (C x chunk) and W2 (chunk x slab) in bf16."""
+    cs, hc, _ = mlp_slab_shape(c)
+    return 2 * 8 * _MS_MAX_STAGES + groups * 2 * _MS_ROWS * c + stages * 2 * hc * (c + cs)
+
+
+def _slab_takes(c: int, ch: int, dtype: torch.dtype) -> bool:
+    """Whether the slab body can run the width (``ln_mlp_slab`` forces it
+    there); ``mlp_fwd_body`` gives it only the widths above 192."""
+    return (dtype == torch.bfloat16 and mlp_slab_shape(c) is not None and ch > 0
+            and ch % _MS_HIDDEN == 0 and mlp_slab_smem_bytes(c) <= SMEM_LIMIT)
 
 
 def mlp_fwd_body(c: int, ch: int, dtype: torch.dtype) -> str:
     """The body kernel B runs at width ``c`` and hidden width ``ch``:
-    ``"wgmma"`` (the tensor-core body: bf16, C % 16 == 0, 16 <= C <= 192, a
-    hidden width divisible by 128) or ``"tiles"`` (the CUDA-core body: fp32,
-    and bf16 at every other width).  Raises only where the CUDA-core body's
-    block exceeds ``SMEM_LIMIT`` (C above 844), which no width of the JAX
-    package's presets reaches."""
+    ``"wgmma"`` (bf16, C % 16 == 0, 16 <= C <= 192, a hidden width divisible
+    by 128), ``"slab"`` (bf16, C % 16 == 0, 192 < C <= 1024, a hidden width
+    divisible by 64) or ``"tiles"`` (the CUDA-core body: fp32, and bf16 at
+    every other width).  Raises only above C = 28,992, where not one token's
+    fp32 rows fit the CUDA-core body's block."""
     if (dtype == torch.bfloat16 and c % 16 == 0 and 16 <= c <= MLP_FWD_MMA_MAX_C
             and ch % 128 == 0):
         return "wgmma"
-    if mlp_fwd_smem_bytes(c) <= SMEM_LIMIT:
+    if c > MLP_FWD_MMA_MAX_C and _slab_takes(c, ch, dtype):
+        return "slab"
+    if mlp_fwd_tokens(c) > 0:
         return "tiles"
     raise NotImplementedError(
-        f"ln_mlp: a block of 32 tokens at C={c} needs {mlp_fwd_smem_bytes(c)} B of shared "
-        f"memory, above the card's {SMEM_LIMIT}"
+        f"ln_mlp: one token at C={c} needs {mlp_fwd_smem_bytes(c)} B of shared memory in the "
+        f"CUDA-core body, above the card's {SMEM_LIMIT}"
     )
 
 
@@ -98,15 +173,16 @@ def mlp_bwd_body(c: int, ch: int, dtype: torch.dtype) -> str:
     ``"mma"`` (the tensor-core body: bf16, C % 16 == 0, 16 <= C <= 192, a
     hidden width divisible by 64, its block within ``SMEM_LIMIT``) or
     ``"tiles"`` (the CUDA-core body: fp32, and bf16 at the widths the
-    tensor-core body does not take).  Raises where neither takes it."""
+    tensor-core body does not take, any C and hidden width).  Raises only
+    above C = 3,500, where no tile of two tokens fits the block."""
     if (dtype == torch.bfloat16 and c % 16 == 0 and 16 <= c <= MLP_BWD_MMA_MAX_C
             and ch % MLP_CHUNK == 0 and mlp_bwd_mma_smem_bytes(c) <= SMEM_LIMIT):
         return "mma"
-    if c % 4 == 0 and ch % 4 == 0:
+    if mlp_bwd_tokens(c) > 0:
         return "tiles"
     raise NotImplementedError(
-        f"ln_mlp_bwd: the kernel's vector loads need C and the hidden width to be "
-        f"multiples of 4 (got C={c}, hidden {ch})"
+        f"ln_mlp_bwd: a tile of two tokens at C={c} needs "
+        f"{mlp_bwd_tiles_smem_bytes(c, 2)} B of shared memory, above the card's {SMEM_LIMIT}"
     )
 
 
@@ -131,6 +207,27 @@ def pack_mlp_weights(w1: torch.Tensor, w2: torch.Tensor,
     out[:, half:].view(n, c // 8, MLP_CHUNK, 8).copy_(
         w2.detach().reshape(n, MLP_CHUNK, c // 8, 8).permute(0, 2, 1, 3))
     return out
+
+
+def pack_mlp_slabs(w1: torch.Tensor, w2: torch.Tensor, slab: int, chunk: int,
+                   dtype: torch.dtype = torch.bfloat16):
+    """Both weight matrices in the slab body's layout
+    (``csrc/ln_mlp_slab.cu``): ``(w1p, w2p)``, w1p ``(hidden / chunk, C *
+    chunk)`` with row j = ``w1[:, chunk j ..]`` and w2p ``(slabs, hidden /
+    chunk, chunk * slab)`` with row (s, j) = ``w2[chunk j .., slab s ..]``
+    (the columns past C zero), each as a (k, n) matrix in the N-major layout
+    of ``pack_mlp_weights``, ``[n // 8][k][n % 8]``.  Each is one contiguous
+    copy into the kernel's ring."""
+    c, ch = w1.shape
+    if tuple(w2.shape) != (ch, c) or ch % chunk or c % 8 or slab % 8:
+        raise ValueError(f"pack_mlp_slabs: {tuple(w1.shape)}, {tuple(w2.shape)}")
+    n, slabs = ch // chunk, -(-c // slab)
+    w1p = torch.empty(n, chunk // 8, c, 8, dtype=dtype, device=w1.device)
+    w1p.copy_(w1.detach().reshape(c, n, chunk // 8, 8).permute(1, 2, 0, 3))
+    w2pad = torch.zeros(ch, slabs * slab, dtype=dtype, device=w2.device)
+    w2pad[:, :c] = w2.detach()
+    w2p = w2pad.reshape(n, chunk, slabs, slab // 8, 8).permute(2, 0, 3, 1, 4).contiguous()
+    return w1p.reshape(n, chunk * c), w2p.reshape(slabs, n, chunk * slab)
 
 
 def unpack_mlp_weights(packed: torch.Tensor, c: int):
@@ -196,12 +293,13 @@ def ln_mlp_bwd_plain(x, dy, ln_scale, ln_bias, w1, b1, w2):
 
 class _LnMlp(torch.autograd.Function):
     """Forward kernel B, backward kernel 5 (``fused_ln_mlp``'s custom VJP).
-    ``tiles`` forces the forward's CUDA-core body."""
+    ``body`` ("tiles" or "slab") forces the forward's body; "" is
+    ``mlp_fwd_body``'s choice."""
 
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, tiles):
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, body):
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2)
-        return _library.ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles)
+        return _library.ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, body)
 
     @staticmethod
     def backward(ctx, dy):
@@ -212,11 +310,11 @@ class _LnMlp(torch.autograd.Function):
 def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     """``y = x + fc2(gelu(fc1(LN(x))))`` over the last axis of x (any
     leading shape); same contract as ``fused_ln_mlp``, differentiable
-    (kernel 5).  ``mlp_fwd_body`` picks the body; counts the tensor-core
-    body's launches."""
+    (kernel 5).  ``mlp_fwd_body`` picks the body; counts the wgmma body's
+    launches (C <= 192)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ln_mlp: unsupported device {x.device}")
-    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, False)
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, "")
 
 
 ln_mlp.launches = 0
@@ -229,10 +327,23 @@ def ln_mlp_tiles(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     take)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ln_mlp_tiles: unsupported device {x.device}")
-    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, True)
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, "tiles")
 
 
 ln_mlp_tiles.launches = 0
+
+
+def ln_mlp_slab(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
+    """``ln_mlp`` with the forward on its slab body (``csrc/ln_mlp_slab.cu``;
+    bf16, C % 16 == 0, 16 <= C <= 1024, a hidden width divisible by 64, else
+    it raises on the card: the route gives it 192 < C only); counts that
+    body's launches (also those the route makes through ``ln_mlp``)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ln_mlp_slab: unsupported device {x.device}")
+    return _LnMlp.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, "slab")
+
+
+ln_mlp_slab.launches = 0
 
 
 def _check_mlp(what, x, w1, w2):
@@ -257,11 +368,15 @@ def _mlp_vectors(ln_scale, ln_bias, b1, c, ch, dev):
         lambda: (_vec(ln_scale, c, dev), _vec(ln_bias, c, dev), _vec(b1, ch, dev)))
 
 
-def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles=False) -> torch.Tensor:
+def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, body: str = "") -> torch.Tensor:
     c, ch = _check_mlp("ln_mlp", x, w1, w2)
-    body = mlp_fwd_body(c, ch, x.dtype)  # (raises where neither body takes it)
-    if tiles:
-        body = "tiles"
+    chosen = mlp_fwd_body(c, ch, x.dtype)  # (raises where no body takes it)
+    body = body or chosen
+    if body == "slab" and not _slab_takes(c, ch, x.dtype):
+        raise NotImplementedError(
+            f"ln_mlp_slab: the slab body takes bf16, C % 16 == 0, {MLP_SLAB_MIN_C} <= C <= "
+            f"{MLP_SLAB_MAX_C} and a hidden width divisible by {_MS_HIDDEN} (got {x.dtype}, "
+            f"C={c}, hidden {ch})")
     dev, dt = x.device, x.dtype
     shape = x.shape
     x2 = cuda_lib.aligned(x.reshape(-1, c))  # (contiguous; rows are read 16 bytes at a time)
@@ -278,6 +393,18 @@ def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles=False) -> torch.Ten
             x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), wp.data_ptr(), b1c.data_ptr(),
             b2c.data_ptr(), y.data_ptr(), x2.shape[0], c, ch, cuda_lib.stream_ptr(x2),
         )
+    elif body == "slab":
+        cs, hc, _ = mlp_slab_shape(c)
+        w1p, w2p = _packs.get((w1, w2), ("mlp slab", cs, hc, str(dev)),
+                              lambda: pack_mlp_slabs(w1.to(dev), w2.to(dev), cs, hc, dt))
+        ls, lb, b1c = _mlp_vectors(ln_scale, ln_bias, b1, c, ch, dev)
+        b2c = _packs.get(() if b2 is None else (b2,), ("mlp b2", c, str(dev)),
+                         lambda: _vec(b2, c, dev))
+        err = lib.vadcl_ln_mlp_slab(
+            x2.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1p.data_ptr(), w2p.data_ptr(),
+            b1c.data_ptr(), b2c.data_ptr(), y.data_ptr(), x2.shape[0], c, ch,
+            cuda_lib.stream_ptr(x2),
+        )
     else:
         ls, lb = _f32(ln_scale, c, dev), _f32(ln_bias, c, dev)
         b1c, b2c = _f32(b1, ch, dev), _f32(b2, c, dev)
@@ -289,7 +416,7 @@ def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, tiles=False) -> torch.Ten
             x2.shape[0], c, ch, int(dt == torch.bfloat16), cuda_lib.stream_ptr(x2),
         )
     cuda_lib.check(err, f"ln_mlp ({body} body)")
-    (ln_mlp if body == "wgmma" else ln_mlp_tiles).launches += 1
+    {"wgmma": ln_mlp, "slab": ln_mlp_slab, "tiles": ln_mlp_tiles}[body].launches += 1
     return y.reshape(shape)
 
 
