@@ -48,7 +48,11 @@ Phases (any failure raises and the script exits non-zero):
      384) hidden 1536 and (1568, 896) hidden 3584, each timed beside the
      CUDA-core body forced and the plain version, and C = 100 on the
      CUDA-core body (``ln_mlp_tiles``); kernel 5 at C = 18 and 30 (scalar
-     loads) in bf16 and fp32 and at 896; fp32 ``cluster_assign`` at C = 200,
+     loads) in bf16 and fp32 and at 896; kernel 5's slab body (bf16) at
+     (6272, 256) and (3136, 256) hidden 1024 and C = 384, 512, 592
+     hidden 4C against its plain version, two calls for the same bits, timed
+     beside its CUDA-core body forced, each launch's device ms at C = 256,
+     and forced at C = 96 and 192 beside the narrow body; fp32 ``cluster_assign`` at C = 200,
      256, 384, 512 and 768 (each wider instance) and at 769, 896, 1024, 1536
      and 2048 (channels split over clusters of 2 and 4 blocks); two calls
      for the same bits, ``allow_tf32`` flipped at 256, 896 and 1536.
@@ -66,6 +70,10 @@ Phases (any failure raises and the script exits non-zero):
      ``window_partition`` calls asserted; the attention call that route
      makes inside the block, and under ``base`` its gradients, against
      their plain versions on the inputs it was handed.
+  2/2b, head widths 144-1024: the row-tiled CUDA-core cores of
+     7, 9 and 8 streaming the head's channels, one head a window, fp32 and
+     bf16, against their plain versions, the row-tiled counters asserted,
+     two calls for the same bits, timed beside the plain versions.
   2/2b, head width 12: the bf16 CUDA-core bodies of 7, 9 and 8 against their
      plain versions, whole-tile (N = 98) and row-tiled (N = 196), shifted,
      two calls for the same bits, each timed beside the same body in fp32.
@@ -138,8 +146,10 @@ Phases (any failure raises and the script exits non-zero):
      attention body printed, scoring at batch 16 with 12 launches of B's slab
      body and 6 of its wgmma body a forward, scores against the plain path on
      the card, the forward's device-busy ms with the slab body and with the
-     CUDA-core body forced, three ``train()`` steps at batch 4 against three
-     of the plain path.
+     CUDA-core body forced, a batch-4 forward and backward's with kernel 5's
+     slab body (12 launches) and with its CUDA-core body forced, three
+     ``train()`` steps at batch 4 (12 launches of kernel 5's slab body a step,
+     none of its CUDA-core body) against three of the plain path.
   5. the training path in bf16: ``train()`` on the flagship config from a
      seeded init with an in-memory uint8 loader at batch 4, 2 warm-up and
      8 timed steps, under ``"fold"``, ``"base"`` and ``"fold_block"`` in
@@ -229,7 +239,8 @@ Phases (any failure raises and the script exits non-zero):
      a process of its own: exit 0 and a per-scene AUC.
 No earlier path was cut: the whole run takes about six minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
-kernels, kernel B's CUDA-core body, the whole-block forward's and
+kernels, kernel B's CUDA-core and slab bodies, kernel 5's slab body (its
+launches from the Swin-B-width training run), the whole-block forward's and
 backward's bodies of PR 4, and the bf16 CUDA-core instances of 7, 8 and 9
 (counted on their fp32 bodies' counters, reported from the embed_dim 24
 model's runs) (its time beside its roofline bound on
@@ -464,6 +475,23 @@ def phase_build():
     print("  kernel B's CUDA-core block and slab instance, kernel 5's CUDA-core tile, and kernel "
           "C's instance and channel split by width (C = 1 .. 2100 and the limits) agree with "
           "the library")
+    from vadcl_tpu_torch.ops.ln_mlp import (
+        MLP_BWD_SLAB_SHAPES, mlp_bwd_slab_shape, mlp_bwd_slab_smem_bytes,
+    )
+
+    for c in range(1, 2101):
+        shape = mlp_bwd_slab_shape(c)
+        if (MLP_BWD_SLAB_SHAPES.index(shape) if shape else -1) != lib.vadcl_ln_mlp_bwd_slab_shape(c):
+            raise AssertionError(f"mlp_bwd_slab_shape({c}) disagrees with the library")
+        if shape and any(mlp_bwd_slab_smem_bytes(c, st) != lib.vadcl_ln_mlp_bwd_slab_smem_bytes(c, st)
+                         for st in (2, 3, 4)):
+            raise AssertionError(f"mlp_bwd_slab_smem_bytes({c}) disagrees with the library")
+    for _, c, _, _ in SWIN_B_STAGES:
+        want = "slab" if c > 192 else "mma"
+        if mlp_bwd_body(c, 4 * c, torch.bfloat16) != want:
+            raise AssertionError(f"the Video Swin-B width's C = {c} must take kernel 5's {want} body")
+    print("  kernel 5's slab body: its instance and layout by width (C = 1 .. 2100) agree with "
+          "the library; the Video Swin-B width's C = 256 takes it, C = 128 the narrow body")
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_block_fits, fold_block_fwd_body, fold_block_fwd_mma_smem_bytes,
         fold_block_smem_bytes, fold_packed_fits,
@@ -525,8 +553,8 @@ def phase_build():
 
     checked = 0
     for c, nh in ((96, 6), (192, 12), (96, 3), (192, 6), (32, 2), (64, 4), (24, 2), (64, 1),
-                  (48, 4), (72, 6), (80, 1)):
-        for n in (1, 16, 49, 98, 112, 113, 147, 196, 245, 343, 392):
+                  (48, 4), (72, 6), (80, 1), (144, 1), (288, 1), (576, 2), (1024, 1), (2048, 1)):
+        for n in (1, 16, 49, 98, 112, 113, 147, 196, 245, 343, 392, 677, 678, 1411, 1412):
             for bf16 in (0, 1):
                 mine = (tile_smem_bytes(n, c, nh, bool(bf16)),
                         tile_smem_bytes(n, c, nh, bool(bf16), backward=True),
@@ -577,9 +605,16 @@ def phase_build():
             for dtype in (torch.bfloat16, torch.float32):
                 for backward in (False, True):
                     window_body(n, c, nh, dtype, backward)  # raises where no body fits
+    for hd in range(1, 2049):  # every head width a 4-frame window may have
+        for n in (49, 98):
+            for dtype in (torch.bfloat16, torch.float32):
+                for backward in (False, True):
+                    window_body(n, hd, 1, dtype, backward)
     print(f"  tile_smem_bytes / rows_smem_bytes (the body choice of kernels 7, 8, 9) agree "
-          f"with the library at {checked} cases; every N up to 392 at C=96/6, 192/12 and head "
-          "width 32 maps to a body, both dtypes and directions; the bf16 row-tiled cores' "
+          f"with the library at {checked} cases (heads up to 2048 wide, windows up to 1412 "
+          "tokens); every N up to 392 at C=96/6, 192/12 and head width 32, and every head width "
+          "up to 2048 at N = 49 and 98, maps to a body, both dtypes and directions; the bf16 "
+          "row-tiled cores' "
           f"groups of windows (0: the direct layout) and their layouts, forward and backward, "
           f"agree with the library at {groups} cases")
     from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
@@ -1071,6 +1106,15 @@ WIDE_BWD_CASES = ((18, 72, 1000, (torch.bfloat16, torch.float32)),
                   (30, 120, 1000, (torch.bfloat16, torch.float32)),
                   (896, 3584, 1568, (torch.bfloat16,)), (2048, 8192, 128, (torch.bfloat16,)),
                   (3500, 14000, 64, (torch.bfloat16,)))
+# kernel 5's slab body: the Video Swin-B width's inner stages at the training
+# batch of 4 and of 2, then the slab of 128 at C = 384, 512 and C_max (592,
+# the last slab cut at 80 columns): C, hidden, tokens; the first is its row
+# of the kernels line
+WIDE_BWD_SLAB_CASES = ((256, 1024, 6272), (256, 1024, 3136), (384, 1536, 3136),
+                       (512, 2048, 3136), (592, 2368, 3136))
+# the slab body forced at widths the narrow body takes (the flagship's at the
+# training batch of 4), timed beside it: C, hidden, tokens
+BWD_SLAB_AT_NARROW = ((96, 384, 25088), (192, 768, 6272))
 WIDE_CLUSTER_CASES = ((6272, 256, 1024), (1000, 200, 1000), (1000, 384, 1024),
                       (777, 512, 1000), (500, 768, 1024), (100, 769, 64), (1568, 896, 1024),
                       (1000, 1024, 1024), (500, 1536, 1024), (300, 2048, 128),
@@ -1109,20 +1153,28 @@ def phase_width_kernels() -> dict:
     (C % 16 != 0) on the CUDA-core body, and that body on 8- and 4-token
     blocks (C = 2048 and 4096); kernel 5 at C = 18 and 30 (scalar loads) in
     bf16 and fp32 and on 8-, 4- and 2-token tiles (C = 896, 2048, 3500);
-    fp32 ``cluster_assign`` at C = 200-768 (each wider instance) and at
+    bf16 kernel 5 on its slab body (``WIDE_BWD_SLAB_CASES``: (6272, 256) and
+    (3136, 256) hidden 1024, C = 384, 512 and 592 hidden 4C) against
+    ``ln_mlp_bwd_plain`` at ``BWD_TOL``, its counter asserted, two calls for
+    the same bits, timed beside the plain version and the CUDA-core body
+    forced, with its fp32-operation bound, its split-bf16 bound and its
+    workspace's bytes; the slab body forced at C = 96 and 192 beside the
+    narrow body; fp32 ``cluster_assign`` at C = 200-768 (each wider instance) and at
     769-6144 (channels split over clusters of 2, 4 and 8 blocks: each split
     instance), held against a float64 reference and, up to
     ``CLUSTER_FP32_GATE_MAX_C``, the fp32 plain version; two calls and
     ``allow_tf32`` flipped for the same bits.
-    Returns the slab body's stats at (25088, 256) and the CUDA-core body's at
-    (6272, 256) for the kernels line."""
+    Returns the slab body's stats at (25088, 256), the CUDA-core body's at
+    (6272, 256) and kernel 5's slab body's at (6272, 256) for the kernels
+    line."""
     from vadcl_tpu_torch.ops.cluster import cdist
     from vadcl_tpu_torch.ops.cluster_kernels import (
         cluster_assign, cluster_assign_blocks, cluster_assign_plain, cluster_assign_shape,
     )
+    from vadcl_tpu_torch.ops import cuda_lib
     from vadcl_tpu_torch.ops.ln_mlp import (
-        ln_mlp, ln_mlp_bwd, ln_mlp_bwd_plain, ln_mlp_bwd_tiles, ln_mlp_plain, ln_mlp_slab,
-        ln_mlp_tiles, mlp_bwd_tokens, mlp_fwd_body, mlp_fwd_tokens,
+        ln_mlp, ln_mlp_bwd, ln_mlp_bwd_plain, ln_mlp_bwd_slab, ln_mlp_bwd_tiles, ln_mlp_plain,
+        ln_mlp_slab, ln_mlp_tiles, mlp_bwd_tokens, mlp_fwd_body, mlp_fwd_tokens,
     )
 
     print("[2] kernels B, 5 and C above the flagship's widths")
@@ -1216,6 +1268,59 @@ def phase_width_kernels() -> dict:
                 raise AssertionError(f"{name}: did not run the CUDA-core body")
             check_grads(name, MLP_BWD_NAMES, got, ln_mlp_bwd_plain(x, dy, *p), BWD_TOL[dtype])
             same_bits(name, got, ln_mlp_bwd(x, dy, *p))
+
+    # kernel 5's slab body through the route, beside the CUDA-core body it replaces
+    lib, bf, bwd_slab_errs = cuda_lib.library(), torch.bfloat16, []
+    for C, hidden, tokens in WIDE_BWD_SLAB_CASES:
+        p = _mlp_case(C, hidden, gen)[:5]
+        x = torch.randn(tokens, C, generator=gen).to(DEV, bf)
+        dy = torch.randn(x.shape, generator=gen).to(DEV, bf)
+        name = f"ln_mlp_bwd ({tokens},{C}) hidden {hidden} bf16 (slab body)"
+        got, moved = _launched(lambda: ln_mlp_bwd(x, dy, *p))
+        if moved != {"ln_mlp_bwd_slab": 1}:
+            raise AssertionError(f"{name}: launches {moved}, expected one of the slab body")
+        bwd_slab_errs.append(check_grads(name, MLP_BWD_NAMES, got, ln_mlp_bwd_plain(x, dy, *p),
+                                         BWD_TOL[bf]))
+        same_bits(name, got, ln_mlp_bwd(x, dy, *p))
+        ms = cuda_ms(lambda: ln_mlp_bwd(x, dy, *p))
+        tiles_ms = cuda_ms(lambda: ln_mlp_bwd_tiles(x, dy, *p))
+        pms = cuda_ms(lambda: ln_mlp_bwd_plain(x, dy, *p))
+        # the contract's five products in fp32 (8 C hidden each a token), the
+        # nine split-bf16 passes as the body runs them, and its workspace
+        # written once and read once
+        b = bound([x, dy, *p, *got], tokens * 10.0 * C * hidden, "fp32")
+        split_ms = mlp_split_flops(tokens, C) * hidden / (4 * C) / PEAK_FLOPS["bf16"] * 1e3
+        ws_ms = 2 * lib.vadcl_ln_mlp_bwd_slab_workspace_bytes(tokens, C, hidden) / HBM_BYTES_PER_S * 1e3
+        print(f"    time: slab body {ms:.4f} ms, CUDA-core body {tiles_ms:.4f} ms, plain "
+              f"{pms:.4f} ms; bound {b['bound_ms']:.5f} ms (fp32 {b['bound_by']}): slab body at "
+              f"{b['bound_ms'] / ms:.2%} of it, {pms / ms:.2f}x the plain version's speed, "
+              f"{tiles_ms / ms:.2f}x the CUDA-core body's; split-bf16 passes {split_ms:.5f} ms, "
+              f"workspace bytes {ws_ms:.5f} ms")
+        if C == 256:  # each launch's device ms: pass 1, the dx pass, the second pass
+            print("    launches (profiler, device ms): " + "; ".join(
+                f"{k} {v:.4f}" for k, v in launch_ms(lambda: ln_mlp_bwd(x, dy, *p))))
+        if (tokens, C) == (6272, 256):
+            stats["ln_mlp_bwd_slab"] = dict(
+                ms=ms, plain_ms=pms, tiles_ms=tiles_ms, split_bound_ms=split_ms,
+                workspace_bound_ms=ws_ms, shape=f"x ({tokens},{C}) bf16, hidden {hidden}", **b)
+        del p, x, dy, got
+    for C, hidden, tokens in BWD_SLAB_AT_NARROW:
+        p = _mlp_case(C, hidden, gen)[:5]
+        x = torch.randn(tokens, C, generator=gen).to(DEV, bf)
+        dy = torch.randn(x.shape, generator=gen).to(DEV, bf)
+        name = f"ln_mlp_bwd_slab ({tokens},{C}) hidden {hidden} bf16 (forced)"
+        got, moved = _launched(lambda: ln_mlp_bwd_slab(x, dy, *p))
+        if moved != {"ln_mlp_bwd_slab": 1}:
+            raise AssertionError(f"{name}: launches {moved}")
+        bwd_slab_errs.append(check_grads(name, MLP_BWD_NAMES, got, ln_mlp_bwd_plain(x, dy, *p),
+                                         BWD_TOL[bf]))
+        same_bits(name, got, ln_mlp_bwd_slab(x, dy, *p))
+        ms = cuda_ms(lambda: ln_mlp_bwd(x, dy, *p))
+        sms = cuda_ms(lambda: ln_mlp_bwd_slab(x, dy, *p))
+        print(f"    time: narrow tensor-core body {ms:.4f} ms, slab body {sms:.4f} ms "
+              f"({sms / ms:.3f}x)")
+        del p, x, dy, got
+    stats["ln_mlp_bwd_slab"]["max_abs_err"] = max(bwd_slab_errs)
 
     for n, c, k in WIDE_CLUSTER_CASES:
         tokens = torch.randn(n, c, generator=gen).cuda()
@@ -2057,6 +2162,63 @@ def _win_case_n(windows, n, C, nh, dtype, gen, masked, n_windows=2, qkv_bias=Tru
     )
 
 
+# Kernels 7, 9 and 8 at head widths the whole-head CUDA-core cores refused: one
+# head a window (C = head width), 8 windows of two mask classes; (head width,
+# N).  At 144 and N = 98 the forward keeps the whole-head core and the
+# backward streams; the rest stream both ways.
+STREAMED_CASES = ((144, 98), (288, 98), (1024, 98), (1024, 49))
+
+
+def phase_streamed_attention() -> None:
+    """The row-tiled CUDA-core cores of kernels 7, 9 and 8 where they stream
+    the head's channels (``rows_streams``): each ``STREAMED_CASES`` case in
+    fp32 and bf16, the forward of 7 and of 9 and the backward of 8 through
+    their routes against their plain versions (``BOUNDS``, ``BWD_TOL``), the
+    row-tiled counters asserted, two calls for the same bits; each timed
+    beside its plain version and its bound in bf16."""
+    from vadcl_tpu_torch.ops import window_attn as wa
+
+    print("[2] kernels 7, 9 and [2b] 8 at head widths 144-1024 (the streamed CUDA-core cores)")
+    gen = torch.Generator().manual_seed(17)
+    fwd = (("window_attention_fused_rows", wa.window_attention_fused,
+            wa.window_attention_fused_plain),
+           ("window_attention_packed_rows", wa.window_attention_packed,
+            wa.window_attention_packed_plain))
+    for hd, n in STREAMED_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = (f"head width {hd}, N={n}, {str(dtype)[6:]} (forward "
+                   f"{'streamed' if wa.rows_streams(n, hd, 1) else 'whole head'}, backward "
+                   f"{'streamed' if wa.rows_streams(n, hd, 1, True) else 'whole head'})")
+            a = _win_case_n(8, n, hd, 1, dtype, gen, masked=True)
+            for counter, kernel, plain in fwd:
+                name = f"{counter} {tag}"
+                got, moved = _launched(lambda: kernel(**a))
+                if moved != {counter: 1}:
+                    raise AssertionError(f"{name}: launches {moved}, expected one of {counter}")
+                check_close(name, got, plain(**a), *BOUNDS[dtype])
+                same_bits(name, (got,), (kernel(**a),))
+                if dtype == torch.bfloat16:
+                    ms, _ = time_pair(lambda: kernel(**a), lambda: plain(**a))
+                    b = bound(tensors_of(a, [got]), attn_flops(8 * n, hd, n), "bf16")
+                    print(f"    bound {b['bound_ms']:.5f} ms ({b['bound_by']}): "
+                          f"{b['bound_ms'] / ms:.2%} of it")
+            w = _win_bwd_case(a, gen)
+            name = f"window_attention_fused_bwd_rows {tag}"
+            got, moved = _launched(lambda: wa.window_attention_fused_bwd(**w))
+            if moved != {"window_attention_fused_bwd_rows": 1}:
+                raise AssertionError(f"{name}: launches {moved}")
+            check_grads(name, WIN_BWD_NAMES, got, wa.window_attention_fused_bwd_plain(**w),
+                        BWD_TOL[dtype])
+            same_bits(name, got, wa.window_attention_fused_bwd(**w))
+            if dtype == torch.bfloat16:
+                ms, _ = time_pair(lambda: wa.window_attention_fused_bwd(**w),
+                                  lambda: wa.window_attention_fused_bwd_plain(**w))
+                b = bound(tensors_of(w, got), attn_flops(8 * n, hd, n, backward=True), "bf16")
+                print(f"    bound {b['bound_ms']:.5f} ms ({b['bound_by']}): "
+                      f"{b['bound_ms'] / ms:.2%} of it")
+            del a, w, got
+
+
 def phase_row_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> dict:
     """The row-tiled bodies of kernels 7, 9 (forward) and 8 (backward)
     against their plain versions: at N = 147, 196, 245 and 392 at C = 96 / 6
@@ -2381,10 +2543,11 @@ def phase_model_grads(attn_kernel: str = "fold", depths=None, image_size: int = 
 WIDE_MODEL_TOL = {torch.float32: (1e-4, 2e-3), torch.bfloat16: (2e-2, 1e-1)}
 # The kernels each tiny model at widths above the presets' must launch: B on
 # its slab body in bf16 (C % 16 == 0 up to 1024) or its CUDA-core body, 5 on
-# its CUDA-core body, C (above 768 with its channels split over blocks).
+# its slab body in bf16 (C % 16 == 0 up to 592) or its CUDA-core body, C
+# (above 768 with its channels split over blocks).
 WIDE_MODEL_REQUIRED = {
     torch.float32: {"ln_mlp_tiles", "ln_mlp_bwd_tiles", "cluster_assign"},
-    torch.bfloat16: {"ln_mlp_slab", "ln_mlp_bwd_tiles", "cluster_assign"},
+    torch.bfloat16: {"ln_mlp_slab", "ln_mlp_bwd_slab", "cluster_assign"},
 }
 # Phase 3e's gradient bound in bf16 holds the scale and bias gradients of the
 # frozen BatchNorms (``models.layers.FrozenBatchNorm``: cuDNN and torch's CPU
@@ -2397,7 +2560,8 @@ WIDE_MODEL_REQUIRED = {
 EVERY_WIDTH_GRAD_FLOOR = {torch.bfloat16: 1e-4, torch.float32: 0.0}
 # name: (embed_dim, encoder heads, decoder heads, the bf16 kernels it needs)
 EVERY_WIDTH_MODELS = {
-    "embed_dim 448": (448, (14, 28), (28, 14), WIDE_MODEL_REQUIRED[torch.bfloat16]),
+    "embed_dim 448": (448, (14, 28), (28, 14),
+                      WIDE_MODEL_REQUIRED[torch.bfloat16] | {"ln_mlp_bwd_tiles"}),
     "embed_dim 18": (18, (6, 12), (12, 6), WIDE_MODEL_REQUIRED[torch.float32]),
 }
 
@@ -2504,10 +2668,9 @@ def card_vs_cpu(label: str, cfg, dtype, required, seed: int = 21, floor: float =
 
 def phase_wide_model(dtype=torch.bfloat16) -> dict:
     """The ``embed_dim`` 128 model (``wide_config``) card against CPU in
-    ``dtype`` (``card_vs_cpu``): the kernels at C = 256 (kernel B's slab
-    body in bf16 and its CUDA-core body in fp32, kernel 5's CUDA-core body,
-    kernel C's two-part instance) launch, and nothing on the path refuses
-    the width.  Returns the launch counts (fp32: the kernels line's count
+    ``dtype`` (``card_vs_cpu``): the kernels at C = 256 (kernels B's and 5's
+    slab bodies in bf16 and their CUDA-core bodies in fp32, kernel C's
+    two-part instance) launch, and nothing on the path refuses the width.  Returns the launch counts (fp32: the kernels line's count
     for ``ln_mlp_tiles``)."""
     name = str(dtype)[6:]
     print(f"[3c] fused tiny model at embed_dim 128 (C = 128 and 256, head width 32), {name}: "
@@ -2519,8 +2682,9 @@ def phase_every_width_models() -> dict:
     """Fused tiny models at the widths the card refused before, card against
     CPU in bf16 and fp32 (``card_vs_cpu``: forward, loss and every
     gradient): ``embed_dim`` 448, heads (14, 28) / (28, 14) (kernel B at
-    C = 448 and 896 on its slab body in bf16, kernel 5 at 448 and 896 on
-    8-token tiles, the feature head at C = 896 over two blocks a row tile);
+    C = 448 and 896 on its slab body in bf16, kernel 5 at 448 on its slab
+    body in bf16 and at 896 on 8-token tiles, the feature head at C = 896
+    over two blocks a row tile);
     ``embed_dim`` 18, heads (6, 12) / (12, 6) (kernel 5 at C = 18 on scalar
     loads, head width 3 on the partitioned-window CUDA-core bodies).
     Bounds: ``card_vs_cpu``'s, in bf16 with ``EVERY_WIDTH_GRAD_FLOOR``.
@@ -3121,7 +3285,7 @@ def phase_swin_b_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> li
     backward at the training batch (shifted and not: kernel A or 7, kernel 6
     or 8, on the body the route picks, asserted by its counter), kernel B at
     the scoring batch and kernel 5 at the training batch (C = 256: the slab
-    body and 5's CUDA-core body at (6272, 256) and (3136, 256), hidden 1024);
+    bodies of B and of 5, 5's at (6272, 256) and (3136, 256), hidden 1024);
     each called twice for the same bits, timed beside its plain version and
     its bound.  Prints the kernels ranked by launches x (ms - bound), a
     forward's for A, 7 and B, a step's for 6, 8 and 5, and returns the rows
@@ -3202,7 +3366,8 @@ def phase_swin_b_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> li
         b = bound([x, got, *p], mlp_flops(x.shape[0], C), "bf16")
         rows.append(("ln_mlp", stage, counter, blocks, cuda_ms(lambda: ln_mlp(x, *p)),
                      cuda_ms(lambda: ln_mlp_plain(x, *p)), b["bound_ms"]))
-        counter = {"mma": "ln_mlp_bwd", "tiles": "ln_mlp_bwd_tiles"}[mlp_bwd_body(C, 4 * C, bf)]
+        counter = {"mma": "ln_mlp_bwd", "slab": "ln_mlp_bwd_slab",
+                   "tiles": "ln_mlp_bwd_tiles"}[mlp_bwd_body(C, 4 * C, bf)]
         p = p[:5]
         x = torch.randn(train_batch * D * H * W, C, generator=gen).to(DEV, bf)
         dy = torch.randn(x.shape, generator=gen).to(DEV, bf)
@@ -3234,19 +3399,20 @@ def swin_b_config(fused: bool = True):
 
 
 @contextlib.contextmanager
-def slab_body_forced_off():
-    """While open, kernel B's route gives the CUDA-core body the widths it
-    gives the slab body (the body those widths ran on before)."""
+def slab_body_forced_off(route: str = "mlp_fwd_body"):
+    """While open, kernel B's route (with ``route="mlp_bwd_body"``, kernel
+    5's) gives the CUDA-core body the widths it gives the slab body (the
+    body those widths ran on before)."""
     import importlib
 
     mod = importlib.import_module("vadcl_tpu_torch.ops.ln_mlp")
-    real = mod.mlp_fwd_body
-    mod.mlp_fwd_body = lambda c, ch, dtype: ("tiles" if real(c, ch, dtype) == "slab"
-                                              else real(c, ch, dtype))
+    real = getattr(mod, route)
+    setattr(mod, route, lambda c, ch, dtype: ("tiles" if real(c, ch, dtype) == "slab"
+                                              else real(c, ch, dtype)))
     try:
         yield
     finally:
-        mod.mlp_fwd_body = real
+        setattr(mod, route, real)
 
 
 def kernel_table(fn, top: int = 12) -> list:
@@ -3280,9 +3446,13 @@ def phase_swin_b(smi: str) -> dict:
     the scores against the same weights on the plain path on the card
     (``utils/parity.py:score_bound`` in bf16); times one batch-16 forward's
     device-busy ms (profiler) with the slab body and with the CUDA-core body
-    forced in its place; then three ``train()`` steps at batch 4, their
-    launches counted, whose losses are held against three steps of the plain
-    path from the same seed and data (the bf16 kernel bound, rtol 2e-2).
+    forced in its place; a batch-4 forward and backward's longest kernels
+    and device-busy ms with kernel 5's slab body (12 launches) and with its
+    CUDA-core body forced in its place; then three ``train()`` steps at
+    batch 4, their launches counted (12 of kernel 5's slab body a step, none
+    of its CUDA-core body), whose losses are held against three steps of
+    the plain path from the same seed and data (the bf16 kernel bound, rtol
+    2e-2).
     Returns the launch counts of the scoring and the training run."""
     from vadcl_tpu_torch.eval.predict import (
         eval_input_frames, evaluate_videos, make_video_scorer, sliding_windows,
@@ -3369,9 +3539,26 @@ def phase_swin_b(smi: str) -> dict:
 
     forward_backward()
     table = kernel_table(forward_backward)
-    model.zero_grad(set_to_none=True)
     print(f"  a batch-{TRAIN_BATCH} forward and backward's longest kernels (device ms, "
           "launches): " + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in table))
+    from vadcl_tpu_torch.ops import ln_mlp_bwd_slab, ln_mlp_bwd_tiles
+
+    reset_launches()
+    busy_bwd, _ = traced_call(forward_backward)
+    if ln_mlp_bwd_slab.launches != 12 or ln_mlp_bwd_tiles.launches:
+        raise AssertionError("a forward and backward must run kernel 5's slab body 12 times")
+    with slab_body_forced_off("mlp_bwd_body"):
+        forward_backward()
+        reset_launches()
+        old_bwd, _ = traced_call(forward_backward)
+        if ln_mlp_bwd_tiles.launches != 12 or ln_mlp_bwd_slab.launches:
+            raise AssertionError("the forced backward did not run 5's CUDA-core body 12 times")
+        old_table = kernel_table(forward_backward)
+    model.zero_grad(set_to_none=True)
+    print(f"  one batch-{TRAIN_BATCH} forward and backward, device busy: {busy_bwd:.3f} ms with "
+          f"kernel 5's slab body, {old_bwd:.3f} ms with its CUDA-core body forced in its place "
+          f"[{smi}]; the forced run's longest kernels: "
+          + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in old_table[:4]))
     del model, plain, fused_scorer, plain_scorer
     torch.cuda.empty_cache()
 
@@ -3391,10 +3578,11 @@ def phase_swin_b(smi: str) -> dict:
                 steps = SWIN_B_STEPS
                 counts["training swin-b fold"] = read_required(
                     {"ln_mlp", "ln_mlp_slab", "fold_attention", "cluster_assign",
-                     "space_cluster_loss", "ln_mlp_bwd", "ln_mlp_bwd_tiles"},
+                     "space_cluster_loss", "ln_mlp_bwd", "ln_mlp_bwd_slab"},
                     "training, Swin-B width",
                     {"ln_mlp_slab": 12 * steps, "ln_mlp": 6 * steps,
-                     "ln_mlp_bwd_tiles": 12 * steps, "ln_mlp_bwd": 6 * steps})
+                     "ln_mlp_bwd_slab": 12 * steps, "ln_mlp_bwd": 6 * steps,
+                     "ln_mlp_bwd_tiles": 0})
             losses[label] = np.load(os.path.join(out, "loss_record", "loss.npy"))
             if state.step != SWIN_B_STEPS or not np.all(np.isfinite(losses[label])):
                 raise AssertionError(f"Swin-B width, {label}: a step did not run or its loss is "
@@ -4759,6 +4947,8 @@ REPLACES = {
     "window_attention_packed_tiles": ("vadcl_tpu_torch/csrc/window_attn.cu",
                                       "vadcl_tpu/ops/pallas_attn.py:113"),
     "ln_mlp_slab": ("vadcl_tpu_torch/csrc/ln_mlp_slab.cu", "vadcl_tpu/ops/pallas_mlp.py:70"),
+    "ln_mlp_bwd_slab": ("vadcl_tpu_torch/csrc/ln_mlp_bwd_slab.cu",
+                        "vadcl_tpu/ops/pallas_mlp.py:87"),
 }
 # The bf16 CUDA-core instances of 7, 8 and 9 (head widths the tensor-core
 # bodies refuse) count their launches on the counter of the same body in
@@ -4797,6 +4987,7 @@ COUNTED_ON = {
     "window_attention_fused_bwd_rows": "training fold, reconstruction",
     "window_attention_packed_rows": "scoring packed, reconstruction",
     "ln_mlp_tiles": "wide model fp32", "ln_mlp_slab": "scoring swin-b fold",
+    "ln_mlp_bwd_slab": "training swin-b fold",
     "fold_block_bwd_tiles": "model grads fold_block fp32",
     "fold_block_tiles": "model grads fold_block fp32",
     "window_attention_fused_tiles": "model base fp32",
@@ -4816,6 +5007,7 @@ def main():
     stats.update(phase_window_fold_route(BATCH_WINDOWS, TRAIN_BATCH))
     phase_grid_blocks(TRAIN_BATCH)
     stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
+    phase_streamed_attention()
     stats.update(phase_narrow_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_model("fold", REDUCED_DEPTHS)
     counts = {"model base fp32": phase_model("base")}

@@ -273,7 +273,7 @@ def test_fold_block_fits_takes_hidden_widths_off_128():
 def test_both_bodies_count_their_launches_and_cpu_calls_do_not():
     names = {k.__name__ for k in KERNELS}
     assert {"fold_block", "fold_block_tiles"} <= names
-    assert len(KERNELS) == 24
+    assert len(KERNELS) == 25
     a, want = _setup("enc_stage0", True)
     opt = lambda v: None if v is None else T(v)  # noqa: E731
     args = [T(a["x"]).to(torch.bfloat16)] + [opt(a[k]) for k in (

@@ -13,6 +13,8 @@ error budget, fixed before the card sees it)."""
 import dataclasses
 import inspect
 import json
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,8 +34,10 @@ from vadcl_tpu_torch.ops.fold_attn import (
     pack_fold_weights,
 )
 from vadcl_tpu_torch.ops.ln_mlp import (
-    MLP_CHUNK, _mlp_vectors, dgelu_exact_f32, gelu_exact_f32, ln_mlp_bwd_plain, mlp_bwd_body,
-    mlp_bwd_mma_smem_bytes, pack_mlp_weights,
+    MLP_BWD_SLAB_MAX_C, MLP_BWD_SLAB_MIN_C, MLP_BWD_SLAB_SHAPES, MLP_CHUNK, _mlp_vectors,
+    dgelu_exact_f32, gelu_exact_f32, ln_mlp_bwd_plain, mlp_bwd_body, mlp_bwd_mma_smem_bytes,
+    mlp_bwd_slab_shape, mlp_bwd_slab_smem_bytes, mlp_slab_shape, pack_mlp_slabs,
+    pack_mlp_weights,
 )
 from vadcl_tpu_torch.ops.packed import PackCache
 from vadcl_tpu_torch.train import train
@@ -92,10 +96,13 @@ def test_kernel6_layout_mirror():
     assert fold_bwd_body(113, 96, 6, torch.bfloat16) != "mma"
 
 
-# C of kernel 5: multiples of 16 up to 192 take the tensor-core body; other
-# multiples of 4, and C above 192, the CUDA-core body; fp32 always the latter.
+# C of kernel 5: multiples of 16 up to 192 take the tensor-core body, from
+# 208 up to 592 (C_max) the slab body; other multiples of 4, and C above 592,
+# the CUDA-core body; fp32 always the latter.
 K5_WIDTHS = {c: "mma" for c in range(16, 193, 16)}
-K5_WIDTHS.update({c: "tiles" for c in (4, 24, 36, 100, 188, 208, 384)})
+K5_WIDTHS.update({c: "slab" for c in (208, 256, 384, 512, MLP_BWD_SLAB_MAX_C)})
+K5_WIDTHS.update({c: "tiles" for c in (4, 24, 36, 100, 188, 200, 260,
+                                       MLP_BWD_SLAB_MAX_C + 16, 896)})
 
 
 @pytest.mark.parametrize("c", sorted(K5_WIDTHS))
@@ -104,6 +111,10 @@ def test_kernel5_routes_every_width(c):
     assert mlp_bwd_body(c, 4 * c, torch.float32) == "tiles"
     if K5_WIDTHS[c] == "mma":
         assert mlp_bwd_mma_smem_bytes(c) <= SMEM_LIMIT
+    if K5_WIDTHS[c] == "slab":
+        assert mlp_bwd_slab_smem_bytes(c) <= SMEM_LIMIT
+        # the forward's slab pack serves: the same (slab, chunk) at every width
+        assert mlp_bwd_slab_shape(c)[:2] == mlp_slab_shape(c)[:2]
 
 
 def test_kernel5_refuses_what_no_body_takes():
@@ -111,6 +122,7 @@ def test_kernel5_refuses_what_no_body_takes():
     only above C = 3,500, where no two-token tile fits, does the choice
     raise."""
     assert mlp_bwd_body(96, 96 * 4 + 32, torch.bfloat16) == "tiles"  # hidden not a multiple of 64
+    assert mlp_bwd_body(256, 1000, torch.bfloat16) == "tiles"  # the same above 192
     assert mlp_bwd_mma_smem_bytes(192) == 214144
     assert mlp_bwd_body(30, 120, torch.bfloat16) == "tiles"
     assert mlp_bwd_body(18, 70, torch.float32) == "tiles"
@@ -204,6 +216,208 @@ def test_split_products_stay_inside_the_bf16_budget():
     pallas = vjp(jnp.asarray(dyb.float().numpy()).astype(jnp.bfloat16))
     for name, g, w in zip(MLP_NAMES, got, pallas):
         _hold(name, g.float().numpy(), np.asarray(w.astype(jnp.float32)))
+
+
+# --- kernel 5's slab body ------------------------------------------------------
+
+def plain_recompute(x, ln_scale, ln_bias, w1, b1):
+    """(z, hb) as ``ln_mlp_bwd_plain`` recomputes them: z = LN2(x) in fp32,
+    hb = round(round(z) . W1 + b1) by torch's fp32 product."""
+    from vadcl_tpu_torch.ops.fold_attn import _ln_stats
+
+    dt, c = x.dtype, x.shape[-1]
+    xhat, _ = _ln_stats(x.reshape(-1, c).float())
+    z = xhat * ln_scale.float() + ln_bias.float()
+    return z, (z.to(dt).float() @ w1.to(dt).float() + b1.float()).to(dt).float()
+
+
+def pallas_recompute(x, ln_scale, ln_bias, w1, b1):
+    """(z, hb) as ``_bwd_kernel`` recomputes them in interpret mode: its
+    ``_ln_f32`` and fc1 product on its 512-token tiles (jitted, the same
+    operations on the same shapes)."""
+    from vadcl_tpu.ops.pallas_mlp import _TILE, _ln_f32
+
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c).float().numpy()
+    t = x2.shape[0]
+
+    @jax.jit
+    def tile(x32, s, b, w, bias):
+        z, _, _ = _ln_f32(x32, s, b)
+        h = jnp.dot(z.astype(jnp.bfloat16), w.astype(jnp.bfloat16),
+                    preferred_element_type=jnp.float32) + bias
+        return z, h.astype(jnp.bfloat16).astype(jnp.float32)
+
+    x32 = np.pad(x2, ((0, -t % _TILE), (0, 0)))
+    vecs = [jnp.asarray(v.float().numpy()) for v in (ln_scale, ln_bias, w1, b1)]
+    zs, hbs = zip(*(tile(jnp.asarray(x32[i:i + _TILE]), *vecs)
+                    for i in range(0, x32.shape[0], _TILE)))
+    return (T(np.concatenate([np.asarray(v) for v in zs])[:t].copy()),
+            T(np.concatenate([np.asarray(v) for v in hbs])[:t].copy()))
+
+
+def ln_mlp_bwd_slab_emulation(x, dy, ln_scale, ln_bias, w1, b1, w2, recompute=None,
+                              drop_lo=False):
+    """The slab body's walk (``csrc/ln_mlp_bwd_slab.cu``) in plain PyTorch.
+    Per slab of ``MLP_BWD_SLAB_SHAPES``' width and per hidden sub-chunk (32
+    columns at slab 256, 16 at 128, in the chunks' order): dg = dy.W2^T (an
+    exact bf16 product, in float64 here), dh = dg * gelu'(hb), and
+    dz[:, slab] += dh_hi.W1^T + dh_lo.W1^T added into an fp32 accumulator,
+    as the wgmma accumulator adds them; dx from the slabs' dz by the
+    LN-vjp; z, g and dh as slab 0 writes them, hi/lo pairs, for the second
+    pass's 2 (dW2) and 3 (dW1) bf16 passes summed over 1024-token chunks in
+    order.  ``recompute`` gives the forward's (z, hb) (the slab body forms
+    them once per slab, the same values each time); by default the plain
+    version's (``plain_recompute``): a comparator whose fp32 order of h or
+    of LN2 differs may round some hb or round(z) to the neighbouring bf16
+    value, which moves the gradients by more than the split does, so each
+    comparison gives the emulation its comparator's roundings and measures
+    the split arithmetic alone.  ``drop_lo`` leaves dz's lo pass out (a
+    planted fault)."""
+    from vadcl_tpu_torch.ops.fold_attn import _ln_stats, _ln_vjp
+
+    dt = x.dtype
+    c, ch = w1.shape
+    slab, chunk, _ = mlp_bwd_slab_shape(c)
+    sub = min(chunk, 32)
+    x32 = x.reshape(-1, c).float()
+    dy32 = dy.reshape(-1, c).to(dt).float()
+    xhat, rstd = _ln_stats(x32)
+    z, hb = recompute or plain_recompute(x, ln_scale, ln_bias, w1, b1)
+    w1f, w2f = w1.to(dt).double(), w2.to(dt).double()
+    dh = (dy32.double() @ w2f.T).float() * dgelu_exact_f32(hb)
+    dh_hi, dh_lo = _split(dh)
+    dz = torch.zeros_like(z)
+    for s0 in range(0, c, slab):
+        cols = slice(s0, min(s0 + slab, c))
+        acc = torch.zeros(z.shape[0], cols.stop - s0)
+        for j0 in range(0, ch, sub):
+            hid = slice(j0, j0 + sub)
+            dg = (dy32.double() @ w2f[hid].T).float()
+            hi, lo = _split(dg * dgelu_exact_f32(hb[:, hid]))
+            part = hi.double() @ w1f[cols, hid].T
+            if not drop_lo:
+                part = part + lo.double() @ w1f[cols, hid].T
+            acc = acc + part.float()
+        dz[:, cols] = acc
+    (g_hi, g_lo), (z_hi, z_lo) = _split(gelu_exact_f32(hb)), _split(z)
+    d = lambda t: t.double()  # noqa: E731
+    dw2, dw1 = 0.0, 0.0
+    for t0 in range(0, z.shape[0], 1024):  # reduce_mma.cu's chunks, summed in order
+        r = slice(t0, t0 + 1024)
+        dw2 = dw2 + (d(g_hi[r]).T @ d(dy32[r]) + d(g_lo[r]).T @ d(dy32[r])).float()
+        dw1 = dw1 + (d(z_hi[r]).T @ d(dh_hi[r]) + d(z_hi[r]).T @ d(dh_lo[r])
+                     + d(z_lo[r]).T @ d(dh_hi[r])).float()
+    dx = dy32 + _ln_vjp(dz, xhat, rstd, ln_scale)
+    return (dx.to(dt).reshape(x.shape), (dz * xhat).sum(0), dz.sum(0), dw1,
+            (dh_hi + dh_lo).sum(0), dw2, dy32.sum(0))
+
+
+def _slab_case(seed, C, tokens):
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    x, dy = f(tokens, C), f(tokens, C)
+    p = [1 + 0.1 * f(C), 0.1 * f(C), f(C, 4 * C) / np.sqrt(C), 0.1 * f(4 * C),
+         f(4 * C, C) / np.sqrt(4 * C)]
+    return T(x).to(torch.bfloat16), T(dy).to(torch.bfloat16), [T(v) for v in p]
+
+
+@pytest.mark.parametrize("C, tokens", [(256, 300), (384, 200), (MLP_BWD_SLAB_MAX_C, 130)],
+                         ids=["C256", "C384", "C_max"])
+def test_slab_walk_stays_inside_the_bf16_budget(C, tokens):
+    """The slab body's arithmetic at C = 256 (one slab of 256, hidden 1024),
+    384 (three slabs of 128) and C_max = 592 (five, the last cut at 80
+    columns), hidden 4C, on token counts off the body's 64-token tile, held
+    against ``ln_mlp_bwd_plain`` at ``SPLIT_FRACTION x BF16_BWD_TOL`` (dx
+    within one bf16 ulp of max|dx|)."""
+    x, dy, p = _slab_case(31, C, tokens)
+    got = ln_mlp_bwd_slab_emulation(x, dy, *p)
+    want = ln_mlp_bwd_plain(x, dy, *p)
+    for name, g, w in zip(MLP_NAMES, got, want):
+        _hold(name, g.float().numpy(), w.float().numpy())
+
+
+def test_slab_walk_matches_the_pallas_backward():
+    """At C = 256 hidden 1024 (the Video Swin-B width's inner stages), the
+    slab walk with the Pallas kernel's own forward roundings against
+    ``fused_ln_mlp``'s backward (that kernel in interpret mode) on the same
+    bf16 inputs, at the same bounds."""
+    x, dy, p = _slab_case(32, 256, 300)
+    got = ln_mlp_bwd_slab_emulation(x, dy, *p, recompute=pallas_recompute(x, *p[:4]))
+    b2 = np.zeros(256, np.float32)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, *t: fused_ln_mlp(a, *t, True), xj,
+                     *map(jnp.asarray, [v.numpy() for v in p] + [b2]))
+    pallas = vjp(jnp.asarray(dy.float().numpy()).astype(jnp.bfloat16))
+    for name, g, w in zip(MLP_NAMES, got, pallas):
+        _hold(name, g.float().numpy(), np.asarray(w.astype(jnp.float32)))
+
+
+def test_slab_walk_without_the_lo_pass_leaves_the_budget():
+    """The bound has teeth: dz summed from dh's hi parts alone (one rounding
+    of dh, another contract) misses dx and dLN2 by more than the budget."""
+    x, dy, p = _slab_case(33, 256, 300)
+    got = ln_mlp_bwd_slab_emulation(x, dy, *p, drop_lo=True)
+    want = ln_mlp_bwd_plain(x, dy, *p)
+    assert _ratio(got[2].numpy(), want[2].numpy()) > SPLIT_FRACTION * BF16_BWD_TOL
+
+
+def _bs_source():
+    return (Path(__file__).resolve().parent.parent / "vadcl_tpu_torch" / "csrc"
+            / "ln_mlp_bwd_slab.cu").read_text()
+
+
+def test_kernel5_slab_instances_agree_with_the_source():
+    """``MLP_BWD_SLAB_SHAPES`` is ``kBsShapes``; each instance is kernel B's
+    slab pack at its widths (one pack a step), holds its widest C with two
+    ring stages within 227 KB, keeps dz at 128 registers a thread or fewer
+    (slab / 2), and C_max + 16 outgrows the block: the smem mirror is the
+    source's layout (barriers, stages of W1 and every slab's W2 piece, the z
+    and dy tiles) at the figures its header states."""
+    text = _bs_source()
+    body = text[text.index("kBsShapes[] = {"):text.index("};", text.index("kBsShapes[] = {"))]
+    table = tuple(tuple(int(v) for v in m)
+                  for m in re.findall(r"\{(\d+), (\d+), (\d+)\}", body))
+    assert table == MLP_BWD_SLAB_SHAPES
+    consts = {n: int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+              for n in ("kBsRows", "kBsMaxStages", "kBsMinC", "kBsHidden")}
+    assert consts == {"kBsRows": 64, "kBsMaxStages": 4, "kBsMinC": MLP_BWD_SLAB_MIN_C,
+                      "kBsHidden": 64}
+    prev = MLP_BWD_SLAB_MIN_C - 16
+    for slab, chunk, max_c in MLP_BWD_SLAB_SHAPES:
+        assert mlp_bwd_slab_shape(prev + 16) == mlp_bwd_slab_shape(max_c) == (slab, chunk, max_c)
+        assert mlp_slab_shape(max_c)[:2] == (slab, chunk)
+        assert mlp_bwd_slab_smem_bytes(max_c) <= SMEM_LIMIT and slab // 2 <= 128
+        prev = max_c
+    assert mlp_bwd_slab_shape(MLP_BWD_SLAB_MAX_C + 16) is None
+    assert mlp_bwd_slab_smem_bytes(MLP_BWD_SLAB_MAX_C) == 230464 and "230,464 B" in text
+    assert mlp_bwd_slab_smem_bytes(256) == 64 + 2 * 2 * 64 * (256 + 256) + 4 * 64 * 256 == 196672
+    # C_max + 16 in the second instance's layout would outgrow the block
+    c = MLP_BWD_SLAB_MAX_C + 16
+    assert 64 + 2 * 2 * 16 * (c + 5 * 128) + 4 * 64 * c > SMEM_LIMIT
+
+
+def test_kernel5_slab_reads_the_forward_pack_transposed():
+    """The addresses of ``csrc/ln_mlp_bwd_slab.cu`` in kernel B's slab pack: a
+    stage's W1 part read K-major at (k = hidden h, n = c) gives W1^T (dz's B),
+    its W2 pieces read K-major at (k = c, n = h) give W2^T (dg's B), and
+    every hidden sub-chunk's N-major W1 tile gives W1 (fc1's B)."""
+    rng = np.random.RandomState(7)
+    for C in (48, 208, 384):
+        slab, chunk, _ = mlp_bwd_slab_shape(C)
+        Ch = 4 * C
+        w1 = T(rng.randn(C, Ch).astype(np.float32))
+        w2 = T(rng.randn(Ch, C).astype(np.float32))
+        w1p, w2p = pack_mlp_slabs(w1, w2, slab, chunk, torch.float32)
+        cc, hh = np.meshgrid(np.arange(C), np.arange(Ch), indexing="ij")
+        j, h = hh // chunk, hh % chunk
+        # W1 part of stage j: element (c, h) at ((h / 8) C + c) 8 + h % 8
+        w1_read = w1p[j, ((h // 8) * C + cc) * 8 + h % 8]
+        torch.testing.assert_close(w1_read, w1, rtol=0, atol=0)
+        # W2 piece p of stage j: element (h, c') at ((c' / 8) chunk + h) 8 + c' % 8
+        piece, cp = cc // slab, cc % slab
+        w2t_read = w2p[piece, j, ((cp // 8) * chunk + h) * 8 + cp % 8]
+        torch.testing.assert_close(w2t_read, w2.T, rtol=0, atol=0)
 
 
 def test_split_is_not_a_single_rounding():
@@ -386,13 +600,14 @@ def test_both_bodies_count_their_launches():
     ``fold_attention_bwd``, the bodies they leave some geometries to on
     counters of their own; CPU calls (the plain versions) count on neither."""
     from vadcl_tpu_torch.ops import KERNELS
-    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_tiles
+    from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_slab, ln_mlp_bwd_tiles
 
     names = {k.__name__ for k in KERNELS}
-    assert {"ln_mlp_bwd", "ln_mlp_bwd_tiles", "fold_attention_bwd",
+    assert {"ln_mlp_bwd", "ln_mlp_bwd_tiles", "ln_mlp_bwd_slab", "fold_attention_bwd",
             "fold_attention_bwd_tiles"} <= names
     before = [k.launches for k in KERNELS]
     x, dy, p = _mlp_case(23, C=32, tokens=(1, 1, 7, 7))
-    ln_mlp_bwd_tiles(T(x), T(dy), *map(T, p[:5]))
-    ln_mlp_bwd(T(x), T(dy), *map(T, p[:5]))
+    for fn in (ln_mlp_bwd_tiles, ln_mlp_bwd_slab, ln_mlp_bwd):
+        got = fn(T(x), T(dy), *map(T, p[:5]))
+        assert len(got) == 7
     assert [k.launches for k in KERNELS] == before

@@ -13,9 +13,10 @@ the card); this file holds what a CPU can check:
 
 * a sweep over C in 1-2048 (``hypothesis``): every body choice returns a
   body, and wherever ``fold_block_fits`` holds both whole-block bodies take
-  the geometry; the attention route of a block is checked at head widths up
-  to 128 (wider heads, 144 and up, are refused by the partitioned-window
-  bodies: ``ROADMAP.md`` queue 3);
+  the geometry; the attention route of a block takes every head width up to
+  2048 (one head; from 144 channels the partitioned-window bodies stream
+  the head's channels: ``rows_streams``), and the plain versions of 7 and 8
+  agree with the JAX kernels in interpret mode at head widths 144 and 288;
 * the Python mirrors of the new instance tables against the sources, each
   instance within 227 KB;
 * the slab body's weight layout (``pack_mlp_slabs``) walked as the kernel
@@ -90,12 +91,17 @@ from vadcl_tpu_torch.ops.ln_mlp import (
     mlp_slab_smem_bytes,
     pack_mlp_slabs,
 )
-from vadcl_tpu_torch.ops.window_attn import window_body
+from vadcl_tpu_torch.ops.window_attn import (
+    rows_smem_bytes,
+    rows_streams,
+    window_attention_fused_bwd_plain,
+    window_attention_fused_plain,
+    window_body,
+)
 
 T = torch.from_numpy
 CSRC = Path(__file__).resolve().parent.parent / "vadcl_tpu_torch" / "csrc"
 DTYPES = (torch.bfloat16, torch.float32)
-ATTN_MAX_HEAD_DIM = 128  # the sweep's attention check (wider heads: ROADMAP queue 3)
 
 
 # --- every width has a body ---------------------------------------------------
@@ -113,13 +119,13 @@ def _geometry(draw):
 def test_every_width_up_to_2048_has_a_body(geometry):
     """No body choice raises at any C in 1-2048, hidden 4C or 2C, bf16 or
     fp32; wherever the whole-block kernels are admitted both of their bodies
-    take the geometry; and at head widths up to 128 a block's attention
-    route (the fold kernel, else the partitioned-window bodies, each way)
-    takes a 4-frame window of 49 or 98 tokens."""
+    take the geometry; and at every head width (up to 2048, one head) a
+    block's attention route (the fold kernel, else the partitioned-window
+    bodies, each way) takes a 4-frame window of 49 or 98 tokens."""
     c, heads, ratio, dtype = geometry
     ch = ratio * c
     assert mlp_fwd_body(c, ch, dtype) in ("wgmma", "slab", "tiles")
-    assert mlp_bwd_body(c, ch, dtype) in ("mma", "tiles")
+    assert mlp_bwd_body(c, ch, dtype) in ("mma", "slab", "tiles")
     shape = cluster_assign_shape(c)
     assert shape in CLUSTER_SHAPES and -(-c // cluster_assign_blocks(c)) <= 8 * shape[0]
     for n in (49, 98):
@@ -127,27 +133,91 @@ def test_every_width_up_to_2048_has_a_body(geometry):
             for body, backward in ((fold_block_fwd_body, False), (fold_block_bwd_body, True)):
                 got = body(n, c, heads, ch, dtype)
                 assert got == "mma" or _block_tiles_take(c, heads, ch, dtype, backward)
-        if c // heads <= ATTN_MAX_HEAD_DIM:
-            for backward in (False, True):
-                if not fold_fits(n, c, heads, dtype, backward=backward):
-                    assert window_body(n, c, heads, dtype, backward) in ("tile", "rows")
+        for backward in (False, True):
+            if not fold_fits(n, c, heads, dtype, backward=backward):
+                assert window_body(n, c, heads, dtype, backward) in ("tile", "rows")
 
 
-def test_attention_refuses_only_heads_wider_than_143():
-    """The fault ``ROADMAP.md`` queue 3 records: the partitioned-window
-    bodies of 7 and 8 refuse a 4-frame window of 98 tokens from head width
-    144 (the backward; the forward from 281), where the JAX package's
-    kernels take the whole window; every narrower head is taken, each way,
-    in bf16 and fp32 (the sweep above checks heads up to 128)."""
-    for dtype in DTYPES:
-        for hd in (128, 143):
-            for n in (49, 98):
-                for backward in (False, True):
-                    assert window_body(n, hd, 1, dtype, backward) in ("tile", "rows")
-        with pytest.raises(NotImplementedError):
-            window_body(98, 144, 1, dtype, backward=True)
-        with pytest.raises(NotImplementedError):
-            window_body(98, 288, 1, dtype, backward=False)
+# (N, the head width from which the whole-head CUDA-core core outgrows its
+# block: forward, backward) of the 4-frame windows
+STREAM_FROM = {98: (281, 144), 49: (544, 292)}
+
+
+@pytest.mark.parametrize("n", sorted(STREAM_FROM))
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
+def test_attention_takes_every_head_width_up_to_2048(n, dtype):
+    """Every head width from 1 to 2048 (one head, the widest the sweep's C
+    allows) gets a body for a 4-frame window, each way, in bf16 and fp32:
+    the partitioned-window bodies of 7 and 8 stream the head's channels
+    exactly where the whole head no longer fits (from 281 channels forward
+    and 144 backward at N = 98, 544 and 292 at N = 49), in a block whose
+    size does not grow with the head (164 N + 1024 and 340 N + 2048 bytes),
+    and take the row-tiled body there."""
+    for backward in (False, True):
+        start = STREAM_FROM[n][backward]
+        for hd in range(1, 2049):
+            body = window_body(n, hd, 1, dtype, backward)
+            assert body in ("tile", "rows"), (hd, backward)
+            assert rows_streams(n, hd, 1, backward) == (hd >= start), (hd, backward)
+            if hd >= start:
+                assert body == "rows"
+                assert rows_smem_bytes(n, hd, 1, dtype == torch.bfloat16, backward) == (
+                    340 * n + 2048 if backward else 164 * n + 1024)
+    # the streamed layouts' own limits: the longest windows they hold
+    for backward, longest in ((False, 1411), (True, 677)):
+        assert window_body(longest, 1024, 1, dtype, backward) == "rows"
+        with pytest.raises(NotImplementedError, match="neither"):
+            window_body(longest + 1, 1024, 1, dtype, backward)
+
+
+def _attn_case(hd, n, seed):
+    """Two windows of one head of width ``hd`` (the second window shifted:
+    a mask of two window classes), the rel-pos bias at unit scale."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    mask = np.where(rng.rand(2, n, n) < 0.2, -100.0, 0.0).astype(np.float32)
+    mask[0] = 0.0
+    return dict(x=f(2, n, hd), qkv_w=f(hd, 3 * hd) / np.sqrt(hd), qkv_b=0.1 * f(3 * hd),
+                proj_w=f(hd, hd) / np.sqrt(hd), proj_b=0.1 * f(hd), bias=f(1, n, n),
+                mask=mask, dout=f(2, n, hd), scale=hd ** -0.5)
+
+
+@pytest.mark.parametrize("hd, n", [(144, 98), (288, 49), (288, 98), (144, 49)])
+def test_plain_attention_matches_jax_at_streamed_head_widths(hd, n):
+    """The plain versions of kernels 7 and 8, which the card holds the
+    streamed cores against, against the JAX kernels (``fused_window_attention``
+    and ``fused_window_attention_trainable``'s backward, in interpret mode)
+    at head widths the whole-head cores refused, fp32: the forward at
+    ``tests/test_pallas_attn.py``'s 2e-5, every gradient within 1e-4 of its
+    largest entry (summation order only)."""
+    from vadcl_tpu.ops.pallas_attn import fused_window_attention
+    from vadcl_tpu.ops.pallas_attn_bwd import fused_window_attention_trainable
+
+    a = _attn_case(hd, n, seed=hd + n)
+    names = ("x", "qkv_w", "qkv_b", "proj_w", "proj_b", "bias", "mask")
+    port = [T(a[k]) for k in names]
+    jx = [jnp.asarray(a[k]) for k in names]
+    kw = dict(num_heads=1, n_windows=2, scale=a["scale"], interpret=True)
+    want = fused_window_attention(*jx, **kw)
+    got = window_attention_fused_plain(*port, 1, 2, a["scale"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    diff = [0, 1, 2, 3, 4, 5]  # x, qkv_w, qkv_b, proj_w, proj_b, bias
+
+    def loss(*args):
+        full = list(jx)
+        for i, v in zip(diff, args):
+            full[i] = v
+        out = fused_window_attention_trainable(*full, **kw)
+        return jnp.sum(out * jnp.asarray(a["dout"]))
+
+    jgrads = jax.grad(loss, argnums=tuple(range(len(diff))))(*[jx[i] for i in diff])
+    dx, dqw, dqb, dpw, dpb, dbias = window_attention_fused_bwd_plain(
+        port[0], T(a["dout"]), port[1], port[2], port[3], port[5], port[6], 1, 2, a["scale"])
+    for name, g, w in zip(("dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"),
+                          (dx, dqw, dqb, dpw, dpb, dbias), jgrads):
+        w = np.asarray(w, np.float64)
+        err = float(np.abs(g.double().numpy() - w).max())
+        assert err <= 1e-4 * float(np.abs(w).max()), (name, err)
 
 
 @pytest.mark.parametrize("c, ch, dtype, body", [
@@ -451,11 +521,17 @@ def _reference(name):
 
 
 def test_model_widths_reach_the_new_bodies():
-    """``embed_dim`` 448 runs B at 448 and 896 on the slab body in bf16 and
-    its feature head at 896 on two blocks a row tile; ``embed_dim`` 18 runs
-    kernel 5 at C = 18 (scalar loads) and 36 on the CUDA-core body."""
+    """``embed_dim`` 448 runs B at 448 and 896 on the slab body in bf16,
+    kernel 5 at 448 on its slab body and at 896 on the CUDA-core body, and
+    its feature head at 896 on two blocks a row tile; the Video Swin-B width
+    (``embed_dim`` 128) runs kernel 5 at 128 on the narrow tensor-core body
+    and at 256 on the slab body; ``embed_dim`` 18 runs kernel 5 at C = 18
+    (scalar loads) and 36 on the CUDA-core body."""
     bf = torch.bfloat16
     assert [mlp_fwd_body(c, 4 * c, bf) for c in (448, 896)] == ["slab", "slab"]
+    assert [mlp_bwd_body(c, 4 * c, bf) for c in (448, 896)] == ["slab", "tiles"]
+    assert [mlp_bwd_body(c, 4 * c, bf) for c in (128, 256)] == ["mma", "slab"]
+    assert [mlp_bwd_body(c, 4 * c, torch.float32) for c in (448, 256)] == ["tiles", "tiles"]
     assert cluster_assign_blocks(2 * 448) == 2
     assert [mlp_bwd_body(c, 4 * c, bf) for c in (18, 36)] == ["tiles", "tiles"]
     assert [mlp_bwd_body(c, 4 * c, torch.float32) for c in (18, 36)] == ["tiles", "tiles"]

@@ -328,10 +328,10 @@ def test_twelve_kernels_count_their_launches_and_cpu_calls_do_not():
     whole-block backward's and forward's older bodies beside their
     tensor-core bodies, and one each for the whole-tile bodies of 7 and 8
     beside A's and 6's tensor-core bodies, which 7 and 8 run in bf16, and
-    one for the whole-tile body of 9 beside A's packed body, and one for
-    kernel B's slab body: twenty-four."""
+    one for the whole-tile body of 9 beside A's packed body, and one each for
+    kernel B's and kernel 5's slab bodies: twenty-five."""
     names = [k.__name__ for k in KERNELS]
-    assert len(names) == len(set(names)) == 24
+    assert len(names) == len(set(names)) == 25
     assert {"fold_attention_packed", "fold_block", "fold_block_bwd"} <= set(names)
     assert {"fold_block_bwd_tiles", "fold_block_tiles"} <= set(names)
     assert {"window_attention_fused_tiles", "window_attention_fused_bwd_tiles",

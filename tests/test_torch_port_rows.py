@@ -58,6 +58,7 @@ from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT, fold_fits
 from vadcl_tpu_torch.ops.window_attn import (
     ROWS_MAX_HEAD_DIM,
     rows_smem_bytes,
+    rows_streams,
     tile_smem_bytes,
     window_attention_fused_bwd_rows,
     window_attention_fused_rows,
@@ -187,8 +188,13 @@ def test_frame8_geometries_take_the_row_tiled_bodies():
     assert rows_smem_bytes(392, 96, 6, True) == 38400
     assert rows_smem_bytes(392, 96, 6, True, backward=True) == 86400
     assert ROWS_MAX_HEAD_DIM == 64
+    # head width 80 (above the bf16 tensor-core cores' 64): the CUDA-core core,
+    # whose K and V of a 392-token head outgrow the block, streams the head's
+    # channels; a window longer than the streamed layout holds has no body
+    assert window_body(392, 80, 1, torch.bfloat16) == "rows"
+    assert rows_streams(392, 80, 1) and rows_smem_bytes(392, 80, 1, True) == 164 * 392 + 1024
     with pytest.raises(NotImplementedError, match="neither"):
-        window_body(392, 80, 1, torch.bfloat16)  # head width 80: neither body
+        window_body(1412, 80, 1, torch.bfloat16)
 
 
 # --- the tiny model at frame_num = 8, reconstruction mode ------------------------

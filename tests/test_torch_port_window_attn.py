@@ -321,8 +321,8 @@ def test_window_kernels_are_registered_and_count_no_cpu_calls():
     assert names[15:20] == ["ln_mlp_bwd_tiles", "fold_attention_bwd_tiles", "ln_mlp_tiles",
                             "fold_block_bwd_tiles", "fold_block_tiles"]
     assert names[20:] == ["window_attention_fused_tiles", "window_attention_fused_bwd_tiles",
-                          "window_attention_packed_tiles", "ln_mlp_slab"]
-    assert len(names) == 24 and len(set(names)) == 24
+                          "window_attention_packed_tiles", "ln_mlp_slab", "ln_mlp_bwd_slab"]
+    assert len(names) == 25 and len(set(names)) == 25
     # the unpartitioned route runs the fold wrappers on the counters of 7, 9 and 8
     assert "window_attention_packed_tiles" in ops.__all__
     assert "window_attention_grid" not in ops.__all__

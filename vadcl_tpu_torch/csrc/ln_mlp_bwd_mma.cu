@@ -115,15 +115,6 @@ struct M5Args {
   int ntok, Ch;
 };
 
-__device__ __forceinline__ void store_split2(__nv_bfloat16* hi, __nv_bfloat16* lo, size_t off,
-                                             float a, float b) {
-  float ha, la, hb, lb;
-  split_bf16(a, ha, la);
-  split_bf16(b, hb, lb);
-  *reinterpret_cast<uint32_t*>(hi + off) = pack_bf16(ha, hb);
-  *reinterpret_cast<uint32_t*>(lo + off) = pack_bf16(la, lb);
-}
-
 template <int C>
 __global__ void __launch_bounds__(kM5Threads, C <= 96 ? 2 : 1)
     ln_mlp_bwd_mma_kernel(M5Args a) {

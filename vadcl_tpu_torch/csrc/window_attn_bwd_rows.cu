@@ -31,7 +31,17 @@
 //      division fa_div, d(bias) added into the chunk's partial per window;
 //      it writes dqkv unrounded in fp32 (its column sums are dqkv_b's), and
 //      in bf16 round_dqkv_kernel then rounds it into the bf16 copy the
-//      products read;
+//      products read.  Where q, K, V and dout's slice of one head outgrow
+//      227 KB (a head of 144 channels or wider at N = 98, 292 at N = 49),
+//      rows_bwd_stream_kernel<T> streams the head's channels too, with the
+//      same grid, arithmetic and outputs: each phase walks its rows eight at
+//      a time (a row a warp) and builds the rows' scores and dp = do . v^T
+//      over chunks of kRsDepth channels (a chunk of each of the two operands
+//      in shared memory, the partial dot products kept per row and column in
+//      channel order: the whole-head core's chains of fmas), then o and dq
+//      (phase A) or dk and dv (phase B) chunk by chunk.  Its block holds two
+//      chunk tiles, the pass's two row chunks, two rows a warp and the row
+//      statistics: 340 N + 2048 bytes whatever the head width (N up to 677);
 //   3. the deterministic second pass: dqkv_w = x^T . dqkv and dproj_w =
 //      o^T . do with dproj_b = colsum(do), behind the tensor-core core on
 //      the tensor cores (reduce_mma.cu: exact bf16 products, fp32 sums over
@@ -48,7 +58,9 @@
 // 12 heads (chip_smoke.py prints the sizes).
 //
 // What bounds the fp32 core: each window's block walks the keys twice and
-// the queries once and rewrites its chunk's d(bias) partial per window.
+// the queries once and rewrites its chunk's d(bias) partial per window; the
+// streamed core also reads the head's four operands once per eight rows of
+// each phase (from L2).
 #include "reduce.cuh"
 #include "reduce_mma.cuh"
 #include "window_attn_bwd_rows_mma.cuh"
@@ -68,13 +80,30 @@ struct RowsBwdArgs {
   float scale;
 };
 
-// Shared memory of one attention-core block (the bf16 tensor-core core: the
-// direct layout, the least it needs).
-inline size_t rows_bwd_smem(int n, int c, int nh, int is_bf16) {
-  const size_t hd = c / nh;
-  if (is_bf16 && rows_bf16_eligible(c, nh)) return rows_bwd_layout(n, (int)hd, 0).bytes;
-  // fp32: rows unpadded, so that head width 32 fits at N = 392
+// The CUDA-core cores' shared memory: q, K, V and dout's slice of the whole
+// head, rows unpadded so that head width 32 fits at N = 392 (the whole-head
+// core), or two chunk tiles of kRsDepth channels, two row chunks and two rows
+// a warp (the streamed core); both with the row statistics.
+inline size_t rows_f32_bwd_smem(int n, int hd) {
   return sizeof(float) * (4 * (size_t)n * hd + 3 * (size_t)n + 2 * (size_t)kRowsWarps * n);
+}
+inline size_t rows_stream_bwd_smem(int n) {
+  return sizeof(float) * (2 * (size_t)n * (kRsDepth + 1) + 2 * (size_t)kRowsWarps * kRsDepth +
+                          2 * (size_t)kRowsWarps * n + 3 * (size_t)n);
+}
+// Whether the CUDA-core core streams the head's channels: where the
+// whole-head core's block outgrows 227 KB.
+inline bool rows_bwd_streams(int n, int hd) {
+  return rows_f32_bwd_smem(n, hd) > (size_t)kMaxSmemBytes;
+}
+
+// Shared memory of one attention-core block (the bf16 tensor-core core: the
+// direct layout, the least it needs; the CUDA-core core: the whole head, else
+// the streamed layout).
+inline size_t rows_bwd_smem(int n, int c, int nh, int is_bf16) {
+  const int hd = c / nh;
+  if (is_bf16 && rows_bf16_eligible(c, nh)) return rows_bwd_layout(n, hd, 0).bytes;
+  return rows_bwd_streams(n, hd) ? rows_stream_bwd_smem(n) : rows_f32_bwd_smem(n, hd);
 }
 
 // T: the compute dtype of qkv, do and o; p and ds * scale round to it where
@@ -195,6 +224,175 @@ __global__ void __launch_bounds__(kRowsThreads) rows_bwd_f32_kernel(RowsBwdArgs 
   }
 }
 
+// The same function with the head's channels streamed (see the header).  Per
+// window: phase A walks the queries in passes of kRowsWarps rows (a row a
+// warp), summing each row's scores q . k^T and dp = do . v^T over chunks of
+// K and V, then its softmax statistics, P, ds, d(bias) and round(ds * scale)
+// as the whole-head core does, then o and dq chunk by chunk over V and K;
+// phase B walks the keys the same way over chunks of q and do, then dk and
+// dv.  Every loop that holds a __syncthreads is block-uniform.
+template <typename T>
+__global__ void __launch_bounds__(kRowsThreads) rows_bwd_stream_kernel(RowsBwdArgs a) {
+  extern __shared__ __align__(16) float smf[];
+  constexpr int kLd = kRsDepth + 1;  // chunk rows padded: lanes read rows 33 floats apart
+  const int N = a.N, C = a.C, C3 = 3 * C, nh = a.nh, hd = C / nh;
+  const int chunk = blockIdx.x / nh, h = blockIdx.x % nh;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  float* ta = smf;                          // N x kLd: a chunk of K (phase A) or q (B)
+  float* tb = ta + (size_t)N * kLd;         // N x kLd: a chunk of V (A) or do (B)
+  float* ra = tb + (size_t)N * kLd + warp * kRsDepth;  // this warp's row chunk of q (A) or k (B)
+  float* rb = ra + kRowsWarps * kRsDepth;              //   ... of do (A) or v (B)
+  float* mrow = tb + (size_t)N * kLd + 2 * kRowsWarps * kRsDepth;
+  float* lrow = mrow + N;
+  float* rrow = lrow + N;
+  float* pw = rrow + N + (size_t)warp * 2 * N;  // this warp's row: scores, then P
+  float* sw = pw + N;                           //   dp, then round(ds * scale)
+  const float* bias = a.bias + (size_t)h * N * N;
+  float* dbias = a.dbias_part + ((size_t)chunk * nh + h) * N * N;
+  const float scale = a.scale;
+  const int w_begin = chunk * a.chunk, w_end = min(a.Bn, w_begin + a.chunk);
+
+  for (int w = w_begin; w < w_end; ++w) {
+    const T* qkv = static_cast<const T*>(a.qkv) + (size_t)w * N * C3;
+    const T* doa = static_cast<const T*>(a.doa) + (size_t)w * N * C;
+    T* o = static_cast<T*>(a.o) + (size_t)w * N * C;
+    float* dqkv = static_cast<float*>(a.dqkv) + (size_t)w * N * C3;
+    const float* mask = a.mask != nullptr ? a.mask + (size_t)(w % a.nW) * N * N : nullptr;
+    const bool first = w == w_begin;
+    // operand `part` (0 q, 1 k, 2 v, 3 do) of row r, channel d of the head
+    auto at = [&](int part, int r, int d) {
+      return to_f(part < 3 ? qkv[(size_t)r * C3 + part * C + h * hd + d]
+                           : doa[(size_t)r * C + h * hd + d]);
+    };
+    // chunk c0 .. c0 + dc of two operands (all rows) into ta and tb, and of
+    // two others at this warp's row `row` into ra and rb
+    auto load = [&](int pa, int pb, int qa, int qb, int row, int c0, int dc) {
+      for (int e = tid; e < N * dc; e += kRowsThreads) {
+        const int r = e / dc, d = e % dc;
+        ta[r * kLd + d] = at(pa, r, c0 + d);
+        tb[r * kLd + d] = at(pb, r, c0 + d);
+      }
+      if (row < N)
+        for (int d = lane; d < dc; d += kWarp) ra[d] = at(qa, row, c0 + d), rb[d] = at(qb, row, c0 + d);
+    };
+    // pw[j] (+)= ra . ta[j] and sw[j] (+)= rb . tb[j] over the chunk
+    auto dots = [&](int c0, int dc) {
+      for (int j = lane; j < N; j += kWarp) {
+        float s = c0 == 0 ? 0.f : pw[j], t = c0 == 0 ? 0.f : sw[j];
+        for (int d = 0; d < dc; ++d) {
+          s += ra[d] * ta[j * kLd + d];
+          t += rb[d] * tb[j * kLd + d];
+        }
+        pw[j] = s, sw[j] = t;
+      }
+    };
+
+    // phase A: a warp per query row i
+    for (int i0 = 0; i0 < N; i0 += kRowsWarps) {
+      const int i = i0 + warp;
+      for (int c0 = 0; c0 < hd; c0 += kRsDepth) {
+        const int dc = min(kRsDepth, hd - c0);
+        __syncthreads();
+        load(1, 2, 0, 3, i, c0, dc);  // K, V; q_i, do_i
+        __syncthreads();
+        if (i < N) dots(c0, dc);       // pw = q_i . k_j, sw = do_i . v_j
+      }
+      if (i < N) {
+        float m = -INFINITY, l = 0.f;
+        for (int j = lane; j < N; j += kWarp) {
+          float s = pw[j] * scale + bias[(size_t)i * N + j];
+          if (mask != nullptr) s += mask[(size_t)i * N + j];
+          pw[j] = s;
+          const float nm = fmaxf(m, s);
+          l = l * expf(m - nm) + expf(s - nm);
+          m = nm;
+        }
+        const float M = warp_max(m);
+        const float L = warp_sum(m == -INFINITY ? 0.f : l * expf(m - M)), R = 1.f / L;
+        float r = 0.f;
+        for (int j = lane; j < N; j += kWarp) {
+          const float p = fa_div(expf(pw[j] - M), L, R);
+          pw[j] = p;
+          r += p * sw[j];
+        }
+        r = warp_sum(r);
+        for (int j = lane; j < N; j += kWarp) {
+          const float dsv = pw[j] * (sw[j] - r);
+          float* db = dbias + (size_t)i * N + j;
+          *db = first ? dsv : *db + dsv;
+          sw[j] = round_to<T>(dsv * scale);
+        }
+        if (lane == 0) mrow[i] = M, lrow[i] = L, rrow[i] = r;
+      }
+      __syncwarp();  // (the row's P and ds are read by every lane below)
+      for (int c0 = 0; c0 < hd; c0 += kRsDepth) {
+        const int dc = min(kRsDepth, hd - c0);
+        __syncthreads();
+        load(2, 1, 0, 3, N, c0, dc);  // V, K (no row chunk)
+        __syncthreads();
+        if (i < N)
+          for (int d = lane; d < dc; d += kWarp) {
+            float oa = 0.f, dq = 0.f;
+            for (int j = 0; j < N; ++j) {
+              oa += round_to<T>(pw[j]) * ta[j * kLd + d];
+              dq += sw[j] * tb[j * kLd + d];
+            }
+            o[(size_t)i * C + h * hd + c0 + d] = from_f<T>(oa);
+            dqkv[(size_t)i * C3 + h * hd + c0 + d] = dq;
+          }
+      }
+    }
+    __syncthreads();  // the row statistics are complete
+
+    // phase B: a warp per key row j
+    for (int j0 = 0; j0 < N; j0 += kRowsWarps) {
+      const int j = j0 + warp;
+      for (int c0 = 0; c0 < hd; c0 += kRsDepth) {
+        const int dc = min(kRsDepth, hd - c0);
+        __syncthreads();
+        load(0, 3, 1, 2, j, c0, dc);  // q, do; k_j, v_j
+        __syncthreads();
+        if (j < N) dots(c0, dc);       // pw[i] = k_j . q_i, sw[i] = v_j . do_i
+      }
+      if (j < N)
+        for (int i = lane; i < N; i += kWarp) {
+          float s = pw[i] * scale + bias[(size_t)i * N + j];
+          if (mask != nullptr) s += mask[(size_t)i * N + j];
+          const float l = lrow[i];
+          const float p = fa_div(expf(s - mrow[i]), l, 1.f / l);
+          pw[i] = p;
+          sw[i] = round_to<T>(p * (sw[i] - rrow[i]) * scale);
+        }
+      __syncwarp();
+      for (int c0 = 0; c0 < hd; c0 += kRsDepth) {
+        const int dc = min(kRsDepth, hd - c0);
+        __syncthreads();
+        load(0, 3, 0, 0, N, c0, dc);  // q, do (no row chunk)
+        __syncthreads();
+        if (j < N)
+          for (int d = lane; d < dc; d += kWarp) {
+            float dk = 0.f, dv = 0.f;
+            for (int i = 0; i < N; ++i) {
+              dk += sw[i] * ta[i * kLd + d];
+              dv += round_to<T>(pw[i]) * tb[i * kLd + d];
+            }
+            dqkv[(size_t)j * C3 + C + h * hd + c0 + d] = dk;
+            dqkv[(size_t)j * C3 + 2 * C + h * hd + c0 + d] = dv;
+          }
+      }
+    }
+    __syncthreads();  // this block's dqkv rows are visible to its threads
+
+    for (int e = tid; e < 3 * hd; e += kRowsThreads) {
+      const int col = (e / hd) * C + h * hd + e % hd;
+      float s = 0.f;
+      for (int i = 0; i < N; ++i) s += dqkv[(size_t)i * C3 + col];
+      a.dqkvb_part[(size_t)w * C3 + col] = s;
+    }
+    __syncthreads();
+  }
+}
+
 // dq | dk | dv rounded to bf16, from the CUDA-core core's fp32 rows.
 __global__ void round_dqkv_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
                                   long long n) {
@@ -291,17 +489,22 @@ int vadcl_window_attn_bwd_rows(const void* x, const void* dout, const void* qkv_
     const RowsBwdArgs a{ws + l.qkv, ws + l.doa, bias, mask, ws + l.o, ws + l.dqkv,
                         dqkvb_part, dbias_part, Bn, N, C, nh, nW, rows_bwd_chunk(Bn, nh), scale};
     const unsigned grid = (unsigned)(chunks * nh);
+    using Kernel = void (*)(RowsBwdArgs);
+    const bool streams = rows_bwd_streams(N, C / nh);
     if (is_bf16) {
-      if ((err = allow_smem(rows_bwd_f32_kernel<__nv_bfloat16>, smem)) != cudaSuccess) return err;
-      rows_bwd_f32_kernel<__nv_bfloat16><<<grid, kRowsThreads, smem, s>>>(a);
+      const Kernel kernel = streams ? rows_bwd_stream_kernel<__nv_bfloat16>
+                                    : rows_bwd_f32_kernel<__nv_bfloat16>;
+      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+      kernel<<<grid, kRowsThreads, smem, s>>>(a);
       if ((err = cudaGetLastError())) return err;
       const long long n = (long long)T * 3 * C;
       round_dqkv_kernel<<<(unsigned)((n + 1023) / 1024), 1024, 0, s>>>(
           static_cast<const float*>(a.dqkv), reinterpret_cast<__nv_bfloat16*>(ws + l.dqkv16), n);
       dqkv = ws + l.dqkv16;
     } else {
-      if ((err = allow_smem(rows_bwd_f32_kernel<float>, smem)) != cudaSuccess) return err;
-      rows_bwd_f32_kernel<float><<<grid, kRowsThreads, smem, s>>>(a);
+      const Kernel kernel = streams ? rows_bwd_stream_kernel<float> : rows_bwd_f32_kernel<float>;
+      if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+      kernel<<<grid, kRowsThreads, smem, s>>>(a);
     }
     if ((err = cudaGetLastError())) return err;
     if ((err = launch_atb(x, is_bf16, dqkv, is_bf16, T, C, 3 * C, part, dqkv_w, s))) return err;

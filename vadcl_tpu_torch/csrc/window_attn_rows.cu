@@ -26,12 +26,23 @@
 //      here: rows_attn_f32_kernel<PACKED, T>, one block per (window, head), K
 //      and V of that head in shared memory, one query row per warp on CUDA
 //      cores, a running max and sum over the keys, then p = e / l by fa_div
-//      (kernel 9: e * (1 / l)), rounded to T, and p . v;
+//      (kernel 9: e * (1 / l)), rounded to T, and p . v.  Where K and V of
+//      one head outgrow 227 KB (a head of 281 channels or wider at N = 98,
+//      544 at N = 49), rows_attn_stream_kernel<PACKED, T> streams the head's
+//      channels too: one block per (window, head) walks the queries eight
+//      rows at a time (a row a warp); per pass it builds the rows' scores
+//      over chunks of kRsDepth channels of K (each chunk in shared memory,
+//      the partial dot products kept per row and key, in channel order, so
+//      each score is the same chain of fmas as the whole-head core's), takes
+//      the softmax as above, and forms p . v chunk by chunk over V.  Its
+//      block holds one chunk tile, the pass's query chunk and one score row
+//      a warp: 164 N + 1024 bytes whatever the head width (N up to 1411);
 //   3. the projection out = round(o . W_proj + b_proj), as launch 1.
 //
 // What bounds it: the qkv and o workspaces add 8 C bytes a token of device
-// traffic (bf16) on top of x and out.  Left on the table: one fused launch,
-// wgmma for the products.
+// traffic (bf16) on top of x and out; the streamed core reads K and V of its
+// head once per eight query rows (from L2).  Left on the table: one fused
+// launch, wgmma for the products, tensor-core cores for heads wider than 64.
 #include "reduce.cuh"  // align256
 #include "window_attn_rows_mma.cuh"
 
@@ -46,12 +57,28 @@ struct RowsFwdArgs {
   float scale;
 };
 
-// Shared memory of one attention-core block (the bf16 tensor-core core: the
-// direct layout, the least it needs).
-inline size_t rows_fwd_smem(int n, int c, int nh, int is_bf16) {
-  const size_t hd = c / nh;
-  if (is_bf16 && rows_bf16_eligible(c, nh)) return rows_mma_layout(n, (int)hd, 0).bytes;
+// The CUDA-core cores' shared memory: K and V of the whole head (the
+// whole-head core), or one chunk of kRsDepth channels, the query rows' chunk
+// and a score row a warp (the streamed core).
+inline size_t rows_f32_fwd_smem(int n, int hd) {
   return sizeof(float) * (2 * (size_t)n * (hd + 1) + (size_t)kRowsWarps * (n + hd));
+}
+inline size_t rows_stream_fwd_smem(int n) {
+  return sizeof(float) * ((size_t)n * (kRsDepth + 1) + (size_t)kRowsWarps * (kRsDepth + n));
+}
+// Whether the CUDA-core core streams the head's channels: where the
+// whole-head core's block outgrows 227 KB.
+inline bool rows_fwd_streams(int n, int hd) {
+  return rows_f32_fwd_smem(n, hd) > (size_t)kMaxSmemBytes;
+}
+
+// Shared memory of one attention-core block (the bf16 tensor-core core: the
+// direct layout, the least it needs; the CUDA-core core: the whole head, else
+// the streamed layout).
+inline size_t rows_fwd_smem(int n, int c, int nh, int is_bf16) {
+  const int hd = c / nh;
+  if (is_bf16 && rows_bf16_eligible(c, nh)) return rows_mma_layout(n, hd, 0).bytes;
+  return rows_fwd_streams(n, hd) ? rows_stream_fwd_smem(n) : rows_f32_fwd_smem(n, hd);
 }
 
 template <bool PACKED, typename T>
@@ -106,6 +133,81 @@ __global__ void __launch_bounds__(kRowsThreads) rows_attn_f32_kernel(RowsFwdArgs
   }
 }
 
+// The same function with the head's channels streamed (see the header): the
+// queries in passes of kRowsWarps rows, a row a warp; per pass the scores
+// over K in chunks of kRsDepth channels, the softmax, then p . v over V in
+// the same chunks.  Every loop that holds a __syncthreads is block-uniform.
+template <bool PACKED, typename T>
+__global__ void __launch_bounds__(kRowsThreads) rows_attn_stream_kernel(RowsFwdArgs a) {
+  extern __shared__ __align__(16) float smf[];
+  constexpr int kLd = kRsDepth + 1;  // chunk rows padded: lanes read keys 33 floats apart
+  const int N = a.N, C = a.C, C3 = 3 * C, hd = C / a.nh;
+  const int win = blockIdx.x / a.nh, h = blockIdx.x % a.nh;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  float* kv = smf;                                  // N x kLd: a chunk of K, then of V
+  float* qc = kv + (size_t)N * kLd + warp * kRsDepth;  // this warp's query chunk
+  float* srow = kv + (size_t)N * kLd + kRowsWarps * kRsDepth + (size_t)warp * N;
+  const T* qkv = static_cast<const T*>(a.qkv) + (size_t)win * N * C3;
+  T* o = static_cast<T*>(a.o) + (size_t)win * N * C;
+  const float* bias = a.bias + (size_t)h * N * N;
+  const float* mask = a.mask != nullptr ? a.mask + (size_t)(win % a.nW) * N * N : nullptr;
+  const float smul = PACKED ? 1.f : a.scale;
+  // a chunk of K (part 1) or V (part 2) of the head's rows, channels c0 .. c0 + dc
+  auto load_chunk = [&](int part, int c0, int dc) {
+    for (int e = tid; e < N * dc; e += kRowsThreads) {
+      const int r = e / dc, d = e % dc;
+      kv[r * kLd + d] = to_f(qkv[(size_t)r * C3 + part * C + h * hd + c0 + d]);
+    }
+  };
+  for (int i0 = 0; i0 < N; i0 += kRowsWarps) {
+    const int i = i0 + warp;  // this warp's query row (none past N)
+    for (int c0 = 0; c0 < hd; c0 += kRsDepth) {
+      const int dc = min(kRsDepth, hd - c0);
+      __syncthreads();  // the chunk tile's last readers are done
+      load_chunk(1, c0, dc);
+      if (i < N)
+        for (int d = lane; d < dc; d += kWarp) qc[d] = to_f(qkv[(size_t)i * C3 + h * hd + c0 + d]);
+      __syncthreads();
+      if (i < N)
+        for (int j = lane; j < N; j += kWarp) {
+          float s = c0 == 0 ? 0.f : srow[j];
+          for (int d = 0; d < dc; ++d) s += qc[d] * kv[j * kLd + d];
+          srow[j] = s;
+        }
+    }
+    if (i < N) {
+      float m = -INFINITY, l = 0.f;
+      for (int j = lane; j < N; j += kWarp) {
+        float s = srow[j] * smul + bias[(size_t)i * N + j];
+        if (mask != nullptr) s += mask[(size_t)i * N + j];
+        srow[j] = s;
+        const float nm = fmaxf(m, s);
+        l = l * expf(m - nm) + expf(s - nm);
+        m = nm;
+      }
+      const float M = warp_max(m);
+      const float L = warp_sum(m == -INFINITY ? 0.f : l * expf(m - M)), R = 1.f / L;
+      for (int j = lane; j < N; j += kWarp) {
+        const float e = expf(srow[j] - M);
+        srow[j] = round_to<T>(PACKED ? e * R : fa_div(e, L, R));
+      }
+    }
+    __syncwarp();  // (the row's probabilities are read by every lane below)
+    for (int c0 = 0; c0 < hd; c0 += kRsDepth) {
+      const int dc = min(kRsDepth, hd - c0);
+      __syncthreads();
+      load_chunk(2, c0, dc);
+      __syncthreads();
+      if (i < N)
+        for (int d = lane; d < dc; d += kWarp) {
+          float acc = 0.f;
+          for (int j = 0; j < N; ++j) acc += srow[j] * kv[j * kLd + d];
+          o[(size_t)i * C + h * hd + c0 + d] = from_f<T>(acc);
+        }
+    }
+  }
+}
+
 struct RowsFwdWs {
   size_t qkv, o, bytes;
 };
@@ -140,13 +242,14 @@ cudaError_t launch_window_attn_rows(const void* x, const void* qkv_w, const floa
   const RowsFwdArgs a{ws + l.qkv, ws + l.o, bias, mask, Bn, N, C, nh, nW, scale};
   if (tc) {
     err = launch_rows_mma_core(a.qkv, a.o, bias, mask, Bn, N, C, nh, nW, scale, PACKED, s);
-  } else if (is_bf16) {
-    if ((err = allow_smem(rows_attn_f32_kernel<PACKED, bf16>, smem)) != cudaSuccess) return err;
-    rows_attn_f32_kernel<PACKED, bf16><<<(unsigned)(Bn * nh), kRowsThreads, smem, s>>>(a);
-    err = cudaGetLastError();
   } else {
-    if ((err = allow_smem(rows_attn_f32_kernel<PACKED, float>, smem)) != cudaSuccess) return err;
-    rows_attn_f32_kernel<PACKED, float><<<(unsigned)(Bn * nh), kRowsThreads, smem, s>>>(a);
+    using Kernel = void (*)(RowsFwdArgs);
+    const bool streams = rows_fwd_streams(N, C / nh);
+    const Kernel kernel =
+        is_bf16 ? (streams ? rows_attn_stream_kernel<PACKED, bf16> : rows_attn_f32_kernel<PACKED, bf16>)
+                : (streams ? rows_attn_stream_kernel<PACKED, float> : rows_attn_f32_kernel<PACKED, float>);
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<(unsigned)(Bn * nh), kRowsThreads, smem, s>>>(a);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;

@@ -1,7 +1,8 @@
 // Device code shared by the row-tiled window attention kernels
 // (window_attn_rows.cu, window_attn_bwd_rows.cu and their bf16 cores): the
-// widths the bf16 cores take, a strip's output stores and A fragments, and
-// the token-wise products of both directions.
+// widths the bf16 cores take, the streamed CUDA-core cores' chunk, a strip's
+// output stores and A fragments, and the token-wise products of both
+// directions.
 #pragma once
 
 #include "mma.cuh"
@@ -10,6 +11,10 @@ namespace vadcl {
 
 constexpr int kRowsThreads = 256;  // the attention cores: eight warps
 constexpr int kRowsWarps = kRowsThreads / kWarp;
+// Channels of a head a chunk of the streamed CUDA-core cores holds
+// (rows_attn_stream_kernel, rows_bwd_stream_kernel): a lane's channel of the
+// p . v and gradient sums.
+constexpr int kRsDepth = 32;
 
 // A window's rows padded to whole 16-row strips.
 __host__ __device__ inline int rows_padded(int n) { return (n + 15) / 16 * 16; }

@@ -27,6 +27,7 @@ from vadcl_tpu_torch.ops.fold_attn import (
 from vadcl_tpu_torch.ops.ln_mlp import (
     ln_mlp,
     ln_mlp_bwd,
+    ln_mlp_bwd_slab,
     ln_mlp_bwd_tiles,
     ln_mlp_slab,
     ln_mlp_tiles,
@@ -70,8 +71,10 @@ from vadcl_tpu_torch.ops.window import (
 # whole-tile body of 9 (the same, ``window_attention_packed`` counting A's
 # packed body).  A ``base`` or ``packed`` block on the unpartitioned tensor
 # (``window_grid_route``) counts its ``fold_attention`` launches on those of
-# 7, 9 and 8.  Last, kernel B's slab body (bf16 widths above 192, which the
-# wgmma body counted on ``ln_mlp`` does not hold).
+# 7, 9 and 8.  Then kernel B's slab body (bf16 widths above 192, which the
+# wgmma body counted on ``ln_mlp`` does not hold), and last kernel 5's slab
+# body (its bf16 widths above 192, which the body counted on ``ln_mlp_bwd``
+# does not hold).
 KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bwd,
            fold_attention_bwd, window_attention_fused, window_attention_fused_bwd,
            window_attention_packed, fold_attention_packed, fold_block, fold_block_bwd,
@@ -79,7 +82,7 @@ KERNELS = (fold_attention, ln_mlp, cluster_assign, space_cluster_loss, ln_mlp_bw
            window_attention_packed_rows, ln_mlp_bwd_tiles, fold_attention_bwd_tiles,
            ln_mlp_tiles, fold_block_bwd_tiles, fold_block_tiles,
            window_attention_fused_tiles, window_attention_fused_bwd_tiles,
-           window_attention_packed_tiles, ln_mlp_slab)
+           window_attention_packed_tiles, ln_mlp_slab, ln_mlp_bwd_slab)
 
 __all__ = [
     "KERNELS",
@@ -101,6 +104,7 @@ __all__ = [
     "get_window_size",
     "ln_mlp",
     "ln_mlp_bwd",
+    "ln_mlp_bwd_slab",
     "ln_mlp_bwd_tiles",
     "ln_mlp_slab",
     "ln_mlp_tiles",

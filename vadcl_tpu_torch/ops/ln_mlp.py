@@ -24,16 +24,20 @@ blocks above C = 7,200 are routed but have not run on the card).
 Kernel 5 replaces ``_bwd_kernel`` (entry ``_vjp_bwd``).  Like the Pallas
 backward, every product is fp32 on fp32 operands; per token tile the kernel
 recomputes the forward and emits dx, and the weight and bias sums over tokens
-go through a deterministic second pass.  It has two bodies, picked by
+go through a deterministic second pass.  It has three bodies, picked by
 ``mlp_bwd_body``: in bf16 at C % 16 == 0, C <= 192 and a hidden width
-divisible by 64 (the model's widths) ``csrc/ln_mlp_bwd_mma.cu`` runs every
+divisible by 64 (the flagship's widths) ``csrc/ln_mlp_bwd_mma.cu`` runs every
 product on the tensor cores (mma.sync), an fp32 operand split into bf16 hi
 and lo parts whose products are summed in fp32, reads B's cached pack and
-runs its second pass on the tensor cores too (``csrc/reduce_mma.cu``); fp32
-and every other width run the CUDA-core body of ``csrc/ln_mlp_bwd.cu``
-(vector loads where C and the hidden width are multiples of 4, scalar loads
-elsewhere; 16-token tiles, fewer above C = 772), which ``ln_mlp_bwd_tiles``
-counts: no width up to C = 3,500 is refused.
+runs its second pass on the tensor cores too (``csrc/reduce_mma.cu``); in
+bf16 at C % 16 == 0, 192 < C <= 592 and a hidden width divisible by 64 (the
+Video Swin-B width's C = 256) the slab body ``csrc/ln_mlp_bwd_slab.cu`` does
+the same on wgmma with dz's columns cut into slabs (``MLP_BWD_SLAB_SHAPES``),
+reading B's slab pack, counted on ``ln_mlp_bwd_slab``; fp32 and every other
+width run the CUDA-core body of ``csrc/ln_mlp_bwd.cu`` (vector loads where C
+and the hidden width are multiples of 4, scalar loads elsewhere; 16-token
+tiles, fewer above C = 772), which ``ln_mlp_bwd_tiles`` counts: no width up
+to C = 3,500 is refused.
 
 ``ln_mlp`` is a ``torch.autograd.Function``: forward kernel B, backward
 kernel 5.  On a CPU tensor both run their plain versions (``ln_mlp_plain``,
@@ -108,6 +112,43 @@ MLP_SLAB_MIN_C, MLP_SLAB_MAX_C = 16, MLP_SLAB_SHAPES[-1][2]
 _MS_ROWS, _MS_MAX_STAGES, _MS_HIDDEN = 64, 4, 64
 
 
+# Kernel 5's slab body (csrc/ln_mlp_bwd_slab.cu:kBsShapes): (dz columns per
+# slab, hidden columns per streamed chunk, the widest C), B's slab pack's
+# (slab, chunk) at each width, for bf16 at C % 16 == 0 from its minimum and a
+# hidden width divisible by 64; the route gives it the widths above 192.  Its
+# block holds the 64 x C round(z) and dy tiles beside at least two ring
+# stages, so C stops at 592 (230,464 B).
+MLP_BWD_SLAB_SHAPES = ((256, 64, 256), (128, 16, 592))
+MLP_BWD_SLAB_MIN_C, MLP_BWD_SLAB_MAX_C = 16, MLP_BWD_SLAB_SHAPES[-1][2]
+_BS_ROWS, _BS_MAX_STAGES = 64, 4
+
+
+def mlp_bwd_slab_shape(c: int):
+    """(slab, chunk, max C) of kernel 5's slab body's instance at width ``c``
+    (``csrc/ln_mlp_bwd_slab.cu:bs_shape``), or None where none takes it."""
+    if c < MLP_BWD_SLAB_MIN_C or c % 16:
+        return None
+    return next((sh for sh in MLP_BWD_SLAB_SHAPES if c <= sh[2]), None)
+
+
+def mlp_bwd_slab_smem_bytes(c: int, stages: int = 2) -> int:
+    """Shared memory of one block of kernel 5's slab body
+    (``csrc/ln_mlp_bwd_slab.cu:bs_smem_bytes``): the ring's mbarriers,
+    ``stages`` ring stages of W1 (C x chunk) and every slab's W2 piece
+    (chunk x slab), and the 64 x C round(z) and dy tiles, all bf16:
+    196,672 B at C = 256 (two stages)."""
+    cs, hc, _ = mlp_bwd_slab_shape(c)
+    slabs = -(-c // cs)
+    return 2 * 8 * _BS_MAX_STAGES + stages * 2 * hc * (c + slabs * cs) + 2 * 2 * _BS_ROWS * c
+
+
+def _bwd_slab_takes(c: int, ch: int, dtype: torch.dtype) -> bool:
+    """Whether kernel 5's slab body can run the width (``ln_mlp_bwd_slab``
+    forces it there); ``mlp_bwd_body`` gives it only the widths above 192."""
+    return (dtype == torch.bfloat16 and mlp_bwd_slab_shape(c) is not None and ch > 0
+            and ch % _MS_HIDDEN == 0 and mlp_bwd_slab_smem_bytes(c) <= SMEM_LIMIT)
+
+
 def mlp_fwd_tokens(c: int) -> int:
     """Tokens a block of kernel B's CUDA-core body holds at width ``c``
     (``csrc/ln_mlp.cu:mlp_tokens``): the most of 32, 16, ..., 1 whose block
@@ -171,13 +212,17 @@ def mlp_fwd_body(c: int, ch: int, dtype: torch.dtype) -> str:
 def mlp_bwd_body(c: int, ch: int, dtype: torch.dtype) -> str:
     """The body kernel 5 runs at width ``c`` and hidden width ``ch``:
     ``"mma"`` (the tensor-core body: bf16, C % 16 == 0, 16 <= C <= 192, a
-    hidden width divisible by 64, its block within ``SMEM_LIMIT``) or
-    ``"tiles"`` (the CUDA-core body: fp32, and bf16 at the widths the
-    tensor-core body does not take, any C and hidden width).  Raises only
-    above C = 3,500, where no tile of two tokens fits the block."""
+    hidden width divisible by 64, its block within ``SMEM_LIMIT``),
+    ``"slab"`` (the slab body: bf16, C % 16 == 0, 192 < C <= 592, a hidden
+    width divisible by 64) or ``"tiles"`` (the CUDA-core body: fp32, and
+    bf16 at the widths neither tensor-core body takes, any C and hidden
+    width).  Raises only above C = 3,500, where no tile of two tokens fits
+    the block."""
     if (dtype == torch.bfloat16 and c % 16 == 0 and 16 <= c <= MLP_BWD_MMA_MAX_C
             and ch % MLP_CHUNK == 0 and mlp_bwd_mma_smem_bytes(c) <= SMEM_LIMIT):
         return "mma"
+    if c > MLP_BWD_MMA_MAX_C and _bwd_slab_takes(c, ch, dtype):
+        return "slab"
     if mlp_bwd_tokens(c) > 0:
         return "tiles"
     raise NotImplementedError(
@@ -420,19 +465,29 @@ def _ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, body: str = "") -> torch.
     return y.reshape(shape)
 
 
-def ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, tiles: bool = False):
+def ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, body: str = ""):
     """Kernel 5: the gradients of ``ln_mlp`` as ``ln_mlp_bwd_plain`` returns
     them (the contract of ``fused_ln_mlp``'s ``_vjp_bwd``).  ``mlp_bwd_body``
-    picks the body; ``tiles`` forces the CUDA-core body.  Counts the
-    tensor-core body's launches."""
+    picks the body; ``body`` ("tiles" or "slab") forces one.  Counts the
+    narrow tensor-core body's launches (C <= 192)."""
     if x.device.type == "cpu":
         return ln_mlp_bwd_plain(x, dy, ln_scale, ln_bias, w1, b1, w2)
     if x.device.type != "cuda":
         raise ValueError(f"ln_mlp_bwd: unsupported device {x.device}")
     c, ch = _check_mlp("ln_mlp_bwd", x, w1, w2)
-    if tiles or mlp_bwd_body(c, ch, x.dtype) == "tiles":  # (raises where neither body takes it)
-        return _ln_mlp_bwd_tiles(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch)
-    return _ln_mlp_bwd_mma(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch)
+    chosen = mlp_bwd_body(c, ch, x.dtype)  # (raises where no body takes it)
+    body = body or chosen
+    args = (x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch)
+    if body == "tiles":
+        return _ln_mlp_bwd_tiles(*args)
+    if body == "slab":
+        if not _bwd_slab_takes(c, ch, x.dtype):
+            raise NotImplementedError(
+                f"ln_mlp_bwd_slab: the slab body takes bf16, C % 16 == 0, {MLP_BWD_SLAB_MIN_C} "
+                f"<= C <= {MLP_BWD_SLAB_MAX_C} and a hidden width divisible by {_MS_HIDDEN} "
+                f"(got {x.dtype}, C={c}, hidden {ch})")
+        return _ln_mlp_bwd_slab(*args)
+    return _ln_mlp_bwd_mma(*args)
 
 
 ln_mlp_bwd.launches = 0
@@ -441,12 +496,23 @@ ln_mlp_bwd.launches = 0
 def ln_mlp_bwd_tiles(x, dy, ln_scale, ln_bias, w1, b1, w2):
     """Kernel 5 on its CUDA-core body (``csrc/ln_mlp_bwd.cu``) whatever the
     dtype and width; counts that body's launches (also those the route makes
-    through ``ln_mlp_bwd``: fp32, and bf16 widths the tensor-core body does
+    through ``ln_mlp_bwd``: fp32, and bf16 widths the tensor-core bodies do
     not take)."""
-    return ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, tiles=True)
+    return ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, body="tiles")
 
 
 ln_mlp_bwd_tiles.launches = 0
+
+
+def ln_mlp_bwd_slab(x, dy, ln_scale, ln_bias, w1, b1, w2):
+    """Kernel 5 on its slab body (``csrc/ln_mlp_bwd_slab.cu``; bf16, C % 16 ==
+    0, 16 <= C <= 592, a hidden width divisible by 64, else it raises on the
+    card: the route gives it 192 < C only); counts that body's launches (also
+    those the route makes through ``ln_mlp_bwd``)."""
+    return ln_mlp_bwd(x, dy, ln_scale, ln_bias, w1, b1, w2, body="slab")
+
+
+ln_mlp_bwd_slab.launches = 0
 
 
 def _bwd_outputs(c, ch, dev):
@@ -478,6 +544,33 @@ def _ln_mlp_bwd_mma(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch):
     )
     cuda_lib.check(err, "ln_mlp_bwd")
     ln_mlp_bwd.launches += 1
+    return dx.reshape(shape), dls, dlb, dw1, db1, dw2, db2
+
+
+def _ln_mlp_bwd_slab(x, dy, ln_scale, ln_bias, w1, b1, w2, c, ch):
+    dev, dt = x.device, x.dtype
+    shape = x.shape
+    x2 = cuda_lib.aligned(x.reshape(-1, c))
+    dy2 = cuda_lib.aligned(dy.reshape(-1, c).to(dt))
+    ntok = x2.shape[0]
+    dx = torch.empty_like(x2)
+    dls, dlb, dw1, db1, dw2, db2 = _bwd_outputs(c, ch, dev)
+    lib = cuda_lib.library()
+    ws = torch.empty(lib.vadcl_ln_mlp_bwd_slab_workspace_bytes(ntok, c, ch),
+                     dtype=torch.uint8, device=dev)
+    # the forward's slab pack of this parameter version (a cache hit within a step)
+    cs, hc, _ = mlp_bwd_slab_shape(c)
+    w1p, w2p = _packs.get((w1, w2), ("mlp slab", cs, hc, str(dev)),
+                          lambda: pack_mlp_slabs(w1.to(dev), w2.to(dev), cs, hc, dt))
+    ls, lb, b1c = _mlp_vectors(ln_scale, ln_bias, b1, c, ch, dev)
+    err = lib.vadcl_ln_mlp_bwd_slab(
+        x2.data_ptr(), dy2.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1p.data_ptr(),
+        w2p.data_ptr(), b1c.data_ptr(), dx.data_ptr(), dls.data_ptr(), dlb.data_ptr(),
+        dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(), ntok, c,
+        ch, cuda_lib.stream_ptr(x2),
+    )
+    cuda_lib.check(err, "ln_mlp_bwd (slab body)")
+    ln_mlp_bwd_slab.launches += 1
     return dx.reshape(shape), dls, dlb, dw1, db1, dw2, db2
 
 

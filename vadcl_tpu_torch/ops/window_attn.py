@@ -28,11 +28,14 @@ and takes a window only where that fits 227 KB.  The row-tiled body
 bf16 core in ``csrc/window_attn_bwd_rows_mma.cu``) walks the
 keys of a 16-row strip of queries in blocks with a running max and sum and
 takes every N, e.g. N = 196 and N = 392 (windows (4, 7, 7) and (8, 7, 7) of
-8-frame reconstruction clips).  ``window_body`` picks the whole-tile body
-where it fits and the row-tiled one elsewhere; ``tile_smem_bytes`` and
-``rows_smem_bytes`` mirror the library's size functions (``chip_smoke.py``
-holds them against each other).  Each body counts its own launches: the
-row-tiled ones on ``window_attention_fused_rows``,
+8-frame reconstruction clips), and every head width: where K and V of one
+head (the backward: also q and dout's slice) outgrow the CUDA-core core's
+block, its streamed instance walks the head's channels in chunks as well
+(``rows_streams``).  ``window_body`` picks the whole-tile body where it fits
+and the row-tiled one elsewhere; ``tile_smem_bytes`` and ``rows_smem_bytes``
+mirror the library's size functions (``chip_smoke.py`` holds them against
+each other).  Each body counts its own launches: the row-tiled ones (the
+streamed instances too) on ``window_attention_fused_rows``,
 ``window_attention_fused_bwd_rows`` and ``window_attention_packed_rows``,
 which also force that body whatever N (to hold it against the plain version
 where the whole-tile body would run).
@@ -185,6 +188,7 @@ def window_attention_fused_bwd_plain(x_windows, dout, qkv_w, qkv_b, proj_w, bias
 
 ROWS_MAX_HEAD_DIM = 64  # widest bf16 head the row-tiled tensor-core cores are built for
 _ROWS_WARPS = 8  # warps of a row-tiled attention-core block
+ROWS_STREAM_DEPTH = 32  # channels a chunk of the streamed CUDA-core cores (window_rows.cuh:kRsDepth)
 
 
 def _up(v: int, m: int) -> int:
@@ -256,9 +260,15 @@ def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     windows' column sums (227,584 B at N = 392, head_dim 16, G = 4); at
     ``group`` 0 the direct layout: q, K, V and dout's slice of one head in
     padded rows, three row statistics and the strips' column sums (86,400 B
-    at N = 392, head_dim 16).  fp32: K and V of one head (the backward also
-    q and dout's slice) plus, in the backward, the row statistics and two
-    rows a warp; also bf16 at widths the tensor-core cores do not take."""
+    at N = 392, head_dim 16).  fp32, and bf16 at widths the tensor-core
+    cores do not take: K and V of one head (the backward also q and dout's
+    slice) plus, in the backward, the row statistics and two rows a warp;
+    where that outgrows ``SMEM_LIMIT``, the streamed layout
+    (``csrc/window_attn_rows.cu:rows_stream_fwd_smem``,
+    ``csrc/window_attn_bwd_rows.cu:rows_stream_bwd_smem``): one chunk of
+    ``ROWS_STREAM_DEPTH`` channels of K or V, a query chunk and a score row
+    a warp (164 N + 1024 B), the backward two of each and the row
+    statistics (340 N + 2048 B), whatever the head width."""
     hd = c // num_heads
     if bf16 and window_core(c, num_heads, torch.bfloat16, rows=True) == "mma":
         m = _up(n, 16)
@@ -273,9 +283,29 @@ def rows_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
         w = _ROWS_BWD_WARPS
         return (group * 4 * m * hd + 64 * (m + 8) + 128 * m + group * 12 * m + 256 * w
                 + 64 * w * (2 * hd + 8) + group * w * 12 * hd)
+    if rows_streams(n, c, num_heads, backward):
+        d, w = ROWS_STREAM_DEPTH, _ROWS_WARPS
+        if not backward:
+            return 4 * (n * (d + 1) + w * (d + n))
+        return 4 * (2 * n * (d + 1) + 2 * w * d + 2 * w * n + 3 * n)
+    return _rows_whole_head_bytes(n, hd, backward)
+
+
+def _rows_whole_head_bytes(n: int, hd: int, backward: bool) -> int:
+    """The CUDA-core cores' block with the whole head in shared memory
+    (``rows_f32_fwd_smem``, ``rows_f32_bwd_smem``)."""
     if not backward:
         return 4 * (2 * n * (hd + 1) + _ROWS_WARPS * (n + hd))
     return 4 * (4 * n * hd + 3 * n + 2 * _ROWS_WARPS * n)
+
+
+def rows_streams(n: int, c: int, num_heads: int, backward: bool = False) -> bool:
+    """Whether the row-tiled CUDA-core core (fp32, and bf16 at widths the
+    tensor-core cores do not take) runs its streamed instance
+    (``rows_attn_stream_kernel``, ``rows_bwd_stream_kernel``): where the
+    whole head's operands outgrow ``SMEM_LIMIT`` (forward: head width 281
+    and up at N = 98, 544 at N = 49; backward: 144 and 292)."""
+    return _rows_whole_head_bytes(n, c // num_heads, backward) > SMEM_LIMIT
 
 
 def rows_group(n: int, c: int, num_heads: int, per_class: int) -> int:
@@ -311,10 +341,11 @@ def window_body(n: int, c: int, num_heads: int, dtype: torch.dtype,
                 backward: bool = False) -> str:
     """The body a window of ``n`` tokens at width ``c`` runs in: ``"tile"``
     where the whole-tile body's block fits ``SMEM_LIMIT``, else ``"rows"``
-    (``window_core`` says which arithmetic).  Raises ``NotImplementedError``
-    only where neither fits (a row-tiled block above 227 KB: a bf16 head wider
-    than ``ROWS_MAX_HEAD_DIM`` runs the CUDA-core core, which holds K and V
-    in fp32)."""
+    (``window_core`` says which arithmetic, ``rows_streams`` whether the
+    CUDA-core core streams the head's channels).  Every head width takes a
+    body; ``NotImplementedError`` is raised only for windows longer than
+    every row-tiled layout holds (the streamed CUDA-core cores: N above 1411
+    forward, 677 backward)."""
     bf16 = dtype == torch.bfloat16
     if tile_smem_bytes(n, c, num_heads, bf16, backward) <= SMEM_LIMIT:
         return "tile"
