@@ -413,7 +413,8 @@ def phase_build():
     from vadcl_tpu_torch.ops.fold_attn import fold_smem_bytes
 
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
-                     (98, 24, 2), (392, 96, 6), (98, 96, 3), (98, 192, 6), (49, 64, 2)):
+                     (98, 24, 2), (392, 96, 6), (98, 96, 3), (98, 192, 6), (49, 64, 2),
+                     (98, 256, 8), (49, 256, 8), (98, 128, 4), (49, 128, 4), (98, 224, 7)):
         for bf16 in (0, 1):
             if bf16 and c % 16:
                 continue
@@ -424,13 +425,15 @@ def phase_build():
             if mine != theirs:
                 raise AssertionError(f"fold_smem_bytes{(n, c, nh, bf16)} = {mine} but the "
                                      f"library says {theirs}")
-    print("  fold_smem_bytes (the route's predicate) agrees with the library's layouts")
+    print("  fold_smem_bytes (the route's predicate) agrees with the library's layouts, the "
+          "depth-chunked ones at C = 224 and 256 too")
     from vadcl_tpu_torch.ops.fold_attn import fold_bwd_body, fold_bwd_mma_smem_bytes
     from vadcl_tpu_torch.ops.ln_mlp import mlp_bwd_body, mlp_bwd_mma_smem_bytes
 
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
                      (98, 64, 4), (49, 32, 2), (98, 96, 3), (98, 192, 6), (49, 192, 6),
-                     (112, 96, 6), (65, 96, 6), (16, 32, 2), (49, 256, 16)):
+                     (112, 96, 6), (65, 96, 6), (16, 32, 2), (49, 256, 16), (98, 256, 8),
+                     (49, 256, 8), (98, 128, 4), (98, 240, 15), (98, 256, 16)):
         mine, theirs = fold_bwd_mma_smem_bytes(n, c, nh), lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh)
         if mine != theirs:
             raise AssertionError(f"fold_bwd_mma_smem_bytes{(n, c, nh)} = {mine} but the library "
@@ -631,12 +634,12 @@ def phase_build():
             raise AssertionError(f"{gname}: bf16 base and packed blocks must hand kernels A "
                                  "and 6 the unpartitioned tensor")
     folds = 0
-    for c, nh in ROW_WIDTHS + ((32, 2), (64, 4), (96, 2), (256, 8), (256, 16), (128, 4)):
+    for c, nh in ROW_WIDTHS + ((32, 2), (64, 4), (96, 2), (256, 8), (256, 16), (128, 4),
+                               (224, 7), (240, 15)):
         for n in range(1, 150):
             for backward in (False, True):
-                # the route: the whole-tile body's windows, where A's or 6's body takes them
-                if (window_body(n, c, nh, torch.bfloat16, backward) != "tile"
-                        or window_tile_core(n, c, nh, torch.bfloat16, backward) != "fold_mma"):
+                # the route: every window A's or 6's body takes, whatever window_body says
+                if window_tile_core(n, c, nh, torch.bfloat16, backward) != "fold_mma":
                     continue
                 folds += 1
                 smem = (lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh) if backward
@@ -1085,6 +1088,130 @@ def phase_kernels():
                     want.loss_sq_sum, 0.0, CLUSTER_RTOL)
         if not bool((got.labels == want.labels).all()):
             raise AssertionError("cluster_assign: labels differ at an edge shape")
+    stats.update(swin_b_fold_kernels())
+    return stats
+
+
+# Kernels A and 6 at the Video Swin-B width's shapes (x_windows-style
+# (windows, N, C) of 224^2 4-frame clips): label: (clip (D, H, W, C), batch,
+# heads, window), every case shifted (the mask present).  A's block streams
+# its weights in 2 depth chunks at C = 256, 6's in 4 (N = 98) or 2.
+SWIN_B_FOLD_SHAPES = {
+    "(256,98,256)": ((2, 28, 28, 256), 16, 8, (2, 7, 7)),   # encoder stage 1, batch 16
+    "(256,49,256)": ((1, 28, 28, 256), 16, 8, (1, 7, 7)),   # decoder stage 0, batch 16
+    "(64,98,256)": ((2, 28, 28, 256), 4, 8, (2, 7, 7)),     # encoder stage 1, batch 4
+    "(64,49,256)": ((1, 28, 28, 256), 4, 8, (1, 7, 7)),     # decoder stage 0, batch 4
+    "(256,98,128)": ((2, 56, 56, 128), 4, 4, (2, 7, 7)),    # encoder stage 0, batch 4
+}
+# the kernels line's rows of them, each with the run that counts its launches:
+# A at the scoring batch, 6 at the training batch
+SWIN_B_FOLD_ROWS = {
+    "fold_attention": ("scoring swin-b fold", ("(256,98,256)", "(256,49,256)")),
+    "fold_attention_bwd": ("training swin-b fold", ("(64,98,256)", "(64,49,256)", "(256,98,128)")),
+}
+
+
+def swin_b_fold_kernels() -> dict:
+    """Kernels A and 6 in bf16 at every Video Swin-B-width shape of
+    ``SWIN_B_FOLD_SHAPES``, each against its plain version (``BOUNDS``,
+    ``BWD_TOL``), its counter asserted, called twice for the same bits, and
+    timed beside its plain version, its bound and the body the route gave
+    that shape before A's and 6's weights streamed in depth chunks, forced on
+    the same shapes (the partitioned windows: 7's whole tile; 8's rows at N
+    = 98, its whole tile at 49; A itself where one chunk fits, as at C =
+    128).  Returns {"<kernel> Video Swin-B width <shape>": stats}."""
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_attention_plain,
+        fold_depth_chunks,
+    )
+    from vadcl_tpu_torch.ops.window_attn import (
+        window_attention_fused_bwd_rows, window_attention_fused_bwd_tiles,
+        window_attention_fused_tiles, window_body,
+    )
+
+    bf, tol = torch.bfloat16, BWD_TOL[torch.bfloat16]
+    print("[2] kernels A and 6 at the Video Swin-B width's shapes, bf16, shifted (depth "
+          "chunks of a weight slice: A's, 6's)")
+    gen = torch.Generator().manual_seed(23)
+    stats = {}
+    for label, ((D, H, W, C), batch, nh, window) in SWIN_B_FOLD_SHAPES.items():
+        n = window[0] * window[1] * window[2]
+        shift = (0, 3, 3)
+        chunks = (fold_depth_chunks(n, C, nh), fold_depth_chunks(n, C, nh, backward=True))
+        for kernel, plain, counter in ((fold_attention, fold_attention_plain, "fold_attention"),
+                                       (fold_attention_bwd, fold_attention_bwd_plain,
+                                        "fold_attention_bwd")):
+            backward = counter == "fold_attention_bwd"
+            make = _fold_bwd_case if backward else _fold_case
+            a = make((batch, D, H, W, C), nh, window, shift, bf, gen)
+            name = f"{counter} x_windows {label}, {nh} heads, {chunks[backward]} chunks"
+            got, moved = _launched(lambda: kernel(**a))
+            if moved != {counter: 1}:
+                raise AssertionError(f"{name}: launches {moved}, expected one of {counter}")
+            if backward:
+                err = check_grads(name, FOLD_BWD_NAMES, got, plain(**a), tol)
+            else:
+                err = check_close(name, got, plain(**a), *BOUNDS[bf])
+            as_tuple = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
+            same_bits(name, as_tuple(got), as_tuple(kernel(**a)))
+            ms, pms = cuda_ms(lambda: kernel(**a)), cuda_ms(lambda: plain(**a))
+            b = bound(tensors_of(a, as_tuple(got)),
+                      attn_flops(a["x"][..., 0].numel(), C, n, backward=backward), "bf16")
+            del got
+            if chunks[backward] == 1:
+                old, old_ms = "the same body (one chunk fits)", ms
+            else:
+                w = _win_case_at(batch, (D, H, W), C, nh, window, shift, bf, gen)
+                if backward:
+                    w = _win_bwd_case(w, gen)
+                    body = window_body(n, C, nh, bf, backward=True)
+                    forced = (window_attention_fused_bwd_rows if body == "rows"
+                              else window_attention_fused_bwd_tiles)
+                else:
+                    forced = window_attention_fused_tiles
+                old, old_ms = forced.__name__, cuda_ms(lambda: forced(**w))
+                del w
+            print(f"    {name}: {ms:.4f} ms; before the chunks ({old}) {old_ms:.4f} ms; "
+                  f"plain {pms:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
+                  f"{b['bound_ms'] / ms:.2%} of it")
+            stats[f"{counter} Video Swin-B width {label}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, old_body_ms=old_ms, old_body=old,
+                depth_chunks=chunks[backward],
+                shape=f"x ({batch},{D},{H},{W},{C}) bf16, nH {nh}, N {n}, shifted", **b)
+            del a
+    print("  the chunked bodies' other callers at C = 256 with 8 heads, bf16: A and 10 in "
+          "every mode, 7, 9 and 8 on window_grid's view")
+    from vadcl_tpu_torch.ops import window_attn as wa
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_attention_packed, fold_attention_packed_plain,
+    )
+
+    views = (("window_attention_fused", wa.window_attention_fused,
+              wa.window_attention_fused_plain),
+             ("window_attention_packed", wa.window_attention_packed,
+              wa.window_attention_packed_plain))
+    for label in ("(64,98,256)", "(64,49,256)"):
+        (D, H, W, C), batch, nh, window = SWIN_B_FOLD_SHAPES[label]
+        for shift in ((0, 0, 0), (0, 3, 3)):
+            tag = f"x_windows {label}, shift {shift}"
+            a = _fold_case((batch, D, H, W, C), nh, window, shift, bf, gen)
+            check_fold(f"fold_attention {tag}", a)
+            check_fold(f"fold_attention_packed {tag}", a, fold_attention_packed,
+                       fold_attention_packed_plain)
+            w = _win_case_at(batch, (D, H, W), C, nh, window, shift, bf, gen)
+            for counter, kernel, plain in views:
+                got, moved = _launched(lambda: kernel(**w))
+                if moved != {counter: 1}:
+                    raise AssertionError(f"{counter} {tag}: launches {moved}, expected the "
+                                         "view's one")
+                check_close(f"{counter} {tag}", got, plain(**w), *BOUNDS[bf])
+            w = _win_bwd_case(w, gen)
+            got, moved = _launched(lambda: wa.window_attention_fused_bwd(**w))
+            if moved != {"window_attention_fused_bwd": 1}:
+                raise AssertionError(f"window_attention_fused_bwd {tag}: launches {moved}")
+            check_grads(f"window_attention_fused_bwd {tag}", WIN_BWD_NAMES, got,
+                        wa.window_attention_fused_bwd_plain(**w), tol)
+            del a, w, got
     return stats
 
 
@@ -3261,15 +3388,18 @@ def swin_b_routes(c: int, nh: int, n: int, dtype=torch.bfloat16) -> tuple:
     """(forward counter, backward counter) of a Swin-B-width block's
     attention: kernel A where ``fold_fits``, with kernel 6 where one of its
     bodies takes the window, else (LN1 replayed) kernel 8; kernels 7 and 8
-    elsewhere, on the body ``window_body`` and ``window_tile_core`` pick."""
+    elsewhere, on A's and 6's bodies where ``window_tile_core`` says so,
+    else on the body ``window_body`` picks.  Since A's and 6's weight
+    slices stream in depth chunks every stage in bf16 gives
+    ("fold_attention", "fold_attention_bwd")."""
     from vadcl_tpu_torch.ops.fold_attn import fold_bwd_body, fold_fits
     from vadcl_tpu_torch.ops.window_attn import window_body, window_tile_core
 
     def window(backward):
         base = "window_attention_fused_bwd" if backward else "window_attention_fused"
-        if window_body(n, c, nh, dtype, backward) == "rows":
-            return base + "_rows"
-        return base if window_tile_core(n, c, nh, dtype, backward) == "fold_mma" else base + "_tiles"
+        if window_tile_core(n, c, nh, dtype, backward) == "fold_mma":
+            return base
+        return base + ("_rows" if window_body(n, c, nh, dtype, backward) == "rows" else "_tiles")
 
     if not fold_fits(n, c, nh, dtype):
         return window(False), window(True)
@@ -3319,6 +3449,9 @@ def phase_swin_b_kernels(batch: int = BATCH_WINDOWS, train_batch: int = 4) -> li
     for stage, ((D, H, W, C), nh, window, shift, blocks) in SWIN_B_GEOMETRIES.items():
         n = window[0] * window[1] * window[2]
         fwd, bwd = swin_b_routes(C, nh, n)
+        if (fwd, bwd) != ("fold_attention", "fold_attention_bwd"):
+            raise AssertionError(f"{stage}: the route gives {fwd} and {bwd}, where kernels A "
+                                 "and 6 take every Video Swin-B-width stage")
         for sh in ((0, 0, 0), shift):
             tag = f"{stage} {'shifted' if any(sh) else 'plain'}"
             if fwd == "fold_attention":
@@ -3415,6 +3548,32 @@ def slab_body_forced_off(route: str = "mlp_fwd_body"):
         setattr(mod, route, real)
 
 
+@contextlib.contextmanager
+def depth_chunks_forced_off():
+    """While open, kernels A's and 6's tensor-core bodies are offered whole
+    weight slices only (one depth chunk), the route before the chunks: the
+    Video Swin-B width's C = 256 blocks run kernels 7 and 8 on partitioned
+    windows (7's whole tile; 8's rows at N = 98, its whole tile at 49) and
+    its C = 128 backward replays LN1 and runs 8's rows."""
+    import importlib
+
+    mod = importlib.import_module("vadcl_tpu_torch.ops.fold_attn")
+    real = mod.fold_depth_chunks
+    mod.fold_depth_chunks = lambda n, c, nh, backward=False: min(real(n, c, nh, backward), 1)
+    try:
+        yield
+    finally:
+        mod.fold_depth_chunks = real
+
+
+# Kernels 7 and 8 of every body: none launches on the Video Swin-B-width path
+# since A and 6 take its C = 256 and C = 128 blocks.
+WINDOW_COUNTERS = ("window_attention_fused", "window_attention_fused_tiles",
+                   "window_attention_fused_rows", "window_attention_fused_bwd",
+                   "window_attention_fused_bwd_tiles", "window_attention_fused_bwd_rows")
+SWIN_B_BLOCKS = 18  # Swin blocks a forward: depths (3, 6) / (6, 3)
+
+
 def kernel_table(fn, top: int = 12) -> list:
     """[(kernel name, device ms summed over one call of ``fn``, launches)]
     by the profiler, the ``top`` longest first."""
@@ -3441,17 +3600,22 @@ def phase_swin_b(smi: str) -> dict:
     """The slice's path at full width: the shanghaitech model at Video
     Swin-B's width in bf16 under ``fold``, weights from a seed, nothing cut.
     Prints each stage's attention body; scores a synthetic video through
-    ``evaluate_videos`` at batch 16 (12 launches of B's slab body and 6 of
-    its wgmma body a forward, no plain version on a CUDA tensor) and holds
-    the scores against the same weights on the plain path on the card
+    ``evaluate_videos`` at batch 16 (kernel A in all 18 blocks and no kernel
+    7 of any body, 12 launches of B's slab body and 6 of its wgmma body a
+    forward, no plain version on a CUDA tensor) and holds the scores against
+    the same weights on the plain path on the card
     (``utils/parity.py:score_bound`` in bf16); times one batch-16 forward's
-    device-busy ms (profiler) with the slab body and with the CUDA-core body
-    forced in its place; a batch-4 forward and backward's longest kernels
-    and device-busy ms with kernel 5's slab body (12 launches) and with its
-    CUDA-core body forced in its place; then three ``train()`` steps at
-    batch 4, their launches counted (12 of kernel 5's slab body a step, none
-    of its CUDA-core body), whose losses are held against three steps of
-    the plain path from the same seed and data (the bf16 kernel bound, rtol
+    device-busy ms (profiler) as routed, with B's CUDA-core body forced in
+    the slab body's place, and with the route before A's and 6's depth
+    chunks forced (``depth_chunks_forced_off``: 7's whole tile in 12
+    blocks); a batch-4 forward and backward's longest kernels and
+    device-busy ms as routed (6 in all 18 blocks), with kernel 5's
+    CUDA-core body forced in its slab body's place, and with the route
+    before the chunks forced (8's rows in 9 blocks, its whole tile in 6);
+    then three ``train()`` steps at batch 4, their launches counted (A and 6
+    18 times a step, no kernel 7 or 8, 12 of kernel 5's slab body, none of
+    its CUDA-core body), whose losses are held against three steps of the
+    plain path from the same seed and data (the bf16 kernel bound, rtol
     2e-2).
     Returns the launch counts of the scoring and the training run."""
     from vadcl_tpu_torch.eval.predict import (
@@ -3498,9 +3662,10 @@ def phase_swin_b(smi: str) -> dict:
         auc, _, per_video = evaluate_videos(fused_scorer, videos, 4, True, "stride1")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"scoring swin-b fold": read_required(
+    counts = {"scoring swin-b fold": read_launches(
         {"ln_mlp", "ln_mlp_slab", "fold_attention", "cluster_assign", "space_cluster_loss"},
         "scoring, Swin-B width", {"ln_mlp_slab": 12 * forwards, "ln_mlp": 6 * forwards,
+                                  "fold_attention": SWIN_B_BLOCKS * forwards,
                                   "cluster_assign": forwards, "space_cluster_loss": forwards})}
     want = evaluate_videos(plain_scorer, videos, 4, True, "stride1")[2][0].scores
     got = per_video[0].scores
@@ -3524,8 +3689,19 @@ def phase_swin_b(smi: str) -> dict:
 
             if ln_mlp_tiles.launches != 12 or ln_mlp_slab.launches:
                 raise AssertionError("the forced forward did not run B's CUDA-core body 12 times")
+    from vadcl_tpu_torch.ops import fold_attention, window_attention_fused_tiles
+
+    with torch.no_grad(), depth_chunks_forced_off():
+        model(clips)
+        reset_launches()
+        model(clips)
+        if window_attention_fused_tiles.launches != 12 or fold_attention.launches != 6:
+            raise AssertionError("the route before the depth chunks must run 7's whole tile in "
+                                 "12 blocks and A in 6")
+        unchunked, _ = traced_call(lambda: model(clips))
     print(f"  one batch-16 forward, device busy: {busy:.3f} ms with the slab body, {old:.3f} ms "
-          f"with the CUDA-core body forced in its place [{smi}]")
+          f"with the CUDA-core body forced in its place [{smi}]; {unchunked:.3f} ms with the "
+          f"route before A's depth chunks forced (7's whole tile in 12 blocks) [{smi}]")
     with torch.no_grad():
         table = kernel_table(lambda: model(clips))
     print("  the forward's longest kernels (device ms, launches): "
@@ -3554,11 +3730,36 @@ def phase_swin_b(smi: str) -> dict:
         if ln_mlp_bwd_tiles.launches != 12 or ln_mlp_bwd_slab.launches:
             raise AssertionError("the forced backward did not run 5's CUDA-core body 12 times")
         old_table = kernel_table(forward_backward)
+    from vadcl_tpu_torch.ops import (
+        fold_attention_bwd, window_attention_fused_bwd_rows, window_attention_fused_bwd_tiles,
+    )
+
+    reset_launches()
+    forward_backward()
+    from vadcl_tpu_torch.ops import KERNELS
+
+    if fold_attention_bwd.launches != SWIN_B_BLOCKS or any(
+            k.launches for k in KERNELS if k.__name__ in WINDOW_COUNTERS):
+        raise AssertionError("a forward and backward must run kernel 6 in all 18 blocks and "
+                             "no kernel 7 or 8")
+    with depth_chunks_forced_off():
+        forward_backward()
+        reset_launches()
+        forward_backward()
+        if (window_attention_fused_bwd_rows.launches, window_attention_fused_bwd_tiles.launches,
+                fold_attention_bwd.launches) != (9, 6, 3):
+            raise AssertionError("the route before the depth chunks must run 8's rows in 9 "
+                                 "blocks, its whole tile in 6 and 6 in 3")
+        unchunked_bwd, _ = traced_call(forward_backward)
+        unchunked_table = kernel_table(forward_backward)
     model.zero_grad(set_to_none=True)
     print(f"  one batch-{TRAIN_BATCH} forward and backward, device busy: {busy_bwd:.3f} ms with "
           f"kernel 5's slab body, {old_bwd:.3f} ms with its CUDA-core body forced in its place "
           f"[{smi}]; the forced run's longest kernels: "
           + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in old_table[:4]))
+    print(f"  the same with the route before A's and 6's depth chunks forced: "
+          f"{unchunked_bwd:.3f} ms busy against {busy_bwd:.3f} [{smi}]; its longest kernels: "
+          + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in unchunked_table[:6]))
     del model, plain, fused_scorer, plain_scorer
     torch.cuda.empty_cache()
 
@@ -3576,13 +3777,15 @@ def phase_swin_b(smi: str) -> dict:
                 torch.cuda.synchronize()
             if fused:
                 steps = SWIN_B_STEPS
-                counts["training swin-b fold"] = read_required(
+                counts["training swin-b fold"] = read_launches(
                     {"ln_mlp", "ln_mlp_slab", "fold_attention", "cluster_assign",
-                     "space_cluster_loss", "ln_mlp_bwd", "ln_mlp_bwd_slab"},
+                     "space_cluster_loss", "ln_mlp_bwd", "ln_mlp_bwd_slab",
+                     "fold_attention_bwd"},
                     "training, Swin-B width",
                     {"ln_mlp_slab": 12 * steps, "ln_mlp": 6 * steps,
                      "ln_mlp_bwd_slab": 12 * steps, "ln_mlp_bwd": 6 * steps,
-                     "ln_mlp_bwd_tiles": 0})
+                     "fold_attention": SWIN_B_BLOCKS * steps,
+                     "fold_attention_bwd": SWIN_B_BLOCKS * steps})
             losses[label] = np.load(os.path.join(out, "loss_record", "loss.npy"))
             if state.step != SWIN_B_STEPS or not np.all(np.isfinite(losses[label])):
                 raise AssertionError(f"Swin-B width, {label}: a step did not run or its loss is "
@@ -5065,6 +5268,12 @@ def main():
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=counts[run][counter], counted_on=run, **stats[name])
         for name, (counter, source, replaces, run) in NARROW_ENTRIES.items()
+    ] + [
+        dict(name=f"{counter} Video Swin-B width {label}", route="cuda",
+             source=REPLACES[counter][0], replaces=REPLACES[counter][1],
+             launches=counts[run][counter], counted_on=run,
+             **stats[f"{counter} Video Swin-B width {label}"])
+        for counter, (run, labels) in SWIN_B_FOLD_ROWS.items() for label in labels
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -55,8 +55,12 @@ K6_GEOMETRIES = {
     "tiny_decoder": ((49, 32, 2), "mma"),
     "head32_c96": ((98, 96, 3), "mma"), "head32_c64": ((98, 64, 2), "mma"),
     "head32_c192_n49": ((49, 192, 6), "mma"),
-    # the tensor-core body's block would exceed 227 KB: the shared-memory body
-    "head32_c192_n98": ((98, 192, 6), None),
+    # whole weight slices would take 276,864 B: two depth chunks, 210,304 B
+    "head32_c192_n98": ((98, 192, 6), "mma"),
+    # the Video Swin-B width (embed_dim 128, heads (4, 8) / (8, 4)), in
+    # depth chunks
+    "swin_b_enc_stage0": ((98, 128, 4), "mma"), "swin_b_enc_stage1": ((98, 256, 8), "mma"),
+    "swin_b_dec_stage0": ((49, 256, 8), "mma"),
     "head48_n49": ((49, 96, 2), "tiles"), "head64_n49": ((49, 128, 2), "tiles"),
     "head48_n98": ((98, 96, 2), None),
 }
@@ -94,6 +98,12 @@ def test_kernel6_layout_mirror():
     # a larger window pads to 112 rows and does not grow the block
     assert fold_bwd_mma_smem_bytes(65, 96, 6) == fold_bwd_mma_smem_bytes(112, 96, 6)
     assert fold_bwd_body(113, 96, 6, torch.bfloat16) != "mma"
+    # depth chunks where whole slices do not fit: (98, 192, 6) and the Video
+    # Swin-B width's geometries
+    assert fold_bwd_mma_smem_bytes(98, 192, 6) == 210304
+    assert fold_bwd_mma_smem_bytes(98, 128, 4) == 182656
+    assert fold_bwd_mma_smem_bytes(98, 256, 8) == 224640
+    assert fold_bwd_mma_smem_bytes(49, 256, 8) == 153728
 
 
 # C of kernel 5: multiples of 16 up to 192 take the tensor-core body, from

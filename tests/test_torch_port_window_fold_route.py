@@ -22,7 +22,7 @@ import torch
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_port_window_attn import T, _case, _jax_forward, _jax_vjp, _opt, assert_rel
 from vadcl_tpu.ops.pallas_attn import fused_window_attention
-from vadcl_tpu_torch.ops import window_attn
+from vadcl_tpu_torch.ops import fold_attn, window_attn
 from vadcl_tpu_torch.ops.fold_attn import (
     SMEM_LIMIT,
     _check_fold,
@@ -183,22 +183,48 @@ def test_flagship_windows_take_the_tensor_core_bodies_in_bf16(geom, backward):
     assert window_attn._pick_body("k", "tile", x, nh, backward) == "tile"
 
 
+SWIN_B = {"C256_8heads": (98, 256, 8), "C256_8heads_N49": (49, 256, 8),
+          "C128_4heads": (98, 128, 4)}  # the Video Swin-B width's attention geometries
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("geom", SWIN_B)
+def test_swin_b_windows_take_the_tensor_core_bodies_in_bf16(geom, backward):
+    """C = 256 with 8 heads (N = 98 and 49) and C = 128 with 4 heads take
+    kernels A's and 6's tensor-core bodies in bf16 (their weight slices
+    stream in depth chunks: A's block 207,488 and 229,504 B at C = 256, 6's
+    224,640 and 153,728 B), ahead of the row-tiled body that the backward's
+    whole tile would leave them to at N = 98; in fp32 the partitioned
+    bodies."""
+    n, c, nh = SWIN_B[geom]
+    assert window_tile_core(n, c, nh, torch.bfloat16, backward) == "fold_mma"
+    assert window_tile_core(n, c, nh, torch.float32, backward) == "tile"
+    x = torch.empty(4, n, c, dtype=torch.bfloat16, device="meta")
+    assert window_attn._pick_body("k", None, x, nh, backward) == "fold_mma"
+    x32 = torch.empty(4, n, c, dtype=torch.float32, device="meta")
+    assert (window_attn._pick_body("k", None, x32, nh, backward)
+            == window_body(n, c, nh, torch.float32, backward))
+    size = fold_bwd_mma_smem_bytes(n, c, nh) if backward else fold_smem_bytes(n, c, nh, True)
+    assert size == {(98, 256, 8): (207488, 224640), (49, 256, 8): (229504, 153728),
+                    (98, 128, 4): (150144, 182656)}[(n, c, nh)][backward] <= SMEM_LIMIT
+
+
 @pytest.mark.parametrize("n,c,nh", [(98, 24, 2), (98, 48, 4), (49, 96, 2), (98, 192, 4),
-                                    (98, 256, 8), (49, 256, 8), (113, 96, 6)],
-                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "C256_8heads",
-                              "C256_8heads_N49", "N113"])
+                                    (113, 96, 6)],
+                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "N113"])
 def test_other_widths_keep_the_whole_tile_body(n, c, nh):
-    """Head widths 12 and 48, C = 256 with 8 heads (kernel A's block does not
-    fit, nor kernel 6's) and windows above 112 tokens stay on the whole-tile
-    body, in bf16 and in fp32, each direction."""
+    """Head widths 12 and 48 and windows above 112 tokens stay on the
+    partitioned bodies (the whole tile where it fits), in bf16 and in fp32,
+    each direction; whole weight slices at C = 256 with 8 heads would not
+    fit A's block nor 6's (the depth chunks' reason)."""
     for dtype in (torch.bfloat16, torch.float32):
         for backward in (False, True):
             assert window_tile_core(n, c, nh, dtype, backward) == "tile"
             if window_body(n, c, nh, dtype, backward) == "tile":
                 x = torch.empty(2, n, c, dtype=dtype, device="meta")
                 assert window_attn._pick_body("k", None, x, nh, backward) == "tile"
-    assert fold_smem_bytes(98, 256, 8, True) > SMEM_LIMIT
-    assert fold_bwd_mma_smem_bytes(98, 256, 8) > SMEM_LIMIT
+    assert fold_attn._fold_fwd_mma_bytes(98, 256, 32, 1) == 260736 > SMEM_LIMIT
+    assert fold_attn._fold_bwd_mma_bytes(98, 256, 32, 1) == 331136 > SMEM_LIMIT
 
 
 WIDTHS = ((96, 6), (192, 12), (96, 3), (192, 6), (32, 2), (64, 4), (24, 2), (48, 4),

@@ -183,15 +183,30 @@ def test_flagship_blocks_take_the_unpartitioned_route_in_bf16(geom, name):
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["base", "packed"])
+@pytest.mark.parametrize("n,c,nh", [(98, 256, 8), (49, 256, 8), (98, 128, 4), (98, 192, 6)],
+                         ids=["C256_8heads", "C256_8heads_N49", "C128_4heads", "C192_6heads"])
+def test_swin_b_blocks_take_the_unpartitioned_route_in_bf16(n, c, nh, packed):
+    """The Video Swin-B width's blocks (C = 256 with 8 heads, C = 128 with
+    4) and C = 192 with 6 heads take the unpartitioned route in bf16 under
+    both names, since A's and 6's weight slices stream in depth chunks (the
+    backward's whole tile does not fit at N = 98, so before they took the
+    row-tiled 8 on partitioned windows); in fp32 they partition."""
+    assert window_grid_route(n, c, nh, torch.bfloat16, packed)
+    assert not window_grid_route(n, c, nh, torch.float32, packed)
+    x = torch.empty(4, n, c, dtype=torch.bfloat16, device="meta")
+    for backward in (False,) if packed else (False, True):
+        assert window_attn._pick_body("k", None, x, nh, backward) == "fold_mma"
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["base", "packed"])
 @pytest.mark.parametrize("n,c,nh", [(98, 24, 2), (98, 48, 4), (49, 96, 2), (98, 192, 4),
-                                    (98, 256, 8), (49, 256, 8), (113, 96, 6), (196, 96, 6),
-                                    (392, 96, 6), (392, 192, 12)],
-                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "C256_8heads",
-                              "C256_8heads_N49", "N113", "N196", "N392", "N392_C192"])
+                                    (113, 96, 6), (196, 96, 6), (392, 96, 6), (392, 192, 12)],
+                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "N113", "N196",
+                              "N392", "N392_C192"])
 def test_other_geometries_keep_the_partitioned_route(n, c, nh, packed):
-    """Head widths 12 and 48, C = 256 with 8 heads and windows above 112
-    tokens (8-frame reconstruction's 196 and 392) partition their windows,
-    in bf16 and in fp32."""
+    """Head widths 12 and 48 and windows above 112 tokens (8-frame
+    reconstruction's 196 and 392) partition their windows, in bf16 and in
+    fp32."""
     for dtype in (torch.bfloat16, torch.float32):
         assert not window_grid_route(n, c, nh, dtype, packed)
 

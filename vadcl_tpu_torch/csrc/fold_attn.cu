@@ -44,8 +44,9 @@
 //     cp.async.bulk through an mbarrier ring, bias and mask read once per
 //     head in accumulator order, one named barrier per head.  89.7 KB of
 //     shared memory per window at N = 98, C = 96 (two windows per SM), 154 KB
-//     at C = 192; two N = 49 windows share a block.  head_dim must be 16 or
-//     32 and N <= 112.
+//     at C = 192, 207 KB at C = 256 with 8 heads (the weight slices in two
+//     depth chunks); two N = 49 windows share a block.  head_dim must be 16
+//     or 32 and N <= 112.
 //     What bounds it: instruction throughput and latency, not bytes or
 //     tensor-core time.  The softmax costs about ten fp32 instructions per score
 //     against one mma per 128 scores; every bias and mask value is read from

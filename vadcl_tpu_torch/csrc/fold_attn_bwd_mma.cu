@@ -6,9 +6,10 @@
 //
 // Replaces vadcl_tpu/ops/pallas_attn_fold.py:_fold_bwd_kernel (entry
 // _fold_bwd_call) for bf16 windows of at most 112 tokens at head width 16 or
-// 32 whose block fits 227 KB (the model's geometries); fold_attn_bwd.cu's
-// bodies keep fp32 and every other bf16 geometry (ops/fold_attn.py:
-// fold_bwd_body picks).  Numerical contract: fold_attention_bwd_plain's, the
+// 32 and C <= 256 (every such geometry's block fits 227 KB once the weight
+// slices stream in depth chunks: the flagship's, and the Video Swin-B width's
+// C = 128 with 4 heads and C = 256 with 8); fold_attn_bwd.cu's bodies keep
+// fp32 and every other bf16 geometry (ops/fold_attn.py: fold_bwd_body picks).  Numerical contract: fold_attention_bwd_plain's, the
 // order and cast boundaries of fold_attn_bwd.cu.  Every product has operands
 // the contract already rounds to bf16 (LN1 output, q, k, v, round(P), dout,
 // round(dout . proj_w^T), round(ds * scale), round(dqkv), the weights), so
@@ -26,8 +27,10 @@
 // made in the same step is a cache hit.  Per window:
 //   * LN1 of the warp's rows into a row tile (bf16, also written out for
 //     dqkv_w's sum);
-//   * per head, one ring stage = slice h plus the rows h hd .. h hd + hd - 1
-//     of every W_proj slice (contiguous in the pack):
+//   * per head, slice h and the rows h hd .. h hd + hd - 1 of every W_proj
+//     slice (each contiguous in the pack): one ring stage holding both where
+//     that block fits, else (depth chunks, below) the slice's chunks and then
+//     the W_proj rows, a stage each:
 //     (a) q, k, v = round(row . W + b) of the strip (q also kept as register
 //         fragments) and doa = round(dout . W_proj[head rows]^T) (dout read
 //         as A fragments straight from device memory) into double-buffered
@@ -43,10 +46,30 @@
 //         and ds tiles (transposed ldmatrix), then round(dqkv) of the warp's
 //         tokens to the workspace and its unrounded column sums.
 //   * dxa = round(dqkv) . W_qkv^T over the heads (the slices streamed a second
-//     time, the warp's own dqkv rows as A fragments) into fp32 rows that
-//     overlay the per-head tiles, then the LN vjp and the residual per row.
+//     time, chunk k giving dxa's columns k C / chunks .., the warp's own dqkv
+//     rows as A fragments) into fp32 rows that overlay the per-head tiles,
+//     then the LN vjp and the residual per row.
 // Only round(P) and round(ds * scale) ever reach shared memory as score-sized
 // tiles (bf16); the fp32 softmax, dp and ds stay in mma.sync registers.
+//
+// Depth chunks (fb_depth_chunks: 1 wherever the whole-slice stages fit, where
+// the kChunked = false instances run as before, bit for bit and instruction
+// for instruction; else the fewest of 2, 3, 4 that fit, the kChunked
+// instances).  At (98, 256, 8) everything but the ring takes 184,704 B (LN1
+// rows 59,136; the double-buffered Q, K, V, DOA tiles 71,680; the round(P)
+// and round(ds * scale) tiles 53,760; the barriers), which leaves 47,744 B
+// for two stages where two whole ones take 146,432.  Of the two ways to make
+// room, depth chunks were taken over single-buffered per-head tiles: those
+// would free 35,840 B but cost a second named barrier a head (the next head's
+// q, k, v and doa could not be written while a warp still reads this head's
+// in its column phase), and still need chunks at C = 256.  With 4 chunks of
+// 64 rows a stage holds one chunk (13,312 B) or head h's W_proj rows (19,968
+// B), so the block is 224,640 B; (49, 256, 8) and (98, 128, 4) take 2 chunks
+// (153,728 and 182,656 B), as does (98, 192, 6) (210,304 B).  A chunk changes
+// no summation order: the qkv accumulator persists across a slice's chunks
+// and each dxa column is still summed over the heads in order.  The cost is
+// more ring items, 9 nH a window at 4 chunks against 2 nH, each handed over
+// by every consumer warp.
 //
 // Deterministic sums.  d(bias) is summed over the block's chunk of windows by
 // the one thread that holds each (h, i, j) in its accumulator: written by the
@@ -60,11 +83,14 @@
 // pass each: both operands are exactly bf16).  No float atomics.
 //
 // What bounds it: 7 GFLOP of bf16 products at enc stage 0, batch 4 (0.008 ms
-// at 989 TFLOP/s) against per-head named barriers, the d(bias) partial
-// traffic (read and written once per window through L2) and a grid of at
-// most one 8-warp block per SM (encoder stage 1 has 64 windows).  Left on
-// the table: wgmma, several heads or windows in flight per block, d(bias) held
-// on chip across a chunk.
+// at 989 TFLOP/s) against per-head named barriers, the ring's hand-overs
+// (one per chunk), the d(bias) partial traffic (read and written once per
+// window through L2) and a grid of at most one 8-warp block per SM: the
+// flagship's encoder stage 1 has 64 windows at batch 4, and so has the Video
+// Swin-B width's (C = 256, 8 heads), where 64 of 132 SMs work and each walks
+// one window's 72 ring items.  Left on the table: wgmma, several heads or
+// windows in flight per block, d(bias) held on chip across a chunk, a grid
+// that splits a window's heads over blocks where windows are few.
 #include "fold_attn_mma.cuh"
 #include "reduce.cuh"
 #include "reduce_mma.cuh"
@@ -83,11 +109,15 @@ struct FbLayout {
   size_t stage, ring, row, tiles, ptile, dtile, dxa, bytes;
 };
 
-// Shared memory of one block for a window of n tokens, width c, head width hd.
-__host__ __device__ inline FbLayout fb_layout(int n, int c, int hd) {
+// Shared memory of one block for a window of n tokens, width c, head width hd,
+// kernel A's weight slices streamed in `chunks` depth chunks of c / chunks
+// rows: with one chunk a stage holds head h's whole slice and its rows of
+// every W_proj slice; with more, a stage holds one chunk or those rows.
+__host__ __device__ inline FbLayout fb_layout(int n, int c, int hd, int chunks) {
   const size_t np = fa_padded_rows(n), ldw = fa_ldw(hd), ldkv = fa_ldkv(hd), bf = 2;
+  const size_t rows = (size_t)(c / chunks) * ldw, proj = (size_t)fb_proj_slices(c, hd) * hd * ldw;
   FbLayout l;
-  l.stage = bf * ((size_t)c * ldw + (size_t)fb_proj_slices(c, hd) * hd * ldw);
+  l.stage = bf * (chunks == 1 ? rows + proj : (rows > proj ? rows : proj));
   size_t o = kFaBarrierBytes;
   l.ring = o;  o += 2 * l.stage;
   l.row = o;   o += bf * np * (c + kFaPad);
@@ -101,10 +131,29 @@ __host__ __device__ inline FbLayout fb_layout(int n, int c, int hd) {
   return l;
 }
 
+// Depth chunks of a weight slice: 1 wherever that block fits (the layout
+// before chunking), else (C <= kFaMaxChunkedC) the fewest of 2, 3, 4 that cut
+// C into multiples of 16 rows and fit; 0 where none does.  Beyond 4 a stage
+// would not shrink: head h's W_proj rows (C / 3 rows of a slice, rounded up)
+// outweigh a chunk.
+__host__ __device__ inline int fb_depth_chunks(int n, int c, int hd) {
+  if (fb_layout(n, c, hd, 1).bytes <= (size_t)kMaxSmemBytes) return 1;
+  if (c > kFaMaxChunkedC) return 0;
+  for (int k = 2; k <= 4; ++k)
+    if (c % (16 * k) == 0 && fb_layout(n, c, hd, k).bytes <= (size_t)kMaxSmemBytes) return k;
+  return 0;
+}
+
+// Shared memory of the launch's block (with one chunk where none fits).
+__host__ __device__ inline size_t fb_smem_bytes(int n, int c, int hd) {
+  const int k = fb_depth_chunks(n, c, hd);
+  return fb_layout(n, c, hd, k > 0 ? k : 1).bytes;
+}
+
 inline bool fb_eligible(int n, int c, int nh) {
   if (nh <= 0 || c % nh || c % 16 || c > kFbMaxC || n <= 0 || n > kFaMaxTokens) return false;
   const int hd = c / nh;
-  return (hd == 16 || hd == 32) && fb_layout(n, c, hd).bytes <= (size_t)kMaxSmemBytes;
+  return (hd == 16 || hd == 32) && fb_depth_chunks(n, c, hd) > 0;
 }
 
 struct FoldBwdMmaArgs {
@@ -127,7 +176,8 @@ struct FoldBwdMmaArgs {
   int sd, sh, sw;
   float scale;
   int residual;
-  int chunk;  // windows per block
+  int chunk;         // windows per block
+  int depth_chunks;  // chunks a weight slice streams in (fb_depth_chunks)
 };
 
 // Element offset of window token i (of the window at (b, wi_d, wi_h, wi_w)),
@@ -181,8 +231,10 @@ __device__ __forceinline__ void fb_emit_dqkv(const float (&v)[kHt][4], __nv_bflo
   }
 }
 
-// kNt = Np / 8 (8 or 14), kHd the head width (16 or 32).
-template <int kNt, int kHd>
+// kNt = Np / 8 (8 or 14), kHd the head width (16 or 32); kChunked: the slices
+// stream in a.depth_chunks depth chunks (else whole, the instructions of the
+// layout before chunking).
+template <int kNt, int kHd, bool kChunked>
 __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
     fold_attn_bwd_mma_kernel(FoldBwdMmaArgs a) {
   using bf16 = __nv_bfloat16;
@@ -193,9 +245,10 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
 
   const int C = a.C, nh = a.nh, C3 = 3 * C, ldr = C + kFaPad, ldx = C + kFbDxaPad;
   const int N = a.wd * a.wh * a.ww;
-  const FbLayout L = fb_layout(N, C, kHd);
+  const int chunks = kChunked ? a.depth_chunks : 1, kc = C / chunks;  // depth chunks, rows
+  const FbLayout L = fb_layout(N, C, kHd, chunks);
   const int npc = fb_proj_slices(C, kHd);
-  const uint32_t slice_bytes = (uint32_t)(sizeof(bf16) * C * kLdw);
+  const uint32_t chunk_bytes = (uint32_t)(sizeof(bf16) * kc * kLdw);
   const uint32_t part_bytes = (uint32_t)(sizeof(bf16) * kHd * kLdw);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   uint64_t* full = reinterpret_cast<uint64_t*>(sm);
@@ -218,24 +271,40 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
   __syncthreads();  // the only block-wide barrier
 
   if (warp == kStrips) {
-    // producer: per window, nH stages of (slice h, head h's W_proj rows), then
-    // the nH slices again for dxa
+    // producer: per window and head, the chunks of slice h and head h's W_proj
+    // rows (with one chunk, both in one stage), then the slices' chunks again
+    // for dxa
     if (lane == 0) {
       int seq = 0;
+      auto stage = [&](uint32_t bytes) {  // the next item's stage, its bytes expected
+        const int s = seq & 1, use = seq >> 1;
+        if (use > 0) mbar_wait(empty + s, (uint32_t)((use - 1) & 1));
+        mbar_expect_tx(full + s, bytes);
+        ++seq;
+        return s;
+      };
+      auto proj_rows = [&](unsigned char* dst, int h, int s) {
+        for (int j = 0; j < npc; ++j)
+          bulk_copy_g2s(dst + (size_t)j * part_bytes,
+                        a.wpack + ((size_t)(nh + j) * C + (size_t)h * kHd) * kLdw, part_bytes,
+                        full + s);
+      };
       for (long long widx = wbeg; widx < wend; ++widx)
-        for (int item = 0; item < 2 * nh; ++item, ++seq) {
-          const int s = seq & 1, use = seq >> 1, h = item % nh;
-          const bool proj = item < nh;
-          if (use > 0) mbar_wait(empty + s, (uint32_t)((use - 1) & 1));
-          mbar_expect_tx(full + s, slice_bytes + (proj ? npc * part_bytes : 0u));
-          unsigned char* dst = ring + (size_t)s * L.stage;
-          bulk_copy_g2s(dst, a.wpack + (size_t)h * C * kLdw, slice_bytes, full + s);
-          if (proj)
-            for (int j = 0; j < npc; ++j)
-              bulk_copy_g2s(dst + slice_bytes + (size_t)j * part_bytes,
-                            a.wpack + ((size_t)(nh + j) * C + (size_t)h * kHd) * kLdw,
-                            part_bytes, full + s);
-        }
+        for (int pass = 0; pass < 2; ++pass)
+          for (int h = 0; h < nh; ++h) {
+            const bool with_proj = pass == 0 && chunks == 1;
+            for (int k = 0; k < chunks; ++k) {
+              const int s = stage(chunk_bytes + (with_proj ? npc * part_bytes : 0u));
+              unsigned char* dst = ring + (size_t)s * L.stage;
+              bulk_copy_g2s(dst, a.wpack + ((size_t)h * C + (size_t)k * kc) * kLdw, chunk_bytes,
+                            full + s);
+              if (with_proj) proj_rows(dst + chunk_bytes, h, s);
+            }
+            if (pass == 0 && chunks > 1) {
+              const int s = stage(npc * part_bytes);
+              proj_rows(ring + (size_t)s * L.stage, h, s);
+            }
+          }
     }
     return;
   }
@@ -286,21 +355,32 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
                            : reinterpret_cast<const float4*>(a.maskp) +
                                  ((size_t)win * kStrips + strip) * kNt * kWarp + lane;
 
-    for (int h = 0; h < nh; ++h, ++seq) {
-      const int s = seq & 1;
+    for (int h = 0; h < nh; ++h) {
       bf16* Qb = tiles + (size_t)((h & 1) * 4) * Np * kLdkv;
       bf16* Kb = Qb + (size_t)Np * kLdkv;
       bf16* Vb = Kb + (size_t)Np * kLdkv;
       bf16* Db = Vb + (size_t)Np * kLdkv;
-      mbar_wait(full + s, (uint32_t)((seq >> 1) & 1));
-      const bf16* slice = reinterpret_cast<const bf16*>(ring + (size_t)s * L.stage);
-      const bf16* projp = slice + (size_t)C * kLdw;
 
-      // (a) q, k, v of the strip
+      // (a) q, k, v of the strip, the slice's chunks in order
       float qa[kQt][4];
 #pragma unroll
       for (int i = 0; i < kQt; ++i) qa[i][0] = qa[i][1] = qa[i][2] = qa[i][3] = 0.f;
-      warp_gemm_16xn<kQt>(rowt + (size_t)strip * 16 * ldr, ldr, slice, kLdw, C, lane, qa);
+      for (int k = 0; k < chunks; ++k) {
+        const int s = seq & 1;
+        mbar_wait(full + s, (uint32_t)((seq >> 1) & 1));
+        warp_gemm_16xn<kQt>(rowt + (size_t)strip * 16 * ldr + k * kc, ldr,
+                            reinterpret_cast<const bf16*>(ring + (size_t)s * L.stage), kLdw, kc,
+                            lane, qa);
+        if (chunks == 1) break;  // the stage holds the W_proj rows too: handed back after doa
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+        ++seq;
+      }
+      // head h's W_proj rows: behind the slice in its stage, or the next item
+      const int ps = seq & 1;
+      if (chunks > 1) mbar_wait(full + ps, (uint32_t)((seq >> 1) & 1));
+      const bf16* projp = reinterpret_cast<const bf16*>(ring + (size_t)ps * L.stage) +
+                          (chunks == 1 ? (size_t)C * kLdw : 0);
 #pragma unroll
       for (int i = 0; i < kQt; ++i) {
         const float2 bb = *reinterpret_cast<const float2*>(a.qkv_b + (i / kHt) * C + h * kHd +
@@ -339,7 +419,8 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
         }
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);  // the stage comes back for dxa later
+      if (lane == 0) mbar_arrive(empty + ps);  // the stage comes back for dxa later
+      ++seq;
       uint32_t df[kHd / 16][4];  // round(doa) as the A fragments of dp = doa . v^T
 #pragma unroll
       for (int ks = 0; ks < kHd / 16; ++ks) acc_to_a(df[ks], da[2 * ks], da[2 * ks + 1]);
@@ -532,8 +613,7 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
     named_barrier(1, kConsumers);
     for (int e = lane; e < 16 * C; e += kWarp) dxa[(e / C) * ldx + e % C] = 0.f;
     __syncwarp();  // (also makes the warp's dqkv rows visible to all its lanes)
-    for (int h = 0; h < nh; ++h, ++seq) {
-      const int s = seq & 1;
+    for (int h = 0; h < nh; ++h) {
       uint32_t af[3 * kHd / 16][4];  // the warp's round(dqkv) rows of head h (q | k | v)
 #pragma unroll
       for (int ks = 0; ks < 3 * kHd / 16; ++ks) {
@@ -543,34 +623,38 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
         af[ks][2] = ld_pair(a.dqkv_ws, tok0 < 0 ? -1 : 3 * tok0 + col + 8 + 2 * t);
         af[ks][3] = ld_pair(a.dqkv_ws, tok1 < 0 ? -1 : 3 * tok1 + col + 8 + 2 * t);
       }
-      mbar_wait(full + s, (uint32_t)((seq >> 1) & 1));
-      const bf16* slice = reinterpret_cast<const bf16*>(ring + (size_t)s * L.stage);
-      for (int nc = 0; nc < C / 16; ++nc) {
-        float acc[2][4];
+      for (int k = 0; k < chunks; ++k, ++seq) {  // chunk k: dxa's columns k kc ..
+        const int s = seq & 1;
+        mbar_wait(full + s, (uint32_t)((seq >> 1) & 1));
+        const bf16* slice = reinterpret_cast<const bf16*>(ring + (size_t)s * L.stage);
+        for (int n16 = 0; n16 < kc / 16; ++n16) {
+          const int c0 = k * kc + n16 * 16;
+          float acc[2][4];
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int col = nc * 16 + q * 8 + 2 * t;
-          const float2 u = *reinterpret_cast<const float2*>(dxa + g * ldx + col);
-          const float2 v = *reinterpret_cast<const float2*>(dxa + (g + 8) * ldx + col);
-          acc[q][0] = u.x, acc[q][1] = u.y, acc[q][2] = v.x, acc[q][3] = v.y;
-        }
+          for (int q = 0; q < 2; ++q) {
+            const int col = c0 + q * 8 + 2 * t;
+            const float2 u = *reinterpret_cast<const float2*>(dxa + g * ldx + col);
+            const float2 v = *reinterpret_cast<const float2*>(dxa + (g + 8) * ldx + col);
+            acc[q][0] = u.x, acc[q][1] = u.y, acc[q][2] = v.x, acc[q][3] = v.y;
+          }
 #pragma unroll
-        for (int ks = 0; ks < 3 * kHd / 16; ++ks) {
-          uint32_t bf[4];  // B (k = the slice's columns, n = c) stored [n][k]
-          ldsm_x4(bf, b_frag_row_nk(slice + (size_t)nc * 16 * kLdw + ks * 16, kLdw, lane));
-          mma_bf16(acc[0], af[ks], bf[0], bf[1]);
-          mma_bf16(acc[1], af[ks], bf[2], bf[3]);
-        }
+          for (int ks = 0; ks < 3 * kHd / 16; ++ks) {
+            uint32_t bf[4];  // B (k = the slice's columns, n = c) stored [n][k]
+            ldsm_x4(bf, b_frag_row_nk(slice + (size_t)n16 * 16 * kLdw + ks * 16, kLdw, lane));
+            mma_bf16(acc[0], af[ks], bf[0], bf[1]);
+            mma_bf16(acc[1], af[ks], bf[2], bf[3]);
+          }
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int col = nc * 16 + q * 8 + 2 * t;
-          *reinterpret_cast<float2*>(dxa + g * ldx + col) = make_float2(acc[q][0], acc[q][1]);
-          *reinterpret_cast<float2*>(dxa + (g + 8) * ldx + col) =
-              make_float2(acc[q][2], acc[q][3]);
+          for (int q = 0; q < 2; ++q) {
+            const int col = c0 + q * 8 + 2 * t;
+            *reinterpret_cast<float2*>(dxa + g * ldx + col) = make_float2(acc[q][0], acc[q][1]);
+            *reinterpret_cast<float2*>(dxa + (g + 8) * ldx + col) =
+                make_float2(acc[q][2], acc[q][3]);
+          }
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);
     }
 
     // dx = LN-vjp(dxa) + dout (or round(dxa) without LN), one row at a time;
@@ -623,13 +707,21 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
   }
 }
 
+template <int kNt, int kHd, bool kChunked>
+cudaError_t launch_fb_instance(const FoldBwdMmaArgs& a, unsigned blocks, size_t smem,
+                               cudaStream_t stream) {
+  const cudaError_t err = allow_smem(fold_attn_bwd_mma_kernel<kNt, kHd, kChunked>, smem);
+  if (err != cudaSuccess) return err;
+  fold_attn_bwd_mma_kernel<kNt, kHd, kChunked>
+      <<<blocks, (kNt / 2 + 1) * kWarp, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int kNt, int kHd>
 cudaError_t launch_fb_as(const FoldBwdMmaArgs& a, unsigned blocks, size_t smem,
                          cudaStream_t stream) {
-  const cudaError_t err = allow_smem(fold_attn_bwd_mma_kernel<kNt, kHd>, smem);
-  if (err != cudaSuccess) return err;
-  fold_attn_bwd_mma_kernel<kNt, kHd><<<blocks, (kNt / 2 + 1) * kWarp, smem, stream>>>(a);
-  return cudaGetLastError();
+  return a.depth_chunks > 1 ? launch_fb_instance<kNt, kHd, true>(a, blocks, smem, stream)
+                            : launch_fb_instance<kNt, kHd, false>(a, blocks, smem, stream);
 }
 
 inline int fb_chunk(long long windows) {
@@ -670,7 +762,7 @@ inline FbWorkspace fb_workspace(int B, int D, int H, int W, int C, int nh, int w
 extern "C" {
 
 long long vadcl_fold_attn_bwd_bf16_smem_bytes(int n, int c, int nh) {
-  return (long long)vadcl::fb_layout(n, c, c / nh).bytes;
+  return (long long)vadcl::fb_smem_bytes(n, c, c / nh);
 }
 
 long long vadcl_fold_attn_bwd_bf16_workspace_bytes(int B, int D, int H, int W, int C, int nh,
@@ -701,8 +793,8 @@ int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
   if (B <= 0 || D % wd || H % wh || W % ww || !fb_eligible(n, C, nh))
     return cudaErrorInvalidValue;
   if ((ln_s != nullptr) != (residual != 0)) return cudaErrorInvalidValue;
-  const int hd = C / nh;
-  const size_t smem = fb_layout(n, C, hd).bytes;
+  const int hd = C / nh, chunks = fb_depth_chunks(n, C, hd);
+  const size_t smem = fb_layout(n, C, hd, chunks).bytes;
   const FbWorkspace l = fb_workspace(B, D, H, W, C, nh, wd, wh, ww);
   char* ws = static_cast<char*>(workspace);
   FoldBwdMmaArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(dout), ln_s, ln_b,
@@ -711,7 +803,7 @@ int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
                    reinterpret_cast<bf16*>(ws + l.dqkv),
                    reinterpret_cast<float*>(ws + l.dqkvb), reinterpret_cast<float*>(ws + l.dln),
                    reinterpret_cast<float*>(ws + l.dbias),
-                   B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, residual, l.chunk};
+                   B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, residual, l.chunk, chunks};
   cudaError_t err;
   const bool wide = fa_padded_rows(n) == kFaMaxTokens;
   if (hd == 16)

@@ -12,7 +12,10 @@ unpartitioned (B, D, H, W, C) tensor by strides.  In bf16
 probabilities in tensor-core registers; it needs head_dim 16 or 32 and windows of
 at most 112 tokens, and takes its weights, rel-pos bias and mask packed
 (``pack_fold_weights``, ``pack_fold_scores``; cached per tensor version in
-``_packs``).
+``_packs``).  Its weight slices stream through a shared-memory ring in
+depth chunks where two whole slices do not fit beside the window's tiles
+(``fold_depth_chunks``: C = 256 with 8 heads, the Video Swin-B width), and
+so does kernel 6's tensor-core body.
 
 Kernel 6 replaces ``_fold_bwd_kernel`` (entry ``_fold_bwd_call``), in the two
 modes the JAX package calls it in without a tail: ``fuse_ln=True,
@@ -109,6 +112,35 @@ def fold_windows_per_block(n: int) -> int:
     return 2 if n <= 64 else 1
 
 
+FOLD_CHUNKED_MAX_C = 256  # widest C whose weight slices A and 6 stream in depth chunks
+
+
+def _fold_fwd_mma_bytes(n: int, c: int, hd: int, chunks: int) -> int:
+    """``csrc/fold_attn_mma.cuh:fa_smem_bytes_at``: the ring's two stages of
+    ``c / chunks`` rows of a packed slice, plus per window LN1(x), the
+    pre-projection tile and the double-buffered K and V."""
+    rows = fold_padded_rows(n)
+    window = 2 * (2 * rows * (c + PACK_PAD) + 4 * rows * (hd + 8))
+    return 128 + 2 * 2 * (c // chunks) * (3 * hd + PACK_PAD) + fold_windows_per_block(n) * window
+
+
+def fold_depth_chunks(n: int, c: int, num_heads: int, backward: bool = False) -> int:
+    """Depth chunks the bf16 tensor-core body of kernel A (with ``backward``,
+    kernel 6) streams a weight slice in (``fa_depth_chunks``,
+    ``fb_depth_chunks``): 1 wherever two whole-slice ring stages fit
+    ``SMEM_LIMIT`` (the layout before chunking, every flagship geometry),
+    else (C <= ``FOLD_CHUNKED_MAX_C``) the fewest of 2, 3, 4 that cut C into
+    multiples of 16 rows and fit; 0 where none does."""
+    hd = c // num_heads
+    size = ((lambda k: _fold_bwd_mma_bytes(n, c, hd, k)) if backward
+            else (lambda k: _fold_fwd_mma_bytes(n, c, hd, k)))
+    if size(1) <= SMEM_LIMIT:
+        return 1
+    if c > FOLD_CHUNKED_MAX_C:
+        return 0
+    return next((k for k in (2, 3, 4) if c % (16 * k) == 0 and size(k) <= SMEM_LIMIT), 0)
+
+
 def fold_body_smem_bytes(n: int, c: int, num_heads: int) -> int:
     """Shared memory of the bf16 one-window-per-block body with score tiles
     in shared memory (``csrc/fold_attn.cuh:tc_layout``): what the whole-block
@@ -128,7 +160,11 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     (``chip_smoke.py`` holds the two against each other).  The bf16 forward
     block is the weight ring plus, per window, LN1(x), the pre-projection
     tile and the double-buffered K and V of one head: at head width 16 two
-    blocks fit an SM at N = 98, C = 96 (89,728 B), one at C = 192 (154,240 B)."""
+    blocks fit an SM at N = 98, C = 96 (89,728 B), one at C = 192 (154,240 B).
+    Its ring stages hold ``fold_depth_chunks``' share of a slice: the whole
+    slice up to C = 192, half of it at C = 256 with 8 heads (207,488 B at N =
+    98, 229,504 B at N = 49, where whole slices would take 260,736 and
+    282,752 B); where no chunking fits, the whole-slice size."""
     hd = c // num_heads
     if not bf16:
         hdp = hd + 1
@@ -138,9 +174,7 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
         p2 = n * c + 33 * c + 33 * n + _WARPS * 2 * c
         return 8 * n + 4 * (2 * n + max(p1, p2))
     if not backward:
-        rows = fold_padded_rows(n)
-        window = 2 * (2 * rows * (c + PACK_PAD) + 4 * rows * (hd + 8))
-        return 128 + 2 * 2 * c * (3 * hd + PACK_PAD) + fold_windows_per_block(n) * window
+        return _fold_fwd_mma_bytes(n, c, hd, max(fold_depth_chunks(n, c, num_heads), 1))
     m = _up(n, 16)
 
     def total(sizes):
@@ -156,21 +190,32 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
 FOLD_BWD_MAX_C = 256  # widest C of kernel 6's tensor-core body (C / 32 column sums a lane)
 
 
-def fold_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
-    """Shared memory of one block of kernel 6's tensor-core body
-    (``csrc/fold_attn_bwd_mma.cu:fb_layout``): the mbarriers, two ring stages
-    (head h's weight slice of kernel A's pack and its W_proj rows), the LN1
-    row tile, then a region holding the double-buffered Q, K, V, DOA tiles
-    and the round(P) and round(ds * scale) tiles, which the fp32 dxa rows
-    overlay after the heads."""
-    hd = c // num_heads
+def _fold_bwd_mma_bytes(n: int, c: int, hd: int, chunks: int) -> int:
+    """``csrc/fold_attn_bwd_mma.cu:fb_layout(n, c, hd, chunks).bytes``."""
     rows = fold_padded_rows(n)
     ldw, ldkv = 3 * hd + PACK_PAD, hd + 8
     npc = -(-c // (3 * hd))
-    stage = 2 * (c * ldw + npc * hd * ldw)
+    part, proj = (c // chunks) * ldw, npc * hd * ldw
+    stage = 2 * (part + proj if chunks == 1 else max(part, proj))
     region = 128 + 2 * stage + 2 * rows * (c + PACK_PAD)
     tiles = region + 2 * 2 * 4 * rows * ldkv + 2 * 2 * rows * (rows + 8)
     return max(tiles, region + 4 * rows * (c + 4))
+
+
+def fold_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
+    """Shared memory of one block of kernel 6's tensor-core body
+    (``csrc/fold_attn_bwd_mma.cu:fb_smem_bytes``): the mbarriers, two ring
+    stages, the LN1 row tile, then a region holding the double-buffered Q,
+    K, V, DOA tiles and the round(P) and round(ds * scale) tiles, which the
+    fp32 dxa rows overlay after the heads.  A stage holds head h's weight
+    slice of kernel A's pack and its W_proj rows where that fits (every
+    flagship geometry); else (``fold_depth_chunks``) one depth chunk of the
+    slice or those rows: 224,640 B at N = 98, C = 256, 8 heads (4 chunks),
+    153,728 B at N = 49 (2), 182,656 B at N = 98, C = 128, 4 heads (2),
+    210,304 B at N = 98, C = 192, 6 heads (2).  Where no chunking fits, the
+    whole-slice size."""
+    hd = c // num_heads
+    return _fold_bwd_mma_bytes(n, c, hd, max(fold_depth_chunks(n, c, num_heads, True), 1))
 
 
 def fold_bwd_body(n: int, c: int, num_heads: int, dtype: torch.dtype) -> Optional[str]:
@@ -202,7 +247,9 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
               backward: bool = False) -> bool:
     """Whether a window of ``n`` tokens at width ``c`` runs in the fold
     kernel (A, or 6 with ``backward``: one of its bodies, ``fold_bwd_body``,
-    takes it): its block must fit ``SMEM_LIMIT``, and the bf16 forward, whose
+    takes it): its block must fit ``SMEM_LIMIT`` (in bf16 with the weight
+    slices in ``fold_depth_chunks``' chunks, so every window of at most 112
+    tokens at head width 16 or 32 and C <= 256 fits), and the bf16 forward, whose
     warps hold a 16 x N strip of scores in registers, takes at most
     ``FOLD_MAX_TOKENS`` tokens (the cap is explicit: kernel 6 would not
     follow a larger window, and the N = 196 and N = 392

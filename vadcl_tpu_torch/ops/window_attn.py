@@ -40,14 +40,17 @@ streamed instances too) on ``window_attention_fused_rows``,
 which also force that body whatever N (to hold it against the plain version
 where the whole-tile body would run).
 
-Where a window fits the whole-tile body, kernels 7, 8 and 9 run it there
-only where kernel A's tensor-core body (forward; its ``packed`` instance,
-kernel 10's arithmetic, for 9) and kernel 6's (backward) do not take the
-geometry: in bf16 at head width 16 or 32 and at most 112 tokens
-(``window_tile_core`` says ``"fold_mma"``) they run those bodies without LN
-and residual on ``window_grid``'s view of the windows, the rows of one batch
-element's windows laid end to end as one row of windows, which is exactly
-the layout of ``x_windows``.  Those launches count on
+Kernels 7, 8 and 9 run either body only where kernel A's tensor-core body
+(forward; its ``packed`` instance, kernel 10's arithmetic, for 9) and kernel
+6's (backward) do not take the geometry: in bf16 at head width 16 or 32 and
+at most 112 tokens, where those blocks fit (every C up to 256, with the
+weights in depth chunks; ``window_tile_core`` says ``"fold_mma"``), they run
+those bodies without LN and residual on ``window_grid``'s view of the
+windows, the rows of one batch element's windows laid end to end as one row
+of windows, which is exactly the layout of ``x_windows``.  This comes before
+``window_body``'s choice, so a window whose whole tile would not fit (the
+backward at N = 98 and C = 128 or 256) runs 6's body, not the row-tiled
+one.  Those launches count on
 ``window_attention_fused``, ``window_attention_packed`` and
 ``window_attention_fused_bwd``; the whole-tile bodies count on
 ``window_attention_fused_tiles``, ``window_attention_packed_tiles`` and
@@ -359,13 +362,15 @@ def window_body(n: int, c: int, num_heads: int, dtype: torch.dtype,
 
 def window_tile_core(n: int, c: int, num_heads: int, dtype: torch.dtype,
                      backward: bool = False) -> str:
-    """What runs a window that ``window_body`` gives the whole-tile body:
-    ``"fold_mma"``, kernel A's tensor-core body (or with ``backward`` kernel
-    6's) without LN and residual on ``window_grid``'s view, where that body
-    takes the geometry (bf16, head width 16 or 32, at most
-    ``FOLD_MAX_TOKENS`` tokens, its block within ``SMEM_LIMIT``: ``fold_fits``
-    for A, ``fold_bwd_body(...) == "mma"`` for 6); else ``"tile"``, the
-    whole-tile body of ``csrc/window_attn.cu`` / ``csrc/window_attn_bwd.cu``."""
+    """``"fold_mma"`` where kernel A's tensor-core body (or with ``backward``
+    kernel 6's) takes the geometry without LN and residual on
+    ``window_grid``'s view (bf16, head width 16 or 32, at most
+    ``FOLD_MAX_TOKENS`` tokens, C % 16 == 0, its block within ``SMEM_LIMIT``
+    with the weights streamed in depth chunks where whole slices do not fit:
+    ``fold_fits`` for A, ``fold_bwd_body(...) == "mma"`` for 6); the route
+    then runs it whichever body ``window_body`` names.  Else ``"tile"``:
+    ``window_body``'s body runs, the whole-tile body of
+    ``csrc/window_attn.cu`` / ``csrc/window_attn_bwd.cu`` where it fits."""
     if dtype != torch.bfloat16:
         return "tile"
     if backward:
@@ -381,15 +386,16 @@ def window_grid_route(n: int, c: int, num_heads: int, dtype: torch.dtype,
     kernel 7 (with ``packed`` kernel 9) and its backward 8 on kernels A's and
     6's tensor-core bodies, so that the block can hand them the unpartitioned
     tensor through ``fold_attention`` (``fold_attention_packed``):
-    ``window_body`` says ``"tile"`` and ``window_tile_core`` says
-    ``"fold_mma"`` for the forward and, for 7, which trains, for the backward
-    too (9 has no backward).  Elsewhere (fp32, head widths 12, 48 and 64,
-    C = 256 with 8 heads, windows above 112 tokens) the block partitions its
-    windows as before."""
+    ``window_tile_core`` says ``"fold_mma"`` for the forward and, for 7,
+    which trains, for the backward too (9 has no backward).  That holds at
+    every bf16 window of at most 112 tokens at head width 16 or 32 and C up
+    to 256 (the Video Swin-B width's C = 256 with 8 heads too, since A's and
+    6's weights stream in depth chunks).  Elsewhere (fp32, head widths 12, 48 and
+    64, windows above 112 tokens) the block partitions its windows as
+    before."""
     if dtype != torch.bfloat16:
         return False
     return all(window_tile_core(n, c, num_heads, dtype, backward) == "fold_mma"
-               and window_body(n, c, num_heads, dtype, backward) == "tile"
                for backward in ((False,) if packed else (False, True)))
 
 
@@ -599,15 +605,14 @@ def _check_windows(what, x, bias, mask, num_heads, n_windows):
 
 
 def _pick_body(what, body, x, num_heads, backward) -> str:
-    """``window_body``'s choice, and where that is the whole-tile body
-    ``window_tile_core``'s (``"fold_mma"`` or ``"tile"``); or the forced
+    """``"fold_mma"`` where ``window_tile_core`` says so, else
+    ``window_body``'s choice (``"tile"`` or ``"rows"``); or the forced
     ``body`` (``"rows"``, ``"tile"``) where its block fits."""
     N, C = x.shape[1:]
     if body is None:
-        body = window_body(N, C, num_heads, x.dtype, backward)
-        if body == "tile":
-            body = window_tile_core(N, C, num_heads, x.dtype, backward)
-        return body
+        if window_tile_core(N, C, num_heads, x.dtype, backward) == "fold_mma":
+            return "fold_mma"
+        return window_body(N, C, num_heads, x.dtype, backward)
     bf16 = x.dtype == torch.bfloat16
     size = rows_smem_bytes if body == "rows" else tile_smem_bytes
     if size(N, C, num_heads, bf16, backward) > SMEM_LIMIT:
