@@ -414,7 +414,9 @@ def phase_build():
 
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
                      (98, 24, 2), (392, 96, 6), (98, 96, 3), (98, 192, 6), (49, 64, 2),
-                     (98, 256, 8), (49, 256, 8), (98, 128, 4), (49, 128, 4), (98, 224, 7)):
+                     (98, 256, 8), (49, 256, 8), (98, 128, 4), (49, 128, 4), (98, 224, 7),
+                     (196, 96, 6), (196, 192, 12), (113, 96, 6), (208, 32, 2), (196, 64, 4),
+                     (209, 96, 6), (196, 96, 3)):
         for bf16 in (0, 1):
             if bf16 and c % 16:
                 continue
@@ -426,14 +428,16 @@ def phase_build():
                 raise AssertionError(f"fold_smem_bytes{(n, c, nh, bf16)} = {mine} but the "
                                      f"library says {theirs}")
     print("  fold_smem_bytes (the route's predicate) agrees with the library's layouts, the "
-          "depth-chunked ones at C = 224 and 256 too")
+          "depth-chunked ones at C = 224 and 256 and the long ones at N = 113-208 too")
     from vadcl_tpu_torch.ops.fold_attn import fold_bwd_body, fold_bwd_mma_smem_bytes
     from vadcl_tpu_torch.ops.ln_mlp import mlp_bwd_body, mlp_bwd_mma_smem_bytes
 
     for n, c, nh in ((98, 96, 6), (98, 192, 12), (49, 192, 12), (49, 96, 6), (98, 32, 2),
                      (98, 64, 4), (49, 32, 2), (98, 96, 3), (98, 192, 6), (49, 192, 6),
                      (112, 96, 6), (65, 96, 6), (16, 32, 2), (49, 256, 16), (98, 256, 8),
-                     (49, 256, 8), (98, 128, 4), (98, 240, 15), (98, 256, 16)):
+                     (49, 256, 8), (98, 128, 4), (98, 240, 15), (98, 256, 16), (196, 96, 6),
+                     (196, 192, 12), (113, 96, 6), (208, 32, 2), (196, 64, 4), (160, 128, 8),
+                     (196, 256, 16), (209, 96, 6)):
         mine, theirs = fold_bwd_mma_smem_bytes(n, c, nh), lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh)
         if mine != theirs:
             raise AssertionError(f"fold_bwd_mma_smem_bytes{(n, c, nh)} = {mine} but the library "
@@ -620,7 +624,7 @@ def phase_build():
           "row-tiled cores' "
           f"groups of windows (0: the direct layout) and their layouts, forward and backward, "
           f"agree with the library at {groups} cases")
-    from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT
+    from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT, fold_fits
     from vadcl_tpu_torch.ops.window_attn import window_grid_route, window_tile_core
 
     for gname, ((_, _, _, c), nh, window, _) in FOLD_GEOMETRIES.items():
@@ -636,7 +640,7 @@ def phase_build():
     folds = 0
     for c, nh in ROW_WIDTHS + ((32, 2), (64, 4), (96, 2), (256, 8), (256, 16), (128, 4),
                                (224, 7), (240, 15)):
-        for n in range(1, 150):
+        for n in range(1, 210):
             for backward in (False, True):
                 # the route: every window A's or 6's body takes, whatever window_body says
                 if window_tile_core(n, c, nh, torch.bfloat16, backward) != "fold_mma":
@@ -647,10 +651,20 @@ def phase_build():
                 if smem > SMEM_LIMIT:
                     raise AssertionError(f"window_tile_core{(n, c, nh, backward)} sends a "
                                          "window to a body whose block the library refuses")
+    for gname, ((_, _, _, c), nh, window, _) in recon_geometries(RECON_FRAMES).items():
+        n = window[0] * window[1] * window[2]
+        long = gname.startswith("enc")  # N = 196: the long layouts; the decoder's 392 stays
+        if (fold_fits(n, c, nh, torch.bfloat16) != long
+                or (fold_bwd_body(n, c, nh, torch.bfloat16) == "mma") != long
+                or any(window_grid_route(n, c, nh, torch.bfloat16, p) != long
+                       for p in (False, True))):
+            raise AssertionError(f"8-frame {gname}: kernels A and 6 must take N = 196 in bf16 "
+                                 "and leave N = 392 to the row-tiled bodies")
     print(f"  the whole-tile route of kernels 7, 9 and 8 (window_tile_core): every flagship "
           f"geometry takes kernels A's and 6's tensor-core bodies in bf16, unpartitioned in "
           f"base and packed blocks (window_grid_route); at the {folds} geometries it sends "
-          "there the library's blocks fit")
+          "there (N up to 209) the library's blocks fit; at 8 frames the encoder's N = 196 "
+          "takes them, the decoder's N = 392 not")
 
 
 def _fold_case(shape, nh, window, shift, dtype, gen):
@@ -1089,6 +1103,7 @@ def phase_kernels():
         if not bool((got.labels == want.labels).all()):
             raise AssertionError("cluster_assign: labels differ at an edge shape")
     stats.update(swin_b_fold_kernels())
+    stats.update(long_window_fold_kernels())
     return stats
 
 
@@ -1212,6 +1227,170 @@ def swin_b_fold_kernels() -> dict:
             check_grads(f"window_attention_fused_bwd {tag}", WIN_BWD_NAMES, got,
                         wa.window_attention_fused_bwd_plain(**w), tol)
             del a, w, got
+    return stats
+
+
+# Kernels A, 10 and 6 at the 8-frame encoder's windows (N = 196: their long
+# layouts, 208 rows): label: (clip (D, H, W, C), batch, heads, window), every
+# case shifted (the mask present).  A and 10 at the scoring batch (16) and the
+# training batch (4), 6 at the training batch; A's block at C = 192 streams
+# its weights in 2 depth chunks, and so does 6's.
+LONG_FOLD_SHAPES = {
+    "(1024,196,96)": ((4, 56, 56, 96), 16, 6, (4, 7, 7)),    # encoder stage 0, batch 16
+    "(256,196,192)": ((4, 28, 28, 192), 16, 12, (4, 7, 7)),  # encoder stage 1, batch 16
+    "(256,196,96)": ((4, 56, 56, 96), 4, 6, (4, 7, 7)),      # encoder stage 0, batch 4
+    "(64,196,192)": ((4, 28, 28, 192), 4, 12, (4, 7, 7)),    # encoder stage 1, batch 4
+}
+LONG_FOLD_BWD = ("(256,196,96)", "(64,196,192)")  # the shapes kernel 6 (and 8) run at
+# the kernels line's rows of them, each with the run that counts its launches:
+# the forward kernels at the scoring batch, the backward at the training batch
+LONG_FOLD_ROWS = {
+    "fold_attention": ("scoring fold, reconstruction", ("(1024,196,96)", "(256,196,192)")),
+    "fold_attention_packed": ("scoring fold_packed, reconstruction",
+                              ("(1024,196,96)", "(256,196,192)")),
+    "fold_attention_bwd": ("training fold, reconstruction", LONG_FOLD_BWD),
+    "window_attention_fused": ("scoring base, reconstruction", ("(1024,196,96)", "(256,196,192)")),
+    "window_attention_packed": ("scoring packed, reconstruction",
+                                ("(1024,196,96)", "(256,196,192)")),
+    "window_attention_fused_bwd": ("training base, reconstruction", LONG_FOLD_BWD),
+}
+
+
+def long_window_fold_kernels() -> dict:
+    """Kernels A, 10 and 6 in bf16 at the 8-frame encoder's shapes
+    (``LONG_FOLD_SHAPES``: N = 196, their long layouts), and 7, 9 and 8 on
+    those bodies through ``window_grid``'s view, each against its plain
+    version (``BOUNDS``, ``BWD_TOL``), its counter asserted, called twice for
+    the same bits, and timed beside its plain version, its bound and the
+    row-tiled body of the partitioned route (7's, 9's or 8's ``*_rows``,
+    forced on the same windows) that ran these windows before; then the
+    edges unshifted and at N = 113, 160 and 208 on the view, and 6's long
+    layout at 4 and 5 query strips a phase.  Returns
+    {"<kernel> long windows <shape>": stats}."""
+    from vadcl_tpu_torch.ops import window_attn as wa
+    from vadcl_tpu_torch.ops.fold_attn import (
+        fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_attention_packed,
+        fold_attention_packed_plain, fold_attention_plain, fold_depth_chunks,
+    )
+
+    bf, tol = torch.bfloat16, BWD_TOL[torch.bfloat16]
+    print("[2] kernels A, 10, 6 and 7, 9, 8 on their bodies at the 8-frame encoder's windows "
+          "(N = 196, the long layouts), bf16, shifted, beside the row-tiled bodies forced")
+    gen = torch.Generator().manual_seed(24)
+    as_tuple = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
+    stats = {}
+
+    def held(key, counter, fn, plain, compare, tensors, flops, rows_fn, extra):
+        got, moved = _launched(fn)
+        if moved != {counter: 1}:
+            raise AssertionError(f"{key}: launches {moved}, expected one of {counter}")
+        err = compare(got, plain())
+        same_bits(key, as_tuple(got), as_tuple(fn()))
+        ms, pms, rows_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(rows_fn)
+        b = bound(tensors + list(as_tuple(got)), flops, "bf16")
+        print(f"    {key}: {ms:.4f} ms; the row-tiled body forced {rows_ms:.4f} ms; plain "
+              f"{pms:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
+              f"{b['bound_ms'] / ms:.2%} of it")
+        for what, f in (("launches", fn), ("the row-tiled body's", rows_fn)):
+            print(f"      {what}, device ms (profiler): " + ", ".join(
+                f"{k.split('<')[0].split('::')[-1]} {v:.4f}" for k, v in launch_ms(f, 5)))
+        stats[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms, rows_body_ms=rows_ms, **extra, **b)
+
+    for label, ((D, H, W, C), batch, nh, window) in LONG_FOLD_SHAPES.items():
+        n = window[0] * window[1] * window[2]
+        shift = (0, 3, 3)
+        shape = f"x_windows {label} bf16, nH {nh}, N {n}, shifted"
+        chunks = (fold_depth_chunks(n, C, nh), fold_depth_chunks(n, C, nh, backward=True))
+        a = _fold_case((batch, D, H, W, C), nh, window, shift, bf, gen)
+        w = _win_case_at(batch, (D, H, W), C, nh, window, shift, bf, gen)
+        flops = attn_flops(a["x"][..., 0].numel(), C, n)
+        for counter, kernel, plain, rows, view, view_plain in (
+                ("fold_attention", fold_attention, fold_attention_plain,
+                 wa.window_attention_fused_rows, wa.window_attention_fused,
+                 wa.window_attention_fused_plain),
+                ("fold_attention_packed", fold_attention_packed, fold_attention_packed_plain,
+                 wa.window_attention_packed_rows, wa.window_attention_packed,
+                 wa.window_attention_packed_plain)):
+            close = lambda got, want, k=counter: check_close(  # noqa: E731
+                f"{k} {label}", got, want, *BOUNDS[bf])
+            held(f"{counter} long windows {label}", counter, lambda: kernel(**a),
+                 lambda: plain(**a), close, tensors_of(a), flops, lambda: rows(**w),
+                 dict(depth_chunks=chunks[0], shape=shape))
+            vname = "window_attention_packed" if counter.endswith("packed") else \
+                "window_attention_fused"
+            vclose = lambda got, want, k=vname: check_close(  # noqa: E731
+                f"{k} {label}", got, want, *BOUNDS[bf])
+            held(f"{vname} long windows {label}", vname, lambda: view(**w), lambda: view_plain(**w),
+                 vclose, tensors_of(w), flops, lambda: rows(**w),
+                 dict(depth_chunks=chunks[0], shape=shape + ", window_grid's view"))
+        if label in LONG_FOLD_BWD:
+            a6 = _fold_bwd_case((batch, D, H, W, C), nh, window, shift, bf, gen)
+            w8 = _win_bwd_case(w, gen)
+            bflops = attn_flops(a6["x"][..., 0].numel(), C, n, backward=True)
+            grads = lambda got, want, k="fold_attention_bwd": check_grads(  # noqa: E731
+                f"{k} {label}", FOLD_BWD_NAMES, got, want, tol)
+            held(f"fold_attention_bwd long windows {label}", "fold_attention_bwd",
+                 lambda: fold_attention_bwd(**a6), lambda: fold_attention_bwd_plain(**a6), grads,
+                 tensors_of(a6), bflops, lambda: wa.window_attention_fused_bwd_rows(**w8),
+                 dict(depth_chunks=chunks[1], shape=shape))
+            vgrads = lambda got, want: check_grads(  # noqa: E731
+                f"window_attention_fused_bwd {label}", WIN_BWD_NAMES, got, want, tol)
+            held(f"window_attention_fused_bwd long windows {label}", "window_attention_fused_bwd",
+                 lambda: wa.window_attention_fused_bwd(**w8),
+                 lambda: wa.window_attention_fused_bwd_plain(**w8), vgrads, tensors_of(w8), bflops,
+                 lambda: wa.window_attention_fused_bwd_rows(**w8),
+                 dict(depth_chunks=chunks[1], shape=shape + ", window_grid's view"))
+            del a6, w8
+        del a, w
+        torch.cuda.empty_cache()
+
+    print("  the long layouts' edges: A and 10 in every mode and 6 unshifted at one clip; 7, 9 "
+          "and 8 on the view at N = 113, 160 and 208 (two mask classes, and no mask)")
+    for (D, H, W, C), nh in (((4, 14, 14, 96), 6), ((4, 14, 14, 192), 12), ((4, 14, 14, 32), 2)):
+        for shift in ((0, 0, 0), (0, 3, 3)):
+            tag = f"(1,{D},{H},{W},{C}), {nh} heads, shift {shift}"
+            a = _fold_case((1, D, H, W, C), nh, (4, 7, 7), shift, bf, gen)
+            check_fold(f"fold_attention {tag}", a)
+            check_fold(f"fold_attention_packed {tag}", a, fold_attention_packed,
+                       fold_attention_packed_plain)
+            a6 = _fold_bwd_case((1, D, H, W, C), nh, (4, 7, 7), shift, bf, gen)
+            got, moved = _launched(lambda: fold_attention_bwd(**a6))
+            if moved != {"fold_attention_bwd": 1}:
+                raise AssertionError(f"fold_attention_bwd {tag}: launches {moved}")
+            check_grads(f"fold_attention_bwd {tag}", FOLD_BWD_NAMES, got,
+                        fold_attention_bwd_plain(**a6), tol)
+            same_bits(f"fold_attention_bwd {tag}", got, fold_attention_bwd(**a6))
+            b6 = dict(a6, ln_scale=None, ln_bias=None, residual=False)  # the padded blocks' mode
+            check_grads(f"fold_attention_bwd no LN/residual {tag}", FOLD_BWD_NAMES,
+                        fold_attention_bwd(**b6), fold_attention_bwd_plain(**b6), tol)
+    for n in (113, 160, 208):
+        for C, nh in ((96, 6), (192, 12), (32, 2)):
+            for masked in (True, False):
+                tag = f"N={n} C={C} nH={nh} {'masked' if masked else 'no mask'}"
+                w = _win_case_n(6, n, C, nh, bf, gen, masked, n_windows=3 if masked else 2)
+                for counter, kernel, plain in window_kernels():
+                    got, moved = _launched(lambda: kernel(**w))
+                    if moved != {counter: 1}:
+                        raise AssertionError(f"{counter} {tag}: launches {moved}")
+                    check_close(f"{counter} {tag}", got, plain(**w), *BOUNDS[bf])
+                w = _win_bwd_case(w, gen)
+                got, moved = _launched(lambda: wa.window_attention_fused_bwd(**w))
+                if moved != {"window_attention_fused_bwd": 1}:
+                    raise AssertionError(f"window_attention_fused_bwd {tag}: launches {moved}")
+                check_grads(f"window_attention_fused_bwd {tag}", WIN_BWD_NAMES, got,
+                            wa.window_attention_fused_bwd_plain(**w), tol)
+    # kernel 6's long layout at other phase widths: 4 query strips a phase (C =
+    # 256, 16 heads, 4 chunks), 5 (C = 240, 15 heads, 3 chunks); A does not take
+    # these, so only 8 runs on 6's body
+    for C, nh in ((256, 16), (240, 15)):
+        tag = f"N=196 C={C} nH={nh} masked"
+        w = _win_bwd_case(_win_case_n(6, 196, C, nh, bf, gen, True, n_windows=3), gen)
+        got, moved = _launched(lambda: wa.window_attention_fused_bwd(**w))
+        if moved != {"window_attention_fused_bwd": 1}:
+            raise AssertionError(f"window_attention_fused_bwd {tag}: launches {moved}")
+        check_grads(f"window_attention_fused_bwd {tag}", WIN_BWD_NAMES, got,
+                    wa.window_attention_fused_bwd_plain(**w), tol)
+        same_bits(f"window_attention_fused_bwd {tag}", got, wa.window_attention_fused_bwd(**w))
     return stats
 
 
@@ -2250,8 +2429,9 @@ def recon_geometries(frame_num: int) -> dict:
     """name: ((D, H, W, C) per clip, heads, runtime window, shift) of the
     flagship's four Swin stages on ``frame_num``-frame reconstruction clips:
     the encoder's token grid has D = frame_num / 2, the decoder's frame_num
-    (timedebd doubles it).  At frame_num 8 every window holds 196 or 392
-    tokens and runs the row-tiled bodies of kernels 7, 8 and 9."""
+    (timedebd doubles it).  At frame_num 8 the encoder's windows hold 196
+    tokens, which kernels A's and 6's long layouts take in bf16, and the
+    decoder's 392, which run the row-tiled bodies of kernels 7, 8 and 9."""
     from vadcl_tpu_torch.ops.window import get_window_size
 
     out = {}
@@ -3073,20 +3253,30 @@ TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180},
                    "fold": {"fold_attention_bwd": 180, "ln_mlp_bwd": 180},
                    "base": {"window_attention_fused": 180, "window_attention_fused_bwd": 180,
                             "ln_mlp_bwd": 180}}
-# Reconstruction at frame_num = 8: every window holds 196 or 392 tokens, so
-# all 18 blocks of a forward run a row-tiled body (kernel A stops at 112
-# tokens, so a "fold" block takes the partitioned-window route) and the
-# whole-tile bodies never launch.  Exact counts: 18 a forward (7 scoring
-# forwards of 16 windows), 18 each way a training step (10 steps).
+# Reconstruction at frame_num = 8: the encoder's 9 blocks have windows of
+# 196 tokens, which kernels A's and 6's long layouts take in bf16 (a "fold"
+# block runs A, 10 under "fold_packed", and "base" / "packed" blocks run 7,
+# 9 and 8 on those bodies, unpartitioned); the decoder's 9 blocks have 392,
+# which only the row-tiled bodies of the partitioned route hold (a
+# "fold_packed" block's partitioned route is kernel 7's, as in the JAX
+# block).  The whole-tile bodies never launch.  Exact counts: 9 of each a
+# forward (7 scoring forwards of 16 windows), 9 each way a training step (10
+# steps); window_partition 9 times a forward, in the decoder.
 RECON_FRAMES = 8
-RECON_SCORING_KERNELS = {
-    "fold": COMMON_FWD | {"window_attention_fused_rows"},
-    "base": COMMON_FWD | {"window_attention_fused_rows"},
-    "packed": COMMON_FWD | {"window_attention_packed_rows"},
+RECON_ENCODER_BLOCKS = 9  # depths (3, 6): N = 196; the decoder's (6, 3): N = 392
+RECON_SCORING_ROUTES = {  # attn_kernel: (the encoder's kernel, the decoder's)
+    "fold": ("fold_attention", "window_attention_fused_rows"),
+    "base": ("window_attention_fused", "window_attention_fused_rows"),
+    "packed": ("window_attention_packed", "window_attention_packed_rows"),
+    "fold_packed": ("fold_attention_packed", "window_attention_fused_rows"),
+}
+RECON_SCORING_KERNELS = {k: COMMON_FWD | set(v) for k, v in RECON_SCORING_ROUTES.items()}
+RECON_TRAINING_BWD = {  # attn_kernel: (the encoder's backward, the decoder's)
+    "fold": ("fold_attention_bwd", "window_attention_fused_bwd_rows"),
+    "base": ("window_attention_fused_bwd", "window_attention_fused_bwd_rows"),
 }
 RECON_TRAINING_KERNELS = {
-    k: RECON_SCORING_KERNELS[k] | {"ln_mlp_bwd", "window_attention_fused_bwd_rows"}
-    for k in ("fold", "base")
+    k: RECON_SCORING_KERNELS[k] | {"ln_mlp_bwd"} | set(v) for k, v in RECON_TRAINING_BWD.items()
 }
 
 
@@ -3191,8 +3381,9 @@ def read_required(required, path: str, counts) -> dict:
 def check_partitions(path: str, calls: int, want: int) -> int:
     """Fails unless a path called ``window_partition`` exactly ``want``
     times: no time on the 4-frame bf16 paths (every route there runs its
-    kernels on the unpartitioned tensor), 18 a forward at 8 frames (every
-    block partitions its windows for the row-tiled bodies)."""
+    kernels on the unpartitioned tensor), 9 a forward at 8 frames (the
+    decoder's blocks partition their windows for the row-tiled bodies, the
+    encoder's run kernels A and 6 unpartitioned)."""
     print(f"  window_partition calls: {calls}")
     if calls != want:
         raise AssertionError(f"{path}: window_partition called {calls} times, expected {want}")
@@ -3220,9 +3411,10 @@ def phase_training(attn_kernel: str = "fold", recon: int = 0):
         torch.cuda.reset_peak_memory_stats()
         if recon:
             expected = RECON_TRAINING_KERNELS[attn_kernel]
-            counts = {"window_attention_fused_rows": 18 * steps,
-                      "window_attention_fused_bwd_rows": 18 * steps,
-                      "ln_mlp": 18 * steps, "ln_mlp_bwd": 18 * steps}
+            enc = RECON_ENCODER_BLOCKS * steps
+            counts = {k: enc for k in RECON_SCORING_ROUTES[attn_kernel]
+                      + RECON_TRAINING_BWD[attn_kernel]}
+            counts.update(ln_mlp=18 * steps, ln_mlp_bwd=18 * steps)
         else:
             expected, counts = TRAINING_KERNELS[attn_kernel], TRAINING_COUNTS.get(attn_kernel)
         reset_launches()
@@ -3233,7 +3425,8 @@ def phase_training(attn_kernel: str = "fold", recon: int = 0):
         launches = read_launches(expected, f"training, {attn_kernel}, {mode}", counts,
                                  heads=steps)
         launches["window_partition"] = check_partitions(
-            f"training, {attn_kernel}, {mode}", parts[0], 18 * steps if recon else 0)
+            f"training, {attn_kernel}, {mode}", parts[0],
+            (18 - RECON_ENCODER_BLOCKS) * steps if recon else 0)
         losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
         wall = t_end - loader.stamps[WARMUP_STEPS]
         print(f"  per-step losses: {[round(float(v), 4) for v in losses]}")
@@ -3338,10 +3531,9 @@ def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
     forwards = sum(-(-len(sliding_windows(v[0].shape[0], fn, "stride1")) // BATCH_WINDOWS)
                    for v in videos)
     if recon:
-        rows = "window_attention_packed_rows" if attn_kernel == "packed" else \
-            "window_attention_fused_rows"
         expected = RECON_SCORING_KERNELS[attn_kernel]
-        counts = {rows: 18 * forwards, "ln_mlp": 18 * forwards}
+        counts = {k: RECON_ENCODER_BLOCKS * forwards for k in RECON_SCORING_ROUTES[attn_kernel]}
+        counts["ln_mlp"] = 18 * forwards
     else:
         expected, counts = SCORING_KERNELS[attn_kernel], SCORING_COUNTS.get(attn_kernel)
     reset_launches()
@@ -3353,7 +3545,8 @@ def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
     launches = read_launches(expected, f"scoring, {attn_kernel}, {mode}", counts,
                              heads=forwards)
     launches["window_partition"] = check_partitions(
-        f"scoring, {attn_kernel}, {mode}", parts[0], 18 * forwards if recon else 0)
+        f"scoring, {attn_kernel}, {mode}", parts[0],
+        (18 - RECON_ENCODER_BLOCKS) * forwards if recon else 0)
     print(f"  {n_windows} windows in {wall:.3f} s = {n_windows / wall:.2f} windows/s; "
           f"mean scene AUC {auc:.4f}; per scene {per_scene}")
     for (frames, _, _), vs in zip(videos, per_video):
@@ -3564,6 +3757,100 @@ def depth_chunks_forced_off():
         yield
     finally:
         mod.fold_depth_chunks = real
+
+
+@contextlib.contextmanager
+def long_layouts_forced_off():
+    """While open, kernels A's and 6's bf16 tensor-core bodies take windows
+    of at most 112 tokens at every head width (``fold_max_tokens`` as before
+    their long layouts): the 8-frame encoder's N = 196 blocks take the
+    partitioned route to the row-tiled bodies again."""
+    import importlib
+
+    mod = importlib.import_module("vadcl_tpu_torch.ops.fold_attn")
+    real = mod.fold_max_tokens
+    mod.fold_max_tokens = lambda head_dim: mod.FOLD_MAX_TOKENS
+    try:
+        yield
+    finally:
+        mod.fold_max_tokens = real
+
+
+# the launches a route gives one 8-frame pass: (A, 7 rows) a forward, (6, 8
+# rows) a step's backward
+LONG_ROUTE_LAUNCHES = {"new": (RECON_ENCODER_BLOCKS, 18 - RECON_ENCODER_BLOCKS), "old": (0, 18)}
+
+
+def phase_long_windows(smi: str) -> dict:
+    """The 8-frame reconstruction path's device time with kernels A's and
+    6's long layouts (the encoder's N = 196 blocks on A and 6, LN1 and the
+    residual inside) and with the route before them forced
+    (``long_layouts_forced_off``: every block partitions for the row-tiled
+    bodies): the batch-16 ``fold`` scoring forward and the batch-4 ``fold``
+    train step (``make_train_step``: loss, backward, Adam), each one call's
+    device-busy ms by the profiler and its untraced wall ms, in the order new,
+    old, new, old; every call's launches of A, 6 and the row-tiled 7 and 8
+    asserted.  Returns {"<pass> <route>": [busy ms, ...]}."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.ops import (
+        fold_attention, fold_attention_bwd, window_attention_fused_bwd_rows,
+        window_attention_fused_rows,
+    )
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+
+    print("[4b] the 8-frame path with kernels A's and 6's long layouts and with the route "
+          "before them forced, bf16, fold: batch-16 forward, batch-4 train step")
+    model = VADModel(flagship_config("fold", predict=False), torch.bfloat16,
+                     torch.Generator().manual_seed(0)).cuda().eval()
+    clips = torch.rand(BATCH_WINDOWS, RECON_FRAMES, 224, 224, 3,
+                       generator=torch.Generator().manual_seed(3)).cuda()
+
+    def forward():
+        with torch.inference_mode():
+            model(clips)
+
+    cfg = flagship_train_config("fold", recon=RECON_FRAMES)
+    trained = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).cuda()
+    state = create_train_state(trained, cfg)
+    step_fn = make_train_step(trained, cfg, steps_per_epoch=1000)
+    batch = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (TRAIN_BATCH, RECON_FRAMES, 224, 224, 3)).astype(np.uint8)).cuda()
+
+    def step():
+        step_fn(state, batch)
+
+    readings = {}
+    for route in ("new", "old", "new", "old"):
+        forced = long_layouts_forced_off() if route == "old" else contextlib.nullcontext()
+        a_want, rows_want = LONG_ROUTE_LAUNCHES[route]
+        with forced:
+            for name, fn in (("forward", forward), ("step", step)):
+                fn(), fn()  # warm-up: packs, cuDNN's choices, the allocator
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                reset_launches()
+                busy, _ = traced_call(fn)
+                got = (fold_attention.launches, window_attention_fused_rows.launches)
+                if name == "step":
+                    got += (fold_attention_bwd.launches, window_attention_fused_bwd_rows.launches)
+                want = (a_want, rows_want) * (2 if name == "step" else 1)
+                if got != want:
+                    raise AssertionError(f"8-frame {name}, {route} route: launches of A, 7 rows"
+                                         f"{', 6, 8 rows' if name == 'step' else ''} {got}, "
+                                         f"expected {want}")
+                readings.setdefault(f"{name} {route}", []).append(busy)
+                print(f"  {name}, {route} route: device busy {busy:.3f} ms, wall {wall:.3f} ms "
+                      f"untraced (idle {max(0.0, 1 - busy / wall):.1%}) [{smi}]")
+    for name in ("forward", "step"):
+        new, old = readings[f"{name} new"], readings[f"{name} old"]
+        print(f"  8-frame {name}: busy {min(new):.3f}-{max(new):.3f} ms with A and 6 on the "
+              f"encoder, {min(old):.3f}-{max(old):.3f} ms with the route before forced")
+    del model, trained, state, step_fn
+    torch.cuda.empty_cache()
+    return readings
 
 
 # Kernels 7 and 8 of every body: none launches on the Video Swin-B-width path
@@ -5248,6 +5535,7 @@ def main():
                    for k in RECON_SCORING_KERNELS})
     counts.update({f"training {k}, reconstruction": phase_training(k, RECON_FRAMES)
                    for k in RECON_TRAINING_KERNELS})
+    phase_long_windows(smi)
     counts["data-parallel training fold"] = phase_ddp(smi)
     phase_autotune(smi)
     phase_profile()
@@ -5274,6 +5562,12 @@ def main():
              launches=counts[run][counter], counted_on=run,
              **stats[f"{counter} Video Swin-B width {label}"])
         for counter, (run, labels) in SWIN_B_FOLD_ROWS.items() for label in labels
+    ] + [
+        dict(name=f"{counter} long windows {label}", route="cuda",
+             source=REPLACES[counter][0], replaces=REPLACES[counter][1],
+             launches=counts[run][counter], counted_on=run,
+             **stats[f"{counter} long windows {label}"])
+        for counter, (run, labels) in LONG_FOLD_ROWS.items() for label in labels
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

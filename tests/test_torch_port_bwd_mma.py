@@ -79,7 +79,7 @@ def test_kernel6_routes_every_geometry(geom):
     assert fold_fits(n, c, nh, torch.bfloat16, backward=True) == (want is not None)
     if want == "mma":
         assert fold_bwd_mma_smem_bytes(n, c, nh) <= SMEM_LIMIT
-        assert fold_padded_rows(n) in (64, 112)
+        assert fold_padded_rows(n) in (64, 112, 208)
     if want is None:
         assert fold_bwd_mma_smem_bytes(n, c, nh) > SMEM_LIMIT or c // nh not in (16, 32)
         assert fold_attn.fold_smem_bytes(n, c, nh, True, backward=True) > SMEM_LIMIT
@@ -97,7 +97,11 @@ def test_kernel6_layout_mirror():
     assert fold_bwd_mma_smem_bytes(49, 96, 6) == 85120
     # a larger window pads to 112 rows and does not grow the block
     assert fold_bwd_mma_smem_bytes(65, 96, 6) == fold_bwd_mma_smem_bytes(112, 96, 6)
-    assert fold_bwd_body(113, 96, 6, torch.bfloat16) != "mma"
+    # 113-208 tokens take the long layout at head width 16 (208 rows), not at 32
+    assert fold_bwd_body(113, 96, 6, torch.bfloat16) == "mma"
+    assert fold_bwd_mma_smem_bytes(113, 96, 6) == fold_bwd_mma_smem_bytes(208, 96, 6) == 208768
+    assert fold_bwd_body(209, 96, 6, torch.bfloat16) != "mma"
+    assert fold_bwd_body(113, 96, 3, torch.bfloat16) != "mma"
     # depth chunks where whole slices do not fit: (98, 192, 6) and the Video
     # Swin-B width's geometries
     assert fold_bwd_mma_smem_bytes(98, 192, 6) == 210304

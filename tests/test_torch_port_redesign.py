@@ -79,15 +79,18 @@ def test_fold_route_is_kept(geom):
 def test_large_windows_are_refused_by_name():
     """N = 392 leaves the fold kernels for the row-tiled bodies of kernels 7,
     8 and 9: the bf16 forward caps the window explicitly, whatever its shared
-    memory would be."""
+    memory would be (112 tokens at head width 32, 208 at 16, where the long
+    layout takes 8-frame clips' N = 196)."""
     assert FOLD_MAX_TOKENS == 112
     for dtype in (torch.bfloat16, torch.float32):
         assert not fold_fits(392, 96, 6, dtype)
         assert not fold_packed_fits(392, 96, 6, dtype)
         assert window_body(392, 96, 6, dtype) == "rows"
         assert window_body(392, 96, 6, dtype, backward=True) == "rows"
-    assert not fold_fits(128, 32, 2, torch.bfloat16)  # would fit 227 KB, is over the cap
-    assert fold_smem_bytes(128, 32, 2, True) <= SMEM_LIMIT
+    assert not fold_fits(224, 32, 2, torch.bfloat16)  # would fit 227 KB, is over the cap
+    assert fold_smem_bytes(224, 32, 2, True) <= SMEM_LIMIT
+    assert not fold_fits(128, 64, 2, torch.bfloat16)  # head width 32 stops at 112
+    assert fold_fits(128, 32, 2, torch.bfloat16)  # head width 16: the long layout
 
 
 def test_head_widths_of_the_bf16_forward():

@@ -12,10 +12,14 @@ RandomState; the rel-pos bias is drawn at unit scale.
 
 The reference model is the JAX XLA (unfused) model: its fused blocks at
 N = 196 and N = 392 call the Pallas window kernels without ``interpret``, which
-the CPU cannot run.  Route difference, recorded in ROADMAP.md: at N = 196
-with 6 heads the JAX package gates its fold kernel A on VMEM only and runs
-it, where the port runs the row-tiled kernel 7 (the port's A stops at 112
-tokens); the two compute the same function.
+the CPU cannot run.  The route difference this module once recorded (at
+N = 196 with 6 heads the JAX package runs its fold kernel A, where the port
+ran the row-tiled kernel 7 because its A stopped at 112 tokens) is repaired:
+kernels A's and 6's long layouts take bf16 windows of up to 208 tokens at
+head width 16, so a bf16 encoder block at ``frame_num = 8`` runs them, and
+only the decoder's N = 392 stays on the row-tiled bodies
+(``tests/test_torch_port_long_windows.py`` holds those blocks against the
+JAX block).
 
 Bounds: kernel forward fp32 rtol = atol = 2e-5 (``tests/test_pallas_attn.py``),
 bf16 max|port - jax| <= 2e-2 * max|jax| (both round at the same casts; a
@@ -54,7 +58,7 @@ from vadcl_tpu_torch.convert import (
 )
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.models import VADModel
-from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT, fold_fits
+from vadcl_tpu_torch.ops.fold_attn import SMEM_LIMIT, fold_bwd_body, fold_fits
 from vadcl_tpu_torch.ops.window_attn import (
     ROWS_MAX_HEAD_DIM,
     rows_smem_bytes,
@@ -64,6 +68,7 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_attention_fused_rows,
     window_attention_packed_rows,
     window_body,
+    window_grid_route,
 )
 from vadcl_tpu_torch.train.step import make_loss_fn
 
@@ -178,11 +183,13 @@ def test_every_window_size_maps_to_a_body(c, nh):
 
 
 def test_frame8_geometries_take_the_row_tiled_bodies():
-    """The four window geometries of the flagship at ``frame_num = 8``
-    (encoder (4, 7, 7), decoder (8, 7, 7)) leave the fold kernels and run the
-    row-tiled bodies both ways in bf16; the sizes the kernels' headers state."""
-    for n, c, nh in ((196, 96, 6), (196, 192, 12), (392, 192, 12), (392, 96, 6)):
+    """The decoder's window geometries of the flagship at ``frame_num = 8``
+    ((8, 7, 7): N = 392) leave the fold kernels and run the row-tiled bodies
+    both ways in bf16; the sizes the kernels' headers state."""
+    for n, c, nh in ((392, 192, 12), (392, 96, 6)):
         assert not fold_fits(n, c, nh, torch.bfloat16)
+        assert fold_bwd_body(n, c, nh, torch.bfloat16) is None
+        assert not window_grid_route(n, c, nh, torch.bfloat16)
         for backward in (False, True):
             assert window_body(n, c, nh, torch.bfloat16, backward) == "rows"
     assert rows_smem_bytes(392, 96, 6, True) == 38400
@@ -195,6 +202,26 @@ def test_frame8_geometries_take_the_row_tiled_bodies():
     assert rows_streams(392, 80, 1) and rows_smem_bytes(392, 80, 1, True) == 164 * 392 + 1024
     with pytest.raises(NotImplementedError, match="neither"):
         window_body(1412, 80, 1, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n, c, nh", [(196, 96, 6), (196, 192, 12)], ids=["C96", "C192"])
+def test_frame8_encoder_windows_take_kernels_a_and_6(n, c, nh):
+    """The encoder's window geometries at ``frame_num = 8`` ((4, 7, 7): N =
+    196) run kernels A's and 6's long layouts in bf16: ``fold_fits``, 6's
+    tensor-core body, and the unpartitioned route of ``base`` and ``packed``
+    blocks; in fp32 they keep what they had, the partitioned row-tiled
+    bodies (the fp32 fold kernel's block does not fit) and no grid route."""
+    assert fold_fits(n, c, nh, torch.bfloat16) and fold_fits(n, c, nh, torch.bfloat16, True)
+    assert fold_bwd_body(n, c, nh, torch.bfloat16) == "mma"
+    assert window_grid_route(n, c, nh, torch.bfloat16)
+    assert window_grid_route(n, c, nh, torch.bfloat16, packed=True)
+    assert not fold_fits(n, c, nh, torch.float32)
+    assert fold_bwd_body(n, c, nh, torch.float32) is None
+    assert not window_grid_route(n, c, nh, torch.float32)
+    for backward in (False, True):
+        assert window_body(n, c, nh, torch.float32, backward) == "rows"
+        # the partitioned body, forced or where A and 6 do not run
+        assert window_body(n, c, nh, torch.bfloat16, backward) == "rows"
 
 
 # --- the tiny model at frame_num = 8, reconstruction mode ------------------------
@@ -253,32 +280,54 @@ def test_frame8_recon_model_matches_jax(frame8, attn_kernel):
     assert_outputs_match(got, want)
 
 
-def test_frame8_blocks_route_to_the_row_tiled_bodies(monkeypatch):
-    """Every fused block of the tiny model at ``frame_num = 8`` (N = 196 in
-    the encoder, 392 in the decoder, shifted blocks rolling by (0, 3, 3))
-    takes the partitioned-window route, whose windows the row-tiled body takes
-    in bf16 both ways; so do the window-padded blocks of a 64^2 clip."""
-    seen = []
-    orig = port_swin.window_attention_fused
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_frame8_blocks_route_to_the_row_tiled_bodies(monkeypatch, dtype):
+    """Which kernel every fused block of the tiny model at ``frame_num = 8``
+    calls (N = 196 in the encoder, 392 in the decoder, shifted blocks rolling
+    by (0, 3, 3)), at 56^2 and at the window-padded 64^2.  In fp32 every
+    block takes the partitioned-window route (kernel 7; the row-tiled body's
+    windows both ways).  In bf16 the encoder's blocks run kernel A
+    (``fold_attention``, LN1 and the residual inside; at 64^2 the padded
+    blocks without them) on its long layout and 6 takes their backward, and
+    only the decoder's N = 392 blocks partition for the row-tiled bodies."""
+    seen, folded = [], []
+    orig, orig_fold = port_swin.window_attention_fused, port_swin.fold_attention
 
     def spy(wins, qkv_w, qkv_b, proj_w, proj_b, bias, mask, nh, nw, scale):
         seen.append((wins.shape[1], wins.shape[2], nh, mask is not None))
         return orig(wins, qkv_w, qkv_b, proj_w, proj_b, bias, mask, nh, nw, scale)
 
+    def fold_spy(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, bias, mask, nh, window, *a, **k):
+        folded.append((window[0] * window[1] * window[2], x.shape[-1], nh, mask is not None))
+        return orig_fold(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, bias, mask, nh, window,
+                         *a, **k)
+
     monkeypatch.setattr(port_swin, "window_attention_fused", spy)
+    monkeypatch.setattr(port_swin, "fold_attention", fold_spy)
     for size in (56, 64):
         seen.clear()
+        folded.clear()
         variables, _, clip, _ = _reference(size)
-        model = _port(variables, "fold", size=size).eval()
+        model = _port(variables, "fold", dtype, size=size).eval()
         with torch.inference_mode():
-            out = model(T(clip))
+            out = model(T(clip).to(dtype))
         assert out.recon.shape == (1, FRAMES, size, size, 3)
-        assert len(seen) == 8, seen  # every Swin block
-        assert sorted({n for n, *_ in seen}) == [196, 392]
-        assert {n for n, _, _, shifted in seen if shifted} == {196, 392}
+        assert len(seen) + len(folded) == 8, (seen, folded)  # every Swin block
+        if dtype == torch.float32:
+            assert not folded
+            assert sorted({n for n, *_ in seen}) == [196, 392]
+            assert {n for n, _, _, shifted in seen if shifted} == {196, 392}
+        else:
+            assert {n for n, *_ in folded} == {196} and len(folded) == 4
+            assert {n for n, *_ in seen} == {392} and len(seen) == 4
+            assert {n for n, _, _, shifted in folded if shifted} == {196}
+            assert {n for n, _, _, shifted in seen if shifted} == {392}
         for n, c, nh, _ in seen:
+            assert not fold_fits(n, c, nh, dtype)
             for backward in (False, True):
                 assert window_body(n, c, nh, torch.bfloat16, backward) == "rows"
+        for n, c, nh, _ in folded:
+            assert fold_fits(n, c, nh, dtype) and fold_bwd_body(n, c, nh, dtype) == "mma"
 
 
 def test_frame8_padded_recon_model_matches_jax():

@@ -1,7 +1,7 @@
 """Kernels 7 and 8 on the tensor-core bodies of kernels A and 6, on the CPU.
 
-Where a window of at most 112 tokens at head width 16 or 32 is in bf16, the
-port's kernel 7 (``window_attention_fused``) runs kernel A's tensor-core body
+Where a window of at most 112 tokens at head width 16 or 32 (208 at 16) is
+in bf16, the port's kernel 7 (``window_attention_fused``) runs kernel A's tensor-core body
 and kernel 8 (``window_attention_fused_bwd``) kernel 6's, both without LN and
 residual, on ``window_grid``'s view of the windows: ``(Bn / nW, 1, 1, nW * N,
 C)`` cut by the window ``(1, 1, N)``.  The CUDA bodies run only on the card
@@ -209,14 +209,40 @@ def test_swin_b_windows_take_the_tensor_core_bodies_in_bf16(geom, backward):
                     (98, 128, 4): (150144, 182656)}[(n, c, nh)][backward] <= SMEM_LIMIT
 
 
+# windows of 113-208 tokens at head width 16: the long layouts of A and 6
+LONG = {"N113": (113, 96, 6), "N196": (196, 96, 6), "N196_C192": (196, 192, 12),
+        "N208_C32": (208, 32, 2)}
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("geom", LONG)
+def test_long_windows_take_the_tensor_core_bodies_in_bf16(geom, backward):
+    """Windows of 113-208 tokens at head width 16 (8-frame clips' N = 196,
+    and N = 113 that stayed on the whole tile before) take kernels A's and
+    6's long layouts in bf16 on the view (208 rows, two strips a warp), their
+    blocks within ``SMEM_LIMIT``; fp32 keeps the partitioned bodies."""
+    n, c, nh = LONG[geom]
+    assert window_tile_core(n, c, nh, torch.bfloat16, backward) == "fold_mma"
+    assert window_tile_core(n, c, nh, torch.float32, backward) == "tile"
+    x = torch.empty(4, n, c, dtype=torch.bfloat16, device="meta")
+    assert window_attn._pick_body("k", None, x, nh, backward) == "fold_mma"
+    x32 = torch.empty(4, n, c, dtype=torch.float32, device="meta")
+    assert (window_attn._pick_body("k", None, x32, nh, backward)
+            == window_body(n, c, nh, torch.float32, backward))
+    size = fold_bwd_mma_smem_bytes(n, c, nh) if backward else fold_smem_bytes(n, c, nh, True)
+    assert size <= SMEM_LIMIT and fold_attn.fold_padded_rows(n) == 208
+
+
 @pytest.mark.parametrize("n,c,nh", [(98, 24, 2), (98, 48, 4), (49, 96, 2), (98, 192, 4),
-                                    (113, 96, 6)],
-                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "N113"])
+                                    (113, 96, 3), (209, 96, 6)],
+                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "N113_hd32",
+                              "N209"])
 def test_other_widths_keep_the_whole_tile_body(n, c, nh):
-    """Head widths 12 and 48 and windows above 112 tokens stay on the
-    partitioned bodies (the whole tile where it fits), in bf16 and in fp32,
-    each direction; whole weight slices at C = 256 with 8 heads would not
-    fit A's block nor 6's (the depth chunks' reason)."""
+    """Head widths 12 and 48, windows above 112 tokens at head width 32 and
+    above 208 at 16 stay on the partitioned bodies (the whole tile where it
+    fits), in bf16 and in fp32, each direction; whole weight slices at C =
+    256 with 8 heads would not fit A's block nor 6's (the depth chunks'
+    reason)."""
     for dtype in (torch.bfloat16, torch.float32):
         for backward in (False, True):
             assert window_tile_core(n, c, nh, dtype, backward) == "tile"

@@ -1,8 +1,8 @@
 """Kernel 9 on kernel A's packed tensor-core body, and the ``base`` and
 ``packed`` Swin blocks without partition copies, on the CPU.
 
-Where a window of at most 112 tokens at head width 16 or 32 is in bf16, the
-port's kernel 9 (``window_attention_packed``) runs kernel A's ``packed``
+Where a window of at most 112 tokens at head width 16 or 32 (208 at 16) is
+in bf16, the port's kernel 9 (``window_attention_packed``) runs kernel A's ``packed``
 tensor-core body (kernel 10's arithmetic) without LN and residual on
 ``window_grid``'s view of the windows, as kernel 7 runs A's plain one.  Where
 kernels A's and 6's bodies take a block's geometry both ways
@@ -199,13 +199,25 @@ def test_swin_b_blocks_take_the_unpartitioned_route_in_bf16(n, c, nh, packed):
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["base", "packed"])
+@pytest.mark.parametrize("n,c,nh", [(113, 96, 6), (196, 96, 6), (196, 192, 12), (208, 32, 2)],
+                         ids=["N113", "N196", "N196_C192", "N208_C32"])
+def test_long_windows_take_the_unpartitioned_route(n, c, nh, packed):
+    """Windows of 113-208 tokens at head width 16 (8-frame reconstruction's
+    encoder: N = 196 at C = 96 with 6 heads and C = 192 with 12) hand kernels
+    A's and 6's long layouts the unpartitioned tensor in bf16; fp32 still
+    partitions."""
+    assert window_grid_route(n, c, nh, torch.bfloat16, packed)
+    assert not window_grid_route(n, c, nh, torch.float32, packed)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["base", "packed"])
 @pytest.mark.parametrize("n,c,nh", [(98, 24, 2), (98, 48, 4), (49, 96, 2), (98, 192, 4),
-                                    (113, 96, 6), (196, 96, 6), (392, 96, 6), (392, 192, 12)],
-                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "N113", "N196",
-                              "N392", "N392_C192"])
+                                    (113, 96, 3), (196, 96, 3), (392, 96, 6), (392, 192, 12)],
+                         ids=["hd12_C24", "hd12_C48", "hd48", "hd48_C192", "N113_hd32",
+                              "N196_hd32", "N392", "N392_C192"])
 def test_other_geometries_keep_the_partitioned_route(n, c, nh, packed):
-    """Head widths 12 and 48 and windows above 112 tokens (8-frame
-    reconstruction's 196 and 392) partition their windows, in bf16 and in
+    """Head widths 12 and 48, windows above 112 tokens at head width 32 and
+    the 8-frame decoder's N = 392 partition their windows, in bf16 and in
     fp32."""
     for dtype in (torch.bfloat16, torch.float32):
         assert not window_grid_route(n, c, nh, dtype, packed)

@@ -25,7 +25,8 @@ With ``fused=True`` a block runs hand-written kernels, chosen by
   (``ops/window_attn``), ``window_reverse``, roll back, slice, plain
   residual add, then the fused tail.  Where the partitioned-window kernels
   run on kernels A's and 6's tensor-core bodies (``window_grid_route``: bf16,
-  head width 16 or 32, at most 112 tokens) the roll, partition, reverse
+  head width 16 or 32, at most 112 tokens, or 208 at head width 16: the
+  8-frame encoder's N = 196) the roll, partition, reverse
   and roll back are left to those bodies' addressing: the block runs as a
   padded ``"fold"`` (or ``"fold_packed"``) block, plain LN1, pad, the fold
   kernel without LN and residual, slice, residual, tail, with the launches

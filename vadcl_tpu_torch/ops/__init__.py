@@ -67,7 +67,8 @@ from vadcl_tpu_torch.ops.window import (
 # forward's older body (the same), and the whole-tile bodies of 7 and 8
 # (fp32, and the bf16 geometries kernels A's and 6's tensor-core bodies do
 # not take: ``window_attention_fused`` and ``window_attention_fused_bwd``
-# count those bodies' launches on windows of at most 112 tokens), and the
+# count those bodies' launches on windows of at most 112 tokens, 208 at head
+# width 16), and the
 # whole-tile body of 9 (the same, ``window_attention_packed`` counting A's
 # packed body).  A ``base`` or ``packed`` block on the unpartitioned tensor
 # (``window_grid_route``) counts its ``fold_attention`` launches on those of

@@ -8,9 +8,11 @@ Kernel A replaces ``vadcl_tpu/ops/pallas_attn_fold.py:_fold_kernel`` (entry
 ``folded_block_attention_trainable``).  Its CUDA kernel is
 ``csrc/fold_attn.cu``: blocks that address their windows' tokens in the
 unpartitioned (B, D, H, W, C) tensor by strides.  In bf16
-(``csrc/fold_attn_mma.cuh``) a warp owns 16 query rows and keeps scores and
-probabilities in tensor-core registers; it needs head_dim 16 or 32 and windows of
-at most 112 tokens, and takes its weights, rel-pos bias and mask packed
+(``csrc/fold_attn_mma.cuh``) a warp owns 16 query rows (two strips of 16 in
+the long windows' layout) and keeps scores and probabilities in tensor-core
+registers; it needs head_dim 16 or 32 and windows of at most 112 tokens, or
+head_dim 16 and at most 208 tokens (the 196-token windows of 8-frame clips),
+and takes its weights, rel-pos bias and mask packed
 (``pack_fold_weights``, ``pack_fold_scores``; cached per tensor version in
 ``_packs``).  Its weight slices stream through a shared-memory ring in
 depth chunks where two whole slices do not fit beside the window's tiles
@@ -25,11 +27,13 @@ residual=True`` (through ``_blk_bwd``, the Swin block's front half) and
 geometry runs).  Its blocks recompute the forward per window and emit dx;
 the cross-window sums (weight, bias and LN gradients) go through a
 deterministic second pass.  ``fold_bwd_body`` picks one of two bodies: in
-bf16 at head width 16 or 32 and at most 112 tokens,
+bf16 at head width 16 or 32 and at most 112 tokens (at head width 16, 208),
 ``csrc/fold_attn_bwd_mma.cu`` (kernel A's design turned around: a warp owns
 16 query rows and the same 16 key rows, scores and their gradients in
 mma.sync registers, kernel A's packs, d(bias) summed per chunk of windows,
-the second pass on the tensor cores); fp32 and other bf16 geometries the
+the second pass on the tensor cores; above 112 tokens its long layout, two
+strips a warp, P and ds through shared memory a phase of query strips at a
+time); fp32 and other bf16 geometries the
 shared-memory body of ``csrc/fold_attn_bwd.cu`` (``fold_attention_bwd_tiles``
 counts its launches).
 
@@ -97,15 +101,29 @@ def _up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-FOLD_MAX_TOKENS = 112  # largest window of the bf16 forward: 7 strips of 16 query rows
+FOLD_MAX_TOKENS = 112  # largest window of the one-strip-a-warp layouts: 7 strips of 16 rows
+FOLD_LONG_MAX_TOKENS = 208  # largest window of A's and 6's long layouts (13 strips, head width 16)
 FOLD_HEAD_DIMS = (16, 32)  # head widths the bf16 forward is built for
 PACK_PAD = 8  # elements of padding per packed weight row
 
 
+def fold_max_tokens(head_dim: int) -> int:
+    """The largest window kernels A's and 6's bf16 tensor-core bodies take at
+    head width ``head_dim``: 208 tokens at 16 (the long layouts), 112 at 32
+    (the whole-block kernels stay at ``FOLD_MAX_TOKENS``)."""
+    return FOLD_LONG_MAX_TOKENS if head_dim == 16 else FOLD_MAX_TOKENS
+
+
 def fold_padded_rows(n: int) -> int:
-    """Rows the bf16 forward pads a window to: 4 strips of 16 (two such
-    windows share a block), 7 strips, or (refused) whole 16s beyond."""
-    return 64 if n <= 64 else (FOLD_MAX_TOKENS if n <= FOLD_MAX_TOKENS else _up(n, 16))
+    """Rows the bf16 tensor-core bodies pad a window to: 4 strips of 16 (two
+    such windows share a block), 7 strips, 13 strips (113-208 tokens: the long
+    layouts of kernels A and 6, head width 16), or (refused) whole 16s
+    beyond."""
+    if n <= 64:
+        return 64
+    if n <= FOLD_MAX_TOKENS:
+        return FOLD_MAX_TOKENS
+    return FOLD_LONG_MAX_TOKENS if n <= FOLD_LONG_MAX_TOKENS else _up(n, 16)
 
 
 def fold_windows_per_block(n: int) -> int:
@@ -132,6 +150,8 @@ def fold_depth_chunks(n: int, c: int, num_heads: int, backward: bool = False) ->
     else (C <= ``FOLD_CHUNKED_MAX_C``) the fewest of 2, 3, 4 that cut C into
     multiples of 16 rows and fit; 0 where none does."""
     hd = c // num_heads
+    if backward and fold_padded_rows(n) == FOLD_LONG_MAX_TOKENS:
+        return _fold_bwd_long_chunks(c, hd)
     size = ((lambda k: _fold_bwd_mma_bytes(n, c, hd, k)) if backward
             else (lambda k: _fold_fwd_mma_bytes(n, c, hd, k)))
     if size(1) <= SMEM_LIMIT:
@@ -164,7 +184,9 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
     Its ring stages hold ``fold_depth_chunks``' share of a slice: the whole
     slice up to C = 192, half of it at C = 256 with 8 heads (207,488 B at N =
     98, 229,504 B at N = 49, where whole slices would take 260,736 and
-    282,752 B); where no chunking fits, the whole-slice size."""
+    282,752 B); at N = 196 (208 rows, two strips a warp) 148,096 B at C = 96
+    with 6 heads and 227,968 B at C = 192 with 12 (two chunks; whole slices
+    would take 249,472 B); where no chunking fits, the whole-slice size."""
     hd = c // num_heads
     if not bf16:
         hdp = hd + 1
@@ -190,9 +212,60 @@ def fold_smem_bytes(n: int, c: int, num_heads: int, bf16: bool, backward: bool =
 FOLD_BWD_MAX_C = 256  # widest C of kernel 6's tensor-core body (C / 32 column sums a lane)
 
 
+FOLD_BWD_LONG_WARPS = 7  # consumer warps of 6's long layout: query strips a phase at most
+
+
+def _fold_bwd_long_proj_items(c: int, hd: int, chunks: int) -> int:
+    """``fb_long_proj_items``: the ring items head h's W_proj rows take in
+    6's long layout, with the slices in depth chunks as many as keep an item
+    within a chunk's rows."""
+    npc = -(-c // (3 * hd))
+    if chunks == 1:
+        return 1
+    return next(p for p in range(1, npc + 1) if p == npc or -(-npc // p) * hd <= c // chunks)
+
+
+def _fold_bwd_long_bytes(c: int, hd: int, chunks: int, group: int) -> int:
+    """``csrc/fold_attn_bwd_mma.cu:fb_long_layout``: the ring, the LN1 rows,
+    single-buffered Q, K, V, DOA tiles and round(P), round(ds * scale) tiles
+    of ``group`` query strips (every key column); the fp32 dxa rows overlay
+    everything from the LN1 rows on."""
+    rows = FOLD_LONG_MAX_TOKENS
+    ldw, ldkv = 3 * hd + PACK_PAD, hd + 8
+    npc = -(-c // (3 * hd))
+    items = _fold_bwd_long_proj_items(c, hd, chunks)
+    part, proj = (c // chunks) * ldw, -(-npc // items) * hd * ldw
+    stage = 2 * (part + proj if chunks == 1 else max(part, proj))
+    front = 128 + 2 * stage
+    tiles = (front + 2 * rows * (c + PACK_PAD) + 2 * 4 * rows * ldkv
+             + 2 * 2 * 16 * group * (rows + 8))
+    return max(tiles, front + 4 * rows * (c + 4))
+
+
+def fold_bwd_long_group(c: int, hd: int, chunks: int) -> int:
+    """``fb_long_group``: the query strips a phase of 6's long layout holds at
+    ``chunks`` depth chunks, the most (up to ``FOLD_BWD_LONG_WARPS``: two
+    phases for 13 strips) whose block fits ``SMEM_LIMIT``; 0 where none does."""
+    return next((g for g in range(FOLD_BWD_LONG_WARPS, 0, -1)
+                 if _fold_bwd_long_bytes(c, hd, chunks, g) <= SMEM_LIMIT), 0)
+
+
+def _fold_bwd_long_chunks(c: int, hd: int) -> int:
+    """``fb_long_chunks``: the fewest depth chunks that give the largest
+    group; 0 where no block fits."""
+    counts = [1] + [k for k in (2, 3, 4) if c <= FOLD_CHUNKED_MAX_C and c % (16 * k) == 0]
+    best = max(counts, key=lambda k: (fold_bwd_long_group(c, hd, k), -k))
+    return best if fold_bwd_long_group(c, hd, best) else 0
+
+
 def _fold_bwd_mma_bytes(n: int, c: int, hd: int, chunks: int) -> int:
-    """``csrc/fold_attn_bwd_mma.cu:fb_layout(n, c, hd, chunks).bytes``."""
+    """``csrc/fold_attn_bwd_mma.cu:fb_block_layout(n, c, hd, chunks).bytes``:
+    ``fb_layout`` (double-buffered Q, K, V, DOA tiles and whole-head P and ds
+    tiles, the dxa rows over the tiles) or, at 208 rows, ``fb_long_layout``
+    with its largest group at these chunks (one strip where none fits)."""
     rows = fold_padded_rows(n)
+    if rows == FOLD_LONG_MAX_TOKENS:
+        return _fold_bwd_long_bytes(c, hd, chunks, max(fold_bwd_long_group(c, hd, chunks), 1))
     ldw, ldkv = 3 * hd + PACK_PAD, hd + 8
     npc = -(-c // (3 * hd))
     part, proj = (c // chunks) * ldw, npc * hd * ldw
@@ -212,22 +285,26 @@ def fold_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
     flagship geometry); else (``fold_depth_chunks``) one depth chunk of the
     slice or those rows: 224,640 B at N = 98, C = 256, 8 heads (4 chunks),
     153,728 B at N = 49 (2), 182,656 B at N = 98, C = 128, 4 heads (2),
-    210,304 B at N = 98, C = 192, 6 heads (2).  Where no chunking fits, the
-    whole-slice size."""
+    210,304 B at N = 98, C = 192, 6 heads (2).  At 113-208 tokens the long
+    layout (single-buffered tiles, P and ds of a phase's query strips):
+    208,768 B at N = 196, C = 96, 6 heads (7 strips a phase, one chunk),
+    230,784 B at C = 192, 12 heads (7 strips, 4 chunks, head h's W_proj rows
+    in two ring items).  Where no chunking fits, the whole-slice size."""
     hd = c // num_heads
     return _fold_bwd_mma_bytes(n, c, hd, max(fold_depth_chunks(n, c, num_heads, True), 1))
 
 
 def fold_bwd_body(n: int, c: int, num_heads: int, dtype: torch.dtype) -> Optional[str]:
     """The body kernel 6 runs a window of ``n`` tokens in: ``"mma"`` (the
-    tensor-core body: bf16, head width 16 or 32, at most ``FOLD_MAX_TOKENS``
-    tokens, C % 16 == 0 and at most ``FOLD_BWD_MAX_C``, its block within
-    ``SMEM_LIMIT``), else ``"tiles"`` (the shared-memory body, fp32 and
-    every bf16 geometry on whole 16x16 tiles whose block fits), else None
-    (the Swin block then replays LN1 and runs kernel 8)."""
+    tensor-core body: bf16, head width 16 or 32, at most ``fold_max_tokens``
+    tokens (208 at head width 16: the long layout takes the 196-token windows
+    of 8-frame clips; 112 at 32), C % 16 == 0 and at most ``FOLD_BWD_MAX_C``,
+    its block within ``SMEM_LIMIT``), else ``"tiles"`` (the shared-memory
+    body, fp32 and every bf16 geometry on whole 16x16 tiles whose block
+    fits), else None (the Swin block then replays LN1 and runs kernel 8)."""
     bf16 = dtype == torch.bfloat16
     if (bf16 and c % num_heads == 0 and c % 16 == 0 and c // num_heads in FOLD_HEAD_DIMS
-            and n <= FOLD_MAX_TOKENS and c <= FOLD_BWD_MAX_C
+            and n <= fold_max_tokens(c // num_heads) and c <= FOLD_BWD_MAX_C
             and fold_bwd_mma_smem_bytes(n, c, num_heads) <= SMEM_LIMIT):
         return "mma"
     if bf16 and not _whole_tiles(c, num_heads):
@@ -251,10 +328,12 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
     slices in ``fold_depth_chunks``' chunks, so every window of at most 112
     tokens at head width 16 or 32 and C <= 256 fits), and the bf16 forward, whose
     warps hold a 16 x N strip of scores in registers, takes at most
-    ``FOLD_MAX_TOKENS`` tokens (the cap is explicit: kernel 6 would not
-    follow a larger window, and the N = 196 and N = 392
-    windows of 8-frame reconstruction clips go to the row-tiled bodies of the
-    partitioned-window kernels).
+    ``fold_max_tokens`` tokens: 208 at head width 16 (the long layout, two
+    strips a warp: the N = 196 windows of 8-frame reconstruction clips at C =
+    96 with 6 heads and C = 192 with 12), 112 at 32 (the cap is explicit:
+    kernel 6 would not follow a larger window; the N = 392 windows of the
+    8-frame decoder go to the row-tiled bodies of the partitioned-window
+    kernels).
     Every other bf16 head width (48 and larger multiples of 16, and widths
     off 16 such as the 12 of an ``embed_dim`` 24 model) goes to the
     partitioned-window kernels, which take it; ``fold_block_fits`` does not
@@ -262,8 +341,8 @@ def fold_fits(n: int, c: int, num_heads: int, dtype: torch.dtype,
     bf16 = dtype == torch.bfloat16
     if backward:
         return fold_bwd_body(n, c, num_heads, dtype) is not None
-    if bf16 and (n > FOLD_MAX_TOKENS or c // num_heads not in FOLD_HEAD_DIMS
-                 or c % num_heads):
+    if bf16 and (c % num_heads or c // num_heads not in FOLD_HEAD_DIMS
+                 or n > fold_max_tokens(c // num_heads)):
         return False
     return fold_smem_bytes(n, c, num_heads, bf16) <= SMEM_LIMIT
 
@@ -1033,7 +1112,7 @@ def pack_fold_scores(t: torch.Tensor, pad_col: float) -> torch.Tensor:
     shift mask ``(nW, N, N)``) in the order of the bf16 kernel's score
     accumulator: ``(G, strips, N' / 8, 32, 4)`` fp32, where strip s, n-tile
     j, lane l, element e is entry ``(16s + l // 4 + 8 (e // 2), 8j + 2 (l % 4)
-    + e % 2)``; N' is N padded to 64 or 112.  Padded key columns hold
+    + e % 2)``; N' is ``fold_padded_rows(N)``: 64, 112 or 208.  Padded key columns hold
     ``pad_col`` (-inf in the bias, so that they get probability 0; 0 in the
     mask), padded query rows 0."""
     g, n, _ = t.shape
@@ -1116,12 +1195,14 @@ def _check_fold(what, x, bias, mask, num_heads, window, smem_bytes, register_sco
     if mask is not None and tuple(mask.shape) != (nw, n, n):
         raise ValueError(f"{what}: mask {tuple(mask.shape)} != {(nw, n, n)}")
     if register_scores and x.dtype == torch.bfloat16 and (
-            C // num_heads not in FOLD_HEAD_DIMS or n > FOLD_MAX_TOKENS):
+            C // num_heads not in FOLD_HEAD_DIMS or n > fold_max_tokens(C // num_heads)):
         raise NotImplementedError(
             f"{what}: the bf16 kernel keeps a 16 x N strip of scores in a warp's "
-            f"registers and needs head_dim 16 or 32 and at most {FOLD_MAX_TOKENS} "
-            f"tokens per window (got head_dim {C // num_heads}, N={n}): fold_fits() is "
-            "false here and the Swin block takes the partitioned-window kernels instead"
+            f"registers and needs head_dim 16 or 32 and at most "
+            f"{FOLD_LONG_MAX_TOKENS} tokens per window at head_dim 16, at most "
+            f"{FOLD_MAX_TOKENS} at 32 (got head_dim {C // num_heads}, N={n}): "
+            "fold_fits() is false here and the Swin block takes the "
+            "partitioned-window kernels instead"
         )
     smem = smem_bytes(n, C, num_heads, int(x.dtype == torch.bfloat16))
     if smem > SMEM_LIMIT:

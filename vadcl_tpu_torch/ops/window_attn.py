@@ -27,8 +27,9 @@ and takes a window only where that fits 227 KB.  The row-tiled body
 ``csrc/window_attn_rows_mma.cu``, ``csrc/window_attn_bwd_rows.cu`` with its
 bf16 core in ``csrc/window_attn_bwd_rows_mma.cu``) walks the
 keys of a 16-row strip of queries in blocks with a running max and sum and
-takes every N, e.g. N = 196 and N = 392 (windows (4, 7, 7) and (8, 7, 7) of
-8-frame reconstruction clips), and every head width: where K and V of one
+takes every N, e.g. N = 392 (windows (8, 7, 7) of the 8-frame
+reconstruction decoder; the encoder's N = 196 runs kernels A's and 6's long
+layouts in bf16, below), and every head width: where K and V of one
 head (the backward: also q and dout's slice) outgrow the CUDA-core core's
 block, its streamed instance walks the head's channels in chunks as well
 (``rows_streams``).  ``window_body`` picks the whole-tile body where it fits
@@ -43,8 +44,10 @@ where the whole-tile body would run).
 Kernels 7, 8 and 9 run either body only where kernel A's tensor-core body
 (forward; its ``packed`` instance, kernel 10's arithmetic, for 9) and kernel
 6's (backward) do not take the geometry: in bf16 at head width 16 or 32 and
-at most 112 tokens, where those blocks fit (every C up to 256, with the
-weights in depth chunks; ``window_tile_core`` says ``"fold_mma"``), they run
+at most 112 tokens, or at head width 16 and at most 208 (their long layouts:
+the 8-frame encoder's N = 196), where those blocks fit (every C up to 256 at
+112 tokens, with the weights in depth chunks; C = 96 and 192 at 196;
+``window_tile_core`` says ``"fold_mma"``), they run
 those bodies without LN and residual on ``window_grid``'s view of the
 windows, the rows of one batch element's windows laid end to end as one row
 of windows, which is exactly the layout of ``x_windows``.  This comes before
@@ -365,9 +368,10 @@ def window_tile_core(n: int, c: int, num_heads: int, dtype: torch.dtype,
     """``"fold_mma"`` where kernel A's tensor-core body (or with ``backward``
     kernel 6's) takes the geometry without LN and residual on
     ``window_grid``'s view (bf16, head width 16 or 32, at most
-    ``FOLD_MAX_TOKENS`` tokens, C % 16 == 0, its block within ``SMEM_LIMIT``
-    with the weights streamed in depth chunks where whole slices do not fit:
-    ``fold_fits`` for A, ``fold_bwd_body(...) == "mma"`` for 6); the route
+    ``fold_max_tokens`` tokens (208 at head width 16: the long layouts, 112
+    at 32), C % 16 == 0, its block within ``SMEM_LIMIT`` with the weights
+    streamed in depth chunks where whole slices do not fit: ``fold_fits``
+    for A, ``fold_bwd_body(...) == "mma"`` for 6); the route
     then runs it whichever body ``window_body`` names.  Else ``"tile"``:
     ``window_body``'s body runs, the whole-tile body of
     ``csrc/window_attn.cu`` / ``csrc/window_attn_bwd.cu`` where it fits."""
@@ -390,9 +394,11 @@ def window_grid_route(n: int, c: int, num_heads: int, dtype: torch.dtype,
     which trains, for the backward too (9 has no backward).  That holds at
     every bf16 window of at most 112 tokens at head width 16 or 32 and C up
     to 256 (the Video Swin-B width's C = 256 with 8 heads too, since A's and
-    6's weights stream in depth chunks).  Elsewhere (fp32, head widths 12, 48 and
-    64, windows above 112 tokens) the block partitions its windows as
-    before."""
+    6's weights stream in depth chunks), and at the 8-frame encoder's 196
+    tokens at C = 96 with 6 heads and C = 192 with 12 (the long layouts,
+    head width 16).  Elsewhere (fp32, head widths 12, 48 and 64, windows
+    above 112 tokens at head width 32 and the decoder's 392) the block
+    partitions its windows as before."""
     if dtype != torch.bfloat16:
         return False
     return all(window_tile_core(n, c, num_heads, dtype, backward) == "fold_mma"
