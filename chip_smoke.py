@@ -135,12 +135,18 @@ Phases (any failure raises and the script exits non-zero):
      batch_windows=16, once per ``attn_kernel`` in fold, base, packed,
      fold_packed, fold_mix, fold_block in predict mode, and under fold, base
      and packed in reconstruction mode at frame_num 8 at full width and
-     depth; the kernels each path must run have launched (the newer paths:
-     exactly so many times, 18 row-tiled forwards a forward at frame_num 8)
-     and the others have not, no plain version of an attention or MLP
-     kernel was handed a CUDA tensor, and ``window_partition`` ran no time
-     at 4 frames (the bf16 ``base`` and ``packed`` blocks hand kernels A and
-     6 the unpartitioned tensor) and 18 times a forward at frame_num 8.
+     depth.  Each batch replays a captured CUDA graph (the default on the
+     card): the wrappers count the launches of the graph's warm-up calls
+     and capture (``GRAPH_CALLS`` forwards, from a fresh scorer), its
+     replays none; the kernels each path must run have launched (the newer
+     paths: exactly so many times, 18 row-tiled forwards a forward at
+     frame_num 8) and the others have not, no plain version of an attention
+     or MLP kernel was handed a CUDA tensor, and ``window_partition`` ran no
+     time at 4 frames (the bf16 ``base`` and ``packed`` blocks hand kernels
+     A and 6 the unpartitioned tensor) and 18 times a forward at frame_num
+     8; the port's kernels the replays of a video ran on the device (the
+     profiler's trace) are those of the ``graph=False`` loop, by name and
+     count.
      Then the shanghaitech model at Video Swin-B's width (``embed_dim`` 128,
      heads (4, 8) / (8, 4), full depth) under ``fold``: each stage's
      attention body printed, scoring at batch 16 with 12 launches of B's slab
@@ -196,8 +202,10 @@ Phases (any failure raises and the script exits non-zero):
      predict, bf16): ``export_window_scorer`` of the flagship scorer under
      ``"fold"`` and ``"base"`` at batch 16, saved, then loaded and called in
      a second process that must not import ``vadcl_tpu_torch.models``: the
-     graph's kernel ops, one call's launches (18 of A or of 7, 18 of B, 1
-     of C, 1 of D, nothing else), the scores against the live scorer's
+     graph's kernel ops, the launches of its first call (warm-up calls and
+     capture: 18 of A or of 7, 18 of B, 1 of C, 1 of D a forward, nothing
+     else), the port's kernels of a replayed call (the trace) those of a
+     ``graph=False`` load's call, the scores against the live scorer's
      within the bf16 score bound (``utils/parity.py``), two calls the same
      bits; windows/s of artifact and live, device-busy ms and host ops of a
      traced call of each.
@@ -232,12 +240,26 @@ Phases (any failure raises and the script exits non-zero):
   15. a reference ``.pth`` at the flagship (a seeded model's weights under
      the reference's names and layouts): ``tools/evaluate_torch.py
      --torch-ckpt`` scores two JPEG videos with the bits of ``--ckpt`` of
-     the same weights, 18 A, 18 B, 1 C, 1 D a forward and nothing else;
+     the same weights, 18 A, 18 B, 1 C, 1 D a forward run in Python (the
+     captured scorer's warm-up calls and capture) and nothing else;
      ``tools/export_torch.py --torch-ckpt`` and ``--ckpt`` give artifacts
      that score the same bits and launch the same kernels.
   16. ``tools/train_synthetic_torch.py --fused`` a few steps on the card in
      a process of its own: exit 0 and a per-scene AUC.
-No earlier path was cut: the whole run takes about six minutes on an H100.
+  17. (run after phase 4's reconstruction scoring) captured scoring: each
+     batch replayed as one captured CUDA graph (``utils/graphs.py``)
+     against ``graph=False`` at the same static batch of 16, on a video
+     whose windows leave a short last batch: the flagship 4-frame predict
+     path under ``fold`` and ``base``, 8-frame reconstruction under
+     ``fold``, the Video Swin-B width under ``fold`` (phase 4's models),
+     ConvAE (phase 9's configuration) and a static-batch artifact of the
+     ``fold`` scorer; the same score bits both
+     ways, the same port kernels in the replays' trace as in the eager
+     loop's, no wrapper launch in a replay, the graph's batch loop under
+     ``set_sync_debug_mode("error")``, one weight updated in place followed
+     by the graph; windows/s and the idle share each way over a video of
+     380 frames.
+No earlier path was cut: the whole run takes about ten minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels, kernel B's CUDA-core and slab bodies, kernel 5's slab body (its
 launches from the Swin-B-width training run), the whole-block forward's and
@@ -254,11 +276,14 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -267,6 +292,7 @@ import time
 import numpy as np
 import torch
 
+from vadcl_tpu_torch.utils.graphs import WARMUP_CALLS
 from vadcl_tpu_torch.utils.provenance import smi_line
 
 FOLD_GEOMETRIES = {  # name: ((D, H, W, C) per clip, heads, runtime window, shift)
@@ -283,6 +309,10 @@ PADDED_FOLD = ((2, 63, 63, 96), 6, (2, 7, 7), (0, 3, 3))  # a 240^2 clip's stage
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 BATCH_WINDOWS = 16  # phase 4's batch: the shapes the main path gives each kernel
+# The forwards a captured scorer runs in Python for a batch shape, whose
+# launches its wrappers count: its warm-up calls and its capture.  Its
+# replays run none; their launches are read from the trace.
+GRAPH_CALLS = WARMUP_CALLS + 1
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise.  fp32: only the
 # summation order differs (~1e-6 at O(1) outputs).  bf16: both round at the
 # same cast boundaries, but a different fp32 summation order can flip one
@@ -3241,13 +3271,14 @@ TRAINING_KERNELS = {
     "fold_block": SCORING_KERNELS["fold_block"] | {"fold_block_bwd"},
 }
 # Exact launch counts of the new paths: 18 Swin blocks (12 of them with 12
-# heads) a forward, 8 scoring forwards, 10 training steps.
+# heads) a forward (scoring: the wrappers count GRAPH_CALLS forwards), 10
+# training steps.
 SCORING_COUNTS = {
-    "base": {"window_attention_fused": 144, "ln_mlp": 144},
-    "packed": {"window_attention_packed": 144, "ln_mlp": 144},
-    "fold_packed": {"fold_attention_packed": 144, "ln_mlp": 144},
-    "fold_mix": {"fold_attention_packed": 96, "fold_attention": 48, "ln_mlp": 144},
-    "fold_block": {"fold_block": 144},
+    "base": {"window_attention_fused": 18, "ln_mlp": 18},
+    "packed": {"window_attention_packed": 18, "ln_mlp": 18},
+    "fold_packed": {"fold_attention_packed": 18, "ln_mlp": 18},
+    "fold_mix": {"fold_attention_packed": 12, "fold_attention": 6, "ln_mlp": 18},
+    "fold_block": {"fold_block": 18},
 }
 TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180},
                    "fold": {"fold_attention_bwd": 180, "ln_mlp_bwd": 180},
@@ -3260,8 +3291,9 @@ TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180},
 # which only the row-tiled bodies of the partitioned route hold (a
 # "fold_packed" block's partitioned route is kernel 7's, as in the JAX
 # block).  The whole-tile bodies never launch.  Exact counts: 9 of each a
-# forward (7 scoring forwards of 16 windows), 9 each way a training step (10
-# steps); window_partition 9 times a forward, in the decoder.
+# forward (scoring: GRAPH_CALLS forwards of 16 windows), 9 each way a
+# training step (10 steps); window_partition 9 times a forward, in the
+# decoder.
 RECON_FRAMES = 8
 RECON_ENCODER_BLOCKS = 9  # depths (3, 6): N = 196; the decoder's (6, 3): N = 392
 RECON_SCORING_ROUTES = {  # attn_kernel: (the encoder's kernel, the decoder's)
@@ -3506,7 +3538,13 @@ def make_videos(seed: int = 0):
 def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
     """``evaluate_videos`` under ``attn_kernel``; ``recon`` > 0:
     reconstruction mode, scoring windows of that many frames (per-window
-    MSE of shape (n, recon), one score per frame of each window)."""
+    MSE of shape (n, recon), one score per frame of each window).  The
+    scorer replays its captured graph of a batch (the default on the card).
+    The launches are the wrappers' own counts over the whole run, from a
+    fresh scorer: its warm-up calls and its capture
+    (``GRAPH_CALLS`` forwards); its replays run no wrapper.  What the
+    replays ran is read from the trace (``replays_match_eager``).  The
+    model is kept for ``phase_captured_scoring``."""
     from vadcl_tpu_torch.eval.predict import (
         eval_input_frames, evaluate_videos, make_video_scorer, sliding_windows,
     )
@@ -3519,34 +3557,38 @@ def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
     model = VADModel(flagship_config(attn_kernel, predict=predict), torch.bfloat16,
                      torch.Generator().manual_seed(0))
     model = model.cuda().eval()
-    scorer = make_video_scorer(
-        lambda clips: model(clips).recon, frame_num=fn, predict=predict,
-        batch_windows=BATCH_WINDOWS, input_frames=eval_input_frames("swin", predict, fn),
-        device="cuda",
-    )
+    if (attn_kernel, recon) in CAPTURED_PATHS:
+        CAPTURED_MODELS[(attn_kernel, recon)] = model
+
+    def scorer_of(graph):
+        return make_video_scorer(
+            lambda clips: model(clips).recon, frame_num=fn, predict=predict,
+            batch_windows=BATCH_WINDOWS, input_frames=eval_input_frames("swin", predict, fn),
+            device="cuda", graph=graph)
+
+    scorer = scorer_of(None)
     videos = make_videos()
-    evaluate_videos(scorer, videos[:1], fn, predict)  # warm-up (cuDNN autotune etc.)
-    torch.cuda.synchronize()
     n_windows = sum(len(sliding_windows(v[0].shape[0], fn, "stride1")) for v in videos)
-    forwards = sum(-(-len(sliding_windows(v[0].shape[0], fn, "stride1")) // BATCH_WINDOWS)
-                   for v in videos)
     if recon:
         expected = RECON_SCORING_KERNELS[attn_kernel]
-        counts = {k: RECON_ENCODER_BLOCKS * forwards for k in RECON_SCORING_ROUTES[attn_kernel]}
-        counts["ln_mlp"] = 18 * forwards
+        counts = {k: RECON_ENCODER_BLOCKS * GRAPH_CALLS for k in RECON_SCORING_ROUTES[attn_kernel]}
+        counts["ln_mlp"] = 18 * GRAPH_CALLS
     else:
-        expected, counts = SCORING_KERNELS[attn_kernel], SCORING_COUNTS.get(attn_kernel)
+        expected = SCORING_KERNELS[attn_kernel]
+        counts = {k: n * GRAPH_CALLS for k, n in SCORING_COUNTS.get(attn_kernel, {}).items()}
     reset_launches()
-    t0 = time.perf_counter()
     with plain_versions_refuse_the_card(), counting_partitions() as parts:
+        evaluate_videos(scorer, videos[:1], fn, predict)  # warm-up and capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         auc, per_scene, per_video = evaluate_videos(scorer, videos, fn, predict, "stride1")
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     launches = read_launches(expected, f"scoring, {attn_kernel}, {mode}", counts,
-                             heads=forwards)
+                             heads=GRAPH_CALLS)
     launches["window_partition"] = check_partitions(
         f"scoring, {attn_kernel}, {mode}", parts[0],
-        (18 - RECON_ENCODER_BLOCKS) * forwards if recon else 0)
+        (18 - RECON_ENCODER_BLOCKS) * GRAPH_CALLS if recon else 0)
     print(f"  {n_windows} windows in {wall:.3f} s = {n_windows / wall:.2f} windows/s; "
           f"mean scene AUC {auc:.4f}; per scene {per_scene}")
     for (frames, _, _), vs in zip(videos, per_video):
@@ -3556,7 +3598,37 @@ def phase_scoring(attn_kernel: str = "fold", recon: int = 0):
             raise AssertionError("per-video scores have the wrong length or are not finite")
     if not (np.isfinite(auc) and 0.0 <= auc <= 1.0):
         raise AssertionError(f"mean scene AUC {auc} is not a finite probability")
+    with plain_versions_refuse_the_card():
+        replays_match_eager(f"scoring, {attn_kernel}, {mode}", scorer, scorer_of(False),
+                            videos[0][0], sliding_windows(videos[0][0].shape[0], fn, "stride1"))
     return launches
+
+
+def replays_match_eager(label: str, graph_run, eager_run, frames, starts) -> dict:
+    """The port's kernels that one captured scorer's batch loop over a video
+    ran on the device, by name, read from the profiler's trace of the
+    replays; fails unless the ``graph=False`` scorer's loop over the same
+    video ran the same kernels as many times each, each a whole number of
+    times a batch (a graph that dropped or doubled a kernel would not).
+    ``graph_run`` has captured its batch."""
+    staged = graph_run.stage(frames)
+    eager_run.device_scores(staged, starts)  # (fills what a first call fills)
+    forwards = -(-len(starts) // BATCH_WINDOWS)
+    replayed = whole_launches(lambda: graph_run.device_scores(staged, starts), forwards)
+    eager = whole_launches(lambda: eager_run.device_scores(staged, starts), forwards)
+    by_kernel = collections.Counter()
+    for name, n in replayed.items():
+        by_kernel[re.search(r"(\w+_kernel)\b", name).group(1)] += n
+    print(f"  the trace of {forwards} replayed batches: the port's kernels a batch "
+          f"{ {k: n / forwards for k, n in sorted(by_kernel.items())} }, "
+          f"{len(replayed)} instances; the same names and counts as graph=False: "
+          f"{replayed == eager}")
+    if replayed != eager:
+        differ = {k: (replayed.get(k, 0), eager.get(k, 0))
+                  for k in set(replayed) | set(eager) if replayed.get(k) != eager.get(k)}
+        raise AssertionError(f"{label}: the replays ran other kernels than the eager loop "
+                             f"(replayed, eager): {differ}")
+    return replayed
 
 
 # Video Swin-B's width (Liu et al., Video Swin Transformer: embed_dim 128,
@@ -3832,7 +3904,7 @@ def phase_long_windows(smi: str) -> dict:
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
                 reset_launches()
-                busy, _ = traced_call(fn)
+                busy, _, _ = traced_call(fn)
                 got = (fold_attention.launches, window_attention_fused_rows.launches)
                 if name == "step":
                     got += (fold_attention_bwd.launches, window_attention_fused_bwd_rows.launches)
@@ -3929,6 +4001,7 @@ def phase_swin_b(smi: str) -> dict:
             bwd = rows
         print(f"  {stage}: C = {c}, {nh} heads, N = {n}: forward {fwd}, backward {bwd}")
     model = VADModel(swin_b_config(), bf, torch.Generator().manual_seed(0)).to(DEV).eval()
+    CAPTURED_MODELS["swin-b"] = model
     plain = VADModel(swin_b_config(fused=False), bf, None).to(DEV).eval()
     plain.load_state_dict(model.state_dict())
     videos = make_videos()[:1]
@@ -3941,19 +4014,20 @@ def phase_swin_b(smi: str) -> dict:
                                  input_frames=eval_input_frames("swin", True, 4), device="cuda")
 
     fused_scorer, plain_scorer = scorer_of(model), scorer_of(plain)
-    evaluate_videos(fused_scorer, videos, 4, True)  # warm-up (cuDNN autotune etc.)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
+    reset_launches()  # (the wrappers count the warm-up calls and the capture)
     with plain_versions_refuse_the_card():
+        evaluate_videos(fused_scorer, videos, 4, True)  # warm-up and capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         auc, _, per_video = evaluate_videos(fused_scorer, videos, 4, True, "stride1")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"scoring swin-b fold": read_launches(
         {"ln_mlp", "ln_mlp_slab", "fold_attention", "cluster_assign", "space_cluster_loss"},
-        "scoring, Swin-B width", {"ln_mlp_slab": 12 * forwards, "ln_mlp": 6 * forwards,
-                                  "fold_attention": SWIN_B_BLOCKS * forwards,
-                                  "cluster_assign": forwards, "space_cluster_loss": forwards})}
+        "scoring, Swin-B width", {"ln_mlp_slab": 12 * GRAPH_CALLS, "ln_mlp": 6 * GRAPH_CALLS,
+                                  "fold_attention": SWIN_B_BLOCKS * GRAPH_CALLS,
+                                  "cluster_assign": GRAPH_CALLS,
+                                  "space_cluster_loss": GRAPH_CALLS})}
     want = evaluate_videos(plain_scorer, videos, 4, True, "stride1")[2][0].scores
     got = per_video[0].scores
     err, limit = float(np.max(np.abs(got - want))), score_bound(want, bf)
@@ -3967,11 +4041,11 @@ def phase_swin_b(smi: str) -> dict:
                        ).to(DEV)
     with torch.no_grad():
         model(clips)
-        busy, _ = traced_call(lambda: model(clips))
+        busy, _, _ = traced_call(lambda: model(clips))
         with slab_body_forced_off():
             model(clips)
             reset_launches()
-            old, _ = traced_call(lambda: model(clips))
+            old, _, _ = traced_call(lambda: model(clips))
             from vadcl_tpu_torch.ops import ln_mlp_slab, ln_mlp_tiles
 
             if ln_mlp_tiles.launches != 12 or ln_mlp_slab.launches:
@@ -3985,7 +4059,7 @@ def phase_swin_b(smi: str) -> dict:
         if window_attention_fused_tiles.launches != 12 or fold_attention.launches != 6:
             raise AssertionError("the route before the depth chunks must run 7's whole tile in "
                                  "12 blocks and A in 6")
-        unchunked, _ = traced_call(lambda: model(clips))
+        unchunked, _, _ = traced_call(lambda: model(clips))
     print(f"  one batch-16 forward, device busy: {busy:.3f} ms with the slab body, {old:.3f} ms "
           f"with the CUDA-core body forced in its place [{smi}]; {unchunked:.3f} ms with the "
           f"route before A's depth chunks forced (7's whole tile in 12 blocks) [{smi}]")
@@ -4007,13 +4081,13 @@ def phase_swin_b(smi: str) -> dict:
     from vadcl_tpu_torch.ops import ln_mlp_bwd_slab, ln_mlp_bwd_tiles
 
     reset_launches()
-    busy_bwd, _ = traced_call(forward_backward)
+    busy_bwd, _, _ = traced_call(forward_backward)
     if ln_mlp_bwd_slab.launches != 12 or ln_mlp_bwd_tiles.launches:
         raise AssertionError("a forward and backward must run kernel 5's slab body 12 times")
     with slab_body_forced_off("mlp_bwd_body"):
         forward_backward()
         reset_launches()
-        old_bwd, _ = traced_call(forward_backward)
+        old_bwd, _, _ = traced_call(forward_backward)
         if ln_mlp_bwd_tiles.launches != 12 or ln_mlp_bwd_slab.launches:
             raise AssertionError("the forced backward did not run 5's CUDA-core body 12 times")
         old_table = kernel_table(forward_backward)
@@ -4037,7 +4111,7 @@ def phase_swin_b(smi: str) -> dict:
                 fold_attention_bwd.launches) != (9, 6, 3):
             raise AssertionError("the route before the depth chunks must run 8's rows in 9 "
                                  "blocks, its whole tile in 6 and 6 in 3")
-        unchunked_bwd, _ = traced_call(forward_backward)
+        unchunked_bwd, _, _ = traced_call(forward_backward)
         unchunked_table = kernel_table(forward_backward)
     model.zero_grad(set_to_none=True)
     print(f"  one batch-{TRAIN_BATCH} forward and backward, device busy: {busy_bwd:.3f} ms with "
@@ -4675,59 +4749,120 @@ EXPORT_COUNTS = {
 EXPORT_OPS = ["vadcl.cluster_assign.default", "vadcl.fold_attention.default",
               "vadcl.ln_mlp.default", "vadcl.space_cluster_loss.default"]
 # The loading process: the artifact alone, no model code.  Scores the
-# windows, counts a call's launches, checks two calls for the same bits and
-# traces one call.
+# windows (the first call warms up and captures: the wrappers' counts),
+# checks two calls for the same bits, and traces replayed calls and calls
+# of a ``graph=False`` load (``traced_call``: chip_smoke.py imports nothing
+# of the model code).
 SERVE_RUNNER = r"""
-import json, sys, time
+import json, sys
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from chip_smoke import traced_call, whole_launches
 from vadcl_tpu_torch.serve import load_artifact
 from vadcl_tpu_torch.ops import KERNELS
 path, windows_path, out_path = sys.argv[1:4]
 art = load_artifact(path)
 models = sorted(k for k in sys.modules if k.startswith("vadcl_tpu_torch.models"))
 w = torch.from_numpy(np.load(windows_path)).cuda()
-art.score(w)
-torch.cuda.synchronize()
 for k in KERNELS:
     k.launches = 0
 got = art.score(w)
 torch.cuda.synchronize()
 launches = {k.__name__: k.launches for k in KERNELS}
 same = bool(torch.equal(got, art.score(w)))
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    art.score(w)
-    torch.cuda.synchronize()
-events = prof.events()
-busy = sum(e.device_time_total for e in events
-           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-host_ops = sum(e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("aten::")
-               for e in events)
+busy, host_ops, _ = traced_call(lambda: art.score(w))
+eager = load_artifact(path, graph=False)
+kernels = {who: whole_launches(lambda: [a.score(w) for _ in range(3)], 3)
+           for who, a in (("replayed", art), ("eager", eager))}
 json.dump(dict(scores=got.float().cpu().tolist(), launches=launches, same_bits=same,
-               busy_ms=busy, host_ops=host_ops, models=models), open(out_path, "w"))
+               busy_ms=busy, host_ops=host_ops, models=models, kernels=kernels),
+          open(out_path, "w"))
 """
 
 
-def traced_call(fn) -> tuple:
-    """(device-busy ms, host ``aten::`` ops) of one call of ``fn``: the sum
-    of the durations of the device work the profiler traced in it, and the
-    ATen operators the host dispatched."""
+@functools.lru_cache(maxsize=None)
+def port_kernel_names() -> frozenset:
+    """The names of the port's ``__global__`` kernels, read from its CUDA
+    sources (``vadcl_tpu_torch/csrc``)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vadcl_tpu_torch", "csrc")
+    names = set()
+    for name in os.listdir(root):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(root, name)) as f:
+                src = f.read()
+            for m in re.finditer(r"__global__", src):
+                k = re.search(r"(\w+_kernel)\s*\(", src[m.end():m.end() + 400])
+                if k is None:
+                    raise AssertionError(f"{name}: a __global__ kernel without a *_kernel name")
+                names.add(k.group(1))
+    return frozenset(names)
+
+
+def port_launches(device_events: dict) -> dict:
+    """Of ``{device event name: count}``, the port's kernels (each name as
+    the profiler gives it, its template arguments included)."""
+    ours = port_kernel_names()
+    out = {}
+    for name, n in device_events.items():
+        base = re.search(r"(\w+_kernel)\b", name)
+        if base is not None and base.group(1) in ours:
+            out[name] = n
+    return out
+
+
+TRACE_LEAD = 4  # marker kernels the profiler traces before the call
+
+
+def traced_call(fn, lead: bool = False) -> tuple:
+    """(device-busy ms, host ``aten::`` ops, the port's kernels the device
+    ran) of one call of ``fn``: the sum of the durations of the device work
+    the profiler traced in it, the ATen operators the host dispatched, and
+    ``port_launches`` of its device events (a replayed CUDA graph's kernels
+    are traced one by one, as eager ones are).  A few marker kernels
+    (``torch.cuda._sleep``, left out of all three) run first, a few ms
+    apart, so that the trace is live before the call's first kernel;
+    ``lead``: ``fn`` runs once more before them, and only the device
+    events after the last marker are read (the first events of a trace
+    can be lost)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):  # (a trace now and then comes back empty: read again)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if lead:
+                fn()
+                torch.cuda.synchronize()
+            for _ in range(TRACE_LEAD):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                time.sleep(0.002)
             fn()
             torch.cuda.synchronize()
         events = prof.events()
-        busy = sum(e.device_time_total for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
+        if lead:
+            device = device[marks[-1] + 1:] if marks else []
+        work = [e for e in device if "spin_kernel" not in e.name]
+        busy = sum(e.device_time_total for e in work) / 1e3
         host_ops = sum(e.device_type == torch.autograd.DeviceType.CPU
                        and e.name.startswith("aten::") for e in events)
         if busy > 0:
-            return busy, host_ops
+            return busy, host_ops, port_launches(collections.Counter(e.name for e in work))
     raise AssertionError("the profiler traced no device work")
+
+
+def whole_launches(fn, per: int) -> dict:
+    """``traced_call(fn)``'s port kernels, where ``fn`` runs ``per`` equal
+    calls (batches): while some kernel's count is not a whole number of
+    times ``per`` (the trace lost events), traced again after a lead call
+    (``traced_call(lead=True)``), twice at most."""
+    for lead in (False, True, True):
+        kernels = traced_call(fn, lead)[2]
+        if all(n % per == 0 for n in kernels.values()):
+            return kernels
+    raise AssertionError(f"three traces lost events: {kernels} over {per} calls")
 
 
 def phase_export(smi: str) -> dict:
@@ -4736,9 +4871,12 @@ def phase_export(smi: str) -> dict:
     ``export_window_scorer`` at batch 16 and saved; a second process loads
     it (importing nothing of ``vadcl_tpu_torch.models``) and scores the
     same uint8 windows as the live scorer, within the bf16 score bound
-    (``utils/parity.py``); a call of the loaded program launches one
-    attention kernel and one kernel B a block and each cluster kernel once,
-    and nothing else; two calls give the same bits.  Then, in this
+    (``utils/parity.py``); the loaded program's first call (its warm-up
+    calls and its capture) launches one attention kernel and one kernel B
+    a block and each cluster kernel once a forward, and nothing else, and a
+    replayed call runs the same port kernels on the device as a
+    ``graph=False`` load's call (the trace, in the loading process); two
+    calls give the same bits.  Then, in this
     process, the artifact and the live scorer in turns (live, artifact,
     artifact, live; ``cuda_ms`` each: back-to-back calls, so the slower of
     host and device is read); windows/s of each, and the device-busy ms and
@@ -4761,7 +4899,7 @@ def phase_export(smi: str) -> dict:
         w = torch.from_numpy(windows).cuda()
         with torch.no_grad():
             want = live(w).float().cpu().numpy()
-            live_busy, live_ops = traced_call(lambda: live(w))
+            live_busy, live_ops, _ = traced_call(lambda: live(w))
         t0 = time.perf_counter()
         program, meta = export_window_scorer(model, batch_windows=EXPORT_BATCH, frame_num=4,
                                              image_size=(224, 224), predict=True,
@@ -4798,15 +4936,22 @@ def phase_export(smi: str) -> dict:
               f"{load_s:.1f} s; scores max |artifact - live| = {err:.3e} (bound {limit:.3e}); "
               f"two artifact calls same bits: {res['same_bits']}")
         nonzero = {k: n for k, n in res["launches"].items() if n}
-        print(f"  launches of one artifact call: {nonzero}")
+        replayed, eager = res["kernels"]["replayed"], res["kernels"]["eager"]
+        print(f"  the wrappers' launches in the first artifact call (its {WARMUP_CALLS} warm-up "
+              f"calls and its capture): {nonzero}; the port's kernels of three replayed calls, "
+              f"from the trace, the same names and counts as three graph=False calls': "
+              f"{replayed == eager}")
         if res["models"]:
             raise AssertionError(f"export, {kernel}: the loading process imported {res['models']}")
         if not err <= limit or not np.all(np.isfinite(got)):
             raise AssertionError(f"export, {kernel}: artifact scores disagree with the live "
                                  "scorer")
-        if nonzero != EXPORT_COUNTS[kernel]:
-            raise AssertionError(f"export, {kernel}: launches {nonzero}, expected "
-                                 f"{EXPORT_COUNTS[kernel]}")
+        want_counts = {k: n * GRAPH_CALLS for k, n in EXPORT_COUNTS[kernel].items()}
+        if nonzero != want_counts:
+            raise AssertionError(f"export, {kernel}: launches {nonzero}, expected {want_counts}")
+        if not replayed or replayed != eager:
+            raise AssertionError(f"export, {kernel}: replayed artifact calls ran {replayed}, "
+                                 f"graph=False calls {eager}")
         if not res["same_bits"]:
             raise AssertionError(f"export, {kernel}: two artifact calls differ")
         for who, ms in turns.items():
@@ -4820,6 +4965,201 @@ def phase_export(smi: str) -> dict:
                            max_abs_err=err)
         del model, program, art
         torch.cuda.empty_cache()
+    return out
+
+
+# phase_captured_scoring's Swin paths, besides ConvAE and a static-batch
+# artifact of the first: (attn_kernel, recon frames) of phase 4's flagship
+# models and phase 4's Video Swin-B-width model, which those phases keep.
+CAPTURED_PATHS = (("fold", 0), ("base", 0), ("fold", RECON_FRAMES), "swin-b")
+CAPTURED_MODELS: dict = {}
+# the rates' video: a few hundred frames, as a ShanghaiTech test video has;
+# its windows leave a short last batch at 4 and at 8 frames
+LONG_VIDEO_FRAMES = 380
+
+
+def captured_path(label: str, make, frames: np.ndarray, long_frames: np.ndarray,
+                  frame_num: int, weights, smi: str) -> dict:
+    """One path of ``phase_captured_scoring``: ``make(graph)`` builds its
+    video scorer, ``graph=False`` the eager one at the same static batch;
+    ``weights`` are tensors updated in place together (one parameter of
+    each scorer's model, where the two have a model each).  ``frames``
+    takes the checks, ``long_frames`` the rates."""
+    from vadcl_tpu_torch.eval.predict import sliding_windows
+    from vadcl_tpu_torch.ops import KERNELS
+
+    def counted() -> dict:
+        return {k.__name__: k.launches for k in KERNELS if k.launches}
+
+    starts = sliding_windows(frames.shape[0], frame_num, "stride1")
+    long_starts = sliding_windows(long_frames.shape[0], frame_num, "stride1")
+    forwards = -(-len(starts) // BATCH_WINDOWS)
+    if len(starts) % BATCH_WINDOWS == 0 or len(long_starts) % BATCH_WINDOWS == 0:
+        raise AssertionError(f"{label}: a video's windows leave no short batch")
+    runs = {"eager": make(False), "graph": make(None)}
+    staged = runs["graph"].stage(frames)
+    scores = {}
+    with plain_versions_refuse_the_card():
+        runs["eager"](staged, starts)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        scores["eager"] = runs["eager"](staged, starts)
+        per_forward = {k: n / forwards for k, n in counted().items()}
+        reset_launches()
+        scores["graph"] = runs["graph"](staged, starts)  # warm-up calls, capture, replays
+        captured = counted()
+        reset_launches()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = runs["graph"].device_scores(staged, starts)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        again = again.cpu().numpy()
+        replayed = counted()
+        traced = replays_match_eager(label, runs["graph"], runs["eager"], frames, starts)
+        long_staged = runs["graph"].stage(long_frames)
+        walls = {"eager": [], "graph": []}
+        for run in runs.values():  # (the capture emptied the allocator's cache)
+            run.device_scores(long_staged, long_starts)
+        for who in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[who].device_scores(long_staged, long_starts)
+            torch.cuda.synchronize()
+            walls[who].append(time.perf_counter() - t0)
+        busy = {who: traced_call(lambda: run.device_scores(long_staged, long_starts))[0]
+                for who, run in runs.items()}
+        del long_staged
+        saved = [w.detach().clone() for w in weights]
+        delta = torch.randn(weights[0].shape, generator=torch.Generator().manual_seed(7))
+        delta = (delta * float(saved[0].float().std())).to(weights[0].device)
+        with torch.no_grad():
+            for w in weights:
+                w.add_(delta.to(w.dtype))
+        updated = {who: run(staged, starts) for who, run in runs.items()}
+        with torch.no_grad():
+            for w, old in zip(weights, saved):
+                w.copy_(old)
+    torch.cuda.synchronize()
+    want_captured = {k: n * GRAPH_CALLS for k, n in per_forward.items()}
+    print(f"  {len(starts)} windows of {frame_num} frames in {forwards} batches of "
+          f"{BATCH_WINDOWS} (the last padded): graph scores equal eager bit for bit: "
+          f"{np.array_equal(scores['graph'], scores['eager'])}; the wrappers' launches a "
+          f"forward {per_forward} (eager), {captured} in the graph's {WARMUP_CALLS} warm-up "
+          f"calls and capture, {replayed or 'none'} in its replays")
+    n_long = len(long_starts)
+    for who in ("eager", "graph"):
+        wall = min(walls[who])
+        rates = ", ".join(f"{n_long / t:.1f}" for t in walls[who])
+        print(f"  {who}: {rates} windows/s over a video of {long_frames.shape[0]} frames "
+              f"({n_long} windows, {-(-n_long // BATCH_WINDOWS)} batches; host clock over the "
+              f"batch loop, synchronised); device busy {busy[who]:.3f} ms (traced) against "
+              f"{wall * 1e3:.3f} ms wall, idle {1 - busy[who] / (wall * 1e3):.1%} [{smi}]")
+    moved = not np.array_equal(updated["graph"], scores["graph"])
+    print(f"  after an in-place update of one weight: graph equals the updated eager scores "
+          f"{np.array_equal(updated['graph'], updated['eager'])}, moved from the old {moved}; "
+          f"set_sync_debug_mode('error') over the batch loop raised nothing")
+    if not np.array_equal(scores["graph"], scores["eager"]) or not np.all(
+            np.isfinite(scores["graph"])):
+        raise AssertionError(f"{label}: the graph's scores are not the eager scores' bits")
+    if captured != want_captured or replayed:
+        raise AssertionError(f"{label}: the wrappers launched {captured} in the warm-up calls "
+                             f"and capture (expected {want_captured}), {replayed} in replays")
+    if not np.array_equal(again, scores["graph"]):
+        raise AssertionError(f"{label}: the batch loop under the sync check gave other scores")
+    if not np.array_equal(updated["graph"], updated["eager"]) or not moved:
+        raise AssertionError(f"{label}: after an in-place weight update the graph does not "
+                             "give the updated eager scores")
+    return {"launches_a_forward": per_forward, "traced_launches": traced,
+            "windows_per_s": {w: [n_long / t for t in ts] for w, ts in walls.items()},
+            "busy_ms": busy, "wall_ms": {w: min(ts) * 1e3 for w, ts in walls.items()}}
+
+
+def phase_captured_scoring(smi: str) -> dict:
+    """Phase 17: each batch of the scorer replayed as one captured CUDA
+    graph (``utils/graphs.py``), against ``graph=False`` at the same static
+    batch of 16: the flagship 4-frame predict path under ``fold`` and
+    ``base``, 8-frame reconstruction under ``fold`` (phase 4's models), the
+    Video Swin-B width under ``fold`` (phase 4's), ConvAE (phase 9's
+    configuration, seeded, in eval mode) and a static-batch artifact
+    exported from the ``fold`` model
+    and loaded here twice (its ``score`` captured, and with
+    ``graph=False``).  Each, on a video whose windows leave a short last
+    batch: the scores the same bits both ways; the wrappers' launches in
+    the graph's warm-up calls and capture ``GRAPH_CALLS`` times the eager
+    launches a forward, and none in its replays; the port's kernels the
+    replays ran on the device (the trace) the same, by name and count, as
+    the eager loop's; the graph's batch loop under
+    ``set_sync_debug_mode("error")``; after an in-place update of one weight
+    (a Swin block's qkv weight, a packed operand of kernel A or 7; ConvAE's
+    first convolution) the graph's scores equal the updated eager ones and
+    moved.  Then windows/s and the idle share (profiler busy ms against the
+    untraced wall) each way over a video of ``LONG_VIDEO_FRAMES`` frames."""
+    from vadcl_tpu_torch.eval.predict import (
+        eval_input_frames, make_video_scorer, windows_video_scorer,
+    )
+    from vadcl_tpu_torch.models.backbone import predicts
+    from vadcl_tpu_torch.serve import export_window_scorer, load_artifact, save_artifact
+
+    videos = make_videos()
+    long_frames = np.random.RandomState(11).randint(
+        0, 256, (LONG_VIDEO_FRAMES, 224, 224, 3), dtype=np.uint8)
+    out = {}
+
+    def video_scorer(model, frame_num, predict, backbone="swin"):
+        def make(graph):
+            return make_video_scorer(lambda c: model(c).recon, frame_num=frame_num,
+                                     predict=predict, batch_windows=BATCH_WINDOWS,
+                                     input_frames=eval_input_frames(backbone, predict, frame_num),
+                                     device=DEV, graph=graph)
+        return make
+
+    def qkv(model):
+        return [model.encoder.stage0.block0.attn.qkv_weight]
+
+    paths = [
+        ("flagship 4-frame predict, fold", ("fold", 0), 4, True, 0),
+        ("flagship 4-frame predict, base", ("base", 0), 4, True, 0),
+        (f"{RECON_FRAMES}-frame reconstruction, fold", ("fold", RECON_FRAMES), RECON_FRAMES,
+         False, 1),
+        ("Video Swin-B width, fold", "swin-b", 4, True, 0),
+    ]
+    for label, key, fn, predict, v in paths:
+        print(f"[17] captured scoring, {label}, bf16, batch {BATCH_WINDOWS}: graph against "
+              "graph=False")
+        model = CAPTURED_MODELS[key].eval()
+        out[label] = captured_path(label, video_scorer(model, fn, predict), videos[v][0],
+                                   long_frames, fn, qkv(model), smi)
+    model = zoo_model(zoo_train_config("convae"), torch.bfloat16).to(DEV).eval()
+    predict = predicts(model.config)
+    print(f"[17] captured scoring, convae, {'predict' if predict else 'reconstruction'}, bf16, "
+          f"batch {BATCH_WINDOWS}: graph against graph=False")
+    conv = next(p for p in model.parameters() if p.dim() >= 4)
+    out["convae"] = captured_path("convae", video_scorer(model, 4, predict, "convae"),
+                                  videos[0][0], long_frames, 4, [conv], smi)
+
+    print(f"[17] captured scoring, static-batch artifact of the flagship fold scorer, batch "
+          f"{BATCH_WINDOWS}: its captured score against graph=False")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_captured_") as tmp:
+        program, meta = export_window_scorer(
+            CAPTURED_MODELS[("fold", 0)], batch_windows=BATCH_WINDOWS, frame_num=4,
+            image_size=(224, 224), predict=True, input_frames=4)
+        save_artifact(tmp, program, meta)
+        arts = {False: load_artifact(tmp, graph=False), None: load_artifact(tmp)}
+    weights = [next(p for n, p in art.program.named_parameters() if n.endswith("qkv_weight"))
+               for art in arts.values()]
+
+    def make(graph):
+        art = arts[graph]
+        return windows_video_scorer(art.score, 4, True, BATCH_WINDOWS, art.device, graph=False)
+
+    out["artifact"] = captured_path("artifact", make, videos[0][0], long_frames, 4, weights,
+                                    smi)
+    del program, arts, weights
+    CAPTURED_MODELS.clear()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4873,7 +5213,7 @@ def _step_times(cfg, dtype) -> tuple:
         step_fn(state, clips)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / DROP_TIMED_STEPS * 1e3
-    return (step_ms, *traced_call(lambda: step_fn(state, clips)))
+    return (step_ms, *traced_call(lambda: step_fn(state, clips))[:2])
 
 
 def phase_dropout(smi: str) -> dict:
@@ -5218,7 +5558,8 @@ REF_BATCH = 16  # the scoring path's batch, for the CLI and the artifact
 
 @contextlib.contextmanager
 def counting_forwards():
-    """While open, counts the calls of ``VADModel.forward``: yields a
+    """While open, counts the calls of ``VADModel.forward`` (a captured
+    scorer's warm-up calls and capture; a replay calls none): yields a
     one-element list."""
     from vadcl_tpu_torch.models import backbone
 
@@ -5244,8 +5585,9 @@ def phase_reference_ckpt(smi: str) -> dict:
     score curves, bit for bit, as ``--ckpt`` of the same weights, and one
     launch of A and of B a block and of C and D a forward, nothing else;
     ``tools/export_torch.py --torch-ckpt`` and ``--ckpt`` give artifacts
-    whose scores of the same windows are the same bits, and a call of the
-    first launches the same kernels as a forward."""
+    whose scores of the same windows are the same bits, and the first call
+    of the first (its warm-up calls and capture) launches the same kernels
+    as ``GRAPH_CALLS`` forwards."""
     from tools import evaluate_torch, export_torch
     from vadcl_tpu_torch.convert import jax_from_state_dict
     from vadcl_tpu_torch.data import make_synthetic_dataset
@@ -5281,8 +5623,10 @@ def phase_reference_ckpt(smi: str) -> dict:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches(set(EXPORT_COUNTS["fold"]), f"evaluate {flag}",
-                                     {k: n * calls[0] for k, n in EXPORT_COUNTS["fold"].items()})
-            print(f"  evaluate_torch {flag}: {calls[0]} forwards at batch {REF_BATCH}, mean "
+                                     {k: n * calls[0]
+                                      for k, n in EXPORT_COUNTS["fold"].items()})
+            print(f"  evaluate_torch {flag}: {calls[0]} forwards run in Python at batch "
+                  f"{REF_BATCH} (a captured scorer's warm-up calls and capture), mean "
                   f"AUC {curves[flag]:.4f}, {wall:.1f} s (the CLI's own wall clock) [{smi}]")
             out[flag] = dict(forwards=calls[0], launches=launches)
         with np.load(os.path.join(tmp, "scores-torch-ckpt.npz")) as a, np.load(
@@ -5303,9 +5647,10 @@ def phase_reference_ckpt(smi: str) -> dict:
             art = load_artifact(art_dir)
             reset_launches()
             with torch.no_grad():
-                scores[flag] = art.score(windows).float().cpu()
+                scores[flag] = art.score(windows).float().cpu()  # warm-up, capture, replay
             torch.cuda.synchronize()
-            read_launches(set(EXPORT_COUNTS["fold"]), f"artifact {flag}", EXPORT_COUNTS["fold"])
+            read_launches(set(EXPORT_COUNTS["fold"]), f"artifact {flag}",
+                          {k: n * GRAPH_CALLS for k, n in EXPORT_COUNTS["fold"].items()})
             del art
         if not torch.equal(scores["--torch-ckpt"], scores["--ckpt"]):
             raise AssertionError("the --torch-ckpt artifact scores differ from the --ckpt one's")
@@ -5533,6 +5878,7 @@ def main():
         phase_training_refused(k)
     counts.update({f"scoring {k}, reconstruction": phase_scoring(k, RECON_FRAMES)
                    for k in RECON_SCORING_KERNELS})
+    phase_captured_scoring(smi)
     counts.update({f"training {k}, reconstruction": phase_training(k, RECON_FRAMES)
                    for k in RECON_TRAINING_KERNELS})
     phase_long_windows(smi)

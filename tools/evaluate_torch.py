@@ -32,6 +32,8 @@ prints them.  ``--device cuda`` (the default) computes in bf16 and
 fold|base|packed|fold_packed|fold_mix|fold_block`` picks the attention kernel,
 fold by default); it fails when no GPU is visible.
 ``--device cpu`` computes in fp32 with the kernels' plain versions.
+On the card each batch of ``--batch-windows`` windows replays one captured
+CUDA graph of the window scorer (``eval/predict.py``); the CPU runs eagerly.
 Per-video anomaly-score curves go to ``--out`` (npz).
 """
 

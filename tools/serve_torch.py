@@ -6,7 +6,9 @@ program), walks a directory of frame-folder videos (ShanghaiTech layout,
 ``SS_VVVV`` names) with the port's ``ClipDataset``, scores every window as
 ``tools/evaluate_torch.py`` does (PSNR -> per-video min-max anomaly score,
 ``evaluate_videos``) and writes ``scores.npz``; with ``--label-path`` it
-also prints per-scene AUC.  The process imports the kernels' ops
+also prints per-scene AUC.  On the card a static-batch artifact replays one
+captured CUDA graph of its program a batch (``serve/export.py``); a
+dynamic-batch artifact scores a video in one eager call.  The process imports the kernels' ops
 (``vadcl_tpu_torch.ops.library``), the data and eval code, and nothing of
 ``vadcl_tpu_torch.models``.  The artifact runs on the device it was
 exported on.
@@ -52,11 +54,10 @@ def main(argv=None):
     if art.input_dtype != "uint8":
         # frame folders decode to uint8; float artifacts take [0, 1] pixels
         score = lambda windows: art.score(windows.float() / 255.0)  # noqa: E731
-    scorer = windows_video_scorer(
-        score, art.frame_num, art.predict,
-        batch_windows=art.batch_windows or 1 << 30,  # a dynamic batch: a video at once
-        device=art.device, pad_tail=art.batch_windows is not None,
-    )
+    # (the artifact's score is the captured call; a dynamic batch: a video at once)
+    scorer = windows_video_scorer(score, art.frame_num, art.predict,
+                                  batch_windows=art.batch_windows, device=art.device,
+                                  graph=False)
     ds = ClipDataset(
         args.data_path,
         frame_num=art.frame_num,

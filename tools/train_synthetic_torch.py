@@ -6,8 +6,8 @@ eval AUC, with the flags of ``tools/train_synthetic.py``:
 
 Writes the ShanghaiTech-shaped synthetic fixture (``data/synthetic.py``),
 trains the tiny flagship config for ``--steps`` steps through ``train()``,
-scores the test videos with the sliding-window evaluator and prints the
-per-scene and mean AUC.  ``--device cuda`` (the default) trains in bf16 and
+scores the test videos with the sliding-window evaluator (on the card one
+captured CUDA graph replayed a batch) and prints the per-scene and mean AUC.  ``--device cuda`` (the default) trains in bf16 and
 ``--fused`` runs the hand-written kernels; it fails when no GPU is visible.
 ``--device cpu`` trains in fp32 with the kernels' plain versions.
 """

@@ -18,7 +18,9 @@ Data-parallel on N cards of one host, one process per card:
 Each process takes ``cuda:LOCAL_RANK`` and its shard of every epoch; the
 batch size is per process, the loss is the global batch's, and only rank 0
 writes into the output directory (``train/loop.py``); the periodic eval
-deals the test videos over the processes (``evaluate_videos_distributed``).
+deals the test videos over the processes (``evaluate_videos_distributed``)
+and on the card replays one captured CUDA graph of the window scorer a
+batch, captured anew at each eval (the steps between moved the weights).
 
 Tensor parallelism, the world cut into (N / M data) x (M model) groups of
 consecutive ranks (``core/mesh.py:make_mesh_2d``):

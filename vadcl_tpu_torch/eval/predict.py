@@ -7,12 +7,25 @@ Protocols: ``stride1`` (a window at every frame), ``nonoverlap`` (every
 against the *first* input frame, the quirk of ``main_predict.py:415-420``).
 
 Each video goes to the device once, as uint8; ``/255`` runs on the device
-and windows are gathered there by index, ``batch_windows`` at a time (the
-last batch may be short).  The per-window math is ``window_score_fn``,
-which the serving export (``vadcl_tpu_torch/serve``) traces as it stands.
-A producer thread decodes ahead, holding at most ``lookahead``
-decoded-but-unscored videos.  The per-video min-max normalisation and the
-per-scene AUC run on the host.
+and windows are gathered there by index, ``batch_windows`` at a time.  The
+batch is static, as the JAX scorer's: the last batch is padded to
+``batch_windows`` by repeating its last start, and the padding's scores are
+dropped.  On the card each batch replays one captured CUDA graph of the
+window scorer (``utils/graphs.py:CapturedCall``), the JAX scorer's one
+jitted executable a batch; the gather runs before the graph, into its
+static input, so the video's length keys nothing (the JAX scorer's
+``_T_BUCKET`` padding has no counterpart).  Each batch's scores are copied
+out of the graph before the next replay, and each video is read back once.
+``graph=False`` runs the same static batches eagerly, for comparisons; the
+CPU always runs eagerly.  The per-window math is ``window_score_fn``, which
+the serving export (``vadcl_tpu_torch/serve``) traces as it stands.
+
+``pipeline_videos`` decodes ahead on one thread and stages each video onto
+the card on another (the JAX pipeline's stager): a pinned host copy, then an
+asynchronous copy on a staging stream whose event the scoring stream waits
+on.  At most ``lookahead`` videos are decoded or staged and not yet
+scored.  The per-video min-max normalisation and the per-scene AUC run on
+the host.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ import torch
 from vadcl_tpu_torch.core.mesh import process_count, process_index
 from vadcl_tpu_torch.eval.scoring import anomaly_score, mean_scene_auc, per_scene_auc, psnr
 from vadcl_tpu_torch.parallel.sharding import cross_host_gather_ragged
+from vadcl_tpu_torch.utils.graphs import CapturedCall, wants_graph
 
 # the reference's literal ``video[:, :, 0:4]`` (vadcl_tpu/train/step.py:63)
 PREDICT_INPUT_FRAMES = 4
@@ -40,10 +54,12 @@ class VideoScores(NamedTuple):
 
 
 class StagedVideo(NamedTuple):
-    """A whole video already on the device (from a scorer's ``stage``)."""
+    """A whole video on the device (from a scorer's ``stage``); on the card
+    its copy is done once ``ready`` has fired."""
 
     video: torch.Tensor  # (T, H, W, C) uint8 or float, on the scorer's device
     num_frames: int
+    ready: Optional[torch.cuda.Event] = None
 
 
 def sliding_windows(num_frames: int, frame_num: int, protocol: str) -> List[int]:
@@ -96,15 +112,18 @@ def window_score_fn(
     return score
 
 
-def padded_batches(score: Callable[[torch.Tensor], torch.Tensor], windows: torch.Tensor,
+def padded_batches(score: Callable[[torch.Tensor], torch.Tensor],
+                   gather: Callable[[torch.Tensor], torch.Tensor], index: torch.Tensor,
                    batch_windows: int) -> torch.Tensor:
-    """``score`` over ``windows`` ``batch_windows`` at a time, the tail batch
-    padded by repeating the last window (its scores dropped)."""
-    n = windows.shape[0]
+    """``score(gather(batch))`` over the window indices ``index`` (a 1-D
+    int64 tensor) ``batch_windows`` at a time, the last batch padded to
+    ``batch_windows`` by repeating its last index (its scores dropped)."""
+    n = index.shape[0]
     pad = (-n) % batch_windows
     if pad:
-        windows = torch.cat([windows, windows[-1:].expand(pad, *windows.shape[1:])])
-    outs = [score(windows[i:i + batch_windows]) for i in range(0, windows.shape[0], batch_windows)]
+        index = torch.cat([index, index[-1:].expand(pad)])
+    outs = [score(gather(index[i:i + batch_windows]))
+            for i in range(0, index.shape[0], batch_windows)]
     return torch.cat(outs)[:n]
 
 
@@ -116,21 +135,27 @@ def make_window_scorer(
     first_frame_quirk: bool = False,
     input_frames: Optional[int] = None,
     device: torch.device | str = "cuda",
+    graph: Optional[bool] = None,
 ) -> Callable[[np.ndarray], np.ndarray]:
     """``run(windows) -> scores`` (``vadcl_tpu/eval/predict.py:151-222``):
     (n, frame_num, H, W, C) numpy windows -> (n,) or (n, frame_num), scored
     ``batch_windows`` at a time on ``device``, the tail batch padded by
-    repeating the last window.  (No ``mesh``: across a process group the
-    port deals videos, ``evaluate_videos_distributed``.)"""
+    repeating the last window; on the card each batch replays a captured
+    graph (``graph=False``: eagerly).  (No ``mesh``: across a process group
+    the port deals videos, ``evaluate_videos_distributed``.)"""
     device = torch.device(device)
     score = window_score_fn(apply_fn, predict, first_frame_quirk, input_frames)
+    if wants_graph(graph, device):
+        score = CapturedCall(score, device)
 
     @torch.inference_mode()
     def run(windows: np.ndarray) -> np.ndarray:
         if windows.shape[0] == 0:
             return np.zeros((0,) if predict else (0, frame_num), np.float32)
         w = torch.from_numpy(np.ascontiguousarray(windows)).to(device)
-        return padded_batches(score, w, batch_windows).cpu().numpy()
+        index = torch.arange(w.shape[0], device=device)
+        return padded_batches(score, lambda i: w.index_select(0, i), index,
+                              batch_windows).cpu().numpy()
 
     return run
 
@@ -143,52 +168,89 @@ def make_video_scorer(
     first_frame_quirk: bool = False,
     input_frames: Optional[int] = None,
     device: torch.device | str = "cuda",
+    graph: Optional[bool] = None,
 ):
     """Build ``run(frames, starts) -> per-window MSE``: (n,) in predict mode,
     (n, frame_num) in reconstruction mode.  ``apply_fn(clips) -> recon``
     is the model forward; it receives the first ``input_frames`` frames of
     each window (all of them when None).  ``frames`` is a (T, H, W, C)
-    numpy video (uint8 or float in [0, 1]) or a ``StagedVideo``."""
+    numpy video (uint8 or float in [0, 1]) or a ``StagedVideo``.  On the
+    card each batch of ``batch_windows`` windows replays one captured graph
+    of the window scorer; ``graph=False`` runs the same batches eagerly."""
     score_windows = window_score_fn(apply_fn, predict, first_frame_quirk, input_frames)
-    return windows_video_scorer(score_windows, frame_num, predict, batch_windows, device)
+    return windows_video_scorer(score_windows, frame_num, predict, batch_windows, device, graph)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``; to the card from pinned memory, asynchronously."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def windows_video_scorer(score_windows: Callable[[torch.Tensor], torch.Tensor],
-                         frame_num: int, predict: bool, batch_windows: int,
-                         device: torch.device | str = "cuda", pad_tail: bool = False):
+                         frame_num: int, predict: bool, batch_windows: Optional[int],
+                         device: torch.device | str = "cuda", graph: Optional[bool] = None):
     """``make_video_scorer``'s ``run`` over a window scorer: the windows of
     a staged video, gathered on ``device`` by index, go to
     ``score_windows`` (uint8 windows of a uint8 video) ``batch_windows`` at
-    a time; with ``pad_tail`` the last batch is padded to ``batch_windows``
-    by repeating its last window (a scorer of one batch size, such as a
-    static-batch serving artifact)."""
+    a time, the last batch padded to ``batch_windows`` by repeating its last
+    start (its scores dropped).  On the card ``score_windows`` replays as a
+    ``CapturedCall`` unless ``graph=False`` (a scorer that is one already,
+    such as a static-batch serving artifact's, passes ``graph=False``).
+    ``batch_windows=None`` scores a video's windows in one eager call (a
+    dynamic-batch scorer).
+
+    ``run.stage(frames)`` starts a video's copy to the device (a pinned
+    host copy, then an asynchronous copy on the scorer's staging stream);
+    ``run.device_scores(frames, starts)`` leaves the scores on the device
+    (``run`` reads them back once a video)."""
     device = torch.device(device)
     offsets = torch.arange(frame_num, device=device)
+    if batch_windows is None:
+        if graph:
+            raise ValueError("a dynamic batch (batch_windows=None) runs eagerly: its shape "
+                             "changes with every video")
+        call = score_windows
+    else:
+        call = CapturedCall(score_windows, device) if wants_graph(graph, device) else score_windows
+    staging = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def stage(frames: np.ndarray) -> StagedVideo:
-        video = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
-        return StagedVideo(video=video, num_frames=int(frames.shape[0]))
+        host = torch.from_numpy(np.ascontiguousarray(frames))
+        if staging is None:
+            return StagedVideo(video=host.to(device), num_frames=int(frames.shape[0]))
+        with torch.cuda.stream(staging):
+            video = host.pin_memory().to(device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(staging)
+        return StagedVideo(video=video, num_frames=int(frames.shape[0]), ready=ready)
 
     @torch.inference_mode()
-    def score(video: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-        windows = video[starts[:, None] + offsets[None, :]]  # (B, frame_num, H, W, C)
-        if pad_tail:
-            return padded_batches(score_windows, windows, batch_windows)
-        return score_windows(windows)
+    def device_scores(frames, starts: Sequence[int]) -> torch.Tensor:
+        staged = frames if isinstance(frames, StagedVideo) else stage(frames)
+        video = staged.video
+        if staged.ready is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(staged.ready)
+            # the video's memory was allocated on the staging stream
+            video.record_stream(consumer)
+        starts_t = _upload(np.asarray(list(starts), np.int64), device)
+
+        def gather(batch: torch.Tensor) -> torch.Tensor:
+            idx = (batch[:, None] + offsets[None, :]).reshape(-1)
+            return video.index_select(0, idx).view(batch.shape[0], frame_num, *video.shape[1:])
+
+        return padded_batches(call, gather, starts_t, batch_windows or max(len(starts), 1))
 
     def run(frames, starts: Sequence[int]) -> np.ndarray:
-        starts_np = np.asarray(list(starts), np.int64)
-        if starts_np.size == 0:
+        if len(starts) == 0:
             return np.zeros((0,) if predict else (0, frame_num), np.float32)
-        staged = frames if isinstance(frames, StagedVideo) else stage(frames)
-        starts_t = torch.from_numpy(starts_np).to(device)
-        outs = [
-            score(staged.video, starts_t[i : i + batch_windows])
-            for i in range(0, starts_np.size, batch_windows)
-        ]
-        return torch.cat(outs).cpu().numpy()  # one readback per video
+        return device_scores(frames, starts).cpu().numpy()  # one readback per video
 
     run.stage = stage
+    run.device_scores = device_scores
     return run
 
 
@@ -197,17 +259,21 @@ def pipeline_videos(
     videos: Iterable[Tuple[np.ndarray, np.ndarray, str]],
     lookahead: int = 2,
 ):
-    """Decode the next videos on a producer thread while the current one
-    scores.  At most ``lookahead`` videos are decoded and not yet scored at
-    any time (the slot of a video frees when the consumer asks for the next
-    one).  Videos are staged onto the device as they are handed out."""
+    """Decode the next videos on one thread and stage them with the
+    scorer's ``stage`` on another while the current one scores
+    (``vadcl_tpu/eval/predict.py:pipeline_videos``, its ``stager``).  At
+    most ``lookahead`` videos are decoded or staged and not yet scored at
+    any time (a video's slot frees when the consumer asks for the next
+    one).  An error in decoding or staging is raised in the consumer; when
+    the consumer stops early, both threads exit."""
     stage = getattr(scorer, "stage", None)
     slots = threading.Semaphore(max(1, lookahead))
-    q: "queue.Queue" = queue.Queue()
+    decoded: "queue.Queue" = queue.Queue()
+    staged: "queue.Queue" = queue.Queue()
     stop = threading.Event()
     end = object()
 
-    def producer():
+    def decoder():
         try:
             it = iter(videos)
             while True:
@@ -217,29 +283,44 @@ def pipeline_videos(
                 try:
                     item = next(it)
                 except StopIteration:
-                    q.put(end)
+                    decoded.put(end)
                     return
-                q.put(item)
-        except BaseException as e:  # surface decode errors to the consumer
-            q.put(e)
+                decoded.put(item)
+        except BaseException as e:  # raised again in the consumer
+            decoded.put(e)
 
-    thread = threading.Thread(target=producer, daemon=True)
-    thread.start()
+    def stager():
+        while True:
+            item = decoded.get()
+            if stop.is_set():
+                return
+            if item is end or isinstance(item, BaseException):
+                staged.put(item)
+                return
+            frames, labels, scene = item
+            try:
+                if stage is not None:
+                    frames = stage(frames)
+            except BaseException as e:  # raised again in the consumer
+                staged.put(e)
+                return
+            staged.put((frames, labels, scene))
+
+    for target, name in ((decoder, "vadcl-decode"), (stager, "vadcl-stage")):
+        threading.Thread(target=target, name=name, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            item = staged.get()
             if isinstance(item, BaseException):
                 raise item
             if item is end:
                 break
-            frames, labels, scene = item
-            if stage is not None:
-                frames = stage(frames)
-            yield frames, labels, scene
+            yield item
             slots.release()
     finally:
         stop.set()
-        slots.release()  # wake a producer waiting for a slot so it can exit
+        slots.release()  # wake a decoder waiting for a slot
+        decoded.put(end)  # wake a stager waiting for a video
 
 
 def score_video(

@@ -59,11 +59,12 @@ same token; drop-path scales both residual branches.  ``SwinStage`` with
 Two memos (the gathered rel-pos bias, the shift masks) hand the kernels the
 same tensors from call to call, whose packed forms the kernels cache.  Under
 ``torch.export`` tracing (``torch.compiler.is_compiling()``) nothing enters
-a memo: the masks are made anew (constants of the traced program), and the
-bias memo is read as it stands where it holds the block's window (the
-exporter fills it with one forward just before it traces), else gathered in
-the graph.  So a loaded program hands the kernels the same bias tensor at
-every call, as the live model does.
+a memo: each memo is read as it stands where it holds the block's geometry
+(the exporter fills them with one forward just before it traces), else the
+bias is gathered in the graph and the mask made anew (a host constant the
+program copies to the device at every call, which a CUDA graph cannot
+capture).  So a loaded program hands the kernels the same bias and mask
+tensors at every call, as the live model does.
 """
 
 from __future__ import annotations
@@ -108,6 +109,7 @@ from vadcl_tpu_torch.ops.window_attn import (
     window_grid_route,
 )
 from vadcl_tpu_torch.parallel.tp import shard_tokens_call, shard_windows_call
+from vadcl_tpu_torch.utils.graphs import note_sources
 
 Tri = Tuple[int, int, int]
 
@@ -167,7 +169,9 @@ class WindowAttention3D(nn.Module):
         so that scoring hands the kernels one tensor (whose packed form they
         cache) instead of gathering anew in every forward.  While
         ``torch.export`` traces, a memo of ``n`` tokens is read (it becomes
-        a constant of the program) and none is written."""
+        a constant of the program) and none is written.  A CUDA graph being
+        captured is told that the memo it reads comes from the table
+        (``utils/graphs.py:note_sources``)."""
         table = self.relative_position_bias_table
         if torch.compiler.is_compiling():
             memo = self._bias_memo
@@ -180,6 +184,7 @@ class WindowAttention3D(nn.Module):
         if self._bias_memo is None or self._bias_memo[0] != key:
             with torch.inference_mode(False), torch.no_grad():
                 self._bias_memo = (key, self._gather_bias(table.detach(), n))
+        note_sources((table,))
         return self._bias_memo[1]
 
     def _gather_bias(self, table: torch.Tensor, n: int) -> torch.Tensor:
@@ -213,10 +218,17 @@ class SwinBlock3D(nn.Module):
         self._masks: Dict[tuple, torch.Tensor] = {}
 
     def _mask(self, Dp, Hp, Wp, window, shift, device) -> Optional[torch.Tensor]:
+        """The shift mask of this geometry, memoised on ``device``.  While
+        ``torch.export`` traces, a memo is read (it becomes a constant of
+        the program, on the device) and none is written; without one the
+        program would copy a host constant to the device at every call,
+        which a CUDA graph cannot capture."""
+        key = (Dp, Hp, Wp, window, shift, str(device))
         if torch.compiler.is_compiling():
+            if key in self._masks:
+                return self._masks[key]
             m = compute_attn_mask(Dp, Hp, Wp, window, shift)
             return None if m is None else torch.from_numpy(m).to(device)
-        key = (Dp, Hp, Wp, window, shift, str(device))
         if key not in self._masks:
             m = compute_attn_mask(Dp, Hp, Wp, window, shift)
             # (a plain tensor even when first asked for under inference_mode: the

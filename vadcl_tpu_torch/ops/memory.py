@@ -104,8 +104,9 @@ class MemoryLosses(NamedTuple):
 def _mean(x: torch.Tensor, global_sum: Reduce) -> torch.Tensor:
     """The mean of ``x``, over every process's elements with ``global_sum``
     (a global sum over a global count: a per-process mean whose gradients
-    the step sums would be off by the world size)."""
-    count = torch.tensor(float(x.numel()), device=x.device)
+    the step sums would be off by the world size).  The count is filled on
+    the device: a host-to-device copy would stop a CUDA graph's capture."""
+    count = torch.full((), float(x.numel()), dtype=torch.float32, device=x.device)
     return _reduce(x.sum(), global_sum) / _reduce(count, global_sum)
 
 

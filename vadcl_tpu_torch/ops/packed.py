@@ -16,6 +16,11 @@ tensor of the same shape) can never be mistaken for its successor, because a
 hit also requires the very same tensor objects to be alive.  A tensor made
 under ``torch.inference_mode`` tracks no version, so a change to it could not
 be seen: operands that include one are packed at every call.
+
+A CUDA graph being captured reads the packed tensor by address, not its
+sources, so every lookup names its sources to the capture
+(``utils/graphs.py:note_sources``), which then holds the graph stale when
+one of them changes.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import weakref
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+
+from vadcl_tpu_torch.utils.graphs import note_sources
 
 
 def _state(t: torch.Tensor) -> tuple:
@@ -41,6 +48,7 @@ class PackCache:
         self._misses = 0
 
     def get(self, sources: Sequence[torch.Tensor], extra: tuple, make: Callable[[], object]):
+        note_sources(sources)
         if any(t.is_inference() for t in sources):
             return make()
         slot = (tuple(id(t) for t in sources), tuple(extra))

@@ -3,8 +3,9 @@
 
 ``torch.export.export`` traces ``window_score_fn(model)`` once under
 ``torch.no_grad()``, after one forward that fills the blocks' gathered
-rel-pos biases: the model's weights ride in the program as its parameters
-and buffers, the gathered biases and the shift masks as its constants, and
+rel-pos biases and shift masks: the model's weights ride in the program as
+its parameters and buffers, the gathered biases and the shift masks as its
+constants on the device, and
 each hand-written kernel is a graph node (``torch.ops.vadcl.*``,
 ``ops/library.py``) that runs the kernel's launch when the loaded program is
 called, on the card, or its plain version on the CPU.  The kernels' packed
@@ -21,7 +22,11 @@ windows to the anomaly MSE per window (predict mode) or per frame
 take a static batch: a model with ``fused_attention`` or ``fused_cluster``
 exports at a fixed ``batch_windows``, as the JAX package's Pallas path
 does; ``batch_windows=None`` (a dynamic batch dimension) is for the plain
-model.
+model.  On the card a static-batch artifact's ``score`` replays one
+captured CUDA graph of the loaded program a call
+(``utils/graphs.py:CapturedCall``), as the JAX artifact runs its program
+under ``jax.jit``; a dynamic-batch artifact runs eagerly, its shape
+changing with every video.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from vadcl_tpu_torch.eval.predict import padded_batches, window_score_fn
+from vadcl_tpu_torch.utils.graphs import CapturedCall, wants_graph
 
 _PROGRAM = "scorer.pt2"
 _META = "meta.json"
@@ -43,7 +49,9 @@ class ServingArtifact(NamedTuple):
     """A reloaded scorer: ``score`` runs the loaded program under
     ``torch.no_grad`` on windows (a numpy array or a tensor) and returns
     a tensor on ``device``.  ``batch_windows`` is None for a dynamic-batch
-    artifact, which takes any batch."""
+    artifact, which takes any batch.  ``program`` is the loaded program's
+    module (its parameters may be updated in place: a captured ``score``
+    captures anew)."""
 
     score: Callable[[Union[np.ndarray, torch.Tensor]], torch.Tensor]
     batch_windows: Optional[int]
@@ -54,6 +62,7 @@ class ServingArtifact(NamedTuple):
     predict: bool
     device: torch.device
     meta: dict
+    program: torch.nn.Module
 
 
 class _WindowScorer(torch.nn.Module):
@@ -110,7 +119,7 @@ def export_window_scorer(
         dynamic = ({0: torch.export.Dim("batch", min=1)},)
     scorer = _WindowScorer(model, predict, first_frame_quirk, input_frames)
     with torch.no_grad():
-        scorer(example)  # fills the blocks' bias memos, which the program keeps as constants
+        scorer(example)  # fills the blocks' bias and mask memos, the program's constants
         program = torch.export.export(scorer, (example,), dynamic_shapes=dynamic,
                                       strict=False)
     outputs = next(n for n in program.graph.nodes if n.op == "output").args[0]
@@ -142,11 +151,13 @@ def save_artifact(path: str, program: torch.export.ExportedProgram, meta: dict) 
         json.dump(meta, f, indent=1)
 
 
-def load_artifact(path: str) -> ServingArtifact:
+def load_artifact(path: str, graph: Optional[bool] = None) -> ServingArtifact:
     """Load an artifact directory into a callable scorer on the device it
     was exported on.  Registers the kernels' ops (``ops/library.py``)
     first; imports nothing of the model code.  A static-batch artifact's
-    ``score`` takes exactly its batch (``artifact_window_runner`` pads)."""
+    ``score`` takes exactly its batch (``artifact_window_runner`` pads) and
+    on the card replays a captured graph of the program (``graph=False``:
+    eagerly, for comparisons); a dynamic-batch artifact runs eagerly."""
     import vadcl_tpu_torch.ops.library  # noqa: F401  (registers torch.ops.vadcl.*)
 
     with open(os.path.join(path, _META)) as f:
@@ -155,14 +166,21 @@ def load_artifact(path: str) -> ServingArtifact:
     module = program.module()
     device = torch.device(meta["device"])
     dtype = getattr(torch, meta["input_dtype"])
+    bw = meta["batch_windows"]
+    if bw is None:
+        if graph:
+            raise ValueError("a dynamic-batch artifact runs eagerly: its batch changes with "
+                             "every video")
+        call = module
+    else:
+        call = CapturedCall(module, device) if wants_graph(graph, device) else module
 
     def score(windows: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
         if isinstance(windows, np.ndarray):
             windows = torch.from_numpy(np.ascontiguousarray(windows))
         with torch.no_grad():
-            return module(windows.to(device=device, dtype=dtype))
+            return call(windows.to(device=device, dtype=dtype))
 
-    bw = meta["batch_windows"]
     return ServingArtifact(
         score=score,
         batch_windows=None if bw is None else int(bw),
@@ -173,6 +191,7 @@ def load_artifact(path: str) -> ServingArtifact:
         predict=bool(meta["predict"]),
         device=device,
         meta=meta,
+        program=module,
     )
 
 
@@ -188,6 +207,7 @@ def artifact_window_runner(art: ServingArtifact) -> Callable[[np.ndarray], np.nd
         if bw is None:
             return art.score(windows).cpu().numpy()
         w = torch.from_numpy(np.ascontiguousarray(windows))
-        return padded_batches(art.score, w, bw).cpu().numpy()
+        index = torch.arange(w.shape[0])
+        return padded_batches(art.score, lambda i: w.index_select(0, i), index, bw).cpu().numpy()
 
     return run
