@@ -157,12 +157,15 @@ Phases (any failure raises and the script exits non-zero):
      ``train()`` steps at batch 4 (12 launches of kernel 5's slab body a step,
      none of its CUDA-core body) against three of the plain path.
   5. the training path in bf16: ``train()`` on the flagship config from a
-     seeded init with an in-memory uint8 loader at batch 4, 2 warm-up and
-     8 timed steps, under ``"fold"``, ``"base"`` and ``"fold_block"`` in
-     predict mode and ``"fold"`` and ``"base"`` in reconstruction at
-     frame_num 8 (18 row-tiled launches each way a step), with the same
-     launch and plain-version checks; a checkpoint round trip into a fresh
-     model and optimizer; a ``"packed"``, ``"fold_packed"`` or
+     seeded init with an in-memory uint8 loader at batch 4, its step
+     captured as users get it (2 eager steps and the capture, whose
+     launches the wrappers count, then 3 timed replays), under ``"fold"``,
+     ``"base"`` and ``"fold_block"`` in predict mode and ``"fold"`` and
+     ``"base"`` in reconstruction at frame_num 8 (18 row-tiled launches each
+     way a step), with the same launch and plain-version checks; a
+     checkpoint round trip into a fresh model and optimizer; the port's
+     kernels of replayed steps in the trace against ``graph=False`` steps
+     of the same state; a ``"packed"``, ``"fold_packed"`` or
      ``"fold_mix"`` train step is refused before any launch.
   6. data parallelism: the flagship ``fold`` train step under
      ``DistributedDataParallel`` on an in-process NCCL group of world size
@@ -259,7 +262,18 @@ Phases (any failure raises and the script exits non-zero):
      ``set_sync_debug_mode("error")``, one weight updated in place followed
      by the graph; windows/s and the idle share each way over a video of
      380 frames.
-No earlier path was cut: the whole run takes about ten minutes on an H100.
+  18. (run after phase 17) the captured train step against ``graph=False``
+     at batch 4 in bf16: the 4-frame predict path under ``fold``, ``base``
+     and ``fold_block``, 8-frame reconstruction under ``fold``, the Video
+     Swin-B width under ``fold`` and ConvAE: parameters after 4 steps
+     within 3 times the spread of two eager runs in the same call; a
+     replayed step on a clip with a NaN holds every parameter, moment and
+     count bit for bit; replays under
+     ``set_sync_debug_mode("error")``; step ms (host clock), device-busy ms,
+     idle share and host ops in turns (eager, graph, graph, eager); the
+     replays' kernels in the trace those of the eager steps.
+Phase 5 runs 6 steps a path where it ran 10 (phase 18 times the steps);
+no other earlier path was cut: the whole run takes about ten minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
 kernels, kernel B's CUDA-core and slab bodies, kernel 5's slab body (its
 launches from the Swin-B-width training run), the whole-block forward's and
@@ -3242,7 +3256,9 @@ class MemLoader:
             yield self.data[(e * self.steps + i) % len(self.data)]
 
 
-TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 4, 2, 8
+# phase 5's train() runs: the first GRAPH_CALLS steps are the captured step's
+# warm-ups and capture (whose Python the wrappers count), then replays
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 4, GRAPH_CALLS, 3
 # The fp32 base and packed models run kernels 7 and 8 (or 9) on their
 # whole-tile bodies in each of their 18 blocks, never on A's and 6's, and
 # partition the windows of each block (phases 3 and 3b).
@@ -3271,8 +3287,8 @@ TRAINING_KERNELS = {
     "fold_block": SCORING_KERNELS["fold_block"] | {"fold_block_bwd"},
 }
 # Exact launch counts of the new paths: 18 Swin blocks (12 of them with 12
-# heads) a forward (scoring: the wrappers count GRAPH_CALLS forwards), 10
-# training steps.
+# heads) a forward (scoring: the wrappers count GRAPH_CALLS forwards; a
+# captured train(): GRAPH_CALLS steps, its two eager steps and the capture).
 SCORING_COUNTS = {
     "base": {"window_attention_fused": 18, "ln_mlp": 18},
     "packed": {"window_attention_packed": 18, "ln_mlp": 18},
@@ -3280,10 +3296,11 @@ SCORING_COUNTS = {
     "fold_mix": {"fold_attention_packed": 12, "fold_attention": 6, "ln_mlp": 18},
     "fold_block": {"fold_block": 18},
 }
-TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180},
-                   "fold": {"fold_attention_bwd": 180, "ln_mlp_bwd": 180},
-                   "base": {"window_attention_fused": 180, "window_attention_fused_bwd": 180,
-                            "ln_mlp_bwd": 180}}
+TRAINING_COUNTS = {
+    "fold_block": {"fold_block": 18 * GRAPH_CALLS, "fold_block_bwd": 18 * GRAPH_CALLS},
+    "fold": {"fold_attention_bwd": 18 * GRAPH_CALLS, "ln_mlp_bwd": 18 * GRAPH_CALLS},
+    "base": {"window_attention_fused": 18 * GRAPH_CALLS,
+             "window_attention_fused_bwd": 18 * GRAPH_CALLS, "ln_mlp_bwd": 18 * GRAPH_CALLS}}
 # Reconstruction at frame_num = 8: the encoder's 9 blocks have windows of
 # 196 tokens, which kernels A's and 6's long layouts take in bf16 (a "fold"
 # block runs A, 10 under "fold_packed", and "base" / "packed" blocks run 7,
@@ -3292,8 +3309,8 @@ TRAINING_COUNTS = {"fold_block": {"fold_block": 180, "fold_block_bwd": 180},
 # "fold_packed" block's partitioned route is kernel 7's, as in the JAX
 # block).  The whole-tile bodies never launch.  Exact counts: 9 of each a
 # forward (scoring: GRAPH_CALLS forwards of 16 windows), 9 each way a
-# training step (10 steps); window_partition 9 times a forward, in the
-# decoder.
+# training step (GRAPH_CALLS steps in Python); window_partition 9 times a
+# forward, in the decoder.
 RECON_FRAMES = 8
 RECON_ENCODER_BLOCKS = 9  # depths (3, 6): N = 196; the decoder's (6, 3): N = 392
 RECON_SCORING_ROUTES = {  # attn_kernel: (the encoder's kernel, the decoder's)
@@ -3423,17 +3440,21 @@ def check_partitions(path: str, calls: int, want: int) -> int:
 
 
 def phase_training(attn_kernel: str = "fold", recon: int = 0):
-    """``train()`` on the flagship config in bf16 at batch 4: finite losses,
-    moved parameters, exactly this path's kernels launched, and a checkpoint
-    that restores params and Adam moments exactly; ``recon`` > 0:
-    reconstruction mode on clips of that many frames.  Returns the launch
-    counts."""
+    """``train()`` on the flagship config in bf16 at batch 4, the step
+    captured as users get it (its two eager steps and the capture run the
+    wrappers, GRAPH_CALLS steps; the rest replay): finite losses, moved
+    parameters, exactly this path's kernels launched, a checkpoint that
+    restores params and Adam moments exactly, and the replays' kernels in
+    the trace those of ``graph=False`` steps (``train_replays_match_eager``);
+    ``recon`` > 0: reconstruction mode on clips of that many frames.
+    Returns the launch counts."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train import CheckpointManager, create_train_state, train
 
     mode = f"reconstruction, {recon} frames" if recon else "predict"
     print(f"[5] training path, attn_kernel={attn_kernel}, {mode}, bf16: train() at batch "
-          f"{TRAIN_BATCH}, {WARMUP_STEPS} warm-up + {TIMED_STEPS} timed steps")
+          f"{TRAIN_BATCH}, captured: {WARMUP_STEPS} warm-up steps (two eager, the capture's) "
+          f"+ {TIMED_STEPS} timed replays")
     steps = WARMUP_STEPS + TIMED_STEPS
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_train_") as out:
@@ -3443,10 +3464,10 @@ def phase_training(attn_kernel: str = "fold", recon: int = 0):
         torch.cuda.reset_peak_memory_stats()
         if recon:
             expected = RECON_TRAINING_KERNELS[attn_kernel]
-            enc = RECON_ENCODER_BLOCKS * steps
+            enc = RECON_ENCODER_BLOCKS * GRAPH_CALLS
             counts = {k: enc for k in RECON_SCORING_ROUTES[attn_kernel]
                       + RECON_TRAINING_BWD[attn_kernel]}
-            counts.update(ln_mlp=18 * steps, ln_mlp_bwd=18 * steps)
+            counts.update(ln_mlp=18 * GRAPH_CALLS, ln_mlp_bwd=18 * GRAPH_CALLS)
         else:
             expected, counts = TRAINING_KERNELS[attn_kernel], TRAINING_COUNTS.get(attn_kernel)
         reset_launches()
@@ -3455,10 +3476,10 @@ def phase_training(attn_kernel: str = "fold", recon: int = 0):
             torch.cuda.synchronize()
         t_end = time.perf_counter()
         launches = read_launches(expected, f"training, {attn_kernel}, {mode}", counts,
-                                 heads=steps)
+                                 heads=GRAPH_CALLS)
         launches["window_partition"] = check_partitions(
             f"training, {attn_kernel}, {mode}", parts[0],
-            (18 - RECON_ENCODER_BLOCKS) * steps if recon else 0)
+            (18 - RECON_ENCODER_BLOCKS) * GRAPH_CALLS if recon else 0)
         losses = np.load(os.path.join(out, "loss_record", "loss.npy"))
         wall = t_end - loader.stamps[WARMUP_STEPS]
         print(f"  per-step losses: {[round(float(v), 4) for v in losses]}")
@@ -3492,7 +3513,50 @@ def phase_training(attn_kernel: str = "fold", recon: int = 0):
             raise AssertionError("checkpoint round trip changed the step")
         print(f"  checkpoint round trip: step, {len(opt_a)} parameters and their Adam "
               "moments restored exactly")
+        del fresh
+        with plain_versions_refuse_the_card():
+            train_replays_match_eager(f"training, {attn_kernel}, {mode}", state, cfg,
+                                      loader.data[0])
     return launches
+
+
+REPLAYED_STEPS = 2  # the steps whose kernels a trace reads, each way
+
+
+def train_replays_match_eager(label: str, state, cfg, batch) -> dict:
+    """The port's kernels that replays of the captured train step ran on
+    the device, by name, read from the profiler's trace, against
+    ``graph=False`` steps of the same state on the same batch: the same
+    kernels as many times each, each a whole number of times a step (a
+    graph that dropped or doubled a kernel would not)."""
+    from vadcl_tpu_torch.train import make_train_step
+
+    clip = torch.from_numpy(batch).to(DEV)
+    eager = make_train_step(state.model, cfg, steps_per_epoch=1000, graph=False)
+    graph = make_train_step(state.model, cfg, steps_per_epoch=1000, graph=True)
+    eager(state, clip)  # (fills what a first call fills)
+    for _ in range(GRAPH_CALLS):  # the warm-ups and the capture
+        graph(state, clip)
+
+    def steps(fn):
+        return lambda: [fn(state, clip) for _ in range(REPLAYED_STEPS)]
+
+    replayed = whole_launches(steps(graph), REPLAYED_STEPS)
+    eager_run = whole_launches(steps(eager), REPLAYED_STEPS)
+    by_kernel = collections.Counter()
+    for name, n in replayed.items():
+        by_kernel[re.search(r"(\w+_kernel)\b", name).group(1)] += n
+    print(f"  the trace of {REPLAYED_STEPS} replayed steps: the port's kernels a step "
+          f"{ {k: n / REPLAYED_STEPS for k, n in sorted(by_kernel.items())} }, "
+          f"{len(replayed)} instances, {graph.graph.captures} capture; the same names and "
+          f"counts as graph=False: {replayed == eager_run}")
+    if replayed != eager_run or graph.graph.captures != 1:
+        differ = {k: (replayed.get(k, 0), eager_run.get(k, 0))
+                  for k in set(replayed) | set(eager_run)
+                  if replayed.get(k) != eager_run.get(k)}
+        raise AssertionError(f"{label}: the replays ran other kernels than the eager steps "
+                             f"(replayed, eager): {differ}; captures {graph.graph.captures}")
+    return replayed
 
 
 def phase_training_refused(attn_kernel: str = "packed"):
@@ -3859,7 +3923,7 @@ def phase_long_windows(smi: str) -> dict:
     residual inside) and with the route before them forced
     (``long_layouts_forced_off``: every block partitions for the row-tiled
     bodies): the batch-16 ``fold`` scoring forward and the batch-4 ``fold``
-    train step (``make_train_step``: loss, backward, Adam), each one call's
+    train step (``make_train_step(graph=False)``: loss, backward, Adam), each one call's
     device-busy ms by the profiler and its untraced wall ms, in the order new,
     old, new, old; every call's launches of A, 6 and the row-tiled 7 and 8
     asserted.  Returns {"<pass> <route>": [busy ms, ...]}."""
@@ -3884,7 +3948,8 @@ def phase_long_windows(smi: str) -> dict:
     cfg = flagship_train_config("fold", recon=RECON_FRAMES)
     trained = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).cuda()
     state = create_train_state(trained, cfg)
-    step_fn = make_train_step(trained, cfg, steps_per_epoch=1000)
+    # eager: the route is forced from Python, which a replayed graph would not see
+    step_fn = make_train_step(trained, cfg, steps_per_epoch=1000, graph=False)
     batch = torch.from_numpy(np.random.RandomState(4).randint(
         0, 256, (TRAIN_BATCH, RECON_FRAMES, 224, 224, 3)).astype(np.uint8)).cuda()
 
@@ -3915,7 +3980,7 @@ def phase_long_windows(smi: str) -> dict:
                                          f"expected {want}")
                 readings.setdefault(f"{name} {route}", []).append(busy)
                 print(f"  {name}, {route} route: device busy {busy:.3f} ms, wall {wall:.3f} ms "
-                      f"untraced (idle {max(0.0, 1 - busy / wall):.1%}) [{smi}]")
+                      f"untraced (idle {1 - busy / wall:.1%}) [{smi}]")
     for name in ("forward", "step"):
         new, old = readings[f"{name} new"], readings[f"{name} old"]
         print(f"  8-frame {name}: busy {min(new):.3f}-{max(new):.3f} ms with A and 6 on the "
@@ -3945,7 +4010,8 @@ def kernel_table(fn, top: int = 12) -> list:
             torch.cuda.synchronize()
         rows = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
                 name = (e.name.replace("(anonymous namespace)::", "").split("(")[0]
                         .replace("void ", "").split("<")[0][:60])
                 ms, n = rows.get(name, (0.0, 0))
@@ -4839,7 +4905,10 @@ def traced_call(fn, lead: bool = False) -> tuple:
             fn()
             torch.cuda.synchronize()
         events = prof.events()
-        device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+        # (not the user annotations the profiler also lays on the device
+        # timeline, such as Optimizer.step's span over its kernels)
+        device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
                         key=lambda e: e.time_range.start)
         marks = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
         if lead:
@@ -5163,6 +5232,212 @@ def phase_captured_scoring(smi: str) -> dict:
     return out
 
 
+# Phase 18: the train step captured against eager.  Each path's three runs
+# (eager, eager again, captured, and the control: captured with its last
+# replay skipped) take CAPTURED_TRAIN_STEPS steps from one seeded init on the
+# same batches (the captured ones: 2 eager steps, the capture, replays).  Adam
+# moves every weight by about lr a step, and the card's run-to-run summation
+# order (cuDNN's convolution backward, the kernels' atomic sums) flips the
+# sign of near-zero gradients, which moves those weights by 2 lr: so the
+# largest difference cannot tell a run that stepped from one that did not.
+# The comparison is instead, over every element the first eager run moved,
+# the median of |run - eager| / |eager - init|.  The captured run must stay
+# within the larger of CAPTURED_TRAIN_SPREAD times the second eager run's and
+# CAPTURED_TRAIN_FLOOR; the control (a step's worth off, about
+# 1/CAPTURED_TRAIN_STEPS) must not.  A path whose eager runs agree bit for bit
+# must agree bit for bit captured.  Then turns of TURN_STEPS steps (eager,
+# graph, graph, eager).
+CAPTURED_TRAIN_STEPS = 4
+CAPTURED_TRAIN_SPREAD = 3.0
+CAPTURED_TRAIN_FLOOR = 0.01
+TURN_STEPS, TRACED_STEPS = 4, 2  # a turn's untraced steps, then its traced ones
+
+
+def captured_train_paths() -> dict:
+    """label: the train config of each path phase 18 runs."""
+    return {
+        "4-frame predict, fold": flagship_train_config("fold"),
+        "4-frame predict, base": flagship_train_config("base"),
+        "4-frame predict, fold_block": flagship_train_config("fold_block"),
+        f"{RECON_FRAMES}-frame reconstruction, fold":
+            flagship_train_config("fold", recon=RECON_FRAMES),
+        "Video Swin-B width, fold": flagship_train_config("fold").replace(
+            model=swin_b_config(True)),
+        "convae": zoo_train_config("convae"),
+    }
+
+
+def step_turn(step, clip) -> dict:
+    """One turn of ``step(clip)``: host-clock ms a step over
+    ``TURN_STEPS`` untraced steps, then the profiler's device-busy ms a
+    step, host aten ops a step and the port's kernels over ``TRACED_STEPS``
+    traced ones (traced again after a lead step while a kernel's count is
+    not a whole number of times ``TRACED_STEPS``: the trace lost events)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TURN_STEPS):
+        step(clip)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TURN_STEPS * 1e3
+    n = TRACED_STEPS
+    for lead in (False, True, True):
+        busy, ops, kernels = traced_call(lambda: [step(clip) for _ in range(n)], lead)
+        if all(k % n == 0 for k in kernels.values()):
+            break
+    else:
+        raise AssertionError(f"three traces lost events: {kernels} over {n} steps")
+    return {"ms": wall, "busy_ms": busy / n, "host_ops": ops / n,
+            "idle": 1 - busy / n / wall, "kernels": kernels}
+
+
+def captured_training_path(label: str, cfg, smi: str) -> dict:
+    """Phase 18 on one path (``phase_captured_training``)."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.models.backbone import model_input_frames
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+
+    frames = cfg.data.frame_num
+    size = cfg.data.image_size[0]
+    init = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0),
+                    model_input_frames(cfg.model.backbone, frames))
+    rng = np.random.RandomState(8)
+    batches = [torch.from_numpy(rng.randint(0, 256, (TRAIN_BATCH, frames, size, size, 3))
+                                .astype(np.uint8)).to(DEV)
+               for _ in range(CAPTURED_TRAIN_STEPS)]
+
+    def run(graph, skip=None):
+        model = copy.deepcopy(init).to(DEV).train()
+        state = create_train_state(model, cfg)
+        step_fn = make_train_step(model, cfg, steps_per_epoch=1000, graph=graph)
+        # the captured run on float clips (the uint8 clips' normalised bits), so
+        # that a clip with a NaN replays the same graph
+        for i, b in enumerate(batches):
+            if i == skip:  # (the control: a replay that did not happen)
+                state.step += 1
+                continue
+            step_fn(state, b.float() / 255.0 if graph else b)
+        return state, step_fn
+
+    print(f"[18] {label}, bf16, batch {TRAIN_BATCH}: {CAPTURED_TRAIN_STEPS} steps eager, "
+          "eager again, captured, captured with its last replay skipped")
+    start = [p.detach().to(DEV) for p in init.parameters()]
+    (a, eager_fn), (b, _), (c, graph_fn) = run(False), run(False), run(True)
+    d, _ = run(True, skip=CAPTURED_TRAIN_STEPS - 1)
+    with torch.no_grad():
+        moved = [(q.detach() - q0).abs() for q, q0 in zip(a.model.parameters(), start)]
+
+        def median(run):
+            """The median over the elements eager moved of |run - eager| / |eager - init|."""
+            return float(torch.cat([
+                ((p.detach() - q.detach()).abs()[m > 0] / m[m > 0]) for p, q, m in
+                zip(run.model.parameters(), a.model.parameters(), moved)]).median())
+
+        def largest(run):
+            return max(float((p - q).abs().max()) for p, q in zip(
+                run.model.parameters(), a.model.parameters()))
+
+        rel, again, control = median(c), median(b), median(d)
+        diff, spread = largest(c), largest(b)
+    bound = max(CAPTURED_TRAIN_SPREAD * again, CAPTURED_TRAIN_FLOOR)
+    captures = graph_fn.graph.captures
+    print(f"  parameters after {CAPTURED_TRAIN_STEPS} steps, the median over the elements "
+          f"eager moved of |run - eager| / |eager - init|: captured {rel:.3e}, eager again "
+          f"{again:.3e}, the control (its last replay skipped) {control:.3e}; bound "
+          f"{bound:.3e} (the larger of {CAPTURED_TRAIN_SPREAD:g} x eager again and "
+          f"{CAPTURED_TRAIN_FLOOR:g}); max |captured - eager| {diff:.3e}, two eager runs "
+          f"{spread:.3e}; {captures} capture")
+    if not rel <= bound or (spread == 0.0 and diff != 0.0) or captures != 1:
+        raise AssertionError(f"{label}: the captured step left the eager runs ({rel:.3e} > "
+                             f"{bound:.3e}, or {diff:.3e} where eager agreed bit for bit) or "
+                             f"captured {captures} times")
+    if not control > bound:
+        raise AssertionError(f"{label}: the control passed ({control:.3e} <= {bound:.3e}): "
+                             "the comparison cannot tell a skipped step")
+    del b, d, moved, start
+
+    # a clip with a NaN, replayed: every parameter, moment and count held (the
+    # memory bank, as the JAX step's extras, is written whatever the loss)
+    held = [t.detach().clone() for t in _train_state_tensors(c)]
+    bad = batches[0].float() / 255.0
+    bad[0, 0, 0, 0, 0] = float("nan")
+    m = graph_fn(c, bad)
+    same = all(torch.equal(t, h) for t, h in zip(_train_state_tensors(c), held))
+    print(f"  a NaN clip, replayed: loss {float(m.loss)}, grad_finite "
+          f"{bool(m.grad_finite)}; {len(held)} parameters, moments and counts held bit for "
+          f"bit: {same}")
+    if bool(m.grad_finite) or not same:
+        raise AssertionError(f"{label}: a non-finite step moved the state")
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x in batches[:2]:
+            graph_fn(c, x.float() / 255.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    print("  set_sync_debug_mode('error') over 2 replayed steps raised nothing")
+
+    # turns: the captured step on uint8 clips, as train() feeds it (its own
+    # warm-ups and capture first)
+    clip = batches[0]
+    eager_fn(a, clip)
+    for _ in range(GRAPH_CALLS):
+        graph_fn(c, clip)
+    turns = {"eager": [], "graph": []}
+    for who in ("eager", "graph", "graph", "eager"):
+        step = (lambda x: eager_fn(a, x)) if who == "eager" else (lambda x: graph_fn(c, x))
+        turns[who].append(step_turn(step, clip))
+    for who, ts in turns.items():
+        print(f"  {who}: " + "; ".join(
+            f"{t['ms']:.2f} ms a step (host clock), {t['busy_ms']:.2f} ms device busy, idle "
+            f"{t['idle']:.1%}, {t['host_ops']:.0f} host aten ops" for t in ts) + f" [{smi}]")
+    table = kernel_table(lambda: graph_fn(c, clip), top=10)
+    print(f"  a replayed step's longest kernels (profiler, ms, launches): "
+          + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in table))
+    replayed, eager = turns["graph"][0]["kernels"], turns["eager"][0]["kernels"]
+    print(f"  the port's kernels of {TRACED_STEPS} replayed steps the same names and counts "
+          f"as {TRACED_STEPS} eager steps: {replayed == eager}; captures "
+          f"{graph_fn.graph.captures}")
+    if replayed != eager or graph_fn.graph.captures != 2:
+        raise AssertionError(f"{label}: the replays ran other kernels than the eager steps, "
+                             f"or the step captured other than once per clip dtype")
+    del a, c, eager_fn, graph_fn, init
+    torch.cuda.empty_cache()
+    return {"median_rel": rel, "eager_median_rel": again, "control_median_rel": control,
+            "bound": bound, "max_abs_diff": diff, "eager_spread": spread, "kernel_table": table,
+            "turns": {w: [{k: v for k, v in t.items() if k != "kernels"} for t in ts]
+                      for w, ts in turns.items()}}
+
+
+def _train_state_tensors(state) -> list:
+    """Every parameter and optimizer state tensor of a TrainState."""
+    opt = state.optimizer
+    return list(state.model.parameters()) + [
+        t for p in state.model.parameters() for t in opt.state[p].values()
+        if isinstance(t, torch.Tensor)]
+
+
+def phase_captured_training(smi: str) -> dict:
+    """Phase 18: the train step as one captured CUDA graph a step
+    (``train/step.py``, ``utils/graphs.py:CapturedCall``) against
+    ``graph=False``, at batch 4 in bf16, on the 4-frame predict path under
+    ``fold``, ``base`` and ``fold_block``, 8-frame reconstruction under
+    ``fold``, the Video Swin-B width under ``fold`` and ConvAE: the
+    parameters after ``CAPTURED_TRAIN_STEPS`` steps against eager, within
+    the bound a second eager run sets and a run with a replay skipped
+    breaks (the comment above ``CAPTURED_TRAIN_STEPS``); a replayed step
+    on a clip with a NaN holds every parameter, moment and count bit for
+    bit; replays under ``set_sync_debug_mode("error")``; step ms
+    (host clock), device-busy ms, idle share and host ops in turns (eager,
+    graph, graph, eager); the replays' kernels (trace) those of the eager
+    steps; one capture per clip dtype."""
+    out = {}
+    for label, cfg in captured_train_paths().items():
+        out[label] = captured_training_path(label, cfg, smi)
+    return out
+
+
 DROP_RATES = dict(drop_rate=0.1, drop_path_rate=0.2)
 DROP_STEPS = 2
 # A step that draws masks: the attention kernel without LN and residual
@@ -5197,13 +5472,14 @@ def _loss_grads(model, cfg, clip, step: int = 0):
 def _step_times(cfg, dtype) -> tuple:
     """(host-clock ms a step over ``DROP_TIMED_STEPS`` untraced steps,
     device-busy ms and host aten ops of one traced step) of
-    ``make_train_step`` at batch 4."""
+    ``make_train_step`` at batch 4, eager (the dropout step runs eagerly:
+    the rate-0 step beside it too)."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train import create_train_state, make_train_step
 
     model = VADModel(cfg.model, dtype, torch.Generator().manual_seed(0)).to(DEV).train()
     state = create_train_state(model, cfg)
-    step_fn = make_train_step(model, cfg, steps_per_epoch=100)
+    step_fn = make_train_step(model, cfg, steps_per_epoch=100, graph=False)
     clips = torch.from_numpy(MemLoader(TRAIN_BATCH, 1).data[0]).to(DEV)
     for _ in range(2):
         step_fn(state, clips)
@@ -5831,9 +6107,24 @@ COUNTED_ON = {
 }
 
 
+class Laps:
+    """``lap(label)`` prints the seconds since the last lap (or since it was
+    made), so that each run says where its time went."""
+
+    def __init__(self):
+        self.t = self.t0 = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - self.t:.1f} s ({now - self.t0:.1f} s in all)")
+        self.t = now
+
+
 def main():
+    lap = Laps()
     smi = phase_device()
     phase_build()
+    lap("build")
     stats = phase_kernels()
     stats.update(phase_space_kernel())
     stats.update(phase_width_kernels())
@@ -5844,6 +6135,7 @@ def main():
     stats.update(phase_row_kernels(BATCH_WINDOWS, TRAIN_BATCH))
     phase_streamed_attention()
     stats.update(phase_narrow_kernels(BATCH_WINDOWS, TRAIN_BATCH))
+    lap("phases 2, 2b")
     phase_model("fold", REDUCED_DEPTHS)
     counts = {"model base fp32": phase_model("base")}
     counts["model packed fp32"] = phase_model("packed", clips=1)
@@ -5852,6 +6144,7 @@ def main():
     phase_model("fold_block", clips=1)
     phase_model("fold", clips=1, recon=RECON_FRAMES)
     phase_model("packed", REDUCED_DEPTHS, clips=1, recon=RECON_FRAMES)
+    lap("phase 3")
     phase_model_grads("fold", REDUCED_DEPTHS)
     counts["model grads base fp32"] = phase_model_grads("base")
     for run, want in FP32_BASE_COUNTS.items():
@@ -5867,32 +6160,50 @@ def main():
                              "and backward in each of its 18 blocks")
     phase_model_grads("fold", REDUCED_DEPTHS, recon=RECON_FRAMES)
     phase_model_grads("fold", REDUCED_DEPTHS, image_size=240, recon=RECON_FRAMES)
+    lap("phase 3b")
     counts["wide model fp32"] = phase_wide_model(torch.float32)
     counts["wide model"] = phase_wide_model(torch.bfloat16)
     counts.update(phase_every_width_models())
     counts.update(phase_narrow_model())
+    lap("phases 3c-3e")
     counts.update({f"scoring {k}": phase_scoring(k) for k in SCORING_KERNELS})
+    lap("phase 4")
     counts.update(phase_swin_b(smi))
+    lap("phase 4, Video Swin-B width")
     counts.update({f"training {k}": phase_training(k) for k in TRAINING_KERNELS})
     for k in ("packed", "fold_packed", "fold_mix"):
         phase_training_refused(k)
+    lap("phase 5")
     counts.update({f"scoring {k}, reconstruction": phase_scoring(k, RECON_FRAMES)
                    for k in RECON_SCORING_KERNELS})
+    lap("phase 4, reconstruction")
     phase_captured_scoring(smi)
+    lap("phase 17")
+    phase_captured_training(smi)
+    lap("phase 18")
     counts.update({f"training {k}, reconstruction": phase_training(k, RECON_FRAMES)
                    for k in RECON_TRAINING_KERNELS})
+    lap("phase 5, reconstruction")
     phase_long_windows(smi)
+    lap("phase 4b")
     counts["data-parallel training fold"] = phase_ddp(smi)
+    lap("phase 6")
     phase_autotune(smi)
     phase_profile()
+    lap("phases 7, 8")
     phase_zoo(smi)
+    lap("phase 9")
     phase_export(smi)
+    lap("phase 10")
     phase_dropout(smi)
+    lap("phase 11")
     phase_tp(smi)
     phase_tp_cards(smi)
+    lap("phases 12, 13")
     phase_native(smi)
     phase_reference_ckpt(smi)
     phase_train_synthetic(smi)
+    lap("phases 14-16")
     kernels = [
         dict(name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
              launches=counts[COUNTED_ON[name]][name], counted_on=COUNTED_ON[name],

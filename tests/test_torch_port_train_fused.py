@@ -28,8 +28,10 @@ def test_loss_and_grads_match_jax(jax_variables, step):
 
 def test_gated_parameters_get_no_update(jax_variables):
     """Before ``cluster_train_start_iter`` the parameters named "cluster"
-    (the heads' LayerNorms included) get grad=None: no weight decay, no
-    moments, no step count; every other parameter moves."""
+    (the heads' LayerNorms included) are gated on the device: no weight
+    decay, no moments, no step count (their state is count 0 and zero
+    moments, as ``torch_adam``'s); every other parameter moves and counts
+    one step."""
     _, pcfg = _configs(True, cluster_train_start_iter=1)
     model = _port_model(jax_variables, pcfg)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -42,9 +44,13 @@ def test_gated_parameters_get_no_update(jax_variables):
     for k, p in model.named_parameters():
         moved = not torch.equal(p.detach(), before[k])
         assert moved == (k not in gated), k
-        assert (p in state.optimizer.state) == (k not in gated), k
+        st = state.optimizer.state[p]
+        assert int(st["step"]) == (k not in gated), k
+        if k in gated:
+            assert not st["exp_avg"].any() and not st["exp_avg_sq"].any(), k
     step_fn(state, torch.from_numpy(_clips(2)[1]))  # step 1: the heads unfreeze
-    assert all(p in state.optimizer.state for _, p in model.named_parameters())
+    for k, p in model.named_parameters():
+        assert int(state.optimizer.state[p]["step"]) == (1 if k in gated else 2), k
 
 
 def test_fold_block_loss_and_grads_match_jax(jax_variables):

@@ -460,12 +460,14 @@ def test_scoring_leaves_the_bank_alone_and_matches_jax(backbone):
 
 
 def test_bank_write_rebinds_the_buffer():
-    """The update writes a new tensor into the buffer, after the losses and
-    the read: the forward's graph keeps the old bank, unchanged, so a
-    backward through the scores (``q @ keys.T`` saved ``keys``) runs, with
-    the gradients of the same forward without the update.  An in-place
-    write of the bank instead breaks that backward (version counter); and
-    in ``VADModel`` the update moves no gradient either."""
+    """The update writes the new bank into the buffer in place (the buffer
+    is never rebound: that would fire the registration hook and stale every
+    captured graph), after the losses and the read, which use a copy of the
+    old bank: a backward through the scores (``q @ keys.T`` saved the copy)
+    runs, with the gradients of the same forward without the update.  An
+    in-place write of the bank a forward without the update read breaks
+    that backward (version counter); and in ``VADModel`` the update moves
+    no gradient either."""
     gen = torch.Generator().manual_seed(11)
     query = torch.randn(2, 3, 3, 8, generator=gen)
     grads = []
@@ -477,8 +479,8 @@ def test_bank_write_rebinds_the_buffer():
         out = mem(q, update=update)
         (out.score_memory.square().sum() + out.score_query.square().sum()
          + out.updated_query.square().sum() + out.separateness + out.compactness).backward()
-        assert torch.equal(old, saved)
-        assert (mem.keys is old) != update and torch.equal(out.keys, mem.keys)
+        assert mem.keys is old and torch.equal(out.keys, mem.keys)
+        assert torch.equal(old, saved) != update
         grads.append(q.grad)
     assert torch.equal(grads[0], grads[1])
     assert not torch.equal(mem.keys, saved)

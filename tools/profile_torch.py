@@ -7,10 +7,12 @@ model on Fx224^2 clips) under ``torch.profiler`` and prints the device
 time by kernel name, the share of the hand-written kernels, and the
 device's idle share over the traced window.  By default it times the
 forward, the work of one ``evaluate_videos`` batch; with ``--train`` one
-``make_train_step`` step on uint8 clips (loss, backward, Adam):
+``make_train_step`` step on uint8 clips (loss, backward, Adam), replayed as
+the step's captured CUDA graph as ``train()`` runs it (``--no-graph``: the
+same step dispatched eagerly):
 
     python tools/profile_torch.py [--batch 16] [--steps 5]
-    python tools/profile_torch.py --train --batch 4 --attn-kernel base
+    python tools/profile_torch.py --train --batch 4 --attn-kernel base [--no-graph]
     python tools/profile_torch.py --recon --frame-num 8 [--train --batch 4]
 
 With ``--kernels-only`` it times fold attention, its packed variant and
@@ -324,10 +326,12 @@ def model_profile(args) -> None:
     model = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0)).cuda()
     if args.train:
         state = create_train_state(model, cfg)
-        step_fn = make_train_step(model, cfg, steps_per_epoch=1000)
+        step_fn = make_train_step(model, cfg, steps_per_epoch=1000,
+                                  graph=False if args.no_graph else None)
         clips = torch.randint(0, 256, (args.batch, frames, 224, 224, 3), dtype=torch.uint8,
                               device="cuda")
-        run, what = (lambda: step_fn(state, clips)), "train step"
+        run, what = (lambda: step_fn(state, clips)), (
+            "train step" + (" (eager)" if args.no_graph else " (captured graph)"))
     else:
         model.eval()
         clips = torch.rand(args.batch, frames, 224, 224, 3, device="cuda")
@@ -373,6 +377,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile training steps (loss, backward, Adam) instead of the forward")
+    ap.add_argument("--no-graph", action="store_true",
+                    help="with --train: dispatch the step eagerly instead of replaying its "
+                         "captured graph")
     ap.add_argument("--attn-kernel", default="fold",
                     help="fused attention kernel (core/config.py:ATTN_KERNELS); with --train "
                          "a trainable one (the others are inference only)")

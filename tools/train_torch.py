@@ -43,7 +43,11 @@ fold|base|fold_block`` picks the attention kernel, fold by default); it
 fails when no GPU is visible.  ``--device cpu`` trains in fp32 with the
 kernels' plain versions (under torchrun: gloo).  ``--profile-steps N``
 traces steps [2, 2+N) into ``<output-dir>/profile/trace.json``;
-``--debug-nans`` turns on autograd's anomaly detection.
+``--debug-nans`` turns on autograd's anomaly detection (and runs the step
+eagerly).  On one card the step is one captured CUDA graph a step
+(``train/step.py``: the first two steps eager, then one capture replayed
+every step); the data-parallel and tensor-parallel steps, and a config
+with dropout or drop-path, run eagerly.
 """
 
 from __future__ import annotations

@@ -11,10 +11,13 @@ through ``convert.py``).
 The update is explicit: ``forward(..., update=True)`` is the train step's
 ``mutable=["memory"]`` apply; every other call, whatever ``training``
 says, leaves the bank alone.  The losses and the read use the bank as it
-was; the new bank is written after them by rebinding the buffer to a new
-tensor, never in place: the read's ``q @ keys.T`` keeps the old tensor for
-its backward, and an in-place write would bump its version counter and
-make ``backward()`` raise.
+was; the new bank is then written into the buffer in place.  The buffer is
+never rebound: rebinding a registered buffer fires torch's global
+registration hook, which marks every captured graph in the process stale
+(``utils/graphs.py``), and a captured train step would go on reading the
+old tensor.  An update reads a copy of the bank, whose version the write
+does not touch, so the losses' and the read's ``q @ keys.T`` keep the old
+bank for their backward.
 """
 
 from __future__ import annotations
@@ -69,15 +72,13 @@ class MemoryModule(nn.Module):
         writes the updated bank (after the losses and the read);
         ``global_sum`` / ``global_max`` reduce the losses and the update
         over a process group (``ops/memory.py``)."""
-        keys = self.keys
+        keys = self.keys.clone() if update else self.keys
         q = _l2_normalize(query, dim=-1)
         losses = memory_losses(q, keys, global_sum)
         read = memory_read(q, keys)
         if update:
-            new_keys = memory_update(q, keys, global_sum, global_max)
-            self.keys = new_keys  # a new tensor: the graph keeps the old one
-        else:
-            new_keys = keys
-        return MemoryOut(updated_query=read.updated_query, keys=new_keys,
+            with torch.no_grad():
+                self.keys.copy_(memory_update(q, keys, global_sum, global_max))
+        return MemoryOut(updated_query=read.updated_query, keys=self.keys,
                          score_query=read.score_query, score_memory=read.score_memory,
                          separateness=losses.separateness, compactness=losses.compactness)

@@ -54,7 +54,9 @@ attention's output in the block's own layout, after the windows are merged
 back and the padding cut, so that every route draws the same mask for the
 same token; drop-path scales both residual branches.  ``SwinStage`` with
 ``remat`` recomputes each block in the backward
-(``torch.utils.checkpoint``).
+(``torch.utils.checkpoint``, without stashing the global RNG states: the
+masks come from the step's own generators, ``models/layers.py``, and a
+stash would read the CUDA generator inside a captured step).
 
 Two memos (the gathered rel-pos bias, the shift masks) hand the kernels the
 same tensors from call to call, whose packed forms the kernels cache.  Under
@@ -399,7 +401,8 @@ class SwinStage(nn.Module):
         for i in range(self.depth):
             block = getattr(self, f"block{i}")
             if remat:
-                x = checkpoint(_run_block, block, x, keys, use_reentrant=False)
+                x = checkpoint(_run_block, block, x, keys, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = block(x)
         return x

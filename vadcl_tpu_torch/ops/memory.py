@@ -89,7 +89,8 @@ def memory_update(query_bhwd: torch.Tensor, keys: torch.Tensor, global_sum: Redu
     # the softmax over the query axis: every process's queries
     e = torch.exp(score - _reduce(score.max(dim=0, keepdim=True).values, global_max))
     s_q = e / _reduce(e.sum(dim=0, keepdim=True), global_sum)
-    onehot = F.one_hot(s_m.argmax(dim=1), keys.shape[0]).float()
+    # (a scatter, not ``F.one_hot``, which checks its indices on the host)
+    onehot = torch.zeros_like(s_m).scatter_(1, s_m.argmax(dim=1, keepdim=True), 1.0)
     col_max = _reduce(s_q.max(dim=0, keepdim=True).values, global_max)
     w = onehot * s_q / torch.clamp(col_max, min=1e-12)
     query_update = _reduce(w.t() @ q, global_sum)

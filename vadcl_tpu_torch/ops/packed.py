@@ -20,7 +20,10 @@ be seen: operands that include one are packed at every call.
 A CUDA graph being captured reads the packed tensor by address, not its
 sources, so every lookup names its sources to the capture
 (``utils/graphs.py:note_sources``), which then holds the graph stale when
-one of them changes.
+one of them changes.  A captured train step updates the sources at every
+replay, so inside its capture (``utils/graphs.py:pack_region``) a pack is
+made in the captured region and serves that region only: an entry carries
+the region it was made in, and a lookup hits only an entry of its own.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
-from vadcl_tpu_torch.utils.graphs import note_sources
+from vadcl_tpu_torch.utils.graphs import note_sources, pack_region
 
 
 def _state(t: torch.Tensor) -> tuple:
@@ -52,7 +55,7 @@ class PackCache:
         if any(t.is_inference() for t in sources):
             return make()
         slot = (tuple(id(t) for t in sources), tuple(extra))
-        state = tuple(_state(t) for t in sources)
+        state = (pack_region(),) + tuple(_state(t) for t in sources)
         entry = self._entries.get(slot)
         if (entry is not None and entry[0] == state
                 and all(r() is t for r, t in zip(entry[1], sources))):

@@ -6,8 +6,11 @@ from vadcl_tpu_torch.train.checkpoint import (
 )
 from vadcl_tpu_torch.train.loop import train
 from vadcl_tpu_torch.train.optim import (
+    Adam,
+    AdamW,
+    DeviceOptimizer,
     Lars,
-    apply_gates,
+    SGD,
     build_optimizer,
     cosine_epoch_lr,
     param_gate_thresholds,
@@ -16,6 +19,7 @@ from vadcl_tpu_torch.train.step import (
     StepMetrics,
     TrainState,
     create_train_state,
+    eager_only,
     make_loss_fn,
     make_train_step,
     normalize_clip,
@@ -24,13 +28,17 @@ from vadcl_tpu_torch.train.step import (
 
 __all__ = [
     "CheckpointManager",
+    "Adam",
+    "AdamW",
+    "DeviceOptimizer",
     "Lars",
+    "SGD",
     "StepMetrics",
     "TrainState",
-    "apply_gates",
     "build_optimizer",
     "cosine_epoch_lr",
     "create_train_state",
+    "eager_only",
     "flatten_train_state",
     "load_train_state",
     "make_loss_fn",

@@ -99,6 +99,7 @@ def train(
     debug_nans: bool = False,
     mesh=None,
     model_axis: Optional[str] = None,
+    graph: Optional[bool] = None,
 ) -> TrainState:
     """Train ``VADModel(cfg.model)`` (any family; the ConvAE families built
     for ``cfg.data.frame_num``-frame clips) from its seeded init
@@ -121,8 +122,19 @@ def train(
     step tensor-parallel over that axis (``train/step.py``); the loader
     then holds this process's data shard (``host_id`` its data index,
     ``num_hosts`` the data size), the same on every process of its model
-    group."""
+    group.
+
+    ``graph`` is ``make_train_step``'s: on a CUDA device the single-process
+    step is one captured CUDA graph a step unless ``graph=False`` (or the
+    configuration is one ``train.step.eager_only`` names); ``debug_nans``
+    runs eagerly (anomaly detection reads the backward's values on the
+    host), and with ``graph=True`` raises."""
     dev = torch.device(device)
+    if debug_nans:
+        if graph:
+            raise ValueError("debug_nans runs the step eagerly: anomaly detection reads "
+                             "the backward's values on the host (graph=False)")
+        graph = False
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "train(): no CUDA device is visible; pass device=\"cpu\" to train on the CPU "
@@ -145,7 +157,8 @@ def train(
     model.train()
     steps_per_epoch = loader.steps_per_epoch()
     state = create_train_state(model, cfg)
-    step_fn = make_train_step(model, cfg, steps_per_epoch, mesh=mesh, model_axis=model_axis)
+    step_fn = make_train_step(model, cfg, steps_per_epoch, mesh=mesh, model_axis=model_axis,
+                              graph=graph)
 
     # auto-resume inside the epoch from the newest checkpoint (epoch, iter)
     latest = ckpt.latest_tag()

@@ -15,7 +15,16 @@ and compactness ride the cluster and space loss slots.
 
 Unlike the JAX step, which returns a new state, this step updates the
 model's parameters and the optimizer's state in place (``TrainState`` holds
-both).
+both).  Like the JAX step it reads nothing back to the host: the stage
+gates are device tensors computed from a device step count, the optimizer
+gates each parameter and holds everything on a non-finite loss on the
+device (``train/optim.py``), and the metrics stay on the device.  On a
+CUDA device a single-process step is one captured CUDA graph a step, as
+the JAX step is one jitted executable (``utils/graphs.py:CapturedCall`` with ``owned``:
+the run's first two steps eager, then one capture, replayed every step);
+``graph=False`` runs the same step eagerly.  The steps that stay eager
+(``eager_only``) are those that draw dropout masks and those split over
+processes.
 
 Data parallelism: inside a process group (``core/mesh.py``) every process
 runs the step on its own shard of the global batch.  The JAX step computes
@@ -53,6 +62,7 @@ process of a model group takes its first process's gradients
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -69,13 +79,15 @@ from vadcl_tpu_torch.ops.cluster import frobenius_norm
 from vadcl_tpu_torch.parallel.sharding import global_max, global_sum
 from vadcl_tpu_torch.parallel.tp import model_parallel
 from vadcl_tpu_torch.train.optim import (
+    DeviceOptimizer,
     Lars,
-    apply_gates,
     build_optimizer,
     cosine_epoch_lr,
+    cosine_epoch_lr_on_device,
     param_gate_thresholds,
     set_lr,
 )
+from vadcl_tpu_torch.utils.graphs import CapturedCall, wants_graph
 
 PREDICT_INPUT_FRAMES = 4  # the reference's literal ``video[:, :, 0:4]``
 
@@ -91,12 +103,16 @@ class TrainState:
 
 
 class StepMetrics(NamedTuple):
+    """A step's metrics, on the device (read them only where needed: a
+    read waits for the step); ``lr`` is the schedule's at the step, as the
+    JAX step reports it."""
+
     loss: torch.Tensor
     loss_pixel: torch.Tensor
     cluster_loss: torch.Tensor
     space_loss: torch.Tensor
     lr: float
-    grad_finite: bool  # False: the step was skipped (non-finite loss)
+    grad_finite: torch.Tensor  # 0-d bool; False: the update was held (non-finite loss)
     recon: Optional[torch.Tensor] = None  # carried when dump_every_iters > 0
 
 
@@ -142,7 +158,10 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False,
                  data_group=None, data_index: Optional[int] = None,
                  data_size: Optional[int] = None):
     """loss_fn(clip, step) -> (loss, (loss_pixel, cluster_loss, space_loss,
-    recon or None)); ``step`` is the host-side step count.  Inside a
+    recon or None)); ``step`` is the step count, a 0-d integer tensor on
+    ``clip``'s device or a host int (the host count, which a step that
+    draws dropout masks needs; the stage gates are computed from it on the
+    device either way, so no threshold is baked into a graph).  Inside a
     process group ``clip`` is this process's shard and the losses are the
     global batch's (the module docstring); ``model`` may be the
     ``DistributedDataParallel`` wrapper of a ``VADModel``.  Under tensor
@@ -160,11 +179,13 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False,
     predict, memory = predicts(cfg.model), backbone in MEMORY_BACKBONES
     draws = stochastic(cfg)
 
-    def loss_fn(clip: torch.Tensor, step: int):
+    def loss_fn(clip: torch.Tensor, step):
         clip = normalize_clip(clip)
         inputs, target = split_predict_batch(clip, cfg.data.frame_num, predict,
                                              overlap_quirk=backbone == "swin")
         b = clip.shape[0]
+        at = step if isinstance(step, torch.Tensor) else torch.full(
+            (), int(step), dtype=torch.int64, device=clip.device)
         keys = (DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, int(step), rank * b, world * b)
                 if draws else None)
         with drop_keys(keys):
@@ -174,12 +195,11 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False,
             else:
                 gate = None
                 if cfg.model.compactness and backbone == "swin":
-                    gate = torch.tensor(float(step >= sched.compactness_start_iter),
-                                        device=clip.device)
+                    gate = (at >= sched.compactness_start_iter).to(torch.float32)
                 out = model(inputs, compactness_gate=gate, global_sum=reduce)
         err = out.recon.float() - target.float()
         loss_pixel = frobenius_norm(err * err, reduce)
-        cluster_gate = float(step >= sched.cluster_start_iter)
+        cluster_gate = (at >= sched.cluster_start_iter).to(torch.float32)
         cluster_loss = out.cluster_loss * cluster_gate
         space_loss = out.space_loss * cluster_gate
         loss = (sched.recon_weight * loss_pixel + sched.cluster_weight * cluster_loss
@@ -198,7 +218,8 @@ def create_train_state(model: VADModel, cfg: Config) -> TrainState:
 
 
 def global_grad_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+    """The L2 norm of every gradient together (optax's ``global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
 def _sum_gradients(process_group, bucket):
@@ -263,19 +284,38 @@ def _check_model_axis(cfg: Config, mesh, model_axis: Optional[str]) -> None:
         )
 
 
+def eager_only(cfg: Config, mesh=None, model_axis: Optional[str] = None) -> Optional[str]:
+    """Why this configuration's step runs eagerly, or None where it can be
+    captured: a pure function of the config and the mesh."""
+    if stochastic(cfg):
+        return ("it draws dropout or drop-path masks from host generators seeded per "
+                "site and step (models/layers.py:keep_mask), which a replay would repeat")
+    if is_distributed() or mesh is not None or model_axis is not None:
+        return ("it is split over processes (DistributedDataParallel's reducer and comm "
+                "hook, same_gradients, parallel/tp.py's all-gathers)")
+    return None
+
+
 def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=None,
-                    model_axis: Optional[str] = None
+                    model_axis: Optional[str] = None, graph: Optional[bool] = None,
+                    capture: Optional[Callable] = None
                     ) -> Callable[[TrainState, torch.Tensor], StepMetrics]:
     """step_fn(state, clip) -> StepMetrics for ``state.model is model``,
     updating ``state`` in place.
 
     One step: loss and backward at ``state.step``; global-norm clipping
-    (``clip_grad`` > 0) over every gradient; gated parameters get no
-    gradient (``lars`` gates none); the optimizer steps at lr(step) (LARS at
-    lr of its own step count, optax's schedule count, which a skipped step
-    does not advance); then the step count advances.  A non-finite loss skips the optimizer step, so parameters
-    and optimizer state are held (the JAX step's ``jnp.where`` guard); it
-    costs one host read of the loss per step.
+    (``clip_grad`` > 0) over every gradient; the optimizer steps at
+    lr(step) (LARS at lr of its own step count, optax's schedule count,
+    which a held step does not advance), each parameter gated at its
+    threshold (``lars`` gates none) and every one held on a non-finite loss
+    (the JAX step's ``jnp.where`` guard); then the step count advances.
+    Nothing is read back to the host: the metrics are device tensors.
+
+    ``graph``: None captures the step on a CUDA device (one CUDA graph
+    replayed a step, ``utils/graphs.py:CapturedCall``) and runs it eagerly
+    elsewhere; False runs it eagerly; True on another device, or on a
+    configuration that ``eager_only`` names, raises.  The choice is logged
+    once, here.  ``capture`` replaces the capture step (a test's double).
 
     Inside a process group the step is data-parallel (the module
     docstring): ``clip`` is this process's shard, the model runs under
@@ -291,6 +331,14 @@ def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=Non
     kernels, as in the JAX step."""
     _check_trainable(cfg)
     _check_model_axis(cfg, mesh, model_axis)
+    device = next(model.parameters()).device
+    why = eager_only(cfg, mesh, model_axis)
+    if graph and why is not None:
+        raise ValueError(f"graph=True: this train step runs eagerly because {why}")
+    captured = capture is not None or (wants_graph(graph, device) and why is None)
+    logging.getLogger("vadcl_torch").info(
+        "train step: " + ("one captured CUDA graph a step" if captured else
+                          f"eager ({why or 'graph=False or not on a CUDA device'})"))
     model_group = None
     if mesh is None:
         fwd = data_parallel(model) if is_distributed() else model
@@ -303,41 +351,77 @@ def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=Non
                                mesh.index(data_axis), size)
         if model_axis is not None and mesh.shape[model_axis] > 1:
             model_group = mesh.group(model_axis)
-    lr_sched = cosine_epoch_lr(cfg.optim.lr, cfg.optim.min_lr, cfg.optim.epochs,
-                               steps_per_epoch, cfg.optim.warmup_epochs)
-    named = list(model.named_parameters())
-    gates = param_gate_thresholds(named, cfg.schedule.cluster_train_start_iter)
+    o = cfg.optim
+    lr_sched = cosine_epoch_lr(o.lr, o.min_lr, o.epochs, steps_per_epoch, o.warmup_epochs)
+    lars_sched = cosine_epoch_lr_on_device(o.lr, o.min_lr, o.epochs, steps_per_epoch,
+                                           o.warmup_epochs)
+    params = list(model.parameters())
+    gates = param_gate_thresholds(model.named_parameters(), cfg.schedule.cluster_train_start_iter)
+    thresholds = list(gates.values())
+    together = [[p for p, t in zip(params, thresholds) if t == u] for u in set(thresholds)]
+    draws = stochastic(cfg)
+    clock = torch.zeros((), dtype=torch.int64, device=device)  # the step count, on the device
+    held = {}  # the optimizer the step function below updates
+
+    def device_step(clip: torch.Tensor):
+        """The step on the device, the capture's unit: reads ``clock`` and
+        the optimizer's learning rate, writes parameters and state in
+        place; returns (losses (4,), finite, recon or None)."""
+        opt, host_step = held["opt"], held["step"]
+        opt.zero_grad(set_to_none=True)
+        # the backward inside too: a remat block recomputes its forward there
+        with model_parallel(mesh, model_axis):
+            loss, (lp, lc, ls, recon) = loss_fn(clip, host_step if draws else clock)
+            loss.backward()
+        if model_group is not None:
+            same_gradients(params, model_group)
+        finite = torch.isfinite(loss)
+        for p in params:  # every leaf gets a gradient, as in the JAX step
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if cfg.optim.clip_grad > 0:
+            grads = [p.grad for p in params]
+            scale = torch.clamp(cfg.optim.clip_grad / (global_grad_norm(grads) + 1e-6), max=1.0)
+            torch._foreach_mul_(grads, scale)
+        if isinstance(opt, Lars):
+            masks = dict.fromkeys(params, finite)
+        else:
+            live = {t: finite & (clock >= t) if t > 0 else finite for t in set(thresholds)}
+            masks = {p: live[t] for p, t in zip(params, thresholds)}
+        opt.step(masks=masks)
+        opt.zero_grad(set_to_none=True)
+        losses = torch.stack([loss.detach(), lp.detach(), lc.detach(), ls.detach()]).float()
+        return losses, finite, (recon.detach() if recon is not None else None)
+
+    def owned():
+        opt = held["opt"]
+        return (params + list(model.buffers())
+                + [t for st in opt.state.values() for t in st.values()
+                   if isinstance(t, torch.Tensor)] + list(opt.lr_tensors()))
+
+    graph_step = (CapturedCall(device_step, device, owned=owned, capture=capture,
+                               inputs=lambda: [clock] + list(held["opt"].lr_tensors()))
+                  if captured else None)
 
     def step_fn(state: TrainState, clip: torch.Tensor) -> StepMetrics:
         if state.model is not model:
             raise ValueError("make_train_step: the state holds another model")
         opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        # the backward inside too: a remat block recomputes its forward there
-        with model_parallel(mesh, model_axis):
-            loss, (lp, lc, ls, recon) = loss_fn(clip, state.step)
-            loss.backward()
-        if model_group is not None:
-            same_gradients(model.parameters(), model_group)
-        finite = bool(torch.isfinite(loss))
-        lars = isinstance(opt, Lars)
-        lr = lr_sched(opt.count if lars else state.step)
-        if finite:
-            if cfg.optim.clip_grad > 0:
-                grads = [p.grad for _, p in named if p.grad is not None]
-                scale = torch.clamp(cfg.optim.clip_grad / (global_grad_norm(grads) + 1e-6),
-                                    max=1.0)
-                for g in grads:
-                    g.mul_(scale)
-            if not lars:
-                apply_gates(named, gates, state.step)
-            set_lr(opt, lr)
-            opt.step()
-        opt.zero_grad(set_to_none=True)
+        if not isinstance(opt, DeviceOptimizer):
+            raise TypeError(f"make_train_step: {type(opt).__name__} is not an optimizer of "
+                            "train/optim.py (build_optimizer): the step gates on the device")
+        if isinstance(opt, Lars):
+            opt.schedule = lars_sched
+        opt.init_state(together)
+        held.update(opt=opt, step=state.step)
+        with torch.no_grad():
+            clock.fill_(state.step)
+        lr = lr_sched(state.step)
+        set_lr(opt, lr)
+        losses, finite, recon = (device_step if graph_step is None else graph_step)(clip)
         state.step += 1
-        return StepMetrics(loss=loss.detach(), loss_pixel=lp.detach(),
-                           cluster_loss=lc.detach(), space_loss=ls.detach(), lr=lr,
-                           grad_finite=finite,
-                           recon=recon.detach() if recon is not None else None)
+        return StepMetrics(loss=losses[0], loss_pixel=losses[1], cluster_loss=losses[2],
+                           space_loss=losses[3], lr=lr, grad_finite=finite, recon=recon)
 
+    step_fn.graph = graph_step
     return step_fn
