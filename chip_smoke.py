@@ -271,7 +271,16 @@ Phases (any failure raises and the script exits non-zero):
      count bit for bit; replays under
      ``set_sync_debug_mode("error")``; step ms (host clock), device-busy ms,
      idle share and host ops in turns (eager, graph, graph, eager); the
-     replays' kernels in the trace those of the eager steps.
+     replays' kernels in the trace those of the eager steps, kernel 6's
+     cluster launches (head groups) among them at the 64-window stages of
+     the 8-frame and Swin-B-width paths.
+Kernel 6's head groups (a window's heads over a thread-block cluster where
+windows are few) are held in phase 2 (``swin_b_fold_kernels``,
+``long_window_fold_kernels``): every 6 and 8-on-6's-body case prints its
+groups and blocks, is held against its plain version, gives the same bits
+twice and is timed beside 8's rows (or whole tile) forced and beside G = 1
+forced (``head_groups_forced_off``); the flagship's whole-slice instances
+are read once with G = 2 forced (``head_groups_forced``).
 Phase 5 runs 6 steps a path where it ran 10 (phase 18 times the steps);
 no other earlier path was cut: the whole run takes about ten minutes on an H100.
 The second-to-last line is a JSON object describing each of the fifteen
@@ -1178,7 +1187,12 @@ def swin_b_fold_kernels() -> dict:
     that shape before A's and 6's weights streamed in depth chunks, forced on
     the same shapes (the partitioned windows: 7's whole tile; 8's rows at N
     = 98, its whole tile at 49; A itself where one chunk fits, as at C =
-    128).  Returns {"<kernel> Video Swin-B width <shape>": stats}."""
+    128); 6 with its head groups and blocks, and beside G = 1 forced.  Then
+    A, 10, 7, 9 and 8 on the view at the 64-window shapes, 8 (on 6's body,
+    head groups) also twice for the same bits and timed beside 8's rows (or
+    whole tile) and G = 1 forced; and one reading of the flagship's
+    whole-slice instances with G = 2 forced.  Returns {"<kernel> Video
+    Swin-B width <shape>": stats}."""
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_attention_plain,
         fold_depth_chunks,
@@ -1216,6 +1230,14 @@ def swin_b_fold_kernels() -> dict:
             ms, pms = cuda_ms(lambda: kernel(**a)), cuda_ms(lambda: plain(**a))
             b = bound(tensors_of(a, as_tuple(got)),
                       attn_flops(a["x"][..., 0].numel(), C, n, backward=backward), "bf16")
+            groups = {}
+            if backward:
+                g, blocks = head_groups_of(a["x"].shape, nh, window)
+                dev = device_call_ms(lambda: kernel(**a))
+                g1, g1_dev = (ms, dev) if g == 1 else one_group_ms(lambda: kernel(**a))
+                groups = dict(head_groups=g, blocks=blocks, device_ms=dev, one_group_ms=g1,
+                              one_group_device_ms=g1_dev)
+                name += f", {g} head groups, {blocks} blocks"
             del got
             if chunks[backward] == 1:
                 old, old_ms = "the same body (one chunk fits)", ms
@@ -1229,14 +1251,24 @@ def swin_b_fold_kernels() -> dict:
                 else:
                     forced = window_attention_fused_tiles
                 old, old_ms = forced.__name__, cuda_ms(lambda: forced(**w))
+                if backward:
+                    groups["old_body_device_ms"] = device_call_ms(lambda: forced(**w))
                 del w
-            print(f"    {name}: {ms:.4f} ms; before the chunks ({old}) {old_ms:.4f} ms; "
-                  f"plain {pms:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
+            dev, one, shown = "", "", old
+            if groups:
+                dev = f" (device {groups['device_ms']:.4f})"
+                one = (f"; G = 1 forced {groups['one_group_ms']:.4f} ms (device "
+                       f"{groups['one_group_device_ms']:.4f})")
+                if "old_body_device_ms" in groups:
+                    shown += f", device {groups['old_body_device_ms']:.4f}"
+            print(f"    {name}: {ms:.4f} ms{dev}; before the chunks ({shown}) {old_ms:.4f} ms"
+                  f"{one}; plain {pms:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
                   f"{b['bound_ms'] / ms:.2%} of it")
             stats[f"{counter} Video Swin-B width {label}"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=pms, old_body_ms=old_ms, old_body=old,
                 depth_chunks=chunks[backward],
-                shape=f"x ({batch},{D},{H},{W},{C}) bf16, nH {nh}, N {n}, shifted", **b)
+                shape=f"x ({batch},{D},{H},{W},{C}) bf16, nH {nh}, N {n}, shifted", **groups,
+                **b)
             del a
     print("  the chunked bodies' other callers at C = 256 with 8 heads, bf16: A and 10 in "
           "every mode, 7, 9 and 8 on window_grid's view")
@@ -1265,12 +1297,44 @@ def swin_b_fold_kernels() -> dict:
                                          "view's one")
                 check_close(f"{counter} {tag}", got, plain(**w), *BOUNDS[bf])
             w = _win_bwd_case(w, gen)
-            got, moved = _launched(lambda: wa.window_attention_fused_bwd(**w))
+            fn = lambda: wa.window_attention_fused_bwd(**w)  # noqa: E731
+            got, moved = _launched(fn)
             if moved != {"window_attention_fused_bwd": 1}:
                 raise AssertionError(f"window_attention_fused_bwd {tag}: launches {moved}")
             check_grads(f"window_attention_fused_bwd {tag}", WIN_BWD_NAMES, got,
                         wa.window_attention_fused_bwd_plain(**w), tol)
+            same_bits(f"window_attention_fused_bwd {tag}", got, fn())
+            if shift != (0, 0, 0):
+                n = window[0] * window[1] * window[2]
+                g, blocks = head_groups_of((w["x_windows"].shape[0], 1, 1, n, C), nh, (1, 1, n))
+                body = window_body(n, C, nh, bf, backward=True)
+                forced = (window_attention_fused_bwd_rows if body == "rows"
+                          else window_attention_fused_bwd_tiles)
+                ms, old_ms = cuda_ms(fn), cuda_ms(lambda: forced(**w))
+                g1, g1_dev = one_group_ms(fn)
+                print(f"    window_attention_fused_bwd on 6's body {tag}: {g} head groups, "
+                      f"{blocks} blocks, {ms:.4f} ms (device {device_call_ms(fn):.4f}); "
+                      f"{forced.__name__} {old_ms:.4f} ms (device "
+                      f"{device_call_ms(lambda: forced(**w)):.4f}); G = 1 forced {g1:.4f} ms "
+                      f"(device {g1_dev:.4f})")
             del a, w, got
+    print("  the flagship's whole-slice instances of 6 (one group on the route) with G = 2 "
+          "forced, bf16, batch 4, shifted: one reading")
+    for gname in ("enc_stage1", "dec_stage0"):
+        (D, H, W, C), nh, window, shift = FOLD_GEOMETRIES[gname]
+        a = _fold_bwd_case((4, D, H, W, C), nh, window, shift, bf, gen)
+        fn = lambda: fold_attention_bwd(**a)  # noqa: E731
+        with head_groups_forced(2):
+            got = fn()
+            check_grads(f"fold_attention_bwd {gname}, G = 2 forced", FOLD_BWD_NAMES, got,
+                        fold_attention_bwd_plain(**a), tol)
+            same_bits(f"fold_attention_bwd {gname}, G = 2 forced", got, fn())
+            ms2, dev2 = cuda_ms(fn), device_call_ms(fn)
+        print(f"    fold_attention_bwd {gname} x (4,{D},{H},{W},{C}) nH {nh}: G = 2 forced "
+              f"{ms2:.4f} ms (device {dev2:.4f}); the route's G = "
+              f"{head_groups_of(a['x'].shape, nh, window)[0]} {cuda_ms(fn):.4f} ms (device "
+              f"{device_call_ms(fn):.4f})")
+        del a, got
     return stats
 
 
@@ -1307,10 +1371,11 @@ def long_window_fold_kernels() -> dict:
     version (``BOUNDS``, ``BWD_TOL``), its counter asserted, called twice for
     the same bits, and timed beside its plain version, its bound and the
     row-tiled body of the partitioned route (7's, 9's or 8's ``*_rows``,
-    forced on the same windows) that ran these windows before; then the
-    edges unshifted and at N = 113, 160 and 208 on the view, and 6's long
-    layout at 4 and 5 query strips a phase.  Returns
-    {"<kernel> long windows <shape>": stats}."""
+    forced on the same windows) that ran these windows before, 6 and 8 with
+    their head groups and blocks and beside G = 1 forced; then the edges
+    unshifted and at N = 113, 160 and 208 on the view, and 6's long layout
+    at 4 and 5 query strips a phase.  Returns {"<kernel> long windows
+    <shape>": stats}."""
     from vadcl_tpu_torch.ops import window_attn as wa
     from vadcl_tpu_torch.ops.fold_attn import (
         fold_attention, fold_attention_bwd, fold_attention_bwd_plain, fold_attention_packed,
@@ -1324,7 +1389,7 @@ def long_window_fold_kernels() -> dict:
     as_tuple = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
     stats = {}
 
-    def held(key, counter, fn, plain, compare, tensors, flops, rows_fn, extra):
+    def held(key, counter, fn, plain, compare, tensors, flops, rows_fn, extra, groups_at=None):
         got, moved = _launched(fn)
         if moved != {counter: 1}:
             raise AssertionError(f"{key}: launches {moved}, expected one of {counter}")
@@ -1332,13 +1397,23 @@ def long_window_fold_kernels() -> dict:
         same_bits(key, as_tuple(got), as_tuple(fn()))
         ms, pms, rows_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(rows_fn)
         b = bound(tensors + list(as_tuple(got)), flops, "bf16")
-        print(f"    {key}: {ms:.4f} ms; the row-tiled body forced {rows_ms:.4f} ms; plain "
+        groups, one = {}, ""
+        if groups_at is not None:  # 6's body: its head groups, and G = 1 forced
+            g, blocks = head_groups_of(*groups_at)
+            dev = device_call_ms(fn)
+            g1, g1_dev = (ms, dev) if g == 1 else one_group_ms(fn)
+            groups = dict(head_groups=g, blocks=blocks, device_ms=dev, one_group_ms=g1,
+                          one_group_device_ms=g1_dev)
+            one = (f" (device {dev:.4f}; {g} head groups, {blocks} blocks; G = 1 forced "
+                   f"{g1:.4f} ms, device {g1_dev:.4f})")
+        print(f"    {key}: {ms:.4f} ms{one}; the row-tiled body forced {rows_ms:.4f} ms; plain "
               f"{pms:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
               f"{b['bound_ms'] / ms:.2%} of it")
         for what, f in (("launches", fn), ("the row-tiled body's", rows_fn)):
             print(f"      {what}, device ms (profiler): " + ", ".join(
                 f"{k.split('<')[0].split('::')[-1]} {v:.4f}" for k, v in launch_ms(f, 5)))
-        stats[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms, rows_body_ms=rows_ms, **extra, **b)
+        stats[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms, rows_body_ms=rows_ms, **groups,
+                          **extra, **b)
 
     for label, ((D, H, W, C), batch, nh, window) in LONG_FOLD_SHAPES.items():
         n = window[0] * window[1] * window[2]
@@ -1376,14 +1451,15 @@ def long_window_fold_kernels() -> dict:
             held(f"fold_attention_bwd long windows {label}", "fold_attention_bwd",
                  lambda: fold_attention_bwd(**a6), lambda: fold_attention_bwd_plain(**a6), grads,
                  tensors_of(a6), bflops, lambda: wa.window_attention_fused_bwd_rows(**w8),
-                 dict(depth_chunks=chunks[1], shape=shape))
+                 dict(depth_chunks=chunks[1], shape=shape), (a6["x"].shape, nh, window))
             vgrads = lambda got, want: check_grads(  # noqa: E731
                 f"window_attention_fused_bwd {label}", WIN_BWD_NAMES, got, want, tol)
             held(f"window_attention_fused_bwd long windows {label}", "window_attention_fused_bwd",
                  lambda: wa.window_attention_fused_bwd(**w8),
                  lambda: wa.window_attention_fused_bwd_plain(**w8), vgrads, tensors_of(w8), bflops,
                  lambda: wa.window_attention_fused_bwd_rows(**w8),
-                 dict(depth_chunks=chunks[1], shape=shape + ", window_grid's view"))
+                 dict(depth_chunks=chunks[1], shape=shape + ", window_grid's view"),
+                 ((w8["x_windows"].shape[0], 1, 1, n, C), nh, (1, 1, n)))
             del a6, w8
         del a, w
         torch.cuda.empty_cache()
@@ -2104,10 +2180,12 @@ def phase_bwd_kernels(batch: int = 4):
           f"body {lib.vadcl_ln_mlp_bwd_workspace_bytes(ntok, 96, 384) / 1e6:.2f} MB")
     for gname, ((D, H, W, C), nh, window, _) in FOLD_GEOMETRIES.items():
         n = window[0] * window[1] * window[2]
-        chunks = lib.vadcl_fold_attn_bwd_bf16_dbias_partials(batch, D, H, W, C, nh, *window)
-        print(f"  kernel 6 tensor-core body, bf16, batch {batch}, {gname}: workspace "
-              f"{lib.vadcl_fold_attn_bwd_bf16_workspace_bytes(batch, D, H, W, C, nh, *window) / 1e6:.1f}"
-              f" MB, of it {chunks} d(bias) partials, {chunks * nh * n * n * 4 / 1e6:.1f} MB")
+        g = head_groups_of((batch, D, H, W, C), nh, window)[0]
+        chunks = lib.vadcl_fold_attn_bwd_bf16_dbias_partials(batch, D, H, W, C, nh, *window, g)
+        ws = lib.vadcl_fold_attn_bwd_bf16_workspace_bytes(batch, D, H, W, C, nh, *window, g)
+        print(f"  kernel 6 tensor-core body, bf16, batch {batch}, {gname}: {g} head groups, "
+              f"workspace {ws / 1e6:.1f} MB, of it {chunks} d(bias) partials, "
+              f"{chunks * nh * n * n * 4 / 1e6:.1f} MB")
     for gname, ((D, H, W, C), nh, window, _) in FOLD_GEOMETRIES.items():
         n = window[0] * window[1] * window[2]
         bn = batch * (D // window[0]) * (H // window[1]) * (W // window[2])
@@ -2270,7 +2348,7 @@ def phase_window_fold_route(batch: int = BATCH_WINDOWS, train_batch: int = 4) ->
             bn = w["x_windows"].shape[0]
             grid = wa.window_grid(w["x_windows"], w["mask"], w["n_windows"])[0].shape
             chunks = lib.vadcl_fold_attn_bwd_bf16_dbias_partials(
-                grid[0], 1, 1, grid[3], C, nh, 1, 1, n)
+                grid[0], 1, 1, grid[3], C, nh, 1, 1, n, head_groups_of(grid, nh, (1, 1, n))[0])
             print(f"    time: 6's body {ms:.4f} ms, whole-tile body {old_ms:.4f} ms, plain "
                   f"{pms:.4f} ms; {chunks} blocks of {-(-bn // chunks)} windows (the d(bias) "
                   "partials)")
@@ -2462,7 +2540,8 @@ def phase_grid_blocks(batch: int = 4) -> dict:
                                 BWD_TOL[bf])
                     dp, hp, wp = (-(-v // w) * w for v, w in zip((D, H, W), window))
                     chunks = cuda_lib.library().vadcl_fold_attn_bwd_bf16_dbias_partials(
-                        batch, dp, hp, wp, C, nh, *window)
+                        batch, dp, hp, wp, C, nh, *window,
+                        head_groups_of((batch, dp, hp, wp, C), nh, window)[0])
                     print(f"  {tag}: kernel 6's blocks (d(bias) chunks) {chunks}")
                 del blk, results
             torch.cuda.empty_cache()
@@ -3896,6 +3975,56 @@ def depth_chunks_forced_off():
 
 
 @contextlib.contextmanager
+def head_groups_forced(groups: int):
+    """While open, kernel 6's tensor-core body splits every window's heads
+    into ``groups`` head groups (``fold_bwd_head_groups`` answers it
+    whatever the windows; ``groups`` must divide the heads)."""
+    import importlib
+
+    mod = importlib.import_module("vadcl_tpu_torch.ops.fold_attn")
+    real = mod.fold_bwd_head_groups
+    mod.fold_bwd_head_groups = lambda windows, n, c, nh: groups
+    try:
+        yield
+    finally:
+        mod.fold_bwd_head_groups = real
+
+
+def head_groups_forced_off():
+    """While open, kernel 6's tensor-core body runs one block a window (G =
+    1), as before head groups: the 64-window stages of the 8-frame encoder
+    and the Video Swin-B width on 64 blocks."""
+    return head_groups_forced(1)
+
+
+def head_groups_of(shape, nh: int, window) -> tuple:
+    """(head groups, blocks) of kernel 6's launch on x of ``shape`` (B, D, H,
+    W, C) at ``window``: ``fold_bwd_head_groups``, ``fold_bwd_blocks``."""
+    from vadcl_tpu_torch.ops.fold_attn import fold_bwd_blocks, fold_bwd_head_groups
+
+    B, D, H, W, C = shape
+    n = window[0] * window[1] * window[2]
+    windows = B * (D // window[0]) * (H // window[1]) * (W // window[2])
+    groups = fold_bwd_head_groups(windows, n, C, nh)
+    return groups, fold_bwd_blocks(windows, groups)
+
+
+def device_call_ms(fn) -> float:
+    """The device ms of one call of ``fn``: its hand-written kernels'
+    (``launch_ms``) summed.  Where the wrapper's host path outlasts its
+    kernels, ``cuda_ms`` reads the host; a captured step (phase 18) pays
+    only this."""
+    return sum(ms for _, ms in launch_ms(fn, 5))
+
+
+def one_group_ms(fn) -> tuple:
+    """(``cuda_ms(fn)``, ``device_call_ms(fn)``) with G = 1 forced
+    (``head_groups_forced_off``): kernel 6's time before head groups."""
+    with head_groups_forced_off():
+        return cuda_ms(fn), device_call_ms(fn)
+
+
+@contextlib.contextmanager
 def long_layouts_forced_off():
     """While open, kernels A's and 6's bf16 tensor-core bodies take windows
     of at most 112 tokens at every head width (``fold_max_tokens`` as before
@@ -3925,8 +4054,10 @@ def phase_long_windows(smi: str) -> dict:
     bodies): the batch-16 ``fold`` scoring forward and the batch-4 ``fold``
     train step (``make_train_step(graph=False)``: loss, backward, Adam), each one call's
     device-busy ms by the profiler and its untraced wall ms, in the order new,
-    old, new, old; every call's launches of A, 6 and the row-tiled 7 and 8
-    asserted.  Returns {"<pass> <route>": [busy ms, ...]}."""
+    one group, old, new, one group, old ("one group": the new route with
+    ``head_groups_forced_off``, kernel 6 on 64 blocks at encoder stage 1);
+    every call's launches of A, 6 and the row-tiled 7 and 8 asserted.
+    Returns {"<pass> <route>": [busy ms, ...]}."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.ops import (
         fold_attention, fold_attention_bwd, window_attention_fused_bwd_rows,
@@ -3957,9 +4088,10 @@ def phase_long_windows(smi: str) -> dict:
         step_fn(state, batch)
 
     readings = {}
-    for route in ("new", "old", "new", "old"):
-        forced = long_layouts_forced_off() if route == "old" else contextlib.nullcontext()
-        a_want, rows_want = LONG_ROUTE_LAUNCHES[route]
+    for route in ("new", "one group", "old", "new", "one group", "old"):
+        forced = {"old": long_layouts_forced_off,
+                  "one group": head_groups_forced_off}.get(route, contextlib.nullcontext)()
+        a_want, rows_want = LONG_ROUTE_LAUNCHES["old" if route == "old" else "new"]
         with forced:
             for name, fn in (("forward", forward), ("step", step)):
                 fn(), fn()  # warm-up: packs, cuDNN's choices, the allocator
@@ -3983,8 +4115,10 @@ def phase_long_windows(smi: str) -> dict:
                       f"untraced (idle {1 - busy / wall:.1%}) [{smi}]")
     for name in ("forward", "step"):
         new, old = readings[f"{name} new"], readings[f"{name} old"]
+        one = readings[f"{name} one group"]
         print(f"  8-frame {name}: busy {min(new):.3f}-{max(new):.3f} ms with A and 6 on the "
-              f"encoder, {min(old):.3f}-{max(old):.3f} ms with the route before forced")
+              f"encoder, {min(one):.3f}-{max(one):.3f} ms with one head group forced, "
+              f"{min(old):.3f}-{max(old):.3f} ms with the route before forced")
     del model, trained, state, step_fn
     torch.cuda.empty_cache()
     return readings
@@ -4035,9 +4169,10 @@ def phase_swin_b(smi: str) -> dict:
     chunks forced (``depth_chunks_forced_off``: 7's whole tile in 12
     blocks); a batch-4 forward and backward's longest kernels and
     device-busy ms as routed (6 in all 18 blocks), with kernel 5's
-    CUDA-core body forced in its slab body's place, and with the route
-    before the chunks forced (8's rows in 9 blocks, its whole tile in 6);
-    then three ``train()`` steps at batch 4, their launches counted (A and 6
+    CUDA-core body forced in its slab body's place, with the route before
+    the chunks forced (8's rows in 9 blocks, its whole tile in 6), and with
+    one head group forced (``head_groups_forced_off``: 6 on 64 blocks at
+    the 64-window stages); then three ``train()`` steps at batch 4, their launches counted (A and 6
     18 times a step, no kernel 7 or 8, 12 of kernel 5's slab body, none of
     its CUDA-core body), whose losses are held against three steps of the
     plain path from the same seed and data (the bf16 kernel bound, rtol
@@ -4179,6 +4314,9 @@ def phase_swin_b(smi: str) -> dict:
                                  "blocks, its whole tile in 6 and 6 in 3")
         unchunked_bwd, _, _ = traced_call(forward_backward)
         unchunked_table = kernel_table(forward_backward)
+    with head_groups_forced_off():
+        forward_backward()
+        one_group_bwd, _, _ = traced_call(forward_backward)
     model.zero_grad(set_to_none=True)
     print(f"  one batch-{TRAIN_BATCH} forward and backward, device busy: {busy_bwd:.3f} ms with "
           f"kernel 5's slab body, {old_bwd:.3f} ms with its CUDA-core body forced in its place "
@@ -4187,6 +4325,8 @@ def phase_swin_b(smi: str) -> dict:
     print(f"  the same with the route before A's and 6's depth chunks forced: "
           f"{unchunked_bwd:.3f} ms busy against {busy_bwd:.3f} [{smi}]; its longest kernels: "
           + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in unchunked_table[:6]))
+    print(f"  the same with one head group forced (kernel 6 on 64 blocks at the 64-window "
+          f"stages): {one_group_bwd:.3f} ms busy against {busy_bwd:.3f} [{smi}]")
     del model, plain, fused_scorer, plain_scorer
     torch.cuda.empty_cache()
 
@@ -5251,6 +5391,13 @@ CAPTURED_TRAIN_STEPS = 4
 CAPTURED_TRAIN_SPREAD = 3.0
 CAPTURED_TRAIN_FLOOR = 0.01
 TURN_STEPS, TRACED_STEPS = 4, 2  # a turn's untraced steps, then its traced ones
+# kernel 6's launches a step in head groups (a cluster of blocks a window, the
+# kGrouped instances) on phase 18's paths: the 64-window stages at batch 4
+# (8 frames: encoder stage 1's 6 blocks; the Video Swin-B width: encoder stage
+# 1 and decoder stage 0, 6 each); none elsewhere
+CAPTURED_GROUPED = {f"{RECON_FRAMES}-frame reconstruction, fold": 6,
+                    "Video Swin-B width, fold": 12}
+GROUPED_KERNEL = re.compile(r"fold_attn_bwd_(mma|long)_kernel<[^>]*, true>")
 
 
 def captured_train_paths() -> dict:
@@ -5402,6 +5549,13 @@ def captured_training_path(label: str, cfg, smi: str) -> dict:
     if replayed != eager or graph_fn.graph.captures != 2:
         raise AssertionError(f"{label}: the replays ran other kernels than the eager steps, "
                              f"or the step captured other than once per clip dtype")
+    grouped = sum(k for name, k in replayed.items() if GROUPED_KERNEL.search(name))
+    want = CAPTURED_GROUPED.get(label, 0) * TRACED_STEPS
+    print(f"  kernel 6 in head groups (cluster launches) in the replays: {grouped} over "
+          f"{TRACED_STEPS} steps, expected {want}")
+    if grouped != want:
+        raise AssertionError(f"{label}: {grouped} launches of kernel 6 in head groups in "
+                             f"{TRACED_STEPS} replayed steps, expected {want}")
     del a, c, eager_fn, graph_fn, init
     torch.cuda.empty_cache()
     return {"median_rel": rel, "eager_median_rel": again, "control_median_rel": control,

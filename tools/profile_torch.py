@@ -176,7 +176,10 @@ def backward_kernels_only(args, smoke, gen) -> None:
     bodies: the tensor-core body the route picks (``fold_attention_bwd``,
     ``ln_mlp_bwd``, ``fold_block_bwd``) and the one it leaves other
     geometries to (``*_tiles``; a tree without ``fold_block_bwd_tiles`` has
-    one whole-block body).  ``kernel_ms`` includes the second pass."""
+    one whole-block body); then kernel 6 at the depth-chunked and long
+    layouts' shapes (``chip_smoke.py``'s ``SWIN_B_FOLD_SHAPES`` and
+    ``LONG_FOLD_SHAPES``) on the route's head groups and, where the tree has
+    them, with one group forced.  ``kernel_ms`` includes the second pass."""
     from vadcl_tpu_torch.ops import fold_attn
     from vadcl_tpu_torch.ops.fold_attn import fold_attention_bwd, fold_attention_bwd_tiles
     from vadcl_tpu_torch.ops.ln_mlp import ln_mlp_bwd, ln_mlp_bwd_tiles
@@ -216,6 +219,30 @@ def backward_kernels_only(args, smoke, gen) -> None:
                 "ms": round(smoke.cuda_ms(lambda: k(x, dy, *p)), 4),
                 "kernel_ms": round(own_kernel_ms(lambda: k(x, dy, *p)), 4)}))
         del a, x, dy
+        torch.cuda.empty_cache()
+    # kernel 6's depth-chunked and long layouts at the shapes chip_smoke.py
+    # holds them at (their own batch, shifted): on the route's head groups and,
+    # where the tree has head groups, with one group forced
+    grouped = hasattr(fold_attn, "fold_bwd_head_groups")
+    for label, table in (("(256,196,96)", smoke.LONG_FOLD_SHAPES),
+                         ("(64,196,192)", smoke.LONG_FOLD_SHAPES),
+                         ("(256,98,128)", smoke.SWIN_B_FOLD_SHAPES),
+                         ("(64,98,256)", smoke.SWIN_B_FOLD_SHAPES),
+                         ("(64,49,256)", smoke.SWIN_B_FOLD_SHAPES)):
+        (D, H, W, C), b, nh, window = table[label]
+        a = smoke._fold_bwd_case((b, D, H, W, C), nh, window, (0, 3, 3), bf, gen)
+        row = {"tag": args.tag, "kernel": "fold_attention_bwd", "x_windows": label,
+               "heads": nh, "shifted": True,
+               "head_groups": smoke.head_groups_of(a["x"].shape, nh, window)[0] if grouped else 1,
+               "ms": round(smoke.cuda_ms(lambda: fold_attention_bwd(**a)), 4),
+               "kernel_ms": round(own_kernel_ms(lambda: fold_attention_bwd(**a)), 4)}
+        if grouped:
+            with smoke.head_groups_forced_off():
+                row["one_group_ms"] = round(smoke.cuda_ms(lambda: fold_attention_bwd(**a)), 4)
+                row["one_group_kernel_ms"] = round(
+                    own_kernel_ms(lambda: fold_attention_bwd(**a)), 4)
+        print(json.dumps(row))
+        del a
         torch.cuda.empty_cache()
 
 

@@ -105,6 +105,33 @@
 // (227,712 B) but in three phases, and read 0.986 ms at (64, 196, 192)
 // where G = 7 reads 0.875 (H100, 700 W, one call each).  Named barriers:
 // 1 + 2 x phases a head (5) where the one-strip body takes 2.
+//
+// Head groups (the kGrouped instances of both bodies; ops/fold_attn.py:
+// fold_bwd_head_groups picks `groups`, 1 keeping the other instances).  Where
+// windows are fewer than SMs (64 windows at batch 4 on the 8-frame encoder's
+// stage 1 and the Video Swin-B width's stage 1 and decoder stage 0: one block
+// a window left 68 of 132 SMs idle), a window's heads split over the
+// `groups` blocks of a thread-block cluster: rank g takes heads g nH /
+// groups .. (g + 1) nH / groups - 1.  Each rank has its own LN1 row tile (rank
+// 0 alone writes row_ws), streams only its heads' slices and W_proj rows
+// through its ring, and writes its heads' columns of o, dqkv and the dqkv_b
+// partials and its heads' d(bias) planes: disjoint from the other ranks', so
+// those need no more summing.  Its dxa rows hold its heads' sum (in head
+// order).  After a cluster barrier each rank sums the ranks' rows r = g, g +
+// groups, .. of every strip over distributed shared memory in rank order
+// (fb_sum_ranks), into its own rows, which no other rank reads, and runs the
+// LN vjp and the residual on them, leaving its dLN1 column sums in two of
+// those rows; after a second cluster barrier rank 0 adds the ranks' sums in
+// rank order into the (chunk, strip or warp) partial (fb_sum_dln: per block
+// partials would double the rows the second pass sums one after another,
+// about 15 us a launch at 448 more rows on an H100), and a third keeps the
+// window's shared memory until every rank has read it.  The producer warp
+// takes part in the three barriers, so a window's items are in flight only
+// within the window.  The stamps of
+// tools/fold_bwd_clocks_torch.py at batch 4 (H100, 700 W) put the per-head
+// steps at 60-70% of a block's clocks at the 64-window shapes, the LN vjp at
+// 21-26% and LN1 at 4-8%; two groups halve all but LN1, which every rank
+// computes for its own tile.
 
 // Deterministic sums.  d(bias) is summed over the block's chunk of windows by
 // the one thread that holds each (h, i, j) in its accumulator: written by the
@@ -121,12 +148,11 @@
 // What bounds it: 7 GFLOP of bf16 products at enc stage 0, batch 4 (0.008 ms
 // at 989 TFLOP/s) against per-head named barriers, the ring's hand-overs
 // (one per chunk), the d(bias) partial traffic (read and written once per
-// window through L2) and a grid of at most one 8-warp block per SM: the
-// flagship's encoder stage 1 has 64 windows at batch 4, and so has the Video
-// Swin-B width's (C = 256, 8 heads), where 64 of 132 SMs work and each walks
-// one window's 72 ring items.  Left on the table: wgmma, several heads or
-// windows in flight per block, d(bias) held on chip across a chunk, a grid
-// that splits a window's heads over blocks where windows are few.
+// window through L2), the LN vjp's dependent loads a row, and a grid of at
+// most one 8-warp block per SM (head groups where windows are few).  Left on
+// the table: wgmma, several heads or windows in flight per block, d(bias)
+// held on chip across a chunk, head groups for the whole-slice instances
+// (the flagship's: they keep one block a window).
 #include "fold_attn_mma.cuh"
 #include "reduce.cuh"
 #include "reduce_mma.cuh"
@@ -276,15 +302,16 @@ struct FoldBwdMmaArgs {
   __nv_bfloat16* row_ws;   // (T, C)
   __nv_bfloat16* o_ws;     // (T, C)
   __nv_bfloat16* dqkv_ws;  // (T, 3C)
-  float* dqkvb_part;  // (blocks, strips, 3C)
-  float* dln_part;    // (blocks, strips, 2C)
-  float* dbias_part;  // (blocks, nH, N, N)
+  float* dqkvb_part;  // (chunks, strips, 3C)
+  float* dln_part;    // (chunks, strips, 2C)
+  float* dbias_part;  // (chunks, nH, N, N)
   int B, D, H, W, C, nh, wd, wh, ww;
   int sd, sh, sw;
   float scale;
   int residual;
-  int chunk;         // windows per block
+  int chunk;         // windows per block (per cluster with head groups)
   int depth_chunks;  // chunks a weight slice streams in (fb_depth_chunks)
+  int groups;        // head groups: blocks of a window's cluster (the kGrouped instances)
 };
 
 // Element offset of window token i (of the window at (b, wi_d, wi_h, wi_w)),
@@ -338,21 +365,21 @@ __device__ __forceinline__ void fb_emit_dqkv(const float (&v)[kHt][4], __nv_bflo
   }
 }
 
-// The producer warp's first lane (the long layout's): per window and head, the
-// chunks of slice h and head h's W_proj rows (with one chunk, both in one
-// stage; else in `pitems` items of consecutive slices' rows), then the slices'
+// The producer warp's first lane: per window (wbeg .. wend - 1) and head (h0
+// .. h1 - 1: the block's head group), the chunks of slice h and head h's
+// W_proj rows (with one chunk, both in one stage; else in `pitems` items of
+// consecutive slices' rows: 1 in the one-strip layout), then the slices'
 // chunks again for dxa, each item into the next ring stage once its consumers
-// have handed it back.
+// have handed it back; `seq` counts the items across calls.
 template <int kHd>
 __device__ __forceinline__ void fb_produce(const FoldBwdMmaArgs& a, unsigned char* ring,
                                            size_t stage_size, uint64_t* full, uint64_t* empty,
-                                           int chunks, int pitems, long long wbeg,
-                                           long long wend) {
+                                           int chunks, int pitems, int h0, int h1,
+                                           long long wbeg, long long wend, int& seq) {
   constexpr int kLdw = fa_ldw(kHd);
   const int C = a.C, nh = a.nh, kc = C / chunks, npc = fb_proj_slices(C, kHd);
   const uint32_t chunk_bytes = (uint32_t)(sizeof(__nv_bfloat16) * kc * kLdw);
   const uint32_t part_bytes = (uint32_t)(sizeof(__nv_bfloat16) * kHd * kLdw);
-  int seq = 0;
   auto stage = [&](uint32_t bytes) {  // the next item's stage, its bytes expected
     const int s = seq & 1, use = seq >> 1;
     if (use > 0) mbar_wait(empty + s, (uint32_t)((use - 1) & 1));
@@ -367,9 +394,9 @@ __device__ __forceinline__ void fb_produce(const FoldBwdMmaArgs& a, unsigned cha
                     a.wpack + ((size_t)(nh + j) * C + (size_t)h * kHd) * kLdw, part_bytes,
                     full + s);
   };
-  for (long long widx = wbeg; widx < wend; ++widx)
+  for (long long w = wbeg; w < wend; ++w)
     for (int pass = 0; pass < 2; ++pass)
-      for (int h = 0; h < nh; ++h) {
+      for (int h = h0; h < h1; ++h) {
         const bool with_proj = pass == 0 && chunks == 1;
         for (int k = 0; k < chunks; ++k) {
           const int s = stage(chunk_bytes + (with_proj ? npc * part_bytes : 0u));
@@ -387,18 +414,22 @@ __device__ __forceinline__ void fb_produce(const FoldBwdMmaArgs& a, unsigned cha
       }
 }
 
-// dx = LN-vjp(dxa) + dout (or round(dxa) without LN) of strip `strip`'s rows,
-// one row at a time (`dxa`: the strip's fp32 rows, ldx floats apart); the
-// dLN1 column sums per lane into the strip's partial `dln`.
+// dx = LN-vjp(dxa) + dout (or round(dxa) without LN) of strip `strip`'s rows
+// r0, r0 + step, .. (every row: 0, 1; a head group's: its rank, groups), one
+// row at a time (`dxa`: the strip's fp32 rows, ldx floats apart); the dLN1
+// column sums per lane into `dln` (the scale's at dln[c], the bias's at
+// dln[dln_ld + c]: a partial row, dln_ld = C, or a head group's exchange
+// rows; written even where no row is).
 __device__ __forceinline__ void fb_dx_strip(const FoldBwdMmaArgs& a, const float* dxa,
-                                            float* dln, int b, int wi_d, int wi_h, int wi_w,
-                                            int strip, int N, int ldx, bool first, int lane) {
+                                            float* dln, int dln_ld, int b, int wi_d, int wi_h,
+                                            int wi_w, int strip, int N, int ldx, bool first,
+                                            int lane, int r0, int step) {
   const int C = a.C;
   const bool has_ln = a.ln_s != nullptr;
   float cx[kFbMaxC / kWarp], cz[kFbMaxC / kWarp];
 #pragma unroll
   for (int k = 0; k < kFbMaxC / kWarp; ++k) cx[k] = cz[k] = 0.f;
-  for (int r = 0; r < 16; ++r) {
+  for (int r = r0; r < 16; r += step) {
     const long long tr = fb_tok(a, b, wi_d, wi_h, wi_w, strip * 16 + r, N);
     if (tr < 0) break;
     const float* dr = dxa + r * ldx;
@@ -436,15 +467,56 @@ __device__ __forceinline__ void fb_dx_strip(const FoldBwdMmaArgs& a, const float
       const int c = lane + k * kWarp;
       if (c >= C) break;
       own_add(dln + c, cx[k], first);
-      own_add(dln + C + c, cz[k], first);
+      own_add(dln + dln_ld + c, cz[k], first);
     }
   }
 }
 
+// A head group's dLN1 column sums, into the partial `dln` (rank 0): each
+// rank's fb_dx_strip left its sums in its exchange rows, rows q and q +
+// groups of `strip_rows` (a strip's fp32 rows, ldx floats apart) in rank q's
+// shared memory, which no other rank touches; they are added in rank order.
+__device__ __forceinline__ void fb_sum_dln(float* dln, const float* strip_rows, int ldx, int C,
+                                           int groups, bool first, int lane) {
+  for (int c = lane; c < C; c += kWarp) {
+    float x = 0.f, z = 0.f;
+    for (int q = 0; q < groups; ++q) {
+      const float* p = strip_rows + (size_t)q * ldx + c;
+      const float u = ld_cluster_f32(cluster_map(p, (uint32_t)q));
+      const float w = ld_cluster_f32(cluster_map(p + (size_t)groups * ldx, (uint32_t)q));
+      x = q == 0 ? u : x + u;
+      z = q == 0 ? w : z + w;
+    }
+    own_add(dln + c, x, first);
+    own_add(dln + C + c, z, first);
+  }
+}
+
+// A head group's share of a strip's dxa rows: rows r = rank, rank + groups, ..
+// (those of real tokens, strip row strip0 + r < N) of the strip's fp32 rows
+// `rows` (ldx floats apart, C a multiple of 4) summed over the cluster's
+// `groups` blocks in rank order, into this block's rows.  Runs after the
+// cluster barrier that follows every rank's dxa; no other rank reads the rows
+// this rank owns, so they are written in place.
+__device__ __forceinline__ void fb_sum_ranks(float* rows, int ldx, int C, int strip0, int N,
+                                             int rank, int groups, int lane) {
+  for (int r = rank; r < 16 && strip0 + r < N; r += groups)
+    for (int c = 4 * lane; c < C; c += 4 * kWarp) {
+      float* p = rows + (size_t)r * ldx + c;
+      float4 v = ld_cluster_f32x4(cluster_map(p, 0));
+      for (int q = 1; q < groups; ++q) {
+        const float4 u = ld_cluster_f32x4(cluster_map(p, (uint32_t)q));
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(p) = v;
+    }
+}
+
 // kNt = Np / 8 (8 or 14), kHd the head width (16 or 32); kChunked: the slices
 // stream in a.depth_chunks depth chunks (else whole, the instructions of the
-// layout before chunking).
-template <int kNt, int kHd, bool kChunked>
+// layout before chunking); kGrouped: a window's heads split over the a.groups
+// blocks of a cluster (else one block a window).
+template <int kNt, int kHd, bool kChunked, bool kGrouped>
 __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
     fold_attn_bwd_mma_kernel(FoldBwdMmaArgs a) {
   using bf16 = __nv_bfloat16;
@@ -457,9 +529,6 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
   const int N = a.wd * a.wh * a.ww;
   const int chunks = kChunked ? a.depth_chunks : 1, kc = C / chunks;  // depth chunks, rows
   const FbLayout L = fb_layout(N, C, kHd, chunks);
-  const int npc = fb_proj_slices(C, kHd);
-  const uint32_t chunk_bytes = (uint32_t)(sizeof(bf16) * kc * kLdw);
-  const uint32_t part_bytes = (uint32_t)(sizeof(bf16) * kHd * kLdw);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   uint64_t* full = reinterpret_cast<uint64_t*>(sm);
   uint64_t* empty = full + 2;
@@ -468,7 +537,11 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
   const int nwh = a.H / a.wh, nww = a.W / a.ww;
   const int nw = (a.D / a.wd) * nwh * nww;
   const long long total = (long long)a.B * nw;
-  const long long wbeg = (long long)blockIdx.x * a.chunk;
+  const int groups = kGrouped ? a.groups : 1;
+  const int rank = kGrouped ? (int)cluster_ctarank() : 0;
+  const int cl = kGrouped ? (int)blockIdx.x / groups : (int)blockIdx.x;  // the window chunk
+  const int h0 = rank * nh / groups, h1 = (rank + 1) * nh / groups;     // this block's heads
+  const long long wbeg = (long long)cl * a.chunk;
   const long long wend = wbeg + a.chunk < total ? wbeg + a.chunk : total;
 
   if (threadIdx.x == 0) {
@@ -480,41 +553,19 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
   }
   __syncthreads();  // the only block-wide barrier
 
-  if (warp == kStrips) {
-    // producer: per window and head, the chunks of slice h and head h's W_proj
-    // rows (with one chunk, both in one stage), then the slices' chunks again
-    // for dxa
-    if (lane == 0) {
-      int seq = 0;
-      auto stage = [&](uint32_t bytes) {  // the next item's stage, its bytes expected
-        const int s = seq & 1, use = seq >> 1;
-        if (use > 0) mbar_wait(empty + s, (uint32_t)((use - 1) & 1));
-        mbar_expect_tx(full + s, bytes);
-        ++seq;
-        return s;
-      };
-      auto proj_rows = [&](unsigned char* dst, int h, int s) {
-        for (int j = 0; j < npc; ++j)
-          bulk_copy_g2s(dst + (size_t)j * part_bytes,
-                        a.wpack + ((size_t)(nh + j) * C + (size_t)h * kHd) * kLdw, part_bytes,
-                        full + s);
-      };
-      for (long long widx = wbeg; widx < wend; ++widx)
-        for (int pass = 0; pass < 2; ++pass)
-          for (int h = 0; h < nh; ++h) {
-            const bool with_proj = pass == 0 && chunks == 1;
-            for (int k = 0; k < chunks; ++k) {
-              const int s = stage(chunk_bytes + (with_proj ? npc * part_bytes : 0u));
-              unsigned char* dst = ring + (size_t)s * L.stage;
-              bulk_copy_g2s(dst, a.wpack + ((size_t)h * C + (size_t)k * kc) * kLdw, chunk_bytes,
-                            full + s);
-              if (with_proj) proj_rows(dst + chunk_bytes, h, s);
-            }
-            if (pass == 0 && chunks > 1) {
-              const int s = stage(npc * part_bytes);
-              proj_rows(ring + (size_t)s * L.stage, h, s);
-            }
-          }
+  if (warp == kStrips) {  // the producer (fb_produce)
+    int pseq = 0;
+    if constexpr (kGrouped) {
+      for (long long w = wbeg; w < wend; ++w) {  // with the consumers' cluster barriers
+        if (lane == 0)
+          fb_produce<kHd>(a, ring, L.stage, full, empty, chunks, 1, h0, h1, w, w + 1, pseq);
+        __syncwarp();
+        cluster_sync();
+        cluster_sync();
+        cluster_sync();
+      }
+    } else if (lane == 0) {
+      fb_produce<kHd>(a, ring, L.stage, full, empty, chunks, 1, 0, nh, wbeg, wend, pseq);
     }
     return;
   }
@@ -525,12 +576,11 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
   bf16* Pt = reinterpret_cast<bf16*>(sm + L.ptile);
   bf16* Dt = reinterpret_cast<bf16*>(sm + L.dtile);
   float* dxa = reinterpret_cast<float*>(sm + L.dxa) + (size_t)strip * 16 * ldx;
-  const bool has_ln = a.ln_s != nullptr;
   const float pre = 1.f / a.scale, post = a.scale * kLog2e;
   const size_t nn = (size_t)N * N;
-  float* dbias_blk = a.dbias_part + (size_t)blockIdx.x * nh * nn;
-  float* dqkvb = a.dqkvb_part + ((size_t)blockIdx.x * kStrips + strip) * C3;
-  float* dln = a.dln_part + ((size_t)blockIdx.x * kStrips + strip) * 2 * C;
+  float* dbias_blk = a.dbias_part + (size_t)cl * nh * nn;
+  float* dqkvb = a.dqkvb_part + ((size_t)cl * kStrips + strip) * C3;
+  float* dln = a.dln_part + ((size_t)cl * kStrips + strip) * 2 * C;
   int seq = 0;
 
   for (long long widx = wbeg; widx < wend; ++widx) {
@@ -542,6 +592,7 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
     const long long tok1 = fb_tok(a, b, wi_d, wi_h, wi_w, i1, N);
 
     // LN1 (or a copy) of the warp's 16 rows into the row tile, then to row_ws
+    // (by rank 0 of a head group)
     {
       const int r = lane >> 1;
       const long long tr = fb_tok(a, b, wi_d, wi_h, wi_w, strip * 16 + r, N);
@@ -550,7 +601,7 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
                      lane);
     }
     __syncwarp();
-    for (int e = lane; e < 16 * (C / 8); e += kWarp) {
+    for (int e = lane; rank == 0 && e < 16 * (C / 8); e += kWarp) {
       const int r = e / (C / 8), v = e % (C / 8);
       const long long tr = fb_tok(a, b, wi_d, wi_h, wi_w, strip * 16 + r, N);
       if (tr >= 0)
@@ -565,7 +616,7 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
                            : reinterpret_cast<const float4*>(a.maskp) +
                                  ((size_t)win * kStrips + strip) * kNt * kWarp + lane;
 
-    for (int h = 0; h < nh; ++h) {
+    for (int h = h0; h < h1; ++h) {
       bf16* Qb = tiles + (size_t)((h & 1) * 4) * Np * kLdkv;
       bf16* Kb = Qb + (size_t)Np * kLdkv;
       bf16* Vb = Kb + (size_t)Np * kLdkv;
@@ -823,7 +874,7 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
     named_barrier(1, kConsumers);
     for (int e = lane; e < 16 * C; e += kWarp) dxa[(e / C) * ldx + e % C] = 0.f;
     __syncwarp();  // (also makes the warp's dqkv rows visible to all its lanes)
-    for (int h = 0; h < nh; ++h) {
+    for (int h = h0; h < h1; ++h) {
       uint32_t af[3 * kHd / 16][4];  // the warp's round(dqkv) rows of head h (q | k | v)
 #pragma unroll
       for (int ks = 0; ks < 3 * kHd / 16; ++ks) {
@@ -867,53 +918,23 @@ __global__ void __launch_bounds__((kNt / 2 + 1) * kWarp, 1)
       }
     }
 
-    // dx = LN-vjp(dxa) + dout (or round(dxa) without LN), one row at a time;
-    // the dLN1 column sums per lane
-    float cx[kFbMaxC / kWarp], cz[kFbMaxC / kWarp];
-#pragma unroll
-    for (int k = 0; k < kFbMaxC / kWarp; ++k) cx[k] = cz[k] = 0.f;
-    for (int r = 0; r < 16; ++r) {
-      const long long tr = fb_tok(a, b, wi_d, wi_h, wi_w, strip * 16 + r, N);
-      if (tr < 0) break;
-      const float* dr = dxa + r * ldx;
-      if (!has_ln) {
-        for (int c = lane; c < C; c += kWarp)
-          a.dx[tr + c] = __float2bfloat16(
-              dr[c] + (a.residual ? __bfloat162float(a.dout[tr + c]) : 0.f));
-        continue;
-      }
-      float m, rstd;
-      warp_ln_stats(a.x + tr, C, &m, &rstd);
-      float s1 = 0.f, s2 = 0.f;
-      for (int c = lane; c < C; c += kWarp) {
-        const float dxh = dr[c] * a.ln_s[c];
-        s1 += dxh;
-        s2 += dxh * ((__bfloat162float(a.x[tr + c]) - m) * rstd);
-      }
-      s1 = warp_sum(s1) / C;
-      s2 = warp_sum(s2) / C;
-#pragma unroll
-      for (int k = 0; k < kFbMaxC / kWarp; ++k) {
-        const int c = lane + k * kWarp;
-        if (c >= C) break;
-        const float xh = (__bfloat162float(a.x[tr + c]) - m) * rstd;
-        const float v = rstd * (dr[c] * a.ln_s[c] - s1 - xh * s2) +
-                        (a.residual ? __bfloat162float(a.dout[tr + c]) : 0.f);
-        a.dx[tr + c] = __float2bfloat16(v);
-        cx[k] += dr[c] * xh;
-        cz[k] += dr[c];
-      }
+    if constexpr (kGrouped) {
+      cluster_sync();  // every rank's dxa rows are in
+      fb_sum_ranks(dxa, ldx, C, strip * 16, N, rank, groups, lane);
+      __syncwarp();
     }
-    if (has_ln) {
-#pragma unroll
-      for (int k = 0; k < kFbMaxC / kWarp; ++k) {
-        const int c = lane + k * kWarp;
-        if (c >= C) break;
-        own_add(dln + c, cx[k], first);
-        own_add(dln + C + c, cz[k], first);
-      }
+    // dx = LN-vjp(dxa) + dout (or round(dxa) without LN), one row at a time
+    // (a head group's rows r = rank, rank + groups, ..); the dLN1 column sums
+    // per lane (a head group's into its exchange rows: rows rank, rank + groups)
+    fb_dx_strip(a, dxa, kGrouped ? dxa + (size_t)rank * ldx : dln, kGrouped ? groups * ldx : C,
+                b, wi_d, wi_h, wi_w, strip, N, ldx, kGrouped || first, lane, rank, groups);
+    if constexpr (kGrouped) {
+      cluster_sync();  // every rank's dLN1 sums are in
+      if (rank == 0 && a.ln_s != nullptr) fb_sum_dln(dln, dxa, ldx, C, groups, first, lane);
+      cluster_sync();  // the other ranks are done with this block's dxa rows
+    } else {
+      named_barrier(1, kConsumers);  // the next window's tiles overlay other warps' dxa rows
     }
-    named_barrier(1, kConsumers);  // the next window's tiles overlay other warps' dxa rows
   }
 }
 
@@ -989,8 +1010,9 @@ __device__ __forceinline__ void fb_dbias_16keys(float* row0, float* row1, const 
 // a strip picked at run time: unrolled for each of two strips the kernel's
 // instructions doubled, and with 8 warps an SM to hide nothing, instruction
 // count and fetch showed in its time.  d(bias) goes out in 8-byte pairs, a
-// 16-key step's old values read together (fb_dbias_16keys).
-template <int kHd, bool kChunked>
+// 16-key step's old values read together (fb_dbias_16keys).  kGrouped: head
+// groups, as in the one-strip body.
+template <int kHd, bool kChunked, bool kGrouped>
 __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
     fold_attn_bwd_long_kernel(FoldBwdMmaArgs a) {
   using bf16 = __nv_bfloat16;
@@ -1015,7 +1037,11 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
   const int nwh = a.H / a.wh, nww = a.W / a.ww;
   const int nw = (a.D / a.wd) * nwh * nww;
   const long long total = (long long)a.B * nw;
-  const long long wbeg = (long long)blockIdx.x * a.chunk;
+  const int groups = kGrouped ? a.groups : 1;
+  const int rank = kGrouped ? (int)cluster_ctarank() : 0;
+  const int cl = kGrouped ? (int)blockIdx.x / groups : (int)blockIdx.x;  // the window chunk
+  const int h0 = rank * nh / groups, h1 = (rank + 1) * nh / groups;     // this block's heads
+  const long long wbeg = (long long)cl * a.chunk;
   const long long wend = wbeg + a.chunk < total ? wbeg + a.chunk : total;
 
   if (threadIdx.x == 0) {
@@ -1028,7 +1054,19 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
   __syncthreads();  // the only block-wide barrier
 
   if (warp == kFbLongWarps) {
-    if (lane == 0) fb_produce<kHd>(a, ring, L.stage, full, empty, chunks, pitems, wbeg, wend);
+    int pseq = 0;
+    if constexpr (kGrouped) {
+      for (long long w = wbeg; w < wend; ++w) {  // with the consumers' cluster barriers
+        if (lane == 0)
+          fb_produce<kHd>(a, ring, L.stage, full, empty, chunks, pitems, h0, h1, w, w + 1, pseq);
+        __syncwarp();
+        cluster_sync();
+        cluster_sync();
+        cluster_sync();
+      }
+    } else if (lane == 0) {
+      fb_produce<kHd>(a, ring, L.stage, full, empty, chunks, pitems, 0, nh, wbeg, wend, pseq);
+    }
     return;
   }
 
@@ -1046,11 +1084,11 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
   const float pre = 1.f / a.scale, post = a.scale * kLog2e;
   const size_t nn = (size_t)N * N;
   const bool pairs = (N & 1) == 0;  // d(bias) rows keep 8-byte pairs aligned
-  float* dbias_blk = a.dbias_part + (size_t)blockIdx.x * nh * nn;
-  // this warp's (block, warp) partials of dqkv_b and dLN1: its two strips add
+  float* dbias_blk = a.dbias_part + (size_t)cl * nh * nn;
+  // this warp's (chunk, warp) partials of dqkv_b and dLN1: its two strips add
   // into one, the first strip's first window writing it
-  float* dqkvb_w = a.dqkvb_part + ((size_t)blockIdx.x * kFbLongWarps + warp) * C3;
-  float* dln_w = a.dln_part + ((size_t)blockIdx.x * kFbLongWarps + warp) * 2 * C;
+  float* dqkvb_w = a.dqkvb_part + ((size_t)cl * kFbLongWarps + warp) * C3;
+  float* dln_w = a.dln_part + ((size_t)cl * kFbLongWarps + warp) * 2 * C;
   const int phases = (kStrips + group - 1) / group;
   constexpr size_t kHeadStep = (size_t)kStrips * kNt * kWarp;  // packed entries of a head
   int seq = 0;
@@ -1066,8 +1104,8 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
       tok[j][1] = fb_tok(a, b, wi_d, wi_h, wi_w, strip[j] * 16 + g + 8, N);
     }
 
-    // LN1 (or a copy) of the warp's rows into the row tile, then to row_ws (the
-    // strips in a run-time loop: one copy of the code)
+    // LN1 (or a copy) of the warp's rows into the row tile, then to row_ws (by
+    // rank 0 of a head group; the strips in a run-time loop: one copy of the code)
 #pragma unroll 1
     for (int st = warp; st < kStrips; st += kFbLongWarps) {
       const int r = lane >> 1;
@@ -1076,7 +1114,7 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
                      reinterpret_cast<uint4*>(rowt + (size_t)(st * 16 + r) * ldr), 1, nullptr,
                      lane);
       __syncwarp();
-      for (int e = lane; e < 16 * (C / 8); e += kWarp) {
+      for (int e = lane; rank == 0 && e < 16 * (C / 8); e += kWarp) {
         const int rr = e / (C / 8), v = e % (C / 8);
         const long long tt = fb_tok(a, b, wi_d, wi_h, wi_w, st * 16 + rr, N);
         if (tt >= 0)
@@ -1090,7 +1128,7 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
                                              : reinterpret_cast<const float4*>(a.maskp) +
                                                    (size_t)win * kHeadStep + lane;
 
-    for (int h = 0; h < nh; ++h) {
+    for (int h = h0; h < h1; ++h) {
       // (a) q, k, v of both strips, the slice's chunks in order
       float qa[kSpw][kQt][4];
 #pragma unroll
@@ -1404,7 +1442,7 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
       for (int e = lane; e < 16 * C; e += kWarp) dr[(e / C) * ldx + e % C] = 0.f;
     }
     __syncwarp();  // (also makes the warp's dqkv rows visible to all its lanes)
-    for (int h = 0; h < nh; ++h) {
+    for (int h = h0; h < h1; ++h) {
       uint32_t af[kSpw][3 * kHd / 16][4];  // the warp's round(dqkv) rows of head h (q | k | v)
 #pragma unroll
       for (int j = 0; j < kSpw; ++j)
@@ -1455,31 +1493,79 @@ __global__ void __launch_bounds__((kFbLongWarps + 1) * kWarp, 1)
         if (lane == 0) mbar_arrive(empty + s);
       }
     }
+    if constexpr (kGrouped) {
+      cluster_sync();  // every rank's dxa rows are in
+#pragma unroll 1
+      for (int st = warp; st < kStrips; st += kFbLongWarps)
+        fb_sum_ranks(dxa + (size_t)st * 16 * ldx, ldx, C, st * 16, N, rank, groups, lane);
+      __syncwarp();
+    }
+    // dx = LN-vjp(dxa) + dout (or round(dxa) without LN) of the warp's strips;
+    // a head group's dLN1 sums into the exchange rows of the warp's first strip
+    float* xch = kGrouped ? dxa + ((size_t)warp * 16 + rank) * ldx : dln_w;
 #pragma unroll 1
     for (int st = warp; st < kStrips; st += kFbLongWarps)
-      fb_dx_strip(a, dxa + (size_t)st * 16 * ldx, dln_w, b, wi_d, wi_h, wi_w, st, N, ldx,
-                  first && st == warp, lane);
-    named_barrier(1, kConsumers);  // the next window's row tile overlays other warps' dxa rows
+      fb_dx_strip(a, dxa + (size_t)st * 16 * ldx, xch, kGrouped ? groups * ldx : C, b, wi_d,
+                  wi_h, wi_w, st, N, ldx, (kGrouped || first) && st == warp, lane, rank, groups);
+    if constexpr (kGrouped) {
+      cluster_sync();  // every rank's dLN1 sums are in
+      if (rank == 0 && a.ln_s != nullptr)
+        fb_sum_dln(dln_w, dxa + (size_t)warp * 16 * ldx, ldx, C, groups, first, lane);
+      cluster_sync();  // the other ranks are done with this block's dxa rows
+    } else {
+      named_barrier(1, kConsumers);  // the next window's row tile overlays other warps' dxa rows
+    }
   }
+}
+
+// One launch of `kernel` on `blocks` blocks of `threads`, in clusters of
+// a.groups blocks (cudaLaunchKernelEx) where heads split into groups.
+template <class Kernel>
+cudaError_t launch_fb(Kernel kernel, const FoldBwdMmaArgs& a, unsigned blocks, unsigned threads,
+                      size_t smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (a.groups == 1) {
+    kernel<<<blocks, threads, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.groups;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <bool kChunked>
 cudaError_t launch_fb_long(const FoldBwdMmaArgs& a, unsigned blocks, size_t smem,
                            cudaStream_t stream) {
-  const cudaError_t err = allow_smem(fold_attn_bwd_long_kernel<16, kChunked>, smem);
-  if (err != cudaSuccess) return err;
-  fold_attn_bwd_long_kernel<16, kChunked><<<blocks, (kFbLongWarps + 1) * kWarp, smem, stream>>>(a);
-  return cudaGetLastError();
+  constexpr unsigned kThreads = (kFbLongWarps + 1) * kWarp;
+  return a.groups > 1
+             ? launch_fb(fold_attn_bwd_long_kernel<16, kChunked, true>, a, blocks, kThreads, smem,
+                         stream)
+             : launch_fb(fold_attn_bwd_long_kernel<16, kChunked, false>, a, blocks, kThreads,
+                         smem, stream);
 }
 
 template <int kNt, int kHd, bool kChunked>
 cudaError_t launch_fb_instance(const FoldBwdMmaArgs& a, unsigned blocks, size_t smem,
                                cudaStream_t stream) {
-  const cudaError_t err = allow_smem(fold_attn_bwd_mma_kernel<kNt, kHd, kChunked>, smem);
-  if (err != cudaSuccess) return err;
-  fold_attn_bwd_mma_kernel<kNt, kHd, kChunked>
-      <<<blocks, (kNt / 2 + 1) * kWarp, smem, stream>>>(a);
-  return cudaGetLastError();
+  constexpr unsigned kThreads = (kNt / 2 + 1) * kWarp;
+  return a.groups > 1
+             ? launch_fb(fold_attn_bwd_mma_kernel<kNt, kHd, kChunked, true>, a, blocks, kThreads,
+                         smem, stream)
+             : launch_fb(fold_attn_bwd_mma_kernel<kNt, kHd, kChunked, false>, a, blocks,
+                         kThreads, smem, stream);
 }
 
 template <int kNt, int kHd>
@@ -1489,35 +1575,39 @@ cudaError_t launch_fb_as(const FoldBwdMmaArgs& a, unsigned blocks, size_t smem,
                             : launch_fb_instance<kNt, kHd, false>(a, blocks, smem, stream);
 }
 
-inline int fb_chunk(long long windows) {
-  return (int)((windows + kFbBlocks - 1) / kFbBlocks);
+constexpr int kFbMaxGroups = 8;  // the portable cluster size
+
+// Windows a block (with head groups: a cluster) walks, so that about
+// kFbBlocks blocks run: ops/fold_attn.py:fold_bwd_blocks mirrors it.
+inline int fb_chunk(long long windows, int groups) {
+  return (int)((windows * groups + kFbBlocks - 1) / kFbBlocks);
 }
 
 struct FbWorkspace {
   size_t row, o, dqkv, dqkvb, dln, dbias, atb, bytes;
-  int blocks, chunk, strips;
+  int chunks, blocks, chunk, strips;  // chunks: of windows, one a cluster; blocks: chunks x groups
 };
 
 inline FbWorkspace fb_workspace(int B, int D, int H, int W, int C, int nh, int wd, int wh,
-                                int ww) {
+                                int ww, int groups) {
   const int n = wd * wh * ww;
   const size_t T = (size_t)B * D * H * W, bf = 2;
   const long long windows = (long long)B * (D / wd) * (H / wh) * (W / ww);
   FbWorkspace l;
-  l.chunk = fb_chunk(windows);
-  l.blocks = (int)((windows + l.chunk - 1) / l.chunk);
+  l.chunk = fb_chunk(windows, groups);
+  l.chunks = (int)((windows + l.chunk - 1) / l.chunk);
+  l.blocks = l.chunks * groups;
   // partial rows a block: a strip's, or in the long layout a warp's (two strips)
   l.strips = fa_padded_rows(n) == kFaLongTokens ? kFbLongWarps : fa_padded_rows(n) / 16;
-  const size_t rows = (size_t)l.blocks * l.strips;
   const size_t atb_a = atb_mma_partial_floats((int)T, C, 3 * C);
   const size_t atb_b = atb_mma_partial_floats((int)T, C, C);
   size_t o = 0;
   l.row = o;   o = align256(o + bf * T * C);
   l.o = o;     o = align256(o + bf * T * C);
   l.dqkv = o;  o = align256(o + bf * T * 3 * C);
-  l.dqkvb = o; o = align256(o + sizeof(float) * rows * 3 * C);
-  l.dln = o;   o = align256(o + sizeof(float) * rows * 2 * C);
-  l.dbias = o; o = align256(o + sizeof(float) * l.blocks * nh * (size_t)n * n);
+  l.dqkvb = o; o = align256(o + sizeof(float) * l.chunks * l.strips * 3 * C);
+  l.dln = o;   o = align256(o + sizeof(float) * l.chunks * l.strips * 2 * C);
+  l.dbias = o; o = align256(o + sizeof(float) * l.chunks * nh * (size_t)n * n);
   l.atb = o;   o = align256(o + sizeof(float) * (atb_a > atb_b ? atb_a : atb_b));
   l.bytes = o;
   return l;
@@ -1532,26 +1622,28 @@ long long vadcl_fold_attn_bwd_bf16_smem_bytes(int n, int c, int nh) {
 }
 
 long long vadcl_fold_attn_bwd_bf16_workspace_bytes(int B, int D, int H, int W, int C, int nh,
-                                                   int wd, int wh, int ww) {
-  return (long long)vadcl::fb_workspace(B, D, H, W, C, nh, wd, wh, ww).bytes;
+                                                   int wd, int wh, int ww, int groups) {
+  return (long long)vadcl::fb_workspace(B, D, H, W, C, nh, wd, wh, ww, groups).bytes;
 }
 
-// Partials of d(bias) (nH x N x N floats each) this body sums: one per chunk.
+// Partials of d(bias) (nH x N x N floats each) this body sums: one per chunk
+// of windows (a cluster of `groups` blocks with head groups).
 long long vadcl_fold_attn_bwd_bf16_dbias_partials(int B, int D, int H, int W, int C, int nh,
-                                                  int wd, int wh, int ww) {
-  return (long long)vadcl::fb_workspace(B, D, H, W, C, nh, wd, wh, ww).blocks;
+                                                  int wd, int wh, int ww, int groups) {
+  return (long long)vadcl::fb_workspace(B, D, H, W, C, nh, wd, wh, ww, groups).chunks;
 }
 
 // x, dout (B, D, H, W, C) bf16; wpack, biasp, maskp: kernel A's packs
 // (ops/fold_attn.py); qkv_b (3C,) fp32 (zeros without a bias); the gradients
-// fp32 except dx (bf16).
+// fp32 except dx (bf16).  groups: the head groups a window's heads split into
+// (ops/fold_attn.py:fold_bwd_head_groups; a divisor of nh, at most 8).
 int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
                              const float* ln_b, const void* wpack, const float* qkv_b,
                              const float* biasp, const float* maskp, void* dx, float* dln_s,
                              float* dln_b, float* dqkv_w, float* dqkv_b, float* dproj_w,
                              float* dproj_b, float* dbias, void* workspace, int B, int D, int H,
                              int W, int C, int nh, int wd, int wh, int ww, int sd, int sh, int sw,
-                             float scale, int residual, void* stream) {
+                             float scale, int residual, int groups, void* stream) {
   using namespace vadcl;
   using bf16 = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1559,9 +1651,10 @@ int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
   if (B <= 0 || D % wd || H % wh || W % ww || !fb_eligible(n, C, nh))
     return cudaErrorInvalidValue;
   if ((ln_s != nullptr) != (residual != 0)) return cudaErrorInvalidValue;
+  if (groups < 1 || groups > kFbMaxGroups || nh % groups) return cudaErrorInvalidValue;
   const int hd = C / nh, chunks = fb_depth_chunks(n, C, hd);
   const size_t smem = fb_block_layout(n, C, hd, chunks).bytes;
-  const FbWorkspace l = fb_workspace(B, D, H, W, C, nh, wd, wh, ww);
+  const FbWorkspace l = fb_workspace(B, D, H, W, C, nh, wd, wh, ww, groups);
   char* ws = static_cast<char*>(workspace);
   FoldBwdMmaArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(dout), ln_s, ln_b,
                    static_cast<const bf16*>(wpack), qkv_b, biasp, maskp, static_cast<bf16*>(dx),
@@ -1569,7 +1662,8 @@ int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
                    reinterpret_cast<bf16*>(ws + l.dqkv),
                    reinterpret_cast<float*>(ws + l.dqkvb), reinterpret_cast<float*>(ws + l.dln),
                    reinterpret_cast<float*>(ws + l.dbias),
-                   B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, residual, l.chunk, chunks};
+                   B, D, H, W, C, nh, wd, wh, ww, sd, sh, sw, scale, residual, l.chunk, chunks,
+                   groups};
   cudaError_t err;
   const bool wide = fa_padded_rows(n) == kFaMaxTokens;
   if (fa_padded_rows(n) == kFaLongTokens)  // head width 16 (fb_eligible)
@@ -1581,7 +1675,7 @@ int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
     err = wide ? launch_fb_as<14, 32>(a, l.blocks, smem, s) : launch_fb_as<8, 32>(a, l.blocks, smem, s);
   if (err != cudaSuccess) return err;
   // the second pass
-  const int T = B * D * H * W, rows = l.blocks * l.strips;
+  const int T = B * D * H * W, rows = l.chunks * l.strips;
   float* part = reinterpret_cast<float*>(ws + l.atb);
   if ((err = launch_atb_mma(a.row_ws, nullptr, a.dqkv_ws, nullptr, T, C, 3 * C, part, dqkv_w,
                             nullptr, s)))
@@ -1594,7 +1688,7 @@ int vadcl_fold_attn_bwd_bf16(const void* x, const void* dout, const float* ln_s,
     if ((err = launch_sum_rows(a.dln_part, dln_s, rows, C, 2 * C, s))) return err;
     if ((err = launch_sum_rows(a.dln_part + C, dln_b, rows, C, 2 * C, s))) return err;
   }
-  return launch_sum_rows(a.dbias_part, dbias, l.blocks, (long long)nh * n * n,
+  return launch_sum_rows(a.dbias_part, dbias, l.chunks, (long long)nh * n * n,
                          (long long)nh * n * n, s);
 }
 

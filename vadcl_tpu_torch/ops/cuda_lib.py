@@ -90,10 +90,10 @@ _SIGNATURES = {
     "vadcl_ln_mlp_bwd_slab_shape": ([_I], _I),
     "vadcl_ln_mlp_bwd_slab_smem_bytes": ([_I] * 2, _L),
     "vadcl_ln_mlp_bwd_slab_workspace_bytes": ([_I] * 3, _L),
-    "vadcl_fold_attn_bwd_bf16": ([_P] * 17 + [_I] * 12 + [_F, _I, _P], _I),
+    "vadcl_fold_attn_bwd_bf16": ([_P] * 17 + [_I] * 12 + [_F, _I, _I, _P], _I),
     "vadcl_fold_attn_bwd_bf16_smem_bytes": ([_I] * 3, _L),
-    "vadcl_fold_attn_bwd_bf16_workspace_bytes": ([_I] * 9, _L),
-    "vadcl_fold_attn_bwd_bf16_dbias_partials": ([_I] * 9, _L),
+    "vadcl_fold_attn_bwd_bf16_workspace_bytes": ([_I] * 10, _L),
+    "vadcl_fold_attn_bwd_bf16_dbias_partials": ([_I] * 10, _L),
     "vadcl_cluster_assign": ([_P] * 6 + [_I] * 3 + [_F, _P], _I),
     "vadcl_cluster_assign_scratch": ([_I] * 3, _L),
     "vadcl_cluster_assign_shape": ([_I], _I),

@@ -33,7 +33,8 @@ bf16 at head width 16 or 32 and at most 112 tokens (at head width 16, 208),
 mma.sync registers, kernel A's packs, d(bias) summed per chunk of windows,
 the second pass on the tensor cores; above 112 tokens its long layout, two
 strips a warp, P and ds through shared memory a phase of query strips at a
-time); fp32 and other bf16 geometries the
+time; where windows are fewer than SMs, a window's heads split over the
+blocks of a thread-block cluster, ``fold_bwd_head_groups``); fp32 and other bf16 geometries the
 shared-memory body of ``csrc/fold_attn_bwd.cu`` (``fold_attention_bwd_tiles``
 counts its launches).
 
@@ -292,6 +293,36 @@ def fold_bwd_mma_smem_bytes(n: int, c: int, num_heads: int) -> int:
     in two ring items).  Where no chunking fits, the whole-slice size."""
     hd = c // num_heads
     return _fold_bwd_mma_bytes(n, c, hd, max(fold_depth_chunks(n, c, num_heads, True), 1))
+
+
+FOLD_BWD_BLOCKS = 132  # kernel 6's grid target (``kFbBlocks``): one block an SM
+FOLD_BWD_MAX_GROUPS = 8  # most head groups a window's cluster takes (the portable cluster size)
+
+
+def fold_bwd_head_groups(windows: int, n: int, c: int, num_heads: int) -> int:
+    """Head groups kernel 6's tensor-core body splits a window's heads into
+    (``csrc/fold_attn_bwd_mma.cu``: a cluster of that many blocks a window,
+    each taking ``num_heads / groups`` heads): 1 where the ``windows`` already
+    fill the card's ``FOLD_BWD_BLOCKS`` SMs and in the whole-slice
+    instances (one depth chunk below 113 tokens: the flagship's), else the
+    largest divisor of ``num_heads`` up to ``FOLD_BWD_MAX_GROUPS`` that keeps
+    ``windows * groups`` within ``FOLD_BWD_BLOCKS`` (2 at the 64 windows of a
+    batch-4 step's encoder stage 1 at 8 frames, and of the Video Swin-B
+    width's encoder stage 1 and decoder stage 0).  Only for geometries
+    ``fold_bwd_body`` gives ``"mma"``."""
+    if (fold_padded_rows(n) != FOLD_LONG_MAX_TOKENS
+            and fold_depth_chunks(n, c, num_heads, backward=True) <= 1):
+        return 1
+    return max((g for g in range(1, FOLD_BWD_MAX_GROUPS + 1)
+                if num_heads % g == 0 and windows * g <= FOLD_BWD_BLOCKS), default=1)
+
+
+def fold_bwd_blocks(windows: int, groups: int) -> int:
+    """Blocks of kernel 6's tensor-core launch (``fb_workspace``): chunks of
+    ``ceil(windows * groups / FOLD_BWD_BLOCKS)`` windows, one cluster of
+    ``groups`` blocks each."""
+    chunk = -(-windows * groups // FOLD_BWD_BLOCKS)
+    return -(-windows // chunk) * groups
 
 
 def fold_bwd_body(n: int, c: int, num_heads: int, dtype: torch.dtype) -> Optional[str]:
@@ -1516,8 +1547,9 @@ def _fold_attention_bwd_cuda(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
 def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
                             bias, mask, num_heads, window, scale, shift, residual,
                             counter=None):
-    """Kernel 6's tensor-core body, on kernel A's packs of the same tensors.
-    The launch counts on ``counter`` (default: ``fold_attention_bwd``)."""
+    """Kernel 6's tensor-core body, on kernel A's packs of the same tensors,
+    a window's heads split into ``fold_bwd_head_groups`` groups.  The launch
+    counts on ``counter`` (default: ``fold_attention_bwd``)."""
     lib = cuda_lib.library()
     _check_fold("fold_attention_bwd", x, bias, mask, num_heads, window,
                 lambda n, c, nh, _: lib.vadcl_fold_attn_bwd_bf16_smem_bytes(n, c, nh),
@@ -1535,8 +1567,10 @@ def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
     dqkv_w, dqkv_b = torch.empty(C, 3 * C, **f32), torch.empty(3 * C, **f32)
     dproj_w, dproj_b = torch.empty(C, C, **f32), torch.empty(C, **f32)
     dbias = torch.empty(num_heads, n, n, **f32)
+    windows = B * (D // window[0]) * (H // window[1]) * (W // window[2])
+    groups = fold_bwd_head_groups(windows, n, C, num_heads)
     ws = torch.empty(
-        lib.vadcl_fold_attn_bwd_bf16_workspace_bytes(B, D, H, W, C, num_heads, *window),
+        lib.vadcl_fold_attn_bwd_bf16_workspace_bytes(B, D, H, W, C, num_heads, *window, groups),
         dtype=torch.uint8, device=dev,
     )
     # the forward's packs of these tensor versions (cache hits within a step)
@@ -1551,7 +1585,7 @@ def _fold_attention_bwd_mma(x, dout, ln_scale, ln_bias, qkv_w, qkv_b, proj_w,
         dqkv_w.data_ptr(), dqkv_b.data_ptr(), dproj_w.data_ptr(), dproj_b.data_ptr(),
         dbias.data_ptr(), ws.data_ptr(),
         B, D, H, W, C, num_heads, *window, shift[0] % D, shift[1] % H, shift[2] % W,
-        float(scale), int(residual), cuda_lib.stream_ptr(xc),
+        float(scale), int(residual), groups, cuda_lib.stream_ptr(xc),
     )
     cuda_lib.check(err, "fold_attention_bwd")
     (counter or fold_attention_bwd).launches += 1
