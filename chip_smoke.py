@@ -167,20 +167,24 @@ Phases (any failure raises and the script exits non-zero):
      kernels of replayed steps in the trace against ``graph=False`` steps
      of the same state; a ``"packed"``, ``"fold_packed"`` or
      ``"fold_mix"`` train step is refused before any launch.
-  6. data parallelism: the flagship ``fold`` train step under
-     ``DistributedDataParallel`` on an in-process NCCL group of world size
-     1, 3 steps at batch 4, against the one-process step from the same
-     weights on the same batches (and the one-process step repeated, the
-     card's own run-to-run spread): the loss sums all-reduced and the
-     gradients summed every step, the training kernels launched every step,
-     the losses and parameters within the bounds of ``DDP_STEPS``' comment;
-     its step time beside the FLOP count of a training step
-     (``FlopCounterMode`` on the plain model) and the bf16 peak.  Then,
-     in the same group of one, 2 ``convae`` steps at batch 4 (full width,
-     bf16) against one process: the bank's maxima all-reduced over NCCL
-     (``global_max``) and its buffer rebound under DDP every step, the
-     losses and parameters within the same bounds and the bank within the
-     bf16 bank bound (``utils/parity.py``'s ``check_bank``).
+  6. data parallelism: the flagship ``fold`` train step in an in-process
+     NCCL group of world size 1, ``CAPTURED_TRAIN_STEPS`` steps at batch
+     4, captured (the default: the loss sums and the gradients' one
+     all-reduce inside the graph), ``graph=False`` and a captured control
+     with its last replay skipped, against the one-process step from the
+     same weights on the same batches (and that step repeated, the card's
+     own spread): the wrappers' launches, the reductions made in Python
+     (the steps before the capture and the capture), the losses and
+     parameters within the bounds of the comment above ``DDP_CHECK_TIMEOUT``,
+     captured against eager within phase 18's bound, which the control
+     breaks; turns (eager, graph, graph, eager) of host-clock ms, busy ms
+     and idle share, the port's and NCCL's kernels of replayed steps those
+     of eager steps (the trace); the step's FLOP rate beside the bf16 peak.
+     The same for ``convae`` (full width, bf16): the bank's maxima and sums
+     reduced over the group inside the replay, each step's bank update kept
+     on the device, the bank within the bf16 bank bound of one process
+     (``utils/parity.py``'s ``check_bank``).  With two or more cards,
+     ``tools/ddp_check_torch.py`` (captured) as 2 processes.
   7. the attention-kernel autotune (``measure_attn_kernels``): base, packed,
      fold and fold_packed through a Swin block's attention half at batch 32,
      kernels 7, 9, A and 10 and nothing else launched; both picks.
@@ -212,17 +216,20 @@ Phases (any failure raises and the script exits non-zero):
      within the bf16 score bound (``utils/parity.py``), two calls the same
      bits; windows/s of artifact and live, device-busy ms and host ops of a
      traced call of each.
-  11. the train-step leftovers at full width: ``train()`` 2 steps at batch 4
+  11. the train-step leftovers at full width: ``train()`` 4 steps at batch 4
      in bf16 under ``"fold"`` and ``"base"`` with ``drop_rate`` 0.1 and
-     ``drop_path_rate`` 0.2: exactly A and 6 (or 7 and 8) in every block
-     each way, C and D, no kernel B or 5 and no whole-block kernel; the
-     fused step against the plain-attention model with the same masks in
-     fp32 (loss and every gradient, phase 3b's bounds); host-clock ms,
-     device-busy ms and host ops of the dropout step beside the rate-0
-     step's, and the time of one mask draw; ``remat`` on against off in
-     bf16 with masks drawn (each gradient within the bf16 bound, and the
-     run without remat repeated for the card's own spread); one LARS step
-     on the card's gradients against the float64 plain update.
+     ``drop_path_rate`` 0.2, captured: exactly A and 6 (or 7 and 8) in every
+     block each way, C and D, no kernel B or 5 and no whole-block kernel;
+     the fused step against the plain-attention model with the same masks in
+     fp32 (loss and every gradient, phase 3b's bounds); turns of host-clock
+     ms, busy ms and idle share of the dropout step and the rate-0 step,
+     eager and captured, and the time of one mask draw; under ``"fold"`` the
+     captured dropout step against ``graph=False`` at the same steps, every
+     mask recorded (the same bits, another mask at each step, the kept
+     shares within a binomial bound); ``remat`` on against off in bf16 with
+     masks drawn (each gradient within the bf16 bound, and the run without
+     remat repeated for the card's own spread); one LARS step on the card's
+     gradients against the float64 plain update.
   12. tensor parallelism by turns at full width (224^2, 4-frame predict,
      bf16, batch 4) under ``"fold"`` and ``"fold_block"`` at model sizes 2
      and 4 (``parallel/tp.py:model_parallel_by_turns``): each virtual rank's
@@ -305,6 +312,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -4368,17 +4376,34 @@ def phase_swin_b(smi: str) -> dict:
     return counts
 
 
-DDP_STEPS = 3
-# phase 6 holds the data-parallel step against the one-process step on the
-# same global batch and weights: the losses to the bf16 kernel bound
+# Phases 6 and 18: the train step captured against eager.  Each path's three runs
+# (eager, eager again, captured, and the control: captured with its last
+# replay skipped) take CAPTURED_TRAIN_STEPS steps from one seeded init on the
+# same batches (the captured ones: 2 eager steps, the capture, replays).  Adam
+# moves every weight by about lr a step, and the card's run-to-run summation
+# order (cuDNN's convolution backward, the kernels' atomic sums) flips the
+# sign of near-zero gradients, which moves those weights by 2 lr: so the
+# largest difference cannot tell a run that stepped from one that did not.
+# The comparison is instead, over every element the first eager run moved,
+# the median of |run - eager| / |eager - init|.  The captured run must stay
+# within the larger of CAPTURED_TRAIN_SPREAD times the second eager run's and
+# CAPTURED_TRAIN_FLOOR; the control (a step's worth off, about
+# 1/CAPTURED_TRAIN_STEPS) must not.  A path whose eager runs agree bit for bit
+# must agree bit for bit captured.  Then turns of TURN_STEPS steps (eager,
+# graph, graph, eager).
+CAPTURED_TRAIN_STEPS = 4
+CAPTURED_TRAIN_SPREAD = 3.0
+CAPTURED_TRAIN_FLOOR = 0.01
+# Phase 6 also holds each data-parallel run against the one-process step on
+# the same global batch and weights: the losses to the bf16 kernel bound
 # (DDP_LOSS_RTOL), the parameters to the trajectory tests' Adam bound
 # (utils/parity.py's check_adam_bound, the key biases apart).
 DDP_CHECK_TIMEOUT = 600  # seconds for tools/ddp_check_torch.py's 2 processes
-DDP_ZOO_STEPS = 2  # phase 6's convae steps in the group of one
 # the reductions a convae step makes over the group: the pixel loss's sum,
 # the memory losses' two sums and two counts, the update's sum of
 # exponentials and w.T @ q (loss_sums); its two maxima (bank_maxima)
 DDP_ZOO_SUMS, DDP_ZOO_MAXIMA = 7, 2
+NCCL_KERNEL = re.compile(r"nccl", re.IGNORECASE)  # NCCL's kernels, by the profiler's names
 
 
 def _free_port() -> int:
@@ -4393,13 +4418,14 @@ def _free_port() -> int:
 def counting_data_parallel():
     """While open, counts the loss sums all-reduced in the forward
     (``train.step.global_sum``), the memory bank's maxima all-reduced in
-    its update (``train.step.global_max``) and the gradient buckets
-    all-reduced by DDP's hook (``train.step._sum_gradients``): yields a
-    dict."""
+    its update (``train.step.global_max``) and the gradient sums over the
+    group (``train.step.sum_gradients``: one a step, every parameter in one
+    buffer): yields a dict.  The counts are Python calls: a captured step's
+    warm-up steps and its capture count, its replays do not."""
     from vadcl_tpu_torch.train import step
 
-    seen = {"loss_sums": 0, "grad_buckets": 0, "bank_maxima": 0}
-    real_sum, real_max, real_hook = step.global_sum, step.global_max, step._sum_gradients
+    seen = {"loss_sums": 0, "grad_sums": 0, "bank_maxima": 0}
+    real_sum, real_max, real_grads = step.global_sum, step.global_max, step.sum_gradients
 
     def counted_sum(t, group=None):
         seen["loss_sums"] += 1
@@ -4409,15 +4435,15 @@ def counting_data_parallel():
         seen["bank_maxima"] += 1
         return real_max(t, group)
 
-    def counted_hook(group, bucket):
-        seen["grad_buckets"] += 1
-        return real_hook(group, bucket)
+    def counted_grads(flat, group):
+        seen["grad_sums"] += 1
+        return real_grads(flat, group)
 
-    step.global_sum, step.global_max, step._sum_gradients = counted_sum, counted_max, counted_hook
+    step.global_sum, step.global_max, step.sum_gradients = counted_sum, counted_max, counted_grads
     try:
         yield seen
     finally:
-        step.global_sum, step.global_max, step._sum_gradients = real_sum, real_max, real_hook
+        step.global_sum, step.global_max, step.sum_gradients = real_sum, real_max, real_grads
 
 
 def train_flops_per_clip(cfg, size: int = 224) -> float:
@@ -4474,7 +4500,7 @@ def ddp_check_two_cards(*args: str, control: bool = False, procs: int = 2) -> di
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
          str(procs), os.path.join(root, "tools", "ddp_check_torch.py"), "--global-batch", "4",
-         "--steps", str(DDP_STEPS), *args] + (["--per-rank-bank"] if control else []),
+         "--steps", str(CAPTURED_TRAIN_STEPS), *args] + (["--per-rank-bank"] if control else []),
         capture_output=True, text=True, timeout=DDP_CHECK_TIMEOUT, cwd=root)
     lines = [l for l in out.stdout.splitlines() if l.startswith("{")]
     if (out.returncode != 0) != control or not lines:
@@ -4489,26 +4515,154 @@ def ddp_check_two_cards(*args: str, control: bool = False, procs: int = 2) -> di
     return result
 
 
+def moved_median(params, ref, start) -> float:
+    """Phase 18's measure of a run against ``ref``: over every element
+    ``ref`` moved from ``start``, the median of |run - ref| / |ref - start|
+    (the comment above ``CAPTURED_TRAIN_STEPS``)."""
+    with torch.no_grad():
+        ratios = []
+        for p, q, q0 in zip(params, ref, start):
+            moved = (q.detach() - q0).abs()
+            ratios.append((p.detach() - q.detach()).abs()[moved > 0] / moved[moved > 0])
+        return float(torch.cat(ratios).median())
+
+
+def ddp_run(cfg, init, clips, graph=None, skip=None, record_bank=False) -> dict:
+    """``make_train_step`` (``graph`` as it takes it) from a copy of
+    ``init`` over ``clips`` at the global batch (in a process group: this
+    process's shard, the whole batch in a group of one): the model, state,
+    step function, per-step losses and host-clock seconds, and with
+    ``record_bank`` each step's bank update (its queries' top-1 slots, their
+    score gaps and the new bank: ``recording_bank_updates(on_device=True)``, which a replay
+    rewrites).  ``skip``: that step is counted and not run (the control)."""
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+    from vadcl_tpu_torch.utils.parity import last_update, recording_bank_updates
+
+    model = copy.deepcopy(init).to(DEV)
+    state = create_train_state(model, cfg)
+    step_fn = make_train_step(model, cfg, steps_per_epoch=10, graph=graph)
+    losses, times, updates = [], [], []
+    recording = recording_bank_updates(on_device=True) if record_bank else contextlib.nullcontext()
+    with recording as kept:
+        for i, c in enumerate(clips):
+            if i == skip:
+                state.step += 1
+                continue
+            batch = torch.from_numpy(c).to(DEV)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step_fn(state, batch).loss))
+            times.append(time.perf_counter() - t0)
+            if record_bank:
+                updates.append(last_update(kept))
+    return dict(model=model, state=state, step=step_fn, losses=losses, times=times,
+                slots=[u["slots"] for u in updates], gaps=[u["gap"] for u in updates],
+                new=[u["new"] for u in updates])
+
+
+def data_parallel_turns(label: str, graph_run: dict, eager_run: dict, clip, smi: str) -> dict:
+    """Turns (eager, graph, graph, eager) of ``step_turn`` on the two runs'
+    step functions and states in the open group: host-clock ms, busy ms and
+    the unclipped idle share a step, and from the traces the port's and
+    NCCL's kernels of the replayed steps, which must be those of the eager
+    steps, by name and count."""
+    turns = turns_against_eager(
+        label, lambda x: eager_run["step"](eager_run["state"], x),
+        lambda x: graph_run["step"](graph_run["state"], x), clip, smi, also=NCCL_KERNEL)
+    nccl = {who: sum(n for k, n in ts[0]["kernels"].items() if NCCL_KERNEL.search(k))
+            / TRACED_STEPS for who, ts in turns.items()}
+    captures = graph_run["step"].graph.captures
+    if torch.distributed.get_world_size() == 1:
+        print(f"  {label}: NCCL kernels a step: replayed {nccl['graph']:g}, eager "
+              f"{nccl['eager']:g}: no check of the captured all-reduce (in a group of one NCCL "
+              f"runs an in-place sum or maximum as no kernel; two cards or more show it, "
+              f"tools/ddp_check_torch.py); captures {captures}")
+    else:
+        print(f"  {label}: NCCL kernels a step: replayed {nccl['graph']:g}, eager "
+              f"{nccl['eager']:g}; captures {captures}")
+    if captures != 1:
+        raise AssertionError(f"{label}: the step captured {captures} times, not once")
+    return turn_readings(turns) | {"nccl_kernels_a_step": nccl}
+
+
+def check_data_parallel_path(label: str, cfg, init, ref: dict, again: dict, got: dict,
+                             bank: bool, smi: str) -> None:
+    """Phase 6's checks of one path's runs (``phase_ddp``): ``ref`` and
+    ``again`` the one-process runs, ``got`` the group's (``graph``,
+    ``eager``, ``control``)."""
+    from vadcl_tpu_torch.utils.parity import (
+        BANK_BOUNDS, DDP_LOSS_RTOL, check_adam_bound, check_bank,
+    )
+
+    steps = CAPTURED_TRAIN_STEPS
+    print(f"  {label} losses: captured {got['graph']['losses']}, graph=False "
+          f"{got['eager']['losses']}; one process {ref['losses']}, again {again['losses']}")
+    for who, r in (("one process again", again), ("captured", got["graph"]),
+                   ("graph=False", got["eager"])):
+        check_close(f"{label}, {who}, loss", torch.tensor(r["losses"]),
+                    torch.tensor(ref["losses"]), 0.0, DDP_LOSS_RTOL)
+        b = check_adam_bound(f"{label}, {who}", dict(r["model"].named_parameters()),
+                             dict(ref["model"].named_parameters()), cfg.optim.lr, steps,
+                             key_biases_apart=label == "fold")
+        print(f"  {label}, {who}: {b['same']} of {b['tensors']} parameter tensors bit for "
+              f"bit equal to one process; largest difference {b['worst']:.3e} (bound "
+              f"{b['bound']:.3e}), at most {b['beyond']:.2%} of a tensor beyond one lr")
+    start = [p.detach().to(DEV) for p in init.parameters()]
+    params = {who: list(r["model"].parameters())
+              for who, r in (("ref", ref), ("again", again), *got.items())}
+    rel = moved_median(params["graph"], params["eager"], start)
+    spread = moved_median(params["again"], params["ref"], start)
+    control = moved_median(params["control"], params["eager"], start)
+    bound = max(CAPTURED_TRAIN_SPREAD * spread, CAPTURED_TRAIN_FLOOR)
+    print(f"  {label}: the median over the elements graph=False moved of |run - eager| / "
+          f"|eager - init|: captured {rel:.3e}, the control {control:.3e}; one process "
+          f"again against one process {spread:.3e}; bound {bound:.3e}")
+    if not rel <= bound < control:
+        raise AssertionError(f"{label}: the captured data-parallel step left the eager one "
+                             f"({rel:.3e} > {bound:.3e}) or the control passed "
+                             f"({control:.3e})")
+    if bank:
+        ref_slots, ref_gaps = torch.cat(ref["slots"]), torch.cat(ref["gaps"])
+        bb = BANK_BOUNDS[torch.bfloat16]
+        for who, r in (("again", again), ("captured", got["graph"]),
+                       ("graph=False", got["eager"])):
+            k = check_bank(f"{label}, {who}, bank", r["model"].convae.memory.keys,
+                           ref["model"].convae.memory.keys, torch.cat(r["slots"]),
+                           ref_slots, ref_gaps, bb)
+            print(f"  {label}, {who}: bank rows within {k['worst']:.3e} of one process "
+                  f"(bound {bb[0]:g}), {k['moved']} of {len(ref_slots)} queries sent to "
+                  f"another slot (largest gap {k['gap_apart']:.3e}, tie bound {bb[1]:g}), "
+                  f"{k['rows_apart']} rows left out [{smi}]")
+            if not torch.equal(r["model"].convae.memory.keys.cpu(), r["new"][-1]):
+                raise AssertionError(f"{label}, {who}: the model does not hold its last "
+                                     "bank update")
+
+
 def phase_ddp(smi: str) -> dict:
-    """The flagship ``fold`` train step under ``DistributedDataParallel`` in
-    a process group of one process on NCCL, started as a torchrun launch
-    starts it (``core.mesh.maybe_initialize_distributed`` from the
-    launcher's variables), 3 steps at batch 4, against the one-process
-    ``make_train_step`` from the same weights on the same batches; the
-    data-parallel run must launch the training path's kernels every step
-    (and no plain version on the card), all-reduce the three loss sums a
-    step and sum the gradients through the hook.  Prints the step's time
-    and FLOP rate beside the card's peak.  Where two or more cards are
-    visible, ``tools/ddp_check_torch.py`` then runs as 2 processes at half
-    batch each against one process (the train step and the eval), for the
-    flagship, for ``convae`` (the bank gated too) and for its control
-    (``--per-rank-bank``, which the bank gate must refuse).  Last, in the
-    same group of one, ``DDP_ZOO_STEPS`` ``convae`` steps (full
-    width, bf16) against the one-process step and the one-process step
-    repeated: the losses and bank maxima reduced over NCCL every step,
-    the losses and parameters within the same bounds, the bank within the
-    bf16 bank bound (``check_bank``: a query sent to another slot only at
-    a near tie)."""
+    """The flagship ``fold`` train step data-parallel in a process group of
+    one process on NCCL, started as a torchrun launch starts it
+    (``core.mesh.maybe_initialize_distributed`` from the launcher's
+    variables), ``CAPTURED_TRAIN_STEPS`` steps at batch 4: captured (the
+    default: 2 eager steps, the capture, replays, the loss sums and the
+    gradient sum inside the graph), ``graph=False``, and the captured run
+    with its last replay skipped (the control), against the one-process
+    step (``graph=False``) from the same weights on the same batches and
+    that step repeated (the card's own spread).  The wrappers' launches of
+    the training path's kernels (no plain version on the card) and the
+    group's reductions in Python (the eager steps and the capture); the
+    losses within ``DDP_LOSS_RTOL`` and the parameters within
+    ``check_adam_bound`` of one process; captured against eager within
+    phase 18's bound, which the control breaks; turns (eager, graph, graph,
+    eager) of host-clock ms, busy ms and idle share, and the port's and
+    NCCL's kernels of replayed steps in the trace those of eager steps;
+    the step's FLOP rate beside the card's peak.  The same for ``convae``
+    (full width, bf16), whose bank's maxima and sums are reduced over the
+    group inside the replay: the bank against one process's
+    (``check_bank`` at the bf16 bound) and captured against eager.  Where
+    two or more cards are visible, ``tools/ddp_check_torch.py`` (captured)
+    then runs as 2 processes at half batch each against one process, for
+    the flagship, for ``convae`` and for its control (``--per-rank-bank``,
+    which the bank gate must refuse)."""
     from vadcl_tpu_torch.core.mesh import (
         is_distributed,
         maybe_initialize_distributed,
@@ -4516,151 +4670,99 @@ def phase_ddp(smi: str) -> dict:
         shutdown_distributed,
     )
     from vadcl_tpu_torch.models import VADModel
-    from vadcl_tpu_torch.train import create_train_state, make_train_step
     from vadcl_tpu_torch.utils.flops import device_peak_tflops, mfu_pct
-    from vadcl_tpu_torch.utils.parity import (
-        BANK_BOUNDS, DDP_LOSS_RTOL, check_adam_bound, check_bank, recording_bank_updates,
-    )
 
+    steps = CAPTURED_TRAIN_STEPS
     cards = torch.cuda.device_count()
-    print(f"[6] data-parallel training, fold, bf16: {DDP_STEPS} steps at batch {TRAIN_BATCH} "
-          f"through DistributedDataParallel, one process on NCCL from torchrun's variables "
-          f"({cards} card(s) visible: "
-          f"{'then 2 processes at batch 2 each' if cards >= 2 else 'no 2-process run'}), "
-          f"against one process")
-    cfg = flagship_train_config("fold")
-    clips = np.random.RandomState(4).randint(
-        0, 256, (DDP_STEPS, TRAIN_BATCH, 4, 224, 224, 3)).astype(np.uint8)
-    init = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0))
-
-    def run():
-        model = copy.deepcopy(init).to(DEV)
-        state = create_train_state(model, cfg)
-        step_fn = make_train_step(model, cfg, steps_per_epoch=10)
-        losses, times = [], []
-        for c in clips:
-            batch = torch.from_numpy(c).to(DEV)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses.append(float(step_fn(state, batch).loss))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return model, losses, times
-
-    zoo_cfg = zoo_train_config("convae")
-    zoo_clips = np.random.RandomState(7).randint(
-        0, 256, (DDP_ZOO_STEPS, TRAIN_BATCH, 4, ZOO_SIZE, ZOO_SIZE, 3)).astype(np.uint8)
-    zoo_init = zoo_model(zoo_cfg, torch.bfloat16)
-
-    def run_zoo():
-        model = copy.deepcopy(zoo_init).to(DEV)
-        state = create_train_state(model, zoo_cfg)
-        step_fn = make_train_step(model, zoo_cfg, steps_per_epoch=10)
-        with recording_bank_updates() as rec:
-            losses = [float(step_fn(state, torch.from_numpy(c).to(DEV)).loss)
-                      for c in zoo_clips]
-        return model, losses, rec
-
-    ref_model, ref_losses, ref_times = run()
-    # the one-process step again: the card's own run-to-run spread (cuDNN's
-    # convolution backward may sum in another order from one call to the next)
-    again_model, again_losses, again_times = run()
-    zoo_ref, zoo_again = run_zoo(), run_zoo()
+    print(f"[6] data-parallel training, bf16, batch {TRAIN_BATCH}, {steps} steps: one process "
+          f"on NCCL from torchrun's variables, captured, graph=False and the captured control "
+          f"(its last replay skipped), against one process ({cards} card(s) visible: "
+          f"{'then 2 processes at batch 2 each' if cards >= 2 else 'no 2-process run'})")
+    paths = {
+        "fold": (flagship_train_config("fold"),
+                 VADModel(flagship_train_config("fold").model, torch.bfloat16,
+                          torch.Generator().manual_seed(0)),
+                 np.random.RandomState(4).randint(
+                     0, 256, (steps, TRAIN_BATCH, 4, 224, 224, 3)).astype(np.uint8)),
+        "convae": (zoo_train_config("convae"), zoo_model(zoo_train_config("convae"),
+                                                         torch.bfloat16),
+                   np.random.RandomState(7).randint(
+                       0, 256, (steps, TRAIN_BATCH, 4, ZOO_SIZE, ZOO_SIZE, 3)).astype(np.uint8)),
+    }
+    bank = {"convae": True, "fold": False}
+    # the one-process references, before the group exists
+    refs = {label: [ddp_run(cfg, init, clips, graph=False, record_bank=bank[label])
+                    for _ in range(2)] for label, (cfg, init, clips) in paths.items()}
+    runs, seen, launches, turns = {}, {}, {}, {}
     with torchrun_env_of_one():
         if not maybe_initialize_distributed("cuda") or process_count() != 1:
             raise AssertionError("maybe_initialize_distributed did not start a group of one")
         try:
             print(f"  process group: {torch.distributed.get_backend()}, world size "
                   f"{process_count()}, card {torch.cuda.current_device()}")
-            reset_launches()
-            with plain_versions_refuse_the_card(), counting_partitions() as parts, \
-                    counting_data_parallel() as seen:
-                model, losses, times = run()
-            counts = {"fold_attention_bwd": 18 * DDP_STEPS, "ln_mlp_bwd": 18 * DDP_STEPS}
-            launches = read_launches(TRAINING_KERNELS["fold"], "data-parallel training, fold",
-                                     counts, heads=DDP_STEPS)
-            check_partitions("data-parallel training, fold", parts[0], 0)
-            reset_launches()
-            with plain_versions_refuse_the_card(), counting_data_parallel() as zoo_seen:
-                zoo_ddp = run_zoo()
-            read_launches(set(), "data-parallel training, convae")
+            for label, (cfg, init, clips) in paths.items():
+                got = runs[label] = {}
+                for how, graph in (("graph", None), ("eager", False)):
+                    reset_launches()
+                    with plain_versions_refuse_the_card(), counting_partitions() as parts, \
+                            counting_data_parallel() as seen[label, how]:
+                        got[how] = ddp_run(cfg, init, clips, graph, record_bank=bank[label])
+                    calls = GRAPH_CALLS if how == "graph" else steps
+                    path = f"data-parallel training, {label}, {how}"
+                    if label == "fold":
+                        launches[how] = read_launches(
+                            TRAINING_KERNELS["fold"], path,
+                            {"fold_attention_bwd": 18 * calls, "ln_mlp_bwd": 18 * calls},
+                            heads=calls)
+                        check_partitions(path, parts[0], 0)
+                    else:
+                        read_launches(set(), path)
+                    want = ((3, 0) if label == "fold" else (DDP_ZOO_SUMS, DDP_ZOO_MAXIMA))
+                    s = seen[label, how]
+                    print(f"  {path}: in Python (the steps before the capture and the "
+                          f"capture), loss sums all-reduced {s['loss_sums']}, bank maxima "
+                          f"{s['bank_maxima']}, gradient sums {s['grad_sums']}")
+                    if (s["loss_sums"], s["bank_maxima"], s["grad_sums"]) != (
+                            want[0] * calls, want[1] * calls, calls):
+                        raise AssertionError(f"{path}: the step did not reduce its losses, "
+                                             "bank and gradients over the group every step")
+                got["control"] = ddp_run(cfg, init, clips, skip=steps - 1)
+                check_data_parallel_path(label, cfg, init, *refs.pop(label), got, bank[label],
+                                         smi)
+                # (after the checks: the turns step the two runs on)
+                turns[label] = data_parallel_turns(
+                    f"data-parallel {label}", got["graph"], got["eager"],
+                    torch.from_numpy(clips[0]).to(DEV), smi)
+                del runs[label], got
+                torch.cuda.empty_cache()
         finally:
             shutdown_distributed()
     if is_distributed():
         raise AssertionError("the process group outlived the phase")
-    print(f"  loss sums all-reduced: {seen['loss_sums']}; gradient buckets summed: "
-          f"{seen['grad_buckets']}")
-    if seen["loss_sums"] != 3 * DDP_STEPS or seen["grad_buckets"] < DDP_STEPS:
-        raise AssertionError("the data-parallel step did not all-reduce its loss sums and "
-                             "gradients every step")
-    print(f"  losses: data-parallel {losses}; one process {ref_losses}, again {again_losses}")
-    check_close("one process again, loss", torch.tensor(again_losses), torch.tensor(ref_losses),
-                0.0, DDP_LOSS_RTOL)
-    check_close("data-parallel loss", torch.tensor(losses), torch.tensor(ref_losses), 0.0,
-                DDP_LOSS_RTOL)
-    ref = dict(ref_model.named_parameters())
-    for label, m in (("one process again", again_model), ("data-parallel", model)):
-        b = check_adam_bound(label, dict(m.named_parameters()), ref, cfg.optim.lr, DDP_STEPS)
-        print(f"  {label}: {b['same']} of {b['tensors']} parameter tensors bit for bit equal "
-              f"to one process; largest difference {b['worst']:.3e} (bound {b['bound']:.3e}), "
-              f"at most {b['beyond']:.2%} of a tensor beyond one lr (bound 2%), key biases "
-              f"apart")
-    flops = train_flops_per_clip(cfg)
-    step_s = float(np.median(times[1:]))
-    rate = flops * TRAIN_BATCH / step_s
+
+    flops = train_flops_per_clip(paths["fold"][0])
+    step_ms = float(np.median([t["ms"] for t in turns["fold"]["graph"]]))
+    rate = flops * TRAIN_BATCH / (step_ms / 1e3)
     peak = device_peak_tflops()
     mfu = mfu_pct(rate, peak)
-    print(f"  step time (median of steps 2-{DDP_STEPS}, host clock): data-parallel "
-          f"{step_s * 1e3:.1f} ms, one process {float(np.median(ref_times[1:])) * 1e3:.1f} ms "
-          f"(first run), {float(np.median(again_times[1:])) * 1e3:.1f} ms (again); "
-          f"{flops / 1e9:.2f} GFLOP a clip (FlopCounterMode on the plain model) -> "
-          f"{rate / 1e12:.2f} TFLOP/s = {mfu if mfu is None else round(mfu, 2)}% of the "
-          f"{peak} TFLOP/s bf16 peak [{smi}]")
+    print(f"  fold, captured: {flops / 1e9:.2f} GFLOP a clip (FlopCounterMode on the plain "
+          f"model) over the graph turns' {step_ms:.2f} ms a step -> {rate / 1e12:.2f} TFLOP/s "
+          f"= {mfu if mfu is None else round(mfu, 2)}% of the {peak} TFLOP/s bf16 peak [{smi}]")
     if cards >= 2:
         two = ddp_check_two_cards()
-        print(f"  2 processes (tools/ddp_check_torch.py, NCCL): losses within "
+        print(f"  2 processes (tools/ddp_check_torch.py, NCCL, captured): losses within "
               f"{two['loss_rel_err']:.3e} of one process (bound {two['loss_bound']}), the same "
               f"parameters on every process, AUC {two['auc']} against one process's "
-              f"{two['one_process_auc']}; step ms {two['step_ms']} [{two['card']}]")
-        bank = ddp_check_two_cards("--backbone", "convae")
-        control = ddp_check_two_cards("--backbone", "convae", control=True)
-        print(f"  2 processes, convae: the bank within {bank['bank_rows_diff']:.3e} of one "
-              f"process (bound {bank['bank_bound']:g}), {bank['bank_queries_apart']} queries sent "
-              f"to another slot; the control (--per-rank-bank) {control['bank_max_diff']:.3e} "
-              f"apart, refused [{bank['card']}]")
+              f"{two['one_process_auc']}; turns {two['turns']} [{two['card']}]")
+        bank2 = ddp_check_two_cards("--backbone", "convae")
+        control2 = ddp_check_two_cards("--backbone", "convae", control=True)
+        print(f"  2 processes, convae: the bank within {bank2['bank_rows_diff']:.3e} of one "
+              f"process (bound {bank2['bank_bound']:g}), {bank2['bank_queries_apart']} queries "
+              f"sent to another slot; the control (--per-rank-bank) "
+              f"{control2['bank_max_diff']:.3e} apart, refused [{bank2['card']}]")
     else:
         print("  2 processes: not run (one card visible)")
-    print(f"  convae, {DDP_ZOO_STEPS} steps at batch {TRAIN_BATCH}, {ZOO_SIZE}^2, bf16: loss sums "
-          f"all-reduced {zoo_seen['loss_sums']}, bank maxima all-reduced "
-          f"{zoo_seen['bank_maxima']}, gradient buckets summed {zoo_seen['grad_buckets']}")
-    if (zoo_seen["loss_sums"] != DDP_ZOO_SUMS * DDP_ZOO_STEPS
-            or zoo_seen["bank_maxima"] != DDP_ZOO_MAXIMA * DDP_ZOO_STEPS
-            or zoo_seen["grad_buckets"] < DDP_ZOO_STEPS):
-        raise AssertionError("the data-parallel convae step did not reduce its losses, its "
-                             "bank's update and its gradients over the group every step")
-    z_model, z_losses, z_rec = zoo_ddp
-    print(f"  convae losses: data-parallel {z_losses}; one process {zoo_ref[1]}, again "
-          f"{zoo_again[1]}")
-    ref = dict(zoo_ref[0].named_parameters())
-    for label, (m, zl, rec) in (("convae, one process again", zoo_again),
-                                ("convae, data-parallel", zoo_ddp)):
-        check_close(f"{label}, loss", torch.tensor(zl), torch.tensor(zoo_ref[1]), 0.0,
-                    DDP_LOSS_RTOL)
-        b = check_adam_bound(label, dict(m.named_parameters()), ref, zoo_cfg.optim.lr,
-                             DDP_ZOO_STEPS, key_biases_apart=False)
-        k = check_bank(f"{label}, bank", m.convae.memory.keys, zoo_ref[0].convae.memory.keys,
-                       torch.cat([c["slots"] for c in rec]),
-                       torch.cat([c["slots"] for c in zoo_ref[2]]),
-                       torch.cat([c["gap"] for c in zoo_ref[2]]), BANK_BOUNDS[torch.bfloat16])
-        print(f"  {label}: parameters {b['same']} of {b['tensors']} tensors bit for bit, "
-              f"largest difference {b['worst']:.3e} (bound {b['bound']:.3e}); bank rows within "
-              f"{k['worst']:.3e} (bound {BANK_BOUNDS[torch.bfloat16][0]:g}), {k['moved']} of "
-              f"{sum(len(c['slots']) for c in rec)} queries sent to another slot (largest gap "
-              f"{k['gap_apart']:.3e}, tie bound {BANK_BOUNDS[torch.bfloat16][1]:g}), "
-              f"{k['rows_apart']} rows left out [{smi}]")
-    if not torch.equal(z_model.convae.memory.keys.cpu(), z_rec[-1]["new"]):
-        raise AssertionError("the data-parallel convae model does not hold its last update")
-    return launches
+    return launches["graph"]
 
 
 def phase_autotune(smi: str) -> dict:
@@ -5004,14 +5106,15 @@ def port_kernel_names() -> frozenset:
     return frozenset(names)
 
 
-def port_launches(device_events: dict) -> dict:
+def port_launches(device_events: dict, also=None) -> dict:
     """Of ``{device event name: count}``, the port's kernels (each name as
-    the profiler gives it, its template arguments included)."""
+    the profiler gives it, its template arguments included), and those
+    whose name the regex ``also`` finds."""
     ours = port_kernel_names()
     out = {}
     for name, n in device_events.items():
         base = re.search(r"(\w+_kernel)\b", name)
-        if base is not None and base.group(1) in ours:
+        if (base is not None and base.group(1) in ours) or (also and also.search(name)):
             out[name] = n
     return out
 
@@ -5019,7 +5122,7 @@ def port_launches(device_events: dict) -> dict:
 TRACE_LEAD = 4  # marker kernels the profiler traces before the call
 
 
-def traced_call(fn, lead: bool = False) -> tuple:
+def traced_call(fn, lead: bool = False, also=None) -> tuple:
     """(device-busy ms, host ``aten::`` ops, the port's kernels the device
     ran) of one call of ``fn``: the sum of the durations of the device work
     the profiler traced in it, the ATen operators the host dispatched, and
@@ -5029,7 +5132,7 @@ def traced_call(fn, lead: bool = False) -> tuple:
     apart, so that the trace is live before the call's first kernel;
     ``lead``: ``fn`` runs once more before them, and only the device
     events after the last marker are read (the first events of a trace
-    can be lost)."""
+    can be lost).  ``also``: ``port_launches``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):  # (a trace now and then comes back empty: read again)
@@ -5058,7 +5161,8 @@ def traced_call(fn, lead: bool = False) -> tuple:
         host_ops = sum(e.device_type == torch.autograd.DeviceType.CPU
                        and e.name.startswith("aten::") for e in events)
         if busy > 0:
-            return busy, host_ops, port_launches(collections.Counter(e.name for e in work))
+            return busy, host_ops, port_launches(collections.Counter(e.name for e in work),
+                                                 also)
     raise AssertionError("the profiler traced no device work")
 
 
@@ -5372,24 +5476,6 @@ def phase_captured_scoring(smi: str) -> dict:
     return out
 
 
-# Phase 18: the train step captured against eager.  Each path's three runs
-# (eager, eager again, captured, and the control: captured with its last
-# replay skipped) take CAPTURED_TRAIN_STEPS steps from one seeded init on the
-# same batches (the captured ones: 2 eager steps, the capture, replays).  Adam
-# moves every weight by about lr a step, and the card's run-to-run summation
-# order (cuDNN's convolution backward, the kernels' atomic sums) flips the
-# sign of near-zero gradients, which moves those weights by 2 lr: so the
-# largest difference cannot tell a run that stepped from one that did not.
-# The comparison is instead, over every element the first eager run moved,
-# the median of |run - eager| / |eager - init|.  The captured run must stay
-# within the larger of CAPTURED_TRAIN_SPREAD times the second eager run's and
-# CAPTURED_TRAIN_FLOOR; the control (a step's worth off, about
-# 1/CAPTURED_TRAIN_STEPS) must not.  A path whose eager runs agree bit for bit
-# must agree bit for bit captured.  Then turns of TURN_STEPS steps (eager,
-# graph, graph, eager).
-CAPTURED_TRAIN_STEPS = 4
-CAPTURED_TRAIN_SPREAD = 3.0
-CAPTURED_TRAIN_FLOOR = 0.01
 TURN_STEPS, TRACED_STEPS = 4, 2  # a turn's untraced steps, then its traced ones
 # kernel 6's launches a step in head groups (a cluster of blocks a window, the
 # kGrouped instances) on phase 18's paths: the 64-window stages at batch 4
@@ -5414,12 +5500,13 @@ def captured_train_paths() -> dict:
     }
 
 
-def step_turn(step, clip) -> dict:
+def step_turn(step, clip, also=None) -> dict:
     """One turn of ``step(clip)``: host-clock ms a step over
     ``TURN_STEPS`` untraced steps, then the profiler's device-busy ms a
-    step, host aten ops a step and the port's kernels over ``TRACED_STEPS``
-    traced ones (traced again after a lead step while a kernel's count is
-    not a whole number of times ``TRACED_STEPS``: the trace lost events)."""
+    step, host aten ops a step and the port's kernels (and those ``also``
+    finds, ``port_launches``) over ``TRACED_STEPS`` traced ones (traced
+    again after a lead step while a kernel's count is not a whole number of
+    times ``TRACED_STEPS``: the trace lost events)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TURN_STEPS):
@@ -5428,13 +5515,44 @@ def step_turn(step, clip) -> dict:
     wall = (time.perf_counter() - t0) / TURN_STEPS * 1e3
     n = TRACED_STEPS
     for lead in (False, True, True):
-        busy, ops, kernels = traced_call(lambda: [step(clip) for _ in range(n)], lead)
+        busy, ops, kernels = traced_call(lambda: [step(clip) for _ in range(n)], lead, also)
         if all(k % n == 0 for k in kernels.values()):
             break
     else:
         raise AssertionError(f"three traces lost events: {kernels} over {n} steps")
     return {"ms": wall, "busy_ms": busy / n, "host_ops": ops / n,
             "idle": 1 - busy / n / wall, "kernels": kernels}
+
+
+def turns_against_eager(label: str, eager, graph, clip, smi: str, also=None) -> dict:
+    """Turns (eager, graph, graph, eager) of ``step_turn`` of the step
+    functions ``eager`` and ``graph`` on ``clip``, each printed; fails
+    unless the port's kernels (and those ``also`` finds) of the replayed
+    steps are those of the eager steps, by name and count.  Returns the
+    turns, their kernels included."""
+    turns = {"eager": [], "graph": []}
+    for who in ("eager", "graph", "graph", "eager"):
+        turns[who].append(step_turn(eager if who == "eager" else graph, clip, also))
+    for who, ts in turns.items():
+        print(f"  {label}, {who}: " + "; ".join(
+            f"{t['ms']:.2f} ms a step (host clock), {t['busy_ms']:.2f} ms device busy, idle "
+            f"{t['idle']:.1%}, {t['host_ops']:.0f} host aten ops" for t in ts) + f" [{smi}]")
+    replayed, eager_kernels = turns["graph"][0]["kernels"], turns["eager"][0]["kernels"]
+    print(f"  {label}: the kernels of {TRACED_STEPS} replayed steps the same names and counts "
+          f"as {TRACED_STEPS} eager steps: {replayed == eager_kernels}")
+    if replayed != eager_kernels:
+        differ = {k: (replayed.get(k, 0), eager_kernels.get(k, 0))
+                  for k in set(replayed) | set(eager_kernels)
+                  if replayed.get(k) != eager_kernels.get(k)}
+        raise AssertionError(f"{label}: the replays ran other kernels than the eager steps "
+                             f"(replayed, eager): {differ}")
+    return turns
+
+
+def turn_readings(turns: dict) -> dict:
+    """``turns`` without their kernels."""
+    return {w: [{k: v for k, v in t.items() if k != "kernels"} for t in ts]
+            for w, ts in turns.items()}
 
 
 def captured_training_path(label: str, cfg, smi: str) -> dict:
@@ -5471,19 +5589,13 @@ def captured_training_path(label: str, cfg, smi: str) -> dict:
     (a, eager_fn), (b, _), (c, graph_fn) = run(False), run(False), run(True)
     d, _ = run(True, skip=CAPTURED_TRAIN_STEPS - 1)
     with torch.no_grad():
-        moved = [(q.detach() - q0).abs() for q, q0 in zip(a.model.parameters(), start)]
-
-        def median(run):
-            """The median over the elements eager moved of |run - eager| / |eager - init|."""
-            return float(torch.cat([
-                ((p.detach() - q.detach()).abs()[m > 0] / m[m > 0]) for p, q, m in
-                zip(run.model.parameters(), a.model.parameters(), moved)]).median())
-
         def largest(run):
             return max(float((p - q).abs().max()) for p, q in zip(
                 run.model.parameters(), a.model.parameters()))
 
-        rel, again, control = median(c), median(b), median(d)
+        rel, again, control = (moved_median(list(r.model.parameters()),
+                                            list(a.model.parameters()), start)
+                               for r in (c, b, d))
         diff, spread = largest(c), largest(b)
     bound = max(CAPTURED_TRAIN_SPREAD * again, CAPTURED_TRAIN_FLOOR)
     captures = graph_fn.graph.captures
@@ -5500,7 +5612,7 @@ def captured_training_path(label: str, cfg, smi: str) -> dict:
     if not control > bound:
         raise AssertionError(f"{label}: the control passed ({control:.3e} <= {bound:.3e}): "
                              "the comparison cannot tell a skipped step")
-    del b, d, moved, start
+    del b, d, start
 
     # a clip with a NaN, replayed: every parameter, moment and count held (the
     # memory bank, as the JAX step's extras, is written whatever the loss)
@@ -5531,24 +5643,15 @@ def captured_training_path(label: str, cfg, smi: str) -> dict:
     eager_fn(a, clip)
     for _ in range(GRAPH_CALLS):
         graph_fn(c, clip)
-    turns = {"eager": [], "graph": []}
-    for who in ("eager", "graph", "graph", "eager"):
-        step = (lambda x: eager_fn(a, x)) if who == "eager" else (lambda x: graph_fn(c, x))
-        turns[who].append(step_turn(step, clip))
-    for who, ts in turns.items():
-        print(f"  {who}: " + "; ".join(
-            f"{t['ms']:.2f} ms a step (host clock), {t['busy_ms']:.2f} ms device busy, idle "
-            f"{t['idle']:.1%}, {t['host_ops']:.0f} host aten ops" for t in ts) + f" [{smi}]")
+    turns = turns_against_eager(label, lambda x: eager_fn(a, x), lambda x: graph_fn(c, x),
+                                clip, smi)
     table = kernel_table(lambda: graph_fn(c, clip), top=10)
     print(f"  a replayed step's longest kernels (profiler, ms, launches): "
           + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in table))
-    replayed, eager = turns["graph"][0]["kernels"], turns["eager"][0]["kernels"]
-    print(f"  the port's kernels of {TRACED_STEPS} replayed steps the same names and counts "
-          f"as {TRACED_STEPS} eager steps: {replayed == eager}; captures "
-          f"{graph_fn.graph.captures}")
-    if replayed != eager or graph_fn.graph.captures != 2:
-        raise AssertionError(f"{label}: the replays ran other kernels than the eager steps, "
-                             f"or the step captured other than once per clip dtype")
+    replayed = turns["graph"][0]["kernels"]
+    print(f"  captures {graph_fn.graph.captures}")
+    if graph_fn.graph.captures != 2:
+        raise AssertionError(f"{label}: the step captured other than once per clip dtype")
     grouped = sum(k for name, k in replayed.items() if GROUPED_KERNEL.search(name))
     want = CAPTURED_GROUPED.get(label, 0) * TRACED_STEPS
     print(f"  kernel 6 in head groups (cluster launches) in the replays: {grouped} over "
@@ -5560,8 +5663,7 @@ def captured_training_path(label: str, cfg, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"median_rel": rel, "eager_median_rel": again, "control_median_rel": control,
             "bound": bound, "max_abs_diff": diff, "eager_spread": spread, "kernel_table": table,
-            "turns": {w: [{k: v for k, v in t.items() if k != "kernels"} for t in ts]
-                      for w, ts in turns.items()}}
+            "turns": turn_readings(turns)}
 
 
 def _train_state_tensors(state) -> list:
@@ -5593,7 +5695,7 @@ def phase_captured_training(smi: str) -> dict:
 
 
 DROP_RATES = dict(drop_rate=0.1, drop_path_rate=0.2)
-DROP_STEPS = 2
+DROP_STEPS = CAPTURED_TRAIN_STEPS  # train()'s steps: 2 eager, the capture, a replay
 # A step that draws masks: the attention kernel without LN and residual
 # forward and backward in every block (A and 6 under fold; 7 and 8, on A's
 # and 6's bodies, under base), C and D; no kernel B or 5, no whole-block
@@ -5603,7 +5705,6 @@ DROP_KERNELS = {
     "base": {"window_attention_fused", "window_attention_fused_bwd", "cluster_assign",
              "space_cluster_loss"},
 }
-DROP_TIMED_STEPS = 5
 
 
 def _drop_config(kernel: str, depths=None, **model):
@@ -5623,40 +5724,127 @@ def _loss_grads(model, cfg, clip, step: int = 0):
                            if p.grad is not None}
 
 
-def _step_times(cfg, dtype) -> tuple:
-    """(host-clock ms a step over ``DROP_TIMED_STEPS`` untraced steps,
-    device-busy ms and host aten ops of one traced step) of
-    ``make_train_step`` at batch 4, eager (the dropout step runs eagerly:
-    the rate-0 step beside it too)."""
+DROP_KEEP_SIGMAS = 4  # the kept share's binomial bound, in standard deviations
+
+
+@contextlib.contextmanager
+def recording_masks():
+    """While open, every mask ``models.layers.keep_mask`` draws is also
+    copied into a buffer kept per (site, shape), made at its first draw
+    (a step before the capture: those run eagerly), so that a replay writes
+    its own step's masks there; yields the dict of buffers."""
+    from vadcl_tpu_torch.models import layers
+
+    real, bufs = layers.keep_mask, {}
+
+    def recorded(site, shape, keep, device):
+        mask = real(site, shape, keep, device)
+        bufs.setdefault((site, tuple(shape), keep), torch.empty_like(mask)).copy_(mask)
+        return mask
+
+    layers.keep_mask = recorded
+    try:
+        yield bufs
+    finally:
+        layers.keep_mask = real
+
+
+def captured_masks_match_eager(cfg, smi: str) -> dict:
+    """``CAPTURED_TRAIN_STEPS`` steps of ``cfg`` (masks drawn) captured and
+    ``graph=False`` from one seeded init on the same batches: every mask of
+    every step the same bits both ways (the replays draw their own steps'
+    masks from the device clock), each element site's mask another at each
+    step, and each step's kept share of the element masks and of the
+    drop-path masks within ``DROP_KEEP_SIGMAS`` binomial standard
+    deviations of 1 - rate; the losses within ``DDP_LOSS_RTOL``."""
+    from vadcl_tpu_torch.models import VADModel
+    from vadcl_tpu_torch.train import create_train_state, make_train_step
+    from vadcl_tpu_torch.utils.parity import DDP_LOSS_RTOL
+
+    init = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0))
+    clips = MemLoader(TRAIN_BATCH, CAPTURED_TRAIN_STEPS).data
+    runs = {}
+    for graph in (None, False):
+        model = copy.deepcopy(init).to(DEV).train()
+        state = create_train_state(model, cfg)
+        step_fn = make_train_step(model, cfg, steps_per_epoch=1000, graph=graph)
+        masks, losses = [], []
+        with recording_masks() as bufs:
+            for c in clips:
+                losses.append(float(step_fn(state, torch.from_numpy(c).to(DEV)).loss))
+                masks.append({k: b.clone() for k, b in bufs.items()})
+        runs["eager" if graph is False else "graph"] = (masks, losses, step_fn)
+    (gm, gl, gfn), (em, el, _) = runs["graph"], runs["eager"]
+    same = all(g.keys() == e.keys() and all(torch.equal(g[k], e[k]) for k in e)
+               for g, e in zip(gm, em))
+    elements = [k for k in em[0] if math.prod(k[1][1:]) > 1]
+    paths = [k for k in em[0] if math.prod(k[1][1:]) == 1]
+    moved = all(not torch.equal(em[i][k], em[i + 1][k])
+                for i in range(len(em) - 1) for k in elements)
+    shares = []
+    for kind, keys in (("elements", elements), ("drop-path samples", paths)):
+        for i, step in enumerate(em):
+            for keep in sorted({k[2] for k in keys}):
+                n = sum(step[k].numel() for k in keys if k[2] == keep)
+                kept = sum(int(step[k].sum()) for k in keys if k[2] == keep)
+                sigma = math.sqrt(n * keep * (1 - keep))
+                shares.append((abs(kept - n * keep) / sigma, kind, i, keep, kept / n, n))
+    worst = max(shares)
+    print(f"  {len(em[0])} mask sites a step ({len(elements)} of elements, {len(paths)} "
+          f"drop-path), {CAPTURED_TRAIN_STEPS} steps: captured the same bits as graph=False "
+          f"at every step: {same}; every element site another mask at each step: {moved}; "
+          f"kept shares {sorted({(s[1], round(s[4], 4)) for s in shares})}, the farthest "
+          f"{worst[0]:.2f} sigma from 1 - rate ({worst[1]}, step {worst[2]}, n {worst[5]}); "
+          f"losses captured {gl}, graph=False {el}; captures {gfn.graph.captures} [{smi}]")
+    if not same or not moved or gfn.graph.captures != 1:
+        raise AssertionError("dropout: the captured step drew other masks than the eager "
+                             "steps, or a site drew one mask at two steps")
+    if not worst[0] <= DROP_KEEP_SIGMAS:
+        raise AssertionError(f"dropout: a kept share {worst[4]:.4f} lies {worst[0]:.2f} "
+                             f"binomial sigma from {worst[3]}")
+    check_close("dropout, captured loss", torch.tensor(gl), torch.tensor(el), 0.0,
+                DDP_LOSS_RTOL)
+    return {"sites": len(em[0]), "worst_sigma": worst[0]}
+
+
+def dropout_turns(cfg, smi: str, label: str) -> dict:
+    """Turns (eager, graph, graph, eager) of ``step_turn`` on two states of
+    ``cfg``'s train step from one seeded init, batch 4: host-clock ms, busy
+    ms and the idle share a step; the port's kernels of replayed steps
+    (the trace) those of eager steps."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.train import create_train_state, make_train_step
 
-    model = VADModel(cfg.model, dtype, torch.Generator().manual_seed(0)).to(DEV).train()
-    state = create_train_state(model, cfg)
-    step_fn = make_train_step(model, cfg, steps_per_epoch=100, graph=False)
-    clips = torch.from_numpy(MemLoader(TRAIN_BATCH, 1).data[0]).to(DEV)
-    for _ in range(2):
-        step_fn(state, clips)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(DROP_TIMED_STEPS):
-        step_fn(state, clips)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / DROP_TIMED_STEPS * 1e3
-    return (step_ms, *traced_call(lambda: step_fn(state, clips))[:2])
+    init = VADModel(cfg.model, torch.bfloat16, torch.Generator().manual_seed(0))
+    clip = torch.from_numpy(MemLoader(TRAIN_BATCH, 1).data[0]).to(DEV)
+    fns = {}
+    for who, graph in (("eager", False), ("graph", None)):
+        model = copy.deepcopy(init).to(DEV).train()
+        state = create_train_state(model, cfg)
+        step_fn = make_train_step(model, cfg, steps_per_epoch=100, graph=graph)
+        for _ in range(GRAPH_CALLS):  # (the captured step's warm-ups and capture)
+            step_fn(state, clip)
+        fns[who] = (lambda f, st: lambda x: f(st, x))(step_fn, state)
+    return turn_readings(turns_against_eager(label, fns["eager"], fns["graph"], clip, smi))
 
 
 def phase_dropout(smi: str) -> dict:
     """The train-step leftovers at full width (shanghaitech, 224^2, 4-frame
-    predict): ``train()`` 2 steps at batch 4 in bf16 under ``fold`` and
-    ``base`` with ``drop_rate`` 0.1 and ``drop_path_rate`` 0.2, exactly
-    the stochastic route's kernels launched (no kernel B or 5, no
-    whole-block kernel); the fused step against the plain-attention model
-    with the same masks in fp32 (loss to 1e-4, each gradient to phase 3b's
-    bound); ``remat`` on against off in bf16 with masks drawn (each
-    gradient to the bf16 bound); one LARS step on the card's gradients
-    against the plain update in float64; the host-clock and device-busy ms
-    of the dropout step beside the rate-0 step's."""
+    predict): ``train()`` ``DROP_STEPS`` steps at batch 4 in bf16 under
+    ``fold`` and ``base`` with ``drop_rate`` 0.1 and ``drop_path_rate``
+    0.2, captured (2 eager steps and the capture, whose launches the
+    wrappers count, then a replay), exactly the stochastic route's kernels
+    launched (no kernel B or 5, no whole-block kernel); the fused step
+    against the plain-attention model with the same masks in fp32 (loss to
+    1e-4, each gradient to phase 3b's bound); turns of host-clock ms, busy
+    ms and idle share of the dropout step and the rate-0 step, eager and
+    captured, the replays' kernels those of the eager steps; under
+    ``fold``, the captured dropout step against ``graph=False`` at the same
+    steps (``captured_masks_match_eager``: every mask bit for bit, another
+    mask at each step, the kept shares within a binomial bound); ``remat``
+    on against off in bf16 with masks drawn (each gradient to the bf16
+    bound); one LARS step on the card's gradients against the plain update
+    in float64."""
     from vadcl_tpu_torch.models import VADModel
     from vadcl_tpu_torch.models.layers import (
         DROPOUT_SEED_OFFSET,
@@ -5682,7 +5870,7 @@ def phase_dropout(smi: str) -> dict:
             attn = sorted(DROP_KERNELS[kernel] - {"cluster_assign", "space_cluster_loss"})
             out[f"dropout training {kernel}"] = read_launches(
                 DROP_KERNELS[kernel], f"dropout training, {kernel}",
-                {k: 18 * DROP_STEPS for k in attn}, heads=DROP_STEPS)
+                {k: 18 * GRAPH_CALLS for k in attn}, heads=GRAPH_CALLS)
             check_partitions(f"dropout training, {kernel}", parts[0], 0)
             losses = np.load(os.path.join(tmp, "loss_record", "loss.npy"))
             print(f"  losses {[round(float(v), 4) for v in losses]}")
@@ -5712,20 +5900,24 @@ def phase_dropout(smi: str) -> dict:
             raise AssertionError(f"{kernel}: {worst[1]}'s gradient exceeds the bound")
         del fused, plain, got, want
 
-        print(f"[11] step time with masks drawn against rate 0, {kernel}, bf16, batch "
-              f"{TRAIN_BATCH}")
-        times = {}
-        for label, c in (("rate 0", flagship_train_config(kernel)), ("dropout", cfg)):
-            times[label] = _step_times(c, torch.bfloat16)
-            print(f"  {label}: {times[label][0]:.1f} ms a step (host clock, "
-                  f"{DROP_TIMED_STEPS} untraced steps), one traced step {times[label][1]:.1f} ms "
-                  f"device busy, {times[label][2]} host aten ops [{smi}]")
+        print(f"[11] the step with masks drawn against rate 0, {kernel}, bf16, batch "
+              f"{TRAIN_BATCH}: turns of graph=False and captured steps")
+        times = {label: dropout_turns(c, smi, f"{kernel}, {label}") for label, c in (
+            ("rate 0", flagship_train_config(kernel)), ("dropout", cfg))}
+        if kernel == "fold":
+            print(f"[11] fold, bf16, masks drawn: {CAPTURED_TRAIN_STEPS} steps captured "
+                  "against graph=False, every mask recorded")
+            times["masks"] = captured_masks_match_eager(cfg, smi)
         keys = DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, 0, 0, TRAIN_BATCH)
         for shape in ((TRAIN_BATCH, 1, 1, 1, 1), (TRAIN_BATCH, 2, 56, 56, 384)):
             with drop_keys(keys):
                 draw_ms = cuda_ms(lambda: keep_mask("site", shape, 0.9, DEV), batch=20)
-            print(f"  one mask draw of {shape}: {draw_ms * 1e3:.1f} us (CUDA events around 20 "
-                  "draws back to back)")
+                if not torch.equal(keep_mask("site", shape, 0.9, DEV).cpu(),
+                                   keep_mask("site", shape, 0.9, "cpu")):
+                    raise AssertionError(f"the mask draw of {shape}: the card's bits are not "
+                                         "the CPU's")
+            print(f"  one mask draw of {shape}, the CPU's bits: {draw_ms * 1e3:.1f} us (CUDA "
+                  "events around 20 draws back to back)")
         out[kernel] = times
 
     print("[11] remat on against off, fold, bf16, masks drawn: loss and gradients; then one "

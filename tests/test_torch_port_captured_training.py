@@ -4,27 +4,12 @@ gates and the non-finite guard on the device (``train/optim.py``), on the
 CPU at the tiny preset.
 
 Nothing is captured on the CPU (a CUDA graph lives on the card), so the
-captured step runs here with its capture step replaced by ``GraphDouble``,
-which behaves as a CUDA graph does where it matters:
-
-* its capture records the call's operators (``TorchDispatchMode``, below
-  autograd, so the backward's and the optimizer's too) and changes no
-  value: every tensor that existed before the capture and that it wrote in
-  place gets its value back (through ``.data``, which leaves ``_version``
-  where the capture moved it, as a real capture does);
-* its replay runs the recorded operators again, with every argument they
-  took from before the capture read by reference (a graph's address) and
-  every scalar as recorded (a graph's baked constant), no Python in
-  between, and leaves every ``_version`` where it was, as a real replay
-  does.  So a value the step computed on the host would stay the
-  capture's, and a cache keyed on ``_version`` would go stale unless the
-  step bumps the versions itself;
-* an operator that reads a value on the host (``.item()``, ``bool()`` of
-  a tensor) inside the capture raises, as it would on the card.
-
-(``tests/test_torch_port_captured_scoring.py``'s double replays by calling
-the function again, which bumps the versions and would hide a stale
-cache.)
+captured step runs here with its capture step replaced by
+``tests/graph_double.py:GraphDouble``, which behaves as a CUDA graph does
+where it matters (its docstring): a replay runs the recorded operators
+with no Python in between, reads what existed before the capture by
+reference and leaves every ``_version`` where it was.  The steps split
+over gloo processes run it in ``tests/torch_dist_worker.py``.
 """
 
 import copy
@@ -33,9 +18,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten, tree_map
 
+from graph_double import GraphDouble
 from test_torch_port_captured_scoring import RecordingCapture
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_port_train import (  # noqa: F401  (jax_variables is a fixture)
@@ -55,71 +39,6 @@ from vadcl_tpu_torch.train import (
     train,
 )
 from vadcl_tpu_torch.utils import graphs
-
-_HOST_READS = {torch.ops.aten._local_scalar_dense.default, torch.ops.aten.is_nonzero.default,
-               torch.ops.aten.equal.default}
-
-
-class _Ops(TorchDispatchMode):
-    """Records every operator a block runs; snapshots the value of each
-    tensor from before the block at its first in-place write."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops, self.made, self.saved = [], set(), {}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func in _HOST_READS:
-            raise RuntimeError(f"the captured step reads a value on the host ({func})")
-        for i, arg in enumerate(func._schema.arguments):
-            if arg.alias_info is not None and arg.alias_info.is_write:
-                value = args[i] if i < len(args) else kwargs.get(arg.name)
-                for t in tree_flatten(value)[0]:
-                    if (isinstance(t, torch.Tensor) and id(t) not in self.made
-                            and id(t) not in self.saved):
-                        self.saved[id(t)] = (t, t.detach().clone())
-        out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, out))
-        self.made.update(id(t) for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor))
-        return out
-
-
-class GraphDouble:
-    """The capture step's double (module docstring)."""
-
-    def __init__(self):
-        self.captures = self.replays = 0
-
-    def __call__(self, fn, static, recording):
-        self.captures += 1
-        rec = _Ops()
-        with recording, rec:
-            outputs = fn(*static)
-        for t, value in rec.saved.values():  # a capture runs no kernel
-            t.data.copy_(value)
-        before = [t for t, _ in rec.saved.values()]
-
-        def replay():
-            self.replays += 1
-            versions = [t._version for t in before]
-            env = {}
-
-            def sub(x):
-                return env.get(id(x), x) if isinstance(x, torch.Tensor) else x
-
-            with torch.no_grad():
-                for func, args, kwargs, out in rec.ops:
-                    got = func(*tree_map(sub, args), **tree_map(sub, kwargs))
-                    for o, g in zip(tree_flatten(out)[0], tree_flatten(got)[0]):
-                        if isinstance(o, torch.Tensor):
-                            env[id(o)] = g
-                for o in tree_flatten(outputs)[0]:
-                    if isinstance(o, torch.Tensor) and env.get(id(o)) is not o:
-                        o.copy_(env[id(o)])
-            torch._C._autograd._unsafe_set_version_counter(tuple(before), tuple(versions))
-
-        return replay, outputs
 
 
 # the gates, the compactness gate and an epoch's LR change all fall on
@@ -190,6 +109,9 @@ CASES = {
     "sgd": dict(optimizer="sgd"),
     "lars": dict(optimizer="lars"),
     "clip_grad": dict(clip_grad=0.5),
+    # masks drawn from the device clock: each replay its own step's (and
+    # remat's recompute the forward's)
+    "dropout-remat": dict(remat=True, drop_rate=0.1, drop_path_rate=0.2),
 }
 
 
@@ -360,18 +282,25 @@ def test_a_restore_captures_anew_and_matches_eager():
 
 
 def test_routing_and_refusals():
-    """The CPU runs the step eagerly by default and refuses ``graph=True``;
-    a configuration that draws dropout masks or runs under a mesh refuses
-    ``graph=True`` on any device, and runs eagerly by default."""
+    """The CPU runs the step eagerly by default and refuses ``graph=True``
+    for its device alone; no configuration is eager by nature any more: a
+    step that draws dropout masks, or one under a mesh and model axis, is
+    captured wherever a capture step is (here the double), and only
+    ``debug_nans`` runs eagerly, refusing ``graph=True``."""
+    from vadcl_tpu_torch.core.mesh import Mesh2D
+
     cfg = _cfg()
     model = _state(cfg).model
     assert make_train_step(model, cfg, EPOCH_STEPS).graph is None
     with pytest.raises(ValueError, match="CUDA device"):
         make_train_step(model, cfg, EPOCH_STEPS, graph=True)
-    drop = cfg.replace(model=dataclasses.replace(cfg.model, drop_rate=0.1))
-    with pytest.raises(ValueError, match="dropout"):
-        make_train_step(model, drop, EPOCH_STEPS, graph=True)
+    drop = cfg.replace(model=dataclasses.replace(cfg.model, drop_rate=0.1, drop_path_rate=0.1))
     assert make_train_step(model, drop, EPOCH_STEPS).graph is None
+    with pytest.raises(ValueError, match="CUDA device"):
+        make_train_step(model, drop, EPOCH_STEPS, graph=True)
+    for c, kw in ((drop, {}), (cfg, dict(mesh=Mesh2D(1, 1), model_axis="model"))):
+        assert make_train_step(model, c, EPOCH_STEPS, capture=GraphDouble(), **kw).graph \
+            is not None
     with pytest.raises(ValueError, match="debug_nans"):
         train(cfg, _NanLoader(cfg, 2, 0), device="cpu", debug_nans=True, graph=True)
 

@@ -35,7 +35,10 @@ other half's batch sums.
 
 The reference's semantics (each rank's own loss, averaged gradients) lands
 0.30 (losses), 0.58 (moments) and 0.31 (parameters, norm ratio) away:
-outside these bounds by three orders of magnitude and more.  Against the
+outside these bounds by three orders of magnitude and more.  The same two
+ranks captured (``tests/graph_double.py``: two eager steps, then a capture
+and its replay, every collective of the step inside the replay) equal
+their eager run bit for bit, and so hold to the same bounds.  Against the
 JAX step: the bounds of ``test_torch_port_train_steps.py`` (loss rtol
 1e-4, the final-parameter Adam bound).  Distributed AUCs equal the
 one-process ones to 1e-12.
@@ -60,7 +63,7 @@ from vadcl_tpu_torch.utils.parity import key_bias
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_port_train import LR, _configs, _port_model, jax_variables  # noqa: F401
 from test_torch_port_train_steps import _assert_params_close
-from torch_dist_worker import run_half_batches, run_steps
+from torch_dist_worker import STEPS_CAPTURED, run_half_batches, run_steps
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
 from vadcl_tpu.train.checkpoint import flatten_state
@@ -72,6 +75,7 @@ from vadcl_tpu.train.step import make_train_step as jax_make_train_step
 from vadcl_tpu_torch.convert import load_state_dict_strict, state_dict_from_jax
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.models import VADModel
+from vadcl_tpu_torch.utils.graphs import WARMUP_CALLS
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
 LAUNCH_TIMEOUT = 240  # seconds for every process of one launch
@@ -143,11 +147,12 @@ def _rel_err(got, want) -> float:
     return float(np.max(np.abs(got - want) / np.max(np.abs(want), axis=0)))
 
 
-def _worst(run, ref) -> dict:
+def _worst(run, ref, apart=None) -> dict:
     """``run`` against ``ref``: the largest relative error of the loss
     terms, of the Adam moments and of the parameters (max |diff| over max
     |ref|, and the norm ratio), the key biases apart, and the largest
-    difference of a key-bias parameter."""
+    difference of a key-bias parameter.  ``apart`` (a parameter's name to
+    a bool mask) leaves more elements out of the parameter measures."""
     out = {"loss": _rel_err(run["losses"], ref["losses"]), "moments": 0.0, "params": 0.0,
            "params_norm": 0.0, "key_bias": 0.0}
     assert ref["moments"].keys() == run["moments"].keys() == ref["params"].keys()
@@ -156,9 +161,11 @@ def _worst(run, ref) -> dict:
         for got, want in zip(run["moments"][k], ref["moments"][k]):
             out["moments"] = max(out["moments"], _rel_err(got[~key], want[~key]))
         diff = run["params"][k] - p_ref
-        out["params"] = max(out["params"], _rel_err(run["params"][k][~key], p_ref[~key]))
-        out["params_norm"] = max(out["params_norm"],
-                                 float(diff[~key].norm() / p_ref[~key].norm()))
+        held = ~key if apart is None else ~key & ~apart[k]
+        if held.any():
+            out["params"] = max(out["params"], _rel_err(run["params"][k][held], p_ref[held]))
+            out["params_norm"] = max(out["params_norm"],
+                                     float(diff[held].norm() / p_ref[held].norm()))
         if key.any():
             out["key_bias"] = max(out["key_bias"], float(diff[key].abs().max()))
     return out
@@ -201,6 +208,54 @@ def test_two_ranks_match_the_half_batch_control(two_ranks, half_batches, one_pro
     control = _worst(half_batches, one_process)
     _assert_one_process_bounds(control)
     assert control["moments"] > LOSS_REL and control["params"] > LOSS_REL, control
+
+
+def assert_same_run(got, want, replays, per_replay) -> None:
+    """A captured run (``torch_dist_worker.run_captured``) against the
+    eager run of the same steps: one capture, ``replays`` replays, each
+    running ``per_replay`` collectives; the losses, the Adam moments, every
+    parameter (and a memory family's bank after each step) bit for bit."""
+    assert got["captures"] == 1 and got["replays"] == replays
+    assert got["collectives"] == per_replay * replays
+    assert got["losses"] == want["losses"]
+    assert got["params"].keys() == want["params"].keys()
+    for k, p in want["params"].items():
+        assert torch.equal(got["params"][k], p), k
+    for k, pair in want["moments"].items():
+        assert all(torch.equal(a, b) for a, b in zip(got["moments"][k], pair)), k
+    for a, b in zip(got.get("banks", []), want.get("banks", [])):
+        assert torch.equal(a, b)
+
+
+# a replayed 2-rank flagship step's collectives: the three loss sums and the
+# one gradient sum (every parameter fp32: one buffer)
+STEP_COLLECTIVES = 4
+
+
+def test_two_ranks_captured_step_equals_eager_bit_for_bit(two_ranks):
+    """The 2-rank step captured: its replay's collectives (the loss sums
+    before the roots, the gradients' one sum) run inside it, and each rank
+    ends on its eager run's losses, moments and parameters bit for bit."""
+    assert STEPS == STEPS_CAPTURED
+    for rank in two_ranks:
+        assert_same_run(rank["captured"], rank["global"], STEPS - WARMUP_CALLS, STEP_COLLECTIVES)
+
+
+def test_two_ranks_captured_step_matches_one_process_and_jax(two_ranks, one_process,
+                                                              jax_three_steps, jax_variables,
+                                                              step_inputs):
+    """The captured 2-rank run held, as the eager one is, to one process at
+    batch 4 (the module docstring's bounds) and to the JAX step's three
+    steps (loss rtol 1e-4, the final-parameter Adam bound)."""
+    losses, jax_params = jax_three_steps
+    init = flatten_state({"params": jax_variables["params"]})
+    for rank in two_ranks:
+        run = rank["captured"]
+        _assert_one_process_bounds(_worst(run, one_process))
+        np.testing.assert_allclose([l[0] for l in run["losses"]], losses, rtol=1e-4)
+        model = VADModel(step_inputs["cfg"].model, torch.float32)
+        model.load_state_dict(run["params"], strict=False)
+        _assert_params_close(model, jax_params, init, STEPS)
 
 
 def test_per_rank_loss_leaves_the_bound(two_ranks, one_process):

@@ -41,7 +41,7 @@ import torch
 
 from test_torch_port_dist import launch
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
-from torch_dist_worker import tp_step_result
+from torch_dist_worker import STEPS_CAPTURED, tp_step_result
 from vadcl_tpu.core.config import preset as jax_preset
 from vadcl_tpu.core.mesh import make_mesh_2d as jax_make_mesh_2d
 from vadcl_tpu.models.backbone import VADModel as JaxVADModel
@@ -54,7 +54,8 @@ from vadcl_tpu_torch.core.mesh import Mesh2D
 from vadcl_tpu_torch.models import VADModel
 from vadcl_tpu_torch.parallel import tp
 from vadcl_tpu_torch.train.step import create_train_state, make_train_step
-from vadcl_tpu_torch.utils.parity import key_bias
+from vadcl_tpu_torch.utils.graphs import WARMUP_CALLS
+from vadcl_tpu_torch.utils.parity import check_adam_bound, key_bias
 
 FWD_TOL, LOSS_RTOL, GRAD_REL, LR = 1e-5, 1e-5, 1e-4, 1e-3
 STEPS_PER_EPOCH = 10
@@ -175,9 +176,9 @@ STEP_CASES = {"fold": (True, "fold"), "plain": (False, "base")}
 def four_ranks(weights, tmp_path_factory):
     """One step of each case on 4 gloo ranks at (2, 2), global batch 4."""
     _, sd = weights
-    cases = {name: dict(cfg=_port_cfg(*how), state_dict=sd, clip=_clip(4, 4))
+    cases = {name: dict(cfg=_port_cfg(*how), state_dict=sd, clip=_clip(4, 4), captured=True)
              for name, how in STEP_CASES.items()}
-    cases["fold_unsummed"] = dict(cases["fold"], unsummed=True)
+    cases["fold_unsummed"] = dict(cases["fold"], unsummed=True, captured=False)
     return launch("tp_step", tmp_path_factory.mktemp("tp_step"),
                   dict(cases=cases, model=2, steps_per_epoch=STEPS_PER_EPOCH), world=4)
 
@@ -196,9 +197,10 @@ def one_process_step(weights):
 
 
 @pytest.fixture(scope="module")
-def jax_dp_tp_step(weights):
+def jax_dp_tp_steps(weights):
     """The JAX make_train_step on a (2, 2) mesh (XLA path, heads and hidden
-    sharded by GSPMD): the loss and the parameters after one step."""
+    sharded by GSPMD), ``STEPS_CAPTURED`` steps on the same clip: each
+    step's loss and the parameters after it."""
     jcfg = jax_preset("tiny")
     jcfg = jcfg.replace(model=_model_cfgs(False)[0],
                         optim=dataclasses.replace(jcfg.optim, lr=LR, epochs=10,
@@ -210,8 +212,17 @@ def jax_dp_tp_step(weights):
     state = state._replace(params=variables["params"])
     step = jax_make_train_step(model, jcfg, tx, STEPS_PER_EPOCH,
                                mesh=jax_make_mesh_2d(2, 2), model_axis="model")
-    s, m = step(state, clip)
-    return float(m.loss), flatten_state({"params": s.params})
+    out = []
+    for _ in range(STEPS_CAPTURED):
+        state, m = step(state, clip)
+        out.append((float(m.loss), flatten_state({"params": state.params})))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_dp_tp_step(jax_dp_tp_steps):
+    """The JAX dp x tp step's first step: its loss and the parameters after it."""
+    return jax_dp_tp_steps[0]
 
 
 def _grad_err(got, want) -> float:
@@ -270,6 +281,49 @@ def test_four_ranks_step_matches_jax_dp_tp(four_ranks, jax_dp_tp_step, name):
         for k, w in params.items():
             np.testing.assert_allclose(got[k], np.asarray(w), rtol=0, atol=2.5 * LR,
                                        err_msg=k)
+
+
+# a replayed dp2 x tp2 step's collectives on each rank: the three loss sums
+# over the data group, then per case the model group's all-gathers and
+# partial sums in the forward and all-reduces of the replicated inputs'
+# gradients in the backward, and last the gradients' broadcast over the
+# model group and sum over the data group (every parameter fp32: one buffer)
+TP_STEP_COLLECTIVES = {"fold": 56, "plain": 60}
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_four_ranks_captured_step_equals_eager_bit_for_bit(four_ranks, name):
+    """dp2 x tp2 captured (``tests/graph_double.py``: two eager steps, then a
+    capture and its replay, the model group's all-gathers, partial sums and
+    gradient all-reduces, the loss sums and the gradients' exchange inside
+    the replay): each rank ends on its eager run's losses, Adam moments and
+    parameters bit for bit."""
+    for rank in four_ranks:
+        got, want = rank[f"{name}_steps"]["captured"], rank[f"{name}_steps"]["eager"]
+        assert got["captures"] == 1 and got["replays"] == STEPS_CAPTURED - WARMUP_CALLS
+        assert got["collectives"] == TP_STEP_COLLECTIVES[name] * got["replays"]
+        assert got["losses"] == want["losses"] and got["loss"] == want["loss"]
+        for k, p in want["params"].items():
+            assert torch.equal(got["params"][k], p), k
+            if k in want["moments"]:
+                assert torch.equal(got["moments"][k], want["moments"][k]), k
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_four_ranks_captured_steps_match_jax_dp_tp(four_ranks, jax_dp_tp_steps, name):
+    """The captured dp2 x tp2 run against the JAX dp x tp step's
+    ``STEPS_CAPTURED`` steps: every step's loss rtol 1e-5, the parameters
+    within the repo's Adam bound for that many steps (``check_adam_bound``:
+    2.5 lr a step, one step's bound above; the key third of each
+    ``qkv_bias``, rounding noise in both runs, 2 lr a step)."""
+    want = state_dict_from_jax({k: np.asarray(w) for k, w in jax_dp_tp_steps[-1][1].items()},
+                               predict=True)
+    for rank in four_ranks:
+        got = rank[f"{name}_steps"]["captured"]
+        np.testing.assert_allclose(got["losses"], [l for l, _ in jax_dp_tp_steps],
+                                   rtol=LOSS_RTOL)
+        check_adam_bound("captured dp x tp against JAX", got["params"], want, LR,
+                         STEPS_CAPTURED)
 
 
 def test_guards_use_the_jax_words():

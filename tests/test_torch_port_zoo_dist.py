@@ -16,7 +16,11 @@ GELU flagship): this ReLU decoder's activations at init are ~1e-6, and
 the reordered sums move a few pre-activations of ~1e-12 across a kink,
 which moves whole gradient tensors by ~1e-3 (measured 6.2e-4 moments,
 1.0e-3 parameters).  The control: each rank's bank update over its own
-shard alone (the losses still global) leaves the bank bound.
+shard alone (the losses still global) leaves the bank bound.  The same
+two ranks captured (``tests/graph_double.py``: two eager steps, then a
+capture and its replay, the bank's maxima and sums all-reduced inside the
+replay) equal their eager run bit for bit, the bank after every step
+included.
 """
 
 import dataclasses
@@ -25,11 +29,12 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_dist import launch
+from test_torch_port_dist import assert_same_run, launch
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 from torch_dist_worker import run_steps
 from vadcl_tpu_torch.core.config import preset
 from vadcl_tpu_torch.models import VADModel
+from vadcl_tpu_torch.utils.graphs import WARMUP_CALLS
 from vadcl_tpu_torch.utils.parity import check_adam_bound
 
 BANK_ATOL, LOSS_RTOL = 1e-5, 1e-5
@@ -86,3 +91,20 @@ def test_per_rank_bank_update_leaves_the_bound(two_ranks, one_process):
     r0, r1 = (r["per_rank_bank"] for r in two_ranks)
     assert _bank_gap(r0, one_process) > 100 * BANK_ATOL
     assert _bank_gap(r0, r1) > 100 * BANK_ATOL
+
+
+# a replayed 2-rank convae step's collectives: the pixel loss's sum, the
+# memory losses' two sums and two counts, the update's sum of exponentials,
+# w.T @ q and two maxima, and the one gradient sum
+MEMORY_STEP_COLLECTIVES = 10
+
+
+def test_two_ranks_captured_bank_equals_eager_bit_for_bit(two_ranks, one_process):
+    """The 2-rank convae step captured: the bank's reductions and the
+    gradient sum inside the replay; each rank ends on its eager run's
+    losses, moments, parameters and bank after every step bit for bit, so
+    within the bank bound of one process."""
+    for rank in two_ranks:
+        assert_same_run(rank["captured"], rank["global"], STEPS - WARMUP_CALLS,
+                        MEMORY_STEP_COLLECTIVES)
+        assert _bank_gap(rank["captured"], one_process) <= BANK_ATOL

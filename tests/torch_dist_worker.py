@@ -9,25 +9,31 @@ test wrote to ``<workdir>/inputs.pt``; it writes what the test checks to
 ``<workdir>/<mode>_rank<rank>.pt`` and exits 0, or raises.
 
 * ``step``: ``make_train_step`` on this rank's shard of each global batch,
-  three steps; then the same from the same weights with the reference's
-  semantics (each rank's own loss, DDP's averaged gradients).
+  three steps; the same steps captured (``graph_double.GraphDouble``: two
+  eager steps, then a capture and its replay, the collectives inside);
+  then the same from the same weights with the reference's semantics (each
+  rank's own loss, the gradients averaged as DDP's default does).
 * ``train``: ``train()`` uninterrupted for two epochs, then the same run
   stopped after three steps and resumed; rank 1 records every write it
   makes below the workdir (it must make none).
 * ``eval``: ``cross_host_gather_ragged`` (rank 1 holds no rows),
   ``cross_host_concat`` and ``evaluate_videos_distributed``.
-* ``dropout_step``: ``step``'s first half alone, for a model that draws
-  dropout and drop-path masks (each rank draws its own samples' masks).
+* ``dropout_step``: ``step``'s first two runs, eager and captured, for a
+  model that draws dropout and drop-path masks (each rank draws its own
+  samples' masks).
 * ``memory_step``: ``step`` for a memory family (``convae``): three steps
-  on this rank's shard, the bank after each; then the same with each
-  rank's bank update over its own shard alone (the losses still global).
+  on this rank's shard, the bank after each, eager and captured; then the
+  same with each rank's bank update over its own shard alone (the losses
+  still global).
 * ``tp_forward``: tensor parallelism at (1, world): each case's forward
   under ``model_parallel`` on the whole batch, with the number of split
-  calls that gathered rows and summed partials; then ``same_gradients`` of
-  gradients that differ by rank.
+  calls that gathered rows and summed partials; then the model group's
+  ``GradientExchange`` of gradients that differ by rank.
 * ``tp_step``: tensor parallelism at (world / model, model): one
   ``make_train_step(mesh=, model_axis="model")`` step a case on this
-  rank's data shard of the global batch.
+  rank's data shard of the global batch; for the cases marked
+  ``captured``, that step is the first of ``STEPS_CAPTURED`` eager ones,
+  and the same steps run captured.
 """
 
 import datetime
@@ -46,8 +52,10 @@ from vadcl_tpu_torch.models import VADModel  # noqa: E402
 from vadcl_tpu_torch.models import memory as memory_mod  # noqa: E402
 from vadcl_tpu_torch.models.backbone import MEMORY_BACKBONES, model_input_frames  # noqa: E402
 from vadcl_tpu_torch.train import step as step_mod  # noqa: E402
+from graph_double import GraphDouble  # noqa: E402
 
 GROUP_TIMEOUT = datetime.timedelta(seconds=90)
+STEPS_CAPTURED = 3  # two eager steps, then the capture and its replay
 
 
 def shard(batch, rank, world):
@@ -56,15 +64,23 @@ def shard(batch, rank, world):
     return batch[rank * per:(rank + 1) * per]
 
 
-def run_steps(inputs, rank, world):
+def run_steps(inputs, rank, world, capture=None, dtype=torch.float32, grads=False):
+    """The steps on this rank's shard of each clip, through ``capture``
+    (a ``GraphDouble``) where one is given, with the model in ``dtype``;
+    with ``grads``, each step's gradients too, as its backward left them."""
     cfg = inputs["cfg"]
-    model = VADModel(cfg.model, torch.float32,
+    model = VADModel(cfg.model, dtype,
                      input_frames=model_input_frames(cfg.model.backbone, cfg.data.frame_num))
     model.load_state_dict(inputs["state_dict"])
     state = step_mod.create_train_state(model, cfg)
-    step_fn = step_mod.make_train_step(model, cfg, inputs["steps_per_epoch"])
-    losses, banks = [], []
+    step_fn = step_mod.make_train_step(model, cfg, inputs["steps_per_epoch"], capture=capture)
+    losses, banks, seen = [], [], []
+    if grads:
+        for k, p in model.named_parameters():
+            p.register_post_accumulate_grad_hook(
+                lambda p, k=k: seen[-1].__setitem__(k, p.grad.detach().clone()))
     for clip in inputs["clips"]:
+        seen.append({})
         m = step_fn(state, torch.from_numpy(shard(clip, rank, world)))
         losses.append([float(m.loss), float(m.loss_pixel), float(m.cluster_loss),
                        float(m.space_loss)])
@@ -79,7 +95,16 @@ def run_steps(inputs, rank, world):
     )
     if banks:
         out["banks"] = banks
+    if grads:
+        out["grads"] = seen
+    if capture is not None:
+        out.update(replays=capture.replays, collectives=capture.collectives,
+                   captures=capture.captures)
     return out
+
+
+def run_captured(inputs, rank, world):
+    return run_steps(inputs, rank, world, capture=GraphDouble())
 
 
 def run_half_batches(inputs):
@@ -89,7 +114,8 @@ def run_half_batches(inputs):
     half's loss adds the other half's batch sums (from a first pass over
     each half whose graph is dropped) where two ranks would all-reduce
     them.  It does the arithmetic of two ranks at half batch in the order
-    they do it."""
+    they do it; each half draws the dropout masks its rank would (data
+    index 0 or 1 of 2)."""
     real_make, real_sum = step_mod.make_loss_fn, step_mod.global_sum
     other = {"sums": None}
     seen = []
@@ -98,21 +124,21 @@ def run_half_batches(inputs):
         seen.append(t.detach())
         return t if other["sums"] is None else t + other["sums"].pop(0)
 
-    def make_loss_fn(model, cfg, return_recon=False, **kw):
-        loss_fn = real_make(model, cfg, return_recon, **kw)
+    def make_loss_fn(model, cfg, return_recon=False):
+        fns = [real_make(model, cfg, return_recon, data_index=i, data_size=2) for i in (0, 1)]
 
         def halves(clip, step):
             a, b = clip[:len(clip) // 2], clip[len(clip) // 2:]
             own = []
-            for half in (a, b):
+            for fn, half in zip(fns, (a, b)):
                 other["sums"] = None
                 seen.clear()
-                loss_fn(half, step)
+                fn(half, step)
                 own.append(list(seen))
             other["sums"] = own[1]
-            loss_fn(a, step)[0].backward()
+            fns[0](a, step)[0].backward()
             other["sums"] = own[0]
-            return loss_fn(b, step)  # the step's own backward adds b's gradients
+            return fns[1](b, step)  # the step's own backward adds b's gradients
 
         return halves
 
@@ -124,17 +150,24 @@ def run_half_batches(inputs):
 
 
 def mode_step(inputs, rank, world):
-    out = {"global": run_steps(inputs, rank, world)}
-    # the reference's semantics: per-rank losses, gradients averaged by DDP
+    out = {"global": run_steps(inputs, rank, world),
+           "captured": run_captured(inputs, rank, world)}
+    # the reference's semantics: per-rank losses, gradients averaged (DDP's
+    # default)
     step_mod.global_sum = lambda t, group=None: t
-    step_mod.data_parallel = lambda m: torch.nn.parallel.DistributedDataParallel(
-        m, broadcast_buffers=False)
+
+    def averaged(flat, group):
+        dist.all_reduce(flat, group=group)
+        flat.div_(world)
+
+    step_mod.sum_gradients = averaged
     out["per_rank"] = run_steps(inputs, rank, world)
     return out
 
 
 def mode_memory_step(inputs, rank, world):
-    out = {"global": run_steps(inputs, rank, world)}
+    out = {"global": run_steps(inputs, rank, world),
+           "captured": run_captured(inputs, rank, world)}
     real = memory_mod.memory_update
 
     def own_shard(query, keys, global_sum=None, global_max=None):
@@ -270,11 +303,11 @@ def mode_tp_forward(inputs, rank, world):
             o = model(torch.from_numpy(case["clip"]))
         out[name] = dict(recon=o.recon.clone(), cluster_loss=o.cluster_loss.clone(),
                          space_loss=o.space_loss.clone(), calls=dict(calls))
-    # same_gradients: every process ends on the model group's first one's
+    # the model group's gradients: every process ends on the group's first one's
     params = [torch.nn.Parameter(torch.zeros(3, 2)), torch.nn.Parameter(torch.zeros(5))]
     for i, p in enumerate(params):
         p.grad = torch.full_like(p, 10.0 * rank + i)
-    step_mod.same_gradients(params, mesh.group("model"))
+    step_mod.GradientExchange(params, model_group=mesh.group("model"))()
     out["same_gradients"] = [p.grad.clone() for p in params]
     return out
 
@@ -290,6 +323,27 @@ def tp_step_result(model, state, m):
                          if p in opt})
 
 
+def _tp_steps(case, mesh, inputs, clip, steps, capture=None):
+    """``steps`` steps of a case on ``clip`` (through ``capture`` where one
+    is given): the first step's ``tp_step_result``, and the last one's
+    with every step's losses and the double's counts."""
+    cfg, model = _tp_model(case)
+    state = step_mod.create_train_state(model, cfg)
+    step_fn = step_mod.make_train_step(model, cfg, inputs["steps_per_epoch"], mesh=mesh,
+                                       model_axis="model", capture=capture)
+    losses = []
+    for i in range(steps):
+        m = step_fn(state, clip)
+        losses.append(float(m.loss))
+        if i == 0:
+            first = tp_step_result(model, state, m)
+    last = dict(tp_step_result(model, state, m), losses=losses)
+    if capture is not None:
+        last.update(replays=capture.replays, collectives=capture.collectives,
+                    captures=capture.captures)
+    return first, last
+
+
 def mode_tp_step(inputs, rank, world):
     from vadcl_tpu_torch.core.mesh import make_mesh_2d
     from vadcl_tpu_torch.parallel import tp
@@ -302,13 +356,14 @@ def mode_tp_step(inputs, rank, world):
     for name, case in inputs["cases"].items():
         if case.get("unsummed"):  # the control: no gradient sum over the model group
             tp._Replicate.apply = lambda t, group: t
-        cfg, model = _tp_model(case)
-        state = step_mod.create_train_state(model, cfg)
-        step_fn = step_mod.make_train_step(model, cfg, inputs["steps_per_epoch"], mesh=mesh,
-                                           model_axis="model")
-        m = step_fn(state, torch.from_numpy(shard(case["clip"], data, shards)))
+        clip = torch.from_numpy(shard(case["clip"], data, shards))
+        if case.get("captured"):  # STEPS_CAPTURED steps, eager and captured
+            out[name], eager = _tp_steps(case, mesh, inputs, clip, STEPS_CAPTURED)
+            out[f"{name}_steps"] = {"eager": eager, "captured": _tp_steps(
+                case, mesh, inputs, clip, STEPS_CAPTURED, GraphDouble())[1]}
+        else:
+            out[name] = _tp_steps(case, mesh, inputs, clip, 1)[0]
         tp._Replicate.apply = replicate
-        out[name] = tp_step_result(model, state, m)
     return out
 
 
@@ -326,7 +381,8 @@ def main():
         elif mode == "eval":
             out = mode_eval(inputs, rank, world)
         elif mode == "dropout_step":
-            out = {"global": run_steps(inputs, rank, world)}
+            out = {"global": run_steps(inputs, rank, world),
+                   "captured": run_captured(inputs, rank, world)}
         elif mode == "memory_step":
             out = mode_memory_step(inputs, rank, world)
         elif mode == "tp_forward":

@@ -12,11 +12,13 @@ is the JAX forward's ``deterministic=False`` with a ``dropout`` rng.
 Elsewhere (scoring, export, a forward outside the step) they are the
 identity.  A mask is a pure function of the step's ``DropKeys``, the
 module's site (its name in the model, ``name_draw_sites``) and the global
-index of the sample: each draw seeds its own ``torch.Generator`` and draws
-the global batch's mask, of which a process keeps its own rows.  So a
-recompute under ``torch.utils.checkpoint`` draws the same masks (whose
-``preserve_rng_state`` restores only the default generators), and a
-data-parallel rank draws the masks of its samples in one process's run.
+index of each element (the sample's global index times the elements of a
+sample, plus the element's index in it): a counter-based hash
+(splitmix64) computed by tensor operations on the mask's device, the step
+read from a device tensor where the train step gives one.  So a replayed
+CUDA graph draws its own step's masks, a recompute under
+``torch.utils.checkpoint`` draws the forward's, and a data-parallel rank
+draws the rows of one process's draw that its samples get.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import contextlib
 import contextvars
 import math
 import zlib
-from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -61,11 +63,13 @@ DROPOUT_SEED_OFFSET = 0x5EED  # the JAX step's ``key(seed + 0x5EED)``
 
 class DropKeys(NamedTuple):
     """What a step's masks derive from: ``seed`` (the run's seed plus
-    ``DROPOUT_SEED_OFFSET``), ``step``, the global index of this process's
-    first sample and the global batch size."""
+    ``DROPOUT_SEED_OFFSET``), ``step`` (a host int, or a 0-d integer tensor
+    on the masks' device, which a captured step reads at each replay), the
+    global index of this process's first sample and the global batch
+    size."""
 
     seed: int
-    step: int
+    step: Union[int, torch.Tensor]
     offset: int = 0
     global_batch: int = 0  # 0: this process's batch is the global batch
 
@@ -88,21 +92,52 @@ def current_drop_keys() -> Optional[DropKeys]:
     return _KEYS.get()
 
 
+_M64 = 0xFFFFFFFFFFFFFFFF
+_GOLDEN, _MUL1, _MUL2 = 0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
+_KEEP_BITS = 24  # a draw's uniform: the top 24 bits of its hash
+_SIGN = 1 << 63
+
+
+def _signed(w: int) -> int:
+    """A 64-bit word as the int64 that holds its bits."""
+    w &= _M64
+    return w - (1 << 64) if w >> 63 else w
+
+
+def _fmix64(h: int) -> int:
+    """splitmix64's finaliser on a host word."""
+    h = (h ^ (h >> 30)) * _MUL1 & _M64
+    h = (h ^ (h >> 27)) * _MUL2 & _M64
+    return h ^ (h >> 31)
+
+
 def _mix64(*words: int) -> int:
-    """splitmix64 over ``words``: a 63-bit generator seed."""
+    """splitmix64 over ``words`` (host ints): a 64-bit word."""
     h = 0
     for w in words:
-        h = (h ^ (w & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15 & 0xFFFFFFFFFFFFFFFF
-        h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
-        h = (h ^ (h >> 27)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
-        h ^= h >> 31
-    return h >> 1
+        h = _fmix64((h ^ (w & _M64)) + _GOLDEN & _M64)
+    return h
+
+
+def _xorshift_mul(h: torch.Tensor, n: int, mul: int) -> torch.Tensor:
+    """``(h ^ (h >>> n)) * mul`` on int64 words: torch's ``>>`` is
+    arithmetic, so the sign's copies are masked off, and the product wraps
+    as the unsigned one does."""
+    return (h ^ ((h >> n) & ((1 << (64 - n)) - 1))) * _signed(mul)
 
 
 def keep_mask(site: str, shape: Sequence[int], keep: float, device) -> torch.Tensor:
     """The bool keep mask of ``shape`` (this process's rows first) for the
     module at ``site``: rows ``offset..offset + shape[0]`` of the global
-    batch's uniform draw, kept below ``keep``."""
+    batch's draw, each element kept where the top 24 bits of its hash lie
+    below ``keep * 2^24``.  The element at global index i (the module
+    docstring) hashes as splitmix64's stream at position i from the key
+    ``fmix64(base + (step + 1) * golden)``, ``base = mix64(seed,
+    crc32(site))``: ``fmix64(i * golden + key)``.  Every operation after
+    ``base`` runs on ``device``, in int64 words: the finaliser's last
+    xorshift leaves the top 24 bits alone and is skipped, and the unsigned
+    comparison of the top bits is a signed one of the words with their sign
+    bits flipped."""
     keys = _KEYS.get()
     if keys is None:
         raise RuntimeError("keep_mask: no DropKeys; draw inside drop_keys(...)")
@@ -111,10 +146,23 @@ def keep_mask(site: str, shape: Sequence[int], keep: float, device) -> torch.Ten
     if keys.offset + b > total:
         raise ValueError(f"keep_mask: rows {keys.offset}..{keys.offset + b} of a global "
                          f"batch of {total}")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_mix64(keys.seed, keys.step, zlib.crc32(site.encode())))
-    u = torch.rand((total, *shape[1:]), generator=gen, device=device)
-    return u[keys.offset:keys.offset + b] < keep
+    step = keys.step
+    if not isinstance(step, torch.Tensor):
+        step = torch.full((), int(step), dtype=torch.int64, device=device)
+    base = _signed(_mix64(keys.seed, zlib.crc32(site.encode())))
+    key = (step.to(device=device, dtype=torch.int64) + 1) * _signed(_GOLDEN) + base
+    key = _xorshift_mul(_xorshift_mul(key, 30, _MUL1), 27, _MUL2)
+    key = key ^ ((key >> 31) & ((1 << 33) - 1))
+    per = math.prod(int(n) for n in shape[1:])
+    index = torch.arange(keys.offset * per, (keys.offset + b) * per, dtype=torch.int64,
+                         device=device)
+    h = _xorshift_mul(_xorshift_mul(torch.add(key, index, alpha=_signed(_GOLDEN)), 30, _MUL1),
+                      27, _MUL2)
+    kept = math.ceil(keep * (1 << _KEEP_BITS))  # the uniforms kept: 0 .. kept - 1
+    if kept >= 1 << _KEEP_BITS:
+        return torch.ones(tuple(shape), dtype=torch.bool, device=device)
+    below = _signed((kept << (64 - _KEEP_BITS)) ^ _SIGN)
+    return ((h ^ _signed(_SIGN)) < below).reshape(tuple(shape))
 
 
 class _Stochastic(nn.Module):

@@ -3,8 +3,9 @@
 
 Each process keeps its own shard of the batch (the loader's per-rank
 slice), so the JAX package's ``local_batch_to_global``, which assembles the
-global array from the hosts' shards, has no counterpart here:
-``DistributedDataParallel`` sums the gradients instead (``train/step.py``).
+global array from the hosts' shards, has no counterpart here: the train
+step sums the gradients over the group instead
+(``train/step.py:GradientExchange``).
 What remains is the loss's batch sums (``global_sum``), the memory bank's
 maxima over the batch (``global_max``, ``ops/memory.py``) and gathering
 eval results (``cross_host_gather_ragged``, ``cross_host_concat``).  Outside a

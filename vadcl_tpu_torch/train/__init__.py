@@ -19,7 +19,6 @@ from vadcl_tpu_torch.train.step import (
     StepMetrics,
     TrainState,
     create_train_state,
-    eager_only,
     make_loss_fn,
     make_train_step,
     normalize_clip,
@@ -38,7 +37,6 @@ __all__ = [
     "build_optimizer",
     "cosine_epoch_lr",
     "create_train_state",
-    "eager_only",
     "flatten_train_state",
     "load_train_state",
     "make_loss_fn",

@@ -124,16 +124,16 @@ def train(
     ``num_hosts`` the data size), the same on every process of its model
     group.
 
-    ``graph`` is ``make_train_step``'s: on a CUDA device the single-process
-    step is one captured CUDA graph a step unless ``graph=False`` (or the
-    configuration is one ``train.step.eager_only`` names); ``debug_nans``
-    runs eagerly (anomaly detection reads the backward's values on the
-    host), and with ``graph=True`` raises."""
+    ``graph`` is ``make_train_step``'s: on a CUDA device every step -- one
+    process, under torchrun, with a mesh and model axis, drawing dropout
+    masks -- is one captured CUDA graph a step unless ``graph=False``;
+    ``debug_nans`` runs eagerly (anomaly detection reads the backward's
+    values on the host), and with ``graph=True`` raises."""
     dev = torch.device(device)
     if debug_nans:
         if graph:
-            raise ValueError("debug_nans runs the step eagerly: anomaly detection reads "
-                             "the backward's values on the host (graph=False)")
+            raise ValueError("graph=True: debug_nans runs the step eagerly: anomaly detection "
+                             "reads the backward's values on the host (graph=False)")
         graph = False
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

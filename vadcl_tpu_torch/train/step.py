@@ -18,13 +18,14 @@ model's parameters and the optimizer's state in place (``TrainState`` holds
 both).  Like the JAX step it reads nothing back to the host: the stage
 gates are device tensors computed from a device step count, the optimizer
 gates each parameter and holds everything on a non-finite loss on the
-device (``train/optim.py``), and the metrics stay on the device.  On a
-CUDA device a single-process step is one captured CUDA graph a step, as
-the JAX step is one jitted executable (``utils/graphs.py:CapturedCall`` with ``owned``:
-the run's first two steps eager, then one capture, replayed every step);
-``graph=False`` runs the same step eagerly.  The steps that stay eager
-(``eager_only``) are those that draw dropout masks and those split over
-processes.
+device (``train/optim.py``), the dropout masks are drawn from that count
+on the device, and the metrics stay on the device.  On a CUDA device every
+step -- one process, data-parallel, split over a model axis, drawing masks
+-- is one captured CUDA graph a step, as the JAX step is one jitted
+executable (``utils/graphs.py:CapturedCall`` with ``owned``: the run's
+first two steps eager, then one capture, replayed every step; the
+collectives are captured with the rest); ``graph=False`` runs the same
+step eagerly.  Only ``train(debug_nans=True)`` stays eager.
 
 Data parallelism: inside a process group (``core/mesh.py``) every process
 runs the step on its own shard of the global batch.  The JAX step computes
@@ -34,17 +35,20 @@ before each root (``parallel.sharding.global_sum``), so every process holds
 the global loss and the gradient of it through its own shard.  The memory
 families' losses are global sums over global counts, and their bank's
 update reduces its softmax, maxima and sums over the group
-(``global_sum``, ``global_max``), so every process holds the same bank.  The model
-runs under ``DistributedDataParallel``, whose gradient all-reduce is made
-to SUM those gradients (``_sum_gradients``, a communication hook; the
-default hook averages), which gives the JAX step's global gradient.
-Outside a group the step runs exactly as a single process always has.
+(``global_sum``, ``global_max``), so every process holds the same bank.
+After the backward the gradients, laid end to end in one buffer allocated
+once (``GradientExchange``), are SUMMED over the group by one all-reduce
+(``sum_gradients``; an average would not be the JAX step's gradient), as
+XLA's psum follows the JAX step's backward; the parameters are rank 0's
+from the start (one broadcast when the step is made).  Outside a group
+the step runs exactly as a single process always has.
 
 Dropout and drop-path: with any rate above 0 the forward draws its masks
-from ``DropKeys(seed + 0x5EED, step, rank * batch, world * batch)``
+from ``DropKeys(seed + 0x5EED, clock, rank * batch, world * batch)``
 (``models/layers.py``), as the JAX step folds the step into
-``key(seed + 0x5EED)``: a mask is a function of the step, the module and
-the sample's global index, so a data-parallel rank draws the masks its
+``key(seed + 0x5EED)``: a mask is a hash of the step (the device tensor
+``clock``, so a replay draws its own step's masks), the module and the
+element's global index, so a data-parallel rank draws the masks its
 samples get in one process, and a recompute (``remat``) draws the
 forward's.  The masks are not the JAX step's bits.
 
@@ -53,11 +57,11 @@ Tensor parallelism: with ``mesh`` (``core/mesh.py:make_mesh_2d``) and
 a model group hold the same shard of the batch and split each forward and
 backward over the group (``parallel/tp.py``: the fold kernels' window rows,
 kernel B's rows, the plain path's heads and MLP hidden width); the batch
-sums, the bank's reductions and the DDP gradient sum run over the data
-group only, and the dropout masks are drawn by data index, so every
-process of a model group draws the same masks.  After the backward every
-process of a model group takes its first process's gradients
-(``same_gradients``), so all hold the same update.
+sums, the bank's reductions and the gradient sum run over the data group
+only, and the dropout masks are drawn by data index, so every process of
+a model group draws the same masks.  After the backward every process of
+a model group takes its first process's gradients (``GradientExchange``,
+in the same buffer), so all hold the same update.
 """
 
 from __future__ import annotations
@@ -69,7 +73,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.nn.parallel import DistributedDataParallel
 
 from vadcl_tpu_torch.core.config import TRAINABLE_ATTN_KERNELS, Config
 from vadcl_tpu_torch.core.mesh import is_distributed, process_count, process_index
@@ -159,14 +162,14 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False,
                  data_size: Optional[int] = None):
     """loss_fn(clip, step) -> (loss, (loss_pixel, cluster_loss, space_loss,
     recon or None)); ``step`` is the step count, a 0-d integer tensor on
-    ``clip``'s device or a host int (the host count, which a step that
-    draws dropout masks needs; the stage gates are computed from it on the
-    device either way, so no threshold is baked into a graph).  Inside a
-    process group ``clip`` is this process's shard and the losses are the
-    global batch's (the module docstring); ``model`` may be the
-    ``DistributedDataParallel`` wrapper of a ``VADModel``.  Under tensor
-    parallelism ``data_group``, ``data_index`` and ``data_size`` name the
-    data group the batch is split over (default: the whole group)."""
+    ``clip``'s device or a host int: the stage gates are computed from it on
+    the device either way, and a step that draws dropout masks hashes it
+    there, so no threshold and no mask is baked into a graph.  Inside a
+    process group
+    ``clip`` is this process's shard and the losses are the global batch's
+    (the module docstring).  Under tensor parallelism ``data_group``,
+    ``data_index`` and ``data_size`` name the data group the batch is split
+    over (default: the whole group)."""
     _check_trainable(cfg)
     sched = cfg.schedule
     # over the data group (default: the whole process group; the identity
@@ -186,8 +189,7 @@ def make_loss_fn(model: VADModel, cfg: Config, return_recon: bool = False,
         b = clip.shape[0]
         at = step if isinstance(step, torch.Tensor) else torch.full(
             (), int(step), dtype=torch.int64, device=clip.device)
-        keys = (DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, int(step), rank * b, world * b)
-                if draws else None)
+        keys = DropKeys(cfg.seed + DROPOUT_SEED_OFFSET, at, rank * b, world * b) if draws else None
         with drop_keys(keys):
             if memory:  # the bank's update over the global batch
                 out = model(inputs, global_sum=reduce, global_max=reduce_max,
@@ -222,47 +224,74 @@ def global_grad_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def _sum_gradients(process_group, bucket):
-    """DDP communication hook: all-reduce a bucket of gradients as a sum
-    (the default hook divides it by the world size)."""
-    group = process_group if process_group is not None else dist.group.WORLD
-    fut = dist.all_reduce(bucket.buffer(), group=group, async_op=True).get_future()
-    return fut.then(lambda f: f.value()[0])
+def sum_gradients(flat: torch.Tensor, group) -> None:
+    """Sum ``flat`` over ``group`` in place: one all-reduce of every
+    gradient laid end to end."""
+    dist.all_reduce(flat, group=group)
 
 
-def data_parallel(model: VADModel, group=None) -> DistributedDataParallel:
-    """``model`` under ``DistributedDataParallel``, its gradients summed
-    over ``group`` (default: the whole group; the data group under tensor
-    parallelism).  ``broadcast_buffers=False``: the buffers (relative
-    position indices) are constant, and a broadcast before every forward
-    would bump their version counters, which key the kernels' packed-weight
-    cache (``ops/packed.py``).  ``find_unused_parameters`` stays False:
-    every parameter enters the loss's graph at every step (a gated loss
-    term is multiplied by 0, not skipped; a gated parameter's gradient is
-    dropped after the all-reduce)."""
-    dev = next(model.parameters()).device
-    ddp = DistributedDataParallel(
-        model, device_ids=[dev.index] if dev.type == "cuda" else None,
-        broadcast_buffers=False, process_group=group)
-    ddp.register_comm_hook(group, _sum_gradients)
-    return ddp
+def _first_rank(group) -> int:
+    return dist.get_global_rank(group or dist.group.WORLD, 0)
 
 
-def same_gradients(params, group) -> None:
-    """Hand every process of a model ``group`` the gradients of its first
-    process (one broadcast of them all, flattened).  The parameters used in
-    a split region already hold the same summed gradient on every process;
+def _end_to_end(tensors):
+    """``tensors`` by dtype, each run with one buffer that holds them end to
+    end: a list of (tensors, buffer)."""
+    out = []
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        ts = [t for t in tensors if t.dtype == dtype]
+        out.append((ts, torch.empty(sum(t.numel() for t in ts), dtype=dtype,
+                                    device=ts[0].device)))
+    return out
+
+
+def _views(ts, flat):
+    """Views of ``flat`` shaped as ``ts``, in order."""
+    return [v.view_as(t) for t, v in zip(ts, flat.split([t.numel() for t in ts]))]
+
+
+class GradientExchange:
+    """The gradients of ``params`` laid end to end in one buffer per dtype,
+    allocated once (the same addresses at every step, as a captured step
+    needs), exchanged in place: taken from the first process of
+    ``model_group`` (a broadcast), then summed over ``data_group`` (an
+    all-reduce, ``sum_gradients``; ``dist.group.WORLD`` for the whole
+    group), each where its group is not None.  After ``__call__`` every
+    gradient is a view of its buffer.
+
+    The model group's broadcast: the parameters used in a split region
+    already hold the same summed gradient on every process of the group;
     the others each process computed alone on the same values, and cuDNN's
-    weight gradients are not bit-reproducible on the card, so without this
+    weight gradients are not bit-reproducible on the card, so without it
     the processes' parameters would drift apart by rounding, where the JAX
     package holds one replicated value."""
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+
+    def __init__(self, params, data_group=None, model_group=None):
+        self.data_group, self.model_group = data_group, model_group
+        self.buckets = _end_to_end(params)
+
+    def __call__(self) -> None:
+        for ps, flat in self.buckets:
+            torch.cat([p.grad.reshape(-1) for p in ps], out=flat)
+            if self.model_group is not None:
+                dist.broadcast(flat, src=_first_rank(self.model_group), group=self.model_group)
+            if self.data_group is not None:
+                sum_gradients(flat, self.data_group)
+            for p, g in zip(ps, _views(ps, flat)):
+                p.grad = g
+
+
+def broadcast_from_first(tensors, group=None) -> None:
+    """Every process's ``tensors`` (parameters, buffers) set to the first
+    process's of ``group`` (default: rank 0 of the whole group), as
+    ``DistributedDataParallel`` does when it is built: one broadcast a
+    dtype, of the tensors laid end to end."""
+    with torch.no_grad():
+        for ts, flat in _end_to_end([t for t in tensors if not t.is_inference()]):
+            torch.cat([t.reshape(-1) for t in ts], out=flat)
+            dist.broadcast(flat, src=_first_rank(group), group=group)
+            for t, v in zip(ts, _views(ts, flat)):
+                t.copy_(v)
 
 
 def _check_model_axis(cfg: Config, mesh, model_axis: Optional[str]) -> None:
@@ -284,18 +313,6 @@ def _check_model_axis(cfg: Config, mesh, model_axis: Optional[str]) -> None:
         )
 
 
-def eager_only(cfg: Config, mesh=None, model_axis: Optional[str] = None) -> Optional[str]:
-    """Why this configuration's step runs eagerly, or None where it can be
-    captured: a pure function of the config and the mesh."""
-    if stochastic(cfg):
-        return ("it draws dropout or drop-path masks from host generators seeded per "
-                "site and step (models/layers.py:keep_mask), which a replay would repeat")
-    if is_distributed() or mesh is not None or model_axis is not None:
-        return ("it is split over processes (DistributedDataParallel's reducer and comm "
-                "hook, same_gradients, parallel/tp.py's all-gathers)")
-    return None
-
-
 def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=None,
                     model_axis: Optional[str] = None, graph: Optional[bool] = None,
                     capture: Optional[Callable] = None
@@ -312,17 +329,18 @@ def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=Non
     Nothing is read back to the host: the metrics are device tensors.
 
     ``graph``: None captures the step on a CUDA device (one CUDA graph
-    replayed a step, ``utils/graphs.py:CapturedCall``) and runs it eagerly
-    elsewhere; False runs it eagerly; True on another device, or on a
-    configuration that ``eager_only`` names, raises.  The choice is logged
-    once, here.  ``capture`` replaces the capture step (a test's double).
+    replayed a step, ``utils/graphs.py:CapturedCall``, its collectives
+    inside) and runs it eagerly elsewhere; False runs it eagerly; True on
+    another device raises.  The choice is logged once, here.  ``capture``
+    replaces the capture step (a test's double).
 
     Inside a process group the step is data-parallel (the module
-    docstring): ``clip`` is this process's shard, the model runs under
-    ``data_parallel`` (which first broadcasts rank 0's parameters), and the
-    gradients are the global sum when ``backward`` returns, so the clipping
-    norm, the non-finite decision (the loss is the global loss) and the
-    update are the same on every process.
+    docstring): ``clip`` is this process's shard, rank 0's parameters and
+    buffers are broadcast here, and after the backward the gradients are
+    summed over the group (``GradientExchange``), so the clipping norm, the
+    non-finite decision (the loss is the global loss) and the update are the
+    same on every process.  The eager and the captured step take that one
+    route.
 
     With ``mesh`` (a ``core.mesh.Mesh2D``) and ``model_axis`` the step is
     tensor-parallel over that axis and data-parallel over the other (the
@@ -332,23 +350,22 @@ def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=Non
     _check_trainable(cfg)
     _check_model_axis(cfg, mesh, model_axis)
     device = next(model.parameters()).device
-    why = eager_only(cfg, mesh, model_axis)
-    if graph and why is not None:
-        raise ValueError(f"graph=True: this train step runs eagerly because {why}")
-    captured = capture is not None or (wants_graph(graph, device) and why is None)
+    captured = capture is not None or wants_graph(graph, device)
+    split = is_distributed() and (mesh is None or process_count() > 1)
     logging.getLogger("vadcl_torch").info(
         "train step: " + ("one captured CUDA graph a step" if captured else
-                          f"eager ({why or 'graph=False or not on a CUDA device'})"))
+                          "eager (graph=False or not on a CUDA device)")
+        + (", gradients exchanged between processes" if split else ""))
     model_group = None
     if mesh is None:
-        fwd = data_parallel(model) if is_distributed() else model
-        loss_fn = make_loss_fn(fwd, cfg, return_recon=cfg.dump_every_iters > 0)
+        loss_fn = make_loss_fn(model, cfg, return_recon=cfg.dump_every_iters > 0)
+        sum_over = dist.group.WORLD if split else None
     else:
         data_axis = next(a for a in mesh.axis_names if a != model_axis)
         group, size = mesh.group(data_axis), mesh.shape[data_axis]
-        fwd = data_parallel(model, group) if size > 1 else model
-        loss_fn = make_loss_fn(fwd, cfg, cfg.dump_every_iters > 0, group,
+        loss_fn = make_loss_fn(model, cfg, cfg.dump_every_iters > 0, group,
                                mesh.index(data_axis), size)
+        sum_over = group if size > 1 else None
         if model_axis is not None and mesh.shape[model_axis] > 1:
             model_group = mesh.group(model_axis)
     o = cfg.optim
@@ -359,7 +376,10 @@ def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=Non
     gates = param_gate_thresholds(model.named_parameters(), cfg.schedule.cluster_train_start_iter)
     thresholds = list(gates.values())
     together = [[p for p, t in zip(params, thresholds) if t == u] for u in set(thresholds)]
-    draws = stochastic(cfg)
+    exchange = None
+    if split:
+        broadcast_from_first(params + list(model.buffers()))
+        exchange = GradientExchange(params, sum_over, model_group)
     clock = torch.zeros((), dtype=torch.int64, device=device)  # the step count, on the device
     held = {}  # the optimizer the step function below updates
 
@@ -367,18 +387,18 @@ def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=Non
         """The step on the device, the capture's unit: reads ``clock`` and
         the optimizer's learning rate, writes parameters and state in
         place; returns (losses (4,), finite, recon or None)."""
-        opt, host_step = held["opt"], held["step"]
+        opt = held["opt"]
         opt.zero_grad(set_to_none=True)
         # the backward inside too: a remat block recomputes its forward there
         with model_parallel(mesh, model_axis):
-            loss, (lp, lc, ls, recon) = loss_fn(clip, host_step if draws else clock)
+            loss, (lp, lc, ls, recon) = loss_fn(clip, clock)
             loss.backward()
-        if model_group is not None:
-            same_gradients(params, model_group)
         finite = torch.isfinite(loss)
         for p in params:  # every leaf gets a gradient, as in the JAX step
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if exchange is not None:
+            exchange()
         if cfg.optim.clip_grad > 0:
             grads = [p.grad for p in params]
             scale = torch.clamp(cfg.optim.clip_grad / (global_grad_norm(grads) + 1e-6), max=1.0)
@@ -413,7 +433,7 @@ def make_train_step(model: VADModel, cfg: Config, steps_per_epoch: int, mesh=Non
         if isinstance(opt, Lars):
             opt.schedule = lars_sched
         opt.init_state(together)
-        held.update(opt=opt, step=state.step)
+        held.update(opt=opt)
         with torch.no_grad():
             clock.fill_(state.step)
         lr = lr_sched(state.step)

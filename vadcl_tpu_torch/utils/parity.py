@@ -145,12 +145,17 @@ def check_bank(label: str, got, want, slots_got, slots_want, gap,
 
 
 @contextlib.contextmanager
-def recording_bank_updates():
+def recording_bank_updates(on_device: bool = False):
     """While open, records every memory-bank update
     (``models.memory.memory_update``, as the train step calls it): the
-    query (fp32, flattened) and bank it was given and the bank it returned,
-    all on the CPU, and the top-1 slot of each query and the gap of its two
-    best scores, computed where the update ran.  Yields the list."""
+    top-1 slot of each query and the gap of its two best scores, computed
+    where the update ran, and the bank it returned; with them the query
+    (fp32, flattened) and bank it was given, all on the CPU.  With
+    ``on_device`` only the slots, gaps and new bank are kept, on the device
+    and read nothing on the host, so that a captured train step may keep
+    them: the capture's entry holds the graph's tensors, which each replay
+    rewrites (copy the last after each step: ``last_update``).  Yields the
+    list of dicts."""
     from vadcl_tpu_torch.models import memory
 
     calls, real = [], memory.memory_update
@@ -158,9 +163,12 @@ def recording_bank_updates():
     def recorded(query, keys, global_sum=None, global_max=None):
         out = real(query, keys, global_sum, global_max)
         slots, gap = top1_slots(query.detach(), keys)
-        calls.append(dict(query=query.detach().float().reshape(-1, keys.shape[-1]).cpu(),
-                          keys=keys.detach().cpu(), new=out.detach().cpu(), slots=slots.cpu(),
-                          gap=gap.cpu()))
+        call = dict(slots=slots, gap=gap, new=out.detach())
+        if not on_device:
+            call = {k: v.cpu() for k, v in call.items()}
+            call.update(query=query.detach().float().reshape(-1, keys.shape[-1]).cpu(),
+                        keys=keys.detach().cpu())
+        calls.append(call)
         return out
 
     memory.memory_update = recorded
@@ -168,3 +176,9 @@ def recording_bank_updates():
         yield calls
     finally:
         memory.memory_update = real
+
+
+def last_update(calls) -> Dict[str, torch.Tensor]:
+    """The last update ``recording_bank_updates`` recorded, copied to the
+    host."""
+    return {k: t.cpu() for k, t in calls[-1].items()}
